@@ -1,0 +1,52 @@
+"""Carry state from the JAX package to this port.
+
+The JAX side's values come in as numpy arrays and plain attributes
+(``np.asarray(x)``, ``pm.Nmesh``, ``cosmology.Om0`` ...), so this
+module imports only numpy and torch.  With it both packages compute
+from the same inputs.
+"""
+import numpy as np
+import torch
+
+from .pm import ParticleMesh, RealField, ComplexField
+from .models.cosmology import Cosmology
+
+__all__ = ["particlemesh_from", "cosmology_from",
+           "lattice_state_from_numpy", "field_from_numpy"]
+
+
+def particlemesh_from(Nmesh, BoxSize, dtype, resampler, device='cpu'):
+    """A ParticleMesh of the same geometry; ``resampler`` is a window
+    name or any object with a ``.kind``."""
+    kind = getattr(resampler, 'kind', resampler)
+    return ParticleMesh(Nmesh=[int(n) for n in np.atleast_1d(Nmesh)],
+                        BoxSize=np.asarray(BoxSize, dtype='f8'),
+                        dtype=np.dtype(dtype), resampler=kind,
+                        device=device)
+
+
+def cosmology_from(Om0, Ol0, h, sigma8, ns, Ob0):
+    return Cosmology(Om0=float(Om0), Ol0=float(Ol0), h=float(h),
+                     sigma8=float(sigma8), ns=float(ns), Ob0=float(Ob0))
+
+
+def lattice_state_from_numpy(disp, vel, device='cpu'):
+    """(disp, vel) tuples of mesh-shaped tensors on ``device``, keeping
+    the arrays' dtype."""
+    def conv(arrays):
+        return tuple(torch.from_numpy(np.array(a)).to(device)
+                     for a in arrays)
+    return conv(disp), conv(vel)
+
+
+def field_from_numpy(pm, array):
+    """A RealField (real array of the mesh shape) or ComplexField
+    (complex half spectrum) of ``pm`` holding ``array``."""
+    array = np.array(array)
+    ftype = ComplexField if np.iscomplexobj(array) else RealField
+    shape, _ = pm._shape_dtype(ftype)
+    if array.shape != shape:
+        raise ValueError("array of shape %s is not a %s of this mesh %s"
+                         % (array.shape, ftype.__name__, shape))
+    return pm.create(type=ftype,
+                     value=torch.from_numpy(array).to(pm.device))

@@ -1,0 +1,284 @@
+"""FastPM particle-mesh N-body solver: the lattice path.
+
+Counterpart of the lattice part of ``pmesh_tpu/models/fastpm.py``: the
+kick/drift factor families, ``leapfrog_factors``, and a ``Solver``
+with ``lpt_lattice`` (2LPT initial conditions), ``force_lattice`` and
+``nbody_lattice`` (the KDK leapfrog).  The state is 2*ndim mesh-shaped
+tensors (displacement and velocity, in cells) on the mesh's device;
+the JAX ``lax.scan`` becomes a Python loop over the steps that keeps
+the state, the coefficients and the bounds check on the device, with
+no host sync inside a step.
+
+One force is: lattice paint -> r2c -> three spectral force filters and
+c2r (or one Poisson potential) -> lattice readouts.  The FFTs are
+``torch.fft`` (the JAX package's ``fft='xla'``); paint and readout run
+the hand CUDA kernels for CUDA tensors (``ops/gridpm.py``).
+"""
+import numpy as np
+import torch
+
+from ..pm import ParticleMesh, RealField
+from ..ops import transfer as tf
+from ..ops import gridpm as _gp
+from .cosmology import Planck15
+
+__all__ = ["Solver", "leapfrog_factors", "FastPM", "Quinn", "TVE", "VTE",
+           "Naive"]
+
+
+# --- kick / drift factor families ------------------------------------------
+
+def _quad(func, lo, hi, n=256):
+    """Fixed-order trapezoid quadrature on the host."""
+    x = np.linspace(lo, hi, n)
+    return float(np.trapezoid([func(xi) for xi in x], x))
+
+
+class FastPM:
+    """Growth-factor-exact kick and drift (the FastPM scheme)."""
+    def __init__(self, pt):
+        self.pt = pt
+
+    def K(self, ai, af, ar):
+        pt = self.pt
+        return 1 / (ar ** 2 * float(pt.E(ar))) * (
+            float(pt.Gf(af)) - float(pt.Gf(ai))) / float(pt.gf(ar))
+
+    def D(self, ai, af, ar):
+        pt = self.pt
+        return 1 / (ar ** 3 * float(pt.E(ar))) * (
+            float(pt.Gp(af)) - float(pt.Gp(ai))) / float(pt.gp(ar))
+
+
+class Quinn:
+    """Standard symplectic quadrature factors (Quinn et al)."""
+    def __init__(self, pt):
+        self.pt = pt
+
+    def K(self, ai, af, ar):
+        return _quad(lambda a: 1.0 / (a * a * float(self.pt.E(a))), ai, af)
+
+    def D(self, ai, af, ar):
+        return _quad(lambda a: 1.0 / (a ** 3 * float(self.pt.E(a))), ai, af)
+
+
+class TVE:
+    """H = T + (E + V) split: drift has no explicit time dependence."""
+    def __init__(self, pt):
+        self.pt = pt
+
+    def K(self, ai, af, ar):
+        return _quad(lambda a: 1.0 / (a * a * float(self.pt.E(a))), ai, af)
+
+    def D(self, ai, af, ar):
+        return ar ** -2 * _quad(
+            lambda a: 1.0 / (a * float(self.pt.E(a))), ai, af)
+
+
+class VTE:
+    """H = (T + E) + V split: kick has no explicit time dependence."""
+    def __init__(self, pt):
+        self.pt = pt
+
+    def K(self, ai, af, ar):
+        return ar ** -1 * _quad(
+            lambda a: 1.0 / (a * float(self.pt.E(a))), ai, af)
+
+    def D(self, ai, af, ar):
+        return _quad(lambda a: 1.0 / (a ** 3 * float(self.pt.E(a))), ai, af)
+
+
+class Naive:
+    def __init__(self, pt):
+        self.pt = pt
+
+    def K(self, ai, af, ar):
+        return 1.0 / (ar * ar * float(self.pt.E(ar))) * (af - ai)
+
+    def D(self, ai, af, ar):
+        return 1.0 / (ar ** 3 * float(self.pt.E(ar))) * (af - ai)
+
+
+_FACTORS = {'fastpm': FastPM, 'quinn': Quinn, 'tve': TVE, 'vte': VTE,
+            'naive': Naive}
+
+
+def leapfrog_factors(time_steps, factors, scheme='symp2'):
+    """The per-step kick/drift coefficient table, on the host.
+
+    Returns (K1, D1, K2) f8 numpy arrays for symp2 (KDK); symp1
+    returns (K1, D1, 0)."""
+    Ks1, Ds1, Ks2 = [], [], []
+    for ai, af in zip(time_steps[:-1], time_steps[1:]):
+        if scheme == 'symp2':
+            ac = (ai * af) ** 0.5
+            Ks1.append(factors.K(ai, ac, ai))
+            Ds1.append(factors.D(ai, af, ac))
+            Ks2.append(factors.K(ac, af, af))
+        elif scheme == 'symp1':
+            Ks1.append(factors.K(ai, af, ai))
+            Ds1.append(factors.D(ai, af, af))
+            Ks2.append(0.0)
+        else:
+            raise ValueError("scheme must be symp1 or symp2")
+    return (np.asarray(Ks1, dtype='f8'), np.asarray(Ds1, dtype='f8'),
+            np.asarray(Ks2, dtype='f8'))
+
+
+_MXU = ("fft='mxu*' needs the MXU DFT kernels, which are not ported "
+        "yet (ROADMAP queue 2, rows 5-8); use fft='xla' (torch.fft)")
+
+
+class Solver(object):
+    """FastPM solver on the lattice.
+
+    Parameters
+    ----------
+    pm : ParticleMesh
+        the IC-resolution mesh (one particle per mesh point); its
+        device holds the whole state.
+    cosmology : Cosmology (default Planck15)
+    B : int
+        force-mesh boost factor; the lattice path needs B=1.
+    force_resampler : window of the force mesh (default 'cic')
+    """
+
+    def __init__(self, pm, cosmology=None, B=1, force_resampler='cic'):
+        self.pm = pm
+        self.cosmology = cosmology if cosmology is not None else Planck15
+        self.fpm = pm.reshape(Nmesh=pm.Nmesh * B) if B != 1 else pm
+        if force_resampler is not None:
+            self.fpm = ParticleMesh(
+                Nmesh=self.fpm.Nmesh, BoxSize=self.fpm.BoxSize,
+                dtype=self.fpm.dtype, resampler=force_resampler,
+                device=self.fpm.device)
+
+    def lpt_lattice(self, dlinear, a0, shift=0.0, order=1):
+        """LPT state in lattice form: (disp, vel), ndim mesh-shaped
+        tensors each, in CELLS.  The displacement kernels are sampled
+        at the unshifted lattice sites, so the c2r mesh IS the
+        per-particle displacement."""
+        pm = self.pm
+        pt = self.cosmology
+        cell = float(pm.BoxSize[0] / pm.Nmesh[0])
+        DX1 = tuple(dlinear.apply(tf.dx1_transfer(d)).c2r().value / cell
+                    for d in range(pm.ndim))
+        D1 = float(pt.D1(a0))
+        f1 = float(pt.f1(a0))
+        E0 = float(pt.E(a0))
+        disp = tuple(dx * D1 + shift for dx in DX1)
+        vel = tuple(dx * (D1 * f1 * a0 ** 2 * E0) for dx in DX1)
+        if order >= 2 and pm.ndim == 3:
+            # 2LPT source from the strain products
+            def phi_ab(a, b):
+                def filt(k, v):
+                    k2 = k.normp(2, zeromode=1.0)
+                    return v * k[a] * k[b] / k2
+                return dlinear.apply(filt).c2r().value
+
+            diag = [phi_ab(d, d) for d in range(3)]
+            src = 0.0
+            for a in range(3):
+                for b in range(a + 1, 3):
+                    src = src + (diag[a] * diag[b] - phi_ab(a, b) ** 2)
+            source2 = pm.create(type=RealField, value=src).r2c()
+            DX2 = tuple(
+                source2.apply(tf.dx1_transfer(d)).c2r().value / cell
+                for d in range(3))
+            D2 = float(pt.D2(a0))
+            f2 = float(pt.f2(a0))
+            disp = tuple(s + dx2 * D2 for s, dx2 in zip(disp, DX2))
+            vel = tuple(v + dx2 * (D2 * f2 * a0 ** 2 * E0)
+                        for v, dx2 in zip(vel, DX2))
+        return disp, vel
+
+    def force_lattice(self, disp, bounds, factor=None, mode='spectral',
+                      fft='xla'):
+        """PM gravity force at the lattice particles.
+
+        Parameters
+        ----------
+        disp : tuple of ndim mesh-shaped displacement tensors (cells).
+        bounds : (lo, hi) static displacement bounds in cells.
+        mode : 'spectral' | 'gradient'
+            'spectral' differentiates in k-space (three inverse FFTs);
+            'gradient' takes one Poisson potential and the
+            derivative-window readout.
+        fft : 'xla' (torch.fft here); the 'mxu' family raises.
+
+        Returns the ndim force meshes (box-unit acceleration).
+        """
+        fpm = self.fpm
+        if tuple(fpm.Nmesh) != tuple(self.pm.Nmesh):
+            raise ValueError("the lattice path needs B=1 "
+                             "(force mesh == particle lattice)")
+        if fft in ('mxu', 'mxu_bf16', 'mxu_bf16s'):
+            raise NotImplementedError(_MXU)
+        if fft != 'xla':
+            raise ValueError("unknown fft backend %r (use 'xla')" % (fft,))
+        if mode not in ('spectral', 'gradient'):
+            raise ValueError("mode must be 'spectral' or 'gradient'")
+        if factor is None:
+            factor = 1.5 * self.cosmology.Om0
+        cell = float(fpm.BoxSize[0] / fpm.Nmesh[0])
+        kind = fpm.resampler.window.kind
+
+        rho = _gp.paint_grid(disp, bounds=bounds, window=kind)
+        rhok = fpm.create(type=RealField, value=rho).r2c()
+        if mode == 'spectral':
+            meshes = tuple(rhok.apply(tf.force_transfer(d)).c2r().value
+                           for d in range(fpm.ndim))
+            vals = _gp.readout_grid(meshes, disp, bounds=bounds,
+                                    window=kind)
+        else:
+            # F_d = -d(phi)/dx_d; the diffdir readout is the derivative
+            # in cell units, so F_d = -readout_d / cell
+            phi = rhok.apply(tf.poisson()).c2r().value
+            if fpm.ndim == 3:
+                rds = _gp.readout_grid(phi, disp, bounds=bounds,
+                                       window=kind, diffdir='all')
+            else:
+                rds = tuple(_gp.readout_grid(phi, disp, bounds=bounds,
+                                             window=kind, diffdir=d)
+                            for d in range(fpm.ndim))
+            vals = tuple(-r / cell for r in rds)
+        return tuple(v * factor for v in vals)
+
+    def nbody_lattice(self, disp, vel, time_steps, bounds,
+                      factors='fastpm', scheme='symp2',
+                      force_mode='spectral', fft='xla'):
+        """KDK loop in lattice form; ``disp``, ``vel`` and the kick are
+        in cells.  Returns the final (S, V).
+
+        A displacement outside ``bounds`` would silently lose mass in
+        the paint, so the moment one appears (checked after every
+        drift, on the device) both S and V are poisoned with NaN."""
+        fac = _FACTORS[factors](self.cosmology) \
+            if isinstance(factors, str) else factors
+        dtype = disp[0].dtype
+        device = disp[0].device
+        # the coefficients ride in the state dtype, on the device
+        K1, D1s, K2 = (torch.as_tensor(a, device=device).to(dtype)
+                       for a in leapfrog_factors(time_steps, fac, scheme))
+        cell = float(self.pm.BoxSize[0] / self.pm.Nmesh[0])
+        lo_b, hi_b = float(bounds[0]), float(bounds[1])
+
+        def force_cells(S):
+            F = self.force_lattice(S, bounds, mode=force_mode, fft=fft)
+            return tuple(f / cell for f in F)
+
+        def poison(S, V):
+            lo, hi = _gp.displacement_bounds(S)
+            bad = torch.where((lo < lo_b) | (hi > hi_b), float('nan'),
+                              0.0).to(dtype)
+            return (tuple(s + bad for s in S), tuple(v + bad for v in V))
+
+        S, V = poison(tuple(disp), tuple(vel))
+        F = force_cells(S)
+        for k1, d1, k2 in zip(K1, D1s, K2):
+            V = tuple(v + f * k1 for v, f in zip(V, F))
+            S = tuple(s + v * d1 for s, v in zip(S, V))
+            S, V = poison(S, V)
+            F = force_cells(S)
+            V = tuple(v + f * k2 for v, f in zip(V, F))
+        return S, V

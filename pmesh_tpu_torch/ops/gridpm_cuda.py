@@ -1,0 +1,178 @@
+"""ctypes wrappers of the lattice paint and readout CUDA kernels
+(``csrc/gridpm.cu``), the port of ``pmesh_tpu/ops/gridpm_pallas.py``.
+
+Each wrapper checks its tensors (CUDA, f32, 3-d mesh shape,
+contiguous, on one device, no autograd), allocates the outputs,
+launches on PyTorch's current stream and raises RuntimeError if the
+launch returns an error.  ``LAUNCHES`` counts the launches of each
+kernel, so a run can show that it went through the kernels.
+
+The plain PyTorch version of both is ``ops/gridpm._shift_loop``.
+"""
+import ctypes
+
+import numpy as np
+import torch
+
+from .kernels import find_window, ANALYTIC_BASE
+from ..native import cuda as _cuda
+
+__all__ = ["paint_lattice", "readout_lattice", "LAUNCHES",
+           "reset_launches"]
+
+LAUNCHES = {"paint_lattice": 0, "readout_lattice": 0}
+
+_ANALYTIC_CODE = {'nearest': 0, 'linear': 1, 'quadratic': 2, 'cubic': 3}
+_TABLE, _TABLE_OFFSET = 4, 5
+_DIFF = {None: -1, 0: 0, 1: 1, 2: 2, 'all': 3}
+# the launch grid puts N1 and N0 on gridDim.y and gridDim.z
+_MAX_GRID_YZ = 65535
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_lib = None
+_tables = {}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = _cuda.load("gridpm")
+        lib.pmesh_cuda_error_string.argtypes = [_I]
+        lib.pmesh_cuda_error_string.restype = ctypes.c_char_p
+        lib.pmesh_paint_lattice.argtypes = (
+            [_P] * 4 + [_F, _P] + [_I] * 7 + [_P, _I, _F, _F, _I, _P])
+        lib.pmesh_paint_lattice.restype = _I
+        lib.pmesh_readout_lattice.argtypes = (
+            [_P] * 3 + [_I] + [_P] * 6 + [_I] * 7 + [_P, _I, _F, _F, _I,
+                                                    _P])
+        lib.pmesh_readout_lattice.restype = _I
+        _lib = lib
+    return _lib
+
+
+def _window_args(window, device):
+    """(kind code, table pointer, table length, step, offset)."""
+    win = find_window(window)
+    base = ANALYTIC_BASE.get(win.kind)
+    if base is not None:
+        return _ANALYTIC_CODE[base], None, 0, 0.0, 0.0
+    key = (win.kind, device)
+    if key not in _tables:
+        # the values, then the forward differences / step, both from f8
+        t = np.asarray(win.table, dtype='f8')
+        d = np.append(np.diff(t) / win.table_step, 0.0)
+        _tables[key] = torch.as_tensor(np.concatenate([t, d]),
+                                       dtype=torch.float32, device=device)
+    code = _TABLE if win.table_offset is None else _TABLE_OFFSET
+    return (code, _tables[key], len(win.table), win.table_step,
+            0.0 if win.table_offset is None else win.table_offset)
+
+
+def _check(arrays, what):
+    """Common checks; returns (shape, device)."""
+    ref = arrays[0]
+    for a in arrays:
+        if not isinstance(a, torch.Tensor) or a.device.type != 'cuda':
+            raise ValueError("%s: the CUDA kernel takes CUDA tensors"
+                             % what)
+        if a.dtype != torch.float32:
+            raise NotImplementedError(
+                "%s: the CUDA kernel is f32 only (got %s)" % (what, a.dtype))
+        if a.dim() != 3:
+            raise NotImplementedError(
+                "%s: the CUDA kernel is 3-d only (got %d-d)"
+                % (what, a.dim()))
+        if a.shape != ref.shape or a.device != ref.device:
+            raise ValueError("%s: all meshes must share shape and device"
+                             % what)
+        if not a.is_contiguous():
+            raise ValueError("%s: tensors must be contiguous" % what)
+        if a.requires_grad:
+            raise NotImplementedError(
+                "%s: gradients through the CUDA kernel are not ported "
+                "yet (ROADMAP queue 1, item 3)" % what)
+    n0, n1, n2 = ref.shape
+    if n0 > _MAX_GRID_YZ or n1 > _MAX_GRID_YZ:
+        raise ValueError("%s: Nmesh[0] and Nmesh[1] must be <= %d"
+                         % (what, _MAX_GRID_YZ))
+    return tuple(ref.shape), ref.device
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(rc, what):
+    if rc != 0:
+        msg = _load().pmesh_cuda_error_string(rc).decode()
+        raise RuntimeError("%s: CUDA launch failed (%d: %s)"
+                           % (what, rc, msg))
+
+
+def paint_lattice(disp, mass, vmin, vmax, window, diffdir=None):
+    """Gather-form lattice paint:
+    rho[p] = sum_v m(p - v) prod_d W_d(v_d - s_d(p - v)), v in
+    [vmin, vmax]^3, W_d = -W' on axis ``diffdir``.
+
+    disp : three (N0, N1, N2) f32 CUDA tensors (cell units)
+    mass : None (1), a scalar, or a mesh tensor
+    """
+    what = "paint_lattice"
+    if diffdir not in (None, 0, 1, 2):
+        raise ValueError("%s: diffdir must be None, 0, 1 or 2" % what)
+    disp = tuple(disp)
+    if len(disp) != 3:
+        raise NotImplementedError("%s: the CUDA kernel is 3-d only" % what)
+    mesh_mass = isinstance(mass, torch.Tensor) and mass.dim() > 0
+    shape, device = _check(disp + ((mass,) if mesh_mass else ()), what)
+    scalar = 1.0 if mass is None or mesh_mass else float(mass)
+    kind, table, ntable, step, offset = _window_args(window, device)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    LAUNCHES[what] += 1
+    rc = _load().pmesh_paint_lattice(
+        _ptr(disp[0]), _ptr(disp[1]), _ptr(disp[2]),
+        _ptr(mass) if mesh_mass else None, scalar, _ptr(out),
+        shape[0], shape[1], shape[2], vmin, vmax, kind, _DIFF[diffdir],
+        _ptr(table), ntable, step, offset, device.index, stream)
+    _raise_on(rc, what)
+    return out
+
+
+def readout_lattice(meshes, disp, vmin, vmax, window, diffdir=None):
+    """Lattice readout: out[q] = sum_v prod_d W_d(v_d - s_d(q))
+    mesh[q + v] for 1 to 3 meshes sharing the weights; with
+    ``diffdir='all'`` the three derivative readouts of one mesh.
+    Returns a tuple of outputs (one per mesh, or three for 'all')."""
+    what = "readout_lattice"
+    if diffdir not in _DIFF:
+        raise ValueError("%s: diffdir must be None, 0, 1, 2 or 'all'"
+                         % what)
+    meshes, disp = tuple(meshes), tuple(disp)
+    if not 1 <= len(meshes) <= 3:
+        raise ValueError("%s: takes 1 to 3 meshes" % what)
+    if diffdir == 'all' and len(meshes) != 1:
+        raise ValueError("%s: diffdir='all' takes exactly one mesh" % what)
+    if len(disp) != 3:
+        raise NotImplementedError("%s: the CUDA kernel is 3-d only" % what)
+    shape, device = _check(meshes + disp, what)
+    kind, table, ntable, step, offset = _window_args(window, device)
+    nout = 3 if diffdir == 'all' else len(meshes)
+    outs = tuple(torch.empty(shape, dtype=torch.float32, device=device)
+                 for _ in range(nout))
+    m = [_ptr(x) for x in meshes] + [None] * (3 - len(meshes))
+    o = [_ptr(x) for x in outs] + [None] * (3 - nout)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    LAUNCHES[what] += 1
+    rc = _load().pmesh_readout_lattice(
+        m[0], m[1], m[2], len(meshes), _ptr(disp[0]), _ptr(disp[1]),
+        _ptr(disp[2]), o[0], o[1], o[2], shape[0], shape[1], shape[2],
+        vmin, vmax, kind, _DIFF[diffdir], _ptr(table), ntable, step,
+        offset, device.index, stream)
+    _raise_on(rc, what)
+    return outs
