@@ -8,24 +8,38 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. a CUDA device must be present (there is no CPU path); print the
    card's name and power limit as nvidia-smi reports them;
-2. build the CUDA kernels from pmesh_tpu_torch/csrc with nvcc;
-3. hold each kernel against its plain PyTorch version at 512^3 f32,
-   CIC, on the same tensors on the card, for three displacement bounds
-   (nv = 3 and 5 offsets per axis), and time both;
+2. build the CUDA kernels from pmesh_tpu_torch/csrc with nvcc, one
+   nvcc per source, all at once;
+3. hold each kernel against its plain PyTorch version on the same
+   tensors on the card, and time both: the lattice paint and readout
+   at 512^3 f32 CIC for three displacement bounds (nv = 3 and 5), and
+   the binned rebase assign and apply at 512^3, K = 2 plus velocities,
+   bitwise, for drift bounds (-0.5, 1.5) with 2 and 3 output slots and
+   (-1, 2);
 4. drive the FastPM lattice path at 512^3 f32 through the user's entry
    points: Solver.lpt_lattice (2LPT) then Solver.nbody_lattice (5 KDK
    steps, spectral force) and one gradient-mode force_lattice, with
    the kernels' launch counters read around the run; check that the
    state is finite, that a paint of it conserves mass and that the
    kernels carried the run; time one KDK step with CUDA events;
-5. run the same path at 32^3 on the card and on the CPU (plain
-   versions, pocketfft) from the same seed and compare.
+5. drive the binned path on a clustered state: the 384^3 caustic flow
+   through Solver.nbody_binned(adaptive=True), counters read around
+   the run; check that the slots grew, that nothing overflowed, that
+   the particle count is exact, that a paint conserves it and that the
+   four kernels carried the run;
+6. time the binned path at 512^3, K = 2, occupancy 1: one superstep
+   (two KDK steps and a rebase) of Solver.nbody_binned, force_binned
+   in both modes, the rebase alone, and the peak device memory;
+7. run the lattice path at 32^3 and the binned path at 32^3 on the
+   card and on the CPU (plain versions, pocketfft) from the same seed
+   and compare.
 
 The second-to-last line is the kernels' JSON record, the last line
 the device record.
 """
 import json
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 import sys
 import time
 
@@ -43,11 +57,24 @@ SPECTRAL_INDEX = -1.0   # P(k) ~ k^n of the linear field
 SEED = 42
 TOL_KERNEL = 1e-5       # max|kernel - plain| / max|plain|
 TOL_MASS = 1e-5
-TOL_SMALL = 1e-4        # 32^3 card vs CPU, of max|S|
+TOL_SMALL = 1e-4        # 32^3 card vs CPU, of max|S| (binned: max|rho|)
+# the binned rebase: drift bounds, output slots (the first is the
+# main path's)
+REBASE_CASES = (((-0.5, 1.5), 2), ((-0.5, 1.5), 3), ((-1.0, 2.0), 3))
+# the clustered binned state (the caustic flow of bench.py's
+# measure_binned_clustered) and the timed one (measure_binned)
+NC, CAUSTIC_AX, CAUSTIC_LAM = 384, 1.6, 8
+BINNED_KW = dict(nslots=2, rebase_every=2, step_drift=0.25, fft='xla')
 
 KERNELS = {
-    "paint_lattice": "pmesh_tpu/ops/gridpm_pallas.py:491",
-    "readout_lattice": "pmesh_tpu/ops/gridpm_pallas.py:171",
+    "paint_lattice": ("pmesh_tpu_torch/csrc/gridpm.cu",
+                      "pmesh_tpu/ops/gridpm_pallas.py:491"),
+    "readout_lattice": ("pmesh_tpu_torch/csrc/gridpm.cu",
+                        "pmesh_tpu/ops/gridpm_pallas.py:171"),
+    "rebase_assign": ("pmesh_tpu_torch/csrc/binned.cu",
+                      "pmesh_tpu/ops/binned_pallas.py:375"),
+    "rebase_apply": ("pmesh_tpu_torch/csrc/binned.cu",
+                     "pmesh_tpu/ops/binned_pallas.py:519"),
 }
 
 
@@ -103,14 +130,16 @@ def phase_device():
 
 def phase_build():
     from pmesh_tpu_torch.native import cuda
-    info = cuda.build("gridpm")
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    log("phase 2 build: gridpm.cu with nvcc %s in %.3f s"
-        % (" ".join(cuda.NVCC_FLAGS), info["seconds"]))
-    for ln in ptxas:
-        log("  ptxas: " + ln)
-    return info["seconds"]
+    names = sorted({src.split("/")[-1][:-len(".cu")]
+                    for src, _ in KERNELS.values()})
+    with ThreadPoolExecutor(len(names)) as pool:
+        infos = list(pool.map(cuda.build, names))
+    for name, info in zip(names, infos):
+        log("phase 2 build: %s.cu with nvcc %s in %.3f s"
+            % (name, " ".join(cuda.NVCC_FLAGS), info["seconds"]))
+        for ln in info["log"].splitlines():
+            if "registers" in ln or "spill" in ln or "stack" in ln:
+                log("  ptxas: " + ln.strip())
 
 
 def phase_compare(dev):
@@ -279,11 +308,263 @@ def phase_small(dev):
     verr = max(np.abs(a - b).max() for a, b in zip(ref[3:], got[3:])) / vmax
     ok = (np.isfinite(err) and err <= TOL_SMALL and verr <= TOL_SMALL
           and 0.01 < smax < BOUNDS[1])
-    log("phase 5 small input: 32^3 3 KDK steps, card vs CPU max|dS|/max|S|"
-        " = %.3e, max|dV|/max|V| = %.3e (tol %.0e), max|S| %.4f %s"
+    log("phase 7 small input: 32^3 lattice 3 KDK steps, card vs CPU "
+        "max|dS|/max|S| = %.3e, max|dV|/max|V| = %.3e (tol %.0e), "
+        "max|S| %.4f %s"
         % (err, verr, TOL_SMALL, smax, "ok" if ok else "FAIL"))
     if not ok:
         raise AssertionError("the card and the CPU disagree at 32^3")
+
+
+def rebase_state(dev, gen, n, drift):
+    """A K = 2 binned state at n^3 made the way bench.py's
+    measure_binned makes it (displacements in [0.05, 0.95), velocities
+    0.02 N(0, 1)), plus a drift uniform in [-drift, drift) and a second
+    slot a quarter full."""
+    shape = (n,) * 3
+
+    def uni(lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+    dslots = tuple(tuple(uni(0.05, 0.95) + uni(-drift, drift)
+                         for _ in range(3)) for _ in range(2))
+    valid = (torch.ones(shape, device=dev),
+             (uni(0.0, 1.0) < 0.25).float())
+    vslots = tuple(tuple(0.02 * torch.randn(shape, generator=gen,
+                                            device=dev) for _ in range(3))
+                   for _ in range(2))
+    return dslots, vslots, valid
+
+
+def max_abs_diff(got, ref):
+    """max |got - ref| over nested tuples of tensors (0 if all equal)"""
+    if isinstance(ref, (tuple, list)):
+        return max(max_abs_diff(g, r) for g, r in zip(got, ref))
+    return float((got.double() - ref.double()).abs().max())
+
+
+def bitwise_equal(got, ref):
+    if isinstance(ref, (tuple, list)):
+        return all(bitwise_equal(g, r) for g, r in zip(got, ref))
+    if got.dtype == torch.float32:
+        return torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    return torch.equal(got, ref)
+
+
+def phase_compare_rebase(dev, n=N):
+    """rebase assign and apply, kernel vs plain at n^3: bitwise; returns
+    {kernel: record} of the first case (the main path's bounds)"""
+    from pmesh_tpu_torch.ops import binned as bn
+    from pmesh_tpu_torch.ops import binned_cuda
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    records = {}
+    for bounds, kout in REBASE_CASES:
+        # keep the displacements inside the bounds: [lo, hi)
+        drift = min(0.05 - bounds[0], bounds[1] - 0.95)
+        dslots, vslots, valid = rebase_state(dev, gen, n, drift)
+        offsets = bn._drift_offsets(bounds, 3)
+        lo, hi = offsets[0][0], offsets[-1][0]
+
+        def assign(impl):
+            if impl == 'cuda':
+                return binned_cuda.rebase_assign(dslots, valid, kout, lo, hi)
+            return bn.rebase_assign_plain(dslots, valid, offsets, kout)
+
+        def apply(impl, routes):
+            if impl == 'cuda':
+                return binned_cuda.rebase_apply((vslots,), routes, lo, hi)
+            return bn.rebase_apply_plain((vslots,), routes, offsets)
+
+        plain = assign('torch')
+        got = assign('cuda')
+        plain_e = apply('torch', plain[2])
+        got_e = apply('cuda', got[2])
+        same = (bitwise_equal(got, plain) and bitwise_equal(got_e, plain_e))
+        err = dict(rebase_assign=max_abs_diff(got, plain),
+                   rebase_apply=max_abs_diff(got_e, plain_e))
+        ms = dict(rebase_assign=cuda_ms(lambda: assign('cuda'), 5),
+                  rebase_apply=cuda_ms(lambda: apply('cuda', got[2]), 5))
+        plain_ms = dict(
+            rebase_assign=cuda_ms(lambda: assign('torch'), 1),
+            rebase_apply=cuda_ms(lambda: apply('torch', got[2]), 1))
+        log("phase 3 compare: rebase %d^3 K=2->%d bounds=%s offsets %d..%d"
+            " overflow kernel %d plain %d, bitwise %s, max|k-p| assign %g "
+            "apply %g  assign kernel %.3f ms plain %.3f ms, apply kernel "
+            "%.3f ms plain %.3f ms"
+            % (n, kout, bounds, lo, hi, int(got[3]), int(plain[3]),
+               "equal" if same else "DIFFERENT", err['rebase_assign'],
+               err['rebase_apply'], ms['rebase_assign'],
+               plain_ms['rebase_assign'], ms['rebase_apply'],
+               plain_ms['rebase_apply']))
+        if not same or int(got[3]) != int(plain[3]):
+            raise AssertionError("the rebase kernels disagree with their "
+                                 "plain versions")
+        for name in err:
+            if name not in records:
+                records[name] = dict(max_abs_err=err[name], ms=ms[name],
+                                     plain_ms=plain_ms[name])
+            records[name]["max_abs_err"] = max(
+                records[name]["max_abs_err"], err[name])
+        del dslots, vslots, valid, plain, got, plain_e, got_e
+        torch.cuda.empty_cache()
+    return records
+
+
+def caustic_state(dev, n, ax=CAUSTIC_AX, lam=CAUSTIC_LAM):
+    """bench.py's clustered initial state: a caustic-forming x-flow
+    modulated along y/z plus sub-cell y/z displacements (numpy
+    RandomState(7)), velocities 0.02 N(0, 1) from a seeded generator"""
+    q1 = np.arange(n, dtype=np.float64)
+    ph = 2 * np.pi * q1 / lam
+    rng = np.random.RandomState(7)
+    mod = 1.0 + 0.3 * (np.sin(ph + 0.7)[:, None]
+                       * np.sin(ph + 1.3)[None, :])
+    sx = (-ax * np.sin(ph)[:, None, None] * mod[None, :, :]
+          + rng.uniform(-0.2, 0.2, (n, n, n)))
+    sy = np.broadcast_to((0.25 + 0.2 * np.sin(ph + 0.3))[:, None, None],
+                         (n, n, n))
+    sz = np.broadcast_to((0.25 + 0.2 * np.cos(ph + 0.9))[None, :, None],
+                         (n, n, n))
+    disp = tuple(torch.from_numpy(np.ascontiguousarray(s, dtype='f4'))
+                 .to(dev) for s in (sx, sy, sz))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    vel = tuple(0.02 * torch.randn((n,) * 3, generator=gen, device=dev)
+                for _ in range(3))
+    return disp, vel
+
+
+def phase_binned_clustered(dev, n=NC):
+    """the binned path's main run: adaptive growth on the caustic flow;
+    returns the launch counts of the run"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import binned as bn
+    from pmesh_tpu_torch.ops import binned_cuda, gridpm_cuda
+    disp, vel = caustic_state(dev, n)
+    pm = ParticleMesh([n] * 3, BoxSize=float(n), dtype='f4',
+                      resampler='cic', device=dev)
+    solver = Solver(pm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gridpm_cuda.reset_launches()
+    binned_cuda.reset_launches()
+    t0 = time.perf_counter()
+    dslots, vslots, valid, overflow = solver.nbody_binned(
+        disp, vel, [0.5, 0.52, 0.54], adaptive=True, **BINNED_KW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gridpm_cuda.LAUNCHES, **binned_cuda.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    stats = dict(solver.last_binned_stats)
+    tot, occ = bn.occupancy(valid)
+    tot, occ, ov = int(tot), float(occ), int(overflow)
+    finite = all(bool(torch.isfinite(x).all())
+                 for slot in dslots + vslots for x in slot)
+    mass = float(bn.paint_binned(dslots, valid).double().sum())
+    mass_err = abs(mass - tot) / tot
+    log("phase 5 binned, clustered: %d^3 caustic (Ax=%g, lam=%g) "
+        "nbody_binned(adaptive) 2 KDK steps + 1 rebase in %.3f s (first "
+        "run): growth events %d, K %d -> %d, max occupancy %g, overflow "
+        "%d, particles %d of %d, paint mass error %.3e (tol %.0e), finite "
+        "%s, peak %.2f GB, launches %s"
+        % (n, CAUSTIC_AX, CAUSTIC_LAM, wall, stats['growth_events'],
+           BINNED_KW['nslots'], len(dslots), occ, ov, tot, n ** 3,
+           mass_err, TOL_MASS, finite, peak_gb, json.dumps(launches)))
+    if not (stats['growth_events'] >= 1 and len(dslots) >= 3):
+        raise AssertionError("the adaptive path did not grow the slots")
+    if ov != 0 or stats['overflow'] != 0 or tot != n ** 3:
+        raise AssertionError("particles overflowed or were lost")
+    if not (finite and mass_err <= TOL_MASS):
+        raise AssertionError("the binned state is not finite or its "
+                             "paint does not conserve the count")
+    if min(launches.values()) < 1:
+        raise AssertionError("the kernels did not carry the binned path")
+    return launches
+
+
+def phase_binned_timed(dev, n=N):
+    """one superstep (2 KDK steps + 1 rebase) at n^3, K = 2, occupancy 1:
+    the difference of a 4-step and a 2-step nbody_binned run"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import binned as bn
+    pm = ParticleMesh([n] * 3, BoxSize=float(n), dtype='f4',
+                      resampler='cic', device=dev)
+    solver = Solver(pm)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    shape = (n,) * 3
+    disp = tuple(0.05 + 0.9 * torch.rand(shape, generator=gen, device=dev)
+                 for _ in range(3))
+    vel = tuple(0.02 * torch.randn(shape, generator=gen, device=dev)
+                for _ in range(3))
+    steps = [0.5, 0.55, 0.6, 0.65, 0.7]
+
+    def run(nst):
+        return lambda: solver.nbody_binned(disp, vel, steps[:nst + 1],
+                                           **BINNED_KW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t2 = cuda_ms(run(2), 1)
+    t4 = cuda_ms(run(4), 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    dslots, vslots, valid, overflow = run(4)()
+    ok = (int(overflow) == 0 and int(bn.occupancy(valid)[0]) == n ** 3
+          and all(bool(torch.isfinite(x).all())
+                  for slot in dslots + vslots for x in slot))
+    del dslots, vslots, valid
+    dsl, vsl, valid = bn.from_lattice(disp, vel, nslots=2)
+    bounds = (-0.5, 1.5)
+    f_spec = cuda_ms(lambda: solver.force_binned(dsl, valid, bounds), 3)
+    f_grad = cuda_ms(lambda: solver.force_binned(dsl, valid, bounds,
+                                                 mode='gradient'), 3)
+    t_reb = cuda_ms(lambda: bn.rebase(dsl, valid, bounds, extras=(vsl,)), 3)
+    superstep = t4 - t2
+    log("phase 6 binned, timed: %d^3 K=2 occupancy 1 bounds %s: %.3f ms per"
+        " KDK step (superstep %.3f ms = 2 KDK + rebase + 1 force; 4-step "
+        "run %.3f ms, 2-step run %.3f ms), force_binned spectral %.3f ms, "
+        "gradient %.3f ms, rebase with velocities %.3f ms, peak %.2f GB, "
+        "overflow 0 and finite: %s"
+        % (n, bounds, superstep / 2, superstep, t4, t2, f_spec, f_grad,
+           t_reb, peak_gb, ok))
+    if not ok:
+        raise AssertionError("the timed binned run overflowed or is not "
+                             "finite")
+    del solver, disp, vel, dsl, vsl, valid
+    torch.cuda.empty_cache()
+
+
+def phase_small_binned(dev, n=32):
+    """32^3 adaptive binned run on the card against the CPU"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import binned as bn
+    rng = np.random.RandomState(SEED)
+    disp = rng.uniform(-0.6, 1.6, (3,) + (n,) * 3).astype('f4')
+    vel = (0.3 * rng.normal(size=(3,) + (n,) * 3)).astype('f4')
+    out = {}
+    for device in ('cpu', dev):
+        pm = ParticleMesh([n] * 3, BoxSize=float(n), dtype='f4',
+                          resampler='cic', device=device)
+        solver = Solver(pm)
+        ds, vs, va, ov = solver.nbody_binned(
+            tuple(torch.from_numpy(x).to(device) for x in disp),
+            tuple(torch.from_numpy(x).to(device) for x in vel),
+            np.linspace(0.5, 0.6, 5), nslots=1, rebase_every=2,
+            step_drift=0.5, adaptive=True)
+        tot, _ = bn.occupancy(va)
+        out[str(device)] = (bn.paint_binned(ds, va).cpu().numpy(),
+                            int(tot), int(ov), len(ds))
+    (ref, rtot, rov, rk), (got, gtot, gov, gk) = out['cpu'], out[str(dev)]
+    err = np.abs(got - ref).max() / np.abs(ref).max()
+    ok = (np.isfinite(err) and err <= TOL_SMALL and rtot == gtot == n ** 3
+          and rov == gov == 0)
+    log("phase 7 small input: %d^3 binned adaptive 4 KDK steps, card vs "
+        "CPU max|drho|/max|rho| = %.3e (tol %.0e), particles %d / %d, "
+        "overflow %d / %d, K %d / %d %s"
+        % (n, err, TOL_SMALL, gtot, rtot, gov, rov, gk, rk,
+           "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("the card and the CPU disagree on the binned "
+                             "path at %d^3" % n)
 
 
 def main():
@@ -294,13 +575,18 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     records = phase_compare(dev)
+    records.update(phase_compare_rebase(dev))
     launches, _ = phase_main(dev)
+    binned_launches = phase_binned_clustered(dev)
+    phase_binned_timed(dev)
     phase_small(dev)
+    phase_small_binned(dev)
     kernels = []
-    for name, replaces in KERNELS.items():
-        kernels.append(dict(name=name, route="cuda",
-                            source="pmesh_tpu_torch/csrc/gridpm.cu",
-                            replaces=replaces, launches=launches[name],
+    for name, (source, replaces) in KERNELS.items():
+        # each kernel's launches on its own path's main run
+        count = launches.get(name, binned_launches[name])
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, launches=count,
                             **records[name]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

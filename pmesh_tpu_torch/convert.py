@@ -12,7 +12,8 @@ from .pm import ParticleMesh, RealField, ComplexField
 from .models.cosmology import Cosmology
 
 __all__ = ["particlemesh_from", "cosmology_from",
-           "lattice_state_from_numpy", "field_from_numpy"]
+           "lattice_state_from_numpy", "binned_state_from_numpy",
+           "binned_state_to_numpy", "field_from_numpy"]
 
 
 def particlemesh_from(Nmesh, BoxSize, dtype, resampler, device='cpu'):
@@ -37,6 +38,25 @@ def lattice_state_from_numpy(disp, vel, device='cpu'):
         return tuple(torch.from_numpy(np.array(a)).to(device)
                      for a in arrays)
     return conv(disp), conv(vel)
+
+
+def _nested(fn, x):
+    if isinstance(x, (tuple, list)):
+        return tuple(_nested(fn, y) for y in x)
+    return fn(x)
+
+
+def binned_state_from_numpy(state, device='cpu'):
+    """A binned state, e.g. ``(dslots, vslots, valid)``: nested tuples
+    (slots, then axes) of numpy arrays become the same nesting of
+    tensors on ``device``, keeping the arrays' dtype and values."""
+    return _nested(lambda a: torch.from_numpy(np.array(a)).to(device),
+                   state)
+
+
+def binned_state_to_numpy(state):
+    """The inverse of :func:`binned_state_from_numpy`."""
+    return _nested(lambda t: t.detach().cpu().numpy(), state)
 
 
 def field_from_numpy(pm, array):

@@ -1,18 +1,22 @@
-"""FastPM particle-mesh N-body solver: the lattice path.
+"""FastPM particle-mesh N-body solver: the lattice and binned paths.
 
-Counterpart of the lattice part of ``pmesh_tpu/models/fastpm.py``: the
-kick/drift factor families, ``leapfrog_factors``, and a ``Solver``
-with ``lpt_lattice`` (2LPT initial conditions), ``force_lattice`` and
-``nbody_lattice`` (the KDK leapfrog).  The state is 2*ndim mesh-shaped
-tensors (displacement and velocity, in cells) on the mesh's device;
-the JAX ``lax.scan`` becomes a Python loop over the steps that keeps
-the state, the coefficients and the bounds check on the device, with
-no host sync inside a step.
+Counterpart of the lattice and binned parts of
+``pmesh_tpu/models/fastpm.py``: the kick/drift factor families,
+``leapfrog_factors``, and a ``Solver`` with ``lpt_lattice`` (2LPT
+initial conditions), ``force_lattice`` and ``nbody_lattice`` (the KDK
+leapfrog on the lattice), and ``force_binned`` and ``nbody_binned``
+(the slot-lattice state of ``ops/binned.py``, with a periodic rebase
+and optional adaptive slot growth).  The state is mesh-shaped tensors
+(displacement and velocity, in cells) on the mesh's device; the JAX
+``lax.scan`` becomes a Python loop over the steps that keeps the
+state, the coefficients and the poison checks on the device, with no
+host sync inside a step.
 
 One force is: lattice paint -> r2c -> three spectral force filters and
 c2r (or one Poisson potential) -> lattice readouts.  The FFTs are
-``torch.fft`` (the JAX package's ``fft='xla'``); paint and readout run
-the hand CUDA kernels for CUDA tensors (``ops/gridpm.py``).
+``torch.fft`` (the JAX package's ``fft='xla'``); paint, readout and
+rebase run the hand CUDA kernels for CUDA tensors (``ops/gridpm.py``,
+``ops/binned.py``).
 """
 import numpy as np
 import torch
@@ -20,6 +24,7 @@ import torch
 from ..pm import ParticleMesh, RealField
 from ..ops import transfer as tf
 from ..ops import gridpm as _gp
+from ..ops import binned as _bn
 from .cosmology import Planck15
 
 __all__ = ["Solver", "leapfrog_factors", "FastPM", "Quinn", "TVE", "VTE",
@@ -129,8 +134,17 @@ _MXU = ("fft='mxu*' needs the MXU DFT kernels, which are not ported "
         "yet (ROADMAP queue 2, rows 5-8); use fft='xla' (torch.fft)")
 
 
+def _check_force_args(fft, mode):
+    if fft in ('mxu', 'mxu_bf16', 'mxu_bf16s'):
+        raise NotImplementedError(_MXU)
+    if fft != 'xla':
+        raise ValueError("unknown fft backend %r (use 'xla')" % (fft,))
+    if mode not in ('spectral', 'gradient'):
+        raise ValueError("mode must be 'spectral' or 'gradient'")
+
+
 class Solver(object):
-    """FastPM solver on the lattice.
+    """FastPM solver on the lattice and on the binned slot-lattice.
 
     Parameters
     ----------
@@ -212,28 +226,20 @@ class Solver(object):
         if tuple(fpm.Nmesh) != tuple(self.pm.Nmesh):
             raise ValueError("the lattice path needs B=1 "
                              "(force mesh == particle lattice)")
-        if fft in ('mxu', 'mxu_bf16', 'mxu_bf16s'):
-            raise NotImplementedError(_MXU)
-        if fft != 'xla':
-            raise ValueError("unknown fft backend %r (use 'xla')" % (fft,))
-        if mode not in ('spectral', 'gradient'):
-            raise ValueError("mode must be 'spectral' or 'gradient'")
+        _check_force_args(fft, mode)
         if factor is None:
             factor = 1.5 * self.cosmology.Om0
         cell = float(fpm.BoxSize[0] / fpm.Nmesh[0])
         kind = fpm.resampler.window.kind
 
         rho = _gp.paint_grid(disp, bounds=bounds, window=kind)
-        rhok = fpm.create(type=RealField, value=rho).r2c()
         if mode == 'spectral':
-            meshes = tuple(rhok.apply(tf.force_transfer(d)).c2r().value
-                           for d in range(fpm.ndim))
-            vals = _gp.readout_grid(meshes, disp, bounds=bounds,
-                                    window=kind)
+            vals = _gp.readout_grid(self._spectral_meshes(rho), disp,
+                                    bounds=bounds, window=kind)
         else:
             # F_d = -d(phi)/dx_d; the diffdir readout is the derivative
             # in cell units, so F_d = -readout_d / cell
-            phi = rhok.apply(tf.poisson()).c2r().value
+            phi = self._potential_mesh(rho)
             if fpm.ndim == 3:
                 rds = _gp.readout_grid(phi, disp, bounds=bounds,
                                        window=kind, diffdir='all')
@@ -243,6 +249,20 @@ class Solver(object):
                             for d in range(fpm.ndim))
             vals = tuple(-r / cell for r in rds)
         return tuple(v * factor for v in vals)
+
+    def _potential_mesh(self, rho):
+        """The (tf.poisson-signed) potential of a painted 1+delta
+        density, shared by the lattice and binned gradient-mode
+        forces."""
+        return self.fpm.create(type=RealField, value=rho).r2c() \
+            .apply(tf.poisson()).c2r().value
+
+    def _spectral_meshes(self, rho):
+        """The ndim directional force meshes of a painted 1+delta
+        density, shared by the lattice and binned spectral forces."""
+        rhok = self.fpm.create(type=RealField, value=rho).r2c()
+        return tuple(rhok.apply(tf.force_transfer(d)).c2r().value
+                     for d in range(self.fpm.ndim))
 
     def nbody_lattice(self, disp, vel, time_steps, bounds,
                       factors='fastpm', scheme='symp2',
@@ -282,3 +302,177 @@ class Solver(object):
             F = force_cells(S)
             V = tuple(v + f * k2 for v, f in zip(V, F))
         return S, V
+
+    # --- binned slot-lattice path -----------------------------------------
+    #
+    # Any particle distribution (clustered late-time states) as nslots
+    # sub-lattices whose displacements stay in [0, 1) + drift: the
+    # general-position path without a scatter (ops/binned.py).
+
+    def force_binned(self, dslots, valid, bounds, factor=None, fft='xla',
+                     mode='spectral'):
+        """PM gravity for a binned state: per-slot force value fields
+        (mask with ``valid``; invalid slots read garbage).
+
+        mode='gradient' takes ONE Poisson potential and reads it with
+        the fused derivative window per slot: nslots readout passes
+        instead of 3 * nslots."""
+        fpm = self.fpm
+        if tuple(fpm.Nmesh) != tuple(self.pm.Nmesh):
+            raise ValueError("the binned path needs B=1 "
+                             "(force mesh == particle lattice)")
+        _check_force_args(fft, mode)
+        if factor is None:
+            factor = 1.5 * self.cosmology.Om0
+        kind = fpm.resampler.window.kind
+        rho = _bn.paint_binned(dslots, valid, bounds=bounds, window=kind)
+        # normalize to 1+delta for a general particle count
+        ntot = sum(v.sum() for v in valid)
+        rho = rho * (float(fpm.Nmesh.prod()) / ntot)
+        if mode == 'gradient':
+            cell = float(fpm.BoxSize[0] / fpm.Nmesh[0])
+            phi = self._potential_mesh(rho)
+            vals = _bn.readout_binned(phi, dslots, valid, bounds=bounds,
+                                      window=kind, diffdir='all')
+            return tuple(tuple(-v * factor / cell for v in slot)
+                         for slot in vals)
+        vals = _bn.readout_binned(self._spectral_meshes(rho), dslots,
+                                  valid, bounds=bounds, window=kind)
+        return tuple(tuple(v * factor for v in slot) for slot in vals)
+
+    def _binned_loop(self, disp, time_steps, rebase_every, step_drift,
+                     factors, scheme, fft, force_mode):
+        """What both binned integrators share: the per-step coefficient
+        triples (0-d tensors on the device, in the state dtype), the
+        paint bounds, the force in cells per slot and one KDK step."""
+        fac = _FACTORS[factors](self.cosmology) \
+            if isinstance(factors, str) else factors
+        dtype, device = disp[0].dtype, disp[0].device
+        K1, D1s, K2 = (torch.as_tensor(a, device=device).to(dtype)
+                       for a in leapfrog_factors(time_steps, fac, scheme))
+        cell = float(self.pm.BoxSize[0] / self.pm.Nmesh[0])
+        drift = float(step_drift) * rebase_every
+        bounds = (-drift, 1.0 + drift)
+
+        def force_cells(dslots, valid):
+            F = self.force_binned(dslots, valid, bounds, fft=fft,
+                                  mode=force_mode)
+            return tuple(tuple(f / cell for f in slot) for slot in F)
+
+        def kdk(dslots, vslots, valid, F, co):
+            k1, d1, k2 = co
+            vslots = tuple(tuple(v + f * k1 for v, f in zip(vk, fk))
+                           for vk, fk in zip(vslots, F))
+            dslots = tuple(tuple(s + v * d1 for s, v in zip(dk, vk))
+                           for dk, vk in zip(dslots, vslots))
+            F = force_cells(dslots, valid)
+            vslots = tuple(tuple(v + f * k2 for v, f in zip(vk, fk))
+                           for vk, fk in zip(vslots, F))
+            return dslots, vslots, F
+
+        return list(zip(K1, D1s, K2)), bounds, force_cells, kdk
+
+    def nbody_binned(self, disp, vel, time_steps, nslots=2, rebase_every=4,
+                     step_drift=0.25, factors='fastpm', scheme='symp2',
+                     fft='xla', force_mode='spectral', adaptive=False):
+        """KDK loop on the binned state with a periodic rebase:
+        displacements stay within (-drift, 1 + drift) cells for ever, so
+        there is no nv^3 cost wall and no silent mass loss (an overflow
+        or an out-of-budget drift poisons the state with NaN and is
+        counted in the returned overflow).
+
+        ``disp``/``vel`` are lattice-form per-axis meshes (cells);
+        ``step_drift`` bounds |velocity * dt| per step, and every
+        ``rebase_every`` steps the state is rebased.  The loop keeps
+        the state, the coefficients and the overflow count on the
+        device, with no host sync.  Returns (dslots, vslots, valid,
+        overflow).
+
+        ``adaptive=True`` measures the needed slot count before every
+        rebase (ops/binned.needed_slots, one integer synced to the host)
+        and grows the state instead of poisoning it; the returned slot
+        count is ``len(dslots)`` and ``self.last_binned_stats`` records
+        the growth events."""
+        _check_force_args(fft, force_mode)
+        if adaptive:
+            return self._nbody_binned_adaptive(
+                disp, vel, time_steps, nslots, rebase_every, step_drift,
+                factors, scheme, fft, force_mode)
+        coeffs, bounds, force_cells, kdk = self._binned_loop(
+            disp, time_steps, rebase_every, step_drift, factors, scheme,
+            fft, force_mode)
+        # the sort-based fold takes any initial excursion in O(N) memory
+        dslots, vslots, valid, overflow = _bn.fold_lattice(disp, vel,
+                                                           nslots=nslots)
+        F = force_cells(dslots, valid)
+        R = int(rebase_every)
+        done = 0
+        while done < len(coeffs):
+            for co in coeffs[done:done + R]:
+                dslots, vslots, F = kdk(dslots, vslots, valid, F, co)
+            done += R
+            # the force is recomputed after the rebase rather than moved
+            # by it: moving F would cost 3 * nslots more meshes
+            del F
+            state = [dslots, vslots, valid]
+            del dslots, vslots, valid
+            dslots, vslots, valid, ov = _rebase_prog(state, bounds)
+            overflow = overflow + ov
+            if done < len(coeffs):
+                F = force_cells(dslots, valid)
+        return dslots, vslots, valid, overflow
+
+    def _nbody_binned_adaptive(self, disp, vel, time_steps, nslots,
+                               rebase_every, step_drift, factors, scheme,
+                               fft, force_mode):
+        """Superstep loop with measured slot growth (see
+        :meth:`nbody_binned`, adaptive=True).  The KDK steps between
+        rebases stay on the device; each rebase boundary syncs the
+        needed slot count to the host."""
+        coeffs, bounds, force_cells, kdk = self._binned_loop(
+            disp, time_steps, rebase_every, step_drift, factors, scheme,
+            fft, force_mode)
+        # the fold measures the needed slot count from the in-cell ranks
+        K = max(nslots, int(_bn.fold_needed(disp)))
+        # an initial fold that already grew the state counts as growth
+        growth_events = int(K > nslots)
+        dslots, vslots, valid, overflow = _bn.fold_lattice(disp, vel,
+                                                           nslots=K)
+        R = int(rebase_every)
+        done = 0
+        while done < len(coeffs):
+            F = force_cells(dslots, valid)
+            for co in coeffs[done:done + R]:
+                dslots, vslots, F = kdk(dslots, vslots, valid, F, co)
+            done += R
+            del F
+            Kout = max(K, int(_bn.needed_slots(dslots, valid, bounds)))
+            growth_events += int(Kout > K)
+            state = [dslots, vslots, valid]
+            del dslots, vslots, valid
+            dslots, vslots, valid, ov = _rebase_prog(state, bounds, Kout)
+            overflow = overflow + ov
+            K = Kout
+        # observability for benches and monitors: how often the state
+        # grew and where it ended up
+        self.last_binned_stats = {'growth_events': growth_events,
+                                  'final_nslots': K,
+                                  'overflow': int(overflow)}
+        return dslots, vslots, valid, overflow
+
+
+def _rebase_prog(state, bounds, nslots_out=None):
+    """One rebase with velocities of a binned state held in the list
+    ``state`` = [dslots, vslots, valid], which it empties.  It takes the
+    place of the JAX package's donated jit program: with no other
+    reference held, the old displacements and validity are freed after
+    the assign and the old velocities after the apply, so the old and
+    new state never coexist for longer than one phase.  Returns
+    (dslots, vslots, valid, overflow)."""
+    dslots, vslots, valid = state
+    state.clear()
+    inner = [dslots, valid, (vslots,)]
+    del dslots, vslots, valid
+    dslots, valid, (vslots,), overflow = _bn._rebase(inner, bounds,
+                                                     nslots_out)
+    return dslots, vslots, valid, overflow

@@ -44,6 +44,7 @@ def test_imports_without_jax():
         "import pmesh_tpu_torch, pmesh_tpu_torch.convert\n"
         "import pmesh_tpu_torch.models.fastpm\n"
         "import pmesh_tpu_torch.ops.gridpm_cuda\n"
+        "import pmesh_tpu_torch.ops.binned_cuda\n"
         "assert not [m for m in sys.modules if m.startswith('jax') and\n"
         "            sys.modules[m] is not None]\n"
         "assert 'pmesh_tpu' not in sys.modules\n")
@@ -57,6 +58,7 @@ def test_imports_without_triton_or_nvcc(tmp_path):
         "sys.modules['triton'] = None\n"
         "import pmesh_tpu_torch\n"
         "from pmesh_tpu_torch.ops import gridpm, gridpm_cuda\n"
+        "from pmesh_tpu_torch.ops import binned, binned_cuda\n"
         "from pmesh_tpu_torch.models import fastpm\n"
         "assert 'triton' not in [m for m in sys.modules\n"
         "                        if sys.modules[m] is not None]\n", env=env)
@@ -74,7 +76,8 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
 
 def test_build_flags_and_sources():
     assert "arch=compute_90a,code=sm_90a" in tcuda.NVCC_FLAGS
-    assert os.path.isfile(os.path.join(tcuda.CSRC, "gridpm.cu"))
+    for name in ("gridpm", "binned"):
+        assert os.path.isfile(os.path.join(tcuda.CSRC, name + ".cu"))
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "pmesh_tpu_torch/_build/" in f.read().split()
 
