@@ -12,16 +12,22 @@ Phases, in order; any failure raises and exits non-zero:
    nvcc per source, all at once;
 3. hold each kernel against its plain PyTorch version on the same
    tensors on the card, and time both: the lattice paint and readout
-   at 512^3 f32 CIC for three displacement bounds (nv = 3 and 5), and
-   the binned rebase assign and apply at 512^3, K = 2 plus velocities,
+   at 512^3 f32 CIC for three displacement bounds (nv = 3 and 5), the
+   binned rebase assign and apply at 512^3, K = 2 plus velocities,
    bitwise, for drift bounds (-0.5, 1.5) with 2 and 3 output slots and
-   (-1, 2);
+   (-1, 2), and the four DFT passes of fft='mxu' on a 512^3 density
+   (the forward zy and x passes, the dual inverse x pass with 1/k^2,
+   the zy inverse with and without the Nyquist plane and the dual zy
+   inverse) and on a (16, 512, 1024) slab, whose z inverse is the z-CT
+   form;
 4. drive the FastPM lattice path at 512^3 f32 through the user's entry
    points: Solver.lpt_lattice (2LPT) then Solver.nbody_lattice (5 KDK
    steps, spectral force) and one gradient-mode force_lattice, with
    the kernels' launch counters read around the run; check that the
    state is finite, that a paint of it conserves mass and that the
-   kernels carried the run; time one KDK step with CUDA events;
+   kernels carried the run; time one KDK step with CUDA events; then
+   the same run with fft='mxu' (the DFT kernels in place of cuFFT),
+   held against the fft='xla' run and timed beside it;
 5. drive the binned path on a clustered state: the 384^3 caustic flow
    through Solver.nbody_binned(adaptive=True), counters read around
    the run; check that the slots grew, that nothing overflowed, that
@@ -29,10 +35,11 @@ Phases, in order; any failure raises and exits non-zero:
    four kernels carried the run;
 6. time the binned path at 512^3, K = 2, occupancy 1: one superstep
    (two KDK steps and a rebase) of Solver.nbody_binned, force_binned
-   in both modes, the rebase alone, and the peak device memory;
-7. run the lattice path at 32^3 and the binned path at 32^3 on the
-   card and on the CPU (plain versions, pocketfft) from the same seed
-   and compare.
+   in both modes (fft='xla' and fft='mxu'), the rebase alone, and the
+   peak device memory;
+7. run the lattice path at 32^3 (fft='xla') and at (256, 256, 16)
+   (fft='mxu'), and the binned path at 32^3, on the card and on the
+   CPU (plain versions, pocketfft) from the same seed and compare.
 
 The second-to-last line is the kernels' JSON record, the last line
 the device record.
@@ -75,7 +82,20 @@ KERNELS = {
                       "pmesh_tpu/ops/binned_pallas.py:375"),
     "rebase_apply": ("pmesh_tpu_torch/csrc/binned.cu",
                      "pmesh_tpu/ops/binned_pallas.py:519"),
+    "zy_fwd_ct2": ("pmesh_tpu_torch/csrc/fft_mxu.cu",
+                   "pmesh_tpu/ops/fft_mxu.py:1088"),
+    "xct_multi": ("pmesh_tpu_torch/csrc/fft_mxu.cu",
+                  "pmesh_tpu/ops/fft_mxu.py:854"),
+    "zy_inv_ct2": ("pmesh_tpu_torch/csrc/fft_mxu.cu",
+                   "pmesh_tpu/ops/fft_mxu.py:1127"),
+    "zy_inv_ct2_dual": ("pmesh_tpu_torch/csrc/fft_mxu.cu",
+                        "pmesh_tpu/ops/fft_mxu.py:1031"),
 }
+# per force on the fft='mxu' path: spectral, gradient
+MXU_PER_FORCE = {"zy_fwd_ct2": (1, 1), "xct_multi": (2, 2),
+                 "zy_inv_ct2": (1, 1), "zy_inv_ct2_dual": (1, 0)}
+MXU_SLAB = (16, 512, 1024)
+MXU_SMALL = (256, 256, 16)
 
 
 def log(*args):
@@ -211,12 +231,126 @@ def phase_compare(dev):
     return records
 
 
-def run_path(pm, dlinear, steps):
+def run_path(pm, dlinear, steps, fft='xla'):
     from pmesh_tpu_torch.models.fastpm import Solver
     solver = Solver(pm)
     disp, vel = solver.lpt_lattice(dlinear, A0, order=2)
-    S, V = solver.nbody_lattice(disp, vel, steps, BOUNDS, fft='xla')
+    S, V = solver.nbody_lattice(disp, vel, steps, BOUNDS, fft=fft)
     return solver, disp, vel, S, V
+
+
+def max_rel(got, ref):
+    """(max over outputs of max|got - ref| / max|ref|, max|got - ref|)"""
+    rels, errs = [], []
+    for g, r in zip(got, ref):
+        err = float((g - r).abs().max())
+        rels.append(err / float(r.abs().max()))
+        errs.append(err)
+    return max(rels), max(errs)
+
+
+def phase_compare_fft(dev):
+    """the four DFT passes of fft='mxu', kernel vs plain, at N^3 (the
+    main path's forms) and on the MXU_SLAB (the z-CT inverse); returns
+    {kernel: record} of each kernel's first N^3 case"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    from pmesh_tpu_torch.ops import gridpm as gp
+    records = {}
+
+    def case(label, kernel, fn):
+        plain = fn('torch')
+        got = fn('cuda')
+        one = isinstance(got, torch.Tensor)
+        rel, err = max_rel((got,) if one else got,
+                           (plain,) if one else plain)
+        del plain
+        ms = cuda_ms(lambda: fn('cuda'), 5)
+        plain_ms = cuda_ms(lambda: fn('torch'), 1)
+        ok = rel <= TOL_KERNEL and np.isfinite(rel)
+        log("phase 3 compare: %-16s %-36s max|k-p|/max|p| = %.3e (tol %.0e)"
+            " %s  kernel %.3f ms  plain %.3f ms"
+            % (kernel, label, rel, TOL_KERNEL, "ok" if ok else "FAIL", ms,
+               plain_ms))
+        if not ok:
+            raise AssertionError("%s disagrees with its plain version (%s)"
+                                 % (kernel, label))
+        rec = records.setdefault(kernel, dict(max_abs_err=err, ms=ms,
+                                              plain_ms=plain_ms))
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        return got
+
+    # the N^3 density of a lattice paint, and the solver's tables
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    shape = (N,) * 3
+    disp = tuple(BOUNDS[0] + (BOUNDS[1] - BOUNDS[0])
+                 * torch.rand(shape, generator=gen, device=dev)
+                 for _ in range(3))
+    rho = gp.paint_grid(disp, bounds=BOUNDS)
+    del disp
+    pm = ParticleMesh([N] * 3, BoxSize=BOX, dtype='f4', device=dev)
+    _, pk2, kd, _ = Solver(pm)._mxu_setup()
+    Zm = N // 2
+    # x and y are both N long: one forward and one inverse CT table
+    wz = fm._cached(fm._z_fwd_tabs, N, Zm)
+    wf, wi = fm._cached(fm._ct_fwd_mats_np, N), fm._cached(
+        fm._ct_inv_mats_np, N)
+    wx_g = fm._cached(fm._ct_inv_mats_np, N, kd[0])
+    wy_g = fm._cached(fm._ct_inv_mats_np, N, kd[1])
+    AB_p = fm._cached(fm._z_inv_tabs, N, Zm)
+    AB_g = fm._cached(fm._z_inv_tabs, N, Zm, kd[2])
+    _, k2m = fm._cached(fm._poisson_tables, pk2, N, N, Zm)
+    pr, pi, nq = case("%d^3 density" % N, "zy_fwd_ct2",
+                      lambda impl: fm._zy_fwd_ct2_call(rho, N, Zm, wz, wf,
+                                                       impl=impl))
+    del rho
+    r, i = case("forward x 1/N^3", "xct_multi",
+                lambda impl: fm._xct_call_multi(
+                    pr, pi, wf, 1.0 / N ** 3, impl=impl))
+    del pr, pi
+    sr, si, gr, gi = case("inverse dual (kx-folded), 1/k^2", "xct_multi",
+                          lambda impl: fm._xct_call_multi(
+                              r, i, wi, 1.0, inverse=True, wx2=wx_g, k2=k2m,
+                              impl=impl))
+    del r, i
+    plane = nq / N ** 3
+    case("fx: plane", "zy_inv_ct2",
+         lambda impl: fm._zy_inv_ct2_call(gr, gi, wi, AB_p, N, plane=plane,
+                                          impl=impl))
+    case("fz: no plane, z-folded dense z", "zy_inv_ct2",
+         lambda impl: fm._zy_inv_ct2_call(sr, si, wi, AB_g, N, impl=impl))
+    case("(fy, fz), plane on A", "zy_inv_ct2_dual",
+         lambda impl: fm._zy_inv_ct2_call_dual(sr, si, wy_g, AB_p, wi, AB_g,
+                                               N, planeA=plane, impl=impl))
+    del sr, si, gr, gi, nq, plane
+    torch.cuda.empty_cache()
+
+    # the slab: z = 1024 takes the fused z-CT inverse
+    n0, N1, n2 = MXU_SLAB
+    Zs = n2 // 2
+    x = 1.0 + 0.3 * torch.randn(MXU_SLAB, generator=gen, device=dev)
+    AB_s = fm._cached(fm._z_inv_tabs, n2, Zs)
+    AB_sg = fm._cached(fm._z_inv_tabs, n2, Zs,
+                       tuple(float(v) for v in np.sin(
+                           np.fft.rfftfreq(n2) * 2 * np.pi)))
+    assert np.ndim(AB_s[0]) == 3
+    wys, wyis = fm._cached(fm._ct_fwd_mats_np, N1), fm._cached(
+        fm._ct_inv_mats_np, N1)
+    pr, pi, nq = case("slab %s" % (MXU_SLAB,), "zy_fwd_ct2",
+                      lambda impl: fm._zy_fwd_ct2_call(
+                          x, n2, Zs, fm._cached(fm._z_fwd_tabs, n2, Zs), wys,
+                          impl=impl))
+    case("slab, z-CT inverse, plane", "zy_inv_ct2",
+         lambda impl: fm._zy_inv_ct2_call(pr, pi, wyis, AB_s, n2, plane=nq,
+                                          impl=impl))
+    case("slab, z-CT inverse, plane on A", "zy_inv_ct2_dual",
+         lambda impl: fm._zy_inv_ct2_call_dual(pr, pi, wyis, AB_s, wyis,
+                                               AB_sg, n2, planeA=nq,
+                                               impl=impl))
+    del x, pr, pi, nq
+    torch.cuda.empty_cache()
+    return records
 
 
 def phase_main(dev):
@@ -262,7 +396,7 @@ def phase_main(dev):
     if launches["paint_lattice"] < nsteps + 1 \
             or launches["readout_lattice"] < 3 * (nsteps + 1):
         raise AssertionError("the kernels did not carry the main path")
-    del S, V, Fg, rho
+    del Fg, rho
 
     # one KDK step: (6-step run - 1-step run) / 5, each from the same
     # LPT state; both runs include lpt_lattice and the initial force
@@ -277,21 +411,90 @@ def phase_main(dev):
     log("phase 4 timing: %.3f ms per KDK step (%d-step run %.3f ms, "
         "1-step run %.3f ms), force_lattice spectral %.3f ms, gradient "
         "%.3f ms" % (step_ms, nsteps, t6, t1, f_spec, f_grad))
-    del solver, disp, vel, dlinear
+    del solver, disp, vel
     torch.cuda.empty_cache()
-    return launches, step_ms
+    return launches, dict(pm=pm, dlinear=dlinear, S=S, V=V, step_ms=step_ms,
+                          f_spec=f_spec, f_grad=f_grad)
 
 
-def phase_small(dev):
-    """32^3: the path on the card (kernels, cuFFT) against the same
-    path on the CPU (plain versions, pocketfft)."""
+def phase_main_mxu(dev, xla):
+    """the phase-4 run with fft='mxu' from the same LPT state: held
+    against the fft='xla' run and timed beside it; returns the launch
+    counts of the run"""
+    from pmesh_tpu_torch.ops import gridpm as gp
+    from pmesh_tpu_torch.ops import fft_mxu_cuda, gridpm_cuda
+    pm, dlinear = xla['pm'], xla['dlinear']
+    nsteps = len(STEPS) - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gridpm_cuda.reset_launches()
+    fft_mxu_cuda.reset_launches()
+    t0 = time.perf_counter()
+    solver, disp, vel, S, V = run_path(pm, dlinear, STEPS, fft='mxu')
+    Fg = solver.force_lattice(S, BOUNDS, mode='gradient', fft='mxu')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fft_mxu_cuda.LAUNCHES)
+    lattice = dict(gridpm_cuda.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    finite = all(bool(torch.isfinite(x).all()) for x in S + V + Fg)
+    rho = gp.paint_grid(S, bounds=BOUNDS)
+    mass_err = abs(float(rho.double().sum()) - N ** 3) / N ** 3
+    del rho, Fg
+    # against max|S| and max|V| over the three components
+    smax = max(float(s.abs().max()) for s in xla['S'])
+    vmax = max(float(v.abs().max()) for v in xla['V'])
+    dS = max(float((a - b).abs().max()) for a, b in zip(S, xla['S'])) / smax
+    dV = max(float((a - b).abs().max()) for a, b in zip(V, xla['V'])) / vmax
+    need = {k: (nsteps + 1) * sp + gr for k, (sp, gr) in MXU_PER_FORCE.items()}
+    log("phase 4 main path, fft='mxu': the same run (%d KDK steps + 1 "
+        "gradient force) in %.3f s (first run), finite %s, mass error %.3e "
+        "(tol %.0e), against fft='xla' max|dS|/max|S| = %.3e, "
+        "max|dV|/max|V| = %.3e (tol %.0e), launches %s (need %s) and %s, "
+        "peak %.2f GB"
+        % (nsteps, wall, finite, mass_err, TOL_MASS, dS, dV, TOL_SMALL,
+           json.dumps(launches), json.dumps(need), json.dumps(lattice),
+           peak_gb))
+    if not (finite and mass_err <= TOL_MASS):
+        raise AssertionError("the fft='mxu' state is not finite or its "
+                             "paint does not conserve mass")
+    if not (dS <= TOL_SMALL and dV <= TOL_SMALL):
+        raise AssertionError("fft='mxu' and fft='xla' disagree")
+    if any(launches[k] < need[k] for k in need) \
+            or lattice["paint_lattice"] < nsteps + 1:
+        raise AssertionError("the DFT kernels did not carry the mxu path")
+    del S, V, xla['S'], xla['V']
+
+    def run(nst):
+        return lambda: run_path(pm, dlinear, STEPS[:nst + 1], fft='mxu')
+    t1 = cuda_ms(run(1), 1)
+    t6 = cuda_ms(run(nsteps), 1)
+    step_ms = (t6 - t1) / (nsteps - 1)
+    f_spec = cuda_ms(lambda: solver.force_lattice(disp, BOUNDS, fft='mxu'),
+                     3)
+    f_grad = cuda_ms(lambda: solver.force_lattice(
+        disp, BOUNDS, mode='gradient', fft='mxu'), 3)
+    log("phase 4 timing, fft='mxu': %.3f ms per KDK step (fft='xla' %.3f; "
+        "%d-step run %.3f ms, 1-step run %.3f ms), force_lattice spectral "
+        "%.3f ms (xla %.3f), gradient %.3f ms (xla %.3f)"
+        % (step_ms, xla['step_ms'], nsteps, t6, t1, f_spec, xla['f_spec'],
+           f_grad, xla['f_grad']))
+    del solver, disp, vel
+    xla.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_small(dev, shape=(32,) * 3, box=64.0, fft='xla'):
+    """a small lattice run on the card (kernels; cuFFT or the DFT
+    kernels) against the same run on the CPU (plain versions)."""
     from pmesh_tpu_torch import ParticleMesh, RealField
     from pmesh_tpu_torch.models.fastpm import Solver
-    n = 32
-    noise = np.random.RandomState(SEED).normal(size=(n,) * 3).astype('f4')
+    noise = np.random.RandomState(SEED).normal(size=shape).astype('f4')
     out = {}
     for device in ('cpu', dev):
-        pm = ParticleMesh([n] * 3, BoxSize=64.0, dtype='f4',
+        pm = ParticleMesh(list(shape), BoxSize=box, dtype='f4',
                           resampler='cic', device=device)
         dk = pm.create(type=RealField,
                        value=torch.from_numpy(noise).to(device)).r2c()
@@ -299,7 +502,7 @@ def phase_small(dev):
             k.normp(2) > 0, k.normp(2, zeromode=1.0) ** -0.25, 0.0))
         solver = Solver(pm)
         disp, vel = solver.lpt_lattice(dk, A0, order=2)
-        S, V = solver.nbody_lattice(disp, vel, STEPS[:4], BOUNDS)
+        S, V = solver.nbody_lattice(disp, vel, STEPS[:4], BOUNDS, fft=fft)
         out[str(device)] = [x.cpu().numpy() for x in S + V]
     ref, got = out['cpu'], out[str(dev)]
     smax = max(np.abs(s).max() for s in ref[:3])
@@ -308,12 +511,13 @@ def phase_small(dev):
     verr = max(np.abs(a - b).max() for a, b in zip(ref[3:], got[3:])) / vmax
     ok = (np.isfinite(err) and err <= TOL_SMALL and verr <= TOL_SMALL
           and 0.01 < smax < BOUNDS[1])
-    log("phase 7 small input: 32^3 lattice 3 KDK steps, card vs CPU "
+    log("phase 7 small input: %s lattice fft=%r 3 KDK steps, card vs CPU "
         "max|dS|/max|S| = %.3e, max|dV|/max|V| = %.3e (tol %.0e), "
         "max|S| %.4f %s"
-        % (err, verr, TOL_SMALL, smax, "ok" if ok else "FAIL"))
+        % (shape, fft, err, verr, TOL_SMALL, smax, "ok" if ok else "FAIL"))
     if not ok:
-        raise AssertionError("the card and the CPU disagree at 32^3")
+        raise AssertionError("the card and the CPU disagree at %s, fft=%r"
+                             % (shape, fft))
 
 
 def rebase_state(dev, gen, n, drift):
@@ -517,6 +721,11 @@ def phase_binned_timed(dev, n=N):
     f_grad = cuda_ms(lambda: solver.force_binned(dsl, valid, bounds,
                                                  mode='gradient'), 3)
     t_reb = cuda_ms(lambda: bn.rebase(dsl, valid, bounds, extras=(vsl,)), 3)
+    m_spec = cuda_ms(lambda: solver.force_binned(dsl, valid, bounds,
+                                                 fft='mxu'), 3)
+    m_grad = cuda_ms(lambda: solver.force_binned(dsl, valid, bounds,
+                                                 fft='mxu', mode='gradient'),
+                     3)
     superstep = t4 - t2
     log("phase 6 binned, timed: %d^3 K=2 occupancy 1 bounds %s: %.3f ms per"
         " KDK step (superstep %.3f ms = 2 KDK + rebase + 1 force; 4-step "
@@ -525,6 +734,9 @@ def phase_binned_timed(dev, n=N):
         "overflow 0 and finite: %s"
         % (n, bounds, superstep / 2, superstep, t4, t2, f_spec, f_grad,
            t_reb, peak_gb, ok))
+    log("phase 6 binned, fft='mxu': %d^3 K=2 force_binned spectral %.3f ms"
+        " (xla %.3f), gradient %.3f ms (xla %.3f)"
+        % (n, m_spec, f_spec, m_grad, f_grad))
     if not ok:
         raise AssertionError("the timed binned run overflowed or is not "
                              "finite")
@@ -576,15 +788,20 @@ def main():
     phase_build()
     records = phase_compare(dev)
     records.update(phase_compare_rebase(dev))
-    launches, _ = phase_main(dev)
+    records.update(phase_compare_fft(dev))
+    launches, xla = phase_main(dev)
+    mxu_launches = phase_main_mxu(dev, xla)
     binned_launches = phase_binned_clustered(dev)
     phase_binned_timed(dev)
     phase_small(dev)
+    phase_small(dev, MXU_SMALL, np.asarray(MXU_SMALL, float), 'mxu')
     phase_small_binned(dev)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         # each kernel's launches on its own path's main run
-        count = launches.get(name, binned_launches[name])
+        count = launches.get(name, mxu_launches.get(name))
+        if count is None:
+            count = binned_launches[name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=count,
                             **records[name]))

@@ -13,10 +13,13 @@ state, the coefficients and the poison checks on the device, with no
 host sync inside a step.
 
 One force is: lattice paint -> r2c -> three spectral force filters and
-c2r (or one Poisson potential) -> lattice readouts.  The FFTs are
-``torch.fft`` (the JAX package's ``fft='xla'``); paint, readout and
-rebase run the hand CUDA kernels for CUDA tensors (``ops/gridpm.py``,
-``ops/binned.py``).
+c2r (or one Poisson potential) -> lattice readouts.  With ``fft='xla'``
+the FFTs are ``torch.fft``; with ``fft='mxu'`` (f32, ct2 shapes) they
+are the split-Nyquist Cooley-Tukey DFT passes of ``ops/fft_mxu.py``,
+with the 1/k^2 filter and the SuperLanczos i*k_d folded into the
+inverse.  Paint, readout, rebase and the DFT passes run the hand CUDA
+kernels for CUDA tensors (``ops/gridpm.py``, ``ops/binned.py``,
+``ops/fft_mxu.py``).
 """
 import numpy as np
 import torch
@@ -25,6 +28,7 @@ from ..pm import ParticleMesh, RealField
 from ..ops import transfer as tf
 from ..ops import gridpm as _gp
 from ..ops import binned as _bn
+from ..ops import fft_mxu as _fm
 from .cosmology import Planck15
 
 __all__ = ["Solver", "leapfrog_factors", "FastPM", "Quinn", "TVE", "VTE",
@@ -130,15 +134,21 @@ def leapfrog_factors(time_steps, factors, scheme='symp2'):
             np.asarray(Ks2, dtype='f8'))
 
 
-_MXU = ("fft='mxu*' needs the MXU DFT kernels, which are not ported "
-        "yet (ROADMAP queue 2, rows 5-8); use fft='xla' (torch.fft)")
+_BF16 = ("fft=%r (bf16 DFT products or bf16 spectrum storage) is not "
+         "ported yet (ROADMAP queue 1, item 12); use fft='mxu' (f32) or "
+         "fft='xla'")
+_DENSE = ("fft='mxu' at the non-ct2 shape %s needs the dense DFT kernels "
+          "fft3_real_forward_half / fft3_real_inverse_grad3_half "
+          "(kernel-table rows 3 and 4), not ported yet (ROADMAP queue 1, "
+          "item 13); use fft='xla', or x/y lengths R*128k and an even z")
 
 
 def _check_force_args(fft, mode):
-    if fft in ('mxu', 'mxu_bf16', 'mxu_bf16s'):
-        raise NotImplementedError(_MXU)
-    if fft != 'xla':
-        raise ValueError("unknown fft backend %r (use 'xla')" % (fft,))
+    if fft in ('mxu_bf16', 'mxu_bf16s'):
+        raise NotImplementedError(_BF16 % (fft,))
+    if fft not in ('xla', 'mxu'):
+        raise ValueError("unknown fft backend %r (use 'xla' or 'mxu')"
+                         % (fft,))
     if mode not in ('spectral', 'gradient'):
         raise ValueError("mode must be 'spectral' or 'gradient'")
 
@@ -218,7 +228,9 @@ class Solver(object):
             'spectral' differentiates in k-space (three inverse FFTs);
             'gradient' takes one Poisson potential and the
             derivative-window readout.
-        fft : 'xla' (torch.fft here); the 'mxu' family raises.
+        fft : 'xla' (torch.fft) or 'mxu' (the ct2 DFT passes, f32;
+            the gradient mode takes the field path at non-ct2 shapes,
+            the spectral mode raises there).
 
         Returns the ndim force meshes (box-unit acceleration).
         """
@@ -234,12 +246,12 @@ class Solver(object):
 
         rho = _gp.paint_grid(disp, bounds=bounds, window=kind)
         if mode == 'spectral':
-            vals = _gp.readout_grid(self._spectral_meshes(rho), disp,
+            vals = _gp.readout_grid(self._spectral_meshes(rho, fft), disp,
                                     bounds=bounds, window=kind)
         else:
             # F_d = -d(phi)/dx_d; the diffdir readout is the derivative
             # in cell units, so F_d = -readout_d / cell
-            phi = self._potential_mesh(rho)
+            phi = self._potential_mesh(rho, fft)
             if fpm.ndim == 3:
                 rds = _gp.readout_grid(phi, disp, bounds=bounds,
                                        window=kind, diffdir='all')
@@ -250,19 +262,88 @@ class Solver(object):
             vals = tuple(-r / cell for r in rds)
         return tuple(v * factor for v in vals)
 
-    def _potential_mesh(self, rho):
+    def _potential_mesh(self, rho, fft='xla'):
         """The (tf.poisson-signed) potential of a painted 1+delta
-        density, shared by the lattice and binned gradient-mode
-        forces."""
-        return self.fpm.create(type=RealField, value=rho).r2c() \
-            .apply(tf.poisson()).c2r().value
+        density, shared by the lattice and binned gradient-mode forces:
+        the ct2 DFT route for fft='mxu' on an f32 3-d mesh of a ct2
+        shape (one x pass and one zy inverse), else the field path."""
+        phi = None
+        if fft == 'mxu' and self.fpm.ndim == 3 \
+                and rho.dtype == torch.float32:
+            phi = self._mxu_potential(rho)
+        if phi is None:
+            phi = self.fpm.create(type=RealField, value=rho).r2c() \
+                .apply(tf.poisson()).c2r().value
+        return phi
 
-    def _spectral_meshes(self, rho):
+    def _spectral_meshes(self, rho, fft='xla'):
         """The ndim directional force meshes of a painted 1+delta
         density, shared by the lattice and binned spectral forces."""
+        if fft == 'mxu':
+            if self.fpm.ndim != 3:
+                raise ValueError("fft='mxu' is 3-d only")
+            if rho.dtype != torch.float32:
+                raise ValueError(
+                    "fft='mxu' computes in f32; use a dtype='f4' mesh or "
+                    "fft='xla' for f64 runs")
+            return self._mxu_force_raw(rho)
         rhok = self.fpm.create(type=RealField, value=rho).r2c()
         return tuple(rhok.apply(tf.force_transfer(d)).c2r().value
                      for d in range(self.fpm.ndim))
+
+    def _mxu_setup(self):
+        """The static tables of the fft='mxu' paths: the mesh shape,
+        the per-axis k^2 tables (f4, natural order; z over the half axis)
+        as tuples of floats, the SuperLanczos difference kernels k_d (f8
+        tuples, zero at Nyquist, as the half-spectrum gradient needs) and
+        whether the shape takes the ct2 pipeline."""
+        fpm = self.fpm
+        shape = tuple(int(n) for n in fpm.Nmesh)
+        if not hasattr(self, '_mxu_cache'):
+            ks = [np.fft.fftfreq(n, d=float(b) / n) * 2 * np.pi
+                  for n, b in zip(shape[:2], fpm.BoxSize[:2])]
+            ks.append(np.fft.rfftfreq(
+                shape[2], d=float(fpm.BoxSize[2]) / shape[2]) * 2 * np.pi)
+            # the SuperLanczos order-1 difference kernel of
+            # tf.force_transfer
+            kd = []
+            for d, n in enumerate(shape):
+                cell = float(fpm.BoxSize[d]) / n
+                w = ks[d] * cell
+                kd.append(tuple(
+                    (1.0 / (6.0 * cell)
+                     * (8 * np.sin(w) - np.sin(2 * w))).tolist()))
+            pk2 = tuple(tuple(float(v) for v in (k ** 2).astype('f4'))
+                        for k in ks)
+            self._mxu_cache = (pk2, tuple(kd))
+        pk2, kd = self._mxu_cache
+        return shape, pk2, kd, _fm.is_ct2(shape)
+
+    def _mxu_potential(self, rho):
+        """The Poisson potential through the ct2 DFT passes, or None
+        at shapes that are not ct2 (the caller takes the field path)."""
+        if not self._mxu_setup()[3]:
+            return None
+        return self._mxu_potential_raw(rho)
+
+    def _mxu_potential_raw(self, rho):
+        shape, pk2, kd, ct = self._mxu_setup()
+        r, i, nqr, nqi = _fm.fft3_real_forward_half_ct2(rho)
+        return _fm.fft3_poisson_half_ct2(r, i, nqr, nqi, n2=shape[2],
+                                         poisson_k2=pk2)
+
+    def _mxu_force_raw(self, rho, only=None):
+        """The spectral force meshes through the ct2 DFT passes: one
+        forward, then the 1/k^2 filter and the i*k_d force kernel folded
+        into the inverse x pass and the per-axis inverse tables.  ``only``
+        = d gives that direction alone (one x pass and one zy inverse),
+        for the transpose of the operator."""
+        shape, pk2, kd, ct = self._mxu_setup()
+        if not ct:
+            raise NotImplementedError(_DENSE % (shape,))
+        r, i, nqr, nqi = _fm.fft3_real_forward_half_ct2(rho)
+        return _fm.fft3_real_inverse_grad3_half_ct2(
+            r, i, nqr, nqi, n2=shape[2], kvecs=kd, poisson_k2=pk2, only=only)
 
     def nbody_lattice(self, disp, vel, time_steps, bounds,
                       factors='fastpm', scheme='symp2',
@@ -331,12 +412,12 @@ class Solver(object):
         rho = rho * (float(fpm.Nmesh.prod()) / ntot)
         if mode == 'gradient':
             cell = float(fpm.BoxSize[0] / fpm.Nmesh[0])
-            phi = self._potential_mesh(rho)
+            phi = self._potential_mesh(rho, fft)
             vals = _bn.readout_binned(phi, dslots, valid, bounds=bounds,
                                       window=kind, diffdir='all')
             return tuple(tuple(-v * factor / cell for v in slot)
                          for slot in vals)
-        vals = _bn.readout_binned(self._spectral_meshes(rho), dslots,
+        vals = _bn.readout_binned(self._spectral_meshes(rho, fft), dslots,
                                   valid, bounds=bounds, window=kind)
         return tuple(tuple(v * factor for v in slot) for slot in vals)
 

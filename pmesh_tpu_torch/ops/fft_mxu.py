@@ -1,0 +1,730 @@
+"""The split-Nyquist Cooley-Tukey DFT-as-matmul FFT of ``fft='mxu'``.
+
+Counterpart of the ct2 part of ``pmesh_tpu/ops/fft_mxu.py``: a real
+(N0, N1, N2) mesh whose x and y lengths split as R * M (R in {8, 4, 2},
+M a multiple of 128) and whose z length is even is transformed by
+small dense DFT matrices wrapped in R-way butterflies:
+
+  pass 1 (``_zy_fwd_ct2_call``, kernel-table row 6): per x-plane, the
+      z half-DFT (dense, or z-CT when ``_use_zct_fwd``) to Zm = N2 // 2
+      modes, then the y CT; the z-Nyquist column leaves as a raw
+      alternating row sum;
+  pass 2 (``_xct_call_multi``, row 5): the x CT, forward x scale or
+      inverse, with an optional second table set on the same input and
+      an optional 1/k^2 fold from three 1-d tables;
+  inverse (``_zy_inv_ct2_call``, row 7, and ``_zy_inv_ct2_call_dual``,
+      row 8): the inverse y CT then the z half -> real, optionally plus
+      the inverted Nyquist plane with weights (-1)^n.
+
+The layout is the JAX package's: slot ``j * M + q`` of the x and y axes
+holds mode ``j + R * q`` (``_ct_permute``), z is stored in the order of
+``_zct_perm`` when the z-CT gate is on, and the z-Nyquist plane is a
+separate (N0, N1) pair in natural order.  Complex data is carried as
+(real, imag) f32 pairs.  The forward transform is scaled by
+1/(N0 N1 N2) and the inverse is unnormalized, as ``ops/fft.py``.
+
+Each of the four passes has a plain PyTorch version here (``*_plain``,
+batched matmuls; the CPU path and the reference the kernels are held
+against) and a hand CUDA kernel (``ops/fft_mxu_cuda.py``,
+``csrc/fft_mxu.cu``).  ``impl=None`` takes the kernel for CUDA tensors
+and the plain version for CPU tensors; ``impl='cuda'`` on a CPU tensor
+raises and nothing falls back.  The small (N0, N1) Nyquist-plane DFTs
+(``_plane_fft2``) stay ``torch.matmul``, as the JAX package leaves them
+to XLA outside its kernels.
+
+Left out on purpose: the TPU tuning (``TUNE``, the block-size pickers,
+the compiler parameters), the bf16 matmul precision (``fft='mxu_bf16'``)
+and the bf16 spectrum storage (``fft='mxu_bf16s'``).
+"""
+import numpy as np
+import torch
+
+__all__ = ["fft3_real_forward_half_ct2", "fft3_real_inverse_grad3_half_ct2",
+           "fft3_poisson_half_ct2", "is_ct2"]
+
+
+# --- static tables (numpy, the JAX package's math) ---------------------------
+
+def _dft_np(n, sign):
+    k = np.arange(n)
+    W = np.exp(sign * 2j * np.pi * np.outer(k, k) / n)
+    return W.real.astype(np.float32), W.imag.astype(np.float32)
+
+
+def _dft_half_np(n, zh):
+    k = np.arange(n)[:, None] * np.arange(zh)[None, :]
+    W = np.exp(-2j * np.pi * k / n)
+    return W.real.astype(np.float32), W.imag.astype(np.float32)
+
+
+def _irfft_mats_np(n, zh, grad_kvec=None, nyquist_last=True):
+    """(A, B) with out = Zr @ A + Zi @ B reconstructing the real inverse
+    along z; grad_kvec folds an extra i*k_z factor.  nyquist_last=False:
+    the zh columns exclude the Nyquist mode (the split-Nyquist pipeline
+    handles it separately)."""
+    m = np.full(zh, 2.0)
+    m[0] = 1.0
+    if n % 2 == 0 and nyquist_last:
+        m[-1] = 1.0
+    theta = 2 * np.pi * np.arange(zh)[:, None] * np.arange(n)[None, :] / n
+    c = np.cos(theta) * m[:, None]
+    s_ = np.sin(theta) * m[:, None]
+    if grad_kvec is None:
+        A, B = c, -s_
+    else:
+        kz = np.asarray(grad_kvec, dtype=np.float64)[:, None]
+        A, B = -kz * s_, -kz * c
+    return A.astype(np.float32), B.astype(np.float32)
+
+
+def _zct_factor(N2):
+    """(Rz, K, Mq): Rz forward chunks, contraction K = N2 // Rz,
+    Mq = Zm // Rz stored modes per chunk.  (1, N2, Zm) = stay dense."""
+    for Rz in (8, 4, 2):
+        if N2 % (2 * Rz) == 0 and (N2 // Rz) % 128 == 0:
+            return Rz, N2 // Rz, (N2 // 2) // Rz
+    return 1, N2, N2 // 2
+
+
+def _zct_order(Rz):
+    """storage order of the forward z chunks: {j, j + Rz/2} pairs
+    adjacent, so the Ri = Rz/2 inverse reads contiguous columns."""
+    if Rz % 2 == 0 and Rz > 2:
+        out = []
+        for j in range(Rz // 2):
+            out += [j, j + Rz // 2]
+        return out
+    return list(range(Rz))
+
+
+def _use_zct_fwd(N2, Zm):
+    Rz, K, Mq = _zct_factor(N2)
+    return Rz > 1 and Zm == N2 // 2
+
+
+def _use_zct_inv(N2, Zm):
+    if not _use_zct_fwd(N2, Zm):
+        return False
+    Rz, K, Mq = _zct_factor(N2)
+    return Rz == 8 and ((N2 // 2) // (Rz // 2)) % 128 == 0
+
+
+def _zct_perm(N2):
+    """stored slot of each natural z mode k (k < Zm)."""
+    Rz, K, Mq = _zct_factor(N2)
+    order = _zct_order(Rz)
+    pos = np.empty(Rz, np.int64)
+    for p, j in enumerate(order):
+        pos[j] = p
+    k = np.arange(N2 // 2)
+    return pos[k % Rz] * Mq + k // Rz
+
+
+def _zct_table(N2, table):
+    """reorder a natural-order z-mode table (len >= Zm) into the stored
+    slot order: stored[s] holds table[k(s)]."""
+    Zm = N2 // 2
+    t = np.asarray(table)[:Zm]
+    out = np.empty_like(t)
+    out[_zct_perm(N2)] = t
+    return out
+
+
+def _zct_fwd_mats_np(N2):
+    """(Er, Ei) of shape (Rz, K, Mq) in storage order: X_block_p =
+    u_{order[p]} @ (Er[p] + i Ei[p])."""
+    Rz, K, Mq = _zct_factor(N2)
+    Er = np.empty((Rz, K, Mq), np.float32)
+    Ei = np.empty((Rz, K, Mq), np.float32)
+    m = np.arange(K)
+    for p, j in enumerate(_zct_order(Rz)):
+        q = np.arange(Mq)
+        E = np.exp(-2j * np.pi * np.outer(m, j + Rz * q) / N2)
+        Er[p] = E.real
+        Ei[p] = E.imag
+    return Er, Ei
+
+
+def _zct_inv_mats_np(N2, grad_kvec=None, negate=False):
+    """(A, B) of shape (Ri, Kin, Kb) consuming the stored-order
+    spectrum: inverse chunk j reads stored columns [j*Kin, (j+1)*Kin).
+    grad_kvec folds i*k_z (natural-order table); negate folds an overall
+    -1 (the Poisson potential sign)."""
+    Rz, K, Mq = _zct_factor(N2)
+    Ri = Rz // 2 if Rz == 8 else Rz
+    Kin = (N2 // 2) // Ri
+    Kb = N2 // Ri
+    order = _zct_order(Rz)
+    A = np.empty((Ri, Kin, Kb), np.float32)
+    B = np.empty((Ri, Kin, Kb), np.float32)
+    m = np.arange(Kb)
+    for j4 in range(Ri):
+        # the storage blocks whose forward residue j8 == j4 (mod Ri), in
+        # storage order: contiguous by construction of _zct_order
+        blocks = [j8 for j8 in order if j8 % Ri == j4]
+        ks = np.concatenate([j8 + Rz * np.arange(Mq) for j8 in blocks])
+        w = np.where(ks == 0, 1.0, 2.0)
+        th = 2 * np.pi * np.outer(ks, m) / N2
+        c = np.cos(th) * w[:, None]
+        s = np.sin(th) * w[:, None]
+        if grad_kvec is None:
+            Aj, Bj = c, -s
+        else:
+            kz = np.asarray(grad_kvec, np.float64)[ks][:, None]
+            Aj, Bj = -kz * s, -kz * c
+        if negate:
+            Aj, Bj = -Aj, -Bj
+        A[j4], B[j4] = Aj, Bj
+    return A, B
+
+
+def _z_fwd_tabs(N2, Zm):
+    """forward z tables: z-CT (Er, Ei) 3-d when gated, else the dense
+    half-DFT pair (2-d); the passes dispatch on ndim."""
+    if _use_zct_fwd(N2, Zm):
+        return _zct_fwd_mats_np(N2)
+    return _dft_half_np(N2, Zm)
+
+
+def _z_inv_tabs(n2, Zm, grad_kvec=None, negate=False):
+    """inverse z tables matching the _z_fwd_tabs storage order: z-CT
+    (A, B) 3-d when the fused inverse pays, else dense irfft matrices
+    with rows permuted to the stored order."""
+    if _use_zct_inv(n2, Zm):
+        return _zct_inv_mats_np(n2, grad_kvec=grad_kvec, negate=negate)
+    gk = None if grad_kvec is None else np.asarray(grad_kvec)[:Zm]
+    A, B = _irfft_mats_np(n2, Zm, grad_kvec=gk, nyquist_last=False)
+    if _use_zct_fwd(n2, Zm):
+        perm = _zct_perm(n2)
+        Ap = np.empty_like(A)
+        Bp = np.empty_like(B)
+        Ap[perm] = A
+        Bp[perm] = B
+        A, B = Ap, Bp
+    if negate:
+        A, B = -A, -B
+    return A, B
+
+
+def _ct_factor(n):
+    """(R, M) split: the largest radix in {8, 4, 2} keeping M a multiple
+    of 128.  (1, n) means no split."""
+    for R in (8, 4, 2):
+        if n % R == 0 and (n // R) % 128 == 0:
+            return R, n // R
+    return 1, n
+
+
+def _ct_permute(n):
+    """slot index of each mode: mode k is stored at slot
+    (k % R) * M + k // R, so ``natural[k] = stored[_ct_permute(n)[k]]``."""
+    R, M = _ct_factor(n)
+    k = np.arange(n)
+    return (k % R) * M + k // R
+
+
+def _ct_table(n, table):
+    """reorder a natural-order per-axis table into the stored order:
+    slot j*M + q holds mode j + R*q."""
+    R, M = _ct_factor(n)
+    s = np.arange(n)
+    return np.asarray(table)[(s // M) + R * (s % M)]
+
+
+def _ct_fwd_mats_np(n):
+    """per-chunk forward matrices (R, M, M): W_j[q, m] =
+    W_M^{qm} * W_N^{mj} (twiddle in the columns)."""
+    R, M = _ct_factor(n)
+    q = np.arange(M)
+    m = np.arange(M)
+    Wr = np.empty((R, M, M), np.float32)
+    Wi = np.empty((R, M, M), np.float32)
+    for j in range(R):
+        W = np.exp(-2j * np.pi * (np.outer(q, m) / M + m[None, :] * j / n))
+        Wr[j] = W.real
+        Wi[j] = W.imag
+    return Wr, Wi
+
+
+def _ct_inv_mats_np(n, fold_kvec=None):
+    """per-chunk inverse matrices (R, M, M): W_j[m, q] =
+    W_M^{-mq} * W_N^{-mj}, optionally with diag(i * k_perm_j) folded
+    into the columns."""
+    R, M = _ct_factor(n)
+    q = np.arange(M)
+    m = np.arange(M)
+    Wr = np.empty((R, M, M), np.float32)
+    Wi = np.empty((R, M, M), np.float32)
+    kv = None if fold_kvec is None else np.asarray(fold_kvec, np.float64)
+    for j in range(R):
+        W = np.exp(2j * np.pi * (np.outer(m, q) / M + m[:, None] * j / n))
+        if kv is not None:
+            W = W * (1j * kv[j + R * q])[None, :]
+        Wr[j] = W.real
+        Wi[j] = W.imag
+    return Wr, Wi
+
+
+def _butter(R, sign):
+    """numpy complex butterfly constants W_R^{sign * r j}."""
+    r = np.arange(R)
+    return np.exp(sign * 2j * np.pi * np.outer(r, r) / R)
+
+
+def _poisson_tables(poisson_k2, N0, N1, Zm):
+    """the 1/k^2 tables of the ct2 inverse entry points: the DC-zeroed
+    inverse filter of the (N0, N1) Nyquist plane (numpy f32) and the
+    storage-permuted 1-d tables folded into the x pass."""
+    k2p = (np.asarray(poisson_k2[0], np.float32)[:, None]
+           + np.asarray(poisson_k2[1], np.float32)[None, :]
+           + np.float32(poisson_k2[2][Zm]))
+    invk2p = np.where(k2p > 0, 1.0 / np.where(k2p > 0, k2p, 1.0),
+                      0.0).astype(np.float32)
+    k2z = np.asarray(poisson_k2[2][:Zm], np.float32)
+    if _use_zct_fwd(2 * Zm, Zm):
+        k2z = _zct_table(2 * Zm, k2z).astype(np.float32)
+    k2m = (_ct_table(N0, poisson_k2[0]).astype(np.float32),
+           _ct_table(N1, poisson_k2[1]).astype(np.float32),
+           k2z)
+    return invk2p, k2m
+
+
+_CACHE = {}
+
+
+def _cached(fn, *args):
+    """fn(*args) built once per hashable argument tuple: the public
+    operators use the same numpy objects call after call, so each table
+    is uploaded once per device (``_on_device``)."""
+    key = (fn.__name__,) + args
+    if key not in _CACHE:
+        _CACHE[key] = fn(*args)
+    return _CACHE[key]
+
+
+_DEVICE_COPIES = {}
+
+
+def _on_device(a, device):
+    """the f32 copy of numpy table ``a`` on ``device``, made once per
+    table object and device: no host-to-device copy, which would stall
+    the host, inside a step."""
+    key = (id(a), str(device))
+    hit = _DEVICE_COPIES.get(key)
+    if hit is None or hit[0] is not a:
+        hit = (a, torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                  device=device))
+        _DEVICE_COPIES[key] = hit
+    return hit[1]
+
+
+def _f32(table):
+    return np.asarray(table, np.float32)
+
+
+def is_ct2(shape):
+    """whether a 3-d mesh shape takes the split-Nyquist CT pipeline:
+    x and y lengths R * 128k, z length even."""
+    N0, N1, N2 = (int(n) for n in shape)
+    return _ct_factor(N0)[0] > 1 and _ct_factor(N1)[0] > 1 and N2 % 2 == 0
+
+
+# --- plain PyTorch versions of the four passes -------------------------------
+
+def _t(a, like):
+    return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                           device=like.device)
+
+
+def _signs(n, like):
+    """(-1)^j for j < n, f32 on ``like``'s device."""
+    return _t(np.where(np.arange(n) % 2 == 0, 1.0, -1.0), like)
+
+
+def _cmadd(acc, xr, xi, c):
+    """acc (r, i) += c * (xr + i xi) for a numpy complex constant c,
+    skipping the zero terms as the JAX package does."""
+    ar, ai = acc
+    cr, ci = float(np.real(c)), float(np.imag(c))
+
+    def term(coef, a, b):
+        if a is None or abs(coef) < 1e-30:
+            return b
+        t = a if abs(coef - 1) < 1e-12 else (
+            -a if abs(coef + 1) < 1e-12 else a * coef)
+        return t if b is None else b + t
+
+    ar = term(cr, xr, ar)
+    ar = term(-ci, xi, ar)
+    ai = term(ci, xr, ai)
+    ai = term(cr, xi, ai)
+    return ar, ai
+
+
+def _ct_fwd_plain(xr, xi, wr, wi):
+    """CT transform along axis -2 of (..., n, C): xi may be None (real
+    input); wr/wi are (R, M, M) tensors.  Chunk-permuted output."""
+    R, M = wr.shape[0], wr.shape[1]
+    B = _butter(R, -1)
+    xs_r = [xr[..., r * M:(r + 1) * M, :] for r in range(R)]
+    xs_i = [None if xi is None else xi[..., r * M:(r + 1) * M, :]
+            for r in range(R)]
+    outs_r, outs_i = [], []
+    for j in range(R):
+        acc = (None, None)
+        for r in range(R):
+            acc = _cmadd(acc, xs_r[r], xs_i[r], B[r, j])
+        ur, ui = acc
+        if ui is None:
+            outs_r.append(torch.matmul(wr[j], ur))
+            outs_i.append(torch.matmul(wi[j], ur))
+        else:
+            outs_r.append(torch.matmul(wr[j], ur) - torch.matmul(wi[j], ui))
+            outs_i.append(torch.matmul(wr[j], ui) + torch.matmul(wi[j], ur))
+    return torch.cat(outs_r, -2), torch.cat(outs_i, -2)
+
+
+def _ct_inv_plain(xr, xi, wr, wi):
+    """inverse CT along axis -2 of chunk-permuted (..., n, C); natural
+    order out."""
+    R, M = wr.shape[0], wr.shape[1]
+    B = _butter(R, +1)
+    ys = []
+    for j in range(R):
+        pr = xr[..., j * M:(j + 1) * M, :]
+        pi = xi[..., j * M:(j + 1) * M, :]
+        ys.append((torch.matmul(wr[j], pr) - torch.matmul(wi[j], pi),
+                   torch.matmul(wr[j], pi) + torch.matmul(wi[j], pr)))
+    outs_r, outs_i = [], []
+    for r in range(R):
+        acc = (None, None)
+        for j in range(R):
+            acc = _cmadd(acc, ys[j][0], ys[j][1], B[r, j])
+        outs_r.append(acc[0])
+        outs_i.append(acc[1])
+    return torch.cat(outs_r, -2), torch.cat(outs_i, -2)
+
+
+def _zct_fwd_plain(p, Er, Ei, N2):
+    """forward z-CT of real rows p (..., N2) -> stored-order (zr, zi)
+    (..., Zm); Er/Ei are (Rz, K, Mq) tensors."""
+    Rz, K, Mq = _zct_factor(N2)
+    xs = [p[..., r * K:(r + 1) * K] for r in range(Rz)]
+    Bt = _butter(Rz, -1)
+    us = {}
+    for j in range(Rz // 2 + 1):
+        acc = (None, None)
+        for r in range(Rz):
+            acc = _cmadd(acc, xs[r], None, Bt[r, j])
+        us[j] = acc
+    outs_r, outs_i = [], []
+    for pblk, j in enumerate(_zct_order(Rz)):
+        if j <= Rz // 2:
+            ur, ui = us[j]
+        else:
+            ur, ui = us[Rz - j]
+            ui = None if ui is None else -ui
+        if ui is None:
+            outs_r.append(torch.matmul(ur, Er[pblk]))
+            outs_i.append(torch.matmul(ur, Ei[pblk]))
+        else:
+            outs_r.append(torch.matmul(ur, Er[pblk])
+                          - torch.matmul(ui, Ei[pblk]))
+            outs_i.append(torch.matmul(ur, Ei[pblk])
+                          + torch.matmul(ui, Er[pblk]))
+    return torch.cat(outs_r, -1), torch.cat(outs_i, -1)
+
+
+def _zct_inv_plain(yr, yi, A, B):
+    """inverse z-CT of stored-order (yr, yi) (..., Zm) -> real (..., n2);
+    A/B are (Ri, Kin, Kb) tensors."""
+    Ri, Kin = A.shape[0], A.shape[1]
+    cs = _butter(Ri, +1)
+    Ps, Qs = [], []
+    for j in range(Ri):
+        xr = yr[..., j * Kin:(j + 1) * Kin]
+        xi = yi[..., j * Kin:(j + 1) * Kin]
+        Ps.append(torch.matmul(xr, A[j]) + torch.matmul(xi, B[j]))
+        Qs.append(torch.matmul(xi, A[j]) - torch.matmul(xr, B[j]))
+
+    def addto(acc, coef, x):
+        if abs(coef) < 1e-30:
+            return acc
+        t = x if abs(coef - 1) < 1e-12 else (
+            -x if abs(coef + 1) < 1e-12 else coef * x)
+        return t if acc is None else acc + t
+
+    blocks = []
+    for c in range(Ri):
+        acc = None
+        for j in range(Ri):
+            acc = addto(acc, float(np.real(cs[j, c])), Ps[j])
+            acc = addto(acc, -float(np.imag(cs[j, c])), Qs[j])
+        blocks.append(acc)
+    return torch.cat(blocks, -1)
+
+
+def _z_inv_plain(yr, yi, A, B):
+    if A.dim() == 3:
+        return _zct_inv_plain(yr, yi, A, B)
+    return torch.matmul(yr, A) + torch.matmul(yi, B)
+
+
+def zy_fwd_ct2_plain(x, wz, wy):
+    """Row 6, plain: real (n0, N1, N2) -> (r, i) (n0, N1, Zm) in stored
+    order, and the raw Nyquist row sum nq (n0, N1) = sum_n x (-1)^n.
+    wz: the (2-d dense or 3-d z-CT) pair of ``_z_fwd_tabs``; wy: the
+    pair of ``_ct_fwd_mats_np(N1)``."""
+    N2 = x.shape[2]
+    p = x.to(torch.float32)
+    nq = (p * _signs(N2, p)).sum(-1)
+    wzr, wzi = (_t(a, p) for a in wz)
+    if wzr.dim() == 3:
+        zr, zi = _zct_fwd_plain(p, wzr, wzi, N2)
+    else:
+        zr, zi = torch.matmul(p, wzr), torch.matmul(p, wzi)
+    yr, yi = _ct_fwd_plain(zr, zi, *(_t(a, p) for a in wy))
+    return yr, yi, nq
+
+
+def xct_multi_plain(pr, pi, wx, scale, inverse=False, wx2=None, k2=None):
+    """Row 5, plain: the x CT of an (N0, n1, W) complex block, forward
+    (times ``scale``) or inverse, with an optional second table set
+    ``wx2`` on the same input and an optional 1/k^2 fold from the 1-d
+    tables ``k2`` = (k2x (N0,), k2y (n1,), k2z (W,)), DC set to 0.
+    Returns (r, i) or (r, i, r2, i2)."""
+    N0, n1, W = pr.shape
+    xr, xi = pr.to(torch.float32), pi.to(torch.float32)
+    if k2 is not None:
+        kk = (_t(k2[0], xr).reshape(N0, 1, 1) + _t(k2[1], xr).reshape(1, n1, 1)
+              + _t(k2[2], xr).reshape(1, 1, W))
+        invk2 = torch.where(kk > 0.0,
+                            1.0 / torch.where(kk > 0.0, kk, 1.0), 0.0)
+        xr, xi = xr * invk2, xi * invk2
+    xr, xi = xr.reshape(N0, n1 * W), xi.reshape(N0, n1 * W)
+    out = []
+    for w in (wx,) if wx2 is None else (wx, wx2):
+        wr, wi = (_t(a, xr) for a in w)
+        f = _ct_inv_plain if inverse else _ct_fwd_plain
+        rr, ii = f(xr, xi, wr, wi)
+        out += [(rr * scale).reshape(N0, n1, W),
+                (ii * scale).reshape(N0, n1, W)]
+    return tuple(out)
+
+
+def _zy_inv_one(xr, xi, Wy, AB, n2, plane):
+    yr, yi = _ct_inv_plain(xr, xi, *(_t(a, xr) for a in Wy))
+    out = _z_inv_plain(yr, yi, *(_t(a, xr) for a in AB))
+    if plane is not None:
+        out = out + plane.to(torch.float32)[:, :, None] * _signs(n2, out)
+    return out
+
+
+def zy_inv_ct2_plain(rr, ii, Wy, AB, n2, plane=None):
+    """Row 7, plain: (n0, N1, Zm) stored-order spectrum -> real
+    (n0, N1, n2): the inverse y CT (``_ct_inv_mats_np`` pair ``Wy``),
+    then the z inverse (dense (Zm, n2) or z-CT (Ri, Kin, Kb) pair
+    ``AB``, by ndim), plus ``plane`` (n0, N1) times (-1)^n if given."""
+    return _zy_inv_one(rr.to(torch.float32), ii.to(torch.float32), Wy, AB,
+                       n2, plane)
+
+
+def zy_inv_ct2_dual_plain(rr, ii, WyA, ABA, WyB, ABB, n2, planeA=None):
+    """Row 8, plain: two table sets on one input; the plane goes to set
+    A only.  Returns (outA, outB)."""
+    xr, xi = rr.to(torch.float32), ii.to(torch.float32)
+    return (_zy_inv_one(xr, xi, WyA, ABA, n2, planeA),
+            _zy_inv_one(xr, xi, WyB, ABB, n2, None))
+
+
+# --- dispatch -----------------------------------------------------------------
+
+def _use_cuda(impl, t):
+    if impl is None:
+        return t.is_cuda
+    if impl == 'cuda':
+        if not t.is_cuda:
+            raise ValueError("impl='cuda' needs CUDA tensors (got %s)"
+                             % t.device)
+        return True
+    if impl == 'torch':
+        return False
+    raise ValueError("impl must be None, 'torch' or 'cuda' (got %r)"
+                     % (impl,))
+
+
+def _zy_fwd_ct2_call(x, N2, Zm, wz, wy, impl=None):
+    """pass 1 (row 6) on an (n0, N1, N2) block -> (r, i, nq)."""
+    if x.shape[2] != N2 or Zm != N2 // 2:
+        raise ValueError("_zy_fwd_ct2_call: N2=%d, Zm=%d do not fit %s"
+                         % (N2, Zm, tuple(x.shape)))
+    if _use_cuda(impl, x):
+        from . import fft_mxu_cuda as _k
+        return _k.zy_fwd_ct2(x, wz, wy)
+    return zy_fwd_ct2_plain(x, wz, wy)
+
+
+def _xct_call_multi(pr, pi, wx, scale, inverse=False, wx2=None, k2=None,
+                    impl=None):
+    """pass 2 (row 5): the x CT of an (N0, n1, W) block; returns (r, i)
+    or (r, i, r2, i2)."""
+    if _use_cuda(impl, pr):
+        from . import fft_mxu_cuda as _k
+        return _k.xct_multi(pr, pi, wx, scale, inverse=inverse, wx2=wx2,
+                            k2=k2)
+    return xct_multi_plain(pr, pi, wx, scale, inverse=inverse, wx2=wx2,
+                           k2=k2)
+
+
+def _zy_inv_ct2_call(rr, ii, Wy, AB, n2, plane=None, impl=None):
+    """inverse pass (row 7) on an (n0, N1, Zm) block -> (n0, N1, n2)."""
+    if _use_cuda(impl, rr):
+        from . import fft_mxu_cuda as _k
+        return _k.zy_inv_ct2(rr, ii, Wy, AB, n2, plane=plane)
+    return zy_inv_ct2_plain(rr, ii, Wy, AB, n2, plane=plane)
+
+
+def _zy_inv_ct2_call_dual(rr, ii, WyA, ABA, WyB, ABB, n2, planeA=None,
+                          impl=None):
+    """dual inverse pass (row 8): (outA, outB) from one (rr, ii) read."""
+    if _use_cuda(impl, rr):
+        from . import fft_mxu_cuda as _k
+        return _k.zy_inv_ct2_dual(rr, ii, WyA, ABA, WyB, ABB, n2,
+                                  planeA=planeA)
+    return zy_inv_ct2_dual_plain(rr, ii, WyA, ABA, WyB, ABB, n2,
+                                 planeA=planeA)
+
+
+def _plane_fft2(nq_r, nq_i, N0, N1, sign, scale=1.0):
+    """2-d complex DFT of the (N0, N1) Nyquist plane with plain matmuls
+    (symmetric DFT matrices: left-multiply transforms x, right-multiply
+    y).  nq_i may be None (real input).  Natural order."""
+    dev = nq_r.device
+    wxr, wxi = (_on_device(a, dev) for a in _cached(_dft_np, N0, sign))
+    wyr, wyi = (_on_device(a, dev) for a in _cached(_dft_np, N1, sign))
+    if nq_i is None:
+        ar = torch.matmul(wxr, nq_r)
+        ai = torch.matmul(wxi, nq_r)
+    else:
+        ar = torch.matmul(wxr, nq_r) - torch.matmul(wxi, nq_i)
+        ai = torch.matmul(wxr, nq_i) + torch.matmul(wxi, nq_r)
+    sr = torch.matmul(ar, wyr) - torch.matmul(ai, wyi)
+    si = torch.matmul(ar, wyi) + torch.matmul(ai, wyr)
+    return sr * scale, si * scale
+
+
+# --- the public ct2 operators -------------------------------------------------
+
+def fft3_real_forward_half_ct2(x, norm=True, impl=None):
+    """split-Nyquist CT forward of a real f32 (N0, N1, N2) mesh: returns
+    (r, i, nqr, nqi), the main (N0, N1, N2//2) spectrum with
+    chunk-permuted x/y axes (and z in ``_zct_perm`` order when
+    ``_use_zct_fwd``), and the z-Nyquist plane spectrum (N0, N1) in
+    natural x/y order; scaled by 1/(N0 N1 N2) when ``norm``."""
+    N0, N1, N2 = x.shape
+    Zm = N2 // 2
+    if not is_ct2(x.shape):
+        raise ValueError("ct2 needs N0/N1 = R*128k and even N2 (got %s)"
+                         % (tuple(x.shape),))
+    wz = _cached(_z_fwd_tabs, N2, Zm)
+    wy = _cached(_ct_fwd_mats_np, N1)
+    wx = _cached(_ct_fwd_mats_np, N0)
+    pr, pi, nq = _zy_fwd_ct2_call(x, N2, Zm, wz, wy, impl=impl)
+    scale = 1.0 / (N0 * N1 * N2) if norm else 1.0
+    rr, ii = _xct_call_multi(pr, pi, wx, scale, impl=impl)
+    del pr, pi
+    nqr, nqi = _plane_fft2(nq, None, N0, N1, -1, np.float32(scale))
+    return rr, ii, nqr, nqi
+
+
+def _check_kvecs(kvecs, N0, N1):
+    for d, n in ((0, N0), (1, N1)):
+        if n % 2 == 0 and abs(kvecs[d][n // 2]) > 1e-12:
+            raise ValueError(
+                "kvecs[%d] must vanish at the Nyquist index for the "
+                "half-spectrum gradient" % d)
+
+
+def fft3_real_inverse_grad3_half_ct2(r, i, nqr, nqi, n2, kvecs,
+                                     poisson_k2=None, only=None, impl=None):
+    """split-Nyquist CT spectral force triple: the unnormalized inverses
+    of i*k_d times the spectrum, d = 0, 1, 2.  The z gradient's Nyquist
+    contribution vanishes (kvecs[2] is Nyquist-zero), so only fx and fy
+    carry the plane.
+
+    kvecs : three natural-order tuples (len N0, N1, >= Zm), the x and y
+        ones zero at Nyquist.
+    poisson_k2 : None or three natural-order k^2 tuples (len N0, N1,
+        Zm+1); then (r, i, nqr, nqi) are the raw forward spectrum and
+        1/k^2 (DC zeroed) folds into the x pass.
+    only : None or 0/1/2: just that direction (one x pass and one zy
+        inverse), for the transpose of the force operator."""
+    N0, N1, Zm = r.shape
+    _check_kvecs(kvecs, N0, N1)
+    kvecs = _tuples(kvecs)
+    wy = _cached(_ct_inv_mats_np, N1)
+    wx = _cached(_ct_inv_mats_np, N0)
+    wx_g = _cached(_ct_inv_mats_np, N0, kvecs[0])
+    wy_g = _cached(_ct_inv_mats_np, N1, kvecs[1])
+    AB_p = _cached(_z_inv_tabs, n2, Zm)
+    AB_g = _cached(_z_inv_tabs, n2, Zm, kvecs[2])
+
+    kx = _on_device(_cached(_f32, kvecs[0]), r.device)
+    ky = _on_device(_cached(_f32, kvecs[1]), r.device)
+    k2m = None
+    if poisson_k2 is not None:
+        invk2p, k2m = _cached(_poisson_tables, _tuples(poisson_k2), N0, N1,
+                              Zm)
+        invk2p = _on_device(invk2p, r.device)
+        nqr = nqr * invk2p
+        nqi = nqi * invk2p
+    plane_x = plane_y = None
+    if only in (None, 0):
+        plane_x = _plane_fft2(-nqi * kx[:, None], nqr * kx[:, None], N0, N1,
+                              +1)[0]
+    if only in (None, 1):
+        plane_y = _plane_fft2(-nqi * ky[None, :], nqr * ky[None, :], N0, N1,
+                              +1)[0]
+
+    if only == 0:
+        gr, gi = _xct_call_multi(r, i, wx_g, 1.0, inverse=True, k2=k2m,
+                                 impl=impl)
+        return _zy_inv_ct2_call(gr, gi, wy, AB_p, n2, plane=plane_x,
+                                impl=impl)
+    if only in (1, 2):
+        sr, si = _xct_call_multi(r, i, wx, 1.0, inverse=True, k2=k2m,
+                                 impl=impl)
+        if only == 1:
+            return _zy_inv_ct2_call(sr, si, wy_g, AB_p, n2, plane=plane_y,
+                                    impl=impl)
+        return _zy_inv_ct2_call(sr, si, wy, AB_g, n2, impl=impl)
+    if only is not None:
+        raise ValueError("only must be None, 0, 1 or 2")
+    sr, si, gr, gi = _xct_call_multi(r, i, wx, 1.0, inverse=True, wx2=wx_g,
+                                     k2=k2m, impl=impl)
+    # fy and fz share the (sr, si) read: one dual pass
+    fy, fz = _zy_inv_ct2_call_dual(sr, si, wy_g, AB_p, wy, AB_g, n2,
+                                   planeA=plane_y, impl=impl)
+    del sr, si
+    fx = _zy_inv_ct2_call(gr, gi, wy, AB_p, n2, plane=plane_x, impl=impl)
+    return fx, fy, fz
+
+
+def _tuples(tables):
+    return tuple(tuple(float(v) for v in t) for t in tables)
+
+
+def fft3_poisson_half_ct2(r, i, nqr, nqi, n2, poisson_k2, impl=None):
+    """split-Nyquist CT Poisson potential phi = -IFFT(spec / k^2) (the
+    tf.poisson sign) with the DC mode zeroed: one x pass (1/k^2 folded
+    from the 1-d tables) and one zy inverse.  The -1 folds into the z
+    tables and the Nyquist plane."""
+    N0, N1, Zm = r.shape
+    wy = _cached(_ct_inv_mats_np, N1)
+    wx = _cached(_ct_inv_mats_np, N0)
+    AB_p = _cached(_z_inv_tabs, n2, Zm, None, True)
+    invk2p, k2m = _cached(_poisson_tables, _tuples(poisson_k2), N0, N1, Zm)
+    invk2p = _on_device(invk2p, r.device)
+    plane = -_plane_fft2(nqr * invk2p, nqi * invk2p, N0, N1, +1)[0]
+    sr, si = _xct_call_multi(r, i, wx, 1.0, inverse=True, k2=k2m, impl=impl)
+    return _zy_inv_ct2_call(sr, si, wy, AB_p, n2, plane=plane, impl=impl)

@@ -1,0 +1,273 @@
+"""ctypes wrappers of the split-Nyquist CT DFT kernels
+(``csrc/fft_mxu.cu``), the port of the ct2 Pallas kernels of
+``pmesh_tpu/ops/fft_mxu.py``.
+
+Each wrapper checks its tensors (CUDA, f32, the pass's shapes,
+contiguous, one device, no autograd), the x/y splits (R in {2, 4, 8}
+with M a multiple of 128) and the table shapes, allocates the outputs
+and the scratch with ``torch.empty``, launches on PyTorch's current
+stream and raises RuntimeError if a launch returns an error.  The
+numpy tables are uploaded once per table object and device (the public
+operators of ``ops/fft_mxu.py`` build each table once per shape).
+``LAUNCHES`` counts the calls of each kernel.
+
+The plain PyTorch versions are ``ops/fft_mxu.zy_fwd_ct2_plain``,
+``xct_multi_plain``, ``zy_inv_ct2_plain`` and ``zy_inv_ct2_dual_plain``.
+"""
+import ctypes
+
+import numpy as np
+import torch
+
+from . import fft_mxu as _fm
+from ..native import cuda as _cuda
+
+__all__ = ["zy_fwd_ct2", "xct_multi", "zy_inv_ct2", "zy_inv_ct2_dual",
+           "LAUNCHES", "reset_launches"]
+
+LAUNCHES = {"zy_fwd_ct2": 0, "xct_multi": 0, "zy_inv_ct2": 0,
+            "zy_inv_ct2_dual": 0}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_lib = None
+_coefs = {}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = _cuda.load("fft_mxu")
+        lib.pmesh_cuda_error_string.argtypes = [_I]
+        lib.pmesh_cuda_error_string.restype = ctypes.c_char_p
+        lib.pmesh_zy_fwd_ct2.argtypes = (
+            [_P] * 3 + [_I] * 4 + [_P] * 9 + [_I] * 5 + [_P])
+        lib.pmesh_xct_multi.argtypes = [_P] * 13 + [_I] * 6 + [_F, _P, _P]
+        lib.pmesh_zy_inv_ct2.argtypes = (
+            [_P] * 6 + [_I] * 4 + [_P] * 5 + [_I] * 6 + [_P] * 3)
+        lib.pmesh_zy_inv_ct2_dual.argtypes = (
+            [_P] * 10 + [_I] * 4 + [_P] * 8 + [_I] * 6 + [_P] * 3)
+        for fn in (lib.pmesh_zy_fwd_ct2, lib.pmesh_xct_multi,
+                   lib.pmesh_zy_inv_ct2, lib.pmesh_zy_inv_ct2_dual):
+            fn.restype = _I
+        _lib = lib
+    return _lib
+
+
+def _raise_on(rc, what):
+    if rc != 0:
+        msg = _load().pmesh_cuda_error_string(rc).decode()
+        raise RuntimeError("%s: CUDA launch failed (%d: %s)"
+                           % (what, rc, msg))
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _check(tensors, shape, what):
+    """device, dtype, shape, contiguity and autograd checks; returns
+    the device"""
+    dev = tensors[0].device
+    for a in tensors:
+        if not isinstance(a, torch.Tensor) or a.device.type != 'cuda':
+            raise ValueError("%s: the CUDA kernel takes CUDA tensors" % what)
+        if a.dtype != torch.float32:
+            raise NotImplementedError(
+                "%s: the CUDA kernel is f32 only (got %s)" % (what, a.dtype))
+        if a.device != dev:
+            raise ValueError("%s: all tensors must share one device" % what)
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError("%s: expected shape %s, got %s"
+                             % (what, tuple(shape), tuple(a.shape)))
+        if not a.is_contiguous():
+            raise ValueError("%s: tensors must be contiguous" % what)
+        if a.requires_grad:
+            raise NotImplementedError(
+                "%s: gradients through the CUDA kernel are not ported yet "
+                "(ROADMAP queue 1, item 4)" % what)
+    return dev
+
+
+def _split(n, what, axis):
+    """(R, M) of a CT axis; raises unless R in {2, 4, 8} and M % 128 == 0"""
+    R, M = _fm._ct_factor(n)
+    if R not in (2, 4, 8) or M % 128:
+        raise ValueError("%s: axis %s of length %d does not split as R * M "
+                         "with R in {2, 4, 8} and M a multiple of 128 (not "
+                         "a ct2 shape)" % (what, axis, n))
+    return R, M
+
+
+def _table(a, shape, device, what):
+    """the device copy of one numpy table, uploaded once per object"""
+    a = np.asarray(a)
+    if a.shape != tuple(shape):
+        raise ValueError("%s: table of shape %s where %s is needed"
+                         % (what, a.shape, tuple(shape)))
+    return _fm._on_device(a, device)
+
+
+def _coef(kind, R):
+    """(R, R, 2) f32 host constants, [a][c] = (re, im):
+    'fwd' b[r][j] = W_R^{-rj}; 'inv' b[r][j] = W_R^{+rj}; 'zfwd' the
+    butterfly of the z-CT chunk in storage slot p, c[r][p] (conjugated
+    for the upper chunks, as the JAX package forms them).  The z-CT
+    inverse combination cs[j][c] = W_R^{+jc} is the 'inv' table."""
+    key = (kind, R)
+    if key not in _coefs:
+        if kind == 'fwd':
+            c = _fm._butter(R, -1)
+        elif kind == 'inv':
+            c = _fm._butter(R, +1)
+        else:
+            Bt = _fm._butter(R, -1)
+            c = np.empty((R, R), complex)
+            for p, j in enumerate(_fm._zct_order(R)):
+                c[:, p] = Bt[:, j] if j <= R // 2 else np.conj(Bt[:, R - j])
+        _coefs[key] = np.ascontiguousarray(
+            np.stack([c.real, c.imag], -1).astype(np.float32))
+    return _coefs[key]
+
+
+def _host(a):
+    return a.ctypes.data_as(_P)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def zy_fwd_ct2(x, wz, wy):
+    """Row 6: real (n0, N1, N2) -> (r, i) (n0, N1, N2//2), nq (n0, N1)."""
+    what = "zy_fwd_ct2"
+    n0, N1, N2 = x.shape
+    dev = _check((x,), x.shape, what)
+    Ry, My = _split(N1, what, 1)
+    if N2 % 2:
+        raise ValueError("%s: N2 must be even (got %d)" % (what, N2))
+    Zm = N2 // 2
+    zct = np.ndim(wz[0]) == 3
+    if zct:
+        Rz, Kz, Mq = _fm._zct_factor(N2)
+        if Rz == 1:
+            raise ValueError("%s: z-CT tables for N2=%d, which does not "
+                             "split" % (what, N2))
+        zshape = (Rz, Kz, Mq)
+    else:
+        Rz, Kz, Mq = 1, N2, Zm
+        zshape = (N2, Zm)
+    wzr, wzi = (_table(a, zshape, dev, what) for a in wz)
+    wyr, wyi = (_table(a, (Ry, My, My), dev, what) for a in wy)
+    out = [torch.empty((n0, N1, Zm), dtype=torch.float32, device=dev)
+           for _ in range(4)]
+    nq = torch.empty((n0, N1), dtype=torch.float32, device=dev)
+    LAUNCHES[what] += 1
+    rc = _load().pmesh_zy_fwd_ct2(
+        _ptr(x), _ptr(wzr), _ptr(wzi), int(zct), Rz, Kz, Mq,
+        _host(_coef('zfwd', Rz)) if zct else None, _ptr(wyr), _ptr(wyi),
+        _host(_coef('fwd', Ry)), _ptr(out[0]), _ptr(out[1]), _ptr(nq),
+        _ptr(out[2]), _ptr(out[3]), n0, N1, N2, Ry, My, _stream(dev))
+    _raise_on(rc, what)
+    return out[0], out[1], nq
+
+
+def xct_multi(pr, pi, wx, scale, inverse=False, wx2=None, k2=None):
+    """Row 5: the x CT of (N0, n1, W) complex; (r, i) or (r, i, r2, i2)."""
+    what = "xct_multi"
+    N0, n1, W = pr.shape
+    dev = _check((pr, pi), pr.shape, what)
+    R, M = _split(N0, what, 0)
+    tabs = [_table(a, (R, M, M), dev, what) for a in wx]
+    if wx2 is not None:
+        tabs += [_table(a, (R, M, M), dev, what) for a in wx2]
+    ks = [None] * 3
+    if k2 is not None:
+        ks = [_table(np.asarray(t, np.float32), (n,), dev, what)
+              for t, n in zip(k2, (N0, n1, W))]
+    nout = 2 if wx2 is None else 4
+    out = [torch.empty((N0, n1, W), dtype=torch.float32, device=dev)
+           for _ in range(nout)]
+    o = [_ptr(t) for t in out] + [None] * (4 - nout)
+    t2 = [_ptr(t) for t in tabs[2:]] + [None] * (4 - len(tabs))
+    LAUNCHES[what] += 1
+    rc = _load().pmesh_xct_multi(
+        _ptr(pr), _ptr(pi), _ptr(tabs[0]), _ptr(tabs[1]), t2[0], t2[1],
+        _ptr(ks[0]), _ptr(ks[1]), _ptr(ks[2]), o[0], o[1], o[2], o[3],
+        N0, n1, W, R, M, int(bool(inverse)), float(scale),
+        _host(_coef('inv' if inverse else 'fwd', R)), _stream(dev))
+    _raise_on(rc, what)
+    return tuple(out)
+
+
+def _z_inv_form(AB, Zm, n2, what):
+    """(zct, Ri, Kin, Kb, table shape) of an inverse z table pair"""
+    if np.ndim(AB[0]) == 3:
+        Ri, Kin, Kb = np.shape(AB[0])
+        if Ri * Kin != Zm or Ri * Kb != n2 or not 1 <= Ri <= 8:
+            raise ValueError("%s: z-CT tables %s do not fit Zm=%d, n2=%d"
+                             % (what, np.shape(AB[0]), Zm, n2))
+        return 1, Ri, Kin, Kb, (Ri, Kin, Kb)
+    return 0, 1, Zm, n2, (Zm, n2)
+
+
+def _inv_setup(rr, ii, n2, planes, what):
+    n0, N1, Zm = rr.shape
+    dev = _check((rr, ii), rr.shape, what)
+    Ry, My = _split(N1, what, 1)
+    if n2 != 2 * Zm:
+        raise ValueError("%s: n2=%d must be 2 * Zm = %d" % (what, n2, 2 * Zm))
+    for p in planes:
+        if p is not None:
+            _check((p,), (n0, N1), what)
+    return dev, n0, N1, Zm, Ry, My
+
+
+def zy_inv_ct2(rr, ii, Wy, AB, n2, plane=None):
+    """Row 7: (n0, N1, Zm) stored-order spectrum -> real (n0, N1, n2)."""
+    what = "zy_inv_ct2"
+    dev, n0, N1, Zm, Ry, My = _inv_setup(rr, ii, n2, (plane,), what)
+    zct, Ri, Kin, Kb, zshape = _z_inv_form(AB, Zm, n2, what)
+    wyr, wyi = (_table(a, (Ry, My, My), dev, what) for a in Wy)
+    ta, tb = (_table(a, zshape, dev, what) for a in AB)
+    out = torch.empty((n0, N1, n2), dtype=torch.float32, device=dev)
+    sr, si = (torch.empty((n0, N1, Zm), dtype=torch.float32, device=dev)
+              for _ in range(2))
+    zq = torch.empty_like(out) if zct else None
+    LAUNCHES[what] += 1
+    rc = _load().pmesh_zy_inv_ct2(
+        _ptr(rr), _ptr(ii), _ptr(wyr), _ptr(wyi), _ptr(ta), _ptr(tb), zct,
+        Ri, Kin, Kb, _ptr(plane), _ptr(out), _ptr(sr), _ptr(si), _ptr(zq),
+        n0, N1, Zm, n2, Ry, My, _host(_coef('inv', Ry)),
+        _host(_coef('inv', Ri)), _stream(dev))
+    _raise_on(rc, what)
+    return out
+
+
+def zy_inv_ct2_dual(rr, ii, WyA, ABA, WyB, ABB, n2, planeA=None):
+    """Row 8: (outA, outB) from one (rr, ii) read; planeA on A only."""
+    what = "zy_inv_ct2_dual"
+    dev, n0, N1, Zm, Ry, My = _inv_setup(rr, ii, n2, (planeA,), what)
+    zct, Ri, Kin, Kb, zshape = _z_inv_form(ABA, Zm, n2, what)
+    if _z_inv_form(ABB, Zm, n2, what)[0] != zct:
+        raise ValueError("%s: both z table sets must have one form" % what)
+    wy = [_table(a, (Ry, My, My), dev, what) for a in tuple(WyA) + tuple(WyB)]
+    zt = [_table(a, zshape, dev, what) for a in tuple(ABA) + tuple(ABB)]
+    outs = [torch.empty((n0, N1, n2), dtype=torch.float32, device=dev)
+            for _ in range(2)]
+    scr = [torch.empty((n0, N1, Zm), dtype=torch.float32, device=dev)
+           for _ in range(4)]
+    zq = torch.empty_like(outs[0]) if zct else None
+    LAUNCHES[what] += 1
+    rc = _load().pmesh_zy_inv_ct2_dual(
+        _ptr(rr), _ptr(ii), _ptr(wy[0]), _ptr(wy[1]), _ptr(zt[0]),
+        _ptr(zt[1]), _ptr(wy[2]), _ptr(wy[3]), _ptr(zt[2]), _ptr(zt[3]),
+        zct, Ri, Kin, Kb, _ptr(planeA), _ptr(outs[0]), _ptr(outs[1]),
+        *[_ptr(s) for s in scr], _ptr(zq), n0, N1, Zm, n2, Ry, My,
+        _host(_coef('inv', Ry)), _host(_coef('inv', Ri)), _stream(dev))
+    _raise_on(rc, what)
+    return outs[0], outs[1]

@@ -254,3 +254,157 @@ def test_nbody_binned_card_matches_cpu(dev, adaptive):
     (ref, rtot, rov), (got, gtot, gov) = out
     assert rtot == gtot == n ** 3 and rov == gov == 0
     assert _rel(got, ref) <= 1e-4
+
+
+# --- the split-Nyquist CT DFT kernels (csrc/fft_mxu.cu) ----------------------
+
+def _fft_inputs(seed, shape, dev):
+    rng = np.random.RandomState(seed)
+    return tuple(torch.from_numpy(rng.normal(size=shape).astype('f4')).to(dev)
+                 for _ in range(3))
+
+
+def _sl(n, half=False):
+    """a SuperLanczos-shaped wavenumber table, zero at Nyquist"""
+    w = (np.fft.rfftfreq(n) if half else np.fft.fftfreq(n)) * 2 * np.pi
+    return tuple(((8 * np.sin(w) - np.sin(2 * w)) / 6.0).tolist())
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024])
+@pytest.mark.parametrize("n2", [16, 512, 1024])
+def test_fft_mxu_kernels_match_plain(dev, n, n2):
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    Zm = n2 // 2
+    x, _, _ = _fft_inputs(9, (4, n, n2), dev)
+    wz, wy = fm._z_fwd_tabs(n2, Zm), fm._ct_fwd_mats_np(n)
+    for g, r in zip(fm._zy_fwd_ct2_call(x, n2, Zm, wz, wy, impl='cuda'),
+                    fm._zy_fwd_ct2_call(x, n2, Zm, wz, wy, impl='torch')):
+        assert _rel(g, r) <= TOL
+    # the x pass on an (n, 4, Zm) block: forward x scale, inverse, dual
+    # inverse with the 1/k^2 fold
+    pr, pi, _ = _fft_inputs(10, (n, 4, Zm), dev)
+    rng = np.random.RandomState(11)
+    k2 = [rng.uniform(0.0, 2.0, m).astype('f4') for m in (n, 4, Zm)]
+    for t in k2:
+        t[0] = 0.0
+    wi = fm._ct_inv_mats_np(n)
+    wg = fm._ct_inv_mats_np(n, fold_kvec=_sl(n))
+    for kw in (dict(wx=fm._ct_fwd_mats_np(n), scale=1.0 / n ** 3),
+               dict(wx=wi, scale=1.0, inverse=True),
+               dict(wx=wi, scale=1.0, inverse=True, wx2=wg, k2=k2)):
+        got = fm._xct_call_multi(pr, pi, impl='cuda', **kw)
+        ref = fm._xct_call_multi(pr, pi, impl='torch', **kw)
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            assert _rel(g, r) <= TOL
+    # the inverse passes, with and without the Nyquist plane
+    rr, ii, _ = _fft_inputs(12, (4, n, Zm), dev)
+    plane = _fft_inputs(13, (4, n), dev)[0]
+    Wy, Wyg = fm._ct_inv_mats_np(n), fm._ct_inv_mats_np(n, fold_kvec=_sl(n))
+    AB = fm._z_inv_tabs(n2, Zm)
+    ABg = fm._z_inv_tabs(n2, Zm, grad_kvec=_sl(n2, half=True))
+    for pl in (None, plane):
+        for tabs in ((Wy, AB), (Wyg, ABg)):
+            g = fm._zy_inv_ct2_call(rr, ii, *tabs, n2, plane=pl, impl='cuda')
+            r = fm._zy_inv_ct2_call(rr, ii, *tabs, n2, plane=pl,
+                                    impl='torch')
+            assert _rel(g, r) <= TOL
+        got = fm._zy_inv_ct2_call_dual(rr, ii, Wyg, AB, Wy, ABg, n2,
+                                       planeA=pl, impl='cuda')
+        ref = fm._zy_inv_ct2_call_dual(rr, ii, Wyg, AB, Wy, ABg, n2,
+                                       planeA=pl, impl='torch')
+        for g, r in zip(got, ref):
+            assert _rel(g, r) <= TOL
+
+
+@pytest.mark.parametrize("shape", [(256, 256, 16), (512, 256, 1024)])
+def test_fft_mxu_public_operators_match_plain(dev, shape):
+    """the forward, the force triple with the 1/k^2 fold and each
+    only=d direction, and the Poisson potential, card against plain"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    N0, N1, n2 = shape
+    x = (1.0 + 0.3 * _fft_inputs(14, shape, dev)[0]).contiguous()
+    kd = (_sl(N0), _sl(N1), _sl(n2, half=True))
+    k2 = tuple(tuple(float(v) ** 2 for v in t) for t in kd)
+    out = {}
+    for impl in ('cuda', 'torch'):
+        spec = fm.fft3_real_forward_half_ct2(x, impl=impl)
+        tri = fm.fft3_real_inverse_grad3_half_ct2(*spec, n2=n2, kvecs=kd,
+                                                  poisson_k2=k2, impl=impl)
+        one = [fm.fft3_real_inverse_grad3_half_ct2(
+            *spec, n2=n2, kvecs=kd, poisson_k2=k2, only=d, impl=impl)
+            for d in range(3)]
+        phi = fm.fft3_poisson_half_ct2(*spec, n2=n2, poisson_k2=k2,
+                                       impl=impl)
+        out[impl] = list(spec) + list(tri) + one + [phi]
+    for g, r in zip(out['cuda'], out['torch']):
+        assert _rel(g, r) <= TOL
+    for d in range(3):
+        assert _rel(out['cuda'][7 + d], out['cuda'][4 + d]) <= TOL
+
+
+def test_fft_mxu_kernels_refuse_what_they_cannot_run(dev):
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    n2, Zm = 16, 8
+    x, _, _ = _fft_inputs(15, (2, 256, n2), dev)
+    wz, wy = fm._z_fwd_tabs(n2, Zm), fm._ct_fwd_mats_np(256)
+    with pytest.raises(NotImplementedError, match='f32'):
+        fm._zy_fwd_ct2_call(x.double(), n2, Zm, wz, wy)
+    with pytest.raises(ValueError, match='contiguous'):
+        fm._zy_fwd_ct2_call(x.transpose(0, 1).contiguous().transpose(0, 1),
+                            n2, Zm, wz, wy)
+    with pytest.raises(NotImplementedError, match='gradients'):
+        fm._zy_fwd_ct2_call(x.clone().requires_grad_(), n2, Zm, wz, wy)
+    with pytest.raises(ValueError, match='ct2'):
+        fm._zy_fwd_ct2_call(x[:, :192].contiguous(), n2, Zm, wz, wy)
+    pr, pi, _ = _fft_inputs(16, (384, 2, Zm), dev)
+    with pytest.raises(ValueError, match='ct2'):
+        fm._xct_call_multi(pr, pi, fm._ct_inv_mats_np(384), 1.0,
+                           inverse=True)
+    with pytest.raises(ValueError, match='ct2'):
+        fm.fft3_real_forward_half_ct2(torch.zeros((16,) * 3, device=dev))
+
+
+@pytest.mark.parametrize("mode,counts", [
+    ('spectral', {"zy_fwd_ct2": 1, "xct_multi": 2, "zy_inv_ct2": 1,
+                  "zy_inv_ct2_dual": 1}),
+    ('gradient', {"zy_fwd_ct2": 1, "xct_multi": 2, "zy_inv_ct2": 1,
+                  "zy_inv_ct2_dual": 0})])
+def test_fft_mxu_launches_count_one_force(dev, mode, counts):
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import fft_mxu_cuda
+    shape = (256, 256, 16)
+    pm = ParticleMesh(shape, BoxSize=np.asarray(shape, float), dtype='f4',
+                      device=dev)
+    disp, _, _ = _inputs(17, shape, (0.0, 1.0), dev)
+    fft_mxu_cuda.reset_launches()
+    Solver(pm).force_lattice(disp, (0.0, 1.0), mode=mode, fft='mxu')
+    assert fft_mxu_cuda.LAUNCHES == counts
+
+
+@pytest.mark.parametrize("force_mode,window", [('spectral', 'cic'),
+                                               ('gradient', 'tsc')])
+def test_nbody_lattice_mxu_card_matches_cpu(dev, force_mode, window):
+    from pmesh_tpu_torch import ParticleMesh, RealField
+    from pmesh_tpu_torch.models.fastpm import Solver
+    shape = (256, 256, 16)
+    noise = np.random.RandomState(5).normal(size=shape).astype('f4')
+    out = []
+    for device in ('cpu', dev):
+        pm = ParticleMesh(shape, BoxSize=np.asarray(shape, float),
+                          dtype='f4', device=device)
+        dk = pm.create(type=RealField,
+                       value=torch.from_numpy(noise).to(device)).r2c()
+        dk = dk.apply(lambda k, v: 0.3 * v * torch.where(
+            k.normp(2) > 0, k.normp(2, zeromode=1.0) ** -0.375, 0.0))
+        solver = Solver(pm, force_resampler=window)
+        disp, vel = solver.lpt_lattice(dk, 0.1, order=2)
+        S, V = solver.nbody_lattice(disp, vel, np.linspace(0.1, 0.4, 4),
+                                    (-1.0, 1.0), force_mode=force_mode,
+                                    fft='mxu')
+        out.append([x.cpu() for x in S + V])
+    smax = max(float(s.abs().max()) for s in out[0][:3])
+    assert 0.01 < smax < 1.0
+    for ref, got in zip(*out):
+        assert _rel(got, ref) <= 1e-4

@@ -45,6 +45,7 @@ def test_imports_without_jax():
         "import pmesh_tpu_torch.models.fastpm\n"
         "import pmesh_tpu_torch.ops.gridpm_cuda\n"
         "import pmesh_tpu_torch.ops.binned_cuda\n"
+        "import pmesh_tpu_torch.ops.fft_mxu_cuda\n"
         "assert not [m for m in sys.modules if m.startswith('jax') and\n"
         "            sys.modules[m] is not None]\n"
         "assert 'pmesh_tpu' not in sys.modules\n")
@@ -59,6 +60,7 @@ def test_imports_without_triton_or_nvcc(tmp_path):
         "import pmesh_tpu_torch\n"
         "from pmesh_tpu_torch.ops import gridpm, gridpm_cuda\n"
         "from pmesh_tpu_torch.ops import binned, binned_cuda\n"
+        "from pmesh_tpu_torch.ops import fft_mxu, fft_mxu_cuda\n"
         "from pmesh_tpu_torch.models import fastpm\n"
         "assert 'triton' not in [m for m in sys.modules\n"
         "                        if sys.modules[m] is not None]\n", env=env)
@@ -76,7 +78,7 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
 
 def test_build_flags_and_sources():
     assert "arch=compute_90a,code=sm_90a" in tcuda.NVCC_FLAGS
-    for name in ("gridpm", "binned"):
+    for name in ("gridpm", "binned", "fft_mxu"):
         assert os.path.isfile(os.path.join(tcuda.CSRC, name + ".cu"))
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "pmesh_tpu_torch/_build/" in f.read().split()
