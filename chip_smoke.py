@@ -19,7 +19,16 @@ Phases, in order; any failure raises and exits non-zero:
    (the forward zy and x passes, the dual inverse x pass with 1/k^2,
    the zy inverse with and without the Nyquist plane and the dual zy
    inverse) and on a (16, 512, 1024) slab, whose z inverse is the z-CT
-   form;
+   form; the three dense DFT passes (fft='mxu' at shapes that are not
+   ct2: the zy forward, the x pass forward and dual inverse with 1/k^2,
+   the zy inverse with the fx, fy and fz tables) on a 384^3 density
+   and on a ragged (96, 80, 75) mesh; beside each kernel its bound
+   (compulsory bytes over 3.35 TB/s or the operations the function
+   needs over 67 TFLOP/s FP32, the larger; for a DFT pass those of the
+   FFTs computing the same transform) and, where one PyTorch call computes the
+   same function, that call's time (torch.fft); and for each pipeline
+   the operator-level yardsticks torch.fft.rfftn(x, norm='forward') and
+   the stacked irfftn of the filtered spectrum, the filter timed apart;
 4. drive the FastPM lattice path at 512^3 f32 through the user's entry
    points: Solver.lpt_lattice (2LPT) then Solver.nbody_lattice (5 KDK
    steps, spectral force) and one gradient-mode force_lattice, with
@@ -28,18 +37,25 @@ Phases, in order; any failure raises and exits non-zero:
    kernels carried the run; time one KDK step with CUDA events; then
    the same run with fft='mxu' (the DFT kernels in place of cuFFT),
    held against the fft='xla' run and timed beside it;
-5. drive the binned path on a clustered state: the 384^3 caustic flow
+5. drive the binned path on a clustered state with fft='mxu', as
+   bench.py's measure_binned_clustered does: the 384^3 caustic flow
    through Solver.nbody_binned(adaptive=True), counters read around
    the run; check that the slots grew, that nothing overflowed, that
    the particle count is exact, that a paint conserves it and that the
-   four kernels carried the run;
+   rebase, lattice and dense DFT kernels carried the run (the DFT
+   launches exactly three forces' worth); hold force_binned(fft='mxu')
+   against fft='xla' on the grown state; time one KDK step of a
+   superstep at the grown K with both FFTs (bench.py's ms_per_step) and
+   the peak memory, and profile one superstep per FFT (device time by
+   kernel family, idle share);
 6. time the binned path at 512^3, K = 2, occupancy 1: one superstep
    (two KDK steps and a rebase) of Solver.nbody_binned, force_binned
    in both modes (fft='xla' and fft='mxu'), the rebase alone, and the
    peak device memory;
-7. run the lattice path at 32^3 (fft='xla') and at (256, 256, 16)
-   (fft='mxu'), and the binned path at 32^3, on the card and on the
-   CPU (plain versions, pocketfft) from the same seed and compare.
+7. run the lattice path at 32^3 (fft='xla'), at (256, 256, 16)
+   (fft='mxu', ct2) and at (48, 40, 33) (fft='mxu', dense), and the
+   binned path at 32^3, on the card and on the CPU (plain versions,
+   pocketfft) from the same seed and compare.
 
 The second-to-last line is the kernels' JSON record, the last line
 the device record.
@@ -72,6 +88,10 @@ REBASE_CASES = (((-0.5, 1.5), 2), ((-0.5, 1.5), 3), ((-1.0, 2.0), 3))
 # measure_binned_clustered) and the timed one (measure_binned)
 NC, CAUSTIC_AX, CAUSTIC_LAM = 384, 1.6, 8
 BINNED_KW = dict(nslots=2, rebase_every=2, step_drift=0.25, fft='xla')
+CLUSTERED_KW = dict(BINNED_KW, fft='mxu')
+CLUSTERED_STEPS = [0.5, 0.52, 0.54]    # 2 KDK steps, 3 forces
+SUPERSTEP_STEPS = [0.5, 0.55, 0.6]     # bench.py's timed superstep
+SUPERSTEP_BOUNDS = (-0.5, 1.5)
 
 KERNELS = {
     "paint_lattice": ("pmesh_tpu_torch/csrc/gridpm.cu",
@@ -90,12 +110,38 @@ KERNELS = {
                    "pmesh_tpu/ops/fft_mxu.py:1127"),
     "zy_inv_ct2_dual": ("pmesh_tpu_torch/csrc/fft_mxu.cu",
                         "pmesh_tpu/ops/fft_mxu.py:1031"),
+    # the dense pipeline: fft3_real_forward_half (row 3), the x-pass
+    # kernel _x_transform that both rows 3 and 4 call, and
+    # fft3_real_inverse_grad3_half's zy pass (row 4)
+    "zy_fwd_half": ("pmesh_tpu_torch/csrc/fft_mxu.cu",
+                    "pmesh_tpu/ops/fft_mxu.py:496"),
+    "x_dense": ("pmesh_tpu_torch/csrc/fft_mxu.cu",
+                "pmesh_tpu/ops/fft_mxu.py:155"),
+    "zy_inv_half": ("pmesh_tpu_torch/csrc/fft_mxu.cu",
+                    "pmesh_tpu/ops/fft_mxu.py:540"),
 }
 # per force on the fft='mxu' path: spectral, gradient
 MXU_PER_FORCE = {"zy_fwd_ct2": (1, 1), "xct_multi": (2, 2),
                  "zy_inv_ct2": (1, 1), "zy_inv_ct2_dual": (1, 0)}
+# per spectral force at a shape that is not ct2
+DENSE_PER_FORCE = {"zy_fwd_half": 1, "x_dense": 2, "zy_inv_half": 3}
 MXU_SLAB = (16, 512, 1024)
 MXU_SMALL = (256, 256, 16)
+DENSE_RAGGED = (96, 80, 75)
+DENSE_SMALL = (48, 40, 33)
+# the card's published peaks (NVIDIA H100 SXM data sheet) for the
+# kernels' bounds: FP32 outside the tensor cores, HBM3
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# operations counted for a bound: a CIC lattice paint or readout does
+# 9 per (point, offset) (three weights 1 - |t| at 2 each, two products,
+# one accumulate); a rebase assign 6 per input slot-cell (a floor and a
+# subtraction per axis); a rebase apply none; a DFT pass those of the
+# FFTs computing the same transform (fft_ops; its elementwise folds and
+# scales, a few per element, are not counted), not those of its
+# products, which grow as n^2 per axis
+CIC_OPS = 9
+REBASE_OPS = 6
 
 
 def log(*args):
@@ -114,6 +160,32 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def nbytes(*objs):
+    """bytes of the tensors and numpy arrays in nested tuples"""
+    total = 0
+    for o in objs:
+        if o is None:
+            continue
+        if isinstance(o, (tuple, list)):
+            total += nbytes(*o)
+        elif isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        else:
+            total += np.asarray(o).nbytes
+    return total
+
+
+def record(err, ms, plain_ms, moved, ops, library_ms=None):
+    """a kernel's record for the JSON line: its bound is the larger of
+    ``moved`` bytes over PEAK_BYTES and ``ops`` over PEAK_FLOPS"""
+    by_bytes = moved / PEAK_BYTES * 1e3
+    by_ops = ops / PEAK_FLOPS * 1e3
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                library_ms=library_ms)
 
 
 def linear_field(pm, gen):
@@ -220,8 +292,11 @@ def phase_compare(dev):
                 raise AssertionError("%s disagrees with its plain version"
                                      % name)
             if bounds == BOUNDS and name in ("paint", "readout 1 mesh"):
-                records[kernel] = dict(max_abs_err=abs_err, ms=ms,
-                                       plain_ms=plain_ms)
+                read = disp if kernel == "paint_lattice" else (disp,
+                                                               meshes[0])
+                records[kernel] = record(
+                    abs_err, ms, plain_ms, nbytes(read, plain),
+                    CIC_OPS * (vmax - vmin + 1) ** 3 * N ** 3)
             elif kernel in records and bounds == BOUNDS:
                 records[kernel]["max_abs_err"] = max(
                     records[kernel]["max_abs_err"], abs_err)
@@ -249,6 +324,97 @@ def max_rel(got, ref):
     return max(rels), max(errs)
 
 
+def fft_ops(n, count, real=False):
+    """operations of ``count`` FFTs of length n by the usual count:
+    5 n log2 n for a complex transform, half that for a real one"""
+    return count * (2.5 if real else 5.0) * n * np.log2(n)
+
+
+def zy_ops(n0, N1, n2):
+    """a zy pass of n0 planes (N1, n2): real FFTs of length n2 along z,
+    complex FFTs of length N1 along y over the n2 // 2 + 1 columns"""
+    return fft_ops(n2, n0 * N1, real=True) + fft_ops(N1, n0 * (n2 // 2 + 1))
+
+
+def dft_case(records, kernel, label, fn, reads, ops, library=None):
+    """one DFT pass, kernel vs plain: fn(impl) gives its output(s),
+    ``reads`` are the tensors and tables it reads, ``ops`` the
+    operations of the FFTs computing the same transform, ``library`` a call of torch.fft computing the same
+    function (timed where given).  Every case logs its bound; the first
+    case of each kernel is its record, later cases add to its error.
+    Returns the kernel's output."""
+    plain = fn('torch')
+    got = fn('cuda')
+    one = isinstance(got, torch.Tensor)
+    rel, err = max_rel((got,) if one else got, (plain,) if one else plain)
+    del plain
+    ms = cuda_ms(lambda: fn('cuda'), 5)
+    plain_ms = cuda_ms(lambda: fn('torch'), 1)
+    ok = rel <= TOL_KERNEL and np.isfinite(rel)
+    log("phase 3 compare: %-16s %-36s max|k-p|/max|p| = %.3e (tol %.0e)"
+        " %s  kernel %.3f ms  plain %.3f ms"
+        % (kernel, label, rel, TOL_KERNEL, "ok" if ok else "FAIL", ms,
+           plain_ms))
+    if not ok:
+        raise AssertionError("%s disagrees with its plain version (%s)"
+                             % (kernel, label))
+    lib_ms = None if library is None else cuda_ms(library, 5)
+    rec = record(err, ms, plain_ms, nbytes(reads, got), ops, lib_ms)
+    log("phase 3 bound: %-16s %-36s %.3f ms by %s, kernel %.3f ms, "
+        "library call %s ms" % (kernel, label, rec["bound_ms"],
+                                rec["bound_by"], ms,
+                                "none" if lib_ms is None else "%.3f" % lib_ms))
+    if kernel in records:
+        records[kernel]["max_abs_err"] = max(records[kernel]["max_abs_err"],
+                                             err)
+    else:
+        records[kernel] = rec
+    return got
+
+
+def library_inverse(rr, ii, n2, copies=1):
+    """torch.fft's yardstick of a zy inverse: the unnormalized irfft
+    over y and z of ``copies`` stacked copies of the complex spectrum"""
+    z = torch.complex(rr, ii)
+    if copies > 1:
+        z = torch.stack([z] * copies)
+    n1 = rr.shape[1]
+    return lambda: torch.fft.irfftn(z, s=(n1, n2), dim=(-2, -1),
+                                    norm='forward')
+
+
+def fft_yardsticks(rho, kd, k2, label):
+    """torch.fft's yardsticks of one spectral force's FFT work on the
+    real mesh ``rho``: rfftn(x, norm='forward') for the forward rows,
+    then the filter i k_d / k^2 (DC zeroed) on the stacked spectrum and
+    the stacked irfftn of the three filtered spectra for the force
+    triple, each timed alone"""
+    shape = tuple(rho.shape)
+    dev = rho.device
+    spec = torch.fft.rfftn(rho, norm='forward')
+    k2t = [torch.tensor(k, dtype=torch.float32, device=dev) for k in k2]
+    kk = k2t[0][:, None, None] + k2t[1][None, :, None] + k2t[2][None, None]
+    invk2 = torch.where(kk > 0, 1.0 / torch.where(kk > 0, kk, 1.0), 0.0)
+    filt = []
+    for d in range(3):
+        kd_d = torch.tensor(kd[d], dtype=torch.float32, device=dev)
+        kd_d = kd_d.reshape([-1 if e == d else 1 for e in range(3)])
+        filt.append(torch.complex(torch.zeros_like(invk2), kd_d * invk2))
+    filt = torch.stack(filt)
+    del kk, invk2
+    fwd_ms = cuda_ms(lambda: torch.fft.rfftn(rho, norm='forward'), 5)
+    filt_ms = cuda_ms(lambda: spec[None] * filt, 5)
+    stacked = spec[None] * filt
+    inv_ms = cuda_ms(lambda: torch.fft.irfftn(stacked, s=shape,
+                                              dim=(1, 2, 3),
+                                              norm='forward'), 5)
+    log("phase 3 yardsticks: %s %s rfftn(norm='forward') %.3f ms, filter "
+        "i k_d / k^2 on the stacked spectrum %.3f ms, stacked irfftn of "
+        "three spectra %.3f ms" % (label, shape, fwd_ms, filt_ms, inv_ms))
+    del spec, filt, stacked
+    torch.cuda.empty_cache()
+
+
 def phase_compare_fft(dev):
     """the four DFT passes of fft='mxu', kernel vs plain, at N^3 (the
     main path's forms) and on the MXU_SLAB (the z-CT inverse); returns
@@ -259,27 +425,8 @@ def phase_compare_fft(dev):
     from pmesh_tpu_torch.ops import gridpm as gp
     records = {}
 
-    def case(label, kernel, fn):
-        plain = fn('torch')
-        got = fn('cuda')
-        one = isinstance(got, torch.Tensor)
-        rel, err = max_rel((got,) if one else got,
-                           (plain,) if one else plain)
-        del plain
-        ms = cuda_ms(lambda: fn('cuda'), 5)
-        plain_ms = cuda_ms(lambda: fn('torch'), 1)
-        ok = rel <= TOL_KERNEL and np.isfinite(rel)
-        log("phase 3 compare: %-16s %-36s max|k-p|/max|p| = %.3e (tol %.0e)"
-            " %s  kernel %.3f ms  plain %.3f ms"
-            % (kernel, label, rel, TOL_KERNEL, "ok" if ok else "FAIL", ms,
-               plain_ms))
-        if not ok:
-            raise AssertionError("%s disagrees with its plain version (%s)"
-                                 % (kernel, label))
-        rec = records.setdefault(kernel, dict(max_abs_err=err, ms=ms,
-                                              plain_ms=plain_ms))
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        return got
+    def case(label, kernel, fn, reads, ops, library=None):
+        return dft_case(records, kernel, label, fn, reads, ops, library)
 
     # the N^3 density of a lattice paint, and the solver's tables
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
@@ -303,31 +450,43 @@ def phase_compare_fft(dev):
     _, k2m = fm._cached(fm._poisson_tables, pk2, N, N, Zm)
     pr, pi, nq = case("%d^3 density" % N, "zy_fwd_ct2",
                       lambda impl: fm._zy_fwd_ct2_call(rho, N, Zm, wz, wf,
-                                                       impl=impl))
+                                                       impl=impl),
+                      (rho, wz, wf), zy_ops(N, N, N),
+                      lambda: torch.fft.rfftn(rho, dim=(1, 2)))
+    fft_yardsticks(rho, kd, pk2, "ct2")
     del rho
+    zc = torch.complex(pr, pi)
     r, i = case("forward x 1/N^3", "xct_multi",
                 lambda impl: fm._xct_call_multi(
-                    pr, pi, wf, 1.0 / N ** 3, impl=impl))
-    del pr, pi
+                    pr, pi, wf, 1.0 / N ** 3, impl=impl),
+                (pr, pi, wf), fft_ops(N, N * Zm),
+                lambda: torch.fft.fft(zc, dim=0))
+    del pr, pi, zc
     sr, si, gr, gi = case("inverse dual (kx-folded), 1/k^2", "xct_multi",
                           lambda impl: fm._xct_call_multi(
                               r, i, wi, 1.0, inverse=True, wx2=wx_g, k2=k2m,
-                              impl=impl))
+                              impl=impl),
+                          (r, i, wi, wx_g, k2m), 2 * fft_ops(N, N * Zm))
     del r, i
     plane = nq / N ** 3
     case("fx: plane", "zy_inv_ct2",
          lambda impl: fm._zy_inv_ct2_call(gr, gi, wi, AB_p, N, plane=plane,
-                                          impl=impl))
+                                          impl=impl),
+         (gr, gi, wi, AB_p, plane), zy_ops(N, N, N),
+         library_inverse(gr, gi, N))
     case("fz: no plane, z-folded dense z", "zy_inv_ct2",
-         lambda impl: fm._zy_inv_ct2_call(sr, si, wi, AB_g, N, impl=impl))
+         lambda impl: fm._zy_inv_ct2_call(sr, si, wi, AB_g, N, impl=impl),
+         (sr, si, wi, AB_g), zy_ops(N, N, N))
     case("(fy, fz), plane on A", "zy_inv_ct2_dual",
          lambda impl: fm._zy_inv_ct2_call_dual(sr, si, wy_g, AB_p, wi, AB_g,
-                                               N, planeA=plane, impl=impl))
+                                               N, planeA=plane, impl=impl),
+         (sr, si, wy_g, AB_p, wi, AB_g, plane),
+         2 * zy_ops(N, N, N), library_inverse(sr, si, N, copies=2))
     del sr, si, gr, gi, nq, plane
     torch.cuda.empty_cache()
 
     # the slab: z = 1024 takes the fused z-CT inverse
-    n0, N1, n2 = MXU_SLAB
+    _, N1, n2 = MXU_SLAB
     Zs = n2 // 2
     x = 1.0 + 0.3 * torch.randn(MXU_SLAB, generator=gen, device=dev)
     AB_s = fm._cached(fm._z_inv_tabs, n2, Zs)
@@ -337,19 +496,101 @@ def phase_compare_fft(dev):
     assert np.ndim(AB_s[0]) == 3
     wys, wyis = fm._cached(fm._ct_fwd_mats_np, N1), fm._cached(
         fm._ct_inv_mats_np, N1)
+    wzs = fm._cached(fm._z_fwd_tabs, n2, Zs)
     pr, pi, nq = case("slab %s" % (MXU_SLAB,), "zy_fwd_ct2",
                       lambda impl: fm._zy_fwd_ct2_call(
-                          x, n2, Zs, fm._cached(fm._z_fwd_tabs, n2, Zs), wys,
-                          impl=impl))
+                          x, n2, Zs, wzs, wys, impl=impl),
+                      (x, wzs, wys), zy_ops(*MXU_SLAB))
     case("slab, z-CT inverse, plane", "zy_inv_ct2",
          lambda impl: fm._zy_inv_ct2_call(pr, pi, wyis, AB_s, n2, plane=nq,
-                                          impl=impl))
+                                          impl=impl),
+         (pr, pi, wyis, AB_s, nq), zy_ops(*MXU_SLAB))
     case("slab, z-CT inverse, plane on A", "zy_inv_ct2_dual",
          lambda impl: fm._zy_inv_ct2_call_dual(pr, pi, wyis, AB_s, wyis,
                                                AB_sg, n2, planeA=nq,
-                                               impl=impl))
+                                               impl=impl),
+         (pr, pi, wyis, AB_s, AB_sg, nq), 2 * zy_ops(*MXU_SLAB))
     del x, pr, pi, nq
     torch.cuda.empty_cache()
+    return records
+
+
+def phase_compare_dense(dev):
+    """the three dense DFT passes (fft='mxu' at shapes that are not
+    ct2), kernel vs plain, on a lattice paint's NC^3 density (the
+    clustered run's shape: the records) and on a ragged DENSE_RAGGED
+    mesh; returns {kernel: record}"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    from pmesh_tpu_torch.ops import gridpm as gp
+    records = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for shape in ((NC,) * 3, DENSE_RAGGED):
+        N0, N1, n2 = shape
+        Zh = n2 // 2 + 1
+        if shape == (NC,) * 3:
+            disp = tuple(BOUNDS[0] + (BOUNDS[1] - BOUNDS[0])
+                         * torch.rand(shape, generator=gen, device=dev)
+                         for _ in range(3))
+            x = gp.paint_grid(disp, bounds=BOUNDS)
+            del disp
+        else:
+            x = 1.0 + 0.3 * torch.randn(shape, generator=gen, device=dev)
+        pm = ParticleMesh(list(shape), BoxSize=np.asarray(shape, float),
+                          dtype='f4', device=dev)
+        _, pk2, kd, ct = Solver(pm)._mxu_setup()
+        assert not ct
+        kd = fm._tuples(kd)
+        wz = fm._cached(fm._dft_half_np, n2, Zh)
+        wyf, wxf = fm._cached(fm._dft_np, N1, -1), fm._cached(fm._dft_np,
+                                                              N0, -1)
+        wy, wx = fm._cached(fm._dft_np, N1, +1), fm._cached(fm._dft_np,
+                                                            N0, +1)
+        wx_g = fm._cached(fm._dft_fold_np, N0, kd[0])
+        wy_g = fm._cached(fm._dft_fold_np, N1, kd[1])
+        AB_p = fm._cached(fm._irfft_mats_np, n2, Zh)
+        AB_g = fm._cached(fm._irfft_mats_np, n2, Zh, kd[2])
+        k2 = fm._cached(fm._dense_k2_tables, fm._tuples(pk2), N0, N1, Zh)
+        ops_x = fft_ops(N0, N1 * Zh)
+        ops_zy = zy_ops(N0, N1, n2)
+
+        def case(label, kernel, fn, reads, ops, library=None):
+            return dft_case(records, kernel, "%s %s" % (shape, label), fn,
+                            reads, ops, library)
+        pr, pi = case("density", "zy_fwd_half",
+                      lambda impl: fm._zy_fwd_dense_call(x, wz, wyf,
+                                                         impl=impl),
+                      (x, wz, wyf), ops_zy,
+                      lambda: torch.fft.rfftn(x, dim=(1, 2)))
+        if shape == (NC,) * 3:
+            fft_yardsticks(x, kd, pk2, "dense")
+        del x
+        zc = torch.complex(pr, pi)
+        r, i = case("forward x 1/N^3", "x_dense",
+                    lambda impl: fm._x_dense_call(pr, pi, wxf,
+                                                  1.0 / (N0 * N1 * n2),
+                                                  impl=impl),
+                    (pr, pi, wxf), ops_x, lambda: torch.fft.fft(zc, dim=0))
+        del pr, pi, zc
+        sr, si, gr, gi = case("inverse dual (kx-folded), 1/k^2", "x_dense",
+                              lambda impl: fm._x_dense_call(
+                                  r, i, wx, 1.0, wx2=wx_g, k2=k2,
+                                  impl=impl),
+                              (r, i, wx, wx_g, k2), 2 * ops_x)
+        del r, i
+        case("fx tables", "zy_inv_half",
+             lambda impl: fm._zy_inv_dense_call(gr, gi, wy, AB_p, impl=impl),
+             (gr, gi, wy, AB_p), ops_zy, library_inverse(gr, gi, n2))
+        case("fy tables", "zy_inv_half",
+             lambda impl: fm._zy_inv_dense_call(sr, si, wy_g, AB_p,
+                                                impl=impl),
+             (sr, si, wy_g, AB_p), ops_zy)
+        case("fz tables", "zy_inv_half",
+             lambda impl: fm._zy_inv_dense_call(sr, si, wy, AB_g, impl=impl),
+             (sr, si, wy, AB_g), ops_zy)
+        del sr, si, gr, gi
+        torch.cuda.empty_cache()
     return records
 
 
@@ -602,10 +843,14 @@ def phase_compare_rebase(dev, n=N):
         if not same or int(got[3]) != int(plain[3]):
             raise AssertionError("the rebase kernels disagree with their "
                                  "plain versions")
+        moved = dict(rebase_assign=nbytes(dslots, valid, got[:3]),
+                     rebase_apply=nbytes(vslots, got[2], got_e))
+        ops = dict(rebase_assign=REBASE_OPS * len(dslots) * n ** 3,
+                   rebase_apply=0)
         for name in err:
             if name not in records:
-                records[name] = dict(max_abs_err=err[name], ms=ms[name],
-                                     plain_ms=plain_ms[name])
+                records[name] = record(err[name], ms[name], plain_ms[name],
+                                       moved[name], ops[name])
             records[name]["max_abs_err"] = max(
                 records[name]["max_abs_err"], err[name])
         del dslots, vslots, valid, plain, got, plain_e, got_e
@@ -637,12 +882,14 @@ def caustic_state(dev, n, ax=CAUSTIC_AX, lam=CAUSTIC_LAM):
 
 
 def phase_binned_clustered(dev, n=NC):
-    """the binned path's main run: adaptive growth on the caustic flow;
-    returns the launch counts of the run"""
+    """the binned path's main run, as bench.py's measure_binned_clustered
+    makes it: adaptive growth on the caustic flow with fft='mxu' (the
+    dense DFT passes at 384^3); returns the launch counts of the run and
+    the solver and grown state for phase_clustered_timed"""
     from pmesh_tpu_torch import ParticleMesh
     from pmesh_tpu_torch.models.fastpm import Solver
     from pmesh_tpu_torch.ops import binned as bn
-    from pmesh_tpu_torch.ops import binned_cuda, gridpm_cuda
+    from pmesh_tpu_torch.ops import binned_cuda, fft_mxu_cuda, gridpm_cuda
     disp, vel = caustic_state(dev, n)
     pm = ParticleMesh([n] * 3, BoxSize=float(n), dtype='f4',
                       resampler='cic', device=dev)
@@ -651,13 +898,16 @@ def phase_binned_clustered(dev, n=NC):
     torch.cuda.reset_peak_memory_stats()
     gridpm_cuda.reset_launches()
     binned_cuda.reset_launches()
+    fft_mxu_cuda.reset_launches()
     t0 = time.perf_counter()
     dslots, vslots, valid, overflow = solver.nbody_binned(
-        disp, vel, [0.5, 0.52, 0.54], adaptive=True, **BINNED_KW)
+        disp, vel, CLUSTERED_STEPS, adaptive=True, **CLUSTERED_KW)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(gridpm_cuda.LAUNCHES, **binned_cuda.LAUNCHES)
+    dft = dict(fft_mxu_cuda.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    del disp, vel
     stats = dict(solver.last_binned_stats)
     tot, occ = bn.occupancy(valid)
     tot, occ, ov = int(tot), float(occ), int(overflow)
@@ -665,14 +915,19 @@ def phase_binned_clustered(dev, n=NC):
                  for slot in dslots + vslots for x in slot)
     mass = float(bn.paint_binned(dslots, valid).double().sum())
     mass_err = abs(mass - tot) / tot
+    # one force before the loop and one per KDK step
+    forces = len(CLUSTERED_STEPS)
+    need = {k: forces * c for k, c in DENSE_PER_FORCE.items()}
     log("phase 5 binned, clustered: %d^3 caustic (Ax=%g, lam=%g) "
-        "nbody_binned(adaptive) 2 KDK steps + 1 rebase in %.3f s (first "
-        "run): growth events %d, K %d -> %d, max occupancy %g, overflow "
-        "%d, particles %d of %d, paint mass error %.3e (tol %.0e), finite "
-        "%s, peak %.2f GB, launches %s"
-        % (n, CAUSTIC_AX, CAUSTIC_LAM, wall, stats['growth_events'],
-           BINNED_KW['nslots'], len(dslots), occ, ov, tot, n ** 3,
-           mass_err, TOL_MASS, finite, peak_gb, json.dumps(launches)))
+        "nbody_binned(adaptive, fft='mxu') %d KDK steps + 1 rebase in "
+        "%.3f s (first run): growth events %d, K %d -> %d, max occupancy "
+        "%g, overflow %d, particles %d of %d, paint mass error %.3e (tol "
+        "%.0e), finite %s, peak %.2f GB, launches %s, DFT launches %s "
+        "(need %s)"
+        % (n, CAUSTIC_AX, CAUSTIC_LAM, forces - 1, wall,
+           stats['growth_events'], CLUSTERED_KW['nslots'], len(dslots), occ,
+           ov, tot, n ** 3, mass_err, TOL_MASS, finite, peak_gb,
+           json.dumps(launches), json.dumps(dft), json.dumps(need)))
     if not (stats['growth_events'] >= 1 and len(dslots) >= 3):
         raise AssertionError("the adaptive path did not grow the slots")
     if ov != 0 or stats['overflow'] != 0 or tot != n ** 3:
@@ -682,7 +937,175 @@ def phase_binned_clustered(dev, n=NC):
                              "paint does not conserve the count")
     if min(launches.values()) < 1:
         raise AssertionError("the kernels did not carry the binned path")
-    return launches
+    if any(dft[k] != need.get(k, 0) for k in dft):
+        raise AssertionError("the dense DFT kernels did not carry the "
+                             "clustered run's forces")
+    launches.update((k, dft[k]) for k in DENSE_PER_FORCE)
+    return launches, dict(solver=solver, dslots=dslots, vslots=vslots,
+                          valid=valid)
+
+
+def clustered_superstep(solver, dslots, vslots, valid, fft):
+    """bench.py's timed superstep on a binned state: two KDK steps of
+    two forces each (SUPERSTEP_STEPS, FastPM factors in f32), then the
+    rebase with velocities at the same K; returns (dslots, vslots,
+    valid, overflow)"""
+    from pmesh_tpu_torch.models.fastpm import FastPM, leapfrog_factors
+    from pmesh_tpu_torch.ops import binned as bn
+    dev = dslots[0][0].device
+    bounds = SUPERSTEP_BOUNDS
+    K1, D1, K2 = leapfrog_factors(SUPERSTEP_STEPS, FastPM(solver.cosmology))
+    for j in range(len(K1)):
+        k1, d1, k2 = (torch.tensor(c[j], dtype=torch.float32, device=dev)
+                      for c in (K1, D1, K2))
+        F = solver.force_binned(dslots, valid, bounds, fft=fft)
+        vslots = tuple(tuple(v + f * k1 for v, f in zip(vk, fk))
+                       for vk, fk in zip(vslots, F))
+        dslots = tuple(tuple(s + v * d1 for s, v in zip(dk, vk))
+                       for dk, vk in zip(dslots, vslots))
+        F = solver.force_binned(dslots, valid, bounds, fft=fft)
+        vslots = tuple(tuple(v + f * k2 for v, f in zip(vk, fk))
+                       for vk, fk in zip(vslots, F))
+        del F
+    dslots, valid, (vslots,), ov = bn.rebase(dslots, valid, bounds,
+                                             extras=(vslots,))
+    return dslots, vslots, valid, ov
+
+
+# kernel-name fragment -> family for the profile, first match wins
+FAMILIES = (
+    ("readout_lattice", "readout_lattice"),
+    ("paint_lattice", "paint_lattice"),
+    ("rebase_assign", "rebase_assign"),
+    ("rebase_apply", "rebase_apply"),
+    ("CtOp", "DFT products: x/y (CtOp)"),
+    ("ZFwdDense", "DFT products: dense z forward"),
+    ("ZInvDense", "DFT products: dense z inverse"),
+    ("ZFwdCT", "DFT products: z-CT forward"),
+    ("ZInvCT", "DFT products: z-CT inverse"),
+    ("ct_inv_butterfly", "DFT sweeps"),
+    ("zct_combine", "DFT sweeps"),
+    ("nyquist_rowsum", "DFT sweeps"),
+    ("fft", "cuFFT"),
+    ("gemm", "cuBLAS"),
+    ("reduce", "reductions"),
+    ("Memcpy", "copies"),
+    ("Memset", "copies"),
+    ("elementwise", "elementwise"),
+)
+
+
+def family(name):
+    for frag, fam in FAMILIES:
+        if frag.lower() in name.lower():
+            return fam
+    return "other"
+
+
+def busy_us(intervals):
+    """length of the union of (start, end) intervals"""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def profile_superstep(solver, dslots, vslots, valid, fft):
+    """one warm superstep under torch.profiler: the host wall time, the
+    device busy time (the union of the kernel and copy intervals), the
+    idle share 1 - busy / wall and the device time of each kernel family
+    (CUDA events only: the aten rows would count their kernels twice)"""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = clustered_superstep(solver, dslots, vslots, valid, fft)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if int(out[3]) != 0:
+        raise AssertionError("the profiled superstep overflowed")
+    del out
+    fams, spans = {}, []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        fams[family(e.name)] = fams.get(family(e.name), 0.0) + (b - a) / 1e3
+    if not spans:
+        raise AssertionError("the profiler recorded no device event")
+    busy = busy_us(spans) / 1e3
+    log("phase 5 profile: %d^3 K=%d one superstep fft=%r: wall %.3f ms, "
+        "device busy %.3f ms, idle %.4f"
+        % (NC, len(dslots), fft, wall_ms, busy, 1.0 - busy / wall_ms))
+    for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
+        log("  %-34s %10.3f ms  %5.1f %%" % (fam, ms, 100.0 * ms / busy))
+
+
+def phase_clustered_timed(state):
+    """on the grown clustered state: force_binned with fft='mxu' held
+    against fft='xla', then one KDK step of bench.py's superstep (two
+    KDK steps of two forces each, then the rebase with velocities) at
+    the grown K with each FFT, the peak memory, and one superstep per
+    FFT under the profiler"""
+    solver = state.pop('solver')
+    dslots, vslots, valid = (state.pop(k) for k in ('dslots', 'vslots',
+                                                    'valid'))
+    K = len(dslots)
+    bounds = SUPERSTEP_BOUNDS
+    Fm = solver.force_binned(dslots, valid, bounds, fft='mxu')
+    Fx = solver.force_binned(dslots, valid, bounds, fft='xla')
+    err = scale = 0.0
+    for fm_k, fx_k, v in zip(Fm, Fx, valid):
+        m = v > 0
+        for a, b in zip(fm_k, fx_k):
+            err = max(err, float((a - b)[m].abs().max()))
+            scale = max(scale, float(b[m].abs().max()))
+    del Fm, Fx
+    rel = err / scale
+    log("phase 5 clustered force: K=%d force_binned fft='mxu' against "
+        "fft='xla' max|dF|/max|F| = %.3e (tol %.0e) %s"
+        % (K, rel, TOL_SMALL, "ok" if rel <= TOL_SMALL else "FAIL"))
+    if not rel <= TOL_SMALL:
+        raise AssertionError("the clustered mxu and xla forces disagree")
+
+    # every superstep starts from the grown state: the flow keeps
+    # compressing, and a chain of supersteps at a fixed K overflows
+    # within two
+    ms, peak, ovs = {}, {}, []
+    for fft in ('mxu', 'xla', 'xla', 'mxu'):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for rep in range(3):      # a warm-up, then two timed
+            if rep == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            ovs.append(clustered_superstep(solver, dslots, vslots, valid,
+                                           fft)[3])
+        torch.cuda.synchronize()
+        # per KDK step: 2 per superstep, 2 supersteps
+        ms.setdefault(fft, []).append((time.perf_counter() - t0) / 4 * 1e3)
+        peak[fft] = torch.cuda.max_memory_allocated() / 2 ** 30
+    ov = int(sum(int(o) for o in ovs))
+    log("phase 5 clustered superstep: %d^3 K=%d bounds %s, ms per KDK step "
+        "(bench.py's ms_per_step: two KDK steps of two forces and a rebase"
+        " per superstep) fft='mxu' %s, fft='xla' %s (runs in the order "
+        "mxu, xla, xla, mxu), peak %.2f GB (mxu) %.2f GB (xla), overflow %d"
+        % (NC, K, bounds, ", ".join("%.3f" % t for t in ms['mxu']),
+           ", ".join("%.3f" % t for t in ms['xla']), peak['mxu'],
+           peak['xla'], ov))
+    if ov != 0:
+        raise AssertionError("the clustered superstep overflowed")
+    for fft in ('mxu', 'xla'):
+        profile_superstep(solver, dslots, vslots, valid, fft)
+    del dslots, vslots, valid
+    torch.cuda.empty_cache()
 
 
 def phase_binned_timed(dev, n=N):
@@ -789,22 +1212,28 @@ def main():
     records = phase_compare(dev)
     records.update(phase_compare_rebase(dev))
     records.update(phase_compare_fft(dev))
+    records.update(phase_compare_dense(dev))
     launches, xla = phase_main(dev)
     mxu_launches = phase_main_mxu(dev, xla)
-    binned_launches = phase_binned_clustered(dev)
+    binned_launches, clustered = phase_binned_clustered(dev)
+    phase_clustered_timed(clustered)
     phase_binned_timed(dev)
     phase_small(dev)
     phase_small(dev, MXU_SMALL, np.asarray(MXU_SMALL, float), 'mxu')
+    phase_small(dev, DENSE_SMALL, np.asarray(DENSE_SMALL, float), 'mxu')
     phase_small_binned(dev)
-    kernels = []
-    for name, (source, replaces) in KERNELS.items():
-        # each kernel's launches on its own path's main run
-        count = launches.get(name, mxu_launches.get(name))
-        if count is None:
-            count = binned_launches[name]
-        kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces, launches=count,
-                            **records[name]))
+    # each kernel's launches on its own path's main run: the lattice
+    # kernels on the fft='xla' lattice run, the ct2 DFT kernels on the
+    # fft='mxu' lattice run, the rebase and dense DFT kernels on the
+    # clustered binned run
+    runs = dict.fromkeys(("paint_lattice", "readout_lattice"), launches)
+    runs.update(dict.fromkeys(MXU_PER_FORCE, mxu_launches))
+    runs.update(dict.fromkeys(("rebase_assign", "rebase_apply")
+                              + tuple(DENSE_PER_FORCE), binned_launches))
+    kernels = [dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=runs[name][name],
+                    **records[name])
+               for name, (source, replaces) in KERNELS.items()]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

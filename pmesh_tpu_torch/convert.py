@@ -3,12 +3,13 @@
 The JAX side's values come in as numpy arrays and plain attributes
 (``np.asarray(x)``, ``pm.Nmesh``, ``cosmology.Om0`` ...), so this
 module imports only numpy and torch.  With it both packages compute
-from the same inputs.
+from the same inputs.  ``device`` defaults to the current CUDA device
+and raises without CUDA; CPU use is asked for with ``device='cpu'``.
 """
 import numpy as np
 import torch
 
-from .pm import ParticleMesh, RealField, ComplexField
+from .pm import ParticleMesh, RealField, ComplexField, resolve_device
 from .models.cosmology import Cosmology
 
 __all__ = ["particlemesh_from", "cosmology_from",
@@ -16,7 +17,7 @@ __all__ = ["particlemesh_from", "cosmology_from",
            "binned_state_to_numpy", "field_from_numpy"]
 
 
-def particlemesh_from(Nmesh, BoxSize, dtype, resampler, device='cpu'):
+def particlemesh_from(Nmesh, BoxSize, dtype, resampler, device=None):
     """A ParticleMesh of the same geometry; ``resampler`` is a window
     name or any object with a ``.kind``."""
     kind = getattr(resampler, 'kind', resampler)
@@ -31,9 +32,11 @@ def cosmology_from(Om0, Ol0, h, sigma8, ns, Ob0):
                      sigma8=float(sigma8), ns=float(ns), Ob0=float(Ob0))
 
 
-def lattice_state_from_numpy(disp, vel, device='cpu'):
+def lattice_state_from_numpy(disp, vel, device=None):
     """(disp, vel) tuples of mesh-shaped tensors on ``device``, keeping
     the arrays' dtype."""
+    device = resolve_device(device)
+
     def conv(arrays):
         return tuple(torch.from_numpy(np.array(a)).to(device)
                      for a in arrays)
@@ -46,10 +49,11 @@ def _nested(fn, x):
     return fn(x)
 
 
-def binned_state_from_numpy(state, device='cpu'):
+def binned_state_from_numpy(state, device=None):
     """A binned state, e.g. ``(dslots, vslots, valid)``: nested tuples
     (slots, then axes) of numpy arrays become the same nesting of
     tensors on ``device``, keeping the arrays' dtype and values."""
+    device = resolve_device(device)
     return _nested(lambda a: torch.from_numpy(np.array(a)).to(device),
                    state)
 

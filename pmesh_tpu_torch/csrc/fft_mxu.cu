@@ -1,6 +1,7 @@
-// The split-Nyquist Cooley-Tukey DFT passes of fft='mxu' for Hopper
-// (sm_90a): four C entry points, each replacing one TPU kernel of
-// pmesh_tpu/ops/fft_mxu.py.
+// The DFT passes of fft='mxu' for Hopper (sm_90a): seven C entry
+// points, each replacing one TPU kernel of pmesh_tpu/ops/fft_mxu.py.
+//
+// The split-Nyquist Cooley-Tukey pipeline (ct2 shapes):
 //
 //   pmesh_zy_fwd_ct2      replaces _zy_fwd_ct2_call (kernel
 //                         _zy_forward_real_h_ct2): per x-plane, the raw
@@ -18,6 +19,31 @@
 //                         _zy_inverse_to_real_h_ct2_dual): two table sets
 //                         on one spectrum read, the plane on set A only.
 //
+// The dense pipeline (every other shape; natural order, the z-Nyquist
+// column kept among the Zh = N2/2 + 1 half-spectrum columns):
+//
+//   pmesh_zy_fwd_half     replaces pass 1 of fft3_real_forward_half
+//                         (kernel _zy_forward_real_h): per x-plane, the
+//                         real (N1, N2) plane times the (N2, Zh) half-DFT
+//                         pair, then the dense (N1 x N1) y DFT;
+//   pmesh_x_dense         replaces the x passes of fft3_real_forward_half
+//                         and fft3_real_inverse_grad3_half (kernel
+//                         _x_transform): the dense (N0 x N0) x DFT, forward
+//                         times 1/(N0 N1 N2) or inverse;
+//   pmesh_zy_inv_half     replaces the zy pass of
+//                         fft3_real_inverse_grad3_half (kernel
+//                         _zy_inverse_to_real_h): the dense inverse y DFT,
+//                         then z half -> real through the (Zh, n2) irfft
+//                         matrices.
+//
+// Two choices of the dense pipeline differ from the TPU kernels' block
+// structure, not from what they compute: the two inverse x passes of the
+// force triple (plain, and with i*k_x folded into the table's columns)
+// run as ONE dual launch on one read of the spectrum, and the 1/k^2
+// filter, which the JAX package applies as an elementwise pass over the
+// spectrum before the inverse, is folded into that launch's operand
+// loader from the three 1-d k^2 tables, as pmesh_xct_multi does.
+//
 // They compute what those kernels compute, in the same stored order (see
 // pmesh_tpu_torch/ops/fft_mxu.py), not how.  The TPU kernels hold whole
 // x-planes (or (N0, 8, W) column blocks) in VMEM and run every product on
@@ -32,6 +58,11 @@
 // is about 0.47 T FMA, 0.95 TFLOP (forward zy 60 G FMA, forward x 34 G,
 // dual inverse x 69 G, three zy inverses of 103 G each), at least 14 ms
 // at the card's 67 TFLOP/s, while a pass moves only ~1-1.5 GB (< 0.5 ms).
+// The dense pipeline is the same arithmetic with R = 1: at 384^3 one
+// spectral force is ~0.39 T FMA (forward 109 G, force triple 284 G),
+// at least 11.7 ms at the FP32 rate.  It adds no instantiation of the
+// product routine; ragged widths (Zh = 193 at 384^3, odd x, y or z
+// lengths) are covered by cgemm's guarded scalar global loads and stores.
 // The design therefore spends its effort on the FMA loop:
 //  - a 64 x 64 complex output tile per 256-thread block, 4 x 4 complex
 //    accumulators per thread, operands staged through shared memory in
@@ -550,6 +581,31 @@ cudaError_t y_inverse(const float* xr, const float* xi, const float* wAr,
                           stream);
 }
 
+// a dense complex DFT along the rows of (nouter, M, ncols) blocks: the
+// CtOp stage at R = 1, whose butterfly is the identity, so forward and
+// inverse differ only by the table; optionally dual (a second table on
+// the same staged input) and with the 1/k^2 fold (W: the z width of a
+// column index n = y * W + z)
+cudaError_t dense_rows(const float* xr, const float* xi, const float* wr,
+                       const float* wi, const float* w2r, const float* w2i,
+                       const float* k2x, const float* k2y, const float* k2z,
+                       float* o1r, float* o1i, float* o2r, float* o2i,
+                       int nouter, int M, long long ncols, int W,
+                       float scale, cudaStream_t stream) {
+  if (ncols > INT32_MAX) return cudaErrorInvalidValue;
+  Butter one = {};
+  one.r[0][0] = 1.f;
+  CtOp<false> op = {xr, xi, wr, wi, w2r, w2i, o1r, o1i, o2r, o2i,
+                    k2x, k2y, k2z, (long long)M * ncols, M, 1, (int)ncols,
+                    W, scale, one};
+  if (w2r != nullptr)
+    return launch_gemm<CtOp<false>, true, false, false>(op, nouter, 1, M,
+                                                        ncols, M, true,
+                                                        stream);
+  return launch_gemm<CtOp<false>, false, false, false>(op, nouter, 1, M,
+                                                       ncols, M, true, stream);
+}
+
 // the z inverse of the natural-y (rows, Zm) spectrum (yr, yi) into real
 // (rows, n2), plus the plane
 cudaError_t z_inverse(const float* yr, const float* yi, const float* ta,
@@ -723,6 +779,55 @@ int pmesh_zy_inv_ct2_dual(const float* xr, const float* xi,
                       rows, Zm, n2, zcoef, stream));
   PMESH_TRY(z_inverse(sBr, sBi, taB, tbB, zct, Ri, Kin, Kb, nullptr, outB,
                       zq, rows, Zm, n2, zcoef, stream));
+  return 0;
+}
+
+// --- the dense pipeline ---------------------------------------------------
+
+// x (n0, N1, N2) real -> (outr, outi) (n0, N1, Zh): the dense z half-DFT
+// by (wzr, wzi) (N2, Zh) into the scratch (sr, si) (n0, N1, Zh), then
+// the dense y DFT by (wyr, wyi) (N1, N1).  Natural order throughout.
+int pmesh_zy_fwd_half(const float* x, const float* wzr, const float* wzi,
+                      const float* wyr, const float* wyi, float* outr,
+                      float* outi, float* sr, float* si, int n0, int N1,
+                      int N2, int Zh, void* stream_) {
+  cudaStream_t stream = (cudaStream_t)stream_;
+  ZFwdDense zop = {x, wzr, wzi, sr, si, N2, Zh};
+  PMESH_TRY((launch_gemm<ZFwdDense, false, true, false>(
+      zop, 1, 1, (long long)n0 * N1, Zh, N2, false, stream)));
+  PMESH_TRY(dense_rows(sr, si, wyr, wyi, nullptr, nullptr, nullptr, nullptr,
+                       nullptr, outr, outi, nullptr, nullptr, n0, N1, Zh, 1,
+                       1.f, stream));
+  return 0;
+}
+
+// (xr, xi) (N0, n1, W) -> (o1r, o1i) by the (N0, N0) table (wr, wi)
+// times scale [and (o2r, o2i) by (w2r, w2i) when w2r is set], with the
+// 1/k^2 fold when k2x is set (k2x (N0,), k2y (n1,), k2z (W,), natural
+// order).
+int pmesh_x_dense(const float* xr, const float* xi, const float* wr,
+                  const float* wi, const float* w2r, const float* w2i,
+                  const float* k2x, const float* k2y, const float* k2z,
+                  float* o1r, float* o1i, float* o2r, float* o2i, int N0,
+                  int n1, int W, float scale, void* stream_) {
+  return (int)dense_rows(xr, xi, wr, wi, w2r, w2i, k2x, k2y, k2z, o1r, o1i,
+                         o2r, o2i, 1, N0, (long long)n1 * W, W, scale,
+                         (cudaStream_t)stream_);
+}
+
+// (xr, xi) (n0, N1, Zh) -> out (n0, N1, n2): the dense inverse y DFT by
+// (wyr, wyi) (N1, N1) into the scratch (sr, si) (n0, N1, Zh), then
+// z half -> real by the (Zh, n2) irfft pair (ta, tb).
+int pmesh_zy_inv_half(const float* xr, const float* xi, const float* wyr,
+                      const float* wyi, const float* ta, const float* tb,
+                      float* out, float* sr, float* si, int n0, int N1,
+                      int Zh, int n2, void* stream_) {
+  cudaStream_t stream = (cudaStream_t)stream_;
+  PMESH_TRY(dense_rows(xr, xi, wyr, wyi, nullptr, nullptr, nullptr, nullptr,
+                       nullptr, sr, si, nullptr, nullptr, n0, N1, Zh, 1, 1.f,
+                       stream));
+  PMESH_TRY(z_inverse(sr, si, ta, tb, 0, 1, Zh, n2, nullptr, out, nullptr,
+                      (long long)n0 * N1, Zh, n2, nullptr, stream));
   return 0;
 }
 

@@ -14,12 +14,12 @@ host sync inside a step.
 
 One force is: lattice paint -> r2c -> three spectral force filters and
 c2r (or one Poisson potential) -> lattice readouts.  With ``fft='xla'``
-the FFTs are ``torch.fft``; with ``fft='mxu'`` (f32, ct2 shapes) they
-are the split-Nyquist Cooley-Tukey DFT passes of ``ops/fft_mxu.py``,
-with the 1/k^2 filter and the SuperLanczos i*k_d folded into the
-inverse.  Paint, readout, rebase and the DFT passes run the hand CUDA
-kernels for CUDA tensors (``ops/gridpm.py``, ``ops/binned.py``,
-``ops/fft_mxu.py``).
+the FFTs are ``torch.fft``; with ``fft='mxu'`` (f32, 3-d) they are the
+DFT passes of ``ops/fft_mxu.py`` (split-Nyquist Cooley-Tukey at ct2
+shapes, dense elsewhere), with the 1/k^2 filter and the SuperLanczos
+i*k_d folded into the inverse.  Paint, readout, rebase and the DFT
+passes run the hand CUDA kernels for CUDA tensors (``ops/gridpm.py``,
+``ops/binned.py``, ``ops/fft_mxu.py``).
 """
 import numpy as np
 import torch
@@ -137,10 +137,6 @@ def leapfrog_factors(time_steps, factors, scheme='symp2'):
 _BF16 = ("fft=%r (bf16 DFT products or bf16 spectrum storage) is not "
          "ported yet (ROADMAP queue 1, item 12); use fft='mxu' (f32) or "
          "fft='xla'")
-_DENSE = ("fft='mxu' at the non-ct2 shape %s needs the dense DFT kernels "
-          "fft3_real_forward_half / fft3_real_inverse_grad3_half "
-          "(kernel-table rows 3 and 4), not ported yet (ROADMAP queue 1, "
-          "item 13); use fft='xla', or x/y lengths R*128k and an even z")
 
 
 def _check_force_args(fft, mode):
@@ -228,9 +224,9 @@ class Solver(object):
             'spectral' differentiates in k-space (three inverse FFTs);
             'gradient' takes one Poisson potential and the
             derivative-window readout.
-        fft : 'xla' (torch.fft) or 'mxu' (the ct2 DFT passes, f32;
-            the gradient mode takes the field path at non-ct2 shapes,
-            the spectral mode raises there).
+        fft : 'xla' (torch.fft) or 'mxu' (the DFT passes, f32: ct2 or
+            dense by shape; the gradient mode takes the field path at
+            shapes that are not ct2, as the JAX package does).
 
         Returns the ndim force meshes (box-unit acceleration).
         """
@@ -296,7 +292,7 @@ class Solver(object):
         the per-axis k^2 tables (f4, natural order; z over the half axis)
         as tuples of floats, the SuperLanczos difference kernels k_d (f8
         tuples, zero at Nyquist, as the half-spectrum gradient needs) and
-        whether the shape takes the ct2 pipeline."""
+        whether the shape takes the ct2 pipeline (else the dense one)."""
         fpm = self.fpm
         shape = tuple(int(n) for n in fpm.Nmesh)
         if not hasattr(self, '_mxu_cache'):
@@ -333,14 +329,21 @@ class Solver(object):
                                          poisson_k2=pk2)
 
     def _mxu_force_raw(self, rho, only=None):
-        """The spectral force meshes through the ct2 DFT passes: one
+        """The spectral force meshes through the DFT passes: one
         forward, then the 1/k^2 filter and the i*k_d force kernel folded
-        into the inverse x pass and the per-axis inverse tables.  ``only``
-        = d gives that direction alone (one x pass and one zy inverse),
-        for the transpose of the operator."""
+        into the inverse x pass and the per-axis inverse tables; the ct2
+        pipeline at ct2 shapes, the dense one elsewhere (where the JAX
+        package applies 1/k^2 as an elementwise pass, the dense x pass
+        folds it from the same 1-d tables).  ``only`` = d gives that
+        direction alone, for the transpose of the operator: one x pass
+        and one zy inverse at ct2 shapes, the triple's member elsewhere,
+        as the JAX package does."""
         shape, pk2, kd, ct = self._mxu_setup()
         if not ct:
-            raise NotImplementedError(_DENSE % (shape,))
+            r, i = _fm.fft3_real_forward_half(rho)
+            out = _fm.fft3_real_inverse_grad3_half(
+                r, i, n2=shape[2], kvecs=kd, poisson_k2=pk2)
+            return out if only is None else out[only]
         r, i, nqr, nqi = _fm.fft3_real_forward_half_ct2(rho)
         return _fm.fft3_real_inverse_grad3_half_ct2(
             r, i, nqr, nqi, n2=shape[2], kvecs=kd, poisson_k2=pk2, only=only)

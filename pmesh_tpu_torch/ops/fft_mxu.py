@@ -1,9 +1,10 @@
-"""The split-Nyquist Cooley-Tukey DFT-as-matmul FFT of ``fft='mxu'``.
+"""The DFT-as-matmul FFT of ``fft='mxu'``: the split-Nyquist
+Cooley-Tukey pipeline and, at every other shape, the dense one.
 
-Counterpart of the ct2 part of ``pmesh_tpu/ops/fft_mxu.py``: a real
-(N0, N1, N2) mesh whose x and y lengths split as R * M (R in {8, 4, 2},
-M a multiple of 128) and whose z length is even is transformed by
-small dense DFT matrices wrapped in R-way butterflies:
+Counterpart of the single-device part of ``pmesh_tpu/ops/fft_mxu.py``.
+A real (N0, N1, N2) mesh whose x and y lengths split as R * M (R in
+{8, 4, 2}, M a multiple of 128) and whose z length is even takes the
+ct2 pipeline: small dense DFT matrices wrapped in R-way butterflies:
 
   pass 1 (``_zy_fwd_ct2_call``, kernel-table row 6): per x-plane, the
       z half-DFT (dense, or z-CT when ``_use_zct_fwd``) to Zm = N2 // 2
@@ -19,11 +20,25 @@ small dense DFT matrices wrapped in R-way butterflies:
 The layout is the JAX package's: slot ``j * M + q`` of the x and y axes
 holds mode ``j + R * q`` (``_ct_permute``), z is stored in the order of
 ``_zct_perm`` when the z-CT gate is on, and the z-Nyquist plane is a
-separate (N0, N1) pair in natural order.  Complex data is carried as
-(real, imag) f32 pairs.  The forward transform is scaled by
-1/(N0 N1 N2) and the inverse is unnormalized, as ``ops/fft.py``.
+separate (N0, N1) pair in natural order.
 
-Each of the four passes has a plain PyTorch version here (``*_plain``,
+Every other f32 3-d shape takes the dense pipeline, in natural order
+with the z-Nyquist column kept among the Zh = N2 // 2 + 1 half-spectrum
+columns (kernel-table rows 3 and 4):
+
+  forward (``fft3_real_forward_half``, row 3): per x-plane the z
+      half-DFT and the dense y DFT (``_zy_fwd_dense_call``), then the
+      dense x DFT times 1/(N0 N1 N2) (``_x_dense_call``);
+  force triple (``fft3_real_inverse_grad3_half``, row 4): the inverse
+      x DFT, plain and with i*k_x folded into its columns, as one dual
+      pass that can fold 1/k^2 in too (``_x_dense_call``), then three
+      inverse y DFTs with z half -> real (``_zy_inv_dense_call``).
+
+Complex data is carried as (real, imag) f32 pairs.  The forward
+transform is scaled by 1/(N0 N1 N2) and the inverse is unnormalized,
+as ``ops/fft.py``.
+
+Each of the seven passes has a plain PyTorch version here (``*_plain``,
 batched matmuls; the CPU path and the reference the kernels are held
 against) and a hand CUDA kernel (``ops/fft_mxu_cuda.py``,
 ``csrc/fft_mxu.cu``).  ``impl=None`` takes the kernel for CUDA tensors
@@ -40,7 +55,8 @@ import numpy as np
 import torch
 
 __all__ = ["fft3_real_forward_half_ct2", "fft3_real_inverse_grad3_half_ct2",
-           "fft3_poisson_half_ct2", "is_ct2"]
+           "fft3_poisson_half_ct2", "is_ct2", "fft3_real_forward_half",
+           "fft3_real_inverse_grad3_half"]
 
 
 # --- static tables (numpy, the JAX package's math) ---------------------------
@@ -75,6 +91,22 @@ def _irfft_mats_np(n, zh, grad_kvec=None, nyquist_last=True):
         kz = np.asarray(grad_kvec, dtype=np.float64)[:, None]
         A, B = -kz * s_, -kz * c
     return A.astype(np.float32), B.astype(np.float32)
+
+
+def _fold_i_freq(Wr, Wi, freqs, side):
+    """fold diag(i * freqs) into a (numpy) DFT matrix (rows:
+    side='left', columns: side='right'): multiplying the spectrum by
+    i*k_d before an inverse transform becomes a change of the matrix."""
+    f = np.asarray(freqs, dtype=np.float32)
+    if side == 'left':
+        return -Wi * f[:, None], Wr * f[:, None]
+    return -Wi * f[None, :], Wr * f[None, :]
+
+
+def _dft_fold_np(n, freqs):
+    """the inverse dense DFT pair of length n with i*freqs folded into
+    its columns (the dense pipeline's gradient tables)."""
+    return _fold_i_freq(*_dft_np(n, +1), freqs, 'right')
 
 
 def _zct_factor(N2):
@@ -329,7 +361,7 @@ def is_ct2(shape):
     return _ct_factor(N0)[0] > 1 and _ct_factor(N1)[0] > 1 and N2 % 2 == 0
 
 
-# --- plain PyTorch versions of the four passes -------------------------------
+# --- plain PyTorch versions of the seven passes ------------------------------
 
 def _t(a, like):
     return torch.as_tensor(np.asarray(a), dtype=torch.float32,
@@ -493,6 +525,14 @@ def xct_multi_plain(pr, pi, wx, scale, inverse=False, wx2=None, k2=None):
     ``wx2`` on the same input and an optional 1/k^2 fold from the 1-d
     tables ``k2`` = (k2x (N0,), k2y (n1,), k2z (W,)), DC set to 0.
     Returns (r, i) or (r, i, r2, i2)."""
+    f = _ct_inv_plain if inverse else _ct_fwd_plain
+    return _x_pass_plain(pr, pi, wx, scale, wx2, k2, f)
+
+
+def _x_pass_plain(pr, pi, wx, scale, wx2, k2, transform):
+    """what the x passes share: the optional 1/k^2 fold (DC set to 0),
+    then ``transform`` along x for one or two table sets, times
+    ``scale``.  Returns (r, i) or (r, i, r2, i2)."""
     N0, n1, W = pr.shape
     xr, xi = pr.to(torch.float32), pi.to(torch.float32)
     if k2 is not None:
@@ -505,11 +545,47 @@ def xct_multi_plain(pr, pi, wx, scale, inverse=False, wx2=None, k2=None):
     out = []
     for w in (wx,) if wx2 is None else (wx, wx2):
         wr, wi = (_t(a, xr) for a in w)
-        f = _ct_inv_plain if inverse else _ct_fwd_plain
-        rr, ii = f(xr, xi, wr, wi)
+        rr, ii = transform(xr, xi, wr, wi)
         out += [(rr * scale).reshape(N0, n1, W),
                 (ii * scale).reshape(N0, n1, W)]
     return tuple(out)
+
+
+def _dense_plain(xr, xi, wr, wi):
+    """dense complex DFT along axis -2: (wr + i wi) @ (xr + i xi)."""
+    return (torch.matmul(wr, xr) - torch.matmul(wi, xi),
+            torch.matmul(wr, xi) + torch.matmul(wi, xr))
+
+
+def zy_fwd_half_plain(x, wz, wy):
+    """Row 3 pass 1, plain: real (n0, N1, N2) -> (r, i) (n0, N1, Zh),
+    natural order: the z half-DFT pair ``wz`` = ``_dft_half_np(N2,
+    Zh)``, then the dense y DFT pair ``wy`` = ``_dft_np(N1, -1)``."""
+    p = x.to(torch.float32)
+    wzr, wzi = (_t(a, p) for a in wz)
+    return _dense_plain(torch.matmul(p, wzr), torch.matmul(p, wzi),
+                        *(_t(a, p) for a in wy))
+
+
+def x_dense_plain(pr, pi, wx, scale, wx2=None, k2=None):
+    """Rows 3 and 4 x pass, plain: the dense x DFT of an (N0, n1, W)
+    complex block by the (N0, N0) pair ``wx`` (forward or inverse, by
+    the table) times ``scale``, with an optional second pair ``wx2`` on
+    the same input and an optional 1/k^2 fold from the natural-order
+    1-d tables ``k2`` = (k2x (N0,), k2y (n1,), k2z (W,)), DC set to 0.
+    Returns (r, i) or (r, i, r2, i2)."""
+    return _x_pass_plain(pr, pi, wx, scale, wx2, k2, _dense_plain)
+
+
+def zy_inv_half_plain(rr, ii, wy, AB):
+    """Row 4 zy pass, plain: (n0, N1, Zh) natural-order spectrum ->
+    real (n0, N1, n2): the dense inverse y DFT pair ``wy`` (plain or
+    with i*k_y folded), then z half -> real by the (Zh, n2) pair ``AB``
+    of ``_irfft_mats_np`` (plain or with i*k_z folded)."""
+    xr, xi = rr.to(torch.float32), ii.to(torch.float32)
+    yr, yi = _dense_plain(xr, xi, *(_t(a, xr) for a in wy))
+    A, B = (_t(a, xr) for a in AB)
+    return torch.matmul(yr, A) + torch.matmul(yi, B)
 
 
 def _zy_inv_one(xr, xi, Wy, AB, n2, plane):
@@ -593,6 +669,31 @@ def _zy_inv_ct2_call_dual(rr, ii, WyA, ABA, WyB, ABB, n2, planeA=None,
                                   planeA=planeA)
     return zy_inv_ct2_dual_plain(rr, ii, WyA, ABA, WyB, ABB, n2,
                                  planeA=planeA)
+
+
+def _zy_fwd_dense_call(x, wz, wy, impl=None):
+    """row 3 pass 1 on an (n0, N1, N2) block -> (r, i) (n0, N1, Zh)."""
+    if _use_cuda(impl, x):
+        from . import fft_mxu_cuda as _k
+        return _k.zy_fwd_half(x, wz, wy)
+    return zy_fwd_half_plain(x, wz, wy)
+
+
+def _x_dense_call(pr, pi, wx, scale, wx2=None, k2=None, impl=None):
+    """the dense x pass (rows 3 and 4) of an (N0, n1, W) block; returns
+    (r, i) or (r, i, r2, i2)."""
+    if _use_cuda(impl, pr):
+        from . import fft_mxu_cuda as _k
+        return _k.x_dense(pr, pi, wx, scale, wx2=wx2, k2=k2)
+    return x_dense_plain(pr, pi, wx, scale, wx2=wx2, k2=k2)
+
+
+def _zy_inv_dense_call(rr, ii, wy, AB, impl=None):
+    """row 4 zy pass on an (n0, N1, Zh) block -> (n0, N1, n2)."""
+    if _use_cuda(impl, rr):
+        from . import fft_mxu_cuda as _k
+        return _k.zy_inv_half(rr, ii, wy, AB)
+    return zy_inv_half_plain(rr, ii, wy, AB)
 
 
 def _plane_fft2(nq_r, nq_i, N0, N1, sign, scale=1.0):
@@ -728,3 +829,74 @@ def fft3_poisson_half_ct2(r, i, nqr, nqi, n2, poisson_k2, impl=None):
     plane = -_plane_fft2(nqr * invk2p, nqi * invk2p, N0, N1, +1)[0]
     sr, si = _xct_call_multi(r, i, wx, 1.0, inverse=True, k2=k2m, impl=impl)
     return _zy_inv_ct2_call(sr, si, wy, AB_p, n2, plane=plane, impl=impl)
+
+
+# --- the dense public operators (rows 3 and 4) -------------------------------
+
+def fft3_real_forward_half(x, norm=True, impl=None):
+    """hermitian-half forward FFT of a real f32 (N0, N1, N2) mesh at any
+    shape: returns (r, i) of shape (N0, N1, N2 // 2 + 1) in natural
+    order, scaled by 1/(N0 N1 N2) when ``norm``."""
+    N0, N1, N2 = x.shape
+    Zh = N2 // 2 + 1
+    wz = _cached(_dft_half_np, N2, Zh)
+    wy = _cached(_dft_np, N1, -1)
+    wx = _cached(_dft_np, N0, -1)
+    pr, pi = _zy_fwd_dense_call(x, wz, wy, impl=impl)
+    scale = 1.0 / (N0 * N1 * N2) if norm else 1.0
+    return _x_dense_call(pr, pi, wx, scale, impl=impl)
+
+
+def _dense_k2_tables(poisson_k2, N0, N1, Zh):
+    """the natural-order f32 1-d k^2 tables folded into the inverse x
+    pass, checked against the spectrum's shape."""
+    k2 = tuple(np.asarray(t, np.float32) for t in poisson_k2)
+    if tuple(len(t) for t in k2) != (N0, N1, Zh):
+        raise ValueError("poisson_k2 tables of lengths %s do not fit the "
+                         "(%d, %d, %d) half spectrum"
+                         % (tuple(len(t) for t in k2), N0, N1, Zh))
+    return k2
+
+
+def fft3_real_inverse_grad3_half(r, i, n2, kvecs, poisson_k2=None,
+                                 impl=None):
+    """the spectral force triple from a natural-order HALF spectrum
+    (r, i) of shape (N0, N1, Zh): the unnormalized inverses of i*k_d
+    times the spectrum, d = 0, 1, 2.  The y and z gradients fold into
+    the zy-pass tables and share one x pass; the x gradient folds into
+    the second table set of that pass.
+
+    kvecs : three natural-order tables (len N0, N1, Zh); kvecs[0] and
+        kvecs[1] must vanish at the Nyquist index of an even axis (a
+        nonzero odd multiplier there breaks the hermitian symmetry the
+        half-spectrum doubling relies on).
+    poisson_k2 : None, or three natural-order k^2 tables (len N0, N1,
+        Zh): then 1/k^2 (DC zeroed) folds into the x pass, and (r, i)
+        is the raw forward spectrum.  The default None keeps the JAX
+        package's signature and meaning (the caller filters the
+        spectrum first); the solver passes the tables, which saves the
+        elementwise filter pass over the spectrum."""
+    N0, N1, Zh = r.shape
+    _check_kvecs(kvecs, N0, N1)
+    if len(kvecs[2]) != Zh:
+        raise ValueError("kvecs[2] must have length Zh=%d" % Zh)
+    if n2 // 2 + 1 != Zh:
+        raise ValueError("n2=%d does not give the %d half-spectrum columns"
+                         % (n2, Zh))
+    kvecs = _tuples(kvecs)
+    wy = _cached(_dft_np, N1, +1)
+    wx = _cached(_dft_np, N0, +1)
+    wx_g = _cached(_dft_fold_np, N0, kvecs[0])
+    wy_g = _cached(_dft_fold_np, N1, kvecs[1])
+    AB_p = _cached(_irfft_mats_np, n2, Zh)
+    AB_g = _cached(_irfft_mats_np, n2, Zh, kvecs[2])
+    k2 = None
+    if poisson_k2 is not None:
+        k2 = _cached(_dense_k2_tables, _tuples(poisson_k2), N0, N1, Zh)
+    # both inverse x passes from one read of (r, i)
+    sr, si, gr, gi = _x_dense_call(r, i, wx, 1.0, wx2=wx_g, k2=k2, impl=impl)
+    fy = _zy_inv_dense_call(sr, si, wy_g, AB_p, impl=impl)
+    fz = _zy_inv_dense_call(sr, si, wy, AB_g, impl=impl)
+    del sr, si
+    fx = _zy_inv_dense_call(gr, gi, wy, AB_p, impl=impl)
+    return fx, fy, fz

@@ -1,10 +1,12 @@
-"""ctypes wrappers of the split-Nyquist CT DFT kernels
-(``csrc/fft_mxu.cu``), the port of the ct2 Pallas kernels of
-``pmesh_tpu/ops/fft_mxu.py``.
+"""ctypes wrappers of the DFT kernels of ``fft='mxu'``
+(``csrc/fft_mxu.cu``), the port of the single-device Pallas kernels of
+``pmesh_tpu/ops/fft_mxu.py``: the split-Nyquist CT passes and the
+dense passes.
 
 Each wrapper checks its tensors (CUDA, f32, the pass's shapes,
-contiguous, one device, no autograd), the x/y splits (R in {2, 4, 8}
-with M a multiple of 128) and the table shapes, allocates the outputs
+contiguous, one device, no autograd), the x/y splits of the CT passes
+(R in {2, 4, 8} with M a multiple of 128) and the table shapes,
+allocates the outputs
 and the scratch with ``torch.empty``, launches on PyTorch's current
 stream and raises RuntimeError if a launch returns an error.  The
 numpy tables are uploaded once per table object and device (the public
@@ -12,7 +14,8 @@ operators of ``ops/fft_mxu.py`` build each table once per shape).
 ``LAUNCHES`` counts the calls of each kernel.
 
 The plain PyTorch versions are ``ops/fft_mxu.zy_fwd_ct2_plain``,
-``xct_multi_plain``, ``zy_inv_ct2_plain`` and ``zy_inv_ct2_dual_plain``.
+``xct_multi_plain``, ``zy_inv_ct2_plain``, ``zy_inv_ct2_dual_plain``,
+``zy_fwd_half_plain``, ``x_dense_plain`` and ``zy_inv_half_plain``.
 """
 import ctypes
 
@@ -23,10 +26,12 @@ from . import fft_mxu as _fm
 from ..native import cuda as _cuda
 
 __all__ = ["zy_fwd_ct2", "xct_multi", "zy_inv_ct2", "zy_inv_ct2_dual",
-           "LAUNCHES", "reset_launches"]
+           "zy_fwd_half", "x_dense", "zy_inv_half", "LAUNCHES",
+           "reset_launches"]
 
 LAUNCHES = {"zy_fwd_ct2": 0, "xct_multi": 0, "zy_inv_ct2": 0,
-            "zy_inv_ct2_dual": 0}
+            "zy_inv_ct2_dual": 0, "zy_fwd_half": 0, "x_dense": 0,
+            "zy_inv_half": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _lib = None
@@ -51,8 +56,13 @@ def _load():
             [_P] * 6 + [_I] * 4 + [_P] * 5 + [_I] * 6 + [_P] * 3)
         lib.pmesh_zy_inv_ct2_dual.argtypes = (
             [_P] * 10 + [_I] * 4 + [_P] * 8 + [_I] * 6 + [_P] * 3)
+        lib.pmesh_zy_fwd_half.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+        lib.pmesh_x_dense.argtypes = [_P] * 13 + [_I] * 3 + [_F, _P]
+        lib.pmesh_zy_inv_half.argtypes = [_P] * 9 + [_I] * 4 + [_P]
         for fn in (lib.pmesh_zy_fwd_ct2, lib.pmesh_xct_multi,
-                   lib.pmesh_zy_inv_ct2, lib.pmesh_zy_inv_ct2_dual):
+                   lib.pmesh_zy_inv_ct2, lib.pmesh_zy_inv_ct2_dual,
+                   lib.pmesh_zy_fwd_half, lib.pmesh_x_dense,
+                   lib.pmesh_zy_inv_half):
             fn.restype = _I
         _lib = lib
     return _lib
@@ -271,3 +281,77 @@ def zy_inv_ct2_dual(rr, ii, WyA, ABA, WyB, ABB, n2, planeA=None):
         _host(_coef('inv', Ry)), _host(_coef('inv', Ri)), _stream(dev))
     _raise_on(rc, what)
     return outs[0], outs[1]
+
+
+# --- the dense passes (rows 3 and 4), natural order --------------------------
+
+def _empty(shape, dev, n):
+    return [torch.empty(shape, dtype=torch.float32, device=dev)
+            for _ in range(n)]
+
+
+def zy_fwd_half(x, wz, wy):
+    """Row 3 pass 1: real (n0, N1, N2) -> (r, i) (n0, N1, N2 // 2 + 1)
+    by the (N2, Zh) half-DFT pair ``wz`` and the (N1, N1) y pair ``wy``."""
+    what = "zy_fwd_half"
+    n0, N1, N2 = x.shape
+    dev = _check((x,), x.shape, what)
+    Zh = N2 // 2 + 1
+    wzr, wzi = (_table(a, (N2, Zh), dev, what) for a in wz)
+    wyr, wyi = (_table(a, (N1, N1), dev, what) for a in wy)
+    outr, outi, sr, si = _empty((n0, N1, Zh), dev, 4)
+    LAUNCHES[what] += 1
+    rc = _load().pmesh_zy_fwd_half(
+        _ptr(x), _ptr(wzr), _ptr(wzi), _ptr(wyr), _ptr(wyi), _ptr(outr),
+        _ptr(outi), _ptr(sr), _ptr(si), n0, N1, N2, Zh, _stream(dev))
+    _raise_on(rc, what)
+    return outr, outi
+
+
+def x_dense(pr, pi, wx, scale, wx2=None, k2=None):
+    """Rows 3 and 4 x pass: the dense x DFT of (N0, n1, W) complex by
+    the (N0, N0) pair ``wx`` times ``scale`` [and by ``wx2``], with the
+    natural-order 1/k^2 fold ``k2``; (r, i) or (r, i, r2, i2)."""
+    what = "x_dense"
+    N0, n1, W = pr.shape
+    dev = _check((pr, pi), pr.shape, what)
+    tabs = [_table(a, (N0, N0), dev, what) for a in wx]
+    if wx2 is not None:
+        tabs += [_table(a, (N0, N0), dev, what) for a in wx2]
+    ks = [None] * 3
+    if k2 is not None:
+        ks = [_table(np.asarray(t, np.float32), (n,), dev, what)
+              for t, n in zip(k2, (N0, n1, W))]
+    out = _empty((N0, n1, W), dev, len(tabs))
+    o = [_ptr(t) for t in out] + [None] * (4 - len(out))
+    t2 = [_ptr(t) for t in tabs[2:]] + [None] * (4 - len(tabs))
+    LAUNCHES[what] += 1
+    rc = _load().pmesh_x_dense(
+        _ptr(pr), _ptr(pi), _ptr(tabs[0]), _ptr(tabs[1]), t2[0], t2[1],
+        _ptr(ks[0]), _ptr(ks[1]), _ptr(ks[2]), o[0], o[1], o[2], o[3], N0,
+        n1, W, float(scale), _stream(dev))
+    _raise_on(rc, what)
+    return tuple(out)
+
+
+def zy_inv_half(rr, ii, wy, AB):
+    """Row 4 zy pass: (n0, N1, Zh) spectrum -> real (n0, N1, n2) by the
+    (N1, N1) inverse y pair ``wy`` and the (Zh, n2) irfft pair ``AB``;
+    n2 is AB's width and must have Zh = n2 // 2 + 1."""
+    what = "zy_inv_half"
+    n0, N1, Zh = rr.shape
+    dev = _check((rr, ii), rr.shape, what)
+    n2 = np.shape(AB[0])[-1]
+    if n2 // 2 + 1 != Zh:
+        raise ValueError("%s: z tables of width %d do not fit Zh=%d"
+                         % (what, n2, Zh))
+    wyr, wyi = (_table(a, (N1, N1), dev, what) for a in wy)
+    ta, tb = (_table(a, (Zh, n2), dev, what) for a in AB)
+    out = torch.empty((n0, N1, n2), dtype=torch.float32, device=dev)
+    sr, si = _empty((n0, N1, Zh), dev, 2)
+    LAUNCHES[what] += 1
+    rc = _load().pmesh_zy_inv_half(
+        _ptr(rr), _ptr(ii), _ptr(wyr), _ptr(wyi), _ptr(ta), _ptr(tb),
+        _ptr(out), _ptr(sr), _ptr(si), n0, N1, Zh, n2, _stream(dev))
+    _raise_on(rc, what)
+    return out

@@ -4,7 +4,9 @@ FastPM lattice path runs.
 Counterpart of ``pmesh_tpu/pm.py``.  A field holds one torch tensor in
 ``.value`` on its ParticleMesh's ``device``; a tensor on another
 device raises instead of being moved.  Arithmetic is done on
-``.value``.  This slice has one device and no sharding.
+``.value``.  This slice has one device and no sharding.  The device
+defaults to the current CUDA device; CPU use is asked for with
+``device='cpu'``.
 """
 import numpy as np
 import torch
@@ -12,7 +14,25 @@ import torch
 from .window import FindResampler
 from .ops import fft as _fft
 
-__all__ = ["ParticleMesh", "RealField", "ComplexField", "Field", "xlist"]
+__all__ = ["ParticleMesh", "RealField", "ComplexField", "Field", "xlist",
+           "resolve_device"]
+
+
+def resolve_device(device=None):
+    """The torch device an entry point runs on: ``device`` as given
+    (a bare 'cuda' pinned to the current CUDA device), or with None the
+    current CUDA device.  Without CUDA, None raises: the port does not
+    fall back to the CPU unless asked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pmesh_tpu_torch runs on the GPU by default; "
+                "pass device='cpu' to run on the CPU")
+        device = 'cuda'
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
+    return device
 
 
 class xlist(list):
@@ -111,12 +131,13 @@ class ParticleMesh(object):
     BoxSize : float or sequence of float
     dtype : 'f4' or 'f8'
     resampler : window name or ResampleWindow
-    device : torch device of every field made from this mesh
+    device : torch device of every field made from this mesh; default
+        the current CUDA device (raises without CUDA: pass 'cpu')
     procmesh : must be None; sharded meshes are not ported yet.
     """
 
     def __init__(self, Nmesh, BoxSize=1.0, dtype='f8', resampler='cic',
-                 device='cpu', procmesh=None):
+                 device=None, procmesh=None):
         if procmesh is not None:
             raise NotImplementedError(
                 "sharded meshes are not ported yet (ROADMAP queue 1, "
@@ -133,10 +154,7 @@ class ParticleMesh(object):
         self.complex_dtype = (torch.complex64
                               if self.dtype == np.dtype('f4')
                               else torch.complex128)
-        device = torch.device(device)
-        if device.type == 'cuda' and device.index is None:
-            device = torch.device('cuda', torch.cuda.current_device())
-        self.device = device
+        self.device = resolve_device(device)
         self.procmesh = None
         self.resampler = FindResampler(resampler)
         self._coords_cache = {}

@@ -52,7 +52,7 @@ def _tree_bits_equal(ref, got):
 def _both(arrays):
     """the same numpy arrays as jax and as torch nested tuples"""
     return (jax.tree_util.tree_map(jnp.asarray, arrays),
-            convert.binned_state_from_numpy(arrays))
+            convert.binned_state_from_numpy(arrays, device='cpu'))
 
 
 def _slot_state(seed, shape, lo, hi, fill=(0.35, 0.15), dtype='f4'):
@@ -231,7 +231,7 @@ def test_rebase_routes_replay_the_assign():
     route names: replaying the displacements themselves through the
     routes gives back what the assign re-centred, d - floor(d)"""
     ds, va, _ = _slot_state(13, (6, 6, 6), -0.9, 1.9)
-    tds, tva = convert.binned_state_from_numpy((ds, va))
+    tds, tva = convert.binned_state_from_numpy((ds, va), device='cpu')
     offsets = tbn._drift_offsets((-0.9, 1.9), 3)
     nd, nv, rt, ov = tbn.rebase_assign_plain(tds, tva, offsets, 4)
     assert int(ov) == 0 and rt[0].dtype == tbn.ROUTE_DTYPE
@@ -248,7 +248,8 @@ def test_rebase_routes_replay_the_assign():
 def test_rebase_dispatch_refuses_cpu_for_cuda():
     from pmesh_tpu_torch.ops import binned_cuda
     ds, va, vel = _slot_state(14, (4, 4, 4), 0.0, 1.0)
-    tds, tva, tvel = convert.binned_state_from_numpy((ds, va, vel))
+    tds, tva, tvel = convert.binned_state_from_numpy((ds, va, vel),
+                                                       device='cpu')
     before = dict(binned_cuda.LAUNCHES)
     with pytest.raises(ValueError, match='CUDA tensors'):
         tbn.rebase(tds, tva, (0.0, 1.0), impl='cuda')
@@ -304,7 +305,7 @@ def test_paint_readout_binned_match_jax(window):
 def _solvers(n, dtype='f4', box=None):
     jpm = JaxPM(Nmesh=[n] * 3, BoxSize=float(box or n), dtype=dtype)
     tpm = convert.particlemesh_from(jpm.Nmesh, jpm.BoxSize, jpm.dtype,
-                                    jpm.resampler)
+                                    jpm.resampler, device='cpu')
     return jfastpm.Solver(jpm), tfastpm.Solver(tpm)
 
 
@@ -344,11 +345,17 @@ def test_binned_refuses_mxu():
     _, ts = _solvers(8)
     disp = tuple(torch.full((8,) * 3, 0.5) for _ in range(3))
     dsl, valid = tbn.from_lattice(disp, nslots=1)
-    for fft in ('mxu', 'mxu_bf16', 'mxu_bf16s'):
+    for fft in ('mxu_bf16', 'mxu_bf16s'):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             ts.force_binned(dsl, valid, (0.0, 1.0), fft=fft)
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             ts.nbody_binned(disp, disp, [0.5, 0.6], fft=fft)
+    # fft='mxu' runs at 8^3, which is not ct2 (the dense DFT passes): a
+    # uniform state feels no force and keeps every particle
+    F = ts.force_binned(dsl, valid, (0.0, 1.0), fft='mxu')
+    assert all(float(f.abs().max()) < 1e-6 for f in F[0])
+    _, _, va, ov = ts.nbody_binned(disp, disp, [0.5, 0.6], fft='mxu')
+    assert int(ov) == 0 and int(tbn.occupancy(va)[0]) == 8 ** 3
     with pytest.raises(ValueError):
         ts.force_binned(dsl, valid, (0.0, 1.0), mode='direct')
 
@@ -363,7 +370,8 @@ def _nbody_inputs():
                            compat='native')
     disp, vel = js.lpt_lattice(dlin, a0=0.3, shift=0.3, order=1)
     tdisp, tvel = convert.lattice_state_from_numpy(
-        [np.asarray(d) for d in disp], [np.asarray(v) for v in vel])
+        [np.asarray(d) for d in disp], [np.asarray(v) for v in vel],
+        device='cpu')
     kw = dict(nslots=2, rebase_every=2, step_drift=0.5)
     return js, ts, (disp, vel), (tdisp, tvel), np.linspace(0.3, 0.5, 3), kw
 
@@ -463,7 +471,7 @@ def test_binned_state_round_trip_is_exact():
                 for _ in range(3))
     dsl, vsl, valid, _ = jbn.fold_lattice(disp, vel, nslots=4)
     host = jax.tree_util.tree_map(np.asarray, (dsl, vsl, valid))
-    state = convert.binned_state_from_numpy(host)
+    state = convert.binned_state_from_numpy(host, device='cpu')
     assert len(state) == 3 and len(state[0]) == 4 and len(state[0][0]) == 3
     assert state[2][0].dtype == torch.float32
     back = convert.binned_state_to_numpy(state)

@@ -380,7 +380,8 @@ def test_fft_mxu_launches_count_one_force(dev, mode, counts):
     disp, _, _ = _inputs(17, shape, (0.0, 1.0), dev)
     fft_mxu_cuda.reset_launches()
     Solver(pm).force_lattice(disp, (0.0, 1.0), mode=mode, fft='mxu')
-    assert fft_mxu_cuda.LAUNCHES == counts
+    assert fft_mxu_cuda.LAUNCHES == dict(counts, zy_fwd_half=0, x_dense=0,
+                                         zy_inv_half=0)
 
 
 @pytest.mark.parametrize("force_mode,window", [('spectral', 'cic'),
@@ -403,6 +404,128 @@ def test_nbody_lattice_mxu_card_matches_cpu(dev, force_mode, window):
         S, V = solver.nbody_lattice(disp, vel, np.linspace(0.1, 0.4, 4),
                                     (-1.0, 1.0), force_mode=force_mode,
                                     fft='mxu')
+        out.append([x.cpu() for x in S + V])
+    smax = max(float(s.abs().max()) for s in out[0][:3])
+    assert 0.01 < smax < 1.0
+    for ref, got in zip(*out):
+        assert _rel(got, ref) <= 1e-4
+
+
+# --- the dense DFT kernels (csrc/fft_mxu.cu, rows 3 and 4) -------------------
+
+@pytest.mark.parametrize("shape", [(96, 96, 96), (45, 38, 75)])
+def test_fft_dense_kernels_match_plain(dev, shape):
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    N0, N1, n2 = shape
+    Zh = n2 // 2 + 1
+    x, _, _ = _fft_inputs(20, shape, dev)
+    wz, wy = fm._dft_half_np(n2, Zh), fm._dft_np(N1, -1)
+    for g, r in zip(fm._zy_fwd_dense_call(x, wz, wy, impl='cuda'),
+                    fm._zy_fwd_dense_call(x, wz, wy, impl='torch')):
+        assert _rel(g, r) <= TOL
+    # the x pass: forward x scale, inverse, dual inverse with 1/k^2
+    pr, pi, _ = _fft_inputs(21, (N0, N1, Zh), dev)
+    rng = np.random.RandomState(22)
+    k2 = [rng.uniform(0.0, 2.0, m).astype('f4') for m in (N0, N1, Zh)]
+    for t in k2:
+        t[0] = 0.0
+    wi, wg = fm._dft_np(N0, +1), fm._dft_fold_np(N0, _sl(N0))
+    for kw in (dict(wx=fm._dft_np(N0, -1), scale=1.0 / x.numel()),
+               dict(wx=wi, scale=1.0),
+               dict(wx=wi, scale=1.0, wx2=wg, k2=k2)):
+        got = fm._x_dense_call(pr, pi, impl='cuda', **kw)
+        ref = fm._x_dense_call(pr, pi, impl='torch', **kw)
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            assert _rel(g, r) <= TOL
+    # the zy inverse with the fx, fy and fz tables
+    wyi, wyg = fm._dft_np(N1, +1), fm._dft_fold_np(N1, _sl(N1))
+    AB = fm._irfft_mats_np(n2, Zh)
+    ABg = fm._irfft_mats_np(n2, Zh, grad_kvec=_sl(n2, half=True))
+    for tabs in ((wyi, AB), (wyg, AB), (wyi, ABg)):
+        g = fm._zy_inv_dense_call(pr, pi, *tabs, impl='cuda')
+        r = fm._zy_inv_dense_call(pr, pi, *tabs, impl='torch')
+        assert g.shape == (N0, N1, n2) and _rel(g, r) <= TOL
+
+
+@pytest.mark.parametrize("shape", [(96, 96, 96), (45, 38, 75)])
+def test_fft_dense_public_operators_match_plain(dev, shape):
+    """the forward, and the force triple plain and with the 1/k^2
+    fold, card against plain"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    N0, N1, n2 = shape
+    x = (1.0 + 0.3 * _fft_inputs(23, shape, dev)[0]).contiguous()
+    kd = (_sl(N0), _sl(N1), _sl(n2, half=True))
+    k2 = tuple(tuple(float(v) ** 2 for v in t) for t in kd)
+    out = {}
+    for impl in ('cuda', 'torch'):
+        spec = fm.fft3_real_forward_half(x, impl=impl)
+        tri = fm.fft3_real_inverse_grad3_half(*spec, n2, kd, impl=impl)
+        folded = fm.fft3_real_inverse_grad3_half(*spec, n2, kd,
+                                                 poisson_k2=k2, impl=impl)
+        out[impl] = list(spec) + list(tri) + list(folded)
+    for g, r in zip(out['cuda'], out['torch']):
+        assert _rel(g, r) <= TOL
+
+
+def test_fft_dense_kernels_refuse_what_they_cannot_run(dev):
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    x, _, _ = _fft_inputs(24, (6, 10, 9), dev)
+    wz, wy = fm._dft_half_np(9, 5), fm._dft_np(10, -1)
+    with pytest.raises(NotImplementedError, match='f32'):
+        fm._zy_fwd_dense_call(x.double(), wz, wy)
+    with pytest.raises(ValueError, match='contiguous'):
+        fm._zy_fwd_dense_call(x.transpose(0, 1).contiguous().transpose(0, 1),
+                              wz, wy)
+    with pytest.raises(NotImplementedError, match='gradients'):
+        fm._zy_fwd_dense_call(x.clone().requires_grad_(), wz, wy)
+    with pytest.raises(ValueError, match='table'):
+        fm._zy_fwd_dense_call(x, wz, fm._dft_np(12, -1))
+    r, i, _ = _fft_inputs(25, (6, 10, 5), dev)
+    with pytest.raises(ValueError, match='table'):
+        fm._x_dense_call(r, i, fm._dft_np(5, +1), 1.0)
+    with pytest.raises(ValueError, match='Zh'):
+        fm._zy_inv_dense_call(r, i, fm._dft_np(10, +1),
+                              fm._irfft_mats_np(12, 7))
+
+
+@pytest.mark.parametrize("mode,counts", [
+    ('spectral', {"zy_fwd_half": 1, "x_dense": 2, "zy_inv_half": 3}),
+    ('gradient', {"zy_fwd_half": 0, "x_dense": 0, "zy_inv_half": 0})])
+def test_fft_dense_launches_count_one_force(dev, mode, counts):
+    """one spectral force at a shape that is not ct2 runs the dense
+    kernels and no ct2 kernel; the gradient mode there takes the field
+    path (cuFFT), as the JAX package does"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import fft_mxu_cuda
+    shape = (48, 40, 33)
+    pm = ParticleMesh(shape, BoxSize=np.asarray(shape, float), dtype='f4',
+                      device=dev)
+    disp, _, _ = _inputs(26, shape, (0.0, 1.0), dev)
+    fft_mxu_cuda.reset_launches()
+    Solver(pm).force_lattice(disp, (0.0, 1.0), mode=mode, fft='mxu')
+    assert fft_mxu_cuda.LAUNCHES == dict(
+        counts, zy_fwd_ct2=0, xct_multi=0, zy_inv_ct2=0, zy_inv_ct2_dual=0)
+
+
+@pytest.mark.parametrize("shape", [(48, 40, 33), (32, 32, 32)])
+def test_nbody_lattice_dense_mxu_card_matches_cpu(dev, shape):
+    from pmesh_tpu_torch import ParticleMesh, RealField
+    from pmesh_tpu_torch.models.fastpm import Solver
+    noise = np.random.RandomState(27).normal(size=shape).astype('f4')
+    out = []
+    for device in ('cpu', dev):
+        pm = ParticleMesh(shape, BoxSize=np.asarray(shape, float),
+                          dtype='f4', device=device)
+        dk = pm.create(type=RealField,
+                       value=torch.from_numpy(noise).to(device)).r2c()
+        dk = dk.apply(lambda k, v: 0.3 * v * torch.where(
+            k.normp(2) > 0, k.normp(2, zeromode=1.0) ** -0.375, 0.0))
+        solver = Solver(pm)
+        disp, vel = solver.lpt_lattice(dk, 0.1, order=2)
+        S, V = solver.nbody_lattice(disp, vel, np.linspace(0.1, 0.4, 4),
+                                    (-1.0, 1.0), fft='mxu')
         out.append([x.cpu() for x in S + V])
     smax = max(float(s.abs().max()) for s in out[0][:3])
     assert 0.01 < smax < 1.0

@@ -254,7 +254,7 @@ def _solvers(shape=SHAPE):
     jpm = JaxPM(Nmesh=list(shape), BoxSize=np.asarray(shape, float),
                 dtype='f4')
     tpm = convert.particlemesh_from(jpm.Nmesh, jpm.BoxSize, jpm.dtype,
-                                    jpm.resampler)
+                                    jpm.resampler, device='cpu')
     return jfastpm.Solver(jpm), tfastpm.Solver(tpm)
 
 
@@ -282,7 +282,7 @@ def test_force_binned_mxu_matches_jax(mode):
     jds = tuple(tuple(map(jnp.asarray, d)) for d in ds)
     ref = js.force_binned(jds, tuple(map(jnp.asarray, va)), (-0.5, 1.5),
                           fft='xla', mode=mode)
-    tds, tva = convert.binned_state_from_numpy((ds, va))
+    tds, tva = convert.binned_state_from_numpy((ds, va), device='cpu')
     got = ts.force_binned(tds, tva, (-0.5, 1.5), fft='mxu', mode=mode)
     assert len(got) == 2
     tol = TOL_FORCE if mode == 'spectral' else TOL_FORCE_BINNED_GRADIENT
@@ -304,7 +304,8 @@ def test_nbody_lattice_mxu_matches_jax():
     steps = np.linspace(0.1, 0.4, 4)   # 3 KDK steps
     S1, V1 = js.nbody_lattice(S0, V0, steps, bounds=(-1.0, 1.0), fft='xla')
     tS0, tV0 = convert.lattice_state_from_numpy(
-        [np.asarray(s) for s in S0], [np.asarray(v) for v in V0])
+        [np.asarray(s) for s in S0], [np.asarray(v) for v in V0],
+        device='cpu')
     S2, V2 = ts.nbody_lattice(tS0, tV0, steps, bounds=(-1.0, 1.0), fft='mxu')
     smax = max(float(np.abs(np.asarray(s)).max()) for s in S1)
     vmax = max(float(np.abs(np.asarray(v)).max()) for v in V1)
@@ -327,9 +328,10 @@ def test_mxu_refusals():
                 ts.force_lattice(disp, (0.0, 1.0), mode=mode, fft=fft)
             with pytest.raises(NotImplementedError, match='item 12'):
                 ts.force_binned(dsl, valid, (0.0, 1.0), mode=mode, fft=fft)
-    # not a ct2 shape: the spectral triple needs kernel-table rows 3/4
-    with pytest.raises(NotImplementedError, match='rows 3 and 4'):
-        ts.force_lattice(disp, (0.0, 1.0), fft='mxu')
+    # not a ct2 shape: the spectral triple runs the dense DFT passes
+    # (kernel-table rows 3 and 4); a uniform lattice feels no force
+    F = ts.force_lattice(disp, (0.0, 1.0), fft='mxu')
+    assert all(float(f.abs().max()) < 1e-6 for f in F)
     with pytest.raises(ValueError, match='ct2'):
         fm.fft3_real_forward_half_ct2(torch.zeros(16, 16, 16))
     x = torch.zeros(SHAPE)
@@ -360,7 +362,7 @@ def test_mxu_spectral_refuses_f64():
     jpm = JaxPM(Nmesh=list(SHAPE), BoxSize=np.asarray(SHAPE, float),
                 dtype='f8')
     tpm = convert.particlemesh_from(jpm.Nmesh, jpm.BoxSize, jpm.dtype,
-                                    jpm.resampler)
+                                    jpm.resampler, device='cpu')
     ts = tfastpm.Solver(tpm)
     disp = tuple(torch.full(SHAPE, 0.5, dtype=torch.float64)
                  for _ in range(3))

@@ -145,7 +145,7 @@ def test_fft_and_coords_match_jax(dtype):
     shape = (8, 6, 10)
     jpm = JaxPM(Nmesh=list(shape), BoxSize=[4.0, 3.0, 7.0], dtype=dtype)
     tpm = convert.particlemesh_from(jpm.Nmesh, jpm.BoxSize, jpm.dtype,
-                                    'cic')
+                                    'cic', device='cpu')
     rng = np.random.RandomState(20)
     x = rng.normal(size=shape).astype(dtype)
     jr = jpm.create(type='real', value=jnp.asarray(x))
@@ -179,7 +179,7 @@ def test_transfer_matches_jax(filt):
                 'dx1_2': mod.dx1_transfer(2)}[filt]
     jpm = JaxPM(Nmesh=[8, 8, 8], BoxSize=16.0, dtype='f4')
     tpm = convert.particlemesh_from(jpm.Nmesh, jpm.BoxSize, jpm.dtype,
-                                    'cic')
+                                    'cic', device='cpu')
     rng = np.random.RandomState(21)
     x = rng.normal(size=(8, 8, 8)).astype('f4')
     ref = jpm.create(type='real', value=jnp.asarray(x)).r2c() \
@@ -190,9 +190,31 @@ def test_transfer_matches_jax(filt):
     assert np.abs(got.numpy() - ref).max() <= 2e-6 * np.abs(ref).max()
 
 
+def test_entry_points_default_to_the_card(monkeypatch):
+    """without device=, ParticleMesh and the convert helpers take the
+    current CUDA device, and raise when there is none: nothing falls
+    back to the CPU unasked"""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    arrays = [np.zeros((2, 2, 2), 'f4')] * 3
+    for make in (lambda: ParticleMesh([4, 4, 4]),
+                 lambda: convert.particlemesh_from([4, 4, 4], 1.0, 'f4',
+                                                   'cic'),
+                 lambda: convert.lattice_state_from_numpy(arrays, arrays),
+                 lambda: convert.binned_state_from_numpy((arrays,))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert ParticleMesh([4, 4, 4]).device == torch.device('cuda', 0)
+    assert ParticleMesh([4, 4, 4], device='cuda').device \
+        == torch.device('cuda', 0)
+    assert ParticleMesh([4, 4, 4], device='cpu').device \
+        == torch.device('cpu')
+
+
 def test_convert_and_device_checks():
     pm = convert.particlemesh_from([4, 4, 8], [1.0, 1.0, 2.0], 'f8',
-                                   'tsc')
+                                   'tsc', device='cpu')
     assert pm.device == torch.device('cpu')
     assert pm.resampler.kind == 'tunedtsc'
     assert tuple(pm.Nmesh) == (4, 4, 8)
@@ -202,9 +224,10 @@ def test_convert_and_device_checks():
     with pytest.raises(ValueError, match='lies on'):
         pm.create(type='real', value=torch.zeros((4, 4, 8), device='meta'))
     with pytest.raises(NotImplementedError, match='queue 1, item 11'):
-        ParticleMesh([4, 4, 4], procmesh=object())
+        ParticleMesh([4, 4, 4], procmesh=object(), device='cpu')
     with pytest.raises(ValueError):
-        ParticleMesh([4, 4, 4], dtype='c8')
+        ParticleMesh([4, 4, 4], dtype='c8', device='cpu')
     d, v = convert.lattice_state_from_numpy(
-        [np.ones((2, 2, 2), 'f4')] * 3, [np.zeros((2, 2, 2), 'f8')] * 3)
+        [np.ones((2, 2, 2), 'f4')] * 3, [np.zeros((2, 2, 2), 'f8')] * 3,
+        device='cpu')
     assert d[0].dtype == torch.float32 and v[2].dtype == torch.float64
