@@ -55,7 +55,27 @@ Phases, in order; any failure raises and exits non-zero:
 7. run the lattice path at 32^3 (fft='xla'), at (256, 256, 16)
    (fft='mxu', ct2) and at (48, 40, 33) (fft='mxu', dense), and the
    binned path at 32^3, on the card and on the CPU (plain versions,
-   pocketfft) from the same seed and compare.
+   pocketfft) from the same seed and compare; and the gradient of a
+   2-step lattice run at 32^3 (fft='xla') and (256, 256, 16)
+   (fft='mxu', ct2), card against CPU.
+
+Row 13 (pmesh_tpu/ops/fft_mxu_ref.py, the older full-spectrum and
+first-CT pipelines) and reverse mode add to phases 3 and 4: phase 3
+also holds the row-13 passes against their plain versions (the
+full-spectrum zy forward, x pass and zy inverse on the 512^3 density and
+a ragged (96, 80, 75) mesh; the half-CT zy forward, CT x pass and zy
+inverse on the 512^3 density and (256, 512, 30)), with their bounds,
+torch.fft yardsticks (fftn, ifftn(...).real, rfftn, irfftn) and
+operator-level yardsticks; phase 4c drives the row-13 entry points on
+the overdensity of phase 4's LPT state (the force held against
+force_lattice(fft='xla'), the half-CT triple against the ct2 triple,
+the full round trip against the overdensity, counters read around the
+run); phase 4d takes torch.autograd.grad of a 2-step nbody_lattice loss
+with respect to the initial (disp, vel) at 512^3 with fft='xla' and
+fft='mxu' (finite; the two within 1e-3 of max|g| but for 1e-5 of the
+entries with CIC, whose derivative jumps at cell boundaries, and for
+none with TSC; the backward's paint, readout and only=d DFT launches
+counted; forward and forward + backward per KDK step; peak memory).
 
 The second-to-last line is the kernels' JSON record, the last line
 the device record.
@@ -119,7 +139,52 @@ KERNELS = {
                 "pmesh_tpu/ops/fft_mxu.py:155"),
     "zy_inv_half": ("pmesh_tpu_torch/csrc/fft_mxu.cu",
                     "pmesh_tpu/ops/fft_mxu.py:540"),
+    # row 13, fft_mxu_ref.py: the full-spectrum passes and the first-CT
+    # half passes; the two x passes are x_dense and xct_multi at the
+    # row's widths, recorded apart from the rows they were built for
+    "zy_fwd_full": ("pmesh_tpu_torch/csrc/fft_mxu.cu",
+                    "pmesh_tpu/ops/fft_mxu_ref.py:38"),
+    "x_dense (full spectrum)": ("pmesh_tpu_torch/csrc/fft_mxu.cu",
+                                "pmesh_tpu/ops/fft_mxu_ref.py:99"),
+    "zy_inv_full": ("pmesh_tpu_torch/csrc/fft_mxu.cu",
+                    "pmesh_tpu/ops/fft_mxu_ref.py:55"),
+    "zy_fwd_half_ct": ("pmesh_tpu_torch/csrc/fft_mxu.cu",
+                       "pmesh_tpu/ops/fft_mxu_ref.py:233"),
+    "xct_multi (half CT)": ("pmesh_tpu_torch/csrc/fft_mxu.cu",
+                            "pmesh_tpu/ops/fft_mxu_ref.py:246"),
+    "zy_inv_half_ct": ("pmesh_tpu_torch/csrc/fft_mxu.cu",
+                       "pmesh_tpu/ops/fft_mxu_ref.py:280"),
 }
+# the launch counter of a KERNELS entry: its name up to the first space
+ROW13 = ("zy_fwd_full", "x_dense (full spectrum)", "zy_inv_full",
+         "zy_fwd_half_ct", "xct_multi (half CT)", "zy_inv_half_ct")
+# launches of the row-13 path (phase 4c): a full-spectrum force and round
+# trip, a half-CT force
+ROW13_PATH = {"zy_fwd_full": 2, "x_dense": 4, "zy_inv_full": 4,
+              "zy_fwd_half_ct": 1, "xct_multi": 2, "zy_inv_half_ct": 3}
+REF_SMALL = (96, 80, 75)      # the full pipeline at a ragged shape
+CT_RAGGED = (256, 512, 30)    # the half-CT pipeline at R = 2 and 4
+TOL_ROUNDTRIP = 2e-5
+# the half-CT triple against the ct2 triple (i*k_d, no 1/k^2), of max,
+# as tests/test_fft_mxu.py holds ct2 against the dense triple
+TOL_CT_TRIPLE = 1e-5
+# the gradient phase: 2 KDK steps, 3 forces
+GRAD_STEPS = STEPS[:3]
+# fft='mxu' against fft='xla', of max|g|.  The CIC window's derivative
+# jumps where a displacement crosses a cell boundary, so a particle that
+# the two runs' rounding puts on either side of one (LPT displacements
+# cluster near 0) gets gradients an O(1) step apart: with CIC at most
+# GRAD_OUTLIERS of the entries may lie outside the tolerance (the card
+# against the CPU in phase 7 too); with TSC, whose derivative is
+# continuous, none may (phase 4d)
+TOL_GRAD = 1e-3
+GRAD_OUTLIERS = 1e-5
+# per force: forward, backward (the paint's and readout's vjps; the
+# mxu triple's transpose, one forward and one only=d inverse per
+# direction)
+GRAD_LATTICE = {"paint_lattice": (1, 3), "readout_lattice": (3, 4)}
+GRAD_MXU = {"zy_fwd_ct2": (1, 3), "xct_multi": (2, 6), "zy_inv_ct2": (1, 3),
+            "zy_inv_ct2_dual": (1, 0)}
 # per force on the fft='mxu' path: spectral, gradient
 MXU_PER_FORCE = {"zy_fwd_ct2": (1, 1), "xct_multi": (2, 2),
                  "zy_inv_ct2": (1, 1), "zy_inv_ct2_dual": (1, 0)}
@@ -594,6 +659,182 @@ def phase_compare_dense(dev):
     return records
 
 
+def zy_full_ops(n0, N1, n2):
+    """a full-spectrum zy pass of n0 planes (N1, n2): real FFTs of
+    length n2 along z, complex FFTs of length N1 along y over all n2
+    columns"""
+    return fft_ops(n2, n0 * N1, real=True) + fft_ops(N1, n0 * n2)
+
+
+def super_lanczos(n, cell=1.0, half=False):
+    """the SuperLanczos difference kernel k_d over fftfreq (rfftfreq
+    when ``half``) of a length-n axis, as a tuple; zero at Nyquist"""
+    k = (np.fft.rfftfreq(n, d=cell) if half
+         else np.fft.fftfreq(n, d=cell)) * 2 * np.pi
+    w = k * cell
+    return tuple((1.0 / (6.0 * cell) * (8 * np.sin(w) - np.sin(2 * w)))
+                 .tolist())
+
+
+def full_yardsticks(x, kd):
+    """torch.fft's yardsticks of the full-spectrum pipeline on the real
+    mesh ``x``: fftn(x, norm='forward'), the filter i k_d / k^2 (DC
+    zeroed, k_d = ``kd``, k^2 over fftfreq) on the stacked full
+    spectrum, and the real part of the stacked ifftn, each timed alone"""
+    shape, dev = tuple(x.shape), x.device
+    spec = torch.fft.fftn(x, norm='forward')
+    ks = [torch.tensor(np.fft.fftfreq(n) * 2 * np.pi, dtype=torch.float32,
+                       device=dev) for n in shape]
+    kk = (ks[0][:, None, None] ** 2 + ks[1][None, :, None] ** 2
+          + ks[2][None, None] ** 2)
+    invk2 = torch.where(kk > 0, 1.0 / torch.where(kk > 0, kk, 1.0), 0.0)
+    filt = []
+    for d in range(3):
+        kd_d = torch.tensor(kd[d], dtype=torch.float32, device=dev)
+        kd_d = kd_d.reshape([-1 if e == d else 1 for e in range(3)])
+        filt.append(torch.complex(torch.zeros_like(invk2), kd_d * invk2))
+    filt = torch.stack(filt)
+    del kk, invk2
+    fwd_ms = cuda_ms(lambda: torch.fft.fftn(x, norm='forward'), 5)
+    filt_ms = cuda_ms(lambda: spec[None] * filt, 5)
+    stacked = spec[None] * filt
+    inv_ms = cuda_ms(lambda: torch.fft.ifftn(stacked, dim=(1, 2, 3),
+                                             norm='forward').real, 5)
+    log("phase 3 yardsticks: full spectrum %s fftn(norm='forward') %.3f ms,"
+        " filter i k_d / k^2 on the stacked spectrum %.3f ms, real part of "
+        "the stacked ifftn of three spectra %.3f ms"
+        % (shape, fwd_ms, filt_ms, inv_ms))
+    del spec, filt, stacked
+    torch.cuda.empty_cache()
+
+
+def phase_compare_ref(dev):
+    """the row-13 passes (fft_mxu_ref.py), kernel vs plain: the
+    full-spectrum pipeline on a lattice paint's N^3 density (the
+    records) and on a ragged REF_SMALL mesh, the first-CT half pipeline
+    on the N^3 density (R = 4, Zh = N/2 + 1) and on CT_RAGGED; returns
+    {kernel: record}"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    from pmesh_tpu_torch.ops import fft_mxu_ref as ref
+    from pmesh_tpu_torch.ops import gridpm as gp
+    records = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    disp = tuple(BOUNDS[0] + (BOUNDS[1] - BOUNDS[0])
+                 * torch.rand((N,) * 3, generator=gen, device=dev)
+                 for _ in range(3))
+    rho = gp.paint_grid(disp, bounds=BOUNDS)
+    del disp
+
+    def mesh(shape):
+        if shape == (N,) * 3:
+            return rho
+        return 1.0 + 0.3 * torch.randn(shape, generator=gen, device=dev)
+
+    for shape in ((N,) * 3, REF_SMALL):
+        N0, N1, n2 = shape
+        x = mesh(shape)
+        kv = tuple(super_lanczos(n) for n in shape)
+        wz, wy, wx = (fm._cached(fm._dft_np, n, -1) for n in (n2, N1, N0))
+        wyi, wxi = (fm._cached(fm._dft_np, n, +1) for n in (N1, N0))
+        wx_g = fm._cached(fm._dft_fold_np, N0, kv[0])
+        wy_g = fm._cached(fm._dft_fold_np, N1, kv[1])
+        AB = fm._cached(ref._z_inv_full_np, n2, None)
+        AB_g = fm._cached(ref._z_inv_full_np, n2, kv[2])
+        ops_zy, ops_x = zy_full_ops(N0, N1, n2), fft_ops(N0, N1 * n2)
+
+        def case(label, kernel, fn, reads, ops, library=None):
+            return dft_case(records, kernel, "%s %s" % (shape, label), fn,
+                            reads, ops, library)
+        pr, pi = case("density", "zy_fwd_full",
+                      lambda impl: ref._zy_fwd_full_call(x, wz, wy, impl),
+                      (x, wz, wy), ops_zy,
+                      lambda: torch.fft.fftn(x, dim=(1, 2)))
+        if shape == (N,) * 3:
+            full_yardsticks(x, kv)
+        del x
+        zc = torch.complex(pr, pi)
+        r, i = case("forward x 1/N^3", "x_dense (full spectrum)",
+                    lambda impl: fm._x_dense_call(pr, pi, wx,
+                                                  1.0 / (N0 * N1 * n2),
+                                                  impl=impl),
+                    (pr, pi, wx), ops_x, lambda: torch.fft.fft(zc, dim=0))
+        del pr, pi, zc
+        sr, si, gr, gi = case("inverse dual (kx-folded)",
+                              "x_dense (full spectrum)",
+                              lambda impl: fm._x_dense_call(
+                                  r, i, wxi, 1.0, wx2=wx_g, impl=impl),
+                              (r, i, wxi, wx_g), 2 * ops_x)
+        del r, i
+        zc = torch.complex(gr, gi)
+        case("fx tables", "zy_inv_full",
+             lambda impl: ref._zy_inv_full_call(gr, gi, wyi, AB, impl),
+             (gr, gi, wyi, AB), ops_zy,
+             lambda: torch.fft.ifftn(zc, dim=(1, 2), norm='forward').real)
+        del zc
+        case("fy tables", "zy_inv_full",
+             lambda impl: ref._zy_inv_full_call(sr, si, wy_g, AB, impl),
+             (sr, si, wy_g, AB), ops_zy)
+        case("fz tables (z-folded rows)", "zy_inv_full",
+             lambda impl: ref._zy_inv_full_call(sr, si, wyi, AB_g, impl),
+             (sr, si, wyi, AB_g), ops_zy)
+        del sr, si, gr, gi
+        torch.cuda.empty_cache()
+
+    for shape in ((N,) * 3, CT_RAGGED):
+        N0, N1, n2 = shape
+        Zh = n2 // 2 + 1
+        x = mesh(shape)
+        kd = (super_lanczos(N0), super_lanczos(N1),
+              super_lanczos(n2, half=True))
+        wz = fm._cached(fm._dft_half_np, n2, Zh)
+        wy, wx = (fm._cached(fm._ct_fwd_mats_np, n) for n in (N1, N0))
+        wyi, wxi = (fm._cached(fm._ct_inv_mats_np, n) for n in (N1, N0))
+        wx_g = fm._cached(fm._ct_inv_mats_np, N0, kd[0])
+        wy_g = fm._cached(fm._ct_inv_mats_np, N1, kd[1])
+        AB_p = fm._cached(fm._irfft_mats_np, n2, Zh)
+        AB_g = fm._cached(fm._irfft_mats_np, n2, Zh, kd[2])
+        ops_zy, ops_x = zy_ops(N0, N1, n2), fft_ops(N0, N1 * Zh)
+
+        def case(label, kernel, fn, reads, ops, library=None):
+            return dft_case(records, kernel, "%s %s" % (shape, label), fn,
+                            reads, ops, library)
+        pr, pi = case("density", "zy_fwd_half_ct",
+                      lambda impl: ref._zy_fwd_half_ct_call(x, wz, wy, impl),
+                      (x, wz, wy), ops_zy,
+                      lambda: torch.fft.rfftn(x, dim=(1, 2)))
+        del x
+        zc = torch.complex(pr, pi)
+        r, i = case("forward x 1/N^3", "xct_multi (half CT)",
+                    lambda impl: fm._xct_call_multi(
+                        pr, pi, wx, 1.0 / (N0 * N1 * n2), impl=impl),
+                    (pr, pi, wx), ops_x, lambda: torch.fft.fft(zc, dim=0))
+        del pr, pi, zc
+        sr, si, gr, gi = case("inverse dual (kx-folded)",
+                              "xct_multi (half CT)",
+                              lambda impl: fm._xct_call_multi(
+                                  r, i, wxi, 1.0, inverse=True, wx2=wx_g,
+                                  impl=impl),
+                              (r, i, wxi, wx_g), 2 * ops_x)
+        del r, i
+        case("fx tables", "zy_inv_half_ct",
+             lambda impl: ref._zy_inv_half_ct_call(gr, gi, wyi, AB_p, n2,
+                                                   impl),
+             (gr, gi, wyi, AB_p), ops_zy, library_inverse(gr, gi, n2))
+        case("fy tables", "zy_inv_half_ct",
+             lambda impl: ref._zy_inv_half_ct_call(sr, si, wy_g, AB_p, n2,
+                                                   impl),
+             (sr, si, wy_g, AB_p), ops_zy)
+        case("fz tables", "zy_inv_half_ct",
+             lambda impl: ref._zy_inv_half_ct_call(sr, si, wyi, AB_g, n2,
+                                                   impl),
+             (sr, si, wyi, AB_g), ops_zy)
+        del sr, si, gr, gi
+        torch.cuda.empty_cache()
+    del rho
+    torch.cuda.empty_cache()
+    return records
+
+
 def phase_main(dev):
     from pmesh_tpu_torch import ParticleMesh
     from pmesh_tpu_torch.ops import gridpm as gp
@@ -725,6 +966,226 @@ def phase_main_mxu(dev, xla):
     xla.clear()
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_row13(dev, pm, dlinear):
+    """the row-13 pipelines as forces on phase 4's LPT state, counters
+    read around the run: the painted overdensity through fft3_real_forward,
+    1/k^2 (full-length z), fft3_real_inverse_grad3 with the solver's
+    SuperLanczos k_d and the lattice readout, held against
+    force_lattice(fft='xla'); fft3_real_forward_half_ct and
+    fft3_real_inverse_grad3_half_ct (i*k_d alone), held against the ct2
+    triple; and the full round trip against the density.
+    Returns the launch counts of the run."""
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    from pmesh_tpu_torch.ops import fft_mxu_ref as ref
+    from pmesh_tpu_torch.ops import fft_mxu_cuda, gridpm_cuda
+    from pmesh_tpu_torch.ops import gridpm as gp
+    solver = Solver(pm)
+    disp, _ = solver.lpt_lattice(dlinear, A0, order=2)
+    _, pk2, kd, ct = solver._mxu_setup()
+    assert ct
+    cell = BOX / N
+    kz = np.fft.fftfreq(N, d=cell) * 2 * np.pi
+    kvecs = (kd[0], kd[1], super_lanczos(N, cell))
+    factor = 1.5 * solver.cosmology.Om0
+
+    def invk2(kx2, ky2, kz2):
+        t = [torch.tensor(np.asarray(a, np.float32), device=dev)
+             for a in (kx2, ky2, kz2)]
+        kk = t[0][:, None, None] + t[1][None, :, None] + t[2][None, None]
+        return torch.where(kk > 0, 1.0 / torch.where(kk > 0, kk, 1.0), 0.0)
+    full_k2 = invk2(pk2[0], pk2[1], (kz ** 2).astype('f4'))
+    def overdensity():
+        # the DC mode carries no force; without it the products' rounding
+        # does not scale with the mean density
+        rho = gp.paint_grid(disp, bounds=BOUNDS)
+        return rho - rho.mean()
+    # the references, outside the counted run; the ct2 triple without
+    # 1/k^2, as tests/test_fft_mxu.py holds ct2 against the dense triple
+    F_xla = solver.force_lattice(disp, BOUNDS, fft='xla')
+    F_ct2 = fm.fft3_real_inverse_grad3_half_ct2(
+        *fm.fft3_real_forward_half_ct2(overdensity()), n2=N, kvecs=kd)
+    torch.cuda.synchronize()
+    gridpm_cuda.reset_launches()
+    fft_mxu_cuda.reset_launches()
+    rho = overdensity()
+    r, i = ref.fft3_real_forward(rho)
+    f = ref.fft3_real_inverse_grad3(r * full_k2, i * full_k2, kvecs=kvecs)
+    F13 = tuple(v * factor for v in gp.readout_grid(f, disp, bounds=BOUNDS))
+    del f, r, i
+    fh = ref.fft3_real_inverse_grad3_half_ct(
+        *ref.fft3_real_forward_half_ct(rho), N, kd)
+    back = ref.fft3_real_inverse(*ref.fft3_real_forward(rho))
+    torch.cuda.synchronize()
+    launches = dict(fft_mxu_cuda.LAUNCHES)
+    lattice = dict(gridpm_cuda.LAUNCHES)
+    e_full = max_rel(F13, F_xla)[0]
+    e_ct = max_rel(fh, F_ct2)[0]
+    e_rt = float((back - rho).abs().max() / rho.abs().max())
+    finite = all(bool(torch.isfinite(t).all()) for t in F13 + fh)
+    del F13, fh, back, F_xla, F_ct2
+    ok = (finite and e_full <= TOL_SMALL and e_ct <= TOL_CT_TRIPLE
+          and e_rt <= TOL_ROUNDTRIP)
+    counted = {k: launches[k] for k in ROW13_PATH}
+    log("phase 4c row-13 path: %d^3 LPT state, full-spectrum force "
+        "(fft3_real_forward, 1/k^2, fft3_real_inverse_grad3, readout) "
+        "against force_lattice(fft='xla') max|dF|/max|F| = %.3e (tol %.0e);"
+        " half-CT triple against the ct2 triple %.3e (tol %.0e); full round"
+        " trip max|d|/max|delta| %.3e (tol %.0e); finite %s; DFT launches %s "
+        "(need %s), lattice %s %s"
+        % (N, e_full, TOL_SMALL, e_ct, TOL_CT_TRIPLE, e_rt, TOL_ROUNDTRIP,
+           finite, json.dumps(counted), json.dumps(ROW13_PATH),
+           json.dumps(lattice), "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("the row-13 path disagrees with its references")
+    if counted != ROW13_PATH or lattice != {"paint_lattice": 1,
+                                            "readout_lattice": 3}:
+        raise AssertionError("the row-13 kernels did not carry the path")
+    r, i = ref.fft3_real_forward(rho)
+    fr, fi = r * full_k2, i * full_k2
+    hr, hi = ref.fft3_real_forward_half_ct(rho)
+    t_fwd = cuda_ms(lambda: ref.fft3_real_forward(rho), 3)
+    t_tri = cuda_ms(lambda: ref.fft3_real_inverse_grad3(fr, fi,
+                                                        kvecs=kvecs), 3)
+    t_hfwd = cuda_ms(lambda: ref.fft3_real_forward_half_ct(rho), 3)
+    t_htri = cuda_ms(lambda: ref.fft3_real_inverse_grad3_half_ct(
+        hr, hi, N, kd), 3)
+    log("phase 4c timing: fft3_real_forward %.3f ms, fft3_real_inverse_grad3"
+        " %.3f ms, fft3_real_forward_half_ct %.3f ms, "
+        "fft3_real_inverse_grad3_half_ct %.3f ms (%d^3)"
+        % (t_fwd, t_tri, t_hfwd, t_htri, N))
+    del r, i, fr, fi, hr, hi, rho, full_k2, disp, solver
+    torch.cuda.empty_cache()
+    return launches
+
+
+def grad_run(solver, state, steps, fft, backward=True):
+    """the gradient of sum(S^2 + 2 V^2) after nbody_lattice (spectral
+    force) with respect to the initial (disp, vel) ``state``"""
+    leaves = [t.detach().clone().requires_grad_() for t in state]
+    S, V = solver.nbody_lattice(leaves[:3], leaves[3:], steps, BOUNDS,
+                                fft=fft)
+    loss = sum((s * s).sum() + 2 * (v * v).sum() for s, v in zip(S, V))
+    if not backward:
+        return loss
+    return torch.autograd.grad(loss, leaves)
+
+
+def grad_gap(got, ref, tol, outliers):
+    """got against ref over the tensors: whether at most ``outliers`` of
+    the entries are off by more than ``tol`` max|ref|, and a line giving
+    that count, max|got - ref| / max|ref| and the 2-norm gap"""
+    num = sum(float(((g - r).double() ** 2).sum()) for g, r in zip(got, ref))
+    den = sum(float((r.double() ** 2).sum()) for r in ref)
+    scale = max(float(r.abs().max()) for r in ref)
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    out = sum(int(((g - r).abs() > tol * scale).sum())
+              for g, r in zip(got, ref))
+    size = sum(r.numel() for r in ref)
+    ok = bool(np.isfinite(num)) and out <= outliers * size
+    return ok, ("%d of %d entries off by more than %.0e of max|g| (at most "
+                "%d allowed) %s; max|dg|/max|g| = %.3e, |dg|_2/|g|_2 = %.3e"
+                % (out, size, tol, int(outliers * size),
+                   "ok" if ok else "FAIL", err / scale, (num / den) ** 0.5))
+
+
+def phase_grad(dev, pm, dlinear):
+    """reverse mode at N^3 from phase 4's LPT state: the gradient of a
+    2-step nbody_lattice loss with fft='xla' and fft='mxu', counters
+    read around each run; finite, the two within TOL_GRAD of max|g| but
+    for GRAD_OUTLIERS of the entries (with TSC for none), the backward on
+    the paint, readout (diffdir) and only=d DFT kernels; the forward
+    alone and forward + backward per KDK step (a 2-step run minus a
+    1-step run), and the peak memory"""
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import fft_mxu_cuda, gridpm_cuda
+    solver = Solver(pm)
+    state = sum(solver.lpt_lattice(dlinear, A0, order=2), ())
+    forces = len(GRAD_STEPS)
+    grads = {}
+    for fft in ('xla', 'mxu'):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gridpm_cuda.reset_launches()
+        fft_mxu_cuda.reset_launches()
+        g = grad_run(solver, state, GRAD_STEPS, fft)
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = dict(gridpm_cuda.LAUNCHES, **fft_mxu_cuda.LAUNCHES)
+        need = {k: forces * (f + b) for k, (f, b) in GRAD_LATTICE.items()}
+        if fft == 'mxu':
+            need.update((k, forces * (f + b)) for k, (f, b) in GRAD_MXU.items())
+        got = {k: launches[k] for k in need}
+        others = {k: v for k, v in launches.items() if k not in need and v}
+        finite = all(bool(torch.isfinite(t).all()) for t in g)
+        t = {}
+        for nst in (1, 2):
+            steps = GRAD_STEPS[:nst + 1]
+            t['f%d' % nst] = cuda_ms(lambda: grad_run(solver, state, steps,
+                                                      fft, False), 1)
+            t['b%d' % nst] = cuda_ms(lambda: grad_run(solver, state, steps,
+                                                      fft), 1)
+        log("phase 4d gradient, fft=%r: %d^3 d/d(disp, vel) of sum(S^2 + "
+            "2 V^2) after %d KDK steps: finite %s, max|g| %.4e, launches %s "
+            "(need %s, others %s), peak %.2f GB; per KDK step forward %.3f "
+            "ms, forward + backward %.3f ms (2-step runs %.3f / %.3f ms, "
+            "1-step %.3f / %.3f ms)"
+            % (fft, N, forces - 1, finite, max(float(x.abs().max())
+                                               for x in g),
+               json.dumps(got), json.dumps(need), json.dumps(others), peak_gb,
+               t['f2'] - t['f1'], t['b2'] - t['b1'], t['f2'], t['b2'],
+               t['f1'], t['b1']))
+        if not finite:
+            raise AssertionError("the fft=%r gradient is not finite" % fft)
+        if got != need or others:
+            raise AssertionError("the backward did not run on the kernels "
+                                 "(fft=%r)" % fft)
+        grads[fft] = g
+    ok, line = grad_gap(grads['mxu'], grads['xla'], TOL_GRAD, GRAD_OUTLIERS)
+    log("phase 4d gradient: fft='mxu' against fft='xla', CIC: " + line)
+    if not ok:
+        raise AssertionError("the mxu and xla gradients disagree")
+    del grads
+    # TSC, whose derivative window is continuous: no entry may differ
+    tsc = Solver(pm, force_resampler='tsc')
+    grads = {fft: grad_run(tsc, state, GRAD_STEPS, fft)
+             for fft in ('xla', 'mxu')}
+    ok, line = grad_gap(grads['mxu'], grads['xla'], TOL_GRAD, 0)
+    log("phase 4d gradient: fft='mxu' against fft='xla', TSC: " + line)
+    if not ok:
+        raise AssertionError("the mxu and xla TSC gradients disagree")
+    del grads, state, solver, tsc
+    torch.cuda.empty_cache()
+
+
+def phase_small_grad(dev, shape, box, fft):
+    """the gradient of a 2-step run on the card (kernels in the
+    backward) against the CPU's (plain versions); up to GRAD_OUTLIERS of
+    the entries may differ, as CIC's derivative jumps at cell
+    boundaries"""
+    from pmesh_tpu_torch import ParticleMesh, RealField
+    from pmesh_tpu_torch.models.fastpm import Solver
+    noise = np.random.RandomState(SEED + 1).normal(size=shape).astype('f4')
+    out = {}
+    for device in ('cpu', dev):
+        pm = ParticleMesh(list(shape), BoxSize=box, dtype='f4',
+                          resampler='cic', device=device)
+        dk = pm.create(type=RealField,
+                       value=torch.from_numpy(noise).to(device)).r2c()
+        dk = dk.apply(lambda k, v: 0.3 * v * torch.where(
+            k.normp(2) > 0, k.normp(2, zeromode=1.0) ** -0.25, 0.0))
+        solver = Solver(pm)
+        state = sum(solver.lpt_lattice(dk, A0, order=2), ())
+        out[str(device)] = [x.cpu() for x in grad_run(solver, state,
+                                                      STEPS[:3], fft)]
+    ok, line = grad_gap(out[str(dev)], out['cpu'], TOL_SMALL, GRAD_OUTLIERS)
+    log("phase 7 small gradient: %s fft=%r 2 KDK steps, card vs CPU: %s"
+        % (shape, fft, line))
+    if not ok:
+        raise AssertionError("the card and the CPU gradients disagree at "
+                             "%s, fft=%r" % (shape, fft))
 
 
 def phase_small(dev, shape=(32,) * 3, box=64.0, fft='xla'):
@@ -1213,8 +1674,13 @@ def main():
     records.update(phase_compare_rebase(dev))
     records.update(phase_compare_fft(dev))
     records.update(phase_compare_dense(dev))
+    records.update(phase_compare_ref(dev))
     launches, xla = phase_main(dev)
+    pm, dlinear = xla['pm'], xla['dlinear']
     mxu_launches = phase_main_mxu(dev, xla)
+    row13_launches = phase_row13(dev, pm, dlinear)
+    phase_grad(dev, pm, dlinear)
+    del pm, dlinear
     binned_launches, clustered = phase_binned_clustered(dev)
     phase_clustered_timed(clustered)
     phase_binned_timed(dev)
@@ -1222,16 +1688,20 @@ def main():
     phase_small(dev, MXU_SMALL, np.asarray(MXU_SMALL, float), 'mxu')
     phase_small(dev, DENSE_SMALL, np.asarray(DENSE_SMALL, float), 'mxu')
     phase_small_binned(dev)
+    phase_small_grad(dev, (32,) * 3, 64.0, 'xla')
+    phase_small_grad(dev, MXU_SMALL, np.asarray(MXU_SMALL, float), 'mxu')
     # each kernel's launches on its own path's main run: the lattice
     # kernels on the fft='xla' lattice run, the ct2 DFT kernels on the
     # fft='mxu' lattice run, the rebase and dense DFT kernels on the
-    # clustered binned run
+    # clustered binned run, the row-13 kernels on the row-13 path
     runs = dict.fromkeys(("paint_lattice", "readout_lattice"), launches)
     runs.update(dict.fromkeys(MXU_PER_FORCE, mxu_launches))
     runs.update(dict.fromkeys(("rebase_assign", "rebase_apply")
                               + tuple(DENSE_PER_FORCE), binned_launches))
+    runs.update(dict.fromkeys(ROW13, row13_launches))
     kernels = [dict(name=name, route="cuda", source=source,
-                    replaces=replaces, launches=runs[name][name],
+                    replaces=replaces,
+                    launches=runs[name][name.split(" ")[0]],
                     **records[name])
                for name, (source, replaces) in KERNELS.items()]
     log(json.dumps({"kernels": kernels}))

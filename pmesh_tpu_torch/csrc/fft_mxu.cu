@@ -1,5 +1,6 @@
-// The DFT passes of fft='mxu' for Hopper (sm_90a): seven C entry
-// points, each replacing one TPU kernel of pmesh_tpu/ops/fft_mxu.py.
+// The DFT passes of fft='mxu' for Hopper (sm_90a): eight C entry
+// points, replacing the TPU kernels of pmesh_tpu/ops/fft_mxu.py and
+// pmesh_tpu/ops/fft_mxu_ref.py.
 //
 // The split-Nyquist Cooley-Tukey pipeline (ct2 shapes):
 //
@@ -35,6 +36,22 @@
 //                         _zy_inverse_to_real_h): the dense inverse y DFT,
 //                         then z half -> real through the (Zh, n2) irfft
 //                         matrices.
+//
+// The older pipelines of fft_mxu_ref.py run on the same entry points:
+//
+//   pmesh_zy_fwd_half     at Zh = N2 with the full (N2, N2) DFT pair is
+//                         the full-spectrum pass 1 (kernel _zy_forward_real);
+//   pmesh_zy_inv_half     at Zh = n2 = N2 with A = Re Wz, B = -Im Wz is the
+//                         full-spectrum inverse (kernel _zy_inverse_to_real):
+//                         JAX runs z then y, this runs y then z, which is
+//                         the same real part;
+//   pmesh_x_dense         at W = N2 is their x pass (_x_transform);
+//   pmesh_zy_fwd_half_ct  replaces _zy_forward_real_h_ct: the dense z
+//                         half-DFT to Zh = N2/2 + 1 columns (the Nyquist
+//                         column kept in place), then the y CT;
+//   pmesh_xct_multi       at W = Zh is its x pass (_x_transform_ct);
+//   pmesh_zy_inv_ct2      at Zm = Zh with the (Zh, n2) irfft pair and no
+//                         plane is its inverse (_zy_inverse_to_real_h_ct).
 //
 // Two choices of the dense pipeline differ from the TPU kernels' block
 // structure, not from what they compute: the two inverse x passes of the
@@ -581,6 +598,30 @@ cudaError_t y_inverse(const float* xr, const float* xi, const float* wAr,
                           stream);
 }
 
+// the forward y CT of the (n0, N1, ncols) z spectrum (xr, xi) into
+// (outr, outi), chunk-permuted along y
+cudaError_t y_forward(const float* xr, const float* xi, const float* wyr,
+                      const float* wyi, const float* ycoef, float* outr,
+                      float* outi, int n0, int N1, int ncols, int Ry, int My,
+                      cudaStream_t stream) {
+  CtOp<false> op = {};
+  op.xr = xr;
+  op.xi = xi;
+  op.wr = wyr;
+  op.wi = wyi;
+  op.outr = outr;
+  op.outi = outi;
+  op.ostride = (long long)N1 * ncols;
+  op.M = My;
+  op.R = Ry;
+  op.ncols = ncols;
+  op.W = 1;
+  op.scale = 1.f;
+  op.bt = make_butter(ycoef, Ry);
+  return launch_gemm<CtOp<false>, false, false, false>(op, n0, Ry, My, ncols,
+                                                       My, true, stream);
+}
+
 // a dense complex DFT along the rows of (nouter, M, ncols) blocks: the
 // CtOp stage at R = 1, whose butterfly is the identity, so forward and
 // inverse differ only by the table; optionally dual (a second table on
@@ -678,23 +719,8 @@ int pmesh_zy_fwd_ct2(const float* x, const float* wzr, const float* wzi,
     PMESH_TRY((launch_gemm<ZFwdDense, false, true, false>(
         op, 1, 1, rows, Zm, N2, false, stream)));
   }
-  CtOp<false> op = {};
-  op.xr = sr;
-  op.xi = si;
-  op.wr = wyr;
-  op.wi = wyi;
-  op.outr = outr;
-  op.outi = outi;
-  op.ostride = (long long)N1 * Zm;
-  op.M = My;
-  op.R = Ry;
-  op.ncols = Zm;
-  op.W = 1;
-  op.scale = 1.f;
-  op.bt = make_butter(ycoef, Ry);
-  PMESH_TRY((launch_gemm<CtOp<false>, false, false, false>(
-      op, n0, Ry, My, Zm, My, true, stream)));
-  return 0;
+  return (int)y_forward(sr, si, wyr, wyi, ycoef, outr, outi, n0, N1, Zm, Ry,
+                        My, stream);
 }
 
 // (xr, xi) (N0, n1, W) -> (o1r, o1i) [and (o2r, o2i) when w2r is set]:
@@ -829,6 +855,25 @@ int pmesh_zy_inv_half(const float* xr, const float* xi, const float* wyr,
   PMESH_TRY(z_inverse(sr, si, ta, tb, 0, 1, Zh, n2, nullptr, out, nullptr,
                       (long long)n0 * N1, Zh, n2, nullptr, stream));
   return 0;
+}
+
+// --- the first-CT half pipeline (fft_mxu_ref.py) --------------------------
+
+// x (n0, N1, N2) real -> (outr, outi) (n0, N1, Zh): the dense z half-DFT
+// by (wzr, wzi) (N2, Zh) into the scratch (sr, si) (n0, N1, Zh), then
+// the y CT by (wyr, wyi) (Ry, My, My) with ycoef b[r][j] of W_R^{-rj}.
+// y leaves chunk-permuted; the z-Nyquist column stays at index Zh - 1.
+int pmesh_zy_fwd_half_ct(const float* x, const float* wzr, const float* wzi,
+                         const float* wyr, const float* wyi,
+                         const float* ycoef, float* outr, float* outi,
+                         float* sr, float* si, int n0, int N1, int N2,
+                         int Zh, int Ry, int My, void* stream_) {
+  cudaStream_t stream = (cudaStream_t)stream_;
+  ZFwdDense zop = {x, wzr, wzi, sr, si, N2, Zh};
+  PMESH_TRY((launch_gemm<ZFwdDense, false, true, false>(
+      zop, 1, 1, (long long)n0 * N1, Zh, N2, false, stream)));
+  return (int)y_forward(sr, si, wyr, wyi, ycoef, outr, outi, n0, N1, Zh, Ry,
+                        My, stream);
 }
 
 }  // extern "C"

@@ -20,6 +20,17 @@ shapes, dense elsewhere), with the 1/k^2 filter and the SuperLanczos
 i*k_d folded into the inverse.  Paint, readout, rebase and the DFT
 passes run the hand CUDA kernels for CUDA tensors (``ops/gridpm.py``,
 ``ops/binned.py``, ``ops/fft_mxu.py``).
+
+Reverse mode runs through the lattice path: ``torch.autograd`` takes
+``force_lattice``, ``nbody_lattice`` and ``lpt_lattice`` end to end.  The
+paint and readout carry the JAX package's custom vjps
+(``ops/gridpm.py``), ``torch.fft`` its own autograd, and the
+``fft='mxu'`` force triple and potential are ``torch.autograd.Function``s
+with the JAX package's ``linear_call`` transposes (``_MxuForce``,
+``_MxuPotential``), so on the card the backward runs the same kernels
+as the forward.  Gradients through the binned path, and through the
+gradient-mode force on CUDA (a diffdir readout has no rule on the
+kernels), are not ported.
 """
 import numpy as np
 import torch
@@ -147,6 +158,43 @@ def _check_force_args(fft, mode):
                          % (fft,))
     if mode not in ('spectral', 'gradient'):
         raise ValueError("mode must be 'spectral' or 'gradient'")
+
+
+class _MxuForce(torch.autograd.Function):
+    """The fft='mxu' force triple T: rho -> (f_0, f_1, f_2), a linear
+    map, with the JAX package's ``linear_call`` transpose
+    (``pmesh_tpu/models/fastpm.py:549-577``): each direction is a
+    circular convolution with a real odd kernel (i k_d / k^2), so
+    T_d^T = -T_d and rho_bar = -sum_d T_d(ct_d), one direction at a time
+    (``only=d``).  Nothing is saved for the backward."""
+
+    @staticmethod
+    def forward(ctx, solver, rho):
+        ctx.solver = solver
+        return solver._mxu_force_raw(rho.detach())
+
+    @staticmethod
+    def backward(ctx, *ct):
+        acc = None
+        for d, c in enumerate(ct):
+            f = ctx.solver._mxu_force_raw(c.detach().contiguous(), only=d)
+            acc = f if acc is None else acc + f
+        return None, -acc
+
+
+class _MxuPotential(torch.autograd.Function):
+    """The ct2 fft='mxu' Poisson potential, a circular convolution with
+    a real even kernel (-1/k^2): self-adjoint, so its transpose is
+    itself (``pmesh_tpu/models/fastpm.py:648-666``)."""
+
+    @staticmethod
+    def forward(ctx, solver, rho):
+        ctx.solver = solver
+        return solver._mxu_potential_raw(rho.detach())
+
+    @staticmethod
+    def backward(ctx, ct):
+        return None, ctx.solver._mxu_potential_raw(ct.detach().contiguous())
 
 
 class Solver(object):
@@ -282,7 +330,7 @@ class Solver(object):
                 raise ValueError(
                     "fft='mxu' computes in f32; use a dtype='f4' mesh or "
                     "fft='xla' for f64 runs")
-            return self._mxu_force_raw(rho)
+            return _MxuForce.apply(self, rho)
         rhok = self.fpm.create(type=RealField, value=rho).r2c()
         return tuple(rhok.apply(tf.force_transfer(d)).c2r().value
                      for d in range(self.fpm.ndim))
@@ -320,7 +368,7 @@ class Solver(object):
         at shapes that are not ct2 (the caller takes the field path)."""
         if not self._mxu_setup()[3]:
             return None
-        return self._mxu_potential_raw(rho)
+        return _MxuPotential.apply(self, rho)
 
     def _mxu_potential_raw(self, rho):
         shape, pk2, kd, ct = self._mxu_setup()

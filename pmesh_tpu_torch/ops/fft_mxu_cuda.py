@@ -1,7 +1,9 @@
 """ctypes wrappers of the DFT kernels of ``fft='mxu'``
 (``csrc/fft_mxu.cu``), the port of the single-device Pallas kernels of
-``pmesh_tpu/ops/fft_mxu.py``: the split-Nyquist CT passes and the
-dense passes.
+``pmesh_tpu/ops/fft_mxu.py`` (the split-Nyquist CT passes and the
+dense passes) and of ``pmesh_tpu/ops/fft_mxu_ref.py`` (the full-spectrum
+and first-CT zy passes; their x passes are ``x_dense`` and
+``xct_multi``).
 
 Each wrapper checks its tensors (CUDA, f32, the pass's shapes,
 contiguous, one device, no autograd), the x/y splits of the CT passes
@@ -15,7 +17,11 @@ operators of ``ops/fft_mxu.py`` build each table once per shape).
 
 The plain PyTorch versions are ``ops/fft_mxu.zy_fwd_ct2_plain``,
 ``xct_multi_plain``, ``zy_inv_ct2_plain``, ``zy_inv_ct2_dual_plain``,
-``zy_fwd_half_plain``, ``x_dense_plain`` and ``zy_inv_half_plain``.
+``zy_fwd_half_plain``, ``x_dense_plain`` and ``zy_inv_half_plain``;
+those of the row-13 zy passes are ``zy_fwd_half_plain`` and
+``zy_inv_half_plain`` at full width, and
+``ops/fft_mxu_ref.zy_fwd_half_ct_plain`` and
+``ops/fft_mxu.zy_inv_ct2_plain`` at Zh.
 """
 import ctypes
 
@@ -26,12 +32,14 @@ from . import fft_mxu as _fm
 from ..native import cuda as _cuda
 
 __all__ = ["zy_fwd_ct2", "xct_multi", "zy_inv_ct2", "zy_inv_ct2_dual",
-           "zy_fwd_half", "x_dense", "zy_inv_half", "LAUNCHES",
+           "zy_fwd_half", "x_dense", "zy_inv_half", "zy_fwd_full",
+           "zy_inv_full", "zy_fwd_half_ct", "zy_inv_half_ct", "LAUNCHES",
            "reset_launches"]
 
 LAUNCHES = {"zy_fwd_ct2": 0, "xct_multi": 0, "zy_inv_ct2": 0,
             "zy_inv_ct2_dual": 0, "zy_fwd_half": 0, "x_dense": 0,
-            "zy_inv_half": 0}
+            "zy_inv_half": 0, "zy_fwd_full": 0, "zy_inv_full": 0,
+            "zy_fwd_half_ct": 0, "zy_inv_half_ct": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _lib = None
@@ -59,10 +67,11 @@ def _load():
         lib.pmesh_zy_fwd_half.argtypes = [_P] * 9 + [_I] * 4 + [_P]
         lib.pmesh_x_dense.argtypes = [_P] * 13 + [_I] * 3 + [_F, _P]
         lib.pmesh_zy_inv_half.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+        lib.pmesh_zy_fwd_half_ct.argtypes = [_P] * 10 + [_I] * 6 + [_P]
         for fn in (lib.pmesh_zy_fwd_ct2, lib.pmesh_xct_multi,
                    lib.pmesh_zy_inv_ct2, lib.pmesh_zy_inv_ct2_dual,
                    lib.pmesh_zy_fwd_half, lib.pmesh_x_dense,
-                   lib.pmesh_zy_inv_half):
+                   lib.pmesh_zy_inv_half, lib.pmesh_zy_fwd_half_ct):
             fn.restype = _I
         _lib = lib
     return _lib
@@ -98,8 +107,9 @@ def _check(tensors, shape, what):
             raise ValueError("%s: tensors must be contiguous" % what)
         if a.requires_grad:
             raise NotImplementedError(
-                "%s: gradients through the CUDA kernel are not ported yet "
-                "(ROADMAP queue 1, item 4)" % what)
+                "%s: the CUDA kernel takes no tensor that requires grad; "
+                "gradients run through the Solver's force and potential, "
+                "whose backward launches the kernels" % what)
     return dev
 
 
@@ -290,13 +300,11 @@ def _empty(shape, dev, n):
             for _ in range(n)]
 
 
-def zy_fwd_half(x, wz, wy):
-    """Row 3 pass 1: real (n0, N1, N2) -> (r, i) (n0, N1, N2 // 2 + 1)
-    by the (N2, Zh) half-DFT pair ``wz`` and the (N1, N1) y pair ``wy``."""
-    what = "zy_fwd_half"
+def _zy_fwd_dense(what, x, wz, wy, Zh):
+    """the dense z DFT of real (n0, N1, N2) by the (N2, Zh) pair ``wz``,
+    then the dense (N1, N1) y DFT by ``wy``: (r, i) (n0, N1, Zh)"""
     n0, N1, N2 = x.shape
     dev = _check((x,), x.shape, what)
-    Zh = N2 // 2 + 1
     wzr, wzi = (_table(a, (N2, Zh), dev, what) for a in wz)
     wyr, wyi = (_table(a, (N1, N1), dev, what) for a in wy)
     outr, outi, sr, si = _empty((n0, N1, Zh), dev, 4)
@@ -306,6 +314,18 @@ def zy_fwd_half(x, wz, wy):
         _ptr(outi), _ptr(sr), _ptr(si), n0, N1, N2, Zh, _stream(dev))
     _raise_on(rc, what)
     return outr, outi
+
+
+def zy_fwd_half(x, wz, wy):
+    """Row 3 pass 1: real (n0, N1, N2) -> (r, i) (n0, N1, N2 // 2 + 1)
+    by the (N2, Zh) half-DFT pair ``wz`` and the (N1, N1) y pair ``wy``."""
+    return _zy_fwd_dense("zy_fwd_half", x, wz, wy, x.shape[2] // 2 + 1)
+
+
+def zy_fwd_full(x, wz, wy):
+    """Row 13 full-spectrum pass 1: real (n0, N1, N2) -> (r, i)
+    (n0, N1, N2) by the (N2, N2) z DFT pair ``wz`` and the y pair ``wy``."""
+    return _zy_fwd_dense("zy_fwd_full", x, wz, wy, x.shape[2])
 
 
 def x_dense(pr, pi, wx, scale, wx2=None, k2=None):
@@ -334,24 +354,88 @@ def x_dense(pr, pi, wx, scale, wx2=None, k2=None):
     return tuple(out)
 
 
+def _zy_inv_dense(what, rr, ii, wy, AB, n2):
+    """the dense inverse y DFT of (n0, N1, K) by ``wy``, then the real
+    part of the z product by the (K, n2) pair ``AB``: out = yr @ A +
+    yi @ B, real (n0, N1, n2)"""
+    n0, N1, K = rr.shape
+    dev = _check((rr, ii), rr.shape, what)
+    wyr, wyi = (_table(a, (N1, N1), dev, what) for a in wy)
+    ta, tb = (_table(a, (K, n2), dev, what) for a in AB)
+    out = torch.empty((n0, N1, n2), dtype=torch.float32, device=dev)
+    sr, si = _empty((n0, N1, K), dev, 2)
+    LAUNCHES[what] += 1
+    rc = _load().pmesh_zy_inv_half(
+        _ptr(rr), _ptr(ii), _ptr(wyr), _ptr(wyi), _ptr(ta), _ptr(tb),
+        _ptr(out), _ptr(sr), _ptr(si), n0, N1, K, n2, _stream(dev))
+    _raise_on(rc, what)
+    return out
+
+
 def zy_inv_half(rr, ii, wy, AB):
     """Row 4 zy pass: (n0, N1, Zh) spectrum -> real (n0, N1, n2) by the
     (N1, N1) inverse y pair ``wy`` and the (Zh, n2) irfft pair ``AB``;
     n2 is AB's width and must have Zh = n2 // 2 + 1."""
     what = "zy_inv_half"
-    n0, N1, Zh = rr.shape
-    dev = _check((rr, ii), rr.shape, what)
+    Zh = rr.shape[2]
     n2 = np.shape(AB[0])[-1]
     if n2 // 2 + 1 != Zh:
         raise ValueError("%s: z tables of width %d do not fit Zh=%d"
                          % (what, n2, Zh))
-    wyr, wyi = (_table(a, (N1, N1), dev, what) for a in wy)
+    return _zy_inv_dense(what, rr, ii, wy, AB, n2)
+
+
+def zy_inv_full(rr, ii, wy, AB):
+    """Row 13 full-spectrum zy inverse: (n0, N1, N2) spectrum -> real
+    (n0, N1, N2), the real part of the inverse y DFT ``wy`` then the
+    inverse z DFT, whose (N2, N2) pair enters as ``AB`` = (Re Wz,
+    -Im Wz)."""
+    return _zy_inv_dense("zy_inv_full", rr, ii, wy, AB, rr.shape[2])
+
+
+# --- the first-CT half pipeline (row 13), chunk-permuted x and y --------------
+
+def zy_fwd_half_ct(x, wz, wy):
+    """Row 13 half-CT pass 1: real (n0, N1, N2) -> (r, i) (n0, N1, Zh),
+    Zh = N2 // 2 + 1: the (N2, Zh) half-DFT pair ``wz``, then the y CT by
+    the (Ry, My, My) pair ``wy``; y chunk-permuted, the z-Nyquist column
+    at Zh - 1."""
+    what = "zy_fwd_half_ct"
+    n0, N1, N2 = x.shape
+    dev = _check((x,), x.shape, what)
+    Ry, My = _split(N1, what, 1)
+    Zh = N2 // 2 + 1
+    wzr, wzi = (_table(a, (N2, Zh), dev, what) for a in wz)
+    wyr, wyi = (_table(a, (Ry, My, My), dev, what) for a in wy)
+    outr, outi, sr, si = _empty((n0, N1, Zh), dev, 4)
+    LAUNCHES[what] += 1
+    rc = _load().pmesh_zy_fwd_half_ct(
+        _ptr(x), _ptr(wzr), _ptr(wzi), _ptr(wyr), _ptr(wyi),
+        _host(_coef('fwd', Ry)), _ptr(outr), _ptr(outi), _ptr(sr), _ptr(si),
+        n0, N1, N2, Zh, Ry, My, _stream(dev))
+    _raise_on(rc, what)
+    return outr, outi
+
+
+def zy_inv_half_ct(rr, ii, Wy, AB, n2):
+    """Row 13 half-CT zy inverse: (n0, N1, Zh) spectrum, y
+    chunk-permuted -> real (n0, N1, n2): the inverse y CT by the
+    (Ry, My, My) pair ``Wy``, then z half -> real by the (Zh, n2) irfft
+    pair ``AB`` (the ct2 entry point at Zm = Zh, with no plane)."""
+    what = "zy_inv_half_ct"
+    n0, N1, Zh = rr.shape
+    dev = _check((rr, ii), rr.shape, what)
+    Ry, My = _split(N1, what, 1)
+    if n2 // 2 + 1 != Zh:
+        raise ValueError("%s: n2=%d does not fit Zh=%d" % (what, n2, Zh))
+    wyr, wyi = (_table(a, (Ry, My, My), dev, what) for a in Wy)
     ta, tb = (_table(a, (Zh, n2), dev, what) for a in AB)
     out = torch.empty((n0, N1, n2), dtype=torch.float32, device=dev)
     sr, si = _empty((n0, N1, Zh), dev, 2)
     LAUNCHES[what] += 1
-    rc = _load().pmesh_zy_inv_half(
-        _ptr(rr), _ptr(ii), _ptr(wyr), _ptr(wyi), _ptr(ta), _ptr(tb),
-        _ptr(out), _ptr(sr), _ptr(si), n0, N1, Zh, n2, _stream(dev))
+    rc = _load().pmesh_zy_inv_ct2(
+        _ptr(rr), _ptr(ii), _ptr(wyr), _ptr(wyi), _ptr(ta), _ptr(tb), 0, 1,
+        Zh, n2, None, _ptr(out), _ptr(sr), _ptr(si), None, n0, N1, Zh, n2,
+        Ry, My, _host(_coef('inv', Ry)), None, _stream(dev))
     _raise_on(rc, what)
     return out

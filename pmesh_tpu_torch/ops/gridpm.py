@@ -23,8 +23,24 @@ Two implementations, chosen per call by ``impl``:
 ``impl=None`` takes the kernels for CUDA tensors and the plain version
 for CPU tensors.  The kernels take 3-d f32 meshes; anything else on a
 CUDA tensor raises there.  A failed build or launch raises and is
-never replaced by the plain version.  Gradients flow through the plain
-version only (autograd); the kernels refuse tensors that require grad.
+never replaced by the plain version.
+
+Reverse mode: ``paint_grid`` and ``readout_grid`` (without ``diffdir``)
+are ``torch.autograd.Function``s whose backward is the JAX package's
+custom vjp (``pmesh_tpu/ops/gridpm.py:376-443``), computed by the same
+implementation as the forward, so on the card the backward launches the
+paint and readout kernels:
+
+- paint: mass_bar = readout of v_bar (summed for a scalar mass),
+  s_bar_d = mass * (the diffdir-d readout of v_bar);
+- readout: mesh_bar = the paint of each v_bar with the displacements,
+  s_bar_d = sum over meshes of v_bar * (the diffdir-d readout).
+
+A diffdir paint or readout has no such rule: on the CPU the plain roll
+version differentiates natively, as the JAX package's XLA version does;
+on CUDA tensors that require grad it raises, as the JAX package's Pallas
+kernels have no autodiff rule (``pmesh_tpu/ops/gridpm.py:482-486``).
+The CUDA wrappers themselves refuse tensors that require grad.
 """
 import numpy as np
 import torch
@@ -163,6 +179,109 @@ def _shift_loop(meshes, disp, mass, bounds, window, diffdir, mode,
     return tuple(outs)
 
 
+def _detached(t):
+    return t.detach() if isinstance(t, torch.Tensor) else t
+
+
+def _tracks(tensors):
+    """whether autograd records an op on ``tensors``"""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def _no_kernel_rule(what, impl, t):
+    if _use_cuda(impl, t):
+        raise NotImplementedError(
+            "%s: gradients through a diffdir paint or readout have no rule "
+            "on the CUDA kernels, as the JAX package's Pallas kernels have "
+            "none (pmesh_tpu/ops/gridpm.py:482-486); differentiate it on "
+            "the CPU (impl='torch')" % what)
+
+
+def _readout_fused(meshes, disp, bounds, window, diffdir, impl):
+    """readouts of up to three meshes sharing the weights: one kernel
+    launch for all of them on CUDA tensors (3-d), the plain loop
+    otherwise"""
+    if _use_cuda(impl, disp[0]) and len(disp) == 3:
+        from . import gridpm_cuda as _k
+        win = find_window(window)
+        vmin, vmax = offset_range(float(bounds[0]), float(bounds[1]), win)
+        return _k.readout_lattice(meshes, disp, vmin, vmax, win,
+                                  diffdir=diffdir)
+    return _shift_loop(meshes, disp, None, bounds, window, diffdir,
+                       'readout', impl)
+
+
+class _Paint(torch.autograd.Function):
+    """paint with the JAX package's custom vjp (``_paint_bwd``);
+    ``mass`` is a tensor (a mesh or 0-d) or None, ``cfg`` = (bounds,
+    window, impl, scalar mass used when ``mass`` is None)."""
+
+    @staticmethod
+    def forward(ctx, cfg, mass, *disp):
+        bounds, window, impl, scalar = cfg
+        ctx.cfg = cfg
+        ctx.save_for_backward(mass, *disp)
+        m = scalar if mass is None else mass.detach()
+        return _shift_loop(None, tuple(d.detach() for d in disp), m, bounds,
+                           window, None, 'paint', impl)
+
+    @staticmethod
+    def backward(ctx, v):
+        bounds, window, impl, scalar = ctx.cfg
+        mass, *disp = ctx.saved_tensors
+        disp = tuple(d.detach() for d in disp)
+        v = v.detach().contiguous()
+        mass_bar = None
+        if ctx.needs_input_grad[1]:
+            mb = _readout_fused((v,), disp, bounds, window, None, impl)[0]
+            mass_bar = (mb if mass.dim() > 0 else mb.sum()).to(mass.dtype)
+        disp_bar = [None] * len(disp)
+        if any(ctx.needs_input_grad[2:]):
+            rds = _shift_loop((v,), disp, None, bounds, window, 'all',
+                              'readout', impl)
+            m = scalar if mass is None else mass.detach().to(v.dtype)
+            disp_bar = [m * r for r in rds]
+        return (None, mass_bar) + tuple(disp_bar)
+
+
+class _Readout(torch.autograd.Function):
+    """readout of ``nmesh`` meshes with the JAX package's custom vjp
+    (``_readout_bwd``); ``tensors`` = meshes + disp."""
+
+    @staticmethod
+    def forward(ctx, cfg, nmesh, *tensors):
+        bounds, window, impl = cfg
+        ctx.cfg, ctx.nmesh = cfg, nmesh
+        ctx.save_for_backward(*tensors)
+        det = tuple(t.detach() for t in tensors)
+        return _shift_loop(det[:nmesh], det[nmesh:], None, bounds, window,
+                           None, 'readout', impl)
+
+    @staticmethod
+    def backward(ctx, *vbar):
+        bounds, window, impl = ctx.cfg
+        nmesh = ctx.nmesh
+        saved = tuple(t.detach() for t in ctx.saved_tensors)
+        meshes, disp = saved[:nmesh], saved[nmesh:]
+        vbar = tuple(v.detach().contiguous() for v in vbar)
+        need = ctx.needs_input_grad[2:]
+        mesh_bar = tuple(
+            _shift_loop(None, disp, vb, bounds, window, None, 'paint', impl)
+            if need[j] else None for j, vb in enumerate(vbar))
+        disp_bar = []
+        for d in range(len(disp)):
+            if not need[nmesh + d]:
+                disp_bar.append(None)
+                continue
+            rds = _readout_fused(meshes, disp, bounds, window, d, impl)
+            acc = None
+            for vb, rd in zip(vbar, rds):
+                acc = vb * rd if acc is None else acc + vb * rd
+            disp_bar.append(acc)
+        return (None, None) + mesh_bar + tuple(disp_bar)
+
+
 def paint_grid(disp, mass=None, bounds=(0.0, 1.0), window='cic',
                diffdir=None, impl=None):
     """Paint lattice particles displaced by ``disp`` onto their own mesh.
@@ -177,9 +296,23 @@ def paint_grid(disp, mass=None, bounds=(0.0, 1.0), window='cic',
         :func:`displacement_bounds`.
     diffdir : None, or the axis whose window is replaced by -W'
     impl : None, 'torch' or 'cuda' (see the module docstring)
+
+    Differentiable in ``disp`` and a tensor ``mass`` (module docstring).
     """
-    return _shift_loop(None, tuple(disp), mass, bounds, window, diffdir,
-                       'paint', impl)
+    disp = tuple(disp)
+    if not _tracks(disp + (mass,)):
+        return _shift_loop(None, tuple(_detached(d) for d in disp),
+                           _detached(mass), bounds, window, diffdir,
+                           'paint', impl)
+    if diffdir is not None:
+        _no_kernel_rule("paint_grid", impl, disp[0])
+        return _shift_loop(None, disp, mass, bounds, window, diffdir,
+                           'paint', impl)
+    bounds = (float(bounds[0]), float(bounds[1]))
+    if isinstance(mass, torch.Tensor):
+        return _Paint.apply((bounds, window, impl, None), mass, *disp)
+    scalar = 1.0 if mass is None else float(mass)
+    return _Paint.apply((bounds, window, impl, scalar), None, *disp)
 
 
 def readout_grid(mesh, disp, bounds=(0.0, 1.0), window='cic',
@@ -194,11 +327,20 @@ def readout_grid(mesh, disp, bounds=(0.0, 1.0), window='cic',
     """
     single = not isinstance(mesh, (tuple, list))
     meshes = (mesh,) if single else tuple(mesh)
+    disp = tuple(disp)
+    if diffdir == 'all' and len(meshes) != 1:
+        raise ValueError("diffdir='all' takes exactly one mesh")
+    if not _tracks(meshes + disp):
+        out = _shift_loop(tuple(_detached(m) for m in meshes),
+                          tuple(_detached(d) for d in disp), None, bounds,
+                          window, diffdir, 'readout', impl)
+    elif diffdir is not None:
+        _no_kernel_rule("readout_grid", impl, disp[0])
+        out = _shift_loop(meshes, disp, None, bounds, window, diffdir,
+                          'readout', impl)
+    else:
+        cfg = ((float(bounds[0]), float(bounds[1])), window, impl)
+        out = _Readout.apply(cfg, len(meshes), *meshes, *disp)
     if diffdir == 'all':
-        if len(meshes) != 1:
-            raise ValueError("diffdir='all' takes exactly one mesh")
-        return _shift_loop(meshes, tuple(disp), None, bounds, window,
-                           'all', 'readout', impl)
-    out = _shift_loop(meshes, tuple(disp), None, bounds, window, diffdir,
-                      'readout', impl)
-    return out[0] if single else out
+        return tuple(out)
+    return out[0] if single else tuple(out)

@@ -104,9 +104,17 @@ def test_kernels_refuse_what_they_cannot_run(dev):
         tgp.paint_grid(tuple(d[0] for d in disp[:2]))
     with pytest.raises(ValueError, match='contiguous'):
         tgp.readout_grid(meshes[0].transpose(0, 2), disp)
+    # the wrappers refuse tensors that require grad; paint_grid and
+    # readout_grid take them through their autograd Functions, except a
+    # diffdir readout, which has no rule on the kernels
+    from pmesh_tpu_torch.ops import gridpm_cuda
     grad = tuple(d.clone().requires_grad_() for d in disp)
     with pytest.raises(NotImplementedError, match='gradients'):
-        tgp.paint_grid(grad)
+        gridpm_cuda.paint_lattice(grad, None, 0, 1, 'cic')
+    with pytest.raises(NotImplementedError, match='gridpm.py:482'):
+        tgp.readout_grid(meshes[0], grad, diffdir=0)
+    with pytest.raises(NotImplementedError, match='gridpm.py:482'):
+        tgp.readout_grid(meshes[0], grad, diffdir='all')
 
 
 # gradient mode takes TSC, whose derivative window is continuous: with
@@ -365,6 +373,10 @@ def test_fft_mxu_kernels_refuse_what_they_cannot_run(dev):
         fm.fft3_real_forward_half_ct2(torch.zeros((16,) * 3, device=dev))
 
 
+ROW13_ZERO = dict(zy_fwd_full=0, zy_inv_full=0, zy_fwd_half_ct=0,
+                  zy_inv_half_ct=0)
+
+
 @pytest.mark.parametrize("mode,counts", [
     ('spectral', {"zy_fwd_ct2": 1, "xct_multi": 2, "zy_inv_ct2": 1,
                   "zy_inv_ct2_dual": 1}),
@@ -381,7 +393,7 @@ def test_fft_mxu_launches_count_one_force(dev, mode, counts):
     fft_mxu_cuda.reset_launches()
     Solver(pm).force_lattice(disp, (0.0, 1.0), mode=mode, fft='mxu')
     assert fft_mxu_cuda.LAUNCHES == dict(counts, zy_fwd_half=0, x_dense=0,
-                                         zy_inv_half=0)
+                                         zy_inv_half=0, **ROW13_ZERO)
 
 
 @pytest.mark.parametrize("force_mode,window", [('spectral', 'cic'),
@@ -506,7 +518,8 @@ def test_fft_dense_launches_count_one_force(dev, mode, counts):
     fft_mxu_cuda.reset_launches()
     Solver(pm).force_lattice(disp, (0.0, 1.0), mode=mode, fft='mxu')
     assert fft_mxu_cuda.LAUNCHES == dict(
-        counts, zy_fwd_ct2=0, xct_multi=0, zy_inv_ct2=0, zy_inv_ct2_dual=0)
+        counts, zy_fwd_ct2=0, xct_multi=0, zy_inv_ct2=0, zy_inv_ct2_dual=0,
+        **ROW13_ZERO)
 
 
 @pytest.mark.parametrize("shape", [(48, 40, 33), (32, 32, 32)])
@@ -531,3 +544,197 @@ def test_nbody_lattice_dense_mxu_card_matches_cpu(dev, shape):
     assert 0.01 < smax < 1.0
     for ref, got in zip(*out):
         assert _rel(got, ref) <= 1e-4
+
+
+# --- the row-13 pipelines (ops/fft_mxu_ref.py) on the kernels ----------------
+
+@pytest.mark.parametrize("shape", [(64, 64, 64), (45, 38, 75)])
+def test_fft_ref_full_kernels_match_plain(dev, shape):
+    """the full-spectrum forward, each inverse (grad None/0/1/2) and the
+    force triple, card against plain"""
+    from pmesh_tpu_torch.ops import fft_mxu_ref as ref
+    x = _fft_inputs(30, shape, dev)[0]
+    kv = [tuple((np.fft.fftfreq(n) * 2 * np.pi).tolist()) for n in shape]
+    out = {}
+    for impl in ('cuda', 'torch'):
+        r, i = ref.fft3_real_forward(x, impl=impl)
+        inv = [ref.fft3_real_inverse(r, i, impl=impl)]
+        inv += [ref.fft3_real_inverse(r, i, grad=d, kvec=kv[d], impl=impl)
+                for d in range(3)]
+        tri = ref.fft3_real_inverse_grad3(r, i, kvecs=kv, impl=impl)
+        out[impl] = [r, i] + inv + list(tri)
+    for g, r in zip(out['cuda'], out['torch']):
+        assert _rel(g, r) <= TOL
+    assert _rel(out['cuda'][2], x) <= 2e-5      # the round trip
+    for d in range(3):
+        assert _rel(out['cuda'][6 + d], out['cuda'][3 + d]) <= TOL
+
+
+@pytest.mark.parametrize("shape", [(256, 256, 16), (512, 256, 30)])
+def test_fft_ref_half_ct_kernels_match_plain(dev, shape):
+    from pmesh_tpu_torch.ops import fft_mxu_ref as ref
+    x = _fft_inputs(31, shape, dev)[0]
+    kd = (_sl(shape[0]), _sl(shape[1]), _sl(shape[2], half=True))
+    out = {}
+    for impl in ('cuda', 'torch'):
+        r, i = ref.fft3_real_forward_half_ct(x, impl=impl)
+        tri = ref.fft3_real_inverse_grad3_half_ct(r, i, shape[2], kd,
+                                                  impl=impl)
+        out[impl] = [r, i] + list(tri)
+    for g, r in zip(out['cuda'], out['torch']):
+        assert _rel(g, r) <= TOL
+
+
+def test_fft_ref_launch_counts(dev):
+    from pmesh_tpu_torch.ops import fft_mxu_cuda
+    from pmesh_tpu_torch.ops import fft_mxu_ref as ref
+    x = _fft_inputs(32, (256, 256, 16), dev)[0]
+    kd = (_sl(256), _sl(256), _sl(16, half=True))
+    fft_mxu_cuda.reset_launches()
+    ref.fft3_real_inverse_grad3(*ref.fft3_real_forward(x),
+                                kvecs=(kd[0], kd[1], _sl(16)))
+    ref.fft3_real_inverse_grad3_half_ct(*ref.fft3_real_forward_half_ct(x),
+                                        n2=16, kvecs=kd)
+    assert fft_mxu_cuda.LAUNCHES == dict(
+        zy_fwd_ct2=0, xct_multi=2, zy_inv_ct2=0, zy_inv_ct2_dual=0,
+        zy_fwd_half=0, x_dense=2, zy_inv_half=0, zy_fwd_full=1,
+        zy_inv_full=3, zy_fwd_half_ct=1, zy_inv_half_ct=3)
+
+
+# --- reverse mode on the kernels ---------------------------------------------
+
+def _grads(fn, leaves_np, device):
+    """the gradients of fn(leaves) on ``device``, as CPU tensors"""
+    leaves = [torch.from_numpy(a).to(device).requires_grad_()
+              for a in leaves_np]
+    fn(leaves).backward()
+    return [t.grad.cpu() for t in leaves]
+
+
+@pytest.mark.parametrize("window", ['cic', 'tsc'])
+def test_lattice_backward_matches_plain(dev, window):
+    """the paint and readout backwards (mesh mass; three meshes) on the
+    kernels against the plain backward on the CPU, and the launches of
+    each backward"""
+    from pmesh_tpu_torch.ops import gridpm_cuda
+    rng = np.random.RandomState(33)
+    shape, bounds = (24, 20, 36), (-0.5, 1.0)
+    disp = [rng.uniform(*bounds, shape).astype('f4') for _ in range(3)]
+    mass = (1 + 0.2 * rng.normal(size=shape)).astype('f4')
+    meshes = [rng.normal(size=shape).astype('f4') for _ in range(3)]
+    w = [rng.uniform(0.5, 1.5, shape).astype('f4') for _ in range(3)]
+
+    def paint_loss(t):
+        return (tgp.paint_grid(t[:3], mass=t[3], bounds=bounds,
+                               window=window)
+                * torch.from_numpy(w[0]).to(t[0].device)).sum()
+
+    def readout_loss(t):
+        out = tgp.readout_grid(t[:3], t[3:], bounds=bounds, window=window)
+        return sum((o * torch.from_numpy(ww).to(o.device)).sum()
+                   for o, ww in zip(out, w))
+    for fn, leaves, launches in (
+            (paint_loss, disp + [mass], {"paint_lattice": 1,
+                                         "readout_lattice": 2}),
+            (readout_loss, meshes + disp, {"paint_lattice": 3,
+                                           "readout_lattice": 6})):
+        ref = _grads(fn, leaves, 'cpu')
+        gridpm_cuda.reset_launches()
+        got = _grads(fn, leaves, dev)
+        # forward and backward: paint 1 + (1 mass readout, 1 'all');
+        # readouts 3 (one per mesh) + (3 paints, one 3-mesh readout per
+        # direction)
+        assert gridpm_cuda.LAUNCHES == launches
+        for g, r in zip(got, ref):
+            assert _rel(g, r) <= TOL
+
+
+@pytest.mark.parametrize("shape,fft", [((32, 32, 32), 'xla'),
+                                       ((256, 256, 16), 'mxu'),
+                                       ((48, 40, 33), 'mxu')])
+def test_force_backward_card_matches_cpu(dev, shape, fft):
+    """the gradient of a force_lattice loss on the card against the
+    CPU's, and the DFT launches of the mxu backward: at ct2 one forward
+    and one only=d inverse per direction, at dense shapes the whole
+    triple per direction, as the JAX package does"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import fft_mxu_cuda
+    rng = np.random.RandomState(34)
+    disp = [rng.uniform(0, 1, shape).astype('f4') for _ in range(3)]
+    out = {}
+    for device in ('cpu', dev):
+        pm = ParticleMesh(shape, BoxSize=np.asarray(shape, float),
+                          dtype='f4', device=device)
+        solver = Solver(pm)
+
+        def loss(t):
+            F = solver.force_lattice(t, (0.0, 1.0), fft=fft)
+            return (F[0] ** 2 + 2 * F[1] ** 2 + 3 * F[2] ** 2).sum()
+        fft_mxu_cuda.reset_launches()
+        out[str(device)] = _grads(loss, disp, device)
+    for g, r in zip(out[str(dev)], out['cpu']):
+        assert _rel(g, r) <= 1e-4
+    if fft == 'mxu' and shape == (256, 256, 16):
+        assert fft_mxu_cuda.LAUNCHES == dict(
+            zy_fwd_ct2=1 + 3, xct_multi=2 + 6, zy_inv_ct2=1 + 3,
+            zy_inv_ct2_dual=1, zy_fwd_half=0, x_dense=0, zy_inv_half=0,
+            **ROW13_ZERO)
+    elif fft == 'mxu':
+        assert fft_mxu_cuda.LAUNCHES == dict(
+            zy_fwd_ct2=0, xct_multi=0, zy_inv_ct2=0, zy_inv_ct2_dual=0,
+            zy_fwd_half=4, x_dense=8, zy_inv_half=12, **ROW13_ZERO)
+
+
+def test_nbody_backward_card_matches_cpu(dev):
+    from pmesh_tpu_torch import ParticleMesh, RealField
+    from pmesh_tpu_torch.models.fastpm import Solver
+    shape = (32, 32, 32)
+    noise = np.random.RandomState(35).normal(size=shape).astype('f4')
+    state, out = None, {}
+    for device in ('cpu', dev):
+        pm = ParticleMesh(shape, BoxSize=float(shape[0]), dtype='f4',
+                          device=device)
+        solver = Solver(pm)
+        if state is None:
+            dk = pm.create(type=RealField, value=torch.from_numpy(noise))
+            dk = dk.r2c().apply(lambda k, v: 0.3 * v * torch.where(
+                k.normp(2) > 0, k.normp(2, zeromode=1.0) ** -0.375, 0.0))
+            disp, vel = solver.lpt_lattice(dk, 0.1, order=2)
+            state = [x.numpy() for x in disp + vel]
+
+        def loss(t):
+            S, V = solver.nbody_lattice(t[:3], t[3:], [0.1, 0.2, 0.3],
+                                        (-1.0, 1.0))
+            return sum((s ** 2).sum() + 2 * (v ** 2).sum()
+                       for s, v in zip(S, V))
+        out[str(device)] = _grads(loss, state, device)
+    for g, r in zip(out[str(dev)], out['cpu']):
+        assert torch.isfinite(g).all()
+        assert _rel(g, r) <= 1e-4
+
+
+def test_mxu_potential_backward_card_matches_cpu(dev):
+    """the ct2 potential's transpose (the potential itself) on the
+    kernels against the CPU's, and the launches of one forward and one
+    backward"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import fft_mxu_cuda
+    shape = (256, 256, 16)
+    rng = np.random.RandomState(36)
+    rho = rng.normal(size=shape).astype('f4')
+    w = torch.from_numpy(rng.normal(size=shape).astype('f4'))
+    out = {}
+    for device in ('cpu', dev):
+        pm = ParticleMesh(shape, BoxSize=np.asarray(shape, float),
+                          dtype='f4', device=device)
+        solver = Solver(pm)
+        fft_mxu_cuda.reset_launches()
+        out[str(device)] = _grads(
+            lambda t: (solver._mxu_potential(t[0]) * w.to(t[0].device)).sum(),
+            [rho], device)
+    assert fft_mxu_cuda.LAUNCHES == dict(
+        zy_fwd_ct2=2, xct_multi=4, zy_inv_ct2=2, zy_inv_ct2_dual=0,
+        zy_fwd_half=0, x_dense=0, zy_inv_half=0, **ROW13_ZERO)
+    assert _rel(out[str(dev)][0], out['cpu'][0]) <= 1e-4
