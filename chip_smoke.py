@@ -77,6 +77,21 @@ entries with CIC, whose derivative jumps at cell boundaries, and for
 none with TSC; the backward's paint, readout and only=d DFT launches
 counted; forward and forward + backward per KDK step; peak memory).
 
+The bf16 forms of the DFT kernels (fft='mxu_bf16': bf16 tensor-core
+products in every DFT kernel; fft='mxu_bf16s': the ct2 spectra stored
+in bf16) add to phases 3, 4, 4c, 5 and 7: phase 3 holds each form of
+each kernel against its plain version on the f32 rows' shapes, each
+pass on the same inputs (bf16 products within TOL_BF16 of max, a
+bf16-stored spectrum bitwise but for BF16_SHARE of its entries), with
+its bound and torch.fft yardstick; phase 4 runs the 512^3 path with
+each mode (the launch counters show that form alone carried it; the
+force and state against fft='mxu' printed; the kernels' force meshes
+held against the plain versions' on the card, and the overdensity's
+against f32 to a sanity bound); phase 4c runs the row-13 path with
+precision='bf16'; phase 5 one force_binned(fft='mxu_bf16') on the grown
+clustered state (the dense bf16 form); phase 7 small runs and a
+gradient, card against CPU, to the chained bound of TOL_CHAIN.
+
 The second-to-last line is the kernels' JSON record, the last line
 the device record.
 """
@@ -155,9 +170,26 @@ KERNELS = {
     "zy_inv_half_ct": ("pmesh_tpu_torch/csrc/fft_mxu.cu",
                        "pmesh_tpu/ops/fft_mxu_ref.py:280"),
 }
+# the bf16 forms of the DFT kernels: the bf16 products (fft='mxu_bf16',
+# precision='bf16') of each, "<kernel>_bf16", and the bf16 spectrum
+# storage (fft='mxu_bf16s') of the four ct2 ones, "<kernel>_bf16s"
+CT2 = ("zy_fwd_ct2", "xct_multi", "zy_inv_ct2", "zy_inv_ct2_dual")
+DENSE = ("zy_fwd_half", "x_dense", "zy_inv_half")
 # the launch counter of a KERNELS entry: its name up to the first space
 ROW13 = ("zy_fwd_full", "x_dense (full spectrum)", "zy_inv_full",
          "zy_fwd_half_ct", "xct_multi (half CT)", "zy_inv_half_ct")
+
+
+def bf16_name(name, form="_bf16"):
+    """the KERNELS name of a kernel's bf16 form"""
+    base, _, tail = name.partition(" ")
+    return base + form + (" " + tail if tail else "")
+
+
+for _name in CT2 + DENSE + ROW13:
+    KERNELS[bf16_name(_name)] = KERNELS[_name]
+for _name in CT2:
+    KERNELS[bf16_name(_name, "_bf16s")] = KERNELS[_name]
 # launches of the row-13 path (phase 4c): a full-spectrum force and round
 # trip, a half-CT force
 ROW13_PATH = {"zy_fwd_full": 2, "x_dense": 4, "zy_inv_full": 4,
@@ -190,6 +222,37 @@ MXU_PER_FORCE = {"zy_fwd_ct2": (1, 1), "xct_multi": (2, 2),
                  "zy_inv_ct2": (1, 1), "zy_inv_ct2_dual": (1, 0)}
 # per spectral force at a shape that is not ct2
 DENSE_PER_FORCE = {"zy_fwd_half": 1, "x_dense": 2, "zy_inv_half": 3}
+# the bf16 forms against their plain versions, each pass on the same
+# inputs.  A product of two bf16 values is exact in f32, so kernel and
+# plain differ in their f32 sums only; but the tensor cores sum a block
+# of products with their own alignment and rounding, further from a
+# chain of FP32 FMAs than two such chains are from each other, so where
+# a pass rounds an intermediate again (a zy pass: the z or y output is
+# the next product's operand) more of those roundings flip, each by one
+# bf16 ulp, which reaches every output of its row.  bf16 products: the
+# rms gap within TOL_CHAIN_RMS of the rms of the bf16 rounding itself
+# (the plain pass against its f32-product twin), the max gap within
+# TOL_BF16 of max|plain| for an x pass (one product) and TOL_CHAIN for a
+# zy pass; the share of entries beyond TOL_BF16_NEAR of max is printed.
+# A bf16-stored spectrum: bitwise equal but for at most BF16_SHARE of
+# its entries, none more than one bf16 ulp apart beyond the gap of the
+# two f32 sums it rounds.  A chain of passes is held to TOL_CHAIN of
+# max: the 512^3 force meshes also to TOL_FORCE_RMS of the bf16
+# rounding; a small run card against CPU to the max alone (its bf16
+# storage effect sits in a few rounded values of the mean density's
+# column, which one flip moves by their whole size); against fft='mxu'
+# on the main path the overdensity's bf16 force to a sanity bound,
+# TOL_BF16_SANITY relative rms
+TOL_BF16, TOL_BF16_NEAR, BF16_SHARE = 5e-4, 1e-5, 1e-3
+TOL_CHAIN, TOL_CHAIN_RMS = 1e-2, 0.15
+# the 512^3 force meshes chain five passes, each flipping roundings the
+# next reads: their rms gap was 0.144 (mxu_bf16) and 0.132 (mxu_bf16s)
+# of the bf16 rounding on an NVIDIA H100 80GB HBM3, 700 W
+TOL_FORCE_RMS = 0.25
+TOL_BF16_SANITY = 0.1
+# checks of the bf16 forms that failed; the run goes on to its end and
+# fails there, so that one run shows every measurement
+DEFERRED = []
 MXU_SLAB = (16, 512, 1024)
 MXU_SMALL = (256, 256, 16)
 DENSE_RAGGED = (96, 80, 75)
@@ -383,10 +446,65 @@ def max_rel(got, ref):
     """(max over outputs of max|got - ref| / max|ref|, max|got - ref|)"""
     rels, errs = [], []
     for g, r in zip(got, ref):
-        err = float((g - r).abs().max())
-        rels.append(err / float(r.abs().max()))
+        err = float((g.float() - r.float()).abs().max())
+        rels.append(err / float(r.float().abs().max()))
         errs.append(err)
     return max(rels), max(errs)
+
+
+def as_tuple(out):
+    return (out,) if isinstance(out, torch.Tensor) else tuple(out)
+
+
+def bf16_products_check(got, plain, plain32, tol=TOL_BF16):
+    """the bf16 products' criterion over the outputs: max|k - p| within
+    ``tol`` of max|p|, and the rms gap within TOL_CHAIN_RMS of the rms
+    of the bf16 rounding itself (p against ``plain32``, the pass with
+    f32 products); the share of the entries beyond TOL_BF16_NEAR of max
+    is printed"""
+    worst = share = ratio = rel = 0.0
+    for g, p, f in zip(got, plain, plain32):
+        d = (g.float() - p.float()).abs()
+        scale = float(p.float().abs().max())
+        effect = float(((p - f).double() ** 2).mean() ** 0.5)
+        if effect == 0:
+            # an output without products (the Nyquist row sum)
+            rel = max(rel, float(d.max()) / scale)
+            continue
+        worst = max(worst, float(d.max()) / scale)
+        share = max(share, float((d > TOL_BF16_NEAR * scale).float().mean()))
+        ratio = max(ratio, float((d.double() ** 2).mean() ** 0.5) / effect)
+    ok = worst <= tol and ratio <= TOL_CHAIN_RMS and rel <= TOL_KERNEL
+    return ok, ("max|k-p|/max|p| = %.3e (tol %.0e), rms|k-p| / rms|p - f32|"
+                " = %.3e (tol %.2f), %.2e of the entries beyond %.0e of max"
+                % (worst, tol, ratio, TOL_CHAIN_RMS, share, TOL_BF16_NEAR))
+
+
+def bf16_storage_check(got, plain, got32=None, plain32=None):
+    """the bf16 storage criterion (see TOL_BF16) over the outputs; an
+    f32 output (a real mesh, the Nyquist row sum) is held to
+    TOL_KERNEL.  got32/plain32: the same pass with f32 outputs on the
+    same values, whose kernel-plain gap is the gap of the f32 sums that
+    each stored entry rounds"""
+    neq, bad, rel = 0.0, 0, 0.0
+    for k, (g, p) in enumerate(zip(got, plain)):
+        if g.dtype != p.dtype:
+            return False, "kernel %s, plain %s" % (g.dtype, p.dtype)
+        if g.dtype != torch.bfloat16:
+            rel = max(rel, max_rel((g,), (p,))[0])
+            continue
+        gf, pf = g.float(), p.float()
+        m = torch.maximum(gf.abs(), pf.abs())
+        ulp = torch.exp2(torch.floor(torch.log2(
+            torch.where(m > 0, m, torch.ones_like(m)))) - 7)
+        gap = (got32[k] - plain32[k]).abs()
+        neq = max(neq, float((gf != pf).float().mean()))
+        bad += int(((gf - pf).abs() > ulp + gap).sum())
+    ok = neq <= BF16_SHARE and bad == 0 and rel <= TOL_KERNEL
+    return ok, ("bf16 outputs: %.2e of the entries not bitwise equal (at"
+                " most %.0e), %d more than one ulp beyond their f32 gap;"
+                " f32 outputs max|k-p|/max|p| = %.3e (tol %.0e)"
+                % (neq, BF16_SHARE, bad, rel, TOL_KERNEL))
 
 
 def fft_ops(n, count, real=False):
@@ -401,28 +519,43 @@ def zy_ops(n0, N1, n2):
     return fft_ops(n2, n0 * N1, real=True) + fft_ops(N1, n0 * (n2 // 2 + 1))
 
 
-def dft_case(records, kernel, label, fn, reads, ops, library=None):
+def dft_case(records, kernel, label, fn, reads, ops, library=None,
+             check=None, failed=None):
     """one DFT pass, kernel vs plain: fn(impl) gives its output(s),
     ``reads`` are the tensors and tables it reads, ``ops`` the
     operations of the FFTs computing the same transform, ``library`` a call of torch.fft computing the same
-    function (timed where given).  Every case logs its bound; the first
-    case of each kernel is its record, later cases add to its error.
-    Returns the kernel's output."""
+    function (timed where given).  A bf16 form gives ``check`` =
+    (criterion, fn32): criterion(got, plain, *twin) -> (ok, text), twin
+    the outputs of fn32(impl) for the plain version (products) or for
+    both (storage), the same pass in f32; the default is TOL_KERNEL.
+    Every case logs its bound; the first case of each kernel is its
+    record, later cases add to its error.  A failing case raises, or
+    is appended to ``failed`` when given.  Returns the kernel's output."""
     plain = fn('torch')
     got = fn('cuda')
-    one = isinstance(got, torch.Tensor)
-    rel, err = max_rel((got,) if one else got, (plain,) if one else plain)
+    rel, err = max_rel(as_tuple(got), as_tuple(plain))
+    if check is None:
+        ok = rel <= TOL_KERNEL and np.isfinite(rel)
+        text = "max|k-p|/max|p| = %.3e (tol %.0e)" % (rel, TOL_KERNEL)
+    else:
+        criterion, fn32 = check
+        twin = ()
+        if fn32 is not None:
+            twin = (as_tuple(fn32('torch')),)
+            if criterion is bf16_storage_check:  # both twins
+                twin = (as_tuple(fn32('cuda')),) + twin
+        ok, text = criterion(as_tuple(got), as_tuple(plain), *twin)
+        ok = ok and np.isfinite(rel)
     del plain
     ms = cuda_ms(lambda: fn('cuda'), 5)
     plain_ms = cuda_ms(lambda: fn('torch'), 1)
-    ok = rel <= TOL_KERNEL and np.isfinite(rel)
-    log("phase 3 compare: %-16s %-36s max|k-p|/max|p| = %.3e (tol %.0e)"
-        " %s  kernel %.3f ms  plain %.3f ms"
-        % (kernel, label, rel, TOL_KERNEL, "ok" if ok else "FAIL", ms,
-           plain_ms))
+    log("phase 3 compare: %-16s %-36s %s %s  kernel %.3f ms  plain %.3f ms"
+        % (kernel, label, text, "ok" if ok else "FAIL", ms, plain_ms))
     if not ok:
-        raise AssertionError("%s disagrees with its plain version (%s)"
-                             % (kernel, label))
+        if failed is None:
+            raise AssertionError("%s disagrees with its plain version (%s)"
+                                 % (kernel, label))
+        failed.append("%s (%s)" % (kernel, label))
     lib_ms = None if library is None else cuda_ms(library, 5)
     rec = record(err, ms, plain_ms, nbytes(reads, got), ops, lib_ms)
     log("phase 3 bound: %-16s %-36s %.3f ms by %s, kernel %.3f ms, "
@@ -746,7 +879,7 @@ def phase_compare_ref(dev):
             return dft_case(records, kernel, "%s %s" % (shape, label), fn,
                             reads, ops, library)
         pr, pi = case("density", "zy_fwd_full",
-                      lambda impl: ref._zy_fwd_full_call(x, wz, wy, impl),
+                      lambda impl: ref._zy_fwd_full_call(x, wz, wy, impl=impl),
                       (x, wz, wy), ops_zy,
                       lambda: torch.fft.fftn(x, dim=(1, 2)))
         if shape == (N,) * 3:
@@ -767,15 +900,15 @@ def phase_compare_ref(dev):
         del r, i
         zc = torch.complex(gr, gi)
         case("fx tables", "zy_inv_full",
-             lambda impl: ref._zy_inv_full_call(gr, gi, wyi, AB, impl),
+             lambda impl: ref._zy_inv_full_call(gr, gi, wyi, AB, impl=impl),
              (gr, gi, wyi, AB), ops_zy,
              lambda: torch.fft.ifftn(zc, dim=(1, 2), norm='forward').real)
         del zc
         case("fy tables", "zy_inv_full",
-             lambda impl: ref._zy_inv_full_call(sr, si, wy_g, AB, impl),
+             lambda impl: ref._zy_inv_full_call(sr, si, wy_g, AB, impl=impl),
              (sr, si, wy_g, AB), ops_zy)
         case("fz tables (z-folded rows)", "zy_inv_full",
-             lambda impl: ref._zy_inv_full_call(sr, si, wyi, AB_g, impl),
+             lambda impl: ref._zy_inv_full_call(sr, si, wyi, AB_g, impl=impl),
              (sr, si, wyi, AB_g), ops_zy)
         del sr, si, gr, gi
         torch.cuda.empty_cache()
@@ -799,7 +932,7 @@ def phase_compare_ref(dev):
             return dft_case(records, kernel, "%s %s" % (shape, label), fn,
                             reads, ops, library)
         pr, pi = case("density", "zy_fwd_half_ct",
-                      lambda impl: ref._zy_fwd_half_ct_call(x, wz, wy, impl),
+                      lambda impl: ref._zy_fwd_half_ct_call(x, wz, wy, impl=impl),
                       (x, wz, wy), ops_zy,
                       lambda: torch.fft.rfftn(x, dim=(1, 2)))
         del x
@@ -818,20 +951,303 @@ def phase_compare_ref(dev):
         del r, i
         case("fx tables", "zy_inv_half_ct",
              lambda impl: ref._zy_inv_half_ct_call(gr, gi, wyi, AB_p, n2,
-                                                   impl),
+                                                   impl=impl),
              (gr, gi, wyi, AB_p), ops_zy, library_inverse(gr, gi, n2))
         case("fy tables", "zy_inv_half_ct",
              lambda impl: ref._zy_inv_half_ct_call(sr, si, wy_g, AB_p, n2,
-                                                   impl),
+                                                   impl=impl),
              (sr, si, wy_g, AB_p), ops_zy)
         case("fz tables", "zy_inv_half_ct",
              lambda impl: ref._zy_inv_half_ct_call(sr, si, wyi, AB_g, n2,
-                                                   impl),
+                                                   impl=impl),
              (sr, si, wyi, AB_g), ops_zy)
         del sr, si, gr, gi
         torch.cuda.empty_cache()
     del rho
     torch.cuda.empty_cache()
+    return records
+
+
+def phase_compare_bf16(dev):
+    """each bf16 form of each DFT kernel against its plain version, on
+    the f32 rows' shapes: the ct2 passes in both forms on a lattice
+    paint's N^3 density (the records) and on the MXU_SLAB (the z-CT
+    forward and inverse), the dense passes at NC^3 and DENSE_RAGGED, the
+    row-13 passes at N^3 and REF_SMALL (full spectrum) and CT_RAGGED
+    (half CT); every case runs, then any failure raises.  Returns
+    {kernel: record}"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    from pmesh_tpu_torch.ops import fft_mxu_ref as ref
+    from pmesh_tpu_torch.ops import gridpm as gp
+    records, failed = {}, []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    bf16 = torch.bfloat16
+
+    def prec(b):
+        return dict(precision='bf16') if b else {}
+
+    def case(label, kernel, call, reads, ops, library=None, storage=False,
+             twin=True):
+        """call(impl, b): the bf16 form (b) or its f32 twin on the same
+        values; the zy inverses of the storage form write f32 meshes and
+        need no twin"""
+        # a zy pass rounds its intermediate (the z or y output) again as
+        # the next product's operand: a chain of two products
+        chained = kernel.startswith("zy")
+        check = (bf16_storage_check if storage else
+                 (lambda *a: bf16_products_check(
+                     *a, tol=TOL_CHAIN if chained else TOL_BF16)),
+                 (lambda impl: call(impl, False)) if twin else None)
+        return dft_case(records, kernel, label,
+                        lambda impl: call(impl, True), reads, ops, library,
+                        check, failed)
+
+    def density(shape):
+        disp = tuple(BOUNDS[0] + (BOUNDS[1] - BOUNDS[0])
+                     * torch.rand(shape, generator=gen, device=dev)
+                     for _ in range(3))
+        return gp.paint_grid(disp, bounds=BOUNDS)
+
+    def noise(shape):
+        return 1.0 + 0.3 * torch.randn(shape, generator=gen, device=dev)
+
+    def up(t):
+        return t.float()
+
+    # the ct2 passes at N^3: bf16 products on f32 spectra, then f32
+    # products on bf16 spectra (the zy inverses read bf16, write f32)
+    rho = density((N,) * 3)
+    pm = ParticleMesh([N] * 3, BoxSize=BOX, dtype='f4', device=dev)
+    _, pk2, kd, _ = Solver(pm)._mxu_setup()
+    Zm = N // 2
+    wz = fm._cached(fm._z_fwd_tabs, N, Zm)
+    wf, wi = (fm._cached(fm._ct_fwd_mats_np, N),
+              fm._cached(fm._ct_inv_mats_np, N))
+    wx_g = fm._cached(fm._ct_inv_mats_np, N, kd[0])
+    wy_g = fm._cached(fm._ct_inv_mats_np, N, kd[1])
+    AB_p = fm._cached(fm._z_inv_tabs, N, Zm)
+    AB_g = fm._cached(fm._z_inv_tabs, N, Zm, kd[2])
+    _, k2m = fm._cached(fm._poisson_tables, pk2, N, N, Zm)
+    inv = dict(inverse=True, wx2=wx_g, k2=k2m)
+    for form in ("_bf16", "_bf16s"):
+        st = form == "_bf16s"
+
+        def spec(impl, b, f, re, im, *a, **kw):
+            """pass f on the spectrum (re, im): the form under test (b)
+            or its f32 twin (the same values upcast, for the storage
+            form)"""
+            if not st:
+                return f(re, im, *a, impl=impl, **prec(b), **kw)
+            if b:
+                return f(re, im, *a, impl=impl, out_dtype=bf16, **kw)
+            return f(up(re), up(im), *a, impl=impl, **kw)
+        pr, pi, nq = case("%d^3 density" % N, "zy_fwd_ct2" + form,
+                          lambda impl, b: fm._zy_fwd_ct2_call(
+                              rho, N, Zm, wz, wf, impl=impl,
+                              **(dict(out_dtype=bf16 if b else None)
+                                 if st else prec(b))),
+                          (rho, wz, wf), zy_ops(N, N, N),
+                          lambda: torch.fft.rfftn(rho, dim=(1, 2)), st)
+        zc = torch.complex(up(pr), up(pi))
+        r, i = case("forward x 1/N^3", "xct_multi" + form,
+                    lambda impl, b: spec(impl, b, fm._xct_call_multi, pr, pi,
+                                         wf, 1.0 / N ** 3),
+                    (pr, pi, wf), fft_ops(N, N * Zm),
+                    lambda: torch.fft.fft(zc, dim=0), st)
+        del pr, pi, zc
+        sr, si, gr, gi = case("inverse dual (kx-folded), 1/k^2",
+                              "xct_multi" + form,
+                              lambda impl, b: spec(impl, b,
+                                                   fm._xct_call_multi, r, i,
+                                                   wi, 1.0, **inv),
+                              (r, i, wi, wx_g, k2m), 2 * fft_ops(N, N * Zm),
+                              None, st)
+        del r, i
+        plane = nq / N ** 3
+        case("fx: plane", "zy_inv_ct2" + form,
+             lambda impl, b: fm._zy_inv_ct2_call(
+                 gr, gi, wi, AB_p, N, plane=plane, impl=impl,
+                 **prec(b and not st)),
+             (gr, gi, wi, AB_p, plane), zy_ops(N, N, N),
+             library_inverse(up(gr), up(gi), N), st, not st)
+        case("(fy, fz), plane on A", "zy_inv_ct2_dual" + form,
+             lambda impl, b: fm._zy_inv_ct2_call_dual(
+                 sr, si, wy_g, AB_p, wi, AB_g, N, planeA=plane, impl=impl,
+                 **prec(b and not st)),
+             (sr, si, wy_g, AB_p, wi, AB_g, plane), 2 * zy_ops(N, N, N),
+             library_inverse(up(sr), up(si), N, copies=2), st, not st)
+        del sr, si, gr, gi, nq, plane
+        torch.cuda.empty_cache()
+    del rho
+
+    # the slab: the z-CT forward and inverse at z = 1024, both forms
+    _, N1, n2 = MXU_SLAB
+    Zs = n2 // 2
+    x = noise(MXU_SLAB)
+    AB_s = fm._cached(fm._z_inv_tabs, n2, Zs)
+    wys, wyis = (fm._cached(fm._ct_fwd_mats_np, N1),
+                 fm._cached(fm._ct_inv_mats_np, N1))
+    wzs = fm._cached(fm._z_fwd_tabs, n2, Zs)
+    for form in ("_bf16", "_bf16s"):
+        st = form == "_bf16s"
+        pr, pi, nq = case("slab %s" % (MXU_SLAB,), "zy_fwd_ct2" + form,
+                          lambda impl, b: fm._zy_fwd_ct2_call(
+                              x, n2, Zs, wzs, wys, impl=impl,
+                              **(dict(out_dtype=bf16 if b else None)
+                                 if st else prec(b))),
+                          (x, wzs, wys), zy_ops(*MXU_SLAB), None, st)
+        case("slab, z-CT inverse, plane", "zy_inv_ct2" + form,
+             lambda impl, b: fm._zy_inv_ct2_call(
+                 pr, pi, wyis, AB_s, n2, plane=nq, impl=impl,
+                 **prec(b and not st)),
+             (pr, pi, wyis, AB_s, nq), zy_ops(*MXU_SLAB), None, st, not st)
+        del pr, pi, nq
+    del x
+    torch.cuda.empty_cache()
+
+    # the dense passes, bf16 products
+    for shape in ((NC,) * 3, DENSE_RAGGED):
+        N0, N1, n2 = shape
+        Zh = n2 // 2 + 1
+        x = density(shape) if shape == (NC,) * 3 else noise(shape)
+        dpm = ParticleMesh(list(shape), BoxSize=np.asarray(shape, float),
+                           dtype='f4', device=dev)
+        _, dk2, dkd, _ = Solver(dpm)._mxu_setup()
+        dkd = fm._tuples(dkd)
+        wz = fm._cached(fm._dft_half_np, n2, Zh)
+        wyf, wxf = (fm._cached(fm._dft_np, N1, -1),
+                    fm._cached(fm._dft_np, N0, -1))
+        wy, wx = fm._cached(fm._dft_np, N1, +1), fm._cached(fm._dft_np, N0, +1)
+        wxg = fm._cached(fm._dft_fold_np, N0, dkd[0])
+        AB_p = fm._cached(fm._irfft_mats_np, n2, Zh)
+        AB_g = fm._cached(fm._irfft_mats_np, n2, Zh, dkd[2])
+        k2 = fm._cached(fm._dense_k2_tables, fm._tuples(dk2), N0, N1, Zh)
+        ops_x, ops_zy = fft_ops(N0, N1 * Zh), zy_ops(N0, N1, n2)
+        pr, pi = case("%s density" % (shape,), "zy_fwd_half_bf16",
+                      lambda impl, b: fm._zy_fwd_dense_call(
+                          x, wz, wyf, impl=impl, **prec(b)),
+                      (x, wz, wyf), ops_zy,
+                      lambda: torch.fft.rfftn(x, dim=(1, 2)))
+        del x
+        zc = torch.complex(pr, pi)
+        r, i = case("%s forward x 1/N^3" % (shape,), "x_dense_bf16",
+                    lambda impl, b: fm._x_dense_call(
+                        pr, pi, wxf, 1.0 / (N0 * N1 * n2), impl=impl,
+                        **prec(b)),
+                    (pr, pi, wxf), ops_x, lambda: torch.fft.fft(zc, dim=0))
+        del pr, pi, zc
+        sr, si, gr, gi = case("%s inverse dual, 1/k^2" % (shape,),
+                              "x_dense_bf16",
+                              lambda impl, b: fm._x_dense_call(
+                                  r, i, wx, 1.0, wx2=wxg, k2=k2, impl=impl,
+                                  **prec(b)),
+                              (r, i, wx, wxg, k2), 2 * ops_x)
+        del r, i
+        case("%s fx tables" % (shape,), "zy_inv_half_bf16",
+             lambda impl, b: fm._zy_inv_dense_call(gr, gi, wy, AB_p,
+                                                   impl=impl, **prec(b)),
+             (gr, gi, wy, AB_p), ops_zy, library_inverse(gr, gi, n2))
+        case("%s fz tables" % (shape,), "zy_inv_half_bf16",
+             lambda impl, b: fm._zy_inv_dense_call(sr, si, wy, AB_g,
+                                                   impl=impl, **prec(b)),
+             (sr, si, wy, AB_g), ops_zy)
+        del sr, si, gr, gi
+        torch.cuda.empty_cache()
+
+    # row 13, bf16 products: full spectrum, then the first-CT half
+    for shape in ((N,) * 3, REF_SMALL):
+        N0, N1, n2 = shape
+        x = density(shape) if shape == (N,) * 3 else noise(shape)
+        kv = tuple(super_lanczos(n) for n in shape)
+        wz, wy, wx = (fm._cached(fm._dft_np, n, -1) for n in (n2, N1, N0))
+        wyi, wxi = (fm._cached(fm._dft_np, n, +1) for n in (N1, N0))
+        wxg = fm._cached(fm._dft_fold_np, N0, kv[0])
+        AB = fm._cached(ref._z_inv_full_np, n2, None)
+        AB_g = fm._cached(ref._z_inv_full_np, n2, kv[2])
+        ops_zy, ops_x = zy_full_ops(N0, N1, n2), fft_ops(N0, N1 * n2)
+        pr, pi = case("%s density" % (shape,), "zy_fwd_full_bf16",
+                      lambda impl, b: ref._zy_fwd_full_call(
+                          x, wz, wy, impl=impl, **prec(b)),
+                      (x, wz, wy), ops_zy,
+                      lambda: torch.fft.fftn(x, dim=(1, 2)))
+        del x
+        zc = torch.complex(pr, pi)
+        r, i = case("%s forward x 1/N^3" % (shape,),
+                    "x_dense_bf16 (full spectrum)",
+                    lambda impl, b: fm._x_dense_call(
+                        pr, pi, wx, 1.0 / (N0 * N1 * n2), impl=impl,
+                        **prec(b)),
+                    (pr, pi, wx), ops_x, lambda: torch.fft.fft(zc, dim=0))
+        del pr, pi, zc
+        sr, si, gr, gi = case("%s inverse dual (kx-folded)" % (shape,),
+                              "x_dense_bf16 (full spectrum)",
+                              lambda impl, b: fm._x_dense_call(
+                                  r, i, wxi, 1.0, wx2=wxg, impl=impl,
+                                  **prec(b)),
+                              (r, i, wxi, wxg), 2 * ops_x)
+        del r, i
+        zc = torch.complex(gr, gi)
+        case("%s fx tables" % (shape,), "zy_inv_full_bf16",
+             lambda impl, b: ref._zy_inv_full_call(gr, gi, wyi, AB,
+                                                   impl=impl, **prec(b)),
+             (gr, gi, wyi, AB), ops_zy,
+             lambda: torch.fft.ifftn(zc, dim=(1, 2), norm='forward').real)
+        del zc
+        case("%s fz tables (z-folded rows)" % (shape,), "zy_inv_full_bf16",
+             lambda impl, b: ref._zy_inv_full_call(sr, si, wyi, AB_g,
+                                                   impl=impl, **prec(b)),
+             (sr, si, wyi, AB_g), ops_zy)
+        del sr, si, gr, gi
+        torch.cuda.empty_cache()
+    for shape in ((N,) * 3, CT_RAGGED):
+        N0, N1, n2 = shape
+        Zh = n2 // 2 + 1
+        x = density(shape) if shape == (N,) * 3 else noise(shape)
+        kd3 = (super_lanczos(N0), super_lanczos(N1),
+               super_lanczos(n2, half=True))
+        wz = fm._cached(fm._dft_half_np, n2, Zh)
+        wy, wx = (fm._cached(fm._ct_fwd_mats_np, n) for n in (N1, N0))
+        wyi, wxi = (fm._cached(fm._ct_inv_mats_np, n) for n in (N1, N0))
+        wxg = fm._cached(fm._ct_inv_mats_np, N0, kd3[0])
+        AB_p = fm._cached(fm._irfft_mats_np, n2, Zh)
+        AB_g = fm._cached(fm._irfft_mats_np, n2, Zh, kd3[2])
+        ops_zy, ops_x = zy_ops(N0, N1, n2), fft_ops(N0, N1 * Zh)
+        pr, pi = case("%s density" % (shape,), "zy_fwd_half_ct_bf16",
+                      lambda impl, b: ref._zy_fwd_half_ct_call(
+                          x, wz, wy, impl=impl, **prec(b)),
+                      (x, wz, wy), ops_zy,
+                      lambda: torch.fft.rfftn(x, dim=(1, 2)))
+        del x
+        zc = torch.complex(pr, pi)
+        r, i = case("%s forward x 1/N^3" % (shape,),
+                    "xct_multi_bf16 (half CT)",
+                    lambda impl, b: fm._xct_call_multi(
+                        pr, pi, wx, 1.0 / (N0 * N1 * n2), impl=impl,
+                        **prec(b)),
+                    (pr, pi, wx), ops_x, lambda: torch.fft.fft(zc, dim=0))
+        del pr, pi, zc
+        sr, si, gr, gi = case("%s inverse dual (kx-folded)" % (shape,),
+                              "xct_multi_bf16 (half CT)",
+                              lambda impl, b: fm._xct_call_multi(
+                                  r, i, wxi, 1.0, inverse=True, wx2=wxg,
+                                  impl=impl, **prec(b)),
+                              (r, i, wxi, wxg), 2 * ops_x)
+        del r, i
+        case("%s fx tables" % (shape,), "zy_inv_half_ct_bf16",
+             lambda impl, b: ref._zy_inv_half_ct_call(
+                 gr, gi, wyi, AB_p, n2, impl=impl, **prec(b)),
+             (gr, gi, wyi, AB_p), ops_zy, library_inverse(gr, gi, n2))
+        case("%s fz tables" % (shape,), "zy_inv_half_ct_bf16",
+             lambda impl, b: ref._zy_inv_half_ct_call(
+                 sr, si, wyi, AB_g, n2, impl=impl, **prec(b)),
+             (sr, si, wyi, AB_g), ops_zy)
+        del sr, si, gr, gi
+        torch.cuda.empty_cache()
+    if failed:
+        DEFERRED.append("bf16 forms disagree with their plain versions: "
+                        + "; ".join(failed))
     return records
 
 
@@ -946,7 +1362,7 @@ def phase_main_mxu(dev, xla):
     if any(launches[k] < need[k] for k in need) \
             or lattice["paint_lattice"] < nsteps + 1:
         raise AssertionError("the DFT kernels did not carry the mxu path")
-    del S, V, xla['S'], xla['V']
+    del xla['S'], xla['V']
 
     def run(nst):
         return lambda: run_path(pm, dlinear, STEPS[:nst + 1], fft='mxu')
@@ -962,10 +1378,126 @@ def phase_main_mxu(dev, xla):
         "%.3f ms (xla %.3f), gradient %.3f ms (xla %.3f)"
         % (step_ms, xla['step_ms'], nsteps, t6, t1, f_spec, xla['f_spec'],
            f_grad, xla['f_grad']))
+    # the bf16 runs are held against this one
+    ref = dict(pm=pm, dlinear=dlinear, S=S, V=V, step_ms=step_ms,
+               F=solver.force_lattice(disp, BOUNDS, fft='mxu'))
     del solver, disp, vel
     xla.clear()
     torch.cuda.empty_cache()
-    return launches
+    return launches, ref
+
+
+def rel_rms(got, ref):
+    """rms|got - ref| / rms|ref| of each component"""
+    return [float((((g - r).double() ** 2).mean()
+                   / (r.double() ** 2).mean()) ** 0.5)
+            for g, r in zip(got, ref)]
+
+
+def phase_main_bf16(dev, ref):
+    """the phase-4 run (lpt_lattice and 5 KDK steps at N^3) with
+    fft='mxu_bf16' and fft='mxu_bf16s', counters read around each run:
+    the bf16 forms carried it and no f32 form of a DFT kernel launched;
+    finite, a paint conserves mass; one KDK step timed.  Against
+    fft='mxu', the force on the LPT state and the final state are
+    printed: the reference algorithm rounds the mean density with the
+    rest of the spectrum, and that rounding is most of the gap.  Held:
+    the same DFT forms on the overdensity (rho - mean) against f32 to
+    the sanity bound TOL_BF16_SANITY, and the kernels' force meshes of
+    the LPT density against the plain versions' on the card to
+    chain_gap.  Returns {fft: launches}."""
+    from pmesh_tpu_torch.models.fastpm import _MXU
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    from pmesh_tpu_torch.ops import gridpm as gp
+    from pmesh_tpu_torch.ops import fft_mxu_cuda, gridpm_cuda
+    pm, dlinear = ref['pm'], ref['dlinear']
+    nsteps = len(STEPS) - 1
+    out = {}
+    for fft, form in (('mxu_bf16', '_bf16'), ('mxu_bf16s', '_bf16s')):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gridpm_cuda.reset_launches()
+        fft_mxu_cuda.reset_launches()
+        solver, disp, vel, S, V = run_path(pm, dlinear, STEPS, fft=fft)
+        torch.cuda.synchronize()
+        launches = dict(fft_mxu_cuda.LAUNCHES)
+        lattice = dict(gridpm_cuda.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        need = {k + form: (nsteps + 1) * sp
+                for k, (sp, _) in MXU_PER_FORCE.items()}
+        others = {k: v for k, v in launches.items() if v and k not in need}
+        finite = all(bool(torch.isfinite(x).all()) for x in S + V)
+        rho = gp.paint_grid(S, bounds=BOUNDS)
+        mass_err = abs(float(rho.double().sum()) - N ** 3) / N ** 3
+        dS, dV = rel_rms(S, ref['S']), rel_rms(V, ref['V'])
+        del rho, S, V
+        F = solver.force_lattice(disp, BOUNDS, fft=fft)
+        finite = finite and all(bool(torch.isfinite(f).all()) for f in F)
+        dF = rel_rms(F, ref['F'])
+        del F
+        # the DFT forms alone, on the LPT density: kernels against the
+        # plain versions on the card, and on the overdensity against f32
+        shape, pk2, kd, _ = solver._mxu_setup()
+        prec, sdt = _MXU[fft]
+        rho = gp.paint_grid(disp, bounds=BOUNDS)
+        got = solver._mxu_force_raw(rho, _MXU[fft])
+        f32 = solver._mxu_force_raw(rho)
+        plain = fm.fft3_real_inverse_grad3_half_ct2(
+            *fm.fft3_real_forward_half_ct2(rho, precision=prec,
+                                           spectrum_dtype=sdt, impl='torch'),
+            n2=N, kvecs=kd, precision=prec, poisson_k2=pk2, impl='torch')
+        chain_ok, chain_line = chain_gap(
+            [t.cpu().numpy() for t in got], [t.cpu().numpy() for t in plain],
+            [t.cpu().numpy() for t in f32], TOL_FORCE_RMS)
+        del got, f32, plain
+        delta = rho - rho.mean()
+        del rho
+        dD = rel_rms(solver._mxu_force_raw(delta, _MXU[fft]),
+                     solver._mxu_force_raw(delta))
+        del delta
+        sane = all(np.isfinite(e) and e < TOL_BF16_SANITY for e in dD)
+        log("phase 4 main path, fft=%r: %d KDK steps, finite %s, mass error "
+            "%.3e (tol %.0e), launches %s (need %s, others %s), lattice %s, "
+            "peak %.2f GB; against fft='mxu' rms|d|/rms (x, y, z): force on "
+            "the LPT state %s, final S %s, final V %s"
+            % (fft, nsteps, finite, mass_err, TOL_MASS,
+               json.dumps({k: launches[k] for k in need}), json.dumps(need),
+               json.dumps(others), json.dumps(lattice), peak_gb,
+               fmt3(dF), fmt3(dS), fmt3(dV)))
+        log("phase 4 %s force meshes of the LPT density: kernels vs plain "
+            "versions on the card %s; on the overdensity rho - mean against "
+            "f32 rms|d|/rms %s (sanity bound %.0e)"
+            % (fft, chain_line, fmt3(dD), TOL_BF16_SANITY))
+        if not (finite and mass_err <= TOL_MASS and sane):
+            raise AssertionError("the fft=%r run is not finite, loses mass "
+                                 "or its DFT forms are wrong" % fft)
+        if not chain_ok:
+            DEFERRED.append("the fft=%r force meshes disagree with the "
+                            "plain versions'" % fft)
+        if any(launches[k] != need[k] for k in need) or others:
+            raise AssertionError("the %s kernels did not carry the fft=%r "
+                                 "run alone" % (form, fft))
+
+        def run(nst):
+            return lambda: run_path(pm, dlinear, STEPS[:nst + 1], fft=fft)
+        t1 = cuda_ms(run(1), 1)
+        t6 = cuda_ms(run(nsteps), 1)
+        f_spec = cuda_ms(lambda: solver.force_lattice(disp, BOUNDS, fft=fft),
+                         3)
+        log("phase 4 timing, fft=%r: %.3f ms per KDK step (fft='mxu' %.3f; "
+            "%d-step run %.3f ms, 1-step run %.3f ms), force_lattice "
+            "spectral %.3f ms" % (fft, (t6 - t1) / (nsteps - 1),
+                                  ref['step_ms'], nsteps, t6, t1, f_spec))
+        out[fft] = launches
+        del solver, disp, vel
+        torch.cuda.empty_cache()
+    ref.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fmt3(errs):
+    return "(%s)" % ", ".join("%.3e" % e for e in errs)
 
 
 def phase_row13(dev, pm, dlinear):
@@ -1056,9 +1588,56 @@ def phase_row13(dev, pm, dlinear):
         " %.3f ms, fft3_real_forward_half_ct %.3f ms, "
         "fft3_real_inverse_grad3_half_ct %.3f ms (%d^3)"
         % (t_fwd, t_tri, t_hfwd, t_htri, N))
-    del r, i, fr, fi, hr, hi, rho, full_k2, disp, solver
+
+    # the same path with precision='bf16', counted apart, against the
+    # f32 results to the sanity bound
+    f32 = (ref.fft3_real_inverse_grad3(fr, fi, kvecs=kvecs),
+           ref.fft3_real_inverse_grad3_half_ct(hr, hi, N, kd), rho)
+    del r, i, hr, hi
+    bf = dict(precision='bf16')
+    torch.cuda.synchronize()
+    fft_mxu_cuda.reset_launches()
+    r, i = ref.fft3_real_forward(rho, **bf)
+    f = ref.fft3_real_inverse_grad3(r * full_k2, i * full_k2, kvecs=kvecs,
+                                    **bf)
+    fh = ref.fft3_real_inverse_grad3_half_ct(
+        *ref.fft3_real_forward_half_ct(rho, **bf), N, kd, **bf)
+    back = ref.fft3_real_inverse(*ref.fft3_real_forward(rho, **bf), **bf)
+    torch.cuda.synchronize()
+    bf_launches = dict(fft_mxu_cuda.LAUNCHES)
+    counted = {k + "_bf16": bf_launches[k + "_bf16"] for k in ROW13_PATH}
+    need = {k + "_bf16": v for k, v in ROW13_PATH.items()}
+    others = {k: v for k, v in bf_launches.items() if v and k not in need}
+    errs = (max(rel_rms(f, f32[0])), max(rel_rms(fh, f32[1])),
+            rel_rms((back,), (f32[2],))[0])
+    finite = all(bool(torch.isfinite(t).all()) for t in f + fh + (back,))
+    ok = finite and all(e < TOL_BF16_SANITY for e in errs)
+    log("phase 4c row-13 path, precision='bf16': against f32 rms|d|/rms = "
+        "%.3e (full-spectrum triple), %.3e (half-CT triple), %.3e (round "
+        "trip); finite %s; launches %s (need %s, others %s) %s"
+        % (errs + (finite, json.dumps(counted), json.dumps(need),
+                   json.dumps(others), "ok" if ok else "FAIL")))
+    if not ok:
+        raise AssertionError("the bf16 row-13 path is not finite or far "
+                             "from f32")
+    if counted != need or others:
+        raise AssertionError("the bf16 row-13 kernels did not carry the "
+                             "path alone")
+    del f, fh, back, f32, r, i
+    hr, hi = ref.fft3_real_forward_half_ct(rho, **bf)
+    t_fwd = cuda_ms(lambda: ref.fft3_real_forward(rho, **bf), 3)
+    t_tri = cuda_ms(lambda: ref.fft3_real_inverse_grad3(fr, fi, kvecs=kvecs,
+                                                        **bf), 3)
+    t_hfwd = cuda_ms(lambda: ref.fft3_real_forward_half_ct(rho, **bf), 3)
+    t_htri = cuda_ms(lambda: ref.fft3_real_inverse_grad3_half_ct(
+        hr, hi, N, kd, **bf), 3)
+    log("phase 4c timing, precision='bf16': fft3_real_forward %.3f ms, "
+        "fft3_real_inverse_grad3 %.3f ms, fft3_real_forward_half_ct %.3f "
+        "ms, fft3_real_inverse_grad3_half_ct %.3f ms (%d^3)"
+        % (t_fwd, t_tri, t_hfwd, t_htri, N))
+    del fr, fi, hr, hi, rho, full_k2, disp, solver
     torch.cuda.empty_cache()
-    return launches
+    return launches, bf_launches
 
 
 def grad_run(solver, state, steps, fft, backward=True):
@@ -1164,7 +1743,7 @@ def phase_small_grad(dev, shape, box, fft):
     """the gradient of a 2-step run on the card (kernels in the
     backward) against the CPU's (plain versions); up to GRAD_OUTLIERS of
     the entries may differ, as CIC's derivative jumps at cell
-    boundaries"""
+    boundaries; a bf16 mode to TOL_CHAIN of max|g| (its flips)"""
     from pmesh_tpu_torch import ParticleMesh, RealField
     from pmesh_tpu_torch.models.fastpm import Solver
     noise = np.random.RandomState(SEED + 1).normal(size=shape).astype('f4')
@@ -1180,22 +1759,51 @@ def phase_small_grad(dev, shape, box, fft):
         state = sum(solver.lpt_lattice(dk, A0, order=2), ())
         out[str(device)] = [x.cpu() for x in grad_run(solver, state,
                                                       STEPS[:3], fft)]
-    ok, line = grad_gap(out[str(dev)], out['cpu'], TOL_SMALL, GRAD_OUTLIERS)
+    bf16 = fft.startswith('mxu_bf16')
+    ok, line = grad_gap(out[str(dev)], out['cpu'],
+                        TOL_CHAIN if bf16 else TOL_SMALL, GRAD_OUTLIERS)
     log("phase 7 small gradient: %s fft=%r 2 KDK steps, card vs CPU: %s"
         % (shape, fft, line))
-    if not ok:
+    if not ok and bf16:
+        DEFERRED.append("the card and the CPU gradients disagree at %s, "
+                        "fft=%r" % (shape, fft))
+    elif not ok:
         raise AssertionError("the card and the CPU gradients disagree at "
                              "%s, fft=%r" % (shape, fft))
 
 
+def chain_gap(got, ref, ref32, rms_tol=None):
+    """the criterion of a chain of bf16 passes, over numpy arrays: (ok,
+    line) with max|got - ref| <= TOL_CHAIN max|ref| and, with
+    ``rms_tol``, per array rms|got - ref| <= rms_tol rms|ref - ref32|
+    (ref32: the same run in f32, so the denominator is the bf16
+    rounding; printed in any case)"""
+    scale = max(float(np.abs(r).max()) for r in ref)
+    gap = max(float(np.abs(g - r).max()) for g, r in zip(got, ref)) / scale
+    rms = max(float(np.sqrt(((g - r) ** 2).mean() / ((r - f) ** 2).mean()))
+              for g, r, f in zip(got, ref, ref32))
+    ok = bool(np.isfinite(gap) and gap <= TOL_CHAIN
+              and (rms_tol is None or rms <= rms_tol))
+    return ok, ("max|d|/max = %.3e (tol %.0e), rms|d| / rms|bf16 - f32| = "
+                "%.3f (tol %s) %s" % (gap, TOL_CHAIN, rms,
+                                      "none" if rms_tol is None
+                                      else "%.2f" % rms_tol,
+                                      "ok" if ok else "FAIL"))
+
+
 def phase_small(dev, shape=(32,) * 3, box=64.0, fft='xla'):
     """a small lattice run on the card (kernels; cuFFT or the DFT
-    kernels) against the same run on the CPU (plain versions)."""
+    kernels) against the same run on the CPU (plain versions); a bf16
+    mode is held to chain_gap, with the CPU's fft='mxu' run as the f32
+    reference."""
     from pmesh_tpu_torch import ParticleMesh, RealField
     from pmesh_tpu_torch.models.fastpm import Solver
     noise = np.random.RandomState(SEED).normal(size=shape).astype('f4')
     out = {}
-    for device in ('cpu', dev):
+    runs = [('cpu', fft), (dev, fft)]
+    if fft.startswith('mxu_bf16'):
+        runs.append(('cpu', 'mxu'))
+    for device, f in runs:
         pm = ParticleMesh(list(shape), BoxSize=box, dtype='f4',
                           resampler='cic', device=device)
         dk = pm.create(type=RealField,
@@ -1204,9 +1812,20 @@ def phase_small(dev, shape=(32,) * 3, box=64.0, fft='xla'):
             k.normp(2) > 0, k.normp(2, zeromode=1.0) ** -0.25, 0.0))
         solver = Solver(pm)
         disp, vel = solver.lpt_lattice(dk, A0, order=2)
-        S, V = solver.nbody_lattice(disp, vel, STEPS[:4], BOUNDS, fft=fft)
-        out[str(device)] = [x.cpu().numpy() for x in S + V]
+        S, V = solver.nbody_lattice(disp, vel, STEPS[:4], BOUNDS, fft=f)
+        out[str(device) if f == fft else f] = [x.cpu().numpy()
+                                               for x in S + V]
     ref, got = out['cpu'], out[str(dev)]
+    if fft.startswith('mxu_bf16'):
+        ok, line = chain_gap(got, ref, out['mxu'])
+        smax = max(np.abs(s).max() for s in ref[:3])
+        ok = ok and 0.01 < smax < BOUNDS[1]
+        log("phase 7 small input: %s lattice fft=%r 3 KDK steps, card vs "
+            "CPU (S, V): %s, max|S| %.4f" % (shape, fft, line, smax))
+        if not ok:
+            DEFERRED.append("the card and the CPU disagree at %s, fft=%r"
+                            % (shape, fft))
+        return
     smax = max(np.abs(s).max() for s in ref[:3])
     err = max(np.abs(a - b).max() for a, b in zip(ref[:3], got[:3])) / smax
     vmax = max(np.abs(v).max() for v in ref[3:])
@@ -1515,6 +2134,7 @@ def phase_clustered_timed(state):
     KDK steps of two forces each, then the rebase with velocities) at
     the grown K with each FFT, the peak memory, and one superstep per
     FFT under the profiler"""
+    from pmesh_tpu_torch.ops import fft_mxu_cuda
     solver = state.pop('solver')
     dslots, vslots, valid = (state.pop(k) for k in ('dslots', 'vslots',
                                                     'valid'))
@@ -1528,13 +2148,49 @@ def phase_clustered_timed(state):
         for a, b in zip(fm_k, fx_k):
             err = max(err, float((a - b)[m].abs().max()))
             scale = max(scale, float(b[m].abs().max()))
-    del Fm, Fx
+    del Fx
     rel = err / scale
     log("phase 5 clustered force: K=%d force_binned fft='mxu' against "
         "fft='xla' max|dF|/max|F| = %.3e (tol %.0e) %s"
         % (K, rel, TOL_SMALL, "ok" if rel <= TOL_SMALL else "FAIL"))
     if not rel <= TOL_SMALL:
         raise AssertionError("the clustered mxu and xla forces disagree")
+
+    # one force with bf16 products: the dense kernels' bf16 form alone
+    torch.cuda.synchronize()
+    fft_mxu_cuda.reset_launches()
+    Fb = solver.force_binned(dslots, valid, bounds, fft='mxu_bf16')
+    torch.cuda.synchronize()
+    bf_launches = dict(fft_mxu_cuda.LAUNCHES)
+    need = {k + "_bf16": c for k, c in DENSE_PER_FORCE.items()}
+    others = {k: v for k, v in bf_launches.items() if v and k not in need}
+    num = den = 0.0
+    finite = True
+    for fb_k, fm_k, v in zip(Fb, Fm, valid):
+        m = v > 0
+        for a, b in zip(fb_k, fm_k):
+            finite = finite and bool(torch.isfinite(a[m]).all())
+            num += float(((a - b)[m].double() ** 2).sum())
+            den += float((b[m].double() ** 2).sum())
+    del Fm, Fb
+    rel = (num / den) ** 0.5
+    t_bf = cuda_ms(lambda: solver.force_binned(dslots, valid, bounds,
+                                               fft='mxu_bf16'), 3)
+    t_mxu = cuda_ms(lambda: solver.force_binned(dslots, valid, bounds,
+                                                fft='mxu'), 3)
+    ok = finite and rel < TOL_BF16_SANITY
+    log("phase 5 clustered force, fft='mxu_bf16': K=%d against fft='mxu' "
+        "rms|dF|/rms|F| = %.3e (sanity bound %.0e), finite %s, launches %s "
+        "(need %s, others %s) %s; force_binned %.3f ms (mxu %.3f)"
+        % (K, rel, TOL_BF16_SANITY, finite,
+           json.dumps({k: bf_launches[k] for k in need}), json.dumps(need),
+           json.dumps(others), "ok" if ok else "FAIL", t_bf, t_mxu))
+    if not ok:
+        raise AssertionError("the clustered bf16 force is not finite or "
+                             "far from fft='mxu'")
+    if any(bf_launches[k] != need[k] for k in need) or others:
+        raise AssertionError("the dense bf16 kernels did not carry the "
+                             "clustered force")
 
     # every superstep starts from the grown state: the flow keeps
     # compressing, and a chain of supersteps at a fixed K overflows
@@ -1567,6 +2223,7 @@ def phase_clustered_timed(state):
         profile_superstep(solver, dslots, vslots, valid, fft)
     del dslots, vslots, valid
     torch.cuda.empty_cache()
+    return bf_launches
 
 
 def phase_binned_timed(dev, n=N):
@@ -1675,14 +2332,16 @@ def main():
     records.update(phase_compare_fft(dev))
     records.update(phase_compare_dense(dev))
     records.update(phase_compare_ref(dev))
+    records.update(phase_compare_bf16(dev))
     launches, xla = phase_main(dev)
     pm, dlinear = xla['pm'], xla['dlinear']
-    mxu_launches = phase_main_mxu(dev, xla)
-    row13_launches = phase_row13(dev, pm, dlinear)
+    mxu_launches, mxu = phase_main_mxu(dev, xla)
+    bf16_launches = phase_main_bf16(dev, mxu)
+    row13_launches, row13_bf16_launches = phase_row13(dev, pm, dlinear)
     phase_grad(dev, pm, dlinear)
     del pm, dlinear
     binned_launches, clustered = phase_binned_clustered(dev)
-    phase_clustered_timed(clustered)
+    dense_bf16_launches = phase_clustered_timed(clustered)
     phase_binned_timed(dev)
     phase_small(dev)
     phase_small(dev, MXU_SMALL, np.asarray(MXU_SMALL, float), 'mxu')
@@ -1690,15 +2349,29 @@ def main():
     phase_small_binned(dev)
     phase_small_grad(dev, (32,) * 3, 64.0, 'xla')
     phase_small_grad(dev, MXU_SMALL, np.asarray(MXU_SMALL, float), 'mxu')
+    for shape, fft in ((MXU_SMALL, 'mxu_bf16'), (MXU_SMALL, 'mxu_bf16s'),
+                       (DENSE_SMALL, 'mxu_bf16')):
+        phase_small(dev, shape, np.asarray(shape, float), fft)
+    phase_small_grad(dev, MXU_SMALL, np.asarray(MXU_SMALL, float),
+                     'mxu_bf16')
     # each kernel's launches on its own path's main run: the lattice
     # kernels on the fft='xla' lattice run, the ct2 DFT kernels on the
     # fft='mxu' lattice run, the rebase and dense DFT kernels on the
-    # clustered binned run, the row-13 kernels on the row-13 path
+    # clustered binned run, the row-13 kernels on the row-13 path; their
+    # bf16 forms on the mxu_bf16 and mxu_bf16s lattice runs, the
+    # clustered bf16 force and the bf16 row-13 path
     runs = dict.fromkeys(("paint_lattice", "readout_lattice"), launches)
     runs.update(dict.fromkeys(MXU_PER_FORCE, mxu_launches))
     runs.update(dict.fromkeys(("rebase_assign", "rebase_apply")
                               + tuple(DENSE_PER_FORCE), binned_launches))
     runs.update(dict.fromkeys(ROW13, row13_launches))
+    runs.update((bf16_name(k), bf16_launches['mxu_bf16']) for k in CT2)
+    runs.update((bf16_name(k, "_bf16s"), bf16_launches['mxu_bf16s'])
+                for k in CT2)
+    runs.update((bf16_name(k), dense_bf16_launches) for k in DENSE)
+    runs.update((bf16_name(k), row13_bf16_launches) for k in ROW13)
+    if DEFERRED:
+        raise AssertionError("; ".join(DEFERRED))
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces,
                     launches=runs[name][name.split(" ")[0]],

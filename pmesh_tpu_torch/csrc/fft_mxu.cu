@@ -1,4 +1,4 @@
-// The DFT passes of fft='mxu' for Hopper (sm_90a): eight C entry
+// The DFT passes of fft='mxu' for Hopper (sm_90a): nine C entry
 // points, replacing the TPU kernels of pmesh_tpu/ops/fft_mxu.py and
 // pmesh_tpu/ops/fft_mxu_ref.py.
 //
@@ -41,10 +41,12 @@
 //
 //   pmesh_zy_fwd_half     at Zh = N2 with the full (N2, N2) DFT pair is
 //                         the full-spectrum pass 1 (kernel _zy_forward_real);
-//   pmesh_zy_inv_half     at Zh = n2 = N2 with A = Re Wz, B = -Im Wz is the
-//                         full-spectrum inverse (kernel _zy_inverse_to_real):
-//                         JAX runs z then y, this runs y then z, which is
-//                         the same real part;
+//   pmesh_zy_inv_full     replaces the full-spectrum inverse (kernel
+//                         _zy_inverse_to_real): the complex z DFT by the
+//                         (N2, N2) pair entered as A = Re Wz, B = -Im Wz,
+//                         then the real part of the inverse y DFT, in
+//                         JAX's order, so that the bf16 form rounds the z
+//                         output as JAX's does;
 //   pmesh_x_dense         at W = N2 is their x pass (_x_transform);
 //   pmesh_zy_fwd_half_ct  replaces _zy_forward_real_h_ct: the dense z
 //                         half-DFT to Zh = N2/2 + 1 columns (the Nyquist
@@ -94,15 +96,47 @@
 //    sweep over the product's output, one thread per (row, column)
 //    group; blocks that share an input tile are adjacent in launch order
 //    so that its R-fold re-reads come from L2.
-// No TF32 and no tensor cores: f32 products and f32 accumulation, the
-// f32-exact 'mxu' mode.  (Split-precision tensor-core products are the
-// lever for a later redesign.)
+// No TF32 and no tensor cores in this form: f32 products and f32
+// accumulation, the f32-exact 'mxu' mode.
+//
+// The bf16 forms, set per call by two flags of every entry point:
+//
+//  - bf16 (fft='mxu_bf16', precision='bf16'): the single-pass bf16
+//    products of the TPU kernels at jax.lax.Precision('default'): each
+//    operand of each product rounded to bf16, the products summed in f32.
+//    cgemm_bf16 replaces cgemm under the same Op functors: the loader
+//    rounds each la/lb value once with __float2bfloat16_rn into bf16
+//    tiles in shared memory, after the butterfly, the 1/k^2 fold and the
+//    conjugation that la/lb apply (the TPU rounds the operand it is
+//    handed, after those), and each warp runs
+//    mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 with f32 accumulators: a
+//    complex product is four real MMAs, -Ai.Bi through the negated
+//    imaginary fragment (negating a bf16 value is exact; no
+//    3-multiplication trick, which would round differently).  Ragged
+//    edges and a contraction that is not a multiple of 32 are zero-filled
+//    tiles.  Everything between two products of one pass (the butterfly
+//    sweeps, the z-CT combination, the scales, the plane) stays f32, and
+//    the next product rounds it again as its operand, as on the TPU.
+//    What bounds it: the tensor cores would run these products at 989
+//    TFLOP/s, so the operand loads (the same guarded scalar loads as
+//    cgemm, through the functors) and the single-stage staging bound it;
+//    wgmma, TMA and a ring of stages are a later redesign.
+//  - bf16s (fft='mxu_bf16s', the ct2 entry points' spectrum_dtype): the
+//    spectra between the passes are stored in bf16: CtOp's loads upcast
+//    them and its stores round once.  The products stay the f32 cgemm.
+//    The inverse x pass writes its products to f32 scratch that the
+//    wrapper passes, and its butterfly sweep rounds once at the store of
+//    the bf16 output, as JAX rounds once at the kernel's output store.
+//    The real meshes and the Nyquist plane stay f32.
 //
 // Indices into meshes are 64-bit.  C interface for ctypes: each entry
 // point launches on the given stream, allocates nothing (the wrapper
 // passes scratch) and returns the first CUDA error of its launches.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -114,6 +148,27 @@ constexpr int TM = BM / 16;     // accumulator rows per thread
 constexpr int TN = BN / 16;     // accumulator columns per thread
 static_assert(TM == 4 && TN == 4, "the operand reads are float4");
 constexpr int kMaxR = 8;
+// the bf16 product: 32-deep slices, each tile row padded by 8 bf16 (16
+// bytes), so that the fragment reads of a warp fall on 32 distinct banks
+constexpr int BKH = 32;
+constexpr int SKH = BKH + 8;
+
+typedef __nv_bfloat16 bf16_t;
+
+// spectrum storage: f32, or bf16 upcast at each load and rounded once at
+// each store
+__device__ __forceinline__ float ldv(const float* p, long long a) {
+  return p[a];
+}
+__device__ __forceinline__ float ldv(const bf16_t* p, long long a) {
+  return __bfloat162float(p[a]);
+}
+__device__ __forceinline__ void stv(float* p, long long a, float v) {
+  p[a] = v;
+}
+__device__ __forceinline__ void stv(bf16_t* p, long long a, float v) {
+  p[a] = __float2bfloat16_rn(v);
+}
 
 struct Cplx {
   float r, i;
@@ -271,6 +326,157 @@ __global__ void __launch_bounds__(NT) cgemm(const Op op, const Dims g) {
     }
 }
 
+// c (16 x 8, f32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two adjacent bf16 of a tile row: the lower index in the lower half
+__device__ __forceinline__ uint32_t ld2(const bf16_t* s) {
+  return *reinterpret_cast<const uint32_t*>(s);
+}
+
+// the four A-fragment registers of the 16 x 16 block at (row r, col c)
+// of a [BM][SKH] tile: rows r + gid (+8), columns c + 2 tig (+1, +8, +9)
+__device__ __forceinline__ void ld_afrag(uint32_t* f, const bf16_t (*t)[SKH],
+                                         int r, int c) {
+  f[0] = ld2(&t[r][c]);
+  f[1] = ld2(&t[r + 8][c]);
+  f[2] = ld2(&t[r][c + 8]);
+  f[3] = ld2(&t[r + 8][c + 8]);
+}
+
+__device__ __forceinline__ void negate(uint32_t* dst, const uint32_t* src) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) dst[q] = src[q] ^ 0x80008000u;
+}
+
+// The bf16 form of cgemm: the same Op interface, tiles and grid.  Each of
+// the 8 warps owns a 32 x 16 corner of the 64 x 64 output tile: 2 x 2
+// m16n8 accumulator blocks per part (re, im; a second set for DUAL).  B is
+// staged transposed ([n][k]) so that each B-fragment register is one
+// 32-bit shared load.
+template <class Op, bool DUAL, bool A_REAL, bool OUT_REAL>
+__global__ void __launch_bounds__(NT) cgemm_bf16(const Op op, const Dims g) {
+  __shared__ __align__(16) bf16_t As_r[BM][SKH];
+  __shared__ __align__(16) bf16_t As_i[A_REAL ? 1 : BM][SKH];
+  __shared__ __align__(16) bf16_t A2s_r[DUAL ? BM : 1][SKH];
+  __shared__ __align__(16) bf16_t A2s_i[DUAL ? BM : 1][SKH];
+  __shared__ __align__(16) bf16_t Bs_r[BN][SKH];
+  __shared__ __align__(16) bf16_t Bs_i[BN][SKH];
+  static_assert(!(DUAL && A_REAL), "a dual A operand is complex");
+
+  int o, j, tmi, tni;
+  decompose(g, o, j, tmi, tni);
+  const long long m0 = (long long)tmi * BM, n0 = (long long)tni * BN;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = (warp / 4) * 32, wn = (warp % 4) * 16;
+  const int gid = lane / 4, tig = lane % 4;
+
+  float cr[2][2][4] = {}, ci[2][2][4] = {};
+  float c2r[DUAL ? 2 : 1][2][4] = {}, c2i[DUAL ? 2 : 1][2][4] = {};
+
+  for (int k0 = 0; k0 < g.K; k0 += BKH) {
+    // stage A (BM x BKH) and B (BKH x BN, stored [n][k]), rounded once
+#pragma unroll
+    for (int l = 0; l < BM * BKH / NT; ++l) {
+      const int e = tid + NT * l, mm = e / BKH, kk = e % BKH;
+      const long long m = m0 + mm;
+      const int k = k0 + kk;
+      const bool in = m < g.M && k < g.K;
+      const Cplx v = in ? op.la(o, j, m, k) : Cplx{0.f, 0.f};
+      As_r[mm][kk] = __float2bfloat16_rn(v.r);
+      if constexpr (!A_REAL) As_i[mm][kk] = __float2bfloat16_rn(v.i);
+      if constexpr (DUAL) {
+        const Cplx v2 = in ? op.la2(o, j, m, k) : Cplx{0.f, 0.f};
+        A2s_r[mm][kk] = __float2bfloat16_rn(v2.r);
+        A2s_i[mm][kk] = __float2bfloat16_rn(v2.i);
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < BKH * BN / NT; ++l) {
+      const int e = tid + NT * l, kk = e / BN, nn = e % BN;
+      const long long n = n0 + nn;
+      const int k = k0 + kk;
+      const Cplx v =
+          (n < g.N && k < g.K) ? op.lb(o, j, k, n) : Cplx{0.f, 0.f};
+      Bs_r[nn][kk] = __float2bfloat16_rn(v.r);
+      Bs_i[nn][kk] = __float2bfloat16_rn(v.i);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < BKH; ks += 16) {
+      const int c = ks + tig * 2;
+      uint32_t ar[2][4], ai[2][4], an[2][4];
+      uint32_t a2r[DUAL ? 2 : 1][4], a2i[DUAL ? 2 : 1][4],
+          a2n[DUAL ? 2 : 1][4];
+      uint32_t br[2][2], bi[2][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r = wm + mt * 16 + gid;
+        ld_afrag(ar[mt], As_r, r, c);
+        if constexpr (!A_REAL) {
+          ld_afrag(ai[mt], As_i, r, c);
+          negate(an[mt], ai[mt]);
+        }
+        if constexpr (DUAL) {
+          ld_afrag(a2r[mt], A2s_r, r, c);
+          ld_afrag(a2i[mt], A2s_i, r, c);
+          negate(a2n[mt], a2i[mt]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int n = wn + nt * 8 + gid;
+        br[nt][0] = ld2(&Bs_r[n][c]);
+        br[nt][1] = ld2(&Bs_r[n][c + 8]);
+        bi[nt][0] = ld2(&Bs_i[n][c]);
+        bi[nt][1] = ld2(&Bs_i[n][c + 8]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          mma_bf16(cr[mt][nt], ar[mt], br[nt]);
+          if constexpr (!A_REAL) mma_bf16(cr[mt][nt], an[mt], bi[nt]);
+          if constexpr (!OUT_REAL) {
+            mma_bf16(ci[mt][nt], ar[mt], bi[nt]);
+            if constexpr (!A_REAL) mma_bf16(ci[mt][nt], ai[mt], br[nt]);
+          }
+          if constexpr (DUAL) {
+            mma_bf16(c2r[mt][nt], a2r[mt], br[nt]);
+            mma_bf16(c2r[mt][nt], a2n[mt], bi[nt]);
+            mma_bf16(c2i[mt][nt], a2r[mt], bi[nt]);
+            mma_bf16(c2i[mt][nt], a2i[mt], br[nt]);
+          }
+        }
+    }
+    __syncthreads();
+  }
+  // accumulator q of block (mt, nt): row gid (+8 for q >= 2), column
+  // 2 tig (+1 for odd q)
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const long long m = m0 + wm + mt * 16 + gid + (q >= 2 ? 8 : 0);
+        const long long n = n0 + wn + nt * 8 + tig * 2 + (q & 1);
+        if (m < g.M && n < g.N) {
+          op.st(o, j, m, n, cr[mt][nt][q], ci[mt][nt][q]);
+          if constexpr (DUAL)
+            op.st2(o, j, m, n, c2r[mt][nt][q], c2i[mt][nt][q]);
+        }
+      }
+}
+
 // --- the operand and store functors ------------------------------------
 
 // A CT stage along the rows of (nouter, R*M, ncols) complex blocks:
@@ -281,10 +487,13 @@ __global__ void __launch_bounds__(NT) cgemm(const Op op, const Dims g) {
 //   then turns the y_j into the natural-order output in place.
 // fold multiplies by 1/k^2 (0 at k^2 = 0) from three 1-d tables when k2x is
 // set: row index -> k2x, column n -> (n / W, n % W) -> k2y, k2z.
-template <bool INV>
+// TI, TO: the storage types of x and out (float, or bf16 for the bf16s
+// form); outi null: only the real part is stored.
+template <bool INV, class TI = float, class TO = float>
 struct CtOp {
-  const float *xr, *xi, *wr, *wi, *w2r, *w2i;
-  float *outr, *outi, *out2r, *out2i;
+  const TI *xr, *xi;
+  const float *wr, *wi, *w2r, *w2i;
+  TO *outr, *outi, *out2r, *out2i;
   const float *k2x, *k2y, *k2z;
   long long ostride;
   int M, R, ncols, W;
@@ -311,14 +520,14 @@ struct CtOp {
       const long long row = (long long)j * M + k;
       const long long a = base + row * ncols;
       const float f = fold(row, n);
-      return Cplx{xr[a] * f, xi[a] * f};
+      return Cplx{ldv(xr, a) * f, ldv(xi, a) * f};
     }
     Cplx u{0.f, 0.f};
     for (int r = 0; r < R; ++r) {
       const long long row = (long long)r * M + k;
       const long long a = base + row * ncols;
       const float f = fold(row, n);
-      const float vr = xr[a] * f, vi = xi[a] * f;
+      const float vr = ldv(xr, a) * f, vi = ldv(xi, a) * f;
       const float cr = bt.r[r][j], ci = bt.i[r][j];
       u.r = fmaf(cr, vr, fmaf(-ci, vi, u.r));
       u.i = fmaf(cr, vi, fmaf(ci, vr, u.i));
@@ -329,22 +538,25 @@ struct CtOp {
                                      float vr, float vi) const {
     const long long a =
         (long long)o * ostride + ((long long)j * M + m) * ncols + n;
-    outr[a] = vr * scale;
-    outi[a] = vi * scale;
+    stv(outr, a, vr * scale);
+    if (outi != nullptr) stv(outi, a, vi * scale);
   }
   __device__ __forceinline__ void st2(int o, int j, long long m, long long n,
                                       float vr, float vi) const {
     const long long a =
         (long long)o * ostride + ((long long)j * M + m) * ncols + n;
-    out2r[a] = vr * scale;
-    out2i[a] = vi * scale;
+    stv(out2r, a, vr * scale);
+    stv(out2i, a, vi * scale);
   }
 };
 
-// in place: {y_j at rows j*M + m} -> {out_r at rows r*M + m},
-// out_r = scale * sum_j bt[r][j] y_j, one thread per (o, m, n)
-__global__ void ct_inv_butterfly(float* __restrict__ re,
-                                 float* __restrict__ im, long long nouter,
+// {y_j at rows j*M + m} of (re, im) -> {out_r at rows r*M + m} of
+// (ore, oim), out_r = scale * sum_j bt[r][j] y_j, one thread per (o, m, n);
+// in place when (ore, oim) is (re, im) (f32), else into the bf16 output,
+// rounded once at the store
+template <class TO>
+__global__ void ct_inv_butterfly(const float* re, const float* im, TO* ore,
+                                 TO* oim, long long nouter,
                                  long long ostride, int M, int R, int ncols,
                                  float scale, const Butter bt) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -370,8 +582,8 @@ __global__ void ct_inv_butterfly(float* __restrict__ re,
           sr = fmaf(cr, yr[j], fmaf(-ci, yi[j], sr));
           si = fmaf(cr, yi[j], fmaf(ci, yr[j], si));
         }
-      re[base + (long long)r * per] = sr * scale;
-      im[base + (long long)r * per] = si * scale;
+      stv(ore, base + (long long)r * per, sr * scale);
+      stv(oim, base + (long long)r * per, si * scale);
     }
 }
 
@@ -443,6 +655,27 @@ struct ZInvDense {
                                      float vr, float) const {
     if (plane != nullptr) vr += (n & 1) ? -plane[m] : plane[m];
     out[m * n2 + n] = vr;
+  }
+};
+
+// full-spectrum z inverse: (zr + i zi)[m, n] = (xr + i xi)[m] . Wz[:, n],
+// Wz entered as A = Re Wz, B = -Im Wz (n2 x n2), the complex result kept
+// for the y stage
+struct ZFull {
+  const float *xr, *xi, *ta, *tb;
+  float *zr, *zi;
+  int n2;
+  __device__ __forceinline__ Cplx la(int, int, long long m, int k) const {
+    return Cplx{xr[m * n2 + k], xi[m * n2 + k]};
+  }
+  __device__ __forceinline__ Cplx lb(int, int, int k, long long n) const {
+    const long long a = (long long)k * n2 + n;
+    return Cplx{ta[a], -tb[a]};
+  }
+  __device__ __forceinline__ void st(int, int, long long m, long long n,
+                                     float vr, float vi) const {
+    zr[m * n2 + n] = vr;
+    zi[m * n2 + n] = vi;
   }
 };
 
@@ -520,9 +753,22 @@ __global__ void nyquist_rowsum(const float* __restrict__ x,
 
 int cdiv_ll(long long a, long long b) { return (int)((a + b - 1) / b); }
 
+#define PMESH_TRY_E(expr)           \
+  do {                              \
+    cudaError_t e_ = (expr);        \
+    if (e_ != cudaSuccess) return e_; \
+  } while (0)
+
+#define PMESH_TRY(expr)             \
+  do {                              \
+    cudaError_t e_ = (expr);        \
+    if (e_ != cudaSuccess) return (int)e_; \
+  } while (0)
+
+// one product of the pass: cgemm, or cgemm_bf16 for the bf16 form
 template <class Op, bool DUAL, bool A_REAL, bool OUT_REAL>
 cudaError_t launch_gemm(const Op& op, int nouter, int nj, long long M,
-                        long long N, int K, bool m_fast,
+                        long long N, int K, bool m_fast, bool bf16,
                         cudaStream_t stream) {
   Dims g;
   g.M = (int)M;
@@ -535,37 +781,37 @@ cudaError_t launch_gemm(const Op& op, int nouter, int nj, long long M,
   const long long blocks = (long long)g.tiles_m * g.tiles_n * nj * nouter;
   if (M > INT32_MAX || N > INT32_MAX || blocks > INT32_MAX)
     return cudaErrorInvalidValue;
-  cgemm<Op, DUAL, A_REAL, OUT_REAL>
-      <<<(unsigned)blocks, NT, 0, stream>>>(op, g);
+  if (bf16)
+    cgemm_bf16<Op, DUAL, A_REAL, OUT_REAL>
+        <<<(unsigned)blocks, NT, 0, stream>>>(op, g);
+  else
+    cgemm<Op, DUAL, A_REAL, OUT_REAL>
+        <<<(unsigned)blocks, NT, 0, stream>>>(op, g);
   return cudaGetLastError();
 }
 
-cudaError_t launch_butterfly(float* re, float* im, long long nouter,
-                             long long ostride, int M, int R, int ncols,
-                             float scale, const Butter& bt,
-                             cudaStream_t stream) {
+template <class TO>
+cudaError_t launch_butterfly(const float* re, const float* im, TO* ore,
+                             TO* oim, long long nouter, long long ostride,
+                             int M, int R, int ncols, float scale,
+                             const Butter& bt, cudaStream_t stream) {
   const long long n = nouter * M * (long long)ncols;
   const long long blocks = (n + 255) / 256;
   if (blocks > INT32_MAX) return cudaErrorInvalidValue;
-  ct_inv_butterfly<<<(unsigned)blocks, 256, 0, stream>>>(
-      re, im, nouter, ostride, M, R, ncols, scale, bt);
+  ct_inv_butterfly<TO><<<(unsigned)blocks, 256, 0, stream>>>(
+      re, im, ore, oim, nouter, ostride, M, R, ncols, scale, bt);
   return cudaGetLastError();
 }
 
-#define PMESH_TRY(expr)             \
-  do {                              \
-    cudaError_t e_ = (expr);        \
-    if (e_ != cudaSuccess) return (int)e_; \
-  } while (0)
-
-// the inverse y CT of (n0, N1, Zm) into (sr, si), for one or two table
-// sets (dual: both from one staged input tile)
-cudaError_t y_inverse(const float* xr, const float* xi, const float* wAr,
+// the inverse y CT of (n0, N1, Zm) (storage TI) into the f32 (sr, si),
+// for one or two table sets (dual: both from one staged input tile)
+template <class TI>
+cudaError_t y_inverse(const TI* xr, const TI* xi, const float* wAr,
                       const float* wAi, const float* wBr, const float* wBi,
                       float* sAr, float* sAi, float* sBr, float* sBi, int n0,
                       int N1, int Zm, int Ry, int My, const float* ycoef,
-                      cudaStream_t stream) {
-  CtOp<true> op = {};
+                      bool bf16, cudaStream_t stream) {
+  CtOp<true, TI, float> op = {};
   op.xr = xr;
   op.xi = xi;
   op.wr = wAr;
@@ -583,28 +829,27 @@ cudaError_t y_inverse(const float* xr, const float* xi, const float* wAr,
   op.W = 1;
   op.scale = 1.f;
   const Butter bt = make_butter(ycoef, Ry);
-  cudaError_t e;
   if (wBr != nullptr)
-    e = launch_gemm<CtOp<true>, true, false, false>(op, n0, Ry, My, Zm, My,
-                                                    true, stream);
+    PMESH_TRY_E((launch_gemm<CtOp<true, TI, float>, true, false, false>(
+        op, n0, Ry, My, Zm, My, true, bf16, stream)));
   else
-    e = launch_gemm<CtOp<true>, false, false, false>(op, n0, Ry, My, Zm, My,
-                                                     true, stream);
-  if (e != cudaSuccess) return e;
-  e = launch_butterfly(sAr, sAi, n0, op.ostride, My, Ry, Zm, 1.f, bt,
-                       stream);
-  if (e != cudaSuccess || sBr == nullptr) return e;
-  return launch_butterfly(sBr, sBi, n0, op.ostride, My, Ry, Zm, 1.f, bt,
-                          stream);
+    PMESH_TRY_E((launch_gemm<CtOp<true, TI, float>, false, false, false>(
+        op, n0, Ry, My, Zm, My, true, bf16, stream)));
+  PMESH_TRY_E(launch_butterfly(sAr, sAi, sAr, sAi, n0, op.ostride, My, Ry,
+                               Zm, 1.f, bt, stream));
+  if (sBr == nullptr) return cudaSuccess;
+  return launch_butterfly(sBr, sBi, sBr, sBi, n0, op.ostride, My, Ry, Zm,
+                          1.f, bt, stream);
 }
 
-// the forward y CT of the (n0, N1, ncols) z spectrum (xr, xi) into
-// (outr, outi), chunk-permuted along y
+// the forward y CT of the f32 (n0, N1, ncols) z spectrum (xr, xi) into
+// (outr, outi) (storage TO), chunk-permuted along y
+template <class TO>
 cudaError_t y_forward(const float* xr, const float* xi, const float* wyr,
-                      const float* wyi, const float* ycoef, float* outr,
-                      float* outi, int n0, int N1, int ncols, int Ry, int My,
-                      cudaStream_t stream) {
-  CtOp<false> op = {};
+                      const float* wyi, const float* ycoef, TO* outr,
+                      TO* outi, int n0, int N1, int ncols, int Ry, int My,
+                      bool bf16, cudaStream_t stream) {
+  CtOp<false, float, TO> op = {};
   op.xr = xr;
   op.xi = xi;
   op.wr = wyr;
@@ -618,21 +863,73 @@ cudaError_t y_forward(const float* xr, const float* xi, const float* wyr,
   op.W = 1;
   op.scale = 1.f;
   op.bt = make_butter(ycoef, Ry);
-  return launch_gemm<CtOp<false>, false, false, false>(op, n0, Ry, My, ncols,
-                                                       My, true, stream);
+  return launch_gemm<CtOp<false, float, TO>, false, false, false>(
+      op, n0, Ry, My, ncols, My, true, bf16, stream);
+}
+
+// the x CT of pmesh_xct_multi with the spectra stored as TS: the inverse
+// writes its products to (p1, p2), f32 (the output itself for f32
+// storage, the scratch for bf16), and the sweep stores the output
+template <class TS>
+cudaError_t x_ct(const TS* xr, const TS* xi, const float* wr,
+                 const float* wi, const float* w2r, const float* w2i,
+                 const float* k2x, const float* k2y, const float* k2z,
+                 TS* o1r, TS* o1i, TS* o2r, TS* o2i, float* s1r, float* s1i,
+                 float* s2r, float* s2i, int n1, int W, int R, int M,
+                 bool inverse, float scale, const Butter& bt, bool bf16,
+                 cudaStream_t stream) {
+  const long long ncols = (long long)n1 * W;
+  if (ncols > INT32_MAX) return cudaErrorInvalidValue;
+  const bool dual = w2r != nullptr;
+  if (!inverse) {
+    CtOp<false, TS, TS> op = {xr, xi, wr, wi, w2r, w2i, o1r, o1i, o2r, o2i,
+                              k2x, k2y, k2z, 0, M, R, (int)ncols, W, scale,
+                              bt};
+    if (dual)
+      return launch_gemm<CtOp<false, TS, TS>, true, false, false>(
+          op, 1, R, M, ncols, M, true, bf16, stream);
+    return launch_gemm<CtOp<false, TS, TS>, false, false, false>(
+        op, 1, R, M, ncols, M, true, bf16, stream);
+  }
+  float *p1r, *p1i, *p2r, *p2i;
+  if constexpr (std::is_same<TS, float>::value) {
+    p1r = o1r;
+    p1i = o1i;
+    p2r = o2r;
+    p2i = o2i;
+  } else {
+    p1r = s1r;
+    p1i = s1i;
+    p2r = s2r;
+    p2i = s2i;
+  }
+  CtOp<true, TS, float> op = {xr, xi, wr, wi, w2r, w2i, p1r, p1i, p2r, p2i,
+                              k2x, k2y, k2z, 0, M, R, (int)ncols, W, 1.f,
+                              bt};
+  if (dual)
+    PMESH_TRY_E((launch_gemm<CtOp<true, TS, float>, true, false, false>(
+        op, 1, R, M, ncols, M, true, bf16, stream)));
+  else
+    PMESH_TRY_E((launch_gemm<CtOp<true, TS, float>, false, false, false>(
+        op, 1, R, M, ncols, M, true, bf16, stream)));
+  PMESH_TRY_E(launch_butterfly(p1r, p1i, o1r, o1i, 1, 0, M, R, (int)ncols,
+                               scale, bt, stream));
+  if (!dual) return cudaSuccess;
+  return launch_butterfly(p2r, p2i, o2r, o2i, 1, 0, M, R, (int)ncols, scale,
+                          bt, stream);
 }
 
 // a dense complex DFT along the rows of (nouter, M, ncols) blocks: the
 // CtOp stage at R = 1, whose butterfly is the identity, so forward and
 // inverse differ only by the table; optionally dual (a second table on
 // the same staged input) and with the 1/k^2 fold (W: the z width of a
-// column index n = y * W + z)
+// column index n = y * W + z); o1i null: only the real part (OUT_REAL)
 cudaError_t dense_rows(const float* xr, const float* xi, const float* wr,
                        const float* wi, const float* w2r, const float* w2i,
                        const float* k2x, const float* k2y, const float* k2z,
                        float* o1r, float* o1i, float* o2r, float* o2i,
                        int nouter, int M, long long ncols, int W,
-                       float scale, cudaStream_t stream) {
+                       float scale, bool bf16, cudaStream_t stream) {
   if (ncols > INT32_MAX) return cudaErrorInvalidValue;
   Butter one = {};
   one.r[0][0] = 1.f;
@@ -640,11 +937,13 @@ cudaError_t dense_rows(const float* xr, const float* xi, const float* wr,
                     k2x, k2y, k2z, (long long)M * ncols, M, 1, (int)ncols,
                     W, scale, one};
   if (w2r != nullptr)
-    return launch_gemm<CtOp<false>, true, false, false>(op, nouter, 1, M,
-                                                        ncols, M, true,
-                                                        stream);
-  return launch_gemm<CtOp<false>, false, false, false>(op, nouter, 1, M,
-                                                       ncols, M, true, stream);
+    return launch_gemm<CtOp<false>, true, false, false>(
+        op, nouter, 1, M, ncols, M, true, bf16, stream);
+  if (o1i == nullptr)
+    return launch_gemm<CtOp<false>, false, false, true>(
+        op, nouter, 1, M, ncols, M, true, bf16, stream);
+  return launch_gemm<CtOp<false>, false, false, false>(
+      op, nouter, 1, M, ncols, M, true, bf16, stream);
 }
 
 // the z inverse of the natural-y (rows, Zm) spectrum (yr, yi) into real
@@ -653,16 +952,15 @@ cudaError_t z_inverse(const float* yr, const float* yi, const float* ta,
                       const float* tb, int zct, int Ri, int Kin, int Kb,
                       const float* plane, float* out, float* zq,
                       long long rows, int Zm, int n2, const float* zcoef,
-                      cudaStream_t stream) {
+                      bool bf16, cudaStream_t stream) {
   if (!zct) {
     ZInvDense op = {yr, yi, ta, tb, plane, out, Zm, n2};
     return launch_gemm<ZInvDense, false, false, true>(op, 1, 1, rows, n2, Zm,
-                                                      false, stream);
+                                                      false, bf16, stream);
   }
   ZInvCT op = {yr, yi, ta, tb, out, zq, Zm, n2, Kin, Kb};
-  cudaError_t e = launch_gemm<ZInvCT, false, false, false>(
-      op, 1, Ri, rows, Kb, Kin, false, stream);
-  if (e != cudaSuccess) return e;
+  PMESH_TRY_E((launch_gemm<ZInvCT, false, false, false>(
+      op, 1, Ri, rows, Kb, Kin, false, bf16, stream)));
   const long long n = rows * Kb;
   const long long blocks = (n + 255) / 256;
   if (blocks > INT32_MAX) return cudaErrorInvalidValue;
@@ -679,17 +977,22 @@ const char* pmesh_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// Every entry point takes bf16 (1: the bf16 products of cgemm_bf16); the
+// ct2 entry points also bf16s (1: the spectra they read or write are
+// stored in bf16, as the void pointers say).
+
 // x (n0, N1, N2) real -> (outr, outi) (n0, N1, Zm), nq (n0, N1).
 // zct = 0: (wzr, wzi) is the dense (N2, Zm) half-DFT pair; zct = 1: the
 // (Rz, Kz, Mq) z-CT pair with zcoef the (Rz, Rz, 2) chunk coefficients
 // c[r][p].  (wyr, wyi): (Ry, My, My), ycoef (Ry, Ry, 2) = b[r][j].
-// (sr, si): (n0, N1, Zm) scratch for the z stage.
+// (sr, si): (n0, N1, Zm) f32 scratch for the z stage.  bf16s: (outr, outi)
+// are bf16.
 int pmesh_zy_fwd_ct2(const float* x, const float* wzr, const float* wzi,
                      int zct, int Rz, int Kz, int Mq, const float* zcoef,
                      const float* wyr, const float* wyi, const float* ycoef,
-                     float* outr, float* outi, float* nq, float* sr,
+                     void* outr, void* outi, float* nq, float* sr,
                      float* si, int n0, int N1, int N2, int Ry, int My,
-                     void* stream_) {
+                     int bf16, int bf16s, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   const long long rows = (long long)n0 * N1;
   const int Zm = N2 / 2;
@@ -713,81 +1016,75 @@ int pmesh_zy_fwd_ct2(const float* x, const float* wzr, const float* wzi,
     op.Mq = Mq;
     op.c = make_butter(zcoef, Rz);
     PMESH_TRY((launch_gemm<ZFwdCT, false, false, false>(
-        op, 1, Rz, rows, Mq, Kz, false, stream)));
+        op, 1, Rz, rows, Mq, Kz, false, bf16, stream)));
   } else {
     ZFwdDense op = {x, wzr, wzi, sr, si, N2, Zm};
     PMESH_TRY((launch_gemm<ZFwdDense, false, true, false>(
-        op, 1, 1, rows, Zm, N2, false, stream)));
+        op, 1, 1, rows, Zm, N2, false, bf16, stream)));
   }
-  return (int)y_forward(sr, si, wyr, wyi, ycoef, outr, outi, n0, N1, Zm, Ry,
-                        My, stream);
+  if (bf16s)
+    return (int)y_forward(sr, si, wyr, wyi, ycoef, (bf16_t*)outr, (bf16_t*)outi,
+                          n0, N1, Zm, Ry, My, bf16, stream);
+  return (int)y_forward(sr, si, wyr, wyi, ycoef, (float*)outr, (float*)outi,
+                        n0, N1, Zm, Ry, My, bf16, stream);
 }
 
 // (xr, xi) (N0, n1, W) -> (o1r, o1i) [and (o2r, o2i) when w2r is set]:
 // forward (coef = b[r][j] of W_R^{-rj}) times scale, or inverse (coef =
 // b[r][j] of W_R^{+rj}); the 1/k^2 fold when k2x is set (k2x (N0,),
-// k2y (n1,), k2z (W,), in stored order).
-int pmesh_xct_multi(const float* xr, const float* xi, const float* wr,
+// k2y (n1,), k2z (W,), in stored order).  bf16s: input and outputs are
+// bf16, and the inverse needs the f32 scratch (s1r, s1i) [(s2r, s2i)]
+// (N0, n1, W) for its products.
+int pmesh_xct_multi(const void* xr, const void* xi, const float* wr,
                     const float* wi, const float* w2r, const float* w2i,
                     const float* k2x, const float* k2y, const float* k2z,
-                    float* o1r, float* o1i, float* o2r, float* o2i, int N0,
-                    int n1, int W, int R, int M, int inverse, float scale,
-                    const float* coef, void* stream_) {
-  cudaStream_t stream = (cudaStream_t)stream_;
-  const long long ncols = (long long)n1 * W;
-  if (ncols > INT32_MAX) return (int)cudaErrorInvalidValue;
+                    void* o1r, void* o1i, void* o2r, void* o2i, float* s1r,
+                    float* s1i, float* s2r, float* s2i, int N0, int n1,
+                    int W, int R, int M, int inverse, float scale,
+                    const float* coef, int bf16, int bf16s, void* stream_) {
+  (void)N0;
   const Butter bt = make_butter(coef, R);
-  const bool dual = w2r != nullptr;
-  if (inverse) {
-    CtOp<true> op = {xr, xi, wr, wi, w2r, w2i, o1r, o1i, o2r, o2i,
-                     k2x, k2y, k2z, 0, M, R, (int)ncols, W, 1.f, bt};
-    if (dual)
-      PMESH_TRY((launch_gemm<CtOp<true>, true, false, false>(
-          op, 1, R, M, ncols, M, true, stream)));
-    else
-      PMESH_TRY((launch_gemm<CtOp<true>, false, false, false>(
-          op, 1, R, M, ncols, M, true, stream)));
-    PMESH_TRY(launch_butterfly(o1r, o1i, 1, 0, M, R, (int)ncols, scale, bt,
-                               stream));
-    if (dual)
-      PMESH_TRY(launch_butterfly(o2r, o2i, 1, 0, M, R, (int)ncols, scale,
-                                 bt, stream));
-    return 0;
-  }
-  CtOp<false> op = {xr, xi, wr, wi, w2r, w2i, o1r, o1i, o2r, o2i,
-                    k2x, k2y, k2z, 0, M, R, (int)ncols, W, scale, bt};
-  if (dual)
-    PMESH_TRY((launch_gemm<CtOp<false>, true, false, false>(
-        op, 1, R, M, ncols, M, true, stream)));
-  else
-    PMESH_TRY((launch_gemm<CtOp<false>, false, false, false>(
-        op, 1, R, M, ncols, M, true, stream)));
-  return 0;
+  if (bf16s)
+    return (int)x_ct<bf16_t>(
+        (const bf16_t*)xr, (const bf16_t*)xi, wr, wi, w2r, w2i, k2x, k2y, k2z,
+        (bf16_t*)o1r, (bf16_t*)o1i, (bf16_t*)o2r, (bf16_t*)o2i, s1r, s1i, s2r, s2i,
+        n1, W, R, M, inverse != 0, scale, bt, bf16, (cudaStream_t)stream_);
+  return (int)x_ct<float>(
+      (const float*)xr, (const float*)xi, wr, wi, w2r, w2i, k2x, k2y, k2z,
+      (float*)o1r, (float*)o1i, (float*)o2r, (float*)o2i, s1r, s1i, s2r, s2i,
+      n1, W, R, M, inverse != 0, scale, bt, bf16, (cudaStream_t)stream_);
 }
 
 // (xr, xi) (n0, N1, Zm) -> out (n0, N1, n2).  (wyr, wyi): inverse y CT
 // (Ry, My, My), ycoef b[r][j] of W_R^{+rj}; zct = 0: (ta, tb) dense
 // (Zm, n2); zct = 1: (Ri, Kin, Kb) with zcoef the (Ri, Ri, 2) combination
 // cs[j][c].  plane (n0, N1) or null.  Scratch: (sr, si) (n0, N1, Zm) and,
-// for zct, zq (n0, N1, n2).
-int pmesh_zy_inv_ct2(const float* xr, const float* xi, const float* wyr,
+// for zct, zq (n0, N1, n2).  bf16s: (xr, xi) are bf16.
+int pmesh_zy_inv_ct2(const void* xr, const void* xi, const float* wyr,
                      const float* wyi, const float* ta, const float* tb,
                      int zct, int Ri, int Kin, int Kb, const float* plane,
                      float* out, float* sr, float* si, float* zq, int n0,
                      int N1, int Zm, int n2, int Ry, int My,
-                     const float* ycoef, const float* zcoef, void* stream_) {
+                     const float* ycoef, const float* zcoef, int bf16,
+                     int bf16s, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
-  PMESH_TRY(y_inverse(xr, xi, wyr, wyi, nullptr, nullptr, sr, si, nullptr,
-                      nullptr, n0, N1, Zm, Ry, My, ycoef, stream));
+  if (bf16s)
+    PMESH_TRY(y_inverse((const bf16_t*)xr, (const bf16_t*)xi, wyr, wyi, nullptr,
+                        nullptr, sr, si, nullptr, nullptr, n0, N1, Zm, Ry,
+                        My, ycoef, bf16, stream));
+  else
+    PMESH_TRY(y_inverse((const float*)xr, (const float*)xi, wyr, wyi,
+                        nullptr, nullptr, sr, si, nullptr, nullptr, n0, N1,
+                        Zm, Ry, My, ycoef, bf16, stream));
   PMESH_TRY(z_inverse(sr, si, ta, tb, zct, Ri, Kin, Kb, plane, out, zq,
-                      (long long)n0 * N1, Zm, n2, zcoef, stream));
+                      (long long)n0 * N1, Zm, n2, zcoef, bf16, stream));
   return 0;
 }
 
 // the dual form: set A (wyA, taA, tbA, planeA) -> outA, set B -> outB,
 // both y stages from one staged input tile.  Scratch (sAr, sAi, sBr, sBi)
-// (n0, N1, Zm) and, for zct, zq (n0, N1, n2).
-int pmesh_zy_inv_ct2_dual(const float* xr, const float* xi,
+// (n0, N1, Zm) and, for zct, zq (n0, N1, n2).  bf16s: (xr, xi) are bf16.
+int pmesh_zy_inv_ct2_dual(const void* xr, const void* xi,
                           const float* wyAr, const float* wyAi,
                           const float* taA, const float* tbA,
                           const float* wyBr, const float* wyBi,
@@ -796,15 +1093,22 @@ int pmesh_zy_inv_ct2_dual(const float* xr, const float* xi,
                           float* outB, float* sAr, float* sAi, float* sBr,
                           float* sBi, float* zq, int n0, int N1, int Zm,
                           int n2, int Ry, int My, const float* ycoef,
-                          const float* zcoef, void* stream_) {
+                          const float* zcoef, int bf16, int bf16s,
+                          void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   const long long rows = (long long)n0 * N1;
-  PMESH_TRY(y_inverse(xr, xi, wyAr, wyAi, wyBr, wyBi, sAr, sAi, sBr, sBi, n0,
-                      N1, Zm, Ry, My, ycoef, stream));
+  if (bf16s)
+    PMESH_TRY(y_inverse((const bf16_t*)xr, (const bf16_t*)xi, wyAr, wyAi, wyBr,
+                        wyBi, sAr, sAi, sBr, sBi, n0, N1, Zm, Ry, My, ycoef,
+                        bf16, stream));
+  else
+    PMESH_TRY(y_inverse((const float*)xr, (const float*)xi, wyAr, wyAi,
+                        wyBr, wyBi, sAr, sAi, sBr, sBi, n0, N1, Zm, Ry, My,
+                        ycoef, bf16, stream));
   PMESH_TRY(z_inverse(sAr, sAi, taA, tbA, zct, Ri, Kin, Kb, planeA, outA, zq,
-                      rows, Zm, n2, zcoef, stream));
+                      rows, Zm, n2, zcoef, bf16, stream));
   PMESH_TRY(z_inverse(sBr, sBi, taB, tbB, zct, Ri, Kin, Kb, nullptr, outB,
-                      zq, rows, Zm, n2, zcoef, stream));
+                      zq, rows, Zm, n2, zcoef, bf16, stream));
   return 0;
 }
 
@@ -816,14 +1120,14 @@ int pmesh_zy_inv_ct2_dual(const float* xr, const float* xi,
 int pmesh_zy_fwd_half(const float* x, const float* wzr, const float* wzi,
                       const float* wyr, const float* wyi, float* outr,
                       float* outi, float* sr, float* si, int n0, int N1,
-                      int N2, int Zh, void* stream_) {
+                      int N2, int Zh, int bf16, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   ZFwdDense zop = {x, wzr, wzi, sr, si, N2, Zh};
   PMESH_TRY((launch_gemm<ZFwdDense, false, true, false>(
-      zop, 1, 1, (long long)n0 * N1, Zh, N2, false, stream)));
+      zop, 1, 1, (long long)n0 * N1, Zh, N2, false, bf16, stream)));
   PMESH_TRY(dense_rows(sr, si, wyr, wyi, nullptr, nullptr, nullptr, nullptr,
                        nullptr, outr, outi, nullptr, nullptr, n0, N1, Zh, 1,
-                       1.f, stream));
+                       1.f, bf16, stream));
   return 0;
 }
 
@@ -835,9 +1139,9 @@ int pmesh_x_dense(const float* xr, const float* xi, const float* wr,
                   const float* wi, const float* w2r, const float* w2i,
                   const float* k2x, const float* k2y, const float* k2z,
                   float* o1r, float* o1i, float* o2r, float* o2i, int N0,
-                  int n1, int W, float scale, void* stream_) {
+                  int n1, int W, float scale, int bf16, void* stream_) {
   return (int)dense_rows(xr, xi, wr, wi, w2r, w2i, k2x, k2y, k2z, o1r, o1i,
-                         o2r, o2i, 1, N0, (long long)n1 * W, W, scale,
+                         o2r, o2i, 1, N0, (long long)n1 * W, W, scale, bf16,
                          (cudaStream_t)stream_);
 }
 
@@ -847,17 +1151,35 @@ int pmesh_x_dense(const float* xr, const float* xi, const float* wr,
 int pmesh_zy_inv_half(const float* xr, const float* xi, const float* wyr,
                       const float* wyi, const float* ta, const float* tb,
                       float* out, float* sr, float* si, int n0, int N1,
-                      int Zh, int n2, void* stream_) {
+                      int Zh, int n2, int bf16, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   PMESH_TRY(dense_rows(xr, xi, wyr, wyi, nullptr, nullptr, nullptr, nullptr,
                        nullptr, sr, si, nullptr, nullptr, n0, N1, Zh, 1, 1.f,
-                       stream));
+                       bf16, stream));
   PMESH_TRY(z_inverse(sr, si, ta, tb, 0, 1, Zh, n2, nullptr, out, nullptr,
-                      (long long)n0 * N1, Zh, n2, nullptr, stream));
+                      (long long)n0 * N1, Zh, n2, nullptr, bf16, stream));
   return 0;
 }
 
-// --- the first-CT half pipeline (fft_mxu_ref.py) --------------------------
+// --- the older pipelines (fft_mxu_ref.py) ---------------------------------
+
+// (xr, xi) (n0, N1, N2) full spectrum -> out (n0, N1, N2), the real part
+// of the inverse z and y DFTs: the complex z product by the (N2, N2) pair
+// (ta, tb) = (Re Wz, -Im Wz) into the scratch (sr, si) (n0, N1, N2), then
+// the real part of the inverse y DFT by (wyr, wyi) (N1, N1).
+int pmesh_zy_inv_full(const float* xr, const float* xi, const float* wyr,
+                      const float* wyi, const float* ta, const float* tb,
+                      float* out, float* sr, float* si, int n0, int N1,
+                      int N2, int bf16, void* stream_) {
+  cudaStream_t stream = (cudaStream_t)stream_;
+  ZFull zop = {xr, xi, ta, tb, sr, si, N2};
+  PMESH_TRY((launch_gemm<ZFull, false, false, false>(
+      zop, 1, 1, (long long)n0 * N1, N2, N2, false, bf16, stream)));
+  PMESH_TRY(dense_rows(sr, si, wyr, wyi, nullptr, nullptr, nullptr, nullptr,
+                       nullptr, out, nullptr, nullptr, nullptr, n0, N1, N2, 1,
+                       1.f, bf16, stream));
+  return 0;
+}
 
 // x (n0, N1, N2) real -> (outr, outi) (n0, N1, Zh): the dense z half-DFT
 // by (wzr, wzi) (N2, Zh) into the scratch (sr, si) (n0, N1, Zh), then
@@ -867,13 +1189,13 @@ int pmesh_zy_fwd_half_ct(const float* x, const float* wzr, const float* wzi,
                          const float* wyr, const float* wyi,
                          const float* ycoef, float* outr, float* outi,
                          float* sr, float* si, int n0, int N1, int N2,
-                         int Zh, int Ry, int My, void* stream_) {
+                         int Zh, int Ry, int My, int bf16, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   ZFwdDense zop = {x, wzr, wzi, sr, si, N2, Zh};
   PMESH_TRY((launch_gemm<ZFwdDense, false, true, false>(
-      zop, 1, 1, (long long)n0 * N1, Zh, N2, false, stream)));
+      zop, 1, 1, (long long)n0 * N1, Zh, N2, false, bf16, stream)));
   return (int)y_forward(sr, si, wyr, wyi, ycoef, outr, outi, n0, N1, Zh, Ry,
-                        My, stream);
+                        My, bf16, stream);
 }
 
 }  // extern "C"

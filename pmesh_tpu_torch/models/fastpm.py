@@ -17,9 +17,11 @@ c2r (or one Poisson potential) -> lattice readouts.  With ``fft='xla'``
 the FFTs are ``torch.fft``; with ``fft='mxu'`` (f32, 3-d) they are the
 DFT passes of ``ops/fft_mxu.py`` (split-Nyquist Cooley-Tukey at ct2
 shapes, dense elsewhere), with the 1/k^2 filter and the SuperLanczos
-i*k_d folded into the inverse.  Paint, readout, rebase and the DFT
-passes run the hand CUDA kernels for CUDA tensors (``ops/gridpm.py``,
-``ops/binned.py``, ``ops/fft_mxu.py``).
+i*k_d folded into the inverse; ``fft='mxu_bf16'`` runs those passes
+with single-pass bf16 products and ``fft='mxu_bf16s'`` stores the ct2
+spectrum in bf16 between them, as the JAX package's modes do.  Paint,
+readout, rebase and the DFT passes run the hand CUDA kernels for CUDA
+tensors (``ops/gridpm.py``, ``ops/binned.py``, ``ops/fft_mxu.py``).
 
 Reverse mode runs through the lattice path: ``torch.autograd`` takes
 ``force_lattice``, ``nbody_lattice`` and ``lpt_lattice`` end to end.  The
@@ -145,17 +147,16 @@ def leapfrog_factors(time_steps, factors, scheme='symp2'):
             np.asarray(Ks2, dtype='f8'))
 
 
-_BF16 = ("fft=%r (bf16 DFT products or bf16 spectrum storage) is not "
-         "ported yet (ROADMAP queue 1, item 12); use fft='mxu' (f32) or "
-         "fft='xla'")
+# the DFT forms of each fft mode: (precision, spectrum_dtype) of the
+# ops/fft_mxu.py operators, as the JAX package passes them
+_MXU = {'mxu': (None, None), 'mxu_bf16': ('bf16', None),
+        'mxu_bf16s': (None, torch.bfloat16)}
 
 
 def _check_force_args(fft, mode):
-    if fft in ('mxu_bf16', 'mxu_bf16s'):
-        raise NotImplementedError(_BF16 % (fft,))
-    if fft not in ('xla', 'mxu'):
-        raise ValueError("unknown fft backend %r (use 'xla' or 'mxu')"
-                         % (fft,))
+    if fft != 'xla' and fft not in _MXU:
+        raise ValueError("unknown fft backend %r (use 'xla', 'mxu', "
+                         "'mxu_bf16' or 'mxu_bf16s')" % (fft,))
     if mode not in ('spectral', 'gradient'):
         raise ValueError("mode must be 'spectral' or 'gradient'")
 
@@ -166,35 +167,39 @@ class _MxuForce(torch.autograd.Function):
     (``pmesh_tpu/models/fastpm.py:549-577``): each direction is a
     circular convolution with a real odd kernel (i k_d / k^2), so
     T_d^T = -T_d and rho_bar = -sum_d T_d(ct_d), one direction at a time
-    (``only=d``).  Nothing is saved for the backward."""
+    (``only=d``).  The backward runs the forward's DFT form (``form`` =
+    (precision, spectrum_dtype)).  Nothing is saved for the backward."""
 
     @staticmethod
-    def forward(ctx, solver, rho):
-        ctx.solver = solver
-        return solver._mxu_force_raw(rho.detach())
+    def forward(ctx, solver, rho, form=(None, None)):
+        ctx.solver, ctx.form = solver, form
+        return solver._mxu_force_raw(rho.detach(), form)
 
     @staticmethod
     def backward(ctx, *ct):
         acc = None
         for d, c in enumerate(ct):
-            f = ctx.solver._mxu_force_raw(c.detach().contiguous(), only=d)
+            f = ctx.solver._mxu_force_raw(c.detach().contiguous(), ctx.form,
+                                          only=d)
             acc = f if acc is None else acc + f
-        return None, -acc
+        return None, -acc, None
 
 
 class _MxuPotential(torch.autograd.Function):
     """The ct2 fft='mxu' Poisson potential, a circular convolution with
     a real even kernel (-1/k^2): self-adjoint, so its transpose is
-    itself (``pmesh_tpu/models/fastpm.py:648-666``)."""
+    itself (``pmesh_tpu/models/fastpm.py:648-666``), in the forward's DFT
+    form."""
 
     @staticmethod
-    def forward(ctx, solver, rho):
-        ctx.solver = solver
-        return solver._mxu_potential_raw(rho.detach())
+    def forward(ctx, solver, rho, form=(None, None)):
+        ctx.solver, ctx.form = solver, form
+        return solver._mxu_potential_raw(rho.detach(), form)
 
     @staticmethod
     def backward(ctx, ct):
-        return None, ctx.solver._mxu_potential_raw(ct.detach().contiguous())
+        return None, ctx.solver._mxu_potential_raw(ct.detach().contiguous(),
+                                                   ctx.form), None
 
 
 class Solver(object):
@@ -274,7 +279,11 @@ class Solver(object):
             derivative-window readout.
         fft : 'xla' (torch.fft) or 'mxu' (the DFT passes, f32: ct2 or
             dense by shape; the gradient mode takes the field path at
-            shapes that are not ct2, as the JAX package does).
+            shapes that are not ct2, as the JAX package does);
+            'mxu_bf16' the same passes with single-pass bf16 products;
+            'mxu_bf16s' with f32 products and the ct2 spectrum stored in
+            bf16 between the passes (the dense pipeline keeps f32, as
+            the JAX package's does).
 
         Returns the ndim force meshes (box-unit acceleration).
         """
@@ -309,12 +318,12 @@ class Solver(object):
     def _potential_mesh(self, rho, fft='xla'):
         """The (tf.poisson-signed) potential of a painted 1+delta
         density, shared by the lattice and binned gradient-mode forces:
-        the ct2 DFT route for fft='mxu' on an f32 3-d mesh of a ct2
+        the ct2 DFT route for the mxu modes on an f32 3-d mesh of a ct2
         shape (one x pass and one zy inverse), else the field path."""
         phi = None
-        if fft == 'mxu' and self.fpm.ndim == 3 \
+        if fft in _MXU and self.fpm.ndim == 3 \
                 and rho.dtype == torch.float32:
-            phi = self._mxu_potential(rho)
+            phi = self._mxu_potential(rho, _MXU[fft])
         if phi is None:
             phi = self.fpm.create(type=RealField, value=rho).r2c() \
                 .apply(tf.poisson()).c2r().value
@@ -323,14 +332,14 @@ class Solver(object):
     def _spectral_meshes(self, rho, fft='xla'):
         """The ndim directional force meshes of a painted 1+delta
         density, shared by the lattice and binned spectral forces."""
-        if fft == 'mxu':
+        if fft in _MXU:
             if self.fpm.ndim != 3:
                 raise ValueError("fft='mxu' is 3-d only")
             if rho.dtype != torch.float32:
                 raise ValueError(
                     "fft='mxu' computes in f32; use a dtype='f4' mesh or "
                     "fft='xla' for f64 runs")
-            return _MxuForce.apply(self, rho)
+            return _MxuForce.apply(self, rho, _MXU[fft])
         rhok = self.fpm.create(type=RealField, value=rho).r2c()
         return tuple(rhok.apply(tf.force_transfer(d)).c2r().value
                      for d in range(self.fpm.ndim))
@@ -363,20 +372,23 @@ class Solver(object):
         pk2, kd = self._mxu_cache
         return shape, pk2, kd, _fm.is_ct2(shape)
 
-    def _mxu_potential(self, rho):
-        """The Poisson potential through the ct2 DFT passes, or None
-        at shapes that are not ct2 (the caller takes the field path)."""
+    def _mxu_potential(self, rho, form=(None, None)):
+        """The Poisson potential through the ct2 DFT passes in the DFT
+        ``form`` (precision, spectrum_dtype), or None at shapes that are
+        not ct2 (the caller takes the field path)."""
         if not self._mxu_setup()[3]:
             return None
-        return _MxuPotential.apply(self, rho)
+        return _MxuPotential.apply(self, rho, form)
 
-    def _mxu_potential_raw(self, rho):
+    def _mxu_potential_raw(self, rho, form=(None, None)):
         shape, pk2, kd, ct = self._mxu_setup()
-        r, i, nqr, nqi = _fm.fft3_real_forward_half_ct2(rho)
+        precision, sdt = form
+        r, i, nqr, nqi = _fm.fft3_real_forward_half_ct2(
+            rho, precision=precision, spectrum_dtype=sdt)
         return _fm.fft3_poisson_half_ct2(r, i, nqr, nqi, n2=shape[2],
-                                         poisson_k2=pk2)
+                                         poisson_k2=pk2, precision=precision)
 
-    def _mxu_force_raw(self, rho, only=None):
+    def _mxu_force_raw(self, rho, form=(None, None), only=None):
         """The spectral force meshes through the DFT passes: one
         forward, then the 1/k^2 filter and the i*k_d force kernel folded
         into the inverse x pass and the per-axis inverse tables; the ct2
@@ -385,16 +397,22 @@ class Solver(object):
         folds it from the same 1-d tables).  ``only`` = d gives that
         direction alone, for the transpose of the operator: one x pass
         and one zy inverse at ct2 shapes, the triple's member elsewhere,
-        as the JAX package does."""
+        as the JAX package does.  ``form`` = (precision, spectrum_dtype)
+        of the passes; the dense pipeline ignores the storage dtype, as
+        the JAX package's does."""
         shape, pk2, kd, ct = self._mxu_setup()
+        precision, sdt = form
         if not ct:
-            r, i = _fm.fft3_real_forward_half(rho)
+            r, i = _fm.fft3_real_forward_half(rho, precision=precision)
             out = _fm.fft3_real_inverse_grad3_half(
-                r, i, n2=shape[2], kvecs=kd, poisson_k2=pk2)
+                r, i, n2=shape[2], kvecs=kd, precision=precision,
+                poisson_k2=pk2)
             return out if only is None else out[only]
-        r, i, nqr, nqi = _fm.fft3_real_forward_half_ct2(rho)
+        r, i, nqr, nqi = _fm.fft3_real_forward_half_ct2(
+            rho, precision=precision, spectrum_dtype=sdt)
         return _fm.fft3_real_inverse_grad3_half_ct2(
-            r, i, nqr, nqi, n2=shape[2], kvecs=kd, poisson_k2=pk2, only=only)
+            r, i, nqr, nqi, n2=shape[2], kvecs=kd, precision=precision,
+            poisson_k2=pk2, only=only)
 
     def nbody_lattice(self, disp, vel, time_steps, bounds,
                       factors='fastpm', scheme='symp2',

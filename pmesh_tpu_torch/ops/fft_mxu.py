@@ -47,9 +47,23 @@ raises and nothing falls back.  The small (N0, N1) Nyquist-plane DFTs
 (``_plane_fft2``) stay ``torch.matmul``, as the JAX package leaves them
 to XLA outside its kernels.
 
+The two bf16 forms of the JAX package are here too:
+
+- ``precision='bf16'`` (``fft='mxu_bf16'``) on every public operator:
+  single-pass bf16 products, as ``jax.lax.Precision('default')`` runs
+  them on the MXU: each operand of each product (data and table) rounded
+  to bf16, the sum kept in f32.  The plain versions round with
+  ``_rb``/``_mm`` exactly where the JAX kernels' products round; the
+  kernels run them on the tensor cores;
+- ``spectrum_dtype=torch.bfloat16`` (``fft='mxu_bf16s'``) on the ct2
+  forward: the spectrum is stored in bf16 between the passes (the zy
+  forward's and the x passes' outputs), with f32 products; the ct2
+  inverses keep a bf16 input's x-pass outputs in bf16.  The real meshes
+  and the Nyquist plane stay f32, and the dense pipeline has no storage
+  dtype, as in the JAX package.
+
 Left out on purpose: the TPU tuning (``TUNE``, the block-size pickers,
-the compiler parameters), the bf16 matmul precision (``fft='mxu_bf16'``)
-and the bf16 spectrum storage (``fft='mxu_bf16s'``).
+the compiler parameters).
 """
 import numpy as np
 import torch
@@ -361,7 +375,54 @@ def is_ct2(shape):
     return _ct_factor(N0)[0] > 1 and _ct_factor(N1)[0] > 1 and N2 % 2 == 0
 
 
+# --- the bf16 forms -----------------------------------------------------------
+
+def _bf16_products(precision):
+    """whether ``precision`` asks for the single-pass bf16 products of
+    the JAX package's ``precision='bf16'`` (``jax.lax.Precision
+    ('default')``: each operand of each product rounded to bf16, the sum
+    kept in f32); None or 'f32' (JAX's three-pass f32-exact products)
+    give f32 products."""
+    if precision in (None, 'f32'):
+        return False
+    if precision == 'bf16':
+        return True
+    raise ValueError("precision must be None, 'f32' or 'bf16' (got %r)"
+                     % (precision,))
+
+
+def _storage(dtype):
+    """the spectrum storage dtype: f32 (None) or bf16"""
+    if dtype is None or dtype == torch.float32:
+        return torch.float32
+    if dtype == torch.bfloat16:
+        return torch.bfloat16
+    raise ValueError("spectrum_dtype must be None, torch.float32 or "
+                     "torch.bfloat16 (got %r)" % (dtype,))
+
+
+def _rb(t, bf16):
+    """``t`` rounded to the nearest bf16 (ties to even, as the MXU
+    rounds an operand) and kept f32, when ``bf16``"""
+    return t.to(torch.bfloat16).to(torch.float32) if bf16 else t
+
+
+def _mm(a, b, bf16=False):
+    """one product of a plain pass; under ``bf16`` both operands (data
+    and table) are rounded to bf16 first, and since the product of two
+    bf16 values is exact in f32, only the order of the f32 sum differs
+    from the MXU's single pass"""
+    return torch.matmul(_rb(a, bf16), _rb(b, bf16))
+
+
 # --- plain PyTorch versions of the seven passes ------------------------------
+#
+# Each rounds, under ``bf16``, exactly where the JAX kernel's products
+# round: a product's operands after the butterfly sum, the 1/k^2 fold or a
+# negation formed in f32 before it; everything after a product (its scale,
+# an inverse butterfly, the z-CT combination, the plane) stays f32 until
+# the next product rounds it as its operand.  ``out_dtype`` is the storage
+# of a ct2 pass's spectrum output (bf16: rounded once, at the end).
 
 def _t(a, like):
     return torch.as_tensor(np.asarray(a), dtype=torch.float32,
@@ -393,7 +454,7 @@ def _cmadd(acc, xr, xi, c):
     return ar, ai
 
 
-def _ct_fwd_plain(xr, xi, wr, wi):
+def _ct_fwd_plain(xr, xi, wr, wi, bf16=False):
     """CT transform along axis -2 of (..., n, C): xi may be None (real
     input); wr/wi are (R, M, M) tensors.  Chunk-permuted output."""
     R, M = wr.shape[0], wr.shape[1]
@@ -408,15 +469,15 @@ def _ct_fwd_plain(xr, xi, wr, wi):
             acc = _cmadd(acc, xs_r[r], xs_i[r], B[r, j])
         ur, ui = acc
         if ui is None:
-            outs_r.append(torch.matmul(wr[j], ur))
-            outs_i.append(torch.matmul(wi[j], ur))
+            outs_r.append(_mm(wr[j], ur, bf16))
+            outs_i.append(_mm(wi[j], ur, bf16))
         else:
-            outs_r.append(torch.matmul(wr[j], ur) - torch.matmul(wi[j], ui))
-            outs_i.append(torch.matmul(wr[j], ui) + torch.matmul(wi[j], ur))
+            outs_r.append(_mm(wr[j], ur, bf16) - _mm(wi[j], ui, bf16))
+            outs_i.append(_mm(wr[j], ui, bf16) + _mm(wi[j], ur, bf16))
     return torch.cat(outs_r, -2), torch.cat(outs_i, -2)
 
 
-def _ct_inv_plain(xr, xi, wr, wi):
+def _ct_inv_plain(xr, xi, wr, wi, bf16=False):
     """inverse CT along axis -2 of chunk-permuted (..., n, C); natural
     order out."""
     R, M = wr.shape[0], wr.shape[1]
@@ -425,8 +486,8 @@ def _ct_inv_plain(xr, xi, wr, wi):
     for j in range(R):
         pr = xr[..., j * M:(j + 1) * M, :]
         pi = xi[..., j * M:(j + 1) * M, :]
-        ys.append((torch.matmul(wr[j], pr) - torch.matmul(wi[j], pi),
-                   torch.matmul(wr[j], pi) + torch.matmul(wi[j], pr)))
+        ys.append((_mm(wr[j], pr, bf16) - _mm(wi[j], pi, bf16),
+                   _mm(wr[j], pi, bf16) + _mm(wi[j], pr, bf16)))
     outs_r, outs_i = [], []
     for r in range(R):
         acc = (None, None)
@@ -437,7 +498,7 @@ def _ct_inv_plain(xr, xi, wr, wi):
     return torch.cat(outs_r, -2), torch.cat(outs_i, -2)
 
 
-def _zct_fwd_plain(p, Er, Ei, N2):
+def _zct_fwd_plain(p, Er, Ei, N2, bf16=False):
     """forward z-CT of real rows p (..., N2) -> stored-order (zr, zi)
     (..., Zm); Er/Ei are (Rz, K, Mq) tensors."""
     Rz, K, Mq = _zct_factor(N2)
@@ -457,17 +518,15 @@ def _zct_fwd_plain(p, Er, Ei, N2):
             ur, ui = us[Rz - j]
             ui = None if ui is None else -ui
         if ui is None:
-            outs_r.append(torch.matmul(ur, Er[pblk]))
-            outs_i.append(torch.matmul(ur, Ei[pblk]))
+            outs_r.append(_mm(ur, Er[pblk], bf16))
+            outs_i.append(_mm(ur, Ei[pblk], bf16))
         else:
-            outs_r.append(torch.matmul(ur, Er[pblk])
-                          - torch.matmul(ui, Ei[pblk]))
-            outs_i.append(torch.matmul(ur, Ei[pblk])
-                          + torch.matmul(ui, Er[pblk]))
+            outs_r.append(_mm(ur, Er[pblk], bf16) - _mm(ui, Ei[pblk], bf16))
+            outs_i.append(_mm(ur, Ei[pblk], bf16) + _mm(ui, Er[pblk], bf16))
     return torch.cat(outs_r, -1), torch.cat(outs_i, -1)
 
 
-def _zct_inv_plain(yr, yi, A, B):
+def _zct_inv_plain(yr, yi, A, B, bf16=False):
     """inverse z-CT of stored-order (yr, yi) (..., Zm) -> real (..., n2);
     A/B are (Ri, Kin, Kb) tensors."""
     Ri, Kin = A.shape[0], A.shape[1]
@@ -476,8 +535,8 @@ def _zct_inv_plain(yr, yi, A, B):
     for j in range(Ri):
         xr = yr[..., j * Kin:(j + 1) * Kin]
         xi = yi[..., j * Kin:(j + 1) * Kin]
-        Ps.append(torch.matmul(xr, A[j]) + torch.matmul(xi, B[j]))
-        Qs.append(torch.matmul(xi, A[j]) - torch.matmul(xr, B[j]))
+        Ps.append(_mm(xr, A[j], bf16) + _mm(xi, B[j], bf16))
+        Qs.append(_mm(xi, A[j], bf16) - _mm(xr, B[j], bf16))
 
     def addto(acc, coef, x):
         if abs(coef) < 1e-30:
@@ -496,43 +555,46 @@ def _zct_inv_plain(yr, yi, A, B):
     return torch.cat(blocks, -1)
 
 
-def _z_inv_plain(yr, yi, A, B):
+def _z_inv_plain(yr, yi, A, B, bf16=False):
     if A.dim() == 3:
-        return _zct_inv_plain(yr, yi, A, B)
-    return torch.matmul(yr, A) + torch.matmul(yi, B)
+        return _zct_inv_plain(yr, yi, A, B, bf16)
+    return _mm(yr, A, bf16) + _mm(yi, B, bf16)
 
 
-def zy_fwd_ct2_plain(x, wz, wy):
+def zy_fwd_ct2_plain(x, wz, wy, bf16=False, out_dtype=torch.float32):
     """Row 6, plain: real (n0, N1, N2) -> (r, i) (n0, N1, Zm) in stored
-    order, and the raw Nyquist row sum nq (n0, N1) = sum_n x (-1)^n.
-    wz: the (2-d dense or 3-d z-CT) pair of ``_z_fwd_tabs``; wy: the
-    pair of ``_ct_fwd_mats_np(N1)``."""
+    order, stored as ``out_dtype``, and the raw f32 Nyquist row sum nq
+    (n0, N1) = sum_n x (-1)^n.  wz: the (2-d dense or 3-d z-CT) pair of
+    ``_z_fwd_tabs``; wy: the pair of ``_ct_fwd_mats_np(N1)``."""
     N2 = x.shape[2]
     p = x.to(torch.float32)
     nq = (p * _signs(N2, p)).sum(-1)
     wzr, wzi = (_t(a, p) for a in wz)
     if wzr.dim() == 3:
-        zr, zi = _zct_fwd_plain(p, wzr, wzi, N2)
+        zr, zi = _zct_fwd_plain(p, wzr, wzi, N2, bf16)
     else:
-        zr, zi = torch.matmul(p, wzr), torch.matmul(p, wzi)
-    yr, yi = _ct_fwd_plain(zr, zi, *(_t(a, p) for a in wy))
-    return yr, yi, nq
+        zr, zi = _mm(p, wzr, bf16), _mm(p, wzi, bf16)
+    yr, yi = _ct_fwd_plain(zr, zi, *(_t(a, p) for a in wy), bf16=bf16)
+    return yr.to(out_dtype), yi.to(out_dtype), nq
 
 
-def xct_multi_plain(pr, pi, wx, scale, inverse=False, wx2=None, k2=None):
+def xct_multi_plain(pr, pi, wx, scale, inverse=False, wx2=None, k2=None,
+                    bf16=False, out_dtype=torch.float32):
     """Row 5, plain: the x CT of an (N0, n1, W) complex block, forward
     (times ``scale``) or inverse, with an optional second table set
     ``wx2`` on the same input and an optional 1/k^2 fold from the 1-d
     tables ``k2`` = (k2x (N0,), k2y (n1,), k2z (W,)), DC set to 0.
-    Returns (r, i) or (r, i, r2, i2)."""
+    Returns (r, i) or (r, i, r2, i2), stored as ``out_dtype``."""
     f = _ct_inv_plain if inverse else _ct_fwd_plain
-    return _x_pass_plain(pr, pi, wx, scale, wx2, k2, f)
+    return _x_pass_plain(pr, pi, wx, scale, wx2, k2, f, bf16, out_dtype)
 
 
-def _x_pass_plain(pr, pi, wx, scale, wx2, k2, transform):
-    """what the x passes share: the optional 1/k^2 fold (DC set to 0),
-    then ``transform`` along x for one or two table sets, times
-    ``scale``.  Returns (r, i) or (r, i, r2, i2)."""
+def _x_pass_plain(pr, pi, wx, scale, wx2, k2, transform, bf16=False,
+                  out_dtype=torch.float32):
+    """what the x passes share: the input upcast to f32, the optional
+    1/k^2 fold (DC set to 0), then ``transform`` along x for one or two
+    table sets, times ``scale``, stored as ``out_dtype``.  Returns (r, i)
+    or (r, i, r2, i2)."""
     N0, n1, W = pr.shape
     xr, xi = pr.to(torch.float32), pi.to(torch.float32)
     if k2 is not None:
@@ -545,75 +607,81 @@ def _x_pass_plain(pr, pi, wx, scale, wx2, k2, transform):
     out = []
     for w in (wx,) if wx2 is None else (wx, wx2):
         wr, wi = (_t(a, xr) for a in w)
-        rr, ii = transform(xr, xi, wr, wi)
-        out += [(rr * scale).reshape(N0, n1, W),
-                (ii * scale).reshape(N0, n1, W)]
+        rr, ii = transform(xr, xi, wr, wi, bf16)
+        out += [(rr * scale).reshape(N0, n1, W).to(out_dtype),
+                (ii * scale).reshape(N0, n1, W).to(out_dtype)]
     return tuple(out)
 
 
-def _dense_plain(xr, xi, wr, wi):
+def _dense_plain(xr, xi, wr, wi, bf16=False):
     """dense complex DFT along axis -2: (wr + i wi) @ (xr + i xi)."""
-    return (torch.matmul(wr, xr) - torch.matmul(wi, xi),
-            torch.matmul(wr, xi) + torch.matmul(wi, xr))
+    return (_mm(wr, xr, bf16) - _mm(wi, xi, bf16),
+            _mm(wr, xi, bf16) + _mm(wi, xr, bf16))
 
 
-def zy_fwd_half_plain(x, wz, wy):
+def zy_fwd_half_plain(x, wz, wy, bf16=False):
     """Row 3 pass 1, plain: real (n0, N1, N2) -> (r, i) (n0, N1, Zh),
     natural order: the z half-DFT pair ``wz`` = ``_dft_half_np(N2,
     Zh)``, then the dense y DFT pair ``wy`` = ``_dft_np(N1, -1)``."""
     p = x.to(torch.float32)
     wzr, wzi = (_t(a, p) for a in wz)
-    return _dense_plain(torch.matmul(p, wzr), torch.matmul(p, wzi),
-                        *(_t(a, p) for a in wy))
+    return _dense_plain(_mm(p, wzr, bf16), _mm(p, wzi, bf16),
+                        *(_t(a, p) for a in wy), bf16=bf16)
 
 
-def x_dense_plain(pr, pi, wx, scale, wx2=None, k2=None):
+def x_dense_plain(pr, pi, wx, scale, wx2=None, k2=None, bf16=False):
     """Rows 3 and 4 x pass, plain: the dense x DFT of an (N0, n1, W)
     complex block by the (N0, N0) pair ``wx`` (forward or inverse, by
     the table) times ``scale``, with an optional second pair ``wx2`` on
     the same input and an optional 1/k^2 fold from the natural-order
     1-d tables ``k2`` = (k2x (N0,), k2y (n1,), k2z (W,)), DC set to 0.
     Returns (r, i) or (r, i, r2, i2)."""
-    return _x_pass_plain(pr, pi, wx, scale, wx2, k2, _dense_plain)
+    return _x_pass_plain(pr, pi, wx, scale, wx2, k2, _dense_plain, bf16)
 
 
-def zy_inv_half_plain(rr, ii, wy, AB):
+def zy_inv_half_plain(rr, ii, wy, AB, bf16=False):
     """Row 4 zy pass, plain: (n0, N1, Zh) natural-order spectrum ->
     real (n0, N1, n2): the dense inverse y DFT pair ``wy`` (plain or
     with i*k_y folded), then z half -> real by the (Zh, n2) pair ``AB``
     of ``_irfft_mats_np`` (plain or with i*k_z folded)."""
     xr, xi = rr.to(torch.float32), ii.to(torch.float32)
-    yr, yi = _dense_plain(xr, xi, *(_t(a, xr) for a in wy))
+    yr, yi = _dense_plain(xr, xi, *(_t(a, xr) for a in wy), bf16=bf16)
     A, B = (_t(a, xr) for a in AB)
-    return torch.matmul(yr, A) + torch.matmul(yi, B)
+    return _mm(yr, A, bf16) + _mm(yi, B, bf16)
 
 
-def _zy_inv_one(xr, xi, Wy, AB, n2, plane):
-    yr, yi = _ct_inv_plain(xr, xi, *(_t(a, xr) for a in Wy))
-    out = _z_inv_plain(yr, yi, *(_t(a, xr) for a in AB))
+def _zy_inv_one(xr, xi, Wy, AB, n2, plane, bf16):
+    yr, yi = _ct_inv_plain(xr, xi, *(_t(a, xr) for a in Wy), bf16=bf16)
+    out = _z_inv_plain(yr, yi, *(_t(a, xr) for a in AB), bf16=bf16)
     if plane is not None:
         out = out + plane.to(torch.float32)[:, :, None] * _signs(n2, out)
     return out
 
 
-def zy_inv_ct2_plain(rr, ii, Wy, AB, n2, plane=None):
-    """Row 7, plain: (n0, N1, Zm) stored-order spectrum -> real
-    (n0, N1, n2): the inverse y CT (``_ct_inv_mats_np`` pair ``Wy``),
-    then the z inverse (dense (Zm, n2) or z-CT (Ri, Kin, Kb) pair
-    ``AB``, by ndim), plus ``plane`` (n0, N1) times (-1)^n if given."""
+def zy_inv_ct2_plain(rr, ii, Wy, AB, n2, plane=None, bf16=False):
+    """Row 7, plain: (n0, N1, Zm) stored-order spectrum (f32 or bf16)
+    -> real f32 (n0, N1, n2): the inverse y CT (``_ct_inv_mats_np`` pair
+    ``Wy``), then the z inverse (dense (Zm, n2) or z-CT (Ri, Kin, Kb)
+    pair ``AB``, by ndim), plus ``plane`` (n0, N1) times (-1)^n if
+    given."""
     return _zy_inv_one(rr.to(torch.float32), ii.to(torch.float32), Wy, AB,
-                       n2, plane)
+                       n2, plane, bf16)
 
 
-def zy_inv_ct2_dual_plain(rr, ii, WyA, ABA, WyB, ABB, n2, planeA=None):
+def zy_inv_ct2_dual_plain(rr, ii, WyA, ABA, WyB, ABB, n2, planeA=None,
+                          bf16=False):
     """Row 8, plain: two table sets on one input; the plane goes to set
     A only.  Returns (outA, outB)."""
     xr, xi = rr.to(torch.float32), ii.to(torch.float32)
-    return (_zy_inv_one(xr, xi, WyA, ABA, n2, planeA),
-            _zy_inv_one(xr, xi, WyB, ABB, n2, None))
+    return (_zy_inv_one(xr, xi, WyA, ABA, n2, planeA, bf16),
+            _zy_inv_one(xr, xi, WyB, ABB, n2, None, bf16))
 
 
 # --- dispatch -----------------------------------------------------------------
+#
+# ``precision`` (None/'f32' or 'bf16') selects the products, ``out_dtype``
+# (f32 or bf16) the storage of a ct2 pass's spectrum output; the zy
+# inverses read the storage their input has and write f32 meshes.
 
 def _use_cuda(impl, t):
     if impl is None:
@@ -629,112 +697,139 @@ def _use_cuda(impl, t):
                      % (impl,))
 
 
-def _zy_fwd_ct2_call(x, N2, Zm, wz, wy, impl=None):
+def _zy_fwd_ct2_call(x, N2, Zm, wz, wy, precision=None,
+                     out_dtype=torch.float32, impl=None):
     """pass 1 (row 6) on an (n0, N1, N2) block -> (r, i, nq)."""
+    bf16, sdt = _bf16_products(precision), _storage(out_dtype)
     if x.shape[2] != N2 or Zm != N2 // 2:
         raise ValueError("_zy_fwd_ct2_call: N2=%d, Zm=%d do not fit %s"
                          % (N2, Zm, tuple(x.shape)))
     if _use_cuda(impl, x):
         from . import fft_mxu_cuda as _k
-        return _k.zy_fwd_ct2(x, wz, wy)
-    return zy_fwd_ct2_plain(x, wz, wy)
+        return _k.zy_fwd_ct2(x, wz, wy, bf16=bf16, out_dtype=sdt)
+    return zy_fwd_ct2_plain(x, wz, wy, bf16, sdt)
 
 
 def _xct_call_multi(pr, pi, wx, scale, inverse=False, wx2=None, k2=None,
-                    impl=None):
+                    precision=None, out_dtype=torch.float32, impl=None):
     """pass 2 (row 5): the x CT of an (N0, n1, W) block; returns (r, i)
-    or (r, i, r2, i2)."""
+    or (r, i, r2, i2).  The kernel stores its output as its input is
+    stored (JAX's callers pass the input's dtype as ``out_dtype``)."""
+    bf16, sdt = _bf16_products(precision), _storage(out_dtype)
     if _use_cuda(impl, pr):
+        if sdt != pr.dtype:
+            raise NotImplementedError(
+                "xct_multi: the CUDA kernel stores its output as its input "
+                "is stored (input %s, out_dtype %s)" % (pr.dtype, sdt))
         from . import fft_mxu_cuda as _k
         return _k.xct_multi(pr, pi, wx, scale, inverse=inverse, wx2=wx2,
-                            k2=k2)
+                            k2=k2, bf16=bf16)
     return xct_multi_plain(pr, pi, wx, scale, inverse=inverse, wx2=wx2,
-                           k2=k2)
+                           k2=k2, bf16=bf16, out_dtype=sdt)
 
 
-def _zy_inv_ct2_call(rr, ii, Wy, AB, n2, plane=None, impl=None):
+def _zy_inv_ct2_call(rr, ii, Wy, AB, n2, plane=None, precision=None,
+                     impl=None):
     """inverse pass (row 7) on an (n0, N1, Zm) block -> (n0, N1, n2)."""
+    bf16 = _bf16_products(precision)
     if _use_cuda(impl, rr):
         from . import fft_mxu_cuda as _k
-        return _k.zy_inv_ct2(rr, ii, Wy, AB, n2, plane=plane)
-    return zy_inv_ct2_plain(rr, ii, Wy, AB, n2, plane=plane)
+        return _k.zy_inv_ct2(rr, ii, Wy, AB, n2, plane=plane, bf16=bf16)
+    return zy_inv_ct2_plain(rr, ii, Wy, AB, n2, plane=plane, bf16=bf16)
 
 
 def _zy_inv_ct2_call_dual(rr, ii, WyA, ABA, WyB, ABB, n2, planeA=None,
-                          impl=None):
+                          precision=None, impl=None):
     """dual inverse pass (row 8): (outA, outB) from one (rr, ii) read."""
+    bf16 = _bf16_products(precision)
     if _use_cuda(impl, rr):
         from . import fft_mxu_cuda as _k
         return _k.zy_inv_ct2_dual(rr, ii, WyA, ABA, WyB, ABB, n2,
-                                  planeA=planeA)
+                                  planeA=planeA, bf16=bf16)
     return zy_inv_ct2_dual_plain(rr, ii, WyA, ABA, WyB, ABB, n2,
-                                 planeA=planeA)
+                                 planeA=planeA, bf16=bf16)
 
 
-def _zy_fwd_dense_call(x, wz, wy, impl=None):
+def _zy_fwd_dense_call(x, wz, wy, precision=None, impl=None):
     """row 3 pass 1 on an (n0, N1, N2) block -> (r, i) (n0, N1, Zh)."""
+    bf16 = _bf16_products(precision)
     if _use_cuda(impl, x):
         from . import fft_mxu_cuda as _k
-        return _k.zy_fwd_half(x, wz, wy)
-    return zy_fwd_half_plain(x, wz, wy)
+        return _k.zy_fwd_half(x, wz, wy, bf16=bf16)
+    return zy_fwd_half_plain(x, wz, wy, bf16)
 
 
-def _x_dense_call(pr, pi, wx, scale, wx2=None, k2=None, impl=None):
+def _x_dense_call(pr, pi, wx, scale, wx2=None, k2=None, precision=None,
+                  impl=None):
     """the dense x pass (rows 3 and 4) of an (N0, n1, W) block; returns
     (r, i) or (r, i, r2, i2)."""
+    bf16 = _bf16_products(precision)
     if _use_cuda(impl, pr):
         from . import fft_mxu_cuda as _k
-        return _k.x_dense(pr, pi, wx, scale, wx2=wx2, k2=k2)
-    return x_dense_plain(pr, pi, wx, scale, wx2=wx2, k2=k2)
+        return _k.x_dense(pr, pi, wx, scale, wx2=wx2, k2=k2, bf16=bf16)
+    return x_dense_plain(pr, pi, wx, scale, wx2=wx2, k2=k2, bf16=bf16)
 
 
-def _zy_inv_dense_call(rr, ii, wy, AB, impl=None):
+def _zy_inv_dense_call(rr, ii, wy, AB, precision=None, impl=None):
     """row 4 zy pass on an (n0, N1, Zh) block -> (n0, N1, n2)."""
+    bf16 = _bf16_products(precision)
     if _use_cuda(impl, rr):
         from . import fft_mxu_cuda as _k
-        return _k.zy_inv_half(rr, ii, wy, AB)
-    return zy_inv_half_plain(rr, ii, wy, AB)
+        return _k.zy_inv_half(rr, ii, wy, AB, bf16=bf16)
+    return zy_inv_half_plain(rr, ii, wy, AB, bf16)
 
 
-def _plane_fft2(nq_r, nq_i, N0, N1, sign, scale=1.0):
+def _plane_fft2(nq_r, nq_i, N0, N1, sign, scale=1.0, bf16=False):
     """2-d complex DFT of the (N0, N1) Nyquist plane with plain matmuls
     (symmetric DFT matrices: left-multiply transforms x, right-multiply
-    y).  nq_i may be None (real input).  Natural order."""
+    y).  nq_i may be None (real input).  Natural order.  Under ``bf16``
+    the operands are rounded as XLA's DEFAULT-precision dot rounds them
+    on the TPU."""
     dev = nq_r.device
     wxr, wxi = (_on_device(a, dev) for a in _cached(_dft_np, N0, sign))
     wyr, wyi = (_on_device(a, dev) for a in _cached(_dft_np, N1, sign))
     if nq_i is None:
-        ar = torch.matmul(wxr, nq_r)
-        ai = torch.matmul(wxi, nq_r)
+        ar = _mm(wxr, nq_r, bf16)
+        ai = _mm(wxi, nq_r, bf16)
     else:
-        ar = torch.matmul(wxr, nq_r) - torch.matmul(wxi, nq_i)
-        ai = torch.matmul(wxr, nq_i) + torch.matmul(wxi, nq_r)
-    sr = torch.matmul(ar, wyr) - torch.matmul(ai, wyi)
-    si = torch.matmul(ar, wyi) + torch.matmul(ai, wyr)
+        ar = _mm(wxr, nq_r, bf16) - _mm(wxi, nq_i, bf16)
+        ai = _mm(wxr, nq_i, bf16) + _mm(wxi, nq_r, bf16)
+    sr = _mm(ar, wyr, bf16) - _mm(ai, wyi, bf16)
+    si = _mm(ar, wyi, bf16) + _mm(ai, wyr, bf16)
     return sr * scale, si * scale
 
 
 # --- the public ct2 operators -------------------------------------------------
 
-def fft3_real_forward_half_ct2(x, norm=True, impl=None):
+def fft3_real_forward_half_ct2(x, norm=True, precision=None,
+                               spectrum_dtype=None, impl=None):
     """split-Nyquist CT forward of a real f32 (N0, N1, N2) mesh: returns
     (r, i, nqr, nqi), the main (N0, N1, N2//2) spectrum with
     chunk-permuted x/y axes (and z in ``_zct_perm`` order when
     ``_use_zct_fwd``), and the z-Nyquist plane spectrum (N0, N1) in
-    natural x/y order; scaled by 1/(N0 N1 N2) when ``norm``."""
+    natural x/y order; scaled by 1/(N0 N1 N2) when ``norm``.
+
+    precision : None/'f32' (f32 products) or 'bf16' (single-pass bf16
+        products, f32 sums).
+    spectrum_dtype : None (f32) or torch.bfloat16: the storage of (r, i)
+        and of the spectrum between the two passes; the products stay
+        as ``precision`` says and the Nyquist plane stays f32."""
     N0, N1, N2 = x.shape
     Zm = N2 // 2
     if not is_ct2(x.shape):
         raise ValueError("ct2 needs N0/N1 = R*128k and even N2 (got %s)"
                          % (tuple(x.shape),))
+    bf16, sdt = _bf16_products(precision), _storage(spectrum_dtype)
     wz = _cached(_z_fwd_tabs, N2, Zm)
     wy = _cached(_ct_fwd_mats_np, N1)
     wx = _cached(_ct_fwd_mats_np, N0)
-    pr, pi, nq = _zy_fwd_ct2_call(x, N2, Zm, wz, wy, impl=impl)
+    pr, pi, nq = _zy_fwd_ct2_call(x, N2, Zm, wz, wy, precision=precision,
+                                  out_dtype=sdt, impl=impl)
     scale = 1.0 / (N0 * N1 * N2) if norm else 1.0
-    rr, ii = _xct_call_multi(pr, pi, wx, scale, impl=impl)
+    rr, ii = _xct_call_multi(pr, pi, wx, scale, precision=precision,
+                             out_dtype=sdt, impl=impl)
     del pr, pi
-    nqr, nqi = _plane_fft2(nq, None, N0, N1, -1, np.float32(scale))
+    nqr, nqi = _plane_fft2(nq, None, N0, N1, -1, np.float32(scale), bf16)
     return rr, ii, nqr, nqi
 
 
@@ -746,8 +841,16 @@ def _check_kvecs(kvecs, N0, N1):
                 "half-spectrum gradient" % d)
 
 
+def _spectrum_storage(r):
+    """the storage of a ct2 inverse's x-pass outputs: that of its input
+    spectrum (bf16 stays bf16, as JAX keeps a bf16 input's
+    intermediates in bf16)"""
+    return torch.bfloat16 if r.dtype == torch.bfloat16 else torch.float32
+
+
 def fft3_real_inverse_grad3_half_ct2(r, i, nqr, nqi, n2, kvecs,
-                                     poisson_k2=None, only=None, impl=None):
+                                     precision=None, poisson_k2=None,
+                                     only=None, impl=None):
     """split-Nyquist CT spectral force triple: the unnormalized inverses
     of i*k_d times the spectrum, d = 0, 1, 2.  The z gradient's Nyquist
     contribution vanishes (kvecs[2] is Nyquist-zero), so only fx and fy
@@ -755,13 +858,18 @@ def fft3_real_inverse_grad3_half_ct2(r, i, nqr, nqi, n2, kvecs,
 
     kvecs : three natural-order tuples (len N0, N1, >= Zm), the x and y
         ones zero at Nyquist.
+    precision : None/'f32' or 'bf16' (single-pass bf16 products).
     poisson_k2 : None or three natural-order k^2 tuples (len N0, N1,
         Zm+1); then (r, i, nqr, nqi) are the raw forward spectrum and
         1/k^2 (DC zeroed) folds into the x pass.
     only : None or 0/1/2: just that direction (one x pass and one zy
-        inverse), for the transpose of the force operator."""
+        inverse), for the transpose of the force operator.
+
+    A bf16 (r, i) (``spectrum_dtype=torch.bfloat16`` of the forward)
+    keeps the x-pass outputs in bf16; the force meshes are f32."""
     N0, N1, Zm = r.shape
     _check_kvecs(kvecs, N0, N1)
+    bf16, sdt = _bf16_products(precision), _spectrum_storage(r)
     kvecs = _tuples(kvecs)
     wy = _cached(_ct_inv_mats_np, N1)
     wx = _cached(_ct_inv_mats_np, N0)
@@ -782,32 +890,30 @@ def fft3_real_inverse_grad3_half_ct2(r, i, nqr, nqi, n2, kvecs,
     plane_x = plane_y = None
     if only in (None, 0):
         plane_x = _plane_fft2(-nqi * kx[:, None], nqr * kx[:, None], N0, N1,
-                              +1)[0]
+                              +1, bf16=bf16)[0]
     if only in (None, 1):
         plane_y = _plane_fft2(-nqi * ky[None, :], nqr * ky[None, :], N0, N1,
-                              +1)[0]
+                              +1, bf16=bf16)[0]
+    kw = dict(precision=precision, impl=impl)
+    xkw = dict(inverse=True, k2=k2m, out_dtype=sdt, **kw)
 
     if only == 0:
-        gr, gi = _xct_call_multi(r, i, wx_g, 1.0, inverse=True, k2=k2m,
-                                 impl=impl)
-        return _zy_inv_ct2_call(gr, gi, wy, AB_p, n2, plane=plane_x,
-                                impl=impl)
+        gr, gi = _xct_call_multi(r, i, wx_g, 1.0, **xkw)
+        return _zy_inv_ct2_call(gr, gi, wy, AB_p, n2, plane=plane_x, **kw)
     if only in (1, 2):
-        sr, si = _xct_call_multi(r, i, wx, 1.0, inverse=True, k2=k2m,
-                                 impl=impl)
+        sr, si = _xct_call_multi(r, i, wx, 1.0, **xkw)
         if only == 1:
             return _zy_inv_ct2_call(sr, si, wy_g, AB_p, n2, plane=plane_y,
-                                    impl=impl)
-        return _zy_inv_ct2_call(sr, si, wy, AB_g, n2, impl=impl)
+                                    **kw)
+        return _zy_inv_ct2_call(sr, si, wy, AB_g, n2, **kw)
     if only is not None:
         raise ValueError("only must be None, 0, 1 or 2")
-    sr, si, gr, gi = _xct_call_multi(r, i, wx, 1.0, inverse=True, wx2=wx_g,
-                                     k2=k2m, impl=impl)
+    sr, si, gr, gi = _xct_call_multi(r, i, wx, 1.0, wx2=wx_g, **xkw)
     # fy and fz share the (sr, si) read: one dual pass
     fy, fz = _zy_inv_ct2_call_dual(sr, si, wy_g, AB_p, wy, AB_g, n2,
-                                   planeA=plane_y, impl=impl)
+                                   planeA=plane_y, **kw)
     del sr, si
-    fx = _zy_inv_ct2_call(gr, gi, wy, AB_p, n2, plane=plane_x, impl=impl)
+    fx = _zy_inv_ct2_call(gr, gi, wy, AB_p, n2, plane=plane_x, **kw)
     return fx, fy, fz
 
 
@@ -815,36 +921,44 @@ def _tuples(tables):
     return tuple(tuple(float(v) for v in t) for t in tables)
 
 
-def fft3_poisson_half_ct2(r, i, nqr, nqi, n2, poisson_k2, impl=None):
+def fft3_poisson_half_ct2(r, i, nqr, nqi, n2, poisson_k2, precision=None,
+                          impl=None):
     """split-Nyquist CT Poisson potential phi = -IFFT(spec / k^2) (the
     tf.poisson sign) with the DC mode zeroed: one x pass (1/k^2 folded
     from the 1-d tables) and one zy inverse.  The -1 folds into the z
-    tables and the Nyquist plane."""
+    tables and the Nyquist plane.  ``precision`` and a bf16 (r, i) as in
+    :func:`fft3_real_inverse_grad3_half_ct2`."""
     N0, N1, Zm = r.shape
+    bf16 = _bf16_products(precision)
     wy = _cached(_ct_inv_mats_np, N1)
     wx = _cached(_ct_inv_mats_np, N0)
     AB_p = _cached(_z_inv_tabs, n2, Zm, None, True)
     invk2p, k2m = _cached(_poisson_tables, _tuples(poisson_k2), N0, N1, Zm)
     invk2p = _on_device(invk2p, r.device)
-    plane = -_plane_fft2(nqr * invk2p, nqi * invk2p, N0, N1, +1)[0]
-    sr, si = _xct_call_multi(r, i, wx, 1.0, inverse=True, k2=k2m, impl=impl)
-    return _zy_inv_ct2_call(sr, si, wy, AB_p, n2, plane=plane, impl=impl)
+    plane = -_plane_fft2(nqr * invk2p, nqi * invk2p, N0, N1, +1,
+                         bf16=bf16)[0]
+    sr, si = _xct_call_multi(r, i, wx, 1.0, inverse=True, k2=k2m,
+                             precision=precision,
+                             out_dtype=_spectrum_storage(r), impl=impl)
+    return _zy_inv_ct2_call(sr, si, wy, AB_p, n2, plane=plane,
+                            precision=precision, impl=impl)
 
 
 # --- the dense public operators (rows 3 and 4) -------------------------------
 
-def fft3_real_forward_half(x, norm=True, impl=None):
+def fft3_real_forward_half(x, norm=True, precision=None, impl=None):
     """hermitian-half forward FFT of a real f32 (N0, N1, N2) mesh at any
     shape: returns (r, i) of shape (N0, N1, N2 // 2 + 1) in natural
-    order, scaled by 1/(N0 N1 N2) when ``norm``."""
+    order, scaled by 1/(N0 N1 N2) when ``norm``; ``precision`` None/'f32'
+    or 'bf16' (single-pass bf16 products)."""
     N0, N1, N2 = x.shape
     Zh = N2 // 2 + 1
     wz = _cached(_dft_half_np, N2, Zh)
     wy = _cached(_dft_np, N1, -1)
     wx = _cached(_dft_np, N0, -1)
-    pr, pi = _zy_fwd_dense_call(x, wz, wy, impl=impl)
+    pr, pi = _zy_fwd_dense_call(x, wz, wy, precision=precision, impl=impl)
     scale = 1.0 / (N0 * N1 * N2) if norm else 1.0
-    return _x_dense_call(pr, pi, wx, scale, impl=impl)
+    return _x_dense_call(pr, pi, wx, scale, precision=precision, impl=impl)
 
 
 def _dense_k2_tables(poisson_k2, N0, N1, Zh):
@@ -858,8 +972,8 @@ def _dense_k2_tables(poisson_k2, N0, N1, Zh):
     return k2
 
 
-def fft3_real_inverse_grad3_half(r, i, n2, kvecs, poisson_k2=None,
-                                 impl=None):
+def fft3_real_inverse_grad3_half(r, i, n2, kvecs, precision=None,
+                                 poisson_k2=None, impl=None):
     """the spectral force triple from a natural-order HALF spectrum
     (r, i) of shape (N0, N1, Zh): the unnormalized inverses of i*k_d
     times the spectrum, d = 0, 1, 2.  The y and z gradients fold into
@@ -870,12 +984,15 @@ def fft3_real_inverse_grad3_half(r, i, n2, kvecs, poisson_k2=None,
         kvecs[1] must vanish at the Nyquist index of an even axis (a
         nonzero odd multiplier there breaks the hermitian symmetry the
         half-spectrum doubling relies on).
+    precision : None/'f32' or 'bf16' (single-pass bf16 products).
     poisson_k2 : None, or three natural-order k^2 tables (len N0, N1,
         Zh): then 1/k^2 (DC zeroed) folds into the x pass, and (r, i)
         is the raw forward spectrum.  The default None keeps the JAX
         package's signature and meaning (the caller filters the
         spectrum first); the solver passes the tables, which saves the
-        elementwise filter pass over the spectrum."""
+        elementwise filter pass over the spectrum.  The fold multiplies
+        in f32 before the x product rounds its operand, as the JAX
+        solver's elementwise filter does."""
     N0, N1, Zh = r.shape
     _check_kvecs(kvecs, N0, N1)
     if len(kvecs[2]) != Zh:
@@ -893,10 +1010,11 @@ def fft3_real_inverse_grad3_half(r, i, n2, kvecs, poisson_k2=None,
     k2 = None
     if poisson_k2 is not None:
         k2 = _cached(_dense_k2_tables, _tuples(poisson_k2), N0, N1, Zh)
+    kw = dict(precision=precision, impl=impl)
     # both inverse x passes from one read of (r, i)
-    sr, si, gr, gi = _x_dense_call(r, i, wx, 1.0, wx2=wx_g, k2=k2, impl=impl)
-    fy = _zy_inv_dense_call(sr, si, wy_g, AB_p, impl=impl)
-    fz = _zy_inv_dense_call(sr, si, wy, AB_g, impl=impl)
+    sr, si, gr, gi = _x_dense_call(r, i, wx, 1.0, wx2=wx_g, k2=k2, **kw)
+    fy = _zy_inv_dense_call(sr, si, wy_g, AB_p, **kw)
+    fz = _zy_inv_dense_call(sr, si, wy, AB_g, **kw)
     del sr, si
-    fx = _zy_inv_dense_call(gr, gi, wy, AB_p, impl=impl)
+    fx = _zy_inv_dense_call(gr, gi, wy, AB_p, **kw)
     return fx, fy, fz

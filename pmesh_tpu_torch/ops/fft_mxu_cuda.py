@@ -5,7 +5,7 @@ dense passes) and of ``pmesh_tpu/ops/fft_mxu_ref.py`` (the full-spectrum
 and first-CT zy passes; their x passes are ``x_dense`` and
 ``xct_multi``).
 
-Each wrapper checks its tensors (CUDA, f32, the pass's shapes,
+Each wrapper checks its tensors (CUDA, the pass's dtypes and shapes,
 contiguous, one device, no autograd), the x/y splits of the CT passes
 (R in {2, 4, 8} with M a multiple of 128) and the table shapes,
 allocates the outputs
@@ -13,15 +13,31 @@ and the scratch with ``torch.empty``, launches on PyTorch's current
 stream and raises RuntimeError if a launch returns an error.  The
 numpy tables are uploaded once per table object and device (the public
 operators of ``ops/fft_mxu.py`` build each table once per shape).
-``LAUNCHES`` counts the calls of each kernel.
+
+Two forms besides the f32 one, which the kernels take or refuse, never
+swap for another:
+
+- ``bf16=True`` (``precision='bf16'``, ``fft='mxu_bf16'``): every
+  product of the pass runs on the bf16 tensor-core routine, each operand
+  rounded to bf16, the sums in f32;
+- bf16 spectrum storage (``fft='mxu_bf16s'``), on the four ct2 passes
+  only: ``zy_fwd_ct2(out_dtype=torch.bfloat16)`` writes its spectrum in
+  bf16, ``xct_multi`` reads and writes bf16 when its input is bf16, and
+  ``zy_inv_ct2``/``zy_inv_ct2_dual`` read a bf16 spectrum.  The real
+  meshes and the Nyquist plane stay f32.
+
+``LAUNCHES`` counts the calls of each kernel in each form: the key is
+the kernel's name, with ``_bf16`` for the bf16 products and ``_bf16s``
+for the bf16 storage (both, in that order, when a call uses both).
 
 The plain PyTorch versions are ``ops/fft_mxu.zy_fwd_ct2_plain``,
 ``xct_multi_plain``, ``zy_inv_ct2_plain``, ``zy_inv_ct2_dual_plain``,
 ``zy_fwd_half_plain``, ``x_dense_plain`` and ``zy_inv_half_plain``;
-those of the row-13 zy passes are ``zy_fwd_half_plain`` and
-``zy_inv_half_plain`` at full width, and
+those of the row-13 zy passes are ``zy_fwd_half_plain`` at full width,
+``ops/fft_mxu_ref.zy_inv_full_plain``,
 ``ops/fft_mxu_ref.zy_fwd_half_ct_plain`` and
-``ops/fft_mxu.zy_inv_ct2_plain`` at Zh.
+``ops/fft_mxu.zy_inv_ct2_plain`` at Zh.  Each takes the same ``bf16``
+flag and storage dtypes.
 """
 import ctypes
 
@@ -36,10 +52,13 @@ __all__ = ["zy_fwd_ct2", "xct_multi", "zy_inv_ct2", "zy_inv_ct2_dual",
            "zy_inv_full", "zy_fwd_half_ct", "zy_inv_half_ct", "LAUNCHES",
            "reset_launches"]
 
-LAUNCHES = {"zy_fwd_ct2": 0, "xct_multi": 0, "zy_inv_ct2": 0,
-            "zy_inv_ct2_dual": 0, "zy_fwd_half": 0, "x_dense": 0,
-            "zy_inv_half": 0, "zy_fwd_full": 0, "zy_inv_full": 0,
-            "zy_fwd_half_ct": 0, "zy_inv_half_ct": 0}
+# the ct2 passes, which also take bf16 spectrum storage
+_STORAGE = ("zy_fwd_ct2", "xct_multi", "zy_inv_ct2", "zy_inv_ct2_dual")
+_NAMES = _STORAGE + ("zy_fwd_half", "x_dense", "zy_inv_half", "zy_fwd_full",
+                     "zy_inv_full", "zy_fwd_half_ct", "zy_inv_half_ct")
+LAUNCHES = {name + form: 0 for name in _NAMES
+            for form in (("", "_bf16", "_bf16s", "_bf16_bf16s")
+                         if name in _STORAGE else ("", "_bf16"))}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _lib = None
@@ -58,20 +77,25 @@ def _load():
         lib.pmesh_cuda_error_string.argtypes = [_I]
         lib.pmesh_cuda_error_string.restype = ctypes.c_char_p
         lib.pmesh_zy_fwd_ct2.argtypes = (
-            [_P] * 3 + [_I] * 4 + [_P] * 9 + [_I] * 5 + [_P])
-        lib.pmesh_xct_multi.argtypes = [_P] * 13 + [_I] * 6 + [_F, _P, _P]
+            [_P] * 3 + [_I] * 4 + [_P] * 9 + [_I] * 5 + [_I, _I, _P])
+        lib.pmesh_xct_multi.argtypes = (
+            [_P] * 17 + [_I] * 6 + [_F, _P, _I, _I, _P])
         lib.pmesh_zy_inv_ct2.argtypes = (
-            [_P] * 6 + [_I] * 4 + [_P] * 5 + [_I] * 6 + [_P] * 3)
+            [_P] * 6 + [_I] * 4 + [_P] * 5 + [_I] * 6 + [_P] * 2
+            + [_I, _I, _P])
         lib.pmesh_zy_inv_ct2_dual.argtypes = (
-            [_P] * 10 + [_I] * 4 + [_P] * 8 + [_I] * 6 + [_P] * 3)
-        lib.pmesh_zy_fwd_half.argtypes = [_P] * 9 + [_I] * 4 + [_P]
-        lib.pmesh_x_dense.argtypes = [_P] * 13 + [_I] * 3 + [_F, _P]
-        lib.pmesh_zy_inv_half.argtypes = [_P] * 9 + [_I] * 4 + [_P]
-        lib.pmesh_zy_fwd_half_ct.argtypes = [_P] * 10 + [_I] * 6 + [_P]
+            [_P] * 10 + [_I] * 4 + [_P] * 8 + [_I] * 6 + [_P] * 2
+            + [_I, _I, _P])
+        lib.pmesh_zy_fwd_half.argtypes = [_P] * 9 + [_I] * 4 + [_I, _P]
+        lib.pmesh_x_dense.argtypes = [_P] * 13 + [_I] * 3 + [_F, _I, _P]
+        lib.pmesh_zy_inv_half.argtypes = [_P] * 9 + [_I] * 4 + [_I, _P]
+        lib.pmesh_zy_inv_full.argtypes = [_P] * 9 + [_I] * 3 + [_I, _P]
+        lib.pmesh_zy_fwd_half_ct.argtypes = [_P] * 10 + [_I] * 6 + [_I, _P]
         for fn in (lib.pmesh_zy_fwd_ct2, lib.pmesh_xct_multi,
                    lib.pmesh_zy_inv_ct2, lib.pmesh_zy_inv_ct2_dual,
                    lib.pmesh_zy_fwd_half, lib.pmesh_x_dense,
-                   lib.pmesh_zy_inv_half, lib.pmesh_zy_fwd_half_ct):
+                   lib.pmesh_zy_inv_half, lib.pmesh_zy_inv_full,
+                   lib.pmesh_zy_fwd_half_ct):
             fn.restype = _I
         _lib = lib
     return _lib
@@ -88,16 +112,29 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _check(tensors, shape, what):
-    """device, dtype, shape, contiguity and autograd checks; returns
-    the device"""
+def _count(what, bf16, bf16s=False):
+    """one launch of ``what`` in its form"""
+    LAUNCHES[what + ("_bf16" if bf16 else "")
+             + ("_bf16s" if bf16s else "")] += 1
+
+
+_F32 = (torch.float32,)
+_SPECTRUM = (torch.float32, torch.bfloat16)
+_NAME = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
+
+
+def _check(tensors, shape, what, dtypes=_F32):
+    """device, dtype, shape, contiguity and autograd checks; the
+    tensors share one of ``dtypes``.  Returns the device"""
     dev = tensors[0].device
     for a in tensors:
         if not isinstance(a, torch.Tensor) or a.device.type != 'cuda':
             raise ValueError("%s: the CUDA kernel takes CUDA tensors" % what)
-        if a.dtype != torch.float32:
+        if a.dtype not in dtypes or a.dtype != tensors[0].dtype:
             raise NotImplementedError(
-                "%s: the CUDA kernel is f32 only (got %s)" % (what, a.dtype))
+                "%s: the CUDA kernel takes %s tensors of one dtype here "
+                "(got %s)" % (what, " or ".join(_NAME[d] for d in dtypes),
+                              ", ".join(str(t.dtype) for t in tensors)))
         if a.device != dev:
             raise ValueError("%s: all tensors must share one device" % what)
         if tuple(a.shape) != tuple(shape):
@@ -162,11 +199,19 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def zy_fwd_ct2(x, wz, wy):
-    """Row 6: real (n0, N1, N2) -> (r, i) (n0, N1, N2//2), nq (n0, N1)."""
+def _empty(shape, dev, n, dtype=torch.float32):
+    return [torch.empty(shape, dtype=dtype, device=dev) for _ in range(n)]
+
+
+def zy_fwd_ct2(x, wz, wy, bf16=False, out_dtype=torch.float32):
+    """Row 6: real f32 (n0, N1, N2) -> (r, i) (n0, N1, N2//2) stored as
+    ``out_dtype`` (f32 or bf16), nq (n0, N1) f32."""
     what = "zy_fwd_ct2"
     n0, N1, N2 = x.shape
     dev = _check((x,), x.shape, what)
+    if out_dtype not in _SPECTRUM:
+        raise NotImplementedError("%s: the spectrum is stored as f32 or "
+                                  "bf16 (got %s)" % (what, out_dtype))
     Ry, My = _split(N1, what, 1)
     if N2 % 2:
         raise ValueError("%s: N2 must be even (got %d)" % (what, N2))
@@ -183,24 +228,29 @@ def zy_fwd_ct2(x, wz, wy):
         zshape = (N2, Zm)
     wzr, wzi = (_table(a, zshape, dev, what) for a in wz)
     wyr, wyi = (_table(a, (Ry, My, My), dev, what) for a in wy)
-    out = [torch.empty((n0, N1, Zm), dtype=torch.float32, device=dev)
-           for _ in range(4)]
+    outr, outi = _empty((n0, N1, Zm), dev, 2, out_dtype)
+    sr, si = _empty((n0, N1, Zm), dev, 2)
     nq = torch.empty((n0, N1), dtype=torch.float32, device=dev)
-    LAUNCHES[what] += 1
+    bf16s = out_dtype == torch.bfloat16
+    _count(what, bf16, bf16s)
     rc = _load().pmesh_zy_fwd_ct2(
         _ptr(x), _ptr(wzr), _ptr(wzi), int(zct), Rz, Kz, Mq,
         _host(_coef('zfwd', Rz)) if zct else None, _ptr(wyr), _ptr(wyi),
-        _host(_coef('fwd', Ry)), _ptr(out[0]), _ptr(out[1]), _ptr(nq),
-        _ptr(out[2]), _ptr(out[3]), n0, N1, N2, Ry, My, _stream(dev))
+        _host(_coef('fwd', Ry)), _ptr(outr), _ptr(outi), _ptr(nq), _ptr(sr),
+        _ptr(si), n0, N1, N2, Ry, My, int(bool(bf16)), int(bf16s),
+        _stream(dev))
     _raise_on(rc, what)
-    return out[0], out[1], nq
+    return outr, outi, nq
 
 
-def xct_multi(pr, pi, wx, scale, inverse=False, wx2=None, k2=None):
-    """Row 5: the x CT of (N0, n1, W) complex; (r, i) or (r, i, r2, i2)."""
+def xct_multi(pr, pi, wx, scale, inverse=False, wx2=None, k2=None,
+              bf16=False):
+    """Row 5: the x CT of (N0, n1, W) complex; (r, i) or (r, i, r2, i2),
+    stored as the input is (f32, or bf16 for the bf16 storage form)."""
     what = "xct_multi"
     N0, n1, W = pr.shape
-    dev = _check((pr, pi), pr.shape, what)
+    dev = _check((pr, pi), pr.shape, what, _SPECTRUM)
+    bf16s = pr.dtype == torch.bfloat16
     R, M = _split(N0, what, 0)
     tabs = [_table(a, (R, M, M), dev, what) for a in wx]
     if wx2 is not None:
@@ -209,17 +259,20 @@ def xct_multi(pr, pi, wx, scale, inverse=False, wx2=None, k2=None):
     if k2 is not None:
         ks = [_table(np.asarray(t, np.float32), (n,), dev, what)
               for t, n in zip(k2, (N0, n1, W))]
-    nout = 2 if wx2 is None else 4
-    out = [torch.empty((N0, n1, W), dtype=torch.float32, device=dev)
-           for _ in range(nout)]
+    nout = len(tabs)
+    out = _empty((N0, n1, W), dev, nout, pr.dtype)
+    # the bf16 inverse sums its butterfly from f32 products
+    scr = _empty((N0, n1, W), dev, nout) if bf16s and inverse else []
     o = [_ptr(t) for t in out] + [None] * (4 - nout)
-    t2 = [_ptr(t) for t in tabs[2:]] + [None] * (4 - len(tabs))
-    LAUNCHES[what] += 1
+    s = [_ptr(t) for t in scr] + [None] * (4 - len(scr))
+    t2 = [_ptr(t) for t in tabs[2:]] + [None] * (4 - nout)
+    _count(what, bf16, bf16s)
     rc = _load().pmesh_xct_multi(
         _ptr(pr), _ptr(pi), _ptr(tabs[0]), _ptr(tabs[1]), t2[0], t2[1],
-        _ptr(ks[0]), _ptr(ks[1]), _ptr(ks[2]), o[0], o[1], o[2], o[3],
-        N0, n1, W, R, M, int(bool(inverse)), float(scale),
-        _host(_coef('inv' if inverse else 'fwd', R)), _stream(dev))
+        _ptr(ks[0]), _ptr(ks[1]), _ptr(ks[2]), *o, *s, N0, n1, W, R, M,
+        int(bool(inverse)), float(scale),
+        _host(_coef('inv' if inverse else 'fwd', R)), int(bool(bf16)),
+        int(bf16s), _stream(dev))
     _raise_on(rc, what)
     return tuple(out)
 
@@ -237,7 +290,7 @@ def _z_inv_form(AB, Zm, n2, what):
 
 def _inv_setup(rr, ii, n2, planes, what):
     n0, N1, Zm = rr.shape
-    dev = _check((rr, ii), rr.shape, what)
+    dev = _check((rr, ii), rr.shape, what, _SPECTRUM)
     Ry, My = _split(N1, what, 1)
     if n2 != 2 * Zm:
         raise ValueError("%s: n2=%d must be 2 * Zm = %d" % (what, n2, 2 * Zm))
@@ -247,28 +300,30 @@ def _inv_setup(rr, ii, n2, planes, what):
     return dev, n0, N1, Zm, Ry, My
 
 
-def zy_inv_ct2(rr, ii, Wy, AB, n2, plane=None):
-    """Row 7: (n0, N1, Zm) stored-order spectrum -> real (n0, N1, n2)."""
+def zy_inv_ct2(rr, ii, Wy, AB, n2, plane=None, bf16=False):
+    """Row 7: (n0, N1, Zm) stored-order spectrum (f32, or bf16 for the
+    bf16 storage form) -> real f32 (n0, N1, n2)."""
     what = "zy_inv_ct2"
     dev, n0, N1, Zm, Ry, My = _inv_setup(rr, ii, n2, (plane,), what)
     zct, Ri, Kin, Kb, zshape = _z_inv_form(AB, Zm, n2, what)
     wyr, wyi = (_table(a, (Ry, My, My), dev, what) for a in Wy)
     ta, tb = (_table(a, zshape, dev, what) for a in AB)
     out = torch.empty((n0, N1, n2), dtype=torch.float32, device=dev)
-    sr, si = (torch.empty((n0, N1, Zm), dtype=torch.float32, device=dev)
-              for _ in range(2))
+    sr, si = _empty((n0, N1, Zm), dev, 2)
     zq = torch.empty_like(out) if zct else None
-    LAUNCHES[what] += 1
+    bf16s = rr.dtype == torch.bfloat16
+    _count(what, bf16, bf16s)
     rc = _load().pmesh_zy_inv_ct2(
         _ptr(rr), _ptr(ii), _ptr(wyr), _ptr(wyi), _ptr(ta), _ptr(tb), zct,
         Ri, Kin, Kb, _ptr(plane), _ptr(out), _ptr(sr), _ptr(si), _ptr(zq),
         n0, N1, Zm, n2, Ry, My, _host(_coef('inv', Ry)),
-        _host(_coef('inv', Ri)), _stream(dev))
+        _host(_coef('inv', Ri)), int(bool(bf16)), int(bf16s), _stream(dev))
     _raise_on(rc, what)
     return out
 
 
-def zy_inv_ct2_dual(rr, ii, WyA, ABA, WyB, ABB, n2, planeA=None):
+def zy_inv_ct2_dual(rr, ii, WyA, ABA, WyB, ABB, n2, planeA=None,
+                    bf16=False):
     """Row 8: (outA, outB) from one (rr, ii) read; planeA on A only."""
     what = "zy_inv_ct2_dual"
     dev, n0, N1, Zm, Ry, My = _inv_setup(rr, ii, n2, (planeA,), what)
@@ -277,30 +332,25 @@ def zy_inv_ct2_dual(rr, ii, WyA, ABA, WyB, ABB, n2, planeA=None):
         raise ValueError("%s: both z table sets must have one form" % what)
     wy = [_table(a, (Ry, My, My), dev, what) for a in tuple(WyA) + tuple(WyB)]
     zt = [_table(a, zshape, dev, what) for a in tuple(ABA) + tuple(ABB)]
-    outs = [torch.empty((n0, N1, n2), dtype=torch.float32, device=dev)
-            for _ in range(2)]
-    scr = [torch.empty((n0, N1, Zm), dtype=torch.float32, device=dev)
-           for _ in range(4)]
+    outs = _empty((n0, N1, n2), dev, 2)
+    scr = _empty((n0, N1, Zm), dev, 4)
     zq = torch.empty_like(outs[0]) if zct else None
-    LAUNCHES[what] += 1
+    bf16s = rr.dtype == torch.bfloat16
+    _count(what, bf16, bf16s)
     rc = _load().pmesh_zy_inv_ct2_dual(
         _ptr(rr), _ptr(ii), _ptr(wy[0]), _ptr(wy[1]), _ptr(zt[0]),
         _ptr(zt[1]), _ptr(wy[2]), _ptr(wy[3]), _ptr(zt[2]), _ptr(zt[3]),
         zct, Ri, Kin, Kb, _ptr(planeA), _ptr(outs[0]), _ptr(outs[1]),
         *[_ptr(s) for s in scr], _ptr(zq), n0, N1, Zm, n2, Ry, My,
-        _host(_coef('inv', Ry)), _host(_coef('inv', Ri)), _stream(dev))
+        _host(_coef('inv', Ry)), _host(_coef('inv', Ri)), int(bool(bf16)),
+        int(bf16s), _stream(dev))
     _raise_on(rc, what)
     return outs[0], outs[1]
 
 
 # --- the dense passes (rows 3 and 4), natural order --------------------------
 
-def _empty(shape, dev, n):
-    return [torch.empty(shape, dtype=torch.float32, device=dev)
-            for _ in range(n)]
-
-
-def _zy_fwd_dense(what, x, wz, wy, Zh):
+def _zy_fwd_dense(what, x, wz, wy, Zh, bf16):
     """the dense z DFT of real (n0, N1, N2) by the (N2, Zh) pair ``wz``,
     then the dense (N1, N1) y DFT by ``wy``: (r, i) (n0, N1, Zh)"""
     n0, N1, N2 = x.shape
@@ -308,27 +358,28 @@ def _zy_fwd_dense(what, x, wz, wy, Zh):
     wzr, wzi = (_table(a, (N2, Zh), dev, what) for a in wz)
     wyr, wyi = (_table(a, (N1, N1), dev, what) for a in wy)
     outr, outi, sr, si = _empty((n0, N1, Zh), dev, 4)
-    LAUNCHES[what] += 1
+    _count(what, bf16)
     rc = _load().pmesh_zy_fwd_half(
         _ptr(x), _ptr(wzr), _ptr(wzi), _ptr(wyr), _ptr(wyi), _ptr(outr),
-        _ptr(outi), _ptr(sr), _ptr(si), n0, N1, N2, Zh, _stream(dev))
+        _ptr(outi), _ptr(sr), _ptr(si), n0, N1, N2, Zh, int(bool(bf16)),
+        _stream(dev))
     _raise_on(rc, what)
     return outr, outi
 
 
-def zy_fwd_half(x, wz, wy):
+def zy_fwd_half(x, wz, wy, bf16=False):
     """Row 3 pass 1: real (n0, N1, N2) -> (r, i) (n0, N1, N2 // 2 + 1)
     by the (N2, Zh) half-DFT pair ``wz`` and the (N1, N1) y pair ``wy``."""
-    return _zy_fwd_dense("zy_fwd_half", x, wz, wy, x.shape[2] // 2 + 1)
+    return _zy_fwd_dense("zy_fwd_half", x, wz, wy, x.shape[2] // 2 + 1, bf16)
 
 
-def zy_fwd_full(x, wz, wy):
+def zy_fwd_full(x, wz, wy, bf16=False):
     """Row 13 full-spectrum pass 1: real (n0, N1, N2) -> (r, i)
     (n0, N1, N2) by the (N2, N2) z DFT pair ``wz`` and the y pair ``wy``."""
-    return _zy_fwd_dense("zy_fwd_full", x, wz, wy, x.shape[2])
+    return _zy_fwd_dense("zy_fwd_full", x, wz, wy, x.shape[2], bf16)
 
 
-def x_dense(pr, pi, wx, scale, wx2=None, k2=None):
+def x_dense(pr, pi, wx, scale, wx2=None, k2=None, bf16=False):
     """Rows 3 and 4 x pass: the dense x DFT of (N0, n1, W) complex by
     the (N0, N0) pair ``wx`` times ``scale`` [and by ``wx2``], with the
     natural-order 1/k^2 fold ``k2``; (r, i) or (r, i, r2, i2)."""
@@ -345,57 +396,65 @@ def x_dense(pr, pi, wx, scale, wx2=None, k2=None):
     out = _empty((N0, n1, W), dev, len(tabs))
     o = [_ptr(t) for t in out] + [None] * (4 - len(out))
     t2 = [_ptr(t) for t in tabs[2:]] + [None] * (4 - len(tabs))
-    LAUNCHES[what] += 1
+    _count(what, bf16)
     rc = _load().pmesh_x_dense(
         _ptr(pr), _ptr(pi), _ptr(tabs[0]), _ptr(tabs[1]), t2[0], t2[1],
         _ptr(ks[0]), _ptr(ks[1]), _ptr(ks[2]), o[0], o[1], o[2], o[3], N0,
-        n1, W, float(scale), _stream(dev))
+        n1, W, float(scale), int(bool(bf16)), _stream(dev))
     _raise_on(rc, what)
     return tuple(out)
 
 
-def _zy_inv_dense(what, rr, ii, wy, AB, n2):
-    """the dense inverse y DFT of (n0, N1, K) by ``wy``, then the real
-    part of the z product by the (K, n2) pair ``AB``: out = yr @ A +
-    yi @ B, real (n0, N1, n2)"""
-    n0, N1, K = rr.shape
-    dev = _check((rr, ii), rr.shape, what)
-    wyr, wyi = (_table(a, (N1, N1), dev, what) for a in wy)
-    ta, tb = (_table(a, (K, n2), dev, what) for a in AB)
-    out = torch.empty((n0, N1, n2), dtype=torch.float32, device=dev)
-    sr, si = _empty((n0, N1, K), dev, 2)
-    LAUNCHES[what] += 1
-    rc = _load().pmesh_zy_inv_half(
-        _ptr(rr), _ptr(ii), _ptr(wyr), _ptr(wyi), _ptr(ta), _ptr(tb),
-        _ptr(out), _ptr(sr), _ptr(si), n0, N1, K, n2, _stream(dev))
-    _raise_on(rc, what)
-    return out
-
-
-def zy_inv_half(rr, ii, wy, AB):
-    """Row 4 zy pass: (n0, N1, Zh) spectrum -> real (n0, N1, n2) by the
-    (N1, N1) inverse y pair ``wy`` and the (Zh, n2) irfft pair ``AB``;
-    n2 is AB's width and must have Zh = n2 // 2 + 1."""
+def zy_inv_half(rr, ii, wy, AB, bf16=False):
+    """Row 4 zy pass: (n0, N1, Zh) spectrum -> real (n0, N1, n2): the
+    dense inverse y DFT of (n0, N1, Zh) by the (N1, N1) pair ``wy``, then
+    the real part of the z product by the (Zh, n2) irfft pair ``AB``
+    (out = yr @ A + yi @ B); n2 is AB's width and must have
+    Zh = n2 // 2 + 1."""
     what = "zy_inv_half"
-    Zh = rr.shape[2]
+    n0, N1, Zh = rr.shape
     n2 = np.shape(AB[0])[-1]
     if n2 // 2 + 1 != Zh:
         raise ValueError("%s: z tables of width %d do not fit Zh=%d"
                          % (what, n2, Zh))
-    return _zy_inv_dense(what, rr, ii, wy, AB, n2)
+    dev = _check((rr, ii), rr.shape, what)
+    wyr, wyi = (_table(a, (N1, N1), dev, what) for a in wy)
+    ta, tb = (_table(a, (Zh, n2), dev, what) for a in AB)
+    out = torch.empty((n0, N1, n2), dtype=torch.float32, device=dev)
+    sr, si = _empty((n0, N1, Zh), dev, 2)
+    _count(what, bf16)
+    rc = _load().pmesh_zy_inv_half(
+        _ptr(rr), _ptr(ii), _ptr(wyr), _ptr(wyi), _ptr(ta), _ptr(tb),
+        _ptr(out), _ptr(sr), _ptr(si), n0, N1, Zh, n2, int(bool(bf16)),
+        _stream(dev))
+    _raise_on(rc, what)
+    return out
 
 
-def zy_inv_full(rr, ii, wy, AB):
+def zy_inv_full(rr, ii, wy, AB, bf16=False):
     """Row 13 full-spectrum zy inverse: (n0, N1, N2) spectrum -> real
-    (n0, N1, N2), the real part of the inverse y DFT ``wy`` then the
-    inverse z DFT, whose (N2, N2) pair enters as ``AB`` = (Re Wz,
-    -Im Wz)."""
-    return _zy_inv_dense("zy_inv_full", rr, ii, wy, AB, rr.shape[2])
+    (n0, N1, N2): the complex inverse z DFT, whose (N2, N2) pair enters
+    as ``AB`` = (Re Wz, -Im Wz), then the real part of the inverse y DFT
+    ``wy``, in the JAX kernel's order."""
+    what = "zy_inv_full"
+    n0, N1, N2 = rr.shape
+    dev = _check((rr, ii), rr.shape, what)
+    wyr, wyi = (_table(a, (N1, N1), dev, what) for a in wy)
+    ta, tb = (_table(a, (N2, N2), dev, what) for a in AB)
+    out = torch.empty((n0, N1, N2), dtype=torch.float32, device=dev)
+    sr, si = _empty((n0, N1, N2), dev, 2)
+    _count(what, bf16)
+    rc = _load().pmesh_zy_inv_full(
+        _ptr(rr), _ptr(ii), _ptr(wyr), _ptr(wyi), _ptr(ta), _ptr(tb),
+        _ptr(out), _ptr(sr), _ptr(si), n0, N1, N2, int(bool(bf16)),
+        _stream(dev))
+    _raise_on(rc, what)
+    return out
 
 
 # --- the first-CT half pipeline (row 13), chunk-permuted x and y --------------
 
-def zy_fwd_half_ct(x, wz, wy):
+def zy_fwd_half_ct(x, wz, wy, bf16=False):
     """Row 13 half-CT pass 1: real (n0, N1, N2) -> (r, i) (n0, N1, Zh),
     Zh = N2 // 2 + 1: the (N2, Zh) half-DFT pair ``wz``, then the y CT by
     the (Ry, My, My) pair ``wy``; y chunk-permuted, the z-Nyquist column
@@ -408,16 +467,16 @@ def zy_fwd_half_ct(x, wz, wy):
     wzr, wzi = (_table(a, (N2, Zh), dev, what) for a in wz)
     wyr, wyi = (_table(a, (Ry, My, My), dev, what) for a in wy)
     outr, outi, sr, si = _empty((n0, N1, Zh), dev, 4)
-    LAUNCHES[what] += 1
+    _count(what, bf16)
     rc = _load().pmesh_zy_fwd_half_ct(
         _ptr(x), _ptr(wzr), _ptr(wzi), _ptr(wyr), _ptr(wyi),
         _host(_coef('fwd', Ry)), _ptr(outr), _ptr(outi), _ptr(sr), _ptr(si),
-        n0, N1, N2, Zh, Ry, My, _stream(dev))
+        n0, N1, N2, Zh, Ry, My, int(bool(bf16)), _stream(dev))
     _raise_on(rc, what)
     return outr, outi
 
 
-def zy_inv_half_ct(rr, ii, Wy, AB, n2):
+def zy_inv_half_ct(rr, ii, Wy, AB, n2, bf16=False):
     """Row 13 half-CT zy inverse: (n0, N1, Zh) spectrum, y
     chunk-permuted -> real (n0, N1, n2): the inverse y CT by the
     (Ry, My, My) pair ``Wy``, then z half -> real by the (Zh, n2) irfft
@@ -432,10 +491,11 @@ def zy_inv_half_ct(rr, ii, Wy, AB, n2):
     ta, tb = (_table(a, (Zh, n2), dev, what) for a in AB)
     out = torch.empty((n0, N1, n2), dtype=torch.float32, device=dev)
     sr, si = _empty((n0, N1, Zh), dev, 2)
-    LAUNCHES[what] += 1
+    _count(what, bf16)
     rc = _load().pmesh_zy_inv_ct2(
         _ptr(rr), _ptr(ii), _ptr(wyr), _ptr(wyi), _ptr(ta), _ptr(tb), 0, 1,
         Zh, n2, None, _ptr(out), _ptr(sr), _ptr(si), None, n0, N1, Zh, n2,
-        Ry, My, _host(_coef('inv', Ry)), None, _stream(dev))
+        Ry, My, _host(_coef('inv', Ry)), None, int(bool(bf16)), 0,
+        _stream(dev))
     _raise_on(rc, what)
     return out

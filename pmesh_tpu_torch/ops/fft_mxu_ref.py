@@ -28,9 +28,10 @@ and ``zy_inv_half_ct``).  ``impl`` chooses as in ``ops/fft_mxu.py``:
 None takes the kernels for CUDA tensors and the plain versions for CPU
 tensors.  The JAX package runs the two inverse x passes of a force
 triple (plain and i*k_x-folded) as two launches; here they are one dual
-launch on one read of the spectrum.
-
-``precision='bf16'`` (single-pass bf16 products) is not ported.
+launch on one read of the spectrum.  The full-spectrum inverse runs z
+then y, as the JAX kernel does, so that ``precision='bf16'``
+(single-pass bf16 products, on every entry point) rounds the same
+intermediate.
 """
 import torch
 
@@ -39,17 +40,6 @@ from . import fft_mxu as _fm
 __all__ = ["fft3_real_forward", "fft3_real_inverse",
            "fft3_real_inverse_grad3", "fft3_real_forward_half_ct",
            "fft3_real_inverse_grad3_half_ct"]
-
-
-def _check_precision(precision):
-    if precision in (None, 'f32'):
-        return
-    if precision == 'bf16':
-        raise NotImplementedError(
-            "precision='bf16' (single-pass bf16 DFT products) is not ported "
-            "yet (ROADMAP queue 1, item 12); use precision=None (f32)")
-    raise ValueError("precision must be None, 'f32' or 'bf16' (got %r)"
-                     % (precision,))
 
 
 def _z_inv_full_np(n2, kvec=None):
@@ -71,47 +61,64 @@ def _ct_check(N0, N1):
 
 # --- the zy passes: plain versions and dispatch -------------------------------
 
-def zy_fwd_half_ct_plain(x, wz, wy):
+def zy_fwd_half_ct_plain(x, wz, wy, bf16=False):
     """Row 13 half-CT pass 1, plain: real (n0, N1, N2) -> (r, i)
     (n0, N1, Zh): the (N2, Zh) half-DFT pair ``wz``, then the y CT by
     the ``_ct_fwd_mats_np(N1)`` pair ``wy`` (y chunk-permuted out)."""
     p = x.to(torch.float32)
     wzr, wzi = (_fm._t(a, p) for a in wz)
-    return _fm._ct_fwd_plain(torch.matmul(p, wzr), torch.matmul(p, wzi),
-                             *(_fm._t(a, p) for a in wy))
+    return _fm._ct_fwd_plain(_fm._mm(p, wzr, bf16), _fm._mm(p, wzi, bf16),
+                             *(_fm._t(a, p) for a in wy), bf16=bf16)
 
 
-def _zy_fwd_full_call(x, wz, wy, impl=None):
+def zy_inv_full_plain(rr, ii, wy, AB, bf16=False):
+    """Row 13 full-spectrum zy inverse, plain: (n0, N1, N2) spectrum ->
+    real (n0, N1, N2): the complex z product by Wz, whose (N2, N2) pair
+    enters as ``AB`` = (Re Wz, -Im Wz), then the real part of the
+    inverse y DFT ``wy``; z first, as the JAX kernel."""
+    xr, xi = rr.to(torch.float32), ii.to(torch.float32)
+    A, B = (_fm._t(a, xr) for a in AB)
+    zr = _fm._mm(xr, A, bf16) + _fm._mm(xi, B, bf16)
+    zi = _fm._mm(xi, A, bf16) - _fm._mm(xr, B, bf16)
+    wyr, wyi = (_fm._t(a, xr) for a in wy)
+    return _fm._mm(wyr, zr, bf16) - _fm._mm(wyi, zi, bf16)
+
+
+def _zy_fwd_full_call(x, wz, wy, precision=None, impl=None):
     """full-spectrum pass 1: the (N2, N2) z DFT and the y DFT"""
+    bf16 = _fm._bf16_products(precision)
     if _fm._use_cuda(impl, x):
         from . import fft_mxu_cuda as _k
-        return _k.zy_fwd_full(x, wz, wy)
-    return _fm.zy_fwd_half_plain(x, wz, wy)
+        return _k.zy_fwd_full(x, wz, wy, bf16=bf16)
+    return _fm.zy_fwd_half_plain(x, wz, wy, bf16)
 
 
-def _zy_inv_full_call(rr, ii, wy, AB, impl=None):
-    """full-spectrum inverse zy pass: the real part of the inverse y and
-    z DFTs, AB = ``_z_inv_full_np``"""
+def _zy_inv_full_call(rr, ii, wy, AB, precision=None, impl=None):
+    """full-spectrum inverse zy pass: the real part of the inverse z and
+    y DFTs, AB = ``_z_inv_full_np``"""
+    bf16 = _fm._bf16_products(precision)
     if _fm._use_cuda(impl, rr):
         from . import fft_mxu_cuda as _k
-        return _k.zy_inv_full(rr, ii, wy, AB)
-    return _fm.zy_inv_half_plain(rr, ii, wy, AB)
+        return _k.zy_inv_full(rr, ii, wy, AB, bf16=bf16)
+    return zy_inv_full_plain(rr, ii, wy, AB, bf16)
 
 
-def _zy_fwd_half_ct_call(x, wz, wy, impl=None):
+def _zy_fwd_half_ct_call(x, wz, wy, precision=None, impl=None):
+    bf16 = _fm._bf16_products(precision)
     if _fm._use_cuda(impl, x):
         from . import fft_mxu_cuda as _k
-        return _k.zy_fwd_half_ct(x, wz, wy)
-    return zy_fwd_half_ct_plain(x, wz, wy)
+        return _k.zy_fwd_half_ct(x, wz, wy, bf16=bf16)
+    return zy_fwd_half_ct_plain(x, wz, wy, bf16)
 
 
-def _zy_inv_half_ct_call(rr, ii, Wy, AB, n2, impl=None):
+def _zy_inv_half_ct_call(rr, ii, Wy, AB, n2, precision=None, impl=None):
     """half-CT inverse zy pass: the inverse y CT, then the (Zh, n2)
     irfft pair ``AB``"""
+    bf16 = _fm._bf16_products(precision)
     if _fm._use_cuda(impl, rr):
         from . import fft_mxu_cuda as _k
-        return _k.zy_inv_half_ct(rr, ii, Wy, AB, n2)
-    return _fm.zy_inv_ct2_plain(rr, ii, Wy, AB, n2)
+        return _k.zy_inv_half_ct(rr, ii, Wy, AB, n2, bf16=bf16)
+    return _fm.zy_inv_ct2_plain(rr, ii, Wy, AB, n2, bf16=bf16)
 
 
 # --- the full-spectrum entry points -------------------------------------------
@@ -120,14 +127,14 @@ def fft3_real_forward(x, norm=True, precision=None, impl=None):
     """full-spectrum forward 3-d FFT of a real f32 (N0, N1, N2) mesh:
     (real, imag) of the same shape, scaled by 1/(N0 N1 N2) when
     ``norm`` (the engine's r2c convention)."""
-    _check_precision(precision)
     N0, N1, N2 = x.shape
     wz = _fm._cached(_fm._dft_np, N2, -1)
     wy = _fm._cached(_fm._dft_np, N1, -1)
     wx = _fm._cached(_fm._dft_np, N0, -1)
-    pr, pi = _zy_fwd_full_call(x, wz, wy, impl)
+    kw = dict(precision=precision, impl=impl)
+    pr, pi = _zy_fwd_full_call(x, wz, wy, **kw)
     scale = 1.0 / (N0 * N1 * N2) if norm else 1.0
-    return _fm._x_dense_call(pr, pi, wx, scale, impl=impl)
+    return _fm._x_dense_call(pr, pi, wx, scale, **kw)
 
 
 def fft3_real_inverse(r, i, grad=None, kvec=None, precision=None,
@@ -138,7 +145,6 @@ def fft3_real_inverse(r, i, grad=None, kvec=None, precision=None,
     grad : None or an axis; then the spectrum is multiplied by
         i * kvec along that axis first, folded into the axis's DFT table.
     kvec : the wavenumbers of that axis, a sequence of its length."""
-    _check_precision(precision)
     if grad is not None and kvec is None:
         raise ValueError("grad=%r needs kvec (a static tuple of the "
                          "wavenumbers along that axis)" % (grad,))
@@ -151,8 +157,9 @@ def fft3_real_inverse(r, i, grad=None, kvec=None, precision=None,
     wy = (_fm._cached(_fm._dft_fold_np, N1, kvec) if grad == 1
           else _fm._cached(_fm._dft_np, N1, +1))
     AB = _fm._cached(_z_inv_full_np, N2, kvec if grad == 2 else None)
-    sr, si = _fm._x_dense_call(r, i, wx, 1.0, impl=impl)
-    return _zy_inv_full_call(sr, si, wy, AB, impl)
+    kw = dict(precision=precision, impl=impl)
+    sr, si = _fm._x_dense_call(r, i, wx, 1.0, **kw)
+    return _zy_inv_full_call(sr, si, wy, AB, **kw)
 
 
 def fft3_real_inverse_grad3(r, i, kvecs, precision=None, impl=None):
@@ -162,7 +169,6 @@ def fft3_real_inverse_grad3(r, i, kvecs, precision=None, impl=None):
     into the second table set of the same (dual) x pass.
 
     kvecs : three wavenumber sequences of lengths N0, N1, N2."""
-    _check_precision(precision)
     N0, N1, N2 = r.shape
     kvecs = _fm._tuples(kvecs)
     wx = _fm._cached(_fm._dft_np, N0, +1)
@@ -171,11 +177,12 @@ def fft3_real_inverse_grad3(r, i, kvecs, precision=None, impl=None):
     wy_g = _fm._cached(_fm._dft_fold_np, N1, kvecs[1])
     AB = _fm._cached(_z_inv_full_np, N2, None)
     AB_g = _fm._cached(_z_inv_full_np, N2, kvecs[2])
-    sr, si, gr, gi = _fm._x_dense_call(r, i, wx, 1.0, wx2=wx_g, impl=impl)
-    fy = _zy_inv_full_call(sr, si, wy_g, AB, impl)
-    fz = _zy_inv_full_call(sr, si, wy, AB_g, impl)
+    kw = dict(precision=precision, impl=impl)
+    sr, si, gr, gi = _fm._x_dense_call(r, i, wx, 1.0, wx2=wx_g, **kw)
+    fy = _zy_inv_full_call(sr, si, wy_g, AB, **kw)
+    fz = _zy_inv_full_call(sr, si, wy, AB_g, **kw)
     del sr, si
-    fx = _zy_inv_full_call(gr, gi, wy, AB, impl)
+    fx = _zy_inv_full_call(gr, gi, wy, AB, **kw)
     return fx, fy, fz
 
 
@@ -185,16 +192,16 @@ def fft3_real_forward_half_ct(x, norm=True, precision=None, impl=None):
     """hermitian-half forward FFT of a real f32 (N0, N1, N2) mesh with
     CT-factored x and y: (r, i) of shape (N0, N1, N2 // 2 + 1), x and y
     chunk-permuted, scaled by 1/(N0 N1 N2) when ``norm``."""
-    _check_precision(precision)
     N0, N1, N2 = x.shape
     _ct_check(N0, N1)
     Zh = N2 // 2 + 1
     wz = _fm._cached(_fm._dft_half_np, N2, Zh)
     wy = _fm._cached(_fm._ct_fwd_mats_np, N1)
     wx = _fm._cached(_fm._ct_fwd_mats_np, N0)
-    pr, pi = _zy_fwd_half_ct_call(x, wz, wy, impl)
+    kw = dict(precision=precision, impl=impl)
+    pr, pi = _zy_fwd_half_ct_call(x, wz, wy, **kw)
     scale = 1.0 / (N0 * N1 * N2) if norm else 1.0
-    return _fm._xct_call_multi(pr, pi, wx, scale, impl=impl)
+    return _fm._xct_call_multi(pr, pi, wx, scale, **kw)
 
 
 def fft3_real_inverse_grad3_half_ct(r, i, n2, kvecs, precision=None,
@@ -206,7 +213,6 @@ def fft3_real_inverse_grad3_half_ct(r, i, n2, kvecs, precision=None,
 
     kvecs : natural-order wavenumbers of lengths N0, N1 and Zh; the x
         and y ones must vanish at the Nyquist index of an even axis."""
-    _check_precision(precision)
     N0, N1, Zh = r.shape
     _fm._check_kvecs(kvecs, N0, N1)
     _ct_check(N0, N1)
@@ -222,10 +228,11 @@ def fft3_real_inverse_grad3_half_ct(r, i, n2, kvecs, precision=None,
     wy_g = _fm._cached(_fm._ct_inv_mats_np, N1, kvecs[1])
     AB_p = _fm._cached(_fm._irfft_mats_np, n2, Zh)
     AB_g = _fm._cached(_fm._irfft_mats_np, n2, Zh, kvecs[2])
+    kw = dict(precision=precision, impl=impl)
     sr, si, gr, gi = _fm._xct_call_multi(r, i, wx, 1.0, inverse=True,
-                                         wx2=wx_g, impl=impl)
-    fy = _zy_inv_half_ct_call(sr, si, wy_g, AB_p, n2, impl)
-    fz = _zy_inv_half_ct_call(sr, si, wy, AB_g, n2, impl)
+                                         wx2=wx_g, **kw)
+    fy = _zy_inv_half_ct_call(sr, si, wy_g, AB_p, n2, **kw)
+    fz = _zy_inv_half_ct_call(sr, si, wy, AB_g, n2, **kw)
     del sr, si
-    fx = _zy_inv_half_ct_call(gr, gi, wy, AB_p, n2, impl)
+    fx = _zy_inv_half_ct_call(gr, gi, wy, AB_p, n2, **kw)
     return fx, fy, fz

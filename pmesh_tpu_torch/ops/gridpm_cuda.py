@@ -93,9 +93,15 @@ def _check(arrays, what):
         if not a.is_contiguous():
             raise ValueError("%s: tensors must be contiguous" % what)
         if a.requires_grad:
+            if what.startswith('rebase'):
+                raise NotImplementedError(
+                    "%s: the CUDA rebase takes no tensor that requires "
+                    "grad; gradients through the binned path are not "
+                    "ported yet (ROADMAP queue 1, item 6)" % what)
             raise NotImplementedError(
-                "%s: gradients through the CUDA kernel are not ported "
-                "yet (ROADMAP queue 1, item 3)" % what)
+                "%s: the CUDA kernel takes no tensor that requires grad; "
+                "gradients run through ops/gridpm.paint_grid and "
+                "readout_grid, whose backward launches the kernels" % what)
     n0, n1, n2 = ref.shape
     if n0 > _MAX_GRID_YZ or n1 > _MAX_GRID_YZ:
         raise ValueError("%s: Nmesh[0] and Nmesh[1] must be <= %d"

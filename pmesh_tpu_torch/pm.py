@@ -141,7 +141,7 @@ class ParticleMesh(object):
         if procmesh is not None:
             raise NotImplementedError(
                 "sharded meshes are not ported yet (ROADMAP queue 1, "
-                "item 11)")
+                "item 8)")
         self.Nmesh = np.array(Nmesh, dtype='i8')
         self.ndim = len(self.Nmesh)
         self.BoxSize = np.empty(self.ndim, dtype='f8')

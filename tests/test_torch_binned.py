@@ -345,17 +345,19 @@ def test_binned_refuses_mxu():
     _, ts = _solvers(8)
     disp = tuple(torch.full((8,) * 3, 0.5) for _ in range(3))
     dsl, valid = tbn.from_lattice(disp, nslots=1)
-    for fft in ('mxu_bf16', 'mxu_bf16s'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            ts.force_binned(dsl, valid, (0.0, 1.0), fft=fft)
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            ts.nbody_binned(disp, disp, [0.5, 0.6], fft=fft)
-    # fft='mxu' runs at 8^3, which is not ct2 (the dense DFT passes): a
-    # uniform state feels no force and keeps every particle
+    # fft='mxu' and its bf16 modes run at 8^3, which is not ct2 (the
+    # dense DFT passes): a uniform state feels no force, its meshes are
+    # f32, and it keeps every particle
     F = ts.force_binned(dsl, valid, (0.0, 1.0), fft='mxu')
     assert all(float(f.abs().max()) < 1e-6 for f in F[0])
-    _, _, va, ov = ts.nbody_binned(disp, disp, [0.5, 0.6], fft='mxu')
-    assert int(ov) == 0 and int(tbn.occupancy(va)[0]) == 8 ** 3
+    for fft in ('mxu', 'mxu_bf16', 'mxu_bf16s'):
+        F = ts.force_binned(dsl, valid, (0.0, 1.0), fft=fft)
+        assert all(f.dtype == torch.float32 and float(f.abs().max()) < 1e-5
+                   for f in F[0])
+        _, _, va, ov = ts.nbody_binned(disp, disp, [0.5, 0.6], fft=fft)
+        assert int(ov) == 0 and int(tbn.occupancy(va)[0]) == 8 ** 3
+    with pytest.raises(ValueError, match='unknown fft'):
+        ts.force_binned(dsl, valid, (0.0, 1.0), fft='bf16')
     with pytest.raises(ValueError):
         ts.force_binned(dsl, valid, (0.0, 1.0), mode='direct')
 

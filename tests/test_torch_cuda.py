@@ -373,8 +373,9 @@ def test_fft_mxu_kernels_refuse_what_they_cannot_run(dev):
         fm.fft3_real_forward_half_ct2(torch.zeros((16,) * 3, device=dev))
 
 
-ROW13_ZERO = dict(zy_fwd_full=0, zy_inv_full=0, zy_fwd_half_ct=0,
-                  zy_inv_half_ct=0)
+def _launched(module):
+    """the nonzero launch counters of a wrapper module"""
+    return {k: v for k, v in module.LAUNCHES.items() if v}
 
 
 @pytest.mark.parametrize("mode,counts", [
@@ -392,8 +393,7 @@ def test_fft_mxu_launches_count_one_force(dev, mode, counts):
     disp, _, _ = _inputs(17, shape, (0.0, 1.0), dev)
     fft_mxu_cuda.reset_launches()
     Solver(pm).force_lattice(disp, (0.0, 1.0), mode=mode, fft='mxu')
-    assert fft_mxu_cuda.LAUNCHES == dict(counts, zy_fwd_half=0, x_dense=0,
-                                         zy_inv_half=0, **ROW13_ZERO)
+    assert _launched(fft_mxu_cuda) == {k: v for k, v in counts.items() if v}
 
 
 @pytest.mark.parametrize("force_mode,window", [('spectral', 'cic'),
@@ -517,9 +517,7 @@ def test_fft_dense_launches_count_one_force(dev, mode, counts):
     disp, _, _ = _inputs(26, shape, (0.0, 1.0), dev)
     fft_mxu_cuda.reset_launches()
     Solver(pm).force_lattice(disp, (0.0, 1.0), mode=mode, fft='mxu')
-    assert fft_mxu_cuda.LAUNCHES == dict(
-        counts, zy_fwd_ct2=0, xct_multi=0, zy_inv_ct2=0, zy_inv_ct2_dual=0,
-        **ROW13_ZERO)
+    assert _launched(fft_mxu_cuda) == {k: v for k, v in counts.items() if v}
 
 
 @pytest.mark.parametrize("shape", [(48, 40, 33), (32, 32, 32)])
@@ -595,10 +593,9 @@ def test_fft_ref_launch_counts(dev):
                                 kvecs=(kd[0], kd[1], _sl(16)))
     ref.fft3_real_inverse_grad3_half_ct(*ref.fft3_real_forward_half_ct(x),
                                         n2=16, kvecs=kd)
-    assert fft_mxu_cuda.LAUNCHES == dict(
-        zy_fwd_ct2=0, xct_multi=2, zy_inv_ct2=0, zy_inv_ct2_dual=0,
-        zy_fwd_half=0, x_dense=2, zy_inv_half=0, zy_fwd_full=1,
-        zy_inv_full=3, zy_fwd_half_ct=1, zy_inv_half_ct=3)
+    assert _launched(fft_mxu_cuda) == dict(
+        xct_multi=2, x_dense=2, zy_fwd_full=1, zy_inv_full=3,
+        zy_fwd_half_ct=1, zy_inv_half_ct=3)
 
 
 # --- reverse mode on the kernels ---------------------------------------------
@@ -676,14 +673,12 @@ def test_force_backward_card_matches_cpu(dev, shape, fft):
     for g, r in zip(out[str(dev)], out['cpu']):
         assert _rel(g, r) <= 1e-4
     if fft == 'mxu' and shape == (256, 256, 16):
-        assert fft_mxu_cuda.LAUNCHES == dict(
+        assert _launched(fft_mxu_cuda) == dict(
             zy_fwd_ct2=1 + 3, xct_multi=2 + 6, zy_inv_ct2=1 + 3,
-            zy_inv_ct2_dual=1, zy_fwd_half=0, x_dense=0, zy_inv_half=0,
-            **ROW13_ZERO)
+            zy_inv_ct2_dual=1)
     elif fft == 'mxu':
-        assert fft_mxu_cuda.LAUNCHES == dict(
-            zy_fwd_ct2=0, xct_multi=0, zy_inv_ct2=0, zy_inv_ct2_dual=0,
-            zy_fwd_half=4, x_dense=8, zy_inv_half=12, **ROW13_ZERO)
+        assert _launched(fft_mxu_cuda) == dict(
+            zy_fwd_half=4, x_dense=8, zy_inv_half=12)
 
 
 def test_nbody_backward_card_matches_cpu(dev):
@@ -734,7 +729,256 @@ def test_mxu_potential_backward_card_matches_cpu(dev):
         out[str(device)] = _grads(
             lambda t: (solver._mxu_potential(t[0]) * w.to(t[0].device)).sum(),
             [rho], device)
-    assert fft_mxu_cuda.LAUNCHES == dict(
-        zy_fwd_ct2=2, xct_multi=4, zy_inv_ct2=2, zy_inv_ct2_dual=0,
-        zy_fwd_half=0, x_dense=0, zy_inv_half=0, **ROW13_ZERO)
+    assert _launched(fft_mxu_cuda) == dict(
+        zy_fwd_ct2=2, xct_multi=4, zy_inv_ct2=2)
     assert _rel(out[str(dev)][0], out['cpu'][0]) <= 1e-4
+
+
+# --- the bf16 forms of the DFT kernels ---------------------------------------
+#
+# bf16 products (fft='mxu_bf16'): kernel and plain version round the same
+# operands, and a product of two bf16 values is exact in f32, so they
+# differ only in their f32 sums; but the tensor cores sum a block of
+# products with their own alignment and rounding, further from a
+# sequence of FP32 FMAs than two such sequences are from each other, so
+# where a pass rounds an intermediate again (a zy pass: the z output
+# before the y product, the y output before the z product) more of those
+# roundings flip, each by one bf16 ulp that reaches its whole row.  Held
+# to an rms gap <= 0.15 of the bf16 rounding itself (p against the pass
+# with f32 products) and max|k - p| <= 5e-4 of max|p| for an x pass (one
+# product), 1e-2 for a zy pass or an entry point that chains passes.  bf16 storage (fft='mxu_bf16s'): each stored spectrum is
+# bf16, at least 99.9 % of it bitwise equal to the plain version's and
+# no entry more than one bf16 ulp away beyond the gap of the f32 sums it
+# rounds; an f32 output within TOL.
+
+def _bf16_gaps(got, ref, ref32):
+    """(max|k - p| / max|p|, rms|k - p| / rms|p - f32|) of each output;
+    an output without products (the Nyquist row sum) equals its f32
+    twin: (its f32 gap, 0)"""
+    out = []
+    for g, r, f in zip(got, ref, ref32):
+        effect = float(((r - f).double() ** 2).mean() ** 0.5)
+        d = (g.float() - r.float()).abs()
+        rms = 0.0 if effect == 0 else float(
+            (d.double() ** 2).mean() ** 0.5) / effect
+        out.append((float(d.max() / r.float().abs().max()), rms))
+    return out
+
+
+ZY = 1e-2      # the max gap of a zy pass or a chain of passes
+
+
+def _assert_bf16_close(outs, tol=5e-4):
+    """outs = (kernel, plain, plain f32) tuples of outputs"""
+    gaps = _bf16_gaps(*outs)
+    assert all(m <= tol and r <= 0.15 for m, r in gaps), gaps
+
+
+def _bf16_same(got, ref, got32, ref32):
+    if got.dtype != torch.bfloat16 or ref.dtype != torch.bfloat16:
+        return False
+    g, r = got.float(), ref.float()
+    m = torch.maximum(g.abs(), r.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(m)) - 7)
+    return (float((g != r).float().mean()) <= 1e-3
+            and bool(((g - r).abs() <= ulp + (got32 - ref32).abs()).all()))
+
+
+def _products(call):
+    """call(impl, **form) in the bf16 product form, kernel, plain and
+    the plain f32 twin, as tuples"""
+    def tup(x):
+        return (x,) if isinstance(x, torch.Tensor) else tuple(x)
+    return (tup(call('cuda', precision='bf16')),
+            tup(call('torch', precision='bf16')), tup(call('torch')))
+
+
+@pytest.mark.parametrize("n,n2", [(256, 10), (512, 1024)])
+def test_fft_mxu_bf16_kernels_match_plain(dev, n, n2):
+    """the four ct2 passes in both bf16 forms, at a ragged z (n2 = 10:
+    contractions of 10 and 5, five modes) and at the z-CT shape"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    Zm = n2 // 2
+    bf16 = torch.bfloat16
+    x = (1.0 + 0.3 * _fft_inputs(40, (3, n, n2), dev)[0]).contiguous()
+    wz, wy = fm._z_fwd_tabs(n2, Zm), fm._ct_fwd_mats_np(n)
+    got, ref, f32 = _products(lambda impl, **k: fm._zy_fwd_ct2_call(
+        x, n2, Zm, wz, wy, impl=impl, **k))
+    _assert_bf16_close((got, ref, f32), ZY)
+    got, ref = (fm._zy_fwd_ct2_call(x, n2, Zm, wz, wy, impl=impl,
+                                    out_dtype=bf16)
+                for impl in ('cuda', 'torch'))
+    got32, ref32 = (fm._zy_fwd_ct2_call(x, n2, Zm, wz, wy, impl=impl)
+                    for impl in ('cuda', 'torch'))
+    assert all(_bf16_same(*t) for t in zip(got[:2], ref[:2], got32, ref32))
+    assert _rel(got[2], ref[2]) <= TOL
+    pr, pi, _ = _fft_inputs(41, (n, 3, Zm), dev)
+    rng = np.random.RandomState(42)
+    k2 = [rng.uniform(0.0, 2.0, m).astype('f4') for m in (n, 3, Zm)]
+    for t in k2:
+        t[0] = 0.0
+    wi = fm._ct_inv_mats_np(n)
+    wg = fm._ct_inv_mats_np(n, fold_kvec=_sl(n))
+    hr, hi = pr.to(bf16), pi.to(bf16)
+    for kw in (dict(wx=fm._ct_fwd_mats_np(n), scale=1.0 / n ** 3),
+               dict(wx=wi, scale=1.0, inverse=True),
+               dict(wx=wi, scale=1.0, inverse=True, wx2=wg, k2=k2)):
+        got, ref, f32 = _products(lambda impl, **k: fm._xct_call_multi(
+            pr, pi, impl=impl, **k, **kw))
+        assert len(got) == len(ref)
+        _assert_bf16_close((got, ref, f32))
+        got, ref = (fm._xct_call_multi(hr, hi, impl=impl, out_dtype=bf16,
+                                       **kw) for impl in ('cuda', 'torch'))
+        got32, ref32 = (fm._xct_call_multi(hr.float(), hi.float(),
+                                           impl=impl, **kw)
+                        for impl in ('cuda', 'torch'))
+        assert all(_bf16_same(*t) for t in zip(got, ref, got32, ref32))
+    rr, ii, _ = _fft_inputs(43, (3, n, Zm), dev)
+    plane = _fft_inputs(44, (3, n), dev)[0]
+    Wy, Wyg = fm._ct_inv_mats_np(n), fm._ct_inv_mats_np(n, fold_kvec=_sl(n))
+    AB = fm._z_inv_tabs(n2, Zm)
+    ABg = fm._z_inv_tabs(n2, Zm, grad_kvec=_sl(n2, half=True))
+    hr, hi = rr.to(bf16), ii.to(bf16)
+    for pl in (None, plane):
+        got, ref, f32 = _products(lambda impl, **k: fm._zy_inv_ct2_call(
+            rr, ii, Wyg, ABg, n2, plane=pl, impl=impl, **k))
+        _assert_bf16_close((got, ref, f32), ZY)
+        got, ref, f32 = _products(lambda impl, **k: fm._zy_inv_ct2_call_dual(
+            rr, ii, Wyg, AB, Wy, ABg, n2, planeA=pl, impl=impl, **k))
+        _assert_bf16_close((got, ref, f32), ZY)
+        # bf16 storage: the same f32 products on the bf16 spectrum
+        g, r = (fm._zy_inv_ct2_call(hr, hi, Wyg, ABg, n2, plane=pl,
+                                    impl=impl) for impl in ('cuda', 'torch'))
+        assert g.dtype == torch.float32 and _rel(g, r) <= TOL
+        got, ref = (fm._zy_inv_ct2_call_dual(hr, hi, Wyg, AB, Wy, ABg, n2,
+                                             planeA=pl, impl=impl)
+                    for impl in ('cuda', 'torch'))
+        assert all(_rel(g, r) <= TOL for g, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("shape", [(45, 38, 75), (7, 9, 11)])
+def test_fft_dense_bf16_kernels_match_plain(dev, shape):
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    N0, N1, n2 = shape
+    Zh = n2 // 2 + 1
+    x = _fft_inputs(45, shape, dev)[0]
+    wz, wy = fm._dft_half_np(n2, Zh), fm._dft_np(N1, -1)
+    _assert_bf16_close(_products(
+        lambda impl, **k: fm._zy_fwd_dense_call(x, wz, wy, impl=impl, **k)),
+        ZY)
+    pr, pi, _ = _fft_inputs(46, (N0, N1, Zh), dev)
+    k2 = [np.random.RandomState(47).uniform(0.0, 2.0, m).astype('f4')
+          for m in (N0, N1, Zh)]
+    for t in k2:
+        t[0] = 0.0
+    wi, wg = fm._dft_np(N0, +1), fm._dft_fold_np(N0, _sl(N0))
+    for kw in (dict(wx=fm._dft_np(N0, -1), scale=1.0 / x.numel()),
+               dict(wx=wi, scale=1.0, wx2=wg, k2=k2)):
+        _assert_bf16_close(_products(
+            lambda impl, **k: fm._x_dense_call(pr, pi, impl=impl, **k,
+                                               **kw)))
+    wyi, wyg = fm._dft_np(N1, +1), fm._dft_fold_np(N1, _sl(N1))
+    ABg = fm._irfft_mats_np(n2, Zh, grad_kvec=_sl(n2, half=True))
+    for tabs in ((wyg, fm._irfft_mats_np(n2, Zh)), (wyi, ABg)):
+        _assert_bf16_close(_products(
+            lambda impl, **k: fm._zy_inv_dense_call(pr, pi, *tabs,
+                                                    impl=impl, **k)), ZY)
+
+
+@pytest.mark.parametrize("full,half", [((45, 38, 75), (256, 256, 16)),
+                                       ((16, 12, 10), (512, 256, 30))])
+def test_fft_ref_bf16_kernels_match_plain(dev, full, half):
+    """the row-13 entry points with precision='bf16', card against
+    plain on the same inputs, each a chain of two passes: the
+    full-spectrum forward, inverse and triple, the half-CT forward and
+    triple"""
+    from pmesh_tpu_torch.ops import fft_mxu_ref as ref
+    x = _fft_inputs(48, full, dev)[0]
+    xh = _fft_inputs(49, half, dev)[0]
+    kv = [tuple((np.fft.fftfreq(n) * 2 * np.pi).tolist()) for n in full]
+    kd = (_sl(half[0]), _sl(half[1]), _sl(half[2], half=True))
+
+    # the inverses all read the plain bf16 forward's spectra
+    r, i = ref.fft3_real_forward(x, precision='bf16', impl='torch')
+    hr, hi = ref.fft3_real_forward_half_ct(xh, precision='bf16',
+                                           impl='torch')
+
+    def chain(impl, **k):
+        out = list(ref.fft3_real_forward(x, impl=impl, **k))
+        out.append(ref.fft3_real_inverse(r, i, grad=2, kvec=kv[2],
+                                         impl=impl, **k))
+        out += ref.fft3_real_inverse_grad3(r, i, kvecs=kv, impl=impl, **k)
+        out += ref.fft3_real_forward_half_ct(xh, impl=impl, **k)
+        out += ref.fft3_real_inverse_grad3_half_ct(hr, hi, half[2], kd,
+                                                   impl=impl, **k)
+        return out
+    _assert_bf16_close(_products(chain), ZY)
+
+
+def test_fft_bf16_kernels_refuse_and_do_not_fall_back(dev):
+    """a bf16 request with a tensor the kernel does not take raises,
+    launches nothing and runs nothing else"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    from pmesh_tpu_torch.ops import fft_mxu_cuda
+    n2, Zm = 16, 8
+    x = _fft_inputs(50, (2, 256, n2), dev)[0]
+    wz, wy = fm._z_fwd_tabs(n2, Zm), fm._ct_fwd_mats_np(256)
+    pr, pi, _ = _fft_inputs(51, (256, 2, Zm), dev)
+    hr, hi = pr.to(torch.bfloat16), pi.to(torch.bfloat16)
+    wi = fm._ct_inv_mats_np(256)
+    fft_mxu_cuda.reset_launches()
+    with pytest.raises(NotImplementedError, match='f32'):
+        # the real mesh is f32 in both forms
+        fm._zy_fwd_ct2_call(x.to(torch.bfloat16), n2, Zm, wz, wy,
+                            precision='bf16')
+    with pytest.raises(NotImplementedError, match='f32 or bf16'):
+        fm._xct_call_multi(hr, pi, wi, 1.0, inverse=True,
+                           out_dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match='f32 or bf16'):
+        fft_mxu_cuda.xct_multi(pr.half(), pi.half(), wi, 1.0, inverse=True)
+    with pytest.raises(NotImplementedError, match='stores its output'):
+        fm._xct_call_multi(pr, pi, wi, 1.0, inverse=True,
+                           out_dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match='f32'):
+        # the dense passes have no bf16 storage form
+        fm._x_dense_call(hr, hi, fm._dft_np(256, +1), 1.0, precision='bf16')
+    with pytest.raises(ValueError, match='precision'):
+        fm._xct_call_multi(pr, pi, wi, 1.0, inverse=True, precision='tf32')
+    with pytest.raises(NotImplementedError, match='gradients'):
+        fm._zy_inv_ct2_call(hr.reshape(2, 256, Zm).requires_grad_(),
+                            hi.reshape(2, 256, Zm), wi, fm._z_inv_tabs(n2, Zm),
+                            n2, precision='bf16')
+    assert not _launched(fft_mxu_cuda)
+
+
+@pytest.mark.parametrize("fft,shape,mode", [
+    ('mxu_bf16', (256, 256, 16), 'spectral'),
+    ('mxu_bf16s', (256, 256, 16), 'spectral'),
+    ('mxu_bf16s', (256, 256, 16), 'gradient'),
+    ('mxu_bf16', (48, 40, 33), 'spectral'),
+    ('mxu_bf16s', (48, 40, 33), 'spectral')])
+def test_fft_bf16_launches_count_one_force(dev, fft, shape, mode):
+    """one force in each bf16 mode runs only that form of the kernels;
+    the dense pipeline has no storage form and runs f32 products under
+    mxu_bf16s, as the JAX package does"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import fft_mxu_cuda
+    pm = ParticleMesh(shape, BoxSize=np.asarray(shape, float), dtype='f4',
+                      device=dev)
+    disp, _, _ = _inputs(52, shape, (0.0, 1.0), dev)
+    fft_mxu_cuda.reset_launches()
+    F = Solver(pm).force_lattice(disp, (0.0, 1.0), mode=mode, fft=fft)
+    assert all(f.dtype == torch.float32 and torch.isfinite(f).all()
+               for f in F)
+    if shape == (48, 40, 33):
+        sfx = '_bf16' if fft == 'mxu_bf16' else ''
+        want = {"zy_fwd_half" + sfx: 1, "x_dense" + sfx: 2,
+                "zy_inv_half" + sfx: 3}
+    else:
+        sfx = '_bf16' if fft == 'mxu_bf16' else '_bf16s'
+        want = {"zy_fwd_ct2" + sfx: 1, "xct_multi" + sfx: 2,
+                "zy_inv_ct2" + sfx: 1}
+        if mode == 'spectral':
+            want["zy_inv_ct2_dual" + sfx] = 1
+    assert _launched(fft_mxu_cuda) == want

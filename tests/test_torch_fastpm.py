@@ -152,13 +152,15 @@ def test_nbody_lattice_poisons_in_loop():
 def test_force_lattice_refuses_mxu_and_boost():
     _, ts = _solvers()
     disp = tuple(torch.zeros((N,) * 3) for _ in range(3))
-    for fft in ('mxu_bf16', 'mxu_bf16s'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            ts.force_lattice(disp, (0.0, 1.0), fft=fft)
-    # fft='mxu' runs at this shape, which is not ct2 (the dense DFT
-    # passes): a uniform lattice feels no force
+    # fft='mxu' and its bf16 modes run at this shape, which is not ct2
+    # (the dense DFT passes): a uniform lattice feels no force, and the
+    # meshes are f32
     F = ts.force_lattice(disp, (0.0, 1.0), fft='mxu')
     assert all(float(f.abs().max()) < 1e-6 for f in F)
+    for fft in ('mxu_bf16', 'mxu_bf16s'):
+        F = ts.force_lattice(disp, (0.0, 1.0), fft=fft)
+        assert all(f.dtype == torch.float32 and float(f.abs().max()) < 1e-5
+                   for f in F)
     with pytest.raises(ValueError):
         ts.force_lattice(disp, (0.0, 1.0), fft='cufft')
     with pytest.raises(ValueError):

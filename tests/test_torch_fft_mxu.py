@@ -322,12 +322,17 @@ def test_mxu_refusals():
     _, ts = _solvers((16, 16, 16))
     disp = tuple(torch.full((16,) * 3, 0.5) for _ in range(3))
     dsl, valid = tbn.from_lattice(disp, nslots=1)
+    # the bf16 modes run (dense passes at this shape) and give f32 meshes:
+    # a uniform lattice feels no force
     for fft in ('mxu_bf16', 'mxu_bf16s'):
         for mode in ('spectral', 'gradient'):
-            with pytest.raises(NotImplementedError, match='item 12'):
-                ts.force_lattice(disp, (0.0, 1.0), mode=mode, fft=fft)
-            with pytest.raises(NotImplementedError, match='item 12'):
-                ts.force_binned(dsl, valid, (0.0, 1.0), mode=mode, fft=fft)
+            F = ts.force_lattice(disp, (0.0, 1.0), mode=mode, fft=fft)
+            Fb = ts.force_binned(dsl, valid, (0.0, 1.0), mode=mode, fft=fft)
+            for f in F + Fb[0]:
+                assert f.dtype == torch.float32 and f.shape == (16,) * 3
+                assert float(f.abs().max()) < 1e-5
+    with pytest.raises(ValueError, match='unknown fft'):
+        ts.force_lattice(disp, (0.0, 1.0), fft='mxu_fp8')
     # not a ct2 shape: the spectral triple runs the dense DFT passes
     # (kernel-table rows 3 and 4); a uniform lattice feels no force
     F = ts.force_lattice(disp, (0.0, 1.0), fft='mxu')
@@ -366,8 +371,9 @@ def test_mxu_spectral_refuses_f64():
     ts = tfastpm.Solver(tpm)
     disp = tuple(torch.full(SHAPE, 0.5, dtype=torch.float64)
                  for _ in range(3))
-    with pytest.raises(ValueError, match='f32'):
-        ts.force_lattice(disp, (0.0, 1.0), fft='mxu')
+    for fft in ('mxu', 'mxu_bf16', 'mxu_bf16s'):
+        with pytest.raises(ValueError, match='f32'):
+            ts.force_lattice(disp, (0.0, 1.0), fft=fft)
 
 
 def test_fft_mxu_cuda_wrappers_refuse_cpu_tensors():

@@ -6,8 +6,7 @@ mode on the CPU as its own tests run them.
 - the full-spectrum entry points (``fft3_real_forward``,
   ``fft3_real_inverse`` with grad None/0/1/2, ``fft3_real_inverse_grad3``)
   at (8, 16, 32) and the ragged (6, 10, 14): 3e-6 of max|JAX| (f32
-  matmuls summed in another order; the port runs y before z in the
-  inverse, which gives the same real part);
+  matmuls summed in another order);
 - the first-CT half entry points (``fft3_real_forward_half_ct``,
   ``fft3_real_inverse_grad3_half_ct``) at (256, 256, 16) and
   (256, 512, 10), the smallest shapes whose x and y lengths split as
@@ -16,7 +15,8 @@ mode on the CPU as its own tests run them.
   shapes into one interpret-mode kernel body; the tests set its
   ``TUNE`` block to 2 planes, which changes the blocking, not the math;
 - what both packages refuse: a nonzero x or y wavenumber at Nyquist in
-  the half-spectrum gradient, a non-CT shape for the CT forward.
+  the half-spectrum gradient, a non-CT shape for the CT forward; and
+  that ``precision='bf16'`` runs (its values: test_torch_fft_bf16.py).
 
 About 30 s in one process, most of it JAX compiling its kernels.
 """
@@ -160,8 +160,11 @@ def test_half_ct_refusals():
 
 def test_refusals():
     x = torch.zeros((4, 4, 4))
-    with pytest.raises(NotImplementedError, match='item 12'):
-        ref.fft3_real_forward(x, precision='bf16')
+    r, i = ref.fft3_real_forward(x, precision='bf16')
+    assert r.dtype == i.dtype == torch.float32
+    assert ref.fft3_real_inverse(r, i, precision='bf16').dtype == torch.float32
+    with pytest.raises(ValueError, match='precision'):
+        ref.fft3_real_forward(x, precision='tf32')
     with pytest.raises(ValueError, match='kvec'):
         ref.fft3_real_inverse(x, x, grad=1)
     with pytest.raises(ValueError, match='impl'):

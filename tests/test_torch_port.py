@@ -46,6 +46,7 @@ def test_imports_without_jax():
         "import pmesh_tpu_torch.ops.gridpm_cuda\n"
         "import pmesh_tpu_torch.ops.binned_cuda\n"
         "import pmesh_tpu_torch.ops.fft_mxu_cuda\n"
+        "import pmesh_tpu_torch.ops.fft_mxu_ref\n"
         "assert not [m for m in sys.modules if m.startswith('jax') and\n"
         "            sys.modules[m] is not None]\n"
         "assert 'pmesh_tpu' not in sys.modules\n")
@@ -223,7 +224,7 @@ def test_convert_and_device_checks():
         convert.field_from_numpy(pm, np.zeros((4, 4, 4)))
     with pytest.raises(ValueError, match='lies on'):
         pm.create(type='real', value=torch.zeros((4, 4, 8), device='meta'))
-    with pytest.raises(NotImplementedError, match='queue 1, item 11'):
+    with pytest.raises(NotImplementedError, match='queue 1, item 8'):
         ParticleMesh([4, 4, 4], procmesh=object(), device='cpu')
     with pytest.raises(ValueError):
         ParticleMesh([4, 4, 4], dtype='c8', device='cpu')
