@@ -92,6 +92,31 @@ precision='bf16'; phase 5 one force_binned(fft='mxu_bf16') on the grown
 clustered state (the dense bf16 form); phase 7 small runs and a
 gradient, card against CPU, to the chained bound of TOL_CHAIN.
 
+The slab-sharded path (rank-local slabs over torch.distributed) adds
+three phases:
+
+8. every slab kernel against its plain version at the shapes of RANKS
+   ranks: the x-halo lattice paint and readout and the x-halo rebase on
+   a 128-row slab of the 512^3 main path (also bitwise the wrapped
+   kernels' rows of the whole mesh), the row-9 dense passes at the slab
+   and y-chunk shapes of 384^3 and the ct2 passes at those of 512^3,
+   with bounds and torch.fft yardsticks;
+9. RANKS ranks on the card (parallel/launch.spawn over gloo; one card
+   cannot host NCCL ranks, so the collectives are staged through the
+   host): lpt_lattice + 3 KDK steps of nbody_lattice at 512^3 with
+   fft='mxu' (ct2) and 'xla' and one 'mxu_bf16s' force, the 384^3 dense
+   force_lattice(fft='mxu') (row 9), one sharded rebase and a binned
+   superstep at 512^3, K = 2 (row 12), gathered to rank 0 and held
+   against the single-device kernels on the card (forces and paints on
+   the same inputs to 1e-5 of max, states to 1e-4, the binned density
+   to 1e-4, the rebase bitwise), the launch counters set to 0 just
+   before each run and read just after it, summed over the ranks and
+   held to the exact count of its forces and rebases; the ranks run
+   this script's card_phases;
+10. the per-rank chain of the 8-rank 1024^3 sharded force step at its
+   (128, 1024, 1024) slab shapes (bench.py's measure_pipe_chain),
+   kernel by kernel with bounds, beside torch.fft's calls.
+
 The second-to-last line is the kernels' JSON record, the last line
 the device record.
 """
@@ -169,6 +194,25 @@ KERNELS = {
                             "pmesh_tpu/ops/fft_mxu_ref.py:246"),
     "zy_inv_half_ct": ("pmesh_tpu_torch/csrc/fft_mxu.cu",
                        "pmesh_tpu/ops/fft_mxu_ref.py:280"),
+    # the slab-sharded path: the x-halo slab forms of the lattice paint
+    # and readout (paint_fused_parts / readout_fused_parts with halos,
+    # reached through _shift_sharded), row 9 (the dense passes at the
+    # slab and y-chunk shapes) and row 12 (the fused sharded rebase,
+    # both of whose halves the x-halo rebase kernels replace)
+    "paint_lattice_xhalo": ("pmesh_tpu_torch/csrc/gridpm.cu",
+                            "pmesh_tpu/ops/gridpm_pallas.py:410"),
+    "readout_lattice_xhalo": ("pmesh_tpu_torch/csrc/gridpm.cu",
+                              "pmesh_tpu/ops/gridpm_pallas.py:347"),
+    "zy_fwd_half (row 9)": ("pmesh_tpu_torch/csrc/fft_mxu.cu",
+                            "pmesh_tpu/ops/fft_mxu.py:1568"),
+    "x_dense (row 9)": ("pmesh_tpu_torch/csrc/fft_mxu.cu",
+                        "pmesh_tpu/ops/fft_mxu.py:1586"),
+    "zy_inv_half (row 9)": ("pmesh_tpu_torch/csrc/fft_mxu.cu",
+                            "pmesh_tpu/ops/fft_mxu.py:1604"),
+    "rebase_assign_xhalo": ("pmesh_tpu_torch/csrc/binned.cu",
+                            "pmesh_tpu/ops/binned_pallas.py:84"),
+    "rebase_apply_xhalo": ("pmesh_tpu_torch/csrc/binned.cu",
+                           "pmesh_tpu/ops/binned_pallas.py:84"),
 }
 # the bf16 forms of the DFT kernels: the bf16 products (fft='mxu_bf16',
 # precision='bf16') of each, "<kernel>_bf16", and the bf16 spectrum
@@ -253,6 +297,15 @@ TOL_BF16_SANITY = 0.1
 # checks of the bf16 forms that failed; the run goes on to its end and
 # fails there, so that one run shows every measurement
 DEFERRED = []
+# the slab-sharded path: RANKS ranks on the card, N^3 ct2 lattice runs
+# of SHARDED_STEPS (3 KDK steps), the NC^3 dense force, the N^3 binned
+# superstep; the per-rank chain of the CHAIN_RANKS-rank 1024^3 step at
+# its CHAIN_SLAB shapes (bench.py's measure_pipe_chain)
+RANKS = 4
+SHARDED_STEPS = STEPS[:4]
+SHARDED_FFTS, SHARDED_EXTRA_FORCE = ('mxu', 'xla'), 'mxu_bf16s'
+DENSE_BOUNDS = (0.0, 1.0)
+CHAIN_RANKS, CHAIN_SLAB = 8, (128, 1024, 1024)
 MXU_SLAB = (16, 512, 1024)
 MXU_SMALL = (256, 256, 16)
 DENSE_RAGGED = (96, 80, 75)
@@ -1552,7 +1605,7 @@ def phase_row13(dev, pm, dlinear):
     back = ref.fft3_real_inverse(*ref.fft3_real_forward(rho))
     torch.cuda.synchronize()
     launches = dict(fft_mxu_cuda.LAUNCHES)
-    lattice = dict(gridpm_cuda.LAUNCHES)
+    lattice = {k: v for k, v in gridpm_cuda.LAUNCHES.items() if v}
     e_full = max_rel(F13, F_xla)[0]
     e_ct = max_rel(fh, F_ct2)[0]
     e_rt = float((back - rho).abs().max() / rho.abs().max())
@@ -2015,7 +2068,8 @@ def phase_binned_clustered(dev, n=NC):
     if not (finite and mass_err <= TOL_MASS):
         raise AssertionError("the binned state is not finite or its "
                              "paint does not conserve the count")
-    if min(launches.values()) < 1:
+    if min(launches[k] for k in ("paint_lattice", "readout_lattice",
+                                 "rebase_assign", "rebase_apply")) < 1:
         raise AssertionError("the kernels did not carry the binned path")
     if any(dft[k] != need.get(k, 0) for k in dft):
         raise AssertionError("the dense DFT kernels did not carry the "
@@ -2320,6 +2374,684 @@ def phase_small_binned(dev, n=32):
                              "path at %d^3" % n)
 
 
+# --- the slab-sharded path: phases 8, 9 and 10 -------------------------------
+
+def flat(out):
+    """the tensors of nested tuples, in order"""
+    if isinstance(out, (tuple, list)):
+        return tuple(t for o in out for t in flat(o))
+    return (out,)
+
+
+def xhalo_case(records, kernel, label, fn, full_fn, reads, ops):
+    """an x-halo slab kernel against its plain version (fn(impl)) and
+    against the wrapped kernel's rows of the whole mesh (full_fn(), which
+    must be bitwise equal: same sums in the same order); the first case
+    of each kernel is its record"""
+    plain = flat(fn('torch'))
+    got = flat(fn('cuda'))
+    full = flat(full_fn())
+    rel, err = max_rel(got, plain)
+    same = bitwise_equal(got, full)
+    ms = cuda_ms(lambda: fn('cuda'), 5)
+    plain_ms = cuda_ms(lambda: fn('torch'), 1)
+    ok = rel <= TOL_KERNEL and np.isfinite(rel) and same
+    log("phase 8 compare: %-22s %-34s max|k-p|/max|p| = %.3e (tol %.0e), "
+        "bitwise the wrapped kernel's rows: %s %s  kernel %.3f ms  plain "
+        "%.3f ms" % (kernel, label, rel, TOL_KERNEL, same,
+                     "ok" if ok else "FAIL", ms, plain_ms))
+    if not ok:
+        raise AssertionError("%s disagrees (%s)" % (kernel, label))
+    rec = record(err, ms, plain_ms, nbytes(reads, got), ops)
+    log("phase 8 bound: %-22s %-34s %.3f ms by %s, kernel %.3f ms"
+        % (kernel, label, rec["bound_ms"], rec["bound_by"], ms))
+    if kernel in records:
+        records[kernel]["max_abs_err"] = max(records[kernel]["max_abs_err"],
+                                             err)
+    else:
+        records[kernel] = rec
+
+
+def phase_compare_slab(dev):
+    """every slab kernel of the sharded path against its plain version
+    at the shapes of RANKS ranks: the x-halo lattice paint and readout
+    and the x-halo rebase on a slab of the N^3 main path (the first rank's
+    rows, the halo cut with the wrap from the whole mesh, so the result
+    is also bitwise the wrapped kernels' rows), the row-9 dense passes at
+    the slab and y-chunk shapes of NC^3, and the ct2 passes at those of
+    N^3; returns {kernel: record} of the slab forms and row 9"""
+    from pmesh_tpu_torch.ops import binned as bn
+    from pmesh_tpu_torch.ops import binned_cuda, gridpm_cuda
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    from pmesh_tpu_torch.ops import gridpm as gp
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    records = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    rows = N // RANKS
+    shape = (N,) * 3
+
+    def halo(t, lo, hi):
+        """rows [0, rows) of ``t`` with lo planes below and hi above"""
+        return torch.cat([t[N - lo:], t[:rows + hi]], 0) if lo else \
+            t[:rows + hi].contiguous()
+
+    lo_b, hi_b = BOUNDS
+    vmin, vmax = gp.offset_range(lo_b, hi_b, 'cic')
+    disp = tuple(lo_b + (hi_b - lo_b) * torch.rand(shape, generator=gen,
+                                                   device=dev)
+                 for _ in range(3))
+    mesh = torch.randn(shape, generator=gen, device=dev)
+    plo, phi = max(0, vmax), max(0, -vmin)
+    dext = tuple(halo(d, plo, phi) for d in disp)
+    cells = rows * N * N
+    xhalo_case(records, "paint_lattice_xhalo", "%d-row slab of %d^3"
+               % (rows, N),
+               lambda impl: gridpm_cuda.paint_lattice(
+                   dext, None, vmin, vmax, 'cic', rows=rows, xbase=plo)
+               if impl == 'cuda' else gp.paint_slab_plain(
+                   dext, 1.0, plo, rows, BOUNDS, 'cic'),
+               lambda: gridpm_cuda.paint_lattice(disp, None, vmin, vmax,
+                                                 'cic')[:rows],
+               dext, CIC_OPS * (vmax - vmin + 1) ** 3 * cells)
+    rlo, rhi = max(0, -vmin), max(0, vmax)
+    mext = halo(mesh, rlo, rhi)
+    dslab = tuple(d[:rows] for d in disp)
+    for diffdir in (None, 'all'):
+        xhalo_case(records, "readout_lattice_xhalo",
+                   "%d-row slab, diffdir=%s" % (rows, diffdir),
+                   lambda impl: gridpm_cuda.readout_lattice(
+                       (mext,), dslab, vmin, vmax, 'cic', diffdir=diffdir,
+                       xbase=rlo)
+                   if impl == 'cuda' else gp.readout_slab_plain(
+                       (mext,), dslab, rlo, BOUNDS, 'cic', diffdir),
+                   lambda: tuple(o[:rows] for o in gridpm_cuda
+                                 .readout_lattice((mesh,), disp, vmin, vmax,
+                                                  'cic', diffdir=diffdir)),
+                   (mext, dslab), CIC_OPS * (vmax - vmin + 1) ** 3 * cells)
+    del disp, mesh, dext, mext, dslab
+    torch.cuda.empty_cache()
+
+    # the x-halo rebase: the main path's drift bounds, K = 2 -> 2
+    bounds, kout = REBASE_CASES[0]
+    drift = min(0.05 - bounds[0], bounds[1] - 0.95)
+    dslots, vslots, valid = rebase_state(dev, gen, N, drift)
+    offsets = bn._drift_offsets(bounds, 3)
+    olo, ohi = offsets[0][0], offsets[-1][0]
+    xlo, xhi = bn._halo_depth(offsets)
+    dx = tuple(tuple(halo(t, xlo, xhi) for t in dk) for dk in dslots)
+    vx = tuple(halo(t, xlo, xhi) for t in valid)
+    ex = tuple(tuple(halo(t, xlo, xhi) for t in vk) for vk in vslots)
+    full = binned_cuda.rebase_assign(dslots, valid, kout, olo, ohi)
+    full_e = binned_cuda.rebase_apply((vslots,), full[2], olo, ohi)
+
+    def assign(impl):
+        if impl == 'cuda':
+            return binned_cuda.rebase_assign(dx, vx, kout, olo, ohi,
+                                             rows=rows, xbase=xlo)[:3]
+        return bn.rebase_assign_plain(dx, vx, offsets, kout, rows=rows,
+                                      xbase=xlo)[:3]
+
+    got = binned_cuda.rebase_assign(dx, vx, kout, olo, ohi, rows=rows,
+                                    xbase=xlo)
+    xhalo_case(records, "rebase_assign_xhalo",
+               "%d-row slab, K=2->%d %s" % (rows, kout, bounds), assign,
+               lambda: tuple(t[:rows] for t in flat(full[:3])),
+               (dx, vx), REBASE_OPS * 2 * cells)
+    xhalo_case(records, "rebase_apply_xhalo",
+               "%d-row slab, velocities" % rows,
+               lambda impl: binned_cuda.rebase_apply(
+                   (ex,), got[2], olo, ohi, xbase=xlo)
+               if impl == 'cuda' else bn.rebase_apply_plain(
+                   (ex,), got[2], offsets, xbase=xlo),
+               lambda: tuple(t[:rows] for t in flat(full_e)),
+               (ex, got[2]), 0)
+    log("phase 8 compare: rebase_assign_xhalo overflow of the slab %d "
+        "(the whole mesh %d)" % (int(got[3]), int(full[3])))
+    del dslots, vslots, valid, dx, vx, ex, full, full_e, got
+    torch.cuda.empty_cache()
+
+    # row 9: the dense passes at the slab and y-chunk shapes of NC^3
+    n0, n1 = NC // RANKS, NC // RANKS
+    Zh = NC // 2 + 1
+    pm = ParticleMesh([NC] * 3, BoxSize=float(NC), dtype='f4', device=dev)
+    _, pk2, kd, _ = Solver(pm)._mxu_setup()
+    kd = fm._tuples(kd)
+    wz = fm._cached(fm._dft_half_np, NC, Zh)
+    wyf, wxf = fm._cached(fm._dft_np, NC, -1), fm._cached(fm._dft_np, NC, -1)
+    wy, wx = fm._cached(fm._dft_np, NC, +1), fm._cached(fm._dft_np, NC, +1)
+    wx_g = fm._cached(fm._dft_fold_np, NC, kd[0])
+    AB_p = fm._cached(fm._irfft_mats_np, NC, Zh)
+    k2 = fm._cached(fm._sharded_dense_k2, fm._tuples(pk2), NC, NC, Zh, 0,
+                    RANKS)
+    x = 1.0 + 0.3 * torch.randn((n0, NC, NC), generator=gen, device=dev)
+
+    def case(label, kernel, fn, reads, ops, library=None):
+        return dft_case(records, kernel, label, fn, reads, ops, library)
+    pr, pi = case("row 9 slab (%d, %d, %d)" % (n0, NC, NC),
+                  "zy_fwd_half (row 9)",
+                  lambda impl: fm._zy_fwd_dense_call(x, wz, wyf, impl=impl),
+                  (x, wz, wyf), zy_ops(n0, NC, NC),
+                  lambda: torch.fft.rfftn(x, dim=(1, 2)))
+    del x
+    cr = 0.01 * torch.randn((NC, n1, Zh), generator=gen, device=dev)
+    ci = 0.01 * torch.randn((NC, n1, Zh), generator=gen, device=dev)
+    zc = torch.complex(cr, ci)
+    case("row 9 y-chunk (%d, %d, %d) forward" % (NC, n1, Zh),
+         "x_dense (row 9)",
+         lambda impl: fm._x_dense_call(cr, ci, wxf, 1.0 / NC ** 3,
+                                       impl=impl),
+         (cr, ci, wxf), fft_ops(NC, n1 * Zh), lambda: torch.fft.fft(zc, dim=0))
+    case("row 9 y-chunk inverse dual, 1/k^2 of chunk 0", "x_dense (row 9)",
+         lambda impl: fm._x_dense_call(cr, ci, wx, 1.0, wx2=wx_g, k2=k2,
+                                       impl=impl),
+         (cr, ci, wx, wx_g, k2), 2 * fft_ops(NC, n1 * Zh))
+    del zc
+    case("row 9 slab (%d, %d, %d) inverse" % (n0, NC, Zh),
+         "zy_inv_half (row 9)",
+         lambda impl: fm._zy_inv_dense_call(pr, pi, wy, AB_p, impl=impl),
+         (pr, pi, wy, AB_p), zy_ops(n0, NC, NC),
+         library_inverse(pr, pi, NC))
+    del pr, pi, cr, ci
+    torch.cuda.empty_cache()
+
+    # the ct2 passes (rows 5-8) at the slab and y-chunk shapes of N^3:
+    # logged; their records stay the whole-mesh ones of phase 3
+    logged = {}
+    Zm = N // 2
+    pm = ParticleMesh([N] * 3, BoxSize=BOX, dtype='f4', device=dev)
+    _, pk2, kd, _ = Solver(pm)._mxu_setup()
+    wzc = fm._cached(fm._z_fwd_tabs, N, Zm)
+    wf, wi = fm._cached(fm._ct_fwd_mats_np, N), fm._cached(
+        fm._ct_inv_mats_np, N)
+    wxg = fm._cached(fm._ct_inv_mats_np, N, kd[0])
+    ABc = fm._cached(fm._z_inv_tabs, N, Zm)
+    _, k2c = fm._cached(fm._sharded_ct2_k2, fm._tuples(pk2), N, N, Zm, 0,
+                        RANKS)
+    x = 1.0 + 0.3 * torch.randn((rows, N, N), generator=gen, device=dev)
+    pr, pi, nq = dft_case(logged, "zy_fwd_ct2", "slab (%d, %d, %d)"
+                          % (rows, N, N),
+                          lambda impl: fm._zy_fwd_ct2_call(x, N, Zm, wzc, wf,
+                                                           impl=impl),
+                          (x, wzc, wf), zy_ops(rows, N, N))
+    del x
+    cr = 0.01 * torch.randn((N, rows, Zm), generator=gen, device=dev)
+    ci = 0.01 * torch.randn((N, rows, Zm), generator=gen, device=dev)
+    dft_case(logged, "xct_multi", "y-chunk (%d, %d, %d) forward"
+             % (N, rows, Zm),
+             lambda impl: fm._xct_call_multi(cr, ci, wf, 1.0 / N ** 3,
+                                             impl=impl),
+             (cr, ci, wf), fft_ops(N, rows * Zm))
+    dft_case(logged, "xct_multi", "y-chunk inverse dual, 1/k^2 chunk 0",
+             lambda impl: fm._xct_call_multi(cr, ci, wi, 1.0, inverse=True,
+                                             wx2=wxg, k2=k2c, impl=impl),
+             (cr, ci, wi, wxg, k2c), 2 * fft_ops(N, rows * Zm))
+    plane = nq / N ** 3
+    dft_case(logged, "zy_inv_ct2_dual", "slab, plane rows on A",
+             lambda impl: fm._zy_inv_ct2_call_dual(pr, pi, wi, ABc, wi, ABc,
+                                                   N, planeA=plane,
+                                                   impl=impl),
+             (pr, pi, wi, ABc, plane), 2 * zy_ops(rows, N, N))
+    del pr, pi, cr, ci, nq, plane
+    torch.cuda.empty_cache()
+    return records
+
+
+# --- phase 9: what each rank runs ------------------------------------------
+#
+# launch.spawn('chip_smoke:card_phases', RANKS, ...) starts RANKS ranks
+# that share the card.  Every rank makes the same global inputs from the
+# seed on its own device and runs the sharded path on its slab, with the
+# launch counters set to 0 just before the run and read just after it;
+# the slabs are then gathered to rank 0, which runs the single-device
+# path on the same inputs and compares.  Every rank returns its
+# counters, rank 0 the comparisons too.
+
+def counters():
+    """the launch counters of every CUDA wrapper, one dict"""
+    from pmesh_tpu_torch.ops import binned_cuda, fft_mxu_cuda, gridpm_cuda
+    out = {}
+    for mod in (gridpm_cuda, binned_cuda, fft_mxu_cuda):
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def reset_counters():
+    from pmesh_tpu_torch.ops import binned_cuda, fft_mxu_cuda, gridpm_cuda
+    from pmesh_tpu_torch.parallel import comm
+    for mod in (gridpm_cuda, binned_cuda, fft_mxu_cuda):
+        mod.reset_launches()
+    comm.reset_staged()
+
+
+def flat_np(x):
+    if isinstance(x, (tuple, list)):
+        return [y for z in x for y in flat_np(z)]
+    return [x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x)]
+
+
+def gathered_rel(got, ref):
+    """max over the arrays of max|got - ref| / max|ref|, ``got`` the
+    gathered numpy arrays, ``ref`` tensors or arrays"""
+    return max(float(np.abs(g.astype(np.float64) - r).max()
+                     / np.abs(r).max())
+               for g, r in zip(flat_np(got), flat_np(ref)))
+
+
+def bits_equal(got, ref):
+    got, ref = flat_np(got), flat_np(ref)
+    return len(got) == len(ref) and all(
+        g.dtype == r.dtype and g.shape == r.shape
+        and g.tobytes() == r.tobytes() for g, r in zip(got, ref))
+
+
+def timed_run(pm, fn):
+    """(fn(), seconds, launches): the counters set to 0 and every rank
+    started together just before fn, the clock stopped when the slowest
+    rank has synchronised its card, the counters read just after"""
+    import torch.distributed as dist
+    from pmesh_tpu_torch.parallel.comm import STAGED_BYTES
+    torch.cuda.synchronize(pm.device)
+    dist.barrier()
+    reset_counters()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(pm.device)
+    dist.barrier()
+    sec = time.perf_counter() - t0
+    return out, dict(seconds=sec, launches=counters(),
+                     staged=dict(STAGED_BYTES))
+
+
+def card_lattice(pm):
+    """the sharded lattice path at N^3: for fft='mxu' and 'xla',
+    lpt_lattice(order=2) and nbody_lattice over SHARDED_STEPS; then one
+    'mxu_bf16s' force of the LPT state.  Rank 0 holds the force of the
+    LPT state and the paint of the final state against the single-device
+    kernels on the same (gathered) inputs, and the final state against
+    the single-device run from the same linear field."""
+    from pmesh_tpu_torch import ComplexField, ParticleMesh
+    from pmesh_tpu_torch import convert
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import gridpm as gp
+    gen = torch.Generator(device=pm.device).manual_seed(SEED)
+    pm1 = ParticleMesh([N] * 3, BOX, dtype='f4', device=pm.device)
+    dl1 = linear_field(pm1, gen)
+    solver = Solver(ParticleMesh([N] * 3, BOX, dtype='f4', procmesh=pm))
+    dk = solver.pm.create(type=ComplexField, value=convert.to_slabs(
+        dl1.value, pm, axis=1))
+    if pm.rank:
+        del dl1
+    s1 = Solver(pm1) if pm.rank == 0 else None
+
+    def on_card(arrays):
+        return tuple(torch.from_numpy(a).to(pm.device) for a in arrays)
+
+    out = {}
+    for fft in SHARDED_FFTS + (SHARDED_EXTRA_FORCE,):
+        if fft == SHARDED_EXTRA_FORCE:
+            disp, _ = solver.lpt_lattice(dk, A0, order=2)
+            F, rec = timed_run(pm, lambda: solver.force_lattice(
+                disp, BOUNDS, fft=fft))
+            parts = (disp, F)
+        else:
+            def run():
+                d, v = solver.lpt_lattice(dk, A0, order=2)
+                S, V = solver.nbody_lattice(d, v, SHARDED_STEPS, BOUNDS,
+                                            fft=fft)
+                return d, S, V
+            (disp, S, V), rec = timed_run(pm, run)
+            F = solver.force_lattice(disp, BOUNDS, fft=fft)
+            rho = gp.paint_grid(S, bounds=BOUNDS, procmesh=pm)
+            parts = (disp, F, S, rho, V)
+            del S, V, rho
+        got = convert.gather(parts, pm, dst=0)
+        del disp, F, parts
+        if pm.rank == 0:
+            rec['finite'] = all(np.isfinite(a).all() for a in flat_np(got))
+            rec['force'] = gathered_rel(got[1], s1.force_lattice(
+                on_card(got[0]), BOUNDS, fft=fft))
+            if fft != SHARDED_EXTRA_FORCE:
+                rec['paint'] = gathered_rel(got[3], gp.paint_grid(
+                    on_card(got[2]), bounds=BOUNDS))
+                d1, v1 = s1.lpt_lattice(dl1, A0, order=2)
+                S1, V1 = s1.nbody_lattice(d1, v1, SHARDED_STEPS, BOUNDS,
+                                          fft=fft)
+                rec['state'] = gathered_rel((got[2], got[4]), (S1, V1))
+                del d1, v1, S1, V1
+            torch.cuda.empty_cache()
+        del got
+        out[fft] = rec
+    return out
+
+
+def card_dense(pm):
+    """the sharded force_lattice(fft='mxu') at a dense NC^3 (kernel-table
+    row 9) from seeded displacements in [0.05, 0.95); rank 0 holds the
+    forces against the single-device force"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch import convert
+    from pmesh_tpu_torch.models.fastpm import Solver
+    gen = torch.Generator(device=pm.device).manual_seed(SEED + 8)
+    full = tuple(0.05 + 0.9 * torch.rand((NC,) * 3, generator=gen,
+                                         device=pm.device)
+                 for _ in range(3))
+    disp = convert.to_slabs(full, pm)
+    if pm.rank:
+        del full
+    solver = Solver(ParticleMesh([NC] * 3, float(NC), dtype='f4',
+                                 procmesh=pm))
+    solver.force_lattice(disp, DENSE_BOUNDS, fft='mxu')   # tables, warm-up
+    F, rec = timed_run(pm, lambda: solver.force_lattice(
+        disp, DENSE_BOUNDS, fft='mxu'))
+    got = convert.gather(F, pm, dst=0)
+    if pm.rank == 0:
+        s1 = Solver(ParticleMesh([NC] * 3, float(NC), dtype='f4',
+                                 device=pm.device))
+        rec['force'] = gathered_rel(got, s1.force_lattice(
+            full, DENSE_BOUNDS, fft='mxu'))
+        del s1
+        torch.cuda.empty_cache()
+    return rec
+
+
+def card_binned(pm):
+    """the sharded binned path at N^3, K = 2: one sharded rebase of a
+    seeded K = 2 state (rank 0: bitwise against the single-device rebase,
+    the overflow equal) and a superstep of nbody_binned from a seeded
+    lattice state (rank 0: the density against the single-device run's;
+    every rank: the global particle count and overflow)"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch import convert
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import binned as bn
+    from pmesh_tpu_torch.parallel.comm import all_reduce
+    dev = pm.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    shape = (N,) * 3
+    bounds = REBASE_CASES[0][0]
+
+    def uni(lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+    drift = min(0.05 - bounds[0], bounds[1] - 0.95)
+    dslots = tuple(tuple(uni(0.05, 0.95) + uni(-drift, drift)
+                         for _ in range(3)) for _ in range(2))
+    valid = (torch.ones(shape, device=dev), (uni(0.0, 1.0) < 0.25).float())
+    vslots = tuple(tuple(0.02 * torch.randn(shape, generator=gen, device=dev)
+                         for _ in range(3)) for _ in range(2))
+    local = convert.to_slabs((dslots, valid, vslots), pm)
+    if pm.rank:
+        del dslots, valid, vslots
+    out, reb = timed_run(pm, lambda: bn.rebase(
+        local[0], local[1], bounds, extras=(local[2],), procmesh=pm))
+    reb['overflow'] = int(out[3])
+    got = convert.gather(out[:3], pm, dst=0)
+    del out, local
+    if pm.rank == 0:
+        ref = bn.rebase(dslots, valid, bounds, extras=(vslots,))
+        reb['bitwise'] = bits_equal(got, ref[:3])
+        reb['overflow_single'] = int(ref[3])
+        del ref, dslots, valid, vslots
+    del got
+    torch.cuda.empty_cache()
+
+    disp = tuple(0.05 + 0.9 * torch.rand(shape, generator=gen, device=dev)
+                 for _ in range(3))
+    vel = tuple(0.02 * torch.randn(shape, generator=gen, device=dev)
+                for _ in range(3))
+    ld, lv = convert.to_slabs((disp, vel), pm)
+    if pm.rank:
+        del disp, vel
+    solver = Solver(ParticleMesh([N] * 3, float(N), dtype='f4',
+                                 procmesh=pm))
+    (ds, vs, va, ov), sup = timed_run(pm, lambda: solver.nbody_binned(
+        ld, lv, SUPERSTEP_STEPS, **BINNED_KW))
+    rho = bn.paint_binned(ds, va, bounds=(-1.0, 2.0), procmesh=pm)
+    sup.update(overflow=int(ov), nslots=len(ds), count=int(all_reduce(
+        sum(bn._icount(v) for v in va), pm, 'sum')))
+    got = convert.gather(rho, pm, dst=0)
+    del ds, vs, va, ld, lv, rho
+    if pm.rank == 0:
+        s1 = Solver(ParticleMesh([N] * 3, float(N), dtype='f4', device=dev))
+        d1, _, va1, ov1 = s1.nbody_binned(disp, vel, SUPERSTEP_STEPS,
+                                          **BINNED_KW)
+        sup['density'] = gathered_rel(
+            got, bn.paint_binned(d1, va1, bounds=(-1.0, 2.0)))
+        sup['overflow_single'] = int(ov1)
+        del s1, d1, va1
+    torch.cuda.empty_cache()
+    return dict(rebase=reb, superstep=sup)
+
+
+def card_phases(pm):
+    """the three card phases of phase 9 in one job (one start of the
+    ranks)"""
+    out = {}
+    for name, fn in (('lattice', card_lattice), ('dense', card_dense),
+                     ('binned', card_binned)):
+        out[name] = fn(pm)
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_need():
+    """{run: {kernel: launches summed over the ranks}} that each phase-9
+    run must show exactly: per force one x-halo paint and three x-halo
+    readouts per slot (the spectral force reads each direction's mesh
+    alone on a slab) and MXU_PER_FORCE's or DENSE_PER_FORCE's DFT
+    passes; per rebase one x-halo assign and one apply"""
+    def force(n, dft=None, slots=1):
+        need = {"paint_lattice_xhalo": n * slots,
+                "readout_lattice_xhalo": 3 * n * slots}
+        need.update((k, n * v) for k, v in (dft or {}).items())
+        return {k: RANKS * v for k, v in need.items()}
+    forces = len(SHARDED_STEPS)
+    sp = {k: v[0] for k, v in MXU_PER_FORCE.items()}
+    # the superstep: the initial fold's rebase and one at its end, a
+    # force before the first step and after each
+    nreb = 1 + (len(SUPERSTEP_STEPS) - 1) // BINNED_KW['rebase_every']
+    binned = force(len(SUPERSTEP_STEPS), slots=BINNED_KW['nslots'])
+    binned.update(rebase_assign_xhalo=RANKS * nreb,
+                  rebase_apply_xhalo=RANKS * nreb)
+    return {'mxu': force(forces, sp), 'xla': force(forces),
+            SHARDED_EXTRA_FORCE: force(1, {bf16_name(k, "_bf16s"): v
+                                           for k, v in sp.items()}),
+            'dense': force(1, DENSE_PER_FORCE),
+            'rebase': {"rebase_assign_xhalo": RANKS,
+                       "rebase_apply_xhalo": RANKS},
+            'superstep': binned}
+
+
+def phase_sharded(dev):
+    """RANKS ranks on the card over gloo (one card: NCCL refuses two
+    ranks on one GPU, so the collectives are staged through the host and
+    their times are no multi-GPU figure): the ct2 lattice path at N^3
+    with fft='mxu' and 'xla' (SHARDED_STEPS) and one 'mxu_bf16s' force,
+    the dense force at NC^3 (row 9) and a binned superstep and rebase at
+    N^3 (row 12), each held against the single-device kernels on the
+    card, and each run's launches, summed over the ranks, against
+    sharded_need() exactly; returns those launches by run"""
+    from pmesh_tpu_torch.parallel import launch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = launch.spawn('chip_smoke:card_phases', RANKS, 'gloo', dev.type)
+    wall = time.perf_counter() - t0
+    r0 = out[0]
+    need = sharded_need()
+
+    def summed(get):
+        tot = {}
+        for r in out:
+            for k, v in get(r).items():
+                tot[k] = tot.get(k, 0) + v
+        return tot
+
+    def nonzero(d):
+        return {k: v for k, v in d.items() if v}
+
+    fails = []
+    runs = {}
+
+    def check(run, get, ok, text):
+        launches = nonzero(summed(lambda r: get(r)['launches']))
+        runs[run] = launches
+        exact = launches == need[run]
+        log("%s, staged %s bytes, launches %s (need exactly %s) %s"
+            % (text, json.dumps(summed(lambda r: get(r)['staged'])),
+               json.dumps(launches), json.dumps(need[run]),
+               "ok" if ok and exact else "FAIL"))
+        if not (ok and exact):
+            fails.append(run)
+
+    for fft in SHARDED_FFTS + (SHARDED_EXTRA_FORCE,):
+        rec = r0['lattice'][fft]
+        ok = (rec['finite'] and rec['force'] <= TOL_KERNEL
+              and rec.get('paint', 0.0) <= TOL_KERNEL
+              and rec.get('state', 0.0) <= TOL_SMALL)
+        check(fft, lambda r: r['lattice'][fft], ok,
+              "phase 9 sharded: %d ranks, %d^3 %s: %s %.3f s, force of the "
+              "LPT state max|d|/max = %.3e, paint of the final state %s, "
+              "final (S, V) %s (tol %.0e / %.0e)"
+              % (RANKS, N, fft, "force" if fft == SHARDED_EXTRA_FORCE else
+                 "lpt_lattice + %d KDK steps" % (len(SHARDED_STEPS) - 1),
+                 rec['seconds'], rec['force'],
+                 "%.3e" % rec['paint'] if 'paint' in rec else "-",
+                 "%.3e" % rec['state'] if 'state' in rec else "-",
+                 TOL_KERNEL, TOL_SMALL))
+    rec = r0['dense']
+    check('dense', lambda r: r['dense'], rec['force'] <= TOL_KERNEL,
+          "phase 9 sharded: %d ranks, %d^3 force_lattice(fft='mxu') (row 9) "
+          "%.3f s, max|d|/max = %.3e (tol %.0e)"
+          % (RANKS, NC, rec['seconds'], rec['force'], TOL_KERNEL))
+    reb, sup = r0['binned']['rebase'], r0['binned']['superstep']
+    check('rebase', lambda r: r['binned']['rebase'],
+          reb['bitwise'] and reb['overflow'] == reb['overflow_single'],
+          "phase 9 sharded: %d ranks, %d^3 K=2 rebase %s: bitwise the "
+          "single-device rebase %s, overflow %d (single device %d), %.3f s"
+          % (RANKS, N, REBASE_CASES[0][0], reb['bitwise'], reb['overflow'],
+             reb['overflow_single'], reb['seconds']))
+    # the single-device loop folds its lattice state by sort, which
+    # rounds each displacement to the f32 spacing of its cell coordinate
+    # (3e-5 at 512); the sharded loop folds by rebase, exactly
+    check('superstep', lambda r: r['binned']['superstep'],
+          sup['overflow'] == sup['overflow_single'] == 0
+          and sup['count'] == N ** 3 and sup['density'] <= TOL_SMALL,
+          "phase 9 sharded: %d ranks, %d^3 K=2 nbody_binned superstep "
+          "%.3f s: particles %d, overflow %d, density max|d|/max = %.3e "
+          "(tol %.0e)" % (RANKS, N, sup['seconds'], sup['count'],
+                          sup['overflow'], sup['density'], TOL_SMALL))
+    log("phase 9 sharded: the job took %.3f s (ranks started, built "
+        "inputs, ran, compared)" % wall)
+    if fails:
+        raise AssertionError("the sharded runs disagree with the "
+                             "single-device runs or miss their launches: "
+                             "%s" % ", ".join(fails))
+    return runs
+
+
+def phase_pipe_chain(dev):
+    """the per-rank chain of the 8-rank 1024^3 sharded force step at its
+    CHAIN_SLAB shapes, as bench.py's measure_pipe_chain: the x-halo paint,
+    the ct2 zy forward, the dual inverse x pass with 1/k^2 on the y-chunk,
+    the dual and single zy inverses and three x-halo readouts (the
+    transposes stand in for the all_to_alls), each kernel timed alone
+    with its bound, beside torch.fft's calls for the same transforms"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    from pmesh_tpu_torch.ops import gridpm_cuda
+    rows, N1, N2 = CHAIN_SLAB
+    N0 = rows * CHAIN_RANKS
+    Zm = N2 // 2
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    vmin, vmax = 0, 2       # bench.py's window: displacements in (0, 2)
+    disp = tuple(0.05 + 1.9 * torch.rand((rows + vmax, N1, N2),
+                                         generator=gen, device=dev)
+                 for _ in range(3))
+    w = np.fft.fftfreq(N0) * 2 * np.pi
+    kd = [tuple((1 / 6 * (8 * np.sin(w) - np.sin(2 * w))).tolist())]
+    w = np.fft.fftfreq(N1) * 2 * np.pi
+    kd.append(tuple((1 / 6 * (8 * np.sin(w) - np.sin(2 * w))).tolist()))
+    w = np.fft.rfftfreq(N2) * 2 * np.pi
+    kd.append(tuple((1 / 6 * (8 * np.sin(w) - np.sin(2 * w))).tolist()))
+    wz = fm._cached(fm._z_fwd_tabs, N2, Zm)
+    wyf = fm._cached(fm._ct_fwd_mats_np, N1)
+    wxi = fm._cached(fm._ct_inv_mats_np, N0)
+    wxg = fm._cached(fm._ct_inv_mats_np, N0, kd[0])
+    wyi = fm._cached(fm._ct_inv_mats_np, N1)
+    wyg = fm._cached(fm._ct_inv_mats_np, N1, kd[1])
+    ABp = fm._cached(fm._z_inv_tabs, N2, Zm)
+    ABg = fm._cached(fm._z_inv_tabs, N2, Zm, kd[2])
+    k2t = (np.arange(N0, dtype=np.float32) + 1.0,
+           np.arange(N1 // CHAIN_RANKS, dtype=np.float32) + 1.0,
+           np.arange(Zm, dtype=np.float32) + 1.0)
+    steps = []
+
+    def step(name, fn, reads, ops):
+        out = fn()
+        ms = cuda_ms(fn, 3)
+        rec = record(0.0, ms, None, nbytes(reads, out), ops)
+        steps.append((name, ms, rec["bound_ms"]))
+        return out
+    dslab = tuple(d[vmax:] for d in disp)
+    rho = step("paint_lattice_xhalo", lambda: gridpm_cuda.paint_lattice(
+        disp, None, vmin, vmax, 'cic', rows=rows, xbase=vmax), disp,
+        CIC_OPS * 27 * rows * N1 * N2)
+    pr, pi, nq = step("zy_fwd_ct2", lambda: fm._zy_fwd_ct2_call(
+        rho, N2, Zm, wz, wyf), (rho, wz, wyf), zy_ops(rows, N1, N2))
+    # the y-chunk of the transposed spectrum: (N0, N1 / 8, Zm)
+    tr = pr[:, :N1 // CHAIN_RANKS].repeat(CHAIN_RANKS, 1, 1)
+    ti = pi[:, :N1 // CHAIN_RANKS].repeat(CHAIN_RANKS, 1, 1)
+    del pr, pi
+    sr, si, gr, gi = step("xct_multi", lambda: fm._xct_call_multi(
+        tr, ti, wxi, 1.0, inverse=True, wx2=wxg, k2=k2t),
+        (tr, ti, wxi, wxg, k2t), 2 * fft_ops(N0, N1 // CHAIN_RANKS * Zm))
+    del tr, ti
+    # the all_to_all back moves (N0, N1 / 8, Zm) to (rows, N1, Zm): a
+    # reshape of the same bytes stands in for it
+    sr, si, gr, gi = (t.reshape(rows, N1, Zm) for t in (sr, si, gr, gi))
+    fy, fz = step("zy_inv_ct2_dual", lambda: fm._zy_inv_ct2_call_dual(
+        sr, si, wyg, ABp, wyi, ABg, N2), (sr, si, wyg, ABp, wyi, ABg),
+        2 * zy_ops(rows, N1, N2))
+    fx = step("zy_inv_ct2", lambda: fm._zy_inv_ct2_call(gr, gi, wyi, ABp, N2),
+              (gr, gi, wyi, ABp), zy_ops(rows, N1, N2))
+    del sr, si, gr, gi
+    for f in (fx, fy, fz):
+        m = torch.cat([f, f[:vmax]], 0)
+        step("readout_lattice_xhalo", lambda: gridpm_cuda.readout_lattice(
+            (m,), dslab, vmin, vmax, 'cic', xbase=0), (m, dslab),
+            CIC_OPS * 27 * rows * N1 * N2)
+        del m
+    del fx, fy, fz, disp, dslab
+    torch.cuda.empty_cache()
+    # torch.fft's calls for the same transforms, each timed alone
+    lib = {}
+    lib["rfft2 of the slab"] = cuda_ms(lambda: torch.fft.rfft2(rho), 3)
+    spec = torch.fft.rfft2(rho)
+    del rho
+    chunk = spec[:, :N1 // CHAIN_RANKS].repeat(CHAIN_RANKS, 1, 1)
+    stacked = torch.stack([chunk, chunk])
+    lib["ifft over x of two y-chunks"] = cuda_ms(
+        lambda: torch.fft.ifft(stacked, dim=1), 3)
+    del chunk, stacked
+    three = torch.stack([spec] * 3)
+    del spec
+    lib["irfft2 of three slabs"] = cuda_ms(
+        lambda: torch.fft.irfft2(three, s=(N1, N2)), 3)
+    del three
+    torch.cuda.empty_cache()
+    total = sum(ms for _, ms, _ in steps)
+    bound = sum(b for _, _, b in steps)
+    dft = sum(ms for name, ms, _ in steps if "lattice" not in name)
+    log("phase 10 pipe chain: the per-rank chain of the %d-rank %d^3 "
+        "sharded force at %s slabs: %s; total %.3f ms (bound %.3f ms), the "
+        "DFT kernels %.3f ms against torch.fft's %s = %.3f ms"
+        % (CHAIN_RANKS, N0, CHAIN_SLAB,
+           ", ".join("%s %.3f ms (bound %.3f)" % s for s in steps), total,
+           bound, dft, ", ".join("%s %.3f ms" % kv for kv in lib.items()),
+           sum(lib.values())))
+
+
 def main():
     phase_device()
     dev = torch.device('cuda', 0)
@@ -2333,6 +3065,7 @@ def main():
     records.update(phase_compare_dense(dev))
     records.update(phase_compare_ref(dev))
     records.update(phase_compare_bf16(dev))
+    records.update(phase_compare_slab(dev))
     launches, xla = phase_main(dev)
     pm, dlinear = xla['pm'], xla['dlinear']
     mxu_launches, mxu = phase_main_mxu(dev, xla)
@@ -2354,6 +3087,8 @@ def main():
         phase_small(dev, shape, np.asarray(shape, float), fft)
     phase_small_grad(dev, MXU_SMALL, np.asarray(MXU_SMALL, float),
                      'mxu_bf16')
+    sharded = phase_sharded(dev)
+    phase_pipe_chain(dev)
     # each kernel's launches on its own path's main run: the lattice
     # kernels on the fft='xla' lattice run, the ct2 DFT kernels on the
     # fft='mxu' lattice run, the rebase and dense DFT kernels on the
@@ -2370,6 +3105,14 @@ def main():
                 for k in CT2)
     runs.update((bf16_name(k), dense_bf16_launches) for k in DENSE)
     runs.update((bf16_name(k), row13_bf16_launches) for k in ROW13)
+    # the slab forms on the sharded runs, summed over the ranks: the
+    # lattice ones on the fft='mxu' lattice run, row 9 on the dense
+    # force, row 12 on the binned superstep
+    runs.update(dict.fromkeys(("paint_lattice_xhalo",
+                               "readout_lattice_xhalo"), sharded['mxu']))
+    runs.update(("%s (row 9)" % k, sharded['dense']) for k in DENSE)
+    runs.update(dict.fromkeys(("rebase_assign_xhalo", "rebase_apply_xhalo"),
+                              sharded['superstep']))
     if DEFERRED:
         raise AssertionError("; ".join(DEFERRED))
     kernels = [dict(name=name, route="cuda", source=source,

@@ -14,17 +14,19 @@ from .models.cosmology import Cosmology
 
 __all__ = ["particlemesh_from", "cosmology_from",
            "lattice_state_from_numpy", "binned_state_from_numpy",
-           "binned_state_to_numpy", "field_from_numpy"]
+           "binned_state_to_numpy", "field_from_numpy", "to_slabs",
+           "gather"]
 
 
-def particlemesh_from(Nmesh, BoxSize, dtype, resampler, device=None):
+def particlemesh_from(Nmesh, BoxSize, dtype, resampler, device=None,
+                      procmesh=None):
     """A ParticleMesh of the same geometry; ``resampler`` is a window
     name or any object with a ``.kind``."""
     kind = getattr(resampler, 'kind', resampler)
     return ParticleMesh(Nmesh=[int(n) for n in np.atleast_1d(Nmesh)],
                         BoxSize=np.asarray(BoxSize, dtype='f8'),
                         dtype=np.dtype(dtype), resampler=kind,
-                        device=device)
+                        device=device, procmesh=procmesh)
 
 
 def cosmology_from(Om0, Ol0, h, sigma8, ns, Ob0):
@@ -74,3 +76,39 @@ def field_from_numpy(pm, array):
                          % (array.shape, ftype.__name__, shape))
     return pm.create(type=ftype,
                      value=torch.from_numpy(array).to(pm.device))
+
+
+def _block(procmesh, n, axis):
+    if procmesh is None or procmesh.size == 1:
+        return 0, n
+    return procmesh.slab(n)
+
+
+def to_slabs(array, procmesh, axis=0):
+    """This rank's block of a global numpy array or tensor: its slab along
+    ``axis`` (0: x rows of a real mesh; 1: the y-chunk of a transposed
+    spectrum), as a tensor on the procmesh's device.  Nested tuples of
+    arrays give the same nesting of blocks."""
+    if isinstance(array, (tuple, list)):
+        return tuple(to_slabs(a, procmesh, axis) for a in array)
+    dev = procmesh.device if procmesh is not None else resolve_device(None)
+    if not isinstance(array, torch.Tensor):
+        array = torch.from_numpy(np.asarray(array))
+    start, stop = _block(procmesh, array.shape[axis], axis)
+    return array.narrow(axis, start, stop - start).contiguous().to(dev)
+
+
+def gather(slabs, procmesh, axis=0, dst=None):
+    """The global array of the ranks' blocks ``slabs`` (concatenated
+    along ``axis``, rank-major) as numpy: on every rank, or with ``dst``
+    on rank ``dst`` alone (None on the others).  Nested tuples of
+    tensors give the same nesting of arrays."""
+    if isinstance(slabs, (tuple, list)):
+        return tuple(gather(t, procmesh, axis, dst) for t in slabs)
+    from .parallel.comm import all_gather, gather as gather_to
+    if procmesh is None or procmesh.size == 1:
+        return slabs.detach().cpu().numpy()
+    if dst is None:
+        return all_gather(slabs.detach(), procmesh, axis).cpu().numpy()
+    full = gather_to(slabs.detach(), procmesh, dst, axis)
+    return None if full is None else full.cpu().numpy()

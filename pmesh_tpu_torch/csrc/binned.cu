@@ -39,6 +39,14 @@
 // once.  The apply reads Kout routes and gathers nextra * 3 values per
 // filled slot.  Both lean on the caches for the image reuse.
 //
+// The x-halo slab form (a slab-sharded state, one slab per rank) reads
+// inputs of n0_in = lo + rows + hi x planes and writes rows = n0 output
+// planes, with no wrap on x (y and z still wrap): the source of target
+// row x for offset o_x is input plane x + xbase - o_x, xbase = lo.  The
+// image order is unchanged, so a sharded rebase is bitwise equal to the
+// single-device rebase of the same global state.  xbase < 0 selects the
+// wrapped form.
+//
 // The slot pointers travel by value in the kernel's parameter struct
 // (at most kMaxSlots slots and kMaxExtras extra fields), so no (K, 3, N^3)
 // stack of the state is ever made.  The overflow count is reduced per
@@ -63,14 +71,14 @@ struct AssignArgs {
   float* nv[kMaxSlots];
   int16_t* rt[kMaxSlots];
   unsigned long long* overflow;
-  int K, Kout, n0, n1, n2, olo, ohi;
+  int K, Kout, n0, n1, n2, xbase, olo, ohi;
 };
 
 struct ApplyArgs {
   const float* e[kMaxExtras][kMaxSlots][3];
   float* ne[kMaxExtras][kMaxSlots][3];
   const int16_t* rt[kMaxSlots];
-  int nextra, Kout, n0, n1, n2, olo, ohi;
+  int nextra, Kout, n0, n1, n2, xbase, olo, ohi;
 };
 
 // a mod n in [0, n) for any a; the remainder only off the fast path
@@ -78,6 +86,11 @@ __device__ __forceinline__ int wrap(int a, int n) {
   if ((unsigned)a < (unsigned)n) return a;
   int r = a % n;
   return r < 0 ? r + n : r;
+}
+
+// the source x plane of target row x for offset ox
+__device__ __forceinline__ int64_t src_x(int x, int ox, int n0, int xbase) {
+  return xbase < 0 ? (int64_t)wrap(x - ox, n0) : (int64_t)(x + xbase - ox);
 }
 
 // one thread per target cell (x, y, z): z along x-threads, y and x on
@@ -99,7 +112,7 @@ __global__ void rebase_assign_kernel(AssignArgs a) {
       const float* __restrict__ d2 = a.d[k][2];
       int code = k * noff;
       for (int ox = a.olo; ox <= a.ohi; ++ox) {
-        int64_t sx = wrap(x - ox, a.n0);
+        int64_t sx = src_x(x, ox, a.n0, a.xbase);
         for (int oy = a.olo; oy <= a.ohi; ++oy) {
           int64_t row = (sx * a.n1 + wrap(y - oy, a.n1)) * a.n2;
           for (int oz = a.olo; oz <= a.ohi; ++oz, ++code) {
@@ -169,7 +182,7 @@ __global__ void rebase_apply_kernel(ApplyArgs a) {
     int ox = oi / (nr * nr) + a.olo;
     int oy = (oi / nr) % nr + a.olo;
     int oz = oi % nr + a.olo;
-    int64_t s = ((int64_t)wrap(x - ox, a.n0) * a.n1 + wrap(y - oy, a.n1)) *
+    int64_t s = (src_x(x, ox, a.n0, a.xbase) * a.n1 + wrap(y - oy, a.n1)) *
                     a.n2 +
                 wrap(z - oz, a.n2);
     for (int e = 0; e < a.nextra; ++e)
@@ -196,18 +209,26 @@ const char* pmesh_cuda_error_string(int code) {
 int pmesh_rebase_max_slots() { return kMaxSlots; }
 int pmesh_rebase_max_extras() { return kMaxExtras; }
 
+// whether the x-halo form's input planes hold every source plane
+bool halo_ok(int n0, int n0_in, int xbase, int olo, int ohi) {
+  return xbase < 0 || (xbase - ohi >= 0 && n0 - 1 + xbase - olo < n0_in);
+}
+
 // d: K * 3 displacement pointers, k-major; v: K validity pointers;
 // nd: Kout * 3, nv: Kout, rt: Kout (int16) outputs; overflow: one
 // device uint64, added to (the caller zeroes it); offsets [olo, ohi]
-// on every axis
+// on every axis; n0 output planes; xbase >= 0: the x-halo form, inputs
+// of n0_in planes
 int pmesh_rebase_assign(const void* const* d, const void* const* v, int K,
                         void* const* nd, void* const* nv, void* const* rt,
                         int Kout, void* overflow, int n0, int n1, int n2,
-                        int olo, int ohi, int device, void* stream) {
+                        int n0_in, int xbase, int olo, int ohi, int device,
+                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (K < 1 || K > kMaxSlots || Kout < 1 || Kout > kMaxSlots ||
-      ohi < olo || !shape_ok(n0, n1, n2))
+      ohi < olo || !shape_ok(n0, n1, n2) ||
+      !halo_ok(n0, n0_in, xbase, olo, ohi))
     return (int)cudaErrorInvalidValue;
   int nr = ohi - olo + 1;
   if ((long long)K * nr * nr * nr > 32767) return (int)cudaErrorInvalidValue;
@@ -227,6 +248,7 @@ int pmesh_rebase_assign(const void* const* d, const void* const* v, int K,
   a.n0 = n0;
   a.n1 = n1;
   a.n2 = n2;
+  a.xbase = xbase;
   a.olo = olo;
   a.ohi = ohi;
   rebase_assign_kernel<<<grid_of(n0, n1, n2), kThreads, 0,
@@ -236,15 +258,17 @@ int pmesh_rebase_assign(const void* const* d, const void* const* v, int K,
 
 // e: nextra * K * 3 extra pointers, (e, k, axis)-major; rt: Kout route
 // pointers (int16) from pmesh_rebase_assign with the same offsets;
-// ne: nextra * Kout * 3 outputs, (e, j, axis)-major
+// ne: nextra * Kout * 3 outputs, (e, j, axis)-major; n0 output
+// planes; xbase >= 0: the x-halo form, extras of n0_in planes
 int pmesh_rebase_apply(const void* const* e, int nextra, int K,
                        const void* const* rt, int Kout, void* const* ne,
-                       int n0, int n1, int n2, int olo, int ohi, int device,
-                       void* stream) {
+                       int n0, int n1, int n2, int n0_in, int xbase, int olo,
+                       int ohi, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (nextra < 1 || nextra > kMaxExtras || K < 1 || K > kMaxSlots ||
-      Kout < 1 || Kout > kMaxSlots || ohi < olo || !shape_ok(n0, n1, n2))
+      Kout < 1 || Kout > kMaxSlots || ohi < olo || !shape_ok(n0, n1, n2) ||
+      !halo_ok(n0, n0_in, xbase, olo, ohi))
     return (int)cudaErrorInvalidValue;
   ApplyArgs a{};
   for (int x = 0; x < nextra; ++x) {
@@ -261,6 +285,7 @@ int pmesh_rebase_apply(const void* const* e, int nextra, int K,
   a.n0 = n0;
   a.n1 = n1;
   a.n2 = n2;
+  a.xbase = xbase;
   a.olo = olo;
   a.ohi = ohi;
   rebase_apply_kernel<<<grid_of(n0, n1, n2), kThreads, 0,

@@ -10,6 +10,15 @@
 // with periodic wrap on every axis.  W_d is the window kernel, or -W'
 // on the derivative axis (``diffdir``).
 //
+// The x-halo slab form (a slab-sharded mesh, one slab per rank) reads
+// an x extent of n0_in = lo + rows + hi input planes and writes rows =
+// n0 output planes, with no wrap on x (y and z still wrap): input plane
+// xbase + i is the plane of output row i, so the paint reads plane
+// i + xbase - v_x of its displacements and mass, and the readout plane
+// i + xbase + v_x of its meshes (the displacements and outputs have the
+// output's n0 planes).  xbase < 0 selects the wrapped single-mesh form,
+// whose arithmetic is unchanged.
+//
 // paint_lattice replaces pmesh_tpu/ops/gridpm_pallas.py paint_fused_ext
 // (reached through paint_fused / paint_fused_parts); readout_lattice
 // replaces readout_fused_ext (through readout_fused / readout_fused_parts).
@@ -144,14 +153,14 @@ __global__ void paint_lattice_kernel(
     const float* __restrict__ sx, const float* __restrict__ sy,
     const float* __restrict__ sz, const float* __restrict__ mass,
     float scalar_mass, float* __restrict__ out, int n0, int n1, int n2,
-    int vmin, int vmax, int diffdir, Table tb) {
+    int xbase, int vmin, int vmax, int diffdir, Table tb) {
   int k = blockIdx.x * blockDim.x + threadIdx.x;
   int j = blockIdx.y;
   int i = blockIdx.z;
   if (k >= n2) return;
   float acc = 0.f;
   for (int vx = vmin; vx <= vmax; ++vx) {
-    int64_t qx = wrap(i - vx, n0);
+    int64_t qx = xbase < 0 ? wrap(i - vx, n0) : (int64_t)(i + xbase - vx);
     for (int vy = vmin; vy <= vmax; ++vy) {
       int64_t row = (qx * n1 + wrap(j - vy, n1)) * n2;
       for (int vz = vmin; vz <= vmax; ++vz) {
@@ -176,7 +185,7 @@ __global__ void readout_lattice_kernel(
     const float* __restrict__ sx, const float* __restrict__ sy,
     const float* __restrict__ sz, float* __restrict__ o0,
     float* __restrict__ o1, float* __restrict__ o2, int n0, int n1,
-    int n2, int vmin, int vmax, int diffdir, Table tb) {
+    int n2, int xbase, int vmin, int vmax, int diffdir, Table tb) {
   int k = blockIdx.x * blockDim.x + threadIdx.x;
   int j = blockIdx.y;
   int i = blockIdx.z;
@@ -186,7 +195,7 @@ __global__ void readout_lattice_kernel(
   bool all = diffdir == DIFF_ALL;
   float a0 = 0.f, a1 = 0.f, a2 = 0.f;
   for (int vx = vmin; vx <= vmax; ++vx) {
-    int64_t px = wrap(i + vx, n0);
+    int64_t px = xbase < 0 ? wrap(i + vx, n0) : (int64_t)(i + xbase + vx);
     float kx = axis_w<K>(vx, s0, diffdir == 0, tb);
     float kxd = all ? axis_w<K>(vx, s0, true, tb) : 0.f;
     for (int vy = vmin; vy <= vmax; ++vy) {
@@ -225,22 +234,22 @@ dim3 grid_of(int n0, int n1, int n2) {
 template <int K>
 void launch_paint(const float* sx, const float* sy, const float* sz,
                   const float* mass, float scalar_mass, float* out, int n0,
-                  int n1, int n2, int vmin, int vmax, int diffdir, Table tb,
-                  cudaStream_t stream) {
+                  int n1, int n2, int xbase, int vmin, int vmax, int diffdir,
+                  Table tb, cudaStream_t stream) {
   paint_lattice_kernel<K><<<grid_of(n0, n1, n2), kThreads, 0, stream>>>(
-      sx, sy, sz, mass, scalar_mass, out, n0, n1, n2, vmin, vmax, diffdir,
-      tb);
+      sx, sy, sz, mass, scalar_mass, out, n0, n1, n2, xbase, vmin, vmax,
+      diffdir, tb);
 }
 
 template <int K>
 void launch_readout(const float* m0, const float* m1, const float* m2,
                     int nmesh, const float* sx, const float* sy,
                     const float* sz, float* o0, float* o1, float* o2, int n0,
-                    int n1, int n2, int vmin, int vmax, int diffdir, Table tb,
-                    cudaStream_t stream) {
+                    int n1, int n2, int xbase, int vmin, int vmax, int diffdir,
+                    Table tb, cudaStream_t stream) {
   readout_lattice_kernel<K><<<grid_of(n0, n1, n2), kThreads, 0, stream>>>(
-      m0, m1, m2, nmesh, sx, sy, sz, o0, o1, o2, n0, n1, n2, vmin, vmax,
-      diffdir, tb);
+      m0, m1, m2, nmesh, sx, sy, sz, o0, o1, o2, n0, n1, n2, xbase, vmin,
+      vmax, diffdir, tb);
 }
 
 }  // namespace
@@ -253,23 +262,27 @@ const char* pmesh_cuda_error_string(int code) {
 
 // kind: WindowKind; diffdir: -1 none or the derivative axis 0, 1, 2;
 // mass: a mesh, or NULL for the scalar scalar_mass; table (tabulated
-// kinds only): 2 * ntable floats, the values then the differences / step
+// kinds only): 2 * ntable floats, the values then the differences / step;
+// xbase >= 0: the x-halo slab form, displacements and mass of n0_in
+// planes (every plane i + xbase - v_x must lie in [0, n0_in))
 int pmesh_paint_lattice(const float* sx, const float* sy, const float* sz,
                         const float* mass, float scalar_mass, float* out,
-                        int n0, int n1, int n2, int vmin, int vmax, int kind,
-                        int diffdir, const float* table, int ntable,
-                        float step, float offset, int device,
-                        void* stream) {
+                        int n0, int n1, int n2, int n0_in, int xbase,
+                        int vmin, int vmax, int kind, int diffdir,
+                        const float* table, int ntable, float step,
+                        float offset, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (diffdir < DIFF_NONE || diffdir > 2) return (int)cudaErrorInvalidValue;
+  if (xbase >= 0 && (xbase - vmax < 0 || n0 - 1 + xbase - vmin >= n0_in))
+    return (int)cudaErrorInvalidValue;
   Table tb{table, table + ntable, ntable, step, offset};
   cudaStream_t s = (cudaStream_t)stream;
   switch (kind) {
 #define PAINT_CASE(K)                                                       \
   case K:                                                                   \
-    launch_paint<K>(sx, sy, sz, mass, scalar_mass, out, n0, n1, n2, vmin,   \
-                    vmax, diffdir, tb, s);                                  \
+    launch_paint<K>(sx, sy, sz, mass, scalar_mass, out, n0, n1, n2, xbase,  \
+                    vmin, vmax, diffdir, tb, s);                            \
     break;
     PAINT_CASE(W_NEAREST)
     PAINT_CASE(W_LINEAR)
@@ -285,18 +298,22 @@ int pmesh_paint_lattice(const float* sx, const float* sy, const float* sz,
 }
 
 // nmesh in 1..3 meshes m0..m2 into o0..o2; diffdir 3 ('all') reads m0
-// into the three derivative outputs o0..o2
+// into the three derivative outputs o0..o2; xbase >= 0: the x-halo slab
+// form, meshes of n0_in planes (every plane i + xbase + v_x must lie in
+// [0, n0_in))
 int pmesh_readout_lattice(const float* m0, const float* m1, const float* m2,
                           int nmesh, const float* sx, const float* sy,
                           const float* sz, float* o0, float* o1, float* o2,
-                          int n0, int n1, int n2, int vmin, int vmax,
-                          int kind, int diffdir, const float* table,
-                          int ntable, float step, float offset, int device,
-                          void* stream) {
+                          int n0, int n1, int n2, int n0_in, int xbase,
+                          int vmin, int vmax, int kind, int diffdir,
+                          const float* table, int ntable, float step,
+                          float offset, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (diffdir < DIFF_NONE || diffdir > DIFF_ALL || nmesh < 1 || nmesh > 3 ||
       (diffdir == DIFF_ALL && nmesh != 1))
+    return (int)cudaErrorInvalidValue;
+  if (xbase >= 0 && (xbase + vmin < 0 || n0 - 1 + xbase + vmax >= n0_in))
     return (int)cudaErrorInvalidValue;
   Table tb{table, table + ntable, ntable, step, offset};
   cudaStream_t s = (cudaStream_t)stream;
@@ -304,7 +321,7 @@ int pmesh_readout_lattice(const float* m0, const float* m1, const float* m2,
 #define READOUT_CASE(K)                                                     \
   case K:                                                                   \
     launch_readout<K>(m0, m1, m2, nmesh, sx, sy, sz, o0, o1, o2, n0, n1,    \
-                      n2, vmin, vmax, diffdir, tb, s);                      \
+                      n2, xbase, vmin, vmax, diffdir, tb, s);               \
     break;
     READOUT_CASE(W_NEAREST)
     READOUT_CASE(W_LINEAR)

@@ -33,6 +33,20 @@ with the JAX package's ``linear_call`` transposes (``_MxuForce``,
 as the forward.  Gradients through the binned path, and through the
 gradient-mode force on CUDA (a diffdir readout has no rule on the
 kernels), are not ported.
+
+Slab-sharded runs: a Solver on a ``ParticleMesh(procmesh=pm)`` of P > 1
+ranks takes and returns this rank's x slabs of every state field
+(``parallel/pmesh.py``).  The paint, readout and rebase run the x-halo
+slab forms (``ops/gridpm.py``, ``ops/binned.py``), ``fft='xla'`` the
+slab transforms of ``parallel/pfft.py`` and the mxu modes the sharded
+DFT pipelines of ``ops/fft_mxu.py`` (ct2 when the ranks also divide N0
+and N1, as the JAX package's ``_mxu_setup`` requires).  Whatever decides
+for every rank is global: the NaN poison of ``nbody_lattice``, the
+particle count of ``force_binned``, the rebase overflow and the needed
+slot count of the adaptive loop.  As in the JAX package the sharded
+binned loops wrap the lattice state as slots and fold it with a rebase
+over the state's whole drift (the sort-based fold is single-device).
+Reverse mode through the sharded path is not ported.
 """
 import numpy as np
 import torch
@@ -42,6 +56,7 @@ from ..ops import transfer as tf
 from ..ops import gridpm as _gp
 from ..ops import binned as _bn
 from ..ops import fft_mxu as _fm
+from ..parallel.comm import all_reduce
 from .cosmology import Planck15
 
 __all__ = ["Solver", "leapfrog_factors", "FastPM", "Quinn", "TVE", "VTE",
@@ -224,7 +239,12 @@ class Solver(object):
             self.fpm = ParticleMesh(
                 Nmesh=self.fpm.Nmesh, BoxSize=self.fpm.BoxSize,
                 dtype=self.fpm.dtype, resampler=force_resampler,
-                device=self.fpm.device)
+                device=self.fpm.device, procmesh=self.fpm.procmesh)
+
+    @property
+    def _pmh(self):
+        """the ProcessMesh of a sharded force mesh, else None"""
+        return self.fpm.procmesh if self.fpm.sharded else None
 
     def lpt_lattice(self, dlinear, a0, shift=0.0, order=1):
         """LPT state in lattice form: (disp, vel), ndim mesh-shaped
@@ -296,18 +316,20 @@ class Solver(object):
             factor = 1.5 * self.cosmology.Om0
         cell = float(fpm.BoxSize[0] / fpm.Nmesh[0])
         kind = fpm.resampler.window.kind
+        pmh = self._pmh
 
-        rho = _gp.paint_grid(disp, bounds=bounds, window=kind)
+        rho = _gp.paint_grid(disp, bounds=bounds, window=kind, procmesh=pmh)
         if mode == 'spectral':
             vals = _gp.readout_grid(self._spectral_meshes(rho, fft), disp,
-                                    bounds=bounds, window=kind)
+                                    bounds=bounds, window=kind, procmesh=pmh)
         else:
             # F_d = -d(phi)/dx_d; the diffdir readout is the derivative
             # in cell units, so F_d = -readout_d / cell
             phi = self._potential_mesh(rho, fft)
             if fpm.ndim == 3:
                 rds = _gp.readout_grid(phi, disp, bounds=bounds,
-                                       window=kind, diffdir='all')
+                                       window=kind, diffdir='all',
+                                       procmesh=pmh)
             else:
                 rds = tuple(_gp.readout_grid(phi, disp, bounds=bounds,
                                              window=kind, diffdir=d)
@@ -339,6 +361,12 @@ class Solver(object):
                 raise ValueError(
                     "fft='mxu' computes in f32; use a dtype='f4' mesh or "
                     "fft='xla' for f64 runs")
+            if self._pmh is not None:
+                if rho.requires_grad and torch.is_grad_enabled():
+                    raise NotImplementedError(
+                        "reverse mode through the slab-sharded path is not "
+                        "ported yet (ROADMAP queue 1, item 8)")
+                return self._mxu_force_raw(rho, _MXU[fft])
             return _MxuForce.apply(self, rho, _MXU[fft])
         rhok = self.fpm.create(type=RealField, value=rho).r2c()
         return tuple(rhok.apply(tf.force_transfer(d)).c2r().value
@@ -349,7 +377,10 @@ class Solver(object):
         the per-axis k^2 tables (f4, natural order; z over the half axis)
         as tuples of floats, the SuperLanczos difference kernels k_d (f8
         tuples, zero at Nyquist, as the half-spectrum gradient needs) and
-        whether the shape takes the ct2 pipeline (else the dense one)."""
+        whether the shape takes the ct2 pipeline (else the dense one): on
+        a sharded mesh only when the ranks divide N0 and N1, as the JAX
+        package's rule has it (``pmesh_tpu/models/fastpm.py:611-624``;
+        the sharded ParticleMesh already requires that)."""
         fpm = self.fpm
         shape = tuple(int(n) for n in fpm.Nmesh)
         if not hasattr(self, '_mxu_cache'):
@@ -370,7 +401,10 @@ class Solver(object):
                         for k in ks)
             self._mxu_cache = (pk2, tuple(kd))
         pk2, kd = self._mxu_cache
-        return shape, pk2, kd, _fm.is_ct2(shape)
+        pmh = self._pmh
+        ct = _fm.is_ct2(shape) and (pmh is None or (
+            shape[0] % pmh.size == 0 and shape[1] % pmh.size == 0))
+        return shape, pk2, kd, ct
 
     def _mxu_potential(self, rho, form=(None, None)):
         """The Poisson potential through the ct2 DFT passes in the DFT
@@ -378,11 +412,20 @@ class Solver(object):
         not ct2 (the caller takes the field path)."""
         if not self._mxu_setup()[3]:
             return None
+        if self._pmh is not None:
+            return self._mxu_potential_raw(rho, form)
         return _MxuPotential.apply(self, rho, form)
 
     def _mxu_potential_raw(self, rho, form=(None, None)):
         shape, pk2, kd, ct = self._mxu_setup()
         precision, sdt = form
+        pmh = self._pmh
+        if pmh is not None:
+            r, i, nqr, nqi = _fm.fft3_real_forward_half_ct2_sharded(
+                pmh, rho, precision=precision, spectrum_dtype=sdt)
+            return _fm.fft3_poisson_half_ct2_sharded(
+                pmh, r, i, nqr, nqi, n2=shape[2], poisson_k2=pk2,
+                precision=precision)
         r, i, nqr, nqi = _fm.fft3_real_forward_half_ct2(
             rho, precision=precision, spectrum_dtype=sdt)
         return _fm.fft3_poisson_half_ct2(r, i, nqr, nqi, n2=shape[2],
@@ -402,12 +445,26 @@ class Solver(object):
         the JAX package's does."""
         shape, pk2, kd, ct = self._mxu_setup()
         precision, sdt = form
+        pmh = self._pmh
         if not ct:
+            if pmh is not None:
+                r, i = _fm.fft3_real_forward_half_sharded(
+                    pmh, rho, precision=precision)
+                out = _fm.fft3_real_inverse_grad3_half_sharded(
+                    pmh, r, i, n2=shape[2], kvecs=kd, precision=precision,
+                    poisson_k2=pk2)
+                return out if only is None else out[only]
             r, i = _fm.fft3_real_forward_half(rho, precision=precision)
             out = _fm.fft3_real_inverse_grad3_half(
                 r, i, n2=shape[2], kvecs=kd, precision=precision,
                 poisson_k2=pk2)
             return out if only is None else out[only]
+        if pmh is not None:
+            r, i, nqr, nqi = _fm.fft3_real_forward_half_ct2_sharded(
+                pmh, rho, precision=precision, spectrum_dtype=sdt)
+            return _fm.fft3_real_inverse_grad3_half_ct2_sharded(
+                pmh, r, i, nqr, nqi, n2=shape[2], kvecs=kd,
+                precision=precision, poisson_k2=pk2, only=only)
         r, i, nqr, nqi = _fm.fft3_real_forward_half_ct2(
             rho, precision=precision, spectrum_dtype=sdt)
         return _fm.fft3_real_inverse_grad3_half_ct2(
@@ -422,7 +479,9 @@ class Solver(object):
 
         A displacement outside ``bounds`` would silently lose mass in
         the paint, so the moment one appears (checked after every
-        drift, on the device) both S and V are poisoned with NaN."""
+        drift, on the device) both S and V are poisoned with NaN: on a
+        sharded mesh on every rank, whichever rank's slab left the
+        bounds."""
         fac = _FACTORS[factors](self.cosmology) \
             if isinstance(factors, str) else factors
         dtype = disp[0].dtype
@@ -437,10 +496,14 @@ class Solver(object):
             F = self.force_lattice(S, bounds, mode=force_mode, fft=fft)
             return tuple(f / cell for f in F)
 
+        pmh = self._pmh
+
         def poison(S, V):
             lo, hi = _gp.displacement_bounds(S)
-            bad = torch.where((lo < lo_b) | (hi > hi_b), float('nan'),
-                              0.0).to(dtype)
+            bad = ((lo < lo_b) | (hi > hi_b)).to(dtype)
+            if pmh is not None:
+                bad = all_reduce(bad, pmh, 'max')
+            bad = torch.where(bad > 0, float('nan'), 0.0).to(dtype)
             return (tuple(s + bad for s in S), tuple(v + bad for v in V))
 
         S, V = poison(tuple(disp), tuple(vel))
@@ -475,19 +538,25 @@ class Solver(object):
         if factor is None:
             factor = 1.5 * self.cosmology.Om0
         kind = fpm.resampler.window.kind
-        rho = _bn.paint_binned(dslots, valid, bounds=bounds, window=kind)
-        # normalize to 1+delta for a general particle count
+        pmh = self._pmh
+        rho = _bn.paint_binned(dslots, valid, bounds=bounds, window=kind,
+                               procmesh=pmh)
+        # normalize to 1+delta for a general particle count (all ranks')
         ntot = sum(v.sum() for v in valid)
+        if pmh is not None:
+            ntot = all_reduce(ntot, pmh, 'sum')
         rho = rho * (float(fpm.Nmesh.prod()) / ntot)
         if mode == 'gradient':
             cell = float(fpm.BoxSize[0] / fpm.Nmesh[0])
             phi = self._potential_mesh(rho, fft)
             vals = _bn.readout_binned(phi, dslots, valid, bounds=bounds,
-                                      window=kind, diffdir='all')
+                                      window=kind, diffdir='all',
+                                      procmesh=pmh)
             return tuple(tuple(-v * factor / cell for v in slot)
                          for slot in vals)
         vals = _bn.readout_binned(self._spectral_meshes(rho, fft), dslots,
-                                  valid, bounds=bounds, window=kind)
+                                  valid, bounds=bounds, window=kind,
+                                  procmesh=pmh)
         return tuple(tuple(v * factor for v in slot) for slot in vals)
 
     def _binned_loop(self, disp, time_steps, rebase_every, step_drift,
@@ -551,9 +620,15 @@ class Solver(object):
         coeffs, bounds, force_cells, kdk = self._binned_loop(
             disp, time_steps, rebase_every, step_drift, factors, scheme,
             fft, force_mode)
-        # the sort-based fold takes any initial excursion in O(N) memory
-        dslots, vslots, valid, overflow = _bn.fold_lattice(disp, vel,
-                                                           nslots=nslots)
+        pmh = self._pmh
+        if pmh is None:
+            # the sort-based fold takes any initial excursion in O(N)
+            # memory
+            dslots, vslots, valid, overflow = _bn.fold_lattice(
+                disp, vel, nslots=nslots)
+        else:
+            dslots, vslots, valid, overflow = self._sharded_fold(
+                disp, vel, nslots, nslots)
         F = force_cells(dslots, valid)
         R = int(rebase_every)
         done = 0
@@ -566,7 +641,8 @@ class Solver(object):
             del F
             state = [dslots, vslots, valid]
             del dslots, vslots, valid
-            dslots, vslots, valid, ov = _rebase_prog(state, bounds)
+            dslots, vslots, valid, ov = _rebase_prog(state, bounds,
+                                                     procmesh=pmh)
             overflow = overflow + ov
             if done < len(coeffs):
                 F = force_cells(dslots, valid)
@@ -582,12 +658,19 @@ class Solver(object):
         coeffs, bounds, force_cells, kdk = self._binned_loop(
             disp, time_steps, rebase_every, step_drift, factors, scheme,
             fft, force_mode)
-        # the fold measures the needed slot count from the in-cell ranks
-        K = max(nslots, int(_bn.fold_needed(disp)))
+        pmh = self._pmh
+        if pmh is None:
+            # the fold measures the needed slot count from the in-cell
+            # ranks
+            K = max(nslots, int(_bn.fold_needed(disp)))
+            dslots, vslots, valid, overflow = _bn.fold_lattice(disp, vel,
+                                                               nslots=K)
+        else:
+            dslots, vslots, valid, overflow = self._sharded_fold(
+                disp, vel, nslots, None)
+            K = len(dslots)
         # an initial fold that already grew the state counts as growth
         growth_events = int(K > nslots)
-        dslots, vslots, valid, overflow = _bn.fold_lattice(disp, vel,
-                                                           nslots=K)
         R = int(rebase_every)
         done = 0
         while done < len(coeffs):
@@ -596,11 +679,13 @@ class Solver(object):
                 dslots, vslots, F = kdk(dslots, vslots, valid, F, co)
             done += R
             del F
-            Kout = max(K, int(_bn.needed_slots(dslots, valid, bounds)))
+            Kout = max(K, int(_bn.needed_slots(dslots, valid, bounds,
+                                               procmesh=pmh)))
             growth_events += int(Kout > K)
             state = [dslots, vslots, valid]
             del dslots, vslots, valid
-            dslots, vslots, valid, ov = _rebase_prog(state, bounds, Kout)
+            dslots, vslots, valid, ov = _rebase_prog(state, bounds, Kout,
+                                                     procmesh=pmh)
             overflow = overflow + ov
             K = Kout
         # observability for benches and monitors: how often the state
@@ -610,8 +695,28 @@ class Solver(object):
                                   'overflow': int(overflow)}
         return dslots, vslots, valid, overflow
 
+    def _sharded_fold(self, disp, vel, nslots, nslots_out):
+        """The sharded loops' initial fold (the JAX package's,
+        ``pmesh_tpu/models/fastpm.py:982-991`` and ``1134-1144``): the
+        lattice state wrapped as ``nslots`` slots, then one rebase over the
+        global extremes of the displacements, widened to (0, 1), into
+        ``nslots_out`` slots (None: the global needed slot count, at
+        least ``nslots``).  Returns (dslots, vslots, valid, overflow)."""
+        pmh = self._pmh
+        dslots, vslots, valid = _bn.from_lattice(disp, vel, nslots=nslots)
+        lo, hi = _gp.displacement_bounds(disp)
+        lo = float(all_reduce(lo, pmh, 'min'))
+        hi = float(all_reduce(hi, pmh, 'max'))
+        b0 = (min(lo, 0.0), max(hi, 1.0))
+        if nslots_out is None:
+            nslots_out = max(nslots, int(_bn.needed_slots(
+                dslots, valid, b0, procmesh=pmh)))
+        state = [dslots, vslots, valid]
+        del dslots, vslots, valid
+        return _rebase_prog(state, b0, nslots_out, procmesh=pmh)
 
-def _rebase_prog(state, bounds, nslots_out=None):
+
+def _rebase_prog(state, bounds, nslots_out=None, procmesh=None):
     """One rebase with velocities of a binned state held in the list
     ``state`` = [dslots, vslots, valid], which it empties.  It takes the
     place of the JAX package's donated jit program: with no other
@@ -624,5 +729,6 @@ def _rebase_prog(state, bounds, nslots_out=None):
     inner = [dslots, valid, (vslots,)]
     del dslots, vslots, valid
     dslots, valid, (vslots,), overflow = _bn._rebase(inner, bounds,
-                                                     nslots_out)
+                                                     nslots_out,
+                                                     procmesh=procmesh)
     return dslots, vslots, valid, overflow

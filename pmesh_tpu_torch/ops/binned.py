@@ -30,6 +30,16 @@ bitwise equal.
 Overflow (a cell receiving more than ``nslots`` particles) and escape
 (a drift outside the declared bounds) are never silent: the count is
 returned and the fields are NaN-poisoned.  Counts are exact integers.
+
+On a slab-sharded state (``procmesh`` of P > 1 ranks; each rank holds
+its x slab of every slot field) the rebase extends its inputs by the
+drift's x reach from the ring neighbours (``parallel/halo.extend_x``)
+and runs the x-halo slab form of both parts (the JAX package's
+``rebase_fused_sharded``); the overflow and the particle counts are
+summed over the ranks, so every rank poisons together, and the result
+is bitwise the single-device rebase of the same global state.
+``needed_slots`` takes the maximum over the ranks; the paint and
+readout run the sharded lattice path of ``ops/gridpm.py``.
 """
 import itertools
 
@@ -203,25 +213,48 @@ def _drift_offsets(drift_bounds, ndim):
     return list(itertools.product(range(dlo, dhi + 1), repeat=ndim))
 
 
-def needed_slots(dslots, valid, drift_bounds):
+def _sharded(procmesh):
+    return procmesh is not None and procmesh.size > 1
+
+
+def _halo_depth(offsets):
+    """(lo, hi) x planes a target slab's sources reach below and above:
+    target row x takes source row x - o_x"""
+    return max(0, offsets[-1][0]), max(0, -offsets[0][0])
+
+
+def needed_slots(dslots, valid, drift_bounds, procmesh=None):
     """Max post-rebase cell occupancy of the current state: the slot
     count a :func:`rebase` needs to fold the drift without overflow.
     The counting half of the rebase with no payload movement, so an
     adaptive integrator can measure before it picks a slot count.  Returns
-    a 0-d tensor; host-sync it to choose ``nslots_out``."""
+    a 0-d tensor (the maximum over the ranks of a sharded state);
+    host-sync it to choose ``nslots_out``."""
     ndim = len(dslots[0])
     axes = tuple(range(ndim))
+    offsets = _drift_offsets(drift_bounds, ndim)
     floors = tuple(tuple(torch.floor(d) for d in dk) for dk in dslots)
     occ = tuple(v > 0 for v in valid)
-    count = torch.zeros(dslots[0][0].shape, dtype=torch.int32,
-                        device=dslots[0][0].device)
-    for off in _drift_offsets(drift_bounds, ndim):
+    lo = rows = None
+    if _sharded(procmesh):
+        from ..parallel.halo import extend_x
+        rows = dslots[0][0].shape[0]
+        lo, hi = _halo_depth(offsets)
+        floors = tuple(tuple(extend_x(f, lo, hi, procmesh) for f in fk)
+                       for fk in floors)
+        occ = tuple(extend_x(o, lo, hi, procmesh) for o in occ)
+    count = torch.zeros(occ[0].shape, dtype=torch.int32,
+                        device=occ[0].device)
+    for off in offsets:
         for k in range(len(dslots)):
             sel = occ[k]
             for d in range(ndim):
                 sel = sel & (floors[k][d] == off[d])
             count += torch.roll(sel.to(torch.int32), off, axes)
-    return count.max()
+    if rows is None:
+        return count.max()
+    from ..parallel.comm import all_reduce
+    return all_reduce(count[lo:lo + rows].max(), procmesh, 'max')
 
 
 def grow_slots(valid, *slot_fields, nslots_new=None):
@@ -262,7 +295,8 @@ def _route_check(K, n_off):
                          % (K, n_off))
 
 
-def rebase_assign_plain(dslots, valid, offsets, nslots_out):
+def rebase_assign_plain(dslots, valid, offsets, nslots_out, rows=None,
+                        xbase=None):
     """Plain PyTorch rebase assign (the scatter form of the JAX
     package's ``rebase(impl='xla')``).
 
@@ -272,13 +306,19 @@ def rebase_assign_plain(dslots, valid, offsets, nslots_out):
     count, and rank j < nslots_out lands in slot j with the
     displacement re-centred (d - offset), validity 1 and the image's
     route code.  Returns (new_dslots, new_valid, routes, overflow), the
-    overflow being the arrivals of rank >= nslots_out (0-d int64)."""
+    overflow being the arrivals of rank >= nslots_out (0-d int64).
+
+    ``rows``, ``xbase``: the x-halo slab form: the inputs hold x planes
+    about a slab, the rolls run on them and the target rows [xbase,
+    xbase + rows) are kept and counted (no roll wraps there when the
+    halo covers the offsets)."""
     K = len(dslots)
     ndim = len(dslots[0])
     ref = dslots[0][0]
     axes = tuple(range(ndim))
     Kout = int(nslots_out)
     _route_check(K, len(offsets))
+    keep = slice(None) if xbase is None else slice(xbase, xbase + rows)
     new_d = [[torch.zeros_like(ref) for _ in range(ndim)]
              for _ in range(Kout)]
     new_v = [torch.zeros_like(ref) for _ in range(Kout)]
@@ -297,7 +337,7 @@ def rebase_assign_plain(dslots, valid, offsets, nslots_out):
             arr = torch.roll(sel, off, axes)
             rank = running
             running = running + arr.to(torch.int32)
-            overflow = overflow + (arr & (rank >= Kout)).sum()
+            overflow = overflow + (arr & (rank >= Kout))[keep].sum()
             moved = [torch.roll(dslots[k][d] - off[d], off, axes)
                      for d in range(ndim)]
             code = torch.tensor(k * len(offsets) + oi, dtype=ROUTE_DTYPE,
@@ -308,18 +348,36 @@ def rebase_assign_plain(dslots, valid, offsets, nslots_out):
                 routes[j] = torch.where(put, code, routes[j])
                 for d in range(ndim):
                     new_d[j][d] = torch.where(put, moved[d], new_d[j][d])
-    return (tuple(tuple(x) for x in new_d), tuple(new_v), tuple(routes),
+    return (tuple(tuple(x[keep] for x in slot) for slot in new_d),
+            tuple(v[keep] for v in new_v), tuple(r[keep] for r in routes),
             overflow)
 
 
-def rebase_apply_plain(extras, routes, offsets):
+def rebase_apply_plain(extras, routes, offsets, xbase=None):
     """Plain PyTorch rebase apply: replays the routes of
     :func:`rebase_assign_plain` on extra per-slot payloads.  ``extras``
     is a tuple of K-slot structures (tuples over slots of per-axis
     tensors); returns the same with len(routes) slots, 0 in empty
-    slots."""
+    slots.  ``xbase``: the x-halo slab form, the extras holding x planes
+    about the routes' rows (the routes are padded with empty slots to
+    the extras' planes, and the routes' rows kept)."""
     if not extras:
         return ()
+    if xbase is not None:
+        rows = routes[0].shape[0]
+        n_in = extras[0][0][0].shape[0]
+
+        def pad(r):
+            blank = torch.full((1,) + tuple(r.shape[1:]), -1, dtype=r.dtype,
+                               device=r.device)
+            return torch.cat([blank.expand((xbase,) + tuple(r.shape[1:])), r,
+                              blank.expand((n_in - xbase - rows,)
+                                           + tuple(r.shape[1:]))], 0)
+
+        out = rebase_apply_plain(extras, tuple(pad(r) for r in routes),
+                                 offsets)
+        return tuple(tuple(tuple(x[xbase:xbase + rows] for x in slot)
+                           for slot in e) for e in out)
     K = len(extras[0])
     ndim = len(extras[0][0])
     ref = extras[0][0][0]
@@ -339,7 +397,7 @@ def rebase_apply_plain(extras, routes, offsets):
 
 
 def rebase(dslots, valid, drift_bounds, extras=(), nslots_out=None,
-           impl=None):
+           impl=None, procmesh=None):
     """Fold integer drift into cell reassignment.
 
     Parameters
@@ -354,16 +412,19 @@ def rebase(dslots, valid, drift_bounds, extras=(), nslots_out=None,
     nslots_out : output slot count (default: len(dslots)).
     impl : None (the CUDA kernels for CUDA tensors, the plain versions
         for CPU tensors), 'torch' or 'cuda'.
+    procmesh : None, or the ProcessMesh whose x slabs the fields are
+        (module docstring); the overflow is then the global count.
 
     Returns (new_dslots, new_valid, new_extras, overflow): all
     displacements back in [0, 1); ``overflow`` (0-d int64) counts the
     particles that did not fit ``nslots_out`` slots or escaped the
     drift bounds, and the fields are NaN-poisoned when it is > 0.
     """
-    return _rebase([dslots, valid, extras], drift_bounds, nslots_out, impl)
+    return _rebase([dslots, valid, extras], drift_bounds, nslots_out, impl,
+                   procmesh)
 
 
-def _rebase(state, drift_bounds, nslots_out=None, impl=None):
+def _rebase(state, drift_bounds, nslots_out=None, impl=None, procmesh=None):
     """:func:`rebase` on a list [dslots, valid, extras], which it empties:
     when the caller holds no other reference, the old displacements and
     validity are freed once the assign has run, and the old extras once
@@ -378,24 +439,53 @@ def _rebase(state, drift_bounds, nslots_out=None, impl=None):
     offsets = _drift_offsets(drift_bounds, ndim)
     lo, hi = offsets[0][0], offsets[-1][0]
 
-    total_in = sum(_icount(v) for v in valid)
+    # a sharded state: the inputs extended by the drift's x reach (the
+    # x-halo slab form), the counts summed over the ranks
+    rows = xbase = None
+
+    def grow(fields):
+        return fields
+
+    def total(t):
+        return t
+
+    if _sharded(procmesh):
+        from ..parallel.comm import all_reduce
+        from ..parallel.halo import extend_x
+        rows = dslots[0][0].shape[0]
+        xbase, xhi = _halo_depth(offsets)
+
+        def grow(fields):
+            return tuple(extend_x(f, xbase, xhi, procmesh) for f in fields)
+
+        def total(t):
+            return all_reduce(t, procmesh, 'sum')
+
+    total_in = total(sum(_icount(v) for v in valid))
+    dslots = tuple(grow(dk) for dk in dslots)
+    valid = grow(valid)
     if _gp._use_cuda(impl, dslots[0][0]):
         from . import binned_cuda as _k
         new_d, new_v, routes, overflow = _k.rebase_assign(
-            dslots, valid, Kout, lo, hi)
+            dslots, valid, Kout, lo, hi, rows=rows, xbase=xbase)
         del dslots, valid
-        new_e = _k.rebase_apply(extras, routes, lo, hi) if extras else ()
+        extras = tuple(tuple(grow(ek) for ek in e) for e in extras)
+        new_e = (_k.rebase_apply(extras, routes, lo, hi, xbase=xbase)
+                 if extras else ())
     else:
         new_d, new_v, routes, overflow = rebase_assign_plain(
-            dslots, valid, offsets, Kout)
+            dslots, valid, offsets, Kout, rows=rows, xbase=xbase)
         del dslots, valid
-        new_e = rebase_apply_plain(extras, routes, offsets)
+        extras = tuple(tuple(grow(ek) for ek in e) for e in extras)
+        new_e = rebase_apply_plain(extras, routes, offsets, xbase=xbase)
     del extras, routes
 
     # losing a particle must never be silent: overflowed slots AND
     # particles whose drift escaped ``drift_bounds`` (their floor
-    # matches no enumerated offset) both poison the result
-    total_out = sum(_icount(v) for v in new_v)
+    # matches no enumerated offset) both poison the result, on every
+    # rank of a sharded state
+    overflow = total(overflow)
+    total_out = total(sum(_icount(v) for v in new_v))
     lost = total_in - total_out - overflow
     overflow = overflow + lost.abs()
     bad = _poison(overflow, dtype)
@@ -406,19 +496,19 @@ def _rebase(state, drift_bounds, nslots_out=None, impl=None):
 
 
 def paint_binned(dslots, valid, bounds=(0.0, 1.0), window='cic',
-                 impl=None):
+                 impl=None, procmesh=None):
     """Density of a binned state: the sum of per-slot lattice paints
     with the occupancy masks as masses."""
     out = None
     for dk, vk in zip(dslots, valid):
         p = _gp.paint_grid(tuple(dk), mass=vk, bounds=bounds,
-                           window=window, impl=impl)
+                           window=window, impl=impl, procmesh=procmesh)
         out = p if out is None else out + p
     return out
 
 
 def readout_binned(meshes, dslots, valid, bounds=(0.0, 1.0),
-                   window='cic', impl=None, diffdir=None):
+                   window='cic', impl=None, diffdir=None, procmesh=None):
     """Per-slot readouts of one or more meshes; returns, per slot, the
     tuple of per-mesh value fields (invalid slots read garbage: mask
     with ``valid`` before use, as the integrators do).
@@ -434,10 +524,11 @@ def readout_binned(meshes, dslots, valid, bounds=(0.0, 1.0),
         if diffdir == 'all':
             outs.append(_gp.readout_grid(ms[0], tuple(dk), bounds=bounds,
                                          window=window, impl=impl,
-                                         diffdir='all'))
+                                         diffdir='all', procmesh=procmesh))
             continue
         vals = _gp.readout_grid(ms, tuple(dk), bounds=bounds,
-                                window=window, impl=impl, diffdir=diffdir)
+                                window=window, impl=impl, diffdir=diffdir,
+                                procmesh=procmesh)
         outs.append(vals[0] if single else vals)
     return tuple(outs)
 

@@ -7,10 +7,15 @@ payloads.  Each wrapper checks its tensors (CUDA, f32 meshes, 3-d,
 contiguous, one shape and device, no autograd), allocates the outputs,
 launches on PyTorch's current stream and raises RuntimeError if the
 launch returns an error.  ``LAUNCHES`` counts the launches of each
-kernel.
+kernel (the x-halo slab forms under "<name>_xhalo").
+
+Both take the x-halo slab form of a slab-sharded state (``xbase``):
+inputs of ``lo + rows + hi`` x planes, outputs of ``rows``, the source
+of target row x at input plane x + xbase - o_x, no wrap on x.
 
 The plain PyTorch versions are ``ops/binned.rebase_assign_plain`` and
-``rebase_apply_plain``; both sides are bitwise equal.
+``rebase_apply_plain`` (with ``xbase`` and ``rows`` for the slab form);
+both sides are bitwise equal.
 """
 import ctypes
 
@@ -23,7 +28,9 @@ from ..native import cuda as _cuda
 __all__ = ["rebase_assign", "rebase_apply", "LAUNCHES", "reset_launches",
            "MAX_SLOTS", "MAX_EXTRAS"]
 
-LAUNCHES = {"rebase_assign": 0, "rebase_apply": 0}
+# the x-halo slab forms count apart ("_xhalo")
+LAUNCHES = {"rebase_assign": 0, "rebase_apply": 0, "rebase_assign_xhalo": 0,
+            "rebase_apply_xhalo": 0}
 
 # the slot pointers travel by value in the kernel's parameter struct;
 # 16 slots of a 512^3 state with velocities are 56 GB, most of the card
@@ -46,10 +53,10 @@ def _load():
         lib.pmesh_cuda_error_string.argtypes = [_I]
         lib.pmesh_cuda_error_string.restype = ctypes.c_char_p
         lib.pmesh_rebase_assign.argtypes = (
-            [_P, _P, _I, _P, _P, _P, _I, _P] + [_I] * 6 + [_P])
+            [_P, _P, _I, _P, _P, _P, _I, _P] + [_I] * 8 + [_P])
         lib.pmesh_rebase_assign.restype = _I
         lib.pmesh_rebase_apply.argtypes = (
-            [_P, _I, _I, _P, _I, _P] + [_I] * 6 + [_P])
+            [_P, _I, _I, _P, _I, _P] + [_I] * 8 + [_P])
         lib.pmesh_rebase_apply.restype = _I
         _lib = lib
     return _lib
@@ -73,11 +80,26 @@ def _check_slots(n, limit, what, name):
                                   "(got %d)" % (what, limit, name, n))
 
 
-def rebase_assign(dslots, valid, nslots_out, olo, ohi):
+def _halo(what, n_in, rows, xbase, olo, ohi):
+    """(output planes, xbase) of the wrapped (xbase None) or x-halo form"""
+    if xbase is None:
+        return n_in, -1
+    if rows < 1 or xbase - ohi < 0 or rows - 1 + xbase - olo >= n_in:
+        raise ValueError("%s: %d input planes do not hold the x halo of %d "
+                         "rows at base %d for offsets [%d, %d]"
+                         % (what, n_in, rows, xbase, olo, ohi))
+    return rows, xbase
+
+
+def rebase_assign(dslots, valid, nslots_out, olo, ohi, rows=None,
+                  xbase=None):
     """Rebase assign over the integer offsets [olo, ohi] on every axis.
 
     dslots : K tuples of three (N0, N1, N2) f32 CUDA tensors
     valid : K (N0, N1, N2) f32 CUDA tensors
+    rows, xbase : the x-halo slab form (module docstring): the outputs
+        have ``rows`` planes, target row x reads input plane
+        x + xbase - o_x
     Returns (new_dslots, new_valid, routes, overflow): nslots_out slots,
     routes int16 meshes, overflow a 0-d int64 CUDA tensor."""
     what = "rebase_assign"
@@ -93,7 +115,9 @@ def rebase_assign(dslots, valid, nslots_out, olo, ohi):
         raise ValueError("%s: empty offset range [%d, %d]" % (what, olo, ohi))
     _route_check(K, (ohi - olo + 1) ** 3)
     dflat = tuple(x for dk in dslots for x in dk)
-    shape, device = _check(dflat + tuple(valid), what)
+    shape_in, device = _check(dflat + tuple(valid), what)
+    n0, xb = _halo(what, shape_in[0], rows, xbase, olo, ohi)
+    shape = (n0,) + shape_in[1:]
     nd = tuple(torch.empty(shape, dtype=torch.float32, device=device)
                for _ in range(3 * Kout))
     nv = tuple(torch.empty(shape, dtype=torch.float32, device=device)
@@ -102,22 +126,24 @@ def rebase_assign(dslots, valid, nslots_out, olo, ohi):
                for _ in range(Kout))
     overflow = torch.zeros((), dtype=torch.int64, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    LAUNCHES[what] += 1
+    LAUNCHES[what + ("_xhalo" if xb >= 0 else "")] += 1
     rc = _load().pmesh_rebase_assign(
         _ptrs(dflat), _ptrs(valid), K, _ptrs(nd), _ptrs(nv), _ptrs(rt), Kout,
-        overflow.data_ptr(), shape[0], shape[1], shape[2], olo, ohi,
-        device.index, stream)
+        overflow.data_ptr(), shape[0], shape[1], shape[2], shape_in[0], xb,
+        olo, ohi, device.index, stream)
     _raise_on(rc, what)
     new_d = tuple(nd[3 * j:3 * j + 3] for j in range(Kout))
     return new_d, nv, rt, overflow
 
 
-def rebase_apply(extras, routes, olo, ohi):
+def rebase_apply(extras, routes, olo, ohi, xbase=None):
     """Rebase apply: replays ``routes`` (from :func:`rebase_assign` with
     the same offsets) on the extra payloads.
 
     extras : tuple of K-slot structures (K tuples of three f32 CUDA
         tensors), e.g. ``(vslots,)``
+    xbase : the x-halo slab form: the extras hold lo + rows + hi planes
+        about the routes' rows
     Returns the same nesting with len(routes) slots."""
     what = "rebase_apply"
     nextra, Kout = len(extras), len(routes)
@@ -129,7 +155,12 @@ def rebase_apply(extras, routes, olo, ohi):
         raise ValueError("%s: every extra field needs K slots of 3 axes"
                          % what)
     eflat = tuple(x for e in extras for ek in e for x in ek)
-    shape, device = _check(eflat, what)
+    shape_in, device = _check(eflat, what)
+    shape = tuple(routes[0].shape) if xbase is not None else shape_in
+    _, xb = _halo(what, shape_in[0], shape[0], xbase, olo, ohi)
+    if shape[1:] != shape_in[1:]:
+        raise ValueError("%s: the routes' planes must match the extras'"
+                         % what)
     for r in routes:
         if (r.dtype != ROUTE_DTYPE or tuple(r.shape) != shape
                 or r.device != device or not r.is_contiguous()):
@@ -138,10 +169,10 @@ def rebase_apply(extras, routes, olo, ohi):
     ne = tuple(torch.empty(shape, dtype=torch.float32, device=device)
                for _ in range(3 * nextra * Kout))
     stream = torch.cuda.current_stream(device).cuda_stream
-    LAUNCHES[what] += 1
+    LAUNCHES[what + ("_xhalo" if xb >= 0 else "")] += 1
     rc = _load().pmesh_rebase_apply(
         _ptrs(eflat), nextra, K, _ptrs(routes), Kout, _ptrs(ne), shape[0],
-        shape[1], shape[2], olo, ohi, device.index, stream)
+        shape[1], shape[2], shape_in[0], xb, olo, ohi, device.index, stream)
     _raise_on(rc, what)
     return tuple(tuple(ne[(e * Kout + j) * 3:(e * Kout + j) * 3 + 3]
                        for j in range(Kout)) for e in range(nextra))

@@ -62,6 +62,10 @@ The two bf16 forms of the JAX package are here too:
   and the Nyquist plane stay f32, and the dense pipeline has no storage
   dtype, as in the JAX package.
 
+The slab-sharded forms of both pipelines (``*_sharded``, the end of
+this module) run the same passes per rank on the slabs of
+``parallel/pmesh.py`` with all_to_all transposes between them.
+
 Left out on purpose: the TPU tuning (``TUNE``, the block-size pickers,
 the compiler parameters).
 """
@@ -70,7 +74,11 @@ import torch
 
 __all__ = ["fft3_real_forward_half_ct2", "fft3_real_inverse_grad3_half_ct2",
            "fft3_poisson_half_ct2", "is_ct2", "fft3_real_forward_half",
-           "fft3_real_inverse_grad3_half"]
+           "fft3_real_inverse_grad3_half",
+           "fft3_real_forward_half_ct2_sharded",
+           "fft3_real_inverse_grad3_half_ct2_sharded",
+           "fft3_poisson_half_ct2_sharded", "fft3_real_forward_half_sharded",
+           "fft3_real_inverse_grad3_half_sharded"]
 
 
 # --- static tables (numpy, the JAX package's math) ---------------------------
@@ -1016,5 +1024,245 @@ def fft3_real_inverse_grad3_half(r, i, n2, kvecs, precision=None,
     fy = _zy_inv_dense_call(sr, si, wy_g, AB_p, **kw)
     fz = _zy_inv_dense_call(sr, si, wy, AB_g, **kw)
     del sr, si
+    fx = _zy_inv_dense_call(gr, gi, wy, AB_p, **kw)
+    return fx, fy, fz
+
+
+# --- the slab-sharded pipelines -------------------------------------------
+#
+# The counterparts of the JAX package's ``*_sharded`` entry points
+# (``pmesh_tpu/ops/fft_mxu.py:1341-1720``) on the rank-local slabs of
+# ``parallel/pmesh.py``: a real mesh is this rank's x slab (N0/P, N1, N2),
+# a spectrum its y-chunk (N0, N1/P, W) of the transposed layout, whole x.
+# The zy passes run per slab, one all_to_all (``parallel/comm.py``) moves
+# the spectrum between the layouts, and the x pass runs on the y-chunk:
+# the same kernels as on one device, at the slab shapes.  At ct2 shapes
+# the all_to_all splits the chunk-permuted y axis, so the 1/k^2 fold takes
+# the rank's chunk of the permuted y table; the z-Nyquist plane is
+# all-gathered and transformed replicated in the forward, and sliced per
+# slab in the inverse.  The dense x pass folds 1/k^2 from the rank's chunk
+# of the natural-order y table (the JAX package's sharded dense path
+# applies 1/k^2 elementwise on the transposed spectrum before the
+# inverse; the fold is the same product).
+
+def _a2a_fwd(pm, t):
+    """slab (n0, N1, W) -> y-chunk (N0, n1, W)"""
+    from ..parallel.comm import all_to_all
+    return all_to_all(t, pm, split_axis=1, concat_axis=0)
+
+
+def _a2a_back(pm, t):
+    """y-chunk (N0, n1, W) -> slab (n0, N1, W)"""
+    from ..parallel.comm import all_to_all
+    return all_to_all(t, pm, split_axis=0, concat_axis=1)
+
+
+def _check_sharded(pm, N0, N1, what):
+    if N0 % pm.size or N1 % pm.size:
+        raise ValueError("%s needs Nmesh[0] and Nmesh[1] divisible by the "
+                         "rank count (%d; got %d, %d)"
+                         % (what, pm.size, N0, N1))
+
+
+def _chunk(table, rank, size):
+    """rank's block of a 1-d table, as a new f32 numpy array (cached by
+    the callers, so each block is uploaded to the device once)"""
+    t = np.asarray(table, np.float32)
+    n = len(t) // size
+    return np.ascontiguousarray(t[rank * n:(rank + 1) * n])
+
+
+def _sharded_ct2_k2(poisson_k2, N0, N1, Zm, rank, size):
+    """the ct2 inverse's 1/k^2 tables on a y-chunk: the plane filter and
+    (k2x, this rank's chunk of the permuted k2y, k2z)"""
+    invk2p, k2m = _cached(_poisson_tables, poisson_k2, N0, N1, Zm)
+    return invk2p, (k2m[0], _chunk(k2m[1], rank, size), k2m[2])
+
+
+def _slab_rows(plane, pm):
+    """this rank's rows of a replicated (N0, N1) plane"""
+    n0 = plane.shape[0] // pm.size
+    return plane[pm.rank * n0:(pm.rank + 1) * n0].contiguous()
+
+
+def fft3_real_forward_half_ct2_sharded(pm, x, norm=True, precision=None,
+                                       spectrum_dtype=None, impl=None):
+    """slab-sharded ct2 forward: pass 1 (z half + y CT) on this rank's
+    slab x (N0/P, N1, N2), one all_to_all splitting the permuted y axis,
+    the x CT on the y-chunk.  Returns (r, i) (N0, N1/P, Zm), chunk
+    permuted as :func:`fft3_real_forward_half_ct2`'s, and the z-Nyquist
+    plane spectrum (nqr, nqi) (N0, N1), replicated on every rank.  A
+    bf16 ``spectrum_dtype`` also halves the all_to_all's bytes."""
+    n0, N1, N2 = x.shape
+    N0 = n0 * pm.size
+    Zm = N2 // 2
+    if not is_ct2((N0, N1, N2)):
+        raise ValueError("ct2 needs N0/N1 = R*128k and even N2 (got %s)"
+                         % ((N0, N1, N2),))
+    _check_sharded(pm, N0, N1, "fft3_real_forward_half_ct2_sharded")
+    from ..parallel.comm import all_gather
+    bf16, sdt = _bf16_products(precision), _storage(spectrum_dtype)
+    wz = _cached(_z_fwd_tabs, N2, Zm)
+    wy = _cached(_ct_fwd_mats_np, N1)
+    wx = _cached(_ct_fwd_mats_np, N0)
+    pr, pi, nq = _zy_fwd_ct2_call(x, N2, Zm, wz, wy, precision=precision,
+                                  out_dtype=sdt, impl=impl)
+    pr, pi = _a2a_fwd(pm, pr), _a2a_fwd(pm, pi)
+    scale = 1.0 / (N0 * N1 * N2) if norm else 1.0
+    rr, ii = _xct_call_multi(pr, pi, wx, scale, precision=precision,
+                             out_dtype=sdt, impl=impl)
+    del pr, pi
+    nq = all_gather(nq, pm, axis=0)
+    nqr, nqi = _plane_fft2(nq, None, N0, N1, -1, np.float32(scale), bf16)
+    return rr, ii, nqr, nqi
+
+
+def fft3_real_inverse_grad3_half_ct2_sharded(pm, r, i, nqr, nqi, n2, kvecs,
+                                             precision=None,
+                                             poisson_k2=None, only=None,
+                                             impl=None):
+    """slab-sharded ct2 force triple (see
+    :func:`fft3_real_inverse_grad3_half_ct2`): the x CT inverses on this
+    rank's y-chunk (r, i) (N0, N1/P, Zm) (the plain and k_x-folded sets
+    in one dual pass), all_to_all back, the ct2 zy inverses on the slab
+    with the replicated Nyquist planes sliced to its rows.  Returns the
+    force slabs (N0/P, N1, n2); ``only`` = d one direction."""
+    N0, n1, Zm = r.shape
+    N1 = n1 * pm.size
+    _check_sharded(pm, N0, N1, "fft3_real_inverse_grad3_half_ct2_sharded")
+    _check_kvecs(kvecs, N0, N1)
+    bf16, sdt = _bf16_products(precision), _spectrum_storage(r)
+    kvecs = _tuples(kvecs)
+    wy = _cached(_ct_inv_mats_np, N1)
+    wx = _cached(_ct_inv_mats_np, N0)
+    wx_g = _cached(_ct_inv_mats_np, N0, kvecs[0])
+    wy_g = _cached(_ct_inv_mats_np, N1, kvecs[1])
+    AB_p = _cached(_z_inv_tabs, n2, Zm)
+    AB_g = _cached(_z_inv_tabs, n2, Zm, kvecs[2])
+    kx = _on_device(_cached(_f32, kvecs[0]), r.device)
+    ky = _on_device(_cached(_f32, kvecs[1]), r.device)
+    k2l = None
+    if poisson_k2 is not None:
+        invk2p, k2l = _cached(_sharded_ct2_k2, _tuples(poisson_k2), N0, N1,
+                              Zm, pm.rank, pm.size)
+        invk2p = _on_device(invk2p, r.device)
+        nqr = nqr * invk2p
+        nqi = nqi * invk2p
+    plane_x = plane_y = None
+    if only in (None, 0):
+        plane_x = _slab_rows(_plane_fft2(-nqi * kx[:, None], nqr * kx[:, None],
+                                         N0, N1, +1, bf16=bf16)[0], pm)
+    if only in (None, 1):
+        plane_y = _slab_rows(_plane_fft2(-nqi * ky[None, :], nqr * ky[None, :],
+                                         N0, N1, +1, bf16=bf16)[0], pm)
+    kw = dict(precision=precision, impl=impl)
+    xkw = dict(inverse=True, k2=k2l, out_dtype=sdt, **kw)
+    if only is not None:
+        if only not in (0, 1, 2):
+            raise ValueError("only must be None, 0, 1 or 2")
+        sr, si = _xct_call_multi(r, i, wx_g if only == 0 else wx, 1.0, **xkw)
+        sr, si = _a2a_back(pm, sr), _a2a_back(pm, si)
+        if only == 0:
+            return _zy_inv_ct2_call(sr, si, wy, AB_p, n2, plane=plane_x, **kw)
+        if only == 1:
+            return _zy_inv_ct2_call(sr, si, wy_g, AB_p, n2, plane=plane_y,
+                                    **kw)
+        return _zy_inv_ct2_call(sr, si, wy, AB_g, n2, **kw)
+    sr, si, gr, gi = _xct_call_multi(r, i, wx, 1.0, wx2=wx_g, **xkw)
+    sr, si = _a2a_back(pm, sr), _a2a_back(pm, si)
+    fy, fz = _zy_inv_ct2_call_dual(sr, si, wy_g, AB_p, wy, AB_g, n2,
+                                   planeA=plane_y, **kw)
+    del sr, si
+    gr, gi = _a2a_back(pm, gr), _a2a_back(pm, gi)
+    fx = _zy_inv_ct2_call(gr, gi, wy, AB_p, n2, plane=plane_x, **kw)
+    return fx, fy, fz
+
+
+def fft3_poisson_half_ct2_sharded(pm, r, i, nqr, nqi, n2, poisson_k2,
+                                  precision=None, impl=None):
+    """slab-sharded ct2 Poisson potential (see
+    :func:`fft3_poisson_half_ct2`): one x pass with 1/k^2 folded on the
+    y-chunk, all_to_all back, one zy inverse per slab.  Returns this
+    rank's potential slab (N0/P, N1, n2)."""
+    N0, n1, Zm = r.shape
+    N1 = n1 * pm.size
+    _check_sharded(pm, N0, N1, "fft3_poisson_half_ct2_sharded")
+    bf16 = _bf16_products(precision)
+    wy = _cached(_ct_inv_mats_np, N1)
+    wx = _cached(_ct_inv_mats_np, N0)
+    AB_p = _cached(_z_inv_tabs, n2, Zm, None, True)
+    invk2p, k2l = _cached(_sharded_ct2_k2, _tuples(poisson_k2), N0, N1, Zm,
+                          pm.rank, pm.size)
+    invk2p = _on_device(invk2p, r.device)
+    plane = -_plane_fft2(nqr * invk2p, nqi * invk2p, N0, N1, +1,
+                         bf16=bf16)[0]
+    sr, si = _xct_call_multi(r, i, wx, 1.0, inverse=True, k2=k2l,
+                             precision=precision,
+                             out_dtype=_spectrum_storage(r), impl=impl)
+    sr, si = _a2a_back(pm, sr), _a2a_back(pm, si)
+    return _zy_inv_ct2_call(sr, si, wy, AB_p, n2, plane=_slab_rows(plane, pm),
+                            precision=precision, impl=impl)
+
+
+def fft3_real_forward_half_sharded(pm, x, norm=True, precision=None,
+                                   impl=None):
+    """slab-sharded dense forward (kernel-table row 9): the zy pass on
+    this rank's slab x (N0/P, N1, N2) -> (N0/P, N1, Zh), one all_to_all,
+    the dense x DFT on the y-chunk.  Returns (r, i) (N0, N1/P, Zh),
+    natural order, scaled by 1/(N0 N1 N2) when ``norm``."""
+    n0, N1, N2 = x.shape
+    N0 = n0 * pm.size
+    _check_sharded(pm, N0, N1, "fft3_real_forward_half_sharded")
+    Zh = N2 // 2 + 1
+    wz = _cached(_dft_half_np, N2, Zh)
+    wy = _cached(_dft_np, N1, -1)
+    wx = _cached(_dft_np, N0, -1)
+    pr, pi = _zy_fwd_dense_call(x, wz, wy, precision=precision, impl=impl)
+    pr, pi = _a2a_fwd(pm, pr), _a2a_fwd(pm, pi)
+    scale = 1.0 / (N0 * N1 * N2) if norm else 1.0
+    return _x_dense_call(pr, pi, wx, scale, precision=precision, impl=impl)
+
+
+def _sharded_dense_k2(poisson_k2, N0, N1, Zh, rank, size):
+    k2 = _cached(_dense_k2_tables, poisson_k2, N0, N1, Zh)
+    return k2[0], _chunk(k2[1], rank, size), k2[2]
+
+
+def fft3_real_inverse_grad3_half_sharded(pm, r, i, n2, kvecs, precision=None,
+                                         poisson_k2=None, impl=None):
+    """slab-sharded dense force triple (row 9; see
+    :func:`fft3_real_inverse_grad3_half`): this rank's y-chunk (r, i)
+    (N0, N1/P, Zh) through one dual inverse x pass (plain and k_x-folded;
+    1/k^2 folded from ``poisson_k2`` when given, else (r, i) is the
+    filtered spectrum, as the JAX package's signature has it), two
+    all_to_alls back and three zy inverses per slab.  Returns the force
+    slabs (N0/P, N1, n2)."""
+    N0, n1, Zh = r.shape
+    N1 = n1 * pm.size
+    _check_sharded(pm, N0, N1, "fft3_real_inverse_grad3_half_sharded")
+    _check_kvecs(kvecs, N0, N1)
+    if len(kvecs[2]) != Zh:
+        raise ValueError("kvecs[2] must have length Zh=%d" % Zh)
+    if n2 // 2 + 1 != Zh:
+        raise ValueError("n2=%d does not give the %d half-spectrum columns"
+                         % (n2, Zh))
+    kvecs = _tuples(kvecs)
+    wy = _cached(_dft_np, N1, +1)
+    wx = _cached(_dft_np, N0, +1)
+    wx_g = _cached(_dft_fold_np, N0, kvecs[0])
+    wy_g = _cached(_dft_fold_np, N1, kvecs[1])
+    AB_p = _cached(_irfft_mats_np, n2, Zh)
+    AB_g = _cached(_irfft_mats_np, n2, Zh, kvecs[2])
+    k2 = None
+    if poisson_k2 is not None:
+        k2 = _cached(_sharded_dense_k2, _tuples(poisson_k2), N0, N1, Zh,
+                     pm.rank, pm.size)
+    kw = dict(precision=precision, impl=impl)
+    sr, si, gr, gi = _x_dense_call(r, i, wx, 1.0, wx2=wx_g, k2=k2, **kw)
+    sr, si = _a2a_back(pm, sr), _a2a_back(pm, si)
+    fy = _zy_inv_dense_call(sr, si, wy_g, AB_p, **kw)
+    fz = _zy_inv_dense_call(sr, si, wy, AB_g, **kw)
+    del sr, si
+    gr, gi = _a2a_back(pm, gr), _a2a_back(pm, gi)
     fx = _zy_inv_dense_call(gr, gi, wy, AB_p, **kw)
     return fx, fy, fz

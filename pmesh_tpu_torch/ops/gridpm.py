@@ -41,6 +41,16 @@ version differentiates natively, as the JAX package's XLA version does;
 on CUDA tensors that require grad it raises, as the JAX package's Pallas
 kernels have no autodiff rule (``pmesh_tpu/ops/gridpm.py:482-486``).
 The CUDA wrappers themselves refuse tensors that require grad.
+
+Slab-sharded meshes (``procmesh`` of P > 1 ranks, the JAX package's
+``_shift_sharded``): every rank holds its x slab of the displacements
+and meshes.  The x window reaches ``lo``/``hi`` planes into the ring
+neighbours' slabs, which ``parallel/halo.extend_x`` fetches (any depth,
+so the deep-window case is the same code); the x-halo slab form of the
+kernels then reads the extended slab and writes the rank's rows with no
+x wrap.  The plain versions run the roll loop on the extended slab and
+keep the middle rows (``paint_slab_plain``, ``readout_slab_plain``).
+Reverse mode through the sharded path is not ported: it raises.
 """
 import numpy as np
 import torch
@@ -48,7 +58,8 @@ import torch
 from .kernels import find_window
 
 __all__ = ["paint_grid", "readout_grid", "offset_range",
-           "displacement_bounds", "GRID_LIMIT"]
+           "displacement_bounds", "GRID_LIMIT", "paint_slab_plain",
+           "readout_slab_plain"]
 
 # the lattice path refuses more shift passes than this
 GRID_LIMIT = 1728  # 12^3
@@ -179,6 +190,80 @@ def _shift_loop(meshes, disp, mass, bounds, window, diffdir, mode,
     return tuple(outs)
 
 
+def _sharded(procmesh):
+    return procmesh is not None and procmesh.size > 1
+
+
+def paint_slab_plain(disp_ext, mass_ext, lo, rows, bounds, window,
+                     diffdir=None):
+    """Plain x-halo slab paint: the roll loop on the extended slab
+    (displacements and mesh mass of lo + rows + hi planes, the window's
+    reach ``lo`` >= v_max and hi >= -v_min), rows [lo, lo + rows) kept:
+    no roll there wraps."""
+    out = _shift_loop(None, disp_ext, mass_ext, bounds, window, diffdir,
+                      'paint', impl='torch')
+    return out[lo:lo + rows]
+
+
+def readout_slab_plain(meshes_ext, disp, lo, bounds, window, diffdir=None):
+    """Plain x-halo slab readout: the meshes hold lo + rows + hi planes
+    (lo >= -v_min, hi >= v_max) about the ``rows`` planes of ``disp``;
+    the displacements are padded to the extended slab with zeros, the
+    roll loop runs there and rows [lo, lo + rows) are kept."""
+    rows = disp[0].shape[0]
+    n_in = meshes_ext[0].shape[0]
+    pad = [(torch.zeros((lo,) + d.shape[1:], dtype=d.dtype, device=d.device),
+            torch.zeros((n_in - lo - rows,) + d.shape[1:], dtype=d.dtype,
+                        device=d.device)) for d in disp]
+    dext = tuple(torch.cat([a, d, b], 0) for d, (a, b) in zip(disp, pad))
+    outs = _shift_loop(tuple(meshes_ext), dext, None, bounds, window,
+                       diffdir, 'readout', impl='torch')
+    return tuple(o[lo:lo + rows] for o in outs)
+
+
+def _shift_sharded(meshes, disp, mass, bounds, window, diffdir, mode,
+                   procmesh, impl):
+    """The shift-sum over the x slabs of ``procmesh``: extend the inputs
+    by the window's x reach from the ring neighbours, then the x-halo
+    form of the kernels (CUDA tensors) or the plain loop on the extended
+    slab."""
+    from ..parallel.halo import extend_x
+    win = find_window(window)
+    vmin, vmax = offset_range(float(bounds[0]), float(bounds[1]), win)
+    rows = disp[0].shape[0]
+    cuda = _use_cuda(impl, disp[0])
+    if mode == 'paint':
+        # output row i gathers source rows i - v_x, v_x in [vmin, vmax]
+        lo, hi = max(0, vmax), max(0, -vmin)
+        dext = tuple(extend_x(d, lo, hi, procmesh) for d in disp)
+        mesh_mass = isinstance(mass, torch.Tensor) and mass.dim() > 0
+        mext = extend_x(mass, lo, hi, procmesh) if mesh_mass else mass
+        if cuda:
+            from . import gridpm_cuda as _k
+            return _k.paint_lattice(dext, mext, vmin, vmax, win,
+                                    diffdir=diffdir, rows=rows, xbase=lo)
+        return paint_slab_plain(dext, mext, lo, rows, bounds, win, diffdir)
+    # particle row i reads mesh rows i + v_x
+    lo, hi = max(0, -vmin), max(0, vmax)
+    mext = tuple(extend_x(m, lo, hi, procmesh) for m in meshes)
+    if not cuda:
+        return readout_slab_plain(mext, disp, lo, bounds, win, diffdir)
+    from . import gridpm_cuda as _k
+    if diffdir == 'all':
+        return _k.readout_lattice(mext[:1], disp, vmin, vmax, win,
+                                  diffdir='all', xbase=lo)
+    return tuple(_k.readout_lattice((m,), disp, vmin, vmax, win,
+                                    diffdir=diffdir, xbase=lo)[0]
+                 for m in mext)
+
+
+def _no_sharded_grad(what, tensors):
+    if _tracks(tensors):
+        raise NotImplementedError(
+            "%s: reverse mode through the slab-sharded path is not ported "
+            "yet (ROADMAP queue 1, item 8)" % what)
+
+
 def _detached(t):
     return t.detach() if isinstance(t, torch.Tensor) else t
 
@@ -283,7 +368,7 @@ class _Readout(torch.autograd.Function):
 
 
 def paint_grid(disp, mass=None, bounds=(0.0, 1.0), window='cic',
-               diffdir=None, impl=None):
+               diffdir=None, impl=None, procmesh=None):
     """Paint lattice particles displaced by ``disp`` onto their own mesh.
 
     Parameters
@@ -296,10 +381,20 @@ def paint_grid(disp, mass=None, bounds=(0.0, 1.0), window='cic',
         :func:`displacement_bounds`.
     diffdir : None, or the axis whose window is replaced by -W'
     impl : None, 'torch' or 'cuda' (see the module docstring)
+    procmesh : None, or the ProcessMesh whose x slabs ``disp`` and
+        ``mass`` are (module docstring)
 
-    Differentiable in ``disp`` and a tensor ``mass`` (module docstring).
+    Differentiable in ``disp`` and a tensor ``mass`` (module docstring)
+    on one rank.
     """
     disp = tuple(disp)
+    if _sharded(procmesh):
+        _no_sharded_grad("paint_grid", disp + (mass,))
+        if isinstance(mass, torch.Tensor):
+            mass = mass.to(disp[0].dtype)
+        return _shift_sharded(None, disp, 1.0 if mass is None else mass,
+                              bounds, window, diffdir, 'paint', procmesh,
+                              impl)
     if not _tracks(disp + (mass,)):
         return _shift_loop(None, tuple(_detached(d) for d in disp),
                            _detached(mass), bounds, window, diffdir,
@@ -316,7 +411,7 @@ def paint_grid(disp, mass=None, bounds=(0.0, 1.0), window='cic',
 
 
 def readout_grid(mesh, disp, bounds=(0.0, 1.0), window='cic',
-                 diffdir=None, impl=None):
+                 diffdir=None, impl=None, procmesh=None):
     """Read one mesh (or a tuple of meshes, sharing the weights) at the
     displaced lattice sites.
 
@@ -330,7 +425,11 @@ def readout_grid(mesh, disp, bounds=(0.0, 1.0), window='cic',
     disp = tuple(disp)
     if diffdir == 'all' and len(meshes) != 1:
         raise ValueError("diffdir='all' takes exactly one mesh")
-    if not _tracks(meshes + disp):
+    if _sharded(procmesh):
+        _no_sharded_grad("readout_grid", meshes + disp)
+        out = _shift_sharded(meshes, disp, None, bounds, window, diffdir,
+                             'readout', procmesh, impl)
+    elif not _tracks(meshes + disp):
         out = _shift_loop(tuple(_detached(m) for m in meshes),
                           tuple(_detached(d) for d in disp), None, bounds,
                           window, diffdir, 'readout', impl)

@@ -5,9 +5,17 @@ Each wrapper checks its tensors (CUDA, f32, 3-d mesh shape,
 contiguous, on one device, no autograd), allocates the outputs,
 launches on PyTorch's current stream and raises RuntimeError if the
 launch returns an error.  ``LAUNCHES`` counts the launches of each
-kernel, so a run can show that it went through the kernels.
+kernel, so a run can show that it went through the kernels (the
+x-halo slab forms under "<name>_xhalo").
 
-The plain PyTorch version of both is ``ops/gridpm._shift_loop``.
+Both take the x-halo slab form of a slab-sharded mesh (``xbase``):
+the paint reads displacements and mass of ``lo + rows + hi`` planes and
+writes ``rows``, the readout reads meshes of ``lo + rows + hi`` planes
+at the ``rows`` planes of its displacements, with no wrap on x.
+
+The plain PyTorch version of both is ``ops/gridpm._shift_loop`` (on the
+extended slab for the x-halo form: ``ops/gridpm.paint_slab_plain`` and
+``readout_slab_plain``).
 """
 import ctypes
 
@@ -20,7 +28,9 @@ from ..native import cuda as _cuda
 __all__ = ["paint_lattice", "readout_lattice", "LAUNCHES",
            "reset_launches"]
 
-LAUNCHES = {"paint_lattice": 0, "readout_lattice": 0}
+# the x-halo slab forms count apart ("_xhalo")
+LAUNCHES = {"paint_lattice": 0, "readout_lattice": 0,
+            "paint_lattice_xhalo": 0, "readout_lattice_xhalo": 0}
 
 _ANALYTIC_CODE = {'nearest': 0, 'linear': 1, 'quadratic': 2, 'cubic': 3}
 _TABLE, _TABLE_OFFSET = 4, 5
@@ -45,10 +55,10 @@ def _load():
         lib.pmesh_cuda_error_string.argtypes = [_I]
         lib.pmesh_cuda_error_string.restype = ctypes.c_char_p
         lib.pmesh_paint_lattice.argtypes = (
-            [_P] * 4 + [_F, _P] + [_I] * 7 + [_P, _I, _F, _F, _I, _P])
+            [_P] * 4 + [_F, _P] + [_I] * 9 + [_P, _I, _F, _F, _I, _P])
         lib.pmesh_paint_lattice.restype = _I
         lib.pmesh_readout_lattice.argtypes = (
-            [_P] * 3 + [_I] + [_P] * 6 + [_I] * 7 + [_P, _I, _F, _F, _I,
+            [_P] * 3 + [_I] + [_P] * 6 + [_I] * 9 + [_P, _I, _F, _F, _I,
                                                     _P])
         lib.pmesh_readout_lattice.restype = _I
         _lib = lib
@@ -120,13 +130,27 @@ def _raise_on(rc, what):
                            % (what, rc, msg))
 
 
-def paint_lattice(disp, mass, vmin, vmax, window, diffdir=None):
+def _halo_rows(what, n_in, rows, xbase, lo_reach, hi_reach):
+    """check the x-halo form's extent: output rows [0, rows) read input
+    planes from xbase - lo_reach to rows - 1 + xbase + hi_reach"""
+    if xbase - lo_reach < 0 or rows - 1 + xbase + hi_reach >= n_in \
+            or rows < 1:
+        raise ValueError("%s: %d input planes do not hold the x halo of "
+                         "%d rows at base %d (reach -%d, +%d)"
+                         % (what, n_in, rows, xbase, lo_reach, hi_reach))
+
+
+def paint_lattice(disp, mass, vmin, vmax, window, diffdir=None, rows=None,
+                  xbase=None):
     """Gather-form lattice paint:
     rho[p] = sum_v m(p - v) prod_d W_d(v_d - s_d(p - v)), v in
     [vmin, vmax]^3, W_d = -W' on axis ``diffdir``.
 
     disp : three (N0, N1, N2) f32 CUDA tensors (cell units)
     mass : None (1), a scalar, or a mesh tensor
+    rows, xbase : the x-halo slab form: disp and mass hold N0 = lo +
+        rows + hi planes, the output ``rows`` planes, output row i at
+        input plane i + xbase (= lo), no wrap on x
     """
     what = "paint_lattice"
     if diffdir not in (None, 0, 1, 2):
@@ -136,25 +160,38 @@ def paint_lattice(disp, mass, vmin, vmax, window, diffdir=None):
         raise NotImplementedError("%s: the CUDA kernel is 3-d only" % what)
     mesh_mass = isinstance(mass, torch.Tensor) and mass.dim() > 0
     shape, device = _check(disp + ((mass,) if mesh_mass else ()), what)
+    n_in = shape[0]
+    if xbase is None:
+        xbase = -1
+        rows = n_in
+    else:
+        _halo_rows(what, n_in, rows, xbase, vmax, -vmin)
     scalar = 1.0 if mass is None or mesh_mass else float(mass)
     kind, table, ntable, step, offset = _window_args(window, device)
-    out = torch.empty(shape, dtype=torch.float32, device=device)
+    out = torch.empty((rows,) + shape[1:], dtype=torch.float32,
+                      device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    LAUNCHES[what] += 1
+    LAUNCHES[what + ("_xhalo" if xbase >= 0 else "")] += 1
     rc = _load().pmesh_paint_lattice(
         _ptr(disp[0]), _ptr(disp[1]), _ptr(disp[2]),
         _ptr(mass) if mesh_mass else None, scalar, _ptr(out),
-        shape[0], shape[1], shape[2], vmin, vmax, kind, _DIFF[diffdir],
-        _ptr(table), ntable, step, offset, device.index, stream)
+        rows, shape[1], shape[2], n_in, xbase, vmin, vmax, kind,
+        _DIFF[diffdir], _ptr(table), ntable, step, offset, device.index,
+        stream)
     _raise_on(rc, what)
     return out
 
 
-def readout_lattice(meshes, disp, vmin, vmax, window, diffdir=None):
+def readout_lattice(meshes, disp, vmin, vmax, window, diffdir=None,
+                    xbase=None):
     """Lattice readout: out[q] = sum_v prod_d W_d(v_d - s_d(q))
     mesh[q + v] for 1 to 3 meshes sharing the weights; with
     ``diffdir='all'`` the three derivative readouts of one mesh.
-    Returns a tuple of outputs (one per mesh, or three for 'all')."""
+    Returns a tuple of outputs (one per mesh, or three for 'all').
+
+    xbase : the x-halo slab form: the meshes hold lo + rows + hi planes
+        about the displacements' ``rows``, particle row i at mesh plane
+        i + xbase (= lo), no wrap on x."""
     what = "readout_lattice"
     if diffdir not in _DIFF:
         raise ValueError("%s: diffdir must be None, 0, 1, 2 or 'all'"
@@ -166,7 +203,17 @@ def readout_lattice(meshes, disp, vmin, vmax, window, diffdir=None):
         raise ValueError("%s: diffdir='all' takes exactly one mesh" % what)
     if len(disp) != 3:
         raise NotImplementedError("%s: the CUDA kernel is 3-d only" % what)
-    shape, device = _check(meshes + disp, what)
+    if xbase is None:
+        shape, device = _check(meshes + disp, what)
+        n_in, xbase = shape[0], -1
+    else:
+        shape, device = _check(disp, what)
+        mshape, mdev = _check(meshes, what)
+        if mshape[1:] != shape[1:] or mdev != device:
+            raise ValueError("%s: the meshes' planes must match the "
+                             "displacements'" % what)
+        n_in = mshape[0]
+        _halo_rows(what, n_in, shape[0], xbase, -vmin, vmax)
     kind, table, ntable, step, offset = _window_args(window, device)
     nout = 3 if diffdir == 'all' else len(meshes)
     outs = tuple(torch.empty(shape, dtype=torch.float32, device=device)
@@ -174,11 +221,11 @@ def readout_lattice(meshes, disp, vmin, vmax, window, diffdir=None):
     m = [_ptr(x) for x in meshes] + [None] * (3 - len(meshes))
     o = [_ptr(x) for x in outs] + [None] * (3 - nout)
     stream = torch.cuda.current_stream(device).cuda_stream
-    LAUNCHES[what] += 1
+    LAUNCHES[what + ("_xhalo" if xbase >= 0 else "")] += 1
     rc = _load().pmesh_readout_lattice(
         m[0], m[1], m[2], len(meshes), _ptr(disp[0]), _ptr(disp[1]),
         _ptr(disp[2]), o[0], o[1], o[2], shape[0], shape[1], shape[2],
-        vmin, vmax, kind, _DIFF[diffdir], _ptr(table), ntable, step,
-        offset, device.index, stream)
+        n_in, xbase, vmin, vmax, kind, _DIFF[diffdir], _ptr(table), ntable,
+        step, offset, device.index, stream)
     _raise_on(rc, what)
     return outs

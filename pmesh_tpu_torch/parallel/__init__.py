@@ -1,0 +1,2 @@
+"""The slab decomposition over torch.distributed: ProcessMesh, the
+collectives, the halo exchange, the slab FFT and the rank launcher."""

@@ -92,8 +92,8 @@ def test_dispatch_and_counters(dev):
     tgp.readout_grid(meshes, disp)
     tgp.readout_grid(meshes[0], disp, diffdir='all')
     tgp.paint_grid(disp, impl='torch')
-    assert gridpm_cuda.LAUNCHES == {"paint_lattice": 1,
-                                    "readout_lattice": 4}
+    assert _launched(gridpm_cuda) == {"paint_lattice": 1,
+                                      "readout_lattice": 4}
 
 
 def test_kernels_refuse_what_they_cannot_run(dev):
@@ -228,7 +228,7 @@ def test_rebase_dispatch_counters_and_refusals(dev):
     tbn.rebase(ds, va, (-0.5, 1.5), extras=(vel,))
     tbn.rebase(ds, va, (-0.5, 1.5))
     tbn.rebase(ds, va, (-0.5, 1.5), impl='torch')
-    assert binned_cuda.LAUNCHES == {"rebase_assign": 2, "rebase_apply": 1}
+    assert _launched(binned_cuda) == {"rebase_assign": 2, "rebase_apply": 1}
     with pytest.raises(NotImplementedError, match='f32'):
         tbn.rebase(tuple(tuple(x.double() for x in dk) for dk in ds),
                    tuple(v.double() for v in va), (-0.5, 1.5))
@@ -641,7 +641,7 @@ def test_lattice_backward_matches_plain(dev, window):
         # forward and backward: paint 1 + (1 mass readout, 1 'all');
         # readouts 3 (one per mesh) + (3 paints, one 3-mesh readout per
         # direction)
-        assert gridpm_cuda.LAUNCHES == launches
+        assert _launched(gridpm_cuda) == launches
         for g, r in zip(got, ref):
             assert _rel(g, r) <= TOL
 
@@ -982,3 +982,180 @@ def test_fft_bf16_launches_count_one_force(dev, fft, shape, mode):
         if mode == 'spectral':
             want["zy_inv_ct2_dual" + sfx] = 1
     assert _launched(fft_mxu_cuda) == want
+
+
+# --- the slab-sharded path ---------------------------------------------------
+
+def _wrap_rows(t, start, rows, lo, hi):
+    """rows [start, start + rows) of ``t`` with lo planes below and hi
+    above, wrapped: the extended slab a rank's halo exchange builds"""
+    n0 = t.shape[0]
+    idx = torch.arange(start - lo, start + rows + hi, device=t.device) % n0
+    return t[idx].contiguous()
+
+
+@pytest.mark.parametrize("window,bounds", [('cic', (-1.0, 1.5)),
+                                           ('tsc', (-0.5, 0.5)),
+                                           ('cic', (-2.5, 0.5))])
+def test_xhalo_lattice_kernels_match_plain(dev, window, bounds):
+    """the x-halo slab forms against the plain roll loop on the extended
+    slab (TOL) and against the wrapped kernels' rows of the whole mesh
+    (bitwise: the same sums in the same order); the last case reaches
+    past a 4-row slab"""
+    from pmesh_tpu_torch.ops import gridpm_cuda
+    shape = (24, 20, 36)
+    disp, mass, meshes = _inputs(61, shape, bounds, dev)
+    vmin, vmax = tgp.offset_range(*bounds, window)
+    start, rows = 8, 4
+    lo, hi = max(0, vmax), max(0, -vmin)
+    dext = tuple(_wrap_rows(d, start, rows, lo, hi) for d in disp)
+    mext = _wrap_rows(mass, start, rows, lo, hi)
+    for diffdir in (None, 1):
+        for m, mx in ((None, None), (mass, mext)):
+            got = gridpm_cuda.paint_lattice(dext, mx, vmin, vmax, window,
+                                            diffdir, rows=rows, xbase=lo)
+            ref = tgp.paint_slab_plain(dext, 1.0 if mx is None else mx, lo,
+                                       rows, bounds, window, diffdir)
+            assert _rel(got, ref) <= TOL, (diffdir, m is None)
+            whole = gridpm_cuda.paint_lattice(disp, m, vmin, vmax, window,
+                                              diffdir)
+            assert torch.equal(got, whole[start:start + rows])
+    lo, hi = max(0, -vmin), max(0, vmax)
+    dslab = tuple(d[start:start + rows].contiguous() for d in disp)
+    mx = tuple(_wrap_rows(m, start, rows, lo, hi) for m in meshes)
+    for diffdir in (None, 0, 'all'):
+        got = gridpm_cuda.readout_lattice(mx[:1], dslab, vmin, vmax, window,
+                                          diffdir, xbase=lo)
+        ref = tgp.readout_slab_plain(mx[:1], dslab, lo, bounds, window,
+                                     diffdir)
+        whole = gridpm_cuda.readout_lattice(meshes[:1], disp, vmin, vmax,
+                                            window, diffdir)
+        for g, r, w in zip(got, ref, whole):
+            assert _rel(g, r) <= TOL, diffdir
+            assert torch.equal(g, w[start:start + rows])
+
+
+@pytest.mark.parametrize("bounds,kout", [((-0.5, 1.5), 2), ((-1.0, 2.0), 3)])
+def test_xhalo_rebase_bitwise(dev, bounds, kout):
+    """the x-halo rebase against the plain slab form and the wrapped
+    kernels' rows of the whole mesh, bitwise"""
+    from pmesh_tpu_torch.ops import binned as tbn
+    from pmesh_tpu_torch.ops import binned_cuda
+    shape = (24, 20, 36)
+    rng = np.random.RandomState(62)
+
+    def t(a):
+        return torch.from_numpy(a.astype('f4')).to(dev)
+    dslots = tuple(tuple(t(rng.uniform(bounds[0], bounds[1], shape))
+                         for _ in range(3)) for _ in range(2))
+    valid = tuple(t((rng.uniform(size=shape) < 0.7) * 1.0)
+                  for _ in range(2))
+    vel = tuple(tuple(t(rng.normal(size=shape)) for _ in range(3))
+                for _ in range(2))
+    offsets = tbn._drift_offsets(bounds, 3)
+    olo, ohi = offsets[0][0], offsets[-1][0]
+    lo, hi = tbn._halo_depth(offsets)
+    start, rows = 12, 6
+
+    def ext(x):
+        if isinstance(x, tuple):
+            return tuple(ext(y) for y in x)
+        return _wrap_rows(x, start, rows, lo, hi)
+    got = binned_cuda.rebase_assign(ext(dslots), ext(valid), kout, olo, ohi,
+                                    rows=rows, xbase=lo)
+    ref = tbn.rebase_assign_plain(ext(dslots), ext(valid), offsets, kout,
+                                  rows=rows, xbase=lo)
+    whole = binned_cuda.rebase_assign(dslots, valid, kout, olo, ohi)
+    for g, r, w in zip(_flat(got[:3]), _flat(ref[:3]), _flat(whole[:3])):
+        assert torch.equal(g, r) and torch.equal(g, w[start:start + rows])
+    assert int(got[3]) == int(ref[3])
+    ge = binned_cuda.rebase_apply((ext(vel),), got[2], olo, ohi, xbase=lo)
+    re = tbn.rebase_apply_plain((ext(vel),), ref[2], offsets, xbase=lo)
+    we = binned_cuda.rebase_apply((vel,), whole[2], olo, ohi)
+    for g, r, w in zip(_flat(ge), _flat(re), _flat(we)):
+        assert torch.equal(g, r) and torch.equal(g, w[start:start + rows])
+    with pytest.raises(ValueError, match="x halo"):
+        binned_cuda.rebase_assign(dslots, valid, kout, olo, ohi, rows=rows,
+                                  xbase=0)
+
+
+def _flat(x):
+    if isinstance(x, (tuple, list)):
+        return [y for z in x for y in _flat(z)]
+    return [x]
+
+
+def test_sharded_on_the_card_matches_one_device(dev):
+    """four ranks on the card over gloo (staged through the host): the
+    sharded paint, forces and rebase against the single-device kernels,
+    and the row-9 passes at the slab and y-chunk shapes of (24, 20, 15)
+    (slabs of 6 rows, y-chunks of 5)"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import binned as tbn
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    from pmesh_tpu_torch.parallel import launch
+    n = 16
+    rng = np.random.RandomState(63)
+    disp = tuple(rng.uniform(-0.5, 1.5, (n,) * 3).astype('f4')
+                 for _ in range(3))
+    dsl = tuple(tuple(rng.uniform(-0.5, 1.5, (n,) * 3).astype('f4')
+                      for _ in range(3)) for _ in range(2))
+    val = tuple((rng.uniform(size=(n,) * 3) < 0.7).astype('f4')
+                for _ in range(2))
+    dshape = (24, 20, 15)
+    xd = (1 + 0.3 * rng.normal(size=dshape)).astype('f4')
+    _, pk2, kd, _ = Solver(ParticleMesh(list(dshape), np.asarray(
+        dshape, float), dtype='f4', device='cpu'))._mxu_setup()
+    spec = tuple(t.numpy() for t in fm.fft3_real_forward_half(
+        torch.from_numpy(xd)))
+    cases = [('paint', (disp, None, (-0.5, 1.5), 'cic')),
+             ('force', ([n] * 3, float(n), disp, (-0.5, 1.5), 'spectral',
+                        'xla')),
+             ('force', ([n] * 3, float(n), disp, (-0.5, 1.5), 'spectral',
+                        'mxu')),
+             ('rebase', (dsl, val, (-0.5, 1.5), (), 2)),
+             ('comm', ()),
+             ('dense', (xd, spec, kd, pk2))]
+    # build the kernels once here, not in every rank
+    from pmesh_tpu_torch.native import cuda
+    for name in ("gridpm", "binned", "fft_mxu"):
+        cuda.load(name)
+    from torch_sharded_cases import CASES
+    out = launch.spawn(CASES + ':run_cases', 4, 'gloo', 'cuda', cases)
+
+    def rows(k, j=None):
+        return np.concatenate([o[k] if j is None else o[k][j] for o in out])
+    D = tuple(torch.from_numpy(d).to(dev) for d in disp)
+    ref = tgp.paint_grid(D, bounds=(-0.5, 1.5)).cpu().numpy()
+    assert np.abs(rows(0) - ref).max() <= TOL * np.abs(ref).max()
+    s = Solver(ParticleMesh([n] * 3, float(n), dtype='f4', device=dev))
+    for k, fft in ((1, 'xla'), (2, 'mxu')):
+        F = s.force_lattice(D, (-0.5, 1.5), fft=fft)
+        for j in range(3):
+            r = F[j].cpu().numpy()
+            assert np.abs(rows(k, j) - r).max() <= TOL * np.abs(r).max()
+    whole = tbn.rebase(tuple(tuple(torch.from_numpy(x).to(dev) for x in dk)
+                             for dk in dsl),
+                       tuple(torch.from_numpy(v).to(dev) for v in val),
+                       (-0.5, 1.5), nslots_out=2)
+    fields = [np.concatenate([_flat(o[3][:2])[f] for o in out])
+              for f in range(len(_flat(whole[:2])))]
+    for g, w in zip(fields, _flat(whole[:2])):
+        assert np.array_equal(g.view(np.uint32),
+                              w.cpu().numpy().view(np.uint32))
+    assert [o[3][3] for o in out] == [int(whole[3])] * 4
+    assert all(o[4]['staged']['to_host'] > 0 for o in out)
+    # row 9: the forward's y-chunks, the inverse and the forces' slabs
+    X = torch.from_numpy(xd).to(dev)
+    fwd = fm.fft3_real_forward_half(X)
+    S = tuple(torch.from_numpy(a).to(dev) for a in spec)
+    ref = {'fwd': fwd,
+           'inv': fm.fft3_real_inverse_grad3_half(*S, dshape[2], kd),
+           'forces': fm.fft3_real_inverse_grad3_half(
+               *fwd, dshape[2], kd, poisson_k2=pk2)}
+    for part, axis in (('fwd', 1), ('inv', 0), ('forces', 0)):
+        for j, r in enumerate(ref[part]):
+            g = np.concatenate([o[5][part][j] for o in out], axis)
+            r = r.cpu().numpy()
+            assert np.abs(g - r).max() <= TOL * np.abs(r).max(), (part, j)

@@ -47,6 +47,13 @@ def test_imports_without_jax():
         "import pmesh_tpu_torch.ops.binned_cuda\n"
         "import pmesh_tpu_torch.ops.fft_mxu_cuda\n"
         "import pmesh_tpu_torch.ops.fft_mxu_ref\n"
+        "import pmesh_tpu_torch.parallel.pmesh\n"
+        "import pmesh_tpu_torch.parallel.comm\n"
+        "import pmesh_tpu_torch.parallel.halo\n"
+        "import pmesh_tpu_torch.parallel.pfft\n"
+        "import pmesh_tpu_torch.parallel.launch\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_sharded_cases\n"
         "assert not [m for m in sys.modules if m.startswith('jax') and\n"
         "            sys.modules[m] is not None]\n"
         "assert 'pmesh_tpu' not in sys.modules\n")
