@@ -158,6 +158,11 @@ KERNELS = {
                       "pmesh_tpu/ops/gridpm_pallas.py:491"),
     "readout_lattice": ("pmesh_tpu_torch/csrc/gridpm.cu",
                         "pmesh_tpu/ops/gridpm_pallas.py:171"),
+    # their bf16 storage form (_cdtype, gridpm_pallas.py:91)
+    "paint_lattice_bf16": ("pmesh_tpu_torch/csrc/gridpm.cu",
+                           "pmesh_tpu/ops/gridpm_pallas.py:491"),
+    "readout_lattice_bf16": ("pmesh_tpu_torch/csrc/gridpm.cu",
+                             "pmesh_tpu/ops/gridpm_pallas.py:171"),
     "rebase_assign": ("pmesh_tpu_torch/csrc/binned.cu",
                       "pmesh_tpu/ops/binned_pallas.py:375"),
     "rebase_apply": ("pmesh_tpu_torch/csrc/binned.cu",
@@ -314,6 +319,10 @@ DENSE_SMALL = (48, 40, 33)
 # kernels' bounds: FP32 outside the tensor cores, HBM3
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# and its dense bf16 tensor-core rate, for the split-precision products
+PEAK_BF16 = 989e12
+# the card's name and power limit (nvidia-smi), set by phase 1
+CARD = "not read"
 # operations counted for a bound: a CIC lattice paint or readout does
 # 9 per (point, offset) (three weights 1 - |t| at 2 each, two products,
 # one accumulate); a rebase assign 6 per input slot-cell (a floor and a
@@ -395,7 +404,9 @@ def phase_device():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    log(CARD)
     log("phase 1 device: %s, torch %s, CUDA %s, %d device(s)"
         % (torch.cuda.get_device_name(0), torch.__version__,
            torch.version.cuda, torch.cuda.device_count()))
@@ -485,6 +496,82 @@ def phase_compare(dev):
     del meshes
     torch.cuda.empty_cache()
     return records
+
+
+def phase_compare_lattice_bf16(dev):
+    """the bf16 storage form of the lattice paint and readout (a bf16
+    state and meshes; f32 weights and sums, each output rounded once, as
+    the TPU kernels' _cdtype) at N^3: kernel vs plain by the bf16 storage
+    criterion, the twin being the f32 kernel and plain on the same values
+    upcast; then the form's run: one paint and one three-mesh readout of
+    a bf16 state, the counters zeroed just before and read just after,
+    the paint holding the mass to TOL_MASS.  A failed criterion goes to
+    DEFERRED.  Returns ({kernel: record}, launches)"""
+    from pmesh_tpu_torch.ops import gridpm as gp
+    from pmesh_tpu_torch.ops import gridpm_cuda
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    shape, bf = (N,) * 3, torch.bfloat16
+    lo, hi = BOUNDS
+    disp = tuple((lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                              device=dev)).to(bf)
+                 for _ in range(3))
+    meshes = tuple(torch.randn(shape, generator=gen, device=dev).to(bf)
+                   for _ in range(3))
+    vmin, vmax = gp.offset_range(lo, hi, 'cic')
+    nv = vmax - vmin + 1
+
+    def up(ts):
+        return tuple(t.float() for t in ts)
+
+    def paint(impl, d, m):
+        return (gp.paint_grid(d, bounds=BOUNDS, impl=impl),)
+
+    def readout(impl, d, m):
+        if impl == 'torch':
+            return gp.readout_grid(m, d, BOUNDS, impl='torch')
+        return gridpm_cuda.readout_lattice(m, d, vmin, vmax, 'cic')
+
+    records = {}
+    for kernel, fn, reads in (("paint_lattice_bf16", paint, (disp,)),
+                              ("readout_lattice_bf16", readout,
+                               (disp, meshes))):
+        got, plain = fn('cuda', disp, meshes), fn('torch', disp, meshes)
+        got32 = fn('cuda', up(disp), up(meshes))
+        plain32 = fn('torch', up(disp), up(meshes))
+        ok, text = bf16_storage_check(got, plain, got32, plain32)
+        err = max_rel(got, plain)[1]
+        del got32, plain32
+        ms = cuda_ms(lambda: fn('cuda', disp, meshes), 5)
+        plain_ms = cuda_ms(lambda: fn('torch', disp, meshes), 1)
+        rec = record(err, ms, plain_ms, nbytes(reads, got),
+                     CIC_OPS * nv ** 3 * N ** 3)
+        log("phase 3 compare: %-22s %d^3 bf16 %s %s  kernel %.3f ms  plain "
+            "%.3f ms, bound %.3f ms by %s"
+            % (kernel, N, text, "ok" if ok else "FAIL", ms, plain_ms,
+               rec["bound_ms"], rec["bound_by"]))
+        if not ok:
+            DEFERRED.append("%s (%d^3 bf16)" % (kernel, N))
+        records[kernel] = rec
+        del got, plain
+    gridpm_cuda.reset_launches()
+    rho = gp.paint_grid(disp, bounds=BOUNDS)
+    force = gridpm_cuda.readout_lattice(meshes, disp, vmin, vmax, 'cic')
+    torch.cuda.synchronize()
+    launches = dict(gridpm_cuda.LAUNCHES)
+    mass_err = abs(float(rho.double().sum()) - N ** 3) / N ** 3
+    finite = all(bool(torch.isfinite(f.float()).all()) for f in force)
+    ok = (mass_err <= TOL_MASS and finite and launches["paint_lattice_bf16"]
+          == 1 and launches["readout_lattice_bf16"] == 1)
+    log("phase 3 bf16 lattice run: one paint and one three-mesh readout of "
+        "a bf16 %d^3 state: mass error %.3e (tol %.0e), finite %s, launches "
+        "%s %s" % (N, mass_err, TOL_MASS, finite,
+                   json.dumps({k: v for k, v in launches.items() if v}),
+                   "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("the bf16 lattice run failed")
+    del disp, meshes, rho, force
+    torch.cuda.empty_cache()
+    return records, launches
 
 
 def run_path(pm, dlinear, steps, fft='xla'):
@@ -634,6 +721,49 @@ def library_inverse(rr, ii, n2, copies=1):
                                     norm='forward')
 
 
+def library_dual_x(rr, ii, k2=None):
+    """torch.fft's yardstick of a dual inverse x pass: the ifft along x
+    of two stacked copies of the spectrum, with 1/k^2 (DC zeroed) from
+    the three 1-d tables ``k2`` folded in beforehand when given"""
+    z = torch.complex(rr.float(), ii.float())
+    if k2 is not None:
+        kk = sum(torch.as_tensor(np.asarray(t, np.float32), device=z.device)
+                 .reshape([-1 if e == d else 1 for e in range(3)])
+                 for d, t in enumerate(k2))
+        z = z * torch.where(kk > 0, 1.0 / torch.where(kk > 0, kk, 1.0), 0.0)
+    z = torch.stack([z, z])
+    return lambda: torch.fft.ifft(z, dim=1)
+
+
+def tc_share(label, fma, ms):
+    """the tensor-core rate of a pass of the split-precision routine:
+    ``fma`` real multiply-adds of its block products, six bf16 products
+    each (2 FLOP apiece), over ``ms``, against the bf16 peak (the same
+    share as three TF32 products against 495 TFLOP/s)"""
+    rate = 6 * 2 * fma / (ms * 1e-3)
+    log("phase 3 tensor cores: %-40s %.3f G real FMA x 6 bf16 products in "
+        "%.3f ms: %.1f TFLOP/s, %.3f of %.0f TFLOP/s (%s)"
+        % (label, fma / 1e9, ms, rate / 1e12, rate / PEAK_BF16, PEAK_BF16 / 1e12,
+           CARD))
+    return rate / PEAK_BF16
+
+
+def zy_fma(n0, N1, N2):
+    """real FMA of the block products of zy_fwd_ct2: the z stage's
+    (2K x 2Mq) per row and chunk, the y CT's (2M x 2M) per column"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    Rz, K, Mq = fm._zct_factor(N2)
+    Ry, My = fm._ct_factor(N1)
+    return 4.0 * n0 * N1 * Rz * K * Mq + 4.0 * n0 * Ry * My * My * (N2 // 2)
+
+
+def x_fma(N0, ncols, sets=1):
+    """real FMA of the block products of an x CT pass of xct_multi"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    R, M = fm._ct_factor(N0)
+    return 4.0 * sets * R * M * M * ncols
+
+
 def fft_yardsticks(rho, kd, k2, label):
     """torch.fft's yardsticks of one spectral force's FFT work on the
     real mesh ``rho``: rfftn(x, norm='forward') for the forward rows,
@@ -704,6 +834,8 @@ def phase_compare_fft(dev):
                                                        impl=impl),
                       (rho, wz, wf), zy_ops(N, N, N),
                       lambda: torch.fft.rfftn(rho, dim=(1, 2)))
+    tc_share("zy_fwd_ct2 %d^3" % N, zy_fma(N, N, N),
+             cuda_ms(lambda: fm._zy_fwd_ct2_call(rho, N, Zm, wz, wf), 5))
     fft_yardsticks(rho, kd, pk2, "ct2")
     del rho
     zc = torch.complex(pr, pi)
@@ -712,12 +844,19 @@ def phase_compare_fft(dev):
                     pr, pi, wf, 1.0 / N ** 3, impl=impl),
                 (pr, pi, wf), fft_ops(N, N * Zm),
                 lambda: torch.fft.fft(zc, dim=0))
+    tc_share("xct_multi forward %d^3" % N, x_fma(N, N * Zm),
+             cuda_ms(lambda: fm._xct_call_multi(pr, pi, wf, 1.0 / N ** 3), 5))
     del pr, pi, zc
     sr, si, gr, gi = case("inverse dual (kx-folded), 1/k^2", "xct_multi",
                           lambda impl: fm._xct_call_multi(
                               r, i, wi, 1.0, inverse=True, wx2=wx_g, k2=k2m,
                               impl=impl),
-                          (r, i, wi, wx_g, k2m), 2 * fft_ops(N, N * Zm))
+                          (r, i, wi, wx_g, k2m), 2 * fft_ops(N, N * Zm),
+                          library_dual_x(r, i, k2m))
+    tc_share("xct_multi dual inverse %d^3 (sweeps included)" % N,
+             x_fma(N, N * Zm, 2),
+             cuda_ms(lambda: fm._xct_call_multi(r, i, wi, 1.0, inverse=True,
+                                                wx2=wx_g, k2=k2m), 5))
     del r, i
     plane = nq / N ** 3
     case("fx: plane", "zy_inv_ct2",
@@ -751,7 +890,10 @@ def phase_compare_fft(dev):
     pr, pi, nq = case("slab %s" % (MXU_SLAB,), "zy_fwd_ct2",
                       lambda impl: fm._zy_fwd_ct2_call(
                           x, n2, Zs, wzs, wys, impl=impl),
-                      (x, wzs, wys), zy_ops(*MXU_SLAB))
+                      (x, wzs, wys), zy_ops(*MXU_SLAB),
+                      lambda: torch.fft.rfftn(x, dim=(1, 2)))
+    tc_share("zy_fwd_ct2 slab %s" % (MXU_SLAB,), zy_fma(*MXU_SLAB),
+             cuda_ms(lambda: fm._zy_fwd_ct2_call(x, n2, Zs, wzs, wys), 5))
     case("slab, z-CT inverse, plane", "zy_inv_ct2",
          lambda impl: fm._zy_inv_ct2_call(pr, pi, wyis, AB_s, n2, plane=nq,
                                           impl=impl),
@@ -828,7 +970,8 @@ def phase_compare_dense(dev):
                               lambda impl: fm._x_dense_call(
                                   r, i, wx, 1.0, wx2=wx_g, k2=k2,
                                   impl=impl),
-                              (r, i, wx, wx_g, k2), 2 * ops_x)
+                              (r, i, wx, wx_g, k2), 2 * ops_x,
+                              library_dual_x(r, i, k2))
         del r, i
         case("fx tables", "zy_inv_half",
              lambda impl: fm._zy_inv_dense_call(gr, gi, wy, AB_p, impl=impl),
@@ -836,10 +979,10 @@ def phase_compare_dense(dev):
         case("fy tables", "zy_inv_half",
              lambda impl: fm._zy_inv_dense_call(sr, si, wy_g, AB_p,
                                                 impl=impl),
-             (sr, si, wy_g, AB_p), ops_zy)
+             (sr, si, wy_g, AB_p), ops_zy, library_inverse(sr, si, n2))
         case("fz tables", "zy_inv_half",
              lambda impl: fm._zy_inv_dense_call(sr, si, wy, AB_g, impl=impl),
-             (sr, si, wy, AB_g), ops_zy)
+             (sr, si, wy, AB_g), ops_zy, library_inverse(sr, si, n2))
         del sr, si, gr, gi
         torch.cuda.empty_cache()
     return records
@@ -949,7 +1092,8 @@ def phase_compare_ref(dev):
                               "x_dense (full spectrum)",
                               lambda impl: fm._x_dense_call(
                                   r, i, wxi, 1.0, wx2=wx_g, impl=impl),
-                              (r, i, wxi, wx_g), 2 * ops_x)
+                              (r, i, wxi, wx_g), 2 * ops_x,
+                              library_dual_x(r, i))
         del r, i
         zc = torch.complex(gr, gi)
         case("fx tables", "zy_inv_full",
@@ -1000,7 +1144,8 @@ def phase_compare_ref(dev):
                               lambda impl: fm._xct_call_multi(
                                   r, i, wxi, 1.0, inverse=True, wx2=wx_g,
                                   impl=impl),
-                              (r, i, wxi, wx_g), 2 * ops_x)
+                              (r, i, wxi, wx_g), 2 * ops_x,
+                              library_dual_x(r, i))
         del r, i
         case("fx tables", "zy_inv_half_ct",
              lambda impl: ref._zy_inv_half_ct_call(gr, gi, wyi, AB_p, n2,
@@ -1116,7 +1261,7 @@ def phase_compare_bf16(dev):
                                                    fm._xct_call_multi, r, i,
                                                    wi, 1.0, **inv),
                               (r, i, wi, wx_g, k2m), 2 * fft_ops(N, N * Zm),
-                              None, st)
+                              library_dual_x(r, i, k2m), st)
         del r, i
         plane = nq / N ** 3
         case("fx: plane", "zy_inv_ct2" + form,
@@ -1196,7 +1341,8 @@ def phase_compare_bf16(dev):
                               lambda impl, b: fm._x_dense_call(
                                   r, i, wx, 1.0, wx2=wxg, k2=k2, impl=impl,
                                   **prec(b)),
-                              (r, i, wx, wxg, k2), 2 * ops_x)
+                              (r, i, wx, wxg, k2), 2 * ops_x,
+                              library_dual_x(r, i, k2))
         del r, i
         case("%s fx tables" % (shape,), "zy_inv_half_bf16",
              lambda impl, b: fm._zy_inv_dense_call(gr, gi, wy, AB_p,
@@ -1239,7 +1385,8 @@ def phase_compare_bf16(dev):
                               lambda impl, b: fm._x_dense_call(
                                   r, i, wxi, 1.0, wx2=wxg, impl=impl,
                                   **prec(b)),
-                              (r, i, wxi, wxg), 2 * ops_x)
+                              (r, i, wxi, wxg), 2 * ops_x,
+                              library_dual_x(r, i))
         del r, i
         zc = torch.complex(gr, gi)
         case("%s fx tables" % (shape,), "zy_inv_full_bf16",
@@ -1286,7 +1433,8 @@ def phase_compare_bf16(dev):
                               lambda impl, b: fm._xct_call_multi(
                                   r, i, wxi, 1.0, inverse=True, wx2=wxg,
                                   impl=impl, **prec(b)),
-                              (r, i, wxi, wxg), 2 * ops_x)
+                              (r, i, wxi, wxg), 2 * ops_x,
+                              library_dual_x(r, i))
         del r, i
         case("%s fx tables" % (shape,), "zy_inv_half_ct_bf16",
              lambda impl, b: ref._zy_inv_half_ct_call(
@@ -2545,7 +2693,8 @@ def phase_compare_slab(dev):
     case("row 9 y-chunk inverse dual, 1/k^2 of chunk 0", "x_dense (row 9)",
          lambda impl: fm._x_dense_call(cr, ci, wx, 1.0, wx2=wx_g, k2=k2,
                                        impl=impl),
-         (cr, ci, wx, wx_g, k2), 2 * fft_ops(NC, n1 * Zh))
+         (cr, ci, wx, wx_g, k2), 2 * fft_ops(NC, n1 * Zh),
+         library_dual_x(cr, ci, k2))
     del zc
     case("row 9 slab (%d, %d, %d) inverse" % (n0, NC, Zh),
          "zy_inv_half (row 9)",
@@ -3060,6 +3209,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     records = phase_compare(dev)
+    lattice_bf16, lattice_bf16_launches = phase_compare_lattice_bf16(dev)
+    records.update(lattice_bf16)
     records.update(phase_compare_rebase(dev))
     records.update(phase_compare_fft(dev))
     records.update(phase_compare_dense(dev))
@@ -3096,6 +3247,8 @@ def main():
     # bf16 forms on the mxu_bf16 and mxu_bf16s lattice runs, the
     # clustered bf16 force and the bf16 row-13 path
     runs = dict.fromkeys(("paint_lattice", "readout_lattice"), launches)
+    runs.update(dict.fromkeys(("paint_lattice_bf16", "readout_lattice_bf16"),
+                              lattice_bf16_launches))
     runs.update(dict.fromkeys(MXU_PER_FORCE, mxu_launches))
     runs.update(dict.fromkeys(("rebase_assign", "rebase_apply")
                               + tuple(DENSE_PER_FORCE), binned_launches))

@@ -66,23 +66,60 @@
 // They compute what those kernels compute, in the same stored order (see
 // pmesh_tpu_torch/ops/fft_mxu.py), not how.  The TPU kernels hold whole
 // x-planes (or (N0, 8, W) column blocks) in VMEM and run every product on
-// the MXU; here each pass is a short sequence of launches of ONE
-// shared-memory-tiled complex product routine (cgemm below) with the
-// butterflies, scales and filters fused into its operand loads and its
-// stores, plus an in-place butterfly sweep after each inverse product.
+// the MXU; here each pass is a short sequence of launches of a
+// shared-memory-tiled product routine with the butterflies, scales and
+// filters fused into its operand path and its stores, plus an in-place
+// butterfly sweep after each inverse product.
 //
-// What bounds them on this card: FP32 FMA throughput.  The transforms
-// are products with small dense matrices (M x M per CT chunk, K x Mq per
-// z chunk, Zm x n2 for the dense z inverse): one spectral force at 512^3
-// is about 0.47 T FMA, 0.95 TFLOP (forward zy 60 G FMA, forward x 34 G,
-// dual inverse x 69 G, three zy inverses of 103 G each), at least 14 ms
-// at the card's 67 TFLOP/s, while a pass moves only ~1-1.5 GB (< 0.5 ms).
-// The dense pipeline is the same arithmetic with R = 1: at 384^3 one
-// spectral force is ~0.39 T FMA (forward 109 G, force triple 284 G),
-// at least 11.7 ms at the FP32 rate.  It adds no instantiation of the
-// product routine; ragged widths (Zh = 193 at 384^3, odd x, y or z
-// lengths) are covered by cgemm's guarded scalar global loads and stores.
-// The design therefore spends its effort on the FMA loop:
+// The forward ct2 passes, pmesh_zy_fwd_ct2 (replacing _zy_fwd_ct2_call /
+// _zy_forward_real_h_ct2) and pmesh_xct_multi (replacing _xct_call_multi
+// / _x_transform_ct_multi and _xct_call), run their f32 products on the
+// split-precision tensor-core routine (tc_ct, tc_z; see its section).
+// What bounds them: the tensor cores at six bf16 products per real
+// product against the bytes.  At 512^3 the forward zy pass is 60 G real
+// FMA, the forward x pass 34 G, the dual inverse x pass 69 G: at 989
+// TFLOP/s bf16 and 6 products per FMA, at least 0.73, 0.42 and 0.84 ms,
+// against 0.32, 0.32 and 0.48 ms of compulsory bytes at 3.35 TB/s.  The
+// design:
+//  - one real GEMM per chunk on the host-laid-out block table, both
+//    operands split into three bf16 parts, the data operand by the
+//    threads; six products per real product on mma.sync.m16n8k16 (wgmma
+//    needs swizzled descriptors that could not be checked without the
+//    card: a later redesign), fragments by ldmatrix;
+//  - each 16-deep step sums into a fresh partial that the CUDA cores add
+//    to the accumulator, and a forward pass takes each data vector's
+//    first element out before the products and adds it back through the
+//    table's row or column sums in the epilogue: the tensor cores
+//    truncate their sums, which is biased, and a large common value (the
+//    mean density in the DC column) made that bias visible at 8e-5 of
+//    max|imag|;
+//  - the operands through cp.async: the table tile into a ring of three
+//    slots, the RAW input rows into a ring of two, 16-byte pieces where
+//    rows are aligned (every ct2 shape of the main path), zero-filled
+//    tiles at a ragged edge (row 13's W = 257), guarded scalar copies
+//    where a row is not 16-byte aligned;
+//  - the R-way forward butterfly, the 1/k^2 fold and the split computed
+//    from shared memory into one of two operand buffers while the
+//    tensor cores run the previous slice's products; one barrier per
+//    slice.  The inverse butterfly stays a sweep of its own.
+// ptxas (-O3, sm_90a, on the card): tc_ct 225-255 registers (the R = 8
+// forward at 255 with 4 bytes of spill, the others none), tc_z 172;
+// 1024-1088 bytes of static shared memory beside the dynamic ring (the
+// R = 4 forward 157,696 bytes, R = 8 223,232, the inverse 108,544, tc_z
+// 133,120 at Rz = 4): one block of 8 warps per SM.
+//
+// Every other pass (zy_inv_ct2 and its dual, the dense and row-13
+// passes) runs on cgemm, and so do the bf16 products of every pass.  What
+// bounds them on this card: FP32 FMA throughput.  The transforms are
+// products with small dense matrices (M x M per CT chunk, Zm x n2 for the
+// dense z inverse): the three zy inverses of a spectral force at 512^3
+// are 103 G FMA each, at least 4.6 ms each at the card's 67 TFLOP/s,
+// while a pass moves only ~1-1.5 GB (< 0.5 ms).  The dense pipeline is
+// the same arithmetic with R = 1: at 384^3 one spectral force is ~0.39 T
+// FMA (forward 109 G, force triple 284 G), at least 11.7 ms at the FP32
+// rate; ragged widths (Zh = 193 at 384^3, odd x, y or z lengths) are
+// covered by cgemm's guarded scalar global loads and stores.  cgemm
+// spends its effort on the FMA loop:
 //  - a 64 x 64 complex output tile per 256-thread block, 4 x 4 complex
 //    accumulators per thread, operands staged through shared memory in
 //    16-deep slices and read back as float4, so each thread does 64 FMA
@@ -91,13 +128,12 @@
 //    output of the z inverse) run the 2-FMA form instead of 4;
 //  - the dual variants keep two accumulator sets against one staged
 //    input tile, so the input is read once for both table sets;
-//  - the forward butterfly (R-way sum of input rows) is evaluated while
-//    the input tile is loaded; the inverse butterfly runs as an in-place
-//    sweep over the product's output, one thread per (row, column)
-//    group; blocks that share an input tile are adjacent in launch order
-//    so that its R-fold re-reads come from L2.
-// No TF32 and no tensor cores in this form: f32 products and f32
-// accumulation, the f32-exact 'mxu' mode.
+//  - the inverse butterfly runs as an in-place sweep over the product's
+//    output, one thread per (row, column) group; blocks that share an
+//    input tile are adjacent in launch order so that its R-fold re-reads
+//    come from L2.
+// No tensor cores in this form: f32 products and f32 accumulation, the
+// f32-exact 'mxu' mode.
 //
 // The bf16 forms, set per call by two flags of every entry point:
 //
@@ -122,8 +158,9 @@
 //    cgemm, through the functors) and the single-stage staging bound it;
 //    wgmma, TMA and a ring of stages are a later redesign.
 //  - bf16s (fft='mxu_bf16s', the ct2 entry points' spectrum_dtype): the
-//    spectra between the passes are stored in bf16: CtOp's loads upcast
-//    them and its stores round once.  The products stay the f32 cgemm.
+//    spectra between the passes are stored in bf16: the loads upcast
+//    them and the stores round once.  The products stay f32 (tc_ct and
+//    tc_z for the forward passes, cgemm for the zy inverses).
 //    The inverse x pass writes its products to f32 scratch that the
 //    wrapper passes, and its butterfly sweep rounds once at the store of
 //    the bf16 output, as JAX rounds once at the kernel's output store.
@@ -475,6 +512,591 @@ __global__ void __launch_bounds__(NT) cgemm_bf16(const Op op, const Dims g) {
             op.st2(o, j, m, n, c2r[mt][nt][q], c2i[mt][nt][q]);
         }
       }
+}
+
+// --- the split-precision tensor-core products (tc_ct, tc_z) --------------
+//
+// The f32 products of pmesh_zy_fwd_ct2 and pmesh_xct_multi.  Each is ONE
+// real GEMM: the complex table enters as the real block table
+// [[Wr, -Wi], [Wi, Wr]] (two sets stacked for the dual), which the host
+// lays out tile by tile and splits once into three bf16 parts, a = a1 +
+// a2 + a3 (a1 = bf16(a), a2 = bf16(a - a1), a3 = bf16(a - a1 - a2): 24
+// bits, f32's); the threads split the data operand the same way after
+// the butterfly, the 1/k^2 fold and the scale.  A real product keeps the
+// six terms down to 2^-16 of the leading one (a1b1; a1b2, a2b1; a1b3,
+// a3b1, a2b2), each on mma.sync.m16n8k16.bf16 with f32 accumulators:
+// bf16 products are exact in f32, and the dropped terms are below f32's
+// rounding.  (Three TF32 terms keep each operand to 2^-22 only; a pass
+// whose output sums large, nearly cancelling terms, as the imaginary
+// part of a spectrum with a large mean does, then misses f32 by 10x.)
+//
+// A block computes a 128 x 128 output tile with 8 warps (2 x 4, 64 x 32
+// each).  A table tile is 64 modes: its rows (tc_ct) or columns (tc_z)
+// [0, 64) are the real parts and [64, 128) the imaginary parts.  Both
+// operands sit in shared memory k-contiguous ([row][k], [col][k]) and
+// reach the fragments through ldmatrix.  A slice of the contraction is
+// 16 real columns, i.e. 8 complex data rows.  The operands arrive through
+// cp.async (16-byte pieces, zero-filled past a ragged edge): the table
+// tile of a slice into a ring of three slots, the RAW input rows it needs
+// into a ring of two.  Iteration s waits for slice s + 1, issues the
+// copies of slice s + 2, forms the data operand of slice s + 1 from its
+// raw rows (the R-way butterfly, the fold, the split) into one of two
+// operand buffers and multiplies slice s from the other: one barrier per
+// slice, and one warp's conversion overlaps another's products.
+
+constexpr int TC_NT = 256;      // threads: 8 warps, 2 x 4 over the tile
+constexpr int TC_ROWS = 128;    // rows of a block's output tile
+constexpr int TC_COLS = 128;    // columns of a block's output tile
+constexpr int TC_MODES = 64;    // complex modes per table tile
+constexpr int TC_BK = 16;       // real contraction columns per slice
+constexpr int TC_DR = TC_BK / 2;  // complex data rows per slice
+constexpr int TC_PK = TC_BK + 8;  // k pitch (bf16) of an operand row:
+                                  // 48 bytes, ldmatrix conflict-free
+constexpr int TC_OPND = 3 * TC_ROWS * TC_PK * 2;  // bytes of a split tile
+constexpr int TC_SMEM_MAX = 232448 - 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when src_bytes
+// is 0 (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8 x 8 b16 matrices, lanes 8q .. 8q + 7 giving the row addresses
+// of matrix q: r[q] holds row lane / 4, elements 2 (lane % 4) and + 1
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+// v = p1 + p2 + p3 in bf16 parts, each rounded to nearest even from the
+// remainder (each remainder exact in f32): 24 bits of v, f32's
+__device__ __forceinline__ void split3(float v, bf16_t* p) {
+  p[0] = __float2bfloat16_rn(v);
+  const float r1 = v - __bfloat162float(p[0]);
+  p[1] = __float2bfloat16_rn(r1);
+  p[2] = __float2bfloat16_rn(r1 - __bfloat162float(p[1]));
+}
+
+// the three parts of 4 values (consecutive k) into the rows of parts
+// 0, 1, 2 at dst, dst + stride, dst + 2 stride: one 8-byte store each
+__device__ __forceinline__ void st_split3(bf16_t* dst, int stride,
+                                          const float* v) {
+  bf16_t p[4][3];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) split3(v[q], p[q]);
+#pragma unroll
+  for (int h = 0; h < 3; ++h) {
+    __nv_bfloat162 lo, hi;
+    lo.x = p[0][h];
+    lo.y = p[1][h];
+    hi.x = p[2][h];
+    hi.y = p[3][h];
+    uint2 w;
+    w.x = *reinterpret_cast<uint32_t*>(&lo);
+    w.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(dst + h * stride) = w;
+  }
+}
+
+// two adjacent outputs (a, a + 1): one 8- or 4-byte store when both are
+// in range and a is even
+__device__ __forceinline__ void st_pair(float* p, long long a, float v0,
+                                        float v1, bool in0, bool in1) {
+  if (in1 && (a & 1) == 0) {
+    *reinterpret_cast<float2*>(p + a) = make_float2(v0, v1);
+    return;
+  }
+  if (in0) p[a] = v0;
+  if (in1) p[a + 1] = v1;
+}
+__device__ __forceinline__ void st_pair(bf16_t* p, long long a, float v0,
+                                        float v1, bool in0, bool in1) {
+  if (in1 && (a & 1) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(p + a) = __floats2bfloat162_rn(v0, v1);
+    return;
+  }
+  if (in0) p[a] = __float2bfloat16_rn(v0);
+  if (in1) p[a + 1] = __float2bfloat16_rn(v1);
+}
+
+// the accumulator of a warp's 64 x 32 corner
+typedef float TcAcc[4][4][4];
+
+__device__ __forceinline__ void zero_acc(TcAcc& a) {
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) a[mt][nt][q] = 0.f;
+}
+
+// acc += A (TC_ROWS x 16) B (16 x TC_COLS) for one slice: A split in
+// [part][row][k], B in [part][col][k] (pitch TC_PK).  For each pair of
+// 16-row tiles the six products sum into a fresh partial, smallest terms
+// first, over all 4 column tiles, and the partial is added to acc on the
+// CUDA cores: the tensor cores align a sum to its largest term and
+// truncate it, so a running sum much larger than the new products would
+// drop their low bits.  mid() runs while the first pair's products are
+// in flight (the next slice's conversion: CUDA-core work that overlaps
+// the tensor cores').
+template <class Mid>
+__device__ __forceinline__ void tc_mma_slice(TcAcc& acc, const bf16_t* A,
+                                             const bf16_t* B, int wm, int wn,
+                                             int lane, const Mid& mid) {
+  constexpr int PART = TC_ROWS * TC_PK;
+  uint32_t b[3][4][2];
+#pragma unroll
+  for (int h = 0; h < 3; ++h)
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t r[4];
+      ldsm_x4(r, B + h * PART +
+                     (wn + np * 16 + lane % 8 + (lane / 16) * 8) * TC_PK +
+                     ((lane / 8) % 2) * 8);
+      b[h][2 * np][0] = r[0];
+      b[h][2 * np][1] = r[1];
+      b[h][2 * np + 1][0] = r[2];
+      b[h][2 * np + 1][1] = r[3];
+    }
+  // (A part, B part) of the six terms, smallest first
+  constexpr int PA_[6] = {1, 2, 0, 1, 0, 0}, PB_[6] = {1, 0, 2, 0, 1, 0};
+#pragma unroll
+  for (int mp = 0; mp < 2; ++mp) {
+    uint32_t a[3][2][4];
+#pragma unroll
+    for (int h = 0; h < 3; ++h)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldsm_x4(a[h][i], A + h * PART +
+                             (wm + (2 * mp + i) * 16 + lane % 16) * TC_PK +
+                             (lane / 16) * 8);
+    float part[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part[i][nt][q] = 0.f;
+#pragma unroll
+    for (int t = 0; t < 6; ++t)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_bf16(part[i][nt], a[PA_[t]][i], b[PB_[t]][nt]);
+    if (mp == 0) mid();
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[2 * mp + i][nt][q] += part[i][nt][q];
+  }
+}
+
+// The slice loop shared by tc_ct and tc_z: table tiles in a ring of 3
+// slots (slice s in slot s % 3), raw rows in a ring of 2 and data
+// operands in 2 buffers (slice s in s % 2).  Iteration s waits for slice
+// s + 1's copies, issues slice s + 2's and multiplies slice s, converting
+// slice s + 1 while the products run.
+template <class Load, class Convert, class Mma>
+__device__ __forceinline__ void tc_pipeline(int nks, const Load& load,
+                                            const Convert& convert,
+                                            const Mma& mma) {
+  load(0);
+  cp_async_commit();
+  if (nks > 1) load(1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  convert(0);
+  for (int s = 0; s < nks; ++s) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (s + 2 < nks) load(s + 2);
+    cp_async_commit();
+    mma(s, [&] {
+      if (s + 1 < nks) convert(s + 1);
+    });
+  }
+}
+
+// the table tile of slice s: (3, 128, 16) bf16 from ts, contiguous, into
+// rows of pitch TC_PK
+__device__ __forceinline__ void load_table(bf16_t* dst, const bf16_t* ts,
+                                           int tid) {
+#pragma unroll
+  for (int e = tid; e < 3 * TC_ROWS * 2; e += TC_NT)
+    cp_async16(dst + (e / 2) * TC_PK + (e % 2) * 8, ts + e * 8, 16);
+}
+
+// The x / y CT (data = B).  Forward: out[o, j*M + q, n] = scale *
+// sum_m W_j[q, m] u_j[m, n], u_j[m, n] = sum_r bt[r][j] fold(x[o, r*M + m,
+// n]); inverse: y_j[m, n] = sum_q W_j[m, q] fold(x[o, j*M + q, n]) at
+// out[o, j*M + m, n] (the butterfly sweep follows).  Block tile: table
+// tile t (64 modes of set 1 for t < T1, else of set 2) x 128 columns.
+template <class TI, class TO>
+struct TcCt {
+  const TI *xr, *xi;
+  const bf16_t* tab;  // (R, T, nks, 3, TC_ROWS, TC_BK)
+  const float* rsum;  // (nsets, R, M, 2): sum_m W_j[q, m] of each set
+  TO *o1r, *o1i, *o2r, *o2i;
+  const float *k2x, *k2y, *k2z;
+  long long ostride;
+  int M, R, ncols, W, T, T1, nks, aligned;
+  float scale;
+  Butter bt;
+};
+
+// shared bytes of tc_ct: the table ring, the raw ring, the operands
+template <class TI>
+__host__ __device__ constexpr long long tc_ct_raw(int Rr) {
+  return (long long)Rr * TC_DR * 2 * TC_COLS * (long long)sizeof(TI);
+}
+template <class TI>
+__host__ __device__ constexpr long long tc_ct_smem(int Rr) {
+  return 3LL * TC_OPND + 2 * tc_ct_raw<TI>(Rr) + 2LL * TC_OPND;
+}
+
+// RR: the R of a forward pass (R raw rows per data row, summed by the
+// butterfly), or 0 for an inverse (one raw row, row j*M + m)
+template <class TI, class TO, int RR>
+__global__ void __launch_bounds__(TC_NT) tc_ct(const TcCt<TI, TO> p) {
+  constexpr bool INV = RR == 0;
+  constexpr int Rr = INV ? 1 : RR;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __shared__ float coef_r[kMaxR], coef_i[kMaxR];
+  constexpr int EP = 16 / (int)sizeof(TI);   // elements per 16-byte piece
+  constexpr int PCS = TC_COLS / EP;          // pieces per raw row
+  constexpr int RSTEP = TC_NT / (2 * PCS);   // raw rows a pass of threads covers
+  constexpr long long raw_b = tc_ct_raw<TI>(Rr);
+  bf16_t* tabs = reinterpret_cast<bf16_t*>(tc_smem);
+  unsigned char* raws = tc_smem + 3 * TC_OPND;
+  bf16_t* ops = reinterpret_cast<bf16_t*>(raws + 2 * raw_b);
+
+  long long b = blockIdx.x;
+  const int t = (int)(b % p.T);
+  b /= p.T;
+  const int j = (int)(b % p.R);
+  b /= p.R;
+  const long long tiles_n = (p.ncols + TC_COLS - 1) / TC_COLS;
+  const long long n0 = (b % tiles_n) * TC_COLS, o = b / tiles_n;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  if (tid < p.R) {
+    coef_r[tid] = p.bt.r[tid][j];
+    coef_i[tid] = p.bt.i[tid][j];
+  }
+  const bf16_t* tsrc =
+      p.tab + (long long)(j * p.T + t) * p.nks * (3 * TC_ROWS * TC_BK);
+  const long long obase = o * p.ostride;
+
+  // this thread's raw pieces: column piece pc of part (re, im) of the raw
+  // rows rr0, rr0 + RSTEP, ...
+  const int pc = tid % PCS, part = (tid / PCS) % 2, rr0 = tid / (2 * PCS);
+  const bool pin = n0 + pc * EP < p.ncols;
+  const TI* psrc = (part ? p.xi : p.xr) + obase + n0 + pc * EP;
+  auto load = [&](int s) {
+    load_table(tabs + (s % 3) * (TC_OPND / 2),
+               tsrc + (long long)s * (3 * TC_ROWS * TC_BK), tid);
+    TI* raw = reinterpret_cast<TI*>(raws + (s % 2) * raw_b);
+#pragma unroll
+    for (int i = 0; i < Rr * TC_DR / RSTEP; ++i) {
+      const int rr = rr0 + i * RSTEP;
+      const long long row = (long long)(INV ? j : rr / TC_DR) * p.M +
+                            s * TC_DR + rr % TC_DR;
+      const TI* src = psrc + row * p.ncols;
+      TI* dst = raw + (rr * 2 + part) * TC_COLS + pc * EP;
+      if (p.aligned) {
+        cp_async16(dst, pin ? src : p.xr, pin ? 16 : 0);
+      } else {
+        for (int q = 0; q < EP; ++q)
+          stv(dst, q, n0 + pc * EP + q < p.ncols ? ldv(src, q) : 0.f);
+      }
+    }
+  };
+
+  // the data operand of slice s: thread (column c, data rows m4 .. m4 + 4)
+  const int c = tid % TC_COLS, m4 = (tid / TC_COLS) * 4;
+  const long long nc = n0 + c;
+  const bool fold = p.k2x != nullptr;
+  const float ky = fold && nc < p.ncols ? p.k2y[nc / p.W] : 0.f;
+  const float kz = fold && nc < p.ncols ? p.k2z[nc % p.W] : 0.f;
+  // u_j at data rows m4 + q (q < NQ) of slice s in this thread's column
+  auto data = [&](const TI* raw, int s, int m4, auto nq, float* ur,
+                  float* ui) {
+    constexpr int NQ = decltype(nq)::value;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) ur[q] = ui[q] = 0.f;
+#pragma unroll
+    for (int r = 0; r < Rr; ++r) {
+      const float cr = coef_r[r], ci = coef_i[r];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const int mm = m4 + q;
+        const int a = ((r * TC_DR + mm) * 2) * TC_COLS + c;
+        float vr = ldv(raw, a), vi = ldv(raw, a + TC_COLS);
+        if (fold) {
+          const long long row =
+              (long long)(INV ? j : r) * p.M + s * TC_DR + mm;
+          const float k2 = p.k2x[row] + ky + kz;
+          const float f = k2 > 0.f ? 1.f / k2 : 0.f;
+          vr *= f;
+          vi *= f;
+        }
+        if constexpr (INV) {
+          ur[q] = vr;
+          ui[q] = vi;
+        } else {
+          ur[q] = fmaf(cr, vr, fmaf(-ci, vi, ur[q]));
+          ui[q] = fmaf(cr, vi, fmaf(ci, vr, ui[q]));
+        }
+      }
+    }
+  };
+  // forward: the column's u_j at data row 0, taken out of every row
+  // before the products (W (u - c) + c sum_m W) and added back in the
+  // epilogue.  A column with a large mean (the DC column of a density)
+  // otherwise sums large, nearly cancelling products, whose truncation
+  // in the tensor cores is biased.  (An inverse pass reads a filtered
+  // spectrum, whose first row is no common offset.)
+  __shared__ float col0[2][TC_COLS];
+  float c0r = 0.f, c0i = 0.f;
+  auto convert = [&](int s) {
+    const TI* raw = reinterpret_cast<const TI*>(raws + (s % 2) * raw_b);
+    if (s == 0 && !INV) {
+      data(raw, 0, 0, std::integral_constant<int, 1>(), &c0r, &c0i);
+      if (m4 == 0) {
+        col0[0][c] = c0r;
+        col0[1][c] = c0i;
+      }
+    }
+    float ur[4], ui[4];
+    data(raw, s, m4, std::integral_constant<int, 4>(), ur, ui);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      ur[q] -= c0r;
+      ui[q] -= c0i;
+    }
+    bf16_t* op = ops + (s % 2) * (TC_OPND / 2) + c * TC_PK;
+    st_split3(op + m4, TC_ROWS * TC_PK, ur);
+    st_split3(op + TC_DR + m4, TC_ROWS * TC_PK, ui);
+  };
+
+  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
+  TcAcc acc;
+  zero_acc(acc);
+  auto mma = [&](int s, const auto& mid) {
+    tc_mma_slice(acc, tabs + (s % 3) * (TC_OPND / 2),
+                 ops + (s % 2) * (TC_OPND / 2), wm, wn, lane, mid);
+  };
+  tc_pipeline(p.nks, load, convert, mma);
+
+  // rows [0, 64) of the tile are real parts (warps of wm = 0), the rest
+  // imaginary; each output gets back c sum_m W[q, m]
+  const bool set2 = t >= p.T1;
+  const int tt = set2 ? t - p.T1 : t, gid = lane / 4, tig = lane % 4;
+  TO* out = wm == 0 ? (set2 ? p.o2r : p.o1r) : (set2 ? p.o2i : p.o1i);
+  const float* rs = p.rsum + ((long long)(set2 ? p.R : 0) + j) * p.M * 2;
+  if (INV && tid < TC_COLS) col0[0][tid] = col0[1][tid] = 0.f;
+  __syncthreads();
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = tt * TC_MODES + mt * 16 + gid + h * 8;
+      const float sr = rs[2 * q], si = rs[2 * q + 1];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int lc = wn + nt * 8 + 2 * tig;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float cr = col0[0][lc + e], ci = col0[1][lc + e];
+          const float back = wm == 0 ? fmaf(cr, sr, -ci * si)
+                                     : fmaf(cr, si, ci * sr);
+          v[e] = (acc[mt][nt][2 * h + e] + back) * p.scale;
+        }
+        const long long n = n0 + lc;
+        st_pair(out, obase + ((long long)j * p.M + q) * p.ncols + n, v[0],
+                v[1], n < p.ncols, n + 1 < p.ncols);
+      }
+    }
+}
+
+// The z forward (data = A): chunk p of (rows, N2) real x, u[m, k] =
+// sum_r c[r][p] x[m, r*K + k] (Rz = 1, c = 1: the dense half-DFT), times
+// the chunk's (K x nmodes) complex table into columns [p*nmodes,
+// (p+1)*nmodes) of the (rows, Zm) outputs.  Block tile: 128 rows x table
+// tile t (64 modes).
+struct TcZ {
+  const float* x;
+  const bf16_t* tab;  // (Rz, T, nks, 3, TC_COLS, TC_BK)
+  const float* csum;  // (Rz, nmodes, 2): sum_k E_p[k, mode]
+  float *sr, *si;
+  long long rows;
+  int N2, Rz, K, nmodes, Zm, T, nks, aligned;
+  Butter c;
+};
+
+__host__ __device__ constexpr long long tc_z_raw(int Rz) {
+  return (long long)TC_ROWS * (Rz * TC_DR + 8) * 4;
+}
+__host__ __device__ constexpr long long tc_z_smem(int Rz) {
+  return 3LL * TC_OPND + 2 * tc_z_raw(Rz) + 2LL * TC_OPND;
+}
+
+__global__ void __launch_bounds__(TC_NT) tc_z(const TcZ p) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __shared__ float coef_r[kMaxR], coef_i[kMaxR];
+  const int RP = p.Rz * TC_DR + 8;  // raw row pitch (floats)
+  const long long raw_b = tc_z_raw(p.Rz);
+  bf16_t* tabs = reinterpret_cast<bf16_t*>(tc_smem);
+  unsigned char* raws = tc_smem + 3 * TC_OPND;
+  bf16_t* ops = reinterpret_cast<bf16_t*>(raws + 2 * raw_b);
+
+  long long b = blockIdx.x;
+  const int t = (int)(b % p.T);
+  b /= p.T;
+  const int pc = (int)(b % p.Rz);
+  const long long m0 = (b / p.Rz) * TC_ROWS;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  if (tid < p.Rz) {
+    coef_r[tid] = p.c.r[tid][pc];
+    coef_i[tid] = p.c.i[tid][pc];
+  }
+  const bf16_t* tsrc =
+      p.tab + (long long)(pc * p.T + t) * p.nks * (3 * TC_COLS * TC_BK);
+
+  auto load = [&](int s) {
+    load_table(tabs + (s % 3) * (TC_OPND / 2),
+               tsrc + (long long)s * (3 * TC_COLS * TC_BK), tid);
+    float* raw = reinterpret_cast<float*>(raws + (s % 2) * raw_b);
+    const int per = p.Rz * (TC_DR / 4);  // 16-byte pieces per raw row
+    for (int e = tid; e < TC_ROWS * per; e += TC_NT) {
+      const int mr = e / per, r = (e % per) / (TC_DR / 4), k4 = e % (TC_DR / 4);
+      const long long m = m0 + mr;
+      const int k = s * TC_DR + k4 * 4;
+      const float* src = p.x + m * p.N2 + (long long)r * p.K + k;
+      float* dst = raw + mr * RP + r * TC_DR + k4 * 4;
+      if (p.aligned) {
+        const bool in = m < p.rows && k < p.K;
+        cp_async16(dst, in ? src : p.x, in ? 16 : 0);
+      } else {
+        for (int q = 0; q < 4; ++q)
+          dst[q] = (m < p.rows && k + q < p.K) ? src[q] : 0.f;
+      }
+    }
+  };
+
+  // the data operand of slice s: thread (row mr, k0 .. k0 + 4); the
+  // row's u at k = 0 is taken out of every k and added back in the
+  // epilogue, as in tc_ct
+  const int mr = tid / 2, k0 = (tid % 2) * 4;
+  __shared__ float row0[2][TC_ROWS];
+  float c0r = 0.f, c0i = 0.f;
+  auto convert = [&](int s) {
+    const float* raw = reinterpret_cast<const float*>(raws + (s % 2) * raw_b);
+    float ur[4] = {0.f, 0.f, 0.f, 0.f}, ui[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < kMaxR; ++r) {
+      if (r >= p.Rz) break;
+      const float4 v = *reinterpret_cast<const float4*>(raw + mr * RP +
+                                                        r * TC_DR + k0);
+      const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        ur[q] = fmaf(coef_r[r], vv[q], ur[q]);
+        ui[q] = fmaf(coef_i[r], vv[q], ui[q]);
+      }
+    }
+    if (s == 0) {
+      if (k0 == 0) {
+        c0r = ur[0];
+        c0i = ui[0];
+        row0[0][mr] = c0r;
+        row0[1][mr] = c0i;
+      } else {
+#pragma unroll
+        for (int r = 0; r < kMaxR; ++r) {
+          if (r >= p.Rz) break;
+          const float v = raw[mr * RP + r * TC_DR];
+          c0r = fmaf(coef_r[r], v, c0r);
+          c0i = fmaf(coef_i[r], v, c0i);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      ur[q] -= c0r;
+      ui[q] -= c0i;
+    }
+    bf16_t* op = ops + (s % 2) * (TC_OPND / 2) + mr * TC_PK;
+    st_split3(op + k0, TC_ROWS * TC_PK, ur);
+    st_split3(op + TC_DR + k0, TC_ROWS * TC_PK, ui);
+  };
+
+  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
+  TcAcc acc;
+  zero_acc(acc);
+  auto mma = [&](int s, const auto& mid) {
+    tc_mma_slice(acc, ops + (s % 2) * (TC_OPND / 2),
+                 tabs + (s % 3) * (TC_OPND / 2), wm, wn, lane, mid);
+  };
+  tc_pipeline(p.nks, load, convert, mma);
+
+  // columns [0, 64) of the tile are real parts (warps of wn < 64); each
+  // output gets back c sum_k E[k, mode]
+  const int gid = lane / 4, tig = lane % 4;
+  const bool re = wn < TC_MODES;
+  float* out = re ? p.sr : p.si;
+  const float* cs = p.csum + (long long)pc * p.nmodes * 2;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int mode = t * TC_MODES + (wn % TC_MODES) + nt * 8 + 2 * tig;
+    float sr[2], si[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool in = mode + e < p.nmodes;
+      sr[e] = in ? cs[2 * (mode + e)] : 0.f;
+      si[e] = in ? cs[2 * (mode + e) + 1] : 0.f;
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int lr = wm + mt * 16 + gid + h * 8;
+        const long long m = m0 + lr;
+        const float cr = row0[0][lr], ci = row0[1][lr];
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          v[e] = acc[mt][nt][2 * h + e] +
+                 (re ? fmaf(cr, sr[e], -ci * si[e])
+                                               : fmaf(cr, si[e], ci * sr[e]));
+        st_pair(out, m * p.Zm + (long long)pc * p.nmodes + mode, v[0], v[1],
+                m < p.rows && mode < p.nmodes,
+                m < p.rows && mode + 1 < p.nmodes);
+      }
+  }
 }
 
 // --- the operand and store functors ------------------------------------
@@ -919,6 +1541,163 @@ cudaError_t x_ct(const TS* xr, const TS* xi, const float* wr,
                           bt, stream);
 }
 
+// --- the tensor-core passes -----------------------------------------------
+
+bool aligned16(const void* a) { return ((uintptr_t)a & 15) == 0; }
+
+template <class TI, class TO, int RR>
+cudaError_t launch_tc_ct_r(const TcCt<TI, TO>& p, long long blocks,
+                           cudaStream_t stream) {
+  constexpr long long smem = tc_ct_smem<TI>(RR == 0 ? 1 : RR);
+  static_assert(smem <= TC_SMEM_MAX, "the ring fits in shared memory");
+  PMESH_TRY_E(cudaFuncSetAttribute(tc_ct<TI, TO, RR>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem));
+  tc_ct<TI, TO, RR><<<(unsigned)blocks, TC_NT, (size_t)smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// one tc_ct launch (forward, or INV) over nouter blocks of rows
+template <bool INV, class TI, class TO>
+cudaError_t launch_tc_ct(TcCt<TI, TO> p, long long nouter,
+                         cudaStream_t stream) {
+  if (p.M % TC_MODES) return cudaErrorInvalidValue;
+  p.nks = p.M / TC_DR;
+  const int EP = 16 / (int)sizeof(TI);
+  p.aligned = p.ncols % EP == 0 && p.ostride % EP == 0 && aligned16(p.xr) &&
+              aligned16(p.xi);
+  const long long tiles_n = ((long long)p.ncols + TC_COLS - 1) / TC_COLS;
+  const long long blocks = (long long)p.T * p.R * tiles_n * nouter;
+  if (blocks > INT32_MAX) return cudaErrorInvalidValue;
+  if constexpr (INV) {
+    return launch_tc_ct_r<TI, TO, 0>(p, blocks, stream);
+  } else {
+    switch (p.R) {
+      case 2:
+        return launch_tc_ct_r<TI, TO, 2>(p, blocks, stream);
+      case 4:
+        return launch_tc_ct_r<TI, TO, 4>(p, blocks, stream);
+      case 8:
+        return launch_tc_ct_r<TI, TO, 8>(p, blocks, stream);
+    }
+    return cudaErrorInvalidValue;
+  }
+}
+
+// the z forward of (rows, N2) real x into the f32 (sr, si) (rows, N2/2):
+// zct = 1: the (Rz, Kz, Mq) z-CT chunks with coefficients zcoef; zct = 0:
+// the dense (N2, N2/2) half-DFT; tz: the split block table (bf16)
+cudaError_t z_forward_tc(const void* tz, const float* zsum, const float* x,
+                         int zct, int Rz,
+                         int Kz, int Mq, const float* zcoef, float* sr,
+                         float* si, long long rows, int N2,
+                         cudaStream_t stream) {
+  TcZ p = {};
+  p.x = x;
+  p.tab = (const bf16_t*)tz;
+  p.csum = zsum;
+  p.sr = sr;
+  p.si = si;
+  p.rows = rows;
+  p.N2 = N2;
+  p.Zm = N2 / 2;
+  if (zct) {
+    p.Rz = Rz;
+    p.K = Kz;
+    p.nmodes = Mq;
+    p.c = make_butter(zcoef, Rz);
+  } else {
+    p.Rz = 1;
+    p.K = N2;
+    p.nmodes = N2 / 2;
+    p.c.r[0][0] = 1.f;
+  }
+  if (p.Rz > kMaxR) return cudaErrorInvalidValue;
+  p.T = (p.nmodes + TC_MODES - 1) / TC_MODES;
+  p.nks = (p.K + TC_DR - 1) / TC_DR;
+  p.aligned = N2 % 4 == 0 && p.K % 4 == 0 && aligned16(x);
+  const long long blocks =
+      (long long)p.T * p.Rz * ((rows + TC_ROWS - 1) / TC_ROWS);
+  const long long smem = tc_z_smem(p.Rz);
+  if (blocks > INT32_MAX || smem > TC_SMEM_MAX) return cudaErrorInvalidValue;
+  PMESH_TRY_E(cudaFuncSetAttribute(
+      tc_z, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  tc_z<<<(unsigned)blocks, TC_NT, (size_t)smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// the forward y CT of the f32 (n0, N1, ncols) z spectrum (xr, xi) into
+// (outr, outi) (storage TO), chunk-permuted along y; ty: the split block
+// table (bf16)
+template <class TO>
+cudaError_t y_forward_tc(const float* xr, const float* xi, const void* ty,
+                         const float* ysum, const float* ycoef, TO* outr,
+                         TO* outi,
+                         int n0, int N1, int ncols, int Ry, int My,
+                         cudaStream_t stream) {
+  TcCt<float, TO> p = {};
+  p.xr = xr;
+  p.xi = xi;
+  p.tab = (const bf16_t*)ty;
+  p.rsum = ysum;
+  p.o1r = outr;
+  p.o1i = outi;
+  p.ostride = (long long)N1 * ncols;
+  p.M = My;
+  p.R = Ry;
+  p.ncols = ncols;
+  p.W = 1;
+  p.T = p.T1 = My / TC_MODES;
+  p.scale = 1.f;
+  p.bt = make_butter(ycoef, Ry);
+  return launch_tc_ct<false>(p, n0, stream);
+}
+
+// the x CT of pmesh_xct_multi on the tensor cores, spectra stored as TS:
+// the inverse writes its products to f32 (the output itself for f32
+// storage, the scratch for bf16) and the sweep stores the output
+template <class TS>
+cudaError_t x_ct_tc(const TS* xr, const TS* xi, const void* tab_,
+                    const float* rsum,
+                    const float* k2x, const float* k2y, const float* k2z,
+                    TS* o1r, TS* o1i, TS* o2r, TS* o2i, float* s1r,
+                    float* s1i, float* s2r, float* s2i, int n1, int W, int R,
+                    int M, bool inverse, float scale, const Butter& bt,
+                    cudaStream_t stream) {
+  const long long ncols = (long long)n1 * W;
+  if (ncols > INT32_MAX) return cudaErrorInvalidValue;
+  const bool dual = o2r != nullptr;
+  const int T1 = M / TC_MODES;
+  const bf16_t* tab = (const bf16_t*)tab_;
+  if (!inverse) {
+    TcCt<TS, TS> p = {xr, xi, tab, rsum, o1r, o1i, o2r, o2i, k2x, k2y, k2z,
+                      0, M, R, (int)ncols, W, dual ? 2 * T1 : T1, T1, 0, 0,
+                      scale, bt};
+    return launch_tc_ct<false>(p, 1, stream);
+  }
+  float *p1r, *p1i, *p2r, *p2i;
+  if constexpr (std::is_same<TS, float>::value) {
+    p1r = o1r;
+    p1i = o1i;
+    p2r = o2r;
+    p2i = o2i;
+  } else {
+    p1r = s1r;
+    p1i = s1i;
+    p2r = s2r;
+    p2i = s2i;
+  }
+  TcCt<TS, float> p = {xr, xi, tab, rsum, p1r, p1i, p2r, p2i, k2x, k2y, k2z,
+                       0, M, R, (int)ncols, W, dual ? 2 * T1 : T1, T1, 0, 0,
+                       1.f, bt};
+  PMESH_TRY_E(launch_tc_ct<true>(p, 1, stream));
+  PMESH_TRY_E(launch_butterfly(p1r, p1i, o1r, o1i, 1, 0, M, R, (int)ncols,
+                               scale, bt, stream));
+  if (!dual) return cudaSuccess;
+  return launch_butterfly(p2r, p2i, o2r, o2i, 1, 0, M, R, (int)ncols, scale,
+                          bt, stream);
+}
+
 // a dense complex DFT along the rows of (nouter, M, ncols) blocks: the
 // CtOp stage at R = 1, whose butterfly is the identity, so forward and
 // inverse differ only by the table; optionally dual (a second table on
@@ -982,14 +1761,19 @@ const char* pmesh_cuda_error_string(int code) {
 // stored in bf16, as the void pointers say).
 
 // x (n0, N1, N2) real -> (outr, outi) (n0, N1, Zm), nq (n0, N1).
-// zct = 0: (wzr, wzi) is the dense (N2, Zm) half-DFT pair; zct = 1: the
-// (Rz, Kz, Mq) z-CT pair with zcoef the (Rz, Rz, 2) chunk coefficients
-// c[r][p].  (wyr, wyi): (Ry, My, My), ycoef (Ry, Ry, 2) = b[r][j].
-// (sr, si): (n0, N1, Zm) f32 scratch for the z stage.  bf16s: (outr, outi)
-// are bf16.
+// zct = 0: the dense (N2, Zm) half-DFT; zct = 1: the (Rz, Kz, Mq) z-CT
+// with zcoef the (Rz, Rz, 2) chunk coefficients c[r][p]; the y CT by
+// (Ry, My, My) tables, ycoef (Ry, Ry, 2) = b[r][j].  f32 products (bf16
+// = 0): tz and ty are the split block tables (bf16) of tc_z and tc_ct,
+// zsum (Rz, Mq, 2) [(1, Zm, 2)] and ysum (1, Ry, My, 2) the f32 column
+// and row sums of the z and y tables; the bf16 products (bf16 = 1) take
+// the complex pairs (wzr, wzi) and (wyr, wyi) instead.  (sr, si): (n0, N1, Zm) f32
+// scratch for the z stage.  bf16s: (outr, outi) are bf16.
 int pmesh_zy_fwd_ct2(const float* x, const float* wzr, const float* wzi,
-                     int zct, int Rz, int Kz, int Mq, const float* zcoef,
-                     const float* wyr, const float* wyi, const float* ycoef,
+                     const void* tz, const float* zsum, int zct, int Rz,
+                     int Kz, int Mq, const float* zcoef, const float* wyr,
+                     const float* wyi, const void* ty, const float* ysum,
+                     const float* ycoef,
                      void* outr, void* outi, float* nq, float* sr,
                      float* si, int n0, int N1, int N2, int Ry, int My,
                      int bf16, int bf16s, void* stream_) {
@@ -1001,6 +1785,15 @@ int pmesh_zy_fwd_ct2(const float* x, const float* wzr, const float* wzi,
     if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
     nyquist_rowsum<<<(unsigned)blocks, 256, 0, stream>>>(x, nq, rows, N2);
     PMESH_TRY(cudaGetLastError());
+  }
+  if (!bf16) {
+    PMESH_TRY(z_forward_tc(tz, zsum, x, zct, Rz, Kz, Mq, zcoef, sr, si,
+                           rows, N2, stream));
+    if (bf16s)
+      return (int)y_forward_tc(sr, si, ty, ysum, ycoef, (bf16_t*)outr,
+                               (bf16_t*)outi, n0, N1, Zm, Ry, My, stream);
+    return (int)y_forward_tc(sr, si, ty, ysum, ycoef, (float*)outr,
+                             (float*)outi, n0, N1, Zm, Ry, My, stream);
   }
   if (zct) {
     ZFwdCT op = {};
@@ -1016,43 +1809,58 @@ int pmesh_zy_fwd_ct2(const float* x, const float* wzr, const float* wzi,
     op.Mq = Mq;
     op.c = make_butter(zcoef, Rz);
     PMESH_TRY((launch_gemm<ZFwdCT, false, false, false>(
-        op, 1, Rz, rows, Mq, Kz, false, bf16, stream)));
+        op, 1, Rz, rows, Mq, Kz, false, true, stream)));
   } else {
     ZFwdDense op = {x, wzr, wzi, sr, si, N2, Zm};
     PMESH_TRY((launch_gemm<ZFwdDense, false, true, false>(
-        op, 1, 1, rows, Zm, N2, false, bf16, stream)));
+        op, 1, 1, rows, Zm, N2, false, true, stream)));
   }
   if (bf16s)
-    return (int)y_forward(sr, si, wyr, wyi, ycoef, (bf16_t*)outr, (bf16_t*)outi,
-                          n0, N1, Zm, Ry, My, bf16, stream);
+    return (int)y_forward(sr, si, wyr, wyi, ycoef, (bf16_t*)outr,
+                          (bf16_t*)outi, n0, N1, Zm, Ry, My, true, stream);
   return (int)y_forward(sr, si, wyr, wyi, ycoef, (float*)outr, (float*)outi,
-                        n0, N1, Zm, Ry, My, bf16, stream);
+                        n0, N1, Zm, Ry, My, true, stream);
 }
 
-// (xr, xi) (N0, n1, W) -> (o1r, o1i) [and (o2r, o2i) when w2r is set]:
+// (xr, xi) (N0, n1, W) -> (o1r, o1i) [and (o2r, o2i) when o2r is set]:
 // forward (coef = b[r][j] of W_R^{-rj}) times scale, or inverse (coef =
 // b[r][j] of W_R^{+rj}); the 1/k^2 fold when k2x is set (k2x (N0,),
-// k2y (n1,), k2z (W,), in stored order).  bf16s: input and outputs are
-// bf16, and the inverse needs the f32 scratch (s1r, s1i) [(s2r, s2i)]
-// (N0, n1, W) for its products.
+// k2y (n1,), k2z (W,), in stored order).  f32 products (bf16 = 0): tab is
+// the split block table (bf16) of tc_ct, both sets, and rsum (sets, R,
+// M, 2) the f32 row sums of each set's tables; the bf16 products
+// take the (R, M, M) pairs (wr, wi) [and (w2r, w2i)].  bf16s:
+// input and outputs are bf16, and the inverse needs the f32 scratch
+// (s1r, s1i) [(s2r, s2i)] (N0, n1, W) for its products.
 int pmesh_xct_multi(const void* xr, const void* xi, const float* wr,
                     const float* wi, const float* w2r, const float* w2i,
-                    const float* k2x, const float* k2y, const float* k2z,
-                    void* o1r, void* o1i, void* o2r, void* o2i, float* s1r,
-                    float* s1i, float* s2r, float* s2i, int N0, int n1,
-                    int W, int R, int M, int inverse, float scale,
-                    const float* coef, int bf16, int bf16s, void* stream_) {
+                    const void* tab, const float* rsum, const float* k2x,
+                    const float* k2y, const float* k2z, void* o1r, void* o1i,
+                    void* o2r, void* o2i, float* s1r, float* s1i, float* s2r,
+                    float* s2i, int N0, int n1, int W, int R, int M,
+                    int inverse, float scale, const float* coef, int bf16,
+                    int bf16s, void* stream_) {
   (void)N0;
   const Butter bt = make_butter(coef, R);
+  cudaStream_t stream = (cudaStream_t)stream_;
+  if (!bf16 && bf16s)
+    return (int)x_ct_tc<bf16_t>(
+        (const bf16_t*)xr, (const bf16_t*)xi, tab, rsum, k2x, k2y, k2z,
+        (bf16_t*)o1r, (bf16_t*)o1i, (bf16_t*)o2r, (bf16_t*)o2i, s1r, s1i,
+        s2r, s2i, n1, W, R, M, inverse != 0, scale, bt, stream);
+  if (!bf16)
+    return (int)x_ct_tc<float>(
+        (const float*)xr, (const float*)xi, tab, rsum, k2x, k2y, k2z,
+        (float*)o1r, (float*)o1i, (float*)o2r, (float*)o2i, s1r, s1i, s2r,
+        s2i, n1, W, R, M, inverse != 0, scale, bt, stream);
   if (bf16s)
     return (int)x_ct<bf16_t>(
         (const bf16_t*)xr, (const bf16_t*)xi, wr, wi, w2r, w2i, k2x, k2y, k2z,
-        (bf16_t*)o1r, (bf16_t*)o1i, (bf16_t*)o2r, (bf16_t*)o2i, s1r, s1i, s2r, s2i,
-        n1, W, R, M, inverse != 0, scale, bt, bf16, (cudaStream_t)stream_);
+        (bf16_t*)o1r, (bf16_t*)o1i, (bf16_t*)o2r, (bf16_t*)o2i, s1r, s1i, s2r,
+        s2i, n1, W, R, M, inverse != 0, scale, bt, true, stream);
   return (int)x_ct<float>(
       (const float*)xr, (const float*)xi, wr, wi, w2r, w2i, k2x, k2y, k2z,
       (float*)o1r, (float*)o1i, (float*)o2r, (float*)o2i, s1r, s1i, s2r, s2i,
-      n1, W, R, M, inverse != 0, scale, bt, bf16, (cudaStream_t)stream_);
+      n1, W, R, M, inverse != 0, scale, bt, true, stream);
 }
 
 // (xr, xi) (n0, N1, Zm) -> out (n0, N1, n2).  (wyr, wyi): inverse y CT

@@ -42,12 +42,33 @@
 // wrapped modulo N for any offset, so offsets wider than the mesh are
 // right, and linear indices are 64-bit.
 //
+// Storage: f32, or bf16 (a bf16 state or mesh, as the TPU kernels take
+// one through _cdtype, pmesh_tpu/ops/gridpm_pallas.py:91): every load is
+// upcast to f32, the weights and sums are f32, and each output is
+// rounded once at its store.
+//
 // C interface for ctypes: each entry point launches on the given stream,
 // allocates nothing and returns cudaGetLastError().
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+typedef __nv_bfloat16 bf16_t;
+
+__device__ __forceinline__ float ld(const float* p, int64_t a) {
+  return p[a];
+}
+__device__ __forceinline__ float ld(const bf16_t* p, int64_t a) {
+  return __bfloat162float(p[a]);
+}
+__device__ __forceinline__ void st(float* p, int64_t a, float v) {
+  p[a] = v;
+}
+__device__ __forceinline__ void st(bf16_t* p, int64_t a, float v) {
+  p[a] = __float2bfloat16_rn(v);
+}
 
 enum WindowKind {
   W_NEAREST = 0,
@@ -147,12 +168,12 @@ __device__ __forceinline__ float axis_w(int v, float s, bool diff,
 }
 
 // one thread per output cell (i, j, k): k along x-threads, j and i on
-// the grid's y and z
-template <int K>
+// the grid's y and z; T: the storage of displacements, mass and output
+template <int K, class T>
 __global__ void paint_lattice_kernel(
-    const float* __restrict__ sx, const float* __restrict__ sy,
-    const float* __restrict__ sz, const float* __restrict__ mass,
-    float scalar_mass, float* __restrict__ out, int n0, int n1, int n2,
+    const T* __restrict__ sx, const T* __restrict__ sy,
+    const T* __restrict__ sz, const T* __restrict__ mass,
+    float scalar_mass, T* __restrict__ out, int n0, int n1, int n2,
     int xbase, int vmin, int vmax, int diffdir, Table tb) {
   int k = blockIdx.x * blockDim.x + threadIdx.x;
   int j = blockIdx.y;
@@ -165,33 +186,33 @@ __global__ void paint_lattice_kernel(
       int64_t row = (qx * n1 + wrap(j - vy, n1)) * n2;
       for (int vz = vmin; vz <= vmax; ++vz) {
         int64_t q = row + wrap(k - vz, n2);
-        float w = axis_w<K>(vx, sx[q], diffdir == 0, tb) *
-                  axis_w<K>(vy, sy[q], diffdir == 1, tb);
-        w = w * axis_w<K>(vz, sz[q], diffdir == 2, tb);
-        if (mass != nullptr) w = w * mass[q];
+        float w = axis_w<K>(vx, ld(sx, q), diffdir == 0, tb) *
+                  axis_w<K>(vy, ld(sy, q), diffdir == 1, tb);
+        w = w * axis_w<K>(vz, ld(sz, q), diffdir == 2, tb);
+        if (mass != nullptr) w = w * ld(mass, q);
         acc += w;
       }
     }
   }
-  out[((int64_t)i * n1 + j) * n2 + k] = acc * scalar_mass;
+  st(out, ((int64_t)i * n1 + j) * n2 + k, acc * scalar_mass);
 }
 
 // one thread per particle q = (i, j, k); nmesh meshes share the weights,
-// or (diffdir == DIFF_ALL) three derivative readouts of m0
-template <int K>
+// or (diffdir == DIFF_ALL) three derivative readouts of m0; T: the
+// storage of meshes, displacements and outputs
+template <int K, class T>
 __global__ void readout_lattice_kernel(
-    const float* __restrict__ m0, const float* __restrict__ m1,
-    const float* __restrict__ m2, int nmesh,
-    const float* __restrict__ sx, const float* __restrict__ sy,
-    const float* __restrict__ sz, float* __restrict__ o0,
-    float* __restrict__ o1, float* __restrict__ o2, int n0, int n1,
-    int n2, int xbase, int vmin, int vmax, int diffdir, Table tb) {
+    const T* __restrict__ m0, const T* __restrict__ m1,
+    const T* __restrict__ m2, int nmesh, const T* __restrict__ sx,
+    const T* __restrict__ sy, const T* __restrict__ sz,
+    T* __restrict__ o0, T* __restrict__ o1, T* __restrict__ o2, int n0,
+    int n1, int n2, int xbase, int vmin, int vmax, int diffdir, Table tb) {
   int k = blockIdx.x * blockDim.x + threadIdx.x;
   int j = blockIdx.y;
   int i = blockIdx.z;
   if (k >= n2) return;
   int64_t q = ((int64_t)i * n1 + j) * n2 + k;
-  float s0 = sx[q], s1 = sy[q], s2 = sz[q];
+  float s0 = ld(sx, q), s1 = ld(sy, q), s2 = ld(sz, q);
   bool all = diffdir == DIFF_ALL;
   float a0 = 0.f, a1 = 0.f, a2 = 0.f;
   for (int vx = vmin; vx <= vmax; ++vx) {
@@ -207,22 +228,22 @@ __global__ void readout_lattice_kernel(
         float kz = axis_w<K>(vz, s2, diffdir == 2, tb);
         if (all) {
           float kzd = axis_w<K>(vz, s2, true, tb);
-          float v = m0[p];
+          float v = ld(m0, p);
           a0 += (kxd * ky) * kz * v;
           a1 += (kx * kyd) * kz * v;
           a2 += (kx * ky) * kzd * v;
         } else {
           float w = (kx * ky) * kz;
-          a0 += w * m0[p];
-          if (nmesh > 1) a1 += w * m1[p];
-          if (nmesh > 2) a2 += w * m2[p];
+          a0 += w * ld(m0, p);
+          if (nmesh > 1) a1 += w * ld(m1, p);
+          if (nmesh > 2) a2 += w * ld(m2, p);
         }
       }
     }
   }
-  o0[q] = a0;
-  if (all || nmesh > 1) o1[q] = a1;
-  if (all || nmesh > 2) o2[q] = a2;
+  st(o0, q, a0);
+  if (all || nmesh > 1) st(o1, q, a1);
+  if (all || nmesh > 2) st(o2, q, a2);
 }
 
 constexpr int kThreads = 128;
@@ -231,25 +252,56 @@ dim3 grid_of(int n0, int n1, int n2) {
   return dim3((n2 + kThreads - 1) / kThreads, n1, n0);
 }
 
-template <int K>
-void launch_paint(const float* sx, const float* sy, const float* sz,
-                  const float* mass, float scalar_mass, float* out, int n0,
-                  int n1, int n2, int xbase, int vmin, int vmax, int diffdir,
-                  Table tb, cudaStream_t stream) {
-  paint_lattice_kernel<K><<<grid_of(n0, n1, n2), kThreads, 0, stream>>>(
-      sx, sy, sz, mass, scalar_mass, out, n0, n1, n2, xbase, vmin, vmax,
-      diffdir, tb);
+// the storage T of every mesh: f32, or bf16 when bf16 is set
+template <int K, class T>
+void launch_paint_t(const void* sx, const void* sy, const void* sz,
+                    const void* mass, float scalar_mass, void* out, int n0,
+                    int n1, int n2, int xbase, int vmin, int vmax,
+                    int diffdir, Table tb, cudaStream_t stream) {
+  paint_lattice_kernel<K, T><<<grid_of(n0, n1, n2), kThreads, 0, stream>>>(
+      (const T*)sx, (const T*)sy, (const T*)sz, (const T*)mass, scalar_mass,
+      (T*)out, n0, n1, n2, xbase, vmin, vmax, diffdir, tb);
 }
 
 template <int K>
-void launch_readout(const float* m0, const float* m1, const float* m2,
-                    int nmesh, const float* sx, const float* sy,
-                    const float* sz, float* o0, float* o1, float* o2, int n0,
+void launch_paint(const void* sx, const void* sy, const void* sz,
+                  const void* mass, float scalar_mass, void* out, int n0,
+                  int n1, int n2, int xbase, int vmin, int vmax, int diffdir,
+                  Table tb, int bf16, cudaStream_t stream) {
+  if (bf16)
+    launch_paint_t<K, bf16_t>(sx, sy, sz, mass, scalar_mass, out, n0, n1, n2,
+                              xbase, vmin, vmax, diffdir, tb, stream);
+  else
+    launch_paint_t<K, float>(sx, sy, sz, mass, scalar_mass, out, n0, n1, n2,
+                             xbase, vmin, vmax, diffdir, tb, stream);
+}
+
+template <int K, class T>
+void launch_readout_t(const void* m0, const void* m1, const void* m2,
+                      int nmesh, const void* sx, const void* sy,
+                      const void* sz, void* o0, void* o1, void* o2, int n0,
+                      int n1, int n2, int xbase, int vmin, int vmax,
+                      int diffdir, Table tb, cudaStream_t stream) {
+  readout_lattice_kernel<K, T>
+      <<<grid_of(n0, n1, n2), kThreads, 0, stream>>>(
+          (const T*)m0, (const T*)m1, (const T*)m2, nmesh, (const T*)sx,
+          (const T*)sy, (const T*)sz, (T*)o0, (T*)o1, (T*)o2, n0, n1, n2,
+          xbase, vmin, vmax, diffdir, tb);
+}
+
+template <int K>
+void launch_readout(const void* m0, const void* m1, const void* m2,
+                    int nmesh, const void* sx, const void* sy,
+                    const void* sz, void* o0, void* o1, void* o2, int n0,
                     int n1, int n2, int xbase, int vmin, int vmax, int diffdir,
-                    Table tb, cudaStream_t stream) {
-  readout_lattice_kernel<K><<<grid_of(n0, n1, n2), kThreads, 0, stream>>>(
-      m0, m1, m2, nmesh, sx, sy, sz, o0, o1, o2, n0, n1, n2, xbase, vmin,
-      vmax, diffdir, tb);
+                    Table tb, int bf16, cudaStream_t stream) {
+  if (bf16)
+    launch_readout_t<K, bf16_t>(m0, m1, m2, nmesh, sx, sy, sz, o0, o1, o2, n0,
+                                n1, n2, xbase, vmin, vmax, diffdir, tb,
+                                stream);
+  else
+    launch_readout_t<K, float>(m0, m1, m2, nmesh, sx, sy, sz, o0, o1, o2, n0,
+                               n1, n2, xbase, vmin, vmax, diffdir, tb, stream);
 }
 
 }  // namespace
@@ -264,13 +316,14 @@ const char* pmesh_cuda_error_string(int code) {
 // mass: a mesh, or NULL for the scalar scalar_mass; table (tabulated
 // kinds only): 2 * ntable floats, the values then the differences / step;
 // xbase >= 0: the x-halo slab form, displacements and mass of n0_in
-// planes (every plane i + xbase - v_x must lie in [0, n0_in))
-int pmesh_paint_lattice(const float* sx, const float* sy, const float* sz,
-                        const float* mass, float scalar_mass, float* out,
+// planes (every plane i + xbase - v_x must lie in [0, n0_in)); bf16: the
+// displacements, the mass mesh and the output are bf16, else f32
+int pmesh_paint_lattice(const void* sx, const void* sy, const void* sz,
+                        const void* mass, float scalar_mass, void* out,
                         int n0, int n1, int n2, int n0_in, int xbase,
                         int vmin, int vmax, int kind, int diffdir,
                         const float* table, int ntable, float step,
-                        float offset, int device, void* stream) {
+                        float offset, int bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (diffdir < DIFF_NONE || diffdir > 2) return (int)cudaErrorInvalidValue;
@@ -282,7 +335,7 @@ int pmesh_paint_lattice(const float* sx, const float* sy, const float* sz,
 #define PAINT_CASE(K)                                                       \
   case K:                                                                   \
     launch_paint<K>(sx, sy, sz, mass, scalar_mass, out, n0, n1, n2, xbase,  \
-                    vmin, vmax, diffdir, tb, s);                            \
+                    vmin, vmax, diffdir, tb, bf16, s);                      \
     break;
     PAINT_CASE(W_NEAREST)
     PAINT_CASE(W_LINEAR)
@@ -300,14 +353,14 @@ int pmesh_paint_lattice(const float* sx, const float* sy, const float* sz,
 // nmesh in 1..3 meshes m0..m2 into o0..o2; diffdir 3 ('all') reads m0
 // into the three derivative outputs o0..o2; xbase >= 0: the x-halo slab
 // form, meshes of n0_in planes (every plane i + xbase + v_x must lie in
-// [0, n0_in))
-int pmesh_readout_lattice(const float* m0, const float* m1, const float* m2,
-                          int nmesh, const float* sx, const float* sy,
-                          const float* sz, float* o0, float* o1, float* o2,
+// [0, n0_in)); bf16: meshes, displacements and outputs are bf16
+int pmesh_readout_lattice(const void* m0, const void* m1, const void* m2,
+                          int nmesh, const void* sx, const void* sy,
+                          const void* sz, void* o0, void* o1, void* o2,
                           int n0, int n1, int n2, int n0_in, int xbase,
                           int vmin, int vmax, int kind, int diffdir,
                           const float* table, int ntable, float step,
-                          float offset, int device, void* stream) {
+                          float offset, int bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (diffdir < DIFF_NONE || diffdir > DIFF_ALL || nmesh < 1 || nmesh > 3 ||
@@ -321,7 +374,7 @@ int pmesh_readout_lattice(const float* m0, const float* m1, const float* m2,
 #define READOUT_CASE(K)                                                     \
   case K:                                                                   \
     launch_readout<K>(m0, m1, m2, nmesh, sx, sy, sz, o0, o1, o2, n0, n1,    \
-                      n2, xbase, vmin, vmax, diffdir, tb, s);               \
+                      n2, xbase, vmin, vmax, diffdir, tb, bf16, s);         \
     break;
     READOUT_CASE(W_NEAREST)
     READOUT_CASE(W_LINEAR)

@@ -14,6 +14,17 @@ stream and raises RuntimeError if a launch returns an error.  The
 numpy tables are uploaded once per table object and device (the public
 operators of ``ops/fft_mxu.py`` build each table once per shape).
 
+The f32 products of ``zy_fwd_ct2`` and ``xct_multi`` run on the
+split-precision tensor-core routine (``tc_ct``, ``tc_z``): each table
+enters as its real block table [[Wr, -Wi], [Wi, Wr]], laid out in the
+kernel's tiles by ``ct_block_table`` / ``z_block_table`` and split once
+into three bf16 parts (``bf16_split3``), beside the f32 row or column
+sums of the complex tables (``table_sums``), with which the kernels add
+back the first element of each data vector that they take out before
+the products; both are made once per table object and device
+(``_split_table``).  Every other pass runs on
+the FP32 ``cgemm``.
+
 Two forms besides the f32 one, which the kernels take or refuse, never
 swap for another:
 
@@ -50,7 +61,8 @@ from ..native import cuda as _cuda
 __all__ = ["zy_fwd_ct2", "xct_multi", "zy_inv_ct2", "zy_inv_ct2_dual",
            "zy_fwd_half", "x_dense", "zy_inv_half", "zy_fwd_full",
            "zy_inv_full", "zy_fwd_half_ct", "zy_inv_half_ct", "LAUNCHES",
-           "reset_launches"]
+           "reset_launches", "bf16_split3", "ct_block_table", "z_block_table",
+           "table_sums"]
 
 # the ct2 passes, which also take bf16 spectrum storage
 _STORAGE = ("zy_fwd_ct2", "xct_multi", "zy_inv_ct2", "zy_inv_ct2_dual")
@@ -77,9 +89,9 @@ def _load():
         lib.pmesh_cuda_error_string.argtypes = [_I]
         lib.pmesh_cuda_error_string.restype = ctypes.c_char_p
         lib.pmesh_zy_fwd_ct2.argtypes = (
-            [_P] * 3 + [_I] * 4 + [_P] * 9 + [_I] * 5 + [_I, _I, _P])
+            [_P] * 5 + [_I] * 4 + [_P] * 11 + [_I] * 5 + [_I, _I, _P])
         lib.pmesh_xct_multi.argtypes = (
-            [_P] * 17 + [_I] * 6 + [_F, _P, _I, _I, _P])
+            [_P] * 19 + [_I] * 6 + [_F, _P, _I, _I, _P])
         lib.pmesh_zy_inv_ct2.argtypes = (
             [_P] * 6 + [_I] * 4 + [_P] * 5 + [_I] * 6 + [_P] * 2
             + [_I, _I, _P])
@@ -160,13 +172,125 @@ def _split(n, what, axis):
     return R, M
 
 
+def _shape(a, shape, what):
+    if np.shape(a) != tuple(shape):
+        raise ValueError("%s: table of shape %s where %s is needed"
+                         % (what, np.shape(a), tuple(shape)))
+
+
 def _table(a, shape, device, what):
     """the device copy of one numpy table, uploaded once per object"""
-    a = np.asarray(a)
-    if a.shape != tuple(shape):
-        raise ValueError("%s: table of shape %s where %s is needed"
-                         % (what, a.shape, tuple(shape)))
-    return _fm._on_device(a, device)
+    _shape(a, shape, what)
+    return _fm._on_device(np.asarray(a), device)
+
+
+# --- the tables of the tensor-core routine -----------------------------------
+
+_MODES = 64     # complex modes per table tile (the kernels' TC_MODES)
+_BK = 16        # real contraction columns per slice (TC_BK)
+
+
+def _bf16_bits(a):
+    """the bits of f32 ``a`` rounded to the nearest bf16 (ties to even)"""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1)))
+            >> 16).astype(np.uint16)
+
+
+def _bf16_value(b):
+    return (b.astype(np.uint32) << 16).view(np.float32)
+
+
+def bf16_split3(a):
+    """(a1, a2, a3), the bits (uint16) of three bf16 values with a1 + a2
+    + a3 = a to f32's precision: a1 = bf16(a), a2 = bf16(a - a1), a3 =
+    bf16(a - a1 - a2), each rounded to nearest even, each difference
+    exact in f32, as the kernels split their data operand (``split3``)."""
+    a = np.asarray(a, np.float32)
+    a1 = _bf16_bits(a)
+    r1 = a - _bf16_value(a1)
+    a2 = _bf16_bits(r1)
+    return a1, a2, _bf16_bits(r1 - _bf16_value(a2))
+
+
+def ct_block_table(pairs):
+    """The split table of ``tc_ct`` for one or two (R, M, M) complex
+    pairs (Wr, Wi)[j, q, m]: (R, T, nks, 3, 128, 16) bf16 bits (uint16),
+    T = 2 M / 128 tiles per set (set 2's after set 1's), nks = M / 8
+    slices, the three parts of ``bf16_split3`` on axis 3.  Tile t, row r:
+    output mode q = (t mod M/64) * 64 + r mod 64, real part for r < 64,
+    imaginary above; slice s, column c: data row m = 8 s + c mod 8, real
+    part for c < 8.  The entries are those of [[Wr, -Wi], [Wi, Wr]]."""
+    tiles = []
+    dr = _BK // 2
+    for wr, wi in pairs:
+        wr, wi = np.asarray(wr, np.float32), np.asarray(wi, np.float32)
+        R, M = wr.shape[:2]
+        a = np.empty((R, 2, M, 2, M), np.float32)   # j, out part, q, in part, m
+        a[:, 0, :, 0], a[:, 0, :, 1] = wr, -wi
+        a[:, 1, :, 0], a[:, 1, :, 1] = wi, wr
+        a = a.reshape(R, 2, M // _MODES, _MODES, 2, M // dr, dr)
+        tiles.append(a.transpose(0, 2, 5, 1, 3, 4, 6).reshape(
+            R, M // _MODES, M // dr, 2 * _MODES, _BK))
+    return np.ascontiguousarray(
+        np.stack(bf16_split3(np.concatenate(tiles, 1)), 3))
+
+
+def z_block_table(er, ei):
+    """The split table of ``tc_z`` for the (Rz, K, nmodes) complex z
+    chunks (Er, Ei)[p, k, mode] (a 2-d pair: the dense half-DFT, Rz = 1):
+    (Rz, T, nks, 3, 128, 16) bf16 bits (uint16), T = ceil(nmodes / 64)
+    tiles, nks = ceil(K / 8) slices, zero past K and nmodes.  Tile t, row
+    c: mode t * 64 + c mod 64, real output for c < 64; slice s, column r:
+    k = 8 s + r mod 8, real data for r < 8.  The entries are those of
+    [[Er, Ei], [-Ei, Er]] (rows: data, columns: output), transposed."""
+    er, ei = (np.asarray(a, np.float32).reshape((-1,) + np.shape(a)[-2:])
+              for a in (er, ei))
+    Rz, K, nm = er.shape
+    dr = _BK // 2
+    nks, T = -(-K // dr), -(-nm // _MODES)
+    b = np.zeros((Rz, 2, nks * dr, 2, T * _MODES), np.float32)
+    b[:, 0, :K, 0, :nm], b[:, 1, :K, 0, :nm] = er, -ei
+    b[:, 0, :K, 1, :nm], b[:, 1, :K, 1, :nm] = ei, er
+    # p, in part, s, k, out part, t, mode -> p, t, s, out part, mode, in, k
+    b = b.reshape(Rz, 2, nks, dr, 2, T, _MODES).transpose(0, 5, 2, 4, 6, 1, 3)
+    b = b.reshape(Rz, T, nks, 2 * _MODES, _BK)
+    return np.ascontiguousarray(np.stack(bf16_split3(b), 3))
+
+
+def table_sums(pairs, axis):
+    """(sets, ..., 2) f32: the sums of each complex pair (Wr, Wi) along
+    ``axis`` (the contraction), taken in f64 from the f32 tables"""
+    out = []
+    for wr, wi in pairs:
+        s = (np.asarray(wr, np.float64).sum(axis)
+             + 1j * np.asarray(wi, np.float64).sum(axis))
+        out.append(np.stack([s.real, s.imag], -1))
+    return np.ascontiguousarray(np.stack(out), np.float32)
+
+
+_SPLIT = {}
+
+
+def _split_table(build, arrays, device):
+    """the device copies of ``build``'s split table (bf16) of the numpy
+    tables ``arrays`` and of their sums along the contraction (f32),
+    made once per table objects and device"""
+    key = (build.__name__, tuple(id(a) for a in arrays), str(device))
+    hit = _SPLIT.get(key)
+    if hit is None or any(h is not a for h, a in zip(hit[0], arrays)):
+        pairs = [arrays[i:i + 2] for i in range(0, len(arrays), 2)]
+        if build is ct_block_table:
+            host, sums = ct_block_table(pairs), table_sums(pairs, 2)
+        else:
+            host = z_block_table(*arrays)
+            sums = table_sums([[np.asarray(a).reshape(
+                (-1,) + np.shape(a)[-2:]) for a in arrays]], 1)[0]
+        tab = torch.from_numpy(host.view(np.int16)).view(torch.bfloat16)
+        hit = (tuple(arrays), (tab.to(device),
+                               torch.as_tensor(sums, device=device)))
+        _SPLIT[key] = hit
+    return hit[1]
 
 
 def _coef(kind, R):
@@ -226,19 +350,30 @@ def zy_fwd_ct2(x, wz, wy, bf16=False, out_dtype=torch.float32):
     else:
         Rz, Kz, Mq = 1, N2, Zm
         zshape = (N2, Zm)
-    wzr, wzi = (_table(a, zshape, dev, what) for a in wz)
-    wyr, wyi = (_table(a, (Ry, My, My), dev, what) for a in wy)
+    for a in wz:
+        _shape(a, zshape, what)
+    for a in wy:
+        _shape(a, (Ry, My, My), what)
+    if bf16:
+        wzr, wzi = (_table(a, zshape, dev, what) for a in wz)
+        wyr, wyi = (_table(a, (Ry, My, My), dev, what) for a in wy)
+        tz = ty = (None, None)
+    else:
+        wzr = wzi = wyr = wyi = None
+        tz = _split_table(z_block_table, tuple(wz), dev)
+        ty = _split_table(ct_block_table, tuple(wy), dev)
     outr, outi = _empty((n0, N1, Zm), dev, 2, out_dtype)
     sr, si = _empty((n0, N1, Zm), dev, 2)
     nq = torch.empty((n0, N1), dtype=torch.float32, device=dev)
     bf16s = out_dtype == torch.bfloat16
     _count(what, bf16, bf16s)
     rc = _load().pmesh_zy_fwd_ct2(
-        _ptr(x), _ptr(wzr), _ptr(wzi), int(zct), Rz, Kz, Mq,
-        _host(_coef('zfwd', Rz)) if zct else None, _ptr(wyr), _ptr(wyi),
-        _host(_coef('fwd', Ry)), _ptr(outr), _ptr(outi), _ptr(nq), _ptr(sr),
-        _ptr(si), n0, N1, N2, Ry, My, int(bool(bf16)), int(bf16s),
-        _stream(dev))
+        _ptr(x), _ptr(wzr), _ptr(wzi), _ptr(tz[0]), _ptr(tz[1]), int(zct),
+        Rz, Kz, Mq, _host(_coef('zfwd', Rz)) if zct else None, _ptr(wyr),
+        _ptr(wyi), _ptr(ty[0]), _ptr(ty[1]), _host(_coef('fwd', Ry)),
+        _ptr(outr), _ptr(outi),
+        _ptr(nq), _ptr(sr), _ptr(si), n0, N1, N2, Ry, My, int(bool(bf16)),
+        int(bf16s), _stream(dev))
     _raise_on(rc, what)
     return outr, outi, nq
 
@@ -252,23 +387,29 @@ def xct_multi(pr, pi, wx, scale, inverse=False, wx2=None, k2=None,
     dev = _check((pr, pi), pr.shape, what, _SPECTRUM)
     bf16s = pr.dtype == torch.bfloat16
     R, M = _split(N0, what, 0)
-    tabs = [_table(a, (R, M, M), dev, what) for a in wx]
-    if wx2 is not None:
-        tabs += [_table(a, (R, M, M), dev, what) for a in wx2]
+    pairs = tuple(wx) + (() if wx2 is None else tuple(wx2))
+    for a in pairs:
+        _shape(a, (R, M, M), what)
+    tabs, tc = [None] * 4, (None, None)
+    if bf16:
+        tabs = [_table(a, (R, M, M), dev, what) for a in pairs]
+        tabs += [None] * (4 - len(tabs))
+    else:
+        tc = _split_table(ct_block_table, pairs, dev)
     ks = [None] * 3
     if k2 is not None:
         ks = [_table(np.asarray(t, np.float32), (n,), dev, what)
               for t, n in zip(k2, (N0, n1, W))]
-    nout = len(tabs)
+    nout = len(pairs)
     out = _empty((N0, n1, W), dev, nout, pr.dtype)
     # the bf16 inverse sums its butterfly from f32 products
     scr = _empty((N0, n1, W), dev, nout) if bf16s and inverse else []
     o = [_ptr(t) for t in out] + [None] * (4 - nout)
     s = [_ptr(t) for t in scr] + [None] * (4 - len(scr))
-    t2 = [_ptr(t) for t in tabs[2:]] + [None] * (4 - nout)
     _count(what, bf16, bf16s)
     rc = _load().pmesh_xct_multi(
-        _ptr(pr), _ptr(pi), _ptr(tabs[0]), _ptr(tabs[1]), t2[0], t2[1],
+        _ptr(pr), _ptr(pi), *(_ptr(t) for t in tabs), _ptr(tc[0]),
+        _ptr(tc[1]),
         _ptr(ks[0]), _ptr(ks[1]), _ptr(ks[2]), *o, *s, N0, n1, W, R, M,
         int(bool(inverse)), float(scale),
         _host(_coef('inv' if inverse else 'fwd', R)), int(bool(bf16)),

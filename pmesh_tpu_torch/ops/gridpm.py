@@ -163,6 +163,17 @@ def _shift_loop(meshes, disp, mass, bounds, window, diffdir, mode,
                                  mode, impl)[0]
                      for d in range(ndim))
 
+    # a sub-32-bit storage (bf16) is computed in f32 and each output
+    # rounded once, as the TPU kernels (_cdtype) and the CUDA kernels do
+    store = dtype
+    if dtype.itemsize < 4:
+        dtype = torch.float32
+        disp = tuple(d.to(dtype) for d in disp)
+        if isinstance(mass, torch.Tensor):
+            mass = mass.to(dtype)
+        if meshes is not None:
+            meshes = tuple(m.to(dtype) for m in meshes)
+
     def weights(vvec):
         w = None
         for d in range(ndim):
@@ -178,7 +189,7 @@ def _shift_loop(meshes, disp, mass, bounds, window, diffdir, mode,
         out = torch.zeros(shape, dtype=dtype, device=disp[0].device)
         for vvec in offsets:
             out = out + torch.roll(weights(vvec) * mass, vvec, axes)
-        return out
+        return out.to(store)
 
     outs = [torch.zeros(shape, dtype=dtype, device=disp[0].device)
             for _ in meshes]
@@ -187,7 +198,7 @@ def _shift_loop(meshes, disp, mass, bounds, window, diffdir, mode,
         neg = tuple(-v for v in vvec)
         outs = [o + w * torch.roll(m, neg, axes)
                 for o, m in zip(outs, meshes)]
-    return tuple(outs)
+    return tuple(o.to(store) for o in outs)
 
 
 def _sharded(procmesh):

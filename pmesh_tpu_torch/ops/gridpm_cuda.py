@@ -1,12 +1,15 @@
 """ctypes wrappers of the lattice paint and readout CUDA kernels
 (``csrc/gridpm.cu``), the port of ``pmesh_tpu/ops/gridpm_pallas.py``.
 
-Each wrapper checks its tensors (CUDA, f32, 3-d mesh shape,
-contiguous, on one device, no autograd), allocates the outputs,
+Each wrapper checks its tensors (CUDA, f32 or bf16 (one dtype for all),
+3-d mesh shape, contiguous, on one device, no autograd), allocates the
+outputs in that dtype (bf16: the kernels compute in f32 and round each
+output once, as the TPU kernels' ``_cdtype``),
 launches on PyTorch's current stream and raises RuntimeError if the
 launch returns an error.  ``LAUNCHES`` counts the launches of each
 kernel, so a run can show that it went through the kernels (the
-x-halo slab forms under "<name>_xhalo").
+x-halo slab forms under "<name>_xhalo", the bf16 forms with "_bf16"
+appended).
 
 Both take the x-halo slab form of a slab-sharded mesh (``xbase``):
 the paint reads displacements and mass of ``lo + rows + hi`` planes and
@@ -28,9 +31,11 @@ from ..native import cuda as _cuda
 __all__ = ["paint_lattice", "readout_lattice", "LAUNCHES",
            "reset_launches"]
 
-# the x-halo slab forms count apart ("_xhalo")
-LAUNCHES = {"paint_lattice": 0, "readout_lattice": 0,
-            "paint_lattice_xhalo": 0, "readout_lattice_xhalo": 0}
+# the x-halo slab forms ("_xhalo") and the bf16 forms ("_bf16") count
+# apart
+LAUNCHES = {name + halo + form: 0
+            for name in ("paint_lattice", "readout_lattice")
+            for halo in ("", "_xhalo") for form in ("", "_bf16")}
 
 _ANALYTIC_CODE = {'nearest': 0, 'linear': 1, 'quadratic': 2, 'cubic': 3}
 _TABLE, _TABLE_OFFSET = 4, 5
@@ -55,11 +60,11 @@ def _load():
         lib.pmesh_cuda_error_string.argtypes = [_I]
         lib.pmesh_cuda_error_string.restype = ctypes.c_char_p
         lib.pmesh_paint_lattice.argtypes = (
-            [_P] * 4 + [_F, _P] + [_I] * 9 + [_P, _I, _F, _F, _I, _P])
+            [_P] * 4 + [_F, _P] + [_I] * 9 + [_P, _I, _F, _F, _I, _I, _P])
         lib.pmesh_paint_lattice.restype = _I
         lib.pmesh_readout_lattice.argtypes = (
             [_P] * 3 + [_I] + [_P] * 6 + [_I] * 9 + [_P, _I, _F, _F, _I,
-                                                    _P])
+                                                    _I, _P])
         lib.pmesh_readout_lattice.restype = _I
         _lib = lib
     return _lib
@@ -83,6 +88,9 @@ def _window_args(window, device):
             0.0 if win.table_offset is None else win.table_offset)
 
 
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check(arrays, what):
     """Common checks; returns (shape, device)."""
     ref = arrays[0]
@@ -90,9 +98,10 @@ def _check(arrays, what):
         if not isinstance(a, torch.Tensor) or a.device.type != 'cuda':
             raise ValueError("%s: the CUDA kernel takes CUDA tensors"
                              % what)
-        if a.dtype != torch.float32:
+        if a.dtype not in _DTYPES or a.dtype != ref.dtype:
             raise NotImplementedError(
-                "%s: the CUDA kernel is f32 only (got %s)" % (what, a.dtype))
+                "%s: the CUDA kernel takes f32 or bf16 meshes of one dtype "
+                "(got %s)" % (what, ", ".join(str(t.dtype) for t in arrays)))
         if a.dim() != 3:
             raise NotImplementedError(
                 "%s: the CUDA kernel is 3-d only (got %d-d)"
@@ -146,8 +155,8 @@ def paint_lattice(disp, mass, vmin, vmax, window, diffdir=None, rows=None,
     rho[p] = sum_v m(p - v) prod_d W_d(v_d - s_d(p - v)), v in
     [vmin, vmax]^3, W_d = -W' on axis ``diffdir``.
 
-    disp : three (N0, N1, N2) f32 CUDA tensors (cell units)
-    mass : None (1), a scalar, or a mesh tensor
+    disp : three (N0, N1, N2) f32 or bf16 CUDA tensors (cell units)
+    mass : None (1), a scalar, or a mesh tensor of disp's dtype
     rows, xbase : the x-halo slab form: disp and mass hold N0 = lo +
         rows + hi planes, the output ``rows`` planes, output row i at
         input plane i + xbase (= lo), no wrap on x
@@ -168,16 +177,17 @@ def paint_lattice(disp, mass, vmin, vmax, window, diffdir=None, rows=None,
         _halo_rows(what, n_in, rows, xbase, vmax, -vmin)
     scalar = 1.0 if mass is None or mesh_mass else float(mass)
     kind, table, ntable, step, offset = _window_args(window, device)
-    out = torch.empty((rows,) + shape[1:], dtype=torch.float32,
-                      device=device)
+    dtype = disp[0].dtype
+    out = torch.empty((rows,) + shape[1:], dtype=dtype, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    LAUNCHES[what + ("_xhalo" if xbase >= 0 else "")] += 1
+    LAUNCHES[what + ("_xhalo" if xbase >= 0 else "")
+             + ("_bf16" if dtype == torch.bfloat16 else "")] += 1
     rc = _load().pmesh_paint_lattice(
         _ptr(disp[0]), _ptr(disp[1]), _ptr(disp[2]),
         _ptr(mass) if mesh_mass else None, scalar, _ptr(out),
         rows, shape[1], shape[2], n_in, xbase, vmin, vmax, kind,
-        _DIFF[diffdir], _ptr(table), ntable, step, offset, device.index,
-        stream)
+        _DIFF[diffdir], _ptr(table), ntable, step, offset,
+        int(dtype == torch.bfloat16), device.index, stream)
     _raise_on(rc, what)
     return out
 
@@ -213,19 +223,24 @@ def readout_lattice(meshes, disp, vmin, vmax, window, diffdir=None,
             raise ValueError("%s: the meshes' planes must match the "
                              "displacements'" % what)
         n_in = mshape[0]
+        if meshes[0].dtype != disp[0].dtype:
+            raise NotImplementedError(
+                "%s: the meshes and displacements must share a dtype" % what)
         _halo_rows(what, n_in, shape[0], xbase, -vmin, vmax)
     kind, table, ntable, step, offset = _window_args(window, device)
     nout = 3 if diffdir == 'all' else len(meshes)
-    outs = tuple(torch.empty(shape, dtype=torch.float32, device=device)
+    dtype = disp[0].dtype
+    outs = tuple(torch.empty(shape, dtype=dtype, device=device)
                  for _ in range(nout))
     m = [_ptr(x) for x in meshes] + [None] * (3 - len(meshes))
     o = [_ptr(x) for x in outs] + [None] * (3 - nout)
     stream = torch.cuda.current_stream(device).cuda_stream
-    LAUNCHES[what + ("_xhalo" if xbase >= 0 else "")] += 1
+    LAUNCHES[what + ("_xhalo" if xbase >= 0 else "")
+             + ("_bf16" if dtype == torch.bfloat16 else "")] += 1
     rc = _load().pmesh_readout_lattice(
         m[0], m[1], m[2], len(meshes), _ptr(disp[0]), _ptr(disp[1]),
         _ptr(disp[2]), o[0], o[1], o[2], shape[0], shape[1], shape[2],
         n_in, xbase, vmin, vmax, kind, _DIFF[diffdir], _ptr(table), ntable,
-        step, offset, device.index, stream)
+        step, offset, int(dtype == torch.bfloat16), device.index, stream)
     _raise_on(rc, what)
     return outs

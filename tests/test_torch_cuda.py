@@ -371,11 +371,163 @@ def test_fft_mxu_kernels_refuse_what_they_cannot_run(dev):
                            inverse=True)
     with pytest.raises(ValueError, match='ct2'):
         fm.fft3_real_forward_half_ct2(torch.zeros((16,) * 3, device=dev))
+    # a table of the wrong shape raises before any launch: the
+    # split-precision routine does not fall back to another product
+    from pmesh_tpu_torch.ops import fft_mxu_cuda
+    fft_mxu_cuda.reset_launches()
+    bad = tuple(np.ascontiguousarray(w[:, :64]) for w in wy)
+    with pytest.raises(ValueError, match='table of shape'):
+        fm._zy_fwd_ct2_call(x, n2, Zm, wz, bad)
+    pr, pi, _ = _fft_inputs(16, (256, 2, Zm), dev)
+    wi = fm._ct_inv_mats_np(256)
+    with pytest.raises(ValueError, match='table of shape'):
+        fm._xct_call_multi(pr, pi, tuple(w[:1] for w in wi), 1.0,
+                           inverse=True)
+    with pytest.raises(ValueError, match='table of shape'):
+        fm._xct_call_multi(pr, pi, wi, 1.0, inverse=True,
+                           wx2=tuple(w[:, :, :64] for w in wi))
+    assert _launched(fft_mxu_cuda) == {}
 
 
 def _launched(module):
     """the nonzero launch counters of a wrapper module"""
     return {k: v for k, v in module.LAUNCHES.items() if v}
+
+
+# --- the split-precision tensor-core routine of zy_fwd_ct2 and xct_multi ---
+
+def test_tc_zy_fwd_slab_matches_plain(dev):
+    """the slab of chip_smoke.py (z = 1024: the Rz = 8 z-CT; y = 512),
+    a mesh with a mean, as a density has"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    shape = (16, 512, 1024)
+    x = (1.0 + 0.3 * _fft_inputs(30, shape, dev)[0]).contiguous()
+    wz, wy = fm._z_fwd_tabs(1024, 512), fm._ct_fwd_mats_np(512)
+    got = fm._zy_fwd_ct2_call(x, 1024, 512, wz, wy, impl='cuda')
+    ref = fm._zy_fwd_ct2_call(x, 1024, 512, wz, wy, impl='torch')
+    for g, r in zip(got, ref):
+        assert _rel(g, r) <= TOL
+
+
+@pytest.mark.parametrize("shape", [(256, 4, 257), (1024, 4, 16),
+                                   (512, 3, 5)])
+def test_tc_xct_multi_matches_plain(dev, shape):
+    """row 13's half-CT width W = 257 (zero-filled tiles at the ragged
+    edge), R = 8 (the 1024^3 chain's x pass), rows that are not 16-byte
+    aligned (3 x 5); forward on data with a mean, the dual inverse with
+    the 1/k^2 fold"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    N0, n1, W = shape
+    pr, pi, _ = _fft_inputs(31, shape, dev)
+    pr = (pr + 4.0).contiguous()
+    rng = np.random.RandomState(32)
+    k2 = [rng.uniform(0.0, 2.0, m).astype('f4') for m in shape]
+    for t in k2:
+        t[0] = 0.0
+    wi = fm._ct_inv_mats_np(N0)
+    for kw in (dict(wx=fm._ct_fwd_mats_np(N0), scale=1.0 / N0),
+               dict(wx=wi, scale=1.0, inverse=True,
+                    wx2=fm._ct_inv_mats_np(N0, fold_kvec=_sl(N0)), k2=k2)):
+        got = fm._xct_call_multi(pr, pi, impl='cuda', **kw)
+        ref = fm._xct_call_multi(pr, pi, impl='torch', **kw)
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            assert _rel(g, r) <= TOL
+
+
+def _bf16_storage_ok(got, ref, got32, ref32, share=1e-3):
+    """chip_smoke.py's bf16 storage criterion: bitwise equal but for at
+    most ``share`` of the entries, none more than one bf16 ulp beyond
+    the gap of the two f32 sums it rounds"""
+    for g, r, g32, r32 in zip(got, ref, got32, ref32):
+        assert g.dtype == r.dtype == torch.bfloat16
+        gf, rf = g.float(), r.float()
+        m = torch.maximum(gf.abs(), rf.abs())
+        ulp = torch.exp2(torch.floor(torch.log2(
+            torch.where(m > 0, m, torch.ones_like(m)))) - 7)
+        assert float((gf != rf).float().mean()) <= share
+        assert int(((gf - rf).abs() > ulp + (g32 - r32).abs()).sum()) == 0
+
+
+def test_tc_bf16_storage_matches_plain(dev):
+    """the bf16s form (bf16 loads upcast, f32 products, each store
+    rounded once) of both entry points: bitwise the f32 form's output on
+    the same values rounded to bf16, and the f32 form within TOL of the
+    plain version"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    bf = torch.bfloat16
+    x = _fft_inputs(33, (4, 512, 512), dev)[0]
+    wz, wy = fm._z_fwd_tabs(512, 256), fm._ct_fwd_mats_np(512)
+
+    def zy(impl, dt):
+        return fm._zy_fwd_ct2_call(x, 512, 256, wz, wy, out_dtype=dt,
+                                   impl=impl)[:2]
+
+    def check(got16, got32, ref32):
+        for g16, g32, r32 in zip(got16, got32, ref32):
+            assert g16.dtype == bf
+            assert torch.equal(g16, g32.to(bf))
+            assert _rel(g32, r32) <= TOL
+    check(zy('cuda', bf), zy('cuda', None), zy('torch', None))
+    pr, pi = zy('cuda', bf)
+    pr, pi = pr.transpose(0, 1).contiguous(), pi.transpose(0, 1).contiguous()
+    wi = fm._ct_inv_mats_np(512)
+    for kw in (dict(wx=wy, scale=1.0 / 512),
+               dict(wx=wi, scale=1.0, inverse=True, wx2=wi)):
+        def xp(impl, a, b, dt):
+            return fm._xct_call_multi(a, b, out_dtype=dt, impl=impl, **kw)
+        check(xp('cuda', pr, pi, bf), xp('cuda', pr.float(), pi.float(), None),
+              xp('torch', pr.float(), pi.float(), None))
+
+
+def test_tc_force_transposes_card_match_cpu(dev):
+    """the reverse-mode transposes of the mxu force (_MxuForce.backward:
+    one only=d force per direction on a cotangent), card against CPU"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    shape = (256, 256, 16)
+    ct = _fft_inputs(34, shape, dev)
+    out = {}
+    for d in (dev, torch.device('cpu')):
+        pm = ParticleMesh(shape, BoxSize=np.asarray(shape, float),
+                          dtype='f4', device=d)
+        solver = Solver(pm)
+        out[d.type] = [solver._mxu_force_raw(c.to(d).contiguous(),
+                                             (None, None), only=k)
+                       for k, c in enumerate(ct)]
+    for g, r in zip(out['cuda'], out['cpu']):
+        assert _rel(g.cpu(), r) <= TOL
+
+
+def test_bf16_lattice_kernels_match_plain(dev):
+    """the bf16 storage form of the lattice paint and readout: f32
+    weights and sums, each output rounded once, kernel against plain"""
+    from pmesh_tpu_torch.ops import gridpm_cuda
+    bounds = (-1.0, 1.5)
+    disp, mass, meshes = _inputs(35, (24, 20, 36), bounds, dev)
+    bf = torch.bfloat16
+    d16, m16 = tuple(d.to(bf) for d in disp), tuple(m.to(bf) for m in meshes)
+    vmin, vmax = tgp.offset_range(*bounds, 'cic')
+    gridpm_cuda.reset_launches()
+    for mass_ in (None, mass.to(bf)):
+        got = tgp.paint_grid(d16, mass_, bounds, impl='cuda')
+        ref = tgp.paint_grid(d16, mass_, bounds, impl='torch')
+        up = None if mass_ is None else mass_.float()
+        _bf16_storage_ok((got,), (ref,),
+                         (tgp.paint_grid(tuple(d.float() for d in d16), up,
+                                         bounds, impl='cuda'),),
+                         (tgp.paint_grid(tuple(d.float() for d in d16), up,
+                                         bounds, impl='torch'),))
+    got = gridpm_cuda.readout_lattice(m16, d16, vmin, vmax, 'cic')
+    ref = tgp.readout_grid(m16, d16, bounds, impl='torch')
+    f32 = tuple(d.float() for d in d16), tuple(m.float() for m in m16)
+    _bf16_storage_ok(got, ref,
+                     gridpm_cuda.readout_lattice(f32[1], f32[0], vmin, vmax,
+                                                 'cic'),
+                     tgp.readout_grid(f32[1], f32[0], bounds, impl='torch'))
+    assert _launched(gridpm_cuda) == {
+        "paint_lattice_bf16": 2, "readout_lattice_bf16": 1,
+        "paint_lattice": 2, "readout_lattice": 1}
 
 
 @pytest.mark.parametrize("mode,counts", [

@@ -15,6 +15,7 @@ from pmesh_tpu_torch.ops import gridpm as tgp
 torch.set_num_threads(1)
 
 TOL = 1e-6
+BF16_SHARE = 1e-3
 
 
 def _rel(ref, got):
@@ -121,6 +122,36 @@ def test_matches_jax_pallas_interpret():
                            impl='pallas')
     got = tgp.readout_grid(torch.from_numpy(meshes[0]), td, bounds=bounds)
     assert _rel(ref, got) <= TOL
+
+
+def test_bf16_matches_jax_pallas_interpret():
+    """bf16 state and meshes (the TPU kernels' _cdtype form) at 16^3:
+    the JAX package's Pallas kernels (interpret mode) against the port's
+    plain version.  Both compute in f32 and round each output once to
+    bf16, so they differ only where their f32 sums, taken in other
+    orders, round to neighbouring bf16 values: at most one bf16 ulp of
+    the entry, in at most BF16_SHARE of the entries."""
+    bounds = (-1.0, 2.0)
+    disp, mass, meshes = _inputs(5, 16, bounds)
+    bf = jnp.bfloat16
+    jd = tuple(jnp.asarray(d, bf) for d in disp)
+    td = tuple(torch.from_numpy(d).to(torch.bfloat16) for d in disp)
+    cases = (
+        (jgp.paint_grid(jd, mass=jnp.asarray(mass, bf), bounds=bounds,
+                        impl='pallas'),
+         tgp.paint_grid(td, mass=torch.from_numpy(mass).to(torch.bfloat16),
+                        bounds=bounds)),
+        (jgp.readout_grid(jnp.asarray(meshes[0], bf), jd, bounds=bounds,
+                          impl='pallas'),
+         tgp.readout_grid(torch.from_numpy(meshes[0]).to(torch.bfloat16), td,
+                          bounds=bounds)))
+    for ref, got in cases:
+        assert got.dtype == torch.bfloat16
+        ref = np.asarray(jnp.asarray(ref, jnp.float32))
+        got = got.float().numpy()
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 1e-30))) - 7)
+        assert np.all(np.abs(got - ref) <= ulp)
+        assert np.mean(got != ref) <= BF16_SHARE
 
 
 def test_2d_matches_jax():
