@@ -659,8 +659,22 @@ def zy_ops(n0, N1, n2):
     return fft_ops(n2, n0 * N1, real=True) + fft_ops(N1, n0 * (n2 // 2 + 1))
 
 
+def f64_products(fn):
+    """fn('torch') with every product of the plain passes summed in f64
+    (the f32 operands' exact products, each pass's output rounded once
+    to its storage): the checks' reference for how far kernel and plain
+    version each sit from exact products"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    orig = fm._mm
+    fm._mm = lambda a, b, bf16=False: torch.matmul(a.double(), b.double())
+    try:
+        return fn('torch')
+    finally:
+        fm._mm = orig
+
+
 def dft_case(records, kernel, label, fn, reads, ops, library=None,
-             check=None, failed=None):
+             check=None, failed=None, exact=False):
     """one DFT pass, kernel vs plain: fn(impl) gives its output(s),
     ``reads`` are the tensors and tables it reads, ``ops`` the
     operations of the FFTs computing the same transform, ``library`` a call of torch.fft computing the same
@@ -670,13 +684,23 @@ def dft_case(records, kernel, label, fn, reads, ops, library=None,
     both (storage), the same pass in f32; the default is TOL_KERNEL.
     Every case logs its bound; the first case of each kernel is its
     record, later cases add to its error.  A failing case raises, or
-    is appended to ``failed`` when given.  Returns the kernel's output."""
+    is appended to ``failed`` when given.  ``exact``: also hold the
+    kernel's gap to f64 products (``f64_products``) to at most the plain
+    version's.  Returns the kernel's output."""
     plain = fn('torch')
     got = fn('cuda')
     rel, err = max_rel(as_tuple(got), as_tuple(plain))
     if check is None:
         ok = rel <= TOL_KERNEL and np.isfinite(rel)
         text = "max|k-p|/max|p| = %.3e (tol %.0e)" % (rel, TOL_KERNEL)
+        if exact:
+            ref = as_tuple(f64_products(fn))
+            rel_k = max_rel(as_tuple(got), ref)[0]
+            rel_p = max_rel(as_tuple(plain), ref)[0]
+            del ref
+            ok = ok and rel_k <= rel_p
+            text += (", against f64 products kernel %.3e, plain %.3e "
+                     "(kernel at most plain)" % (rel_k, rel_p))
     else:
         criterion, fn32 = check
         twin = ()
@@ -806,8 +830,9 @@ def phase_compare_fft(dev):
     from pmesh_tpu_torch.ops import gridpm as gp
     records = {}
 
-    def case(label, kernel, fn, reads, ops, library=None):
-        return dft_case(records, kernel, label, fn, reads, ops, library)
+    def case(label, kernel, fn, reads, ops, library=None, exact=False):
+        return dft_case(records, kernel, label, fn, reads, ops, library,
+                        exact=exact)
 
     # the N^3 density of a lattice paint, and the solver's tables
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
@@ -833,7 +858,7 @@ def phase_compare_fft(dev):
                       lambda impl: fm._zy_fwd_ct2_call(rho, N, Zm, wz, wf,
                                                        impl=impl),
                       (rho, wz, wf), zy_ops(N, N, N),
-                      lambda: torch.fft.rfftn(rho, dim=(1, 2)))
+                      lambda: torch.fft.rfftn(rho, dim=(1, 2)), exact=True)
     tc_share("zy_fwd_ct2 %d^3" % N, zy_fma(N, N, N),
              cuda_ms(lambda: fm._zy_fwd_ct2_call(rho, N, Zm, wz, wf), 5))
     fft_yardsticks(rho, kd, pk2, "ct2")
@@ -843,7 +868,7 @@ def phase_compare_fft(dev):
                 lambda impl: fm._xct_call_multi(
                     pr, pi, wf, 1.0 / N ** 3, impl=impl),
                 (pr, pi, wf), fft_ops(N, N * Zm),
-                lambda: torch.fft.fft(zc, dim=0))
+                lambda: torch.fft.fft(zc, dim=0), exact=True)
     tc_share("xct_multi forward %d^3" % N, x_fma(N, N * Zm),
              cuda_ms(lambda: fm._xct_call_multi(pr, pi, wf, 1.0 / N ** 3), 5))
     del pr, pi, zc
@@ -852,7 +877,7 @@ def phase_compare_fft(dev):
                               r, i, wi, 1.0, inverse=True, wx2=wx_g, k2=k2m,
                               impl=impl),
                           (r, i, wi, wx_g, k2m), 2 * fft_ops(N, N * Zm),
-                          library_dual_x(r, i, k2m))
+                          library_dual_x(r, i, k2m), exact=True)
     tc_share("xct_multi dual inverse %d^3 (sweeps included)" % N,
              x_fma(N, N * Zm, 2),
              cuda_ms(lambda: fm._xct_call_multi(r, i, wi, 1.0, inverse=True,
@@ -891,7 +916,7 @@ def phase_compare_fft(dev):
                       lambda impl: fm._zy_fwd_ct2_call(
                           x, n2, Zs, wzs, wys, impl=impl),
                       (x, wzs, wys), zy_ops(*MXU_SLAB),
-                      lambda: torch.fft.rfftn(x, dim=(1, 2)))
+                      lambda: torch.fft.rfftn(x, dim=(1, 2)), exact=True)
     tc_share("zy_fwd_ct2 slab %s" % (MXU_SLAB,), zy_fma(*MXU_SLAB),
              cuda_ms(lambda: fm._zy_fwd_ct2_call(x, n2, Zs, wzs, wys), 5))
     case("slab, z-CT inverse, plane", "zy_inv_ct2",

@@ -91,22 +91,29 @@
 //    first element out before the products and adds it back through the
 //    table's row or column sums in the epilogue: the tensor cores
 //    truncate their sums, which is biased, and a large common value (the
-//    mean density in the DC column) made that bias visible at 8e-5 of
-//    max|imag|;
-//  - the operands through cp.async: the table tile into a ring of three
-//    slots, the RAW input rows into a ring of two, 16-byte pieces where
-//    rows are aligned (every ct2 shape of the main path), zero-filled
-//    tiles at a ragged edge (row 13's W = 257), guarded scalar copies
-//    where a row is not 16-byte aligned;
+//    mean density in the DC column) made that bias visible;
+//  - the outputs that carry a mesh's mean (the first QZ modes of z chunk
+//    0, column 0 of the y and x stages) are formed as the plain version
+//    forms them, f32 FMA chains in contraction order: tc_z beside its
+//    products, ct_fwd_col0 after tc_ct's (see their section);
+//  - the operands through cp.async, 16-byte pieces where rows are
+//    aligned (every ct2 shape of the main path), zero-filled tiles at a
+//    ragged edge (row 13's W = 257), guarded scalar copies where a row
+//    is not 16-byte aligned.  The ring is D = TC_DEPTH = 3 slices deep
+//    where it fits: table tiles in D + 1 slots of 18,432 bytes, raw input
+//    rows in D slots (R x 8 KB for an f32 forward, half for bf16), two
+//    operand buffers.  Dynamic shared bytes: tc_ct forward R = 2 159,744,
+//    R = 4 208,896, the inverse 135,168, tc_z 172,032 (Rz = 4) to 221,184
+//    (Rz = 8); the f32 forward at R = 8 would need 307,200 of the 227 KB
+//    and runs 2 deep (223,232: 3 table slots, 2 raw);
 //  - the R-way forward butterfly, the 1/k^2 fold and the split computed
 //    from shared memory into one of two operand buffers while the
 //    tensor cores run the previous slice's products; one barrier per
 //    slice.  The inverse butterfly stays a sweep of its own.
 // ptxas (-O3, sm_90a, on the card): tc_ct 225-255 registers (the R = 8
-// forward at 255 with 4 bytes of spill, the others none), tc_z 172;
-// 1024-1088 bytes of static shared memory beside the dynamic ring (the
-// R = 4 forward 157,696 bytes, R = 8 223,232, the inverse 108,544, tc_z
-// 133,120 at Rz = 4): one block of 8 warps per SM.
+// forward at 255 with 4 bytes of spill, the others none), tc_z 229,
+// ct_fwd_col0 56; static shared memory 1024-1088 bytes (tc_ct) and 6208
+// (tc_z) beside the ring: one block of 8 warps per SM.
 //
 // Every other pass (zy_inv_ct2 and its dual, the dense and row-13
 // passes) runs on cgemm, and so do the bf16 products of every pass.  What
@@ -536,13 +543,14 @@ __global__ void __launch_bounds__(NT) cgemm_bf16(const Op op, const Dims g) {
 // operands sit in shared memory k-contiguous ([row][k], [col][k]) and
 // reach the fragments through ldmatrix.  A slice of the contraction is
 // 16 real columns, i.e. 8 complex data rows.  The operands arrive through
-// cp.async (16-byte pieces, zero-filled past a ragged edge): the table
-// tile of a slice into a ring of three slots, the RAW input rows it needs
-// into a ring of two.  Iteration s waits for slice s + 1, issues the
-// copies of slice s + 2, forms the data operand of slice s + 1 from its
-// raw rows (the R-way butterfly, the fold, the split) into one of two
-// operand buffers and multiplies slice s from the other: one barrier per
-// slice, and one warp's conversion overlaps another's products.
+// cp.async (16-byte pieces, zero-filled past a ragged edge) into a ring
+// D slices deep (tc_pipeline): the table tile of a slice into one of
+// D + 1 slots, the RAW input rows it needs into one of D.  Iteration s
+// waits for slice s + 1, issues the copies of slice s + D, forms the
+// data operand of slice s + 1 from its raw rows (the R-way butterfly,
+// the fold, the split) into one of two operand buffers and multiplies
+// slice s from the other: one barrier per slice, and one warp's
+// conversion overlaps another's products.
 
 constexpr int TC_NT = 256;      // threads: 8 warps, 2 x 4 over the tile
 constexpr int TC_ROWS = 128;    // rows of a block's output tile
@@ -553,7 +561,13 @@ constexpr int TC_DR = TC_BK / 2;  // complex data rows per slice
 constexpr int TC_PK = TC_BK + 8;  // k pitch (bf16) of an operand row:
                                   // 48 bytes, ldmatrix conflict-free
 constexpr int TC_OPND = 3 * TC_ROWS * TC_PK * 2;  // bytes of a split tile
-constexpr int TC_SMEM_MAX = 232448 - 1024;
+// dynamic shared bytes: the opt-in maximum less room for the static
+// arrays (tc_z's 6.2 KB)
+constexpr int TC_SMEM_MAX = 232448 - 7 * 1024;
+// the copies of slice s + TC_DEPTH are issued while slice s is
+// multiplied: TC_DEPTH + 1 table slots, TC_DEPTH raw slots, where they
+// fit in shared memory (else 2: a forward pass at R = 8)
+constexpr int TC_DEPTH = 3;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -713,26 +727,28 @@ __device__ __forceinline__ void tc_mma_slice(TcAcc& acc, const bf16_t* A,
   }
 }
 
-// The slice loop shared by tc_ct and tc_z: table tiles in a ring of 3
-// slots (slice s in slot s % 3), raw rows in a ring of 2 and data
-// operands in 2 buffers (slice s in s % 2).  Iteration s waits for slice
-// s + 1's copies, issues slice s + 2's and multiplies slice s, converting
-// slice s + 1 while the products run.
-template <class Load, class Convert, class Mma>
+// The slice loop shared by tc_ct and tc_z, D copies deep: table tiles in
+// a ring of D + 1 slots (slice s in slot s % (D + 1)), raw rows in a ring
+// of D (s % D) and data operands in 2 buffers (s % 2).  Iteration s waits
+// for slice s + 1's copies (those of s + 2 .. s + D - 1 may still be in
+// flight), issues slice s + D's and multiplies slice s, converting slice
+// s + 1 while the products run.  One commit group per slice.
+template <int D, class Load, class Convert, class Mma>
 __device__ __forceinline__ void tc_pipeline(int nks, const Load& load,
                                             const Convert& convert,
                                             const Mma& mma) {
-  load(0);
-  cp_async_commit();
-  if (nks > 1) load(1);
-  cp_async_commit();
-  cp_async_wait<1>();
+#pragma unroll
+  for (int s = 0; s < D; ++s) {
+    if (s < nks) load(s);
+    cp_async_commit();
+  }
+  cp_async_wait<D - 1>();
   __syncthreads();
   convert(0);
   for (int s = 0; s < nks; ++s) {
-    cp_async_wait<0>();
+    cp_async_wait<D - 2>();
     __syncthreads();
-    if (s + 2 < nks) load(s + 2);
+    if (s + D < nks) load(s + D);
     cp_async_commit();
     mma(s, [&] {
       if (s + 1 < nks) convert(s + 1);
@@ -767,14 +783,22 @@ struct TcCt {
   Butter bt;
 };
 
-// shared bytes of tc_ct: the table ring, the raw ring, the operands
+// shared bytes of a ring D deep over raw slots of raw_b bytes: the
+// table ring, the raw ring, the operands
+__host__ __device__ constexpr long long tc_ring_bytes(int D, long long raw_b) {
+  return (D + 1LL) * TC_OPND + D * raw_b + 2LL * TC_OPND;
+}
+// the deepest ring up to TC_DEPTH that fits
+__host__ __device__ constexpr int tc_depth(long long raw_b) {
+  return tc_ring_bytes(TC_DEPTH, raw_b) <= TC_SMEM_MAX ? TC_DEPTH : 2;
+}
 template <class TI>
 __host__ __device__ constexpr long long tc_ct_raw(int Rr) {
   return (long long)Rr * TC_DR * 2 * TC_COLS * (long long)sizeof(TI);
 }
 template <class TI>
 __host__ __device__ constexpr long long tc_ct_smem(int Rr) {
-  return 3LL * TC_OPND + 2 * tc_ct_raw<TI>(Rr) + 2LL * TC_OPND;
+  return tc_ring_bytes(tc_depth(tc_ct_raw<TI>(Rr)), tc_ct_raw<TI>(Rr));
 }
 
 // RR: the R of a forward pass (R raw rows per data row, summed by the
@@ -789,9 +813,10 @@ __global__ void __launch_bounds__(TC_NT) tc_ct(const TcCt<TI, TO> p) {
   constexpr int PCS = TC_COLS / EP;          // pieces per raw row
   constexpr int RSTEP = TC_NT / (2 * PCS);   // raw rows a pass of threads covers
   constexpr long long raw_b = tc_ct_raw<TI>(Rr);
+  constexpr int D = tc_depth(raw_b);
   bf16_t* tabs = reinterpret_cast<bf16_t*>(tc_smem);
-  unsigned char* raws = tc_smem + 3 * TC_OPND;
-  bf16_t* ops = reinterpret_cast<bf16_t*>(raws + 2 * raw_b);
+  unsigned char* raws = tc_smem + (D + 1) * TC_OPND;
+  bf16_t* ops = reinterpret_cast<bf16_t*>(raws + D * raw_b);
 
   long long b = blockIdx.x;
   const int t = (int)(b % p.T);
@@ -815,9 +840,9 @@ __global__ void __launch_bounds__(TC_NT) tc_ct(const TcCt<TI, TO> p) {
   const bool pin = n0 + pc * EP < p.ncols;
   const TI* psrc = (part ? p.xi : p.xr) + obase + n0 + pc * EP;
   auto load = [&](int s) {
-    load_table(tabs + (s % 3) * (TC_OPND / 2),
+    load_table(tabs + (s % (D + 1)) * (TC_OPND / 2),
                tsrc + (long long)s * (3 * TC_ROWS * TC_BK), tid);
-    TI* raw = reinterpret_cast<TI*>(raws + (s % 2) * raw_b);
+    TI* raw = reinterpret_cast<TI*>(raws + (s % D) * raw_b);
 #pragma unroll
     for (int i = 0; i < Rr * TC_DR / RSTEP; ++i) {
       const int rr = rr0 + i * RSTEP;
@@ -881,7 +906,7 @@ __global__ void __launch_bounds__(TC_NT) tc_ct(const TcCt<TI, TO> p) {
   __shared__ float col0[2][TC_COLS];
   float c0r = 0.f, c0i = 0.f;
   auto convert = [&](int s) {
-    const TI* raw = reinterpret_cast<const TI*>(raws + (s % 2) * raw_b);
+    const TI* raw = reinterpret_cast<const TI*>(raws + (s % D) * raw_b);
     if (s == 0 && !INV) {
       data(raw, 0, 0, std::integral_constant<int, 1>(), &c0r, &c0i);
       if (m4 == 0) {
@@ -905,10 +930,10 @@ __global__ void __launch_bounds__(TC_NT) tc_ct(const TcCt<TI, TO> p) {
   TcAcc acc;
   zero_acc(acc);
   auto mma = [&](int s, const auto& mid) {
-    tc_mma_slice(acc, tabs + (s % 3) * (TC_OPND / 2),
+    tc_mma_slice(acc, tabs + (s % (D + 1)) * (TC_OPND / 2),
                  ops + (s % 2) * (TC_OPND / 2), wm, wn, lane, mid);
   };
-  tc_pipeline(p.nks, load, convert, mma);
+  tc_pipeline<D>(p.nks, load, convert, mma);
 
   // rows [0, 64) of the tile are real parts (warps of wm = 0), the rest
   // imaginary; each output gets back c sum_m W[q, m]
@@ -942,6 +967,151 @@ __global__ void __launch_bounds__(TC_NT) tc_ct(const TcCt<TI, TO> p) {
     }
 }
 
+// --- the outputs that carry the mean, summed as the plain version does ---
+//
+// On a mesh with a large mean (a density, 1 + delta), a few outputs of
+// the forward passes are long sums of large, nearly cancelling terms:
+// the first modes of z chunk 0 (whose butterfly sums the whole row, so
+// its data carries Rz times the mean) and column 0 of the y and x CT
+// stages (the kz = 0 column and the ky = kz = 0 line, which hold row and
+// plane sums).  A sequential f32 sum rounds them by up to 4e-4 of
+// max|imag| of the spectrum at (512, 256, 1024) (tools/plain_f32_gap.py);
+// the split products round them far less, so kernel and plain version
+// would differ there by the f32 sum's own error.  The passes form these
+// outputs as the plain version (ops/fft_mxu.py) does, tc_z beside its
+// products (the chunk-0 blocks of the first mode tile) and ct_fwd_col0
+// after tc_ct's: its butterfly term by term (a coefficient
+// of +-1 exact, |c| < 1e-30 skipped, no fused multiply-add), each real
+// product one f32 fused multiply-add chain in contraction order (as
+// torch.matmul's sgemm sums, and cgemm did), the complex parts combined
+// and scaled after.  Elsewhere the f32 sums round less, and the split
+// products stay within 1e-5 of them.  QZ chunk-0 modes (z = 0, Rz, ...,
+// (QZ - 1) Rz; stored columns [0, QZ)) are formed so: past them the f32
+// sums round by less than 1e-6 of max|imag| (tools/plain_f32_gap.py,
+// on the CPU at (512, 256, 1024)).
+constexpr int QZ = 8;
+
+// b + coef * a, as the plain butterfly (_cmadd) adds a term
+__device__ __forceinline__ float bterm(float b, float coef, float a) {
+  if (fabsf(coef) < 1e-30f) return b;
+  const float t = coef == 1.f ? a : (coef == -1.f ? -a : __fmul_rn(a, coef));
+  return __fadd_rn(b, t);
+}
+
+constexpr int C0_G = 4;     // outer blocks per ct_fwd_col0 block
+constexpr int C0_Q = 256;   // outputs q per pass over the table (2 per thread)
+constexpr int C0_MT = 16;   // table columns m per staged tile
+
+// dynamic shared bytes of ct_fwd_col0: u of C0_G blocks, one table tile
+__host__ __device__ constexpr long long col0_smem(int M) {
+  return (2LL * C0_G * M + 2LL * C0_Q * (C0_MT + 1)) * 4;
+}
+
+// column 0 of a forward CT stage over (nouter, R M, ncols) blocks, for C0_G
+// blocks o and one chunk j per block of 128 threads: u[m] = sum_r b[r][j]
+// fold(x[o, r M + m, 0]), then out[o, j M + q, 0] = scale (sum_m wr[q, m]
+// ur[m] - sum_m wi[q, m] ui[m]) + i scale (sum_m wr[q, m] ui[m] + sum_m
+// wi[q, m] ur[m]), (wr, wi) the (R, M, M) tables, staged through shared
+// memory C0_MT columns at a time (M a multiple of 16, rows 16-byte
+// aligned); fold as the plain version's: times 1/k^2 (0 at k^2 = 0) of
+// row r M + m, k^2 = (k2x + k2y[0]) + k2z[0], when k2x is set
+template <class TI, class TO>
+__global__ void __launch_bounds__(128)
+    ct_fwd_col0(const TI* xr, const TI* xi, const float* __restrict__ wr,
+                const float* __restrict__ wi, TO* outr, TO* outi,
+                const float* k2x, const float* k2y, const float* k2z,
+                long long nouter, long long ostride, int M, int R, int ncols,
+                float scale, Butter bt) {
+  constexpr int PT = C0_MT + 1;  // tile pitch: conflict-free column reads
+  extern __shared__ float c0_smem[];
+  float* u = c0_smem;                 // [g][ur | ui][M]
+  float* tw = c0_smem + 2 * C0_G * M;  // [wr | wi][C0_Q][PT]
+  const long long o0 = (long long)blockIdx.x * C0_G;
+  const int j = blockIdx.y, tid = threadIdx.x;
+  const int G = (int)min((long long)C0_G, nouter - o0);
+  for (int e = tid; e < C0_G * M; e += blockDim.x) {
+    const int g = e / M, m = e % M;
+    float ar = 0.f, ai = 0.f;
+    if (g < G) {
+      const long long base = (o0 + g) * ostride;
+      for (int r = 0; r < R; ++r) {
+        const long long a = base + (long long)(r * M + m) * ncols;
+        float vr = ldv(xr, a), vi = ldv(xi, a);
+        if (k2x != nullptr) {
+          const float kk =
+              __fadd_rn(__fadd_rn(k2x[r * M + m], k2y[0]), k2z[0]);
+          const float f = kk > 0.f ? __frcp_rn(kk) : 0.f;
+          vr = __fmul_rn(vr, f);
+          vi = __fmul_rn(vi, f);
+        }
+        const float cr = bt.r[r][j], ci = bt.i[r][j];
+        ar = bterm(bterm(ar, cr, vr), -ci, vi);
+        ai = bterm(bterm(ai, ci, vr), cr, vi);
+      }
+    }
+    u[2 * g * M + m] = ar;
+    u[(2 * g + 1) * M + m] = ai;
+  }
+  for (int q0 = 0; q0 < M; q0 += C0_Q) {
+    float acc[C0_G][2][4];  // [g][q][sum wr ur, wi ui, wr ui, wi ur]
+#pragma unroll
+    for (int g = 0; g < C0_G; ++g)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[g][i][c] = 0.f;
+    for (int m0 = 0; m0 < M; m0 += C0_MT) {
+      __syncthreads();
+      for (int e = tid; e < 2 * C0_Q * (C0_MT / 4); e += blockDim.x) {
+        const int h = e / (C0_Q * (C0_MT / 4)), rq = (e / (C0_MT / 4)) % C0_Q,
+                  c4 = e % (C0_MT / 4);
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (q0 + rq < M)
+          v = __ldg(reinterpret_cast<const float4*>(
+                        (h ? wi : wr) + ((long long)j * M + q0 + rq) * M +
+                        m0) +
+                    c4);
+        float* d = tw + (h * C0_Q + rq) * PT + c4 * 4;
+        d[0] = v.x;
+        d[1] = v.y;
+        d[2] = v.z;
+        d[3] = v.w;
+      }
+      __syncthreads();
+      for (int mm = 0; mm < C0_MT; ++mm) {
+        const int m = m0 + mm;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int rq = tid + 128 * i;
+          const float ra = tw[rq * PT + mm], rb = tw[(C0_Q + rq) * PT + mm];
+#pragma unroll
+          for (int g = 0; g < C0_G; ++g) {
+            const float ur = u[2 * g * M + m], ui = u[(2 * g + 1) * M + m];
+            acc[g][i][0] = fmaf(ra, ur, acc[g][i][0]);
+            acc[g][i][1] = fmaf(rb, ui, acc[g][i][1]);
+            acc[g][i][2] = fmaf(ra, ui, acc[g][i][2]);
+            acc[g][i][3] = fmaf(rb, ur, acc[g][i][3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q = q0 + tid + 128 * i;
+#pragma unroll
+      for (int g = 0; g < C0_G; ++g)
+        if (q < M && g < G) {
+          const long long at =
+              (o0 + g) * ostride + (long long)(j * M + q) * ncols;
+          stv(outr, at,
+              __fmul_rn(__fsub_rn(acc[g][i][0], acc[g][i][1]), scale));
+          stv(outi, at,
+              __fmul_rn(__fadd_rn(acc[g][i][2], acc[g][i][3]), scale));
+        }
+    }
+  }
+}
+
 // The z forward (data = A): chunk p of (rows, N2) real x, u[m, k] =
 // sum_r c[r][p] x[m, r*K + k] (Rz = 1, c = 1: the dense half-DFT), times
 // the chunk's (K x nmodes) complex table into columns [p*nmodes,
@@ -951,6 +1121,7 @@ struct TcZ {
   const float* x;
   const bf16_t* tab;  // (Rz, T, nks, 3, TC_COLS, TC_BK)
   const float* csum;  // (Rz, nmodes, 2): sum_k E_p[k, mode]
+  const float *er, *ei;  // chunk 0's f32 (K, nmodes) tables
   float *sr, *si;
   long long rows;
   int N2, Rz, K, nmodes, Zm, T, nks, aligned;
@@ -960,18 +1131,21 @@ struct TcZ {
 __host__ __device__ constexpr long long tc_z_raw(int Rz) {
   return (long long)TC_ROWS * (Rz * TC_DR + 8) * 4;
 }
+// tc_z's ring is TC_DEPTH deep at every Rz
+static_assert(tc_depth(tc_z_raw(kMaxR)) == TC_DEPTH, "the tc_z ring fits");
 __host__ __device__ constexpr long long tc_z_smem(int Rz) {
-  return 3LL * TC_OPND + 2 * tc_z_raw(Rz) + 2LL * TC_OPND;
+  return tc_ring_bytes(TC_DEPTH, tc_z_raw(Rz));
 }
 
 __global__ void __launch_bounds__(TC_NT) tc_z(const TcZ p) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
   __shared__ float coef_r[kMaxR], coef_i[kMaxR];
   const int RP = p.Rz * TC_DR + 8;  // raw row pitch (floats)
+  constexpr int D = TC_DEPTH;
   const long long raw_b = tc_z_raw(p.Rz);
   bf16_t* tabs = reinterpret_cast<bf16_t*>(tc_smem);
-  unsigned char* raws = tc_smem + 3 * TC_OPND;
-  bf16_t* ops = reinterpret_cast<bf16_t*>(raws + 2 * raw_b);
+  unsigned char* raws = tc_smem + (D + 1) * TC_OPND;
+  bf16_t* ops = reinterpret_cast<bf16_t*>(raws + D * raw_b);
 
   long long b = blockIdx.x;
   const int t = (int)(b % p.T);
@@ -987,9 +1161,9 @@ __global__ void __launch_bounds__(TC_NT) tc_z(const TcZ p) {
       p.tab + (long long)(pc * p.T + t) * p.nks * (3 * TC_COLS * TC_BK);
 
   auto load = [&](int s) {
-    load_table(tabs + (s % 3) * (TC_OPND / 2),
+    load_table(tabs + (s % (D + 1)) * (TC_OPND / 2),
                tsrc + (long long)s * (3 * TC_COLS * TC_BK), tid);
-    float* raw = reinterpret_cast<float*>(raws + (s % 2) * raw_b);
+    float* raw = reinterpret_cast<float*>(raws + (s % D) * raw_b);
     const int per = p.Rz * (TC_DR / 4);  // 16-byte pieces per raw row
     for (int e = tid; e < TC_ROWS * per; e += TC_NT) {
       const int mr = e / per, r = (e % per) / (TC_DR / 4), k4 = e % (TC_DR / 4);
@@ -1013,8 +1187,31 @@ __global__ void __launch_bounds__(TC_NT) tc_z(const TcZ p) {
   const int mr = tid / 2, k0 = (tid % 2) * 4;
   __shared__ float row0[2][TC_ROWS];
   float c0r = 0.f, c0i = 0.f;
+  // the blocks of chunk 0's first mode tile also form its modes [0, nq)
+  // as the plain version does: each row's u (the row's sum over the
+  // chunks) through shared memory to the row's first thread, which runs
+  // one f32 FMA chain per output in k order
+  const bool mean = pc == 0 && t == 0;
+  const int nq = min(QZ, p.nmodes);
+  __shared__ float u0s[TC_ROWS][TC_DR];
+  // (er, ei)[k, q < QZ] of slice s in etab[s % 2], staged during the
+  // conversion of slice s - 1 (zero past K and nq)
+  __shared__ float etab[2][TC_DR][2][QZ];
+  auto etab_load = [&](int s) {
+    if (tid < TC_DR * 2 * QZ) {
+      const int kk = tid / (2 * QZ), h = (tid / QZ) % 2, q = tid % QZ;
+      const int k = s * TC_DR + kk;
+      etab[s % 2][kk][h][q] =
+          k < p.K && q < nq ? (h ? p.ei : p.er)[(long long)k * p.nmodes + q]
+                            : 0.f;
+    }
+  };
+  if (mean) etab_load(0);
+  float mzr[QZ], mzi[QZ];
+#pragma unroll
+  for (int q = 0; q < QZ; ++q) mzr[q] = mzi[q] = 0.f;
   auto convert = [&](int s) {
-    const float* raw = reinterpret_cast<const float*>(raws + (s % 2) * raw_b);
+    const float* raw = reinterpret_cast<const float*>(raws + (s % D) * raw_b);
     float ur[4] = {0.f, 0.f, 0.f, 0.f}, ui[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < kMaxR; ++r) {
@@ -1044,6 +1241,25 @@ __global__ void __launch_bounds__(TC_NT) tc_z(const TcZ p) {
         }
       }
     }
+    if (mean) {
+      if (s + 1 < p.nks) etab_load(s + 1);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) u0s[mr][k0 + q] = ur[q];
+      __syncwarp();
+      if (k0 == 0) {
+        const float(*e)[2][QZ] = etab[s % 2];
+        for (int kk = 0; kk < TC_DR; ++kk) {
+          if (s * TC_DR + kk >= p.K) break;
+          const float u = u0s[mr][kk];
+#pragma unroll
+          for (int q = 0; q < QZ; ++q)
+            if (q < nq) {
+              mzr[q] = fmaf(u, e[kk][0][q], mzr[q]);
+              mzi[q] = fmaf(u, e[kk][1][q], mzi[q]);
+            }
+        }
+      }
+    }
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       ur[q] -= c0r;
@@ -1059,9 +1275,9 @@ __global__ void __launch_bounds__(TC_NT) tc_z(const TcZ p) {
   zero_acc(acc);
   auto mma = [&](int s, const auto& mid) {
     tc_mma_slice(acc, ops + (s % 2) * (TC_OPND / 2),
-                 tabs + (s % 3) * (TC_OPND / 2), wm, wn, lane, mid);
+                 tabs + (s % (D + 1)) * (TC_OPND / 2), wm, wn, lane, mid);
   };
-  tc_pipeline(p.nks, load, convert, mma);
+  tc_pipeline<D>(p.nks, load, convert, mma);
 
   // columns [0, 64) of the tile are real parts (warps of wn < 64); each
   // output gets back c sum_k E[k, mode]
@@ -1096,6 +1312,18 @@ __global__ void __launch_bounds__(TC_NT) tc_z(const TcZ p) {
                 m < p.rows && mode < p.nmodes,
                 m < p.rows && mode + 1 < p.nmodes);
       }
+  }
+  // the mean's modes over the products' values
+  if (mean) {
+    __syncthreads();
+    const long long m = m0 + mr;
+    if (k0 == 0 && m < p.rows)
+#pragma unroll
+      for (int q = 0; q < QZ; ++q)
+        if (q < nq) {
+          p.sr[m * p.Zm + q] = mzr[q];
+          p.si[m * p.Zm + q] = mzi[q];
+        }
   }
 }
 
@@ -1387,12 +1615,9 @@ int cdiv_ll(long long a, long long b) { return (int)((a + b - 1) / b); }
     if (e_ != cudaSuccess) return (int)e_; \
   } while (0)
 
-// one product of the pass: cgemm, or cgemm_bf16 for the bf16 form
-template <class Op, bool DUAL, bool A_REAL, bool OUT_REAL>
-cudaError_t launch_gemm(const Op& op, int nouter, int nj, long long M,
-                        long long N, int K, bool m_fast, bool bf16,
-                        cudaStream_t stream) {
-  Dims g;
+// the grid of a product: false if it does not fit the launch limits
+bool gemm_dims(Dims& g, int nouter, int nj, long long M, long long N, int K,
+               bool m_fast, long long& blocks) {
   g.M = (int)M;
   g.N = (int)N;
   g.K = K;
@@ -1400,15 +1625,38 @@ cudaError_t launch_gemm(const Op& op, int nouter, int nj, long long M,
   g.tiles_m = cdiv_ll(M, BM);
   g.tiles_n = cdiv_ll(N, BN);
   g.m_fast = m_fast ? 1 : 0;
-  const long long blocks = (long long)g.tiles_m * g.tiles_n * nj * nouter;
-  if (M > INT32_MAX || N > INT32_MAX || blocks > INT32_MAX)
+  blocks = (long long)g.tiles_m * g.tiles_n * nj * nouter;
+  return M <= INT32_MAX && N <= INT32_MAX && blocks <= INT32_MAX;
+}
+
+// one product of a pass on cgemm_bf16 (the bf16 form)
+template <class Op, bool DUAL, bool A_REAL, bool OUT_REAL>
+cudaError_t launch_gemm_bf16(const Op& op, int nouter, int nj, long long M,
+                             long long N, int K, bool m_fast,
+                             cudaStream_t stream) {
+  Dims g;
+  long long blocks;
+  if (!gemm_dims(g, nouter, nj, M, N, K, m_fast, blocks))
     return cudaErrorInvalidValue;
+  cgemm_bf16<Op, DUAL, A_REAL, OUT_REAL>
+      <<<(unsigned)blocks, NT, 0, stream>>>(op, g);
+  return cudaGetLastError();
+}
+
+// one product of a pass: cgemm, or cgemm_bf16 for the bf16 form
+template <class Op, bool DUAL, bool A_REAL, bool OUT_REAL>
+cudaError_t launch_gemm(const Op& op, int nouter, int nj, long long M,
+                        long long N, int K, bool m_fast, bool bf16,
+                        cudaStream_t stream) {
   if (bf16)
-    cgemm_bf16<Op, DUAL, A_REAL, OUT_REAL>
-        <<<(unsigned)blocks, NT, 0, stream>>>(op, g);
-  else
-    cgemm<Op, DUAL, A_REAL, OUT_REAL>
-        <<<(unsigned)blocks, NT, 0, stream>>>(op, g);
+    return launch_gemm_bf16<Op, DUAL, A_REAL, OUT_REAL>(op, nouter, nj, M, N,
+                                                        K, m_fast, stream);
+  Dims g;
+  long long blocks;
+  if (!gemm_dims(g, nouter, nj, M, N, K, m_fast, blocks))
+    return cudaErrorInvalidValue;
+  cgemm<Op, DUAL, A_REAL, OUT_REAL><<<(unsigned)blocks, NT, 0, stream>>>(op,
+                                                                         g);
   return cudaGetLastError();
 }
 
@@ -1489,16 +1737,17 @@ cudaError_t y_forward(const float* xr, const float* xi, const float* wyr,
       op, n0, Ry, My, ncols, My, true, bf16, stream);
 }
 
-// the x CT of pmesh_xct_multi with the spectra stored as TS: the inverse
-// writes its products to (p1, p2), f32 (the output itself for f32
-// storage, the scratch for bf16), and the sweep stores the output
+// the x CT of pmesh_xct_multi in the bf16 products form (cgemm_bf16),
+// the spectra stored as TS (the f32 products run on x_ct_tc): the
+// inverse writes its products to (p1, p2), f32 (the output itself for
+// f32 storage, the scratch for bf16), and the sweep stores the output
 template <class TS>
 cudaError_t x_ct(const TS* xr, const TS* xi, const float* wr,
                  const float* wi, const float* w2r, const float* w2i,
                  const float* k2x, const float* k2y, const float* k2z,
                  TS* o1r, TS* o1i, TS* o2r, TS* o2i, float* s1r, float* s1i,
                  float* s2r, float* s2i, int n1, int W, int R, int M,
-                 bool inverse, float scale, const Butter& bt, bool bf16,
+                 bool inverse, float scale, const Butter& bt,
                  cudaStream_t stream) {
   const long long ncols = (long long)n1 * W;
   if (ncols > INT32_MAX) return cudaErrorInvalidValue;
@@ -1508,10 +1757,10 @@ cudaError_t x_ct(const TS* xr, const TS* xi, const float* wr,
                               k2x, k2y, k2z, 0, M, R, (int)ncols, W, scale,
                               bt};
     if (dual)
-      return launch_gemm<CtOp<false, TS, TS>, true, false, false>(
-          op, 1, R, M, ncols, M, true, bf16, stream);
-    return launch_gemm<CtOp<false, TS, TS>, false, false, false>(
-        op, 1, R, M, ncols, M, true, bf16, stream);
+      return launch_gemm_bf16<CtOp<false, TS, TS>, true, false, false>(
+          op, 1, R, M, ncols, M, true, stream);
+    return launch_gemm_bf16<CtOp<false, TS, TS>, false, false, false>(
+        op, 1, R, M, ncols, M, true, stream);
   }
   float *p1r, *p1i, *p2r, *p2i;
   if constexpr (std::is_same<TS, float>::value) {
@@ -1529,11 +1778,11 @@ cudaError_t x_ct(const TS* xr, const TS* xi, const float* wr,
                               k2x, k2y, k2z, 0, M, R, (int)ncols, W, 1.f,
                               bt};
   if (dual)
-    PMESH_TRY_E((launch_gemm<CtOp<true, TS, float>, true, false, false>(
-        op, 1, R, M, ncols, M, true, bf16, stream)));
+    PMESH_TRY_E((launch_gemm_bf16<CtOp<true, TS, float>, true, false, false>(
+        op, 1, R, M, ncols, M, true, stream)));
   else
-    PMESH_TRY_E((launch_gemm<CtOp<true, TS, float>, false, false, false>(
-        op, 1, R, M, ncols, M, true, bf16, stream)));
+    PMESH_TRY_E((launch_gemm_bf16<CtOp<true, TS, float>, false, false, false>(
+        op, 1, R, M, ncols, M, true, stream)));
   PMESH_TRY_E(launch_butterfly(p1r, p1i, o1r, o1i, 1, 0, M, R, (int)ncols,
                                scale, bt, stream));
   if (!dual) return cudaSuccess;
@@ -1586,9 +1835,10 @@ cudaError_t launch_tc_ct(TcCt<TI, TO> p, long long nouter,
 
 // the z forward of (rows, N2) real x into the f32 (sr, si) (rows, N2/2):
 // zct = 1: the (Rz, Kz, Mq) z-CT chunks with coefficients zcoef; zct = 0:
-// the dense (N2, N2/2) half-DFT; tz: the split block table (bf16)
-cudaError_t z_forward_tc(const void* tz, const float* zsum, const float* x,
-                         int zct, int Rz,
+// the dense (N2, N2/2) half-DFT; tz: the split block table (bf16), (wzr,
+// wzi) the f32 tables (for the mean's modes)
+cudaError_t z_forward_tc(const void* tz, const float* zsum, const float* wzr,
+                         const float* wzi, const float* x, int zct, int Rz,
                          int Kz, int Mq, const float* zcoef, float* sr,
                          float* si, long long rows, int N2,
                          cudaStream_t stream) {
@@ -1596,6 +1846,8 @@ cudaError_t z_forward_tc(const void* tz, const float* zsum, const float* x,
   p.x = x;
   p.tab = (const bf16_t*)tz;
   p.csum = zsum;
+  p.er = wzr;
+  p.ei = wzi;
   p.sr = sr;
   p.si = si;
   p.rows = rows;
@@ -1626,12 +1878,35 @@ cudaError_t z_forward_tc(const void* tz, const float* zsum, const float* x,
   return cudaGetLastError();
 }
 
+// column 0 of a forward CT stage (see ct_fwd_col0) after its products
+template <class TI, class TO>
+cudaError_t launch_col0(const TI* xr, const TI* xi, const float* wr,
+                        const float* wi, TO* outr, TO* outi,
+                        const float* k2x, const float* k2y, const float* k2z,
+                        long long nouter, long long ostride, int M, int R,
+                        int ncols, float scale, const Butter& bt,
+                        cudaStream_t stream) {
+  const long long blocks = (nouter + C0_G - 1) / C0_G;
+  const long long smem = col0_smem(M);
+  if (blocks > INT32_MAX || M % C0_MT || smem > TC_SMEM_MAX)
+    return cudaErrorInvalidValue;
+  if (smem > 48 * 1024)
+    PMESH_TRY_E(cudaFuncSetAttribute(
+        ct_fwd_col0<TI, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem));
+  ct_fwd_col0<TI, TO><<<dim3((unsigned)blocks, R), 128, (size_t)smem,
+                        stream>>>(xr, xi, wr, wi, outr, outi, k2x, k2y, k2z,
+                                  nouter, ostride, M, R, ncols, scale, bt);
+  return cudaGetLastError();
+}
+
 // the forward y CT of the f32 (n0, N1, ncols) z spectrum (xr, xi) into
 // (outr, outi) (storage TO), chunk-permuted along y; ty: the split block
-// table (bf16)
+// table (bf16), (wyr, wyi) the f32 tables (for column 0)
 template <class TO>
 cudaError_t y_forward_tc(const float* xr, const float* xi, const void* ty,
-                         const float* ysum, const float* ycoef, TO* outr,
+                         const float* ysum, const float* wyr,
+                         const float* wyi, const float* ycoef, TO* outr,
                          TO* outi,
                          int n0, int N1, int ncols, int Ry, int My,
                          cudaStream_t stream) {
@@ -1650,7 +1925,10 @@ cudaError_t y_forward_tc(const float* xr, const float* xi, const void* ty,
   p.T = p.T1 = My / TC_MODES;
   p.scale = 1.f;
   p.bt = make_butter(ycoef, Ry);
-  return launch_tc_ct<false>(p, n0, stream);
+  PMESH_TRY_E(launch_tc_ct<false>(p, n0, stream));
+  return launch_col0(xr, xi, wyr, wyi, outr, outi, (const float*)nullptr,
+                     (const float*)nullptr, (const float*)nullptr, n0,
+                     p.ostride, My, Ry, ncols, 1.f, p.bt, stream);
 }
 
 // the x CT of pmesh_xct_multi on the tensor cores, spectra stored as TS:
@@ -1658,8 +1936,8 @@ cudaError_t y_forward_tc(const float* xr, const float* xi, const void* ty,
 // storage, the scratch for bf16) and the sweep stores the output
 template <class TS>
 cudaError_t x_ct_tc(const TS* xr, const TS* xi, const void* tab_,
-                    const float* rsum,
-                    const float* k2x, const float* k2y, const float* k2z,
+                    const float* rsum, const float* wr, const float* wi,
+                    const float* w2r, const float* w2i, const float* k2x, const float* k2y, const float* k2z,
                     TS* o1r, TS* o1i, TS* o2r, TS* o2i, float* s1r,
                     float* s1i, float* s2r, float* s2i, int n1, int W, int R,
                     int M, bool inverse, float scale, const Butter& bt,
@@ -1673,7 +1951,12 @@ cudaError_t x_ct_tc(const TS* xr, const TS* xi, const void* tab_,
     TcCt<TS, TS> p = {xr, xi, tab, rsum, o1r, o1i, o2r, o2i, k2x, k2y, k2z,
                       0, M, R, (int)ncols, W, dual ? 2 * T1 : T1, T1, 0, 0,
                       scale, bt};
-    return launch_tc_ct<false>(p, 1, stream);
+    PMESH_TRY_E(launch_tc_ct<false>(p, 1, stream));
+    PMESH_TRY_E(launch_col0(xr, xi, wr, wi, o1r, o1i, k2x, k2y, k2z, 1, 0, M,
+                            R, (int)ncols, scale, bt, stream));
+    if (!dual) return cudaSuccess;
+    return launch_col0(xr, xi, w2r, w2i, o2r, o2i, k2x, k2y, k2z, 1, 0, M, R,
+                       (int)ncols, scale, bt, stream);
   }
   float *p1r, *p1i, *p2r, *p2i;
   if constexpr (std::is_same<TS, float>::value) {
@@ -1763,11 +2046,12 @@ const char* pmesh_cuda_error_string(int code) {
 // x (n0, N1, N2) real -> (outr, outi) (n0, N1, Zm), nq (n0, N1).
 // zct = 0: the dense (N2, Zm) half-DFT; zct = 1: the (Rz, Kz, Mq) z-CT
 // with zcoef the (Rz, Rz, 2) chunk coefficients c[r][p]; the y CT by
-// (Ry, My, My) tables, ycoef (Ry, Ry, 2) = b[r][j].  f32 products (bf16
-// = 0): tz and ty are the split block tables (bf16) of tc_z and tc_ct,
+// (Ry, My, My) tables, ycoef (Ry, Ry, 2) = b[r][j]: the complex pairs
+// (wzr, wzi) and (wyr, wyi), which the bf16 products (bf16 = 1) multiply
+// and the f32 products sum the mean's outputs by.  f32 products (bf16 =
+// 0): tz and ty are the split block tables (bf16) of tc_z and tc_ct,
 // zsum (Rz, Mq, 2) [(1, Zm, 2)] and ysum (1, Ry, My, 2) the f32 column
-// and row sums of the z and y tables; the bf16 products (bf16 = 1) take
-// the complex pairs (wzr, wzi) and (wyr, wyi) instead.  (sr, si): (n0, N1, Zm) f32
+// and row sums of the z and y tables.  (sr, si): (n0, N1, Zm) f32
 // scratch for the z stage.  bf16s: (outr, outi) are bf16.
 int pmesh_zy_fwd_ct2(const float* x, const float* wzr, const float* wzi,
                      const void* tz, const float* zsum, int zct, int Rz,
@@ -1787,13 +2071,15 @@ int pmesh_zy_fwd_ct2(const float* x, const float* wzr, const float* wzi,
     PMESH_TRY(cudaGetLastError());
   }
   if (!bf16) {
-    PMESH_TRY(z_forward_tc(tz, zsum, x, zct, Rz, Kz, Mq, zcoef, sr, si,
-                           rows, N2, stream));
+    PMESH_TRY(z_forward_tc(tz, zsum, wzr, wzi, x, zct, Rz, Kz, Mq, zcoef,
+                           sr, si, rows, N2, stream));
     if (bf16s)
-      return (int)y_forward_tc(sr, si, ty, ysum, ycoef, (bf16_t*)outr,
-                               (bf16_t*)outi, n0, N1, Zm, Ry, My, stream);
-    return (int)y_forward_tc(sr, si, ty, ysum, ycoef, (float*)outr,
-                             (float*)outi, n0, N1, Zm, Ry, My, stream);
+      return (int)y_forward_tc(sr, si, ty, ysum, wyr, wyi, ycoef,
+                               (bf16_t*)outr, (bf16_t*)outi, n0, N1, Zm, Ry,
+                               My, stream);
+    return (int)y_forward_tc(sr, si, ty, ysum, wyr, wyi, ycoef,
+                             (float*)outr, (float*)outi, n0, N1, Zm, Ry, My,
+                             stream);
   }
   if (zct) {
     ZFwdCT op = {};
@@ -1825,10 +2111,11 @@ int pmesh_zy_fwd_ct2(const float* x, const float* wzr, const float* wzi,
 // (xr, xi) (N0, n1, W) -> (o1r, o1i) [and (o2r, o2i) when o2r is set]:
 // forward (coef = b[r][j] of W_R^{-rj}) times scale, or inverse (coef =
 // b[r][j] of W_R^{+rj}); the 1/k^2 fold when k2x is set (k2x (N0,),
-// k2y (n1,), k2z (W,), in stored order).  f32 products (bf16 = 0): tab is
-// the split block table (bf16) of tc_ct, both sets, and rsum (sets, R,
-// M, 2) the f32 row sums of each set's tables; the bf16 products
-// take the (R, M, M) pairs (wr, wi) [and (w2r, w2i)].  bf16s:
+// k2y (n1,), k2z (W,), in stored order).  (wr, wi) [and (w2r, w2i)]: the
+// (R, M, M) pairs, which the bf16 products multiply and the f32 forward
+// sums column 0 by.  f32 products (bf16 = 0): tab is the split block
+// table (bf16) of tc_ct, both sets, and rsum (sets, R, M, 2) the f32 row
+// sums of each set's tables.  bf16s:
 // input and outputs are bf16, and the inverse needs the f32 scratch
 // (s1r, s1i) [(s2r, s2i)] (N0, n1, W) for its products.
 int pmesh_xct_multi(const void* xr, const void* xi, const float* wr,
@@ -1844,23 +2131,25 @@ int pmesh_xct_multi(const void* xr, const void* xi, const float* wr,
   cudaStream_t stream = (cudaStream_t)stream_;
   if (!bf16 && bf16s)
     return (int)x_ct_tc<bf16_t>(
-        (const bf16_t*)xr, (const bf16_t*)xi, tab, rsum, k2x, k2y, k2z,
+        (const bf16_t*)xr, (const bf16_t*)xi, tab, rsum, wr, wi, w2r, w2i,
+        k2x, k2y, k2z,
         (bf16_t*)o1r, (bf16_t*)o1i, (bf16_t*)o2r, (bf16_t*)o2i, s1r, s1i,
         s2r, s2i, n1, W, R, M, inverse != 0, scale, bt, stream);
   if (!bf16)
     return (int)x_ct_tc<float>(
-        (const float*)xr, (const float*)xi, tab, rsum, k2x, k2y, k2z,
+        (const float*)xr, (const float*)xi, tab, rsum, wr, wi, w2r, w2i,
+        k2x, k2y, k2z,
         (float*)o1r, (float*)o1i, (float*)o2r, (float*)o2i, s1r, s1i, s2r,
         s2i, n1, W, R, M, inverse != 0, scale, bt, stream);
   if (bf16s)
     return (int)x_ct<bf16_t>(
         (const bf16_t*)xr, (const bf16_t*)xi, wr, wi, w2r, w2i, k2x, k2y, k2z,
         (bf16_t*)o1r, (bf16_t*)o1i, (bf16_t*)o2r, (bf16_t*)o2i, s1r, s1i, s2r,
-        s2i, n1, W, R, M, inverse != 0, scale, bt, true, stream);
+        s2i, n1, W, R, M, inverse != 0, scale, bt, stream);
   return (int)x_ct<float>(
       (const float*)xr, (const float*)xi, wr, wi, w2r, w2i, k2x, k2y, k2z,
       (float*)o1r, (float*)o1i, (float*)o2r, (float*)o2i, s1r, s1i, s2r, s2i,
-      n1, W, R, M, inverse != 0, scale, bt, true, stream);
+      n1, W, R, M, inverse != 0, scale, bt, stream);
 }
 
 // (xr, xi) (n0, N1, Zm) -> out (n0, N1, n2).  (wyr, wyi): inverse y CT

@@ -415,15 +415,11 @@ def _rb(t, bf16):
     return t.to(torch.bfloat16).to(torch.float32) if bf16 else t
 
 
-def _mm(a, b, bf16=False, exact=False):
+def _mm(a, b, bf16=False):
     """one product of a plain pass; under ``bf16`` both operands (data
     and table) are rounded to bf16 first, and since the product of two
     bf16 values is exact in f32, only the order of the f32 sum differs
-    from the MXU's single pass.  ``exact``: the f32 operands' product
-    summed in f64 and returned in f64, for the caller to combine and
-    round once"""
-    if exact:
-        return torch.matmul(a.double(), b.double())
+    from the MXU's single pass"""
     return torch.matmul(_rb(a, bf16), _rb(b, bf16))
 
 
@@ -435,14 +431,6 @@ def _mm(a, b, bf16=False, exact=False):
 # an inverse butterfly, the z-CT combination, the plane) stays f32 until
 # the next product rounds it as its operand.  ``out_dtype`` is the storage
 # of a ct2 pass's spectrum output (bf16: rounded once, at the end).
-#
-# ``exact`` (the f32 form of zy_fwd_ct2 and xct_multi): every f32 step of
-# the pass stays (the butterflies, the fold, the scale, the f32 spectrum
-# between its two stages), while each stage's products and their complex
-# combination are summed in f64 and rounded once.  Their kernel forms its
-# products exactly from three bf16 parts and so does not share the
-# rounding of a sequential f32 sum; on a mesh with a large mean, that
-# rounding reaches 8e-5 of max|imag| of a 512^3 x pass.
 
 def _t(a, like):
     return torch.as_tensor(np.asarray(a), dtype=torch.float32,
@@ -474,7 +462,7 @@ def _cmadd(acc, xr, xi, c):
     return ar, ai
 
 
-def _ct_fwd_plain(xr, xi, wr, wi, bf16=False, exact=False):
+def _ct_fwd_plain(xr, xi, wr, wi, bf16=False):
     """CT transform along axis -2 of (..., n, C): xi may be None (real
     input); wr/wi are (R, M, M) tensors.  Chunk-permuted output."""
     R, M = wr.shape[0], wr.shape[1]
@@ -489,17 +477,15 @@ def _ct_fwd_plain(xr, xi, wr, wi, bf16=False, exact=False):
             acc = _cmadd(acc, xs_r[r], xs_i[r], B[r, j])
         ur, ui = acc
         if ui is None:
-            outs_r.append(_mm(wr[j], ur, bf16, exact))
-            outs_i.append(_mm(wi[j], ur, bf16, exact))
+            outs_r.append(_mm(wr[j], ur, bf16))
+            outs_i.append(_mm(wi[j], ur, bf16))
         else:
-            outs_r.append(_mm(wr[j], ur, bf16, exact)
-                          - _mm(wi[j], ui, bf16, exact))
-            outs_i.append(_mm(wr[j], ui, bf16, exact)
-                          + _mm(wi[j], ur, bf16, exact))
-    return torch.cat(outs_r, -2).float(), torch.cat(outs_i, -2).float()
+            outs_r.append(_mm(wr[j], ur, bf16) - _mm(wi[j], ui, bf16))
+            outs_i.append(_mm(wr[j], ui, bf16) + _mm(wi[j], ur, bf16))
+    return torch.cat(outs_r, -2), torch.cat(outs_i, -2)
 
 
-def _ct_inv_plain(xr, xi, wr, wi, bf16=False, exact=False):
+def _ct_inv_plain(xr, xi, wr, wi, bf16=False):
     """inverse CT along axis -2 of chunk-permuted (..., n, C); natural
     order out."""
     R, M = wr.shape[0], wr.shape[1]
@@ -508,10 +494,8 @@ def _ct_inv_plain(xr, xi, wr, wi, bf16=False, exact=False):
     for j in range(R):
         pr = xr[..., j * M:(j + 1) * M, :]
         pi = xi[..., j * M:(j + 1) * M, :]
-        ys.append(((_mm(wr[j], pr, bf16, exact)
-                    - _mm(wi[j], pi, bf16, exact)).float(),
-                   (_mm(wr[j], pi, bf16, exact)
-                    + _mm(wi[j], pr, bf16, exact)).float()))
+        ys.append((_mm(wr[j], pr, bf16) - _mm(wi[j], pi, bf16),
+                   _mm(wr[j], pi, bf16) + _mm(wi[j], pr, bf16)))
     outs_r, outs_i = [], []
     for r in range(R):
         acc = (None, None)
@@ -522,7 +506,7 @@ def _ct_inv_plain(xr, xi, wr, wi, bf16=False, exact=False):
     return torch.cat(outs_r, -2), torch.cat(outs_i, -2)
 
 
-def _zct_fwd_plain(p, Er, Ei, N2, bf16=False, exact=False):
+def _zct_fwd_plain(p, Er, Ei, N2, bf16=False):
     """forward z-CT of real rows p (..., N2) -> stored-order (zr, zi)
     (..., Zm); Er/Ei are (Rz, K, Mq) tensors."""
     Rz, K, Mq = _zct_factor(N2)
@@ -542,14 +526,12 @@ def _zct_fwd_plain(p, Er, Ei, N2, bf16=False, exact=False):
             ur, ui = us[Rz - j]
             ui = None if ui is None else -ui
         if ui is None:
-            outs_r.append(_mm(ur, Er[pblk], bf16, exact))
-            outs_i.append(_mm(ur, Ei[pblk], bf16, exact))
+            outs_r.append(_mm(ur, Er[pblk], bf16))
+            outs_i.append(_mm(ur, Ei[pblk], bf16))
         else:
-            outs_r.append(_mm(ur, Er[pblk], bf16, exact)
-                          - _mm(ui, Ei[pblk], bf16, exact))
-            outs_i.append(_mm(ur, Ei[pblk], bf16, exact)
-                          + _mm(ui, Er[pblk], bf16, exact))
-    return torch.cat(outs_r, -1).float(), torch.cat(outs_i, -1).float()
+            outs_r.append(_mm(ur, Er[pblk], bf16) - _mm(ui, Ei[pblk], bf16))
+            outs_i.append(_mm(ur, Ei[pblk], bf16) + _mm(ui, Er[pblk], bf16))
+    return torch.cat(outs_r, -1), torch.cat(outs_i, -1)
 
 
 def _zct_inv_plain(yr, yi, A, B, bf16=False):
@@ -596,14 +578,11 @@ def zy_fwd_ct2_plain(x, wz, wy, bf16=False, out_dtype=torch.float32):
     p = x.to(torch.float32)
     nq = (p * _signs(N2, p)).sum(-1)
     wzr, wzi = (_t(a, p) for a in wz)
-    ex = not bf16
     if wzr.dim() == 3:
-        zr, zi = _zct_fwd_plain(p, wzr, wzi, N2, bf16, ex)
+        zr, zi = _zct_fwd_plain(p, wzr, wzi, N2, bf16)
     else:
-        zr, zi = (_mm(p, wzr, bf16, ex).float(),
-                  _mm(p, wzi, bf16, ex).float())
-    yr, yi = _ct_fwd_plain(zr, zi, *(_t(a, p) for a in wy), bf16=bf16,
-                           exact=ex)
+        zr, zi = _mm(p, wzr, bf16), _mm(p, wzi, bf16)
+    yr, yi = _ct_fwd_plain(zr, zi, *(_t(a, p) for a in wy), bf16=bf16)
     return yr.to(out_dtype), yi.to(out_dtype), nq
 
 
@@ -615,12 +594,11 @@ def xct_multi_plain(pr, pi, wx, scale, inverse=False, wx2=None, k2=None,
     tables ``k2`` = (k2x (N0,), k2y (n1,), k2z (W,)), DC set to 0.
     Returns (r, i) or (r, i, r2, i2), stored as ``out_dtype``."""
     f = _ct_inv_plain if inverse else _ct_fwd_plain
-    return _x_pass_plain(pr, pi, wx, scale, wx2, k2, f, bf16, out_dtype,
-                         exact=not bf16)
+    return _x_pass_plain(pr, pi, wx, scale, wx2, k2, f, bf16, out_dtype)
 
 
 def _x_pass_plain(pr, pi, wx, scale, wx2, k2, transform, bf16=False,
-                  out_dtype=torch.float32, exact=False):
+                  out_dtype=torch.float32):
     """what the x passes share: the input upcast to f32, the optional
     1/k^2 fold (DC set to 0), then ``transform`` along x for one or two
     table sets, times ``scale``, stored as ``out_dtype``.  Returns (r, i)
@@ -637,16 +615,16 @@ def _x_pass_plain(pr, pi, wx, scale, wx2, k2, transform, bf16=False,
     out = []
     for w in (wx,) if wx2 is None else (wx, wx2):
         wr, wi = (_t(a, xr) for a in w)
-        rr, ii = transform(xr, xi, wr, wi, bf16, exact)
+        rr, ii = transform(xr, xi, wr, wi, bf16)
         out += [(rr * scale).reshape(N0, n1, W).to(out_dtype),
                 (ii * scale).reshape(N0, n1, W).to(out_dtype)]
     return tuple(out)
 
 
-def _dense_plain(xr, xi, wr, wi, bf16=False, exact=False):
+def _dense_plain(xr, xi, wr, wi, bf16=False):
     """dense complex DFT along axis -2: (wr + i wi) @ (xr + i xi)."""
-    return ((_mm(wr, xr, bf16, exact) - _mm(wi, xi, bf16, exact)).float(),
-            (_mm(wr, xi, bf16, exact) + _mm(wi, xr, bf16, exact)).float())
+    return (_mm(wr, xr, bf16) - _mm(wi, xi, bf16),
+            _mm(wr, xi, bf16) + _mm(wi, xr, bf16))
 
 
 def zy_fwd_half_plain(x, wz, wy, bf16=False):

@@ -22,8 +22,10 @@ into three bf16 parts (``bf16_split3``), beside the f32 row or column
 sums of the complex tables (``table_sums``), with which the kernels add
 back the first element of each data vector that they take out before
 the products; both are made once per table object and device
-(``_split_table``).  Every other pass runs on
-the FP32 ``cgemm``.
+(``_split_cached``).  The outputs that carry a mesh's mean (the first
+modes of z chunk 0, column 0 of the y and x stages) are then summed
+again from the f32 tables as the plain versions sum them.  Every other
+pass runs on the FP32 ``cgemm``.
 
 Two forms besides the f32 one, which the kernels take or refuse, never
 swap for another:
@@ -272,20 +274,13 @@ def table_sums(pairs, axis):
 _SPLIT = {}
 
 
-def _split_table(build, arrays, device):
-    """the device copies of ``build``'s split table (bf16) of the numpy
-    tables ``arrays`` and of their sums along the contraction (f32),
-    made once per table objects and device"""
-    key = (build.__name__, tuple(id(a) for a in arrays), str(device))
+def _split_cached(arrays, device, make):
+    """the device copies of ``make()`` = (split table (uint16 bits of
+    bf16), f32 sums), made once per table objects ``arrays`` and device"""
+    key = (tuple(id(a) for a in arrays), str(device))
     hit = _SPLIT.get(key)
     if hit is None or any(h is not a for h, a in zip(hit[0], arrays)):
-        pairs = [arrays[i:i + 2] for i in range(0, len(arrays), 2)]
-        if build is ct_block_table:
-            host, sums = ct_block_table(pairs), table_sums(pairs, 2)
-        else:
-            host = z_block_table(*arrays)
-            sums = table_sums([[np.asarray(a).reshape(
-                (-1,) + np.shape(a)[-2:]) for a in arrays]], 1)[0]
+        host, sums = make()
         tab = torch.from_numpy(host.view(np.int16)).view(torch.bfloat16)
         hit = (tuple(arrays), (tab.to(device),
                                torch.as_tensor(sums, device=device)))
@@ -354,14 +349,17 @@ def zy_fwd_ct2(x, wz, wy, bf16=False, out_dtype=torch.float32):
         _shape(a, zshape, what)
     for a in wy:
         _shape(a, (Ry, My, My), what)
-    if bf16:
-        wzr, wzi = (_table(a, zshape, dev, what) for a in wz)
-        wyr, wyi = (_table(a, (Ry, My, My), dev, what) for a in wy)
-        tz = ty = (None, None)
-    else:
-        wzr = wzi = wyr = wyi = None
-        tz = _split_table(z_block_table, tuple(wz), dev)
-        ty = _split_table(ct_block_table, tuple(wy), dev)
+    # the f32 products take the split tables and, for the outputs that
+    # carry the mean, the f32 tables too
+    wzr, wzi = (_table(a, zshape, dev, what) for a in wz)
+    wyr, wyi = (_table(a, (Ry, My, My), dev, what) for a in wy)
+    tz = ty = (None, None)
+    if not bf16:
+        z3 = [np.reshape(a, (Rz, Kz, Mq)) for a in wz]
+        tz = _split_cached(tuple(wz), dev, lambda: (
+            z_block_table(*wz), table_sums([z3], 1)[0]))
+        ty = _split_cached(tuple(wy), dev, lambda: (
+            ct_block_table([wy]), table_sums([wy], 2)))
     outr, outi = _empty((n0, N1, Zm), dev, 2, out_dtype)
     sr, si = _empty((n0, N1, Zm), dev, 2)
     nq = torch.empty((n0, N1), dtype=torch.float32, device=dev)
@@ -390,12 +388,13 @@ def xct_multi(pr, pi, wx, scale, inverse=False, wx2=None, k2=None,
     pairs = tuple(wx) + (() if wx2 is None else tuple(wx2))
     for a in pairs:
         _shape(a, (R, M, M), what)
-    tabs, tc = [None] * 4, (None, None)
-    if bf16:
-        tabs = [_table(a, (R, M, M), dev, what) for a in pairs]
-        tabs += [None] * (4 - len(tabs))
-    else:
-        tc = _split_table(ct_block_table, pairs, dev)
+    tabs = [_table(a, (R, M, M), dev, what) for a in pairs]
+    tabs += [None] * (4 - len(tabs))
+    tc = (None, None)
+    if not bf16:
+        sets = [pairs[i:i + 2] for i in range(0, len(pairs), 2)]
+        tc = _split_cached(pairs, dev, lambda: (
+            ct_block_table(sets), table_sums(sets, 2)))
     ks = [None] * 3
     if k2 is not None:
         ks = [_table(np.asarray(t, np.float32), (n,), dev, what)

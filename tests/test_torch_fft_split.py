@@ -15,7 +15,9 @@ the leading one.  Here:
   complex products W u and u E;
 - a plain-torch emulation of the split product, kept in this file (not a
   mode of the package), patched into the plain passes where the kernels
-  run it (the f32 form of zy_fwd_ct2 and xct_multi): each pass, forward
+  run it (the f32 form of zy_fwd_ct2 and xct_multi; the few outputs
+  that carry the mean, which the kernels sum again as the plain passes
+  do, are left to the split here too): each pass, forward
   and the folded dual inverse, at (256, 256, 16) and 32^3 against the
   JAX package's Pallas kernels in interpret mode within 3e-6 of max (the
   tolerance of tests/test_torch_fft_mxu.py), and the (256, 256, 16)
@@ -25,6 +27,8 @@ the leading one.  Here:
   cores' truncating sums are the card's part (tests/test_torch_cuda.py,
   chip_smoke.py).
 """
+import inspect
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -157,16 +161,25 @@ def split_mm(a, b):
 
 @pytest.fixture
 def split_products(monkeypatch):
-    """the plain passes with the kernels' split product where the f32
-    forms of zy_fwd_ct2 and xct_multi take their products (``exact``);
-    every other product stays the plain f32 one"""
+    """the plain passes with the kernels' split product inside the f32
+    forms of zy_fwd_ct2 and xct_multi, the passes that run it; every
+    other product stays the plain f32 one"""
     orig = fm._mm
 
-    def mm(a, b, bf16=False, exact=False):
-        if exact:
-            return split_mm(a, b)
-        return orig(a, b, bf16)
-    monkeypatch.setattr(fm, '_mm', mm)
+    def split(plain):
+        def run(*args, **kw):
+            if inspect.signature(plain).bind(*args, **kw).arguments.get(
+                    'bf16'):
+                return plain(*args, **kw)
+            monkeypatch.setattr(fm, '_mm', lambda a, b, bf16=False:
+                                split_mm(a, b))
+            try:
+                return plain(*args, **kw)
+            finally:
+                monkeypatch.setattr(fm, '_mm', orig)
+        return run
+    monkeypatch.setattr(fm, 'zy_fwd_ct2_plain', split(fm.zy_fwd_ct2_plain))
+    monkeypatch.setattr(fm, 'xct_multi_plain', split(fm.xct_multi_plain))
 
 
 @pytest.mark.parametrize("shape", SHAPES)
