@@ -115,17 +115,35 @@
 // ct_fwd_col0 56; static shared memory 1024-1088 bytes (tc_ct) and 6208
 // (tc_z) beside the ring: one block of 8 warps per SM.
 //
-// Every other pass (zy_inv_ct2 and its dual, the dense and row-13
-// passes) runs on cgemm, and so do the bf16 products of every pass.  What
-// bounds them on this card: FP32 FMA throughput.  The transforms are
+// The dense forward passes, pmesh_x_dense (replacing _x_transform,
+// pmesh_tpu/ops/fft_mxu.py:155: the forward, the dual inverse with the
+// 1/k^2 fold, row 13's x pass at W = N2) and pmesh_zy_fwd_half
+// (replacing _zy_forward_real_h, :470, through _zy_fwd_half_call; at Zh =
+// N2 row 13's full-spectrum pass 1), run both their f32 and their
+// bf16-product forms on tc_gemm, the same split products over operands
+// that a split pass forms once per pass (see its section).  What bounds
+// them: at 384^3 the forward x pass is 43.7 G real FMA, the z stage
+// 21.9 G (real data: one real product per (row, k, mode part), the
+// Nyquist mode chained, not tiled), the y stage 43.7 G: at six bf16
+// products each and 989 TFLOP/s at least 0.53, 0.27 and 0.53 ms, against
+// 0.136 ms of compulsory bytes per pass (and ~0.2 ms for the split
+// tiles' round trip).  The outputs that carry the mean are formed as in
+// the ct2 passes: z modes [0, QZ) in split_rows' chains, column 0 of the
+// y and x stages by ct_fwd_col0 (its guarded form at M = 75 or 33).
+// ptxas (-O3, sm_90a, on the card): see PERF.md, PR 9.
+//
+// Every other pass (zy_inv_ct2 and its dual, zy_inv_half, the row-13
+// inverse and half-CT forward passes) runs on cgemm, and so do the bf16
+// products of those passes.  What bounds them on this card: FP32 FMA
+// throughput.  The transforms are
 // products with small dense matrices (M x M per CT chunk, Zm x n2 for the
 // dense z inverse): the three zy inverses of a spectral force at 512^3
 // are 103 G FMA each, at least 4.6 ms each at the card's 67 TFLOP/s,
-// while a pass moves only ~1-1.5 GB (< 0.5 ms).  The dense pipeline is
-// the same arithmetic with R = 1: at 384^3 one spectral force is ~0.39 T
-// FMA (forward 109 G, force triple 284 G), at least 11.7 ms at the FP32
-// rate; ragged widths (Zh = 193 at 384^3, odd x, y or z lengths) are
-// covered by cgemm's guarded scalar global loads and stores.  cgemm
+// while a pass moves only ~1-1.5 GB (< 0.5 ms).  The dense zy inverse is
+// the same arithmetic with R = 1: at 384^3 each is ~88 G FMA, at least
+// 2.6 ms at the FP32 rate; ragged widths (Zh = 193 at 384^3, odd x, y or
+// z lengths) are covered by cgemm's guarded scalar global loads and
+// stores.  cgemm
 // spends its effort on the FMA loop:
 //  - a 64 x 64 complex output tile per 256-thread block, 4 x 4 complex
 //    accumulators per thread, operands staged through shared memory in
@@ -160,6 +178,9 @@
 //    tiles.  Everything between two products of one pass (the butterfly
 //    sweeps, the z-CT combination, the scales, the plane) stays f32, and
 //    the next product rounds it again as its operand, as on the TPU.
+//    The dense forward passes run this form on tc_gemm instead (one
+//    part per operand, one product per slice, no first element taken
+//    out, no chains but the z stage's tail modes).
 //    What bounds it: the tensor cores would run these products at 989
 //    TFLOP/s, so the operand loads (the same guarded scalar loads as
 //    cgemm, through the functors) and the single-stage staging bound it;
@@ -600,6 +621,54 @@ __device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* row) {
       : "r"(smem_u32(row)));
 }
 
+// the mbarriers and bulk copies (TMA) of tc_gemm's ring
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// order this thread's generic-proxy accesses of shared memory before its
+// later bulk copies into it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// bytes (a multiple of 16) global -> shared, completing on bar
+__device__ __forceinline__ void tma_load(void* dst, const void* src,
+                                         int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wait for the phase of bar with the given parity to complete
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
 // v = p1 + p2 + p3 in bf16 parts, each rounded to nearest even from the
 // remainder (each remainder exact in f32): 24 bits of v, f32's
 __device__ __forceinline__ void split3(float v, bf16_t* p) {
@@ -664,28 +733,42 @@ __device__ __forceinline__ void zero_acc(TcAcc& a) {
 }
 
 // acc += A (TC_ROWS x 16) B (16 x TC_COLS) for one slice: A split in
-// [part][row][k], B in [part][col][k] (pitch TC_PK).  For each pair of
-// 16-row tiles the six products sum into a fresh partial, smallest terms
+// [part][row][k], B in [part][col][k] (pitch TC_PK), NP = 3 parts (six
+// products) or NP = 1 (the bf16 form: one product, summed straight into
+// acc, as the bf16 products' f32 sums run).  For NP = 3, for each pair of
+// 16-row tiles the products sum into a fresh partial, smallest terms
 // first, over all 4 column tiles, and the partial is added to acc on the
 // CUDA cores: the tensor cores align a sum to its largest term and
 // truncate it, so a running sum much larger than the new products would
 // drop their low bits.  mid() runs while the first pair's products are
 // in flight (the next slice's conversion: CUDA-core work that overlaps
 // the tensor cores').
-template <class Mid>
+// element offset of (row, 16-byte half) in a part's tile: rows of pitch
+// TC_PK, or (SWZ) rows of 16 with the halves swapped where bit 2 of the
+// row is set, so that the 8 rows an ldmatrix matrix reads fall on 8
+// distinct 16-byte bank groups
+template <bool SWZ>
+__device__ __forceinline__ int tile_at(int row, int half) {
+  if constexpr (SWZ) return row * TC_BK + 8 * (half ^ ((row >> 2) & 1));
+  return row * TC_PK + 8 * half;
+}
+
+template <int NP = 3, bool SWZ = false, class Mid>
 __device__ __forceinline__ void tc_mma_slice(TcAcc& acc, const bf16_t* A,
                                              const bf16_t* B, int wm, int wn,
                                              int lane, const Mid& mid) {
-  constexpr int PART = TC_ROWS * TC_PK;
-  uint32_t b[3][4][2];
+  static_assert(NP == 3 || NP == 1, "three parts or one");
+  constexpr int PART = TC_ROWS * (SWZ ? TC_BK : TC_PK);
+  constexpr int TERMS = NP == 3 ? 6 : 1;
+  uint32_t b[NP][4][2];
 #pragma unroll
-  for (int h = 0; h < 3; ++h)
+  for (int h = 0; h < NP; ++h)
 #pragma unroll
     for (int np = 0; np < 2; ++np) {
       uint32_t r[4];
       ldsm_x4(r, B + h * PART +
-                     (wn + np * 16 + lane % 8 + (lane / 16) * 8) * TC_PK +
-                     ((lane / 8) % 2) * 8);
+                     tile_at<SWZ>(wn + np * 16 + lane % 8 + (lane / 16) * 8,
+                                  (lane / 8) % 2));
       b[h][2 * np][0] = r[0];
       b[h][2 * np][1] = r[1];
       b[h][2 * np + 1][0] = r[2];
@@ -693,16 +776,35 @@ __device__ __forceinline__ void tc_mma_slice(TcAcc& acc, const bf16_t* A,
     }
   // (A part, B part) of the six terms, smallest first
   constexpr int PA_[6] = {1, 2, 0, 1, 0, 0}, PB_[6] = {1, 0, 2, 0, 1, 0};
+  if constexpr (NP == 1) {
+    // one product per slice: straight into acc
 #pragma unroll
-  for (int mp = 0; mp < 2; ++mp) {
-    uint32_t a[3][2][4];
-#pragma unroll
-    for (int h = 0; h < 3; ++h)
+    for (int mp = 0; mp < 2; ++mp) {
+      uint32_t a[2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        ldsm_x4(a[h][i], A + h * PART +
-                             (wm + (2 * mp + i) * 16 + lane % 16) * TC_PK +
-                             (lane / 16) * 8);
+        ldsm_x4(a[i], A + tile_at<SWZ>(wm + (2 * mp + i) * 16 + lane % 16,
+                                       lane / 16));
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_bf16(acc[2 * mp + i][nt], a[i], b[0][nt]);
+      if (mp == 0) mid();
+    }
+    return;
+  }
+#pragma unroll
+  for (int mp = 0; mp < 2; ++mp) {
+    uint32_t a[NP][2][4];
+#pragma unroll
+    for (int h = 0; h < NP; ++h)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldsm_x4(a[h][i],
+                A + h * PART +
+                    tile_at<SWZ>(wm + (2 * mp + i) * 16 + lane % 16,
+                                 lane / 16));
     float part[2][4][4];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -711,12 +813,13 @@ __device__ __forceinline__ void tc_mma_slice(TcAcc& acc, const bf16_t* A,
 #pragma unroll
         for (int q = 0; q < 4; ++q) part[i][nt][q] = 0.f;
 #pragma unroll
-    for (int t = 0; t < 6; ++t)
+    for (int t = 0; t < TERMS; ++t)
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(part[i][nt], a[PA_[t]][i], b[PB_[t]][nt]);
+          mma_bf16(part[i][nt], a[NP == 3 ? PA_[t] : 0][i],
+                   b[NP == 3 ? PB_[t] : 0][nt]);
     if (mp == 0) mid();
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -999,43 +1102,45 @@ __device__ __forceinline__ float bterm(float b, float coef, float a) {
 }
 
 constexpr int C0_G = 4;     // outer blocks per ct_fwd_col0 block
-constexpr int C0_Q = 256;   // outputs q per pass over the table (2 per thread)
-constexpr int C0_MT = 16;   // table columns m per staged tile
+constexpr int C0_Q = 64;    // outputs q per block, one per thread
 
-// dynamic shared bytes of ct_fwd_col0: u of C0_G blocks, one table tile
+// dynamic shared bytes of ct_fwd_col0: u of C0_G blocks
 __host__ __device__ constexpr long long col0_smem(int M) {
-  return (2LL * C0_G * M + 2LL * C0_Q * (C0_MT + 1)) * 4;
+  return 2LL * C0_G * M * 4;
 }
 
 // column 0 of a forward CT stage over (nouter, R M, ncols) blocks, for C0_G
-// blocks o and one chunk j per block of 128 threads: u[m] = sum_r b[r][j]
-// fold(x[o, r M + m, 0]), then out[o, j M + q, 0] = scale (sum_m wr[q, m]
-// ur[m] - sum_m wi[q, m] ui[m]) + i scale (sum_m wr[q, m] ui[m] + sum_m
-// wi[q, m] ur[m]), (wr, wi) the (R, M, M) tables, staged through shared
-// memory C0_MT columns at a time (M a multiple of 16, rows 16-byte
-// aligned); fold as the plain version's: times 1/k^2 (0 at k^2 = 0) of
-// row r M + m, k^2 = (k2x + k2y[0]) + k2z[0], when k2x is set
+// blocks o, one chunk j and C0_Q outputs q per block, one thread per q:
+// u[m] = sum_r b[r][j] fold(x[o, r M + m, 0]) in shared memory, then
+// out[o, j M + q, 0] = scale (sum_m wr[q, m] ur[m] - sum_m wi[q, m]
+// ui[m]) + i scale (sum_m wr[q, m] ui[m] + sum_m wi[q, m] ur[m]), (wr, wi)
+// the (R, M, M) tables, each sum one chain in m order, the thread reading
+// its table rows as it goes (float4 where M is a multiple of 4, the rows
+// then 16-byte aligned; else scalar: the dense passes' M = 75 or 33);
+// fold as the plain version's: times 1/k^2 (0 at k^2 = 0) of row r M +
+// m, k^2 = (k2x + k2y[0]) + k2z[0], when k2x is set.  x is read at o
+// istride + row ipitch, out written at o ostride + row ncols.
 template <class TI, class TO>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(C0_Q)
     ct_fwd_col0(const TI* xr, const TI* xi, const float* __restrict__ wr,
                 const float* __restrict__ wi, TO* outr, TO* outi,
                 const float* k2x, const float* k2y, const float* k2z,
-                long long nouter, long long ostride, int M, int R, int ncols,
-                float scale, Butter bt) {
-  constexpr int PT = C0_MT + 1;  // tile pitch: conflict-free column reads
+                long long nouter, long long istride, long long ipitch,
+                long long ostride, int M, int R, int ncols, float scale,
+                Butter bt) {
   extern __shared__ float c0_smem[];
   float* u = c0_smem;                 // [g][ur | ui][M]
-  float* tw = c0_smem + 2 * C0_G * M;  // [wr | wi][C0_Q][PT]
   const long long o0 = (long long)blockIdx.x * C0_G;
   const int j = blockIdx.y, tid = threadIdx.x;
+  const int q = blockIdx.z * C0_Q + tid;
   const int G = (int)min((long long)C0_G, nouter - o0);
   for (int e = tid; e < C0_G * M; e += blockDim.x) {
     const int g = e / M, m = e % M;
     float ar = 0.f, ai = 0.f;
     if (g < G) {
-      const long long base = (o0 + g) * ostride;
+      const long long base = (o0 + g) * istride;
       for (int r = 0; r < R; ++r) {
-        const long long a = base + (long long)(r * M + m) * ncols;
+        const long long a = base + (long long)(r * M + m) * ipitch;
         float vr = ldv(xr, a), vi = ldv(xi, a);
         if (k2x != nullptr) {
           const float kk =
@@ -1052,64 +1157,44 @@ __global__ void __launch_bounds__(128)
     u[2 * g * M + m] = ar;
     u[(2 * g + 1) * M + m] = ai;
   }
-  for (int q0 = 0; q0 < M; q0 += C0_Q) {
-    float acc[C0_G][2][4];  // [g][q][sum wr ur, wi ui, wr ui, wi ur]
+  __syncthreads();
+  if (q >= M) return;
+  const float* ra = wr + ((long long)j * M + q) * M;
+  const float* rb = wi + ((long long)j * M + q) * M;
+  float acc[C0_G][4];  // [g][sum wr ur, wi ui, wr ui, wi ur]
 #pragma unroll
-    for (int g = 0; g < C0_G; ++g)
+  for (int g = 0; g < C0_G; ++g)
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int c = 0; c < 4; ++c) acc[g][c] = 0.f;
+  auto step = [&](int m, float a, float b) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[g][i][c] = 0.f;
-    for (int m0 = 0; m0 < M; m0 += C0_MT) {
-      __syncthreads();
-      for (int e = tid; e < 2 * C0_Q * (C0_MT / 4); e += blockDim.x) {
-        const int h = e / (C0_Q * (C0_MT / 4)), rq = (e / (C0_MT / 4)) % C0_Q,
-                  c4 = e % (C0_MT / 4);
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (q0 + rq < M)
-          v = __ldg(reinterpret_cast<const float4*>(
-                        (h ? wi : wr) + ((long long)j * M + q0 + rq) * M +
-                        m0) +
-                    c4);
-        float* d = tw + (h * C0_Q + rq) * PT + c4 * 4;
-        d[0] = v.x;
-        d[1] = v.y;
-        d[2] = v.z;
-        d[3] = v.w;
-      }
-      __syncthreads();
-      for (int mm = 0; mm < C0_MT; ++mm) {
-        const int m = m0 + mm;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int rq = tid + 128 * i;
-          const float ra = tw[rq * PT + mm], rb = tw[(C0_Q + rq) * PT + mm];
-#pragma unroll
-          for (int g = 0; g < C0_G; ++g) {
-            const float ur = u[2 * g * M + m], ui = u[(2 * g + 1) * M + m];
-            acc[g][i][0] = fmaf(ra, ur, acc[g][i][0]);
-            acc[g][i][1] = fmaf(rb, ui, acc[g][i][1]);
-            acc[g][i][2] = fmaf(ra, ui, acc[g][i][2]);
-            acc[g][i][3] = fmaf(rb, ur, acc[g][i][3]);
-          }
-        }
-      }
+    for (int g = 0; g < C0_G; ++g) {
+      const float ur = u[2 * g * M + m], ui = u[(2 * g + 1) * M + m];
+      acc[g][0] = fmaf(a, ur, acc[g][0]);
+      acc[g][1] = fmaf(b, ui, acc[g][1]);
+      acc[g][2] = fmaf(a, ui, acc[g][2]);
+      acc[g][3] = fmaf(b, ur, acc[g][3]);
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int q = q0 + tid + 128 * i;
-#pragma unroll
-      for (int g = 0; g < C0_G; ++g)
-        if (q < M && g < G) {
-          const long long at =
-              (o0 + g) * ostride + (long long)(j * M + q) * ncols;
-          stv(outr, at,
-              __fmul_rn(__fsub_rn(acc[g][i][0], acc[g][i][1]), scale));
-          stv(outi, at,
-              __fmul_rn(__fadd_rn(acc[g][i][2], acc[g][i][3]), scale));
-        }
+  };
+  if (M % 4 == 0) {
+    for (int m = 0; m < M; m += 4) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(ra + m));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(rb + m));
+      step(m, a.x, b.x);
+      step(m + 1, a.y, b.y);
+      step(m + 2, a.z, b.z);
+      step(m + 3, a.w, b.w);
     }
+  } else {
+    for (int m = 0; m < M; ++m) step(m, __ldg(ra + m), __ldg(rb + m));
   }
+#pragma unroll
+  for (int g = 0; g < C0_G; ++g)
+    if (g < G) {
+      const long long at = (o0 + g) * ostride + (long long)(j * M + q) * ncols;
+      stv(outr, at, __fmul_rn(__fsub_rn(acc[g][0], acc[g][1]), scale));
+      stv(outi, at, __fmul_rn(__fadd_rn(acc[g][2], acc[g][3]), scale));
+    }
 }
 
 // The z forward (data = A): chunk p of (rows, N2) real x, u[m, k] =
@@ -1324,6 +1409,393 @@ __global__ void __launch_bounds__(TC_NT) tc_z(const TcZ p) {
           p.sr[m * p.Zm + q] = mzr[q];
           p.si[m * p.Zm + q] = mzi[q];
         }
+  }
+}
+
+// --- the dense passes on the tensor cores (tc_gemm) ---------------------
+//
+// The f32 and bf16-product forms of pmesh_x_dense and pmesh_zy_fwd_half.
+// A dense pass is tc_ct at R = 1, but with no butterfly to fuse, each
+// data slice would be re-read and re-split for every 64-mode table tile
+// (6 times at N0 = 384, 12 for the dual): PR 8's routine spent as much on
+// that conversion as on its products.  Here a split pass forms each data
+// operand ONCE, as the GEMM's slice tiles in device memory (the fold,
+// the taken-out first element, the three bf16 parts; one part, the
+// rounding, in the bf16 form), and tc_gemm multiplies pre-split tiles
+// only: both operands through a cp.async ring TG_DEPTH slices deep,
+// ldmatrix, the products of tc_mma_slice into fresh partials.  The
+// split tiles cost 12 bytes per complex element written and read once
+// more (at 384^3 about 0.2 ms of a pass's bytes); the other table tiles
+// of a column tile read them from L2 (blocks that share a data tile are
+// adjacent in launch order).
+//
+//   split_cols   the x / y stage's data: column c of (nouter, M, ncols)
+//                complex blocks (c = o ncols + n), rows in slices of 8
+//                (re | im), into (ceil(nall / 128), nks, NP, 128, 16);
+//   split_rows   the z stage's real data: rows of (rows, N2) in slices of
+//                16 k, into (ceil(rows / 128), nks, NP, 128, 16); it also
+//                forms the chained modes (the first QZ, which carry the
+//                mean, and a short tail past the last whole table tile,
+//                the Nyquist mode at 384^3, whose tile would be 63/64
+//                padding) in f32 FMA chains in k order, as plain does;
+//   tc_gemm      a 128 x 128 output tile per block of 8 warps: table
+//                tile t x data tile (x / y: rows = modes, re | im;
+//                z: columns = modes, re | im), the first element added
+//                back through the table's sums, then scaled and stored.
+
+constexpr int TG_DEPTH = 4;    // slices in flight in tc_gemm's ring
+constexpr int TG_SLICE = TC_ROWS * TC_BK;   // bf16 of one part of a slice tile
+constexpr int ZCH = 16;        // chained z modes at most: QZ + a tail of 8
+
+template <int NP>
+__host__ __device__ constexpr int tg_smem() {
+  return TG_DEPTH * 2 * NP * TG_SLICE * 2;
+}
+
+// the NP parts of 16 values (row r of a tile) into dst + h TG_SLICE (h <
+// NP), 32 bytes each: three bf16 parts (split3), or the bf16 rounding (NP
+// = 1); the two 16-byte halves swapped where bit 2 of r is set (tile_at)
+template <int NP>
+__device__ __forceinline__ void st_parts16(bf16_t* dst, const float* v,
+                                           int r) {
+  uint32_t w[NP][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    bf16_t a[3], b[3];
+    if constexpr (NP == 3) {
+      split3(v[2 * i], a);
+      split3(v[2 * i + 1], b);
+    } else {
+      a[0] = __float2bfloat16_rn(v[2 * i]);
+      b[0] = __float2bfloat16_rn(v[2 * i + 1]);
+    }
+#pragma unroll
+    for (int h = 0; h < NP; ++h)
+      w[h][i] = (uint32_t)__bfloat16_as_ushort(a[h]) |
+                ((uint32_t)__bfloat16_as_ushort(b[h]) << 16);
+  }
+  const int sw = (r >> 2) & 1;
+#pragma unroll
+  for (int h = 0; h < NP; ++h) {
+    uint4* d = reinterpret_cast<uint4*>(dst + h * TG_SLICE);
+    d[sw] = make_uint4(w[h][0], w[h][1], w[h][2], w[h][3]);
+    d[1 - sw] = make_uint4(w[h][4], w[h][5], w[h][6], w[h][7]);
+  }
+}
+
+struct SplitCols {
+  const float *xr, *xi;
+  const float *k2x, *k2y, *k2z;  // the 1/k^2 fold, or null
+  bf16_t* dst;                   // (ceil(nall / 128), nks, NP, 128, 16)
+  float* c0;                     // (nall, 2): the taken-out u[0], or null
+  long long istride, nall;       // input: outer stride; columns in all
+  int M, ncols, ipitch, W, nks;
+};
+
+constexpr int SPLIT_SG = 8;   // slices per split_cols block
+
+// one block of 128 threads per column tile and group of SPLIT_SG slices
+// (blockIdx.y), one thread per column: data row m = 8 s + r of column c
+// at slice s, column r (re) and 8 + r (im); zero past M and nall
+template <int NP>
+__global__ void __launch_bounds__(128) split_cols(const SplitCols p) {
+  const long long tile = blockIdx.x;
+  const int tid = threadIdx.x, s0 = blockIdx.y * SPLIT_SG;
+  const long long c = tile * 128 + tid;
+  const bool in = c < p.nall;
+  long long base = 0;
+  float ky = 0.f, kz = 0.f;
+  if (in) {
+    const long long o = c / p.ncols, n = c % p.ncols;
+    base = o * p.istride + n;
+    if (p.k2x != nullptr) {
+      ky = p.k2y[n / p.W];
+      kz = p.k2z[n % p.W];
+    }
+  }
+  // fold(x[row m]) as the plain version's (1/k^2, 0 at k^2 = 0)
+  auto val = [&](int m, float& vr, float& vi) {
+    const long long a = base + (long long)m * p.ipitch;
+    vr = p.xr[a];
+    vi = p.xi[a];
+    if (p.k2x != nullptr) {
+      const float kk = __fadd_rn(__fadd_rn(p.k2x[m], ky), kz);
+      const float f = kk > 0.f ? __frcp_rn(kk) : 0.f;
+      vr = __fmul_rn(vr, f);
+      vi = __fmul_rn(vi, f);
+    }
+  };
+  float c0r = 0.f, c0i = 0.f;
+  if (p.c0 != nullptr && in) {
+    val(0, c0r, c0i);
+    if (s0 == 0) {
+      p.c0[2 * c] = c0r;
+      p.c0[2 * c + 1] = c0i;
+    }
+  }
+  bf16_t* dst = p.dst + tile * p.nks * (NP * TG_SLICE) + tid * TC_BK;
+  for (int s = s0; s < min(p.nks, s0 + SPLIT_SG); ++s) {
+    float v[16];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int m = s * 8 + r;
+      v[r] = v[8 + r] = 0.f;
+      if (in && m < p.M) {
+        val(m, v[r], v[8 + r]);
+        v[r] -= c0r;
+        v[8 + r] -= c0i;
+      }
+    }
+    st_parts16<NP>(dst + (long long)s * (NP * TG_SLICE), v, tid);
+  }
+}
+
+struct SplitRows {
+  const float* x;         // (rows, N2) real
+  const float *er, *ei;   // the f32 (N2, Zh) half-DFT pair
+  bf16_t* dst;            // (ceil(rows / 128), nks, NP, 128, 16)
+  float* c0;              // (rows): the taken-out x[., 0], or null
+  float *zr, *zi;         // the z output (rows, pitch): the chained modes
+  long long rows;
+  int N2, Zh, pitch, nlo, tail0, nks, aligned;
+};
+
+// one block of 128 threads per row tile, one thread per row: k = 16 s + kk
+// at slice s, column kk, zero past N2.  Chained modes: [0, nlo) and
+// [tail0, Zh), each an f32 FMA chain in k order over the row (in the
+// bf16 form of operands rounded to bf16), the table's 16-k slice of them
+// staged through shared memory.
+template <int NP>
+__global__ void __launch_bounds__(128) split_rows(const SplitRows p) {
+  __shared__ __align__(16) float et[TC_BK][ZCH][2];
+  __shared__ float xt[128][TC_BK + 1];   // the slice's rows, staged
+  const long long tile = blockIdx.x;
+  const int tid = threadIdx.x;
+  const long long m = tile * 128 + tid;
+  const bool in = m < p.rows;
+  const int nch = p.nlo + (p.Zh - p.tail0);
+  float c0 = 0.f;
+  if (p.c0 != nullptr && in) {
+    c0 = p.x[m * p.N2];
+    p.c0[m] = c0;
+  }
+  float ar[ZCH], ai[ZCH];
+#pragma unroll
+  for (int i = 0; i < ZCH; ++i) ar[i] = ai[i] = 0.f;
+  bf16_t* dst = p.dst + tile * p.nks * (NP * TG_SLICE) + tid * TC_BK;
+  for (int s = 0; s < p.nks; ++s) {
+    const int k0 = s * TC_BK;
+    // the (128, 16) slice through shared memory, consecutive threads on
+    // consecutive columns of a row (float4 where the rows allow it)
+    __syncthreads();
+    if (p.aligned && k0 + TC_BK <= p.N2) {
+#pragma unroll
+      for (int e = tid; e < 128 * 4; e += 128) {
+        const long long mm = tile * 128 + e / 4;
+        float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (mm < p.rows)
+          t = *reinterpret_cast<const float4*>(p.x + mm * p.N2 + k0 +
+                                               4 * (e % 4));
+        float* d = &xt[e / 4][4 * (e % 4)];
+        d[0] = t.x;
+        d[1] = t.y;
+        d[2] = t.z;
+        d[3] = t.w;
+      }
+    } else {
+#pragma unroll 4
+      for (int e = tid; e < 128 * TC_BK; e += 128) {
+        const long long mm = tile * 128 + e / TC_BK;
+        const int k = k0 + e % TC_BK;
+        xt[e / TC_BK][e % TC_BK] =
+            mm < p.rows && k < p.N2 ? p.x[mm * p.N2 + k] : 0.f;
+      }
+    }
+    __syncthreads();
+    float v[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) v[q] = xt[tid][q];
+    if (nch > 0) {
+      for (int e = tid; e < TC_BK * ZCH * 2; e += 128) {
+        const int kk = e / (2 * ZCH), i = (e / 2) % ZCH, h = e % 2;
+        const int k = k0 + kk;
+        float w = 0.f;
+        if (i < nch && k < p.N2) {
+          const int mode = i < p.nlo ? i : p.tail0 + (i - p.nlo);
+          w = (h ? p.ei : p.er)[(long long)k * p.Zh + mode];
+          if constexpr (NP == 1) w = __bfloat162float(__float2bfloat16_rn(w));
+        }
+        et[kk][i][h] = w;
+      }
+      __syncthreads();
+      const int kn = in ? min(TC_BK, p.N2 - k0) : 0;
+      for (int kk = 0; kk < kn; ++kk) {
+        float u = v[kk];
+        if constexpr (NP == 1) u = __bfloat162float(__float2bfloat16_rn(u));
+#pragma unroll
+        for (int i = 0; i < ZCH; i += 2) {
+          if (i >= nch) break;
+          const float4 w = *reinterpret_cast<const float4*>(&et[kk][i][0]);
+          ar[i] = fmaf(u, w.x, ar[i]);
+          ai[i] = fmaf(u, w.y, ai[i]);
+          ar[i + 1] = fmaf(u, w.z, ar[i + 1]);
+          ai[i + 1] = fmaf(u, w.w, ai[i + 1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 16; ++q)
+      if (k0 + q < p.N2) v[q] -= c0;
+    st_parts16<NP>(dst + (long long)s * (NP * TG_SLICE), v, tid);
+  }
+  if (in)
+    for (int i = 0; i < nch; ++i) {
+      const int mode = i < p.nlo ? i : p.tail0 + (i - p.nlo);
+      p.zr[m * p.pitch + mode] = ar[i];
+      p.zi[m * p.pitch + mode] = ai[i];
+    }
+}
+
+struct TcGemm {
+  const bf16_t* tab;    // (T, nks, NP, 128, 16): the table's tiles
+  const bf16_t* dat;    // (tiles, nks, NP, 128, 16): the data's tiles
+  const float* sums;    // x / y: (sets, M, 2) row sums; z: (Zh, 2) column sums
+  const float* c0;      // the taken-out first elements, or null
+  float *o1r, *o1i, *o2r, *o2i;
+  long long ostride;    // x / y: output elements per outer block
+  long long nall;       // x / y: data columns in all; z: rows
+  int M;                // x / y: modes (rows per outer block); z: tail0
+  int ncols;            // x / y: columns per outer block; z: output pitch
+  int lo;               // z: modes [0, lo) are chained, not stored here
+  int T, T1, nks;
+  float scale;
+};
+
+// DATA_A: the data is the row operand (z); else the column operand (x / y).
+// The ring: TG_DEPTH slots of [row op | col op], each filled by two bulk
+// copies of the operands' contiguous slice tiles (pre-swizzled in device
+// memory, as tile_at reads them) issued by thread 0 and completing on the
+// slot's mbarrier; a barrier after each slice's products frees its slot.
+template <int NP, bool DATA_A>
+__global__ void __launch_bounds__(TC_NT, 1) tc_gemm(const TcGemm p) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  __shared__ __align__(8) uint64_t full[TG_DEPTH];
+  constexpr int SE = NP * TG_SLICE;   // bf16 of an operand's slice tile
+  constexpr int D = TG_DEPTH;
+  bf16_t* ring = reinterpret_cast<bf16_t*>(tc_smem);
+  const long long b = blockIdx.x;
+  const int t = (int)(b % p.T);
+  const long long dt = b / p.T;
+  const bf16_t* tsrc = p.tab + (long long)t * p.nks * SE;
+  const bf16_t* dsrc = p.dat + dt * p.nks * SE;
+  const bf16_t* asrc = DATA_A ? dsrc : tsrc;
+  const bf16_t* bsrc = DATA_A ? tsrc : dsrc;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  if (tid == 0) {
+    for (int d = 0; d < D; ++d) mbar_init(&full[d], 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  // by thread 0: the copies of slice s into slot s % D
+  auto issue = [&](int s) {
+    const int slot = s % D;
+    bf16_t* st = ring + slot * 2 * SE;
+    mbar_expect_tx(&full[slot], 4 * SE);
+    tma_load(st, asrc + (long long)s * SE, 2 * SE, &full[slot]);
+    tma_load(st + SE, bsrc + (long long)s * SE, 2 * SE, &full[slot]);
+  };
+  if (tid == 0)
+    for (int s = 0; s < D && s < p.nks; ++s) issue(s);
+  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
+  TcAcc acc;
+  zero_acc(acc);
+  for (int s = 0; s < p.nks; ++s) {
+    const int slot = s % D;
+    mbar_wait(&full[slot], (s / D) & 1);
+    const bf16_t* st = ring + slot * 2 * SE;
+    tc_mma_slice<NP, true>(acc, st, st + SE, wm, wn, lane, [] {});
+    __syncthreads();
+    if (tid == 0 && s + D < p.nks) {
+      fence_proxy_async();
+      issue(s + D);
+    }
+  }
+
+  const int gid = lane / 4, tig = lane % 4;
+  if constexpr (DATA_A) {
+    // z: rows are data rows, columns [0, 64) real parts of the tile's
+    // modes, the rest imaginary; each output gets back c0 sum_k E[k, mode]
+    const bool re = wn < TC_MODES;
+    float* out = re ? p.o1r : p.o1i;
+    float sm[4][2];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int mode = t * TC_MODES + (wn % TC_MODES) + nt * 8 + 2 * tig + e;
+        sm[nt][e] = mode < p.M ? p.sums[2 * mode + (re ? 0 : 1)] : 0.f;
+      }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long m = dt * TC_ROWS + wm + mt * 16 + gid + h * 8;
+        if (m >= p.nall) continue;
+        const float c0 = p.c0 != nullptr ? p.c0[m] : 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int mode =
+                t * TC_MODES + (wn % TC_MODES) + nt * 8 + 2 * tig + e;
+            if (mode >= p.lo && mode < p.M)
+              out[m * p.ncols + mode] =
+                  fmaf(c0, sm[nt][e], acc[mt][nt][2 * h + e]);
+          }
+      }
+  } else {
+    // x / y: rows [0, 64) of the tile are real parts of its modes, the
+    // rest imaginary; each output gets back c0 sum_m W[q, m], then the scale
+    const bool set2 = t >= p.T1;
+    const int tt = set2 ? t - p.T1 : t;
+    float* out = wm == 0 ? (set2 ? p.o2r : p.o1r) : (set2 ? p.o2i : p.o1i);
+    const float* rs = p.sums + (set2 ? 2LL * p.M : 0LL);
+    long long at[4][2];
+    float cr[4][2], ci[4][2];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const long long c = dt * TC_COLS + wn + nt * 8 + 2 * tig + e;
+        at[nt][e] = -1;
+        cr[nt][e] = ci[nt][e] = 0.f;
+        if (c < p.nall) {
+          at[nt][e] = (c / p.ncols) * p.ostride + c % p.ncols;
+          if (p.c0 != nullptr) {
+            cr[nt][e] = p.c0[2 * c];
+            ci[nt][e] = p.c0[2 * c + 1];
+          }
+        }
+      }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = tt * TC_MODES + mt * 16 + gid + h * 8;
+        if (q >= p.M) continue;
+        const float sr = rs[2 * q], si = rs[2 * q + 1];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (at[nt][e] < 0) continue;
+            const float back = wm == 0
+                                   ? fmaf(cr[nt][e], sr, -ci[nt][e] * si)
+                                   : fmaf(cr[nt][e], si, ci[nt][e] * sr);
+            out[at[nt][e] + (long long)q * p.ncols] =
+                (acc[mt][nt][2 * h + e] + back) * p.scale;
+          }
+      }
   }
 }
 
@@ -1879,24 +2351,27 @@ cudaError_t z_forward_tc(const void* tz, const float* zsum, const float* wzr,
 }
 
 // column 0 of a forward CT stage (see ct_fwd_col0) after its products
+// (x read at o istride + row ipitch; ipitch = 0: ncols, the output's)
 template <class TI, class TO>
 cudaError_t launch_col0(const TI* xr, const TI* xi, const float* wr,
                         const float* wi, TO* outr, TO* outi,
                         const float* k2x, const float* k2y, const float* k2z,
                         long long nouter, long long ostride, int M, int R,
                         int ncols, float scale, const Butter& bt,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, long long istride = -1,
+                        long long ipitch = 0) {
   const long long blocks = (nouter + C0_G - 1) / C0_G;
   const long long smem = col0_smem(M);
-  if (blocks > INT32_MAX || M % C0_MT || smem > TC_SMEM_MAX)
-    return cudaErrorInvalidValue;
+  if (blocks > INT32_MAX || smem > TC_SMEM_MAX) return cudaErrorInvalidValue;
   if (smem > 48 * 1024)
     PMESH_TRY_E(cudaFuncSetAttribute(
         ct_fwd_col0<TI, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem));
-  ct_fwd_col0<TI, TO><<<dim3((unsigned)blocks, R), 128, (size_t)smem,
-                        stream>>>(xr, xi, wr, wi, outr, outi, k2x, k2y, k2z,
-                                  nouter, ostride, M, R, ncols, scale, bt);
+  ct_fwd_col0<TI, TO><<<dim3((unsigned)blocks, R, (M + C0_Q - 1) / C0_Q),
+                        C0_Q, (size_t)smem, stream>>>(xr, xi, wr, wi, outr, outi, k2x, k2y, k2z,
+                                  nouter, istride < 0 ? ostride : istride,
+                                  ipitch > 0 ? ipitch : ncols, ostride, M, R,
+                                  ncols, scale, bt);
   return cudaGetLastError();
 }
 
@@ -1981,31 +2456,136 @@ cudaError_t x_ct_tc(const TS* xr, const TS* xi, const void* tab_,
                           bt, stream);
 }
 
-// a dense complex DFT along the rows of (nouter, M, ncols) blocks: the
-// CtOp stage at R = 1, whose butterfly is the identity, so forward and
-// inverse differ only by the table; optionally dual (a second table on
-// the same staged input) and with the 1/k^2 fold (W: the z width of a
-// column index n = y * W + z); o1i null: only the real part (OUT_REAL)
+// a dense complex DFT along the rows of (nouter, M, ncols) blocks on
+// cgemm (the inverse zy passes' y stage): the CtOp stage at R = 1, whose
+// butterfly is the identity; o1i null: only the real part (OUT_REAL)
 cudaError_t dense_rows(const float* xr, const float* xi, const float* wr,
-                       const float* wi, const float* w2r, const float* w2i,
-                       const float* k2x, const float* k2y, const float* k2z,
-                       float* o1r, float* o1i, float* o2r, float* o2i,
-                       int nouter, int M, long long ncols, int W,
-                       float scale, bool bf16, cudaStream_t stream) {
+                       const float* wi, float* o1r, float* o1i, int nouter,
+                       int M, long long ncols, bool bf16,
+                       cudaStream_t stream) {
   if (ncols > INT32_MAX) return cudaErrorInvalidValue;
   Butter one = {};
   one.r[0][0] = 1.f;
-  CtOp<false> op = {xr, xi, wr, wi, w2r, w2i, o1r, o1i, o2r, o2i,
-                    k2x, k2y, k2z, (long long)M * ncols, M, 1, (int)ncols,
-                    W, scale, one};
-  if (w2r != nullptr)
-    return launch_gemm<CtOp<false>, true, false, false>(
-        op, nouter, 1, M, ncols, M, true, bf16, stream);
+  CtOp<false> op = {xr, xi, wr, wi, nullptr, nullptr, o1r, o1i, nullptr,
+                    nullptr, nullptr, nullptr, nullptr, (long long)M * ncols,
+                    M, 1, (int)ncols, 1, 1.f, one};
   if (o1i == nullptr)
     return launch_gemm<CtOp<false>, false, false, true>(
         op, nouter, 1, M, ncols, M, true, bf16, stream);
   return launch_gemm<CtOp<false>, false, false, false>(
       op, nouter, 1, M, ncols, M, true, bf16, stream);
+}
+
+template <int NP, bool DATA_A>
+cudaError_t launch_tc_gemm(const TcGemm& p, long long dtiles,
+                           cudaStream_t stream) {
+  constexpr int smem = tg_smem<NP>();
+  static_assert(smem <= TC_SMEM_MAX, "the ring fits in shared memory");
+  const long long blocks = (long long)p.T * dtiles;
+  if (blocks < 1 || blocks > INT32_MAX) return cudaErrorInvalidValue;
+  PMESH_TRY_E(cudaFuncSetAttribute(tc_gemm<NP, DATA_A>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   smem));
+  tc_gemm<NP, DATA_A><<<(unsigned)blocks, TC_NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// the dense DFT along the rows of (nouter, M, ncols) complex blocks (x
+// read at o istride + row ipitch) into (nouter, M, ncols) outputs by the
+// (M, M) table set(s) of the block table tab (one set, or two when o2r
+// is set) times scale, with the 1/k^2 fold when k2x is set (W: the z
+// width of a column n = y W + z), on the tensor cores: split_cols, then
+// tc_gemm, NP parts.  center: the first element of each column is taken
+// out and added back through the row sums, and column 0 is formed in
+// chains after the products (ct_fwd_col0, by the f32 tables (wr, wi)
+// [(w2r, w2i)]).  Scratch: split (the data's tiles), c0 (2 nouter ncols).
+template <int NP>
+cudaError_t dense_tc(const float* xr, const float* xi, const void* tab,
+                     const float* sums, const float* wr, const float* wi,
+                     const float* w2r, const float* w2i, const float* k2x,
+                     const float* k2y, const float* k2z, float* o1r,
+                     float* o1i, float* o2r, float* o2i, bf16_t* split,
+                     float* c0, int nouter, int M, int ncols, int ipitch,
+                     long long istride, int W, float scale, bool center,
+                     cudaStream_t stream) {
+  const long long nall = (long long)nouter * ncols;
+  const long long tiles = (nall + TC_COLS - 1) / TC_COLS;
+  const int nks = (M + TC_DR - 1) / TC_DR;
+  const int T1 = (M + TC_MODES - 1) / TC_MODES;
+  const bool dual = o2r != nullptr;
+  if (tiles > INT32_MAX) return cudaErrorInvalidValue;
+  SplitCols sp = {xr,    xi,      k2x,  k2y, k2z, split, center ? c0 : nullptr,
+                  istride, nall, M, ncols, ipitch, W, nks};
+  split_cols<NP><<<dim3((unsigned)tiles, (nks + SPLIT_SG - 1) / SPLIT_SG),
+                   128, 0, stream>>>(sp);
+  PMESH_TRY_E(cudaGetLastError());
+  TcGemm g = {};
+  g.tab = (const bf16_t*)tab;
+  g.dat = split;
+  g.sums = sums;
+  g.c0 = center ? c0 : nullptr;
+  g.o1r = o1r;
+  g.o1i = o1i;
+  g.o2r = o2r;
+  g.o2i = o2i;
+  g.ostride = (long long)M * ncols;
+  g.nall = nall;
+  g.M = M;
+  g.ncols = ncols;
+  g.T = dual ? 2 * T1 : T1;
+  g.T1 = T1;
+  g.nks = nks;
+  g.scale = scale;
+  PMESH_TRY_E((launch_tc_gemm<NP, false>(g, tiles, stream)));
+  if (!center) return cudaSuccess;
+  Butter one = {};
+  one.r[0][0] = 1.f;
+  PMESH_TRY_E(launch_col0(xr, xi, wr, wi, o1r, o1i, k2x, k2y, k2z, nouter,
+                          g.ostride, M, 1, ncols, scale, one, stream,
+                          istride, ipitch));
+  if (!dual) return cudaSuccess;
+  return launch_col0(xr, xi, w2r, w2i, o2r, o2i, k2x, k2y, k2z, nouter,
+                     g.ostride, M, 1, ncols, scale, one, stream, istride,
+                     ipitch);
+}
+
+// the dense z half-DFT of (rows, N2) real x into (sr, si) (rows, pitch)
+// on the tensor cores: split_rows, then tc_gemm over the zm modes of the
+// block table tz (NP parts; zsum its (Zh, 2) column sums); modes [0, QZ)
+// (f32 form) and [zm, Zh) are chained by split_rows from (wzr, wzi).
+// Scratch: split (the rows' tiles), c0 (rows).
+template <int NP>
+cudaError_t z_dense_tc(const float* x, const void* tz, const float* zsum,
+                       const float* wzr, const float* wzi, float* sr,
+                       float* si, bf16_t* split, float* c0, long long rows,
+                       int N2, int Zh, int pitch, int zm,
+                       cudaStream_t stream) {
+  const long long tiles = (rows + TC_ROWS - 1) / TC_ROWS;
+  const int nks = (N2 + TC_BK - 1) / TC_BK;
+  const int nlo = NP == 3 ? min(QZ, zm) : 0;
+  if (tiles > INT32_MAX || zm < 1 || zm > Zh || nlo + Zh - zm > ZCH)
+    return cudaErrorInvalidValue;
+  float* cz = NP == 3 ? c0 : nullptr;
+  SplitRows sp = {x,    wzr, wzi, split, cz,   sr,  si,
+                  rows, N2,  Zh,  pitch, nlo, zm, nks,
+                  N2 % 4 == 0 && aligned16(x)};
+  split_rows<NP><<<(unsigned)tiles, 128, 0, stream>>>(sp);
+  PMESH_TRY_E(cudaGetLastError());
+  TcGemm g = {};
+  g.tab = (const bf16_t*)tz;
+  g.dat = split;
+  g.sums = zsum;
+  g.c0 = cz;
+  g.o1r = sr;
+  g.o1i = si;
+  g.nall = rows;
+  g.M = zm;
+  g.ncols = pitch;
+  g.lo = nlo;
+  g.T = g.T1 = (zm + TC_MODES - 1) / TC_MODES;
+  g.nks = nks;
+  g.scale = 1.f;
+  return launch_tc_gemm<NP, true>(g, tiles, stream);
 }
 
 // the z inverse of the natural-y (rows, Zm) spectrum (yr, yi) into real
@@ -2212,34 +2792,64 @@ int pmesh_zy_inv_ct2_dual(const void* xr, const void* xi,
 // --- the dense pipeline ---------------------------------------------------
 
 // x (n0, N1, N2) real -> (outr, outi) (n0, N1, Zh): the dense z half-DFT
-// by (wzr, wzi) (N2, Zh) into the scratch (sr, si) (n0, N1, Zh), then
-// the dense y DFT by (wyr, wyi) (N1, N1).  Natural order throughout.
+// by (wzr, wzi) (N2, Zh) into the scratch (sr, si) (n0 N1 rows of pitch
+// Zp, a multiple of 4), then the dense y DFT by (wyr, wyi) (N1, N1),
+// natural order throughout, on the tensor cores (bf16: the one-part
+// form).  tz, ty: the block tables (bf16; tz over the first zm modes,
+// the rest chained), zsum (Zh, 2) and ysum (N1, 2) their f32 sums.
+// Scratch: split (the larger of the two stages' data tiles), c0
+// (max(n0 N1, 2 n0 Zh) f32).
 int pmesh_zy_fwd_half(const float* x, const float* wzr, const float* wzi,
-                      const float* wyr, const float* wyi, float* outr,
-                      float* outi, float* sr, float* si, int n0, int N1,
-                      int N2, int Zh, int bf16, void* stream_) {
+                      const float* wyr, const float* wyi, const void* tz,
+                      const float* zsum, const void* ty, const float* ysum,
+                      float* outr, float* outi, float* sr, float* si,
+                      void* split, float* c0, int n0, int N1, int N2, int Zh,
+                      int Zp, int zm, int bf16, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
-  ZFwdDense zop = {x, wzr, wzi, sr, si, N2, Zh};
-  PMESH_TRY((launch_gemm<ZFwdDense, false, true, false>(
-      zop, 1, 1, (long long)n0 * N1, Zh, N2, false, bf16, stream)));
-  PMESH_TRY(dense_rows(sr, si, wyr, wyi, nullptr, nullptr, nullptr, nullptr,
-                       nullptr, outr, outi, nullptr, nullptr, n0, N1, Zh, 1,
-                       1.f, bf16, stream));
-  return 0;
+  const long long rows = (long long)n0 * N1;
+  bf16_t* sp = (bf16_t*)split;
+  if (bf16) {
+    PMESH_TRY(z_dense_tc<1>(x, tz, zsum, wzr, wzi, sr, si, sp, c0, rows, N2,
+                            Zh, Zp, zm, stream));
+    return (int)dense_tc<1>(sr, si, ty, ysum, wyr, wyi, nullptr, nullptr,
+                            nullptr, nullptr, nullptr, outr, outi, nullptr,
+                            nullptr, sp, c0, n0, N1, Zh, Zp,
+                            (long long)N1 * Zp, 1, 1.f, false, stream);
+  }
+  PMESH_TRY(z_dense_tc<3>(x, tz, zsum, wzr, wzi, sr, si, sp, c0, rows, N2,
+                          Zh, Zp, zm, stream));
+  return (int)dense_tc<3>(sr, si, ty, ysum, wyr, wyi, nullptr, nullptr,
+                          nullptr, nullptr, nullptr, outr, outi, nullptr,
+                          nullptr, sp, c0, n0, N1, Zh, Zp, (long long)N1 * Zp,
+                          1, 1.f, true, stream);
 }
 
 // (xr, xi) (N0, n1, W) -> (o1r, o1i) by the (N0, N0) table (wr, wi)
 // times scale [and (o2r, o2i) by (w2r, w2i) when w2r is set], with the
 // 1/k^2 fold when k2x is set (k2x (N0,), k2y (n1,), k2z (W,), natural
-// order).
+// order), on the tensor cores: tab the block table of both sets (bf16;
+// one part for bf16 = 1), rsum (sets, N0, 2) their f32 row sums.  The f32
+// form without the fold (a forward pass, or an inverse of an unfiltered
+// spectrum) takes each column's first element out and forms column 0 in
+// chains.  Scratch: split (the data's tiles), c0 (2 n1 W f32).
 int pmesh_x_dense(const float* xr, const float* xi, const float* wr,
                   const float* wi, const float* w2r, const float* w2i,
-                  const float* k2x, const float* k2y, const float* k2z,
-                  float* o1r, float* o1i, float* o2r, float* o2i, int N0,
+                  const void* tab, const float* rsum, const float* k2x,
+                  const float* k2y, const float* k2z, float* o1r, float* o1i,
+                  float* o2r, float* o2i, void* split, float* c0, int N0,
                   int n1, int W, float scale, int bf16, void* stream_) {
-  return (int)dense_rows(xr, xi, wr, wi, w2r, w2i, k2x, k2y, k2z, o1r, o1i,
-                         o2r, o2i, 1, N0, (long long)n1 * W, W, scale, bf16,
-                         (cudaStream_t)stream_);
+  cudaStream_t stream = (cudaStream_t)stream_;
+  const long long ncols = (long long)n1 * W;
+  if (ncols > INT32_MAX) return (int)cudaErrorInvalidValue;
+  bf16_t* sp = (bf16_t*)split;
+  if (bf16)
+    return (int)dense_tc<1>(xr, xi, tab, rsum, wr, wi, w2r, w2i, k2x, k2y,
+                            k2z, o1r, o1i, o2r, o2i, sp, c0, 1, N0,
+                            (int)ncols, (int)ncols, 0, W, scale, false,
+                            stream);
+  return (int)dense_tc<3>(xr, xi, tab, rsum, wr, wi, w2r, w2i, k2x, k2y, k2z,
+                          o1r, o1i, o2r, o2i, sp, c0, 1, N0, (int)ncols,
+                          (int)ncols, 0, W, scale, k2x == nullptr, stream);
 }
 
 // (xr, xi) (n0, N1, Zh) -> out (n0, N1, n2): the dense inverse y DFT by
@@ -2250,9 +2860,7 @@ int pmesh_zy_inv_half(const float* xr, const float* xi, const float* wyr,
                       float* out, float* sr, float* si, int n0, int N1,
                       int Zh, int n2, int bf16, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
-  PMESH_TRY(dense_rows(xr, xi, wyr, wyi, nullptr, nullptr, nullptr, nullptr,
-                       nullptr, sr, si, nullptr, nullptr, n0, N1, Zh, 1, 1.f,
-                       bf16, stream));
+  PMESH_TRY(dense_rows(xr, xi, wyr, wyi, sr, si, n0, N1, Zh, bf16, stream));
   PMESH_TRY(z_inverse(sr, si, ta, tb, 0, 1, Zh, n2, nullptr, out, nullptr,
                       (long long)n0 * N1, Zh, n2, nullptr, bf16, stream));
   return 0;
@@ -2272,9 +2880,8 @@ int pmesh_zy_inv_full(const float* xr, const float* xi, const float* wyr,
   ZFull zop = {xr, xi, ta, tb, sr, si, N2};
   PMESH_TRY((launch_gemm<ZFull, false, false, false>(
       zop, 1, 1, (long long)n0 * N1, N2, N2, false, bf16, stream)));
-  PMESH_TRY(dense_rows(sr, si, wyr, wyi, nullptr, nullptr, nullptr, nullptr,
-                       nullptr, out, nullptr, nullptr, nullptr, n0, N1, N2, 1,
-                       1.f, bf16, stream));
+  PMESH_TRY(dense_rows(sr, si, wyr, wyi, out, nullptr, n0, N1, N2, bf16,
+                       stream));
   return 0;
 }
 

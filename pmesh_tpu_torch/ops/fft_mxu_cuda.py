@@ -64,7 +64,7 @@ __all__ = ["zy_fwd_ct2", "xct_multi", "zy_inv_ct2", "zy_inv_ct2_dual",
            "zy_fwd_half", "x_dense", "zy_inv_half", "zy_fwd_full",
            "zy_inv_full", "zy_fwd_half_ct", "zy_inv_half_ct", "LAUNCHES",
            "reset_launches", "bf16_split3", "ct_block_table", "z_block_table",
-           "table_sums"]
+           "z_real_block_table", "z_tc_modes", "tile_swizzle", "table_sums"]
 
 # the ct2 passes, which also take bf16 spectrum storage
 _STORAGE = ("zy_fwd_ct2", "xct_multi", "zy_inv_ct2", "zy_inv_ct2_dual")
@@ -100,8 +100,8 @@ def _load():
         lib.pmesh_zy_inv_ct2_dual.argtypes = (
             [_P] * 10 + [_I] * 4 + [_P] * 8 + [_I] * 6 + [_P] * 2
             + [_I, _I, _P])
-        lib.pmesh_zy_fwd_half.argtypes = [_P] * 9 + [_I] * 4 + [_I, _P]
-        lib.pmesh_x_dense.argtypes = [_P] * 13 + [_I] * 3 + [_F, _I, _P]
+        lib.pmesh_zy_fwd_half.argtypes = [_P] * 15 + [_I] * 6 + [_I, _P]
+        lib.pmesh_x_dense.argtypes = [_P] * 17 + [_I] * 3 + [_F, _I, _P]
         lib.pmesh_zy_inv_half.argtypes = [_P] * 9 + [_I] * 4 + [_I, _P]
         lib.pmesh_zy_inv_full.argtypes = [_P] * 9 + [_I] * 3 + [_I, _P]
         lib.pmesh_zy_fwd_half_ct.argtypes = [_P] * 10 + [_I] * 6 + [_I, _P]
@@ -215,27 +215,77 @@ def bf16_split3(a):
     return a1, a2, _bf16_bits(r1 - _bf16_value(a2))
 
 
-def ct_block_table(pairs):
-    """The split table of ``tc_ct`` for one or two (R, M, M) complex
-    pairs (Wr, Wi)[j, q, m]: (R, T, nks, 3, 128, 16) bf16 bits (uint16),
-    T = 2 M / 128 tiles per set (set 2's after set 1's), nks = M / 8
-    slices, the three parts of ``bf16_split3`` on axis 3.  Tile t, row r:
-    output mode q = (t mod M/64) * 64 + r mod 64, real part for r < 64,
-    imaginary above; slice s, column c: data row m = 8 s + c mod 8, real
-    part for c < 8.  The entries are those of [[Wr, -Wi], [Wi, Wr]]."""
+def _parts(a, parts):
+    """the first ``parts`` of ``bf16_split3(a)`` (a: (..., 128, 16)
+    tiles) stacked before the tile axes: all three (the f32 products),
+    or the bf16 rounding alone (the bf16 products)"""
+    return np.ascontiguousarray(np.stack(bf16_split3(a)[:parts], -3))
+
+
+def ct_block_table(pairs, parts=3):
+    """The split table of ``tc_ct`` and of the dense passes' ``tc_gemm``
+    for one or two (R, M, M) complex pairs (Wr, Wi)[j, q, m]: (R, T, nks,
+    parts, 128, 16) bf16 bits (uint16), T = ceil(M / 64) tiles per set
+    (set 2's after set 1's), nks = ceil(M / 8) slices, the parts of
+    ``bf16_split3`` on axis 3 (three, or one: the bf16 rounding), zero
+    past M (modes padded to whole tiles, the contraction to whole
+    slices).  Tile t, row r: output mode q = (t mod T1) * 64 + r mod 64,
+    real part for r < 64, imaginary above; slice s, column c: data row
+    m = 8 s + c mod 8, real part for c < 8.  The entries are those of
+    [[Wr, -Wi], [Wi, Wr]]."""
     tiles = []
     dr = _BK // 2
     for wr, wi in pairs:
         wr, wi = np.asarray(wr, np.float32), np.asarray(wi, np.float32)
         R, M = wr.shape[:2]
-        a = np.empty((R, 2, M, 2, M), np.float32)   # j, out part, q, in part, m
-        a[:, 0, :, 0], a[:, 0, :, 1] = wr, -wi
-        a[:, 1, :, 0], a[:, 1, :, 1] = wi, wr
-        a = a.reshape(R, 2, M // _MODES, _MODES, 2, M // dr, dr)
+        T, nks = -(-M // _MODES), -(-M // dr)
+        # j, out part, q, in part, m
+        a = np.zeros((R, 2, T * _MODES, 2, nks * dr), np.float32)
+        a[:, 0, :M, 0, :M], a[:, 0, :M, 1, :M] = wr, -wi
+        a[:, 1, :M, 0, :M], a[:, 1, :M, 1, :M] = wi, wr
+        a = a.reshape(R, 2, T, _MODES, 2, nks, dr)
         tiles.append(a.transpose(0, 2, 5, 1, 3, 4, 6).reshape(
-            R, M // _MODES, M // dr, 2 * _MODES, _BK))
-    return np.ascontiguousarray(
-        np.stack(bf16_split3(np.concatenate(tiles, 1)), 3))
+            R, T, nks, 2 * _MODES, _BK))
+    return _parts(np.concatenate(tiles, 1), parts)
+
+
+def z_tc_modes(Zh):
+    """the z modes of the dense z stage's table tiles: all Zh, or the
+    whole 64-mode tiles when at most 8 modes would pass them (the
+    Nyquist mode at even N2 = 128 k: 193 = 3 * 64 + 1 at 384), which the
+    kernel chains instead"""
+    tail = Zh % _MODES
+    return Zh - tail if Zh > _MODES and tail <= 8 else Zh
+
+
+def z_real_block_table(er, ei, zm, parts=3):
+    """The split table of the dense z stage's ``tc_gemm`` for the real
+    data of the (K, Zh) half-DFT pair (Er, Ei)[k, mode], over modes
+    [0, zm): (T, nks, parts, 128, 16) bf16 bits (uint16), T = ceil(zm /
+    64) tiles, nks = ceil(K / 16) slices, zero past K and zm.  Tile t,
+    row c: mode t * 64 + c mod 64, the real output (Er) for c < 64, the
+    imaginary (Ei) above; slice s, column kk: k = 16 s + kk (every
+    contraction column a real data value)."""
+    er, ei = np.asarray(er, np.float32), np.asarray(ei, np.float32)
+    K = er.shape[0]
+    T, nks = -(-zm // _MODES), -(-K // _BK)
+    b = np.zeros((nks * _BK, 2, T * _MODES), np.float32)   # k, part, mode
+    b[:K, 0, :zm], b[:K, 1, :zm] = er[:, :zm], ei[:, :zm]
+    b = b.reshape(nks, _BK, 2, T, _MODES).transpose(3, 0, 2, 4, 1)
+    return _parts(b.reshape(T, nks, 2 * _MODES, _BK), parts)
+
+
+def tile_swizzle(tab):
+    """``tab`` (..., 128, 16) tiles as ``tc_gemm`` copies them whole into
+    shared memory: the two 8-value halves of each row r swapped where
+    bit 2 of r is set, so that ldmatrix reads conflict-free (the
+    kernel's ``tile_at``)"""
+    out = np.array(tab)
+    rows = (np.arange(out.shape[-2]) >> 2) & 1 == 1
+    half = out.shape[-1] // 2
+    out[..., rows, :] = np.concatenate(
+        [out[..., rows, half:], out[..., rows, :half]], -1)
+    return out
 
 
 def z_block_table(er, ei):
@@ -274,10 +324,12 @@ def table_sums(pairs, axis):
 _SPLIT = {}
 
 
-def _split_cached(arrays, device, make):
+def _split_cached(arrays, device, make, form=None):
     """the device copies of ``make()`` = (split table (uint16 bits of
-    bf16), f32 sums), made once per table objects ``arrays`` and device"""
-    key = (tuple(id(a) for a in arrays), str(device))
+    bf16), f32 sums), made once per table objects ``arrays``, device and
+    ``form`` (the builder and its parts: at a cube one DFT table serves
+    the z, y and x stages, whose block tables differ)"""
+    key = (tuple(id(a) for a in arrays), str(device), form)
     hit = _SPLIT.get(key)
     if hit is None or any(h is not a for h, a in zip(hit[0], arrays)):
         host, sums = make()
@@ -489,6 +541,35 @@ def zy_inv_ct2_dual(rr, ii, WyA, ABA, WyB, ABB, n2, planeA=None,
 
 
 # --- the dense passes (rows 3 and 4), natural order --------------------------
+#
+# The forward dense passes run on the tensor cores (``tc_gemm``) in both
+# forms: the f32 products on the three-part tables, the bf16 products
+# on one-part ones (the bf16 rounding of each entry).  Each pass splits
+# its data once into the scratch ``split`` (bf16, 2048 parts' values per
+# 128-row or -column tile and slice) before the products.
+
+def _parts_of(bf16):
+    return 1 if bf16 else 3
+
+
+def _split_scratch(tiles_slices, bf16, dev):
+    """the data tiles' scratch of a tc_gemm pass: tiles x slices of
+    (parts, 128, 16) bf16"""
+    return torch.empty(tiles_slices * _parts_of(bf16) * 128 * _BK,
+                       dtype=torch.bfloat16, device=dev)
+
+
+def _dense_table(pairs, dev, bf16):
+    """(block table, (sets, 1, M, 2) row sums) of (M, M) pairs on dev"""
+    sets = [tuple(np.asarray(a, np.float32)[None] for a in p) for p in pairs]
+    return _split_cached(tuple(a for p in pairs for a in p), dev, lambda: (
+        tile_swizzle(ct_block_table(sets, _parts_of(bf16))),
+        table_sums(sets, 2)), ('dense', _parts_of(bf16)))
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
 
 def _zy_fwd_dense(what, x, wz, wy, Zh, bf16):
     """the dense z DFT of real (n0, N1, N2) by the (N2, Zh) pair ``wz``,
@@ -497,12 +578,25 @@ def _zy_fwd_dense(what, x, wz, wy, Zh, bf16):
     dev = _check((x,), x.shape, what)
     wzr, wzi = (_table(a, (N2, Zh), dev, what) for a in wz)
     wyr, wyi = (_table(a, (N1, N1), dev, what) for a in wy)
-    outr, outi, sr, si = _empty((n0, N1, Zh), dev, 4)
+    zm = z_tc_modes(Zh)
+    tz = _split_cached(tuple(wz), dev, lambda: (
+        tile_swizzle(z_real_block_table(*wz, zm, _parts_of(bf16))),
+        table_sums([wz], 0)[0]), ('z real', _parts_of(bf16)))
+    ty = _dense_table([wy], dev, bf16)
+    rows = n0 * N1
+    Zp = _cdiv(Zh, 4) * 4     # the z scratch's row pitch: 16-byte rows
+    outr, outi = _empty((n0, N1, Zh), dev, 2)
+    sr, si = _empty((rows, Zp), dev, 2)
+    split = _split_scratch(max(_cdiv(rows, 128) * _cdiv(N2, _BK),
+                               _cdiv(n0 * Zh, 128) * _cdiv(N1, _BK // 2)),
+                           bf16, dev)
+    c0 = torch.empty(max(rows, 2 * n0 * Zh), dtype=torch.float32, device=dev)
     _count(what, bf16)
     rc = _load().pmesh_zy_fwd_half(
-        _ptr(x), _ptr(wzr), _ptr(wzi), _ptr(wyr), _ptr(wyi), _ptr(outr),
-        _ptr(outi), _ptr(sr), _ptr(si), n0, N1, N2, Zh, int(bool(bf16)),
-        _stream(dev))
+        _ptr(x), _ptr(wzr), _ptr(wzi), _ptr(wyr), _ptr(wyi), _ptr(tz[0]),
+        _ptr(tz[1]), _ptr(ty[0]), _ptr(ty[1]), _ptr(outr), _ptr(outi),
+        _ptr(sr), _ptr(si), _ptr(split), _ptr(c0), n0, N1, N2, Zh, Zp, zm,
+        int(bool(bf16)), _stream(dev))
     _raise_on(rc, what)
     return outr, outi
 
@@ -526,9 +620,9 @@ def x_dense(pr, pi, wx, scale, wx2=None, k2=None, bf16=False):
     what = "x_dense"
     N0, n1, W = pr.shape
     dev = _check((pr, pi), pr.shape, what)
-    tabs = [_table(a, (N0, N0), dev, what) for a in wx]
-    if wx2 is not None:
-        tabs += [_table(a, (N0, N0), dev, what) for a in wx2]
+    pairs = [wx] if wx2 is None else [wx, wx2]
+    tabs = [_table(a, (N0, N0), dev, what) for p in pairs for a in p]
+    tc = _dense_table(pairs, dev, bf16)
     ks = [None] * 3
     if k2 is not None:
         ks = [_table(np.asarray(t, np.float32), (n,), dev, what)
@@ -536,11 +630,16 @@ def x_dense(pr, pi, wx, scale, wx2=None, k2=None, bf16=False):
     out = _empty((N0, n1, W), dev, len(tabs))
     o = [_ptr(t) for t in out] + [None] * (4 - len(out))
     t2 = [_ptr(t) for t in tabs[2:]] + [None] * (4 - len(tabs))
+    ncols = n1 * W
+    split = _split_scratch(_cdiv(ncols, 128) * _cdiv(N0, _BK // 2), bf16,
+                           dev)
+    c0 = torch.empty(2 * ncols, dtype=torch.float32, device=dev)
     _count(what, bf16)
     rc = _load().pmesh_x_dense(
         _ptr(pr), _ptr(pi), _ptr(tabs[0]), _ptr(tabs[1]), t2[0], t2[1],
-        _ptr(ks[0]), _ptr(ks[1]), _ptr(ks[2]), o[0], o[1], o[2], o[3], N0,
-        n1, W, float(scale), int(bool(bf16)), _stream(dev))
+        _ptr(tc[0]), _ptr(tc[1]), _ptr(ks[0]), _ptr(ks[1]), _ptr(ks[2]),
+        o[0], o[1], o[2], o[3], _ptr(split), _ptr(c0), N0, n1, W,
+        float(scale), int(bool(bf16)), _stream(dev))
     _raise_on(rc, what)
     return tuple(out)
 

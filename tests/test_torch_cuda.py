@@ -696,6 +696,92 @@ def test_nbody_lattice_dense_mxu_card_matches_cpu(dev, shape):
         assert _rel(got, ref) <= 1e-4
 
 
+# --- the dense forward passes on the tensor cores (tc_gemm) -----------------
+
+def _device_kernels(fn):
+    """{kernel name: launches} of the device kernels that fn() runs"""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
+@pytest.mark.parametrize("shape", [(33, 75, 130), (75, 40, 33)])
+def test_tc_dense_matches_plain(dev, shape):
+    """x_dense and zy_fwd_half on tc_gemm at ragged shapes (x and y
+    lengths 33 and 75: tables padded to whole tiles and slices, column 0
+    chained by the guarded ct_fwd_col0; Zh = 66: the z stage's two tail
+    modes chained; Zh = 17 and 66: z rows not 16-byte aligned) on a mesh
+    with a mean, in both forms: f32 within TOL of plain, bf16 products
+    by the bf16 criteria (x pass 5e-4 of max, zy pass ZY)"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    N0, N1, n2 = shape
+    Zh = n2 // 2 + 1
+    x = (1.0 + 0.3 * _fft_inputs(60, shape, dev)[0]).contiguous()
+    wz, wy = fm._dft_half_np(n2, Zh), fm._dft_np(N1, -1)
+    for g, r in zip(fm._zy_fwd_dense_call(x, wz, wy, impl='cuda'),
+                    fm._zy_fwd_dense_call(x, wz, wy, impl='torch')):
+        assert _rel(g, r) <= TOL
+    _assert_bf16_close(_products(
+        lambda impl, **k: fm._zy_fwd_dense_call(x, wz, wy, impl=impl, **k)),
+        ZY)
+    pr, pi = fm._zy_fwd_dense_call(x, wz, wy, impl='torch')
+    rng = np.random.RandomState(61)
+    k2 = [rng.uniform(0.0, 2.0, m).astype('f4') for m in (N0, N1, Zh)]
+    for t in k2:
+        t[0] = 0.0
+    wi, wg = fm._dft_np(N0, +1), fm._dft_fold_np(N0, _sl(N0))
+    for kw in (dict(wx=fm._dft_np(N0, -1), scale=1.0 / x.numel()),
+               dict(wx=wi, scale=1.0, wx2=wg, k2=k2)):
+        got = fm._x_dense_call(pr, pi, impl='cuda', **kw)
+        ref = fm._x_dense_call(pr, pi, impl='torch', **kw)
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            assert _rel(g, r) <= TOL
+        _assert_bf16_close(_products(
+            lambda impl, **k: fm._x_dense_call(pr, pi, impl=impl, **k,
+                                               **kw)))
+
+
+def test_tc_dense_launches_no_cgemm(dev):
+    """the two entry points in every form (f32 and bf16 products;
+    forward, dual inverse with 1/k^2, row 13's full width) launch the
+    split passes and tc_gemm on the card, and never cgemm or
+    cgemm_bf16"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    from pmesh_tpu_torch.ops import fft_mxu_cuda as fk
+    shape = (48, 40, 33)
+    N0, N1, n2 = shape
+    Zh = n2 // 2 + 1
+    x = (1.0 + 0.3 * _fft_inputs(62, shape, dev)[0]).contiguous()
+    pr, pi, _ = _fft_inputs(63, (N0, N1, Zh), dev)
+    k2 = [np.linspace(0.0, 1.0, m).astype('f4') for m in (N0, N1, Zh)]
+    wx, wg = fm._dft_np(N0, +1), fm._dft_fold_np(N0, _sl(N0))
+    calls = {
+        'zy_fwd_half': lambda b: fk.zy_fwd_half(
+            x, fm._dft_half_np(n2, Zh), fm._dft_np(N1, -1), bf16=b),
+        'zy_fwd_full': lambda b: fk.zy_fwd_full(
+            x, fm._dft_np(n2, -1), fm._dft_np(N1, -1), bf16=b),
+        'x_dense': lambda b: fk.x_dense(pr, pi, fm._dft_np(N0, -1),
+                                        1.0 / N0, bf16=b),
+        'x_dense dual': lambda b: fk.x_dense(pr, pi, wx, 1.0, wx2=wg,
+                                             k2=k2, bf16=b)}
+    for name, call in calls.items():
+        for b in (False, True):
+            ks = _device_kernels(lambda: call(b))
+            assert not any('cgemm' in k for k in ks), (name, b, ks)
+            assert sum(v for k, v in ks.items() if 'tc_gemm' in k) >= (
+                2 if name.startswith('zy') else 1), (name, b, ks)
+            assert any('split_' in k for k in ks), (name, b, ks)
+
+
 # --- the row-13 pipelines (ops/fft_mxu_ref.py) on the kernels ----------------
 
 @pytest.mark.parametrize("shape", [(64, 64, 64), (45, 38, 75)])

@@ -136,6 +136,87 @@ def test_z_block_table_layout(n2):
                                (er + 1j * ei).sum(1), rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("n", [33, 75, 80, 96, 384])
+@pytest.mark.parametrize("sets", [1, 2])
+def test_dense_block_table_padded(n, sets):
+    """the dense passes' block table (ct_block_table at R = 1, any M):
+    modes padded to whole 64-mode tiles and the contraction to whole
+    8-row slices with zeros, each part that of bf16_split3 of the padded
+    [[Wr, -Wi], [Wi, Wr]]; the one-part form is the bf16 rounding; the
+    GEMM over the tiles gives W u"""
+    kv = tuple(np.sin(np.fft.fftfreq(n) * 2 * np.pi))
+    pairs = [fm._dft_np(n, -1), fm._dft_fold_np(n, kv)][:sets]
+    T1, nks = -(-n // 64), -(-n // 8)
+    tab = fk.ct_block_table([tuple(a[None] for a in p) for p in pairs])
+    assert tab.shape == (1, sets * T1, nks, 3, 128, 16)
+    assert tab.dtype == np.uint16
+    one = fk.ct_block_table([tuple(a[None] for a in p) for p in pairs], 1)
+    np.testing.assert_array_equal(one, tab[:, :, :, :1])
+    for k, (wr, wi) in enumerate(pairs):
+        big = np.zeros((2, T1 * 64, 2, nks * 8), np.float32)
+        big[0, :n, 0, :n], big[0, :n, 1, :n] = wr, -wi
+        big[1, :n, 0, :n], big[1, :n, 1, :n] = wi, wr
+        want = np.stack(fk.bf16_split3(big), 0)  # part, out, q, in, m
+        got = tab[0, k * T1:(k + 1) * T1].reshape(T1, nks, 3, 2, 64, 2, 8)
+        # tile t, slice s, part h, out part, q, in part, m -> the same order
+        got = got.transpose(2, 3, 0, 4, 5, 1, 6).reshape(want.shape)
+        np.testing.assert_array_equal(got, want)
+        pad = np.ones(big.shape, bool)
+        pad[:, :n, :, :n] = False
+        assert not got[:, pad].any()
+    rng = np.random.RandomState(n)
+    u = rng.normal(size=(n, 3)) + 1j * rng.normal(size=(n, 3))
+    up = np.zeros((nks * 8, 3), complex)
+    up[:n] = u
+    d = np.concatenate([up.real.reshape(nks, 8, 3), up.imag.reshape(nks, 8, 3)],
+                       1)
+    out = np.einsum('tsrc,scn->trn', _unsplit(tab)[0], d)
+    for k, (wr, wi) in enumerate(pairs):
+        o = out[k * T1:(k + 1) * T1].reshape(T1, 2, 64, 3)
+        got = (o[:, 0] + 1j * o[:, 1]).reshape(T1 * 64, 3)[:n]
+        ref = (wr.astype(np.float64) + 1j * wi.astype(np.float64)) @ u
+        np.testing.assert_allclose(got, ref, atol=1e-9 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("n2", [33, 75, 80, 96, 384])
+@pytest.mark.parametrize("parts", [3, 1])
+def test_z_real_block_table_padded(n2, parts):
+    """the dense z stage's table for real data: every contraction column
+    a real k (16 per slice), the modes [0, zm) of z_tc_modes (the
+    Nyquist mode of 384 chained, not tiled) padded to whole tiles, zero
+    past K and zm; the GEMM over the tiles gives x E"""
+    Zh = n2 // 2 + 1
+    er, ei = fm._dft_half_np(n2, Zh)
+    zm = fk.z_tc_modes(Zh)
+    assert zm == (192 if n2 == 384 else Zh)
+    T, nks = -(-zm // 64), -(-n2 // 16)
+    tab = fk.z_real_block_table(er, ei, zm, parts)
+    assert tab.shape == (T, nks, parts, 128, 16) and tab.dtype == np.uint16
+    big = np.zeros((nks * 16, 2, T * 64), np.float32)   # k, part, mode
+    big[:n2, 0, :zm], big[:n2, 1, :zm] = er[:, :zm], ei[:, :zm]
+    want = np.stack(fk.bf16_split3(big)[:parts], 0)
+    got = tab.reshape(T, nks, parts, 2, 64, 16).transpose(2, 1, 5, 3, 0, 4)
+    np.testing.assert_array_equal(got.reshape(want.shape), want)
+    pad = np.ones(big.shape, bool)
+    pad[:n2, :, :zm] = False
+    assert not got.reshape(want.shape)[:, pad].any()
+    if parts == 3:
+        x = np.random.RandomState(n2).normal(size=(5, n2))
+        xp = np.zeros((5, nks * 16))
+        xp[:, :n2] = x
+        out = np.einsum('msk,tsck->mtc', xp.reshape(5, nks, 16),
+                        _unsplit_z(tab)).reshape(5, T, 2, 64)
+        got = (out[:, :, 0] + 1j * out[:, :, 1]).reshape(5, T * 64)[:, :zm]
+        ref = x @ (er.astype(np.float64) + 1j * ei.astype(np.float64))[:, :zm]
+        np.testing.assert_allclose(got, ref, atol=1e-9 * np.abs(ref).max())
+
+
+def _unsplit_z(tab):
+    """the f64 sum of the parts (axis 2) of a z table"""
+    return sum(_value(tab[:, :, h]).astype(np.float64)
+               for h in range(tab.shape[2]))
+
+
 # --- the emulated split product through the plain passes -----------------------
 
 def _bf16_parts(t):
