@@ -669,6 +669,51 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         : "memory");
 }
 
+// the warpgroup products of tc_gemm (wgmma): a descriptor of a K-major
+// operand tile of 32-byte rows (16 bf16) in the 32-byte swizzle (the two
+// 16-byte halves of row r swapped where bit 2 of r is set, i.e. address
+// bit 4 ^= bit 7, the tile 256-byte aligned): start >> 4, leading offset
+// 1 (unused when swizzled), stride 256 bytes (8 rows) >> 4, layout
+// SWIZZLE_32B
+__device__ __forceinline__ uint64_t gmma_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (16ull << 32) | (3ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pin the 64 accumulator registers at this point: the compiler sees the
+// products' asm as finished when issued, and would otherwise move reads
+// and writes of the registers across the asynchronous products' wait
+__device__ __forceinline__ void wg_pin(float* d) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (the warpgroup's 64 x 128 f32 tile: d[4 j + q] at row 16 (warp % 4) +
+// lane / 4 + 8 (q / 2), column 8 j + 2 (lane % 4) + q % 2) = A B^T, plus d
+// when acc: A (64 x 16) and B (128 x 16) K-major bf16 in shared memory
+__device__ __forceinline__ void wgmma_128(float* d, uint64_t da, uint64_t db,
+                                          int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 // v = p1 + p2 + p3 in bf16 parts, each rounded to nearest even from the
 // remainder (each remainder exact in f32): 24 bits of v, f32's
 __device__ __forceinline__ void split3(float v, bf16_t* p) {
@@ -733,42 +778,28 @@ __device__ __forceinline__ void zero_acc(TcAcc& a) {
 }
 
 // acc += A (TC_ROWS x 16) B (16 x TC_COLS) for one slice: A split in
-// [part][row][k], B in [part][col][k] (pitch TC_PK), NP = 3 parts (six
-// products) or NP = 1 (the bf16 form: one product, summed straight into
-// acc, as the bf16 products' f32 sums run).  For NP = 3, for each pair of
-// 16-row tiles the products sum into a fresh partial, smallest terms
+// [part][row][k], B in [part][col][k] (pitch TC_PK).  For each pair of
+// 16-row tiles the six products sum into a fresh partial, smallest terms
 // first, over all 4 column tiles, and the partial is added to acc on the
 // CUDA cores: the tensor cores align a sum to its largest term and
 // truncate it, so a running sum much larger than the new products would
 // drop their low bits.  mid() runs while the first pair's products are
 // in flight (the next slice's conversion: CUDA-core work that overlaps
 // the tensor cores').
-// element offset of (row, 16-byte half) in a part's tile: rows of pitch
-// TC_PK, or (SWZ) rows of 16 with the halves swapped where bit 2 of the
-// row is set, so that the 8 rows an ldmatrix matrix reads fall on 8
-// distinct 16-byte bank groups
-template <bool SWZ>
-__device__ __forceinline__ int tile_at(int row, int half) {
-  if constexpr (SWZ) return row * TC_BK + 8 * (half ^ ((row >> 2) & 1));
-  return row * TC_PK + 8 * half;
-}
-
-template <int NP = 3, bool SWZ = false, class Mid>
+template <class Mid>
 __device__ __forceinline__ void tc_mma_slice(TcAcc& acc, const bf16_t* A,
                                              const bf16_t* B, int wm, int wn,
                                              int lane, const Mid& mid) {
-  static_assert(NP == 3 || NP == 1, "three parts or one");
-  constexpr int PART = TC_ROWS * (SWZ ? TC_BK : TC_PK);
-  constexpr int TERMS = NP == 3 ? 6 : 1;
-  uint32_t b[NP][4][2];
+  constexpr int PART = TC_ROWS * TC_PK;
+  uint32_t b[3][4][2];
 #pragma unroll
-  for (int h = 0; h < NP; ++h)
+  for (int h = 0; h < 3; ++h)
 #pragma unroll
     for (int np = 0; np < 2; ++np) {
       uint32_t r[4];
       ldsm_x4(r, B + h * PART +
-                     tile_at<SWZ>(wn + np * 16 + lane % 8 + (lane / 16) * 8,
-                                  (lane / 8) % 2));
+                     (wn + np * 16 + lane % 8 + (lane / 16) * 8) * TC_PK +
+                     ((lane / 8) % 2) * 8);
       b[h][2 * np][0] = r[0];
       b[h][2 * np][1] = r[1];
       b[h][2 * np + 1][0] = r[2];
@@ -776,35 +807,16 @@ __device__ __forceinline__ void tc_mma_slice(TcAcc& acc, const bf16_t* A,
     }
   // (A part, B part) of the six terms, smallest first
   constexpr int PA_[6] = {1, 2, 0, 1, 0, 0}, PB_[6] = {1, 0, 2, 0, 1, 0};
-  if constexpr (NP == 1) {
-    // one product per slice: straight into acc
-#pragma unroll
-    for (int mp = 0; mp < 2; ++mp) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldsm_x4(a[i], A + tile_at<SWZ>(wm + (2 * mp + i) * 16 + lane % 16,
-                                       lane / 16));
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(acc[2 * mp + i][nt], a[i], b[0][nt]);
-      if (mp == 0) mid();
-    }
-    return;
-  }
 #pragma unroll
   for (int mp = 0; mp < 2; ++mp) {
-    uint32_t a[NP][2][4];
+    uint32_t a[3][2][4];
 #pragma unroll
-    for (int h = 0; h < NP; ++h)
+    for (int h = 0; h < 3; ++h)
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        ldsm_x4(a[h][i],
-                A + h * PART +
-                    tile_at<SWZ>(wm + (2 * mp + i) * 16 + lane % 16,
-                                 lane / 16));
+        ldsm_x4(a[h][i], A + h * PART +
+                             (wm + (2 * mp + i) * 16 + lane % 16) * TC_PK +
+                             (lane / 16) * 8);
     float part[2][4][4];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -813,13 +825,12 @@ __device__ __forceinline__ void tc_mma_slice(TcAcc& acc, const bf16_t* A,
 #pragma unroll
         for (int q = 0; q < 4; ++q) part[i][nt][q] = 0.f;
 #pragma unroll
-    for (int t = 0; t < TERMS; ++t)
+    for (int t = 0; t < 6; ++t)
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(part[i][nt], a[NP == 3 ? PA_[t] : 0][i],
-                   b[NP == 3 ? PB_[t] : 0][nt]);
+          mma_bf16(part[i][nt], a[PA_[t]][i], b[PB_[t]][nt]);
     if (mp == 0) mid();
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -1422,12 +1433,19 @@ __global__ void __launch_bounds__(TC_NT) tc_z(const TcZ p) {
 // operand ONCE, as the GEMM's slice tiles in device memory (the fold,
 // the taken-out first element, the three bf16 parts; one part, the
 // rounding, in the bf16 form), and tc_gemm multiplies pre-split tiles
-// only: both operands through a cp.async ring TG_DEPTH slices deep,
-// ldmatrix, the products of tc_mma_slice into fresh partials.  The
-// split tiles cost 12 bytes per complex element written and read once
-// more (at 384^3 about 0.2 ms of a pass's bytes); the other table tiles
-// of a column tile read them from L2 (blocks that share a data tile are
-// adjacent in launch order).
+// only.  Since the tiles are contiguous and laid out in advance (in the
+// 32-byte swizzle), each slice of both operands is two bulk copies (TMA)
+// into a ring TG_DEPTH slices deep, and two warpgroups multiply it with
+// wgmma.m64n128k16 straight from shared memory, the six products of a
+// slice into a fresh partial (as tc_mma_slice sums them) that the CUDA
+// cores add to the accumulator.  The split tiles cost 12 bytes per
+// complex element written and read once more (at 384^3 about 0.2 ms of a
+// pass's bytes); the other table tiles of a column tile read them from
+// L2 (blocks that share a data tile are adjacent in launch order).
+// Measured on the card at 384^3 (PERF.md, PR 9), the forward x pass's
+// products: mma.sync fed by 16-byte cp.async 2.17 ms, fed by bulk copies
+// 1.43, wgmma 1.18; a wgmma loop that kept one slice in flight (two
+// partials) was slower, 1.29.
 //
 //   split_cols   the x / y stage's data: column c of (nouter, M, ncols)
 //                complex blocks (c = o ncols + n), rows in slices of 8
@@ -1447,14 +1465,18 @@ constexpr int TG_DEPTH = 4;    // slices in flight in tc_gemm's ring
 constexpr int TG_SLICE = TC_ROWS * TC_BK;   // bf16 of one part of a slice tile
 constexpr int ZCH = 16;        // chained z modes at most: QZ + a tail of 8
 
+// the ring's bytes, and room to align it to 1024 bytes (the swizzle works
+// on absolute shared-memory addresses, and the dynamic region starts
+// after the static one)
 template <int NP>
 __host__ __device__ constexpr int tg_smem() {
-  return TG_DEPTH * 2 * NP * TG_SLICE * 2;
+  return TG_DEPTH * 2 * NP * TG_SLICE * 2 + 1024;
 }
 
 // the NP parts of 16 values (row r of a tile) into dst + h TG_SLICE (h <
 // NP), 32 bytes each: three bf16 parts (split3), or the bf16 rounding (NP
-// = 1); the two 16-byte halves swapped where bit 2 of r is set (tile_at)
+// = 1); the two 16-byte halves swapped where bit 2 of r is set (the
+// 32-byte swizzle of gmma_desc)
 template <int NP>
 __device__ __forceinline__ void st_parts16(bf16_t* dst, const float* v,
                                            int r) {
@@ -1674,15 +1696,16 @@ struct TcGemm {
 // DATA_A: the data is the row operand (z); else the column operand (x / y).
 // The ring: TG_DEPTH slots of [row op | col op], each filled by two bulk
 // copies of the operands' contiguous slice tiles (pre-swizzled in device
-// memory, as tile_at reads them) issued by thread 0 and completing on the
+// memory, as gmma_desc reads them) issued by thread 0 and completing on the
 // slot's mbarrier; a barrier after each slice's products frees its slot.
 template <int NP, bool DATA_A>
 __global__ void __launch_bounds__(TC_NT, 1) tc_gemm(const TcGemm p) {
-  extern __shared__ __align__(128) unsigned char tc_smem[];
+  extern __shared__ __align__(16) unsigned char tc_smem[];
   __shared__ __align__(8) uint64_t full[TG_DEPTH];
   constexpr int SE = NP * TG_SLICE;   // bf16 of an operand's slice tile
   constexpr int D = TG_DEPTH;
-  bf16_t* ring = reinterpret_cast<bf16_t*>(tc_smem);
+  bf16_t* ring = reinterpret_cast<bf16_t*>(
+      tc_smem + ((1024 - (smem_u32(tc_smem) & 1023)) & 1023));
   const long long b = blockIdx.x;
   const int t = (int)(b % p.T);
   const long long dt = b / p.T;
@@ -1706,14 +1729,38 @@ __global__ void __launch_bounds__(TC_NT, 1) tc_gemm(const TcGemm p) {
   };
   if (tid == 0)
     for (int s = 0; s < D && s < p.nks; ++s) issue(s);
-  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
-  TcAcc acc;
-  zero_acc(acc);
+  // warpgroup wg: rows [64 wg, 64 wg + 64) of the tile, all 128 columns;
+  // per slice the products (NP = 3: the six, smallest first, into a fresh
+  // partial that the CUDA cores add to acc; NP = 1: one, into acc), a
+  // wait for them, and a barrier that frees the slice's slot
+  const int wg = warp / 4, w4 = warp % 4;
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+  constexpr int PA_[6] = {1, 2, 0, 1, 0, 0}, PB_[6] = {1, 0, 2, 0, 1, 0};
   for (int s = 0; s < p.nks; ++s) {
     const int slot = s % D;
     mbar_wait(&full[slot], (s / D) & 1);
-    const bf16_t* st = ring + slot * 2 * SE;
-    tc_mma_slice<NP, true>(acc, st, st + SE, wm, wn, lane, [] {});
+    const bf16_t* A = ring + slot * 2 * SE + wg * 64 * TC_BK;
+    const bf16_t* B = ring + slot * 2 * SE + SE;
+    float* d = NP == 1 ? acc : part;
+    wg_pin(d);
+    wg_fence();
+    if constexpr (NP == 1) {
+      wgmma_128(acc, gmma_desc(A), gmma_desc(B), 1);
+    } else {
+#pragma unroll
+      for (int t = 0; t < 6; ++t)
+        wgmma_128(part, gmma_desc(A + PA_[t] * TG_SLICE),
+                  gmma_desc(B + PB_[t] * TG_SLICE), t > 0);
+    }
+    wg_commit();
+    wg_wait<0>();
+    wg_pin(d);
+    if constexpr (NP == 3) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    }
     __syncthreads();
     if (tid == 0 && s + D < p.nks) {
       fence_proxy_async();
@@ -1725,76 +1772,61 @@ __global__ void __launch_bounds__(TC_NT, 1) tc_gemm(const TcGemm p) {
   if constexpr (DATA_A) {
     // z: rows are data rows, columns [0, 64) real parts of the tile's
     // modes, the rest imaginary; each output gets back c0 sum_k E[k, mode]
-    const bool re = wn < TC_MODES;
-    float* out = re ? p.o1r : p.o1i;
-    float sm[4][2];
+    long long m[2];
+    float c0[2];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int h = 0; h < 2; ++h) {
+      m[h] = dt * TC_ROWS + wg * 64 + w4 * 16 + gid + h * 8;
+      c0[h] = p.c0 != nullptr && m[h] < p.nall ? p.c0[m[h]] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int mode = t * TC_MODES + (wn % TC_MODES) + nt * 8 + 2 * tig + e;
-        sm[nt][e] = mode < p.M ? p.sums[2 * mode + (re ? 0 : 1)] : 0.f;
-      }
+        const int col = 8 * j + 2 * tig + e;
+        const bool re = col < TC_MODES;
+        const int mode = t * TC_MODES + col % TC_MODES;
+        if (mode < p.lo || mode >= p.M) continue;
+        const float sm = p.sums[2 * mode + (re ? 0 : 1)];
+        float* out = re ? p.o1r : p.o1i;
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const long long m = dt * TC_ROWS + wm + mt * 16 + gid + h * 8;
-        if (m >= p.nall) continue;
-        const float c0 = p.c0 != nullptr ? p.c0[m] : 0.f;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int mode =
-                t * TC_MODES + (wn % TC_MODES) + nt * 8 + 2 * tig + e;
-            if (mode >= p.lo && mode < p.M)
-              out[m * p.ncols + mode] =
-                  fmaf(c0, sm[nt][e], acc[mt][nt][2 * h + e]);
-          }
+        for (int h = 0; h < 2; ++h)
+          if (m[h] < p.nall)
+            out[m[h] * p.ncols + mode] = fmaf(c0[h], sm, acc[4 * j + 2 * h + e]);
       }
   } else {
-    // x / y: rows [0, 64) of the tile are real parts of its modes, the
-    // rest imaginary; each output gets back c0 sum_m W[q, m], then the scale
+    // x / y: warpgroup 0 holds the real parts of the tile's modes,
+    // warpgroup 1 the imaginary; each output gets back c0 sum_m W[q, m],
+    // then the scale
     const bool set2 = t >= p.T1;
     const int tt = set2 ? t - p.T1 : t;
-    float* out = wm == 0 ? (set2 ? p.o2r : p.o1r) : (set2 ? p.o2i : p.o1i);
+    float* out = wg == 0 ? (set2 ? p.o2r : p.o1r) : (set2 ? p.o2i : p.o1i);
     const float* rs = p.sums + (set2 ? 2LL * p.M : 0LL);
-    long long at[4][2];
-    float cr[4][2], ci[4][2];
+    int q[2];
+    float sr[2], si[2];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int h = 0; h < 2; ++h) {
+      q[h] = tt * TC_MODES + w4 * 16 + gid + h * 8;
+      sr[h] = q[h] < p.M ? rs[2 * q[h]] : 0.f;
+      si[h] = q[h] < p.M ? rs[2 * q[h] + 1] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const long long c = dt * TC_COLS + wn + nt * 8 + 2 * tig + e;
-        at[nt][e] = -1;
-        cr[nt][e] = ci[nt][e] = 0.f;
-        if (c < p.nall) {
-          at[nt][e] = (c / p.ncols) * p.ostride + c % p.ncols;
-          if (p.c0 != nullptr) {
-            cr[nt][e] = p.c0[2 * c];
-            ci[nt][e] = p.c0[2 * c + 1];
-          }
+        const long long c = dt * TC_COLS + 8 * j + 2 * tig + e;
+        if (c >= p.nall) continue;
+        const long long at = (c / p.ncols) * p.ostride + c % p.ncols;
+        const float cr = p.c0 != nullptr ? p.c0[2 * c] : 0.f;
+        const float ci = p.c0 != nullptr ? p.c0[2 * c + 1] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (q[h] >= p.M) continue;
+          const float back = wg == 0 ? fmaf(cr, sr[h], -ci * si[h])
+                                     : fmaf(cr, si[h], ci * sr[h]);
+          out[at + (long long)q[h] * p.ncols] =
+              (acc[4 * j + 2 * h + e] + back) * p.scale;
         }
-      }
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int q = tt * TC_MODES + mt * 16 + gid + h * 8;
-        if (q >= p.M) continue;
-        const float sr = rs[2 * q], si = rs[2 * q + 1];
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            if (at[nt][e] < 0) continue;
-            const float back = wm == 0
-                                   ? fmaf(cr[nt][e], sr, -ci[nt][e] * si)
-                                   : fmaf(cr[nt][e], si, ci[nt][e] * sr);
-            out[at[nt][e] + (long long)q * p.ncols] =
-                (acc[mt][nt][2 * h + e] + back) * p.scale;
-          }
       }
   }
 }
