@@ -29,6 +29,12 @@ Phases, in order; any failure raises and exits non-zero:
    same function, that call's time (torch.fft); and for each pipeline
    the operator-level yardsticks torch.fft.rfftn(x, norm='forward') and
    the stacked irfftn of the filtered spectrum, the filter timed apart;
+   the forward ct2 passes and the dense forward passes (zy_fwd_half,
+   x_dense, on tc_gemm since PR 9) also print their tensor-core share
+   and each f32 case's distance from f64 products beside plain's (the
+   kernel no farther), and the dense ones their device launches at the
+   dense, row-9 and row-13 shapes in both forms (read by the profiler:
+   tc_gemm and the split passes, never cgemm or cgemm_bf16);
 4. drive the FastPM lattice path at 512^3 f32 through the user's entry
    points: Solver.lpt_lattice (2LPT) then Solver.nbody_lattice (5 KDK
    steps, spectral force) and one gradient-mode force_lattice, with
@@ -759,17 +765,67 @@ def library_dual_x(rr, ii, k2=None):
     return lambda: torch.fft.ifft(z, dim=1)
 
 
-def tc_share(label, fma, ms):
+def tc_share(label, fma, ms, products=6):
     """the tensor-core rate of a pass of the split-precision routine:
     ``fma`` real multiply-adds of its block products, six bf16 products
-    each (2 FLOP apiece), over ``ms``, against the bf16 peak (the same
-    share as three TF32 products against 495 TFLOP/s)"""
-    rate = 6 * 2 * fma / (ms * 1e-3)
-    log("phase 3 tensor cores: %-40s %.3f G real FMA x 6 bf16 products in "
+    each (2 FLOP apiece; one in the bf16 form), over ``ms``, against the
+    bf16 peak (the same share as three TF32 products against 495
+    TFLOP/s)"""
+    rate = products * 2 * fma / (ms * 1e-3)
+    log("phase 3 tensor cores: %-40s %.3f G real FMA x %d bf16 products in "
         "%.3f ms: %.1f TFLOP/s, %.3f of %.0f TFLOP/s (%s)"
-        % (label, fma / 1e9, ms, rate / 1e12, rate / PEAK_BF16, PEAK_BF16 / 1e12,
-           CARD))
+        % (label, fma / 1e9, products, ms, rate / 1e12, rate / PEAK_BF16,
+           PEAK_BF16 / 1e12, CARD))
     return rate / PEAK_BF16
+
+
+def dense_zy_fma(n0, N1, N2):
+    """real FMA of zy_fwd_half's products: the z stage's real rows times
+    the (N2, Zh) pair (2 per row, k and mode), the y stage's complex
+    (N1 x N1) products over the Zh columns (4 each)"""
+    Zh = N2 // 2 + 1
+    return 2.0 * n0 * N1 * N2 * Zh + 4.0 * n0 * N1 * N1 * Zh
+
+
+def dense_x_fma(N0, ncols, sets=1):
+    """real FMA of an x_dense pass: complex (N0 x N0) products over the
+    columns, per table set"""
+    return 4.0 * sets * N0 * N0 * ncols
+
+
+def device_launches(fn):
+    """{kernel name: launches} of the device kernels that one fn() call
+    runs (torch.profiler, after a warm-up call)"""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
+def dense_tc_check(label, fn):
+    """the dense forward entry points (zy_fwd_half, x_dense) run their
+    products on the tensor cores: one call's device launches, read by
+    the profiler, include tc_gemm and the split passes and no cgemm or
+    cgemm_bf16; raises otherwise"""
+    ks = device_launches(fn)
+
+    def count(frag):
+        return sum(v for k, v in ks.items() if frag in k)
+    tc, sp, c0, cg = (count("tc_gemm"), count("split_"),
+                      count("ct_fwd_col0"), count("cgemm"))
+    ok = tc >= 1 and sp >= 1 and cg == 0
+    log("phase 3 device launches: %-46s tc_gemm %d, split passes %d, "
+        "ct_fwd_col0 %d, cgemm or cgemm_bf16 %d %s"
+        % (label, tc, sp, c0, cg, "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("%s did not run on tc_gemm alone" % label)
 
 
 def zy_fma(n0, N1, N2):
@@ -973,14 +1029,26 @@ def phase_compare_dense(dev):
         ops_x = fft_ops(N0, N1 * Zh)
         ops_zy = zy_ops(N0, N1, n2)
 
-        def case(label, kernel, fn, reads, ops, library=None):
+        def case(label, kernel, fn, reads, ops, library=None, exact=False):
             return dft_case(records, kernel, "%s %s" % (shape, label), fn,
-                            reads, ops, library)
+                            reads, ops, library, exact=exact)
+
+        def tensor_cores(label, fma, call):
+            """the pass's tensor-core share in both forms, and its device
+            launches: tc_gemm, never cgemm"""
+            for prec, products in ((None, 6), ('bf16', 1)):
+                tc_share("%s %s %s" % (label, shape, prec or 'f32'), fma,
+                         cuda_ms(lambda: call(prec), 5), products)
+                dense_tc_check("%s %s %s" % (label, shape, prec or 'f32'),
+                               lambda: call(prec))
         pr, pi = case("density", "zy_fwd_half",
                       lambda impl: fm._zy_fwd_dense_call(x, wz, wyf,
                                                          impl=impl),
                       (x, wz, wyf), ops_zy,
-                      lambda: torch.fft.rfftn(x, dim=(1, 2)))
+                      lambda: torch.fft.rfftn(x, dim=(1, 2)), exact=True)
+        tensor_cores("zy_fwd_half", dense_zy_fma(N0, N1, n2),
+                     lambda prec: fm._zy_fwd_dense_call(x, wz, wyf,
+                                                        precision=prec))
         if shape == (NC,) * 3:
             fft_yardsticks(x, kd, pk2, "dense")
         del x
@@ -989,14 +1057,21 @@ def phase_compare_dense(dev):
                     lambda impl: fm._x_dense_call(pr, pi, wxf,
                                                   1.0 / (N0 * N1 * n2),
                                                   impl=impl),
-                    (pr, pi, wxf), ops_x, lambda: torch.fft.fft(zc, dim=0))
+                    (pr, pi, wxf), ops_x, lambda: torch.fft.fft(zc, dim=0),
+                    exact=True)
+        tensor_cores("x_dense forward", dense_x_fma(N0, N1 * Zh),
+                     lambda prec: fm._x_dense_call(
+                         pr, pi, wxf, 1.0 / (N0 * N1 * n2), precision=prec))
         del pr, pi, zc
         sr, si, gr, gi = case("inverse dual (kx-folded), 1/k^2", "x_dense",
                               lambda impl: fm._x_dense_call(
                                   r, i, wx, 1.0, wx2=wx_g, k2=k2,
                                   impl=impl),
                               (r, i, wx, wx_g, k2), 2 * ops_x,
-                              library_dual_x(r, i, k2))
+                              library_dual_x(r, i, k2), exact=True)
+        tensor_cores("x_dense dual inverse", dense_x_fma(N0, N1 * Zh, 2),
+                     lambda prec: fm._x_dense_call(
+                         r, i, wx, 1.0, wx2=wx_g, k2=k2, precision=prec))
         del r, i
         case("fx tables", "zy_inv_half",
              lambda impl: fm._zy_inv_dense_call(gr, gi, wy, AB_p, impl=impl),
@@ -1103,6 +1178,14 @@ def phase_compare_ref(dev):
                       lambda impl: ref._zy_fwd_full_call(x, wz, wy, impl=impl),
                       (x, wz, wy), ops_zy,
                       lambda: torch.fft.fftn(x, dim=(1, 2)))
+        for prec in (None, 'bf16'):
+            dense_tc_check("zy_fwd_full %s %s" % (shape, prec or 'f32'),
+                           lambda: ref._zy_fwd_full_call(x, wz, wy,
+                                                         precision=prec))
+            dense_tc_check("x_dense (full spectrum) %s %s"
+                           % (shape, prec or 'f32'),
+                           lambda: fm._x_dense_call(pr, pi, wxi, 1.0,
+                                                    wx2=wx_g, precision=prec))
         if shape == (N,) * 3:
             full_yardsticks(x, kv)
         del x
@@ -2285,6 +2368,11 @@ FAMILIES = (
     ("paint_lattice", "paint_lattice"),
     ("rebase_assign", "rebase_assign"),
     ("rebase_apply", "rebase_apply"),
+    ("tc_gemm", "DFT products: dense, tensor cores (tc_gemm)"),
+    ("split_", "DFT split passes (dense)"),
+    ("ct_fwd_col0", "DFT column-0 chains"),
+    ("tc_ct", "DFT products: ct2, tensor cores (tc_ct, tc_z)"),
+    ("tc_z", "DFT products: ct2, tensor cores (tc_ct, tc_z)"),
     ("CtOp", "DFT products: x/y (CtOp)"),
     ("ZFwdDense", "DFT products: dense z forward"),
     ("ZInvDense", "DFT products: dense z inverse"),
@@ -2706,9 +2794,16 @@ def phase_compare_slab(dev):
                   lambda impl: fm._zy_fwd_dense_call(x, wz, wyf, impl=impl),
                   (x, wz, wyf), zy_ops(n0, NC, NC),
                   lambda: torch.fft.rfftn(x, dim=(1, 2)))
-    del x
     cr = 0.01 * torch.randn((NC, n1, Zh), generator=gen, device=dev)
     ci = 0.01 * torch.randn((NC, n1, Zh), generator=gen, device=dev)
+    for prec in (None, 'bf16'):
+        dense_tc_check("zy_fwd_half (row 9) slab %s" % (prec or 'f32'),
+                       lambda: fm._zy_fwd_dense_call(x, wz, wyf,
+                                                     precision=prec))
+        dense_tc_check("x_dense (row 9) y-chunk dual %s" % (prec or 'f32'),
+                       lambda: fm._x_dense_call(cr, ci, wx, 1.0, wx2=wx_g,
+                                                k2=k2, precision=prec))
+    del x
     zc = torch.complex(cr, ci)
     case("row 9 y-chunk (%d, %d, %d) forward" % (NC, n1, Zh),
          "x_dense (row 9)",

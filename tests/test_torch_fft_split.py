@@ -1,6 +1,6 @@
 """CPU evidence that the split-precision tensor-core products of
-zy_fwd_ct2 and xct_multi (csrc/fft_mxu.cu, tc_ct and tc_z) keep f32
-accuracy.
+zy_fwd_ct2 and xct_multi (csrc/fft_mxu.cu, tc_ct and tc_z) and of the
+dense passes zy_fwd_half and x_dense (tc_gemm) keep f32 accuracy.
 
 The kernels split each f32 operand into three bf16 parts, a = a1 + a2 +
 a3 (the host splits the tables, ops/fft_mxu_cuda.bf16_split3; the threads
@@ -12,10 +12,14 @@ the leading one.  Here:
   each table entry to 2^-24 relative (f32's own rounding);
 - the tables' layout: the real block GEMM that the kernels run over
   ct_block_table / z_block_table (tiles, slices, parts) equals the
-  complex products W u and u E;
+  complex products W u and u E; the dense passes' tables
+  (ct_block_table at R = 1 and z_real_block_table for real z data) at
+  N = 33, 75, 80, 96 and 384 are bf16_split3 of the padded block
+  matrices, zero in the padding, and give W u and x E;
 - a plain-torch emulation of the split product, kept in this file (not a
   mode of the package), patched into the plain passes where the kernels
-  run it (the f32 form of zy_fwd_ct2 and xct_multi; the few outputs
+  run it (the f32 forms of zy_fwd_ct2, xct_multi, zy_fwd_half and
+  x_dense; the few outputs
   that carry the mean, which the kernels sum again as the plain passes
   do, are left to the split here too): each pass, forward
   and the folded dual inverse, at (256, 256, 16) and 32^3 against the
@@ -23,7 +27,10 @@ the leading one.  Here:
   tolerance of tests/test_torch_fft_mxu.py), and the (256, 256, 16)
   force within 2e-5 of max of JAX's fft='xla'.  At 32^3, not a ct2
   shape, the passes run with R = 1 (no butterfly): the same products.
-  The emulation sums the six products in f32 on the CPU; the tensor
+  The dense passes likewise on a mesh with a mean of 1 at (16, 16, 16)
+  and (24, 20, 15), forward and the dual inverse with the 1/k^2 fold,
+  against the dense Pallas kernels (_zy_fwd_half_call,
+  _xpass_half_call).  The emulation sums the six products in f32 on the CPU; the tensor
   cores' truncating sums are the card's part (tests/test_torch_cuda.py,
   chip_smoke.py).
 """
@@ -243,8 +250,8 @@ def split_mm(a, b):
 @pytest.fixture
 def split_products(monkeypatch):
     """the plain passes with the kernels' split product inside the f32
-    forms of zy_fwd_ct2 and xct_multi, the passes that run it; every
-    other product stays the plain f32 one"""
+    forms of zy_fwd_ct2, xct_multi, zy_fwd_half and x_dense, the passes
+    that run it; every other product stays the plain f32 one"""
     orig = fm._mm
 
     def split(plain):
@@ -261,6 +268,8 @@ def split_products(monkeypatch):
         return run
     monkeypatch.setattr(fm, 'zy_fwd_ct2_plain', split(fm.zy_fwd_ct2_plain))
     monkeypatch.setattr(fm, 'xct_multi_plain', split(fm.xct_multi_plain))
+    monkeypatch.setattr(fm, 'zy_fwd_half_plain', split(fm.zy_fwd_half_plain))
+    monkeypatch.setattr(fm, 'x_dense_plain', split(fm.x_dense_plain))
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -300,6 +309,74 @@ def test_xct_multi_split_matches_jax(shape, case, split_products):
                               wx2=kw.get('wx2'), k2=kw.get('k2'))
     got = fm._xct_call_multi(torch.from_numpy(pr), torch.from_numpy(pi),
                              **kw)
+    assert len(got) == len(ref)
+    for r, g in zip(ref, got):
+        assert _rel(r, g) <= TOL_PASS
+
+
+DENSE_SHAPES = [(16, 16, 16), (24, 20, 15)]
+
+
+def _mean_one(shape):
+    """1 + N(0, 1) on ``shape``: a mesh with a mean, as a density has"""
+    return (1.0 + np.random.RandomState(sum(shape)).normal(size=shape)
+            ).astype('f4')
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+def test_zy_fwd_half_split_matches_jax(shape, split_products):
+    n0, N1, n2 = shape
+    Zh = n2 // 2 + 1
+    x = _mean_one(shape)
+    wz, wy = fm._dft_half_np(n2, Zh), fm._dft_np(N1, -1)
+    ref = jfm._zy_fwd_half_call(jnp.asarray(x), n2, Zh,
+                                *map(jnp.asarray, wz + wy), None)
+    got = fm._zy_fwd_dense_call(torch.from_numpy(x), wz, wy)
+    assert len(got) == 2
+    for r, g in zip(ref, got):
+        assert _rel(r, g) <= TOL_PASS
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+@pytest.mark.parametrize("case", ['forward', 'inverse_dual_k2'])
+def test_x_dense_split_matches_jax(shape, case, split_products):
+    """the x pass on the zy spectrum of a mesh with a mean (forward), and
+    on its x-transformed spectrum (the dual with 1/k^2, against two
+    Pallas x passes of the input filtered the JAX package's way)"""
+    N0, N1, n2 = shape
+    Zh = n2 // 2 + 1
+    wf = fm._dft_np(N0, -1)
+    spec = jfm._zy_fwd_half_call(
+        jnp.asarray(_mean_one(shape)), n2, Zh,
+        *map(jnp.asarray, fm._dft_half_np(n2, Zh) + fm._dft_np(N1, -1)),
+        None)
+
+    def jax_pass(w, scale, a, b):
+        return jfm._xpass_half_call(a, b, *map(jnp.asarray, w), scale, None)
+
+    scale = 1.0 / (N0 * N1 * n2)
+    if case == 'forward':
+        ref = jax_pass(wf, scale, *spec)
+        got = fm._x_dense_call(*(torch.from_numpy(np.array(a))
+                                 for a in spec), wf, scale)
+    else:
+        jr, ji = jax_pass(wf, scale, *spec)
+        rng = np.random.RandomState(5)
+        k2 = [rng.uniform(0.0, 2.0, n).astype('f4') for n in (N0, N1, Zh)]
+        for t in k2:
+            t[0] = 0.0
+        kk = (jnp.asarray(k2[0])[:, None, None]
+              + jnp.asarray(k2[1])[None, :, None]
+              + jnp.asarray(k2[2])[None, None, :])
+        invk2 = jnp.where(kk > 0, 1.0 / jnp.where(kk > 0, kk, 1.0), 0.0)
+        wi = fm._dft_np(N0, +1)
+        wg = fm._dft_fold_np(N0, tuple(np.sin(np.fft.fftfreq(N0) * 2 *
+                                              np.pi)))
+        ref = (jax_pass(wi, 1.0, jr * invk2, ji * invk2)
+               + jax_pass(wg, 1.0, jr * invk2, ji * invk2))
+        got = fm._x_dense_call(torch.from_numpy(np.array(jr)),
+                               torch.from_numpy(np.array(ji)), wi, 1.0,
+                               wx2=wg, k2=k2)
     assert len(got) == len(ref)
     for r, g in zip(ref, got):
         assert _rel(r, g) <= TOL_PASS
