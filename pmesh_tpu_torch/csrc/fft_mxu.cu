@@ -2860,16 +2860,20 @@ int pmesh_zy_fwd_half(const float* x, const float* wzr, const float* wzi,
 // times scale [and (o2r, o2i) by (w2r, w2i) when w2r is set], with the
 // 1/k^2 fold when k2x is set (k2x (N0,), k2y (n1,), k2z (W,), natural
 // order), on the tensor cores: tab the block table of both sets (bf16;
-// one part for bf16 = 1), rsum (sets, N0, 2) their f32 row sums.  The f32
-// form without the fold (a forward pass, or an inverse of an unfiltered
-// spectrum) takes each column's first element out and forms column 0 in
-// chains.  Scratch: split (the data's tiles), c0 (2 n1 W f32).
+// one part for bf16 = 1), rsum (sets, N0, 2) their f32 row sums.  center
+// (a forward pass, f32 products): each column's first element is taken
+// out and column 0 formed in chains.  (Not for an inverse: a filtered
+// spectrum's first row can exceed the rest by orders of magnitude, and
+// taking it out of a column whose output it does not reach, through the
+// i k_x-folded table's zero column, leaves a cancellation in its place.)
+// Scratch: split (the data's tiles), c0 (2 n1 W f32).
 int pmesh_x_dense(const float* xr, const float* xi, const float* wr,
                   const float* wi, const float* w2r, const float* w2i,
                   const void* tab, const float* rsum, const float* k2x,
                   const float* k2y, const float* k2z, float* o1r, float* o1i,
                   float* o2r, float* o2i, void* split, float* c0, int N0,
-                  int n1, int W, float scale, int bf16, void* stream_) {
+                  int n1, int W, float scale, int center, int bf16,
+                  void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   const long long ncols = (long long)n1 * W;
   if (ncols > INT32_MAX) return (int)cudaErrorInvalidValue;
@@ -2881,7 +2885,7 @@ int pmesh_x_dense(const float* xr, const float* xi, const float* wr,
                             stream);
   return (int)dense_tc<3>(xr, xi, tab, rsum, wr, wi, w2r, w2i, k2x, k2y, k2z,
                           o1r, o1i, o2r, o2i, sp, c0, 1, N0, (int)ncols,
-                          (int)ncols, 0, W, scale, k2x == nullptr, stream);
+                          (int)ncols, 0, W, scale, center != 0, stream);
 }
 
 // (xr, xi) (n0, N1, Zh) -> out (n0, N1, n2): the dense inverse y DFT by

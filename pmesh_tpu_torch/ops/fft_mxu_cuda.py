@@ -24,15 +24,30 @@ back the first element of each data vector that they take out before
 the products; both are made once per table object and device
 (``_split_cached``).  The outputs that carry a mesh's mean (the first
 modes of z chunk 0, column 0 of the y and x stages) are then summed
-again from the f32 tables as the plain versions sum them.  Every other
-pass runs on the FP32 ``cgemm``.
+again from the f32 tables as the plain versions sum them.
+
+The dense forward passes ``zy_fwd_half`` (and ``zy_fwd_full``, its
+row-13 width) and ``x_dense`` run both their forms on ``tc_gemm``: a
+split pass forms each data operand once as pre-split, pre-swizzled
+tiles in a scratch buffer, and the products read those and the tables'
+tiles (``ct_block_table`` at R = 1 with modes and contraction padded,
+``z_real_block_table`` for the real z data, both ``tile_swizzle``-d;
+three bf16 parts for the f32 products, one, the bf16 rounding, for the
+bf16 products) through bulk copies into wgmma.  The f32 forms take out
+each data vector's first element and form the outputs that carry the
+mean in f32 chains as the ct2 passes do (z modes [0, 8), column 0 of
+the y and x stages; the x pass on a forward table alone, as
+``xct_multi`` on its forward passes); the z stage also chains the few
+modes past its last whole 64-mode table tile (``z_tc_modes``: the
+Nyquist mode of N2 = 384).  Every other pass runs on the FP32 ``cgemm``.
 
 Two forms besides the f32 one, which the kernels take or refuse, never
 swap for another:
 
 - ``bf16=True`` (``precision='bf16'``, ``fft='mxu_bf16'``): every
-  product of the pass runs on the bf16 tensor-core routine, each operand
-  rounded to bf16, the sums in f32;
+  product of the pass runs on the tensor cores (``cgemm_bf16``, or
+  ``tc_gemm`` for the dense forward passes), each operand rounded to
+  bf16, the sums in f32;
 - bf16 spectrum storage (``fft='mxu_bf16s'``), on the four ct2 passes
   only: ``zy_fwd_ct2(out_dtype=torch.bfloat16)`` writes its spectrum in
   bf16, ``xct_multi`` reads and writes bf16 when its input is bf16, and
@@ -101,7 +116,7 @@ def _load():
             [_P] * 10 + [_I] * 4 + [_P] * 8 + [_I] * 6 + [_P] * 2
             + [_I, _I, _P])
         lib.pmesh_zy_fwd_half.argtypes = [_P] * 15 + [_I] * 6 + [_I, _P]
-        lib.pmesh_x_dense.argtypes = [_P] * 17 + [_I] * 3 + [_F, _I, _P]
+        lib.pmesh_x_dense.argtypes = [_P] * 17 + [_I] * 3 + [_F, _I, _I, _P]
         lib.pmesh_zy_inv_half.argtypes = [_P] * 9 + [_I] * 4 + [_I, _P]
         lib.pmesh_zy_inv_full.argtypes = [_P] * 9 + [_I] * 3 + [_I, _P]
         lib.pmesh_zy_fwd_half_ct.argtypes = [_P] * 10 + [_I] * 6 + [_I, _P]
@@ -613,6 +628,14 @@ def zy_fwd_full(x, wz, wy, bf16=False):
     return _zy_fwd_dense("zy_fwd_full", x, wz, wy, x.shape[2], bf16)
 
 
+def _forward(w):
+    """whether the (N, N) pair ``w`` is a forward DFT, exp(-2 pi i q m /
+    N): its imaginary part negative at (1, 1) (N > 2; at N <= 2 the
+    directions coincide)"""
+    wi = np.asarray(w[1])
+    return wi.shape[0] > 2 and float(wi[1, 1]) < 0.0
+
+
 def x_dense(pr, pi, wx, scale, wx2=None, k2=None, bf16=False):
     """Rows 3 and 4 x pass: the dense x DFT of (N0, n1, W) complex by
     the (N0, N0) pair ``wx`` times ``scale`` [and by ``wx2``], with the
@@ -639,7 +662,8 @@ def x_dense(pr, pi, wx, scale, wx2=None, k2=None, bf16=False):
         _ptr(pr), _ptr(pi), _ptr(tabs[0]), _ptr(tabs[1]), t2[0], t2[1],
         _ptr(tc[0]), _ptr(tc[1]), _ptr(ks[0]), _ptr(ks[1]), _ptr(ks[2]),
         o[0], o[1], o[2], o[3], _ptr(split), _ptr(c0), N0, n1, W,
-        float(scale), int(bool(bf16)), _stream(dev))
+        float(scale), int(wx2 is None and k2 is None and _forward(wx)),
+        int(bool(bf16)), _stream(dev))
     _raise_on(rc, what)
     return tuple(out)
 

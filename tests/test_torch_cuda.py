@@ -720,7 +720,9 @@ def test_tc_dense_matches_plain(dev, shape):
     chained by the guarded ct_fwd_col0; Zh = 66: the z stage's two tail
     modes chained; Zh = 17 and 66: z rows not 16-byte aligned) on a mesh
     with a mean, in both forms: f32 within TOL of plain, bf16 products
-    by the bf16 criteria (x pass 5e-4 of max, zy pass ZY)"""
+    by the bf16 criteria (x pass 5e-4 of max, zy pass ZY); the x pass
+    forward, dual with the 1/k^2 fold, and dual on a spectrum filtered
+    beforehand"""
     from pmesh_tpu_torch.ops import fft_mxu as fm
     N0, N1, n2 = shape
     Zh = n2 // 2 + 1
@@ -738,15 +740,23 @@ def test_tc_dense_matches_plain(dev, shape):
     for t in k2:
         t[0] = 0.0
     wi, wg = fm._dft_np(N0, +1), fm._dft_fold_np(N0, _sl(N0))
-    for kw in (dict(wx=fm._dft_np(N0, -1), scale=1.0 / x.numel()),
-               dict(wx=wi, scale=1.0, wx2=wg, k2=k2)):
-        got = fm._x_dense_call(pr, pi, impl='cuda', **kw)
-        ref = fm._x_dense_call(pr, pi, impl='torch', **kw)
+    # and the dual on a spectrum filtered by 1/k^2 beforehand (row 13's
+    # force triple): its kx = 0 row far above the rest
+    kk = sum(torch.as_tensor(t, device=dev).reshape(
+        [-1 if e == d else 1 for e in range(3)]) for d, t in enumerate(k2))
+    invk2 = torch.where(kk > 0, 1.0 / torch.where(kk > 0, kk, 1.0), 0.0)
+    fr, fi = (pr * invk2).contiguous(), (pi * invk2).contiguous()
+    for a, b, kw in ((pr, pi, dict(wx=fm._dft_np(N0, -1),
+                                   scale=1.0 / x.numel())),
+                     (pr, pi, dict(wx=wi, scale=1.0, wx2=wg, k2=k2)),
+                     (fr, fi, dict(wx=wi, scale=1.0, wx2=wg))):
+        got = fm._x_dense_call(a, b, impl='cuda', **kw)
+        ref = fm._x_dense_call(a, b, impl='torch', **kw)
         assert len(got) == len(ref)
         for g, r in zip(got, ref):
             assert _rel(g, r) <= TOL
         _assert_bf16_close(_products(
-            lambda impl, **k: fm._x_dense_call(pr, pi, impl=impl, **k,
+            lambda impl, **k: fm._x_dense_call(a, b, impl=impl, **k,
                                                **kw)))
 
 
