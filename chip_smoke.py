@@ -32,9 +32,9 @@ Phases, in order; any failure raises and exits non-zero:
    the forward ct2 passes and the dense forward passes (zy_fwd_half,
    x_dense, on tc_gemm since PR 9) also print their tensor-core share
    and each f32 case's distance from f64 products beside plain's (the
-   kernel no farther), and the dense ones their device launches at the
-   dense, row-9 and row-13 shapes in both forms (read by the profiler:
-   tc_gemm and the split passes, never cgemm or cgemm_bf16);
+   kernel no farther), and the dense ones their kernel launches at the
+   dense, row-9 and row-13 shapes in both forms (counted by the C entry
+   points: tc_gemm and the split passes, never cgemm or cgemm_bf16);
 4. drive the FastPM lattice path at 512^3 f32 through the user's entry
    points: Solver.lpt_lattice (2LPT) then Solver.nbody_lattice (5 KDK
    steps, spectral force) and one gradient-mode force_lattice, with
@@ -277,6 +277,12 @@ MXU_PER_FORCE = {"zy_fwd_ct2": (1, 1), "xct_multi": (2, 2),
                  "zy_inv_ct2": (1, 1), "zy_inv_ct2_dual": (1, 0)}
 # per spectral force at a shape that is not ct2
 DENSE_PER_FORCE = {"zy_fwd_half": 1, "x_dense": 2, "zy_inv_half": 3}
+# the device kernels of those calls, by kind (fft_mxu_cuda.kernel_launches):
+# zy_fwd_half's z and y stages and the two x passes on tc_gemm, each
+# after its split pass, column 0 chained after the y stage and the
+# forward x pass; the three zy inverses' two cgemm each
+DENSE_KINDS_PER_FORCE = {"cgemm": 6, "cgemm_bf16": 0, "tc_ct": 0, "tc_z": 0,
+                         "tc_gemm": 4, "split": 4, "ct_fwd_col0": 2}
 # the bf16 forms against their plain versions, each pass on the same
 # inputs.  A product of two bf16 values is exact in f32, so kernel and
 # plain differ in their f32 sums only; but the tensor cores sum a block
@@ -793,87 +799,25 @@ def dense_x_fma(N0, ncols, sets=1):
     return 4.0 * sets * N0 * N0 * ncols
 
 
-def device_launches(fn):
-    """{kernel name: launches} of the device kernels that one fn() call
-    runs (torch.profiler, after a warm-up call)"""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            out[e.name] = out.get(e.name, 0) + 1
-    return out
-
-
 def dense_tc_check(label, fn):
     """the dense forward entry points (zy_fwd_half, x_dense) run their
-    products on the tensor cores: one call's device launches, read by
-    the profiler, include tc_gemm and the split passes and no cgemm or
-    cgemm_bf16; raises otherwise"""
-    ks = device_launches(fn)
-
-    def count(frag):
-        return sum(v for k, v in ks.items() if frag in k)
-    tc, sp, c0, cg = (count("tc_gemm"), count("split_"),
-                      count("ct_fwd_col0"), count("cgemm"))
-    ok = tc >= 1 and sp >= 1 and cg == 0
-    log("phase 3 device launches: %-46s tc_gemm %d, split passes %d, "
+    products on the tensor cores: the kernels that one fn() call
+    launches, counted by the C entry points where each is launched,
+    include tc_gemm and the split passes and no cgemm or cgemm_bf16;
+    raises otherwise"""
+    from pmesh_tpu_torch.ops import fft_mxu_cuda
+    fft_mxu_cuda.kernel_launches(reset=True)
+    fn()
+    torch.cuda.synchronize()
+    ks = fft_mxu_cuda.kernel_launches(reset=True)
+    cg = ks["cgemm"] + ks["cgemm_bf16"]
+    ok = ks["tc_gemm"] >= 1 and ks["split"] >= 1 and cg == 0
+    log("phase 3 kernel launches: %-46s tc_gemm %d, split passes %d, "
         "ct_fwd_col0 %d, cgemm or cgemm_bf16 %d %s"
-        % (label, tc, sp, c0, cg, "ok" if ok else "FAIL"))
+        % (label, ks["tc_gemm"], ks["split"], ks["ct_fwd_col0"], cg,
+           "ok" if ok else "FAIL"))
     if not ok:
         raise AssertionError("%s did not run on tc_gemm alone" % label)
-
-
-def zy_fma(n0, N1, N2):
-    """real FMA of the block products of zy_fwd_ct2: the z stage's
-    (2K x 2Mq) per row and chunk, the y CT's (2M x 2M) per column"""
-    from pmesh_tpu_torch.ops import fft_mxu as fm
-    Rz, K, Mq = fm._zct_factor(N2)
-    Ry, My = fm._ct_factor(N1)
-    return 4.0 * n0 * N1 * Rz * K * Mq + 4.0 * n0 * Ry * My * My * (N2 // 2)
-
-
-def x_fma(N0, ncols, sets=1):
-    """real FMA of the block products of an x CT pass of xct_multi"""
-    from pmesh_tpu_torch.ops import fft_mxu as fm
-    R, M = fm._ct_factor(N0)
-    return 4.0 * sets * R * M * M * ncols
-
-
-def fft_yardsticks(rho, kd, k2, label):
-    """torch.fft's yardsticks of one spectral force's FFT work on the
-    real mesh ``rho``: rfftn(x, norm='forward') for the forward rows,
-    then the filter i k_d / k^2 (DC zeroed) on the stacked spectrum and
-    the stacked irfftn of the three filtered spectra for the force
-    triple, each timed alone"""
-    shape = tuple(rho.shape)
-    dev = rho.device
-    spec = torch.fft.rfftn(rho, norm='forward')
-    k2t = [torch.tensor(k, dtype=torch.float32, device=dev) for k in k2]
-    kk = k2t[0][:, None, None] + k2t[1][None, :, None] + k2t[2][None, None]
-    invk2 = torch.where(kk > 0, 1.0 / torch.where(kk > 0, kk, 1.0), 0.0)
-    filt = []
-    for d in range(3):
-        kd_d = torch.tensor(kd[d], dtype=torch.float32, device=dev)
-        kd_d = kd_d.reshape([-1 if e == d else 1 for e in range(3)])
-        filt.append(torch.complex(torch.zeros_like(invk2), kd_d * invk2))
-    filt = torch.stack(filt)
-    del kk, invk2
-    fwd_ms = cuda_ms(lambda: torch.fft.rfftn(rho, norm='forward'), 5)
-    filt_ms = cuda_ms(lambda: spec[None] * filt, 5)
-    stacked = spec[None] * filt
-    inv_ms = cuda_ms(lambda: torch.fft.irfftn(stacked, s=shape,
-                                              dim=(1, 2, 3),
-                                              norm='forward'), 5)
-    log("phase 3 yardsticks: %s %s rfftn(norm='forward') %.3f ms, filter "
-        "i k_d / k^2 on the stacked spectrum %.3f ms, stacked irfftn of "
-        "three spectra %.3f ms" % (label, shape, fwd_ms, filt_ms, inv_ms))
-    del spec, filt, stacked
-    torch.cuda.empty_cache()
 
 
 def phase_compare_fft(dev):
@@ -2288,6 +2232,7 @@ def phase_binned_clustered(dev, n=NC):
     gridpm_cuda.reset_launches()
     binned_cuda.reset_launches()
     fft_mxu_cuda.reset_launches()
+    fft_mxu_cuda.kernel_launches(reset=True)
     t0 = time.perf_counter()
     dslots, vslots, valid, overflow = solver.nbody_binned(
         disp, vel, CLUSTERED_STEPS, adaptive=True, **CLUSTERED_KW)
@@ -2295,6 +2240,7 @@ def phase_binned_clustered(dev, n=NC):
     wall = time.perf_counter() - t0
     launches = dict(gridpm_cuda.LAUNCHES, **binned_cuda.LAUNCHES)
     dft = dict(fft_mxu_cuda.LAUNCHES)
+    kinds = fft_mxu_cuda.kernel_launches(reset=True)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     del disp, vel
     stats = dict(solver.last_binned_stats)
@@ -2307,16 +2253,18 @@ def phase_binned_clustered(dev, n=NC):
     # one force before the loop and one per KDK step
     forces = len(CLUSTERED_STEPS)
     need = {k: forces * c for k, c in DENSE_PER_FORCE.items()}
+    need_kinds = {k: forces * c for k, c in DENSE_KINDS_PER_FORCE.items()}
     log("phase 5 binned, clustered: %d^3 caustic (Ax=%g, lam=%g) "
         "nbody_binned(adaptive, fft='mxu') %d KDK steps + 1 rebase in "
         "%.3f s (first run): growth events %d, K %d -> %d, max occupancy "
         "%g, overflow %d, particles %d of %d, paint mass error %.3e (tol "
         "%.0e), finite %s, peak %.2f GB, launches %s, DFT launches %s "
-        "(need %s)"
+        "(need %s), DFT kernels by kind %s (need %s)"
         % (n, CAUSTIC_AX, CAUSTIC_LAM, forces - 1, wall,
            stats['growth_events'], CLUSTERED_KW['nslots'], len(dslots), occ,
            ov, tot, n ** 3, mass_err, TOL_MASS, finite, peak_gb,
-           json.dumps(launches), json.dumps(dft), json.dumps(need)))
+           json.dumps(launches), json.dumps(dft), json.dumps(need),
+           json.dumps(kinds), json.dumps(need_kinds)))
     if not (stats['growth_events'] >= 1 and len(dslots) >= 3):
         raise AssertionError("the adaptive path did not grow the slots")
     if ov != 0 or stats['overflow'] != 0 or tot != n ** 3:
@@ -2330,6 +2278,9 @@ def phase_binned_clustered(dev, n=NC):
     if any(dft[k] != need.get(k, 0) for k in dft):
         raise AssertionError("the dense DFT kernels did not carry the "
                              "clustered run's forces")
+    if kinds != need_kinds:
+        raise AssertionError("the clustered run's forward DFT passes did "
+                             "not run on tc_gemm alone")
     launches.update((k, dft[k]) for k in DENSE_PER_FORCE)
     return launches, dict(solver=solver, dslots=dslots, vslots=vslots,
                           valid=valid)

@@ -2105,6 +2105,13 @@ __global__ void nyquist_rowsum(const float* __restrict__ x,
 
 // --- launch helpers -----------------------------------------------------
 
+// launches of the product routines and the dense passes' split and chain
+// kernels, counted where each is launched (pmesh_kernel_launches): the
+// wrappers' counters say which entry point ran, these which kernels it ran
+enum KernelKind { K_CGEMM, K_CGEMM_BF16, K_TC_CT, K_TC_Z, K_TC_GEMM, K_SPLIT,
+                  K_COL0, K_KINDS };
+long long g_launches[K_KINDS] = {};
+
 int cdiv_ll(long long a, long long b) { return (int)((a + b - 1) / b); }
 
 #define PMESH_TRY_E(expr)           \
@@ -2142,6 +2149,7 @@ cudaError_t launch_gemm_bf16(const Op& op, int nouter, int nj, long long M,
   long long blocks;
   if (!gemm_dims(g, nouter, nj, M, N, K, m_fast, blocks))
     return cudaErrorInvalidValue;
+  ++g_launches[K_CGEMM_BF16];
   cgemm_bf16<Op, DUAL, A_REAL, OUT_REAL>
       <<<(unsigned)blocks, NT, 0, stream>>>(op, g);
   return cudaGetLastError();
@@ -2159,6 +2167,7 @@ cudaError_t launch_gemm(const Op& op, int nouter, int nj, long long M,
   long long blocks;
   if (!gemm_dims(g, nouter, nj, M, N, K, m_fast, blocks))
     return cudaErrorInvalidValue;
+  ++g_launches[K_CGEMM];
   cgemm<Op, DUAL, A_REAL, OUT_REAL><<<(unsigned)blocks, NT, 0, stream>>>(op,
                                                                          g);
   return cudaGetLastError();
@@ -2306,6 +2315,7 @@ cudaError_t launch_tc_ct_r(const TcCt<TI, TO>& p, long long blocks,
   PMESH_TRY_E(cudaFuncSetAttribute(tc_ct<TI, TO, RR>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem));
+  ++g_launches[K_TC_CT];
   tc_ct<TI, TO, RR><<<(unsigned)blocks, TC_NT, (size_t)smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -2378,6 +2388,7 @@ cudaError_t z_forward_tc(const void* tz, const float* zsum, const float* wzr,
   if (blocks > INT32_MAX || smem > TC_SMEM_MAX) return cudaErrorInvalidValue;
   PMESH_TRY_E(cudaFuncSetAttribute(
       tc_z, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  ++g_launches[K_TC_Z];
   tc_z<<<(unsigned)blocks, TC_NT, (size_t)smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -2399,6 +2410,7 @@ cudaError_t launch_col0(const TI* xr, const TI* xi, const float* wr,
     PMESH_TRY_E(cudaFuncSetAttribute(
         ct_fwd_col0<TI, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem));
+  ++g_launches[K_COL0];
   ct_fwd_col0<TI, TO><<<dim3((unsigned)blocks, R, (M + C0_Q - 1) / C0_Q),
                         C0_Q, (size_t)smem, stream>>>(xr, xi, wr, wi, outr, outi, k2x, k2y, k2z,
                                   nouter, istride < 0 ? ostride : istride,
@@ -2518,6 +2530,7 @@ cudaError_t launch_tc_gemm(const TcGemm& p, long long dtiles,
   PMESH_TRY_E(cudaFuncSetAttribute(tc_gemm<NP, DATA_A>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    smem));
+  ++g_launches[K_TC_GEMM];
   tc_gemm<NP, DATA_A><<<(unsigned)blocks, TC_NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -2548,6 +2561,7 @@ cudaError_t dense_tc(const float* xr, const float* xi, const void* tab,
   if (tiles > INT32_MAX) return cudaErrorInvalidValue;
   SplitCols sp = {xr,    xi,      k2x,  k2y, k2z, split, center ? c0 : nullptr,
                   istride, nall, M, ncols, ipitch, W, nks};
+  ++g_launches[K_SPLIT];
   split_cols<NP><<<dim3((unsigned)tiles, (nks + SPLIT_SG - 1) / SPLIT_SG),
                    128, 0, stream>>>(sp);
   PMESH_TRY_E(cudaGetLastError());
@@ -2601,6 +2615,7 @@ cudaError_t z_dense_tc(const float* x, const void* tz, const float* zsum,
   SplitRows sp = {x,    wzr, wzi, split, cz,   sr,  si,
                   rows, N2,  Zh,  pitch, nlo, zm, nks,
                   N2 % 4 == 0 && aligned16(x)};
+  ++g_launches[K_SPLIT];
   split_rows<NP><<<(unsigned)tiles, 128, 0, stream>>>(sp);
   PMESH_TRY_E(cudaGetLastError());
   TcGemm g = {};
@@ -2649,6 +2664,16 @@ extern "C" {
 
 const char* pmesh_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
+}
+
+// the launch counts of the kernel kinds (cgemm, cgemm_bf16, tc_ct, tc_z,
+// tc_gemm, split passes, ct_fwd_col0) into out[0 .. n), then zero them
+// when reset is set; returns the number of kinds
+int pmesh_kernel_launches(long long* out, int n, int reset) {
+  for (int k = 0; k < K_KINDS && k < n; ++k) out[k] = g_launches[k];
+  if (reset)
+    for (int k = 0; k < K_KINDS; ++k) g_launches[k] = 0;
+  return K_KINDS;
 }
 
 // Every entry point takes bf16 (1: the bf16 products of cgemm_bf16); the

@@ -57,6 +57,8 @@ swap for another:
 ``LAUNCHES`` counts the calls of each kernel in each form: the key is
 the kernel's name, with ``_bf16`` for the bf16 products and ``_bf16s``
 for the bf16 storage (both, in that order, when a call uses both).
+``kernel_launches()`` reads the C side's counts of the device kernels
+those calls launched, by kind (``cgemm``, ``tc_gemm``, ...).
 
 The plain PyTorch versions are ``ops/fft_mxu.zy_fwd_ct2_plain``,
 ``xct_multi_plain``, ``zy_inv_ct2_plain``, ``zy_inv_ct2_dual_plain``,
@@ -79,7 +81,8 @@ __all__ = ["zy_fwd_ct2", "xct_multi", "zy_inv_ct2", "zy_inv_ct2_dual",
            "zy_fwd_half", "x_dense", "zy_inv_half", "zy_fwd_full",
            "zy_inv_full", "zy_fwd_half_ct", "zy_inv_half_ct", "LAUNCHES",
            "reset_launches", "bf16_split3", "ct_block_table", "z_block_table",
-           "z_real_block_table", "z_tc_modes", "tile_swizzle", "table_sums"]
+           "z_real_block_table", "z_tc_modes", "tile_swizzle", "table_sums",
+           "KERNEL_KINDS", "kernel_launches"]
 
 # the ct2 passes, which also take bf16 spectrum storage
 _STORAGE = ("zy_fwd_ct2", "xct_multi", "zy_inv_ct2", "zy_inv_ct2_dual")
@@ -105,6 +108,8 @@ def _load():
         lib = _cuda.load("fft_mxu")
         lib.pmesh_cuda_error_string.argtypes = [_I]
         lib.pmesh_cuda_error_string.restype = ctypes.c_char_p
+        lib.pmesh_kernel_launches.argtypes = [_P, _I, _I]
+        lib.pmesh_kernel_launches.restype = _I
         lib.pmesh_zy_fwd_ct2.argtypes = (
             [_P] * 5 + [_I] * 4 + [_P] * 11 + [_I] * 5 + [_I, _I, _P])
         lib.pmesh_xct_multi.argtypes = (
@@ -128,6 +133,22 @@ def _load():
             fn.restype = _I
         _lib = lib
     return _lib
+
+
+# the kernel kinds that csrc/fft_mxu.cu counts at their launches
+KERNEL_KINDS = ("cgemm", "cgemm_bf16", "tc_ct", "tc_z", "tc_gemm", "split",
+                "ct_fwd_col0")
+
+
+def kernel_launches(reset=False):
+    """{kind: launches} of the product routines and the dense passes'
+    split and chain kernels since the last reset, counted by the C entry
+    points where each kernel is launched (zeroed after reading when
+    ``reset``)"""
+    out = (ctypes.c_longlong * len(KERNEL_KINDS))()
+    n = _load().pmesh_kernel_launches(out, len(KERNEL_KINDS), int(reset))
+    assert n == len(KERNEL_KINDS)
+    return dict(zip(KERNEL_KINDS, out))
 
 
 def _raise_on(rc, what):

@@ -698,21 +698,6 @@ def test_nbody_lattice_dense_mxu_card_matches_cpu(dev, shape):
 
 # --- the dense forward passes on the tensor cores (tc_gemm) -----------------
 
-def _device_kernels(fn):
-    """{kernel name: launches} of the device kernels that fn() runs"""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            out[e.name] = out.get(e.name, 0) + 1
-    return out
-
-
 @pytest.mark.parametrize("shape", [(33, 75, 130), (75, 40, 33)])
 def test_tc_dense_matches_plain(dev, shape):
     """x_dense and zy_fwd_half on tc_gemm at ragged shapes (x and y
@@ -763,8 +748,12 @@ def test_tc_dense_matches_plain(dev, shape):
 def test_tc_dense_launches_no_cgemm(dev):
     """the two entry points in every form (f32 and bf16 products;
     forward, dual inverse with 1/k^2, row 13's full width) launch the
-    split passes and tc_gemm on the card, and never cgemm or
-    cgemm_bf16"""
+    split passes and tc_gemm, and never cgemm or cgemm_bf16 (the C entry
+    points' counts); one dense spectral force launches exactly its
+    forward passes' tc_gemm, split and chain kernels, and cgemm for its
+    three zy inverses alone"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
     from pmesh_tpu_torch.ops import fft_mxu as fm
     from pmesh_tpu_torch.ops import fft_mxu_cuda as fk
     shape = (48, 40, 33)
@@ -785,11 +774,23 @@ def test_tc_dense_launches_no_cgemm(dev):
                                              k2=k2, bf16=b)}
     for name, call in calls.items():
         for b in (False, True):
-            ks = _device_kernels(lambda: call(b))
-            assert not any('cgemm' in k for k in ks), (name, b, ks)
-            assert sum(v for k, v in ks.items() if 'tc_gemm' in k) >= (
-                2 if name.startswith('zy') else 1), (name, b, ks)
-            assert any('split_' in k for k in ks), (name, b, ks)
+            fk.kernel_launches(reset=True)
+            call(b)
+            ks = fk.kernel_launches(reset=True)
+            stages = 2 if name.startswith('zy') else 1
+            assert ks['tc_gemm'] == stages and ks['split'] == stages, (
+                name, b, ks)
+            assert ks['cgemm'] == ks['cgemm_bf16'] == 0, (name, b, ks)
+    pm = ParticleMesh(shape, BoxSize=np.asarray(shape, float), dtype='f4',
+                      device=dev)
+    disp, _, _ = _inputs(64, shape, (0.0, 1.0), dev)
+    fk.kernel_launches(reset=True)
+    Solver(pm).force_lattice(disp, (0.0, 1.0), mode='spectral', fft='mxu')
+    ks = fk.kernel_launches(reset=True)
+    # zy_fwd_half: z and y stages; x_dense forward and dual; the y stage
+    # and the forward x pass chain column 0; each zy_inv_half two cgemm
+    assert ks == dict(cgemm=6, cgemm_bf16=0, tc_ct=0, tc_z=0, tc_gemm=4,
+                      split=4, ct_fwd_col0=2), ks
 
 
 # --- the row-13 pipelines (ops/fft_mxu_ref.py) on the kernels ----------------
