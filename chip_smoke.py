@@ -820,6 +820,54 @@ def dense_tc_check(label, fn):
         raise AssertionError("%s did not run on tc_gemm alone" % label)
 
 
+def zy_fma(n0, N1, N2):
+    """real FMA of the block products of zy_fwd_ct2: the z stage's
+    (2K x 2Mq) per row and chunk, the y CT's (2M x 2M) per column"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    Rz, K, Mq = fm._zct_factor(N2)
+    Ry, My = fm._ct_factor(N1)
+    return 4.0 * n0 * N1 * Rz * K * Mq + 4.0 * n0 * Ry * My * My * (N2 // 2)
+
+
+def x_fma(N0, ncols, sets=1):
+    """real FMA of the block products of an x CT pass of xct_multi"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    R, M = fm._ct_factor(N0)
+    return 4.0 * sets * R * M * M * ncols
+
+
+def fft_yardsticks(rho, kd, k2, label):
+    """torch.fft's yardsticks of one spectral force's FFT work on the
+    real mesh ``rho``: rfftn(x, norm='forward') for the forward rows,
+    then the filter i k_d / k^2 (DC zeroed) on the stacked spectrum and
+    the stacked irfftn of the three filtered spectra for the force
+    triple, each timed alone"""
+    shape = tuple(rho.shape)
+    dev = rho.device
+    spec = torch.fft.rfftn(rho, norm='forward')
+    k2t = [torch.tensor(k, dtype=torch.float32, device=dev) for k in k2]
+    kk = k2t[0][:, None, None] + k2t[1][None, :, None] + k2t[2][None, None]
+    invk2 = torch.where(kk > 0, 1.0 / torch.where(kk > 0, kk, 1.0), 0.0)
+    filt = []
+    for d in range(3):
+        kd_d = torch.tensor(kd[d], dtype=torch.float32, device=dev)
+        kd_d = kd_d.reshape([-1 if e == d else 1 for e in range(3)])
+        filt.append(torch.complex(torch.zeros_like(invk2), kd_d * invk2))
+    filt = torch.stack(filt)
+    del kk, invk2
+    fwd_ms = cuda_ms(lambda: torch.fft.rfftn(rho, norm='forward'), 5)
+    filt_ms = cuda_ms(lambda: spec[None] * filt, 5)
+    stacked = spec[None] * filt
+    inv_ms = cuda_ms(lambda: torch.fft.irfftn(stacked, s=shape,
+                                              dim=(1, 2, 3),
+                                              norm='forward'), 5)
+    log("phase 3 yardsticks: %s %s rfftn(norm='forward') %.3f ms, filter "
+        "i k_d / k^2 on the stacked spectrum %.3f ms, stacked irfftn of "
+        "three spectra %.3f ms" % (label, shape, fwd_ms, filt_ms, inv_ms))
+    del spec, filt, stacked
+    torch.cuda.empty_cache()
+
+
 def phase_compare_fft(dev):
     """the four DFT passes of fft='mxu', kernel vs plain, at N^3 (the
     main path's forms) and on the MXU_SLAB (the z-CT inverse); returns
