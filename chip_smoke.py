@@ -433,9 +433,24 @@ def phase_build():
     for name, info in zip(names, infos):
         log("phase 2 build: %s.cu with nvcc %s in %.3f s"
             % (name, " ".join(cuda.NVCC_FLAGS), info["seconds"]))
+        kernel = "?"
         for ln in info["log"].splitlines():
-            if "registers" in ln or "spill" in ln or "stack" in ln:
-                log("  ptxas: " + ln.strip())
+            if "Compiling entry function" in ln:
+                kernel = demangle(ln.split("'")[1])
+            elif "registers" in ln or "spill" in ln or "stack" in ln:
+                log("  ptxas: %s: %s" % (kernel, ln.strip()))
+
+
+def demangle(symbol):
+    """a kernel's C++ name (c++filt, where the machine has it), without
+    the anonymous namespace and the arguments"""
+    try:
+        out = subprocess.run(["c++filt", symbol], capture_output=True,
+                             text=True, timeout=10).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return symbol
+    out = out.replace("(anonymous namespace)::", "").split("(")[0]
+    return out[len("void "):] if out.startswith("void ") else out or symbol
 
 
 def phase_compare(dev):
