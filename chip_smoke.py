@@ -30,7 +30,7 @@ Phases, in order; any failure raises and exits non-zero:
    the operator-level yardsticks torch.fft.rfftn(x, norm='forward') and
    the stacked irfftn of the filtered spectrum, the filter timed apart;
    the forward ct2 passes and the dense forward passes (zy_fwd_half,
-   x_dense, on tc_gemm since PR 9) also print their tensor-core share
+   x_dense, on tc_gemm) also print their tensor-core share
    and each f32 case's distance from f64 products beside plain's (the
    kernel no farther), and the dense ones their kernel launches at the
    dense, row-9 and row-13 shapes in both forms (counted by the C entry

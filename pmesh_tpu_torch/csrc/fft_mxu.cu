@@ -130,7 +130,7 @@
 // tiles' round trip).  The outputs that carry the mean are formed as in
 // the ct2 passes: z modes [0, QZ) in split_rows' chains, column 0 of the
 // y and x stages by ct_fwd_col0 (its guarded form at M = 75 or 33).
-// ptxas (-O3, sm_90a, on the card): see PERF.md, PR 9.
+// ptxas (-O3, sm_90a, on the card): see PERF.md's findings.
 //
 // Every other pass (zy_inv_ct2 and its dual, zy_inv_half, the row-13
 // inverse and half-CT forward passes) runs on cgemm, and so do the bf16
@@ -1428,8 +1428,8 @@ __global__ void __launch_bounds__(TC_NT) tc_z(const TcZ p) {
 // The f32 and bf16-product forms of pmesh_x_dense and pmesh_zy_fwd_half.
 // A dense pass is tc_ct at R = 1, but with no butterfly to fuse, each
 // data slice would be re-read and re-split for every 64-mode table tile
-// (6 times at N0 = 384, 12 for the dual): PR 8's routine spent as much on
-// that conversion as on its products.  Here a split pass forms each data
+// (6 times at N0 = 384, 12 for the dual): the ct2 routine spends as much
+// on that conversion as on its products.  Here a split pass forms each data
 // operand ONCE, as the GEMM's slice tiles in device memory (the fold,
 // the taken-out first element, the three bf16 parts; one part, the
 // rounding, in the bf16 form), and tc_gemm multiplies pre-split tiles
@@ -1442,7 +1442,7 @@ __global__ void __launch_bounds__(TC_NT) tc_z(const TcZ p) {
 // complex element written and read once more (at 384^3 about 0.2 ms of a
 // pass's bytes); the other table tiles of a column tile read them from
 // L2 (blocks that share a data tile are adjacent in launch order).
-// Measured on the card at 384^3 (PERF.md, PR 9), the forward x pass's
+// Measured on the card at 384^3 (PERF.md), the forward x pass's
 // products: mma.sync fed by 16-byte cp.async 2.17 ms, fed by bulk copies
 // 1.43, wgmma 1.18; a wgmma loop that kept one slice in flight (two
 // partials) was slower, 1.29.

@@ -363,8 +363,8 @@ _SPLIT = {}
 def _split_cached(arrays, device, make, form=None):
     """the device copies of ``make()`` = (split table (uint16 bits of
     bf16), f32 sums), made once per table objects ``arrays``, device and
-    ``form`` (the builder and its parts: at a cube one DFT table serves
-    the z, y and x stages, whose block tables differ)"""
+    ``form`` (the kind of block table and its parts: at a cube one DFT
+    table serves the z, y and x stages, whose block tables differ)"""
     key = (tuple(id(a) for a in arrays), str(device), form)
     hit = _SPLIT.get(key)
     if hit is None or any(h is not a for h, a in zip(hit[0], arrays)):
