@@ -1670,10 +1670,8 @@ __global__ void __launch_bounds__(128) split_rows(const SplitRows p) {
       if (k0 + q < p.N2) v[q] -= c0;
     st_parts16<NP>(dst + (long long)s * (NP * TG_SLICE), v, tid);
   }
-  // (by constant index, so that the chains stay in registers)
-#pragma unroll
-  for (int i = 0; i < ZCH; ++i)
-    if (in && i < nch) {
+  if (in)
+    for (int i = 0; i < nch; ++i) {
       const int mode = i < p.nlo ? i : p.tail0 + (i - p.nlo);
       p.zr[m * p.pitch + mode] = ar[i];
       p.zi[m * p.pitch + mode] = ai[i];
