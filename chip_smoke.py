@@ -283,6 +283,12 @@ DENSE_PER_FORCE = {"zy_fwd_half": 1, "x_dense": 2, "zy_inv_half": 3}
 # forward x pass; the three zy inverses' two cgemm each
 DENSE_KINDS_PER_FORCE = {"cgemm": 6, "cgemm_bf16": 0, "tc_ct": 0, "tc_z": 0,
                          "tc_gemm": 4, "split": 4, "ct_fwd_col0": 2}
+# the device kernels of one fft='mxu_bf16' ct2 force at N^3: zy_fwd_ct2's
+# z-CT and y stages and the forward and dual x passes on tc_gemm, each
+# after its split pass; zy_inv_ct2's y and dense z inverse on cgemm_bf16,
+# its dual's y and two z inverses
+BF16_KINDS_PER_FORCE = {"cgemm": 0, "cgemm_bf16": 5, "tc_ct": 0, "tc_z": 0,
+                        "tc_gemm": 4, "split": 4, "ct_fwd_col0": 0}
 # the bf16 forms against their plain versions, each pass on the same
 # inputs.  A product of two bf16 values is exact in f32, so kernel and
 # plain differ in their f32 sums only; but the tensor cores sum a block
@@ -674,6 +680,33 @@ def bf16_storage_check(got, plain, got32=None, plain32=None):
                 % (neq, BF16_SHARE, bad, rel, TOL_KERNEL))
 
 
+def bf16_once_check(got, plain, got32, plain32):
+    """bf16 products stored in bf16 (the _bf16_bf16s combination): each
+    bf16 output bitwise its kernel's f32-stored twin (``got32``, the same
+    products) rounded once, and no entry more than one bf16 ulp from the
+    plain version's beyond the gap of the two f32 outputs; an f32 output
+    (the Nyquist row sum) within TOL_KERNEL"""
+    once, bad, rel = True, 0, 0.0
+    for k, (g, p) in enumerate(zip(got, plain)):
+        if g.dtype != p.dtype:
+            return False, "kernel %s, plain %s" % (g.dtype, p.dtype)
+        if g.dtype != torch.bfloat16:
+            rel = max(rel, max_rel((g,), (p,))[0])
+            continue
+        once = once and torch.equal(g, got32[k].to(torch.bfloat16))
+        gf, pf = g.float(), p.float()
+        m = torch.maximum(gf.abs(), pf.abs())
+        ulp = torch.exp2(torch.floor(torch.log2(
+            torch.where(m > 0, m, torch.ones_like(m)))) - 7)
+        bad += int(((gf - pf).abs()
+                    > ulp + (got32[k] - plain32[k]).abs()).sum())
+    ok = once and bad == 0 and rel <= TOL_KERNEL
+    return ok, ("bf16 outputs: the f32-stored products rounded once %s, %d "
+                "entries more than one ulp beyond their f32 gap; f32 "
+                "outputs max|k-p|/max|p| = %.3e (tol %.0e)"
+                % (once, bad, rel, TOL_KERNEL))
+
+
 def fft_ops(n, count, real=False):
     """operations of ``count`` FFTs of length n by the usual count:
     5 n log2 n for a complex transform, half that for a real one"""
@@ -733,7 +766,8 @@ def dft_case(records, kernel, label, fn, reads, ops, library=None,
         twin = ()
         if fn32 is not None:
             twin = (as_tuple(fn32('torch')),)
-            if criterion is bf16_storage_check:  # both twins
+            if criterion in (bf16_storage_check, bf16_once_check):
+                # both twins
                 twin = (as_tuple(fn32('cuda')),) + twin
         ok, text = criterion(as_tuple(got), as_tuple(plain), *twin)
         ok = ok and np.isfinite(rel)
@@ -842,6 +876,20 @@ def zy_fma(n0, N1, N2):
     Rz, K, Mq = fm._zct_factor(N2)
     Ry, My = fm._ct_factor(N1)
     return 4.0 * n0 * N1 * Rz * K * Mq + 4.0 * n0 * Ry * My * My * (N2 // 2)
+
+
+def zy_bf16_fma(n0, N1, N2):
+    """real FMA of zy_fwd_ct2's bf16-product form on tc_gemm: the z-CT
+    stage's chunks (K real data columns for u_0 and u_{Rz/2}, 2K for the
+    others, times 2 Mq), or the dense z stage's real rows (N2 x 2 Zm);
+    the y CT's (2M x 2M) per column"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    Rz, K, Mq = fm._zct_factor(N2)
+    Ry, My = fm._ct_factor(N1)
+    order = fm._zct_order(Rz)
+    kz = (sum(K if j in (0, Rz // 2) else 2 * K for j in order) * 2 * Mq
+          if Rz > 1 else N2 * N2)
+    return n0 * N1 * kz + 4.0 * n0 * Ry * My * My * (N2 // 2)
 
 
 def x_fma(N0, ncols, sets=1):
@@ -1317,6 +1365,23 @@ def phase_compare_bf16(dev):
                         lambda impl: call(impl, True), reads, ops, library,
                         check, failed)
 
+    def combo(label, kernel, call, reads, ops):
+        """the _bf16_bf16s combination of a forward ct2 pass: call(impl,
+        b) with bf16 products, stored in bf16 (b) or f32 (its twin);
+        checked and timed, not a record (no fft mode runs it)"""
+        dft_case({}, kernel + "_bf16_bf16s", label,
+                 lambda impl: call(impl, True), reads, ops, None,
+                 (bf16_once_check, lambda impl: call(impl, False)), failed)
+
+    def combo_x(label, re, im, reads, ops, *a, **kw):
+        """combo of an x pass on the spectrum (re, im) rounded to bf16:
+        stored so (b), or the same values in f32 (its twin)"""
+        hb = (re.to(bf16), im.to(bf16))
+        hf = (hb[0].float(), hb[1].float())
+        combo(label, "xct_multi", lambda impl, b: fm._xct_call_multi(
+            *(hb if b else hf), *a, impl=impl, precision='bf16',
+            out_dtype=bf16 if b else None, **kw), reads, ops)
+
     def density(shape):
         disp = tuple(BOUNDS[0] + (BOUNDS[1] - BOUNDS[0])
                      * torch.rand(shape, generator=gen, device=dev)
@@ -1363,12 +1428,31 @@ def phase_compare_bf16(dev):
                                  if st else prec(b))),
                           (rho, wz, wf), zy_ops(N, N, N),
                           lambda: torch.fft.rfftn(rho, dim=(1, 2)), st)
+        if not st:
+            # the bf16 products on tc_gemm (one product per real FMA),
+            # and stored once in bf16 (the _bf16_bf16s combination)
+            tc_share("zy_fwd_ct2 bf16 products %d^3" % N,
+                     zy_bf16_fma(N, N, N),
+                     cuda_ms(lambda: fm._zy_fwd_ct2_call(
+                         rho, N, Zm, wz, wf, precision='bf16'), 5), 1)
+            combo("%d^3 density" % N, "zy_fwd_ct2",
+                  lambda impl, b: fm._zy_fwd_ct2_call(
+                      rho, N, Zm, wz, wf, impl=impl, precision='bf16',
+                      out_dtype=bf16 if b else None),
+                  (rho, wz, wf), zy_ops(N, N, N))
         zc = torch.complex(up(pr), up(pi))
         r, i = case("forward x 1/N^3", "xct_multi" + form,
                     lambda impl, b: spec(impl, b, fm._xct_call_multi, pr, pi,
                                          wf, 1.0 / N ** 3),
                     (pr, pi, wf), fft_ops(N, N * Zm),
                     lambda: torch.fft.fft(zc, dim=0), st)
+        if not st:
+            tc_share("xct_multi forward bf16 products %d^3" % N,
+                     x_fma(N, N * Zm),
+                     cuda_ms(lambda: fm._xct_call_multi(
+                         pr, pi, wf, 1.0 / N ** 3, precision='bf16'), 5), 1)
+            combo_x("forward x 1/N^3", pr, pi, (pr, pi, wf),
+                    fft_ops(N, N * Zm), wf, 1.0 / N ** 3)
         del pr, pi, zc
         sr, si, gr, gi = case("inverse dual (kx-folded), 1/k^2",
                               "xct_multi" + form,
@@ -1377,6 +1461,14 @@ def phase_compare_bf16(dev):
                                                    wi, 1.0, **inv),
                               (r, i, wi, wx_g, k2m), 2 * fft_ops(N, N * Zm),
                               library_dual_x(r, i, k2m), st)
+        if not st:
+            tc_share("xct_multi dual inverse bf16 products %d^3 (sweeps "
+                     "included)" % N, x_fma(N, N * Zm, 2),
+                     cuda_ms(lambda: fm._xct_call_multi(
+                         r, i, wi, 1.0, precision='bf16', **inv), 5), 1)
+            combo_x("inverse dual (kx-folded), 1/k^2", r, i,
+                    (r, i, wi, wx_g, k2m), 2 * fft_ops(N, N * Zm), wi, 1.0,
+                    **inv)
         del r, i
         plane = nq / N ** 3
         case("fx: plane", "zy_inv_ct2" + form,
@@ -1734,9 +1826,11 @@ def phase_main_bf16(dev, ref):
         torch.cuda.reset_peak_memory_stats()
         gridpm_cuda.reset_launches()
         fft_mxu_cuda.reset_launches()
+        fft_mxu_cuda.kernel_launches(reset=True)
         solver, disp, vel, S, V = run_path(pm, dlinear, STEPS, fft=fft)
         torch.cuda.synchronize()
         launches = dict(fft_mxu_cuda.LAUNCHES)
+        kinds = fft_mxu_cuda.kernel_launches(reset=True)
         lattice = dict(gridpm_cuda.LAUNCHES)
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         need = {k + form: (nsteps + 1) * sp
@@ -1780,6 +1874,17 @@ def phase_main_bf16(dev, ref):
                json.dumps({k: launches[k] for k in need}), json.dumps(need),
                json.dumps(others), json.dumps(lattice), peak_gb,
                fmt3(dF), fmt3(dS), fmt3(dV)))
+        log("phase 4 main path, fft=%r: device kernels by kind %s"
+            % (fft, json.dumps(kinds)))
+        if fft == 'mxu_bf16':
+            want = {k: (nsteps + 1) * v
+                    for k, v in BF16_KINDS_PER_FORCE.items()}
+            if kinds != want:
+                DEFERRED.append(
+                    "the fft='mxu_bf16' run launched %s device kernels, not "
+                    "%s: the bf16 forward passes off tc_gemm, or cgemm_bf16 "
+                    "beyond the zy inverses" % (json.dumps(kinds),
+                                                json.dumps(want)))
         log("phase 4 %s force meshes of the LPT density: kernels vs plain "
             "versions on the card %s; on the overdensity rho - mean against "
             "f32 rms|d|/rms %s (sanity bound %.0e)"
@@ -2382,15 +2487,14 @@ FAMILIES = (
     ("paint_lattice", "paint_lattice"),
     ("rebase_assign", "rebase_assign"),
     ("rebase_apply", "rebase_apply"),
-    ("tc_gemm", "DFT products: dense, tensor cores (tc_gemm)"),
-    ("split_", "DFT split passes (dense)"),
+    ("tc_gemm", "DFT products: tensor cores (tc_gemm)"),
+    ("split_", "DFT split passes"),
     ("ct_fwd_col0", "DFT column-0 chains"),
     ("tc_ct", "DFT products: ct2, tensor cores (tc_ct, tc_z)"),
     ("tc_z", "DFT products: ct2, tensor cores (tc_ct, tc_z)"),
     ("CtOp", "DFT products: x/y (CtOp)"),
     ("ZFwdDense", "DFT products: dense z forward"),
     ("ZInvDense", "DFT products: dense z inverse"),
-    ("ZFwdCT", "DFT products: z-CT forward"),
     ("ZInvCT", "DFT products: z-CT inverse"),
     ("ct_inv_butterfly", "DFT sweeps"),
     ("zct_combine", "DFT sweeps"),

@@ -74,7 +74,9 @@
 // The forward ct2 passes, pmesh_zy_fwd_ct2 (replacing _zy_fwd_ct2_call /
 // _zy_forward_real_h_ct2) and pmesh_xct_multi (replacing _xct_call_multi
 // / _x_transform_ct_multi and _xct_call), run their f32 products on the
-// split-precision tensor-core routine (tc_ct, tc_z; see its section).
+// split-precision tensor-core routine (tc_ct, tc_z; see its section) and
+// their bf16 products on tc_gemm behind split passes that fold the
+// butterfly (see "the ct2 passes' bf16 products").
 // What bounds them: the tensor cores at six bf16 products per real
 // product against the bytes.  At 512^3 the forward zy pass is 60 G real
 // FMA, the forward x pass 34 G, the dual inverse x pass 69 G: at 989
@@ -134,7 +136,8 @@
 //
 // Every other pass (zy_inv_ct2 and its dual, zy_inv_half, the row-13
 // inverse and half-CT forward passes) runs on cgemm, and so do the bf16
-// products of those passes.  What bounds them on this card: FP32 FMA
+// products of those passes but the half-CT forward's y stage (tc_gemm,
+// as zy_fwd_ct2's).  What bounds them on this card: FP32 FMA
 // throughput.  The transforms are
 // products with small dense matrices (M x M per CT chunk, Zm x n2 for the
 // dense z inverse): the three zy inverses of a spectral force at 512^3
@@ -178,13 +181,14 @@
 //    tiles.  Everything between two products of one pass (the butterfly
 //    sweeps, the z-CT combination, the scales, the plane) stays f32, and
 //    the next product rounds it again as its operand, as on the TPU.
-//    The dense forward passes run this form on tc_gemm instead (one
-//    part per operand, one product per slice, no first element taken
-//    out, no chains but the z stage's tail modes).
-//    What bounds it: the tensor cores would run these products at 989
-//    TFLOP/s, so the operand loads (the same guarded scalar loads as
-//    cgemm, through the functors) and the single-stage staging bound it;
-//    wgmma, TMA and a ring of stages are a later redesign.
+//    The forward passes, dense and ct2, run this form on tc_gemm instead
+//    (one part per operand, one product per slice, no first element
+//    taken out, no chains but the dense z stage's tail modes), their
+//    butterflies and folds formed once per pass by the split passes.
+//    What bounds cgemm_bf16 (the inverse passes): the tensor cores would
+//    run these products at 989 TFLOP/s, so the operand loads (the same
+//    guarded scalar loads as cgemm, through the functors) and the
+//    single-stage staging bound it.
 //  - bf16s (fft='mxu_bf16s', the ct2 entry points' spectrum_dtype): the
 //    spectra between the passes are stored in bf16: the loads upcast
 //    them and the stores round once.  The products stay f32 (tc_ct and
@@ -202,6 +206,7 @@
 #include <stdint.h>
 
 #include <type_traits>
+#include <utility>
 
 namespace {
 
@@ -748,7 +753,7 @@ __device__ __forceinline__ void st_split3(bf16_t* dst, int stride,
 // in range and a is even
 __device__ __forceinline__ void st_pair(float* p, long long a, float v0,
                                         float v1, bool in0, bool in1) {
-  if (in1 && (a & 1) == 0) {
+  if (in0 && in1 && (a & 1) == 0) {
     *reinterpret_cast<float2*>(p + a) = make_float2(v0, v1);
     return;
   }
@@ -757,7 +762,7 @@ __device__ __forceinline__ void st_pair(float* p, long long a, float v0,
 }
 __device__ __forceinline__ void st_pair(bf16_t* p, long long a, float v0,
                                         float v1, bool in0, bool in1) {
-  if (in1 && (a & 1) == 0) {
+  if (in0 && in1 && (a & 1) == 0) {
     *reinterpret_cast<__nv_bfloat162*>(p + a) = __floats2bfloat162_rn(v0, v1);
     return;
   }
@@ -1435,7 +1440,7 @@ __global__ void __launch_bounds__(TC_NT) tc_z(const TcZ p) {
 // rounding, in the bf16 form), and tc_gemm multiplies pre-split tiles
 // only.  Since the tiles are contiguous and laid out in advance (in the
 // 32-byte swizzle), each slice of both operands is two bulk copies (TMA)
-// into a ring TG_DEPTH slices deep, and two warpgroups multiply it with
+// into a ring tg_depth slices deep, and two warpgroups multiply it with
 // wgmma.m64n128k16 straight from shared memory, the six products of a
 // slice into a fresh partial (as tc_mma_slice sums them) that the CUDA
 // cores add to the accumulator.  The split tiles cost 12 bytes per
@@ -1461,7 +1466,12 @@ __global__ void __launch_bounds__(TC_NT) tc_z(const TcZ p) {
 //                z: columns = modes, re | im), the first element added
 //                back through the table's sums, then scaled and stored.
 
-constexpr int TG_DEPTH = 4;    // slices in flight in tc_gemm's ring
+// slices in flight in tc_gemm's ring: 4 of the three-part tiles, 8 of
+// the one-part ones (whose passes are 16 slices long at M = 128)
+template <int NP>
+__host__ __device__ constexpr int tg_depth() {
+  return NP == 1 ? 8 : 4;
+}
 constexpr int TG_SLICE = TC_ROWS * TC_BK;   // bf16 of one part of a slice tile
 constexpr int ZCH = 16;        // chained z modes at most: QZ + a tail of 8
 
@@ -1470,7 +1480,7 @@ constexpr int ZCH = 16;        // chained z modes at most: QZ + a tail of 8
 // after the static one)
 template <int NP>
 __host__ __device__ constexpr int tg_smem() {
-  return TG_DEPTH * 2 * NP * TG_SLICE * 2 + 1024;
+  return tg_depth<NP>() * 2 * NP * TG_SLICE * 2 + 1024;
 }
 
 // the NP parts of 16 values (row r of a tile) into dst + h TG_SLICE (h <
@@ -1506,7 +1516,7 @@ __device__ __forceinline__ void st_parts16(bf16_t* dst, const float* v,
 }
 
 struct SplitCols {
-  const float *xr, *xi;
+  const void *xr, *xi;           // TI: f32, or bf16 (a bf16s spectrum)
   const float *k2x, *k2y, *k2z;  // the 1/k^2 fold, or null
   bf16_t* dst;                   // (ceil(nall / 128), nks, NP, 128, 16)
   float* c0;                     // (nall, 2): the taken-out u[0], or null
@@ -1519,8 +1529,10 @@ constexpr int SPLIT_SG = 8;   // slices per split_cols block
 // one block of 128 threads per column tile and group of SPLIT_SG slices
 // (blockIdx.y), one thread per column: data row m = 8 s + r of column c
 // at slice s, column r (re) and 8 + r (im); zero past M and nall
-template <int NP>
+template <int NP, class TI>
 __global__ void __launch_bounds__(128) split_cols(const SplitCols p) {
+  const TI* xr = static_cast<const TI*>(p.xr);
+  const TI* xi = static_cast<const TI*>(p.xi);
   const long long tile = blockIdx.x;
   const int tid = threadIdx.x, s0 = blockIdx.y * SPLIT_SG;
   const long long c = tile * 128 + tid;
@@ -1538,8 +1550,8 @@ __global__ void __launch_bounds__(128) split_cols(const SplitCols p) {
   // fold(x[row m]) as the plain version's (1/k^2, 0 at k^2 = 0)
   auto val = [&](int m, float& vr, float& vi) {
     const long long a = base + (long long)m * p.ipitch;
-    vr = p.xr[a];
-    vi = p.xi[a];
+    vr = ldv(xr, a);
+    vi = ldv(xi, a);
     if (p.k2x != nullptr) {
       const float kk = __fadd_rn(__fadd_rn(p.k2x[m], ky), kz);
       const float f = kk > 0.f ? __frcp_rn(kk) : 0.f;
@@ -1678,39 +1690,350 @@ __global__ void __launch_bounds__(128) split_rows(const SplitRows p) {
     }
 }
 
+// --- the ct2 passes' bf16 products on tc_gemm ------------------------------
+//
+// The bf16-product forms of pmesh_xct_multi and pmesh_zy_fwd_ct2 (and of
+// the half-CT pass 1's y stage).  A forward CT stage's operand is a
+// butterfly: u_j[m] = sum_r b[r][j] fold(x[r M + m]) for each of the R
+// chunks j.  Formed in a product's operand loader, each input value
+// would be read and butterflied once per chunk and table tile (8 times
+// per x pass at 512^3); a split pass reads each input value once, forms
+// every chunk's butterfly from the R values of a row in f32, term by
+// term in the plain version's order (bterm_c), and rounds it once to
+// bf16 into tc_gemm's data tiles, which hold R M rows per column as the
+// input does.  tc_gemm then runs the R chunks' products, chunk j on
+// its own (M, M) block table and its own slices of the data tiles.  An
+// inverse stage has no butterfly before its products: split_cols folds
+// 1/k^2 and rounds, tc_gemm multiplies, ct_inv_butterfly sweeps.  The
+// z-CT stage forms the Rz/2 + 1 distinct butterflies of a real row
+// (chunks 0 and Rz/2 real, 16 k per slice; the others complex, 8 k per
+// slice); the conjugate chunks Rz - d read u_d, and their sign sits in
+// their block table (negating a bf16 value is exact).
+//
+//   split_ct     the x / y stage's forward data: u_j of column c of
+//                (nouter, R M, ncols) blocks into data slices j M / 8 + s
+//                of column tile c / 128;
+//   split_zct    the z-CT data of (rows, N2) real rows, u_d into the
+//                slices dslice[d] .. of row tile m / 128.
+//
+// What bounds them: the bytes.  At 512^3 the forward x pass is 34.4 G
+// real FMA, 0.07 ms at 989 TFLOP/s, against 0.32 ms of compulsory bytes;
+// the split tiles add 4 bytes per complex element written and read once
+// more.  The butterfly's coefficient classes (1, -1, 0, a product) are
+// compiled in, so a split pass runs near its bytes (on an H100 80GB HBM3
+// at 512^3 the z-CT split took 0.26 ms against 0.24 ms of bytes);
+// tc_gemm stores each thread's two adjacent outputs at once, and its
+// one-part ring is 8 slices deep (PERF.md's findings have the times).
+
+// A butterfly coefficient's class, known at compile time from R and r j:
+// the plain butterfly (_cmadd) adds a term a when the coefficient is 1,
+// -a when it is -1, nothing when it is 0, else a c (one f32 product).
+// W_R^{-rj} (R <= 8) is exactly 1 or -1 in f64, and so in f32, where r j
+// mod R is 0 or R / 2 (real part) or R / 4 or 3 R / 4 (imaginary part),
+// exactly 0 only at r j = 0 (imaginary part); elsewhere it is a product,
+// the tiny ones (cos(pi / 2) in f64: 6.1e-17) included.  bt_check holds
+// the host's f32 constants to these classes.
+enum BtClass { BT_ZERO, BT_ONE, BT_MINUS, BT_MUL };
+
+__host__ __device__ constexpr BtClass bt_re(int R, int r, int j) {
+  return (r * j) % R == 0 ? BT_ONE
+                          : (2 * ((r * j) % R) == R ? BT_MINUS : BT_MUL);
+}
+__host__ __device__ constexpr BtClass bt_im(int R, int r, int j) {
+  return r * j == 0 ? BT_ZERO
+                    : (4 * ((r * j) % R) == R
+                           ? BT_MINUS
+                           : (4 * ((r * j) % R) == 3 * R ? BT_ONE : BT_MUL));
+}
+__host__ __device__ constexpr BtClass bt_neg(BtClass c) {
+  return c == BT_ONE ? BT_MINUS : (c == BT_MINUS ? BT_ONE : c);
+}
+
+// b + c a for a coefficient of class C (value coef): bterm's arithmetic
+template <BtClass C>
+__device__ __forceinline__ float bterm_c(float b, float coef, float a) {
+  if constexpr (C == BT_ZERO) return b;
+  if constexpr (C == BT_ONE) return __fadd_rn(b, a);
+  if constexpr (C == BT_MINUS) return __fadd_rn(b, -a);
+  return __fadd_rn(b, __fmul_rn(a, coef));
+}
+
+// whether the host constants b[r][j] (W_R^{-rj}) have the classes the
+// split passes compile in
+bool bt_check(const Butter& bt, int R) {
+  auto is = [](BtClass c, float v) {
+    return c == BT_ZERO ? fabsf(v) < 1e-30f
+                        : c == BT_ONE ? v == 1.f
+                                      : c == BT_MINUS ? v == -1.f
+                                                      : fabsf(v) >= 1e-30f &&
+                                                            fabsf(v) != 1.f;
+  };
+  for (int r = 0; r < R; ++r)
+    for (int j = 0; j < R; ++j)
+      if (!is(bt_re(R, r, j), bt.r[r][j]) || !is(bt_im(R, r, j), bt.i[r][j]))
+        return false;
+  return true;
+}
+
+struct SplitCt {
+  const void *xr, *xi;           // TI
+  const float *k2x, *k2y, *k2z;  // the 1/k^2 fold, or null
+  bf16_t* dst;                   // (ceil(nall / 128), R nks, 1, 128, 16)
+  long long istride, nall;       // input: outer stride; columns in all
+  int M, ncols, ipitch, W, nks;  // rows per chunk; nks = M / 8
+  Butter bt;                     // b[r][j] = W_R^{-rj}
+};
+
+// the bf16 of v in the low or high half of a word
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// u[j] = (re, im) of sum_r b[r][j] (vr[r] + i vi[r]) for every chunk j,
+// each term added as the plain butterfly adds it, in its order: re +=
+// cr vr, re += -ci vi, im += ci vr, im += cr vi, r = 0, 1, ...
+template <int R, int J, int Rr>
+__device__ __forceinline__ void bt_terms(float (&u)[R][2],
+                                         const float (&vr)[R],
+                                         const float (&vi)[R],
+                                         const Butter& bt) {
+  if constexpr (Rr < R) {
+    const float cr = bt.r[Rr][J], ci = bt.i[Rr][J];
+    u[J][0] = bterm_c<bt_neg(bt_im(R, Rr, J))>(
+        bterm_c<bt_re(R, Rr, J)>(u[J][0], cr, vr[Rr]), -ci, vi[Rr]);
+    u[J][1] = bterm_c<bt_re(R, Rr, J)>(
+        bterm_c<bt_im(R, Rr, J)>(u[J][1], ci, vr[Rr]), cr, vi[Rr]);
+    bt_terms<R, J, Rr + 1>(u, vr, vi, bt);
+  }
+}
+template <int R, int... J>
+__device__ __forceinline__ void bt_chunks(float (&u)[R][2],
+                                          const float (&vr)[R],
+                                          const float (&vi)[R],
+                                          const Butter& bt,
+                                          std::integer_sequence<int, J...>) {
+  ((u[J][0] = u[J][1] = 0.f, bt_terms<R, J, 0>(u, vr, vi, bt)), ...);
+}
+
+// one block of 128 threads per column tile and group of SPLIT_SG slices
+// (blockIdx.y), one thread per column c: for each row m = 8 s + mm of
+// slice s, the R values fold(x[o, r M + m, n]) read once and every
+// chunk's u_j[m] formed from them; chunk j's slice s is data slice j nks
+// + s, row c % 128 (re of the 8 rows | im, in the 32-byte swizzle); zero
+// past nall
+template <class TI, int R>
+__global__ void __launch_bounds__(128) split_ct(const SplitCt p) {
+  const TI* xr = static_cast<const TI*>(p.xr);
+  const TI* xi = static_cast<const TI*>(p.xi);
+  const long long tile = blockIdx.x;
+  const int tid = threadIdx.x, s0 = blockIdx.y * SPLIT_SG;
+  const long long c = tile * 128 + tid;
+  const bool in = c < p.nall;
+  long long base = 0;
+  float ky = 0.f, kz = 0.f;
+  if (in) {
+    const long long o = c / p.ncols, n = c % p.ncols;
+    base = o * p.istride + n;
+    if (p.k2x != nullptr) {
+      ky = p.k2y[n / p.W];
+      kz = p.k2z[n % p.W];
+    }
+  }
+  bf16_t* dst = p.dst + tile * (long long)R * p.nks * TG_SLICE + tid * TC_BK;
+  const int sw = (tid >> 2) & 1;
+  for (int s = s0; s < min(p.nks, s0 + SPLIT_SG); ++s) {
+    uint32_t w[R][8];   // chunk j: rows (2 i, 2 i + 1) re in w[j][i], im in 4 + i
+#pragma unroll
+    for (int mm = 0; mm < 8; ++mm) {
+      float vr[R], vi[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        vr[r] = vi[r] = 0.f;
+        if (in) {
+          const long long row = (long long)r * p.M + s * 8 + mm;
+          const long long a = base + row * p.ipitch;
+          vr[r] = ldv(xr, a);
+          vi[r] = ldv(xi, a);
+          if (p.k2x != nullptr) {
+            const float kk = __fadd_rn(__fadd_rn(p.k2x[row], ky), kz);
+            const float f = kk > 0.f ? __frcp_rn(kk) : 0.f;
+            vr[r] = __fmul_rn(vr[r], f);
+            vi[r] = __fmul_rn(vi[r], f);
+          }
+        }
+      }
+      float u[R][2];
+      bt_chunks<R>(u, vr, vi, p.bt, std::make_integer_sequence<int, R>());
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const float ur = u[j][0], ui = u[j][1];
+        const int sh = (mm & 1) * 16;
+        const uint32_t br = bf16_bits(ur) << sh, bi = bf16_bits(ui) << sh;
+        w[j][mm / 2] = (mm & 1) ? (w[j][mm / 2] | br) : br;
+        w[j][4 + mm / 2] = (mm & 1) ? (w[j][4 + mm / 2] | bi) : bi;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      uint4* d = reinterpret_cast<uint4*>(
+          dst + ((long long)j * p.nks + s) * TG_SLICE);
+      d[sw] = make_uint4(w[j][0], w[j][1], w[j][2], w[j][3]);
+      d[1 - sw] = make_uint4(w[j][4], w[j][5], w[j][6], w[j][7]);
+    }
+  }
+}
+
+struct SplitZct {
+  const float* x;            // (rows, N2) real
+  bf16_t* dst;               // (ceil(rows / 128), nkd, 1, 128, 16)
+  long long rows;
+  int N2, K, nkd, aligned;
+  int dslice[kMaxR / 2 + 1];  // the first slice of each u_d
+  Butter bt;                 // b[r][d] = W_Rz^{-rd}
+};
+
+constexpr int SPLIT_ZT = 256;   // threads per split_zct block
+
+// sum_r c[r] v[r][q] over the terms of class C(r) = bt_re or bt_im of
+// (RZ, r, D), in r order (the plain z-CT's chain over xs[r])
+template <int RZ, int D, bool IM, int R = 0>
+__device__ __forceinline__ float zct_sum(float acc, const float (&v)[RZ][8],
+                                         int q, const Butter& bt) {
+  if constexpr (R == RZ) {
+    return acc;
+  } else {
+    constexpr BtClass C = IM ? bt_im(RZ, R, D) : bt_re(RZ, R, D);
+    const float c = IM ? bt.i[R][D] : bt.r[R][D];
+    return zct_sum<RZ, D, IM, R + 1>(bterm_c<C>(acc, c, v[R][q]), v, q, bt);
+  }
+}
+
+// u_D of split_zct's row and 8 k into its slice row (D = 0 and RZ / 2
+// real, the others complex)
+template <int RZ, int D>
+__device__ __forceinline__ void zct_chunk(const SplitZct& p,
+                                          const float (&v)[RZ][8],
+                                          bf16_t* base, int g, int sw) {
+  constexpr bool real = D == 0 || 2 * D == RZ;
+  uint32_t wr[4], wi[4];
+#pragma unroll
+  for (int q = 0; q < 8; q += 2) {
+    wr[q / 2] = bf16_bits(zct_sum<RZ, D, false>(0.f, v, q, p.bt)) |
+                (bf16_bits(zct_sum<RZ, D, false>(0.f, v, q + 1, p.bt)) << 16);
+    if constexpr (!real)
+      wi[q / 2] =
+          bf16_bits(zct_sum<RZ, D, true>(0.f, v, q, p.bt)) |
+          (bf16_bits(zct_sum<RZ, D, true>(0.f, v, q + 1, p.bt)) << 16);
+  }
+  const uint4 re = make_uint4(wr[0], wr[1], wr[2], wr[3]);
+  if constexpr (real) {
+    uint4* dd = reinterpret_cast<uint4*>(
+        base + (long long)(p.dslice[D] + g / 2) * TG_SLICE);
+    dd[(g & 1) ^ sw] = re;
+  } else {
+    uint4* dd = reinterpret_cast<uint4*>(
+        base + (long long)(p.dslice[D] + g) * TG_SLICE);
+    dd[sw] = re;
+    dd[1 - sw] = make_uint4(wi[0], wi[1], wi[2], wi[3]);
+  }
+}
+
+template <int RZ, int... D>
+__device__ __forceinline__ void zct_chunks(const SplitZct& p,
+                                           const float (&v)[RZ][8],
+                                           bf16_t* base, int g, int sw,
+                                           std::integer_sequence<int, D...>) {
+  (zct_chunk<RZ, D>(p, v, base, g, sw), ...);
+}
+
+// one thread per row m and 8 k (k = 8 g + q of every raw chunk r): the Rz
+// values x[m, r K + k] read once (two float4 per r where aligned), u_d
+// for d <= Rz / 2 as _zct_fwd_plain forms it (u_0 and u_{Rz/2} real, their
+// coefficients +-1; the others complex, their re and im chains each in r
+// order), each rounded once to bf16: a real u_d fills half a row of
+// slice dslice[d] + g / 2, a complex one a row (re | im) of slice
+// dslice[d] + g
+template <int RZ>
+__global__ void __launch_bounds__(SPLIT_ZT) split_zct(const SplitZct p) {
+  const int G = p.K / 8;
+  const long long e = (long long)blockIdx.x * SPLIT_ZT + threadIdx.x;
+  const long long m = e / G;
+  const int g = (int)(e % G);
+  if (m >= p.rows) return;
+  float v[RZ][8];
+  const float* src = p.x + m * p.N2 + 8 * g;
+#pragma unroll
+  for (int r = 0; r < RZ; ++r) {
+    const float* a = src + (long long)r * p.K;
+    if (p.aligned) {
+      const float4 lo = *reinterpret_cast<const float4*>(a);
+      const float4 hi = *reinterpret_cast<const float4*>(a + 4);
+      v[r][0] = lo.x; v[r][1] = lo.y; v[r][2] = lo.z; v[r][3] = lo.w;
+      v[r][4] = hi.x; v[r][5] = hi.y; v[r][6] = hi.z; v[r][7] = hi.w;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[r][q] = a[q];
+    }
+  }
+  const int row = (int)(m % TC_ROWS), sw = (row >> 2) & 1;
+  bf16_t* base = p.dst + (m / TC_ROWS) * p.nkd * TG_SLICE + row * TC_BK;
+  zct_chunks<RZ>(p, v, base, g, sw,
+                 std::make_integer_sequence<int, RZ / 2 + 1>());
+}
+
+// Chunks: a CT stage at R > 1 is R products, one per chunk j, each
+// reading its own table tiles and its own slices of the data tiles and
+// writing its own output rows (x / y: rows j jstep + q) or columns (z:
+// columns j jstep + mode).  A dense pass is one chunk.
 struct TcGemm {
-  const bf16_t* tab;    // (T, nks, NP, 128, 16): the table's tiles
-  const bf16_t* dat;    // (tiles, nks, NP, 128, 16): the data's tiles
-  const float* sums;    // x / y: (sets, M, 2) row sums; z: (Zh, 2) column sums
+  const bf16_t* tab;    // table tile t of chunk j: slices tslice[j] + t nk[j] ..
+  const bf16_t* dat;    // (tiles, nkd, NP, 128, 16): the data's tiles;
+                        // chunk j's slices dslice[j] .. + nk[j] of each
+  const float* sums;    // x / y: (sets, R, M, 2) row sums; z: (Zh, 2) column sums
   const float* c0;      // the taken-out first elements, or null
-  float *o1r, *o1i, *o2r, *o2i;
+  void *o1r, *o1i, *o2r, *o2i;   // TO
   long long ostride;    // x / y: output elements per outer block
   long long nall;       // x / y: data columns in all; z: rows
-  int M;                // x / y: modes (rows per outer block); z: tail0
+  int M;                // x / y: modes per chunk; z: tail0 (modes per chunk)
   int ncols;            // x / y: columns per outer block; z: output pitch
   int lo;               // z: modes [0, lo) are chained, not stored here
-  int T, T1, nks;
+  int T, T1;            // table tiles per chunk (both sets), of set 1
+  int R, nkd, jstep;    // chunks; slices per data tile; output offset per chunk
+  int tslice[kMaxR], dslice[kMaxR], nk[kMaxR];
   float scale;
 };
 
+// the one-chunk layout of a dense pass: nks slices per tile
+void tg_one_chunk(TcGemm& g, int nks) {
+  g.R = 1;
+  g.nkd = g.nk[0] = nks;
+  g.tslice[0] = g.dslice[0] = g.jstep = 0;
+}
+
 // DATA_A: the data is the row operand (z); else the column operand (x / y).
-// The ring: TG_DEPTH slots of [row op | col op], each filled by two bulk
-// copies of the operands' contiguous slice tiles (pre-swizzled in device
-// memory, as gmma_desc reads them) issued by thread 0 and completing on the
-// slot's mbarrier; a barrier after each slice's products frees its slot.
-template <int NP, bool DATA_A>
+// TO: the output storage (f32, or bf16 for the bf16s form of the x / y
+// stages).  The ring: tg_depth slots of [row op | col op], each filled by
+// two bulk copies of the operands' contiguous slice tiles (pre-swizzled in
+// device memory, as gmma_desc reads them) issued by thread 0 and
+// completing on the slot's mbarrier; a barrier after each slice's
+// products frees its slot.  Block b: table tile b % T, chunk (b / T) % R,
+// data tile b / (T R): the blocks that read one data tile are adjacent.
+template <int NP, bool DATA_A, class TO>
 __global__ void __launch_bounds__(TC_NT, 1) tc_gemm(const TcGemm p) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  __shared__ __align__(8) uint64_t full[TG_DEPTH];
+  constexpr int D = tg_depth<NP>();
+  __shared__ __align__(8) uint64_t full[D];
   constexpr int SE = NP * TG_SLICE;   // bf16 of an operand's slice tile
-  constexpr int D = TG_DEPTH;
   bf16_t* ring = reinterpret_cast<bf16_t*>(
       tc_smem + ((1024 - (smem_u32(tc_smem) & 1023)) & 1023));
   const long long b = blockIdx.x;
   const int t = (int)(b % p.T);
-  const long long dt = b / p.T;
-  const bf16_t* tsrc = p.tab + (long long)t * p.nks * SE;
-  const bf16_t* dsrc = p.dat + dt * p.nks * SE;
+  const int jc = (int)((b / p.T) % p.R);
+  const long long dt = b / p.T / p.R;
+  const int nks = p.nk[jc];
+  const bf16_t* tsrc =
+      p.tab + ((long long)p.tslice[jc] + (long long)t * nks) * SE;
+  const bf16_t* dsrc = p.dat + (dt * p.nkd + p.dslice[jc]) * SE;
   const bf16_t* asrc = DATA_A ? dsrc : tsrc;
   const bf16_t* bsrc = DATA_A ? tsrc : dsrc;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -1728,7 +2051,7 @@ __global__ void __launch_bounds__(TC_NT, 1) tc_gemm(const TcGemm p) {
     tma_load(st + SE, bsrc + (long long)s * SE, 2 * SE, &full[slot]);
   };
   if (tid == 0)
-    for (int s = 0; s < D && s < p.nks; ++s) issue(s);
+    for (int s = 0; s < D && s < nks; ++s) issue(s);
   // warpgroup wg: rows [64 wg, 64 wg + 64) of the tile, all 128 columns;
   // per slice the products (NP = 3: the six, smallest first, into a fresh
   // partial that the CUDA cores add to acc; NP = 1: one, into acc), a
@@ -1738,7 +2061,7 @@ __global__ void __launch_bounds__(TC_NT, 1) tc_gemm(const TcGemm p) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
   constexpr int PA_[6] = {1, 2, 0, 1, 0, 0}, PB_[6] = {1, 0, 2, 0, 1, 0};
-  for (int s = 0; s < p.nks; ++s) {
+  for (int s = 0; s < nks; ++s) {
     const int slot = s % D;
     mbar_wait(&full[slot], (s / D) & 1);
     const bf16_t* A = ring + slot * 2 * SE + wg * 64 * TC_BK;
@@ -1762,12 +2085,14 @@ __global__ void __launch_bounds__(TC_NT, 1) tc_gemm(const TcGemm p) {
       for (int i = 0; i < 64; ++i) acc[i] += part[i];
     }
     __syncthreads();
-    if (tid == 0 && s + D < p.nks) {
+    if (tid == 0 && s + D < nks) {
       fence_proxy_async();
       issue(s + D);
     }
   }
 
+  // the stores: each thread's two adjacent columns in one 8- (f32) or
+  // 4-byte (bf16) store where both are in range and aligned
   const int gid = lane / 4, tig = lane % 4;
   if constexpr (DATA_A) {
     // z: rows are data rows, columns [0, 64) real parts of the tile's
@@ -1780,54 +2105,83 @@ __global__ void __launch_bounds__(TC_NT, 1) tc_gemm(const TcGemm p) {
       c0[h] = p.c0 != nullptr && m[h] < p.nall ? p.c0[m[h]] : 0.f;
     }
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * tig;
+      const bool re = col < TC_MODES;
+      const int mode = t * TC_MODES + col % TC_MODES;
+      const int oc = jc * p.jstep + mode;
+      bool in[2];
+      float sm[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int col = 8 * j + 2 * tig + e;
-        const bool re = col < TC_MODES;
-        const int mode = t * TC_MODES + col % TC_MODES;
-        if (mode < p.lo || mode >= p.M) continue;
-        const float sm = p.sums[2 * mode + (re ? 0 : 1)];
-        float* out = re ? p.o1r : p.o1i;
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          if (m[h] < p.nall)
-            out[m[h] * p.ncols + mode] = fmaf(c0[h], sm, acc[4 * j + 2 * h + e]);
+        in[e] = mode + e >= p.lo && mode + e < p.M;
+        sm[e] = p.c0 != nullptr && in[e] ? p.sums[2 * (oc + e) + (re ? 0 : 1)]
+                                         : 0.f;
       }
+      TO* out = static_cast<TO*>(re ? p.o1r : p.o1i);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (m[h] < p.nall)
+          st_pair(out, m[h] * p.ncols + oc,
+                  fmaf(c0[h], sm[0], acc[4 * j + 2 * h]),
+                  fmaf(c0[h], sm[1], acc[4 * j + 2 * h + 1]), in[0], in[1]);
+    }
   } else {
     // x / y: warpgroup 0 holds the real parts of the tile's modes,
     // warpgroup 1 the imaginary; each output gets back c0 sum_m W[q, m],
     // then the scale
     const bool set2 = t >= p.T1;
     const int tt = set2 ? t - p.T1 : t;
-    float* out = wg == 0 ? (set2 ? p.o2r : p.o1r) : (set2 ? p.o2i : p.o1i);
-    const float* rs = p.sums + (set2 ? 2LL * p.M : 0LL);
+    TO* out = static_cast<TO*>(wg == 0 ? (set2 ? p.o2r : p.o1r)
+                                        : (set2 ? p.o2i : p.o1i));
+    const float* rs =
+        p.sums + ((set2 ? (long long)p.R : 0LL) + jc) * p.M * 2;
+    const long long jrows = (long long)jc * p.jstep * p.ncols;
     int q[2];
     float sr[2], si[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       q[h] = tt * TC_MODES + w4 * 16 + gid + h * 8;
-      sr[h] = q[h] < p.M ? rs[2 * q[h]] : 0.f;
-      si[h] = q[h] < p.M ? rs[2 * q[h] + 1] : 0.f;
+      const bool sum = p.c0 != nullptr && q[h] < p.M;
+      sr[h] = sum ? rs[2 * q[h]] : 0.f;
+      si[h] = sum ? rs[2 * q[h] + 1] : 0.f;
     }
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < 16; ++j) {
+      const long long c = dt * TC_COLS + 8 * j + 2 * tig;
+      if (c >= p.nall) continue;
+      // columns c and c + 1: adjacent in memory unless c + 1 starts the
+      // next outer block
+      long long at[2];
+      float cr[2], ci[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const long long c = dt * TC_COLS + 8 * j + 2 * tig + e;
-        if (c >= p.nall) continue;
-        const long long at = (c / p.ncols) * p.ostride + c % p.ncols;
-        const float cr = p.c0 != nullptr ? p.c0[2 * c] : 0.f;
-        const float ci = p.c0 != nullptr ? p.c0[2 * c + 1] : 0.f;
+        const long long ce = c + e < p.nall ? c + e : c;
+        at[e] = (ce / p.ncols) * p.ostride + ce % p.ncols + jrows;
+        cr[e] = p.c0 != nullptr ? p.c0[2 * ce] : 0.f;
+        ci[e] = p.c0 != nullptr ? p.c0[2 * ce + 1] : 0.f;
+      }
+      const bool in1 = c + 1 < p.nall;
+      const bool pair = in1 && at[1] == at[0] + 1;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (q[h] >= p.M) continue;
-          const float back = wg == 0 ? fmaf(cr, sr[h], -ci * si[h])
-                                     : fmaf(cr, si[h], ci * sr[h]);
-          out[at + (long long)q[h] * p.ncols] =
-              (acc[4 * j + 2 * h + e] + back) * p.scale;
+      for (int h = 0; h < 2; ++h) {
+        if (q[h] >= p.M) continue;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float back = wg == 0 ? fmaf(cr[e], sr[h], -ci[e] * si[h])
+                                     : fmaf(cr[e], si[h], ci[e] * sr[h]);
+          v[e] = (acc[4 * j + 2 * h + e] + back) * p.scale;
+        }
+        const long long row = (long long)q[h] * p.ncols;
+        if (pair) {
+          st_pair(out, at[0] + row, v[0], v[1], true, true);
+        } else {
+          stv(out, at[0] + row, v[0]);
+          if (in1) stv(out, at[1] + row, v[1]);
         }
       }
+    }
   }
 }
 
@@ -1841,13 +2195,13 @@ __global__ void __launch_bounds__(TC_NT, 1) tc_gemm(const TcGemm p) {
 //   then turns the y_j into the natural-order output in place.
 // fold multiplies by 1/k^2 (0 at k^2 = 0) from three 1-d tables when k2x is
 // set: row index -> k2x, column n -> (n / W, n % W) -> k2y, k2z.
-// TI, TO: the storage types of x and out (float, or bf16 for the bf16s
-// form); outi null: only the real part is stored.
-template <bool INV, class TI = float, class TO = float>
+// TI: the storage type of x (float, or bf16 for the bf16s form); outi
+// null: only the real part is stored.
+template <bool INV, class TI = float>
 struct CtOp {
   const TI *xr, *xi;
   const float *wr, *wi, *w2r, *w2i;
-  TO *outr, *outi, *out2r, *out2i;
+  float *outr, *outi, *out2r, *out2i;
   const float *k2x, *k2y, *k2z;
   long long ostride;
   int M, R, ncols, W;
@@ -1958,37 +2312,6 @@ struct ZFwdDense {
                                      float vr, float vi) const {
     sr[m * Zm + n] = vr;
     si[m * Zm + n] = vi;
-  }
-};
-
-// z-CT forward, stored chunk p (= j of the grid): u[m, k] =
-// sum_r c[r][p] x[m, r*K + k] (the butterfly, conjugated for the upper
-// chunks as the JAX package does), times (Er[p], Ei[p]) (K x Mq), into
-// columns [p*Mq, (p+1)*Mq) of the row
-struct ZFwdCT {
-  const float *x, *er, *ei;
-  float *sr, *si;
-  int N2, Zm, Rz, Kc, Mq;
-  Butter c;
-  __device__ __forceinline__ Cplx la(int, int p, long long m, int k) const {
-    Cplx u{0.f, 0.f};
-    const float* row = x + m * N2 + k;
-    for (int r = 0; r < Rz; ++r) {
-      const float v = row[(long long)r * Kc];
-      u.r = fmaf(c.r[r][p], v, u.r);
-      u.i = fmaf(c.i[r][p], v, u.i);
-    }
-    return u;
-  }
-  __device__ __forceinline__ Cplx lb(int, int p, int k, long long n) const {
-    const long long a = ((long long)p * Kc + k) * Mq + n;
-    return Cplx{er[a], ei[a]};
-  }
-  __device__ __forceinline__ void st(int, int p, long long m, long long n,
-                                     float vr, float vi) const {
-    const long long a = m * Zm + (long long)p * Mq + n;
-    sr[a] = vr;
-    si[a] = vi;
   }
 };
 
@@ -2194,7 +2517,7 @@ cudaError_t y_inverse(const TI* xr, const TI* xi, const float* wAr,
                       float* sAr, float* sAi, float* sBr, float* sBi, int n0,
                       int N1, int Zm, int Ry, int My, const float* ycoef,
                       bool bf16, cudaStream_t stream) {
-  CtOp<true, TI, float> op = {};
+  CtOp<true, TI> op = {};
   op.xr = xr;
   op.xi = xi;
   op.wr = wAr;
@@ -2213,10 +2536,10 @@ cudaError_t y_inverse(const TI* xr, const TI* xi, const float* wAr,
   op.scale = 1.f;
   const Butter bt = make_butter(ycoef, Ry);
   if (wBr != nullptr)
-    PMESH_TRY_E((launch_gemm<CtOp<true, TI, float>, true, false, false>(
+    PMESH_TRY_E((launch_gemm<CtOp<true, TI>, true, false, false>(
         op, n0, Ry, My, Zm, My, true, bf16, stream)));
   else
-    PMESH_TRY_E((launch_gemm<CtOp<true, TI, float>, false, false, false>(
+    PMESH_TRY_E((launch_gemm<CtOp<true, TI>, false, false, false>(
         op, n0, Ry, My, Zm, My, true, bf16, stream)));
   PMESH_TRY_E(launch_butterfly(sAr, sAi, sAr, sAi, n0, op.ostride, My, Ry,
                                Zm, 1.f, bt, stream));
@@ -2226,13 +2549,12 @@ cudaError_t y_inverse(const TI* xr, const TI* xi, const float* wAr,
 }
 
 // the forward y CT of the f32 (n0, N1, ncols) z spectrum (xr, xi) into
-// (outr, outi) (storage TO), chunk-permuted along y
-template <class TO>
+// (outr, outi), chunk-permuted along y, on cgemm (the f32 half-CT pass 1)
 cudaError_t y_forward(const float* xr, const float* xi, const float* wyr,
-                      const float* wyi, const float* ycoef, TO* outr,
-                      TO* outi, int n0, int N1, int ncols, int Ry, int My,
-                      bool bf16, cudaStream_t stream) {
-  CtOp<false, float, TO> op = {};
+                      const float* wyi, const float* ycoef, float* outr,
+                      float* outi, int n0, int N1, int ncols, int Ry, int My,
+                      cudaStream_t stream) {
+  CtOp<false> op = {};
   op.xr = xr;
   op.xi = xi;
   op.wr = wyr;
@@ -2246,61 +2568,8 @@ cudaError_t y_forward(const float* xr, const float* xi, const float* wyr,
   op.W = 1;
   op.scale = 1.f;
   op.bt = make_butter(ycoef, Ry);
-  return launch_gemm<CtOp<false, float, TO>, false, false, false>(
-      op, n0, Ry, My, ncols, My, true, bf16, stream);
-}
-
-// the x CT of pmesh_xct_multi in the bf16 products form (cgemm_bf16),
-// the spectra stored as TS (the f32 products run on x_ct_tc): the
-// inverse writes its products to (p1, p2), f32 (the output itself for
-// f32 storage, the scratch for bf16), and the sweep stores the output
-template <class TS>
-cudaError_t x_ct(const TS* xr, const TS* xi, const float* wr,
-                 const float* wi, const float* w2r, const float* w2i,
-                 const float* k2x, const float* k2y, const float* k2z,
-                 TS* o1r, TS* o1i, TS* o2r, TS* o2i, float* s1r, float* s1i,
-                 float* s2r, float* s2i, int n1, int W, int R, int M,
-                 bool inverse, float scale, const Butter& bt,
-                 cudaStream_t stream) {
-  const long long ncols = (long long)n1 * W;
-  if (ncols > INT32_MAX) return cudaErrorInvalidValue;
-  const bool dual = w2r != nullptr;
-  if (!inverse) {
-    CtOp<false, TS, TS> op = {xr, xi, wr, wi, w2r, w2i, o1r, o1i, o2r, o2i,
-                              k2x, k2y, k2z, 0, M, R, (int)ncols, W, scale,
-                              bt};
-    if (dual)
-      return launch_gemm_bf16<CtOp<false, TS, TS>, true, false, false>(
-          op, 1, R, M, ncols, M, true, stream);
-    return launch_gemm_bf16<CtOp<false, TS, TS>, false, false, false>(
-        op, 1, R, M, ncols, M, true, stream);
-  }
-  float *p1r, *p1i, *p2r, *p2i;
-  if constexpr (std::is_same<TS, float>::value) {
-    p1r = o1r;
-    p1i = o1i;
-    p2r = o2r;
-    p2i = o2i;
-  } else {
-    p1r = s1r;
-    p1i = s1i;
-    p2r = s2r;
-    p2i = s2i;
-  }
-  CtOp<true, TS, float> op = {xr, xi, wr, wi, w2r, w2i, p1r, p1i, p2r, p2i,
-                              k2x, k2y, k2z, 0, M, R, (int)ncols, W, 1.f,
-                              bt};
-  if (dual)
-    PMESH_TRY_E((launch_gemm_bf16<CtOp<true, TS, float>, true, false, false>(
-        op, 1, R, M, ncols, M, true, stream)));
-  else
-    PMESH_TRY_E((launch_gemm_bf16<CtOp<true, TS, float>, false, false, false>(
-        op, 1, R, M, ncols, M, true, stream)));
-  PMESH_TRY_E(launch_butterfly(p1r, p1i, o1r, o1i, 1, 0, M, R, (int)ncols,
-                               scale, bt, stream));
-  if (!dual) return cudaSuccess;
-  return launch_butterfly(p2r, p2i, o2r, o2i, 1, 0, M, R, (int)ncols, scale,
-                          bt, stream);
+  return launch_gemm<CtOp<false>, false, false, false>(
+      op, n0, Ry, My, ncols, My, true, false, stream);
 }
 
 // --- the tensor-core passes -----------------------------------------------
@@ -2520,18 +2789,19 @@ cudaError_t dense_rows(const float* xr, const float* xi, const float* wr,
       op, nouter, 1, M, ncols, M, true, bf16, stream);
 }
 
-template <int NP, bool DATA_A>
+template <int NP, bool DATA_A, class TO = float>
 cudaError_t launch_tc_gemm(const TcGemm& p, long long dtiles,
                            cudaStream_t stream) {
   constexpr int smem = tg_smem<NP>();
   static_assert(smem <= TC_SMEM_MAX, "the ring fits in shared memory");
-  const long long blocks = (long long)p.T * dtiles;
-  if (blocks < 1 || blocks > INT32_MAX) return cudaErrorInvalidValue;
-  PMESH_TRY_E(cudaFuncSetAttribute(tc_gemm<NP, DATA_A>,
+  const long long blocks = (long long)p.T * p.R * dtiles;
+  if (blocks < 1 || blocks > INT32_MAX || p.R < 1 || p.R > kMaxR)
+    return cudaErrorInvalidValue;
+  PMESH_TRY_E(cudaFuncSetAttribute(tc_gemm<NP, DATA_A, TO>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    smem));
   ++g_launches[K_TC_GEMM];
-  tc_gemm<NP, DATA_A><<<(unsigned)blocks, TC_NT, smem, stream>>>(p);
+  tc_gemm<NP, DATA_A, TO><<<(unsigned)blocks, TC_NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -2562,7 +2832,7 @@ cudaError_t dense_tc(const float* xr, const float* xi, const void* tab,
   SplitCols sp = {xr,    xi,      k2x,  k2y, k2z, split, center ? c0 : nullptr,
                   istride, nall, M, ncols, ipitch, W, nks};
   ++g_launches[K_SPLIT];
-  split_cols<NP><<<dim3((unsigned)tiles, (nks + SPLIT_SG - 1) / SPLIT_SG),
+  split_cols<NP, float><<<dim3((unsigned)tiles, (nks + SPLIT_SG - 1) / SPLIT_SG),
                    128, 0, stream>>>(sp);
   PMESH_TRY_E(cudaGetLastError());
   TcGemm g = {};
@@ -2580,7 +2850,7 @@ cudaError_t dense_tc(const float* xr, const float* xi, const void* tab,
   g.ncols = ncols;
   g.T = dual ? 2 * T1 : T1;
   g.T1 = T1;
-  g.nks = nks;
+  tg_one_chunk(g, nks);
   g.scale = scale;
   PMESH_TRY_E((launch_tc_gemm<NP, false>(g, tiles, stream)));
   if (!center) return cudaSuccess;
@@ -2630,9 +2900,221 @@ cudaError_t z_dense_tc(const float* x, const void* tz, const float* zsum,
   g.ncols = pitch;
   g.lo = nlo;
   g.T = g.T1 = (zm + TC_MODES - 1) / TC_MODES;
-  g.nks = nks;
+  tg_one_chunk(g, nks);
   g.scale = 1.f;
   return launch_tc_gemm<NP, true>(g, tiles, stream);
+}
+
+// the R chunks' products of a CT stage (bf16) on tc_gemm: one-part block
+// table tab of one set, or two when o2r is set (T1 = M / 64 tiles each),
+// over the data tiles split (R M / 8 slices per column tile: chunk j's at
+// j M / 8), output rows j M + q of (nall / ncols, R M, ncols) blocks
+template <class TO>
+cudaError_t ct_chunks_tc(const void* tab, const bf16_t* split, TO* o1r,
+                         TO* o1i, TO* o2r, TO* o2i, long long nall, int R,
+                         int M, int ncols, float scale,
+                         cudaStream_t stream) {
+  const int nks = M / TC_DR, T1 = M / TC_MODES;
+  TcGemm g = {};
+  g.tab = (const bf16_t*)tab;
+  g.dat = split;
+  g.o1r = o1r;
+  g.o1i = o1i;
+  g.o2r = o2r;
+  g.o2i = o2i;
+  g.ostride = (long long)R * M * ncols;
+  g.nall = nall;
+  g.M = M;
+  g.ncols = ncols;
+  g.T1 = T1;
+  g.T = o2r != nullptr ? 2 * T1 : T1;
+  g.R = R;
+  g.nkd = R * nks;
+  g.jstep = M;
+  for (int j = 0; j < R && j < kMaxR; ++j) {
+    g.tslice[j] = j * g.T * nks;
+    g.dslice[j] = j * nks;
+    g.nk[j] = nks;
+  }
+  g.scale = scale;
+  return launch_tc_gemm<1, false, TO>(g, (nall + TC_COLS - 1) / TC_COLS,
+                                      stream);
+}
+
+// the forward CT stage in the bf16 products form along the rows of
+// (nouter, R M, ncols) blocks (x read at o istride + row ipitch, stored as
+// TI) into (nouter, R M, ncols) outputs (TO, chunk-permuted) by the
+// one-part block table tab [two sets when o2r is set] times scale, with
+// the 1/k^2 fold when k2x is set (W: the z width of a column n = y W + z):
+// split_ct, then tc_gemm over the chunks.  Scratch: split (R M / 8 slices
+// per 128-column tile).
+template <class TI, class TO>
+cudaError_t ct_fwd_tc1(const TI* xr, const TI* xi, const void* tab,
+                       const float* k2x, const float* k2y, const float* k2z,
+                       TO* o1r, TO* o1i, TO* o2r, TO* o2i, bf16_t* split,
+                       int nouter, int R, int M, int ncols, int ipitch,
+                       long long istride, int W, float scale,
+                       const Butter& bt, cudaStream_t stream) {
+  const long long nall = (long long)nouter * ncols;
+  const long long tiles = (nall + TC_COLS - 1) / TC_COLS;
+  const int nks = M / TC_DR;
+  if (M % TC_MODES || tiles > INT32_MAX || !bt_check(bt, R))
+    return cudaErrorInvalidValue;
+  const SplitCt sp = {xr,   xi,    k2x,   k2y,    k2z, split, istride,
+                      nall, M,     ncols, ipitch, W,   nks,   bt};
+  const dim3 grid((unsigned)tiles, (nks + SPLIT_SG - 1) / SPLIT_SG);
+  switch (R) {
+    case 2:
+      split_ct<TI, 2><<<grid, 128, 0, stream>>>(sp);
+      break;
+    case 4:
+      split_ct<TI, 4><<<grid, 128, 0, stream>>>(sp);
+      break;
+    case 8:
+      split_ct<TI, 8><<<grid, 128, 0, stream>>>(sp);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  ++g_launches[K_SPLIT];
+  PMESH_TRY_E(cudaGetLastError());
+  return ct_chunks_tc(tab, split, o1r, o1i, o2r, o2i, nall, R, M, ncols,
+                      scale, stream);
+}
+
+// the inverse CT stage's products in the bf16 form: the chunk-permuted
+// (R M, ncols) spectrum (TI) folded by 1/k^2 when k2x is set and rounded
+// (split_cols), then y_j at rows j M + m of the f32 (p1r, p1i) [and (p2r,
+// p2i) by the second set when p2r is set] (tc_gemm over the chunks); the
+// butterfly sweep follows.  Scratch: split as ct_fwd_tc1's.
+template <class TI>
+cudaError_t ct_inv_tc1(const TI* xr, const TI* xi, const void* tab,
+                       const float* k2x, const float* k2y, const float* k2z,
+                       float* p1r, float* p1i, float* p2r, float* p2i,
+                       bf16_t* split, int R, int M, int ncols, int W,
+                       cudaStream_t stream) {
+  const long long tiles = ((long long)ncols + TC_COLS - 1) / TC_COLS;
+  const int nkt = R * (M / TC_DR);
+  if (M % TC_MODES || tiles > INT32_MAX) return cudaErrorInvalidValue;
+  const SplitCols sp = {xr,    xi, k2x,   k2y,   k2z, split, nullptr,
+                        0,     ncols, R * M, ncols, ncols, W, nkt};
+  ++g_launches[K_SPLIT];
+  split_cols<1, TI><<<dim3((unsigned)tiles, (nkt + SPLIT_SG - 1) / SPLIT_SG),
+                      128, 0, stream>>>(sp);
+  PMESH_TRY_E(cudaGetLastError());
+  return ct_chunks_tc(tab, split, p1r, p1i, p2r, p2i, ncols, R, M, ncols,
+                      1.f, stream);
+}
+
+// the z-CT forward in the bf16 products form: (rows, N2) real x into the
+// f32 (sr, si) (rows, N2 / 2), stored chunk p at columns [p Mq, (p + 1)
+// Mq): split_zct (coefficients bt[r][d] = W_Rz^{-rd}), then tc_gemm over
+// the Rz stored chunks, chunk p = order[p] (the _zct_order: {d, d + Rz/2}
+// pairs) on its tiles of the block table tz (zct_block_table: the chunks
+// in stored order, T = Mq / 64 tiles of K / 16 slices for a real u, K / 8
+// for a complex one).  Scratch: split (N2 / 16 slices per 128-row tile).
+cudaError_t zct_fwd_tc1(const float* x, const void* tz, float* sr, float* si,
+                        bf16_t* split, long long rows, int N2, int Rz, int K,
+                        int Mq, const Butter& bt, cudaStream_t stream) {
+  const long long tiles = (rows + TC_ROWS - 1) / TC_ROWS;
+  const int H = Rz / 2, T = Mq / TC_MODES;
+  if (Rz < 2 || Rz > kMaxR || Rz % 2 || K % 128 || Mq % TC_MODES ||
+      tiles > INT32_MAX || !bt_check(bt, Rz))
+    return cudaErrorInvalidValue;
+  SplitZct sp = {};
+  sp.x = x;
+  sp.dst = split;
+  sp.rows = rows;
+  sp.N2 = N2;
+  sp.K = K;
+  sp.aligned = aligned16(x);
+  sp.bt = bt;
+  TcGemm g = {};
+  int nkd = 0;
+  for (int d = 0; d <= H; ++d) {
+    sp.dslice[d] = nkd;
+    nkd += (d == 0 || d == H) ? K / TC_BK : K / TC_DR;
+  }
+  sp.nkd = nkd;
+  int ts = 0;
+  for (int pc = 0; pc < Rz; ++pc) {
+    const int j = pc % 2 ? pc / 2 + H : pc / 2;   // _zct_order
+    const int d = j <= H ? j : Rz - j;
+    g.tslice[pc] = ts;
+    g.dslice[pc] = sp.dslice[d];
+    g.nk[pc] = (d == 0 || d == H) ? K / TC_BK : K / TC_DR;
+    ts += T * g.nk[pc];
+  }
+  const long long threads = rows * (K / 8);
+  const long long blocks = (threads + SPLIT_ZT - 1) / SPLIT_ZT;
+  if (blocks > INT32_MAX) return cudaErrorInvalidValue;
+  switch (Rz) {
+    case 2:
+      split_zct<2><<<(unsigned)blocks, SPLIT_ZT, 0, stream>>>(sp);
+      break;
+    case 4:
+      split_zct<4><<<(unsigned)blocks, SPLIT_ZT, 0, stream>>>(sp);
+      break;
+    case 8:
+      split_zct<8><<<(unsigned)blocks, SPLIT_ZT, 0, stream>>>(sp);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  ++g_launches[K_SPLIT];
+  PMESH_TRY_E(cudaGetLastError());
+  g.tab = (const bf16_t*)tz;
+  g.dat = split;
+  g.o1r = sr;
+  g.o1i = si;
+  g.nall = rows;
+  g.M = Mq;
+  g.ncols = N2 / 2;
+  g.T = g.T1 = T;
+  g.R = Rz;
+  g.nkd = nkd;
+  g.jstep = Mq;
+  g.scale = 1.f;
+  return launch_tc_gemm<1, true>(g, tiles, stream);
+}
+
+// the x CT of pmesh_xct_multi in the bf16 products form, the spectra
+// stored as TS (the f32 products run on x_ct_tc): tab the one-part block
+// table (both sets); the inverse writes its products to f32 (p1, p2: the
+// output itself for f32 storage, the scratch (s1, s2) for bf16) and the
+// sweep stores the output
+template <class TS>
+cudaError_t x_ct(const TS* xr, const TS* xi, const void* tab,
+                 const float* k2x, const float* k2y, const float* k2z,
+                 TS* o1r, TS* o1i, TS* o2r, TS* o2i, float* s1r, float* s1i,
+                 float* s2r, float* s2i, bf16_t* split, int n1, int W, int R,
+                 int M, bool inverse, float scale, const Butter& bt,
+                 cudaStream_t stream) {
+  const long long ncols = (long long)n1 * W;
+  if (ncols > INT32_MAX) return cudaErrorInvalidValue;
+  if (!inverse)
+    return ct_fwd_tc1<TS, TS>(xr, xi, tab, k2x, k2y, k2z, o1r, o1i, o2r, o2i,
+                              split, 1, R, M, (int)ncols, (int)ncols, 0, W,
+                              scale, bt, stream);
+  float *p1r, *p1i, *p2r, *p2i;
+  if constexpr (std::is_same<TS, float>::value) {
+    p1r = o1r;
+    p1i = o1i;
+    p2r = o2r;
+    p2i = o2i;
+  } else {
+    p1r = s1r;
+    p1i = s1i;
+    p2r = o2r != nullptr ? s2r : nullptr;
+    p2i = s2i;
+  }
+  PMESH_TRY_E(ct_inv_tc1<TS>(xr, xi, tab, k2x, k2y, k2z, p1r, p1i, p2r, p2i,
+                             split, R, M, (int)ncols, W, stream));
+  PMESH_TRY_E(launch_butterfly(p1r, p1i, o1r, o1i, 1, 0, M, R, (int)ncols,
+                               scale, bt, stream));
+  if (o2r == nullptr) return cudaSuccess;
+  return launch_butterfly(p2r, p2i, o2r, o2i, 1, 0, M, R, (int)ncols, scale,
+                          bt, stream);
 }
 
 // the z inverse of the natural-y (rows, Zm) spectrum (yr, yi) into real
@@ -2676,28 +3158,31 @@ int pmesh_kernel_launches(long long* out, int n, int reset) {
   return K_KINDS;
 }
 
-// Every entry point takes bf16 (1: the bf16 products of cgemm_bf16); the
-// ct2 entry points also bf16s (1: the spectra they read or write are
-// stored in bf16, as the void pointers say).
+// Every entry point takes bf16 (1: the bf16 products: cgemm_bf16, or
+// tc_gemm's one-part form for the forward passes); the ct2 entry points
+// also bf16s (1: the spectra they read or write are stored in bf16, as
+// the void pointers say).
 
 // x (n0, N1, N2) real -> (outr, outi) (n0, N1, Zm), nq (n0, N1).
-// zct = 0: the dense (N2, Zm) half-DFT; zct = 1: the (Rz, Kz, Mq) z-CT
-// with zcoef the (Rz, Rz, 2) chunk coefficients c[r][p]; the y CT by
-// (Ry, My, My) tables, ycoef (Ry, Ry, 2) = b[r][j]: the complex pairs
-// (wzr, wzi) and (wyr, wyi), which the bf16 products (bf16 = 1) multiply
-// and the f32 products sum the mean's outputs by.  f32 products (bf16 =
-// 0): tz and ty are the split block tables (bf16) of tc_z and tc_ct,
-// zsum (Rz, Mq, 2) [(1, Zm, 2)] and ysum (1, Ry, My, 2) the f32 column
-// and row sums of the z and y tables.  (sr, si): (n0, N1, Zm) f32
-// scratch for the z stage.  bf16s: (outr, outi) are bf16.
+// zct = 0: the dense (N2, Zm) half-DFT; zct = 1: the (Rz, Kz, Mq) z-CT;
+// the y CT by (Ry, My, My) tables, ycoef (Ry, Ry, 2) = b[r][j]: the
+// complex pairs (wzr, wzi) and (wyr, wyi), by which the f32 products sum
+// the mean's outputs.  f32 products (bf16 = 0): tz and ty are the split
+// block tables (bf16) of tc_z and tc_ct, zsum (Rz, Mq, 2) [(1, Zm, 2)] and
+// ysum (1, Ry, My, 2) the f32 column and row sums of the z and y tables,
+// zcoef the (Rz, Rz, 2) chunk coefficients c[r][p].  bf16 products: tz
+// and ty are tc_gemm's one-part block tables (zct_block_table, or
+// z_real_block_table over the first zm modes; ct_block_table), zcoef
+// b[r][d] = W_Rz^{-rd}, split the data tiles' scratch.  (sr, si): (n0,
+// N1, Zm) f32 scratch for the z stage.  bf16s: (outr, outi) are bf16.
 int pmesh_zy_fwd_ct2(const float* x, const float* wzr, const float* wzi,
                      const void* tz, const float* zsum, int zct, int Rz,
                      int Kz, int Mq, const float* zcoef, const float* wyr,
                      const float* wyi, const void* ty, const float* ysum,
                      const float* ycoef,
                      void* outr, void* outi, float* nq, float* sr,
-                     float* si, int n0, int N1, int N2, int Ry, int My,
-                     int bf16, int bf16s, void* stream_) {
+                     float* si, void* split, int n0, int N1, int N2, int Ry,
+                     int My, int zm, int bf16, int bf16s, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   const long long rows = (long long)n0 * N1;
   const int Zm = N2 / 2;
@@ -2718,51 +3203,43 @@ int pmesh_zy_fwd_ct2(const float* x, const float* wzr, const float* wzi,
                              (float*)outr, (float*)outi, n0, N1, Zm, Ry, My,
                              stream);
   }
-  if (zct) {
-    ZFwdCT op = {};
-    op.x = x;
-    op.er = wzr;
-    op.ei = wzi;
-    op.sr = sr;
-    op.si = si;
-    op.N2 = N2;
-    op.Zm = Zm;
-    op.Rz = Rz;
-    op.Kc = Kz;
-    op.Mq = Mq;
-    op.c = make_butter(zcoef, Rz);
-    PMESH_TRY((launch_gemm<ZFwdCT, false, false, false>(
-        op, 1, Rz, rows, Mq, Kz, false, true, stream)));
-  } else {
-    ZFwdDense op = {x, wzr, wzi, sr, si, N2, Zm};
-    PMESH_TRY((launch_gemm<ZFwdDense, false, true, false>(
-        op, 1, 1, rows, Zm, N2, false, true, stream)));
-  }
+  bf16_t* sp = (bf16_t*)split;
+  if (zct)
+    PMESH_TRY(zct_fwd_tc1(x, tz, sr, si, sp, rows, N2, Rz, Kz, Mq,
+                          make_butter(zcoef, Rz), stream));
+  else
+    PMESH_TRY(z_dense_tc<1>(x, tz, zsum, wzr, wzi, sr, si, sp, nullptr, rows,
+                            N2, Zm, Zm, zm, stream));
+  const Butter bt = make_butter(ycoef, Ry);
+  const long long istride = (long long)N1 * Zm;
   if (bf16s)
-    return (int)y_forward(sr, si, wyr, wyi, ycoef, (bf16_t*)outr,
-                          (bf16_t*)outi, n0, N1, Zm, Ry, My, true, stream);
-  return (int)y_forward(sr, si, wyr, wyi, ycoef, (float*)outr, (float*)outi,
-                        n0, N1, Zm, Ry, My, true, stream);
+    return (int)ct_fwd_tc1<float, bf16_t>(
+        sr, si, ty, nullptr, nullptr, nullptr, (bf16_t*)outr, (bf16_t*)outi,
+        nullptr, nullptr, sp, n0, Ry, My, Zm, Zm, istride, 1, 1.f, bt,
+        stream);
+  return (int)ct_fwd_tc1<float, float>(
+      sr, si, ty, nullptr, nullptr, nullptr, (float*)outr, (float*)outi,
+      nullptr, nullptr, sp, n0, Ry, My, Zm, Zm, istride, 1, 1.f, bt, stream);
 }
 
 // (xr, xi) (N0, n1, W) -> (o1r, o1i) [and (o2r, o2i) when o2r is set]:
 // forward (coef = b[r][j] of W_R^{-rj}) times scale, or inverse (coef =
 // b[r][j] of W_R^{+rj}); the 1/k^2 fold when k2x is set (k2x (N0,),
 // k2y (n1,), k2z (W,), in stored order).  (wr, wi) [and (w2r, w2i)]: the
-// (R, M, M) pairs, which the bf16 products multiply and the f32 forward
-// sums column 0 by.  f32 products (bf16 = 0): tab is the split block
-// table (bf16) of tc_ct, both sets, and rsum (sets, R, M, 2) the f32 row
-// sums of each set's tables.  bf16s:
-// input and outputs are bf16, and the inverse needs the f32 scratch
-// (s1r, s1i) [(s2r, s2i)] (N0, n1, W) for its products.
+// (R, M, M) pairs, by which the f32 forward sums column 0.  tab: the
+// block table of both sets (bf16), split three ways for the f32 products
+// of tc_ct (bf16 = 0; rsum (sets, R, M, 2) the f32 row sums of each
+// set's tables), one part for tc_gemm (bf16 = 1; split the data tiles'
+// scratch).  bf16s: input and outputs are bf16, and the inverse needs
+// the f32 scratch (s1r, s1i) [(s2r, s2i)] (N0, n1, W) for its products.
 int pmesh_xct_multi(const void* xr, const void* xi, const float* wr,
                     const float* wi, const float* w2r, const float* w2i,
                     const void* tab, const float* rsum, const float* k2x,
                     const float* k2y, const float* k2z, void* o1r, void* o1i,
                     void* o2r, void* o2i, float* s1r, float* s1i, float* s2r,
-                    float* s2i, int N0, int n1, int W, int R, int M,
-                    int inverse, float scale, const float* coef, int bf16,
-                    int bf16s, void* stream_) {
+                    float* s2i, void* split, int N0, int n1, int W, int R,
+                    int M, int inverse, float scale, const float* coef,
+                    int bf16, int bf16s, void* stream_) {
   (void)N0;
   const Butter bt = make_butter(coef, R);
   cudaStream_t stream = (cudaStream_t)stream_;
@@ -2780,13 +3257,13 @@ int pmesh_xct_multi(const void* xr, const void* xi, const float* wr,
         s2i, n1, W, R, M, inverse != 0, scale, bt, stream);
   if (bf16s)
     return (int)x_ct<bf16_t>(
-        (const bf16_t*)xr, (const bf16_t*)xi, wr, wi, w2r, w2i, k2x, k2y, k2z,
+        (const bf16_t*)xr, (const bf16_t*)xi, tab, k2x, k2y, k2z,
         (bf16_t*)o1r, (bf16_t*)o1i, (bf16_t*)o2r, (bf16_t*)o2i, s1r, s1i, s2r,
-        s2i, n1, W, R, M, inverse != 0, scale, bt, stream);
+        s2i, (bf16_t*)split, n1, W, R, M, inverse != 0, scale, bt, stream);
   return (int)x_ct<float>(
-      (const float*)xr, (const float*)xi, wr, wi, w2r, w2i, k2x, k2y, k2z,
-      (float*)o1r, (float*)o1i, (float*)o2r, (float*)o2i, s1r, s1i, s2r, s2i,
-      n1, W, R, M, inverse != 0, scale, bt, stream);
+      (const float*)xr, (const float*)xi, tab, k2x, k2y, k2z, (float*)o1r,
+      (float*)o1i, (float*)o2r, (float*)o2i, s1r, s1i, s2r, s2i,
+      (bf16_t*)split, n1, W, R, M, inverse != 0, scale, bt, stream);
 }
 
 // (xr, xi) (n0, N1, Zm) -> out (n0, N1, n2).  (wyr, wyi): inverse y CT
@@ -2948,19 +3425,27 @@ int pmesh_zy_inv_full(const float* xr, const float* xi, const float* wyr,
 
 // x (n0, N1, N2) real -> (outr, outi) (n0, N1, Zh): the dense z half-DFT
 // by (wzr, wzi) (N2, Zh) into the scratch (sr, si) (n0, N1, Zh), then
-// the y CT by (wyr, wyi) (Ry, My, My) with ycoef b[r][j] of W_R^{-rj}.
-// y leaves chunk-permuted; the z-Nyquist column stays at index Zh - 1.
+// the y CT by (wyr, wyi) (Ry, My, My) with ycoef b[r][j] of W_R^{-rj}: on
+// cgemm, or for the bf16 products on tc_gemm by ty, the one-part block
+// table, over the data tiles' scratch split.  y leaves chunk-permuted;
+// the z-Nyquist column stays at index Zh - 1.
 int pmesh_zy_fwd_half_ct(const float* x, const float* wzr, const float* wzi,
-                         const float* wyr, const float* wyi,
+                         const float* wyr, const float* wyi, const void* ty,
                          const float* ycoef, float* outr, float* outi,
-                         float* sr, float* si, int n0, int N1, int N2,
-                         int Zh, int Ry, int My, int bf16, void* stream_) {
+                         float* sr, float* si, void* split, int n0, int N1,
+                         int N2, int Zh, int Ry, int My, int bf16,
+                         void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   ZFwdDense zop = {x, wzr, wzi, sr, si, N2, Zh};
   PMESH_TRY((launch_gemm<ZFwdDense, false, true, false>(
       zop, 1, 1, (long long)n0 * N1, Zh, N2, false, bf16, stream)));
+  if (bf16)
+    return (int)ct_fwd_tc1<float, float>(
+        sr, si, ty, nullptr, nullptr, nullptr, outr, outi, nullptr, nullptr,
+        (bf16_t*)split, n0, Ry, My, Zh, Zh, (long long)N1 * Zh, 1, 1.f,
+        make_butter(ycoef, Ry), stream);
   return (int)y_forward(sr, si, wyr, wyi, ycoef, outr, outi, n0, N1, Zh, Ry,
-                        My, bf16, stream);
+                        My, stream);
 }
 
 }  // extern "C"

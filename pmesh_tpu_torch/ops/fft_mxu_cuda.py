@@ -45,9 +45,14 @@ Two forms besides the f32 one, which the kernels take or refuse, never
 swap for another:
 
 - ``bf16=True`` (``precision='bf16'``, ``fft='mxu_bf16'``): every
-  product of the pass runs on the tensor cores (``cgemm_bf16``, or
-  ``tc_gemm`` for the dense forward passes), each operand rounded to
-  bf16, the sums in f32;
+  product of the pass runs on the tensor cores, each operand rounded to
+  bf16, the sums in f32: the forward passes (``zy_fwd_ct2``,
+  ``xct_multi`` forward and inverse, the dense ones, the half-CT pass 1's
+  y stage) on ``tc_gemm``'s one-part tables (``ct_block_table(sets,
+  1)``, ``zct_block_table``, ``z_real_block_table``, ``tile_swizzle``-d)
+  behind split passes that form each butterfly once and round it
+  (``split_ct``, ``split_zct``, ``split_cols``); the zy inverses on
+  ``cgemm_bf16``;
 - bf16 spectrum storage (``fft='mxu_bf16s'``), on the four ct2 passes
   only: ``zy_fwd_ct2(out_dtype=torch.bfloat16)`` writes its spectrum in
   bf16, ``xct_multi`` reads and writes bf16 when its input is bf16, and
@@ -81,8 +86,8 @@ __all__ = ["zy_fwd_ct2", "xct_multi", "zy_inv_ct2", "zy_inv_ct2_dual",
            "zy_fwd_half", "x_dense", "zy_inv_half", "zy_fwd_full",
            "zy_inv_full", "zy_fwd_half_ct", "zy_inv_half_ct", "LAUNCHES",
            "reset_launches", "bf16_split3", "ct_block_table", "z_block_table",
-           "z_real_block_table", "z_tc_modes", "tile_swizzle", "table_sums",
-           "KERNEL_KINDS", "kernel_launches"]
+           "zct_block_table", "z_real_block_table", "z_tc_modes",
+           "tile_swizzle", "table_sums", "KERNEL_KINDS", "kernel_launches"]
 
 # the ct2 passes, which also take bf16 spectrum storage
 _STORAGE = ("zy_fwd_ct2", "xct_multi", "zy_inv_ct2", "zy_inv_ct2_dual")
@@ -111,9 +116,9 @@ def _load():
         lib.pmesh_kernel_launches.argtypes = [_P, _I, _I]
         lib.pmesh_kernel_launches.restype = _I
         lib.pmesh_zy_fwd_ct2.argtypes = (
-            [_P] * 5 + [_I] * 4 + [_P] * 11 + [_I] * 5 + [_I, _I, _P])
+            [_P] * 5 + [_I] * 4 + [_P] * 12 + [_I] * 6 + [_I, _I, _P])
         lib.pmesh_xct_multi.argtypes = (
-            [_P] * 19 + [_I] * 6 + [_F, _P, _I, _I, _P])
+            [_P] * 20 + [_I] * 6 + [_F, _P, _I, _I, _P])
         lib.pmesh_zy_inv_ct2.argtypes = (
             [_P] * 6 + [_I] * 4 + [_P] * 5 + [_I] * 6 + [_P] * 2
             + [_I, _I, _P])
@@ -124,7 +129,7 @@ def _load():
         lib.pmesh_x_dense.argtypes = [_P] * 17 + [_I] * 3 + [_F, _I, _I, _P]
         lib.pmesh_zy_inv_half.argtypes = [_P] * 9 + [_I] * 4 + [_I, _P]
         lib.pmesh_zy_inv_full.argtypes = [_P] * 9 + [_I] * 3 + [_I, _P]
-        lib.pmesh_zy_fwd_half_ct.argtypes = [_P] * 10 + [_I] * 6 + [_I, _P]
+        lib.pmesh_zy_fwd_half_ct.argtypes = [_P] * 12 + [_I] * 6 + [_I, _P]
         for fn in (lib.pmesh_zy_fwd_ct2, lib.pmesh_xct_multi,
                    lib.pmesh_zy_inv_ct2, lib.pmesh_zy_inv_ct2_dual,
                    lib.pmesh_zy_fwd_half, lib.pmesh_x_dense,
@@ -324,6 +329,45 @@ def tile_swizzle(tab):
     return out
 
 
+def zct_block_table(er, ei, parts=1):
+    """The split table of ``zy_fwd_ct2``'s z-CT stage on ``tc_gemm`` (the
+    bf16 products) for the (Rz, K, Mq) stored-order chunks (Er,
+    Ei)[p, k, mode]: the tiles of each stored chunk p in turn, (sum_p T
+    nk_p, parts, 128, 16) bf16 bits (uint16), T = ceil(Mq / 64) tiles of
+    nk_p slices each, zero past K and Mq.  Tile row c: mode t * 64 + c
+    mod 64, the real output for c < 64.  The chunk's data is the
+    butterfly u_d, d = j for j = ``_zct_order(Rz)[p]`` <= Rz / 2, else
+    d = Rz - j and u_j = conj(u_d): u_0 and u_{Rz/2} are real, 16 k per
+    slice (column kk: k = 16 s + kk), entries (Er, Ei) as
+    ``z_real_block_table``'s; the others complex, 8 k per slice (column
+    r: k = 8 s + r mod 8, real data for r < 8), entries [[Er, Ei], [-Ei,
+    Er]] as ``z_block_table``'s, with the imaginary data's rows negated
+    for a conjugate chunk (its u_j's imaginary part is -Im u_d)."""
+    er, ei = np.asarray(er, np.float32), np.asarray(ei, np.float32)
+    Rz, K, Mq = er.shape
+    T = -(-Mq // _MODES)
+    tiles = []
+    for p, j in enumerate(_fm._zct_order(Rz)):
+        d = j if j <= Rz // 2 else Rz - j
+        if d == 0 or 2 * d == Rz:
+            nk = -(-K // _BK)
+            b = np.zeros((nk * _BK, 2, T * _MODES), np.float32)
+            b[:K, 0, :Mq], b[:K, 1, :Mq] = er[p], ei[p]
+            # s, kk, out part, t, mode -> t, s, out part, mode, kk
+            b = b.reshape(nk, _BK, 2, T, _MODES).transpose(3, 0, 2, 4, 1)
+        else:
+            sign = -1.0 if j > Rz // 2 else 1.0
+            dr = _BK // 2
+            nk = -(-K // dr)
+            b = np.zeros((2, nk * dr, 2, T * _MODES), np.float32)
+            b[0, :K, 0, :Mq], b[1, :K, 0, :Mq] = er[p], -sign * ei[p]
+            b[0, :K, 1, :Mq], b[1, :K, 1, :Mq] = ei[p], sign * er[p]
+            # in part, s, k, out part, t, mode -> t, s, out, mode, in, k
+            b = b.reshape(2, nk, dr, 2, T, _MODES).transpose(4, 1, 3, 5, 0, 2)
+        tiles.append(b.reshape(T * nk, 2 * _MODES, _BK))
+    return _parts(np.concatenate(tiles, 0), parts)
+
+
 def z_block_table(er, ei):
     """The split table of ``tc_z`` for the (Rz, K, nmodes) complex z
     chunks (Er, Ei)[p, k, mode] (a 2-d pair: the dense half-DFT, Rz = 1):
@@ -438,27 +482,38 @@ def zy_fwd_ct2(x, wz, wy, bf16=False, out_dtype=torch.float32):
     for a in wy:
         _shape(a, (Ry, My, My), what)
     # the f32 products take the split tables and, for the outputs that
-    # carry the mean, the f32 tables too
+    # carry the mean, the f32 tables too; the bf16 products tc_gemm's
+    # one-part tables and a scratch for the data tiles of both stages
     wzr, wzi = (_table(a, zshape, dev, what) for a in wz)
     wyr, wyi = (_table(a, (Ry, My, My), dev, what) for a in wy)
-    tz = ty = (None, None)
+    z3 = [np.reshape(a, (Rz, Kz, Mq)) for a in wz]
+    zm = Zm if zct else z_tc_modes(Zm)
+    split = None
     if not bf16:
-        z3 = [np.reshape(a, (Rz, Kz, Mq)) for a in wz]
         tz = _split_cached(tuple(wz), dev, lambda: (
             z_block_table(*wz), table_sums([z3], 1)[0]))
         ty = _split_cached(tuple(wy), dev, lambda: (
             ct_block_table([wy]), table_sums([wy], 2)))
+    else:
+        tz = _split_cached(tuple(wz), dev, lambda: (
+            tile_swizzle(zct_block_table(*wz) if zct else
+                         z_real_block_table(*wz, zm, 1)),
+            table_sums([z3], 1)[0]), ('z one part', 1))
+        ty = _ct_one_part([wy], dev)
+        split = _split_scratch(max(_cdiv(n0 * N1, 128) * _cdiv(N2, _BK),
+                                   _cdiv(n0 * Zm, 128) * (N1 // 8)),
+                               True, dev)
     outr, outi = _empty((n0, N1, Zm), dev, 2, out_dtype)
     sr, si = _empty((n0, N1, Zm), dev, 2)
     nq = torch.empty((n0, N1), dtype=torch.float32, device=dev)
     bf16s = out_dtype == torch.bfloat16
     _count(what, bf16, bf16s)
+    zcoef = _host(_coef('fwd' if bf16 else 'zfwd', Rz)) if zct else None
     rc = _load().pmesh_zy_fwd_ct2(
         _ptr(x), _ptr(wzr), _ptr(wzi), _ptr(tz[0]), _ptr(tz[1]), int(zct),
-        Rz, Kz, Mq, _host(_coef('zfwd', Rz)) if zct else None, _ptr(wyr),
-        _ptr(wyi), _ptr(ty[0]), _ptr(ty[1]), _host(_coef('fwd', Ry)),
-        _ptr(outr), _ptr(outi),
-        _ptr(nq), _ptr(sr), _ptr(si), n0, N1, N2, Ry, My, int(bool(bf16)),
+        Rz, Kz, Mq, zcoef, _ptr(wyr), _ptr(wyi), _ptr(ty[0]), _ptr(ty[1]),
+        _host(_coef('fwd', Ry)), _ptr(outr), _ptr(outi), _ptr(nq), _ptr(sr),
+        _ptr(si), _ptr(split), n0, N1, N2, Ry, My, zm, int(bool(bf16)),
         int(bf16s), _stream(dev))
     _raise_on(rc, what)
     return outr, outi, nq
@@ -478,11 +533,14 @@ def xct_multi(pr, pi, wx, scale, inverse=False, wx2=None, k2=None,
         _shape(a, (R, M, M), what)
     tabs = [_table(a, (R, M, M), dev, what) for a in pairs]
     tabs += [None] * (4 - len(tabs))
-    tc = (None, None)
+    sets = [pairs[i:i + 2] for i in range(0, len(pairs), 2)]
+    split = None
     if not bf16:
-        sets = [pairs[i:i + 2] for i in range(0, len(pairs), 2)]
         tc = _split_cached(pairs, dev, lambda: (
             ct_block_table(sets), table_sums(sets, 2)))
+    else:
+        tc = _ct_one_part(sets, dev)
+        split = _split_scratch(_cdiv(n1 * W, 128) * (N0 // 8), True, dev)
     ks = [None] * 3
     if k2 is not None:
         ks = [_table(np.asarray(t, np.float32), (n,), dev, what)
@@ -497,8 +555,8 @@ def xct_multi(pr, pi, wx, scale, inverse=False, wx2=None, k2=None,
     rc = _load().pmesh_xct_multi(
         _ptr(pr), _ptr(pi), *(_ptr(t) for t in tabs), _ptr(tc[0]),
         _ptr(tc[1]),
-        _ptr(ks[0]), _ptr(ks[1]), _ptr(ks[2]), *o, *s, N0, n1, W, R, M,
-        int(bool(inverse)), float(scale),
+        _ptr(ks[0]), _ptr(ks[1]), _ptr(ks[2]), *o, *s, _ptr(split), N0, n1,
+        W, R, M, int(bool(inverse)), float(scale),
         _host(_coef('inv' if inverse else 'fwd', R)), int(bool(bf16)),
         int(bf16s), _stream(dev))
     _raise_on(rc, what)
@@ -583,6 +641,15 @@ def zy_inv_ct2_dual(rr, ii, WyA, ABA, WyB, ABB, n2, planeA=None,
 # on one-part ones (the bf16 rounding of each entry).  Each pass splits
 # its data once into the scratch ``split`` (bf16, 2048 parts' values per
 # 128-row or -column tile and slice) before the products.
+
+def _ct_one_part(sets, dev):
+    """(block table, (sets, R, M, 2) row sums) of tc_gemm's one-part CT
+    stage for one or two (R, M, M) pairs on dev: ``ct_block_table``'s
+    bf16 rounding, swizzled"""
+    return _split_cached(tuple(a for p in sets for a in p), dev, lambda: (
+        tile_swizzle(ct_block_table(sets, 1)), table_sums(sets, 2)),
+        ('ct one part', 1))
+
 
 def _parts_of(bf16):
     return 1 if bf16 else 3
@@ -750,12 +817,16 @@ def zy_fwd_half_ct(x, wz, wy, bf16=False):
     Zh = N2 // 2 + 1
     wzr, wzi = (_table(a, (N2, Zh), dev, what) for a in wz)
     wyr, wyi = (_table(a, (Ry, My, My), dev, what) for a in wy)
+    ty, split = (None, None), None
+    if bf16:
+        ty = _ct_one_part([wy], dev)
+        split = _split_scratch(_cdiv(n0 * Zh, 128) * (N1 // 8), True, dev)
     outr, outi, sr, si = _empty((n0, N1, Zh), dev, 4)
     _count(what, bf16)
     rc = _load().pmesh_zy_fwd_half_ct(
-        _ptr(x), _ptr(wzr), _ptr(wzi), _ptr(wyr), _ptr(wyi),
+        _ptr(x), _ptr(wzr), _ptr(wzi), _ptr(wyr), _ptr(wyi), _ptr(ty[0]),
         _host(_coef('fwd', Ry)), _ptr(outr), _ptr(outi), _ptr(sr), _ptr(si),
-        n0, N1, N2, Zh, Ry, My, int(bool(bf16)), _stream(dev))
+        _ptr(split), n0, N1, N2, Zh, Ry, My, int(bool(bf16)), _stream(dev))
     _raise_on(rc, what)
     return outr, outi
 

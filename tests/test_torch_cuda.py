@@ -793,6 +793,59 @@ def test_tc_dense_launches_no_cgemm(dev):
                       split=4, ct_fwd_col0=2), ks
 
 
+def test_tc_ct2_bf16_launches_no_cgemm(dev):
+    """the bf16-product forms of xct_multi (forward, inverse, dual
+    inverse with 1/k^2) and zy_fwd_ct2 (z-CT and dense z stages), on f32
+    and bf16 spectra, launch split passes and tc_gemm and no cgemm_bf16
+    (the C entry points' counts); one mxu_bf16 ct2 force launches
+    cgemm_bf16 for its two zy inverses alone"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    from pmesh_tpu_torch.ops import fft_mxu_cuda as fk
+    n = 512
+    pr, pi, _ = _fft_inputs(65, (n, 3, 8), dev)
+    k2 = [np.linspace(0.0, 1.0, m).astype('f4') for m in (n, 3, 8)]
+    wi = fm._ct_inv_mats_np(n)
+    wg = fm._ct_inv_mats_np(n, fold_kvec=_sl(n))
+    xs = {n2: (1.0 + 0.3 * _fft_inputs(66, (2, n, n2), dev)[0]).contiguous()
+          for n2 in (512, 10)}
+    calls = {
+        'xct_multi forward': (1, lambda p, q, st: fm._xct_call_multi(
+            p, q, fm._ct_fwd_mats_np(n), 1.0 / n, precision='bf16',
+            out_dtype=st)),
+        'xct_multi inverse': (1, lambda p, q, st: fm._xct_call_multi(
+            p, q, wi, 1.0, inverse=True, precision='bf16', out_dtype=st)),
+        'xct_multi dual': (1, lambda p, q, st: fm._xct_call_multi(
+            p, q, wi, 1.0, inverse=True, wx2=wg, k2=k2, precision='bf16',
+            out_dtype=st))}
+    for n2, x in xs.items():
+        calls['zy_fwd_ct2 n2=%d' % n2] = (2, lambda p, q, st, x=x, n2=n2:
+                                          fm._zy_fwd_ct2_call(
+            x, n2, n2 // 2, fm._z_fwd_tabs(n2, n2 // 2),
+            fm._ct_fwd_mats_np(n), precision='bf16', out_dtype=st))
+    for name, (stages, call) in calls.items():
+        for st in (torch.float32, torch.bfloat16):
+            fk.kernel_launches(reset=True)
+            call(pr.to(st), pi.to(st), st)
+            ks = fk.kernel_launches(reset=True)
+            assert ks == dict(cgemm=0, cgemm_bf16=0, tc_ct=0, tc_z=0,
+                              tc_gemm=stages, split=stages,
+                              ct_fwd_col0=0), (name, st, ks)
+    shape = (256, 256, 16)
+    pm = ParticleMesh(shape, BoxSize=np.asarray(shape, float), dtype='f4',
+                      device=dev)
+    disp, _, _ = _inputs(67, shape, (0.0, 1.0), dev)
+    fk.kernel_launches(reset=True)
+    Solver(pm).force_lattice(disp, (0.0, 1.0), mode='spectral',
+                             fft='mxu_bf16')
+    ks = fk.kernel_launches(reset=True)
+    # zy_fwd_ct2's z and y stages, the forward and dual x passes, each
+    # after its split pass; zy_inv_ct2 two cgemm_bf16, its dual three
+    assert ks == dict(cgemm=0, cgemm_bf16=5, tc_ct=0, tc_z=0, tc_gemm=4,
+                      split=4, ct_fwd_col0=0), ks
+
+
 # --- the row-13 pipelines (ops/fft_mxu_ref.py) on the kernels ----------------
 
 @pytest.mark.parametrize("shape", [(64, 64, 64), (45, 38, 75)])
@@ -1033,6 +1086,19 @@ def _bf16_same(got, ref, got32, ref32):
             and bool(((g - r).abs() <= ulp + (got32 - ref32).abs()).all()))
 
 
+def _bf16_once(got, got32, ref, ref32):
+    """bf16 products stored in bf16: the kernel's output is its f32-stored
+    twin rounded once (bitwise), and no entry is more than one bf16 ulp
+    from the plain version's beyond the gap of the two f32 outputs"""
+    if got.dtype != torch.bfloat16 or ref.dtype != torch.bfloat16:
+        return False
+    g, r = got.float(), ref.float()
+    m = torch.maximum(g.abs(), r.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(m)) - 7)
+    return (torch.equal(got, got32.to(torch.bfloat16))
+            and bool(((g - r).abs() <= ulp + (got32 - ref32).abs()).all()))
+
+
 def _products(call):
     """call(impl, **form) in the bf16 product form, kernel, plain and
     the plain f32 twin, as tuples"""
@@ -1042,10 +1108,14 @@ def _products(call):
             tup(call('torch', precision='bf16')), tup(call('torch')))
 
 
-@pytest.mark.parametrize("n,n2", [(256, 10), (512, 1024)])
+@pytest.mark.parametrize("n,n2", [(256, 10), (512, 1024), (1024, 256),
+                                  (256, 512)])
 def test_fft_mxu_bf16_kernels_match_plain(dev, n, n2):
-    """the four ct2 passes in both bf16 forms, at a ragged z (n2 = 10:
-    contractions of 10 and 5, five modes) and at the z-CT shape"""
+    """the four ct2 passes in both bf16 forms and their combination
+    (bf16 products on bf16 spectra), at x and y radices 2, 4 and 8 (n =
+    256, 512, 1024), at a ragged z (n2 = 10: the dense z stage,
+    contractions of 10 and 5, five modes) and at the z-CT radices 8, 2
+    and 4 (n2 = 1024, 256, 512)"""
     from pmesh_tpu_torch.ops import fft_mxu as fm
     Zm = n2 // 2
     bf16 = torch.bfloat16
@@ -1054,6 +1124,11 @@ def test_fft_mxu_bf16_kernels_match_plain(dev, n, n2):
     got, ref, f32 = _products(lambda impl, **k: fm._zy_fwd_ct2_call(
         x, n2, Zm, wz, wy, impl=impl, **k))
     _assert_bf16_close((got, ref, f32), ZY)
+    # the combination: bf16 products stored once in bf16
+    gb, rb = (fm._zy_fwd_ct2_call(x, n2, Zm, wz, wy, impl=impl,
+                                  precision='bf16', out_dtype=bf16)
+              for impl in ('cuda', 'torch'))
+    assert all(_bf16_once(*t) for t in zip(gb[:2], got, rb[:2], ref))
     got, ref = (fm._zy_fwd_ct2_call(x, n2, Zm, wz, wy, impl=impl,
                                     out_dtype=bf16)
                 for impl in ('cuda', 'torch'))
@@ -1082,6 +1157,13 @@ def test_fft_mxu_bf16_kernels_match_plain(dev, n, n2):
                                            impl=impl, **kw)
                         for impl in ('cuda', 'torch'))
         assert all(_bf16_same(*t) for t in zip(got, ref, got32, ref32))
+        gb, rb = (fm._xct_call_multi(hr, hi, impl=impl, out_dtype=bf16,
+                                     precision='bf16', **kw)
+                  for impl in ('cuda', 'torch'))
+        got32, ref32 = (fm._xct_call_multi(hr.float(), hi.float(),
+                                           impl=impl, precision='bf16', **kw)
+                        for impl in ('cuda', 'torch'))
+        assert all(_bf16_once(*t) for t in zip(gb, got32, rb, ref32))
     rr, ii, _ = _fft_inputs(43, (3, n, Zm), dev)
     plane = _fft_inputs(44, (3, n), dev)[0]
     Wy, Wyg = fm._ct_inv_mats_np(n), fm._ct_inv_mats_np(n, fold_kvec=_sl(n))
