@@ -29,12 +29,15 @@ Phases, in order; any failure raises and exits non-zero:
    same function, that call's time (torch.fft); and for each pipeline
    the operator-level yardsticks torch.fft.rfftn(x, norm='forward') and
    the stacked irfftn of the filtered spectrum, the filter timed apart;
-   the forward ct2 passes and the dense forward passes (zy_fwd_half,
-   x_dense, on tc_gemm) also print their tensor-core share
-   and each f32 case's distance from f64 products beside plain's (the
-   kernel no farther), and the dense ones their kernel launches at the
-   dense, row-9 and row-13 shapes in both forms (counted by the C entry
-   points: tc_gemm and the split passes, never cgemm or cgemm_bf16);
+   the forward ct2 passes, the dense forward passes (zy_fwd_half,
+   x_dense, on tc_gemm) and the zy inverses (zy_inv_ct2, its dual,
+   zy_inv_half, on tc_gemm) also print their tensor-core share, the
+   f32 forward cases each one's distance from f64 products beside
+   plain's (the kernel no farther), and the tc_gemm passes their kernel
+   launches at the main, row-9 and row-13 shapes in both forms (counted
+   by the C entry points: tc_gemm and the split passes, never cgemm or
+   cgemm_bf16; phases 4, 5 and 9 hold every fft='mxu' mode's run to no
+   cgemm or cgemm_bf16 launch);
 4. drive the FastPM lattice path at 512^3 f32 through the user's entry
    points: Solver.lpt_lattice (2LPT) then Solver.nbody_lattice (5 KDK
    steps, spectral force) and one gradient-mode force_lattice, with
@@ -278,17 +281,20 @@ MXU_PER_FORCE = {"zy_fwd_ct2": (1, 1), "xct_multi": (2, 2),
 # per spectral force at a shape that is not ct2
 DENSE_PER_FORCE = {"zy_fwd_half": 1, "x_dense": 2, "zy_inv_half": 3}
 # the device kernels of those calls, by kind (fft_mxu_cuda.kernel_launches):
-# zy_fwd_half's z and y stages and the two x passes on tc_gemm, each
-# after its split pass, column 0 chained after the y stage and the
-# forward x pass; the three zy inverses' two cgemm each
-DENSE_KINDS_PER_FORCE = {"cgemm": 6, "cgemm_bf16": 0, "tc_ct": 0, "tc_z": 0,
-                         "tc_gemm": 4, "split": 4, "ct_fwd_col0": 2}
-# the device kernels of one fft='mxu_bf16' ct2 force at N^3: zy_fwd_ct2's
-# z-CT and y stages and the forward and dual x passes on tc_gemm, each
-# after its split pass; zy_inv_ct2's y and dense z inverse on cgemm_bf16,
-# its dual's y and two z inverses
-BF16_KINDS_PER_FORCE = {"cgemm": 0, "cgemm_bf16": 5, "tc_ct": 0, "tc_z": 0,
-                        "tc_gemm": 4, "split": 4, "ct_fwd_col0": 0}
+# zy_fwd_half's z and y stages, the two x passes and the three zy
+# inverses' y and z stages on tc_gemm, each after its split pass, column
+# 0 chained after the forward y stage and the forward x pass
+DENSE_KINDS_PER_FORCE = {"cgemm": 0, "cgemm_bf16": 0, "tc_ct": 0, "tc_z": 0,
+                         "tc_gemm": 10, "split": 10, "ct_fwd_col0": 2}
+# the device kernels of one fft='mxu_bf16' ct2 force at N^3, each on
+# tc_gemm after its split pass: zy_fwd_ct2's z-CT and y stages, the
+# forward and dual x passes, zy_inv_ct2's y and z stages, its dual's one
+# y stage (both sets) and two z stages
+BF16_KINDS_PER_FORCE = {"cgemm": 0, "cgemm_bf16": 0, "tc_ct": 0, "tc_z": 0,
+                        "tc_gemm": 9, "split": 9, "ct_fwd_col0": 0}
+# the kinds that no run of the fft='mxu' modes (but row 13's) launches
+# any more
+CGEMM = ("cgemm", "cgemm_bf16")
 # the bf16 forms against their plain versions, each pass on the same
 # inputs.  A product of two bf16 values is exact in f32, so kernel and
 # plain differ in their f32 sums only; but the tensor cores sum a block
@@ -823,11 +829,11 @@ def library_dual_x(rr, ii, k2=None):
 def tc_share(label, fma, ms, products=6):
     """the tensor-core rate of a pass of the split-precision routine:
     ``fma`` real multiply-adds of its block products, six bf16 products
-    each (2 FLOP apiece; one in the bf16 form), over ``ms``, against the
-    bf16 peak (the same share as three TF32 products against 495
-    TFLOP/s)"""
+    each (2 FLOP apiece; one in the bf16 form; a mean where the stages
+    differ), over ``ms``, against the bf16 peak (the same share as three
+    TF32 products against 495 TFLOP/s)"""
     rate = products * 2 * fma / (ms * 1e-3)
-    log("phase 3 tensor cores: %-40s %.3f G real FMA x %d bf16 products in "
+    log("phase 3 tensor cores: %-40s %.3f G real FMA x %.3g bf16 products in "
         "%.3f ms: %.1f TFLOP/s, %.3f of %.0f TFLOP/s (%s)"
         % (label, fma / 1e9, products, ms, rate / 1e12, rate / PEAK_BF16,
            PEAK_BF16 / 1e12, CARD))
@@ -848,12 +854,12 @@ def dense_x_fma(N0, ncols, sets=1):
     return 4.0 * sets * N0 * N0 * ncols
 
 
-def dense_tc_check(label, fn):
-    """the dense forward entry points (zy_fwd_half, x_dense) run their
-    products on the tensor cores: the kernels that one fn() call
-    launches, counted by the C entry points where each is launched,
-    include tc_gemm and the split passes and no cgemm or cgemm_bf16;
-    raises otherwise"""
+def tc_check(label, fn):
+    """an entry point that runs its products on tc_gemm (the dense
+    passes, the zy inverses, the bf16 forward ct2 passes): the kernels
+    that one fn() call launches, counted by the C entry points where each
+    is launched, include tc_gemm and the split passes and no cgemm or
+    cgemm_bf16; raises otherwise"""
     from pmesh_tpu_torch.ops import fft_mxu_cuda
     fft_mxu_cuda.kernel_launches(reset=True)
     fn()
@@ -867,6 +873,22 @@ def dense_tc_check(label, fn):
            "ok" if ok else "FAIL"))
     if not ok:
         raise AssertionError("%s did not run on tc_gemm alone" % label)
+
+
+def zy_inv_fma(n0, N1, n2, sets=1, y_weight=1.0):
+    """real FMA of the products of zy_inv_ct2 (per table set): the y CT's
+    (2M x 2M) per column (times y_weight), the z stage's real rows, 2 Zm
+    contraction values per output (the z-CT: 2 Kin per P and Q output of
+    each of its Ri chunks, 2 Kb of them)"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    Ry, My = fm._ct_factor(N1)
+    Zm = n2 // 2
+    width = n2
+    if fm._use_zct_inv(n2, Zm):
+        Ri, Kin, Kb = np.shape(fm._cached(fm._z_inv_tabs, n2, Zm)[0])
+        width = 2 * Kb
+    return sets * (y_weight * 4.0 * n0 * Ry * My * My * Zm
+                   + 2.0 * n0 * N1 * Zm * width)
 
 
 def zy_fma(n0, N1, N2):
@@ -1008,6 +1030,14 @@ def phase_compare_fft(dev):
                                                N, planeA=plane, impl=impl),
          (sr, si, wy_g, AB_p, wi, AB_g, plane),
          2 * zy_ops(N, N, N), library_inverse(sr, si, N, copies=2))
+    for sets, label, call in (
+            (1, "zy_inv_ct2", lambda: fm._zy_inv_ct2_call(
+                gr, gi, wi, AB_p, N, plane=plane)),
+            (2, "zy_inv_ct2_dual", lambda: fm._zy_inv_ct2_call_dual(
+                sr, si, wy_g, AB_p, wi, AB_g, N, planeA=plane))):
+        tc_share("%s %d^3" % (label, N), zy_inv_fma(N, N, N, sets),
+                 cuda_ms(call, 5))
+        tc_check("%s %d^3 f32" % (label, N), call)
     del sr, si, gr, gi, nq, plane
     torch.cuda.empty_cache()
 
@@ -1039,6 +1069,12 @@ def phase_compare_fft(dev):
                                                AB_sg, n2, planeA=nq,
                                                impl=impl),
          (pr, pi, wyis, AB_s, AB_sg, nq), 2 * zy_ops(*MXU_SLAB))
+    tc_share("zy_inv_ct2 slab %s (z-CT)" % (MXU_SLAB,),
+             zy_inv_fma(*MXU_SLAB),
+             cuda_ms(lambda: fm._zy_inv_ct2_call(pr, pi, wyis, AB_s, n2,
+                                                 plane=nq), 5))
+    tc_check("zy_inv_ct2 slab %s (z-CT) f32" % (MXU_SLAB,),
+             lambda: fm._zy_inv_ct2_call(pr, pi, wyis, AB_s, n2, plane=nq))
     del x, pr, pi, nq
     torch.cuda.empty_cache()
     return records
@@ -1094,8 +1130,8 @@ def phase_compare_dense(dev):
             for prec, products in ((None, 6), ('bf16', 1)):
                 tc_share("%s %s %s" % (label, shape, prec or 'f32'), fma,
                          cuda_ms(lambda: call(prec), 5), products)
-                dense_tc_check("%s %s %s" % (label, shape, prec or 'f32'),
-                               lambda: call(prec))
+                tc_check("%s %s %s" % (label, shape, prec or 'f32'),
+                         lambda: call(prec))
         pr, pi = case("density", "zy_fwd_half",
                       lambda impl: fm._zy_fwd_dense_call(x, wz, wyf,
                                                          impl=impl),
@@ -1138,6 +1174,10 @@ def phase_compare_dense(dev):
         case("fz tables", "zy_inv_half",
              lambda impl: fm._zy_inv_dense_call(sr, si, wy, AB_g, impl=impl),
              (sr, si, wy, AB_g), ops_zy, library_inverse(sr, si, n2))
+        # the inverse's products: the same count as the forward's
+        tensor_cores("zy_inv_half", dense_zy_fma(N0, N1, n2),
+                     lambda prec: fm._zy_inv_dense_call(gr, gi, wy, AB_p,
+                                                        precision=prec))
         del sr, si, gr, gi
         torch.cuda.empty_cache()
     return records
@@ -1234,13 +1274,13 @@ def phase_compare_ref(dev):
                       (x, wz, wy), ops_zy,
                       lambda: torch.fft.fftn(x, dim=(1, 2)))
         for prec in (None, 'bf16'):
-            dense_tc_check("zy_fwd_full %s %s" % (shape, prec or 'f32'),
-                           lambda: ref._zy_fwd_full_call(x, wz, wy,
-                                                         precision=prec))
-            dense_tc_check("x_dense (full spectrum) %s %s"
-                           % (shape, prec or 'f32'),
-                           lambda: fm._x_dense_call(pr, pi, wxi, 1.0,
-                                                    wx2=wx_g, precision=prec))
+            tc_check("zy_fwd_full %s %s" % (shape, prec or 'f32'),
+                     lambda: ref._zy_fwd_full_call(x, wz, wy,
+                                                   precision=prec))
+            tc_check("x_dense (full spectrum) %s %s"
+                     % (shape, prec or 'f32'),
+                     lambda: fm._x_dense_call(pr, pi, wxi, 1.0,
+                                              wx2=wx_g, precision=prec))
         if shape == (N,) * 3:
             full_yardsticks(x, kv)
         del x
@@ -1483,6 +1523,21 @@ def phase_compare_bf16(dev):
                  **prec(b and not st)),
              (sr, si, wy_g, AB_p, wi, AB_g, plane), 2 * zy_ops(N, N, N),
              library_inverse(up(sr), up(si), N, copies=2), st, not st)
+        # the zy inverses on tc_gemm: one bf16 product per real FMA, or
+        # on a bf16 spectrum the f32 products (three in the y stage)
+        for sets, label, call in (
+                (1, "zy_inv_ct2", lambda: fm._zy_inv_ct2_call(
+                    gr, gi, wi, AB_p, N, plane=plane, **prec(not st))),
+                (2, "zy_inv_ct2_dual", lambda: fm._zy_inv_ct2_call_dual(
+                    sr, si, wy_g, AB_p, wi, AB_g, N, planeA=plane,
+                    **prec(not st)))):
+            # bf16s: three products per y FMA (the one-part data), six
+            # per z FMA
+            fma = zy_inv_fma(N, N, N, sets)
+            tc_share("%s%s %d^3" % (label, form, N), fma,
+                     cuda_ms(call, 5),
+                     6 * zy_inv_fma(N, N, N, sets, 0.5) / fma if st else 1)
+            tc_check("%s%s %d^3" % (label, form, N), call)
         del sr, si, gr, gi, nq, plane
         torch.cuda.empty_cache()
     del rho
@@ -1735,12 +1790,14 @@ def phase_main_mxu(dev, xla):
     torch.cuda.reset_peak_memory_stats()
     gridpm_cuda.reset_launches()
     fft_mxu_cuda.reset_launches()
+    fft_mxu_cuda.kernel_launches(reset=True)
     t0 = time.perf_counter()
     solver, disp, vel, S, V = run_path(pm, dlinear, STEPS, fft='mxu')
     Fg = solver.force_lattice(S, BOUNDS, mode='gradient', fft='mxu')
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(fft_mxu_cuda.LAUNCHES)
+    kinds = fft_mxu_cuda.kernel_launches(reset=True)
     lattice = dict(gridpm_cuda.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -1767,9 +1824,14 @@ def phase_main_mxu(dev, xla):
                              "paint does not conserve mass")
     if not (dS <= TOL_SMALL and dV <= TOL_SMALL):
         raise AssertionError("fft='mxu' and fft='xla' disagree")
+    log("phase 4 main path, fft='mxu': device kernels by kind %s"
+        % json.dumps(kinds))
     if any(launches[k] < need[k] for k in need) \
             or lattice["paint_lattice"] < nsteps + 1:
         raise AssertionError("the DFT kernels did not carry the mxu path")
+    if any(kinds[k] for k in CGEMM) or not kinds["tc_gemm"]:
+        raise AssertionError("the fft='mxu' run launched cgemm or "
+                             "cgemm_bf16, or no tc_gemm")
     del xla['S'], xla['V']
 
     def run(nst):
@@ -1882,9 +1944,11 @@ def phase_main_bf16(dev, ref):
             if kinds != want:
                 DEFERRED.append(
                     "the fft='mxu_bf16' run launched %s device kernels, not "
-                    "%s: the bf16 forward passes off tc_gemm, or cgemm_bf16 "
-                    "beyond the zy inverses" % (json.dumps(kinds),
-                                                json.dumps(want)))
+                    "%s: a bf16 pass off tc_gemm" % (json.dumps(kinds),
+                                                     json.dumps(want)))
+        elif any(kinds[k] for k in CGEMM) or not kinds["tc_gemm"]:
+            DEFERRED.append("the fft=%r run launched cgemm or cgemm_bf16, "
+                            "or no tc_gemm: %s" % (fft, json.dumps(kinds)))
         log("phase 4 %s force meshes of the LPT density: kernels vs plain "
             "versions on the card %s; on the overdensity rho - mean against "
             "f32 rms|d|/rms %s (sanity bound %.0e)"
@@ -2494,8 +2558,6 @@ FAMILIES = (
     ("tc_z", "DFT products: ct2, tensor cores (tc_ct, tc_z)"),
     ("CtOp", "DFT products: x/y (CtOp)"),
     ("ZFwdDense", "DFT products: dense z forward"),
-    ("ZInvDense", "DFT products: dense z inverse"),
-    ("ZInvCT", "DFT products: z-CT inverse"),
     ("ct_inv_butterfly", "DFT sweeps"),
     ("zct_combine", "DFT sweeps"),
     ("nyquist_rowsum", "DFT sweeps"),
@@ -2915,12 +2977,11 @@ def phase_compare_slab(dev):
     cr = 0.01 * torch.randn((NC, n1, Zh), generator=gen, device=dev)
     ci = 0.01 * torch.randn((NC, n1, Zh), generator=gen, device=dev)
     for prec in (None, 'bf16'):
-        dense_tc_check("zy_fwd_half (row 9) slab %s" % (prec or 'f32'),
-                       lambda: fm._zy_fwd_dense_call(x, wz, wyf,
-                                                     precision=prec))
-        dense_tc_check("x_dense (row 9) y-chunk dual %s" % (prec or 'f32'),
-                       lambda: fm._x_dense_call(cr, ci, wx, 1.0, wx2=wx_g,
-                                                k2=k2, precision=prec))
+        tc_check("zy_fwd_half (row 9) slab %s" % (prec or 'f32'),
+                 lambda: fm._zy_fwd_dense_call(x, wz, wyf, precision=prec))
+        tc_check("x_dense (row 9) y-chunk dual %s" % (prec or 'f32'),
+                 lambda: fm._x_dense_call(cr, ci, wx, 1.0, wx2=wx_g,
+                                          k2=k2, precision=prec))
     del x
     zc = torch.complex(cr, ci)
     case("row 9 y-chunk (%d, %d, %d) forward" % (NC, n1, Zh),
@@ -2939,6 +3000,20 @@ def phase_compare_slab(dev):
          lambda impl: fm._zy_inv_dense_call(pr, pi, wy, AB_p, impl=impl),
          (pr, pi, wy, AB_p), zy_ops(n0, NC, NC),
          library_inverse(pr, pi, NC))
+    # its bf16 products, by the zy passes' criterion (checked and timed,
+    # not a record)
+    dft_case({}, "zy_inv_half_bf16 (row 9)",
+             "row 9 slab (%d, %d, %d) inverse" % (n0, NC, Zh),
+             lambda impl: fm._zy_inv_dense_call(pr, pi, wy, AB_p, impl=impl,
+                                                precision='bf16'),
+             (pr, pi, wy, AB_p), zy_ops(n0, NC, NC), None,
+             (lambda *a: bf16_products_check(*a, tol=TOL_CHAIN),
+              lambda impl: fm._zy_inv_dense_call(pr, pi, wy, AB_p,
+                                                 impl=impl)), DEFERRED)
+    for prec in (None, 'bf16'):
+        tc_check("zy_inv_half (row 9) slab %s" % (prec or 'f32'),
+                 lambda: fm._zy_inv_dense_call(pr, pi, wy, AB_p,
+                                               precision=prec))
     del pr, pi, cr, ci
     torch.cuda.empty_cache()
 
@@ -3008,6 +3083,7 @@ def reset_counters():
     from pmesh_tpu_torch.parallel import comm
     for mod in (gridpm_cuda, binned_cuda, fft_mxu_cuda):
         mod.reset_launches()
+    fft_mxu_cuda.kernel_launches(reset=True)
     comm.reset_staged()
 
 
@@ -3036,8 +3112,10 @@ def bits_equal(got, ref):
 def timed_run(pm, fn):
     """(fn(), seconds, launches): the counters set to 0 and every rank
     started together just before fn, the clock stopped when the slowest
-    rank has synchronised its card, the counters read just after"""
+    rank has synchronised its card, the counters read just after (the
+    DFT entry points' device kernels by kind too)"""
     import torch.distributed as dist
+    from pmesh_tpu_torch.ops import fft_mxu_cuda
     from pmesh_tpu_torch.parallel.comm import STAGED_BYTES
     torch.cuda.synchronize(pm.device)
     dist.barrier()
@@ -3048,6 +3126,7 @@ def timed_run(pm, fn):
     dist.barrier()
     sec = time.perf_counter() - t0
     return out, dict(seconds=sec, launches=counters(),
+                     kinds=fft_mxu_cuda.kernel_launches(reset=True),
                      staged=dict(STAGED_BYTES))
 
 
@@ -3283,12 +3362,16 @@ def phase_sharded(dev):
 
     def check(run, get, ok, text):
         launches = nonzero(summed(lambda r: get(r)['launches']))
+        kinds = nonzero(summed(lambda r: get(r)['kinds']))
         runs[run] = launches
-        exact = launches == need[run]
-        log("%s, staged %s bytes, launches %s (need exactly %s) %s"
+        # the DFT passes of every fft='mxu' mode on tc_gemm, tc_ct, tc_z
+        exact = (launches == need[run]
+                 and not any(kinds.get(k) for k in CGEMM))
+        log("%s, staged %s bytes, launches %s (need exactly %s), device "
+            "kernels by kind %s (no cgemm) %s"
             % (text, json.dumps(summed(lambda r: get(r)['staged'])),
                json.dumps(launches), json.dumps(need[run]),
-               "ok" if ok and exact else "FAIL"))
+               json.dumps(kinds), "ok" if ok and exact else "FAIL"))
         if not (ok and exact):
             fails.append(run)
 

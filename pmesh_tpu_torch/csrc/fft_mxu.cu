@@ -66,10 +66,11 @@
 // They compute what those kernels compute, in the same stored order (see
 // pmesh_tpu_torch/ops/fft_mxu.py), not how.  The TPU kernels hold whole
 // x-planes (or (N0, 8, W) column blocks) in VMEM and run every product on
-// the MXU; here each pass is a short sequence of launches of a
-// shared-memory-tiled product routine with the butterflies, scales and
-// filters fused into its operand path and its stores, plus an in-place
-// butterfly sweep after each inverse product.
+// the MXU; here each pass is a short sequence of launches: split passes
+// that form each product's data operand once (with the butterflies,
+// folds and roundings), tensor-core product routines with the scales and
+// the plane in their stores, and for the inverse x pass a butterfly
+// sweep.
 //
 // The forward ct2 passes, pmesh_zy_fwd_ct2 (replacing _zy_fwd_ct2_call /
 // _zy_forward_real_h_ct2) and pmesh_xct_multi (replacing _xct_call_multi
@@ -134,65 +135,57 @@
 // y and x stages by ct_fwd_col0 (its guarded form at M = 75 or 33).
 // ptxas (-O3, sm_90a, on the card): see PERF.md's findings.
 //
-// Every other pass (zy_inv_ct2 and its dual, zy_inv_half, the row-13
-// inverse and half-CT forward passes) runs on cgemm, and so do the bf16
-// products of those passes but the half-CT forward's y stage (tc_gemm,
-// as zy_fwd_ct2's).  What bounds them on this card: FP32 FMA
-// throughput.  The transforms are
-// products with small dense matrices (M x M per CT chunk, Zm x n2 for the
-// dense z inverse): the three zy inverses of a spectral force at 512^3
-// are 103 G FMA each, at least 4.6 ms each at the card's 67 TFLOP/s,
-// while a pass moves only ~1-1.5 GB (< 0.5 ms).  The dense zy inverse is
-// the same arithmetic with R = 1: at 384^3 each is ~88 G FMA, at least
-// 2.6 ms at the FP32 rate; ragged widths (Zh = 193 at 384^3, odd x, y or
-// z lengths) are covered by cgemm's guarded scalar global loads and
-// stores.  cgemm
-// spends its effort on the FMA loop:
-//  - a 64 x 64 complex output tile per 256-thread block, 4 x 4 complex
-//    accumulators per thread, operands staged through shared memory in
-//    16-deep slices and read back as float4, so each thread does 64 FMA
-//    per 4 shared loads;
-//  - real operands (the real input mesh of the dense z forward, the real
-//    output of the z inverse) run the 2-FMA form instead of 4;
-//  - the dual variants keep two accumulator sets against one staged
-//    input tile, so the input is read once for both table sets;
-//  - the inverse butterfly runs as an in-place sweep over the product's
-//    output, one thread per (row, column) group; blocks that share an
-//    input tile are adjacent in launch order so that its R-fold re-reads
-//    come from L2.
-// No tensor cores in this form: f32 products and f32 accumulation, the
-// f32-exact 'mxu' mode.
+// The zy inverses, pmesh_zy_inv_ct2 and pmesh_zy_inv_ct2_dual (replacing
+// _zy_inv_ct2_call / _zy_inverse_to_real_h_ct2 and its dual; at Zm = Zh
+// row 13's half-CT inverse) and pmesh_zy_inv_half (replacing
+// _zy_inverse_to_real_h through _zy_inv_half_call), run both product
+// forms on tc_gemm: the y stage behind split_cols, the z stage as one
+// real-output product behind split_zinv, which also forms the inverse y
+// butterfly (see "the zy inverses on tc_gemm").  What bounds them: at
+// 512^3 zy_inv_ct2 is 103 G real FMA (y 34.4 G, z 68.7 G), at least
+// 1.25 ms at six bf16 products per FMA and 989 TFLOP/s, 0.21 ms at one,
+// against 0.32 ms of compulsory bytes; zy_inv_half at 384^3 65.6 G.
 //
+// The rest of row 13 (the full-spectrum inverse; the half-CT forward's
+// z stage and its f32 y stage) runs on cgemm, an FP32 FMA product
+// routine: a 64 x 64 complex output tile per 256-thread block, 4 x 4
+// complex accumulators per thread, operands staged through shared memory
+// in 16-deep slices and read back as float4 (64 FMA per 4 shared loads);
+// real operands (the real input mesh of the dense z forward, the real
+// output of the full inverse's y stage) run the 2-FMA form instead of 4;
+// ragged widths are covered by guarded scalar global loads and stores.
+// The inverse CT butterfly of xct_multi runs as an in-place sweep over
+// its products' output (ct_inv_butterfly), one thread per (row, column)
+// group.
+
 // The bf16 forms, set per call by two flags of every entry point:
 //
 //  - bf16 (fft='mxu_bf16', precision='bf16'): the single-pass bf16
 //    products of the TPU kernels at jax.lax.Precision('default'): each
 //    operand of each product rounded to bf16, the products summed in f32.
-//    cgemm_bf16 replaces cgemm under the same Op functors: the loader
-//    rounds each la/lb value once with __float2bfloat16_rn into bf16
-//    tiles in shared memory, after the butterfly, the 1/k^2 fold and the
-//    conjugation that la/lb apply (the TPU rounds the operand it is
-//    handed, after those), and each warp runs
-//    mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 with f32 accumulators: a
-//    complex product is four real MMAs, -Ai.Bi through the negated
-//    imaginary fragment (negating a bf16 value is exact; no
+//    The passes of fft='mxu' run this form on tc_gemm (one part per
+//    operand, one product per slice, no first element taken out, no
+//    chains but the dense z stage's tail modes), their butterflies, folds
+//    and roundings formed once per pass by the split passes.  Everything
+//    between two products of one pass (the butterflies, the z-CT
+//    combination, the scales, the plane) stays f32, and the next product
+//    rounds it again as its operand, as on the TPU.  Row 13's cgemm
+//    passes run cgemm_bf16 under the same Op functors: the loader rounds
+//    each la/lb value once with __float2bfloat16_rn into bf16 tiles in
+//    shared memory, after the butterfly and the conjugation that la/lb
+//    apply (the TPU rounds the operand it is handed, after those), and
+//    each warp runs mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 with f32
+//    accumulators: a complex product is four real MMAs, -Ai.Bi through
+//    the negated imaginary fragment (negating a bf16 value is exact; no
 //    3-multiplication trick, which would round differently).  Ragged
 //    edges and a contraction that is not a multiple of 32 are zero-filled
-//    tiles.  Everything between two products of one pass (the butterfly
-//    sweeps, the z-CT combination, the scales, the plane) stays f32, and
-//    the next product rounds it again as its operand, as on the TPU.
-//    The forward passes, dense and ct2, run this form on tc_gemm instead
-//    (one part per operand, one product per slice, no first element
-//    taken out, no chains but the dense z stage's tail modes), their
-//    butterflies and folds formed once per pass by the split passes.
-//    What bounds cgemm_bf16 (the inverse passes): the tensor cores would
-//    run these products at 989 TFLOP/s, so the operand loads (the same
-//    guarded scalar loads as cgemm, through the functors) and the
-//    single-stage staging bound it.
+//    tiles.
 //  - bf16s (fft='mxu_bf16s', the ct2 entry points' spectrum_dtype): the
 //    spectra between the passes are stored in bf16: the loads upcast
 //    them and the stores round once.  The products stay f32 (tc_ct and
-//    tc_z for the forward passes, cgemm for the zy inverses).
+//    tc_z for the forward passes; the zy inverses on tc_gemm, the bf16
+//    spectrum one exact part against the three-part y table, three
+//    products per real product).
 //    The inverse x pass writes its products to f32 scratch that the
 //    wrapper passes, and its butterfly sweep rounds once at the store of
 //    the bf16 output, as JAX rounds once at the kernel's output store.
@@ -292,16 +285,13 @@ __device__ __forceinline__ void ld4(float* v, const float* s) {
 }
 
 // The shared product routine.  Op supplies la (A element), lb (B
-// element), st (store) and, for DUAL only, la2 and st2 (a second A operand
-// and its output against the same B).  A_REAL: A's imaginary part is zero;
+// element) and st (store).  A_REAL: A's imaginary part is zero;
 // OUT_REAL: only the real part of C is wanted.
-template <class Op, bool DUAL, bool A_REAL, bool OUT_REAL>
+template <class Op, bool A_REAL, bool OUT_REAL>
 __global__ void __launch_bounds__(NT) cgemm(const Op op, const Dims g) {
   // rows of BM + 4 floats: 16-byte aligned for the float4 reads
   __shared__ __align__(16) float As_r[BK][BM + 4];
   __shared__ __align__(16) float As_i[A_REAL ? 1 : BK][BM + 4];
-  __shared__ __align__(16) float A2s_r[DUAL ? BK : 1][BM + 4];
-  __shared__ __align__(16) float A2s_i[DUAL ? BK : 1][BM + 4];
   __shared__ __align__(16) float Bs_r[BK][BN];
   __shared__ __align__(16) float Bs_i[BK][BN];
 
@@ -310,18 +300,13 @@ __global__ void __launch_bounds__(NT) cgemm(const Op op, const Dims g) {
   const long long m0 = (long long)tmi * BM, n0 = (long long)tni * BN;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
 
-  float cr[TM][TN], ci[TM][TN], c2r[DUAL ? TM : 1][DUAL ? TN : 1],
-      c2i[DUAL ? TM : 1][DUAL ? TN : 1];
+  float cr[TM][TN], ci[TM][TN];
 #pragma unroll
   for (int a = 0; a < TM; ++a)
 #pragma unroll
     for (int b = 0; b < TN; ++b) {
       cr[a][b] = 0.f;
       ci[a][b] = 0.f;
-      if constexpr (DUAL) {
-        c2r[a][b] = 0.f;
-        c2i[a][b] = 0.f;
-      }
     }
 
   for (int k0 = 0; k0 < g.K; k0 += BK) {
@@ -335,11 +320,6 @@ __global__ void __launch_bounds__(NT) cgemm(const Op op, const Dims g) {
       Cplx v = in ? op.la(o, j, m, k) : Cplx{0.f, 0.f};
       As_r[kk][mm] = v.r;
       if constexpr (!A_REAL) As_i[kk][mm] = v.i;
-      if constexpr (DUAL) {
-        Cplx v2 = in ? op.la2(o, j, m, k) : Cplx{0.f, 0.f};
-        A2s_r[kk][mm] = v2.r;
-        A2s_i[kk][mm] = v2.i;
-      }
     }
 #pragma unroll
     for (int l = 0; l < BK * BN / NT; ++l) {
@@ -355,13 +335,9 @@ __global__ void __launch_bounds__(NT) cgemm(const Op op, const Dims g) {
     for (int kk = 0; kk < BK; ++kk) {
       // each thread owns rows ty*TM.. and columns tx*TN.. of the tile:
       // one float4 shared load per operand part
-      float ar[TM], ai[TM] = {}, a2r[TM], a2i[TM], br[TN], bi[TN];
+      float ar[TM], ai[TM] = {}, br[TN], bi[TN];
       ld4(ar, &As_r[kk][ty * TM]);
       if constexpr (!A_REAL) ld4(ai, &As_i[kk][ty * TM]);
-      if constexpr (DUAL) {
-        ld4(a2r, &A2s_r[kk][ty * TM]);
-        ld4(a2i, &A2s_i[kk][ty * TM]);
-      }
       ld4(br, &Bs_r[kk][tx * TN]);
       ld4(bi, &Bs_i[kk][tx * TN]);
 #pragma unroll
@@ -374,12 +350,6 @@ __global__ void __launch_bounds__(NT) cgemm(const Op op, const Dims g) {
             ci[a][b] = fmaf(ar[a], bi[b], ci[a][b]);
             if constexpr (!A_REAL) ci[a][b] = fmaf(ai[a], br[b], ci[a][b]);
           }
-          if constexpr (DUAL) {
-            c2r[a][b] = fmaf(a2r[a], br[b], c2r[a][b]);
-            c2r[a][b] = fmaf(-a2i[a], bi[b], c2r[a][b]);
-            c2i[a][b] = fmaf(a2r[a], bi[b], c2i[a][b]);
-            c2i[a][b] = fmaf(a2i[a], br[b], c2i[a][b]);
-          }
         }
     }
     __syncthreads();
@@ -389,10 +359,7 @@ __global__ void __launch_bounds__(NT) cgemm(const Op op, const Dims g) {
 #pragma unroll
     for (int b = 0; b < TN; ++b) {
       const long long m = m0 + ty * TM + a, n = n0 + tx * TN + b;
-      if (m < g.M && n < g.N) {
-        op.st(o, j, m, n, cr[a][b], ci[a][b]);
-        if constexpr (DUAL) op.st2(o, j, m, n, c2r[a][b], c2i[a][b]);
-      }
+      if (m < g.M && n < g.N) op.st(o, j, m, n, cr[a][b], ci[a][b]);
     }
 }
 
@@ -429,18 +396,14 @@ __device__ __forceinline__ void negate(uint32_t* dst, const uint32_t* src) {
 
 // The bf16 form of cgemm: the same Op interface, tiles and grid.  Each of
 // the 8 warps owns a 32 x 16 corner of the 64 x 64 output tile: 2 x 2
-// m16n8 accumulator blocks per part (re, im; a second set for DUAL).  B is
-// staged transposed ([n][k]) so that each B-fragment register is one
-// 32-bit shared load.
-template <class Op, bool DUAL, bool A_REAL, bool OUT_REAL>
+// m16n8 accumulator blocks per part (re, im).  B is staged transposed
+// ([n][k]) so that each B-fragment register is one 32-bit shared load.
+template <class Op, bool A_REAL, bool OUT_REAL>
 __global__ void __launch_bounds__(NT) cgemm_bf16(const Op op, const Dims g) {
   __shared__ __align__(16) bf16_t As_r[BM][SKH];
   __shared__ __align__(16) bf16_t As_i[A_REAL ? 1 : BM][SKH];
-  __shared__ __align__(16) bf16_t A2s_r[DUAL ? BM : 1][SKH];
-  __shared__ __align__(16) bf16_t A2s_i[DUAL ? BM : 1][SKH];
   __shared__ __align__(16) bf16_t Bs_r[BN][SKH];
   __shared__ __align__(16) bf16_t Bs_i[BN][SKH];
-  static_assert(!(DUAL && A_REAL), "a dual A operand is complex");
 
   int o, j, tmi, tni;
   decompose(g, o, j, tmi, tni);
@@ -450,7 +413,6 @@ __global__ void __launch_bounds__(NT) cgemm_bf16(const Op op, const Dims g) {
   const int gid = lane / 4, tig = lane % 4;
 
   float cr[2][2][4] = {}, ci[2][2][4] = {};
-  float c2r[DUAL ? 2 : 1][2][4] = {}, c2i[DUAL ? 2 : 1][2][4] = {};
 
   for (int k0 = 0; k0 < g.K; k0 += BKH) {
     // stage A (BM x BKH) and B (BKH x BN, stored [n][k]), rounded once
@@ -463,11 +425,6 @@ __global__ void __launch_bounds__(NT) cgemm_bf16(const Op op, const Dims g) {
       const Cplx v = in ? op.la(o, j, m, k) : Cplx{0.f, 0.f};
       As_r[mm][kk] = __float2bfloat16_rn(v.r);
       if constexpr (!A_REAL) As_i[mm][kk] = __float2bfloat16_rn(v.i);
-      if constexpr (DUAL) {
-        const Cplx v2 = in ? op.la2(o, j, m, k) : Cplx{0.f, 0.f};
-        A2s_r[mm][kk] = __float2bfloat16_rn(v2.r);
-        A2s_i[mm][kk] = __float2bfloat16_rn(v2.i);
-      }
     }
 #pragma unroll
     for (int l = 0; l < BKH * BN / NT; ++l) {
@@ -484,8 +441,6 @@ __global__ void __launch_bounds__(NT) cgemm_bf16(const Op op, const Dims g) {
     for (int ks = 0; ks < BKH; ks += 16) {
       const int c = ks + tig * 2;
       uint32_t ar[2][4], ai[2][4], an[2][4];
-      uint32_t a2r[DUAL ? 2 : 1][4], a2i[DUAL ? 2 : 1][4],
-          a2n[DUAL ? 2 : 1][4];
       uint32_t br[2][2], bi[2][2];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
@@ -494,11 +449,6 @@ __global__ void __launch_bounds__(NT) cgemm_bf16(const Op op, const Dims g) {
         if constexpr (!A_REAL) {
           ld_afrag(ai[mt], As_i, r, c);
           negate(an[mt], ai[mt]);
-        }
-        if constexpr (DUAL) {
-          ld_afrag(a2r[mt], A2s_r, r, c);
-          ld_afrag(a2i[mt], A2s_i, r, c);
-          negate(a2n[mt], a2i[mt]);
         }
       }
 #pragma unroll
@@ -519,12 +469,6 @@ __global__ void __launch_bounds__(NT) cgemm_bf16(const Op op, const Dims g) {
             mma_bf16(ci[mt][nt], ar[mt], bi[nt]);
             if constexpr (!A_REAL) mma_bf16(ci[mt][nt], ai[mt], br[nt]);
           }
-          if constexpr (DUAL) {
-            mma_bf16(c2r[mt][nt], a2r[mt], br[nt]);
-            mma_bf16(c2r[mt][nt], a2n[mt], bi[nt]);
-            mma_bf16(c2i[mt][nt], a2r[mt], bi[nt]);
-            mma_bf16(c2i[mt][nt], a2i[mt], br[nt]);
-          }
         }
     }
     __syncthreads();
@@ -539,11 +483,8 @@ __global__ void __launch_bounds__(NT) cgemm_bf16(const Op op, const Dims g) {
       for (int q = 0; q < 4; ++q) {
         const long long m = m0 + wm + mt * 16 + gid + (q >= 2 ? 8 : 0);
         const long long n = n0 + wn + nt * 8 + tig * 2 + (q & 1);
-        if (m < g.M && n < g.N) {
+        if (m < g.M && n < g.N)
           op.st(o, j, m, n, cr[mt][nt][q], ci[mt][nt][q]);
-          if constexpr (DUAL)
-            op.st2(o, j, m, n, c2r[mt][nt][q], c2i[mt][nt][q]);
-        }
       }
 }
 
@@ -1463,14 +1404,23 @@ __global__ void __launch_bounds__(TC_NT) tc_z(const TcZ p) {
 //                padding) in f32 FMA chains in k order, as plain does;
 //   tc_gemm      a 128 x 128 output tile per block of 8 warps: table
 //                tile t x data tile (x / y: rows = modes, re | im;
-//                z: columns = modes, re | im), the first element added
-//                back through the table's sums, then scaled and stored.
+//                z: columns = modes, re | im; z inverse: 128 real
+//                output columns), the first element added back through
+//                the table's sums, then scaled and stored.
 
-// slices in flight in tc_gemm's ring: 4 of the three-part tiles, 8 of
-// the one-part ones (whose passes are 16 slices long at M = 128)
-template <int NP>
+// The output form of a tc_gemm: TG_XY, the data is the column operand
+// and a table tile's rows are 64 modes (re | im); TG_Z, the data is the
+// row operand and a table tile's columns are 64 modes (re | im);
+// TG_ZREAL, the data is the row operand and a table tile's columns are
+// 128 real outputs (the z inverse, see its section)
+enum TgMode { TG_XY, TG_Z, TG_ZREAL };
+
+// slices in flight in tc_gemm's ring by the parts of its two operands: 4
+// of three-part tiles, 6 of a three-part table on one-part data, 8 of
+// one-part ones (whose passes are 16 slices long at M = 128)
+template <int NPT, int NPD>
 __host__ __device__ constexpr int tg_depth() {
-  return NP == 1 ? 8 : 4;
+  return NPT + NPD <= 2 ? 8 : (NPT + NPD <= 4 ? 6 : 4);
 }
 constexpr int TG_SLICE = TC_ROWS * TC_BK;   // bf16 of one part of a slice tile
 constexpr int ZCH = 16;        // chained z modes at most: QZ + a tail of 8
@@ -1478,9 +1428,9 @@ constexpr int ZCH = 16;        // chained z modes at most: QZ + a tail of 8
 // the ring's bytes, and room to align it to 1024 bytes (the swizzle works
 // on absolute shared-memory addresses, and the dynamic region starts
 // after the static one)
-template <int NP>
+template <int NPT, int NPD>
 __host__ __device__ constexpr int tg_smem() {
-  return tg_depth<NP>() * 2 * NP * TG_SLICE * 2 + 1024;
+  return tg_depth<NPT, NPD>() * (NPT + NPD) * TG_SLICE * 2 + 1024;
 }
 
 // the NP parts of 16 values (row r of a tile) into dst + h TG_SLICE (h <
@@ -1981,6 +1931,136 @@ __global__ void __launch_bounds__(SPLIT_ZT) split_zct(const SplitZct p) {
                  std::make_integer_sequence<int, RZ / 2 + 1>());
 }
 
+// --- the zy inverses on tc_gemm ---------------------------------------------
+//
+// pmesh_zy_inv_ct2 (and its dual) and pmesh_zy_inv_half, both product
+// forms.  The y stage is an inverse CT (ct2: split_cols, then tc_gemm over
+// the Ry chunks, both table sets of the dual on one split) or a dense
+// inverse DFT (dense_tc), into f32 scratch.  The z stage is ONE real
+// product per row: out = yr A + yi B is [yr | yi] (rows, 2 Zm) times the
+// stacked [A; B] (2 Zm, n2), half the products of a complex one, with
+// the contraction in slices of 8 complex k (re | im, as split_cols lays
+// out its columns) and 128 real output columns per table tile.  Its data
+// tiles are the y output's rows, formed by split_zinv, which also runs
+// the y CT's inverse butterfly out_r = sum_j b[r][j] y_j from the R chunk
+// rows y_j of each row m (ct_inv_butterfly's fmaf chain), so that the
+// y output is read once and never swept; the Nyquist plane (-1)^n is
+// added in f32 after the products.  The z-CT inverse (Rz = 8, N2 >= 1024)
+// is the same product over Ri chunks, chunk j of Kin complex k into P_j
+// (columns [0, Kb)) and Q_j ([Kb, 2 Kb)), which zct_combine then combines.
+// The f32 form splits every operand three ways by its own exponent and
+// keeps a fresh partial per slice (no first element taken out: an
+// inverse's data is no mean's carrier); a bf16-stored spectrum is one
+// exact bf16 part against the three-part table.
+//
+//   split_zinv   the z data: row o N1 + r M + m of the (n0, N1, Zm) y
+//                output, k in slices of 8 (re | im), into (ceil(n0 N1 /
+//                128), ceil(Zm / 8), NP, 128, 16), zero past Zm.
+
+struct SplitZinv {
+  const float *yr, *yi;   // (nouter, R M, Zm): chunk j's y_j at rows j M + m
+  bf16_t* dst;            // (ceil(nouter R M / 128), nks, NP, 128, 16)
+  int M, Zm, nks, aligned;
+  Butter bt;              // b[r][j] = W_R^{+rj}
+};
+
+constexpr int ZI_ROWS = 32;          // rows m per split_zinv block
+constexpr int ZI_K = 8 * TC_DR;      // k per block: 8 slices
+constexpr int ZI_PK = ZI_K + 4;      // staged row pitch (floats)
+
+// dynamic shared bytes of split_zinv: the R chunks' (re, im) rows
+__host__ __device__ constexpr int zi_smem(int R) {
+  return R * 2 * ZI_ROWS * ZI_PK * 4;
+}
+
+// one block of 256 threads per outer block o, 32 rows m of a chunk
+// (blockIdx.x = o mb + m / 32, mb blocks of rows per outer block: whole
+// 128-row tiles at R = 1, zero rows past M) and 8 slices of k
+// (blockIdx.y): the R chunks' (32, 64) pieces of y_j (re, im) staged
+// through shared memory in 256-byte row pieces, then thread (slice tid /
+// 32, row tid % 32) forms out_r = sum_j b[r][j] y_j of its 8 k (R = 1:
+// y_0) in ct_inv_butterfly's fmaf chain and writes row o R M + r M + m
+// of the tiles (re of the 8 k | im) for each r; zero past Zm and M
+template <int NP, int R>
+__global__ void __launch_bounds__(256) split_zinv(const SplitZinv p) {
+  extern __shared__ __align__(16) float zs[];   // [j][re, im][row][k]
+  const int mb = R == 1 ? (p.M + TC_ROWS - 1) / TC_ROWS * (TC_ROWS / ZI_ROWS)
+                        : p.M / ZI_ROWS;
+  const long long o = blockIdx.x / mb;
+  const int m0 = (int)(blockIdx.x % mb) * ZI_ROWS;
+  const int k0 = blockIdx.y * ZI_K, tid = threadIdx.x;
+  const long long base = o * R * p.M;
+  auto at = [&](int j, int a, int row) {
+    return zs + ((j * 2 + a) * ZI_ROWS + row) * ZI_PK;
+  };
+  if (p.aligned) {
+    for (int e = tid; e < R * 2 * ZI_ROWS * (ZI_K / 4); e += 256) {
+      const int c4 = e % (ZI_K / 4), row = (e / (ZI_K / 4)) % ZI_ROWS;
+      const int a = (e / (ZI_K / 4 * ZI_ROWS)) % 2;
+      const int j = e / (ZI_K / 4 * ZI_ROWS * 2);
+      const int m = m0 + row, k = k0 + 4 * c4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (m < p.M && k < p.Zm)
+        v = *reinterpret_cast<const float4*>(
+            (a ? p.yi : p.yr) + (base + (long long)j * p.M + m) * p.Zm + k);
+      *reinterpret_cast<float4*>(at(j, a, row) + 4 * c4) = v;
+    }
+  } else {
+    for (int e = tid; e < R * 2 * ZI_ROWS * ZI_K; e += 256) {
+      const int kk = e % ZI_K, row = (e / ZI_K) % ZI_ROWS;
+      const int a = (e / (ZI_K * ZI_ROWS)) % 2, j = e / (ZI_K * ZI_ROWS * 2);
+      const int m = m0 + row, k = k0 + kk;
+      at(j, a, row)[kk] =
+          m < p.M && k < p.Zm
+              ? (a ? p.yi : p.yr)[(base + (long long)j * p.M + m) * p.Zm + k]
+              : 0.f;
+    }
+  }
+  __syncthreads();
+  const int row = tid % ZI_ROWS, sl = tid / ZI_ROWS;
+  const int s = blockIdx.y * (ZI_K / TC_DR) + sl;
+  if (s >= p.nks) return;
+  // the three-part form one r at a time: unrolled over r it took 130
+  // registers at R = 4, one block of 256 threads per SM
+  constexpr int UR = NP == 1 ? R : 1;
+#pragma unroll UR
+  for (int r = 0; r < R; ++r) {
+    float v[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) v[q] = 0.f;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      float yr[8], yi[8];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            at(j, 0, row) + sl * TC_DR + 4 * h);
+        const float4 b = *reinterpret_cast<const float4*>(
+            at(j, 1, row) + sl * TC_DR + 4 * h);
+        yr[4 * h] = a.x; yr[4 * h + 1] = a.y;
+        yr[4 * h + 2] = a.z; yr[4 * h + 3] = a.w;
+        yi[4 * h] = b.x; yi[4 * h + 1] = b.y;
+        yi[4 * h + 2] = b.z; yi[4 * h + 3] = b.w;
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if constexpr (R == 1) {
+          v[q] = yr[q];
+          v[8 + q] = yi[q];
+        } else {
+          const float cr = p.bt.r[r][j], ci = p.bt.i[r][j];
+          v[q] = fmaf(cr, yr[q], fmaf(-ci, yi[q], v[q]));
+          v[8 + q] = fmaf(cr, yi[q], fmaf(ci, yr[q], v[8 + q]));
+        }
+      }
+    }
+    const long long orow = base + (long long)r * p.M + m0 + row;
+    st_parts16<NP>(p.dst + ((orow / TC_ROWS) * p.nks + s) * (NP * TG_SLICE) +
+                       (orow % TC_ROWS) * TC_BK,
+                   v, (int)(orow % TC_ROWS));
+  }
+}
+
 // Chunks: a CT stage at R > 1 is R products, one per chunk j, each
 // reading its own table tiles and its own slices of the data tiles and
 // writing its own output rows (x / y: rows j jstep + q) or columns (z:
@@ -1991,10 +2071,12 @@ struct TcGemm {
                         // chunk j's slices dslice[j] .. + nk[j] of each
   const float* sums;    // x / y: (sets, R, M, 2) row sums; z: (Zh, 2) column sums
   const float* c0;      // the taken-out first elements, or null
+  const float* plane;   // z inverse: plane[m] (-1)^n added, or null
   void *o1r, *o1i, *o2r, *o2i;   // TO
   long long ostride;    // x / y: output elements per outer block
   long long nall;       // x / y: data columns in all; z: rows
-  int M;                // x / y: modes per chunk; z: tail0 (modes per chunk)
+  int M;                // x / y: modes per chunk; z: tail0 (modes per chunk);
+                        // z inverse: columns per output (o1r, then o1i)
   int ncols;            // x / y: columns per outer block; z: output pitch
   int lo;               // z: modes [0, lo) are chained, not stored here
   int T, T1;            // table tiles per chunk (both sets), of set 1
@@ -2010,20 +2092,28 @@ void tg_one_chunk(TcGemm& g, int nks) {
   g.tslice[0] = g.dslice[0] = g.jstep = 0;
 }
 
-// DATA_A: the data is the row operand (z); else the column operand (x / y).
-// TO: the output storage (f32, or bf16 for the bf16s form of the x / y
-// stages).  The ring: tg_depth slots of [row op | col op], each filled by
-// two bulk copies of the operands' contiguous slice tiles (pre-swizzled in
-// device memory, as gmma_desc reads them) issued by thread 0 and
-// completing on the slot's mbarrier; a barrier after each slice's
-// products frees its slot.  Block b: table tile b % T, chunk (b / T) % R,
-// data tile b / (T R): the blocks that read one data tile are adjacent.
-template <int NP, bool DATA_A, class TO>
+// NPT, NPD: the parts of the table and data tiles (3 and 3: the six
+// products; 3 and 1: a three-part table on exact bf16 data, the three
+// products of its parts; 1 and 1: one).  TO: the output storage (f32, or
+// bf16 for the bf16s form of the x / y stages).  The ring: tg_depth slots
+// of [row op | col op], each filled by two bulk copies of the operands'
+// contiguous slice tiles (pre-swizzled in device memory, as gmma_desc
+// reads them) issued by thread 0 and completing on the slot's mbarrier; a
+// barrier after each slice's products frees its slot.  Block b: table
+// tile b % T, chunk (b / T) % R, data tile b / (T R): the blocks that read
+// one data tile are adjacent.
+template <int NPT, int NPD, int MODE, class TO>
 __global__ void __launch_bounds__(TC_NT, 1) tc_gemm(const TcGemm p) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  constexpr int D = tg_depth<NP>();
+  constexpr bool DATA_A = MODE != TG_XY;
+  constexpr int D = tg_depth<NPT, NPD>();
   __shared__ __align__(8) uint64_t full[D];
-  constexpr int SE = NP * TG_SLICE;   // bf16 of an operand's slice tile
+  // bf16 of a slice tile: the table's, the data's, the row and the
+  // column operand's
+  constexpr int ST = NPT * TG_SLICE, SD = NPD * TG_SLICE;
+  constexpr int SA = DATA_A ? SD : ST, SB = DATA_A ? ST : SD;
+  constexpr int NPA = DATA_A ? NPD : NPT, NPB = DATA_A ? NPT : NPD;
+  static_assert(NPA == NPB || NPA == 1 || NPB == 1, "the products' parts");
   bf16_t* ring = reinterpret_cast<bf16_t*>(
       tc_smem + ((1024 - (smem_u32(tc_smem) & 1023)) & 1023));
   const long long b = blockIdx.x;
@@ -2032,8 +2122,8 @@ __global__ void __launch_bounds__(TC_NT, 1) tc_gemm(const TcGemm p) {
   const long long dt = b / p.T / p.R;
   const int nks = p.nk[jc];
   const bf16_t* tsrc =
-      p.tab + ((long long)p.tslice[jc] + (long long)t * nks) * SE;
-  const bf16_t* dsrc = p.dat + (dt * p.nkd + p.dslice[jc]) * SE;
+      p.tab + ((long long)p.tslice[jc] + (long long)t * nks) * ST;
+  const bf16_t* dsrc = p.dat + (dt * p.nkd + p.dslice[jc]) * SD;
   const bf16_t* asrc = DATA_A ? dsrc : tsrc;
   const bf16_t* bsrc = DATA_A ? tsrc : dsrc;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -2045,42 +2135,50 @@ __global__ void __launch_bounds__(TC_NT, 1) tc_gemm(const TcGemm p) {
   // by thread 0: the copies of slice s into slot s % D
   auto issue = [&](int s) {
     const int slot = s % D;
-    bf16_t* st = ring + slot * 2 * SE;
-    mbar_expect_tx(&full[slot], 4 * SE);
-    tma_load(st, asrc + (long long)s * SE, 2 * SE, &full[slot]);
-    tma_load(st + SE, bsrc + (long long)s * SE, 2 * SE, &full[slot]);
+    bf16_t* st = ring + slot * (SA + SB);
+    mbar_expect_tx(&full[slot], 2 * (SA + SB));
+    tma_load(st, asrc + (long long)s * SA, 2 * SA, &full[slot]);
+    tma_load(st + SA, bsrc + (long long)s * SB, 2 * SB, &full[slot]);
   };
   if (tid == 0)
     for (int s = 0; s < D && s < nks; ++s) issue(s);
   // warpgroup wg: rows [64 wg, 64 wg + 64) of the tile, all 128 columns;
-  // per slice the products (NP = 3: the six, smallest first, into a fresh
-  // partial that the CUDA cores add to acc; NP = 1: one, into acc), a
-  // wait for them, and a barrier that frees the slice's slot
+  // per slice the products (three-part operands: the six, smallest
+  // first, or the three of a three-part operand's parts with a one-part
+  // one, into a fresh partial that the CUDA cores add to acc; one-part
+  // operands: one, into acc), a wait for them, and a barrier that frees
+  // the slice's slot
+  constexpr bool ONE = NPA == 1 && NPB == 1;
   const int wg = warp / 4, w4 = warp % 4;
   float acc[64], part[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+  constexpr int NPROD = ONE ? 1 : (NPA == NPB ? 6 : 3);
   constexpr int PA_[6] = {1, 2, 0, 1, 0, 0}, PB_[6] = {1, 0, 2, 0, 1, 0};
   for (int s = 0; s < nks; ++s) {
     const int slot = s % D;
     mbar_wait(&full[slot], (s / D) & 1);
-    const bf16_t* A = ring + slot * 2 * SE + wg * 64 * TC_BK;
-    const bf16_t* B = ring + slot * 2 * SE + SE;
-    float* d = NP == 1 ? acc : part;
+    const bf16_t* A = ring + slot * (SA + SB) + wg * 64 * TC_BK;
+    const bf16_t* B = ring + slot * (SA + SB) + SA;
+    float* d = ONE ? acc : part;
     wg_pin(d);
     wg_fence();
-    if constexpr (NP == 1) {
+    if constexpr (ONE) {
       wgmma_128(acc, gmma_desc(A), gmma_desc(B), 1);
     } else {
 #pragma unroll
-      for (int t = 0; t < 6; ++t)
-        wgmma_128(part, gmma_desc(A + PA_[t] * TG_SLICE),
-                  gmma_desc(B + PB_[t] * TG_SLICE), t > 0);
+      for (int t = 0; t < NPROD; ++t) {
+        // the three: part 2 - t of the three-part operand, part 0 of the other
+        const int pa = NPROD == 6 ? PA_[t] : (NPA == 3 ? 2 - t : 0);
+        const int pb = NPROD == 6 ? PB_[t] : (NPB == 3 ? 2 - t : 0);
+        wgmma_128(part, gmma_desc(A + pa * TG_SLICE),
+                  gmma_desc(B + pb * TG_SLICE), t > 0);
+      }
     }
     wg_commit();
     wg_wait<0>();
     wg_pin(d);
-    if constexpr (NP == 3) {
+    if constexpr (!ONE) {
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] += part[i];
     }
@@ -2094,7 +2192,36 @@ __global__ void __launch_bounds__(TC_NT, 1) tc_gemm(const TcGemm p) {
   // the stores: each thread's two adjacent columns in one 8- (f32) or
   // 4-byte (bf16) store where both are in range and aligned
   const int gid = lane / 4, tig = lane % 4;
-  if constexpr (DATA_A) {
+  if constexpr (MODE == TG_ZREAL) {
+    // z inverse: rows are data rows, columns real outputs; a chunk's
+    // columns [0, M) go to o1r and [M, 2 M) to o1i (when set), at column
+    // jc jstep + n of the row (pitch ncols), plus plane[m] (-1)^n
+    long long m[2];
+    float pl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h] = dt * TC_ROWS + wg * 64 + w4 * 16 + gid + h * 8;
+      pl[h] = p.plane != nullptr && m[h] < p.nall ? p.plane[m[h]] : 0.f;
+    }
+    const int nout = p.o1i != nullptr ? 2 : 1;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int gc = t * TC_COLS + 8 * j + 2 * tig;
+      const int part_ = gc / p.M, n = gc - part_ * p.M;
+      if (part_ >= nout) continue;
+      // n + 1 lies in the same output: M is even wherever there are two
+      const bool in1 = n + 1 < p.M;
+      TO* out = static_cast<TO*>(part_ ? p.o1i : p.o1r);
+      const long long col = (long long)jc * p.jstep + n;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (m[h] < p.nall) {
+          const float sg = (n & 1) ? -pl[h] : pl[h];
+          st_pair(out, m[h] * p.ncols + col, acc[4 * j + 2 * h] + sg,
+                  acc[4 * j + 2 * h + 1] - sg, true, in1);
+        }
+    }
+  } else if constexpr (DATA_A) {
     // z: rows are data rows, columns [0, 64) real parts of the tile's
     // modes, the rest imaginary; each output gets back c0 sum_k E[k, mode]
     long long m[2];
@@ -2187,55 +2314,30 @@ __global__ void __launch_bounds__(TC_NT, 1) tc_gemm(const TcGemm p) {
 
 // --- the operand and store functors ------------------------------------
 
-// A CT stage along the rows of (nouter, R*M, ncols) complex blocks:
-// forward (INV false): out[o, j*M + q, n] = scale * sum_m W_j[q, m] u_j[m, n],
-//   u_j[m, n] = sum_r bt[r][j] fold(x[o, r*M + m, n]);
-// inverse (INV true): y_j[m, n] = sum_q W_j[m, q] fold(x[o, j*M + q, n]) is
-//   stored at out[o, j*M + m, n]; the butterfly sweep (ct_inv_butterfly)
-//   then turns the y_j into the natural-order output in place.
-// fold multiplies by 1/k^2 (0 at k^2 = 0) from three 1-d tables when k2x is
-// set: row index -> k2x, column n -> (n / W, n % W) -> k2y, k2z.
-// TI: the storage type of x (float, or bf16 for the bf16s form); outi
-// null: only the real part is stored.
-template <bool INV, class TI = float>
+// The forward CT stage along the rows of (nouter, R*M, ncols) complex
+// blocks on cgemm (the f32 half-CT pass 1; at R = 1 the full-spectrum
+// inverse's y stage): out[o, j*M + q, n] = scale * sum_m W_j[q, m]
+// u_j[m, n], u_j[m, n] = sum_r bt[r][j] x[o, r*M + m, n]; outi null: only
+// the real part is stored.
 struct CtOp {
-  const TI *xr, *xi;
-  const float *wr, *wi, *w2r, *w2i;
-  float *outr, *outi, *out2r, *out2i;
-  const float *k2x, *k2y, *k2z;
+  const float *xr, *xi, *wr, *wi;
+  float *outr, *outi;
   long long ostride;
-  int M, R, ncols, W;
+  int M, R, ncols;
   float scale;
   Butter bt;
 
-  __device__ __forceinline__ float fold(long long row, long long n) const {
-    if (k2x == nullptr) return 1.f;
-    const float k2 = k2x[row] + k2y[n / W] + k2z[n % W];
-    return k2 > 0.f ? 1.f / k2 : 0.f;
-  }
   __device__ __forceinline__ Cplx la(int, int j, long long m, int k) const {
     const long long a = ((long long)j * M + m) * M + k;
     return Cplx{wr[a], wi[a]};
   }
-  __device__ __forceinline__ Cplx la2(int, int j, long long m, int k) const {
-    const long long a = ((long long)j * M + m) * M + k;
-    return Cplx{w2r[a], w2i[a]};
-  }
   __device__ __forceinline__ Cplx lb(int o, int j, int k,
                                      long long n) const {
     const long long base = (long long)o * ostride + n;
-    if (INV) {
-      const long long row = (long long)j * M + k;
-      const long long a = base + row * ncols;
-      const float f = fold(row, n);
-      return Cplx{ldv(xr, a) * f, ldv(xi, a) * f};
-    }
     Cplx u{0.f, 0.f};
     for (int r = 0; r < R; ++r) {
-      const long long row = (long long)r * M + k;
-      const long long a = base + row * ncols;
-      const float f = fold(row, n);
-      const float vr = ldv(xr, a) * f, vi = ldv(xi, a) * f;
+      const long long a = base + ((long long)r * M + k) * ncols;
+      const float vr = xr[a], vi = xi[a];
       const float cr = bt.r[r][j], ci = bt.i[r][j];
       u.r = fmaf(cr, vr, fmaf(-ci, vi, u.r));
       u.i = fmaf(cr, vi, fmaf(ci, vr, u.i));
@@ -2246,15 +2348,8 @@ struct CtOp {
                                      float vr, float vi) const {
     const long long a =
         (long long)o * ostride + ((long long)j * M + m) * ncols + n;
-    stv(outr, a, vr * scale);
-    if (outi != nullptr) stv(outi, a, vi * scale);
-  }
-  __device__ __forceinline__ void st2(int o, int j, long long m, long long n,
-                                      float vr, float vi) const {
-    const long long a =
-        (long long)o * ostride + ((long long)j * M + m) * ncols + n;
-    stv(out2r, a, vr * scale);
-    stv(out2i, a, vi * scale);
+    outr[a] = vr * scale;
+    if (outi != nullptr) outi[a] = vi * scale;
   }
 };
 
@@ -2315,26 +2410,6 @@ struct ZFwdDense {
   }
 };
 
-// dense z inverse: out[m, n] = yr[m] . A[:, n] + yi[m] . B[:, n], i.e. the
-// real part of (yr + i yi)(A - i B), plus plane[m] (-1)^n
-struct ZInvDense {
-  const float *yr, *yi, *ta, *tb, *plane;
-  float* out;
-  int Zm, n2;
-  __device__ __forceinline__ Cplx la(int, int, long long m, int k) const {
-    return Cplx{yr[m * Zm + k], yi[m * Zm + k]};
-  }
-  __device__ __forceinline__ Cplx lb(int, int, int k, long long n) const {
-    const long long a = (long long)k * n2 + n;
-    return Cplx{ta[a], -tb[a]};
-  }
-  __device__ __forceinline__ void st(int, int, long long m, long long n,
-                                     float vr, float) const {
-    if (plane != nullptr) vr += (n & 1) ? -plane[m] : plane[m];
-    out[m * n2 + n] = vr;
-  }
-};
-
 // full-spectrum z inverse: (zr + i zi)[m, n] = (xr + i xi)[m] . Wz[:, n],
 // Wz entered as A = Re Wz, B = -Im Wz (n2 x n2), the complex result kept
 // for the y stage
@@ -2353,29 +2428,6 @@ struct ZFull {
                                      float vr, float vi) const {
     zr[m * n2 + n] = vr;
     zi[m * n2 + n] = vi;
-  }
-};
-
-// z-CT inverse, chunk j < Ri: P_j + i Q_j = (yr + i yi)[:, j*Kin:(j+1)*Kin]
-// (A_j - i B_j); P_j goes to out's column block j and Q_j to the scratch
-// zq, and zct_combine then forms the output blocks in place
-struct ZInvCT {
-  const float *yr, *yi, *ta, *tb;
-  float *out, *zq;
-  int Zm, n2, Kin, Kb;
-  __device__ __forceinline__ Cplx la(int, int j, long long m, int k) const {
-    const long long a = m * Zm + (long long)j * Kin + k;
-    return Cplx{yr[a], yi[a]};
-  }
-  __device__ __forceinline__ Cplx lb(int, int j, int k, long long n) const {
-    const long long a = ((long long)j * Kin + k) * Kb + n;
-    return Cplx{ta[a], -tb[a]};
-  }
-  __device__ __forceinline__ void st(int, int j, long long m, long long n,
-                                     float vr, float vi) const {
-    const long long a = m * n2 + (long long)j * Kb + n;
-    out[a] = vr;
-    zq[a] = vi;
   }
 };
 
@@ -2464,7 +2516,7 @@ bool gemm_dims(Dims& g, int nouter, int nj, long long M, long long N, int K,
 }
 
 // one product of a pass on cgemm_bf16 (the bf16 form)
-template <class Op, bool DUAL, bool A_REAL, bool OUT_REAL>
+template <class Op, bool A_REAL, bool OUT_REAL>
 cudaError_t launch_gemm_bf16(const Op& op, int nouter, int nj, long long M,
                              long long N, int K, bool m_fast,
                              cudaStream_t stream) {
@@ -2473,26 +2525,25 @@ cudaError_t launch_gemm_bf16(const Op& op, int nouter, int nj, long long M,
   if (!gemm_dims(g, nouter, nj, M, N, K, m_fast, blocks))
     return cudaErrorInvalidValue;
   ++g_launches[K_CGEMM_BF16];
-  cgemm_bf16<Op, DUAL, A_REAL, OUT_REAL>
+  cgemm_bf16<Op, A_REAL, OUT_REAL>
       <<<(unsigned)blocks, NT, 0, stream>>>(op, g);
   return cudaGetLastError();
 }
 
 // one product of a pass: cgemm, or cgemm_bf16 for the bf16 form
-template <class Op, bool DUAL, bool A_REAL, bool OUT_REAL>
+template <class Op, bool A_REAL, bool OUT_REAL>
 cudaError_t launch_gemm(const Op& op, int nouter, int nj, long long M,
                         long long N, int K, bool m_fast, bool bf16,
                         cudaStream_t stream) {
   if (bf16)
-    return launch_gemm_bf16<Op, DUAL, A_REAL, OUT_REAL>(op, nouter, nj, M, N,
-                                                        K, m_fast, stream);
+    return launch_gemm_bf16<Op, A_REAL, OUT_REAL>(op, nouter, nj, M, N, K,
+                                                  m_fast, stream);
   Dims g;
   long long blocks;
   if (!gemm_dims(g, nouter, nj, M, N, K, m_fast, blocks))
     return cudaErrorInvalidValue;
   ++g_launches[K_CGEMM];
-  cgemm<Op, DUAL, A_REAL, OUT_REAL><<<(unsigned)blocks, NT, 0, stream>>>(op,
-                                                                         g);
+  cgemm<Op, A_REAL, OUT_REAL><<<(unsigned)blocks, NT, 0, stream>>>(op, g);
   return cudaGetLastError();
 }
 
@@ -2509,67 +2560,16 @@ cudaError_t launch_butterfly(const float* re, const float* im, TO* ore,
   return cudaGetLastError();
 }
 
-// the inverse y CT of (n0, N1, Zm) (storage TI) into the f32 (sr, si),
-// for one or two table sets (dual: both from one staged input tile)
-template <class TI>
-cudaError_t y_inverse(const TI* xr, const TI* xi, const float* wAr,
-                      const float* wAi, const float* wBr, const float* wBi,
-                      float* sAr, float* sAi, float* sBr, float* sBi, int n0,
-                      int N1, int Zm, int Ry, int My, const float* ycoef,
-                      bool bf16, cudaStream_t stream) {
-  CtOp<true, TI> op = {};
-  op.xr = xr;
-  op.xi = xi;
-  op.wr = wAr;
-  op.wi = wAi;
-  op.w2r = wBr;
-  op.w2i = wBi;
-  op.outr = sAr;
-  op.outi = sAi;
-  op.out2r = sBr;
-  op.out2i = sBi;
-  op.ostride = (long long)N1 * Zm;
-  op.M = My;
-  op.R = Ry;
-  op.ncols = Zm;
-  op.W = 1;
-  op.scale = 1.f;
-  const Butter bt = make_butter(ycoef, Ry);
-  if (wBr != nullptr)
-    PMESH_TRY_E((launch_gemm<CtOp<true, TI>, true, false, false>(
-        op, n0, Ry, My, Zm, My, true, bf16, stream)));
-  else
-    PMESH_TRY_E((launch_gemm<CtOp<true, TI>, false, false, false>(
-        op, n0, Ry, My, Zm, My, true, bf16, stream)));
-  PMESH_TRY_E(launch_butterfly(sAr, sAi, sAr, sAi, n0, op.ostride, My, Ry,
-                               Zm, 1.f, bt, stream));
-  if (sBr == nullptr) return cudaSuccess;
-  return launch_butterfly(sBr, sBi, sBr, sBi, n0, op.ostride, My, Ry, Zm,
-                          1.f, bt, stream);
-}
-
 // the forward y CT of the f32 (n0, N1, ncols) z spectrum (xr, xi) into
 // (outr, outi), chunk-permuted along y, on cgemm (the f32 half-CT pass 1)
 cudaError_t y_forward(const float* xr, const float* xi, const float* wyr,
                       const float* wyi, const float* ycoef, float* outr,
                       float* outi, int n0, int N1, int ncols, int Ry, int My,
                       cudaStream_t stream) {
-  CtOp<false> op = {};
-  op.xr = xr;
-  op.xi = xi;
-  op.wr = wyr;
-  op.wi = wyi;
-  op.outr = outr;
-  op.outi = outi;
-  op.ostride = (long long)N1 * ncols;
-  op.M = My;
-  op.R = Ry;
-  op.ncols = ncols;
-  op.W = 1;
-  op.scale = 1.f;
-  op.bt = make_butter(ycoef, Ry);
-  return launch_gemm<CtOp<false>, false, false, false>(
-      op, n0, Ry, My, ncols, My, true, false, stream);
+  const CtOp op = {xr,    xi,    wyr, wyi, outr, outi, (long long)N1 * ncols,
+                   My,    Ry,    ncols, 1.f, make_butter(ycoef, Ry)};
+  return launch_gemm<CtOp, false, false>(op, n0, Ry, My, ncols, My, true,
+                                         false, stream);
 }
 
 // --- the tensor-core passes -----------------------------------------------
@@ -2769,39 +2769,34 @@ cudaError_t x_ct_tc(const TS* xr, const TS* xi, const void* tab_,
                           bt, stream);
 }
 
-// a dense complex DFT along the rows of (nouter, M, ncols) blocks on
-// cgemm (the inverse zy passes' y stage): the CtOp stage at R = 1, whose
-// butterfly is the identity; o1i null: only the real part (OUT_REAL)
-cudaError_t dense_rows(const float* xr, const float* xi, const float* wr,
-                       const float* wi, float* o1r, float* o1i, int nouter,
-                       int M, long long ncols, bool bf16,
-                       cudaStream_t stream) {
+// the real part of a dense complex DFT along the rows of (nouter, M,
+// ncols) blocks on cgemm (the full-spectrum inverse's y stage): the CtOp
+// stage at R = 1, whose butterfly is the identity
+cudaError_t dense_rows_real(const float* xr, const float* xi, const float* wr,
+                            const float* wi, float* out, int nouter, int M,
+                            long long ncols, bool bf16, cudaStream_t stream) {
   if (ncols > INT32_MAX) return cudaErrorInvalidValue;
   Butter one = {};
   one.r[0][0] = 1.f;
-  CtOp<false> op = {xr, xi, wr, wi, nullptr, nullptr, o1r, o1i, nullptr,
-                    nullptr, nullptr, nullptr, nullptr, (long long)M * ncols,
-                    M, 1, (int)ncols, 1, 1.f, one};
-  if (o1i == nullptr)
-    return launch_gemm<CtOp<false>, false, false, true>(
-        op, nouter, 1, M, ncols, M, true, bf16, stream);
-  return launch_gemm<CtOp<false>, false, false, false>(
-      op, nouter, 1, M, ncols, M, true, bf16, stream);
+  const CtOp op = {xr, xi,         wr, wi,  out, nullptr, (long long)M * ncols,
+                   M,  1,          (int)ncols, 1.f, one};
+  return launch_gemm<CtOp, false, true>(op, nouter, 1, M, ncols, M, true,
+                                        bf16, stream);
 }
 
-template <int NP, bool DATA_A, class TO = float>
+template <int NPT, int NPD, int MODE, class TO = float>
 cudaError_t launch_tc_gemm(const TcGemm& p, long long dtiles,
                            cudaStream_t stream) {
-  constexpr int smem = tg_smem<NP>();
+  constexpr int smem = tg_smem<NPT, NPD>();
   static_assert(smem <= TC_SMEM_MAX, "the ring fits in shared memory");
   const long long blocks = (long long)p.T * p.R * dtiles;
   if (blocks < 1 || blocks > INT32_MAX || p.R < 1 || p.R > kMaxR)
     return cudaErrorInvalidValue;
-  PMESH_TRY_E(cudaFuncSetAttribute(tc_gemm<NP, DATA_A, TO>,
+  PMESH_TRY_E(cudaFuncSetAttribute(tc_gemm<NPT, NPD, MODE, TO>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    smem));
   ++g_launches[K_TC_GEMM];
-  tc_gemm<NP, DATA_A, TO><<<(unsigned)blocks, TC_NT, smem, stream>>>(p);
+  tc_gemm<NPT, NPD, MODE, TO><<<(unsigned)blocks, TC_NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -2852,7 +2847,7 @@ cudaError_t dense_tc(const float* xr, const float* xi, const void* tab,
   g.T1 = T1;
   tg_one_chunk(g, nks);
   g.scale = scale;
-  PMESH_TRY_E((launch_tc_gemm<NP, false>(g, tiles, stream)));
+  PMESH_TRY_E((launch_tc_gemm<NP, NP, TG_XY>(g, tiles, stream)));
   if (!center) return cudaSuccess;
   Butter one = {};
   one.r[0][0] = 1.f;
@@ -2902,14 +2897,15 @@ cudaError_t z_dense_tc(const float* x, const void* tz, const float* zsum,
   g.T = g.T1 = (zm + TC_MODES - 1) / TC_MODES;
   tg_one_chunk(g, nks);
   g.scale = 1.f;
-  return launch_tc_gemm<NP, true>(g, tiles, stream);
+  return launch_tc_gemm<NP, NP, TG_Z>(g, tiles, stream);
 }
 
-// the R chunks' products of a CT stage (bf16) on tc_gemm: one-part block
-// table tab of one set, or two when o2r is set (T1 = M / 64 tiles each),
-// over the data tiles split (R M / 8 slices per column tile: chunk j's at
-// j M / 8), output rows j M + q of (nall / ncols, R M, ncols) blocks
-template <class TO>
+// the R chunks' products of a CT stage on tc_gemm: NPT-part block table
+// tab of one set, or two when o2r is set (T1 = M / 64 tiles each), over
+// the NPD-part data tiles split (R M / 8 slices per column tile: chunk
+// j's at j M / 8), output rows j M + q of (nall / ncols, R M, ncols)
+// blocks
+template <int NPT, int NPD, class TO>
 cudaError_t ct_chunks_tc(const void* tab, const bf16_t* split, TO* o1r,
                          TO* o1i, TO* o2r, TO* o2i, long long nall, int R,
                          int M, int ncols, float scale,
@@ -2937,8 +2933,8 @@ cudaError_t ct_chunks_tc(const void* tab, const bf16_t* split, TO* o1r,
     g.nk[j] = nks;
   }
   g.scale = scale;
-  return launch_tc_gemm<1, false, TO>(g, (nall + TC_COLS - 1) / TC_COLS,
-                                      stream);
+  return launch_tc_gemm<NPT, NPD, TG_XY, TO>(
+      g, (nall + TC_COLS - 1) / TC_COLS, stream);
 }
 
 // the forward CT stage in the bf16 products form along the rows of
@@ -2978,32 +2974,39 @@ cudaError_t ct_fwd_tc1(const TI* xr, const TI* xi, const void* tab,
   }
   ++g_launches[K_SPLIT];
   PMESH_TRY_E(cudaGetLastError());
-  return ct_chunks_tc(tab, split, o1r, o1i, o2r, o2i, nall, R, M, ncols,
-                      scale, stream);
+  return ct_chunks_tc<1, 1>(tab, split, o1r, o1i, o2r, o2i, nall, R, M,
+                            ncols, scale, stream);
 }
 
-// the inverse CT stage's products in the bf16 form: the chunk-permuted
-// (R M, ncols) spectrum (TI) folded by 1/k^2 when k2x is set and rounded
-// (split_cols), then y_j at rows j M + m of the f32 (p1r, p1i) [and (p2r,
-// p2i) by the second set when p2r is set] (tc_gemm over the chunks); the
-// butterfly sweep follows.  Scratch: split as ct_fwd_tc1's.
-template <class TI>
-cudaError_t ct_inv_tc1(const TI* xr, const TI* xi, const void* tab,
-                       const float* k2x, const float* k2y, const float* k2z,
-                       float* p1r, float* p1i, float* p2r, float* p2i,
-                       bf16_t* split, int R, int M, int ncols, int W,
-                       cudaStream_t stream) {
-  const long long tiles = ((long long)ncols + TC_COLS - 1) / TC_COLS;
+// the inverse CT stage's products on tc_gemm along the rows of (nouter,
+// R M, ncols) blocks of the chunk-permuted spectrum (TI), folded by 1/k^2
+// when k2x is set (W: the z width of a column n = y W + z): split_cols
+// (NPD parts: three for f32 data, one for the bf16 products or for
+// bf16-stored data, whose bf16 value is exact), then y_j at rows j M + m
+// of the f32 (p1r, p1i) [and (p2r, p2i) by the second set when p2r is
+// set] by the NPT-part block table tab (tc_gemm over the chunks).  The
+// butterfly follows: a sweep (the x pass), or the z inverse's split pass.
+// Scratch: split, ceil(nouter ncols / 128) R M / 8 slices of NPD parts.
+template <int NPT, int NPD, class TI>
+cudaError_t ct_inv_tc(const TI* xr, const TI* xi, const void* tab,
+                      const float* k2x, const float* k2y, const float* k2z,
+                      float* p1r, float* p1i, float* p2r, float* p2i,
+                      bf16_t* split, int nouter, int R, int M, int ncols,
+                      int W, cudaStream_t stream) {
+  const long long nall = (long long)nouter * ncols;
+  const long long tiles = (nall + TC_COLS - 1) / TC_COLS;
   const int nkt = R * (M / TC_DR);
   if (M % TC_MODES || tiles > INT32_MAX) return cudaErrorInvalidValue;
-  const SplitCols sp = {xr,    xi, k2x,   k2y,   k2z, split, nullptr,
-                        0,     ncols, R * M, ncols, ncols, W, nkt};
+  const SplitCols sp = {xr,   xi,    k2x,   k2y,   k2z, split,
+                        nullptr, (long long)R * M * ncols,
+                        nall, R * M, ncols, ncols, W,   nkt};
   ++g_launches[K_SPLIT];
-  split_cols<1, TI><<<dim3((unsigned)tiles, (nkt + SPLIT_SG - 1) / SPLIT_SG),
-                      128, 0, stream>>>(sp);
+  split_cols<NPD, TI><<<dim3((unsigned)tiles,
+                             (nkt + SPLIT_SG - 1) / SPLIT_SG),
+                        128, 0, stream>>>(sp);
   PMESH_TRY_E(cudaGetLastError());
-  return ct_chunks_tc(tab, split, p1r, p1i, p2r, p2i, ncols, R, M, ncols,
-                      1.f, stream);
+  return ct_chunks_tc<NPT, NPD, float>(tab, split, p1r, p1i, p2r, p2i, nall,
+                                       R, M, ncols, 1.f, stream);
 }
 
 // the z-CT forward in the bf16 products form: (rows, N2) real x into the
@@ -3075,7 +3078,7 @@ cudaError_t zct_fwd_tc1(const float* x, const void* tz, float* sr, float* si,
   g.nkd = nkd;
   g.jstep = Mq;
   g.scale = 1.f;
-  return launch_tc_gemm<1, true>(g, tiles, stream);
+  return launch_tc_gemm<1, 1, TG_Z>(g, tiles, stream);
 }
 
 // the x CT of pmesh_xct_multi in the bf16 products form, the spectra
@@ -3108,8 +3111,9 @@ cudaError_t x_ct(const TS* xr, const TS* xi, const void* tab,
     p2r = o2r != nullptr ? s2r : nullptr;
     p2i = s2i;
   }
-  PMESH_TRY_E(ct_inv_tc1<TS>(xr, xi, tab, k2x, k2y, k2z, p1r, p1i, p2r, p2i,
-                             split, R, M, (int)ncols, W, stream));
+  PMESH_TRY_E((ct_inv_tc<1, 1, TS>(xr, xi, tab, k2x, k2y, k2z, p1r, p1i, p2r,
+                                   p2i, split, 1, R, M, (int)ncols, W,
+                                   stream)));
   PMESH_TRY_E(launch_butterfly(p1r, p1i, o1r, o1i, 1, 0, M, R, (int)ncols,
                                scale, bt, stream));
   if (o2r == nullptr) return cudaSuccess;
@@ -3117,27 +3121,153 @@ cudaError_t x_ct(const TS* xr, const TS* xi, const void* tab,
                           bt, stream);
 }
 
-// the z inverse of the natural-y (rows, Zm) spectrum (yr, yi) into real
-// (rows, n2), plus the plane
-cudaError_t z_inverse(const float* yr, const float* yi, const float* ta,
-                      const float* tb, int zct, int Ri, int Kin, int Kb,
-                      const float* plane, float* out, float* zq,
-                      long long rows, int Zm, int n2, const float* zcoef,
-                      bool bf16, cudaStream_t stream) {
-  if (!zct) {
-    ZInvDense op = {yr, yi, ta, tb, plane, out, Zm, n2};
-    return launch_gemm<ZInvDense, false, false, true>(op, 1, 1, rows, n2, Zm,
-                                                      false, bf16, stream);
+template <int NP, int R>
+cudaError_t launch_split_zinv(const SplitZinv& sp, dim3 grid,
+                              cudaStream_t stream) {
+  constexpr int smem = zi_smem(R);
+  static_assert(smem <= TC_SMEM_MAX, "the staged rows fit");
+  if (smem > 48 * 1024)
+    PMESH_TRY_E(cudaFuncSetAttribute(split_zinv<NP, R>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     smem));
+  ++g_launches[K_SPLIT];
+  split_zinv<NP, R><<<grid, 256, smem, stream>>>(sp);
+  return cudaGetLastError();
+}
+
+// the z inverse on tc_gemm of the f32 y output (yr, yi) (nouter, R M,
+// Zm), chunk j of an R-way y CT at rows j M + m (split_zinv forms the
+// inverse butterfly, coefficients bt; R = 1: natural rows, nouter = 1,
+// M = the rows), into real (nouter R M, n2): the dense (Zm, n2) pair
+// (zct = 0), plus plane[m] (-1)^n when plane is set, or the Ri z-CT
+// chunks (Kin, Kb) into (out, zq) and zct_combine (coefficients zcoef,
+// the plane there).  tz: z_inv_block_table's NP-part tiles.  Scratch:
+// split, ceil(rows / 128) ceil(Zm / 8) slices of NP parts.
+template <int NP>
+cudaError_t z_inv_tc(const float* yr, const float* yi, const void* tz,
+                     const float* plane, float* out, float* zq,
+                     bf16_t* split, long long nouter, int R, int M, int Zm,
+                     int n2, const Butter& bt, int zct, int Ri, int Kin,
+                     int Kb, const float* zcoef, cudaStream_t stream) {
+  const long long rows = nouter * R * M;
+  const long long tiles = (rows + TC_ROWS - 1) / TC_ROWS;
+  const int nks = (Zm + TC_DR - 1) / TC_DR;
+  const long long blocks =
+      nouter * (R == 1 ? (M + TC_ROWS - 1) / TC_ROWS * (TC_ROWS / ZI_ROWS)
+                       : M / ZI_ROWS);
+  if (tiles > INT32_MAX || blocks > INT32_MAX || (R > 1 && M % TC_ROWS) ||
+      (zct && (Ri < 1 || Ri > kMaxR || Ri * Kin != Zm || Kin % TC_DR ||
+               Kb % 2 || Ri * Kb != n2)))
+    return cudaErrorInvalidValue;
+  SplitZinv sp = {yr, yi, split, M, Zm, nks,
+                  Zm % 4 == 0 && aligned16(yr) && aligned16(yi), bt};
+  const dim3 grid((unsigned)blocks, (Zm + ZI_K - 1) / ZI_K);
+  switch (R) {
+    case 1:
+      PMESH_TRY_E((launch_split_zinv<NP, 1>(sp, grid, stream)));
+      break;
+    case 2:
+      PMESH_TRY_E((launch_split_zinv<NP, 2>(sp, grid, stream)));
+      break;
+    case 4:
+      PMESH_TRY_E((launch_split_zinv<NP, 4>(sp, grid, stream)));
+      break;
+    case 8:
+      PMESH_TRY_E((launch_split_zinv<NP, 8>(sp, grid, stream)));
+      break;
+    default:
+      return cudaErrorInvalidValue;
   }
-  ZInvCT op = {yr, yi, ta, tb, out, zq, Zm, n2, Kin, Kb};
-  PMESH_TRY_E((launch_gemm<ZInvCT, false, false, false>(
-      op, 1, Ri, rows, Kb, Kin, false, bf16, stream)));
+  TcGemm g = {};
+  g.tab = (const bf16_t*)tz;
+  g.dat = split;
+  g.o1r = out;
+  g.nall = rows;
+  g.ncols = n2;
+  g.scale = 1.f;
+  if (!zct) {
+    g.plane = plane;
+    g.M = n2;
+    g.T = g.T1 = (n2 + TC_COLS - 1) / TC_COLS;
+    tg_one_chunk(g, nks);
+    return launch_tc_gemm<NP, NP, TG_ZREAL>(g, tiles, stream);
+  }
+  g.o1i = zq;
+  g.M = Kb;
+  g.T = g.T1 = (2 * Kb + TC_COLS - 1) / TC_COLS;
+  g.R = Ri;
+  g.nkd = nks;
+  g.jstep = Kb;
+  for (int j = 0; j < Ri; ++j) {
+    g.nk[j] = Kin / TC_DR;
+    g.tslice[j] = j * g.T * g.nk[j];
+    g.dslice[j] = j * g.nk[j];
+  }
+  PMESH_TRY_E((launch_tc_gemm<NP, NP, TG_ZREAL>(g, tiles, stream)));
   const long long n = rows * Kb;
-  const long long blocks = (n + 255) / 256;
-  if (blocks > INT32_MAX) return cudaErrorInvalidValue;
-  zct_combine<<<(unsigned)blocks, 256, 0, stream>>>(
+  if ((n + 255) / 256 > INT32_MAX) return cudaErrorInvalidValue;
+  zct_combine<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
       out, zq, plane, rows, n2, Ri, Kb, make_butter(zcoef, Ri));
   return cudaGetLastError();
+}
+
+// the zy inverse of pmesh_zy_inv_ct2 for one table set, or two when outB
+// is set (both y stages on one split of the spectrum), NPT-part tables
+// on NPD-part data (see ct_inv_tc)
+template <int NPT, int NPD, class TI>
+cudaError_t zy_inv_ct(const TI* xr, const TI* xi, const void* ty,
+                      const void* tzA, const void* tzB, int zct, int Ri,
+                      int Kin, int Kb, const float* planeA, float* outA,
+                      float* outB, float* sAr, float* sAi, float* sBr,
+                      float* sBi, float* zq, bf16_t* split, int n0, int N1,
+                      int Zm, int n2, int Ry, int My, const float* ycoef,
+                      const float* zcoef, cudaStream_t stream) {
+  const bool dual = outB != nullptr;
+  if (Ry * My != N1) return cudaErrorInvalidValue;
+  PMESH_TRY_E((ct_inv_tc<NPT, NPD, TI>(
+      xr, xi, ty, nullptr, nullptr, nullptr, sAr, sAi, dual ? sBr : nullptr,
+      sBi, split, n0, Ry, My, Zm, 1, stream)));
+  const Butter bt = make_butter(ycoef, Ry);
+  PMESH_TRY_E(z_inv_tc<NPT>(sAr, sAi, tzA, planeA, outA, zq, split, n0, Ry,
+                            My, Zm, n2, bt, zct, Ri, Kin, Kb, zcoef,
+                            stream));
+  if (!dual) return cudaSuccess;
+  return z_inv_tc<NPT>(sBr, sBi, tzB, nullptr, outB, zq, split, n0, Ry, My,
+                       Zm, n2, bt, zct, Ri, Kin, Kb, zcoef, stream);
+}
+
+// the three forms: bf16 products (one-part tables and data), f32 products
+// on a bf16-stored spectrum (three-part tables, the data one exact part),
+// f32 products
+int zy_inv_forms(const void* xr, const void* xi, const void* ty,
+                 const void* tzA, const void* tzB, int zct, int Ri, int Kin,
+                 int Kb, const float* planeA, float* outA, float* outB,
+                 float* sAr, float* sAi, float* sBr, float* sBi, float* zq,
+                 void* split, int n0, int N1, int Zm, int n2, int Ry, int My,
+                 const float* ycoef, const float* zcoef, int bf16, int bf16s,
+                 cudaStream_t stream) {
+  bf16_t* sp = (bf16_t*)split;
+  const bf16_t *br = (const bf16_t*)xr, *bi = (const bf16_t*)xi;
+  const float *fr = (const float*)xr, *fi = (const float*)xi;
+  if (bf16 && bf16s)
+    return (int)zy_inv_ct<1, 1, bf16_t>(br, bi, ty, tzA, tzB, zct, Ri, Kin,
+                                        Kb, planeA, outA, outB, sAr, sAi, sBr,
+                                        sBi, zq, sp, n0, N1, Zm, n2, Ry, My,
+                                        ycoef, zcoef, stream);
+  if (bf16)
+    return (int)zy_inv_ct<1, 1, float>(fr, fi, ty, tzA, tzB, zct, Ri, Kin,
+                                       Kb, planeA, outA, outB, sAr, sAi, sBr,
+                                       sBi, zq, sp, n0, N1, Zm, n2, Ry, My,
+                                       ycoef, zcoef, stream);
+  if (bf16s)
+    return (int)zy_inv_ct<3, 1, bf16_t>(br, bi, ty, tzA, tzB, zct, Ri, Kin,
+                                        Kb, planeA, outA, outB, sAr, sAi, sBr,
+                                        sBi, zq, sp, n0, N1, Zm, n2, Ry, My,
+                                        ycoef, zcoef, stream);
+  return (int)zy_inv_ct<3, 3, float>(fr, fi, ty, tzA, tzB, zct, Ri, Kin, Kb,
+                                     planeA, outA, outB, sAr, sAi, sBr, sBi,
+                                     zq, sp, n0, N1, Zm, n2, Ry, My, ycoef,
+                                     zcoef, stream);
 }
 
 }  // namespace
@@ -3158,8 +3288,8 @@ int pmesh_kernel_launches(long long* out, int n, int reset) {
   return K_KINDS;
 }
 
-// Every entry point takes bf16 (1: the bf16 products: cgemm_bf16, or
-// tc_gemm's one-part form for the forward passes); the ct2 entry points
+// Every entry point takes bf16 (1: the bf16 products: tc_gemm's one-part
+// form, or cgemm_bf16 in row 13's cgemm passes); the ct2 entry points
 // also bf16s (1: the spectra they read or write are stored in bf16, as
 // the void pointers say).
 
@@ -3266,61 +3396,42 @@ int pmesh_xct_multi(const void* xr, const void* xi, const float* wr,
       (bf16_t*)split, n1, W, R, M, inverse != 0, scale, bt, stream);
 }
 
-// (xr, xi) (n0, N1, Zm) -> out (n0, N1, n2).  (wyr, wyi): inverse y CT
-// (Ry, My, My), ycoef b[r][j] of W_R^{+rj}; zct = 0: (ta, tb) dense
-// (Zm, n2); zct = 1: (Ri, Kin, Kb) with zcoef the (Ri, Ri, 2) combination
-// cs[j][c].  plane (n0, N1) or null.  Scratch: (sr, si) (n0, N1, Zm) and,
-// for zct, zq (n0, N1, n2).  bf16s: (xr, xi) are bf16.
-int pmesh_zy_inv_ct2(const void* xr, const void* xi, const float* wyr,
-                     const float* wyi, const float* ta, const float* tb,
-                     int zct, int Ri, int Kin, int Kb, const float* plane,
-                     float* out, float* sr, float* si, float* zq, int n0,
-                     int N1, int Zm, int n2, int Ry, int My,
-                     const float* ycoef, const float* zcoef, int bf16,
-                     int bf16s, void* stream_) {
-  cudaStream_t stream = (cudaStream_t)stream_;
-  if (bf16s)
-    PMESH_TRY(y_inverse((const bf16_t*)xr, (const bf16_t*)xi, wyr, wyi, nullptr,
-                        nullptr, sr, si, nullptr, nullptr, n0, N1, Zm, Ry,
-                        My, ycoef, bf16, stream));
-  else
-    PMESH_TRY(y_inverse((const float*)xr, (const float*)xi, wyr, wyi,
-                        nullptr, nullptr, sr, si, nullptr, nullptr, n0, N1,
-                        Zm, Ry, My, ycoef, bf16, stream));
-  PMESH_TRY(z_inverse(sr, si, ta, tb, zct, Ri, Kin, Kb, plane, out, zq,
-                      (long long)n0 * N1, Zm, n2, zcoef, bf16, stream));
-  return 0;
+// (xr, xi) (n0, N1, Zm) -> out (n0, N1, n2): the inverse y CT by (Ry, My,
+// My) tables, ycoef b[r][j] of W_R^{+rj}, then the z inverse, zct = 0:
+// dense (Zm, n2); zct = 1: (Ri, Kin, Kb) chunks with zcoef the (Ri, Ri,
+// 2) combination cs[j][c]; plus plane (n0, N1) times (-1)^n when set.
+// ty: ct_block_table's tiles of the y pair, tz: z_inv_block_table's of
+// the z pair, both swizzled, three parts for the f32 products (bf16 =
+// 0), one for the bf16 products.  Scratch: (sr, si) (n0, N1, Zm), split
+// (the larger stage's data tiles) and, for zct, zq (n0, N1, n2).  bf16s:
+// (xr, xi) are bf16.
+int pmesh_zy_inv_ct2(const void* xr, const void* xi, const void* ty,
+                     const void* tz, int zct, int Ri, int Kin, int Kb,
+                     const float* plane, float* out, float* sr, float* si,
+                     float* zq, void* split, int n0, int N1, int Zm, int n2,
+                     int Ry, int My, const float* ycoef, const float* zcoef,
+                     int bf16, int bf16s, void* stream_) {
+  return zy_inv_forms(xr, xi, ty, tz, nullptr, zct, Ri, Kin, Kb, plane, out,
+                      nullptr, sr, si, nullptr, nullptr, zq, split, n0, N1,
+                      Zm, n2, Ry, My, ycoef, zcoef, bf16, bf16s,
+                      (cudaStream_t)stream_);
 }
 
-// the dual form: set A (wyA, taA, tbA, planeA) -> outA, set B -> outB,
-// both y stages from one staged input tile.  Scratch (sAr, sAi, sBr, sBi)
-// (n0, N1, Zm) and, for zct, zq (n0, N1, n2).  bf16s: (xr, xi) are bf16.
-int pmesh_zy_inv_ct2_dual(const void* xr, const void* xi,
-                          const float* wyAr, const float* wyAi,
-                          const float* taA, const float* tbA,
-                          const float* wyBr, const float* wyBi,
-                          const float* taB, const float* tbB, int zct, int Ri,
+// the dual form: set A (the y sets' tiles ty, both sets; tzA, planeA) ->
+// outA, set B (tzB) -> outB, both y stages on one split of the spectrum.
+// Scratch (sAr, sAi, sBr, sBi) (n0, N1, Zm), split and, for zct, zq (n0,
+// N1, n2).  bf16s: (xr, xi) are bf16.
+int pmesh_zy_inv_ct2_dual(const void* xr, const void* xi, const void* ty,
+                          const void* tzA, const void* tzB, int zct, int Ri,
                           int Kin, int Kb, const float* planeA, float* outA,
                           float* outB, float* sAr, float* sAi, float* sBr,
-                          float* sBi, float* zq, int n0, int N1, int Zm,
-                          int n2, int Ry, int My, const float* ycoef,
+                          float* sBi, float* zq, void* split, int n0, int N1,
+                          int Zm, int n2, int Ry, int My, const float* ycoef,
                           const float* zcoef, int bf16, int bf16s,
                           void* stream_) {
-  cudaStream_t stream = (cudaStream_t)stream_;
-  const long long rows = (long long)n0 * N1;
-  if (bf16s)
-    PMESH_TRY(y_inverse((const bf16_t*)xr, (const bf16_t*)xi, wyAr, wyAi, wyBr,
-                        wyBi, sAr, sAi, sBr, sBi, n0, N1, Zm, Ry, My, ycoef,
-                        bf16, stream));
-  else
-    PMESH_TRY(y_inverse((const float*)xr, (const float*)xi, wyAr, wyAi,
-                        wyBr, wyBi, sAr, sAi, sBr, sBi, n0, N1, Zm, Ry, My,
-                        ycoef, bf16, stream));
-  PMESH_TRY(z_inverse(sAr, sAi, taA, tbA, zct, Ri, Kin, Kb, planeA, outA, zq,
-                      rows, Zm, n2, zcoef, bf16, stream));
-  PMESH_TRY(z_inverse(sBr, sBi, taB, tbB, zct, Ri, Kin, Kb, nullptr, outB,
-                      zq, rows, Zm, n2, zcoef, bf16, stream));
-  return 0;
+  return zy_inv_forms(xr, xi, ty, tzA, tzB, zct, Ri, Kin, Kb, planeA, outA,
+                      outB, sAr, sAi, sBr, sBi, zq, split, n0, N1, Zm, n2, Ry,
+                      My, ycoef, zcoef, bf16, bf16s, (cudaStream_t)stream_);
 }
 
 // --- the dense pipeline ---------------------------------------------------
@@ -3390,18 +3501,36 @@ int pmesh_x_dense(const float* xr, const float* xi, const float* wr,
                           (int)ncols, 0, W, scale, center != 0, stream);
 }
 
-// (xr, xi) (n0, N1, Zh) -> out (n0, N1, n2): the dense inverse y DFT by
-// (wyr, wyi) (N1, N1) into the scratch (sr, si) (n0, N1, Zh), then
-// z half -> real by the (Zh, n2) irfft pair (ta, tb).
-int pmesh_zy_inv_half(const float* xr, const float* xi, const float* wyr,
-                      const float* wyi, const float* ta, const float* tb,
-                      float* out, float* sr, float* si, int n0, int N1,
-                      int Zh, int n2, int bf16, void* stream_) {
+// (xr, xi) (n0, N1, Zh) -> out (n0, N1, n2): the dense inverse y DFT
+// by ty, the block table of the (N1, N1) pair, into the scratch (sr, si)
+// (n0, N1, Zh), then z half -> real by tz, z_inv_block_table's of the
+// (Zh, n2) irfft pair, on the tensor cores (three-part tables, one-part
+// for bf16).  Scratch: split (the larger stage's data tiles).
+int pmesh_zy_inv_half(const float* xr, const float* xi, const void* ty,
+                      const void* tz, float* out, float* sr, float* si,
+                      void* split, int n0, int N1, int Zh, int n2, int bf16,
+                      void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
-  PMESH_TRY(dense_rows(xr, xi, wyr, wyi, sr, si, n0, N1, Zh, bf16, stream));
-  PMESH_TRY(z_inverse(sr, si, ta, tb, 0, 1, Zh, n2, nullptr, out, nullptr,
-                      (long long)n0 * N1, Zh, n2, nullptr, bf16, stream));
-  return 0;
+  bf16_t* sp = (bf16_t*)split;
+  const long long rows = (long long)n0 * N1;
+  if (rows > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const Butter one = {};
+  if (bf16) {
+    PMESH_TRY(dense_tc<1>(xr, xi, ty, nullptr, nullptr, nullptr, nullptr,
+                          nullptr, nullptr, nullptr, nullptr, sr, si, nullptr,
+                          nullptr, sp, nullptr, n0, N1, Zh, Zh,
+                          (long long)N1 * Zh, 1, 1.f, false, stream));
+    return (int)z_inv_tc<1>(sr, si, tz, nullptr, out, nullptr, sp, 1, 1,
+                            (int)rows, Zh, n2, one, 0, 1, 0, 0, nullptr,
+                            stream);
+  }
+  PMESH_TRY(dense_tc<3>(xr, xi, ty, nullptr, nullptr, nullptr, nullptr,
+                        nullptr, nullptr, nullptr, nullptr, sr, si, nullptr,
+                        nullptr, sp, nullptr, n0, N1, Zh, Zh,
+                        (long long)N1 * Zh, 1, 1.f, false, stream));
+  return (int)z_inv_tc<3>(sr, si, tz, nullptr, out, nullptr, sp, 1, 1,
+                          (int)rows, Zh, n2, one, 0, 1, 0, 0, nullptr,
+                          stream);
 }
 
 // --- the older pipelines (fft_mxu_ref.py) ---------------------------------
@@ -3416,10 +3545,9 @@ int pmesh_zy_inv_full(const float* xr, const float* xi, const float* wyr,
                       int N2, int bf16, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   ZFull zop = {xr, xi, ta, tb, sr, si, N2};
-  PMESH_TRY((launch_gemm<ZFull, false, false, false>(
+  PMESH_TRY((launch_gemm<ZFull, false, false>(
       zop, 1, 1, (long long)n0 * N1, N2, N2, false, bf16, stream)));
-  PMESH_TRY(dense_rows(sr, si, wyr, wyi, out, nullptr, n0, N1, N2, bf16,
-                       stream));
+  PMESH_TRY(dense_rows_real(sr, si, wyr, wyi, out, n0, N1, N2, bf16, stream));
   return 0;
 }
 
@@ -3437,7 +3565,7 @@ int pmesh_zy_fwd_half_ct(const float* x, const float* wzr, const float* wzi,
                          void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   ZFwdDense zop = {x, wzr, wzi, sr, si, N2, Zh};
-  PMESH_TRY((launch_gemm<ZFwdDense, false, true, false>(
+  PMESH_TRY((launch_gemm<ZFwdDense, true, false>(
       zop, 1, 1, (long long)n0 * N1, Zh, N2, false, bf16, stream)));
   if (bf16)
     return (int)ct_fwd_tc1<float, float>(

@@ -39,7 +39,17 @@ mean in f32 chains as the ct2 passes do (z modes [0, 8), column 0 of
 the y and x stages; the x pass on a forward table alone, as
 ``xct_multi`` on its forward passes); the z stage also chains the few
 modes past its last whole 64-mode table tile (``z_tc_modes``: the
-Nyquist mode of N2 = 384).  Every other pass runs on the FP32 ``cgemm``.
+Nyquist mode of N2 = 384).
+
+The zy inverses ``zy_inv_ct2``, ``zy_inv_ct2_dual``, ``zy_inv_half``
+(and row 13's ``zy_inv_half_ct``) run on ``tc_gemm`` too, in every
+form: the y stage on the y tables' ``ct_block_table`` tiles (both sets
+of the dual on one split of the spectrum), the z stage as one
+real-output product of the y output's rows (the inverse y butterfly
+formed in its split pass) and the stacked irfft pair [A; B]
+(``z_inv_block_table``; the z-CT's chunks with their P and Q columns),
+the Nyquist plane added in f32.  Row 13's full-spectrum inverse and
+half-CT forward z stage run on the FP32 ``cgemm``.
 
 Two forms besides the f32 one, which the kernels take or refuse, never
 swap for another:
@@ -52,12 +62,13 @@ swap for another:
   1)``, ``zct_block_table``, ``z_real_block_table``, ``tile_swizzle``-d)
   behind split passes that form each butterfly once and round it
   (``split_ct``, ``split_zct``, ``split_cols``); the zy inverses on
-  ``cgemm_bf16``;
+  one-part tables likewise (``split_cols``, ``split_zinv``);
 - bf16 spectrum storage (``fft='mxu_bf16s'``), on the four ct2 passes
   only: ``zy_fwd_ct2(out_dtype=torch.bfloat16)`` writes its spectrum in
   bf16, ``xct_multi`` reads and writes bf16 when its input is bf16, and
-  ``zy_inv_ct2``/``zy_inv_ct2_dual`` read a bf16 spectrum.  The real
-  meshes and the Nyquist plane stay f32.
+  ``zy_inv_ct2``/``zy_inv_ct2_dual`` read a bf16 spectrum (f32
+  products: its one exact bf16 part against the three-part y table).
+  The real meshes and the Nyquist plane stay f32.
 
 ``LAUNCHES`` counts the calls of each kernel in each form: the key is
 the kernel's name, with ``_bf16`` for the bf16 products and ``_bf16s``
@@ -86,8 +97,8 @@ __all__ = ["zy_fwd_ct2", "xct_multi", "zy_inv_ct2", "zy_inv_ct2_dual",
            "zy_fwd_half", "x_dense", "zy_inv_half", "zy_fwd_full",
            "zy_inv_full", "zy_fwd_half_ct", "zy_inv_half_ct", "LAUNCHES",
            "reset_launches", "bf16_split3", "ct_block_table", "z_block_table",
-           "zct_block_table", "z_real_block_table", "z_tc_modes",
-           "tile_swizzle", "table_sums", "KERNEL_KINDS", "kernel_launches"]
+           "zct_block_table", "z_real_block_table", "z_inv_block_table",
+           "z_tc_modes", "tile_swizzle", "table_sums", "KERNEL_KINDS", "kernel_launches"]
 
 # the ct2 passes, which also take bf16 spectrum storage
 _STORAGE = ("zy_fwd_ct2", "xct_multi", "zy_inv_ct2", "zy_inv_ct2_dual")
@@ -120,14 +131,14 @@ def _load():
         lib.pmesh_xct_multi.argtypes = (
             [_P] * 20 + [_I] * 6 + [_F, _P, _I, _I, _P])
         lib.pmesh_zy_inv_ct2.argtypes = (
-            [_P] * 6 + [_I] * 4 + [_P] * 5 + [_I] * 6 + [_P] * 2
+            [_P] * 4 + [_I] * 4 + [_P] * 6 + [_I] * 6 + [_P] * 2
             + [_I, _I, _P])
         lib.pmesh_zy_inv_ct2_dual.argtypes = (
-            [_P] * 10 + [_I] * 4 + [_P] * 8 + [_I] * 6 + [_P] * 2
+            [_P] * 5 + [_I] * 4 + [_P] * 9 + [_I] * 6 + [_P] * 2
             + [_I, _I, _P])
         lib.pmesh_zy_fwd_half.argtypes = [_P] * 15 + [_I] * 6 + [_I, _P]
         lib.pmesh_x_dense.argtypes = [_P] * 17 + [_I] * 3 + [_F, _I, _I, _P]
-        lib.pmesh_zy_inv_half.argtypes = [_P] * 9 + [_I] * 4 + [_I, _P]
+        lib.pmesh_zy_inv_half.argtypes = [_P] * 8 + [_I] * 4 + [_I, _P]
         lib.pmesh_zy_inv_full.argtypes = [_P] * 9 + [_I] * 3 + [_I, _P]
         lib.pmesh_zy_fwd_half_ct.argtypes = [_P] * 12 + [_I] * 6 + [_I, _P]
         for fn in (lib.pmesh_zy_fwd_ct2, lib.pmesh_xct_multi,
@@ -316,6 +327,34 @@ def z_real_block_table(er, ei, zm, parts=3):
     return _parts(b.reshape(T, nks, 2 * _MODES, _BK), parts)
 
 
+def z_inv_block_table(a, b, parts=3):
+    """The split table of the z inverse's ``tc_gemm`` (real output, data
+    the row operand) for the (K, n2) irfft pair (A, B)[k, n] of out = yr A
+    + yi B (a 2-d pair: the dense z stage, one chunk) or the (Ri, K, Kb)
+    z-CT chunks (P_j = yr A_j + yi B_j in columns [0, Kb), Q_j = yi A_j -
+    yr B_j in [Kb, 2 Kb)): (R, T, nks, parts, 128, 16) bf16 bits
+    (uint16), T = ceil(width / 128) tiles of 128 output columns, nks =
+    ceil(K / 8) slices, the parts of ``bf16_split3`` on axis 3 (three, or
+    one: the bf16 rounding), zero past K and the width.  Tile t, row c:
+    output column t * 128 + c; slice s, column kk: data k = 8 s + kk mod
+    8, its real part (the row of A, or -B for Q) for kk < 8, its
+    imaginary part (B, or A for Q) above: the stacked [A; B], as
+    ``split_cols`` lays out a complex contraction."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    if a.ndim == 2:
+        cols = np.stack([a, b])[None]          # chunk, in part, k, column
+    else:
+        cols = np.concatenate([np.stack([a, b], 1), np.stack([-b, a], 1)],
+                              -1)
+    R, _, K, width = cols.shape
+    T, nks, dr = -(-width // 128), -(-K // (_BK // 2)), _BK // 2
+    big = np.zeros((R, 2, nks * dr, T * 128), np.float32)
+    big[:, :, :K, :width] = cols
+    # j, in part, s, k, t, c -> j, t, s, c, in part, k
+    big = big.reshape(R, 2, nks, dr, T, 128).transpose(0, 4, 2, 5, 1, 3)
+    return _parts(big.reshape(R, T, nks, 128, _BK), parts)
+
+
 def tile_swizzle(tab):
     """``tab`` (..., 128, 16) tiles as ``tc_gemm`` copies them whole into
     shared memory: the two 8-value halves of each row r swapped where
@@ -406,15 +445,16 @@ _SPLIT = {}
 
 def _split_cached(arrays, device, make, form=None):
     """the device copies of ``make()`` = (split table (uint16 bits of
-    bf16), f32 sums), made once per table objects ``arrays``, device and
-    ``form`` (the kind of block table and its parts: at a cube one DFT
-    table serves the z, y and x stages, whose block tables differ)"""
+    bf16), f32 sums or None), made once per table objects ``arrays``,
+    device and ``form`` (the kind of block table and its parts: at a cube
+    one DFT table serves the z, y and x stages, whose block tables
+    differ)"""
     key = (tuple(id(a) for a in arrays), str(device), form)
     hit = _SPLIT.get(key)
     if hit is None or any(h is not a for h, a in zip(hit[0], arrays)):
         host, sums = make()
         tab = torch.from_numpy(host.view(np.int16)).view(torch.bfloat16)
-        hit = (tuple(arrays), (tab.to(device),
+        hit = (tuple(arrays), (tab.to(device), None if sums is None else
                                torch.as_tensor(sums, device=device)))
         _SPLIT[key] = hit
     return hit[1]
@@ -499,7 +539,7 @@ def zy_fwd_ct2(x, wz, wy, bf16=False, out_dtype=torch.float32):
             tile_swizzle(zct_block_table(*wz) if zct else
                          z_real_block_table(*wz, zm, 1)),
             table_sums([z3], 1)[0]), ('z one part', 1))
-        ty = _ct_one_part([wy], dev)
+        ty = _ct_tiles([wy], dev)
         split = _split_scratch(max(_cdiv(n0 * N1, 128) * _cdiv(N2, _BK),
                                    _cdiv(n0 * Zm, 128) * (N1 // 8)),
                                True, dev)
@@ -539,7 +579,7 @@ def xct_multi(pr, pi, wx, scale, inverse=False, wx2=None, k2=None,
         tc = _split_cached(pairs, dev, lambda: (
             ct_block_table(sets), table_sums(sets, 2)))
     else:
-        tc = _ct_one_part(sets, dev)
+        tc = _ct_tiles(sets, dev)
         split = _split_scratch(_cdiv(n1 * W, 128) * (N0 // 8), True, dev)
     ks = [None] * 3
     if k2 is not None:
@@ -567,71 +607,86 @@ def _z_inv_form(AB, Zm, n2, what):
     """(zct, Ri, Kin, Kb, table shape) of an inverse z table pair"""
     if np.ndim(AB[0]) == 3:
         Ri, Kin, Kb = np.shape(AB[0])
-        if Ri * Kin != Zm or Ri * Kb != n2 or not 1 <= Ri <= 8:
+        if Ri * Kin != Zm or Ri * Kb != n2 or not 1 <= Ri <= 8 or Kin % 8:
             raise ValueError("%s: z-CT tables %s do not fit Zm=%d, n2=%d"
                              % (what, np.shape(AB[0]), Zm, n2))
         return 1, Ri, Kin, Kb, (Ri, Kin, Kb)
     return 0, 1, Zm, n2, (Zm, n2)
 
 
-def _inv_setup(rr, ii, n2, planes, what):
+def _z_inv_tiles(AB, dev, bf16):
+    """the block table of the z inverse's tc_gemm for the pair ``AB`` on
+    dev: ``z_inv_block_table``, swizzled (no sums: the inverse takes no
+    first element out)"""
+    return _split_cached(tuple(AB), dev, lambda: (
+        tile_swizzle(z_inv_block_table(*AB, parts=_parts_of(bf16))),
+        None), ('z inv', _parts_of(bf16)))[0]
+
+
+def _zy_inv_scratch(n0, N1, Zm, y_parts, z_parts, dev):
+    """the data tiles' scratch of a zy inverse: the larger of the y
+    stage's (columns (n0, Zm), N1 / 8 slices) and the z stage's (rows
+    n0 N1, ceil(Zm / 8) slices)"""
+    return torch.empty(max(_cdiv(n0 * Zm, 128) * _cdiv(N1, 8) * y_parts,
+                           _cdiv(n0 * N1, 128) * _cdiv(Zm, 8) * z_parts)
+                       * 128 * _BK, dtype=torch.bfloat16, device=dev)
+
+
+def _zy_inv_ct(what, rr, ii, Wys, ABs, n2, plane, bf16, half=False):
+    """the ct2 zy inverse of one or two table sets (``Wys``, ``ABs``) on
+    one read of (rr, ii): (n0, N1, n2) f32 outputs; the plane on the
+    first.  The spectrum holds Zm = n2 / 2 modes (the ct2 storage), or
+    n2 // 2 + 1 where ``half`` (row 13's half-CT form)"""
     n0, N1, Zm = rr.shape
+    if (n2 // 2 + 1 != Zm) if half else (n2 != 2 * Zm):
+        raise ValueError("%s: n2=%d does not fit Zm=%d" % (what, n2, Zm))
     dev = _check((rr, ii), rr.shape, what, _SPECTRUM)
     Ry, My = _split(N1, what, 1)
-    if n2 != 2 * Zm:
-        raise ValueError("%s: n2=%d must be 2 * Zm = %d" % (what, n2, 2 * Zm))
-    for p in planes:
-        if p is not None:
-            _check((p,), (n0, N1), what)
-    return dev, n0, N1, Zm, Ry, My
+    if plane is not None:
+        _check((plane,), (n0, N1), what)
+    zct, Ri, Kin, Kb, zshape = _z_inv_form(ABs[0], Zm, n2, what)
+    for AB in ABs:
+        if _z_inv_form(AB, Zm, n2, what)[0] != zct:
+            raise ValueError("%s: both z table sets must have one form"
+                             % what)
+        for a in AB:
+            _shape(a, zshape, what)
+    for Wy in Wys:
+        for a in Wy:
+            _shape(a, (Ry, My, My), what)
+    bf16s = rr.dtype == torch.bfloat16
+    ty = _ct_tiles(Wys, dev, _parts_of(bf16))
+    tz = [_z_inv_tiles(AB, dev, bf16) for AB in ABs]
+    outs = _empty((n0, N1, n2), dev, len(ABs))
+    scr = _empty((n0, N1, Zm), dev, 2 * len(ABs))
+    zq = torch.empty_like(outs[0]) if zct else None
+    split = _zy_inv_scratch(n0, N1, Zm, 1 if bf16 or bf16s else 3,
+                            _parts_of(bf16), dev)
+    _count(what, bf16, bf16s)
+    lib = _load()
+    args = [_ptr(rr), _ptr(ii), _ptr(ty[0])] + [_ptr(t) for t in tz] + [
+        zct, Ri, Kin, Kb, _ptr(plane)] + [_ptr(o) for o in outs] + [
+        _ptr(t) for t in scr] + [
+        _ptr(zq), _ptr(split), n0, N1, Zm, n2, Ry, My,
+        _host(_coef('inv', Ry)), _host(_coef('inv', Ri)) if zct else None,
+        int(bool(bf16)), int(bf16s), _stream(dev)]
+    fn = lib.pmesh_zy_inv_ct2 if len(ABs) == 1 else lib.pmesh_zy_inv_ct2_dual
+    _raise_on(fn(*args), what)
+    return outs
 
 
 def zy_inv_ct2(rr, ii, Wy, AB, n2, plane=None, bf16=False):
     """Row 7: (n0, N1, Zm) stored-order spectrum (f32, or bf16 for the
     bf16 storage form) -> real f32 (n0, N1, n2)."""
-    what = "zy_inv_ct2"
-    dev, n0, N1, Zm, Ry, My = _inv_setup(rr, ii, n2, (plane,), what)
-    zct, Ri, Kin, Kb, zshape = _z_inv_form(AB, Zm, n2, what)
-    wyr, wyi = (_table(a, (Ry, My, My), dev, what) for a in Wy)
-    ta, tb = (_table(a, zshape, dev, what) for a in AB)
-    out = torch.empty((n0, N1, n2), dtype=torch.float32, device=dev)
-    sr, si = _empty((n0, N1, Zm), dev, 2)
-    zq = torch.empty_like(out) if zct else None
-    bf16s = rr.dtype == torch.bfloat16
-    _count(what, bf16, bf16s)
-    rc = _load().pmesh_zy_inv_ct2(
-        _ptr(rr), _ptr(ii), _ptr(wyr), _ptr(wyi), _ptr(ta), _ptr(tb), zct,
-        Ri, Kin, Kb, _ptr(plane), _ptr(out), _ptr(sr), _ptr(si), _ptr(zq),
-        n0, N1, Zm, n2, Ry, My, _host(_coef('inv', Ry)),
-        _host(_coef('inv', Ri)), int(bool(bf16)), int(bf16s), _stream(dev))
-    _raise_on(rc, what)
-    return out
+    return _zy_inv_ct("zy_inv_ct2", rr, ii, [Wy], [AB], n2, plane,
+                      bf16)[0]
 
 
 def zy_inv_ct2_dual(rr, ii, WyA, ABA, WyB, ABB, n2, planeA=None,
                     bf16=False):
     """Row 8: (outA, outB) from one (rr, ii) read; planeA on A only."""
-    what = "zy_inv_ct2_dual"
-    dev, n0, N1, Zm, Ry, My = _inv_setup(rr, ii, n2, (planeA,), what)
-    zct, Ri, Kin, Kb, zshape = _z_inv_form(ABA, Zm, n2, what)
-    if _z_inv_form(ABB, Zm, n2, what)[0] != zct:
-        raise ValueError("%s: both z table sets must have one form" % what)
-    wy = [_table(a, (Ry, My, My), dev, what) for a in tuple(WyA) + tuple(WyB)]
-    zt = [_table(a, zshape, dev, what) for a in tuple(ABA) + tuple(ABB)]
-    outs = _empty((n0, N1, n2), dev, 2)
-    scr = _empty((n0, N1, Zm), dev, 4)
-    zq = torch.empty_like(outs[0]) if zct else None
-    bf16s = rr.dtype == torch.bfloat16
-    _count(what, bf16, bf16s)
-    rc = _load().pmesh_zy_inv_ct2_dual(
-        _ptr(rr), _ptr(ii), _ptr(wy[0]), _ptr(wy[1]), _ptr(zt[0]),
-        _ptr(zt[1]), _ptr(wy[2]), _ptr(wy[3]), _ptr(zt[2]), _ptr(zt[3]),
-        zct, Ri, Kin, Kb, _ptr(planeA), _ptr(outs[0]), _ptr(outs[1]),
-        *[_ptr(s) for s in scr], _ptr(zq), n0, N1, Zm, n2, Ry, My,
-        _host(_coef('inv', Ry)), _host(_coef('inv', Ri)), int(bool(bf16)),
-        int(bf16s), _stream(dev))
-    _raise_on(rc, what)
-    return outs[0], outs[1]
+    return tuple(_zy_inv_ct("zy_inv_ct2_dual", rr, ii, [WyA, WyB],
+                            [ABA, ABB], n2, planeA, bf16))
 
 
 # --- the dense passes (rows 3 and 4), natural order --------------------------
@@ -642,13 +697,13 @@ def zy_inv_ct2_dual(rr, ii, WyA, ABA, WyB, ABB, n2, planeA=None,
 # its data once into the scratch ``split`` (bf16, 2048 parts' values per
 # 128-row or -column tile and slice) before the products.
 
-def _ct_one_part(sets, dev):
-    """(block table, (sets, R, M, 2) row sums) of tc_gemm's one-part CT
-    stage for one or two (R, M, M) pairs on dev: ``ct_block_table``'s
-    bf16 rounding, swizzled"""
+def _ct_tiles(sets, dev, parts=1):
+    """(block table, (sets, R, M, 2) row sums) of tc_gemm's CT stage for
+    one or two (R, M, M) pairs on dev: ``ct_block_table`` in ``parts``
+    parts (one: the bf16 rounding), swizzled"""
     return _split_cached(tuple(a for p in sets for a in p), dev, lambda: (
-        tile_swizzle(ct_block_table(sets, 1)), table_sums(sets, 2)),
-        ('ct one part', 1))
+        tile_swizzle(ct_block_table(sets, parts)), table_sums(sets, 2)),
+        ('ct tiles', parts))
 
 
 def _parts_of(bf16):
@@ -769,15 +824,20 @@ def zy_inv_half(rr, ii, wy, AB, bf16=False):
         raise ValueError("%s: z tables of width %d do not fit Zh=%d"
                          % (what, n2, Zh))
     dev = _check((rr, ii), rr.shape, what)
-    wyr, wyi = (_table(a, (N1, N1), dev, what) for a in wy)
-    ta, tb = (_table(a, (Zh, n2), dev, what) for a in AB)
+    for a in wy:
+        _shape(a, (N1, N1), what)
+    for a in AB:
+        _shape(a, (Zh, n2), what)
+    ty = _dense_table([wy], dev, bf16)
+    tz = _z_inv_tiles(AB, dev, bf16)
     out = torch.empty((n0, N1, n2), dtype=torch.float32, device=dev)
     sr, si = _empty((n0, N1, Zh), dev, 2)
+    parts = _parts_of(bf16)
+    split = _zy_inv_scratch(n0, N1, Zh, parts, parts, dev)
     _count(what, bf16)
     rc = _load().pmesh_zy_inv_half(
-        _ptr(rr), _ptr(ii), _ptr(wyr), _ptr(wyi), _ptr(ta), _ptr(tb),
-        _ptr(out), _ptr(sr), _ptr(si), n0, N1, Zh, n2, int(bool(bf16)),
-        _stream(dev))
+        _ptr(rr), _ptr(ii), _ptr(ty[0]), _ptr(tz), _ptr(out), _ptr(sr),
+        _ptr(si), _ptr(split), n0, N1, Zh, n2, int(bool(bf16)), _stream(dev))
     _raise_on(rc, what)
     return out
 
@@ -819,7 +879,7 @@ def zy_fwd_half_ct(x, wz, wy, bf16=False):
     wyr, wyi = (_table(a, (Ry, My, My), dev, what) for a in wy)
     ty, split = (None, None), None
     if bf16:
-        ty = _ct_one_part([wy], dev)
+        ty = _ct_tiles([wy], dev)
         split = _split_scratch(_cdiv(n0 * Zh, 128) * (N1 // 8), True, dev)
     outr, outi, sr, si = _empty((n0, N1, Zh), dev, 4)
     _count(what, bf16)
@@ -837,20 +897,8 @@ def zy_inv_half_ct(rr, ii, Wy, AB, n2, bf16=False):
     (Ry, My, My) pair ``Wy``, then z half -> real by the (Zh, n2) irfft
     pair ``AB`` (the ct2 entry point at Zm = Zh, with no plane)."""
     what = "zy_inv_half_ct"
-    n0, N1, Zh = rr.shape
-    dev = _check((rr, ii), rr.shape, what)
-    Ry, My = _split(N1, what, 1)
-    if n2 // 2 + 1 != Zh:
-        raise ValueError("%s: n2=%d does not fit Zh=%d" % (what, n2, Zh))
-    wyr, wyi = (_table(a, (Ry, My, My), dev, what) for a in Wy)
-    ta, tb = (_table(a, (Zh, n2), dev, what) for a in AB)
-    out = torch.empty((n0, N1, n2), dtype=torch.float32, device=dev)
-    sr, si = _empty((n0, N1, Zh), dev, 2)
-    _count(what, bf16)
-    rc = _load().pmesh_zy_inv_ct2(
-        _ptr(rr), _ptr(ii), _ptr(wyr), _ptr(wyi), _ptr(ta), _ptr(tb), 0, 1,
-        Zh, n2, None, _ptr(out), _ptr(sr), _ptr(si), None, n0, N1, Zh, n2,
-        Ry, My, _host(_coef('inv', Ry)), None, int(bool(bf16)), 0,
-        _stream(dev))
-    _raise_on(rc, what)
-    return out
+    if np.ndim(AB[0]) != 2:
+        raise ValueError("%s: the z tables are the (Zh, n2) irfft pair"
+                         % what)
+    return _zy_inv_ct(what, rr, ii, [Wy], [AB], n2, None, bf16,
+                      half=True)[0]

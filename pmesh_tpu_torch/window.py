@@ -13,7 +13,7 @@ from .ops.kernels import Window, windows, find_window
 __all__ = ["Affine", "ResampleWindow", "FindResampler"]
 
 _GENERIC = ("the generic scatter paint/readout is not ported yet "
-            "(ROADMAP queue 1, item 7); use ops.gridpm for lattice "
+            "(ROADMAP queue 1, item 3); use ops.gridpm for lattice "
             "particles")
 
 

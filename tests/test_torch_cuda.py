@@ -746,12 +746,11 @@ def test_tc_dense_matches_plain(dev, shape):
 
 
 def test_tc_dense_launches_no_cgemm(dev):
-    """the two entry points in every form (f32 and bf16 products;
-    forward, dual inverse with 1/k^2, row 13's full width) launch the
-    split passes and tc_gemm, and never cgemm or cgemm_bf16 (the C entry
-    points' counts); one dense spectral force launches exactly its
-    forward passes' tc_gemm, split and chain kernels, and cgemm for its
-    three zy inverses alone"""
+    """the three entry points in every form (f32 and bf16 products;
+    forward, dual inverse with 1/k^2, row 13's full width, the zy
+    inverse) launch the split passes and tc_gemm, and never cgemm or
+    cgemm_bf16 (the C entry points' counts); one dense spectral force
+    launches exactly its passes' tc_gemm, split and chain kernels"""
     from pmesh_tpu_torch import ParticleMesh
     from pmesh_tpu_torch.models.fastpm import Solver
     from pmesh_tpu_torch.ops import fft_mxu as fm
@@ -771,7 +770,9 @@ def test_tc_dense_launches_no_cgemm(dev):
         'x_dense': lambda b: fk.x_dense(pr, pi, fm._dft_np(N0, -1),
                                         1.0 / N0, bf16=b),
         'x_dense dual': lambda b: fk.x_dense(pr, pi, wx, 1.0, wx2=wg,
-                                             k2=k2, bf16=b)}
+                                             k2=k2, bf16=b),
+        'zy_inv_half': lambda b: fk.zy_inv_half(
+            pr, pi, fm._dft_np(N1, +1), fm._irfft_mats_np(n2, Zh), bf16=b)}
     for name, call in calls.items():
         for b in (False, True):
             fk.kernel_launches(reset=True)
@@ -787,18 +788,19 @@ def test_tc_dense_launches_no_cgemm(dev):
     fk.kernel_launches(reset=True)
     Solver(pm).force_lattice(disp, (0.0, 1.0), mode='spectral', fft='mxu')
     ks = fk.kernel_launches(reset=True)
-    # zy_fwd_half: z and y stages; x_dense forward and dual; the y stage
-    # and the forward x pass chain column 0; each zy_inv_half two cgemm
-    assert ks == dict(cgemm=6, cgemm_bf16=0, tc_ct=0, tc_z=0, tc_gemm=4,
-                      split=4, ct_fwd_col0=2), ks
+    # zy_fwd_half: z and y stages; x_dense forward and dual; the three
+    # zy_inv_half's y and z stages; the forward y stage and the forward x
+    # pass chain column 0
+    assert ks == dict(cgemm=0, cgemm_bf16=0, tc_ct=0, tc_z=0, tc_gemm=10,
+                      split=10, ct_fwd_col0=2), ks
 
 
 def test_tc_ct2_bf16_launches_no_cgemm(dev):
     """the bf16-product forms of xct_multi (forward, inverse, dual
-    inverse with 1/k^2) and zy_fwd_ct2 (z-CT and dense z stages), on f32
-    and bf16 spectra, launch split passes and tc_gemm and no cgemm_bf16
-    (the C entry points' counts); one mxu_bf16 ct2 force launches
-    cgemm_bf16 for its two zy inverses alone"""
+    inverse with 1/k^2), zy_fwd_ct2 (z-CT and dense z stages) and the zy
+    inverses (single and dual, dense and z-CT z stages), on f32 and bf16
+    spectra, launch split passes and tc_gemm and no cgemm_bf16 (the C
+    entry points' counts); so does one mxu_bf16 ct2 force"""
     from pmesh_tpu_torch import ParticleMesh
     from pmesh_tpu_torch.models.fastpm import Solver
     from pmesh_tpu_torch.ops import fft_mxu as fm
@@ -824,6 +826,20 @@ def test_tc_ct2_bf16_launches_no_cgemm(dev):
                                           fm._zy_fwd_ct2_call(
             x, n2, n2 // 2, fm._z_fwd_tabs(n2, n2 // 2),
             fm._ct_fwd_mats_np(n), precision='bf16', out_dtype=st))
+    rr, ii, _ = _fft_inputs(68, (2, n, 8), dev)
+    for n2 in (16, 1024):
+        AB, Wy = fm._z_inv_tabs(n2, n2 // 2), fm._ct_inv_mats_np(n)
+        rz, iz = (t.repeat(1, 1, n2 // 16) for t in (rr, ii))
+        # the y stage's split and tc_gemm (both sets of the dual), each
+        # set's z split and tc_gemm
+        calls['zy_inv_ct2 n2=%d' % n2] = (2, lambda p, q, st, AB=AB, Wy=Wy,
+                                          n2=n2, rz=rz, iz=iz:
+                                          fm._zy_inv_ct2_call(
+            rz.to(st), iz.to(st), Wy, AB, n2, precision='bf16'))
+        calls['zy_inv_ct2_dual n2=%d' % n2] = (3, lambda p, q, st, AB=AB,
+                                               Wy=Wy, n2=n2, rz=rz, iz=iz:
+                                               fm._zy_inv_ct2_call_dual(
+            rz.to(st), iz.to(st), Wy, AB, Wy, AB, n2, precision='bf16'))
     for name, (stages, call) in calls.items():
         for st in (torch.float32, torch.bfloat16):
             fk.kernel_launches(reset=True)
@@ -840,10 +856,132 @@ def test_tc_ct2_bf16_launches_no_cgemm(dev):
     Solver(pm).force_lattice(disp, (0.0, 1.0), mode='spectral',
                              fft='mxu_bf16')
     ks = fk.kernel_launches(reset=True)
-    # zy_fwd_ct2's z and y stages, the forward and dual x passes, each
-    # after its split pass; zy_inv_ct2 two cgemm_bf16, its dual three
-    assert ks == dict(cgemm=0, cgemm_bf16=5, tc_ct=0, tc_z=0, tc_gemm=4,
-                      split=4, ct_fwd_col0=0), ks
+    # each after its split pass: zy_fwd_ct2's z and y stages, the forward
+    # and dual x passes, zy_inv_ct2's y and z stages, its dual's y stage
+    # and two z stages
+    assert ks == dict(cgemm=0, cgemm_bf16=0, tc_ct=0, tc_z=0, tc_gemm=9,
+                      split=9, ct_fwd_col0=0), ks
+
+
+# --- the zy inverses on tc_gemm: split y stage, real-output z stage ----------
+
+def _filtered(seed, shape, dev, ct2=True):
+    """the x-inverted, 1/k^2-filtered half spectrum of a density 1 + 0.3
+    N(0, 1) of ``shape``, a force's zy-inverse input: ct2, (re, im) in
+    stored y and z order without the z-Nyquist column and that column's
+    real part as the Nyquist plane; dense, (re, im) in natural order
+    with the Nyquist column, and None"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    x = 1.0 + 0.3 * _fft_inputs(seed, shape, dev)[0]
+    k = torch.fft.rfftn(x, norm='forward')
+    kk = sum(torch.as_tensor(
+        (2 * np.pi * (np.fft.rfftfreq(n) if d == 2 else np.fft.fftfreq(n)))
+        ** 2, dtype=torch.float32, device=dev).reshape(
+            [-1 if e == d else 1 for e in range(3)])
+        for d, n in enumerate(shape))
+    k = torch.where(kk > 0, k / torch.where(kk > 0, kk, 1.0), 0.0)
+    s = torch.fft.ifft(k, dim=0) * shape[0]
+    if not ct2:
+        return s.real.contiguous(), s.imag.contiguous(), None
+    N1, n2 = shape[1:]
+    Zm = n2 // 2
+    sp = torch.empty_like(s[:, :, :Zm])
+    sp[:, torch.as_tensor(fm._ct_permute(N1), device=dev)] = s[:, :, :Zm]
+    if fm._use_zct_fwd(n2, Zm):
+        sp = torch.empty_like(sp).index_copy_(
+            2, torch.as_tensor(fm._zct_perm(n2), device=dev), sp)
+    return (sp.real.contiguous(), sp.imag.contiguous(),
+            s[:, :, Zm].real.contiguous())
+
+
+@pytest.mark.parametrize("n,n2", [(256, 10), (512, 16), (1024, 1024)])
+def test_tc_zy_inverse_forms_match_plain(dev, n, n2):
+    """zy_inv_ct2 and its dual on a 1/k^2-filtered spectrum with its
+    Nyquist plane, at y radices 2, 4 and 8 (n = 256, 512, 1024), a ragged
+    dense z stage (n2 = 10: 5 complex k, 10 output columns) and the z-CT
+    stage (n2 = 1024), with and without the plane, the SuperLanczos i k_y
+    and i k_z folded: f32 products on the f32 and on the bf16 spectrum
+    within TOL, bf16 products by the zy pass's bf16 criterion"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    Zm = n2 // 2
+    rr, ii, plane = _filtered(70, (2, n, n2), dev)
+    Wy, Wyg = fm._ct_inv_mats_np(n), fm._ct_inv_mats_np(n, fold_kvec=_sl(n))
+    AB = fm._z_inv_tabs(n2, Zm)
+    ABg = fm._z_inv_tabs(n2, Zm, grad_kvec=_sl(n2, half=True))
+    assert (np.ndim(AB[0]) == 3) == (n2 == 1024)
+    hr, hi = rr.to(torch.bfloat16), ii.to(torch.bfloat16)
+    for pl in (None, plane):
+        def single(p, q, impl, **k):
+            return (fm._zy_inv_ct2_call(p, q, Wyg, ABg, n2, plane=pl,
+                                        impl=impl, **k),)
+
+        def dual(p, q, impl, **k):
+            return fm._zy_inv_ct2_call_dual(p, q, Wyg, AB, Wy, ABg, n2,
+                                            planeA=pl, impl=impl, **k)
+        for call in (single, dual):
+            for p, q in ((rr, ii), (hr, hi)):
+                got, ref = (call(p, q, impl) for impl in ('cuda', 'torch'))
+                assert all(g.dtype == torch.float32 and _rel(g, r) <= TOL
+                           for g, r in zip(got, ref))
+            _assert_bf16_close(_products(
+                lambda impl, **k: call(rr, ii, impl, **k)), ZY)
+
+
+@pytest.mark.parametrize("shape", [(6, 40, 75), (20, 12, 10), (4, 96, 384)])
+def test_tc_zy_inv_half_forms_match_plain(dev, shape):
+    """zy_inv_half on a 1/k^2-filtered spectrum (its Nyquist column in
+    place) at the ragged z widths 75 (Zh = 38) and 10 and at 384 (Zh =
+    193), plain and folded tables: f32 products within TOL, bf16 by the
+    zy pass's bf16 criterion"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    N1, n2 = shape[1:]
+    Zh = n2 // 2 + 1
+    pr, pi, _ = _filtered(71, shape, dev, ct2=False)
+    wy, wyg = fm._dft_np(N1, +1), fm._dft_fold_np(N1, _sl(N1))
+    AB = fm._irfft_mats_np(n2, Zh)
+    ABg = fm._irfft_mats_np(n2, Zh, grad_kvec=_sl(n2, half=True))
+    for tabs in ((wy, AB), (wyg, AB), (wy, ABg)):
+        g, r = (fm._zy_inv_dense_call(pr, pi, *tabs, impl=impl)
+                for impl in ('cuda', 'torch'))
+        assert _rel(g, r) <= TOL
+        _assert_bf16_close(_products(
+            lambda impl, **k: (fm._zy_inv_dense_call(pr, pi, *tabs,
+                                                     impl=impl, **k),)), ZY)
+
+
+_CT2_F32_KINDS = dict(tc_ct=3, tc_z=1, tc_gemm=5, split=5, ct_fwd_col0=2)
+
+
+@pytest.mark.parametrize("fft,shape,kinds", [
+    ('mxu', (256, 256, 16), _CT2_F32_KINDS),
+    ('mxu_bf16s', (256, 256, 16), _CT2_F32_KINDS),
+    ('mxu_bf16', (256, 256, 16), dict(tc_gemm=9, split=9)),
+    ('mxu', (48, 40, 33), dict(tc_gemm=10, split=10, ct_fwd_col0=2)),
+    ('mxu_bf16', (48, 40, 33), dict(tc_gemm=10, split=10))])
+def test_tc_forces_launch_no_cgemm(dev, fft, shape, kinds):
+    """one spectral force in each fft='mxu' mode, ct2 and dense, launches
+    exactly its passes' device kernels (the C entry points' counts by
+    kind) and no cgemm or cgemm_bf16: ct2 f32 products, tc_z and tc_ct
+    for the forward z, y and x stages and the dual inverse x pass, column
+    0 chained after the forward y and x stages, the zy inverses' y stage
+    (one for both sets of the dual) and each set's z stage on tc_gemm
+    after their split passes; the bf16 products and the dense passes on
+    tc_gemm throughout"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import fft_mxu_cuda as fk
+    pm = ParticleMesh(shape, BoxSize=np.asarray(shape, float), dtype='f4',
+                      device=dev)
+    disp, _, _ = _inputs(72, shape, (0.0, 1.0), dev)
+    solver = Solver(pm)
+    solver.force_lattice(disp, (0.0, 1.0), mode='spectral', fft=fft)
+    fk.kernel_launches(reset=True)
+    solver.force_lattice(disp, (0.0, 1.0), mode='spectral', fft=fft)
+    ks = fk.kernel_launches(reset=True)
+    want = dict(cgemm=0, cgemm_bf16=0, tc_ct=0, tc_z=0, tc_gemm=0, split=0,
+                ct_fwd_col0=0)
+    want.update(kinds)
+    assert ks == want, ks
 
 
 # --- the row-13 pipelines (ops/fft_mxu_ref.py) on the kernels ----------------

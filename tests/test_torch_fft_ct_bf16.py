@@ -1,7 +1,9 @@
-"""CPU evidence for the bf16-product forms of the forward ct2 DFT passes
-(fft='mxu_bf16'): zy_fwd_ct2 and xct_multi on tc_gemm, fed by split
-passes that fold the Cooley-Tukey butterfly (csrc/fft_mxu.cu, split_ct,
-split_zct, split_cols, tc_gemm).
+"""CPU evidence for the bf16-product forms of the ct2 DFT passes and the
+dense zy inverse (fft='mxu_bf16'): zy_fwd_ct2 and xct_multi on tc_gemm,
+fed by split passes that fold the Cooley-Tukey butterfly
+(csrc/fft_mxu.cu, split_ct, split_zct, split_cols, tc_gemm), and the zy
+inverses zy_inv_ct2, zy_inv_ct2_dual and zy_inv_half, whose real-output
+z stage reads split_zinv's tiles (the inverse y butterfly fused in).
 
 - the one-part block tables: ct_block_table(sets, 1) at R = 2, 4, 8
   (N = 256, 512, 1024; one and two sets) is the bf16 rounding of the
@@ -28,11 +30,27 @@ split_zct, split_cols, tc_gemm).
   x pass, the slab's zy pass and the z-CT stage alone; a zy pass with a
   z-CT stage as a chain of two products (its y operand is the z output
   rounded again), by the chained criterion (max gap 1e-2 of max, rms gap
-  0.15 of the bf16 rounding).
+  0.15 of the bf16 rounding);
+- the zy inverses' data path: the y products as above, the inverse
+  butterfly as split_zinv forms it (ct_inv_butterfly's fmaf chain, each
+  step rounded once: the two kernels' chains, read from
+  csrc/fft_mxu.cu, are one chain, and the fused butterfly is bitwise
+  the sweep's emulated terms), the y output rounded once into
+  split_zinv's tiles (slices of 8 complex k, re | im, swizzled) times
+  the one-part z_inv_block_table, one real product per row as tc_gemm's
+  real-output blocks run it: the z stage equal to the plain
+  yr A + yi B (bf16) up to the f32 sum order, and the path patched into
+  the plain zy_inv_ct2 (with the Nyquist plane), its dual and
+  zy_inv_half against the JAX package's kernels at Precision('default')
+  on 1/k^2-filtered spectra, a chain of two rounded products, by the
+  chained criterion.
 
 The tensor cores' own sum order is the card's part (tests/test_torch_
 cuda.py, chip_smoke.py).
 """
+import pathlib
+import re
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -518,3 +536,296 @@ def test_zy_fwd_zct_kernel_path_matches_jax(kernel_path, tpu_rounding):
         assert (np.sqrt(((r - g) ** 2).mean() / ((r - f) ** 2).mean())
                 <= TOL_CHAIN_RMS)
     assert _rel(ref[2], got[2]) <= 1e-6
+
+
+# --- the zy inverses: fused butterfly, real-output z stage ----------------------
+
+def fma32(a, b, c):
+    """fmaf on f32 tensors (a, c may be python floats), rounded once: the
+    exact f64 product a b plus c, rounded to odd in f64 (TwoSum's error
+    as the sticky bit), then to f32"""
+    def d(t):
+        return (t.double() if isinstance(t, torch.Tensor) else
+                torch.tensor(float(t), dtype=torch.float64))
+    p, c = d(a) * d(b), d(c)
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    s = torch.where((e != 0) & even,
+                    torch.nextafter(s, torch.where(e > 0, np.inf, -np.inf)
+                                    .double()), s)
+    return s.float()
+
+
+# the inverse butterfly's fmaf chain, as split_zinv and ct_inv_butterfly
+# write it in csrc/fft_mxu.cu (names normalised by _fmaf_chain)
+FMAF_CHAIN = ["cr = bt.r[r][j], ci = bt.i[r][j];",
+              "sr = fmaf(cr, yr, fmaf(-ci, yi, sr));",
+              "si = fmaf(cr, yi, fmaf(ci, yr, si));"]
+
+
+def _fmaf_chain(kernel):
+    """the coefficient load and the fmaf lines of ``kernel``'s body in
+    csrc/fft_mxu.cu: split_zinv's v[q] / v[8 + q] read as sr / si, its
+    p.bt as bt, the [q] / [j] subscripts of the data dropped"""
+    src = (pathlib.Path(fk.__file__).parent.parent / 'csrc' /
+           'fft_mxu.cu').read_text()
+    body = re.search(r'__global__ void[^{;]*?\b%s\(.*?\n}\n' % kernel, src,
+                     re.S).group(0)
+    lines = [ln.strip() for ln in body.splitlines()
+             if 'fmaf(' in ln or 'bt.r[r][j]' in ln]
+    norm = []
+    for ln in lines:
+        ln = ln.replace('const float ', '').replace('p.bt.', 'bt.')
+        ln = ln.replace('v[8 + q]', 'si').replace('v[q]', 'sr')
+        norm.append(re.sub(r'(yr|yi)\[[qj]\]', r'\1', ln))
+    return norm
+
+
+def fused_butterfly(ys):
+    """the inverse butterfly out_r = sum_j b[r][j] y_j of the chunks' y_j
+    = (yr, yi), as split_zinv forms it (FMAF_CHAIN): its 16 values v
+    from 0, re and im each an fmaf chain over j from the f32 constants of
+    W_R^{+rj}, stored unscaled into the tiles"""
+    R = len(ys)
+    c = fk._coef('inv', R)
+    outs = []
+    for r in range(R):
+        sr = si = torch.zeros_like(ys[0][0])
+        for j, (yr, yi) in enumerate(ys):
+            cr, ci = float(c[r, j, 0]), float(c[r, j, 1])
+            sr = fma32(cr, yr, fma32(-ci, yi, sr))
+            si = fma32(cr, yi, fma32(ci, yr, si))
+        outs.append((sr, si))
+    return outs
+
+
+def sweep_butterfly(ys, scale=1.0):
+    """ct_inv_butterfly's terms (FMAF_CHAIN), one element per thread:
+    the R values y_j (re, im) loaded, sr and si from 0.f, then stored as
+    sr * scale, si * scale (scale 1 in the zy inverse's y stage)"""
+    R = len(ys)
+    c = fk._coef('inv', R)
+    yr = torch.stack([y[0] for y in ys])
+    yi = torch.stack([y[1] for y in ys])
+    outs = []
+    for r in range(R):
+        sr = torch.full_like(yr[0], 0.0)
+        si = torch.full_like(yi[0], 0.0)
+        for j in range(R):
+            cr = torch.tensor(c[r, j, 0], dtype=torch.float32)
+            ci = torch.tensor(c[r, j, 1], dtype=torch.float32)
+            sr = fma32(cr, yr[j], fma32(-ci, yi[j], sr))
+            si = fma32(cr, yi[j], fma32(ci, yr[j], si))
+        outs.append((sr * scale, si * scale))
+    return outs
+
+
+def split_zinv(yr, yi):
+    """split_zinv's one-part data tiles of (rows, Zm) y rows: (tiles, nks,
+    128, 16) swizzled, row m's slice s the rounded re of k = 8 s .. 8 s +
+    7 | im, zero past Zm and rows"""
+    rows, Zm = yr.shape
+    tiles, nks = -(-rows // 128), -(-Zm // 8)
+    pad = [torch.nn.functional.pad(_rb(t), (0, nks * 8 - Zm,
+                                            0, tiles * 128 - rows))
+           for t in (yr, yi)]
+    # part, tile, row, s, k8 -> tile, s, row, part, k8
+    a = torch.stack(pad).reshape(2, tiles, 128, nks, 8).permute(1, 3, 2, 0, 4)
+    return swizzle(a.reshape(tiles, nks, 128, 16))
+
+
+def emu_z_inv(yr, yi, A, B):
+    """the z inverse of (..., Zm) y rows by the (Zm, n2) pair (A, B) as
+    the kernels run it (bf16): split_zinv's tiles times the swizzled
+    one-part z_inv_block_table, 128 real columns per table tile, the
+    slices' products summed in f32"""
+    lead, Zm = yr.shape[:-1], yr.shape[-1]
+    n2 = A.shape[-1]
+    dat = swizzle(split_zinv(yr.reshape(-1, Zm), yi.reshape(-1, Zm)))
+    tab = swizzle(table(fk.z_inv_block_table(A.numpy(), B.numpy(),
+                                             parts=1))[0, :, :, 0])
+    out = torch.einsum('xsrk,tsck->xrtc', dat, tab)
+    rows = int(np.prod(lead))
+    return out.reshape(-1, tab.shape[0] * 128)[:rows, :n2].reshape(*lead, n2)
+
+
+def emu_zy_inv(xr, xi, Wy, AB, n2, plane):
+    """the ct2 zy inverse (bf16) of (n0, N1, Zm) as the kernels run it:
+    the y chunks' products (emu_ct_inv_products), the fused butterfly,
+    the z stage (emu_z_inv), plus the plane (-1)^n in f32"""
+    wr, wi = (torch.from_numpy(np.asarray(a, np.float32)) for a in Wy)
+    R, M = wr.shape[:2]
+    n0, N1, Zm = xr.shape
+    cols = [t.permute(1, 0, 2).reshape(N1, n0 * Zm) for t in (xr, xi)]
+    pr, pi = emu_ct_inv_products(*cols, wr, wi)
+    outs = fused_butterfly([(pr[j * M:(j + 1) * M], pi[j * M:(j + 1) * M])
+                            for j in range(R)])
+    yr, yi = (torch.cat([o[h] for o in outs], 0).reshape(N1, n0, Zm)
+              .permute(1, 0, 2) for h in (0, 1))
+    out = emu_z_inv(yr, yi, *(torch.from_numpy(np.asarray(a, np.float32))
+                              for a in AB))
+    if plane is not None:
+        out = out + plane.float()[:, :, None] * fm._signs(n2, out)
+    return out
+
+
+def _filtered(shape, seed):
+    """(re, im) f32 of the x-inverted, 1/k^2-filtered half spectrum of a
+    density 1 + N(0, 1) of ``shape``, natural order, its Nyquist column
+    included"""
+    x = 1.0 + np.random.RandomState(seed).normal(size=shape)
+    k = np.fft.rfftn(x) / x.size
+    kk = sum((2 * np.pi * (np.fft.rfftfreq(n) if d == 2 else
+                           np.fft.fftfreq(n))).reshape(
+        [-1 if e == d else 1 for e in range(3)]) ** 2
+        for d, n in enumerate(shape))
+    k = np.where(kk > 0, k / np.where(kk > 0, kk, 1.0), 0.0)
+    s = np.fft.ifft(k, axis=0) * shape[0]
+    return s.real.astype('f4'), s.imag.astype('f4')
+
+
+def _sl(n, half=False):
+    w = (np.fft.rfftfreq(n) if half else np.fft.fftfreq(n)) * 2 * np.pi
+    return tuple(((8 * np.sin(w) - np.sin(2 * w)) / 6.0).tolist())
+
+
+@pytest.mark.parametrize("n2,Zm", [(16, 8), (75, 38), (384, 193),
+                                   (512, 256)])
+def test_z_inv_tiles_are_plain(n2, Zm):
+    """split_zinv's tiles times the one-part z_inv_block_table equal the
+    plain bf16 z stage yr A + yi B up to the f32 sum order (the dense
+    pairs at Zh = 38 and 193, the ct2 stored-order pairs at Zm = 8 and
+    256)"""
+    AB = (fm._z_inv_tabs(n2, Zm) if Zm == n2 // 2 else
+          fm._irfft_mats_np(n2, Zm, grad_kvec=_sl(n2, half=True)))
+    A, B = (torch.from_numpy(np.asarray(a, np.float32)) for a in AB)
+    yr, yi = _mean_one((3, 70, Zm), n2), _mean_one((3, 70, Zm), n2 + 1)
+    ref = fm._mm(yr, A, True) + fm._mm(yi, B, True)
+    assert _rel(ref, emu_z_inv(yr, yi, A, B)) <= TOL_ORDER
+
+
+def test_fma32_rounds_once():
+    """fma32 is fmaf: a = 1 + 2^-12, a a + 2^-60 is above the f32 tie
+    1 + 2^-11 + 2^-24 and rounds once to 1 + 2^-11 + 2^-23 (rounded to
+    f64 first, it lands on the tie and goes to even, 1 + 2^-11); a a -
+    (1 + 2^-11) is the product's exact tail 2^-24"""
+    a = torch.tensor([1 + 2.0 ** -12], dtype=torch.float32)
+    assert fma32(a, a, 2.0 ** -60).item() == 1 + 2.0 ** -11 + 2.0 ** -23
+    assert ((a.double() * a.double() + 2.0 ** -60).float().item()
+            == 1 + 2.0 ** -11)
+    assert fma32(a, a, -(1 + 2.0 ** -11)).item() == 2.0 ** -24
+
+
+def test_fused_butterfly_chain_is_the_sweeps():
+    """split_zinv and ct_inv_butterfly in csrc/fft_mxu.cu run one fmaf
+    chain, FMAF_CHAIN, the one fused_butterfly and sweep_butterfly
+    emulate"""
+    assert _fmaf_chain('split_zinv') == FMAF_CHAIN
+    assert _fmaf_chain('ct_inv_butterfly') == FMAF_CHAIN
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024])
+def test_fused_butterfly_is_the_sweep(n):
+    """the fused butterfly of split_zinv on the emulated y products:
+    bitwise ct_inv_butterfly's terms (sweep_butterfly at scale 1), the
+    plain inverse butterfly (_cmadd, each term rounded) up to f32
+    rounding, and _ct_inv_plain(bf16=True) to the f32 sum order"""
+    xr, xi = _mean_one((n, 24), n + 4), _mean_one((n, 24), n + 5)
+    wr, wi = (torch.from_numpy(a) for a in fm._ct_inv_mats_np(n))
+    R, M = wr.shape[:2]
+    pr, pi = emu_ct_inv_products(xr, xi, wr, wi)
+    ys = [(pr[j * M:(j + 1) * M], pi[j * M:(j + 1) * M]) for j in range(R)]
+    fused = fused_butterfly(ys)
+    for f, w in zip(fused, sweep_butterfly(ys)):
+        assert torch.equal(f[0], w[0]) and torch.equal(f[1], w[1])
+    got = [torch.cat([o[h] for o in fused], 0) for h in (0, 1)]
+    want = emu_ct_inv(xr, xi, wr, wi)
+    for g, w in zip(got, want):
+        assert _rel(w, g) <= 1e-6
+    for g, w in zip(got, fm._ct_inv_plain(xr, xi, wr, wi, bf16=True)):
+        assert _rel(w, g) <= TOL_ORDER
+
+
+@pytest.fixture
+def zy_inv_kernel_path(monkeypatch):
+    """the plain zy inverses with the emulated data path in their bf16
+    form: the ct2 passes' y stage, fused butterfly and z stage
+    (emu_zy_inv), the dense pass's z stage (emu_z_inv after the plain
+    dense y products, whose operands round as the kernel's do)"""
+    one, half = fm._zy_inv_one, fm.zy_inv_half_plain
+
+    def zy_inv_one(xr, xi, Wy, AB, n2, plane, bf16):
+        if not bf16:
+            return one(xr, xi, Wy, AB, n2, plane, bf16)
+        return emu_zy_inv(xr, xi, Wy, AB, n2, plane)
+
+    def zy_inv_half(rr, ii, wy, AB, bf16=False):
+        if not bf16:
+            return half(rr, ii, wy, AB, bf16)
+        yr, yi = fm._dense_plain(rr.float(), ii.float(),
+                                 *(fm._t(a, rr) for a in wy), bf16=True)
+        return emu_z_inv(yr, yi, *(fm._t(a, rr) for a in AB))
+    monkeypatch.setattr(fm, '_zy_inv_one', zy_inv_one)
+    monkeypatch.setattr(fm, 'zy_inv_half_plain', zy_inv_half)
+
+
+def _chain(ref, got, f32):
+    """the chained criterion: max gap 1e-2 of max, rms gap within 0.15 of
+    the rms of the bf16 rounding itself (the JAX kernel against the
+    port's f32 pass)"""
+    scale = max(np.abs(np.asarray(r)).max() for r in ref)
+    for r, g, f in zip(ref, got, f32):
+        r, g, f = np.asarray(r), g.numpy(), f.numpy()
+        assert np.abs(r - g).max() <= TOL_CHAIN_MAX * scale
+        assert (np.sqrt(((r - g) ** 2).mean() / ((r - f) ** 2).mean())
+                <= TOL_CHAIN_RMS)
+
+
+def test_zy_inv_kernel_path_matches_jax(zy_inv_kernel_path, tpu_rounding):
+    """the ct2 zy inverses on the slab's filtered spectrum in stored y
+    order (the z-Nyquist column's real part as the plane): the single
+    pass with the plane and the folded tables, the dual with the plane on
+    set A"""
+    n0, N1, n2 = (8,) + SLAB[1:]
+    Zm = n2 // 2
+    sr, si = _filtered((n0, N1, n2), 7)
+    order = np.argsort(fm._ct_permute(N1))
+    rr, ii = (np.ascontiguousarray(t[:, order, :Zm]) for t in (sr, si))
+    plane = np.ascontiguousarray(sr[:, :, Zm])
+    Wy, Wyg = fm._ct_inv_mats_np(N1), fm._ct_inv_mats_np(N1,
+                                                         fold_kvec=_sl(N1))
+    AB = fm._z_inv_tabs(n2, Zm)
+    ABg = fm._z_inv_tabs(n2, Zm, grad_kvec=_sl(n2, half=True))
+    jr, ji, jp = (jnp.asarray(t) for t in (rr, ii, plane))
+    tr, ti, tp = (torch.from_numpy(t) for t in (rr, ii, plane))
+    ref = (jfm._zy_inv_ct2_call(jr, ji, Wyg, ABg, n2, DEFAULT, plane=jp),)
+    got = (fm._zy_inv_ct2_call(tr, ti, Wyg, ABg, n2, plane=tp,
+                               precision='bf16'),)
+    f32 = (fm._zy_inv_ct2_call(tr, ti, Wyg, ABg, n2, plane=tp),)
+    _chain(ref, got, f32)
+    ref = jfm._zy_inv_ct2_call_dual(jr, ji, Wyg, AB, Wy, ABg, n2, DEFAULT,
+                                    planeA=jp)
+    got, f32 = (fm._zy_inv_ct2_call_dual(tr, ti, Wyg, AB, Wy, ABg, n2,
+                                         planeA=tp, **kw)
+                for kw in (dict(precision='bf16'), {}))
+    _chain(ref, got, f32)
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), (24, 20, 15)])
+def test_zy_inv_half_kernel_path_matches_jax(shape, zy_inv_kernel_path,
+                                             tpu_rounding):
+    """the dense zy inverse on a filtered spectrum with its Nyquist
+    column in place, the k_y-folded y and k_z-folded z tables"""
+    _, N1, n2 = shape
+    Zh = n2 // 2 + 1
+    rr, ii = _filtered(shape, sum(shape))
+    wy = fm._dft_fold_np(N1, _sl(N1))
+    AB = fm._irfft_mats_np(n2, Zh, grad_kvec=_sl(n2, half=True))
+    ref = (jfm._zy_inv_half_call(jnp.asarray(rr), jnp.asarray(ii), wy, AB,
+                                 n2, DEFAULT),)
+    got, f32 = ((fm._zy_inv_dense_call(torch.from_numpy(rr),
+                                       torch.from_numpy(ii), wy, AB, **kw),)
+                for kw in (dict(precision='bf16'), {}))
+    _chain(ref, got, f32)

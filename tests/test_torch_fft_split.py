@@ -1,6 +1,7 @@
 """CPU evidence that the split-precision tensor-core products of
-zy_fwd_ct2 and xct_multi (csrc/fft_mxu.cu, tc_ct and tc_z) and of the
-dense passes zy_fwd_half and x_dense (tc_gemm) keep f32 accuracy.
+zy_fwd_ct2 and xct_multi (csrc/fft_mxu.cu, tc_ct and tc_z), of the
+dense passes zy_fwd_half and x_dense and of the zy inverses zy_inv_ct2,
+zy_inv_ct2_dual and zy_inv_half (tc_gemm) keep f32 accuracy.
 
 The kernels split each f32 operand into three bf16 parts, a = a1 + a2 +
 a3 (the host splits the tables, ops/fft_mxu_cuda.bf16_split3; the threads
@@ -15,7 +16,12 @@ the leading one.  Here:
   complex products W u and u E; the dense passes' tables
   (ct_block_table at R = 1 and z_real_block_table for real z data) at
   N = 33, 75, 80, 96 and 384 are bf16_split3 of the padded block
-  matrices, zero in the padding, and give W u and x E;
+  matrices, zero in the padding, and give W u and x E; the zy inverses'
+  real-output z table (z_inv_block_table: the stacked [A; B] in slices
+  of 8 complex k, 128 output columns per tile, the z-CT's P and Q
+  columns per chunk) at Zh = 38, 193 and 257, the stored-order ct2
+  table at Zm = 256 and the z-CT at n2 = 1024, three parts and one, is
+  bf16_split3 of the padded stacked matrix and gives yr A + yi B;
 - a plain-torch emulation of the split product, kept in this file (not a
   mode of the package), patched into the plain passes where the kernels
   run it (the f32 forms of zy_fwd_ct2, xct_multi, zy_fwd_half and
@@ -30,7 +36,12 @@ the leading one.  Here:
   The dense passes likewise on a mesh with a mean of 1 at (16, 16, 16)
   and (24, 20, 15), forward and the dual inverse with the 1/k^2 fold,
   against the dense Pallas kernels (_zy_fwd_half_call,
-  _xpass_half_call).  The emulation sums the six products in f32 on the CPU; the tensor
+  _xpass_half_call); and the zy inverses (single with the Nyquist plane,
+  the dual with it on set A, the dense one with the folded tables) on
+  1/k^2-filtered spectra, at (8, 256, 16) and (8, 32, 32) (the y and
+  z extents of SHAPES: the zy passes work per x-plane) against
+  _zy_inv_ct2_call / _zy_inv_ct2_call_dual and at (16, 16, 16) and
+  (24, 20, 15) against _zy_inv_half_call.  The emulation sums the six products in f32 on the CPU; the tensor
   cores' truncating sums are the card's part (tests/test_torch_cuda.py,
   chip_smoke.py).
 """
@@ -224,6 +235,69 @@ def _unsplit_z(tab):
                for h in range(tab.shape[2]))
 
 
+def _z_inv_pair(case):
+    """(A, B) of a z inverse: the dense irfft pair at Zh (row 4, row 13's
+    half CT), the ct2 stored-order pair at n2 = 512, the z-CT at 1024"""
+    kind, n = case
+    if kind == 'dense':
+        return fm._irfft_mats_np(n, n // 2 + 1,
+                                 grad_kvec=np.sin(np.fft.rfftfreq(n)))
+    return fm._z_inv_tabs(n, n // 2)
+
+
+@pytest.mark.parametrize("case", [('dense', 75), ('dense', 384),
+                                  ('dense', 512), ('ct2', 512),
+                                  ('ct2', 1024)])
+@pytest.mark.parametrize("parts", [3, 1])
+def test_z_inv_block_table_layout(case, parts):
+    """the z inverse's real-output table: chunk j, tile t, slice s, part
+    h, row c (output column t * 128 + c), column kk (data k = 8 s + kk
+    mod 8, real part for kk < 8) holds part h of bf16_split3 of the
+    stacked [A; B] (the z-CT: P = [A_j; B_j] in columns [0, Kb), Q = [-B_j;
+    A_j] in [Kb, 2 Kb)), zero past K and the width; its GEMM over the
+    tiles gives yr A + yi B"""
+    a, b = (np.asarray(t, np.float32) for t in _z_inv_pair(case))
+    if a.ndim == 2:
+        a, b = a[None], b[None]
+        cols = np.stack([a, b], 1)               # chunk, in part, k, col
+    else:
+        cols = np.concatenate([np.stack([a, b], 1), np.stack([-b, a], 1)],
+                              -1)
+    R, _, K, width = cols.shape
+    T, nks = -(-width // 128), -(-K // 8)
+    tab = fk.z_inv_block_table(*_z_inv_pair(case), parts=parts)
+    assert tab.shape == (R, T, nks, parts, 128, 16)
+    assert tab.dtype == np.uint16
+    big = np.zeros((R, 2, nks * 8, T * 128), np.float32)
+    big[:, :, :K, :width] = cols
+    want = np.stack(fk.bf16_split3(big)[:parts], 0)   # h, j, in, k, col
+    # j, t, s, h, c, (in, k8) -> h, j, in, (s, k8), (t, c)
+    got = tab.reshape(R, T, nks, parts, 128, 2, 8).transpose(
+        3, 0, 5, 2, 6, 1, 4).reshape(want.shape)
+    np.testing.assert_array_equal(got, want)
+    pad = np.ones(big.shape, bool)
+    pad[:, :, :K, :width] = False
+    assert not got[:, pad].any()
+    if parts == 3:
+        rng = np.random.RandomState(K)
+        y = rng.normal(size=(5, R * K)) + 1j * rng.normal(size=(5, R * K))
+        full = sum(_value(tab[:, :, :, h]).astype(np.float64)
+                   for h in range(3))
+        for j in range(R):
+            yj = np.zeros((5, nks * 8), complex)
+            yj[:, :K] = y[:, j * K:(j + 1) * K]
+            d = np.concatenate([yj.real.reshape(5, nks, 8),
+                                yj.imag.reshape(5, nks, 8)], 2)
+            out = np.einsum('msk,tsck->mtc', d, full[j]).reshape(5, -1)
+            yk = y[:, j * K:(j + 1) * K]
+            ref = yk.real @ a[j] + yk.imag @ b[j]
+            if R > 1:
+                ref = np.concatenate([ref, yk.imag @ a[j] - yk.real @ b[j]],
+                                     1)
+            np.testing.assert_allclose(out[:, :width], ref,
+                                       atol=1e-9 * np.abs(ref).max())
+
+
 # --- the emulated split product through the plain passes -----------------------
 
 def _bf16_parts(t):
@@ -250,8 +324,9 @@ def split_mm(a, b):
 @pytest.fixture
 def split_products(monkeypatch):
     """the plain passes with the kernels' split product inside the f32
-    forms of zy_fwd_ct2, xct_multi, zy_fwd_half and x_dense, the passes
-    that run it; every other product stays the plain f32 one"""
+    forms of zy_fwd_ct2, xct_multi, zy_fwd_half, x_dense and the zy
+    inverses, the passes that run it; every other product (the Nyquist
+    plane's) stays the plain f32 one"""
     orig = fm._mm
 
     def split(plain):
@@ -270,6 +345,9 @@ def split_products(monkeypatch):
     monkeypatch.setattr(fm, 'xct_multi_plain', split(fm.xct_multi_plain))
     monkeypatch.setattr(fm, 'zy_fwd_half_plain', split(fm.zy_fwd_half_plain))
     monkeypatch.setattr(fm, 'x_dense_plain', split(fm.x_dense_plain))
+    for name in ('zy_inv_ct2_plain', 'zy_inv_ct2_dual_plain',
+                 'zy_inv_half_plain'):
+        monkeypatch.setattr(fm, name, split(getattr(fm, name)))
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -397,3 +475,76 @@ def test_force_split_matches_jax(split_products):
                            bounds=(0., 1.), fft='mxu')
     for r, g in zip(ref, got):
         assert _rel(r, g) <= TOL_FORCE
+
+
+def _filtered(shape, seed):
+    """(re, im) of the x-inverted, 1/k^2-filtered half spectrum of a
+    density 1 + N(0, 1) of ``shape`` with its Nyquist column (n2 // 2 + 1
+    columns, natural order), f32: a force's zy-inverse input"""
+    x = 1.0 + np.random.RandomState(seed).normal(size=shape)
+    k = np.fft.rfftn(x) / x.size
+    kk = sum((2 * np.pi * (np.fft.rfftfreq(n) if d == 2 else
+                           np.fft.fftfreq(n))).reshape(
+        [-1 if e == d else 1 for e in range(3)]) ** 2
+        for d, n in enumerate(shape))
+    k = np.where(kk > 0, k / np.where(kk > 0, kk, 1.0), 0.0)
+    s = np.fft.ifft(k, axis=0) * shape[0]
+    return s.real.astype('f4'), s.imag.astype('f4')
+
+
+def _kvec(n, half=False):
+    """a SuperLanczos-shaped table, zero at Nyquist"""
+    w = (np.fft.rfftfreq(n) if half else np.fft.fftfreq(n)) * 2 * np.pi
+    return tuple(((8 * np.sin(w) - np.sin(2 * w)) / 6.0).tolist())
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_zy_inv_split_matches_jax(shape, split_products):
+    """the ct2 zy inverses on a filtered spectrum in stored y order (its
+    z-Nyquist column as the plane, xy-inverted in the JAX package's
+    force; here its real part stands for it): the single pass with the
+    plane and the i k_y, i k_z folded tables, the dual with the plane on
+    set A"""
+    _, N1, n2 = shape
+    Zm = n2 // 2
+    sr, si = _filtered((8, N1, n2), N1 + n2)
+    perm = fm._ct_permute(N1)
+    rr, ii = (np.ascontiguousarray(np.take(t[:, :, :Zm], np.argsort(perm),
+                                           axis=1)) for t in (sr, si))
+    plane = np.ascontiguousarray(sr[:, :, Zm])
+    Wy, Wyg = fm._ct_inv_mats_np(N1), fm._ct_inv_mats_np(N1,
+                                                         fold_kvec=_kvec(N1))
+    AB = fm._z_inv_tabs(n2, Zm)
+    ABg = fm._z_inv_tabs(n2, Zm, grad_kvec=_kvec(n2, half=True))
+    jr, ji, jp = (jnp.asarray(t) for t in (rr, ii, plane))
+    tr, ti, tp = (torch.from_numpy(t) for t in (rr, ii, plane))
+    ref = jfm._zy_inv_ct2_call(jr, ji, Wyg, ABg, n2, None, plane=jp)
+    got = fm._zy_inv_ct2_call(tr, ti, Wyg, ABg, n2, plane=tp)
+    assert _rel(ref, got) <= TOL_PASS
+    ref = jfm._zy_inv_ct2_call_dual(jr, ji, Wyg, AB, Wy, ABg, n2, None,
+                                    planeA=jp)
+    got = fm._zy_inv_ct2_call_dual(tr, ti, Wyg, AB, Wy, ABg, n2, planeA=tp)
+    assert len(got) == 2
+    for r, g in zip(ref, got):
+        assert _rel(r, g) <= TOL_PASS
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+@pytest.mark.parametrize("tables", ['ky', 'kz'])
+def test_zy_inv_half_split_matches_jax(shape, tables, split_products):
+    """the dense zy inverse on a filtered spectrum with its Nyquist
+    column in place: the fy tables (k_y-folded y, plain z) and the fz
+    tables (plain y, k_z-folded z)"""
+    _, N1, n2 = shape
+    Zh = n2 // 2 + 1
+    rr, ii = _filtered(shape, sum(shape))
+    wy, AB = fm._dft_np(N1, +1), fm._irfft_mats_np(n2, Zh)
+    if tables == 'ky':
+        wy = fm._dft_fold_np(N1, _kvec(N1))
+    else:
+        AB = fm._irfft_mats_np(n2, Zh, grad_kvec=_kvec(n2, half=True))
+    ref = jfm._zy_inv_half_call(jnp.asarray(rr), jnp.asarray(ii), wy, AB, n2,
+                                None)
+    got = fm._zy_inv_dense_call(torch.from_numpy(rr), torch.from_numpy(ii),
+                                wy, AB)
+    assert _rel(ref, got) <= TOL_PASS

@@ -142,9 +142,9 @@ def test_resampler_registry():
         assert twin.FindResampler(name).support \
             == jwin.FindResampler(name).support
     r = twin.FindResampler('tsc')
-    with pytest.raises(NotImplementedError, match='queue 1, item 7'):
+    with pytest.raises(NotImplementedError, match='queue 1, item 3'):
         r.paint(None, None)
-    with pytest.raises(NotImplementedError, match='queue 1, item 7'):
+    with pytest.raises(NotImplementedError, match='queue 1, item 3'):
         r.readout(None, None)
 
 

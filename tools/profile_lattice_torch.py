@@ -1,14 +1,16 @@
 """Device time of the port's 512^3 lattice KDK step by kernel family.
 
 Runs 2 KDK steps of ``nbody_lattice`` from chip_smoke.py's LPT state
-(N, BOX, SEED, A0, STEPS, BOUNDS) with ``fft='mxu'`` and ``fft='xla'``
-under ``torch.profiler`` and prints the host wall time, the device busy
-time (the union of the kernel intervals), the idle share and the device
-time of each kernel family (chip_smoke.family; other kernels by name).
-Needs an NVIDIA GPU; run from the repository root:
+(N, BOX, SEED, A0, STEPS, BOUNDS) with each ``fft`` (default 'mxu',
+'mxu_bf16', 'mxu_bf16s' and 'xla') under ``torch.profiler`` and prints
+the host wall time, the device busy time (the union of the kernel
+intervals), the idle share and the device time of each kernel family
+(chip_smoke.family; other kernels by name).  Needs an NVIDIA GPU; run
+from the repository root:
 
-    python3 tools/profile_lattice_torch.py
+    python3 tools/profile_lattice_torch.py [--fft mxu xla ...]
 """
+import argparse
 import os
 import subprocess
 import sys
@@ -23,6 +25,10 @@ from pmesh_tpu_torch.models.fastpm import Solver  # noqa: E402
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument('--fft', nargs='+',
+                    default=['mxu', 'mxu_bf16', 'mxu_bf16s', 'xla'])
+    ffts = ap.parse_args().fft
     if not torch.cuda.is_available():
         sys.exit("profile_lattice_torch: needs a CUDA GPU")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -35,7 +41,7 @@ def main():
     solver = Solver(pm)
     disp, vel = solver.lpt_lattice(dlin, cs.A0, order=2)
     steps = cs.STEPS[:3]
-    for fft in ('mxu', 'xla'):
+    for fft in ffts:
         solver.nbody_lattice(disp, vel, steps, cs.BOUNDS, fft=fft)
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU,
