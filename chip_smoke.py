@@ -12,7 +12,10 @@ Phases, in order; any failure raises and exits non-zero:
    nvcc per source, all at once;
 3. hold each kernel against its plain PyTorch version on the same
    tensors on the card, and time both: the lattice paint and readout
-   at 512^3 f32 CIC for three displacement bounds (nv = 3 and 5), the
+   (one mesh, diffdir 0 and 'all', and three meshes in one launch, as
+   the spectral force reads them) at 512^3 f32 CIC for three
+   displacement bounds (nv = 3 and 5) and at 256^3 with nv = 7 (a width
+   the kernels read at run time), the
    binned rebase assign and apply at 512^3, K = 2 plus velocities,
    bitwise, for drift bounds (-0.5, 1.5) with 2 and 3 output slots and
    (-1, 2), and the four DFT passes of fft='mxu' on a 512^3 density
@@ -167,6 +170,9 @@ KERNELS = {
                       "pmesh_tpu/ops/gridpm_pallas.py:491"),
     "readout_lattice": ("pmesh_tpu_torch/csrc/gridpm.cu",
                         "pmesh_tpu/ops/gridpm_pallas.py:171"),
+    # the spectral force's form: three meshes in one launch
+    "readout_lattice (3 meshes)": ("pmesh_tpu_torch/csrc/gridpm.cu",
+                                   "pmesh_tpu/ops/gridpm_pallas.py:171"),
     # their bf16 storage form (_cdtype, gridpm_pallas.py:91)
     "paint_lattice_bf16": ("pmesh_tpu_torch/csrc/gridpm.cu",
                            "pmesh_tpu/ops/gridpm_pallas.py:491"),
@@ -271,8 +277,10 @@ TOL_GRAD = 1e-3
 GRAD_OUTLIERS = 1e-5
 # per force: forward, backward (the paint's and readout's vjps; the
 # mxu triple's transpose, one forward and one only=d inverse per
-# direction)
-GRAD_LATTICE = {"paint_lattice": (1, 3), "readout_lattice": (3, 4)}
+# direction).  The forward reads its three meshes in one readout; the
+# backward paints each mesh's cotangent and reads the three meshes once
+# per derivative axis and once for the paint's ('all')
+GRAD_LATTICE = {"paint_lattice": (1, 3), "readout_lattice": (1, 4)}
 GRAD_MXU = {"zy_fwd_ct2": (1, 3), "xct_multi": (2, 6), "zy_inv_ct2": (1, 3),
             "zy_inv_ct2_dual": (1, 0)}
 # per force on the fft='mxu' path: spectral, gradient
@@ -356,6 +364,11 @@ CARD = "not read"
 # products, which grow as n^2 per axis
 CIC_OPS = 9
 REBASE_OPS = 6
+# a three-mesh readout: two more accumulates per (point, offset)
+CIC_OPS_3 = CIC_OPS + 2
+# phase 3's window read at run time (not one of the compiled widths):
+# CIC in WIDE_BOUNDS, nv = 7, on a WIDE_N^3 mesh
+WIDE_BOUNDS, WIDE_N = (-3.0, 3.0), 256
 
 
 def log(*args):
@@ -465,10 +478,38 @@ def demangle(symbol):
     return out[len("void "):] if out.startswith("void ") else out or symbol
 
 
-def phase_compare(dev):
-    """kernel vs plain at N^3; returns {kernel: record} at BOUNDS."""
+def lattice_cases(disp, meshes, bounds):
+    """{case: (kernel record, fn(impl))} of the lattice kernels: the
+    paint, the readouts of one mesh, with diffdir 0 and 'all', and of
+    three meshes in one launch"""
     from pmesh_tpu_torch.ops import gridpm as gp
-    from pmesh_tpu_torch.ops import gridpm_cuda
+    return {
+        "paint": ("paint_lattice",
+                  lambda impl: (gp.paint_grid(disp, bounds=bounds,
+                                              impl=impl),)),
+        "readout 1 mesh": ("readout_lattice",
+                           lambda impl: (gp.readout_grid(
+                               meshes[0], disp, bounds, impl=impl),)),
+        "readout diffdir=0": ("readout_lattice",
+                              lambda impl: (gp.readout_grid(
+                                  meshes[0], disp, bounds, diffdir=0,
+                                  impl=impl),)),
+        "readout diffdir='all'": ("readout_lattice",
+                                  lambda impl: gp.readout_grid(
+                                      meshes[0], disp, bounds,
+                                      diffdir='all', impl=impl)),
+        # the three meshes in one launch, as the spectral force reads them
+        "readout 3 meshes": ("readout_lattice (3 meshes)",
+                             lambda impl: gp.readout_grid(
+                                 meshes, disp, bounds, impl=impl)),
+    }
+
+
+def phase_compare(dev):
+    """kernel vs plain at N^3 for each of COMPARE_BOUNDS, then at the
+    run-time width (WIDE_BOUNDS, WIDE_N^3); returns {kernel: record} at
+    BOUNDS."""
+    from pmesh_tpu_torch.ops import gridpm as gp
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     shape = (N,) * 3
     meshes = tuple(torch.randn(shape, generator=gen, device=dev)
@@ -480,32 +521,8 @@ def phase_compare(dev):
                                                  device=dev)
                      for _ in range(3))
         vmin, vmax = gp.offset_range(lo, hi, 'cic')
-        cases = {
-            "paint": ("paint_lattice",
-                      lambda impl: (gp.paint_grid(disp, bounds=bounds,
-                                                  impl=impl),)),
-            "readout 1 mesh": ("readout_lattice",
-                               lambda impl: (gp.readout_grid(
-                                   meshes[0], disp, bounds, impl=impl),)),
-            "readout diffdir=0": ("readout_lattice",
-                                  lambda impl: (gp.readout_grid(
-                                      meshes[0], disp, bounds, diffdir=0,
-                                      impl=impl),)),
-            "readout diffdir='all'": ("readout_lattice",
-                                      lambda impl: gp.readout_grid(
-                                          meshes[0], disp, bounds,
-                                          diffdir='all', impl=impl)),
-            # the three meshes in ONE launch of the kernel
-            "readout 3 meshes": ("readout_lattice",
-                                 lambda impl: (
-                                     gp.readout_grid(meshes, disp, bounds,
-                                                     impl='torch')
-                                     if impl == 'torch' else
-                                     gridpm_cuda.readout_lattice(
-                                         meshes, disp, vmin, vmax,
-                                         'cic'))),
-        }
-        for name, (kernel, fn) in cases.items():
+        for name, (kernel, fn) in lattice_cases(disp, meshes,
+                                                bounds).items():
             plain = fn('torch')
             got = fn('cuda')
             abs_err = max(float((g - p).abs().max())
@@ -522,17 +539,44 @@ def phase_compare(dev):
             if not ok:
                 raise AssertionError("%s disagrees with its plain version"
                                      % name)
-            if bounds == BOUNDS and name in ("paint", "readout 1 mesh"):
-                read = disp if kernel == "paint_lattice" else (disp,
-                                                               meshes[0])
+            if bounds == BOUNDS and name in ("paint", "readout 1 mesh",
+                                             "readout 3 meshes"):
+                read = {"paint": disp, "readout 1 mesh": (disp, meshes[0]),
+                        "readout 3 meshes": (disp, meshes)}[name]
+                ops = CIC_OPS_3 if name == "readout 3 meshes" else CIC_OPS
                 records[kernel] = record(
                     abs_err, ms, plain_ms, nbytes(read, plain),
-                    CIC_OPS * (vmax - vmin + 1) ** 3 * N ** 3)
+                    ops * (vmax - vmin + 1) ** 3 * N ** 3)
+                log("phase 3 bound: %-22s %.3f ms by %s, kernel %.3f ms"
+                    % (kernel, records[kernel]["bound_ms"],
+                       records[kernel]["bound_by"], ms))
             elif kernel in records and bounds == BOUNDS:
                 records[kernel]["max_abs_err"] = max(
                     records[kernel]["max_abs_err"], abs_err)
         del disp
     del meshes
+    torch.cuda.empty_cache()
+    # the kernels' run-time width (nv not compiled in), against plain
+    shape = (WIDE_N,) * 3
+    lo, hi = WIDE_BOUNDS
+    meshes = tuple(torch.randn(shape, generator=gen, device=dev)
+                   for _ in range(3))
+    disp = tuple(lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                             device=dev) for _ in range(3))
+    vmin, vmax = gp.offset_range(lo, hi, 'cic')
+    for name, (kernel, fn) in lattice_cases(disp, meshes,
+                                            WIDE_BOUNDS).items():
+        rel = max_rel(fn('cuda'), fn('torch'))[0]
+        ms = cuda_ms(lambda: fn('cuda'), 3)
+        ok = rel <= TOL_KERNEL and np.isfinite(rel)
+        log("phase 3 compare: %-22s %d^3 bounds=%s nv=%d (read at run "
+            "time)  max|k-p|/max|p| = %.3e (tol %.0e) %s  kernel %.3f ms"
+            % (name, WIDE_N, WIDE_BOUNDS, vmax - vmin + 1, rel, TOL_KERNEL,
+               "ok" if ok else "FAIL", ms))
+        if not ok:
+            raise AssertionError("%s at nv=%d disagrees with its plain "
+                                 "version" % (name, vmax - vmin + 1))
+    del meshes, disp
     torch.cuda.empty_cache()
     return records
 
@@ -1714,6 +1758,13 @@ def phase_compare_bf16(dev):
     return records
 
 
+def lattice_need(nsteps):
+    """the lattice kernels' launches of a phase-4 run: nsteps + 1
+    spectral forces and one gradient force, each one paint and one
+    readout (three meshes, or 'all')"""
+    return {"paint_lattice": nsteps + 2, "readout_lattice": nsteps + 2}
+
+
 def phase_main(dev):
     from pmesh_tpu_torch import ParticleMesh
     from pmesh_tpu_torch.ops import gridpm as gp
@@ -1740,22 +1791,21 @@ def phase_main(dev):
     smax = max(float(s.abs().max()) for s in S)
     rho = gp.paint_grid(S, bounds=BOUNDS)
     mass_err = abs(float(rho.double().sum()) - N ** 3) / N ** 3
+    need = lattice_need(nsteps)
     log("phase 4 main path: %d^3 f4 cic, lpt_lattice(order=2) max|disp| "
         "%.4f cells, nbody_lattice %d KDK steps a=%.3f..%.3f + 1 gradient "
         "force in %.3f s (first run), finite %s, final max|S| %.4f cells, "
-        "mass error %.3e (tol %.0e), launches %s (need paint >= %d, "
-        "readout >= %d), peak %.2f GB"
+        "mass error %.3e (tol %.0e), launches %s (need %s), peak %.2f GB"
         % (N, lpt_max, nsteps, STEPS[0], STEPS[-1], wall, finite, smax,
-           mass_err, TOL_MASS, json.dumps(launches), nsteps + 1,
-           3 * (nsteps + 1), peak_gb))
+           mass_err, TOL_MASS, json.dumps(launches), json.dumps(need),
+           peak_gb))
     if not finite:
         raise AssertionError("the state is not finite (bounds poison?)")
     if not smax < BOUNDS[1]:
         raise AssertionError("displacements left the bounds")
     if not mass_err <= TOL_MASS:
         raise AssertionError("paint does not conserve mass")
-    if launches["paint_lattice"] < nsteps + 1 \
-            or launches["readout_lattice"] < 3 * (nsteps + 1):
+    if {k: v for k, v in launches.items() if v} != need:
         raise AssertionError("the kernels did not carry the main path")
     del Fg, rho
 
@@ -1827,7 +1877,8 @@ def phase_main_mxu(dev, xla):
     log("phase 4 main path, fft='mxu': device kernels by kind %s"
         % json.dumps(kinds))
     if any(launches[k] < need[k] for k in need) \
-            or lattice["paint_lattice"] < nsteps + 1:
+            or {k: v for k, v in lattice.items() if v} != lattice_need(
+                nsteps):
         raise AssertionError("the DFT kernels did not carry the mxu path")
     if any(kinds[k] for k in CGEMM) or not kinds["tc_gemm"]:
         raise AssertionError("the fft='mxu' run launched cgemm or "
@@ -2058,7 +2109,7 @@ def phase_row13(dev, pm, dlinear):
     if not ok:
         raise AssertionError("the row-13 path disagrees with its references")
     if counted != ROW13_PATH or lattice != {"paint_lattice": 1,
-                                            "readout_lattice": 3}:
+                                            "readout_lattice": 1}:
         raise AssertionError("the row-13 kernels did not carry the path")
     r, i = ref.fft3_real_forward(rho)
     fr, fi = r * full_k2, i * full_k2
@@ -2504,8 +2555,11 @@ def phase_binned_clustered(dev, n=NC):
     if not (finite and mass_err <= TOL_MASS):
         raise AssertionError("the binned state is not finite or its "
                              "paint does not conserve the count")
+    # each spectral force paints every slot once and reads its three
+    # meshes at every slot in one launch
     if min(launches[k] for k in ("paint_lattice", "readout_lattice",
-                                 "rebase_assign", "rebase_apply")) < 1:
+                                 "rebase_assign", "rebase_apply")) < 1 \
+            or launches["readout_lattice"] != launches["paint_lattice"]:
         raise AssertionError("the kernels did not carry the binned path")
     if any(dft[k] != need.get(k, 0) for k in dft):
         raise AssertionError("the dense DFT kernels did not carry the "
@@ -2882,7 +2936,8 @@ def phase_compare_slab(dev):
     disp = tuple(lo_b + (hi_b - lo_b) * torch.rand(shape, generator=gen,
                                                    device=dev)
                  for _ in range(3))
-    mesh = torch.randn(shape, generator=gen, device=dev)
+    meshes = tuple(torch.randn(shape, generator=gen, device=dev)
+                   for _ in range(3))
     plo, phi = max(0, vmax), max(0, -vmin)
     dext = tuple(halo(d, plo, phi) for d in disp)
     cells = rows * N * N
@@ -2896,21 +2951,27 @@ def phase_compare_slab(dev):
                                                  'cic')[:rows],
                dext, CIC_OPS * (vmax - vmin + 1) ** 3 * cells)
     rlo, rhi = max(0, -vmin), max(0, vmax)
-    mext = halo(mesh, rlo, rhi)
+    mext = tuple(halo(m, rlo, rhi) for m in meshes)
     dslab = tuple(d[:rows] for d in disp)
-    for diffdir in (None, 'all'):
+    # the sharded spectral force's three meshes in one launch (the
+    # record), then the gradient force's 'all' of one
+    for diffdir, nm in ((None, 3), ('all', 1)):
         xhalo_case(records, "readout_lattice_xhalo",
-                   "%d-row slab, diffdir=%s" % (rows, diffdir),
+                   "%d-row slab, %d mesh(es), diffdir=%s"
+                   % (rows, nm, diffdir),
                    lambda impl: gridpm_cuda.readout_lattice(
-                       (mext,), dslab, vmin, vmax, 'cic', diffdir=diffdir,
+                       mext[:nm], dslab, vmin, vmax, 'cic', diffdir=diffdir,
                        xbase=rlo)
                    if impl == 'cuda' else gp.readout_slab_plain(
-                       (mext,), dslab, rlo, BOUNDS, 'cic', diffdir),
+                       mext[:nm], dslab, rlo, BOUNDS, 'cic', diffdir),
                    lambda: tuple(o[:rows] for o in gridpm_cuda
-                                 .readout_lattice((mesh,), disp, vmin, vmax,
-                                                  'cic', diffdir=diffdir)),
-                   (mext, dslab), CIC_OPS * (vmax - vmin + 1) ** 3 * cells)
-    del disp, mesh, dext, mext, dslab
+                                 .readout_lattice(meshes[:nm], disp, vmin,
+                                                  vmax, 'cic',
+                                                  diffdir=diffdir)),
+                   (mext[:nm], dslab),
+                   (CIC_OPS_3 if nm == 3 else CIC_OPS)
+                   * (vmax - vmin + 1) ** 3 * cells)
+    del disp, meshes, dext, mext, dslab
     torch.cuda.empty_cache()
 
     # the x-halo rebase: the main path's drift bounds, K = 2 -> 2
@@ -3303,13 +3364,13 @@ def card_phases(pm):
 
 def sharded_need():
     """{run: {kernel: launches summed over the ranks}} that each phase-9
-    run must show exactly: per force one x-halo paint and three x-halo
-    readouts per slot (the spectral force reads each direction's mesh
-    alone on a slab) and MXU_PER_FORCE's or DENSE_PER_FORCE's DFT
-    passes; per rebase one x-halo assign and one apply"""
+    run must show exactly: per force one x-halo paint and one x-halo
+    readout of the three meshes per slot, and MXU_PER_FORCE's or
+    DENSE_PER_FORCE's DFT passes; per rebase one x-halo assign and one
+    apply"""
     def force(n, dft=None, slots=1):
         need = {"paint_lattice_xhalo": n * slots,
-                "readout_lattice_xhalo": 3 * n * slots}
+                "readout_lattice_xhalo": n * slots}
         need.update((k, n * v) for k, v in (dft or {}).items())
         return {k: RANKS * v for k, v in need.items()}
     forces = len(SHARDED_STEPS)
@@ -3425,8 +3486,9 @@ def phase_pipe_chain(dev):
     """the per-rank chain of the 8-rank 1024^3 sharded force step at its
     CHAIN_SLAB shapes, as bench.py's measure_pipe_chain: the x-halo paint,
     the ct2 zy forward, the dual inverse x pass with 1/k^2 on the y-chunk,
-    the dual and single zy inverses and three x-halo readouts (the
-    transposes stand in for the all_to_alls), each kernel timed alone
+    the dual and single zy inverses and the x-halo readout of the three
+    force meshes (the transposes stand in for the all_to_alls), each
+    kernel timed alone
     with its bound, beside torch.fft's calls for the same transforms"""
     from pmesh_tpu_torch.ops import fft_mxu as fm
     from pmesh_tpu_torch.ops import gridpm_cuda
@@ -3486,13 +3548,12 @@ def phase_pipe_chain(dev):
     fx = step("zy_inv_ct2", lambda: fm._zy_inv_ct2_call(gr, gi, wyi, ABp, N2),
               (gr, gi, wyi, ABp), zy_ops(rows, N1, N2))
     del sr, si, gr, gi
-    for f in (fx, fy, fz):
-        m = torch.cat([f, f[:vmax]], 0)
-        step("readout_lattice_xhalo", lambda: gridpm_cuda.readout_lattice(
-            (m,), dslab, vmin, vmax, 'cic', xbase=0), (m, dslab),
-            CIC_OPS * 27 * rows * N1 * N2)
-        del m
-    del fx, fy, fz, disp, dslab
+    forces = tuple(torch.cat([f, f[:vmax]], 0) for f in (fx, fy, fz))
+    del fx, fy, fz
+    step("readout_lattice_xhalo", lambda: gridpm_cuda.readout_lattice(
+        forces, dslab, vmin, vmax, 'cic', xbase=0), (forces, dslab),
+        CIC_OPS_3 * 27 * rows * N1 * N2)
+    del forces, disp, dslab
     torch.cuda.empty_cache()
     # torch.fft's calls for the same transforms, each timed alone
     lib = {}
@@ -3568,6 +3629,7 @@ def main():
     # bf16 forms on the mxu_bf16 and mxu_bf16s lattice runs, the
     # clustered bf16 force and the bf16 row-13 path
     runs = dict.fromkeys(("paint_lattice", "readout_lattice"), launches)
+    runs["readout_lattice (3 meshes)"] = launches
     runs.update(dict.fromkeys(("paint_lattice_bf16", "readout_lattice_bf16"),
                               lattice_bf16_launches))
     runs.update(dict.fromkeys(MXU_PER_FORCE, mxu_launches))

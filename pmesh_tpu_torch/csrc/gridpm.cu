@@ -2,7 +2,8 @@
 //
 // Particles live on the mesh lattice: particle q sits at q + s(q), with
 // the displacement s stored as three mesh-shaped f32 arrays (cell
-// units).  A window W of integer offsets v in [vmin, vmax]^3 then gives
+// units).  A window W of integer offsets v in [vmin, vmax]^3 (nv per
+// axis) then gives
 //
 //   paint:   rho[p]  = sum_v m(p - v) * prod_d W_d(v_d - s_d(p - v))
 //   readout: out[q]  = sum_v prod_d W_d(v_d - s_d(q)) * mesh[q + v]
@@ -22,30 +23,58 @@
 // paint_lattice replaces pmesh_tpu/ops/gridpm_pallas.py paint_fused_ext
 // (reached through paint_fused / paint_fused_parts); readout_lattice
 // replaces readout_fused_ext (through readout_fused / readout_fused_parts).
-// They compute what those kernels compute, not how: the TPU kernels walk
-// x-planes held in VMEM and roll them; here every thread owns one output.
+// They compute what those kernels compute, not how: the TPU kernels roll
+// whole x-planes held in VMEM; here a block owns a brick of output cells,
+// a TY x TZ tile of y-z marching through xc planes of x, one thread per
+// (y, z) column of the tile.
 //
-// What bounds them on this card.  Each output cell of the paint gathers
-// its nv^3 source cells: about 3 * nv^3 displacement reads (4 bytes each,
-// 324 bytes per cell at nv = 3) and 3 * nv^3 window evaluations, against
-// 16 bytes of compulsory device-memory traffic per cell (three
-// displacements in, one density out).  The readout reads its own three
-// displacements once and nv^3 mesh values per mesh.  Neighbouring threads
-// of a warp own neighbouring z cells, so for every offset they read
-// neighbouring addresses: the repeated reads are coalesced and mostly
-// L1/L2 hits, and each value crosses device memory about once.  The simple
-// design leans on the caches for that reuse; staging x-planes in shared
-// memory (or TMA tiles) would cut the L1/L2 traffic further.
+// What bounds them on this card.  The compulsory traffic is small (16
+// bytes a cell for a paint, 20 for a one-mesh readout, 36 for three
+// meshes), but each output sums nv^3 taps, each a product of three axis
+// weights.  A thread per output that loads and weighs every tap itself
+// (the first design) re-read each source 81 times and evaluated each
+// axis weight nv^2 = 9 times over at nv = 3, and ran at 9-13x its bytes.
+// Here every value crosses device memory into shared memory once per
+// block, every axis weight is evaluated once, and the taps read shared
+// memory only:
 //
-// The paint is in gather form (no atomics), so it is deterministic, as
-// on the TPU.  Sums run in f32 in the order v_x, v_y, v_z.  Indices are
-// wrapped modulo N for any offset, so offsets wider than the mesh are
-// right, and linear indices are 64-bit.
+// - readout: a ring of nv + 1 mesh planes of the tile plus its halo,
+//   (TY + nv - 1) x (TZ + nv - 1) per mesh, the periodic wrap taken by
+//   the loader (once per staged value, not per tap).  Each particle
+//   forms its 3 nv axis weights (and the 3 nv derivatives for 'all')
+//   once, in registers, and sums the taps of 1 to 3 meshes from the
+//   ring in one pass.  The plane after the next is fetched into
+//   registers during a plane's taps; one slot more than the window
+//   lets one barrier a plane suffice.
+// - paint (gather form, no atomics: deterministic, as on the TPU): the
+//   block walks its source planes from high x to low.  For each, every
+//   source cell of the tile plus its halo forms its 3 nv axis weights
+//   (and its mass) once, into a table in shared memory (double-buffered
+//   where it fits); each thread then adds the plane's taps to the nv
+//   output planes it feeds, kept as a register ring of accumulators, and
+//   stores the one that is complete.  A source cell's y weight, z
+//   weight and mass are loaded once for its nv x-offsets.
+//
+// Sums run in f32 in today's order for every output: v_x, then v_y,
+// then v_z ascending, each tap ((W_x * W_y) * W_z) * m (paint) or
+// ((W_x * W_y) * W_z) * mesh (readout), as the one-thread-per-output
+// kernel summed them (the paint walks x downwards so that each output
+// meets its v_x in ascending order).  Indices are wrapped modulo N for
+// any offset, so offsets wider than the mesh are right; plane offsets
+// are 64-bit.
+//
+// The window's nv is compiled in for nv = 2..6 (the hot shapes: nv = 3
+// on the lattice main path, CIC in (-1, 1); nv = 4 on the binned paths,
+// (-0.5, 1.5) and their drift bounds); any other nv up to NV_MAX = 12
+// (GRID_LIMIT) runs the same kernel with nv read at run time.  The host
+// planner (ops/gridpm_cuda.plan) chooses xc, the paint's table buffers
+// and the shared bytes; the entry points check its bytes against their
+// own count.
 //
 // Storage: f32, or bf16 (a bf16 state or mesh, as the TPU kernels take
 // one through _cdtype, pmesh_tpu/ops/gridpm_pallas.py:91): every load is
-// upcast to f32, the weights and sums are f32, and each output is
-// rounded once at its store.
+// upcast to f32 (shared memory holds f32), the weights and sums are f32,
+// and each output is rounded once at its store.
 //
 // C interface for ctypes: each entry point launches on the given stream,
 // allocates nothing and returns cudaGetLastError().
@@ -167,141 +196,437 @@ __device__ __forceinline__ float axis_w(int v, float s, bool diff,
   return diff ? -wdiff<K>(x, tb) : wkernel<K>(x, tb);
 }
 
-// one thread per output cell (i, j, k): k along x-threads, j and i on
-// the grid's y and z; T: the storage of displacements, mass and output
-template <int K, class T>
-__global__ void paint_lattice_kernel(
-    const T* __restrict__ sx, const T* __restrict__ sy,
-    const T* __restrict__ sz, const T* __restrict__ mass,
-    float scalar_mass, T* __restrict__ out, int n0, int n1, int n2,
-    int xbase, int vmin, int vmax, int diffdir, Table tb) {
-  int k = blockIdx.x * blockDim.x + threadIdx.x;
-  int j = blockIdx.y;
-  int i = blockIdx.z;
-  if (k >= n2) return;
-  float acc = 0.f;
-  for (int vx = vmin; vx <= vmax; ++vx) {
-    int64_t qx = xbase < 0 ? wrap(i - vx, n0) : (int64_t)(i + xbase - vx);
-    for (int vy = vmin; vy <= vmax; ++vy) {
-      int64_t row = (qx * n1 + wrap(j - vy, n1)) * n2;
-      for (int vz = vmin; vz <= vmax; ++vz) {
-        int64_t q = row + wrap(k - vz, n2);
-        float w = axis_w<K>(vx, ld(sx, q), diffdir == 0, tb) *
-                  axis_w<K>(vy, ld(sy, q), diffdir == 1, tb);
-        w = w * axis_w<K>(vz, ld(sz, q), diffdir == 2, tb);
-        if (mass != nullptr) w = w * ld(mass, q);
-        acc += w;
-      }
-    }
-  }
-  st(out, ((int64_t)i * n1 + j) * n2 + k, acc * scalar_mass);
+// the tile: TY x TZ output cells of a y-z plane, one thread each (a warp
+// is one y row of TZ consecutive z cells); NV_MAX: the widest window
+// GRID_LIMIT (12^3 offsets) lets through; NV_ANY: the instance that reads
+// nv at run time
+constexpr int TY = 8, TZ = 32, kThreads = TY * TZ, NV_MAX = 12, NV_ANY = 0;
+// readout modes: 1 to 3 meshes, or the three derivative readouts of one
+constexpr int MODE_ALL = 4;
+
+struct Geo {
+  int n0, n1, n2;  // output planes, plane shape
+  int xbase;       // < 0: x wraps modulo n0; else the x-halo input base
+  int vmin, nv;    // the offsets vmin .. vmin + nv - 1 on each axis
+  int xc;          // output planes per block
+};
+
+// offset of input plane p (in output x coordinates)
+__device__ __forceinline__ int64_t plane_at(int p, const Geo& g) {
+  int x = g.xbase < 0 ? wrap(p, g.n0) : p + g.xbase;
+  return (int64_t)x * g.n1 * g.n2;
 }
 
-// one thread per particle q = (i, j, k); nmesh meshes share the weights,
-// or (diffdir == DIFF_ALL) three derivative readouts of m0; T: the
-// storage of meshes, displacements and outputs
-template <int K, class T>
-__global__ void readout_lattice_kernel(
+template <int K, int NVA>
+__device__ __forceinline__ void fill_weights(float (&w)[NVA], int nv,
+                                             int vmin, float s, bool diff,
+                                             const Table& tb) {
+#pragma unroll
+  for (int a = 0; a < NVA; ++a)
+    if (a < nv) w[a] = axis_w<K>(vmin + a, s, diff, tb);
+}
+
+// the nv axis weights w[a] of offsets vmin + a for displacement s
+template <int NVA>
+__device__ __forceinline__ void axis_weights(float (&w)[NVA], int nv,
+                                             int vmin, float s, bool diff,
+                                             int kind, const Table& tb) {
+  switch (kind) {
+    case W_NEAREST:
+      fill_weights<W_NEAREST>(w, nv, vmin, s, diff, tb);
+      break;
+    case W_LINEAR:
+      fill_weights<W_LINEAR>(w, nv, vmin, s, diff, tb);
+      break;
+    case W_QUADRATIC:
+      fill_weights<W_QUADRATIC>(w, nv, vmin, s, diff, tb);
+      break;
+    case W_CUBIC:
+      fill_weights<W_CUBIC>(w, nv, vmin, s, diff, tb);
+      break;
+    case W_TABLE:
+      fill_weights<W_TABLE>(w, nv, vmin, s, diff, tb);
+      break;
+    default:
+      fill_weights<W_TABLE_OFFSET>(w, nv, vmin, s, diff, tb);
+      break;
+  }
+}
+
+// cells of the staged region (TY + nv - 1 rows of szw = TZ + nv - 1,
+// corner (y0, z0)) that this thread loads: cell threadIdx.x + r kThreads,
+// its wrapped offset within a plane, or -1 past the region
+template <int PER>
+__device__ __forceinline__ void region_offsets(int (&off)[PER], int area,
+                                               int szw, int y0, int z0,
+                                               const Geo& g) {
+#pragma unroll
+  for (int r = 0; r < PER; ++r) {
+    int e = threadIdx.x + r * kThreads;
+    int yy = e / szw, zz = e - yy * szw;
+    off[r] = e < area ? wrap(y0 + yy, g.n1) * g.n2 + wrap(z0 + zz, g.n2)
+                      : -1;
+  }
+}
+
+// load the staged cells of plane `base` of arrays src[0 .. NS) into
+// registers
+template <int NS, int PER, class T>
+__device__ __forceinline__ void fetch(float (&pre)[NS][PER],
+                                      const T* const* src,
+                                      const int (&off)[PER], int64_t base) {
+#pragma unroll
+  for (int m = 0; m < NS; ++m)
+#pragma unroll
+    for (int r = 0; r < PER; ++r)
+      pre[m][r] = off[r] >= 0 ? ld(src[m], base + off[r]) : 0.f;
+}
+
+// the readout: one thread per particle column (j, k) of the tile, through
+// output planes x0 .. x1 - 1; MODE meshes m0.. into o0.., or (MODE_ALL)
+// the three derivative readouts of m0.  T: the storage of meshes,
+// displacements and outputs.  Dynamic shared memory: (nv + 1) slots of
+// NM meshes of the staged region, f32.
+template <int NV, int MODE, class T>
+__global__ void __launch_bounds__(kThreads) readout_staged(
     const T* __restrict__ m0, const T* __restrict__ m1,
-    const T* __restrict__ m2, int nmesh, const T* __restrict__ sx,
+    const T* __restrict__ m2, const T* __restrict__ sx,
     const T* __restrict__ sy, const T* __restrict__ sz,
-    T* __restrict__ o0, T* __restrict__ o1, T* __restrict__ o2, int n0,
-    int n1, int n2, int xbase, int vmin, int vmax, int diffdir, Table tb) {
-  int k = blockIdx.x * blockDim.x + threadIdx.x;
-  int j = blockIdx.y;
-  int i = blockIdx.z;
-  if (k >= n2) return;
-  int64_t q = ((int64_t)i * n1 + j) * n2 + k;
-  float s0 = ld(sx, q), s1 = ld(sy, q), s2 = ld(sz, q);
-  bool all = diffdir == DIFF_ALL;
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-  for (int vx = vmin; vx <= vmax; ++vx) {
-    int64_t px = xbase < 0 ? wrap(i + vx, n0) : (int64_t)(i + xbase + vx);
-    float kx = axis_w<K>(vx, s0, diffdir == 0, tb);
-    float kxd = all ? axis_w<K>(vx, s0, true, tb) : 0.f;
-    for (int vy = vmin; vy <= vmax; ++vy) {
-      int64_t row = (px * n1 + wrap(j + vy, n1)) * n2;
-      float ky = axis_w<K>(vy, s1, diffdir == 1, tb);
-      float kyd = all ? axis_w<K>(vy, s1, true, tb) : 0.f;
-      for (int vz = vmin; vz <= vmax; ++vz) {
-        int64_t p = row + wrap(k + vz, n2);
-        float kz = axis_w<K>(vz, s2, diffdir == 2, tb);
-        if (all) {
-          float kzd = axis_w<K>(vz, s2, true, tb);
-          float v = ld(m0, p);
-          a0 += (kxd * ky) * kz * v;
-          a1 += (kx * kyd) * kz * v;
-          a2 += (kx * ky) * kzd * v;
-        } else {
-          float w = (kx * ky) * kz;
-          a0 += w * ld(m0, p);
-          if (nmesh > 1) a1 += w * ld(m1, p);
-          if (nmesh > 2) a2 += w * ld(m2, p);
+    T* __restrict__ o0, T* __restrict__ o1, T* __restrict__ o2, Geo g,
+    int diffdir, int kind, Table tb) {
+  constexpr bool ALL = MODE == MODE_ALL;
+  constexpr int NM = ALL ? 1 : MODE;
+  constexpr int NVA = NV == NV_ANY ? NV_MAX : NV;
+  constexpr int PER =  // staged cells per thread
+      ((TY + NVA - 1) * (TZ + NVA - 1) + kThreads - 1) / kThreads;
+  extern __shared__ float ring[];
+  const int nv = NV == NV_ANY ? g.nv : NV;
+  const int vmin = g.vmin, vmax = vmin + nv - 1, depth = nv + 1;
+  const int szw = TZ + nv - 1, area = (TY + nv - 1) * szw;
+  const int slot_size = NM * area;
+  const int ty = threadIdx.x / TZ, tz = threadIdx.x % TZ;
+  const int j = blockIdx.y * TY + ty, k = blockIdx.x * TZ + tz;
+  const int x0 = blockIdx.z * g.xc, x1 = min(x0 + g.xc, g.n0);
+  const bool live = j < g.n1 && k < g.n2;
+  const T* const mesh[3] = {m0, m1, m2};
+  const int64_t pstride = (int64_t)g.n1 * g.n2;
+
+  int off[PER];
+  region_offsets(off, area, szw, blockIdx.y * TY + vmin,
+                 blockIdx.x * TZ + vmin, g);
+  float pre[NM][PER];
+  // slots 0 .. nv - 2: mesh planes x0 + vmin .. x0 + vmax - 1
+  for (int t = 0; t + 1 < nv; ++t) {
+    fetch(pre, mesh, off, plane_at(x0 + vmin + t, g));
+#pragma unroll
+    for (int m = 0; m < NM; ++m)
+#pragma unroll
+      for (int r = 0; r < PER; ++r)
+        if (off[r] >= 0)
+          ring[t * slot_size + m * area + threadIdx.x + r * kThreads] =
+              pre[m][r];
+  }
+  fetch(pre, mesh, off, plane_at(x0 + vmax, g));
+  int64_t q = (int64_t)x0 * pstride + (int64_t)j * g.n2 + k;
+  float d0 = 0.f, d1 = 0.f, d2 = 0.f;
+  if (live) {
+    d0 = ld(sx, q);
+    d1 = ld(sy, q);
+    d2 = ld(sz, q);
+  }
+  // head: the slot of mesh plane i + vmin; tail: the slot that takes
+  // plane i + vmax
+  int head = 0, tail = nv - 1;
+  for (int i = x0; i < x1; ++i, q += pstride) {
+#pragma unroll
+    for (int m = 0; m < NM; ++m)
+#pragma unroll
+      for (int r = 0; r < PER; ++r)
+        if (off[r] >= 0)
+          ring[tail * slot_size + m * area + threadIdx.x + r * kThreads] =
+              pre[m][r];
+    tail = tail + 1 == depth ? 0 : tail + 1;
+    __syncthreads();
+    const float s0 = d0, s1 = d1, s2 = d2;
+    if (i + 1 < x1) {
+      fetch(pre, mesh, off, plane_at(i + 1 + vmax, g));
+      if (live) {
+        d0 = ld(sx, q + pstride);
+        d1 = ld(sy, q + pstride);
+        d2 = ld(sz, q + pstride);
+      }
+    }
+    if (live) {
+      float kx[NVA], ky[NVA], kz[NVA];
+      axis_weights(kx, nv, vmin, s0, diffdir == 0, kind, tb);
+      axis_weights(ky, nv, vmin, s1, diffdir == 1, kind, tb);
+      axis_weights(kz, nv, vmin, s2, diffdir == 2, kind, tb);
+      float kxd[ALL ? NVA : 1], kyd[ALL ? NVA : 1], kzd[ALL ? NVA : 1];
+      if constexpr (ALL) {
+        axis_weights(kxd, nv, vmin, s0, true, kind, tb);
+        axis_weights(kyd, nv, vmin, s1, true, kind, tb);
+        axis_weights(kzd, nv, vmin, s2, true, kind, tb);
+      }
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+#pragma unroll
+      for (int a = 0; a < nv; ++a) {
+        const int slot = head + a < depth ? head + a : head + a - depth;
+        const float* plane = ring + slot * slot_size + ty * szw + tz;
+#pragma unroll
+        for (int b = 0; b < nv; ++b) {
+          const float* row = plane + b * szw;
+#pragma unroll
+          for (int c = 0; c < nv; ++c) {
+            if constexpr (ALL) {
+              float v = row[c];
+              a0 += (kxd[a] * ky[b]) * kz[c] * v;
+              a1 += (kx[a] * kyd[b]) * kz[c] * v;
+              a2 += (kx[a] * ky[b]) * kzd[c] * v;
+            } else {
+              float w = (kx[a] * ky[b]) * kz[c];
+              a0 += w * row[c];
+              if (NM > 1) a1 += w * row[area + c];
+              if (NM > 2) a2 += w * row[2 * area + c];
+            }
+          }
         }
       }
+      st(o0, q, a0);
+      if (ALL || NM > 1) st(o1, q, a1);
+      if (ALL || NM > 2) st(o2, q, a2);
     }
+    head = head + 1 == depth ? 0 : head + 1;
   }
-  st(o0, q, a0);
-  if (all || nmesh > 1) st(o1, q, a1);
-  if (all || nmesh > 2) st(o2, q, a2);
 }
 
-constexpr int kThreads = 128;
+// the paint: one thread per output column (j, k) of the tile.  The block
+// walks source planes s = x1 - 1 - vmin down to x0 - vmax; acc[a] holds
+// output plane s + vmin + a, which plane s feeds with v_x = vmin + a.
+// After plane s, output plane s + vmax (acc[nv - 1]) has all its taps.
+// Dynamic shared memory: nbuf tables of the staged region's weights,
+// [3 nv (+ 1 mass)][area] f32.
+template <int NV, bool MASS, class T>
+__global__ void __launch_bounds__(kThreads) paint_staged(
+    const T* __restrict__ sx, const T* __restrict__ sy,
+    const T* __restrict__ sz, const T* __restrict__ mass, float scalar_mass,
+    T* __restrict__ out, Geo g, int diffdir, int kind, Table tb, int nbuf) {
+  constexpr int NS = MASS ? 4 : 3;
+  constexpr int NVA = NV == NV_ANY ? NV_MAX : NV;
+  constexpr int PER =  // staged cells per thread
+      ((TY + NVA - 1) * (TZ + NVA - 1) + kThreads - 1) / kThreads;
+  extern __shared__ float table[];
+  const int nv = NV == NV_ANY ? g.nv : NV;
+  const int vmin = g.vmin, vmax = vmin + nv - 1;
+  const int szw = TZ + nv - 1, area = (TY + nv - 1) * szw;
+  const int tab_size = (3 * nv + (MASS ? 1 : 0)) * area;
+  const int ty = threadIdx.x / TZ, tz = threadIdx.x % TZ;
+  const int j = blockIdx.y * TY + ty, k = blockIdx.x * TZ + tz;
+  const int x0 = blockIdx.z * g.xc, x1 = min(x0 + g.xc, g.n0);
+  const bool live = j < g.n1 && k < g.n2;
+  const T* const src[4] = {sx, sy, sz, mass};
 
-dim3 grid_of(int n0, int n1, int n2) {
-  return dim3((n2 + kThreads - 1) / kThreads, n1, n0);
+  int off[PER];
+  region_offsets(off, area, szw, blockIdx.y * TY - vmax,
+                 blockIdx.x * TZ - vmax, g);
+  float pre[NS][PER];
+  const int s_hi = x1 - 1 - vmin, count = x1 - x0 + nv - 1;
+  fetch(pre, src, off, plane_at(s_hi, g));
+  float acc[NVA];
+#pragma unroll
+  for (int a = 0; a < NVA; ++a) acc[a] = 0.f;
+  // the thread's cell of a staged plane for offsets (vy, vz) = (vmin,
+  // vmin); offset (vmin + b, vmin + c) is b rows and c cells before it
+  const int cell0 = (ty + nv - 1) * szw + tz + nv - 1;
+  int buf = 0;
+  for (int it = 0; it < count; ++it) {
+    const int s = s_hi - it;
+    float* tab = table + buf * tab_size;
+#pragma unroll
+    for (int r = 0; r < PER; ++r) {
+      if (off[r] < 0) continue;
+      const int e = threadIdx.x + r * kThreads;
+      float w[NVA];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        axis_weights(w, nv, vmin, pre[d][r], diffdir == d, kind, tb);
+#pragma unroll
+        for (int a = 0; a < nv; ++a) tab[(d * nv + a) * area + e] = w[a];
+      }
+      if (MASS) tab[3 * nv * area + e] = pre[NS - 1][r];
+    }
+    __syncthreads();
+    if (it + 1 < count) fetch(pre, src, off, plane_at(s - 1, g));
+    if (live) {
+#pragma unroll
+      for (int b = 0; b < nv; ++b) {
+#pragma unroll
+        for (int c = 0; c < nv; ++c) {
+          const int cell = cell0 - b * szw - c;
+          const float wy = tab[(nv + b) * area + cell];
+          const float wz = tab[(2 * nv + c) * area + cell];
+          const float m = MASS ? tab[3 * nv * area + cell] : 1.f;
+#pragma unroll
+          for (int a = 0; a < nv; ++a) {
+            float w = tab[a * area + cell] * wy;
+            w = w * wz;
+            if (MASS) w = w * m;
+            acc[a] += w;
+          }
+        }
+      }
+      const int o = s + vmax;
+      if (o >= x0 && o < x1)
+        st(out, ((int64_t)o * g.n1 + j) * g.n2 + k,
+           acc[nv - 1] * scalar_mass);
+    }
+#pragma unroll
+    for (int a = nv - 1; a > 0; --a) acc[a] = acc[a - 1];
+    acc[0] = 0.f;
+    if (nbuf == 1)
+      __syncthreads();
+    else
+      buf ^= 1;
+  }
 }
 
-// the storage T of every mesh: f32, or bf16 when bf16 is set
-template <int K, class T>
-void launch_paint_t(const void* sx, const void* sy, const void* sz,
-                    const void* mass, float scalar_mass, void* out, int n0,
-                    int n1, int n2, int xbase, int vmin, int vmax,
-                    int diffdir, Table tb, cudaStream_t stream) {
-  paint_lattice_kernel<K, T><<<grid_of(n0, n1, n2), kThreads, 0, stream>>>(
+// the shared bytes of a launch; ops/gridpm_cuda.plan counts the same
+size_t readout_smem(int nv, int nmesh) {
+  return (size_t)(nv + 1) * nmesh * (TY + nv - 1) * (TZ + nv - 1) *
+         sizeof(float);
+}
+
+size_t paint_smem(int nv, int mass, int nbuf) {
+  return (size_t)nbuf * (3 * nv + mass) * (TY + nv - 1) * (TZ + nv - 1) *
+         sizeof(float);
+}
+
+dim3 grid_of(const Geo& g) {
+  return dim3((g.n2 + TZ - 1) / TZ, (g.n1 + TY - 1) / TY,
+              (g.n0 + g.xc - 1) / g.xc);
+}
+
+// above the 48 KB a block gets by default, a kernel must ask for more
+template <class F>
+cudaError_t allow_smem(F* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute((const void*)kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <int NV, bool MASS, class T>
+cudaError_t launch_paint_t(const void* sx, const void* sy, const void* sz,
+                           const void* mass, float scalar_mass, void* out,
+                           const Geo& g, int diffdir, int kind, Table tb,
+                           int nbuf, size_t smem, cudaStream_t stream) {
+  cudaError_t err = allow_smem(paint_staged<NV, MASS, T>, smem);
+  if (err != cudaSuccess) return err;
+  paint_staged<NV, MASS, T><<<grid_of(g), kThreads, smem, stream>>>(
       (const T*)sx, (const T*)sy, (const T*)sz, (const T*)mass, scalar_mass,
-      (T*)out, n0, n1, n2, xbase, vmin, vmax, diffdir, tb);
+      (T*)out, g, diffdir, kind, tb, nbuf);
+  return cudaSuccess;
 }
 
-template <int K>
-void launch_paint(const void* sx, const void* sy, const void* sz,
-                  const void* mass, float scalar_mass, void* out, int n0,
-                  int n1, int n2, int xbase, int vmin, int vmax, int diffdir,
-                  Table tb, int bf16, cudaStream_t stream) {
-  if (bf16)
-    launch_paint_t<K, bf16_t>(sx, sy, sz, mass, scalar_mass, out, n0, n1, n2,
-                              xbase, vmin, vmax, diffdir, tb, stream);
-  else
-    launch_paint_t<K, float>(sx, sy, sz, mass, scalar_mass, out, n0, n1, n2,
-                             xbase, vmin, vmax, diffdir, tb, stream);
+template <int NV, class T>
+cudaError_t launch_paint_m(const void* sx, const void* sy, const void* sz,
+                           const void* mass, float scalar_mass, void* out,
+                           const Geo& g, int diffdir, int kind, Table tb,
+                           int nbuf, size_t smem, cudaStream_t stream) {
+  if (mass != nullptr)
+    return launch_paint_t<NV, true, T>(sx, sy, sz, mass, scalar_mass, out, g,
+                                       diffdir, kind, tb, nbuf, smem, stream);
+  return launch_paint_t<NV, false, T>(sx, sy, sz, mass, scalar_mass, out, g,
+                                      diffdir, kind, tb, nbuf, smem, stream);
 }
 
-template <int K, class T>
-void launch_readout_t(const void* m0, const void* m1, const void* m2,
-                      int nmesh, const void* sx, const void* sy,
-                      const void* sz, void* o0, void* o1, void* o2, int n0,
-                      int n1, int n2, int xbase, int vmin, int vmax,
-                      int diffdir, Table tb, cudaStream_t stream) {
-  readout_lattice_kernel<K, T>
-      <<<grid_of(n0, n1, n2), kThreads, 0, stream>>>(
-          (const T*)m0, (const T*)m1, (const T*)m2, nmesh, (const T*)sx,
-          (const T*)sy, (const T*)sz, (T*)o0, (T*)o1, (T*)o2, n0, n1, n2,
-          xbase, vmin, vmax, diffdir, tb);
+template <class T>
+cudaError_t launch_paint(const void* sx, const void* sy, const void* sz,
+                         const void* mass, float scalar_mass, void* out,
+                         const Geo& g, int diffdir, int kind, Table tb,
+                         int nbuf, size_t smem, cudaStream_t stream) {
+  switch (g.nv) {
+#define PAINT_NV(NV)                                                        \
+  case NV:                                                                  \
+    return launch_paint_m<NV, T>(sx, sy, sz, mass, scalar_mass, out, g,     \
+                                 diffdir, kind, tb, nbuf, smem, stream);
+    PAINT_NV(2)
+    PAINT_NV(3)
+    PAINT_NV(4)
+    PAINT_NV(5)
+    PAINT_NV(6)
+#undef PAINT_NV
+    default:
+      return launch_paint_m<NV_ANY, T>(sx, sy, sz, mass, scalar_mass, out, g,
+                                       diffdir, kind, tb, nbuf, smem, stream);
+  }
 }
 
-template <int K>
-void launch_readout(const void* m0, const void* m1, const void* m2,
-                    int nmesh, const void* sx, const void* sy,
-                    const void* sz, void* o0, void* o1, void* o2, int n0,
-                    int n1, int n2, int xbase, int vmin, int vmax, int diffdir,
-                    Table tb, int bf16, cudaStream_t stream) {
-  if (bf16)
-    launch_readout_t<K, bf16_t>(m0, m1, m2, nmesh, sx, sy, sz, o0, o1, o2, n0,
-                                n1, n2, xbase, vmin, vmax, diffdir, tb,
-                                stream);
-  else
-    launch_readout_t<K, float>(m0, m1, m2, nmesh, sx, sy, sz, o0, o1, o2, n0,
-                               n1, n2, xbase, vmin, vmax, diffdir, tb, stream);
+template <int NV, int MODE, class T>
+cudaError_t launch_readout_t(const void* m0, const void* m1, const void* m2,
+                             const void* sx, const void* sy, const void* sz,
+                             void* o0, void* o1, void* o2, const Geo& g,
+                             int diffdir, int kind, Table tb, size_t smem,
+                             cudaStream_t stream) {
+  cudaError_t err = allow_smem(readout_staged<NV, MODE, T>, smem);
+  if (err != cudaSuccess) return err;
+  readout_staged<NV, MODE, T><<<grid_of(g), kThreads, smem, stream>>>(
+      (const T*)m0, (const T*)m1, (const T*)m2, (const T*)sx, (const T*)sy,
+      (const T*)sz, (T*)o0, (T*)o1, (T*)o2, g, diffdir, kind, tb);
+  return cudaSuccess;
+}
+
+template <int NV, class T>
+cudaError_t launch_readout_m(const void* m0, const void* m1, const void* m2,
+                             int mode, const void* sx, const void* sy,
+                             const void* sz, void* o0, void* o1, void* o2,
+                             const Geo& g, int diffdir, int kind, Table tb,
+                             size_t smem, cudaStream_t stream) {
+  switch (mode) {
+#define READOUT_MODE(MODE)                                                  \
+  case MODE:                                                                \
+    return launch_readout_t<NV, MODE, T>(m0, m1, m2, sx, sy, sz, o0, o1,    \
+                                         o2, g, diffdir, kind, tb, smem,    \
+                                         stream);
+    READOUT_MODE(1)
+    READOUT_MODE(2)
+    READOUT_MODE(3)
+    READOUT_MODE(MODE_ALL)
+#undef READOUT_MODE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <class T>
+cudaError_t launch_readout(const void* m0, const void* m1, const void* m2,
+                           int mode, const void* sx, const void* sy,
+                           const void* sz, void* o0, void* o1, void* o2,
+                           const Geo& g, int diffdir, int kind, Table tb,
+                           size_t smem, cudaStream_t stream) {
+  switch (g.nv) {
+#define READOUT_NV(NV)                                                      \
+  case NV:                                                                  \
+    return launch_readout_m<NV, T>(m0, m1, m2, mode, sx, sy, sz, o0, o1, o2, \
+                                   g, diffdir, kind, tb, smem, stream);
+    READOUT_NV(2)
+    READOUT_NV(3)
+    READOUT_NV(4)
+    READOUT_NV(5)
+    READOUT_NV(6)
+#undef READOUT_NV
+    default:
+      return launch_readout_m<NV_ANY, T>(m0, m1, m2, mode, sx, sy, sz, o0, o1,
+                                         o2, g, diffdir, kind, tb, smem,
+                                         stream);
+  }
+}
+
+// the checks both entry points share: the window, the plan and the grid
+bool valid_geo(const Geo& g, int kind) {
+  return kind >= W_NEAREST && kind <= W_TABLE_OFFSET && g.nv >= 1 &&
+         g.nv <= NV_MAX && g.xc >= 1 && g.n0 >= 1 && g.n1 >= 1 &&
+         g.n2 >= 1 && (int64_t)g.n1 * g.n2 <= INT32_MAX &&
+         (g.n1 + TY - 1) / TY <= 65535 && (g.n0 + g.xc - 1) / g.xc <= 65535;
 }
 
 }  // namespace
@@ -317,75 +642,64 @@ const char* pmesh_cuda_error_string(int code) {
 // kinds only): 2 * ntable floats, the values then the differences / step;
 // xbase >= 0: the x-halo slab form, displacements and mass of n0_in
 // planes (every plane i + xbase - v_x must lie in [0, n0_in)); bf16: the
-// displacements, the mass mesh and the output are bf16, else f32
+// displacements, the mass mesh and the output are bf16, else f32; xc,
+// nbuf, smem: the plan (planes per block, table buffers, shared bytes)
 int pmesh_paint_lattice(const void* sx, const void* sy, const void* sz,
                         const void* mass, float scalar_mass, void* out,
                         int n0, int n1, int n2, int n0_in, int xbase,
                         int vmin, int vmax, int kind, int diffdir,
                         const float* table, int ntable, float step,
-                        float offset, int bf16, int device, void* stream) {
+                        float offset, int bf16, int xc, int nbuf,
+                        long long smem, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (diffdir < DIFF_NONE || diffdir > 2) return (int)cudaErrorInvalidValue;
+  Geo g{n0, n1, n2, xbase, vmin, vmax - vmin + 1, xc};
+  if (diffdir < DIFF_NONE || diffdir > 2 || !valid_geo(g, kind) ||
+      (nbuf != 1 && nbuf != 2) ||
+      (size_t)smem != paint_smem(g.nv, mass != nullptr, nbuf))
+    return (int)cudaErrorInvalidValue;
   if (xbase >= 0 && (xbase - vmax < 0 || n0 - 1 + xbase - vmin >= n0_in))
     return (int)cudaErrorInvalidValue;
   Table tb{table, table + ntable, ntable, step, offset};
   cudaStream_t s = (cudaStream_t)stream;
-  switch (kind) {
-#define PAINT_CASE(K)                                                       \
-  case K:                                                                   \
-    launch_paint<K>(sx, sy, sz, mass, scalar_mass, out, n0, n1, n2, xbase,  \
-                    vmin, vmax, diffdir, tb, bf16, s);                      \
-    break;
-    PAINT_CASE(W_NEAREST)
-    PAINT_CASE(W_LINEAR)
-    PAINT_CASE(W_QUADRATIC)
-    PAINT_CASE(W_CUBIC)
-    PAINT_CASE(W_TABLE)
-    PAINT_CASE(W_TABLE_OFFSET)
-#undef PAINT_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  err = bf16 ? launch_paint<bf16_t>(sx, sy, sz, mass, scalar_mass, out, g,
+                                    diffdir, kind, tb, nbuf, smem, s)
+             : launch_paint<float>(sx, sy, sz, mass, scalar_mass, out, g,
+                                   diffdir, kind, tb, nbuf, smem, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // nmesh in 1..3 meshes m0..m2 into o0..o2; diffdir 3 ('all') reads m0
 // into the three derivative outputs o0..o2; xbase >= 0: the x-halo slab
 // form, meshes of n0_in planes (every plane i + xbase + v_x must lie in
-// [0, n0_in)); bf16: meshes, displacements and outputs are bf16
+// [0, n0_in)); bf16: meshes, displacements and outputs are bf16; xc,
+// smem: the plan
 int pmesh_readout_lattice(const void* m0, const void* m1, const void* m2,
                           int nmesh, const void* sx, const void* sy,
                           const void* sz, void* o0, void* o1, void* o2,
                           int n0, int n1, int n2, int n0_in, int xbase,
                           int vmin, int vmax, int kind, int diffdir,
                           const float* table, int ntable, float step,
-                          float offset, int bf16, int device, void* stream) {
+                          float offset, int bf16, int xc, long long smem,
+                          int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  Geo g{n0, n1, n2, xbase, vmin, vmax - vmin + 1, xc};
   if (diffdir < DIFF_NONE || diffdir > DIFF_ALL || nmesh < 1 || nmesh > 3 ||
-      (diffdir == DIFF_ALL && nmesh != 1))
+      (diffdir == DIFF_ALL && nmesh != 1) || !valid_geo(g, kind) ||
+      (size_t)smem != readout_smem(g.nv, nmesh))
     return (int)cudaErrorInvalidValue;
   if (xbase >= 0 && (xbase + vmin < 0 || n0 - 1 + xbase + vmax >= n0_in))
     return (int)cudaErrorInvalidValue;
   Table tb{table, table + ntable, ntable, step, offset};
   cudaStream_t s = (cudaStream_t)stream;
-  switch (kind) {
-#define READOUT_CASE(K)                                                     \
-  case K:                                                                   \
-    launch_readout<K>(m0, m1, m2, nmesh, sx, sy, sz, o0, o1, o2, n0, n1,    \
-                      n2, xbase, vmin, vmax, diffdir, tb, bf16, s);         \
-    break;
-    READOUT_CASE(W_NEAREST)
-    READOUT_CASE(W_LINEAR)
-    READOUT_CASE(W_QUADRATIC)
-    READOUT_CASE(W_CUBIC)
-    READOUT_CASE(W_TABLE)
-    READOUT_CASE(W_TABLE_OFFSET)
-#undef READOUT_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  int mode = diffdir == DIFF_ALL ? MODE_ALL : nmesh;
+  err = bf16 ? launch_readout<bf16_t>(m0, m1, m2, mode, sx, sy, sz, o0, o1,
+                                      o2, g, diffdir, kind, tb, smem, s)
+             : launch_readout<float>(m0, m1, m2, mode, sx, sy, sz, o0, o1,
+                                     o2, g, diffdir, kind, tb, smem, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

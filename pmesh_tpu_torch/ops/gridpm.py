@@ -150,13 +150,7 @@ def _shift_loop(meshes, disp, mass, bounds, window, diffdir, mode,
         if mode == 'paint':
             return _k.paint_lattice(disp, mass, vmin, vmax, win,
                                     diffdir=diffdir)
-        if diffdir == 'all':
-            return _k.readout_lattice(meshes[:1], disp, vmin, vmax, win,
-                                      diffdir='all')
-        # one launch per mesh, as the JAX package issues on the TPU
-        return tuple(_k.readout_lattice((m,), disp, vmin, vmax, win,
-                                        diffdir=diffdir)[0]
-                     for m in meshes)
+        return _readout_launches(_k, meshes, disp, vmin, vmax, win, diffdir)
 
     if diffdir == 'all' and mode == 'readout':
         return tuple(_shift_loop(meshes[:1], disp, None, bounds, win, d,
@@ -199,6 +193,23 @@ def _shift_loop(meshes, disp, mass, bounds, window, diffdir, mode,
         outs = [o + w * torch.roll(m, neg, axes)
                 for o, m in zip(outs, meshes)]
     return tuple(o.to(store) for o in outs)
+
+
+def _readout_launches(k, meshes, disp, vmin, vmax, win, diffdir, xbase=None):
+    """the readout kernel over ``meshes``: one launch for up to three
+    meshes, which share the displacements and the weights.  The JAX
+    package issues one call per mesh because on v5e a multi-mesh call's
+    larger VMEM working set pipelined worse
+    (``pmesh_tpu/ops/gridpm_pallas.py:482-486``); on the card the staged
+    tile of three meshes fits shared memory with room to spare, and one
+    launch reads the displacements and forms the weights once instead of
+    three times."""
+    if diffdir == 'all':
+        return k.readout_lattice(meshes[:1], disp, vmin, vmax, win,
+                                 diffdir='all', xbase=xbase)
+    return sum((k.readout_lattice(meshes[i:i + 3], disp, vmin, vmax, win,
+                                  diffdir=diffdir, xbase=xbase)
+                for i in range(0, len(meshes), 3)), ())
 
 
 def _sharded(procmesh):
@@ -260,12 +271,8 @@ def _shift_sharded(meshes, disp, mass, bounds, window, diffdir, mode,
     if not cuda:
         return readout_slab_plain(mext, disp, lo, bounds, win, diffdir)
     from . import gridpm_cuda as _k
-    if diffdir == 'all':
-        return _k.readout_lattice(mext[:1], disp, vmin, vmax, win,
-                                  diffdir='all', xbase=lo)
-    return tuple(_k.readout_lattice((m,), disp, vmin, vmax, win,
-                                    diffdir=diffdir, xbase=lo)[0]
-                 for m in mext)
+    return _readout_launches(_k, mext, disp, vmin, vmax, win, diffdir,
+                             xbase=lo)
 
 
 def _no_sharded_grad(what, tensors):
@@ -294,20 +301,6 @@ def _no_kernel_rule(what, impl, t):
             "the CPU (impl='torch')" % what)
 
 
-def _readout_fused(meshes, disp, bounds, window, diffdir, impl):
-    """readouts of up to three meshes sharing the weights: one kernel
-    launch for all of them on CUDA tensors (3-d), the plain loop
-    otherwise"""
-    if _use_cuda(impl, disp[0]) and len(disp) == 3:
-        from . import gridpm_cuda as _k
-        win = find_window(window)
-        vmin, vmax = offset_range(float(bounds[0]), float(bounds[1]), win)
-        return _k.readout_lattice(meshes, disp, vmin, vmax, win,
-                                  diffdir=diffdir)
-    return _shift_loop(meshes, disp, None, bounds, window, diffdir,
-                       'readout', impl)
-
-
 class _Paint(torch.autograd.Function):
     """paint with the JAX package's custom vjp (``_paint_bwd``);
     ``mass`` is a tensor (a mesh or 0-d) or None, ``cfg`` = (bounds,
@@ -330,7 +323,8 @@ class _Paint(torch.autograd.Function):
         v = v.detach().contiguous()
         mass_bar = None
         if ctx.needs_input_grad[1]:
-            mb = _readout_fused((v,), disp, bounds, window, None, impl)[0]
+            mb = _shift_loop((v,), disp, None, bounds, window, None,
+                             'readout', impl)[0]
             mass_bar = (mb if mass.dim() > 0 else mb.sum()).to(mass.dtype)
         disp_bar = [None] * len(disp)
         if any(ctx.needs_input_grad[2:]):
@@ -370,7 +364,8 @@ class _Readout(torch.autograd.Function):
             if not need[nmesh + d]:
                 disp_bar.append(None)
                 continue
-            rds = _readout_fused(meshes, disp, bounds, window, d, impl)
+            rds = _shift_loop(meshes, disp, None, bounds, window, d,
+                              'readout', impl)
             acc = None
             for vb, rd in zip(vbar, rds):
                 acc = vb * rd if acc is None else acc + vb * rd

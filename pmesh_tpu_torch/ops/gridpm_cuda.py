@@ -11,6 +11,12 @@ kernel, so a run can show that it went through the kernels (the
 x-halo slab forms under "<name>_xhalo", the bf16 forms with "_bf16"
 appended).
 
+The kernels stage x-planes of a tile in shared memory (``csrc/gridpm.cu``
+says how); ``plan`` is their launch planner: the tile, the planes per
+block, the readout's ring depth, the paint's table buffers and the
+shared bytes, for each window width, mesh count and mass.  The entry
+points check its bytes against their own count.
+
 Both take the x-halo slab form of a slab-sharded mesh (``xbase``):
 the paint reads displacements and mass of ``lo + rows + hi`` planes and
 writes ``rows``, the readout reads meshes of ``lo + rows + hi`` planes
@@ -28,7 +34,7 @@ import torch
 from .kernels import find_window, ANALYTIC_BASE
 from ..native import cuda as _cuda
 
-__all__ = ["paint_lattice", "readout_lattice", "LAUNCHES",
+__all__ = ["paint_lattice", "readout_lattice", "plan", "LAUNCHES",
            "reset_launches"]
 
 # the x-halo slab forms ("_xhalo") and the bf16 forms ("_bf16") count
@@ -43,7 +49,21 @@ _DIFF = {None: -1, 0: 0, 1: 1, 2: 2, 'all': 3}
 # the launch grid puts N1 and N0 on gridDim.y and gridDim.z
 _MAX_GRID_YZ = 65535
 
+# csrc/gridpm.cu's tile (TY, TZ: one thread per cell), its widest
+# window (NV_MAX, the 12^3 offsets of GRID_LIMIT) and the widths it
+# compiles in (the others read nv at run time)
+TILE_Y, TILE_Z = 8, 32
+NV_MAX = 12
+NV_COMPILED = (2, 3, 4, 5, 6)
+# the H100's shared memory per block and its SMs
+SMEM_LIMIT = 232448
+SMS = 132
+# planes per block: at most XC_MAX, halved while the launch has fewer
+# than MIN_BLOCKS blocks (four per SM) and more than XC_MIN planes
+XC_MAX, XC_MIN, MIN_BLOCKS = 64, 8, 4 * SMS
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 _lib = None
 _tables = {}
 
@@ -60,14 +80,61 @@ def _load():
         lib.pmesh_cuda_error_string.argtypes = [_I]
         lib.pmesh_cuda_error_string.restype = ctypes.c_char_p
         lib.pmesh_paint_lattice.argtypes = (
-            [_P] * 4 + [_F, _P] + [_I] * 9 + [_P, _I, _F, _F, _I, _I, _P])
+            [_P] * 4 + [_F, _P] + [_I] * 9 + [_P, _I, _F, _F]
+            + [_I] * 3 + [_LL, _I, _P])
         lib.pmesh_paint_lattice.restype = _I
         lib.pmesh_readout_lattice.argtypes = (
-            [_P] * 3 + [_I] + [_P] * 6 + [_I] * 9 + [_P, _I, _F, _F, _I,
-                                                    _I, _P])
+            [_P] * 3 + [_I] + [_P] * 6 + [_I] * 9 + [_P, _I, _F, _F]
+            + [_I] * 2 + [_LL, _I, _P])
         lib.pmesh_readout_lattice.restype = _I
         _lib = lib
     return _lib
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def plan(op, shape, nv, nmesh=1, mass=False):
+    """The launch plan of a lattice kernel, as ``csrc/gridpm.cu`` takes it.
+
+    op : 'paint' or 'readout'; shape : the (N0, N1, N2) output planes;
+    nv : offsets per axis (1 .. NV_MAX); nmesh : the readout's meshes
+    (1 .. 3; 'all' reads one); mass : the paint takes a mass mesh.
+
+    A block owns a TILE_Y x TILE_Z tile of y-z through ``xc`` output
+    planes.  The readout keeps a ring of ``depth`` = nv + 1 mesh planes
+    of the tile plus its nv - 1 halo, per mesh; the paint keeps ``nbuf``
+    tables (two where they fit in SMEM_LIMIT, else one) of 3 nv axis
+    weights (and the mass) per source cell of that region.  ``smem``:
+    the dynamic shared bytes; ``grid``: the launch grid (z tiles, y
+    tiles, x chunks); ``width``: the compiled nv, or None where the
+    kernel reads nv at run time.  The window's kind and the storage
+    dtype (smem holds f32) do not change the plan."""
+    if op not in ('paint', 'readout'):
+        raise ValueError("plan: op must be 'paint' or 'readout'")
+    if not 1 <= nv <= NV_MAX:
+        raise ValueError("plan: %d offsets per axis; the kernels take 1 to "
+                         "%d" % (nv, NV_MAX))
+    if op == 'readout' and not 1 <= nmesh <= 3:
+        raise ValueError("plan: the readout takes 1 to 3 meshes")
+    n0, n1, n2 = (int(n) for n in shape)
+    region = (TILE_Y + nv - 1) * (TILE_Z + nv - 1) * 4
+    if op == 'readout':
+        depth, nbuf = nv + 1, None
+        smem = depth * nmesh * region
+    else:
+        table = (3 * nv + int(bool(mass))) * region
+        depth, nbuf = None, 2 if 2 * table <= SMEM_LIMIT else 1
+        smem = nbuf * table
+    tiles = _ceil(n1, TILE_Y) * _ceil(n2, TILE_Z)
+    xc = min(n0, XC_MAX)
+    while xc > XC_MIN and tiles * _ceil(n0, xc) < MIN_BLOCKS:
+        xc = _ceil(xc, 2)
+    return dict(op=op, nv=nv, width=nv if nv in NV_COMPILED else None,
+                tile=(TILE_Y, TILE_Z), xc=xc, depth=depth, nbuf=nbuf,
+                smem=smem,
+                grid=(_ceil(n2, TILE_Z), _ceil(n1, TILE_Y), _ceil(n0, xc)))
 
 
 def _window_args(window, device):
@@ -125,6 +192,9 @@ def _check(arrays, what):
     if n0 > _MAX_GRID_YZ or n1 > _MAX_GRID_YZ:
         raise ValueError("%s: Nmesh[0] and Nmesh[1] must be <= %d"
                          % (what, _MAX_GRID_YZ))
+    if n1 * n2 > 2 ** 31 - 1:
+        raise ValueError("%s: a plane of Nmesh[1] * Nmesh[2] cells must "
+                         "hold fewer than 2^31" % what)
     return tuple(ref.shape), ref.device
 
 
@@ -179,6 +249,7 @@ def paint_lattice(disp, mass, vmin, vmax, window, diffdir=None, rows=None,
     kind, table, ntable, step, offset = _window_args(window, device)
     dtype = disp[0].dtype
     out = torch.empty((rows,) + shape[1:], dtype=dtype, device=device)
+    p = plan('paint', out.shape, vmax - vmin + 1, mass=mesh_mass)
     stream = torch.cuda.current_stream(device).cuda_stream
     LAUNCHES[what + ("_xhalo" if xbase >= 0 else "")
              + ("_bf16" if dtype == torch.bfloat16 else "")] += 1
@@ -187,7 +258,8 @@ def paint_lattice(disp, mass, vmin, vmax, window, diffdir=None, rows=None,
         _ptr(mass) if mesh_mass else None, scalar, _ptr(out),
         rows, shape[1], shape[2], n_in, xbase, vmin, vmax, kind,
         _DIFF[diffdir], _ptr(table), ntable, step, offset,
-        int(dtype == torch.bfloat16), device.index, stream)
+        int(dtype == torch.bfloat16), p['xc'], p['nbuf'], p['smem'],
+        device.index, stream)
     _raise_on(rc, what)
     return out
 
@@ -234,6 +306,7 @@ def readout_lattice(meshes, disp, vmin, vmax, window, diffdir=None,
                  for _ in range(nout))
     m = [_ptr(x) for x in meshes] + [None] * (3 - len(meshes))
     o = [_ptr(x) for x in outs] + [None] * (3 - nout)
+    p = plan('readout', shape, vmax - vmin + 1, nmesh=len(meshes))
     stream = torch.cuda.current_stream(device).cuda_stream
     LAUNCHES[what + ("_xhalo" if xbase >= 0 else "")
              + ("_bf16" if dtype == torch.bfloat16 else "")] += 1
@@ -241,6 +314,7 @@ def readout_lattice(meshes, disp, vmin, vmax, window, diffdir=None,
         m[0], m[1], m[2], len(meshes), _ptr(disp[0]), _ptr(disp[1]),
         _ptr(disp[2]), o[0], o[1], o[2], shape[0], shape[1], shape[2],
         n_in, xbase, vmin, vmax, kind, _DIFF[diffdir], _ptr(table), ntable,
-        step, offset, int(dtype == torch.bfloat16), device.index, stream)
+        step, offset, int(dtype == torch.bfloat16), p['xc'], p['smem'],
+        device.index, stream)
     _raise_on(rc, what)
     return outs

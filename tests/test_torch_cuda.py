@@ -85,6 +85,7 @@ def test_offsets_wider_than_mesh(dev):
 
 
 def test_dispatch_and_counters(dev):
+    """readout_grid reads its three meshes in one launch"""
     from pmesh_tpu_torch.ops import gridpm_cuda
     disp, _, meshes = _inputs(3, (8, 8, 8), (0.0, 1.0), dev)
     gridpm_cuda.reset_launches()
@@ -93,7 +94,97 @@ def test_dispatch_and_counters(dev):
     tgp.readout_grid(meshes[0], disp, diffdir='all')
     tgp.paint_grid(disp, impl='torch')
     assert _launched(gridpm_cuda) == {"paint_lattice": 1,
-                                      "readout_lattice": 4}
+                                      "readout_lattice": 2}
+
+
+# the staged kernels at every compiled width and one read at run time
+# (nv = 7), on meshes of several x chunks (plan's xc) with y and z not
+# whole tiles, and one smaller than a tile
+STAGED_BOUNDS = {3: (-1.0, 1.0), 4: (-0.5, 1.5), 5: (-2.0, 2.0),
+                 7: (-3.0, 3.0)}
+
+
+@pytest.mark.parametrize("nv", sorted(STAGED_BOUNDS))
+@pytest.mark.parametrize("dtype", ['f32', 'bf16'])
+@pytest.mark.parametrize("shape", [(70, 20, 36), (3, 5, 7)])
+def test_staged_kernels_match_plain(dev, nv, dtype, shape):
+    from pmesh_tpu_torch.ops import gridpm_cuda
+    bounds = STAGED_BOUNDS[nv]
+    vmin, vmax = tgp.offset_range(*bounds, 'cic')
+    assert vmax - vmin + 1 == nv
+    disp, mass, meshes = _inputs(40 + nv, shape, bounds, dev)
+    bf = dtype == 'bf16'
+    if bf:
+        disp, mass = tuple(d.bfloat16() for d in disp), mass.bfloat16()
+        meshes = tuple(m.bfloat16() for m in meshes)
+
+    def same(got, ref, got32=None, ref32=None):
+        if bf:
+            _bf16_storage_ok(got, ref, got32, ref32)
+        else:
+            for g, r in zip(got, ref):
+                assert _rel(g, r) <= TOL
+
+    def up(ts):
+        return tuple(t.float() for t in ts)
+    for diffdir in (None, 0):
+        for m in (None, mass):
+            args = (bounds, 'cic', diffdir)
+            got = (tgp.paint_grid(disp, m, *args, impl='cuda'),)
+            ref = (tgp.paint_grid(disp, m, *args, impl='torch'),)
+            m32 = None if m is None else m.float()
+            same(got, ref, (tgp.paint_grid(up(disp), m32, *args,
+                                           impl='cuda'),),
+                 (tgp.paint_grid(up(disp), m32, *args, impl='torch'),))
+    for diffdir in (None, 0, 'all'):
+        for ms in ((meshes[0],), meshes):
+            if diffdir == 'all' and len(ms) > 1:
+                continue
+            got = gridpm_cuda.readout_lattice(ms, disp, vmin, vmax, 'cic',
+                                              diffdir=diffdir)
+            ref = tgp.readout_grid(ms, disp, bounds, diffdir=diffdir,
+                                   impl='torch')
+            got32 = gridpm_cuda.readout_lattice(up(ms), up(disp), vmin, vmax,
+                                                'cic', diffdir=diffdir)
+            ref32 = tgp.readout_grid(up(ms), up(disp), bounds,
+                                     diffdir=diffdir, impl='torch')
+            same(got, ref, got32, ref32)
+
+
+@pytest.mark.parametrize("nv", sorted(STAGED_BOUNDS))
+def test_staged_xhalo_matches_plain(dev, nv):
+    """the x-halo slab form: a 21-row slab with its halos, bitwise the
+    wrapped kernels' rows where the slab holds the whole mesh"""
+    from pmesh_tpu_torch.ops import gridpm_cuda
+    bounds = STAGED_BOUNDS[nv]
+    vmin, vmax = tgp.offset_range(*bounds, 'cic')
+    rows, lo, hi = 21, max(0, vmax), max(0, -vmin)
+    disp, mass, meshes = _inputs(50 + nv, (lo + rows + hi, 20, 36), bounds,
+                                 dev)
+    for m in (None, mass):
+        got = gridpm_cuda.paint_lattice(disp, m, vmin, vmax, 'cic',
+                                        rows=rows, xbase=lo)
+        ref = tgp.paint_slab_plain(disp, m, lo, rows, bounds, 'cic')
+        assert _rel(got, ref) <= TOL
+    lo = max(0, -vmin)
+    rdisp = tuple(d[lo:lo + rows].contiguous() for d in disp)
+    for ms in ((meshes[0],), meshes):
+        got = gridpm_cuda.readout_lattice(ms, rdisp, vmin, vmax, 'cic',
+                                          xbase=lo)
+        ref = tgp.readout_slab_plain(ms, rdisp, lo, bounds, 'cic')
+        for g, r in zip(got, ref):
+            assert _rel(g, r) <= TOL
+    # a slab of every plane, its halo wrapped in: the wrapped kernels
+    n0 = rows
+    full = tuple(d[lo:lo + rows].contiguous() for d in disp)
+    ext = tuple(torch.cat([m[-lo:] if lo else m[:0], m, m[:vmax]], 0)
+                for m in (x[lo:lo + rows].contiguous() for x in meshes))
+    got = gridpm_cuda.readout_lattice(ext, full, vmin, vmax, 'cic', xbase=lo)
+    ref = gridpm_cuda.readout_lattice(tuple(m[lo:lo + n0].contiguous()
+                                            for m in meshes), full, vmin,
+                                      vmax, 'cic')
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
 
 
 def test_kernels_refuse_what_they_cannot_run(dev):
