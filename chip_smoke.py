@@ -14,7 +14,7 @@ Phases, in order; any failure raises and exits non-zero:
    tensors on the card, and time both: the lattice paint and readout
    (one mesh, diffdir 0 and 'all', and three meshes in one launch, as
    the spectral force reads them) at 512^3 f32 CIC for three
-   displacement bounds (nv = 3 and 5) and at 256^3 with nv = 7 (a width
+   displacement bounds (nv = 3 and 5) and at 128^3 with nv = 7 (a width
    the kernels read at run time), the
    binned rebase assign and apply at 512^3, K = 2 plus velocities,
    bitwise, for drift bounds (-0.5, 1.5) with 2 and 3 output slots and
@@ -368,7 +368,7 @@ REBASE_OPS = 6
 CIC_OPS_3 = CIC_OPS + 2
 # phase 3's window read at run time (not one of the compiled widths):
 # CIC in WIDE_BOUNDS, nv = 7, on a WIDE_N^3 mesh
-WIDE_BOUNDS, WIDE_N = (-3.0, 3.0), 256
+WIDE_BOUNDS, WIDE_N = (-3.0, 3.0), 128
 
 
 def log(*args):
@@ -2601,8 +2601,8 @@ def clustered_superstep(solver, dslots, vslots, valid, fft):
 
 # kernel-name fragment -> family for the profile, first match wins
 FAMILIES = (
-    ("readout_lattice", "readout_lattice"),
-    ("paint_lattice", "paint_lattice"),
+    ("readout_staged", "readout_lattice"),
+    ("paint_staged", "paint_lattice"),
     ("rebase_assign", "rebase_assign"),
     ("rebase_apply", "rebase_apply"),
     ("tc_gemm", "DFT products: tensor cores (tc_gemm)"),

@@ -24,9 +24,10 @@
 // (reached through paint_fused / paint_fused_parts); readout_lattice
 // replaces readout_fused_ext (through readout_fused / readout_fused_parts).
 // They compute what those kernels compute, not how: the TPU kernels roll
-// whole x-planes held in VMEM; here a block owns a brick of output cells,
-// a TY x TZ tile of y-z marching through xc planes of x, one thread per
-// (y, z) column of the tile.
+// whole x-planes held in VMEM; here a block of 256 threads owns a brick
+// of output cells, a TY x TZ tile of y-z marching through xc planes of x
+// (TZ = 32; TY = 8 for the readout, one (y, z) column per thread, and 16
+// for the paint, two y rows per thread).
 //
 // What bounds them on this card.  The compulsory traffic is small (16
 // bytes a cell for a paint, 20 for a one-mesh readout, 36 for three
@@ -52,8 +53,9 @@
 //   (and its mass) once, into a table in shared memory (double-buffered
 //   where it fits); each thread then adds the plane's taps to the nv
 //   output planes it feeds, kept as a register ring of accumulators, and
-//   stores the one that is complete.  A source cell's y weight, z
-//   weight and mass are loaded once for its nv x-offsets.
+//   stores the one that is complete.  A source cell's x weights, z
+//   weight and mass are loaded once for its nv x-offsets and both of
+//   the thread's rows, which share nv - 1 of their nv + 1 source rows.
 //
 // Sums run in f32 in today's order for every output: v_x, then v_y,
 // then v_z ascending, each tap ((W_x * W_y) * W_z) * m (paint) or
@@ -63,7 +65,7 @@
 // any offset, so offsets wider than the mesh are right; plane offsets
 // are 64-bit.
 //
-// The window's nv is compiled in for nv = 2..6 (the hot shapes: nv = 3
+// The window's nv is compiled in for nv = 2..5 (the hot shapes: nv = 3
 // on the lattice main path, CIC in (-1, 1); nv = 4 on the binned paths,
 // (-0.5, 1.5) and their drift bounds); any other nv up to NV_MAX = 12
 // (GRID_LIMIT) runs the same kernel with nv read at run time.  The host
@@ -112,13 +114,15 @@ enum { DIFF_NONE = -1, DIFF_ALL = 3 };
 
 // a tabulated window: values t[0..n), and d[i] = (t[i+1] - t[i]) / step
 // taken in f64 on the host (a difference of f32 neighbours would lose
-// about four digits)
+// about four digits); sym: addressed by |x| (W_TABLE), else one-sided by
+// x + offset (W_TABLE_OFFSET)
 struct Table {
   const float* t;
   const float* d;
   int n;
   float step;
   float offset;
+  bool sym;
 };
 
 // a mod n in [0, n) for any a; the remainder only off the fast path
@@ -157,9 +161,9 @@ __device__ __forceinline__ float wkernel(float x, const Table& tb) {
     float t = 2.f - ax;
     return ax < 2.f ? t * t * t / 6.f : 0.f;
   }
-  if (K == W_TABLE) return table_kernel(ax / tb.step, tb, true);
-  float f = (x + tb.offset) / tb.step;
-  return table_kernel(f, tb, f >= 0.f);
+  // both tabulated kinds (one instance, W_TABLE)
+  float f = (tb.sym ? ax : x + tb.offset) / tb.step;
+  return table_kernel(f, tb, tb.sym || f >= 0.f);
 }
 
 // dW/dx
@@ -182,9 +186,8 @@ __device__ __forceinline__ float wdiff(float x, const Table& tb) {
     float t = 2.f - ax;
     return ax < 2.f ? factor * (-0.5f * t * t) : 0.f;
   }
-  if (K == W_TABLE)
-    return (x >= 0.f ? 1.f : -1.f) * table_diff((int)(ax / tb.step), tb);
-  return table_diff((int)((x + tb.offset) / tb.step), tb);
+  float d = table_diff((int)((tb.sym ? ax : x + tb.offset) / tb.step), tb);
+  return tb.sym ? (x >= 0.f ? 1.f : -1.f) * d : d;
 }
 
 // weight of integer offset v for displacement s along one axis; the
@@ -196,11 +199,14 @@ __device__ __forceinline__ float axis_w(int v, float s, bool diff,
   return diff ? -wdiff<K>(x, tb) : wkernel<K>(x, tb);
 }
 
-// the tile: TY x TZ output cells of a y-z plane, one thread each (a warp
-// is one y row of TZ consecutive z cells); NV_MAX: the widest window
-// GRID_LIMIT (12^3 offsets) lets through; NV_ANY: the instance that reads
-// nv at run time
-constexpr int TY = 8, TZ = 32, kThreads = TY * TZ, NV_MAX = 12, NV_ANY = 0;
+// the tiles: kThreads threads in TROWS rows of TZ consecutive z cells (a
+// warp is one row); the readout's tile has one y row per thread row
+// (TY_READOUT x TZ), the paint's RY (TY_PAINT x TZ).  NV_MAX: the widest
+// window GRID_LIMIT (12^3 offsets) lets through; NV_ANY: the instance
+// that reads nv at run time
+constexpr int TZ = 32, kThreads = 256, TROWS = kThreads / TZ, RY = 2;
+constexpr int TY_READOUT = TROWS, TY_PAINT = TROWS * RY;
+constexpr int NV_MAX = 12, NV_ANY = 0;
 // readout modes: 1 to 3 meshes, or the three derivative readouts of one
 constexpr int MODE_ALL = 4;
 
@@ -244,11 +250,8 @@ __device__ __forceinline__ void axis_weights(float (&w)[NVA], int nv,
     case W_CUBIC:
       fill_weights<W_CUBIC>(w, nv, vmin, s, diff, tb);
       break;
-    case W_TABLE:
+    default:  // W_TABLE, W_TABLE_OFFSET
       fill_weights<W_TABLE>(w, nv, vmin, s, diff, tb);
-      break;
-    default:
-      fill_weights<W_TABLE_OFFSET>(w, nv, vmin, s, diff, tb);
       break;
   }
 }
@@ -298,21 +301,21 @@ __global__ void __launch_bounds__(kThreads) readout_staged(
   constexpr int NM = ALL ? 1 : MODE;
   constexpr int NVA = NV == NV_ANY ? NV_MAX : NV;
   constexpr int PER =  // staged cells per thread
-      ((TY + NVA - 1) * (TZ + NVA - 1) + kThreads - 1) / kThreads;
+      ((TY_READOUT + NVA - 1) * (TZ + NVA - 1) + kThreads - 1) / kThreads;
   extern __shared__ float ring[];
   const int nv = NV == NV_ANY ? g.nv : NV;
   const int vmin = g.vmin, vmax = vmin + nv - 1, depth = nv + 1;
-  const int szw = TZ + nv - 1, area = (TY + nv - 1) * szw;
+  const int szw = TZ + nv - 1, area = (TY_READOUT + nv - 1) * szw;
   const int slot_size = NM * area;
   const int ty = threadIdx.x / TZ, tz = threadIdx.x % TZ;
-  const int j = blockIdx.y * TY + ty, k = blockIdx.x * TZ + tz;
+  const int j = blockIdx.y * TY_READOUT + ty, k = blockIdx.x * TZ + tz;
   const int x0 = blockIdx.z * g.xc, x1 = min(x0 + g.xc, g.n0);
   const bool live = j < g.n1 && k < g.n2;
   const T* const mesh[3] = {m0, m1, m2};
   const int64_t pstride = (int64_t)g.n1 * g.n2;
 
   int off[PER];
-  region_offsets(off, area, szw, blockIdx.y * TY + vmin,
+  region_offsets(off, area, szw, blockIdx.y * TY_READOUT + vmin,
                  blockIdx.x * TZ + vmin, g);
   float pre[NM][PER];
   // slots 0 .. nv - 2: mesh planes x0 + vmin .. x0 + vmax - 1
@@ -399,12 +402,16 @@ __global__ void __launch_bounds__(kThreads) readout_staged(
   }
 }
 
-// the paint: one thread per output column (j, k) of the tile.  The block
-// walks source planes s = x1 - 1 - vmin down to x0 - vmax; acc[a] holds
-// output plane s + vmin + a, which plane s feeds with v_x = vmin + a.
-// After plane s, output plane s + vmax (acc[nv - 1]) has all its taps.
-// Dynamic shared memory: nbuf tables of the staged region's weights,
-// [3 nv (+ 1 mass)][area] f32.
+// the paint: each thread paints RY output columns (j, k), j = j0 + RY ty
+// + r.  The block walks source planes s = x1 - 1 - vmin down to x0 -
+// vmax; acc[r][a] holds output plane s + vmin + a of row r, which plane
+// s feeds with v_x = vmin + a.  After plane s, output plane s + vmax
+// (acc[r][nv - 1]) has all its taps.  Dynamic shared memory: nbuf tables
+// of the staged region's weights, [3 nv (+ 1 mass)][area] f32.  A source
+// cell's x weights, z weight and mass serve every one of the thread's
+// rows that it reaches: row t of the thread's window is v_y = vmin + nv
+// - 1 + r - t of row r; the rows are walked from t = nv + RY - 2 down, so
+// that each output meets its v_y in ascending order.
 template <int NV, bool MASS, class T>
 __global__ void __launch_bounds__(kThreads) paint_staged(
     const T* __restrict__ sx, const T* __restrict__ sy,
@@ -413,30 +420,34 @@ __global__ void __launch_bounds__(kThreads) paint_staged(
   constexpr int NS = MASS ? 4 : 3;
   constexpr int NVA = NV == NV_ANY ? NV_MAX : NV;
   constexpr int PER =  // staged cells per thread
-      ((TY + NVA - 1) * (TZ + NVA - 1) + kThreads - 1) / kThreads;
+      ((TY_PAINT + NVA - 1) * (TZ + NVA - 1) + kThreads - 1) / kThreads;
   extern __shared__ float table[];
   const int nv = NV == NV_ANY ? g.nv : NV;
   const int vmin = g.vmin, vmax = vmin + nv - 1;
-  const int szw = TZ + nv - 1, area = (TY + nv - 1) * szw;
+  const int szw = TZ + nv - 1, area = (TY_PAINT + nv - 1) * szw;
   const int tab_size = (3 * nv + (MASS ? 1 : 0)) * area;
   const int ty = threadIdx.x / TZ, tz = threadIdx.x % TZ;
-  const int j = blockIdx.y * TY + ty, k = blockIdx.x * TZ + tz;
+  const int j = blockIdx.y * TY_PAINT + ty * RY, k = blockIdx.x * TZ + tz;
   const int x0 = blockIdx.z * g.xc, x1 = min(x0 + g.xc, g.n0);
-  const bool live = j < g.n1 && k < g.n2;
+  bool live[RY];
+#pragma unroll
+  for (int r = 0; r < RY; ++r) live[r] = j + r < g.n1 && k < g.n2;
   const T* const src[4] = {sx, sy, sz, mass};
 
   int off[PER];
-  region_offsets(off, area, szw, blockIdx.y * TY - vmax,
+  region_offsets(off, area, szw, blockIdx.y * TY_PAINT - vmax,
                  blockIdx.x * TZ - vmax, g);
   float pre[NS][PER];
   const int s_hi = x1 - 1 - vmin, count = x1 - x0 + nv - 1;
   fetch(pre, src, off, plane_at(s_hi, g));
-  float acc[NVA];
+  float acc[RY][NVA];
 #pragma unroll
-  for (int a = 0; a < NVA; ++a) acc[a] = 0.f;
-  // the thread's cell of a staged plane for offsets (vy, vz) = (vmin,
-  // vmin); offset (vmin + b, vmin + c) is b rows and c cells before it
-  const int cell0 = (ty + nv - 1) * szw + tz + nv - 1;
+  for (int r = 0; r < RY; ++r)
+#pragma unroll
+    for (int a = 0; a < NVA; ++a) acc[r][a] = 0.f;
+  // the thread's cell of window row t, v_z = vmin: offset v_z = vmin + c
+  // is c cells before it
+  const int cell0 = ty * RY * szw + tz + nv - 1;
   int buf = 0;
   for (int it = 0; it < count; ++it) {
     const int s = s_hi - it;
@@ -456,32 +467,46 @@ __global__ void __launch_bounds__(kThreads) paint_staged(
     }
     __syncthreads();
     if (it + 1 < count) fetch(pre, src, off, plane_at(s - 1, g));
-    if (live) {
 #pragma unroll
-      for (int b = 0; b < nv; ++b) {
+    for (int t = nv + RY - 2; t >= 0; --t) {
 #pragma unroll
-        for (int c = 0; c < nv; ++c) {
-          const int cell = cell0 - b * szw - c;
+      for (int c = 0; c < nv; ++c) {
+        const int cell = cell0 + t * szw - c;
+        const float wz = tab[(2 * nv + c) * area + cell];
+        const float m = MASS ? tab[3 * nv * area + cell] : 1.f;
+        float wx[NVA];
+#pragma unroll
+        for (int a = 0; a < nv; ++a) wx[a] = tab[a * area + cell];
+#pragma unroll
+        for (int r = 0; r < RY; ++r) {
+          const int b = nv - 1 + r - t;
+          if (b < 0 || b >= nv) continue;
           const float wy = tab[(nv + b) * area + cell];
-          const float wz = tab[(2 * nv + c) * area + cell];
-          const float m = MASS ? tab[3 * nv * area + cell] : 1.f;
 #pragma unroll
           for (int a = 0; a < nv; ++a) {
-            float w = tab[a * area + cell] * wy;
-            w = w * wz;
-            if (MASS) w = w * m;
-            acc[a] += w;
+            float w = wx[a] * wy;
+            if (MASS) {
+              w = w * wz;
+              w = w * m;
+            } else {
+              // rounded apart, as the first design's product was
+              w = __fmul_rn(w, wz);
+            }
+            acc[r][a] += w;
           }
         }
       }
-      const int o = s + vmax;
-      if (o >= x0 && o < x1)
-        st(out, ((int64_t)o * g.n1 + j) * g.n2 + k,
-           acc[nv - 1] * scalar_mass);
     }
+    const int o = s + vmax;
 #pragma unroll
-    for (int a = nv - 1; a > 0; --a) acc[a] = acc[a - 1];
-    acc[0] = 0.f;
+    for (int r = 0; r < RY; ++r) {
+      if (live[r] && o >= x0 && o < x1)
+        st(out, ((int64_t)o * g.n1 + j + r) * g.n2 + k,
+           acc[r][nv - 1] * scalar_mass);
+#pragma unroll
+      for (int a = nv - 1; a > 0; --a) acc[r][a] = acc[r][a - 1];
+      acc[r][0] = 0.f;
+    }
     if (nbuf == 1)
       __syncthreads();
     else
@@ -491,17 +516,17 @@ __global__ void __launch_bounds__(kThreads) paint_staged(
 
 // the shared bytes of a launch; ops/gridpm_cuda.plan counts the same
 size_t readout_smem(int nv, int nmesh) {
-  return (size_t)(nv + 1) * nmesh * (TY + nv - 1) * (TZ + nv - 1) *
+  return (size_t)(nv + 1) * nmesh * (TY_READOUT + nv - 1) * (TZ + nv - 1) *
          sizeof(float);
 }
 
 size_t paint_smem(int nv, int mass, int nbuf) {
-  return (size_t)nbuf * (3 * nv + mass) * (TY + nv - 1) * (TZ + nv - 1) *
-         sizeof(float);
+  return (size_t)nbuf * (3 * nv + mass) * (TY_PAINT + nv - 1) *
+         (TZ + nv - 1) * sizeof(float);
 }
 
-dim3 grid_of(const Geo& g) {
-  return dim3((g.n2 + TZ - 1) / TZ, (g.n1 + TY - 1) / TY,
+dim3 grid_of(const Geo& g, int ty) {
+  return dim3((g.n2 + TZ - 1) / TZ, (g.n1 + ty - 1) / ty,
               (g.n0 + g.xc - 1) / g.xc);
 }
 
@@ -521,7 +546,7 @@ cudaError_t launch_paint_t(const void* sx, const void* sy, const void* sz,
                            int nbuf, size_t smem, cudaStream_t stream) {
   cudaError_t err = allow_smem(paint_staged<NV, MASS, T>, smem);
   if (err != cudaSuccess) return err;
-  paint_staged<NV, MASS, T><<<grid_of(g), kThreads, smem, stream>>>(
+  paint_staged<NV, MASS, T><<<grid_of(g, TY_PAINT), kThreads, smem, stream>>>(
       (const T*)sx, (const T*)sy, (const T*)sz, (const T*)mass, scalar_mass,
       (T*)out, g, diffdir, kind, tb, nbuf);
   return cudaSuccess;
@@ -553,7 +578,6 @@ cudaError_t launch_paint(const void* sx, const void* sy, const void* sz,
     PAINT_NV(3)
     PAINT_NV(4)
     PAINT_NV(5)
-    PAINT_NV(6)
 #undef PAINT_NV
     default:
       return launch_paint_m<NV_ANY, T>(sx, sy, sz, mass, scalar_mass, out, g,
@@ -569,7 +593,8 @@ cudaError_t launch_readout_t(const void* m0, const void* m1, const void* m2,
                              cudaStream_t stream) {
   cudaError_t err = allow_smem(readout_staged<NV, MODE, T>, smem);
   if (err != cudaSuccess) return err;
-  readout_staged<NV, MODE, T><<<grid_of(g), kThreads, smem, stream>>>(
+  dim3 grid = grid_of(g, TY_READOUT);
+  readout_staged<NV, MODE, T><<<grid, kThreads, smem, stream>>>(
       (const T*)m0, (const T*)m1, (const T*)m2, (const T*)sx, (const T*)sy,
       (const T*)sz, (T*)o0, (T*)o1, (T*)o2, g, diffdir, kind, tb);
   return cudaSuccess;
@@ -612,7 +637,6 @@ cudaError_t launch_readout(const void* m0, const void* m1, const void* m2,
     READOUT_NV(3)
     READOUT_NV(4)
     READOUT_NV(5)
-    READOUT_NV(6)
 #undef READOUT_NV
     default:
       return launch_readout_m<NV_ANY, T>(m0, m1, m2, mode, sx, sy, sz, o0, o1,
@@ -626,7 +650,8 @@ bool valid_geo(const Geo& g, int kind) {
   return kind >= W_NEAREST && kind <= W_TABLE_OFFSET && g.nv >= 1 &&
          g.nv <= NV_MAX && g.xc >= 1 && g.n0 >= 1 && g.n1 >= 1 &&
          g.n2 >= 1 && (int64_t)g.n1 * g.n2 <= INT32_MAX &&
-         (g.n1 + TY - 1) / TY <= 65535 && (g.n0 + g.xc - 1) / g.xc <= 65535;
+         (g.n1 + TY_READOUT - 1) / TY_READOUT <= 65535 &&
+         (g.n0 + g.xc - 1) / g.xc <= 65535;
 }
 
 }  // namespace
@@ -660,7 +685,7 @@ int pmesh_paint_lattice(const void* sx, const void* sy, const void* sz,
     return (int)cudaErrorInvalidValue;
   if (xbase >= 0 && (xbase - vmax < 0 || n0 - 1 + xbase - vmin >= n0_in))
     return (int)cudaErrorInvalidValue;
-  Table tb{table, table + ntable, ntable, step, offset};
+  Table tb{table, table + ntable, ntable, step, offset, kind == W_TABLE};
   cudaStream_t s = (cudaStream_t)stream;
   err = bf16 ? launch_paint<bf16_t>(sx, sy, sz, mass, scalar_mass, out, g,
                                     diffdir, kind, tb, nbuf, smem, s)
@@ -692,7 +717,7 @@ int pmesh_readout_lattice(const void* m0, const void* m1, const void* m2,
     return (int)cudaErrorInvalidValue;
   if (xbase >= 0 && (xbase + vmin < 0 || n0 - 1 + xbase + vmax >= n0_in))
     return (int)cudaErrorInvalidValue;
-  Table tb{table, table + ntable, ntable, step, offset};
+  Table tb{table, table + ntable, ntable, step, offset, kind == W_TABLE};
   cudaStream_t s = (cudaStream_t)stream;
   int mode = diffdir == DIFF_ALL ? MODE_ALL : nmesh;
   err = bf16 ? launch_readout<bf16_t>(m0, m1, m2, mode, sx, sy, sz, o0, o1,

@@ -46,15 +46,21 @@ LAUNCHES = {name + halo + form: 0
 _ANALYTIC_CODE = {'nearest': 0, 'linear': 1, 'quadratic': 2, 'cubic': 3}
 _TABLE, _TABLE_OFFSET = 4, 5
 _DIFF = {None: -1, 0: 0, 1: 1, 2: 2, 'all': 3}
-# the launch grid puts N1 and N0 on gridDim.y and gridDim.z
+# the rebase kernels' launch grid (csrc/binned.cu) puts N1 and N0 on
+# gridDim.y and gridDim.z; the lattice kernels, whose grid is smaller,
+# share the check
 _MAX_GRID_YZ = 65535
 
-# csrc/gridpm.cu's tile (TY, TZ: one thread per cell), its widest
-# window (NV_MAX, the 12^3 offsets of GRID_LIMIT) and the widths it
-# compiles in (the others read nv at run time)
-TILE_Y, TILE_Z = 8, 32
+# csrc/gridpm.cu's tiles: THREADS threads in rows of TILE_Z z cells, one
+# y row per thread in the readout's tile and ROWS_PER_THREAD in the
+# paint's (TILE_Y); its widest window (NV_MAX, the 12^3 offsets of
+# GRID_LIMIT) and the widths it compiles in (the others read nv at run
+# time)
+THREADS, TILE_Z, ROWS_PER_THREAD = 256, 32, 2
+TILE_Y = {'readout': THREADS // TILE_Z,
+          'paint': THREADS // TILE_Z * ROWS_PER_THREAD}
 NV_MAX = 12
-NV_COMPILED = (2, 3, 4, 5, 6)
+NV_COMPILED = (2, 3, 4, 5)
 # the H100's shared memory per block and its SMs
 SMEM_LIMIT = 232448
 SMS = 132
@@ -102,11 +108,11 @@ def plan(op, shape, nv, nmesh=1, mass=False):
     nv : offsets per axis (1 .. NV_MAX); nmesh : the readout's meshes
     (1 .. 3; 'all' reads one); mass : the paint takes a mass mesh.
 
-    A block owns a TILE_Y x TILE_Z tile of y-z through ``xc`` output
-    planes.  The readout keeps a ring of ``depth`` = nv + 1 mesh planes
-    of the tile plus its nv - 1 halo, per mesh; the paint keeps ``nbuf``
-    tables (two where they fit in SMEM_LIMIT, else one) of 3 nv axis
-    weights (and the mass) per source cell of that region.  ``smem``:
+    A block owns a TILE_Y[op] x TILE_Z tile of y-z through ``xc``
+    output planes.  The readout keeps a ring of ``depth`` = nv + 1 mesh
+    planes of the tile plus its nv - 1 halo, per mesh; the paint keeps
+    ``nbuf`` tables (two where they fit in SMEM_LIMIT, else one) of 3 nv
+    axis weights (and the mass) per source cell of that region.  ``smem``:
     the dynamic shared bytes; ``grid``: the launch grid (z tiles, y
     tiles, x chunks); ``width``: the compiled nv, or None where the
     kernel reads nv at run time.  The window's kind and the storage
@@ -119,7 +125,8 @@ def plan(op, shape, nv, nmesh=1, mass=False):
     if op == 'readout' and not 1 <= nmesh <= 3:
         raise ValueError("plan: the readout takes 1 to 3 meshes")
     n0, n1, n2 = (int(n) for n in shape)
-    region = (TILE_Y + nv - 1) * (TILE_Z + nv - 1) * 4
+    ty = TILE_Y[op]
+    region = (ty + nv - 1) * (TILE_Z + nv - 1) * 4
     if op == 'readout':
         depth, nbuf = nv + 1, None
         smem = depth * nmesh * region
@@ -127,14 +134,14 @@ def plan(op, shape, nv, nmesh=1, mass=False):
         table = (3 * nv + int(bool(mass))) * region
         depth, nbuf = None, 2 if 2 * table <= SMEM_LIMIT else 1
         smem = nbuf * table
-    tiles = _ceil(n1, TILE_Y) * _ceil(n2, TILE_Z)
+    tiles = _ceil(n1, ty) * _ceil(n2, TILE_Z)
     xc = min(n0, XC_MAX)
     while xc > XC_MIN and tiles * _ceil(n0, xc) < MIN_BLOCKS:
         xc = _ceil(xc, 2)
     return dict(op=op, nv=nv, width=nv if nv in NV_COMPILED else None,
-                tile=(TILE_Y, TILE_Z), xc=xc, depth=depth, nbuf=nbuf,
+                tile=(ty, TILE_Z), xc=xc, depth=depth, nbuf=nbuf,
                 smem=smem,
-                grid=(_ceil(n2, TILE_Z), _ceil(n1, TILE_Y), _ceil(n0, xc)))
+                grid=(_ceil(n2, TILE_Z), _ceil(n1, ty), _ceil(n0, xc)))
 
 
 def _window_args(window, device):

@@ -62,7 +62,7 @@ def test_kernels_match_plain(dev, window):
                 continue
             refs = tgp.readout_grid(ms, disp, bounds, window, diffdir,
                                     impl='torch')
-            # all meshes in one launch (readout_grid issues one per mesh)
+            # all meshes in one launch, as readout_grid launches them
             gots = gridpm_cuda.readout_lattice(ms, disp, vmin, vmax,
                                                window, diffdir=diffdir)
             assert len(gots) == len(refs)

@@ -21,7 +21,7 @@ from pmesh_tpu_torch.ops.kernels import find_window
 
 torch.set_num_threads(1)
 
-TY, TZ = gc.TILE_Y, gc.TILE_Z
+TZ = gc.TILE_Z
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "pmesh_tpu_torch", "csrc", "gridpm.cu")
 WINDOWS = ['nearest', 'cic', 'tsc', 'pcs', 'lanczos2', 'db6']
@@ -41,9 +41,14 @@ def test_planner_constants_are_the_kernels():
     """the tile, the widest window and the compiled widths of the C
     source are the planner's"""
     src = _source()
-    m = re.search(r"constexpr int TY = (\d+), TZ = (\d+), kThreads = TY \* "
-                  r"TZ, NV_MAX = (\d+)", src)
-    assert m and tuple(int(x) for x in m.groups()) == (TY, TZ, gc.NV_MAX)
+    m = re.search(r"constexpr int TZ = (\d+), kThreads = (\d+), TROWS = "
+                  r"kThreads / TZ, RY = (\d+);", src)
+    tz, threads, ry = (int(x) for x in m.groups())
+    assert (tz, threads, ry) == (TZ, gc.THREADS, gc.ROWS_PER_THREAD)
+    assert re.search(r"TY_READOUT = TROWS, TY_PAINT = TROWS \* RY;", src)
+    assert gc.TILE_Y == {'readout': threads // tz,
+                         'paint': threads // tz * ry}
+    assert re.search(r"constexpr int NV_MAX = %d," % gc.NV_MAX, src)
     for name in ("PAINT_NV", "READOUT_NV"):
         widths = tuple(int(x) for x in re.findall(r"\b%s\((\d+)\)" % name,
                                                   src))
@@ -58,7 +63,9 @@ def _smem_formula(name):
     expr = " ".join(body.group(2).replace("(size_t)", "").replace(
         "sizeof(float)", "4").split())
     args = [a.split()[-1] for a in body.group(1).split(",")]
-    return lambda *v: eval(expr, {"TY": TY, "TZ": TZ}, dict(zip(args, v)))
+    return lambda *v: eval(expr, {"TY_READOUT": gc.TILE_Y['readout'],
+                                  "TY_PAINT": gc.TILE_Y['paint'], "TZ": TZ},
+                           dict(zip(args, v)))
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -71,7 +78,8 @@ def test_plan_fits_covers_and_matches_the_kernels_count(shape):
         plans += [gc.plan('paint', shape, nv, mass=m) for m in (False, True)]
         for p in plans:
             assert 0 < p['smem'] <= gc.SMEM_LIMIT, p
-            assert p['tile'] == (TY, TZ)
+            assert p['tile'] == (gc.TILE_Y[p['op']], TZ)
+            TY = p['tile'][0]
             gz, gy, gx = p['grid']
             # every output cell has exactly one block: no block is empty
             assert gz * TZ >= n2 > (gz - 1) * TZ
@@ -89,9 +97,10 @@ def test_plan_fits_covers_and_matches_the_kernels_count(shape):
             # two tables wherever two fit
             assert (p['nbuf'] == 2) == (2 * paint_smem(nv, m, 1)
                                         <= gc.SMEM_LIMIT)
-    # the hot shapes keep several blocks per SM
-    assert gc.plan('readout', shape, 3, nmesh=3)['smem'] < 48 * 1024
-    assert gc.plan('paint', shape, 4, mass=True)['smem'] < 48 * 1024
+    # the hot shapes leave room for three blocks per SM
+    for p in (gc.plan('readout', shape, 4, nmesh=3),
+              gc.plan('paint', shape, 4, mass=True)):
+        assert 3 * p['smem'] <= gc.SMEM_LIMIT
     with pytest.raises(ValueError):
         gc.plan('paint', shape, gc.NV_MAX + 1)
 
@@ -200,7 +209,7 @@ def _blocks(p):
     return itertools.product(range(gx), range(gy), range(gz))
 
 
-def _thread_cells(j0, k0, n1, n2):
+def _thread_cells(j0, k0, n1, n2, TY):
     ty = torch.arange(TY)[:, None]
     tz = torch.arange(TZ)[None, :]
     j, k = (j0 + ty).expand(TY, TZ), (k0 + tz).expand(TY, TZ)
@@ -219,7 +228,7 @@ def emulate_readout(meshes, disp, vmin, vmax, window, diffdir=None,
     n0, n1, n2 = disp[0].shape
     n_mesh = meshes[0].shape[0]
     p = gc.plan('readout', disp[0].shape, nv, nmesh=len(meshes))
-    depth, xc = p['depth'], p['xc']
+    depth, xc, TY = p['depth'], p['xc'], p['tile'][0]
     nout = 3 if diffdir == 'all' else len(meshes)
     outs = [torch.full(disp[0].shape, float('nan')) for _ in range(nout)]
     for bz, by, bx in _blocks(p):
@@ -235,7 +244,7 @@ def emulate_readout(meshes, disp, vmin, vmax, window, diffdir=None,
         for t in range(nv - 1):
             stage(x0 + vmin + t, t)
         head, tail = 0, nv - 1
-        ty, tz, j, k, live = _thread_cells(j0, k0, n1, n2)
+        ty, tz, j, k, live = _thread_cells(j0, k0, n1, n2, TY)
         for i in range(x0, x1):
             stage(i + vmax, tail)
             tail = (tail + 1) % depth
@@ -280,14 +289,14 @@ def emulate_paint(disp, mass, vmin, vmax, window, diffdir=None, rows=None,
     mesh_mass = isinstance(mass, torch.Tensor)
     scalar = 1.0 if mass is None or mesh_mass else float(mass)
     p = gc.plan('paint', (n0, n1, n2), nv, mass=mesh_mass)
-    xc = p['xc']
+    xc, TY = p['xc'], p['tile'][0]
     out = torch.full((n0, n1, n2), float('nan'))
     for bz, by, bx in _blocks(p):
         j0, k0, x0 = by * TY, bx * TZ, bz * xc
         x1 = min(x0 + xc, n0)
         ys = (j0 - vmax + torch.arange(TY + nv - 1)) % n1
         zs = (k0 - vmax + torch.arange(TZ + nv - 1)) % n2
-        ty, tz, j, k, live = _thread_cells(j0, k0, n1, n2)
+        ty, tz, j, k, live = _thread_cells(j0, k0, n1, n2, TY)
         acc = [torch.zeros(TY, TZ) for _ in range(nv)]
         for s in range(x1 - 1 - vmin, x0 - vmax - 1, -1):
             x = _plane(s, n_in, xbase)

@@ -12,13 +12,14 @@ first GPU at the main paths' shapes:
 - the x-halo slab form on a 128-row slab of 512^3 (4 ranks), nv = 3;
 - each in f32 and in bf16 storage.
 
-    python3 tools/time_lattice_kernels.py [--root DIR] [--reps R]
+    python3 tools/time_lattice_kernels.py [--root DIR] [--reps R] [--ptxas]
 
 --root imports pmesh_tpu_torch from DIR (an unpacked checkout of another
 commit: time two commits in one call, in the order A, B, B, A); the
-default is this checkout.  Prints the card's name and power limit, the
-ptxas report of each lattice kernel (registers, spills, stack) as the
-build gives it, then one line per case: the kernel's mean time over R
+default is this checkout.  Prints the card's name and power limit (with
+--ptxas, builds csrc/gridpm.cu anew and prints its build time and each
+kernel's ptxas report: registers, spills, stack), then one line per
+case: the kernel's mean time over R
 launches after a warm-up (CUDA events), its bound (the inputs read once
 and the outputs written once, over 3.35 TB/s) and a digest of its
 outputs (sha1 of their bytes: two commits whose digests agree computed
@@ -38,6 +39,7 @@ def main():
     ap.add_argument('--root', default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument('--reps', type=int, default=10)
+    ap.add_argument('--ptxas', action='store_true')
     a = ap.parse_args()
     sys.path.insert(0, os.path.abspath(a.root))
     import torch
@@ -51,14 +53,15 @@ def main():
                           text=True).stdout.strip()
     print("%s; root %s; torch %s" % (card, os.path.abspath(a.root),
                                      torch.__version__), flush=True)
-    info = cuda.build("gridpm")
-    print("build gridpm.cu: %.1f s" % info["seconds"])
-    kernel = "?"
-    for ln in info["log"].splitlines():
-        if "Compiling entry function" in ln:
-            kernel = ln.split("'")[1]
-        elif "registers" in ln or "spill" in ln:
-            print("  ptxas %s: %s" % (kernel, ln.strip()))
+    if a.ptxas:
+        info = cuda.build("gridpm")
+        print("build gridpm.cu: %.1f s" % info["seconds"])
+        kernel = "?"
+        for ln in info["log"].splitlines():
+            if "Compiling entry function" in ln:
+                kernel = ln.split("'")[1]
+            elif "registers" in ln or "spill" in ln:
+                print("  ptxas %s: %s" % (kernel, ln.strip()))
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(12)
 
