@@ -2010,7 +2010,11 @@ def phase_main_bf16(dev, ref):
         if not chain_ok:
             DEFERRED.append("the fft=%r force meshes disagree with the "
                             "plain versions'" % fft)
-        if any(launches[k] != need[k] for k in need) or others:
+        # and one paint and one three-mesh readout per spectral force
+        spectral = {"paint_lattice": nsteps + 1,
+                    "readout_lattice": nsteps + 1}
+        if any(launches[k] != need[k] for k in need) or others \
+                or {k: v for k, v in lattice.items() if v} != spectral:
             raise AssertionError("the %s kernels did not carry the fft=%r "
                                  "run alone" % (form, fft))
 

@@ -1165,13 +1165,13 @@ def test_lattice_backward_matches_plain(dev, window):
             (paint_loss, disp + [mass], {"paint_lattice": 1,
                                          "readout_lattice": 2}),
             (readout_loss, meshes + disp, {"paint_lattice": 3,
-                                           "readout_lattice": 6})):
+                                           "readout_lattice": 4})):
         ref = _grads(fn, leaves, 'cpu')
         gridpm_cuda.reset_launches()
         got = _grads(fn, leaves, dev)
         # forward and backward: paint 1 + (1 mass readout, 1 'all');
-        # readouts 3 (one per mesh) + (3 paints, one 3-mesh readout per
-        # direction)
+        # readout 1 (the three meshes in one launch) + (3 paints, one
+        # 3-mesh readout per direction)
         assert _launched(gridpm_cuda) == launches
         for g, r in zip(got, ref):
             assert _rel(g, r) <= TOL
