@@ -33,11 +33,10 @@
 // bytes a cell for a paint, 20 for a one-mesh readout, 36 for three
 // meshes), but each output sums nv^3 taps, each a product of three axis
 // weights.  A thread per output that loads and weighs every tap itself
-// (the first design) re-read each source 81 times and evaluated each
-// axis weight nv^2 = 9 times over at nv = 3, and ran at 9-13x its bytes.
-// Here every value crosses device memory into shared memory once per
-// block, every axis weight is evaluated once, and the taps read shared
-// memory only:
+// re-reads each source 81 times and evaluates each axis weight nv^2 = 9
+// times over at nv = 3 (9-13x its bytes on an H100).  Here every value
+// crosses device memory into shared memory once per block, every axis
+// weight is evaluated once, and the taps read shared memory only:
 //
 // - readout: a ring of nv + 1 mesh planes of the tile plus its halo,
 //   (TY + nv - 1) x (TZ + nv - 1) per mesh, the periodic wrap taken by
@@ -57,11 +56,11 @@
 //   weight and mass are loaded once for its nv x-offsets and both of
 //   the thread's rows, which share nv - 1 of their nv + 1 source rows.
 //
-// Sums run in f32 in today's order for every output: v_x, then v_y,
-// then v_z ascending, each tap ((W_x * W_y) * W_z) * m (paint) or
-// ((W_x * W_y) * W_z) * mesh (readout), as the one-thread-per-output
-// kernel summed them (the paint walks x downwards so that each output
-// meets its v_x in ascending order).  Indices are wrapped modulo N for
+// Sums run in f32 in one order for every output, whatever the tiling:
+// v_x, then v_y, then v_z ascending, each tap ((W_x * W_y) * W_z) * m
+// (paint) or ((W_x * W_y) * W_z) * mesh (readout), the plain version's
+// order (the paint walks x downwards so that each output meets its v_x
+// in ascending order).  Indices are wrapped modulo N for
 // any offset, so offsets wider than the mesh are right; plane offsets
 // are 64-bit.
 //
@@ -489,7 +488,8 @@ __global__ void __launch_bounds__(kThreads) paint_staged(
               w = w * wz;
               w = w * m;
             } else {
-              // rounded apart, as the first design's product was
+              // rounded apart, never fused into the accumulate, so
+              // the sum does not depend on the compiler's choice
               w = __fmul_rn(w, wz);
             }
             acc[r][a] += w;
