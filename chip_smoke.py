@@ -355,17 +355,33 @@ PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 # the card's name and power limit (nvidia-smi), set by phase 1
 CARD = "not read"
-# operations counted for a bound: a CIC lattice paint or readout does
-# 9 per (point, offset) (three weights 1 - |t| at 2 each, two products,
-# one accumulate); a rebase assign 6 per input slot-cell (a floor and a
-# subtraction per axis); a rebase apply none; a DFT pass those of the
-# FFTs computing the same transform (fft_ops; its elementwise folds and
-# scales, a few per element, are not counted), not those of its
-# products, which grow as n^2 per axis
-CIC_OPS = 9
+# operations counted for a bound: a lattice paint or readout those of
+# paint_ops / readout_ops; a rebase assign 6 per input slot-cell (a
+# floor and a subtraction per axis); a rebase apply none; a DFT pass
+# those of the FFTs computing the same transform (fft_ops; its
+# elementwise folds and scales, a few per element, are not counted), not
+# those of its products, which grow as n^2 per axis
 REBASE_OPS = 6
-# a three-mesh readout: two more accumulates per (point, offset)
-CIC_OPS_3 = CIC_OPS + 2
+
+
+def paint_ops(nv, points, mass=False):
+    """the operations a CIC lattice paint of ``points`` outputs needs at
+    nv offsets per axis: per source cell its 3 nv axis weights (1 - |t|,
+    2 each); per (output, offset) the product of the source's three
+    weights (2), its product with a mass mesh (1), and the accumulate"""
+    return points * ((4 if mass else 3) * nv ** 3 + 6 * nv)
+
+
+def readout_ops(nv, points, nmesh=1, diff_all=False):
+    """the operations a CIC lattice readout of ``points`` particles
+    needs at nv offsets per axis: per particle its 3 nv axis weights
+    (twice for 'all', the derivatives beside them; 2 each) and the nv^2
+    products of x and y weights; per (particle, offset) the product with
+    the z weight, then per mesh the product with the value and the
+    accumulate.  'all' forms three such weight sets on one mesh"""
+    sets = 3 if diff_all else 1
+    return points * (sets * ((1 + 2 * nmesh) * nv ** 3 + nv ** 2)
+                     + (12 if diff_all else 6) * nv)
 # phase 3's window read at run time (not one of the compiled widths):
 # CIC in WIDE_BOUNDS, nv = 7, on a WIDE_N^3 mesh
 WIDE_BOUNDS, WIDE_N = (-3.0, 3.0), 128
@@ -543,10 +559,12 @@ def phase_compare(dev):
                                              "readout 3 meshes"):
                 read = {"paint": disp, "readout 1 mesh": (disp, meshes[0]),
                         "readout 3 meshes": (disp, meshes)}[name]
-                ops = CIC_OPS_3 if name == "readout 3 meshes" else CIC_OPS
+                nv = vmax - vmin + 1
+                ops = {"paint": paint_ops(nv, N ** 3),
+                       "readout 1 mesh": readout_ops(nv, N ** 3),
+                       "readout 3 meshes": readout_ops(nv, N ** 3, 3)}
                 records[kernel] = record(
-                    abs_err, ms, plain_ms, nbytes(read, plain),
-                    ops * (vmax - vmin + 1) ** 3 * N ** 3)
+                    abs_err, ms, plain_ms, nbytes(read, plain), ops[name])
                 log("phase 3 bound: %-22s %.3f ms by %s, kernel %.3f ms"
                     % (kernel, records[kernel]["bound_ms"],
                        records[kernel]["bound_by"], ms))
@@ -615,9 +633,10 @@ def phase_compare_lattice_bf16(dev):
         return gridpm_cuda.readout_lattice(m, d, vmin, vmax, 'cic')
 
     records = {}
-    for kernel, fn, reads in (("paint_lattice_bf16", paint, (disp,)),
-                              ("readout_lattice_bf16", readout,
-                               (disp, meshes))):
+    for kernel, fn, reads, ops in (
+            ("paint_lattice_bf16", paint, (disp,), paint_ops(nv, N ** 3)),
+            ("readout_lattice_bf16", readout, (disp, meshes),
+             readout_ops(nv, N ** 3, len(meshes)))):
         got, plain = fn('cuda', disp, meshes), fn('torch', disp, meshes)
         got32 = fn('cuda', up(disp), up(meshes))
         plain32 = fn('torch', up(disp), up(meshes))
@@ -626,8 +645,7 @@ def phase_compare_lattice_bf16(dev):
         del got32, plain32
         ms = cuda_ms(lambda: fn('cuda', disp, meshes), 5)
         plain_ms = cuda_ms(lambda: fn('torch', disp, meshes), 1)
-        rec = record(err, ms, plain_ms, nbytes(reads, got),
-                     CIC_OPS * nv ** 3 * N ** 3)
+        rec = record(err, ms, plain_ms, nbytes(reads, got), ops)
         log("phase 3 compare: %-22s %d^3 bf16 %s %s  kernel %.3f ms  plain "
             "%.3f ms, bound %.3f ms by %s"
             % (kernel, N, text, "ok" if ok else "FAIL", ms, plain_ms,
@@ -1780,6 +1798,9 @@ def phase_main(dev):
     gridpm_cuda.reset_launches()
     t0 = time.perf_counter()
     solver, disp, vel, S, V = run_path(pm, dlinear, STEPS)
+    # the readouts of the nsteps + 1 spectral forces, before the
+    # gradient force's 'all': each of three meshes in one launch
+    three_mesh = gridpm_cuda.LAUNCHES["readout_lattice"]
     Fg = solver.force_lattice(S, BOUNDS, mode='gradient', fft='xla')
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1795,17 +1816,19 @@ def phase_main(dev):
     log("phase 4 main path: %d^3 f4 cic, lpt_lattice(order=2) max|disp| "
         "%.4f cells, nbody_lattice %d KDK steps a=%.3f..%.3f + 1 gradient "
         "force in %.3f s (first run), finite %s, final max|S| %.4f cells, "
-        "mass error %.3e (tol %.0e), launches %s (need %s), peak %.2f GB"
+        "mass error %.3e (tol %.0e), launches %s (need %s), of them "
+        "three-mesh readouts %d (need %d), peak %.2f GB"
         % (N, lpt_max, nsteps, STEPS[0], STEPS[-1], wall, finite, smax,
            mass_err, TOL_MASS, json.dumps(launches), json.dumps(need),
-           peak_gb))
+           three_mesh, nsteps + 1, peak_gb))
     if not finite:
         raise AssertionError("the state is not finite (bounds poison?)")
     if not smax < BOUNDS[1]:
         raise AssertionError("displacements left the bounds")
     if not mass_err <= TOL_MASS:
         raise AssertionError("paint does not conserve mass")
-    if {k: v for k, v in launches.items() if v} != need:
+    if {k: v for k, v in launches.items() if v} != need \
+            or three_mesh != nsteps + 1:
         raise AssertionError("the kernels did not carry the main path")
     del Fg, rho
 
@@ -1825,7 +1848,8 @@ def phase_main(dev):
     del solver, disp, vel
     torch.cuda.empty_cache()
     return launches, dict(pm=pm, dlinear=dlinear, S=S, V=V, step_ms=step_ms,
-                          f_spec=f_spec, f_grad=f_grad)
+                          f_spec=f_spec, f_grad=f_grad,
+                          three_mesh=three_mesh)
 
 
 def phase_main_mxu(dev, xla):
@@ -2953,7 +2977,7 @@ def phase_compare_slab(dev):
                    dext, 1.0, plo, rows, BOUNDS, 'cic'),
                lambda: gridpm_cuda.paint_lattice(disp, None, vmin, vmax,
                                                  'cic')[:rows],
-               dext, CIC_OPS * (vmax - vmin + 1) ** 3 * cells)
+               dext, paint_ops(vmax - vmin + 1, cells))
     rlo, rhi = max(0, -vmin), max(0, vmax)
     mext = tuple(halo(m, rlo, rhi) for m in meshes)
     dslab = tuple(d[:rows] for d in disp)
@@ -2973,8 +2997,8 @@ def phase_compare_slab(dev):
                                                   vmax, 'cic',
                                                   diffdir=diffdir)),
                    (mext[:nm], dslab),
-                   (CIC_OPS_3 if nm == 3 else CIC_OPS)
-                   * (vmax - vmin + 1) ** 3 * cells)
+                   readout_ops(vmax - vmin + 1, cells, nm,
+                               diffdir == 'all'))
     del disp, meshes, dext, mext, dslab
     torch.cuda.empty_cache()
 
@@ -3532,7 +3556,7 @@ def phase_pipe_chain(dev):
     dslab = tuple(d[vmax:] for d in disp)
     rho = step("paint_lattice_xhalo", lambda: gridpm_cuda.paint_lattice(
         disp, None, vmin, vmax, 'cic', rows=rows, xbase=vmax), disp,
-        CIC_OPS * 27 * rows * N1 * N2)
+        paint_ops(vmax - vmin + 1, rows * N1 * N2))
     pr, pi, nq = step("zy_fwd_ct2", lambda: fm._zy_fwd_ct2_call(
         rho, N2, Zm, wz, wyf), (rho, wz, wyf), zy_ops(rows, N1, N2))
     # the y-chunk of the transposed spectrum: (N0, N1 / 8, Zm)
@@ -3556,7 +3580,7 @@ def phase_pipe_chain(dev):
     del fx, fy, fz
     step("readout_lattice_xhalo", lambda: gridpm_cuda.readout_lattice(
         forces, dslab, vmin, vmax, 'cic', xbase=0), (forces, dslab),
-        CIC_OPS_3 * 27 * rows * N1 * N2)
+        readout_ops(vmax - vmin + 1, rows * N1 * N2, 3))
     del forces, disp, dslab
     torch.cuda.empty_cache()
     # torch.fft's calls for the same transforms, each timed alone
@@ -3605,6 +3629,7 @@ def main():
     records.update(phase_compare_slab(dev))
     launches, xla = phase_main(dev)
     pm, dlinear = xla['pm'], xla['dlinear']
+    three_mesh = xla['three_mesh']
     mxu_launches, mxu = phase_main_mxu(dev, xla)
     bf16_launches = phase_main_bf16(dev, mxu)
     row13_launches, row13_bf16_launches = phase_row13(dev, pm, dlinear)
@@ -3633,7 +3658,9 @@ def main():
     # bf16 forms on the mxu_bf16 and mxu_bf16s lattice runs, the
     # clustered bf16 force and the bf16 row-13 path
     runs = dict.fromkeys(("paint_lattice", "readout_lattice"), launches)
-    runs["readout_lattice (3 meshes)"] = launches
+    # the three-mesh form: the spectral forces' readouts of that run,
+    # counted before its gradient force
+    runs["readout_lattice (3 meshes)"] = {"readout_lattice": three_mesh}
     runs.update(dict.fromkeys(("paint_lattice_bf16", "readout_lattice_bf16"),
                               lattice_bf16_launches))
     runs.update(dict.fromkeys(MXU_PER_FORCE, mxu_launches))

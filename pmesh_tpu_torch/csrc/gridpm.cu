@@ -58,19 +58,20 @@
 //
 // Sums run in f32 in one order for every output, whatever the tiling:
 // v_x, then v_y, then v_z ascending, each tap ((W_x * W_y) * W_z) * m
-// (paint) or ((W_x * W_y) * W_z) * mesh (readout), the plain version's
-// order (the paint walks x downwards so that each output meets its v_x
-// in ascending order).  Indices are wrapped modulo N for
-// any offset, so offsets wider than the mesh are right; plane offsets
-// are 64-bit.
+// (paint; a mass mesh's product fused into the sum) or ((W_x * W_y) *
+// W_z) * mesh (readout), the plain version's order (the paint walks x
+// downwards so that each output meets its v_x in ascending order).
+// Indices are wrapped modulo N for any offset, so offsets wider than
+// the mesh are right; plane offsets are 64-bit.
 //
 // The window's nv is compiled in for nv = 2..5 (the hot shapes: nv = 3
 // on the lattice main path, CIC in (-1, 1); nv = 4 on the binned paths,
 // (-0.5, 1.5) and their drift bounds); any other nv up to NV_MAX = 12
 // (GRID_LIMIT) runs the same kernel with nv read at run time.  The host
-// planner (ops/gridpm_cuda.plan) chooses xc, the paint's table buffers
-// and the shared bytes; the entry points check its bytes against their
-// own count.
+// planner (ops/gridpm_cuda.plan) owns the launch's xc, the paint's table
+// buffers and the shared bytes, which it counts from the layouts below
+// (the readout's ring, the paint's tables); the entry points take them
+// as given.
 //
 // Storage: f32, or bf16 (a bf16 state or mesh, as the TPU kernels take
 // one through _cdtype, pmesh_tpu/ops/gridpm_pallas.py:91): every load is
@@ -483,16 +484,14 @@ __global__ void __launch_bounds__(kThreads) paint_staged(
           const float wy = tab[(nv + b) * area + cell];
 #pragma unroll
           for (int a = 0; a < nv; ++a) {
-            float w = wx[a] * wy;
-            if (MASS) {
-              w = w * wz;
-              w = w * m;
-            } else {
-              // rounded apart, never fused into the accumulate, so
-              // the sum does not depend on the compiler's choice
-              w = __fmul_rn(w, wz);
-            }
-            acc[r][a] += w;
+            // the roundings are spelled out, so the sum does not
+            // depend on the compiler's choice: the z product rounded
+            // apart, the mass product fused into the accumulate
+            const float w = __fmul_rn(wx[a] * wy, wz);
+            if (MASS)
+              acc[r][a] = __fmaf_rn(w, m, acc[r][a]);
+            else
+              acc[r][a] += w;
           }
         }
       }
@@ -512,17 +511,6 @@ __global__ void __launch_bounds__(kThreads) paint_staged(
     else
       buf ^= 1;
   }
-}
-
-// the shared bytes of a launch; ops/gridpm_cuda.plan counts the same
-size_t readout_smem(int nv, int nmesh) {
-  return (size_t)(nv + 1) * nmesh * (TY_READOUT + nv - 1) * (TZ + nv - 1) *
-         sizeof(float);
-}
-
-size_t paint_smem(int nv, int mass, int nbuf) {
-  return (size_t)nbuf * (3 * nv + mass) * (TY_PAINT + nv - 1) *
-         (TZ + nv - 1) * sizeof(float);
 }
 
 dim3 grid_of(const Geo& g, int ty) {
@@ -645,7 +633,7 @@ cudaError_t launch_readout(const void* m0, const void* m1, const void* m2,
   }
 }
 
-// the checks both entry points share: the window, the plan and the grid
+// the checks both entry points share: the window, xc and the grid
 bool valid_geo(const Geo& g, int kind) {
   return kind >= W_NEAREST && kind <= W_TABLE_OFFSET && g.nv >= 1 &&
          g.nv <= NV_MAX && g.xc >= 1 && g.n0 >= 1 && g.n1 >= 1 &&
@@ -668,7 +656,8 @@ const char* pmesh_cuda_error_string(int code) {
 // xbase >= 0: the x-halo slab form, displacements and mass of n0_in
 // planes (every plane i + xbase - v_x must lie in [0, n0_in)); bf16: the
 // displacements, the mass mesh and the output are bf16, else f32; xc,
-// nbuf, smem: the plan (planes per block, table buffers, shared bytes)
+// nbuf, smem: the host's plan (planes per block, table buffers, dynamic
+// shared bytes)
 int pmesh_paint_lattice(const void* sx, const void* sy, const void* sz,
                         const void* mass, float scalar_mass, void* out,
                         int n0, int n1, int n2, int n0_in, int xbase,
@@ -680,8 +669,7 @@ int pmesh_paint_lattice(const void* sx, const void* sy, const void* sz,
   if (err != cudaSuccess) return (int)err;
   Geo g{n0, n1, n2, xbase, vmin, vmax - vmin + 1, xc};
   if (diffdir < DIFF_NONE || diffdir > 2 || !valid_geo(g, kind) ||
-      (nbuf != 1 && nbuf != 2) ||
-      (size_t)smem != paint_smem(g.nv, mass != nullptr, nbuf))
+      (nbuf != 1 && nbuf != 2))
     return (int)cudaErrorInvalidValue;
   if (xbase >= 0 && (xbase - vmax < 0 || n0 - 1 + xbase - vmin >= n0_in))
     return (int)cudaErrorInvalidValue;
@@ -699,7 +687,7 @@ int pmesh_paint_lattice(const void* sx, const void* sy, const void* sz,
 // into the three derivative outputs o0..o2; xbase >= 0: the x-halo slab
 // form, meshes of n0_in planes (every plane i + xbase + v_x must lie in
 // [0, n0_in)); bf16: meshes, displacements and outputs are bf16; xc,
-// smem: the plan
+// smem: the host's plan
 int pmesh_readout_lattice(const void* m0, const void* m1, const void* m2,
                           int nmesh, const void* sx, const void* sy,
                           const void* sz, void* o0, void* o1, void* o2,
@@ -712,8 +700,7 @@ int pmesh_readout_lattice(const void* m0, const void* m1, const void* m2,
   if (err != cudaSuccess) return (int)err;
   Geo g{n0, n1, n2, xbase, vmin, vmax - vmin + 1, xc};
   if (diffdir < DIFF_NONE || diffdir > DIFF_ALL || nmesh < 1 || nmesh > 3 ||
-      (diffdir == DIFF_ALL && nmesh != 1) || !valid_geo(g, kind) ||
-      (size_t)smem != readout_smem(g.nv, nmesh))
+      (diffdir == DIFF_ALL && nmesh != 1) || !valid_geo(g, kind))
     return (int)cudaErrorInvalidValue;
   if (xbase >= 0 && (xbase + vmin < 0 || n0 - 1 + xbase + vmax >= n0_in))
     return (int)cudaErrorInvalidValue;

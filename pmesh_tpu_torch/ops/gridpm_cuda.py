@@ -14,8 +14,8 @@ appended).
 The kernels stage x-planes of a tile in shared memory (``csrc/gridpm.cu``
 says how); ``plan`` is their launch planner: the tile, the planes per
 block, the readout's ring depth, the paint's table buffers and the
-shared bytes, for each window width, mesh count and mass.  The entry
-points check its bytes against their own count.
+shared bytes, for each window width, mesh count and mass.  It alone
+counts the bytes; the entry points take them as given.
 
 Both take the x-halo slab form of a slab-sharded mesh (``xbase``):
 the paint reads displacements and mass of ``lo + rows + hi`` planes and
@@ -65,8 +65,11 @@ NV_COMPILED = (2, 3, 4, 5)
 SMEM_LIMIT = 232448
 SMS = 132
 # planes per block: at most XC_MAX, halved while the launch has fewer
-# than MIN_BLOCKS blocks (four per SM) and more than XC_MIN planes
-XC_MAX, XC_MIN, MIN_BLOCKS = 64, 8, 4 * SMS
+# than MIN_BLOCKS blocks (four per SM) and more than XC_MIN planes.  On
+# an H100 (tools/time_lattice_kernels.py --xc) 32 timed as 64 at 512^3
+# and 2-3 % faster on the 384^3 readouts; 16 cost the paint 5 %, 128
+# the readouts 2-7 %.  XC_MIN and MIN_BLOCKS are not tuned.
+XC_MAX, XC_MIN, MIN_BLOCKS = 32, 8, 4 * SMS
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.c_longlong
@@ -113,9 +116,8 @@ def plan(op, shape, nv, nmesh=1, mass=False):
     planes of the tile plus its nv - 1 halo, per mesh; the paint keeps
     ``nbuf`` tables (two where they fit in SMEM_LIMIT, else one) of 3 nv
     axis weights (and the mass) per source cell of that region.  ``smem``:
-    the dynamic shared bytes; ``grid``: the launch grid (z tiles, y
-    tiles, x chunks); ``width``: the compiled nv, or None where the
-    kernel reads nv at run time.  The window's kind and the storage
+    the dynamic shared bytes; ``width``: the compiled nv, or None where
+    the kernel reads nv at run time.  The window's kind and the storage
     dtype (smem holds f32) do not change the plan."""
     if op not in ('paint', 'readout'):
         raise ValueError("plan: op must be 'paint' or 'readout'")
@@ -138,10 +140,8 @@ def plan(op, shape, nv, nmesh=1, mass=False):
     xc = min(n0, XC_MAX)
     while xc > XC_MIN and tiles * _ceil(n0, xc) < MIN_BLOCKS:
         xc = _ceil(xc, 2)
-    return dict(op=op, nv=nv, width=nv if nv in NV_COMPILED else None,
-                tile=(ty, TILE_Z), xc=xc, depth=depth, nbuf=nbuf,
-                smem=smem,
-                grid=(_ceil(n2, TILE_Z), _ceil(n1, ty), _ceil(n0, xc)))
+    return dict(width=nv if nv in NV_COMPILED else None, tile=(ty, TILE_Z),
+                xc=xc, depth=depth, nbuf=nbuf, smem=smem)
 
 
 def _window_args(window, device):

@@ -1,6 +1,6 @@
 """The staged lattice kernels' design on the CPU (csrc/gridpm.cu runs only
 on the card): the launch planner of ops/gridpm_cuda.py against the
-kernels' constants and shared-memory counts, the arguments the wrappers
+kernels' constants and shared-memory layouts, the arguments the wrappers
 pass, and a plain-torch emulation of the kernels' index maps (the
 wrapped tile plus halo, the readout's ring of mesh planes, the paint's
 per-source weight table walked from high x to low with a ring of
@@ -56,31 +56,38 @@ def test_planner_constants_are_the_kernels():
     assert round(gc.NV_MAX ** 3) == tgp.GRID_LIMIT
 
 
-def _smem_formula(name):
-    """the C function's byte count as a Python expression"""
-    body = re.search(r"size_t %s\(([^)]*)\) \{\s*return (.*?);\s*\}" % name,
-                     _source(), re.S)
-    expr = " ".join(body.group(2).replace("(size_t)", "").replace(
-        "sizeof(float)", "4").split())
-    args = [a.split()[-1] for a in body.group(1).split(",")]
-    return lambda *v: eval(expr, {"TY_READOUT": gc.TILE_Y['readout'],
-                                  "TY_PAINT": gc.TILE_Y['paint'], "TZ": TZ},
-                           dict(zip(args, v)))
+def _grid(p, shape):
+    """the launch grid the entry points form from the plan: (z tiles,
+    y tiles, x chunks)"""
+    n0, n1, n2 = shape
+    ty, tz = p['tile']
+    return (-(-n2 // tz), -(-n1 // ty), -(-n0 // p['xc']))
+
+
+def _layout_bytes(op, nv, nmesh=1, mass=False, nbuf=1):
+    """the dynamic shared bytes the kernels index: the readout's ring
+    (ring[slot * NM * area + m * area + cell], nv + 1 slots), the paint's
+    tables (table[buf * (3 nv + mass) * area + row * area + cell]), area
+    the f32 cells of the tile plus its nv - 1 halo"""
+    area = (gc.TILE_Y[op] + nv - 1) * (TZ + nv - 1)
+    if op == 'readout':
+        return (nv + 1) * nmesh * area * 4
+    return nbuf * (3 * nv + int(mass)) * area * 4
 
 
 @pytest.mark.parametrize("shape", SHAPES)
 def test_plan_fits_covers_and_matches_the_kernels_count(shape):
-    readout_smem = _smem_formula("readout_smem")
-    paint_smem = _smem_formula("paint_smem")
     n0, n1, n2 = shape
     for nv in range(1, gc.NV_MAX + 1):
-        plans = [gc.plan('readout', shape, nv, nmesh=nm) for nm in (1, 2, 3)]
-        plans += [gc.plan('paint', shape, nv, mass=m) for m in (False, True)]
-        for p in plans:
+        plans = [('readout', gc.plan('readout', shape, nv, nmesh=nm))
+                 for nm in (1, 2, 3)]
+        plans += [('paint', gc.plan('paint', shape, nv, mass=m))
+                  for m in (False, True)]
+        for op, p in plans:
             assert 0 < p['smem'] <= gc.SMEM_LIMIT, p
-            assert p['tile'] == (gc.TILE_Y[p['op']], TZ)
+            assert p['tile'] == (gc.TILE_Y[op], TZ)
             TY = p['tile'][0]
-            gz, gy, gx = p['grid']
+            gz, gy, gx = _grid(p, shape)
             # every output cell has exactly one block: no block is empty
             assert gz * TZ >= n2 > (gz - 1) * TZ
             assert gy * TY >= n1 > (gy - 1) * TY
@@ -88,15 +95,16 @@ def test_plan_fits_covers_and_matches_the_kernels_count(shape):
             assert 1 <= p['xc'] <= min(n0, gc.XC_MAX)
             assert gx <= 65535 and gy <= 65535
             assert p['width'] == (nv if nv in gc.NV_COMPILED else None)
-        for nm, p in zip((1, 2, 3), plans[:3]):
+        for nm, (_, p) in zip((1, 2, 3), plans[:3]):
             assert p['depth'] == nv + 1 and p['nbuf'] is None
-            assert p['smem'] == readout_smem(nv, nm)
-        for m, p in zip((0, 1), plans[3:]):
+            assert p['smem'] == _layout_bytes('readout', nv, nmesh=nm)
+        for m, (_, p) in zip((False, True), plans[3:]):
             assert p['nbuf'] in (1, 2) and p['depth'] is None
-            assert p['smem'] == paint_smem(nv, m, p['nbuf'])
+            assert p['smem'] == _layout_bytes('paint', nv, mass=m,
+                                              nbuf=p['nbuf'])
             # two tables wherever two fit
-            assert (p['nbuf'] == 2) == (2 * paint_smem(nv, m, 1)
-                                        <= gc.SMEM_LIMIT)
+            assert (p['nbuf'] == 2) == (
+                _layout_bytes('paint', nv, mass=m, nbuf=2) <= gc.SMEM_LIMIT)
     # the hot shapes leave room for three blocks per SM
     for p in (gc.plan('readout', shape, 4, nmesh=3),
               gc.plan('paint', shape, 4, mass=True)):
@@ -110,7 +118,7 @@ def test_plan_fills_the_card():
     SM, and x chunks long against the window's halo"""
     for shape in ((512,) * 3, (384,) * 3, (128 + 3, 1024, 1024)):
         p = gc.plan('readout', shape, 3, nmesh=3)
-        assert np.prod(p['grid']) >= gc.MIN_BLOCKS
+        assert np.prod(_grid(p, shape)) >= gc.MIN_BLOCKS
         assert p['xc'] >= 8 * 3
 
 
@@ -204,8 +212,8 @@ def _plane(p, n0, xbase):
     return p % n0 if xbase is None else p + xbase
 
 
-def _blocks(p):
-    gz, gy, gx = p['grid']
+def _blocks(p, shape):
+    gz, gy, gx = _grid(p, shape)
     return itertools.product(range(gx), range(gy), range(gz))
 
 
@@ -231,7 +239,7 @@ def emulate_readout(meshes, disp, vmin, vmax, window, diffdir=None,
     depth, xc, TY = p['depth'], p['xc'], p['tile'][0]
     nout = 3 if diffdir == 'all' else len(meshes)
     outs = [torch.full(disp[0].shape, float('nan')) for _ in range(nout)]
-    for bz, by, bx in _blocks(p):
+    for bz, by, bx in _blocks(p, disp[0].shape):
         j0, k0, x0 = by * TY, bx * TZ, bz * xc
         x1 = min(x0 + xc, n0)
         ys = (j0 + vmin + torch.arange(TY + nv - 1)) % n1
@@ -291,7 +299,7 @@ def emulate_paint(disp, mass, vmin, vmax, window, diffdir=None, rows=None,
     p = gc.plan('paint', (n0, n1, n2), nv, mass=mesh_mass)
     xc, TY = p['xc'], p['tile'][0]
     out = torch.full((n0, n1, n2), float('nan'))
-    for bz, by, bx in _blocks(p):
+    for bz, by, bx in _blocks(p, (n0, n1, n2)):
         j0, k0, x0 = by * TY, bx * TZ, bz * xc
         x1 = min(x0 + xc, n0)
         ys = (j0 - vmax + torch.arange(TY + nv - 1)) % n1
