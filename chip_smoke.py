@@ -38,9 +38,9 @@ Phases, in order; any failure raises and exits non-zero:
    f32 forward cases each one's distance from f64 products beside
    plain's (the kernel no farther), and the tc_gemm passes their kernel
    launches at the main, row-9 and row-13 shapes in both forms (counted
-   by the C entry points: tc_gemm and the split passes, never cgemm or
-   cgemm_bf16; phases 4, 5 and 9 hold every fft='mxu' mode's run to no
-   cgemm or cgemm_bf16 launch);
+   by the C entry points by kind: tc_gemm and the split passes; the
+   FP32 cgemm and cgemm_bf16 are retired, and phases 4, 5 and 9 hold
+   every fft='mxu' mode's run to the tensor-core kinds);
 4. drive the FastPM lattice path at 512^3 f32 through the user's entry
    points: Solver.lpt_lattice (2LPT) then Solver.nbody_lattice (5 KDK
    steps, spectral force) and one gradient-mode force_lattice, with
@@ -292,17 +292,23 @@ DENSE_PER_FORCE = {"zy_fwd_half": 1, "x_dense": 2, "zy_inv_half": 3}
 # zy_fwd_half's z and y stages, the two x passes and the three zy
 # inverses' y and z stages on tc_gemm, each after its split pass, column
 # 0 chained after the forward y stage and the forward x pass
-DENSE_KINDS_PER_FORCE = {"cgemm": 0, "cgemm_bf16": 0, "tc_ct": 0, "tc_z": 0,
-                         "tc_gemm": 10, "split": 10, "ct_fwd_col0": 2}
+DENSE_KINDS_PER_FORCE = {"tc_ct": 0, "tc_z": 0, "tc_gemm": 10, "split": 10,
+                         "ct_fwd_col0": 2}
 # the device kernels of one fft='mxu_bf16' ct2 force at N^3, each on
 # tc_gemm after its split pass: zy_fwd_ct2's z-CT and y stages, the
 # forward and dual x passes, zy_inv_ct2's y and z stages, its dual's one
 # y stage (both sets) and two z stages
-BF16_KINDS_PER_FORCE = {"cgemm": 0, "cgemm_bf16": 0, "tc_ct": 0, "tc_z": 0,
-                        "tc_gemm": 9, "split": 9, "ct_fwd_col0": 0}
-# the kinds that no run of the fft='mxu' modes (but row 13's) launches
-# any more
-CGEMM = ("cgemm", "cgemm_bf16")
+BF16_KINDS_PER_FORCE = {"tc_ct": 0, "tc_z": 0, "tc_gemm": 9, "split": 9,
+                        "ct_fwd_col0": 0}
+# the kinds of device kernels that the DFT entry points count: every
+# product on the tensor cores (the FP32 cgemm and cgemm_bf16 are retired)
+TC_KINDS = ("tc_ct", "tc_z", "tc_gemm", "split", "ct_fwd_col0")
+
+
+def off_tensor_cores(kinds):
+    """the kinds in ``kinds`` (a {kind: launches} dict) that are not
+    the tensor-core routines', their split passes or column-0 chains"""
+    return sorted(k for k, v in kinds.items() if v and k not in TC_KINDS)
 # the bf16 forms against their plain versions, each pass on the same
 # inputs.  A product of two bf16 values is exact in f32, so kernel and
 # plain differ in their f32 sums only; but the tensor cores sum a block
@@ -916,23 +922,49 @@ def dense_x_fma(N0, ncols, sets=1):
     return 4.0 * sets * N0 * N0 * ncols
 
 
+def zy_inv_full_fma(n0, N1, N2):
+    """real FMA of zy_inv_full's products: the z stage's [xr | xi] rows
+    times the stacked (2 N2 x 2 N2) table, the y stage's real output
+    (N1 rows [Wr | -Wi], 2 N1 long) over the n0 N2 columns"""
+    return 4.0 * n0 * N1 * N2 * N2 + 2.0 * n0 * N1 * N1 * N2
+
+
+def zy_fwd_half_ct_fma(n0, N1, N2):
+    """real FMA of zy_fwd_half_ct's products: the z stage's real rows
+    times the (N2, Zh) pair (2 per row, k and mode), the y CT's Ry
+    chunks of (2 My x 2 My) over the n0 Zh columns"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    Ry, My = fm._ct_factor(N1)
+    Zh = N2 // 2 + 1
+    return 2.0 * n0 * N1 * N2 * Zh + 4.0 * n0 * Zh * Ry * My * My
+
+
+def row13_tensor_cores(label, fma, call):
+    """a row-13 zy pass's tensor-core share in both forms (six products
+    per real FMA, one), and its device launches (tc_check)"""
+    for prec, products in ((None, 6), ('bf16', 1)):
+        name = "%s %s" % (label, prec or 'f32')
+        tc_share(name, fma, cuda_ms(lambda: call(prec), 5), products)
+        tc_check(name, lambda: call(prec))
+
+
 def tc_check(label, fn):
     """an entry point that runs its products on tc_gemm (the dense
-    passes, the zy inverses, the bf16 forward ct2 passes): the kernels
-    that one fn() call launches, counted by the C entry points where each
-    is launched, include tc_gemm and the split passes and no cgemm or
-    cgemm_bf16; raises otherwise"""
+    passes, the zy inverses, the bf16 forward ct2 passes, row 13's zy
+    passes): the kernels that one fn() call launches, counted by the C
+    entry points where each is launched, include tc_gemm and the split
+    passes and no kind but TC_KINDS; raises otherwise"""
     from pmesh_tpu_torch.ops import fft_mxu_cuda
     fft_mxu_cuda.kernel_launches(reset=True)
     fn()
     torch.cuda.synchronize()
     ks = fft_mxu_cuda.kernel_launches(reset=True)
-    cg = ks["cgemm"] + ks["cgemm_bf16"]
-    ok = ks["tc_gemm"] >= 1 and ks["split"] >= 1 and cg == 0
+    off = off_tensor_cores(ks)
+    ok = ks["tc_gemm"] >= 1 and ks["split"] >= 1 and not off
     log("phase 3 kernel launches: %-46s tc_gemm %d, split passes %d, "
-        "ct_fwd_col0 %d, cgemm or cgemm_bf16 %d %s"
-        % (label, ks["tc_gemm"], ks["split"], ks["ct_fwd_col0"], cg,
-           "ok" if ok else "FAIL"))
+        "ct_fwd_col0 %d, other kinds %s %s"
+        % (label, ks["tc_gemm"], ks["split"], ks["ct_fwd_col0"],
+           off or "none", "ok" if ok else "FAIL"))
     if not ok:
         raise AssertionError("%s did not run on tc_gemm alone" % label)
 
@@ -1188,7 +1220,7 @@ def phase_compare_dense(dev):
 
         def tensor_cores(label, fma, call):
             """the pass's tensor-core share in both forms, and its device
-            launches: tc_gemm, never cgemm"""
+            launches: tc_gemm and its split passes"""
             for prec, products in ((None, 6), ('bf16', 1)):
                 tc_share("%s %s %s" % (label, shape, prec or 'f32'), fma,
                          cuda_ms(lambda: call(prec), 5), products)
@@ -1372,6 +1404,10 @@ def phase_compare_ref(dev):
         case("fz tables (z-folded rows)", "zy_inv_full",
              lambda impl: ref._zy_inv_full_call(sr, si, wyi, AB_g, impl=impl),
              (sr, si, wyi, AB_g), ops_zy)
+        row13_tensor_cores("zy_inv_full %s" % (shape,),
+                           zy_inv_full_fma(N0, N1, n2),
+                           lambda prec: ref._zy_inv_full_call(
+                               sr, si, wyi, AB_g, precision=prec))
         del sr, si, gr, gi
         torch.cuda.empty_cache()
 
@@ -1397,6 +1433,10 @@ def phase_compare_ref(dev):
                       lambda impl: ref._zy_fwd_half_ct_call(x, wz, wy, impl=impl),
                       (x, wz, wy), ops_zy,
                       lambda: torch.fft.rfftn(x, dim=(1, 2)))
+        row13_tensor_cores("zy_fwd_half_ct %s" % (shape,),
+                           zy_fwd_half_ct_fma(N0, N1, n2),
+                           lambda prec: ref._zy_fwd_half_ct_call(
+                               x, wz, wy, precision=prec))
         del x
         zc = torch.complex(pr, pi)
         r, i = case("forward x 1/N^3", "xct_multi (half CT)",
@@ -1723,6 +1763,9 @@ def phase_compare_bf16(dev):
              lambda impl, b: ref._zy_inv_full_call(sr, si, wyi, AB_g,
                                                    impl=impl, **prec(b)),
              (sr, si, wyi, AB_g), ops_zy)
+        tc_check("zy_inv_full %s bf16, z-folded rows" % (shape,),
+                 lambda: ref._zy_inv_full_call(sr, si, wyi, AB_g,
+                                               precision='bf16'))
         del sr, si, gr, gi
         torch.cuda.empty_cache()
     for shape in ((N,) * 3, CT_RAGGED):
@@ -1743,6 +1786,9 @@ def phase_compare_bf16(dev):
                           x, wz, wy, impl=impl, **prec(b)),
                       (x, wz, wy), ops_zy,
                       lambda: torch.fft.rfftn(x, dim=(1, 2)))
+        tc_check("zy_fwd_half_ct %s bf16, density" % (shape,),
+                 lambda: ref._zy_fwd_half_ct_call(x, wz, wy,
+                                                  precision='bf16'))
         del x
         zc = torch.complex(pr, pi)
         r, i = case("%s forward x 1/N^3" % (shape,),
@@ -1904,9 +1950,9 @@ def phase_main_mxu(dev, xla):
             or {k: v for k, v in lattice.items() if v} != lattice_need(
                 nsteps):
         raise AssertionError("the DFT kernels did not carry the mxu path")
-    if any(kinds[k] for k in CGEMM) or not kinds["tc_gemm"]:
-        raise AssertionError("the fft='mxu' run launched cgemm or "
-                             "cgemm_bf16, or no tc_gemm")
+    if off_tensor_cores(kinds) or not kinds["tc_gemm"]:
+        raise AssertionError("the fft='mxu' run launched a kind off the "
+                             "tensor cores, or no tc_gemm")
     del xla['S'], xla['V']
 
     def run(nst):
@@ -2021,9 +2067,10 @@ def phase_main_bf16(dev, ref):
                     "the fft='mxu_bf16' run launched %s device kernels, not "
                     "%s: a bf16 pass off tc_gemm" % (json.dumps(kinds),
                                                      json.dumps(want)))
-        elif any(kinds[k] for k in CGEMM) or not kinds["tc_gemm"]:
-            DEFERRED.append("the fft=%r run launched cgemm or cgemm_bf16, "
-                            "or no tc_gemm: %s" % (fft, json.dumps(kinds)))
+        elif off_tensor_cores(kinds) or not kinds["tc_gemm"]:
+            DEFERRED.append("the fft=%r run launched a kind off the tensor "
+                            "cores, or no tc_gemm: %s"
+                            % (fft, json.dumps(kinds)))
         log("phase 4 %s force meshes of the LPT density: kernels vs plain "
             "versions on the card %s; on the overdensity rho - mean against "
             "f32 rms|d|/rms %s (sanity bound %.0e)"
@@ -2638,8 +2685,6 @@ FAMILIES = (
     ("ct_fwd_col0", "DFT column-0 chains"),
     ("tc_ct", "DFT products: ct2, tensor cores (tc_ct, tc_z)"),
     ("tc_z", "DFT products: ct2, tensor cores (tc_ct, tc_z)"),
-    ("CtOp", "DFT products: x/y (CtOp)"),
-    ("ZFwdDense", "DFT products: dense z forward"),
     ("ct_inv_butterfly", "DFT sweeps"),
     ("zct_combine", "DFT sweeps"),
     ("nyquist_rowsum", "DFT sweeps"),
@@ -3454,10 +3499,9 @@ def phase_sharded(dev):
         kinds = nonzero(summed(lambda r: get(r)['kinds']))
         runs[run] = launches
         # the DFT passes of every fft='mxu' mode on tc_gemm, tc_ct, tc_z
-        exact = (launches == need[run]
-                 and not any(kinds.get(k) for k in CGEMM))
+        exact = launches == need[run] and not off_tensor_cores(kinds)
         log("%s, staged %s bytes, launches %s (need exactly %s), device "
-            "kernels by kind %s (no cgemm) %s"
+            "kernels by kind %s (tensor cores only) %s"
             % (text, json.dumps(summed(lambda r: get(r)['staged'])),
                json.dumps(launches), json.dumps(need[run]),
                json.dumps(kinds), "ok" if ok and exact else "FAIL"))

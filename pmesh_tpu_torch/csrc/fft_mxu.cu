@@ -146,14 +146,22 @@
 // 1.25 ms at six bf16 products per FMA and 989 TFLOP/s, 0.21 ms at one,
 // against 0.32 ms of compulsory bytes; zy_inv_half at 384^3 65.6 G.
 //
-// The rest of row 13 (the full-spectrum inverse; the half-CT forward's
-// z stage and its f32 y stage) runs on cgemm, an FP32 FMA product
-// routine: a 64 x 64 complex output tile per 256-thread block, 4 x 4
-// complex accumulators per thread, operands staged through shared memory
-// in 16-deep slices and read back as float4 (64 FMA per 4 shared loads);
-// real operands (the real input mesh of the dense z forward, the real
-// output of the full inverse's y stage) run the 2-FMA form instead of 4;
-// ragged widths are covered by guarded scalar global loads and stores.
+// The rest of row 13 runs on the same routines, both product forms.
+// pmesh_zy_inv_full: the complex z stage as ONE real-output tc_gemm of
+// split_zinv's [xr | xi] tiles (R = 1) and the stacked table [[A, -B];
+// [B, A]] (2 N2 output columns, zr then zi; at an odd N2 a tile's pair of
+// columns can straddle the two), then the y stage's real part as one
+// split_cols + tc_gemm (TG_YREAL) on the rows [Wr | -Wi] alone, 128 real
+// outputs per table tile: half the products of the complex y DFT.  No
+// first element is taken out (an inverse).  pmesh_zy_fwd_half_ct: the
+// dense z stage of pmesh_zy_fwd_half (z_dense_tc, its scratch rows
+// padded to 16 bytes), then the y CT behind split_ct, in three parts
+// for the f32 products (each chunk's u_j[0] taken out and added back
+// through the row sums, column 0 chained after by ct_fwd_col0, as every
+// f32 forward CT stage does).  What bounds them: at 512^3 zy_inv_full
+// is 412 G real FMA (z 275 G, y 137 G), at least 5.0 ms at six bf16
+// products per FMA and 989 TFLOP/s, 0.83 ms at one; zy_fwd_half_ct 103
+// G (z 69 G, y 34 G), 1.26 and 0.21 ms.
 // The inverse CT butterfly of xct_multi runs as an in-place sweep over
 // its products' output (ct_inv_butterfly), one thread per (row, column)
 // group.
@@ -169,17 +177,9 @@
 //    and roundings formed once per pass by the split passes.  Everything
 //    between two products of one pass (the butterflies, the z-CT
 //    combination, the scales, the plane) stays f32, and the next product
-//    rounds it again as its operand, as on the TPU.  Row 13's cgemm
-//    passes run cgemm_bf16 under the same Op functors: the loader rounds
-//    each la/lb value once with __float2bfloat16_rn into bf16 tiles in
-//    shared memory, after the butterfly and the conjugation that la/lb
-//    apply (the TPU rounds the operand it is handed, after those), and
-//    each warp runs mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 with f32
-//    accumulators: a complex product is four real MMAs, -Ai.Bi through
-//    the negated imaginary fragment (negating a bf16 value is exact; no
-//    3-multiplication trick, which would round differently).  Ragged
-//    edges and a contraction that is not a multiple of 32 are zero-filled
-//    tiles.
+//    rounds it again as its operand, as on the TPU (row 13's full
+//    inverse rounds its z output once, as the y stage's operand; a
+//    negated table entry, -Im W, is exact in bf16).
 //  - bf16s (fft='mxu_bf16s', the ct2 entry points' spectrum_dtype): the
 //    spectra between the passes are stored in bf16: the loads upcast
 //    them and the stores round once.  The products stay f32 (tc_ct and
@@ -203,18 +203,7 @@
 
 namespace {
 
-constexpr int BM = 64;          // output rows per block
-constexpr int BN = 64;          // output columns per block
-constexpr int BK = 16;          // contraction slice staged per step
-constexpr int NT = 256;         // threads per block: 16 x 16
-constexpr int TM = BM / 16;     // accumulator rows per thread
-constexpr int TN = BN / 16;     // accumulator columns per thread
-static_assert(TM == 4 && TN == 4, "the operand reads are float4");
 constexpr int kMaxR = 8;
-// the bf16 product: 32-deep slices, each tile row padded by 8 bf16 (16
-// bytes), so that the fragment reads of a warp fall on 32 distinct banks
-constexpr int BKH = 32;
-constexpr int SKH = BKH + 8;
 
 typedef __nv_bfloat16 bf16_t;
 
@@ -233,10 +222,6 @@ __device__ __forceinline__ void stv(bf16_t* p, long long a, float v) {
   p[a] = __float2bfloat16_rn(v);
 }
 
-struct Cplx {
-  float r, i;
-};
-
 // butterfly or combination constants, filled from a host (R, R, 2) array
 struct Butter {
   float r[kMaxR][kMaxR];
@@ -253,116 +238,6 @@ Butter make_butter(const float* h, int R) {
   return b;
 }
 
-// grid decomposition of a batched product C[o, j] (M x N) += A (M x K) B
-// (K x N): the block index runs over (m tile, n tile, j, o).  When the
-// data operand is B (the x/y stages), the m tiles and chunks j that read
-// one input column tile are adjacent; when it is A (the z stages), the n
-// tiles and chunks j that read one row tile are.
-struct Dims {
-  int M, N, K, nj, tiles_m, tiles_n, m_fast;
-};
-
-__device__ __forceinline__ void decompose(const Dims& g, int& o, int& j,
-                                          int& tm, int& tn) {
-  long long b = blockIdx.x;
-  if (g.m_fast) {
-    tm = (int)(b % g.tiles_m); b /= g.tiles_m;
-    j = (int)(b % g.nj); b /= g.nj;
-    tn = (int)(b % g.tiles_n); o = (int)(b / g.tiles_n);
-  } else {
-    tn = (int)(b % g.tiles_n); b /= g.tiles_n;
-    j = (int)(b % g.nj); b /= g.nj;
-    tm = (int)(b % g.tiles_m); o = (int)(b / g.tiles_m);
-  }
-}
-
-__device__ __forceinline__ void ld4(float* v, const float* s) {
-  const float4 t = *reinterpret_cast<const float4*>(s);
-  v[0] = t.x;
-  v[1] = t.y;
-  v[2] = t.z;
-  v[3] = t.w;
-}
-
-// The shared product routine.  Op supplies la (A element), lb (B
-// element) and st (store).  A_REAL: A's imaginary part is zero;
-// OUT_REAL: only the real part of C is wanted.
-template <class Op, bool A_REAL, bool OUT_REAL>
-__global__ void __launch_bounds__(NT) cgemm(const Op op, const Dims g) {
-  // rows of BM + 4 floats: 16-byte aligned for the float4 reads
-  __shared__ __align__(16) float As_r[BK][BM + 4];
-  __shared__ __align__(16) float As_i[A_REAL ? 1 : BK][BM + 4];
-  __shared__ __align__(16) float Bs_r[BK][BN];
-  __shared__ __align__(16) float Bs_i[BK][BN];
-
-  int o, j, tmi, tni;
-  decompose(g, o, j, tmi, tni);
-  const long long m0 = (long long)tmi * BM, n0 = (long long)tni * BN;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-
-  float cr[TM][TN], ci[TM][TN];
-#pragma unroll
-  for (int a = 0; a < TM; ++a)
-#pragma unroll
-    for (int b = 0; b < TN; ++b) {
-      cr[a][b] = 0.f;
-      ci[a][b] = 0.f;
-    }
-
-  for (int k0 = 0; k0 < g.K; k0 += BK) {
-    // stage A (BM x BK, k fastest in memory) and B (BK x BN, n fastest)
-#pragma unroll
-    for (int l = 0; l < BM * BK / NT; ++l) {
-      const int e = tid + NT * l, mm = e / BK, kk = e % BK;
-      const long long m = m0 + mm;
-      const int k = k0 + kk;
-      const bool in = m < g.M && k < g.K;
-      Cplx v = in ? op.la(o, j, m, k) : Cplx{0.f, 0.f};
-      As_r[kk][mm] = v.r;
-      if constexpr (!A_REAL) As_i[kk][mm] = v.i;
-    }
-#pragma unroll
-    for (int l = 0; l < BK * BN / NT; ++l) {
-      const int e = tid + NT * l, kk = e / BN, nn = e % BN;
-      const long long n = n0 + nn;
-      const int k = k0 + kk;
-      Cplx v = (n < g.N && k < g.K) ? op.lb(o, j, k, n) : Cplx{0.f, 0.f};
-      Bs_r[kk][nn] = v.r;
-      Bs_i[kk][nn] = v.i;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      // each thread owns rows ty*TM.. and columns tx*TN.. of the tile:
-      // one float4 shared load per operand part
-      float ar[TM], ai[TM] = {}, br[TN], bi[TN];
-      ld4(ar, &As_r[kk][ty * TM]);
-      if constexpr (!A_REAL) ld4(ai, &As_i[kk][ty * TM]);
-      ld4(br, &Bs_r[kk][tx * TN]);
-      ld4(bi, &Bs_i[kk][tx * TN]);
-#pragma unroll
-      for (int a = 0; a < TM; ++a)
-#pragma unroll
-        for (int b = 0; b < TN; ++b) {
-          cr[a][b] = fmaf(ar[a], br[b], cr[a][b]);
-          if constexpr (!A_REAL) cr[a][b] = fmaf(-ai[a], bi[b], cr[a][b]);
-          if constexpr (!OUT_REAL) {
-            ci[a][b] = fmaf(ar[a], bi[b], ci[a][b]);
-            if constexpr (!A_REAL) ci[a][b] = fmaf(ai[a], br[b], ci[a][b]);
-          }
-        }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int a = 0; a < TM; ++a)
-#pragma unroll
-    for (int b = 0; b < TN; ++b) {
-      const long long m = m0 + ty * TM + a, n = n0 + tx * TN + b;
-      if (m < g.M && n < g.N) op.st(o, j, m, n, cr[a][b], ci[a][b]);
-    }
-}
-
 // c (16 x 8, f32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col)
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          const uint32_t* b) {
@@ -372,120 +247,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       "{%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two adjacent bf16 of a tile row: the lower index in the lower half
-__device__ __forceinline__ uint32_t ld2(const bf16_t* s) {
-  return *reinterpret_cast<const uint32_t*>(s);
-}
-
-// the four A-fragment registers of the 16 x 16 block at (row r, col c)
-// of a [BM][SKH] tile: rows r + gid (+8), columns c + 2 tig (+1, +8, +9)
-__device__ __forceinline__ void ld_afrag(uint32_t* f, const bf16_t (*t)[SKH],
-                                         int r, int c) {
-  f[0] = ld2(&t[r][c]);
-  f[1] = ld2(&t[r + 8][c]);
-  f[2] = ld2(&t[r][c + 8]);
-  f[3] = ld2(&t[r + 8][c + 8]);
-}
-
-__device__ __forceinline__ void negate(uint32_t* dst, const uint32_t* src) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) dst[q] = src[q] ^ 0x80008000u;
-}
-
-// The bf16 form of cgemm: the same Op interface, tiles and grid.  Each of
-// the 8 warps owns a 32 x 16 corner of the 64 x 64 output tile: 2 x 2
-// m16n8 accumulator blocks per part (re, im).  B is staged transposed
-// ([n][k]) so that each B-fragment register is one 32-bit shared load.
-template <class Op, bool A_REAL, bool OUT_REAL>
-__global__ void __launch_bounds__(NT) cgemm_bf16(const Op op, const Dims g) {
-  __shared__ __align__(16) bf16_t As_r[BM][SKH];
-  __shared__ __align__(16) bf16_t As_i[A_REAL ? 1 : BM][SKH];
-  __shared__ __align__(16) bf16_t Bs_r[BN][SKH];
-  __shared__ __align__(16) bf16_t Bs_i[BN][SKH];
-
-  int o, j, tmi, tni;
-  decompose(g, o, j, tmi, tni);
-  const long long m0 = (long long)tmi * BM, n0 = (long long)tni * BN;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = (warp / 4) * 32, wn = (warp % 4) * 16;
-  const int gid = lane / 4, tig = lane % 4;
-
-  float cr[2][2][4] = {}, ci[2][2][4] = {};
-
-  for (int k0 = 0; k0 < g.K; k0 += BKH) {
-    // stage A (BM x BKH) and B (BKH x BN, stored [n][k]), rounded once
-#pragma unroll
-    for (int l = 0; l < BM * BKH / NT; ++l) {
-      const int e = tid + NT * l, mm = e / BKH, kk = e % BKH;
-      const long long m = m0 + mm;
-      const int k = k0 + kk;
-      const bool in = m < g.M && k < g.K;
-      const Cplx v = in ? op.la(o, j, m, k) : Cplx{0.f, 0.f};
-      As_r[mm][kk] = __float2bfloat16_rn(v.r);
-      if constexpr (!A_REAL) As_i[mm][kk] = __float2bfloat16_rn(v.i);
-    }
-#pragma unroll
-    for (int l = 0; l < BKH * BN / NT; ++l) {
-      const int e = tid + NT * l, kk = e / BN, nn = e % BN;
-      const long long n = n0 + nn;
-      const int k = k0 + kk;
-      const Cplx v =
-          (n < g.N && k < g.K) ? op.lb(o, j, k, n) : Cplx{0.f, 0.f};
-      Bs_r[nn][kk] = __float2bfloat16_rn(v.r);
-      Bs_i[nn][kk] = __float2bfloat16_rn(v.i);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < BKH; ks += 16) {
-      const int c = ks + tig * 2;
-      uint32_t ar[2][4], ai[2][4], an[2][4];
-      uint32_t br[2][2], bi[2][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = wm + mt * 16 + gid;
-        ld_afrag(ar[mt], As_r, r, c);
-        if constexpr (!A_REAL) {
-          ld_afrag(ai[mt], As_i, r, c);
-          negate(an[mt], ai[mt]);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int n = wn + nt * 8 + gid;
-        br[nt][0] = ld2(&Bs_r[n][c]);
-        br[nt][1] = ld2(&Bs_r[n][c + 8]);
-        bi[nt][0] = ld2(&Bs_i[n][c]);
-        bi[nt][1] = ld2(&Bs_i[n][c + 8]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          mma_bf16(cr[mt][nt], ar[mt], br[nt]);
-          if constexpr (!A_REAL) mma_bf16(cr[mt][nt], an[mt], bi[nt]);
-          if constexpr (!OUT_REAL) {
-            mma_bf16(ci[mt][nt], ar[mt], bi[nt]);
-            if constexpr (!A_REAL) mma_bf16(ci[mt][nt], ai[mt], br[nt]);
-          }
-        }
-    }
-    __syncthreads();
-  }
-  // accumulator q of block (mt, nt): row gid (+8 for q >= 2), column
-  // 2 tig (+1 for odd q)
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const long long m = m0 + wm + mt * 16 + gid + (q >= 2 ? 8 : 0);
-        const long long n = n0 + wn + nt * 8 + tig * 2 + (q & 1);
-        if (m < g.M && n < g.N)
-          op.st(o, j, m, n, cr[mt][nt][q], ci[mt][nt][q]);
-      }
 }
 
 // --- the split-precision tensor-core products (tc_ct, tc_z) --------------
@@ -1043,7 +804,7 @@ __global__ void __launch_bounds__(TC_NT) tc_ct(const TcCt<TI, TO> p) {
 // after tc_ct's: its butterfly term by term (a coefficient
 // of +-1 exact, |c| < 1e-30 skipped, no fused multiply-add), each real
 // product one f32 fused multiply-add chain in contraction order (as
-// torch.matmul's sgemm sums, and cgemm did), the complex parts combined
+// torch.matmul's sgemm sums), the complex parts combined
 // and scaled after.  Elsewhere the f32 sums round less, and the split
 // products stay within 1e-5 of them.  QZ chunk-0 modes (z = 0, Rz, ...,
 // (QZ - 1) Rz; stored columns [0, QZ)) are formed so: past them the f32
@@ -1403,17 +1164,20 @@ __global__ void __launch_bounds__(TC_NT) tc_z(const TcZ p) {
 //                the Nyquist mode at 384^3, whose tile would be 63/64
 //                padding) in f32 FMA chains in k order, as plain does;
 //   tc_gemm      a 128 x 128 output tile per block of 8 warps: table
-//                tile t x data tile (x / y: rows = modes, re | im;
-//                z: columns = modes, re | im; z inverse: 128 real
-//                output columns), the first element added back through
-//                the table's sums, then scaled and stored.
+//                tile t x data tile (x / y: rows = modes, re | im, or
+//                128 real output rows; z: columns = modes, re | im; z
+//                inverse: 128 real output columns), the first element
+//                added back through the table's sums, then scaled and
+//                stored.
 
 // The output form of a tc_gemm: TG_XY, the data is the column operand
-// and a table tile's rows are 64 modes (re | im); TG_Z, the data is the
-// row operand and a table tile's columns are 64 modes (re | im);
+// and a table tile's rows are 64 modes (re | im); TG_YREAL, the data is
+// the column operand and a table tile's rows are 128 real outputs (the
+// real part of a dense complex DFT: rows [Wr | -Wi]); TG_Z, the data is
+// the row operand and a table tile's columns are 64 modes (re | im);
 // TG_ZREAL, the data is the row operand and a table tile's columns are
 // 128 real outputs (the z inverse, see its section)
-enum TgMode { TG_XY, TG_Z, TG_ZREAL };
+enum TgMode { TG_XY, TG_YREAL, TG_Z, TG_ZREAL };
 
 // slices in flight in tc_gemm's ring by the parts of its two operands: 4
 // of three-part tiles, 6 of a three-part table on one-part data, 8 of
@@ -1642,8 +1406,10 @@ __global__ void __launch_bounds__(128) split_rows(const SplitRows p) {
 
 // --- the ct2 passes' bf16 products on tc_gemm ------------------------------
 //
-// The bf16-product forms of pmesh_xct_multi and pmesh_zy_fwd_ct2 (and of
-// the half-CT pass 1's y stage).  A forward CT stage's operand is a
+// The bf16-product forms of pmesh_xct_multi and pmesh_zy_fwd_ct2, and
+// both forms of the half-CT pass 1's y stage (its f32 products split in
+// three parts, each chunk's first element taken out as tc_ct takes it
+// out).  A forward CT stage's operand is a
 // butterfly: u_j[m] = sum_r b[r][j] fold(x[r M + m]) for each of the R
 // chunks j.  Formed in a product's operand loader, each input value
 // would be read and butterflied once per chunk and table tile (8 times
@@ -1662,7 +1428,7 @@ __global__ void __launch_bounds__(128) split_rows(const SplitRows p) {
 //
 //   split_ct     the x / y stage's forward data: u_j of column c of
 //                (nouter, R M, ncols) blocks into data slices j M / 8 + s
-//                of column tile c / 128;
+//                of column tile c / 128 (NP parts);
 //   split_zct    the z-CT data of (rows, N2) real rows, u_d into the
 //                slices dslice[d] .. of row tile m / 128.
 //
@@ -1728,7 +1494,9 @@ bool bt_check(const Butter& bt, int R) {
 struct SplitCt {
   const void *xr, *xi;           // TI
   const float *k2x, *k2y, *k2z;  // the 1/k^2 fold, or null
-  bf16_t* dst;                   // (ceil(nall / 128), R nks, 1, 128, 16)
+  bf16_t* dst;                   // (ceil(nall / 128), R nks, NP, 128, 16)
+  float* c0;                     // NP = 3: (R, nall, 2), u_j[0] of each
+                                 // chunk and column
   long long istride, nall;       // input: outer stride; columns in all
   int M, ncols, ipitch, W, nks;  // rows per chunk; nks = M / 8
   Butter bt;                     // b[r][j] = W_R^{-rj}
@@ -1765,16 +1533,45 @@ __device__ __forceinline__ void bt_chunks(float (&u)[R][2],
   ((u[J][0] = u[J][1] = 0.f, bt_terms<R, J, 0>(u, vr, vi, bt)), ...);
 }
 
+// the R chunks' u_j of one data row m (u[j] = (re, im)) of split_ct's
+// column, term by term as the plain butterfly adds them
+template <class TI, int R>
+__device__ __forceinline__ void ct_row(const SplitCt& p, bool in,
+                                       long long base, float ky, float kz,
+                                       int m, float (&u)[R][2]) {
+  const TI* xr = static_cast<const TI*>(p.xr);
+  const TI* xi = static_cast<const TI*>(p.xi);
+  float vr[R], vi[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    vr[r] = vi[r] = 0.f;
+    if (in) {
+      const long long row = (long long)r * p.M + m;
+      const long long a = base + row * p.ipitch;
+      vr[r] = ldv(xr, a);
+      vi[r] = ldv(xi, a);
+      if (p.k2x != nullptr) {
+        const float kk = __fadd_rn(__fadd_rn(p.k2x[row], ky), kz);
+        const float f = kk > 0.f ? __frcp_rn(kk) : 0.f;
+        vr[r] = __fmul_rn(vr[r], f);
+        vi[r] = __fmul_rn(vi[r], f);
+      }
+    }
+  }
+  bt_chunks<R>(u, vr, vi, p.bt, std::make_integer_sequence<int, R>());
+}
+
 // one block of 128 threads per column tile and group of SPLIT_SG slices
 // (blockIdx.y), one thread per column c: for each row m = 8 s + mm of
 // slice s, the R values fold(x[o, r M + m, n]) read once and every
 // chunk's u_j[m] formed from them; chunk j's slice s is data slice j nks
 // + s, row c % 128 (re of the 8 rows | im, in the 32-byte swizzle); zero
-// past nall
-template <class TI, int R>
+// past nall.  NP = 1: each u_j rounded once to bf16 (the bf16
+// products); NP = 3 (the f32 products): each chunk's u_j[0] taken out
+// of its rows (and written to c0 by the blocks of slice 0, for tc_gemm
+// to add back through the row sums), the rest split in three parts
+template <class TI, int R, int NP>
 __global__ void __launch_bounds__(128) split_ct(const SplitCt p) {
-  const TI* xr = static_cast<const TI*>(p.xr);
-  const TI* xi = static_cast<const TI*>(p.xi);
   const long long tile = blockIdx.x;
   const int tid = threadIdx.x, s0 = blockIdx.y * SPLIT_SG;
   const long long c = tile * 128 + tid;
@@ -1789,46 +1586,58 @@ __global__ void __launch_bounds__(128) split_ct(const SplitCt p) {
       kz = p.k2z[n % p.W];
     }
   }
-  bf16_t* dst = p.dst + tile * (long long)R * p.nks * TG_SLICE + tid * TC_BK;
-  const int sw = (tid >> 2) & 1;
-  for (int s = s0; s < min(p.nks, s0 + SPLIT_SG); ++s) {
-    uint32_t w[R][8];   // chunk j: rows (2 i, 2 i + 1) re in w[j][i], im in 4 + i
+  bf16_t* dst =
+      p.dst + tile * (long long)R * p.nks * (NP * TG_SLICE) + tid * TC_BK;
+  if constexpr (NP == 1) {
+    const int sw = (tid >> 2) & 1;
+    for (int s = s0; s < min(p.nks, s0 + SPLIT_SG); ++s) {
+      uint32_t w[R][8];   // chunk j: rows (2 i, 2 i + 1) re in w[j][i], im in 4 + i
 #pragma unroll
-    for (int mm = 0; mm < 8; ++mm) {
-      float vr[R], vi[R];
+      for (int mm = 0; mm < 8; ++mm) {
+        float u[R][2];
+        ct_row<TI, R>(p, in, base, ky, kz, s * 8 + mm, u);
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        vr[r] = vi[r] = 0.f;
-        if (in) {
-          const long long row = (long long)r * p.M + s * 8 + mm;
-          const long long a = base + row * p.ipitch;
-          vr[r] = ldv(xr, a);
-          vi[r] = ldv(xi, a);
-          if (p.k2x != nullptr) {
-            const float kk = __fadd_rn(__fadd_rn(p.k2x[row], ky), kz);
-            const float f = kk > 0.f ? __frcp_rn(kk) : 0.f;
-            vr[r] = __fmul_rn(vr[r], f);
-            vi[r] = __fmul_rn(vi[r], f);
-          }
+        for (int j = 0; j < R; ++j) {
+          const float ur = u[j][0], ui = u[j][1];
+          const int sh = (mm & 1) * 16;
+          const uint32_t br = bf16_bits(ur) << sh, bi = bf16_bits(ui) << sh;
+          w[j][mm / 2] = (mm & 1) ? (w[j][mm / 2] | br) : br;
+          w[j][4 + mm / 2] = (mm & 1) ? (w[j][4 + mm / 2] | bi) : bi;
         }
       }
-      float u[R][2];
-      bt_chunks<R>(u, vr, vi, p.bt, std::make_integer_sequence<int, R>());
 #pragma unroll
       for (int j = 0; j < R; ++j) {
-        const float ur = u[j][0], ui = u[j][1];
-        const int sh = (mm & 1) * 16;
-        const uint32_t br = bf16_bits(ur) << sh, bi = bf16_bits(ui) << sh;
-        w[j][mm / 2] = (mm & 1) ? (w[j][mm / 2] | br) : br;
-        w[j][4 + mm / 2] = (mm & 1) ? (w[j][4 + mm / 2] | bi) : bi;
+        uint4* d = reinterpret_cast<uint4*>(
+            dst + ((long long)j * p.nks + s) * TG_SLICE);
+        d[sw] = make_uint4(w[j][0], w[j][1], w[j][2], w[j][3]);
+        d[1 - sw] = make_uint4(w[j][4], w[j][5], w[j][6], w[j][7]);
       }
     }
+  } else {
+    float c0[R][2];
+    ct_row<TI, R>(p, in, base, ky, kz, 0, c0);
+    if (s0 == 0 && in)
 #pragma unroll
-    for (int j = 0; j < R; ++j) {
-      uint4* d = reinterpret_cast<uint4*>(
-          dst + ((long long)j * p.nks + s) * TG_SLICE);
-      d[sw] = make_uint4(w[j][0], w[j][1], w[j][2], w[j][3]);
-      d[1 - sw] = make_uint4(w[j][4], w[j][5], w[j][6], w[j][7]);
+      for (int j = 0; j < R; ++j) {
+        p.c0[2 * (j * p.nall + c)] = c0[j][0];
+        p.c0[2 * (j * p.nall + c) + 1] = c0[j][1];
+      }
+    for (int s = s0; s < min(p.nks, s0 + SPLIT_SG); ++s) {
+      float v[R][16];   // chunk j: re of the 8 rows, then im
+#pragma unroll
+      for (int mm = 0; mm < 8; ++mm) {
+        float u[R][2];
+        ct_row<TI, R>(p, in, base, ky, kz, s * 8 + mm, u);
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          v[j][mm] = u[j][0] - c0[j][0];
+          v[j][8 + mm] = u[j][1] - c0[j][1];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        st_parts16<NP>(dst + ((long long)j * p.nks + s) * (NP * TG_SLICE),
+                       v[j], tid);
     }
   }
 }
@@ -2070,13 +1879,15 @@ struct TcGemm {
   const bf16_t* dat;    // (tiles, nkd, NP, 128, 16): the data's tiles;
                         // chunk j's slices dslice[j] .. + nk[j] of each
   const float* sums;    // x / y: (sets, R, M, 2) row sums; z: (Zh, 2) column sums
-  const float* c0;      // the taken-out first elements, or null
+  const float* c0;      // the taken-out first elements, or null; x / y:
+                        // (R, nall, 2), u_j[0] of each chunk and column
   const float* plane;   // z inverse: plane[m] (-1)^n added, or null
   void *o1r, *o1i, *o2r, *o2i;   // TO
   long long ostride;    // x / y: output elements per outer block
   long long nall;       // x / y: data columns in all; z: rows
-  int M;                // x / y: modes per chunk; z: tail0 (modes per chunk);
-                        // z inverse: columns per output (o1r, then o1i)
+  int M;                // x / y: modes per chunk (TG_YREAL: output rows);
+                        // z: tail0 (modes per chunk); z inverse: columns
+                        // per output (o1r, then o1i)
   int ncols;            // x / y: columns per outer block; z: output pitch
   int lo;               // z: modes [0, lo) are chained, not stored here
   int T, T1;            // table tiles per chunk (both sets), of set 1
@@ -2105,7 +1916,7 @@ void tg_one_chunk(TcGemm& g, int nks) {
 template <int NPT, int NPD, int MODE, class TO>
 __global__ void __launch_bounds__(TC_NT, 1) tc_gemm(const TcGemm p) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  constexpr bool DATA_A = MODE != TG_XY;
+  constexpr bool DATA_A = MODE == TG_Z || MODE == TG_ZREAL;
   constexpr int D = tg_depth<NPT, NPD>();
   __shared__ __align__(8) uint64_t full[D];
   // bf16 of a slice tile: the table's, the data's, the row and the
@@ -2209,16 +2020,24 @@ __global__ void __launch_bounds__(TC_NT, 1) tc_gemm(const TcGemm p) {
       const int gc = t * TC_COLS + 8 * j + 2 * tig;
       const int part_ = gc / p.M, n = gc - part_ * p.M;
       if (part_ >= nout) continue;
-      // n + 1 lies in the same output: M is even wherever there are two
-      const bool in1 = n + 1 < p.M;
+      // column gc + 1: n + 1 of the same output, or at an odd M column 0
+      // of o1i (the full z inverse at N2 = 75), or past the outputs
+      const bool same = n + 1 < p.M, in1 = same || part_ + 1 < nout;
       TO* out = static_cast<TO*>(part_ ? p.o1i : p.o1r);
       const long long col = (long long)jc * p.jstep + n;
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         if (m[h] < p.nall) {
           const float sg = (n & 1) ? -pl[h] : pl[h];
-          st_pair(out, m[h] * p.ncols + col, acc[4 * j + 2 * h] + sg,
-                  acc[4 * j + 2 * h + 1] - sg, true, in1);
+          const float v0 = acc[4 * j + 2 * h] + sg;
+          if (same || !in1) {
+            st_pair(out, m[h] * p.ncols + col, v0,
+                    acc[4 * j + 2 * h + 1] - sg, true, same);
+          } else {
+            stv(out, m[h] * p.ncols + col, v0);
+            stv(static_cast<TO*>(p.o1i), m[h] * p.ncols + jc * p.jstep,
+                acc[4 * j + 2 * h + 1] + pl[h]);
+          }
         }
     }
   } else if constexpr (DATA_A) {
@@ -2255,21 +2074,27 @@ __global__ void __launch_bounds__(TC_NT, 1) tc_gemm(const TcGemm p) {
     }
   } else {
     // x / y: warpgroup 0 holds the real parts of the tile's modes,
-    // warpgroup 1 the imaginary; each output gets back c0 sum_m W[q, m],
-    // then the scale
+    // warpgroup 1 the imaginary (TG_YREAL: the tile's 128 real output
+    // rows, into o1r); each output gets back c0 sum_m W[q, m], c0 the
+    // chunk's taken-out u_jc[0] of the column, then the scale
+    constexpr bool YREAL = MODE == TG_YREAL;
     const bool set2 = t >= p.T1;
     const int tt = set2 ? t - p.T1 : t;
-    TO* out = static_cast<TO*>(wg == 0 ? (set2 ? p.o2r : p.o1r)
-                                        : (set2 ? p.o2i : p.o1i));
+    TO* out = static_cast<TO*>(YREAL ? p.o1r
+                               : wg == 0 ? (set2 ? p.o2r : p.o1r)
+                                         : (set2 ? p.o2i : p.o1i));
     const float* rs =
         p.sums + ((set2 ? (long long)p.R : 0LL) + jc) * p.M * 2;
+    const float* c0 =
+        p.c0 != nullptr ? p.c0 + (long long)jc * p.nall * 2 : nullptr;
     const long long jrows = (long long)jc * p.jstep * p.ncols;
     int q[2];
     float sr[2], si[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      q[h] = tt * TC_MODES + w4 * 16 + gid + h * 8;
-      const bool sum = p.c0 != nullptr && q[h] < p.M;
+      q[h] = YREAL ? tt * TC_COLS + wg * 64 + w4 * 16 + gid + h * 8
+                   : tt * TC_MODES + w4 * 16 + gid + h * 8;
+      const bool sum = !YREAL && p.c0 != nullptr && q[h] < p.M;
       sr[h] = sum ? rs[2 * q[h]] : 0.f;
       si[h] = sum ? rs[2 * q[h] + 1] : 0.f;
     }
@@ -2285,8 +2110,8 @@ __global__ void __launch_bounds__(TC_NT, 1) tc_gemm(const TcGemm p) {
       for (int e = 0; e < 2; ++e) {
         const long long ce = c + e < p.nall ? c + e : c;
         at[e] = (ce / p.ncols) * p.ostride + ce % p.ncols + jrows;
-        cr[e] = p.c0 != nullptr ? p.c0[2 * ce] : 0.f;
-        ci[e] = p.c0 != nullptr ? p.c0[2 * ce + 1] : 0.f;
+        cr[e] = p.c0 != nullptr ? c0[2 * ce] : 0.f;
+        ci[e] = p.c0 != nullptr ? c0[2 * ce + 1] : 0.f;
       }
       const bool in1 = c + 1 < p.nall;
       const bool pair = in1 && at[1] == at[0] + 1;
@@ -2312,46 +2137,7 @@ __global__ void __launch_bounds__(TC_NT, 1) tc_gemm(const TcGemm p) {
   }
 }
 
-// --- the operand and store functors ------------------------------------
-
-// The forward CT stage along the rows of (nouter, R*M, ncols) complex
-// blocks on cgemm (the f32 half-CT pass 1; at R = 1 the full-spectrum
-// inverse's y stage): out[o, j*M + q, n] = scale * sum_m W_j[q, m]
-// u_j[m, n], u_j[m, n] = sum_r bt[r][j] x[o, r*M + m, n]; outi null: only
-// the real part is stored.
-struct CtOp {
-  const float *xr, *xi, *wr, *wi;
-  float *outr, *outi;
-  long long ostride;
-  int M, R, ncols;
-  float scale;
-  Butter bt;
-
-  __device__ __forceinline__ Cplx la(int, int j, long long m, int k) const {
-    const long long a = ((long long)j * M + m) * M + k;
-    return Cplx{wr[a], wi[a]};
-  }
-  __device__ __forceinline__ Cplx lb(int o, int j, int k,
-                                     long long n) const {
-    const long long base = (long long)o * ostride + n;
-    Cplx u{0.f, 0.f};
-    for (int r = 0; r < R; ++r) {
-      const long long a = base + ((long long)r * M + k) * ncols;
-      const float vr = xr[a], vi = xi[a];
-      const float cr = bt.r[r][j], ci = bt.i[r][j];
-      u.r = fmaf(cr, vr, fmaf(-ci, vi, u.r));
-      u.i = fmaf(cr, vi, fmaf(ci, vr, u.i));
-    }
-    return u;
-  }
-  __device__ __forceinline__ void st(int o, int j, long long m, long long n,
-                                     float vr, float vi) const {
-    const long long a =
-        (long long)o * ostride + ((long long)j * M + m) * ncols + n;
-    outr[a] = vr * scale;
-    if (outi != nullptr) outi[a] = vi * scale;
-  }
-};
+// --- the sweeps -----------------------------------------------------------
 
 // {y_j at rows j*M + m} of (re, im) -> {out_r at rows r*M + m} of
 // (ore, oim), out_r = scale * sum_j bt[r][j] y_j, one thread per (o, m, n);
@@ -2389,47 +2175,6 @@ __global__ void ct_inv_butterfly(const float* re, const float* im, TO* ore,
       stv(oim, base + (long long)r * per, si * scale);
     }
 }
-
-// dense z forward: rows (n0*N1) of the real mesh times the (N2, Zm)
-// half-DFT pair
-struct ZFwdDense {
-  const float *x, *wr, *wi;
-  float *sr, *si;
-  int N2, Zm;
-  __device__ __forceinline__ Cplx la(int, int, long long m, int k) const {
-    return Cplx{x[m * N2 + k], 0.f};
-  }
-  __device__ __forceinline__ Cplx lb(int, int, int k, long long n) const {
-    const long long a = (long long)k * Zm + n;
-    return Cplx{wr[a], wi[a]};
-  }
-  __device__ __forceinline__ void st(int, int, long long m, long long n,
-                                     float vr, float vi) const {
-    sr[m * Zm + n] = vr;
-    si[m * Zm + n] = vi;
-  }
-};
-
-// full-spectrum z inverse: (zr + i zi)[m, n] = (xr + i xi)[m] . Wz[:, n],
-// Wz entered as A = Re Wz, B = -Im Wz (n2 x n2), the complex result kept
-// for the y stage
-struct ZFull {
-  const float *xr, *xi, *ta, *tb;
-  float *zr, *zi;
-  int n2;
-  __device__ __forceinline__ Cplx la(int, int, long long m, int k) const {
-    return Cplx{xr[m * n2 + k], xi[m * n2 + k]};
-  }
-  __device__ __forceinline__ Cplx lb(int, int, int k, long long n) const {
-    const long long a = (long long)k * n2 + n;
-    return Cplx{ta[a], -tb[a]};
-  }
-  __device__ __forceinline__ void st(int, int, long long m, long long n,
-                                     float vr, float vi) const {
-    zr[m * n2 + n] = vr;
-    zi[m * n2 + n] = vi;
-  }
-};
 
 // in place: out block c = sum_j cs_r[j][c] P_j - cs_i[j][c] Q_j, plus
 // plane[m] (-1)^n; one thread per (row m, column n < Kb)
@@ -2483,11 +2228,8 @@ __global__ void nyquist_rowsum(const float* __restrict__ x,
 // launches of the product routines and the dense passes' split and chain
 // kernels, counted where each is launched (pmesh_kernel_launches): the
 // wrappers' counters say which entry point ran, these which kernels it ran
-enum KernelKind { K_CGEMM, K_CGEMM_BF16, K_TC_CT, K_TC_Z, K_TC_GEMM, K_SPLIT,
-                  K_COL0, K_KINDS };
+enum KernelKind { K_TC_CT, K_TC_Z, K_TC_GEMM, K_SPLIT, K_COL0, K_KINDS };
 long long g_launches[K_KINDS] = {};
-
-int cdiv_ll(long long a, long long b) { return (int)((a + b - 1) / b); }
 
 #define PMESH_TRY_E(expr)           \
   do {                              \
@@ -2501,52 +2243,6 @@ int cdiv_ll(long long a, long long b) { return (int)((a + b - 1) / b); }
     if (e_ != cudaSuccess) return (int)e_; \
   } while (0)
 
-// the grid of a product: false if it does not fit the launch limits
-bool gemm_dims(Dims& g, int nouter, int nj, long long M, long long N, int K,
-               bool m_fast, long long& blocks) {
-  g.M = (int)M;
-  g.N = (int)N;
-  g.K = K;
-  g.nj = nj;
-  g.tiles_m = cdiv_ll(M, BM);
-  g.tiles_n = cdiv_ll(N, BN);
-  g.m_fast = m_fast ? 1 : 0;
-  blocks = (long long)g.tiles_m * g.tiles_n * nj * nouter;
-  return M <= INT32_MAX && N <= INT32_MAX && blocks <= INT32_MAX;
-}
-
-// one product of a pass on cgemm_bf16 (the bf16 form)
-template <class Op, bool A_REAL, bool OUT_REAL>
-cudaError_t launch_gemm_bf16(const Op& op, int nouter, int nj, long long M,
-                             long long N, int K, bool m_fast,
-                             cudaStream_t stream) {
-  Dims g;
-  long long blocks;
-  if (!gemm_dims(g, nouter, nj, M, N, K, m_fast, blocks))
-    return cudaErrorInvalidValue;
-  ++g_launches[K_CGEMM_BF16];
-  cgemm_bf16<Op, A_REAL, OUT_REAL>
-      <<<(unsigned)blocks, NT, 0, stream>>>(op, g);
-  return cudaGetLastError();
-}
-
-// one product of a pass: cgemm, or cgemm_bf16 for the bf16 form
-template <class Op, bool A_REAL, bool OUT_REAL>
-cudaError_t launch_gemm(const Op& op, int nouter, int nj, long long M,
-                        long long N, int K, bool m_fast, bool bf16,
-                        cudaStream_t stream) {
-  if (bf16)
-    return launch_gemm_bf16<Op, A_REAL, OUT_REAL>(op, nouter, nj, M, N, K,
-                                                  m_fast, stream);
-  Dims g;
-  long long blocks;
-  if (!gemm_dims(g, nouter, nj, M, N, K, m_fast, blocks))
-    return cudaErrorInvalidValue;
-  ++g_launches[K_CGEMM];
-  cgemm<Op, A_REAL, OUT_REAL><<<(unsigned)blocks, NT, 0, stream>>>(op, g);
-  return cudaGetLastError();
-}
-
 template <class TO>
 cudaError_t launch_butterfly(const float* re, const float* im, TO* ore,
                              TO* oim, long long nouter, long long ostride,
@@ -2558,18 +2254,6 @@ cudaError_t launch_butterfly(const float* re, const float* im, TO* ore,
   ct_inv_butterfly<TO><<<(unsigned)blocks, 256, 0, stream>>>(
       re, im, ore, oim, nouter, ostride, M, R, ncols, scale, bt);
   return cudaGetLastError();
-}
-
-// the forward y CT of the f32 (n0, N1, ncols) z spectrum (xr, xi) into
-// (outr, outi), chunk-permuted along y, on cgemm (the f32 half-CT pass 1)
-cudaError_t y_forward(const float* xr, const float* xi, const float* wyr,
-                      const float* wyi, const float* ycoef, float* outr,
-                      float* outi, int n0, int N1, int ncols, int Ry, int My,
-                      cudaStream_t stream) {
-  const CtOp op = {xr,    xi,    wyr, wyi, outr, outi, (long long)N1 * ncols,
-                   My,    Ry,    ncols, 1.f, make_butter(ycoef, Ry)};
-  return launch_gemm<CtOp, false, false>(op, n0, Ry, My, ncols, My, true,
-                                         false, stream);
 }
 
 // --- the tensor-core passes -----------------------------------------------
@@ -2769,21 +2453,6 @@ cudaError_t x_ct_tc(const TS* xr, const TS* xi, const void* tab_,
                           bt, stream);
 }
 
-// the real part of a dense complex DFT along the rows of (nouter, M,
-// ncols) blocks on cgemm (the full-spectrum inverse's y stage): the CtOp
-// stage at R = 1, whose butterfly is the identity
-cudaError_t dense_rows_real(const float* xr, const float* xi, const float* wr,
-                            const float* wi, float* out, int nouter, int M,
-                            long long ncols, bool bf16, cudaStream_t stream) {
-  if (ncols > INT32_MAX) return cudaErrorInvalidValue;
-  Butter one = {};
-  one.r[0][0] = 1.f;
-  const CtOp op = {xr, xi,         wr, wi,  out, nullptr, (long long)M * ncols,
-                   M,  1,          (int)ncols, 1.f, one};
-  return launch_gemm<CtOp, false, true>(op, nouter, 1, M, ncols, M, true,
-                                        bf16, stream);
-}
-
 template <int NPT, int NPD, int MODE, class TO = float>
 cudaError_t launch_tc_gemm(const TcGemm& p, long long dtiles,
                            cudaStream_t stream) {
@@ -2904,16 +2573,20 @@ cudaError_t z_dense_tc(const float* x, const void* tz, const float* zsum,
 // tab of one set, or two when o2r is set (T1 = M / 64 tiles each), over
 // the NPD-part data tiles split (R M / 8 slices per column tile: chunk
 // j's at j M / 8), output rows j M + q of (nall / ncols, R M, ncols)
-// blocks
+// blocks; c0 (R, nall, 2) the chunks' taken-out first elements, added
+// back through the row sums (sets, R, M, 2), or null
 template <int NPT, int NPD, class TO>
 cudaError_t ct_chunks_tc(const void* tab, const bf16_t* split, TO* o1r,
                          TO* o1i, TO* o2r, TO* o2i, long long nall, int R,
                          int M, int ncols, float scale,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, const float* sums = nullptr,
+                         const float* c0 = nullptr) {
   const int nks = M / TC_DR, T1 = M / TC_MODES;
   TcGemm g = {};
   g.tab = (const bf16_t*)tab;
   g.dat = split;
+  g.sums = sums;
+  g.c0 = c0;
   g.o1r = o1r;
   g.o1i = o1i;
   g.o2r = o2r;
@@ -2937,45 +2610,50 @@ cudaError_t ct_chunks_tc(const void* tab, const bf16_t* split, TO* o1r,
       g, (nall + TC_COLS - 1) / TC_COLS, stream);
 }
 
-// the forward CT stage in the bf16 products form along the rows of
-// (nouter, R M, ncols) blocks (x read at o istride + row ipitch, stored as
-// TI) into (nouter, R M, ncols) outputs (TO, chunk-permuted) by the
-// one-part block table tab [two sets when o2r is set] times scale, with
-// the 1/k^2 fold when k2x is set (W: the z width of a column n = y W + z):
-// split_ct, then tc_gemm over the chunks.  Scratch: split (R M / 8 slices
-// per 128-column tile).
-template <class TI, class TO>
-cudaError_t ct_fwd_tc1(const TI* xr, const TI* xi, const void* tab,
-                       const float* k2x, const float* k2y, const float* k2z,
-                       TO* o1r, TO* o1i, TO* o2r, TO* o2i, bf16_t* split,
-                       int nouter, int R, int M, int ncols, int ipitch,
-                       long long istride, int W, float scale,
-                       const Butter& bt, cudaStream_t stream) {
+// the forward CT stage on tc_gemm along the rows of (nouter, R M, ncols)
+// blocks (x read at o istride + row ipitch, stored as TI) into (nouter,
+// R M, ncols) outputs (TO, chunk-permuted) by the NP-part block table tab
+// [two sets when o2r is set] times scale, with the 1/k^2 fold when k2x
+// is set (W: the z width of a column n = y W + z): split_ct, then
+// tc_gemm over the chunks.  NP = 1: the bf16 products; NP = 3: the f32
+// products, each chunk's u_j[0] taken out into c0 (R nouter ncols 2 f32)
+// and added back through the row sums (sets, R, M, 2); column 0 is then
+// the caller's (launch_col0).  Scratch: split (R M / 8 slices of NP
+// parts per 128-column tile).
+template <int NP, class TI, class TO>
+cudaError_t ct_fwd_tc(const TI* xr, const TI* xi, const void* tab,
+                      const float* k2x, const float* k2y, const float* k2z,
+                      TO* o1r, TO* o1i, TO* o2r, TO* o2i, bf16_t* split,
+                      const float* sums, float* c0, int nouter, int R, int M,
+                      int ncols, int ipitch, long long istride, int W,
+                      float scale, const Butter& bt, cudaStream_t stream) {
   const long long nall = (long long)nouter * ncols;
   const long long tiles = (nall + TC_COLS - 1) / TC_COLS;
   const int nks = M / TC_DR;
-  if (M % TC_MODES || tiles > INT32_MAX || !bt_check(bt, R))
+  if (M % TC_MODES || tiles > INT32_MAX || !bt_check(bt, R) ||
+      (NP == 3 && (sums == nullptr || c0 == nullptr)))
     return cudaErrorInvalidValue;
-  const SplitCt sp = {xr,   xi,    k2x,   k2y,    k2z, split, istride,
-                      nall, M,     ncols, ipitch, W,   nks,   bt};
+  const SplitCt sp = {xr,      xi,   k2x, k2y,   k2z,    split, c0,
+                      istride, nall, M,   ncols, ipitch, W,     nks, bt};
   const dim3 grid((unsigned)tiles, (nks + SPLIT_SG - 1) / SPLIT_SG);
   switch (R) {
     case 2:
-      split_ct<TI, 2><<<grid, 128, 0, stream>>>(sp);
+      split_ct<TI, 2, NP><<<grid, 128, 0, stream>>>(sp);
       break;
     case 4:
-      split_ct<TI, 4><<<grid, 128, 0, stream>>>(sp);
+      split_ct<TI, 4, NP><<<grid, 128, 0, stream>>>(sp);
       break;
     case 8:
-      split_ct<TI, 8><<<grid, 128, 0, stream>>>(sp);
+      split_ct<TI, 8, NP><<<grid, 128, 0, stream>>>(sp);
       break;
     default:
       return cudaErrorInvalidValue;
   }
   ++g_launches[K_SPLIT];
   PMESH_TRY_E(cudaGetLastError());
-  return ct_chunks_tc<1, 1>(tab, split, o1r, o1i, o2r, o2i, nall, R, M,
-                            ncols, scale, stream);
+  return ct_chunks_tc<NP, NP>(tab, split, o1r, o1i, o2r, o2i, nall, R, M,
+                              ncols, scale, stream, NP == 3 ? sums : nullptr,
+                              NP == 3 ? c0 : nullptr);
 }
 
 // the inverse CT stage's products on tc_gemm along the rows of (nouter,
@@ -3096,9 +2774,10 @@ cudaError_t x_ct(const TS* xr, const TS* xi, const void* tab,
   const long long ncols = (long long)n1 * W;
   if (ncols > INT32_MAX) return cudaErrorInvalidValue;
   if (!inverse)
-    return ct_fwd_tc1<TS, TS>(xr, xi, tab, k2x, k2y, k2z, o1r, o1i, o2r, o2i,
-                              split, 1, R, M, (int)ncols, (int)ncols, 0, W,
-                              scale, bt, stream);
+    return ct_fwd_tc<1, TS, TS>(xr, xi, tab, k2x, k2y, k2z, o1r, o1i, o2r,
+                                o2i, split, nullptr, nullptr, 1, R, M,
+                                (int)ncols, (int)ncols, 0, W, scale, bt,
+                                stream);
   float *p1r, *p1i, *p2r, *p2i;
   if constexpr (std::is_same<TS, float>::value) {
     p1r = o1r;
@@ -3143,6 +2822,35 @@ cudaError_t launch_split_zinv(const SplitZinv& sp, dim3 grid,
 // chunks (Kin, Kb) into (out, zq) and zct_combine (coefficients zcoef,
 // the plane there).  tz: z_inv_block_table's NP-part tiles.  Scratch:
 // split, ceil(rows / 128) ceil(Zm / 8) slices of NP parts.
+// split_zinv's NP-part tiles of the f32 y output (yr, yi) (nouter, R M,
+// Zm) into split (see z_inv_tc)
+template <int NP>
+cudaError_t split_zinv_tc(const float* yr, const float* yi, bf16_t* split,
+                          long long nouter, int R, int M, int Zm,
+                          const Butter& bt, cudaStream_t stream) {
+  const long long rows = nouter * R * M;
+  const long long tiles = (rows + TC_ROWS - 1) / TC_ROWS;
+  const long long blocks =
+      nouter * (R == 1 ? (M + TC_ROWS - 1) / TC_ROWS * (TC_ROWS / ZI_ROWS)
+                       : M / ZI_ROWS);
+  if (tiles > INT32_MAX || blocks > INT32_MAX || (R > 1 && M % TC_ROWS))
+    return cudaErrorInvalidValue;
+  SplitZinv sp = {yr, yi, split, M, Zm, (Zm + TC_DR - 1) / TC_DR,
+                  Zm % 4 == 0 && aligned16(yr) && aligned16(yi), bt};
+  const dim3 grid((unsigned)blocks, (Zm + ZI_K - 1) / ZI_K);
+  switch (R) {
+    case 1:
+      return launch_split_zinv<NP, 1>(sp, grid, stream);
+    case 2:
+      return launch_split_zinv<NP, 2>(sp, grid, stream);
+    case 4:
+      return launch_split_zinv<NP, 4>(sp, grid, stream);
+    case 8:
+      return launch_split_zinv<NP, 8>(sp, grid, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <int NP>
 cudaError_t z_inv_tc(const float* yr, const float* yi, const void* tz,
                      const float* plane, float* out, float* zq,
@@ -3152,32 +2860,10 @@ cudaError_t z_inv_tc(const float* yr, const float* yi, const void* tz,
   const long long rows = nouter * R * M;
   const long long tiles = (rows + TC_ROWS - 1) / TC_ROWS;
   const int nks = (Zm + TC_DR - 1) / TC_DR;
-  const long long blocks =
-      nouter * (R == 1 ? (M + TC_ROWS - 1) / TC_ROWS * (TC_ROWS / ZI_ROWS)
-                       : M / ZI_ROWS);
-  if (tiles > INT32_MAX || blocks > INT32_MAX || (R > 1 && M % TC_ROWS) ||
-      (zct && (Ri < 1 || Ri > kMaxR || Ri * Kin != Zm || Kin % TC_DR ||
-               Kb % 2 || Ri * Kb != n2)))
+  if (zct && (Ri < 1 || Ri > kMaxR || Ri * Kin != Zm || Kin % TC_DR ||
+              Kb % 2 || Ri * Kb != n2))
     return cudaErrorInvalidValue;
-  SplitZinv sp = {yr, yi, split, M, Zm, nks,
-                  Zm % 4 == 0 && aligned16(yr) && aligned16(yi), bt};
-  const dim3 grid((unsigned)blocks, (Zm + ZI_K - 1) / ZI_K);
-  switch (R) {
-    case 1:
-      PMESH_TRY_E((launch_split_zinv<NP, 1>(sp, grid, stream)));
-      break;
-    case 2:
-      PMESH_TRY_E((launch_split_zinv<NP, 2>(sp, grid, stream)));
-      break;
-    case 4:
-      PMESH_TRY_E((launch_split_zinv<NP, 4>(sp, grid, stream)));
-      break;
-    case 8:
-      PMESH_TRY_E((launch_split_zinv<NP, 8>(sp, grid, stream)));
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
+  PMESH_TRY_E(split_zinv_tc<NP>(yr, yi, split, nouter, R, M, Zm, bt, stream));
   TcGemm g = {};
   g.tab = (const bf16_t*)tz;
   g.dat = split;
@@ -3236,6 +2922,113 @@ cudaError_t zy_inv_ct(const TI* xr, const TI* xi, const void* ty,
                        Zm, n2, bt, zct, Ri, Kin, Kb, zcoef, stream);
 }
 
+// the complex inverse z DFT of full rows on the tensor cores: (xr, xi)
+// (rows, N2) times Wz into (zr, zi) (rows, N2), split_zinv (R = 1) then
+// ONE real-output tc_gemm of [xr | xi] and the stacked table tz
+// [[A, -B]; [B, A]] (A = Re Wz, B = -Im Wz; 2 N2 output columns, zr the
+// first N2, zi the rest), NP parts.  Scratch: split, ceil(rows / 128)
+// ceil(N2 / 8) slices of NP parts.
+template <int NP>
+cudaError_t z_full_tc(const float* xr, const float* xi, const void* tz,
+                      float* zr, float* zi, bf16_t* split, long long rows,
+                      int N2, cudaStream_t stream) {
+  if (rows > INT32_MAX) return cudaErrorInvalidValue;
+  Butter one = {};
+  one.r[0][0] = 1.f;
+  PMESH_TRY_E(split_zinv_tc<NP>(xr, xi, split, 1, 1, (int)rows, N2, one,
+                                stream));
+  TcGemm g = {};
+  g.tab = (const bf16_t*)tz;
+  g.dat = split;
+  g.o1r = zr;
+  g.o1i = zi;
+  g.nall = rows;
+  g.M = N2;
+  g.ncols = N2;
+  g.T = g.T1 = (2 * N2 + TC_COLS - 1) / TC_COLS;
+  tg_one_chunk(g, (N2 + TC_DR - 1) / TC_DR);
+  g.scale = 1.f;
+  return launch_tc_gemm<NP, NP, TG_ZREAL>(g, (rows + TC_ROWS - 1) / TC_ROWS,
+                                          stream);
+}
+
+// the real part of the dense complex DFT along the rows of (nouter, M,
+// ncols) blocks (xr, xi) into out (nouter, M, ncols), on the tensor
+// cores: split_cols, then one real-output tc_gemm (TG_YREAL) by tab, the
+// rows [Wr | -Wi] of the (M, M) pair, 128 outputs per tile, NP parts.
+// Scratch: split, ceil(nouter ncols / 128) ceil(M / 8) slices of NP parts.
+template <int NP>
+cudaError_t dense_real_tc(const float* xr, const float* xi, const void* tab,
+                          float* out, bf16_t* split, int nouter, int M,
+                          int ncols, cudaStream_t stream) {
+  const long long nall = (long long)nouter * ncols;
+  const long long tiles = (nall + TC_COLS - 1) / TC_COLS;
+  const int nks = (M + TC_DR - 1) / TC_DR;
+  if (tiles > INT32_MAX) return cudaErrorInvalidValue;
+  const long long ostride = (long long)M * ncols;
+  const SplitCols sp = {xr,      xi,   nullptr, nullptr, nullptr, split,
+                        nullptr, ostride, nall, M,       ncols,   ncols,
+                        1,       nks};
+  ++g_launches[K_SPLIT];
+  split_cols<NP, float><<<dim3((unsigned)tiles,
+                               (nks + SPLIT_SG - 1) / SPLIT_SG),
+                          128, 0, stream>>>(sp);
+  PMESH_TRY_E(cudaGetLastError());
+  TcGemm g = {};
+  g.tab = (const bf16_t*)tab;
+  g.dat = split;
+  g.o1r = out;
+  g.ostride = ostride;
+  g.nall = nall;
+  g.M = M;
+  g.ncols = ncols;
+  g.T = g.T1 = (M + TC_COLS - 1) / TC_COLS;
+  tg_one_chunk(g, nks);
+  g.scale = 1.f;
+  return launch_tc_gemm<NP, NP, TG_YREAL>(g, tiles, stream);
+}
+
+// the full-spectrum zy inverse of pmesh_zy_inv_full in NP parts: the
+// complex z stage into (sr, si), then the real part of the y stage
+template <int NP>
+cudaError_t zy_inv_full_tc(const float* xr, const float* xi, const void* ty,
+                           const void* tz, float* out, float* sr, float* si,
+                           bf16_t* split, int n0, int N1, int N2,
+                           cudaStream_t stream) {
+  PMESH_TRY_E(z_full_tc<NP>(xr, xi, tz, sr, si, split, (long long)n0 * N1,
+                            N2, stream));
+  return dense_real_tc<NP>(sr, si, ty, out, split, n0, N1, N2, stream);
+}
+
+// the half-CT pass 1 of pmesh_zy_fwd_half_ct in NP parts: the dense z
+// half-DFT into (sr, si) at pitch Zp (z_dense_tc), then the y CT from
+// pitch Zp into (outr, outi) (n0, N1, Zh); the f32 products (NP = 3)
+// chain column 0 after the products
+template <int NP>
+cudaError_t zy_fwd_half_ct_tc(const float* x, const float* wzr,
+                              const float* wzi, const float* wyr,
+                              const float* wyi, const void* tz,
+                              const float* zsum, const void* ty,
+                              const float* ysum, const Butter& bt,
+                              float* outr, float* outi, float* sr, float* si,
+                              bf16_t* split, float* c0, int n0, int N1,
+                              int N2, int Zh, int Zp, int zm, int Ry, int My,
+                              cudaStream_t stream) {
+  const long long rows = (long long)n0 * N1;
+  if (Ry * My != N1) return cudaErrorInvalidValue;
+  PMESH_TRY_E(z_dense_tc<NP>(x, tz, zsum, wzr, wzi, sr, si, split, c0, rows,
+                             N2, Zh, Zp, zm, stream));
+  const long long istride = (long long)N1 * Zp;
+  PMESH_TRY_E((ct_fwd_tc<NP, float, float>(
+      sr, si, ty, nullptr, nullptr, nullptr, outr, outi, nullptr, nullptr,
+      split, ysum, c0, n0, Ry, My, Zh, Zp, istride, 1, 1.f, bt, stream)));
+  if (NP == 1) return cudaSuccess;
+  return launch_col0(sr, si, wyr, wyi, outr, outi, (const float*)nullptr,
+                     (const float*)nullptr, (const float*)nullptr, n0,
+                     (long long)N1 * Zh, My, Ry, Zh, 1.f, bt, stream,
+                     istride, Zp);
+}
+
 // the three forms: bf16 products (one-part tables and data), f32 products
 // on a bf16-stored spectrum (three-part tables, the data one exact part),
 // f32 products
@@ -3278,9 +3071,9 @@ const char* pmesh_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// the launch counts of the kernel kinds (cgemm, cgemm_bf16, tc_ct, tc_z,
-// tc_gemm, split passes, ct_fwd_col0) into out[0 .. n), then zero them
-// when reset is set; returns the number of kinds
+// the launch counts of the kernel kinds (tc_ct, tc_z, tc_gemm, split
+// passes, ct_fwd_col0) into out[0 .. n), then zero them when reset is
+// set; returns the number of kinds
 int pmesh_kernel_launches(long long* out, int n, int reset) {
   for (int k = 0; k < K_KINDS && k < n; ++k) out[k] = g_launches[k];
   if (reset)
@@ -3288,8 +3081,8 @@ int pmesh_kernel_launches(long long* out, int n, int reset) {
   return K_KINDS;
 }
 
-// Every entry point takes bf16 (1: the bf16 products: tc_gemm's one-part
-// form, or cgemm_bf16 in row 13's cgemm passes); the ct2 entry points
+// Every entry point takes bf16 (1: the bf16 products, tc_gemm's one-part
+// form); the ct2 entry points
 // also bf16s (1: the spectra they read or write are stored in bf16, as
 // the void pointers say).
 
@@ -3343,13 +3136,14 @@ int pmesh_zy_fwd_ct2(const float* x, const float* wzr, const float* wzi,
   const Butter bt = make_butter(ycoef, Ry);
   const long long istride = (long long)N1 * Zm;
   if (bf16s)
-    return (int)ct_fwd_tc1<float, bf16_t>(
+    return (int)ct_fwd_tc<1, float, bf16_t>(
         sr, si, ty, nullptr, nullptr, nullptr, (bf16_t*)outr, (bf16_t*)outi,
-        nullptr, nullptr, sp, n0, Ry, My, Zm, Zm, istride, 1, 1.f, bt,
-        stream);
-  return (int)ct_fwd_tc1<float, float>(
+        nullptr, nullptr, sp, nullptr, nullptr, n0, Ry, My, Zm, Zm, istride,
+        1, 1.f, bt, stream);
+  return (int)ct_fwd_tc<1, float, float>(
       sr, si, ty, nullptr, nullptr, nullptr, (float*)outr, (float*)outi,
-      nullptr, nullptr, sp, n0, Ry, My, Zm, Zm, istride, 1, 1.f, bt, stream);
+      nullptr, nullptr, sp, nullptr, nullptr, n0, Ry, My, Zm, Zm, istride, 1,
+      1.f, bt, stream);
 }
 
 // (xr, xi) (N0, n1, W) -> (o1r, o1i) [and (o2r, o2i) when o2r is set]:
@@ -3536,44 +3330,51 @@ int pmesh_zy_inv_half(const float* xr, const float* xi, const void* ty,
 // --- the older pipelines (fft_mxu_ref.py) ---------------------------------
 
 // (xr, xi) (n0, N1, N2) full spectrum -> out (n0, N1, N2), the real part
-// of the inverse z and y DFTs: the complex z product by the (N2, N2) pair
-// (ta, tb) = (Re Wz, -Im Wz) into the scratch (sr, si) (n0, N1, N2), then
-// the real part of the inverse y DFT by (wyr, wyi) (N1, N1).
-int pmesh_zy_inv_full(const float* xr, const float* xi, const float* wyr,
-                      const float* wyi, const float* ta, const float* tb,
-                      float* out, float* sr, float* si, int n0, int N1,
-                      int N2, int bf16, void* stream_) {
+// of the inverse z and y DFTs, on the tensor cores: the complex z
+// product by tz, the stacked block table of the (N2, N2) pair (A, B) =
+// (Re Wz, -Im Wz), into the scratch (sr, si) (n0, N1, N2), then the real
+// part of the inverse y DFT by ty, the real-output block table of the
+// (N1, N1) pair (rows [Wr | -Wi]); three-part tables, one-part for
+// bf16.  Scratch: split (the larger stage's data tiles).
+int pmesh_zy_inv_full(const float* xr, const float* xi, const void* ty,
+                      const void* tz, float* out, float* sr, float* si,
+                      void* split, int n0, int N1, int N2, int bf16,
+                      void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
-  ZFull zop = {xr, xi, ta, tb, sr, si, N2};
-  PMESH_TRY((launch_gemm<ZFull, false, false>(
-      zop, 1, 1, (long long)n0 * N1, N2, N2, false, bf16, stream)));
-  PMESH_TRY(dense_rows_real(sr, si, wyr, wyi, out, n0, N1, N2, bf16, stream));
-  return 0;
+  bf16_t* sp = (bf16_t*)split;
+  if (bf16)
+    return (int)zy_inv_full_tc<1>(xr, xi, ty, tz, out, sr, si, sp, n0, N1,
+                                  N2, stream);
+  return (int)zy_inv_full_tc<3>(xr, xi, ty, tz, out, sr, si, sp, n0, N1, N2,
+                                stream);
 }
 
 // x (n0, N1, N2) real -> (outr, outi) (n0, N1, Zh): the dense z half-DFT
-// by (wzr, wzi) (N2, Zh) into the scratch (sr, si) (n0, N1, Zh), then
-// the y CT by (wyr, wyi) (Ry, My, My) with ycoef b[r][j] of W_R^{-rj}: on
-// cgemm, or for the bf16 products on tc_gemm by ty, the one-part block
-// table, over the data tiles' scratch split.  y leaves chunk-permuted;
-// the z-Nyquist column stays at index Zh - 1.
+// by tz, the block table of the (N2, Zh) pair (wzr, wzi) over its first
+// zm modes (zsum (Zh, 2) its f32 column sums), into the scratch (sr, si)
+// (n0 N1 rows of pitch Zp, a multiple of 4), then the y CT by ty, the
+// block table of the (Ry, My, My) pair (wyr, wyi) (ysum (1, Ry, My, 2)
+// its f32 row sums), ycoef b[r][j] of W_R^{-rj}, on the tensor cores
+// (three-part tables, one-part for bf16).  y leaves chunk-permuted; the
+// z-Nyquist column stays at index Zh - 1.  Scratch: split (the larger of
+// the two stages' data tiles), c0 (max(n0 N1, 2 Ry n0 Zh) f32).
 int pmesh_zy_fwd_half_ct(const float* x, const float* wzr, const float* wzi,
-                         const float* wyr, const float* wyi, const void* ty,
-                         const float* ycoef, float* outr, float* outi,
-                         float* sr, float* si, void* split, int n0, int N1,
-                         int N2, int Zh, int Ry, int My, int bf16,
-                         void* stream_) {
+                         const float* wyr, const float* wyi, const void* tz,
+                         const float* zsum, const void* ty,
+                         const float* ysum, const float* ycoef, float* outr,
+                         float* outi, float* sr, float* si, void* split,
+                         float* c0, int n0, int N1, int N2, int Zh, int Zp,
+                         int zm, int Ry, int My, int bf16, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
-  ZFwdDense zop = {x, wzr, wzi, sr, si, N2, Zh};
-  PMESH_TRY((launch_gemm<ZFwdDense, true, false>(
-      zop, 1, 1, (long long)n0 * N1, Zh, N2, false, bf16, stream)));
+  bf16_t* sp = (bf16_t*)split;
+  const Butter bt = make_butter(ycoef, Ry);
   if (bf16)
-    return (int)ct_fwd_tc1<float, float>(
-        sr, si, ty, nullptr, nullptr, nullptr, outr, outi, nullptr, nullptr,
-        (bf16_t*)split, n0, Ry, My, Zh, Zh, (long long)N1 * Zh, 1, 1.f,
-        make_butter(ycoef, Ry), stream);
-  return (int)y_forward(sr, si, wyr, wyi, ycoef, outr, outi, n0, N1, Zh, Ry,
-                        My, stream);
+    return (int)zy_fwd_half_ct_tc<1>(x, wzr, wzi, wyr, wyi, tz, zsum, ty,
+                                     ysum, bt, outr, outi, sr, si, sp, c0,
+                                     n0, N1, N2, Zh, Zp, zm, Ry, My, stream);
+  return (int)zy_fwd_half_ct_tc<3>(x, wzr, wzi, wyr, wyi, tz, zsum, ty, ysum,
+                                   bt, outr, outi, sr, si, sp, c0, n0, N1, N2,
+                                   Zh, Zp, zm, Ry, My, stream);
 }
 
 }  // extern "C"

@@ -27,7 +27,8 @@ modes of z chunk 0, column 0 of the y and x stages) are then summed
 again from the f32 tables as the plain versions sum them.
 
 The dense forward passes ``zy_fwd_half`` (and ``zy_fwd_full``, its
-row-13 width) and ``x_dense`` run both their forms on ``tc_gemm``: a
+row-13 width, and ``zy_fwd_half_ct``'s z stage) and ``x_dense`` run
+both their forms on ``tc_gemm``: a
 split pass forms each data operand once as pre-split, pre-swizzled
 tiles in a scratch buffer, and the products read those and the tables'
 tiles (``ct_block_table`` at R = 1 with modes and contraction padded,
@@ -48,8 +49,16 @@ of the dual on one split of the spectrum), the z stage as one
 real-output product of the y output's rows (the inverse y butterfly
 formed in its split pass) and the stacked irfft pair [A; B]
 (``z_inv_block_table``; the z-CT's chunks with their P and Q columns),
-the Nyquist plane added in f32.  Row 13's full-spectrum inverse and
-half-CT forward z stage run on the FP32 ``cgemm``.
+the Nyquist plane added in f32.  Row 13's full-spectrum inverse
+``zy_inv_full`` is two real-output products on ``tc_gemm``: the complex
+z stage as one product of [xr | xi] and the stacked table [[A, -B], [B,
+A]] (``z_full_block_table``: zr in the first N2 output columns, zi in
+the rest), the y stage's real part as one product of the rows [Wr |
+-Wi] alone (``y_real_block_table``).  Row 13's half-CT pass 1
+``zy_fwd_half_ct`` runs ``zy_fwd_half``'s z stage, then its y CT
+behind ``split_ct`` (three parts for the f32 products, each chunk's
+first element taken out and column 0 chained, as ``zy_fwd_ct2``'s y
+stage does).
 
 Two forms besides the f32 one, which the kernels take or refuse, never
 swap for another:
@@ -74,7 +83,7 @@ swap for another:
 the kernel's name, with ``_bf16`` for the bf16 products and ``_bf16s``
 for the bf16 storage (both, in that order, when a call uses both).
 ``kernel_launches()`` reads the C side's counts of the device kernels
-those calls launched, by kind (``cgemm``, ``tc_gemm``, ...).
+those calls launched, by kind (``tc_gemm``, ``split``, ...).
 
 The plain PyTorch versions are ``ops/fft_mxu.zy_fwd_ct2_plain``,
 ``xct_multi_plain``, ``zy_inv_ct2_plain``, ``zy_inv_ct2_dual_plain``,
@@ -98,7 +107,7 @@ __all__ = ["zy_fwd_ct2", "xct_multi", "zy_inv_ct2", "zy_inv_ct2_dual",
            "zy_inv_full", "zy_fwd_half_ct", "zy_inv_half_ct", "LAUNCHES",
            "reset_launches", "bf16_split3", "ct_block_table", "z_block_table",
            "zct_block_table", "z_real_block_table", "z_inv_block_table",
-           "z_tc_modes", "tile_swizzle", "table_sums", "KERNEL_KINDS", "kernel_launches"]
+           "z_full_block_table", "y_real_block_table", "z_tc_modes", "tile_swizzle", "table_sums", "KERNEL_KINDS", "kernel_launches"]
 
 # the ct2 passes, which also take bf16 spectrum storage
 _STORAGE = ("zy_fwd_ct2", "xct_multi", "zy_inv_ct2", "zy_inv_ct2_dual")
@@ -139,8 +148,8 @@ def _load():
         lib.pmesh_zy_fwd_half.argtypes = [_P] * 15 + [_I] * 6 + [_I, _P]
         lib.pmesh_x_dense.argtypes = [_P] * 17 + [_I] * 3 + [_F, _I, _I, _P]
         lib.pmesh_zy_inv_half.argtypes = [_P] * 8 + [_I] * 4 + [_I, _P]
-        lib.pmesh_zy_inv_full.argtypes = [_P] * 9 + [_I] * 3 + [_I, _P]
-        lib.pmesh_zy_fwd_half_ct.argtypes = [_P] * 12 + [_I] * 6 + [_I, _P]
+        lib.pmesh_zy_inv_full.argtypes = [_P] * 8 + [_I] * 3 + [_I, _P]
+        lib.pmesh_zy_fwd_half_ct.argtypes = [_P] * 16 + [_I] * 8 + [_I, _P]
         for fn in (lib.pmesh_zy_fwd_ct2, lib.pmesh_xct_multi,
                    lib.pmesh_zy_inv_ct2, lib.pmesh_zy_inv_ct2_dual,
                    lib.pmesh_zy_fwd_half, lib.pmesh_x_dense,
@@ -152,8 +161,7 @@ def _load():
 
 
 # the kernel kinds that csrc/fft_mxu.cu counts at their launches
-KERNEL_KINDS = ("cgemm", "cgemm_bf16", "tc_ct", "tc_z", "tc_gemm", "split",
-                "ct_fwd_col0")
+KERNEL_KINDS = ("tc_ct", "tc_z", "tc_gemm", "split", "ct_fwd_col0")
 
 
 def kernel_launches(reset=False):
@@ -353,6 +361,32 @@ def z_inv_block_table(a, b, parts=3):
     # j, in part, s, k, t, c -> j, t, s, c, in part, k
     big = big.reshape(R, 2, nks, dr, T, 128).transpose(0, 4, 2, 5, 1, 3)
     return _parts(big.reshape(R, T, nks, 128, _BK), parts)
+
+
+def z_full_block_table(a, b, parts=3):
+    """The split table of the full-spectrum z inverse's ``tc_gemm`` for
+    the (N2, N2) pair (A, B) = (Re Wz, -Im Wz): the complex product z =
+    (xr + i xi) Wz as one real product of [xr | xi] and the stacked
+    [[A, -B], [B, A]], i.e. ``z_inv_block_table`` of the (N2, 2 N2) pair
+    ([A | -B], [B | A]): (1, T, nks, parts, 128, 16), T = ceil(2 N2 /
+    128), nks = ceil(N2 / 8); output columns [0, N2) are zr = xr A + xi
+    B, [N2, 2 N2) zi = xi A - xr B"""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return z_inv_block_table(np.concatenate([a, -b], 1),
+                             np.concatenate([b, a], 1), parts)
+
+
+def y_real_block_table(wr, wi, parts=3):
+    """The split table of the real part of a dense complex DFT along y
+    on ``tc_gemm`` (real output rows, data the column operand) for the
+    (M, M) pair (Wr, Wi)[q, m]: the rows [Wr | -Wi] alone, as
+    ``z_inv_block_table`` of (Wr^T, -Wi^T): (1, T, nks, parts, 128, 16),
+    T = ceil(M / 128) tiles of 128 output rows, nks = ceil(M / 8).  Tile
+    t, row r: output q = 128 t + r; slice s, column c: data row m = 8 s +
+    c mod 8, Wr[q, m] for c < 8 (the real data, as ``split_cols`` lays it
+    out), -Wi[q, m] above"""
+    wr, wi = np.asarray(wr, np.float32), np.asarray(wi, np.float32)
+    return z_inv_block_table(wr.T, -wi.T, parts)
 
 
 def tile_swizzle(tab):
@@ -729,6 +763,14 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
+def _z_real_tiles(wz, zm, dev, bf16):
+    """(block table, (Zh, 2) column sums) of the dense z stage for the
+    (N2, Zh) pair ``wz`` over its first zm modes on dev"""
+    return _split_cached(tuple(wz), dev, lambda: (
+        tile_swizzle(z_real_block_table(*wz, zm, _parts_of(bf16))),
+        table_sums([wz], 0)[0]), ('z real', _parts_of(bf16)))
+
+
 def _zy_fwd_dense(what, x, wz, wy, Zh, bf16):
     """the dense z DFT of real (n0, N1, N2) by the (N2, Zh) pair ``wz``,
     then the dense (N1, N1) y DFT by ``wy``: (r, i) (n0, N1, Zh)"""
@@ -737,9 +779,7 @@ def _zy_fwd_dense(what, x, wz, wy, Zh, bf16):
     wzr, wzi = (_table(a, (N2, Zh), dev, what) for a in wz)
     wyr, wyi = (_table(a, (N1, N1), dev, what) for a in wy)
     zm = z_tc_modes(Zh)
-    tz = _split_cached(tuple(wz), dev, lambda: (
-        tile_swizzle(z_real_block_table(*wz, zm, _parts_of(bf16))),
-        table_sums([wz], 0)[0]), ('z real', _parts_of(bf16)))
+    tz = _z_real_tiles(wz, zm, dev, bf16)
     ty = _dense_table([wy], dev, bf16)
     rows = n0 * N1
     Zp = _cdiv(Zh, 4) * 4     # the z scratch's row pitch: 16-byte rows
@@ -850,15 +890,24 @@ def zy_inv_full(rr, ii, wy, AB, bf16=False):
     what = "zy_inv_full"
     n0, N1, N2 = rr.shape
     dev = _check((rr, ii), rr.shape, what)
-    wyr, wyi = (_table(a, (N1, N1), dev, what) for a in wy)
-    ta, tb = (_table(a, (N2, N2), dev, what) for a in AB)
+    for a in wy:
+        _shape(a, (N1, N1), what)
+    for a in AB:
+        _shape(a, (N2, N2), what)
+    parts = _parts_of(bf16)
+    ty = _split_cached(tuple(wy), dev, lambda: (
+        tile_swizzle(y_real_block_table(*wy, parts)), None),
+        ('y real', parts))[0]
+    tz = _split_cached(tuple(AB), dev, lambda: (
+        tile_swizzle(z_full_block_table(*AB, parts)), None),
+        ('z full', parts))[0]
     out = torch.empty((n0, N1, N2), dtype=torch.float32, device=dev)
     sr, si = _empty((n0, N1, N2), dev, 2)
+    split = _zy_inv_scratch(n0, N1, N2, parts, parts, dev)
     _count(what, bf16)
     rc = _load().pmesh_zy_inv_full(
-        _ptr(rr), _ptr(ii), _ptr(wyr), _ptr(wyi), _ptr(ta), _ptr(tb),
-        _ptr(out), _ptr(sr), _ptr(si), n0, N1, N2, int(bool(bf16)),
-        _stream(dev))
+        _ptr(rr), _ptr(ii), _ptr(ty), _ptr(tz), _ptr(out), _ptr(sr),
+        _ptr(si), _ptr(split), n0, N1, N2, int(bool(bf16)), _stream(dev))
     _raise_on(rc, what)
     return out
 
@@ -877,16 +926,23 @@ def zy_fwd_half_ct(x, wz, wy, bf16=False):
     Zh = N2 // 2 + 1
     wzr, wzi = (_table(a, (N2, Zh), dev, what) for a in wz)
     wyr, wyi = (_table(a, (Ry, My, My), dev, what) for a in wy)
-    ty, split = (None, None), None
-    if bf16:
-        ty = _ct_tiles([wy], dev)
-        split = _split_scratch(_cdiv(n0 * Zh, 128) * (N1 // 8), True, dev)
-    outr, outi, sr, si = _empty((n0, N1, Zh), dev, 4)
+    zm = z_tc_modes(Zh)
+    tz = _z_real_tiles(wz, zm, dev, bf16)
+    ty = _ct_tiles([wy], dev, _parts_of(bf16))
+    rows = n0 * N1
+    Zp = _cdiv(Zh, 4) * 4     # the z scratch's row pitch: 16-byte rows
+    outr, outi = _empty((n0, N1, Zh), dev, 2)
+    sr, si = _empty((rows, Zp), dev, 2)
+    split = _split_scratch(max(_cdiv(rows, 128) * _cdiv(N2, _BK),
+                               _cdiv(n0 * Zh, 128) * (N1 // 8)), bf16, dev)
+    c0 = torch.empty(max(rows, 2 * Ry * n0 * Zh), dtype=torch.float32,
+                     device=dev)
     _count(what, bf16)
     rc = _load().pmesh_zy_fwd_half_ct(
-        _ptr(x), _ptr(wzr), _ptr(wzi), _ptr(wyr), _ptr(wyi), _ptr(ty[0]),
-        _host(_coef('fwd', Ry)), _ptr(outr), _ptr(outi), _ptr(sr), _ptr(si),
-        _ptr(split), n0, N1, N2, Zh, Ry, My, int(bool(bf16)), _stream(dev))
+        _ptr(x), _ptr(wzr), _ptr(wzi), _ptr(wyr), _ptr(wyi), _ptr(tz[0]),
+        _ptr(tz[1]), _ptr(ty[0]), _ptr(ty[1]), _host(_coef('fwd', Ry)),
+        _ptr(outr), _ptr(outi), _ptr(sr), _ptr(si), _ptr(split), _ptr(c0),
+        n0, N1, N2, Zh, Zp, zm, Ry, My, int(bool(bf16)), _stream(dev))
     _raise_on(rc, what)
     return outr, outi
 

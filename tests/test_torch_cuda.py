@@ -839,9 +839,10 @@ def test_tc_dense_matches_plain(dev, shape):
 def test_tc_dense_launches_no_cgemm(dev):
     """the three entry points in every form (f32 and bf16 products;
     forward, dual inverse with 1/k^2, row 13's full width, the zy
-    inverse) launch the split passes and tc_gemm, and never cgemm or
-    cgemm_bf16 (the C entry points' counts); one dense spectral force
-    launches exactly its passes' tc_gemm, split and chain kernels"""
+    inverse) launch the split passes and tc_gemm (the C entry points'
+    counts by kind, among which the FP32 cgemm is no more); one dense
+    spectral force launches exactly its passes' tc_gemm, split and chain
+    kernels"""
     from pmesh_tpu_torch import ParticleMesh
     from pmesh_tpu_torch.models.fastpm import Solver
     from pmesh_tpu_torch.ops import fft_mxu as fm
@@ -872,7 +873,7 @@ def test_tc_dense_launches_no_cgemm(dev):
             stages = 2 if name.startswith('zy') else 1
             assert ks['tc_gemm'] == stages and ks['split'] == stages, (
                 name, b, ks)
-            assert ks['cgemm'] == ks['cgemm_bf16'] == 0, (name, b, ks)
+            assert 'cgemm' not in ks and 'cgemm_bf16' not in ks, ks
     pm = ParticleMesh(shape, BoxSize=np.asarray(shape, float), dtype='f4',
                       device=dev)
     disp, _, _ = _inputs(64, shape, (0.0, 1.0), dev)
@@ -882,16 +883,17 @@ def test_tc_dense_launches_no_cgemm(dev):
     # zy_fwd_half: z and y stages; x_dense forward and dual; the three
     # zy_inv_half's y and z stages; the forward y stage and the forward x
     # pass chain column 0
-    assert ks == dict(cgemm=0, cgemm_bf16=0, tc_ct=0, tc_z=0, tc_gemm=10,
-                      split=10, ct_fwd_col0=2), ks
+    assert ks == dict(tc_ct=0, tc_z=0, tc_gemm=10, split=10,
+                      ct_fwd_col0=2), ks
 
 
 def test_tc_ct2_bf16_launches_no_cgemm(dev):
     """the bf16-product forms of xct_multi (forward, inverse, dual
     inverse with 1/k^2), zy_fwd_ct2 (z-CT and dense z stages) and the zy
     inverses (single and dual, dense and z-CT z stages), on f32 and bf16
-    spectra, launch split passes and tc_gemm and no cgemm_bf16 (the C
-    entry points' counts); so does one mxu_bf16 ct2 force"""
+    spectra, launch split passes and tc_gemm alone (the C entry points'
+    counts by kind, among which cgemm_bf16 is no more); so does one
+    mxu_bf16 ct2 force"""
     from pmesh_tpu_torch import ParticleMesh
     from pmesh_tpu_torch.models.fastpm import Solver
     from pmesh_tpu_torch.ops import fft_mxu as fm
@@ -936,9 +938,8 @@ def test_tc_ct2_bf16_launches_no_cgemm(dev):
             fk.kernel_launches(reset=True)
             call(pr.to(st), pi.to(st), st)
             ks = fk.kernel_launches(reset=True)
-            assert ks == dict(cgemm=0, cgemm_bf16=0, tc_ct=0, tc_z=0,
-                              tc_gemm=stages, split=stages,
-                              ct_fwd_col0=0), (name, st, ks)
+            assert ks == dict(tc_ct=0, tc_z=0, tc_gemm=stages,
+                              split=stages, ct_fwd_col0=0), (name, st, ks)
     shape = (256, 256, 16)
     pm = ParticleMesh(shape, BoxSize=np.asarray(shape, float), dtype='f4',
                       device=dev)
@@ -950,8 +951,8 @@ def test_tc_ct2_bf16_launches_no_cgemm(dev):
     # each after its split pass: zy_fwd_ct2's z and y stages, the forward
     # and dual x passes, zy_inv_ct2's y and z stages, its dual's y stage
     # and two z stages
-    assert ks == dict(cgemm=0, cgemm_bf16=0, tc_ct=0, tc_z=0, tc_gemm=9,
-                      split=9, ct_fwd_col0=0), ks
+    assert ks == dict(tc_ct=0, tc_z=0, tc_gemm=9, split=9,
+                      ct_fwd_col0=0), ks
 
 
 # --- the zy inverses on tc_gemm: split y stage, real-output z stage ----------
@@ -1052,7 +1053,8 @@ _CT2_F32_KINDS = dict(tc_ct=3, tc_z=1, tc_gemm=5, split=5, ct_fwd_col0=2)
 def test_tc_forces_launch_no_cgemm(dev, fft, shape, kinds):
     """one spectral force in each fft='mxu' mode, ct2 and dense, launches
     exactly its passes' device kernels (the C entry points' counts by
-    kind) and no cgemm or cgemm_bf16: ct2 f32 products, tc_z and tc_ct
+    kind, among which cgemm and cgemm_bf16 are no more): ct2 f32
+    products, tc_z and tc_ct
     for the forward z, y and x stages and the dual inverse x pass, column
     0 chained after the forward y and x stages, the zy inverses' y stage
     (one for both sets of the dual) and each set's z stage on tc_gemm
@@ -1069,10 +1071,91 @@ def test_tc_forces_launch_no_cgemm(dev, fft, shape, kinds):
     fk.kernel_launches(reset=True)
     solver.force_lattice(disp, (0.0, 1.0), mode='spectral', fft=fft)
     ks = fk.kernel_launches(reset=True)
-    want = dict(cgemm=0, cgemm_bf16=0, tc_ct=0, tc_z=0, tc_gemm=0, split=0,
-                ct_fwd_col0=0)
+    want = dict(tc_ct=0, tc_z=0, tc_gemm=0, split=0, ct_fwd_col0=0)
     want.update(kinds)
     assert ks == want, ks
+
+
+# --- row 13's zy passes on tc_gemm -------------------------------------------
+
+def _zy_full_input(seed, shape, dev):
+    """(re, im) of a density 1 + 0.3 N(0, 1) of ``shape`` transformed
+    over y and z (norm='forward'): a full-spectrum zy inverse's input,
+    its mean in the DC column"""
+    x = 1.0 + 0.3 * _fft_inputs(seed, shape, dev)[0]
+    k = torch.fft.fftn(x, dim=(1, 2), norm='forward')
+    return k.real.contiguous(), k.imag.contiguous()
+
+
+@pytest.mark.parametrize("shape", [(6, 33, 75), (4, 75, 130),
+                                   (3, 130, 33), (16, 256, 16)])
+def test_tc_zy_inv_full_forms_match_plain(dev, shape):
+    """row 13's full-spectrum zy inverse at ragged y and z (N2 = 75: a
+    table tile's column pair straddles zr and zi; N1 = 130: a second,
+    nearly empty tile of output rows) and the slab's zy extents, plain
+    and folded tables, on a spectrum with its mean: f32 products within
+    TOL, bf16 by the zy pass's bf16 criterion"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    from pmesh_tpu_torch.ops import fft_mxu_ref as ref
+    _, N1, n2 = shape
+    rr, ii = _zy_full_input(80, shape, dev)
+    wy, wyg = fm._dft_np(N1, +1), fm._dft_fold_np(N1, _sl(N1))
+    AB = ref._z_inv_full_np(n2)
+    ABg = ref._z_inv_full_np(n2, _sl(n2))
+    for tabs in ((wy, AB), (wyg, AB), (wy, ABg)):
+        g, r = (ref._zy_inv_full_call(rr, ii, *tabs, impl=impl)
+                for impl in ('cuda', 'torch'))
+        assert _rel(g, r) <= TOL
+        _assert_bf16_close(_products(
+            lambda impl, **k: (ref._zy_inv_full_call(rr, ii, *tabs,
+                                                     impl=impl, **k),)), ZY)
+
+
+@pytest.mark.parametrize("shape", [(4, 256, 30), (2, 512, 75),
+                                   (2, 1024, 33), (16, 256, 16)])
+def test_tc_zy_fwd_half_ct_forms_match_plain(dev, shape):
+    """row 13's half-CT pass 1 on a mesh with a mean at y radices 2, 4
+    and 8, ragged z (Zh = 16, 38, 17: scratch rows padded to 16 bytes)
+    and the slab's zy extents: f32 products (three-part split_ct, column
+    0 chained) within TOL, bf16 by the zy pass's bf16 criterion"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    from pmesh_tpu_torch.ops import fft_mxu_ref as ref
+    _, N1, n2 = shape
+    x = (1.0 + 0.3 * _fft_inputs(81, shape, dev)[0]).contiguous()
+    wz = fm._dft_half_np(n2, n2 // 2 + 1)
+    wy = fm._ct_fwd_mats_np(N1)
+    got, want = (ref._zy_fwd_half_ct_call(x, wz, wy, impl=impl)
+                 for impl in ('cuda', 'torch'))
+    for g, r in zip(got, want):
+        assert _rel(g, r) <= TOL
+    _assert_bf16_close(_products(
+        lambda impl, **k: ref._zy_fwd_half_ct_call(x, wz, wy, impl=impl,
+                                                   **k)), ZY)
+
+
+def test_tc_row13_zy_launch_kinds(dev):
+    """zy_inv_full and zy_fwd_half_ct in both forms launch a split pass
+    and tc_gemm per stage and nothing else but, for the f32 half-CT
+    forward, the y stage's column-0 chain (the C entry points' counts by
+    kind)"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    from pmesh_tpu_torch.ops import fft_mxu_cuda as fk
+    from pmesh_tpu_torch.ops import fft_mxu_ref as ref
+    shape = (4, 256, 30)
+    _, N1, n2 = shape
+    x = (1.0 + 0.3 * _fft_inputs(82, shape, dev)[0]).contiguous()
+    rr, ii = _zy_full_input(83, shape, dev)
+    for b in (False, True):
+        fk.kernel_launches(reset=True)
+        fk.zy_inv_full(rr, ii, fm._dft_np(N1, +1), ref._z_inv_full_np(n2),
+                       bf16=b)
+        assert fk.kernel_launches(reset=True) == dict(
+            tc_ct=0, tc_z=0, tc_gemm=2, split=2, ct_fwd_col0=0), b
+        fk.zy_fwd_half_ct(x, fm._dft_half_np(n2, n2 // 2 + 1),
+                          fm._ct_fwd_mats_np(N1), bf16=b)
+        assert fk.kernel_launches(reset=True) == dict(
+            tc_ct=0, tc_z=0, tc_gemm=2, split=2,
+            ct_fwd_col0=0 if b else 1), b
 
 
 # --- the row-13 pipelines (ops/fft_mxu_ref.py) on the kernels ----------------

@@ -43,7 +43,18 @@ z stage reads split_zinv's tiles (the inverse y butterfly fused in).
   the plain zy_inv_ct2 (with the Nyquist plane), its dual and
   zy_inv_half against the JAX package's kernels at Precision('default')
   on 1/k^2-filtered spectra, a chain of two rounded products, by the
-  chained criterion.
+  chained criterion;
+- row 13's two zy passes as the kernels run them in the bf16 form:
+  zy_inv_full's z stage as one real product of split_zinv's rounded
+  [xr | xi] tiles and the one-part stacked table (z_full_block_table),
+  its z output rounded once into split_cols' tiles times the one-part
+  rows [Wr | -Wi] (y_real_block_table), 128 real outputs per table
+  tile; zy_fwd_half_ct's z stage on rounded operands, then the y CT as
+  above; patched into zy_inv_full_plain and zy_fwd_half_ct_plain, the
+  entry points fft3_real_inverse (grad 2), fft3_real_inverse_grad3 at
+  (8, 16, 32) and fft3_real_forward_half_ct at the slab against the JAX
+  package's at Precision('default') under tpu_rounding, by the chained
+  criterion.
 
 The tensor cores' own sum order is the card's part (tests/test_torch_
 cuda.py, chip_smoke.py).
@@ -61,6 +72,7 @@ from pmesh_tpu.ops import fft_mxu as jfm
 from pmesh_tpu.ops import fft_mxu_ref as jref
 from pmesh_tpu_torch.ops import fft_mxu as fm
 from pmesh_tpu_torch.ops import fft_mxu_cuda as fk
+from pmesh_tpu_torch.ops import fft_mxu_ref as ref
 
 torch.set_num_threads(1)
 
@@ -829,3 +841,91 @@ def test_zy_inv_half_kernel_path_matches_jax(shape, zy_inv_kernel_path,
                                        torch.from_numpy(ii), wy, AB, **kw),)
                 for kw in (dict(precision='bf16'), {}))
     _chain(ref, got, f32)
+
+
+# --- row 13's zy passes in the bf16 form ----------------------------------------
+
+def emu_y_real(zr, zi, wr, wi):
+    """tc_gemm's real-output y stage (bf16) of (n, C) columns: split_cols'
+    one-part tiles of (zr, zi), rounded, times the swizzled one-part
+    y_real_block_table of the (n, n) pair, 128 output rows per table
+    tile, the slices' products summed in f32"""
+    n, C = zr.shape
+    nks = -(-n // 8)
+    pad = [torch.nn.functional.pad(_rb(t), (0, 0, 0, nks * 8 - n))
+           for t in (zr, zi)]
+    dat = _col_tiles([tuple(pad)], nks * 8, C)
+    tab = table(fk.y_real_block_table(wr.numpy(), wi.numpy(), 1))
+    tab = swizzle(tab[0, :, :, 0])
+    out = torch.einsum('tsrk,xsck->trxc', tab, swizzle(dat))
+    return out.reshape(tab.shape[0] * 128, -1)[:n, :C]
+
+
+def emu_zy_inv_full(rr, ii, wy, AB):
+    """zy_inv_full (bf16) of (n0, N1, N2) as the kernels run it: the z
+    stage as one real product of the rounded [xr | xi] and the stacked
+    one-part table ([A | -B], [B | A] as z_inv_block_table's pair: zr,
+    then zi), then the real-output y stage of the z output"""
+    n0, N1, N2 = rr.shape
+    A, B = (fm._t(a, rr) for a in AB)
+    z = emu_z_inv(rr, ii, torch.cat([A, -B], 1), torch.cat([B, A], 1))
+    cols = [t.permute(1, 0, 2).reshape(N1, n0 * N2)
+            for t in (z[..., :N2], z[..., N2:])]
+    out = emu_y_real(*cols, *(fm._t(a, rr) for a in wy))
+    return out.reshape(N1, n0, N2).permute(1, 0, 2)
+
+
+@pytest.fixture
+def row13_kernel_path(monkeypatch):
+    """the plain row-13 zy passes with the emulated data path in their
+    bf16 form: zy_inv_full's two real products (emu_zy_inv_full), and
+    zy_fwd_half_ct's z stage on rounded operands before the emulated y
+    CT (emu_ct_fwd)"""
+    inv, fwd = ref.zy_inv_full_plain, ref.zy_fwd_half_ct_plain
+
+    def zy_inv_full(rr, ii, wy, AB, bf16=False):
+        if not bf16:
+            return inv(rr, ii, wy, AB, bf16)
+        return emu_zy_inv_full(rr.float(), ii.float(), wy, AB)
+
+    def zy_fwd_half_ct(x, wz, wy, bf16=False):
+        if not bf16:
+            return fwd(x, wz, wy, bf16)
+        p = x.float()
+        z = [fm._mm(p, fm._t(a, p), True) for a in wz]
+        return emu_ct_fwd(*z, *(fm._t(a, p) for a in wy))
+    monkeypatch.setattr(ref, 'zy_inv_full_plain', zy_inv_full)
+    monkeypatch.setattr(ref, 'zy_fwd_half_ct_plain', zy_fwd_half_ct)
+
+
+def test_zy_inv_full_kernel_path_matches_jax(row13_kernel_path,
+                                             tpu_rounding):
+    """the full-spectrum inverse with i k_z and the force triple of the
+    spectrum of a mesh with a mean at (8, 16, 32)"""
+    shape = (8, 16, 32)
+    x = _mean_one(shape, 9)
+    kv = tuple(_sl(n) for n in shape)
+    spec = jref.fft3_real_forward(jnp.asarray(x.numpy()), precision='bf16')
+    r, i = (torch.from_numpy(np.array(a)) for a in spec)
+    kw = dict(grad=2, kvec=kv[2])
+    ref_ = (jref.fft3_real_inverse(*spec, precision='bf16', **kw),)
+    got = (ref.fft3_real_inverse(r, i, precision='bf16', **kw),)
+    _chain(ref_, got, (ref.fft3_real_inverse(r, i, **kw),))
+    _chain(jref.fft3_real_inverse_grad3(*spec, kvecs=kv, precision='bf16'),
+           ref.fft3_real_inverse_grad3(r, i, kvecs=kv, precision='bf16'),
+           ref.fft3_real_inverse_grad3(r, i, kvecs=kv))
+
+
+def test_zy_fwd_half_ct_kernel_path_matches_jax(row13_kernel_path,
+                                                tpu_rounding):
+    """the first-CT forward of a mesh with a mean at the slab"""
+    key = 'bx:%dx%dx%d' % (SLAB[0], SLAB[1], SLAB[2] // 2 + 1)
+    x = _mean_one(SLAB, 10)
+    jfm.TUNE[key] = 2
+    try:
+        want = jref.fft3_real_forward_half_ct(jnp.asarray(x.numpy()),
+                                              precision='bf16')
+    finally:
+        jfm.TUNE.pop(key, None)
+    _chain(want, ref.fft3_real_forward_half_ct(x, precision='bf16'),
+           ref.fft3_real_forward_half_ct(x))

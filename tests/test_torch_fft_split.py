@@ -21,7 +21,12 @@ the leading one.  Here:
   of 8 complex k, 128 output columns per tile, the z-CT's P and Q
   columns per chunk) at Zh = 38, 193 and 257, the stored-order ct2
   table at Zm = 256 and the z-CT at n2 = 1024, three parts and one, is
-  bf16_split3 of the padded stacked matrix and gives yr A + yi B;
+  bf16_split3 of the padded stacked matrix and gives yr A + yi B; row
+  13's full-spectrum inverse tables at N = 33, 75 and 512, three parts
+  and one: the stacked complex z table [[A, -B]; [B, A]]
+  (z_full_block_table, zr and zi in one product's columns) and the real
+  output y table of the rows [Wr | -Wi] (y_real_block_table), each
+  bf16_split3 of the padded matrix and zero in the padding;
 - a plain-torch emulation of the split product, kept in this file (not a
   mode of the package), patched into the plain passes where the kernels
   run it (the f32 forms of zy_fwd_ct2, xct_multi, zy_fwd_half and
@@ -41,24 +46,39 @@ the leading one.  Here:
   1/k^2-filtered spectra, at (8, 256, 16) and (8, 32, 32) (the y and
   z extents of SHAPES: the zy passes work per x-plane) against
   _zy_inv_ct2_call / _zy_inv_ct2_call_dual and at (16, 16, 16) and
-  (24, 20, 15) against _zy_inv_half_call.  The emulation sums the six products in f32 on the CPU; the tensor
+  (24, 20, 15) against _zy_inv_half_call.  Row 13's two zy passes as
+  the kernels run them (the full inverse's z stage as one real product
+  of [xr | xi] and the stacked table, its y stage as one real-output
+  product; the half-CT forward's dense z stage with each row's first
+  value taken out and the modes [0, 8) and past the last whole tile
+  summed as plain sums them, its y CT with each chunk's first element
+  taken out and column 0 as plain), patched into zy_inv_full_plain and
+  zy_fwd_half_ct_plain: fft3_real_inverse (grad None and 2) and
+  fft3_real_inverse_grad3 at (8, 32, 32) and (6, 10, 14), and
+  fft3_real_forward_half_ct at (256, 256, 16), against the JAX
+  package's entry points in interpret mode within 3e-6 of max.  The
+  emulation sums the six products in f32 on the CPU; the tensor
   cores' truncating sums are the card's part (tests/test_torch_cuda.py,
   chip_smoke.py).
 """
 import inspect
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from pmesh_tpu import ParticleMesh as JaxPM
 from pmesh_tpu.models import fastpm as jfastpm
 from pmesh_tpu.ops import fft_mxu as jfm
+from pmesh_tpu.ops import fft_mxu_ref as jref
 from pmesh_tpu_torch import convert
 from pmesh_tpu_torch.models import fastpm as tfastpm
 from pmesh_tpu_torch.ops import fft_mxu as fm
 from pmesh_tpu_torch.ops import fft_mxu_cuda as fk
+from pmesh_tpu_torch.ops import fft_mxu_ref as ref
 
 torch.set_num_threads(1)
 
@@ -296,6 +316,58 @@ def test_z_inv_block_table_layout(case, parts):
                                      1)
             np.testing.assert_allclose(out[:, :width], ref,
                                        atol=1e-9 * np.abs(ref).max())
+
+
+def _padded_layout(tab, big, parts):
+    """tab (1, T, nks, parts, 128, 16) of a real-output table is
+    bf16_split3 of ``big`` (in part, k, output) padded to (2, nks 8, T
+    128), zero in the padding beyond ``used`` (the same shape, True where
+    a matrix entry sits)"""
+    _, T, nks = tab.shape[:3]
+    assert tab.shape == (1, T, nks, parts, 128, 16)
+    assert tab.dtype == np.uint16
+    want = np.stack(fk.bf16_split3(big)[:parts], 0)   # h, in, k, out
+    # t, s, h, c, (in, k8) -> h, in, (s, k8), (t, c)
+    got = tab[0].reshape(T, nks, parts, 128, 2, 8).transpose(
+        2, 4, 1, 5, 0, 3).reshape(want.shape)
+    np.testing.assert_array_equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("n", [33, 75, 512])
+@pytest.mark.parametrize("parts", [3, 1])
+def test_z_full_block_table_layout(n, parts):
+    """row 13's full z inverse: z_full_block_table of (A, B) = (Re Wz,
+    -Im Wz) is bf16_split3 of the stacked [[A, -B]; [B, A]] (data k re |
+    im down, 2 n output columns across: zr = xr A + xi B, then zi = xi A
+    - xr B) padded to whole slices and 128-column tiles, zero in the
+    padding"""
+    A, B = ref._z_inv_full_np(n, _kvec(n))
+    T, nks = -(-2 * n // 128), -(-n // 8)
+    big = np.zeros((2, nks * 8, T * 128), np.float32)
+    big[0, :n, :n], big[0, :n, n:2 * n] = A, -B
+    big[1, :n, :n], big[1, :n, n:2 * n] = B, A
+    got = _padded_layout(fk.z_full_block_table(A, B, parts), big, parts)
+    pad = np.ones(big.shape, bool)
+    pad[:, :n, :2 * n] = False
+    assert not got[:, pad].any()
+
+
+@pytest.mark.parametrize("n", [33, 75, 512])
+@pytest.mark.parametrize("parts", [3, 1])
+def test_y_real_block_table_layout(n, parts):
+    """row 13's full inverse y stage: y_real_block_table of (Wr, Wi) is
+    bf16_split3 of the rows [Wr | -Wi] (data row m re | im down, output
+    q across) padded to whole slices and 128-row tiles, zero in the
+    padding"""
+    wr, wi = fm._dft_fold_np(n, _kvec(n))
+    T, nks = -(-n // 128), -(-n // 8)
+    big = np.zeros((2, nks * 8, T * 128), np.float32)
+    big[0, :n, :n], big[1, :n, :n] = wr.T, -wi.T
+    got = _padded_layout(fk.y_real_block_table(wr, wi, parts), big, parts)
+    pad = np.ones(big.shape, bool)
+    pad[:, :n, :n] = False
+    assert not got[:, pad].any()
 
 
 # --- the emulated split product through the plain passes -----------------------
@@ -548,3 +620,153 @@ def test_zy_inv_half_split_matches_jax(shape, tables, split_products):
     got = fm._zy_inv_dense_call(torch.from_numpy(rr), torch.from_numpy(ii),
                                 wy, AB)
     assert _rel(ref, got) <= TOL_PASS
+
+
+# --- row 13's zy passes as the kernels run them ---------------------------------
+
+def emu_zy_inv_full(rr, ii, wy, AB):
+    """zy_inv_full's f32 data path: the z stage as ONE split product of
+    the rows [xr | xi] and the stacked [[A, -B]; [B, A]] (zr, then zi),
+    the y stage as ONE split product of the rows [Wr | -Wi] and [zr;
+    zi], per x-plane"""
+    n0, N1, N2 = rr.shape
+    A, B = (fm._t(a, rr) for a in AB)
+    wr, wi = (fm._t(a, rr) for a in wy)
+    z = split_mm(torch.cat([rr, ii], -1).reshape(n0 * N1, 2 * N2),
+                 torch.cat([torch.cat([A, -B], 1), torch.cat([B, A], 1)], 0))
+    z = z.reshape(n0, N1, 2 * N2)
+    rows = torch.cat([wr, -wi], 1)
+    return torch.stack([split_mm(rows, torch.cat([z[o, :, :N2],
+                                                  z[o, :, N2:]], 0))
+                        for o in range(n0)])
+
+
+def emu_zy_fwd_half_ct(x, wz, wy):
+    """zy_fwd_half_ct's f32 data path: the dense z stage with each row's
+    first value taken out of the split products and added back through
+    the table's column sums, the modes [0, 8) and those past the last
+    whole 64-mode tile summed as plain sums them (split_rows' chains);
+    then each y chunk's butterfly (the plain terms), its first element
+    taken out and added back through the row sums, the chunk's complex
+    product as one split product of the block table, column 0 as plain
+    (ct_fwd_col0)"""
+    p = x.float()
+    er, ei = (fm._t(a, p) for a in wz)
+    Zh = er.shape[1]
+    zm = fk.z_tc_modes(Zh)
+    c0 = p[..., :1]
+    sums = fk.table_sums([wz], 0)[0]
+    z = [split_mm(p - c0, e) + c0 * fm._t(sums[:, h], p)
+         for h, e in enumerate((er, ei))]
+    chained = list(range(min(8, zm))) + list(range(zm, Zh))
+    for h, e in enumerate((er, ei)):
+        z[h][..., chained] = torch.matmul(p, e[:, chained])
+    wr, wi = (fm._t(a, p) for a in wy)
+    R, M = wr.shape[:2]
+    Bt = fm._butter(R, -1)
+    rsum = fk.table_sums([wy], 2)[0]
+    xs = [(z[0][..., r * M:(r + 1) * M, :], z[1][..., r * M:(r + 1) * M, :])
+          for r in range(R)]
+    outs = ([], [])
+    for j in range(R):
+        acc = (None, None)
+        for r in range(R):
+            acc = fm._cmadd(acc, xs[r][0], xs[r][1], Bt[r, j])
+        ur, ui = acc
+        cr, ci = ur[..., :1, :], ui[..., :1, :]
+        u = torch.cat([ur - cr, ui - ci], -2)
+        sr, si = (fm._t(rsum[j, :, h], p)[:, None] for h in (0, 1))
+        outs[0].append(split_mm(torch.cat([wr[j], -wi[j]], 1), u)
+                       + cr * sr - ci * si)
+        outs[1].append(split_mm(torch.cat([wi[j], wr[j]], 1), u)
+                       + cr * si + ci * sr)
+    out = [torch.cat(o, -2) for o in outs]
+    col0 = fm._ct_fwd_plain(z[0][..., :1], z[1][..., :1], wr, wi)
+    for o, c in zip(out, col0):
+        o[..., :1] = c
+    return tuple(out)
+
+
+@pytest.fixture
+def row13_kernel_path(monkeypatch, split_products):
+    """the plain row-13 zy passes with the kernels' f32 data path in
+    their f32 form (and the x passes' split products)"""
+    inv, fwd = ref.zy_inv_full_plain, ref.zy_fwd_half_ct_plain
+
+    def zy_inv_full(rr, ii, wy, AB, bf16=False):
+        if bf16:
+            return inv(rr, ii, wy, AB, bf16)
+        return emu_zy_inv_full(rr.float(), ii.float(), wy, AB)
+
+    def zy_fwd_half_ct(x, wz, wy, bf16=False):
+        if bf16:
+            return fwd(x, wz, wy, bf16)
+        return emu_zy_fwd_half_ct(x, wz, wy)
+    monkeypatch.setattr(ref, 'zy_inv_full_plain', zy_inv_full)
+    monkeypatch.setattr(ref, 'zy_fwd_half_ct_plain', zy_fwd_half_ct)
+
+
+@pytest.mark.parametrize("shape", [(8, 32, 32), (6, 10, 14)])
+def test_zy_inv_full_kernel_path_matches_jax(shape, row13_kernel_path):
+    """the full-spectrum inverses (grad None and 2, the force triple) of
+    the spectrum of a mesh with a mean, through the emulated z and y
+    products"""
+    x = _mean_one(shape)
+    jr, ji = jref.fft3_real_forward(jnp.asarray(x))
+    tr, ti = (torch.from_numpy(np.array(a)) for a in (jr, ji))
+    kv = tuple(_kvec(n) for n in shape)
+    for grad in (None, 2):
+        kw = {} if grad is None else dict(grad=grad, kvec=kv[grad])
+        assert _rel(jref.fft3_real_inverse(jr, ji, **kw),
+                    ref.fft3_real_inverse(tr, ti, **kw)) <= TOL_PASS
+    want = jref.fft3_real_inverse_grad3(jr, ji, kvecs=kv)
+    got = ref.fft3_real_inverse_grad3(tr, ti, kvecs=kv)
+    for w, g in zip(want, got):
+        assert _rel(w, g) <= TOL_PASS
+
+
+def _jax_zy_fwd_half_ct(x):
+    """the JAX package's half-CT pass-1 kernel (_zy_forward_real_h_ct)
+    in interpret mode, wired as fft3_real_forward_half_ct wires it, 2
+    x-planes a block"""
+    n0, N1, N2 = x.shape
+    Zh = N2 // 2 + 1
+    Ry, My = fm._ct_factor(N1)
+    tabs = fm._dft_half_np(N2, Zh) + fm._ct_fwd_mats_np(N1)
+    out = jax.ShapeDtypeStruct((n0, N1, Zh), jnp.float32)
+    return pl.pallas_call(
+        jref._zy_forward_real_h_ct(2, N1, N2, Zh, None), grid=(n0 // 2,),
+        in_specs=[jref._xplane_spec(N1, N2, 2), jref._full_spec((N2, Zh)),
+                  jref._full_spec((N2, Zh)), jref._full_spec((Ry, My, My)),
+                  jref._full_spec((Ry, My, My))],
+        out_specs=(jref._xplane_spec(N1, Zh, 2),) * 2,
+        out_shape=(out, out), compiler_params=jref._params(),
+        interpret=jref._interpret())(jnp.asarray(x),
+                                     *map(jnp.asarray, tabs))
+
+
+def test_zy_fwd_half_ct_kernel_path_matches_jax(row13_kernel_path):
+    """the half-CT pass 1 through the emulated z and y stages: alone, on
+    a mesh with a mean at the slab's zy extents (8, 256, 16), against the
+    JAX kernel; and the first-CT forward of N(0, 1) at (256, 256, 16) (R
+    = 2 along x and y) against fft3_real_forward_half_ct.  (With a mean,
+    the port's plain f32 forward itself is 3.5e-5 of max from JAX's at
+    the x pass's kx line of the mean's column, a sum the kernels chain as
+    the port's plain version does.)"""
+    x = _mean_one((8, 256, 16))
+    got = ref._zy_fwd_half_ct_call(torch.from_numpy(x),
+                                   fm._dft_half_np(16, 9),
+                                   fm._ct_fwd_mats_np(256))
+    for w, g in zip(_jax_zy_fwd_half_ct(x), got):
+        assert _rel(w, g) <= TOL_PASS
+    shape = (256, 256, 16)
+    key = 'bx:%dx%dx%d' % (shape[0], shape[1], shape[2] // 2 + 1)
+    jfm.TUNE[key] = 2
+    try:
+        x = np.random.RandomState(2).normal(size=shape).astype('f4')
+        want = jref.fft3_real_forward_half_ct(jnp.asarray(x))
+    finally:
+        jfm.TUNE.pop(key, None)
+    got = ref.fft3_real_forward_half_ct(torch.from_numpy(x))
+    for w, g in zip(want, got):
+        assert _rel(w, g) <= TOL_PASS
