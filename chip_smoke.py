@@ -153,12 +153,16 @@ SEED = 42
 TOL_KERNEL = 1e-5       # max|kernel - plain| / max|plain|
 TOL_MASS = 1e-5
 TOL_SMALL = 1e-4        # 32^3 card vs CPU, of max|S| (binned: max|rho|)
-# the binned rebase: drift bounds, output slots (the first is the
-# main path's)
-REBASE_CASES = (((-0.5, 1.5), 2), ((-0.5, 1.5), 3), ((-1.0, 2.0), 3))
 # the clustered binned state (the caustic flow of bench.py's
 # measure_binned_clustered) and the timed one (measure_binned)
 NC, CAUSTIC_AX, CAUSTIC_LAM = 384, 1.6, 8
+# the binned rebase: drift bounds, fill per input slot, output slots,
+# mesh size (the first is the main path's, the last the clustered
+# path's K = 4 -> 4 at NC^3)
+REBASE_CASES = (((-0.5, 1.5), (1.0, 0.25), 2, N),
+                ((-0.5, 1.5), (1.0, 0.25), 3, N),
+                ((-1.0, 2.0), (1.0, 0.25), 3, N),
+                ((-0.5, 1.5), (1.0, 0.25, 0.1, 0.05), 4, NC))
 BINNED_KW = dict(nslots=2, rebase_every=2, step_drift=0.25, fft='xla')
 CLUSTERED_KW = dict(BINNED_KW, fft='mxu')
 CLUSTERED_STEPS = [0.5, 0.52, 0.54]    # 2 KDK steps, 3 forces
@@ -2452,22 +2456,21 @@ def phase_small(dev, shape=(32,) * 3, box=64.0, fft='xla'):
                              % (shape, fft))
 
 
-def rebase_state(dev, gen, n, drift):
-    """A K = 2 binned state at n^3 made the way bench.py's
-    measure_binned makes it (displacements in [0.05, 0.95), velocities
-    0.02 N(0, 1)), plus a drift uniform in [-drift, drift) and a second
-    slot a quarter full."""
+def rebase_state(dev, gen, n, drift, fill=(1.0, 0.25)):
+    """A binned state at n^3 made the way bench.py's measure_binned
+    makes it (displacements in [0.05, 0.95), velocities 0.02 N(0, 1)),
+    plus a drift uniform in [-drift, drift); slot k a fraction fill[k]
+    full (the default: K = 2, the second slot a quarter full)."""
     shape = (n,) * 3
 
     def uni(lo, hi):
         return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
     dslots = tuple(tuple(uni(0.05, 0.95) + uni(-drift, drift)
-                         for _ in range(3)) for _ in range(2))
-    valid = (torch.ones(shape, device=dev),
-             (uni(0.0, 1.0) < 0.25).float())
+                         for _ in range(3)) for _ in fill)
+    valid = tuple((uni(0.0, 1.0) < f).float() for f in fill)
     vslots = tuple(tuple(0.02 * torch.randn(shape, generator=gen,
                                             device=dev) for _ in range(3))
-                   for _ in range(2))
+                   for _ in fill)
     return dslots, vslots, valid
 
 
@@ -2486,17 +2489,18 @@ def bitwise_equal(got, ref):
     return torch.equal(got, ref)
 
 
-def phase_compare_rebase(dev, n=N):
-    """rebase assign and apply, kernel vs plain at n^3: bitwise; returns
-    {kernel: record} of the first case (the main path's bounds)"""
+def phase_compare_rebase(dev, cases=REBASE_CASES):
+    """rebase assign and apply, kernel vs plain for each of REBASE_CASES:
+    bitwise; returns {kernel: record} of the first case (the main
+    path's)"""
     from pmesh_tpu_torch.ops import binned as bn
     from pmesh_tpu_torch.ops import binned_cuda
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     records = {}
-    for bounds, kout in REBASE_CASES:
+    for bounds, fill, kout, n in cases:
         # keep the displacements inside the bounds: [lo, hi)
         drift = min(0.05 - bounds[0], bounds[1] - 0.95)
-        dslots, vslots, valid = rebase_state(dev, gen, n, drift)
+        dslots, vslots, valid = rebase_state(dev, gen, n, drift, fill)
         offsets = bn._drift_offsets(bounds, 3)
         lo, hi = offsets[0][0], offsets[-1][0]
 
@@ -2522,11 +2526,12 @@ def phase_compare_rebase(dev, n=N):
         plain_ms = dict(
             rebase_assign=cuda_ms(lambda: assign('torch'), 1),
             rebase_apply=cuda_ms(lambda: apply('torch', got[2]), 1))
-        log("phase 3 compare: rebase %d^3 K=2->%d bounds=%s offsets %d..%d"
-            " overflow kernel %d plain %d, bitwise %s, max|k-p| assign %g "
-            "apply %g  assign kernel %.3f ms plain %.3f ms, apply kernel "
-            "%.3f ms plain %.3f ms"
-            % (n, kout, bounds, lo, hi, int(got[3]), int(plain[3]),
+        log("phase 3 compare: rebase %d^3 K=%d->%d bounds=%s offsets "
+            "%d..%d overflow kernel %d plain %d, bitwise %s, max|k-p| "
+            "assign %g apply %g  assign kernel %.3f ms plain %.3f ms, apply "
+            "kernel %.3f ms plain %.3f ms"
+            % (n, len(fill), kout, bounds, lo, hi, int(got[3]),
+               int(plain[3]),
                "equal" if same else "DIFFERENT", err['rebase_assign'],
                err['rebase_apply'], ms['rebase_assign'],
                plain_ms['rebase_assign'], ms['rebase_apply'],
@@ -2678,7 +2683,7 @@ def clustered_superstep(solver, dslots, vslots, valid, fft):
 FAMILIES = (
     ("readout_staged", "readout_lattice"),
     ("paint_staged", "paint_lattice"),
-    ("rebase_assign", "rebase_assign"),
+    ("assign_staged", "rebase_assign"),
     ("rebase_apply", "rebase_apply"),
     ("tc_gemm", "DFT products: tensor cores (tc_gemm)"),
     ("split_", "DFT split passes"),
@@ -3048,7 +3053,7 @@ def phase_compare_slab(dev):
     torch.cuda.empty_cache()
 
     # the x-halo rebase: the main path's drift bounds, K = 2 -> 2
-    bounds, kout = REBASE_CASES[0]
+    bounds, _, kout, _ = REBASE_CASES[0]
     drift = min(0.05 - bounds[0], bounds[1] - 0.95)
     dslots, vslots, valid = rebase_state(dev, gen, N, drift)
     offsets = bn._drift_offsets(bounds, 3)

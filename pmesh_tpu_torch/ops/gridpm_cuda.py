@@ -104,6 +104,17 @@ def _ceil(a, b):
     return -(-a // b)
 
 
+def planes_per_block(n0, tiles):
+    """the x planes each block of a staged launch walks, over n0 planes
+    and ``tiles`` y-z tiles: at most XC_MAX, halved while the launch has
+    fewer than MIN_BLOCKS blocks and more than XC_MIN planes (the rebase
+    assign, ops/binned_cuda.plan, takes the same rule)"""
+    xc = min(n0, XC_MAX)
+    while xc > XC_MIN and tiles * _ceil(n0, xc) < MIN_BLOCKS:
+        xc = _ceil(xc, 2)
+    return xc
+
+
 def plan(op, shape, nv, nmesh=1, mass=False):
     """The launch plan of a lattice kernel, as ``csrc/gridpm.cu`` takes it.
 
@@ -136,10 +147,7 @@ def plan(op, shape, nv, nmesh=1, mass=False):
         table = (3 * nv + int(bool(mass))) * region
         depth, nbuf = None, 2 if 2 * table <= SMEM_LIMIT else 1
         smem = nbuf * table
-    tiles = _ceil(n1, ty) * _ceil(n2, TILE_Z)
-    xc = min(n0, XC_MAX)
-    while xc > XC_MIN and tiles * _ceil(n0, xc) < MIN_BLOCKS:
-        xc = _ceil(xc, 2)
+    xc = planes_per_block(n0, _ceil(n1, ty) * _ceil(n2, TILE_Z))
     return dict(width=nv if nv in NV_COMPILED else None, tile=(ty, TILE_Z),
                 xc=xc, depth=depth, nbuf=nbuf, smem=smem)
 

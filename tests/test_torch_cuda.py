@@ -276,10 +276,17 @@ REBASE_CASES = {
     'overflow': ((-0.9, 1.9), (0.6, 0.4), 1),   # Kout < occupancy
     'escape': ((-0.5, 1.5), (0.5, 0.2), 3),
     'offsets_-2_2': ((-1.6, 2.6), (0.3, 0.2), 4),
+    # the clustered path's K = 4 -> 4
+    'k4': ((-0.5, 1.5), (1.0, 0.5, 0.3, 0.1), 4),
+    # the most slots the kernel takes
+    'k16': ((-0.5, 1.5), (0.6,) + (0.15,) * 15, 16),
+    'k1_offsets_-2_2': ((-1.6, 2.6), (0.8,), 2),
 }
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 4), (5, 8, 130), (64, 64, 64)])
+# (7, 37, 45): n1 and n2 not multiples of the assign's 8 x 32 tile
+@pytest.mark.parametrize("shape", [(2, 3, 4), (5, 8, 130), (64, 64, 64),
+                                   (7, 37, 45)])
 @pytest.mark.parametrize("case", sorted(REBASE_CASES))
 def test_rebase_kernels_bitwise(dev, shape, case):
     from pmesh_tpu_torch.ops import binned as tbn
@@ -325,6 +332,11 @@ def test_rebase_dispatch_counters_and_refusals(dev):
                    tuple(v.double() for v in va), (-0.5, 1.5))
     with pytest.raises(NotImplementedError, match='slots'):
         tbn.rebase(ds, va, (-0.5, 1.5), nslots_out=17)
+    # the kernels read and write f32 only
+    with pytest.raises(NotImplementedError, match='f32'):
+        binned_cuda.rebase_assign(
+            tuple(tuple(x.bfloat16() for x in dk) for dk in ds),
+            tuple(v.bfloat16() for v in va), 2, -1, 1)
 
 
 @pytest.mark.parametrize("adaptive", [False, True])
@@ -1678,23 +1690,36 @@ def test_xhalo_lattice_kernels_match_plain(dev, window, bounds):
             assert torch.equal(g, w[start:start + rows])
 
 
-@pytest.mark.parametrize("bounds,kout", [((-0.5, 1.5), 2), ((-1.0, 2.0), 3)])
-def test_xhalo_rebase_bitwise(dev, bounds, kout):
+# (drift bounds, fill per input slot, nslots_out, shape): K = 2 at the
+# main path's and a 64-offset range, K = 4 (the clustered path's), 16
+# slots, one slot with 125 offsets, and a shape whose n1 and n2 are not
+# multiples of the assign's 8 x 32 tile
+XHALO_REBASE_CASES = {
+    'k2': ((-0.5, 1.5), (0.7, 0.7), 2, (24, 20, 36)),
+    'k2_offsets_-1_2': ((-1.0, 2.0), (0.7, 0.7), 3, (24, 20, 36)),
+    'k4': REBASE_CASES['k4'] + ((24, 20, 36),),
+    'k16': REBASE_CASES['k16'] + ((24, 20, 36),),
+    'k1_offsets_-2_2': REBASE_CASES['k1_offsets_-2_2'] + ((24, 20, 36),),
+    'ragged': ((-0.5, 1.5), (0.7, 0.7), 2, (24, 37, 45)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(XHALO_REBASE_CASES))
+def test_xhalo_rebase_bitwise(dev, case):
     """the x-halo rebase against the plain slab form and the wrapped
     kernels' rows of the whole mesh, bitwise"""
     from pmesh_tpu_torch.ops import binned as tbn
     from pmesh_tpu_torch.ops import binned_cuda
-    shape = (24, 20, 36)
+    bounds, fill, kout, shape = XHALO_REBASE_CASES[case]
     rng = np.random.RandomState(62)
 
     def t(a):
         return torch.from_numpy(a.astype('f4')).to(dev)
     dslots = tuple(tuple(t(rng.uniform(bounds[0], bounds[1], shape))
-                         for _ in range(3)) for _ in range(2))
-    valid = tuple(t((rng.uniform(size=shape) < 0.7) * 1.0)
-                  for _ in range(2))
+                         for _ in range(3)) for _ in fill)
+    valid = tuple(t((rng.uniform(size=shape) < f) * 1.0) for f in fill)
     vel = tuple(tuple(t(rng.normal(size=shape)) for _ in range(3))
-                for _ in range(2))
+                for _ in fill)
     offsets = tbn._drift_offsets(bounds, 3)
     olo, ohi = offsets[0][0], offsets[-1][0]
     lo, hi = tbn._halo_depth(offsets)
