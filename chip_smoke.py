@@ -129,6 +129,27 @@ three phases:
    (128, 1024, 1024) slab shapes (bench.py's measure_pipe_chain),
    kernel by kernel with bounds, beside torch.fft's calls.
 
+The catalog FastPM path (the particles as (N, 3) tensors; the generic
+paint and readout of ops/paint.py, index_add_ and gathers, and cuFFT;
+no hand kernel, as the JAX package reaches no Pallas kernel there) adds
+phase 11, run beside phases 4, 6 and 7:
+
+11. the reference's configuration of a run: 256^3 particles in a 512
+   Mpc/h box, f4, a B = 2 force mesh (512^3 CIC), Planck15 and EHPower
+   at sigma8 0.8159, gadget white noise of seed 42, 2LPT at a = 0.1,
+   Solver.nbody over 10 KDK steps to a = 1 and one gradient-mode force;
+   checked finite, a paint of the final state conserving mass to 1e-5,
+   and fftpower of the final over the initial density in the three
+   lowest k bins within 5 % of (D1(1)/D1(0.1))^2; the KDK step, one
+   paint, the three-mesh readout, the forces and the gadget and native
+   white-noise fills timed (the paint and readout beside their bounds),
+   the peak memory read and one step profiled by kernel family (the
+   paint, readout and FFT families must each run on the card); the
+   catalog force on phase 4's 512^3 LPT state held against
+   force_lattice(fft='xla') within 1e-3 of max|F|; a 32^3 catalog run,
+   card against CPU within 1e-4, and the native white noise at 64^3,
+   card against CPU, bitwise in its uniforms.
+
 The second-to-last line is the kernels' JSON record, the last line
 the device record.
 """
@@ -3660,6 +3681,290 @@ def phase_pipe_chain(dev):
            sum(lib.values())))
 
 
+# --- the catalog FastPM path (phase 11) -------------------------------------
+#
+# The reference's own configuration of a run (FastPM's examples/nbody.py):
+# 256^3 particles in a 512 Mpc/h box, f4, a force mesh of B = 2 (512^3
+# CIC), Planck15 with EHPower at its sigma8 (0.8159), gadget white noise
+# of seed 42, 2LPT at a = 0.1 and 10 KDK steps to a = 1.
+CAT_N, CAT_BOX, CAT_B = 256, 512.0, 2
+CAT_STEPS = np.linspace(0.1, 1.0, 11)
+CAT_SMALL = 32              # the card-vs-CPU run (3 KDK steps)
+CAT_NOISE = 64              # the card-vs-CPU native white noise
+TOL_GROWTH = 0.05           # lowest-k P(k) growth against (D1 ratio)^2
+TOL_CAT_FORCE = 1e-3        # catalog vs lattice force, of max|F|
+CAT_FAMILIES = (
+    ("indexFunc", "paint: index_add_"),
+    ("index_elementwise", "readout: gather"),
+    ("fft", "cuFFT"),
+    ("reduce", "reductions"),
+    ("Memcpy", "copies"),
+    ("Memset", "copies"),
+    ("elementwise", "elementwise"),
+)
+
+
+def generic_paint_bytes(npart, nmesh):
+    """a paint's compulsory bytes: the (N, 3) f32 positions read once,
+    the f32 mesh written once (the mass is a scalar)"""
+    return npart * 3 * 4 + nmesh * 4
+
+
+def generic_readout_bytes(npart, nmesh, meshes=3):
+    """a readout's: the positions and each mesh read once, each (N,)
+    output written once"""
+    return npart * 3 * 4 + meshes * (nmesh * 4 + npart * 4)
+
+
+def generic_ops(npart, support=2, meshes=0):
+    """the operations a CIC paint (meshes=0) or readout of ``meshes``
+    meshes needs per particle: per axis the scaled position, its floor
+    and fraction (4) and support weights (3 each); per stencil offset
+    the weight product (2) and the flat index (4), then the accumulate
+    (paint: 1) or per mesh a product and an accumulate"""
+    per_offset = 6 + (1 if meshes == 0 else 2 * meshes)
+    return npart * (3 * (4 + 3 * support) + support ** 3 * per_offset)
+
+
+def catalog_family(name):
+    for frag, fam in CAT_FAMILIES:
+        if frag.lower() in name.lower():
+            return fam
+    return "other"
+
+
+def profile_catalog_step(solver, state):
+    """one warm catalog KDK step under torch.profiler: wall, device busy
+    and idle share, device time by kernel family; the paint, readout and
+    FFT families must each have run on the card"""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    steps = CAT_STEPS[-2:]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        solver.nbody(state, steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fams, spans = {}, []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        fam = catalog_family(e.name)
+        fams[fam] = fams.get(fam, 0.0) + (b - a) / 1e3
+    if not spans:
+        raise AssertionError("the profiler recorded no device event")
+    busy = busy_us(spans) / 1e3
+    log("phase 11 profile: one catalog KDK step (two forces: nbody's "
+        "initial force and the step's) on %s: wall %.3f ms, device busy "
+        "%.3f ms, idle %.4f" % (CARD, wall_ms, busy, 1.0 - busy / wall_ms))
+    for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
+        log("  %-34s %10.3f ms  %5.1f %%" % (fam, ms, 100.0 * ms / busy))
+    for fam in ("paint: index_add_", "readout: gather", "cuFFT"):
+        if not fams.get(fam):
+            raise AssertionError("the catalog step ran no %s on the card"
+                                 % fam)
+
+
+def phase_catalog(dev):
+    """the catalog path at the reference's configuration: linear field,
+    2LPT, 10 KDK steps and a gradient-mode force on the final state;
+    finiteness, mass, and the growth of the lowest k bins checked; the
+    step, paint, three-mesh readout and white-noise fills timed"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.cosmology import Planck15
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.models.powerspectrum import EHPower
+    from pmesh_tpu_torch.ops import paint as gpaint
+    from pmesh_tpu_torch.ops import power as pw
+    from pmesh_tpu_torch.ops import transfer as tf
+    pm = ParticleMesh([CAT_N] * 3, BoxSize=CAT_BOX, dtype='f4',
+                      resampler='cic', device=dev)
+    solver = Solver(pm, Planck15, B=CAT_B)
+    fpm = solver.fpm
+    npart, nmesh = CAT_N ** 3, int(np.prod(fpm.Nmesh))
+    power = EHPower(Planck15)
+    nsteps = len(CAT_STEPS) - 1
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dlinear = solver.linear_field(power, SEED, compat='gadget')
+    state0 = solver.lpt(dlinear, CAT_STEPS[0], order=2)
+    torch.cuda.synchronize()
+    t_ic = time.perf_counter() - t0
+    marks = []
+
+    def mark(a, state):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+    t0 = time.perf_counter()
+    final = solver.nbody(state0, CAT_STEPS, monitor=mark)
+    Fg = solver.force(final.X, mode='gradient')
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    # one KDK step: the mean over steps 2..10 (the first holds nbody's
+    # initial force)
+    step_ms = marks[0].elapsed_time(marks[-1]) / (nsteps - 1)
+
+    tensors = (state0.S, state0.V, final.S, final.V, Fg)
+    finite = all(bool(torch.isfinite(t).all()) for t in tensors)
+    mass = float(fpm.paint(final.X).value.double().sum())
+    mass_err = abs(mass - npart) / npart
+    k, p_init, nmodes = pw.fftpower(pm.paint(state0.X))
+    _, p_final, _ = pw.fftpower(pm.paint(final.X))
+    # the three lowest bins that hold modes (bin 0 holds the DC alone)
+    low = [i for i in range(len(nmodes)) if float(k[i]) > 0][:3]
+    growth = (Planck15.D1(CAT_STEPS[-1]) / Planck15.D1(CAT_STEPS[0])) ** 2
+    ratios = [float(p_final[i] / p_init[i]) / growth for i in low]
+    smax = float(final.S.abs().max())
+    log("phase 11 catalog path on %s: %d^3 particles, %d^3 CIC force mesh "
+        "(B=%d), f4, box %.0f Mpc/h; gadget noise seed %d, 2LPT at a=%.2f "
+        "(IC %.3f s, first run), %d KDK steps to a=%.2f + 1 gradient force "
+        "in %.3f s (first run); finite %s, max|S| %.4f Mpc/h, mass error "
+        "%.3e (tol %.0e), peak %.2f GB"
+        % (CARD, CAT_N, int(fpm.Nmesh[0]), CAT_B, CAT_BOX, SEED,
+           CAT_STEPS[0], t_ic, nsteps, CAT_STEPS[-1], t_run, finite, smax,
+           mass_err, TOL_MASS, peak_gb))
+    log("phase 11 growth on %s: P_final/P_initial / (D1(%.1f)/D1(%.1f))^2 "
+        "= %s at k = %s h/Mpc (%s modes; tol %.2f)"
+        % (CARD, CAT_STEPS[-1], CAT_STEPS[0],
+           " ".join("%.4f" % r for r in ratios),
+           " ".join("%.5f" % float(k[i]) for i in low),
+           " ".join("%d" % int(nmodes[i]) for i in low), TOL_GROWTH))
+    if not finite:
+        raise AssertionError("the catalog state or force is not finite")
+    if not mass_err <= TOL_MASS:
+        raise AssertionError("the catalog paint does not conserve mass")
+    if not all(abs(r - 1.0) <= TOL_GROWTH for r in ratios):
+        raise AssertionError("the lowest k bins did not grow as D1^2")
+    del Fg, dlinear
+
+    # the parts, on the final state
+    X = final.X
+    a = fpm.affine
+    rho = fpm.paint(X)
+    rhok = (rho * (float(nmesh) / npart)).r2c()
+    meshes = tuple(rhok.apply(tf.force_transfer(d)).c2r().value
+                   for d in range(3))
+    del rho, rhok
+    paint_ms = cuda_ms(lambda: fpm.paint(X), 5)
+    readout_ms = cuda_ms(lambda: gpaint.readout(
+        meshes, X, window=fpm.resampler.window, scale=a.scale,
+        translate=a.translate, period=a.period), 5)
+    del meshes
+    force_ms = cuda_ms(lambda: solver.force(X), 3)
+    grad_ms = cuda_ms(lambda: solver.force(X, mode='gradient'), 3)
+    gadget_ms = cuda_ms(lambda: pm.generate_whitenoise(
+        SEED, type='complex', compat='gadget'), 2)
+    native_ms = cuda_ms(lambda: pm.generate_whitenoise(
+        SEED, type='complex', compat='native'), 3)
+    pb = generic_paint_bytes(npart, nmesh)
+    rb = generic_readout_bytes(npart, nmesh)
+    po, ro = generic_ops(npart), generic_ops(npart, meshes=3)
+    paint_bound = max(pb / PEAK_BYTES, po / PEAK_FLOPS) * 1e3
+    readout_bound = max(rb / PEAK_BYTES, ro / PEAK_FLOPS) * 1e3
+    log("phase 11 timing on %s: %.3f ms per catalog KDK step (CUDA events "
+        "over steps 2..%d), force spectral %.3f ms, gradient %.3f ms"
+        % (CARD, step_ms, nsteps, force_ms, grad_ms))
+    log("phase 11 timing on %s: paint %.3f ms (%d particles onto %d^3; "
+        "bound %.3f ms by %s: %.3f GB, %.3f GOP), three-mesh readout "
+        "%.3f ms (bound %.3f ms by %s: %.3f GB, %.3f GOP)"
+        % (CARD, paint_ms, npart, int(fpm.Nmesh[0]), paint_bound,
+           "bytes" if pb / PEAK_BYTES >= po / PEAK_FLOPS else "operations",
+           pb / 1e9, po / 1e9, readout_ms, readout_bound,
+           "bytes" if rb / PEAK_BYTES >= ro / PEAK_FLOPS else "operations",
+           rb / 1e9, ro / 1e9))
+    log("phase 11 timing on %s: white noise at %d^3: gadget (host fill and "
+        "copy) %.3f ms, native (threefry on the card) %.3f ms"
+        % (CARD, CAT_N, gadget_ms, native_ms))
+    profile_catalog_step(solver, final)
+    del final, state0, X
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, paint_ms=paint_ms, readout_ms=readout_ms)
+
+
+def phase_catalog_lattice(dev, pm, dlinear):
+    """the catalog force on phase 4's 512^3 LPT state (Q + S in box
+    units) against force_lattice(fft='xla') on the same state"""
+    from pmesh_tpu_torch.models.fastpm import Solver
+    solver = Solver(pm)
+    disp, _ = solver.lpt_lattice(dlinear, A0, order=2)
+    cell = float(pm.BoxSize[0] / pm.Nmesh[0])
+    F_lat = solver.force_lattice(disp, BOUNDS, fft='xla')
+    X = pm.generate_uniform_particle_grid(shift=0.0)
+    X += torch.stack([d.reshape(-1) for d in disp], dim=-1) * cell
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    F = solver.force(X)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    fmax = max(float(f.abs().max()) for f in F_lat)
+    gap = max(float((F[:, d] - F_lat[d].reshape(-1)).abs().max())
+              for d in range(3)) / fmax
+    rms = float(sum(((F[:, d].double() - F_lat[d].reshape(-1)) ** 2).sum()
+                    for d in range(3)).sqrt()) / float(
+        sum((f.double() ** 2).sum() for f in F_lat).sqrt())
+    cat_ms = cuda_ms(lambda: solver.force(X), 1)
+    lat_ms = cuda_ms(lambda: solver.force_lattice(disp, BOUNDS, fft='xla'),
+                     1)
+    log("phase 11 catalog vs lattice on %s: %d^3 LPT state, force(X) "
+        "against force_lattice(fft='xla'): max|dF|/max|F| %.3e (tol %.0e), "
+        "rms|dF|/rms|F| %.3e; catalog force %.3f ms (peak %.2f GB), lattice "
+        "force %.3f ms" % (CARD, int(pm.Nmesh[0]), gap, TOL_CAT_FORCE, rms,
+                           cat_ms, peak_gb, lat_ms))
+    if not gap <= TOL_CAT_FORCE:
+        raise AssertionError("the catalog force disagrees with the lattice "
+                             "force at %d^3" % int(pm.Nmesh[0]))
+    del F, F_lat, X, disp
+    torch.cuda.empty_cache()
+
+
+def phase_catalog_small(dev, n=CAT_SMALL):
+    """a small catalog run, card against CPU, and the native white noise
+    at CAT_NOISE^3, card against CPU, bitwise in its uniforms"""
+    from pmesh_tpu_torch import ParticleMesh, whitenoise
+    from pmesh_tpu_torch.models.cosmology import Planck15
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.models.powerspectrum import EHPower
+    power = EHPower(Planck15)
+    steps = np.linspace(0.1, 1.0, 4)
+    out = {}
+    for device in ('cpu', dev):
+        pm = ParticleMesh([n] * 3, BoxSize=2.0 * n, dtype='f4',
+                          resampler='cic', device=device)
+        solver = Solver(pm, Planck15, B=CAT_B)
+        state = solver.lpt(solver.linear_field(power, SEED), steps[0])
+        end = solver.nbody(state, steps)
+        out[str(device)] = (end.S.cpu(), end.V.cpu())
+    (S0, V0), (S1, V1) = out['cpu'], out[str(dev)]
+    serr = float((S1 - S0).abs().max() / S0.abs().max())
+    verr = float((V1 - V0).abs().max() / V0.abs().max())
+    ok = serr <= TOL_SMALL and verr <= TOL_SMALL
+    log("phase 11 small catalog run on %s: %d^3 B=%d f4 3 KDK steps, card "
+        "vs CPU max|dS|/max|S| %.3e, max|dV|/max|V| %.3e (tol %.0e) %s"
+        % (CARD, n, CAT_B, serr, verr, TOL_SMALL, "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("the catalog run differs on the card and CPU")
+    shape = (CAT_NOISE, CAT_NOISE, CAT_NOISE // 2 + 1)
+    nm = (CAT_NOISE,) * 3
+    u_cpu = whitenoise.native_uniforms(nm, shape, SEED, 'cpu')
+    u_dev = whitenoise.native_uniforms(nm, shape, SEED, dev)
+    bits = all(torch.equal(a, b.cpu()) for a, b in zip(u_cpu, u_dev))
+    f_cpu = whitenoise.generate_native(nm, shape, SEED, device='cpu')
+    f_dev = whitenoise.generate_native(nm, shape, SEED, device=dev).cpu()
+    gap = float((f_dev - f_cpu).abs().max())
+    log("phase 11 native white noise on %s: %d^3 card vs CPU, uniforms "
+        "bitwise %s, field max|d| %.3e (f8 transcendentals)"
+        % (CARD, CAT_NOISE, bits, gap))
+    if not bits or not gap <= 1e-12:
+        raise AssertionError("the native white noise differs on the card")
+
+
 def main():
     phase_device()
     dev = torch.device('cuda', 0)
@@ -3683,7 +3988,9 @@ def main():
     bf16_launches = phase_main_bf16(dev, mxu)
     row13_launches, row13_bf16_launches = phase_row13(dev, pm, dlinear)
     phase_grad(dev, pm, dlinear)
+    phase_catalog_lattice(dev, pm, dlinear)
     del pm, dlinear
+    phase_catalog(dev)
     binned_launches, clustered = phase_binned_clustered(dev)
     dense_bf16_launches = phase_clustered_timed(clustered)
     phase_binned_timed(dev)
@@ -3691,6 +3998,7 @@ def main():
     phase_small(dev, MXU_SMALL, np.asarray(MXU_SMALL, float), 'mxu')
     phase_small(dev, DENSE_SMALL, np.asarray(DENSE_SMALL, float), 'mxu')
     phase_small_binned(dev)
+    phase_catalog_small(dev)
     phase_small_grad(dev, (32,) * 3, 64.0, 'xla')
     phase_small_grad(dev, MXU_SMALL, np.asarray(MXU_SMALL, float), 'mxu')
     for shape, fft in ((MXU_SMALL, 'mxu_bf16'), (MXU_SMALL, 'mxu_bf16s'),

@@ -14,7 +14,8 @@ from .models.cosmology import Cosmology
 
 __all__ = ["particlemesh_from", "cosmology_from",
            "lattice_state_from_numpy", "binned_state_from_numpy",
-           "binned_state_to_numpy", "field_from_numpy", "to_slabs",
+           "binned_state_to_numpy", "catalog_state_from_numpy",
+           "catalog_state_to_numpy", "field_from_numpy", "to_slabs",
            "gather"]
 
 
@@ -63,6 +64,22 @@ def binned_state_from_numpy(state, device=None):
 def binned_state_to_numpy(state):
     """The inverse of :func:`binned_state_from_numpy`."""
     return _nested(lambda t: t.detach().cpu().numpy(), state)
+
+
+def catalog_state_from_numpy(Q, S, V, device=None):
+    """A catalog ``models.fastpm.State`` of the (N, ndim) arrays Q, S
+    and V (e.g. the JAX package's ``State.Q``, ``.S`` and ``.V``) on
+    ``device``, keeping their dtype."""
+    from .models.fastpm import State
+    device = resolve_device(device)
+    return State(*(torch.from_numpy(np.array(a)).to(device)
+                   for a in (Q, S, V)))
+
+
+def catalog_state_to_numpy(state):
+    """(Q, S, V) of a catalog State as numpy arrays."""
+    return tuple(t.detach().cpu().numpy()
+                 for t in (state.Q, state.S, state.V))
 
 
 def field_from_numpy(pm, array):

@@ -35,10 +35,22 @@ class Cosmology(object):
         self._solve_growth()
 
     # --- background ---
-    def E(self, a):
+    def efunc(self, a):
+        """E(a) = H(a) / H0."""
         a = np.asarray(a, dtype='f8')
         return _out(np.sqrt(self.Om0 * a ** -3 + self.Ok0 * a ** -2
                             + self.Ol0))
+
+    E = efunc
+
+    def Ea(self, z):
+        """E as a function of redshift."""
+        return self.efunc(1.0 / (1.0 + np.asarray(z, dtype='f8')))
+
+    def Om(self, a):
+        """The matter density parameter at a."""
+        a = np.asarray(a, dtype='f8')
+        return _out(self.Om0 * a ** -3 / np.asarray(self.efunc(a)) ** 2)
 
     # --- growth ODE ---
     def _solve_growth(self):
@@ -125,6 +137,24 @@ class Cosmology(object):
         eps = 1e-4
         return _out((np.asarray(self.Gf(a * (1 + eps)))
                      - self.Gf(a * (1 - eps))) / (2 * eps * a))
+
+    # the same for the second-order growth
+    def Gp2(self, a):
+        return self.D2(a)
+
+    def gp2(self, a):
+        a = np.asarray(a, dtype='f8')
+        return _out(np.asarray(self.D2(a)) * self.f2(a) / a)
+
+    def Gf2(self, a):
+        a = np.asarray(a, dtype='f8')
+        return _out(np.asarray(self.gp2(a)) * a ** 3 * self.E(a))
+
+    def gf2(self, a):
+        a = np.asarray(a, dtype='f8')
+        eps = 1e-4
+        return _out((np.asarray(self.Gf2(a * (1 + eps)))
+                     - self.Gf2(a * (1 - eps))) / (2 * eps * a))
 
 
 Planck15 = Cosmology(Om0=0.3089, h=0.6774, sigma8=0.8159, ns=0.9667,

@@ -1,8 +1,26 @@
-"""FastPM particle-mesh N-body solver: the lattice and binned paths.
+"""FastPM particle-mesh N-body solver: the catalog, lattice and binned
+paths.
 
-Counterpart of the lattice and binned parts of
-``pmesh_tpu/models/fastpm.py``: the kick/drift factor families,
-``leapfrog_factors``, and a ``Solver`` with ``lpt_lattice`` (2LPT
+Counterpart of ``pmesh_tpu/models/fastpm.py``.
+
+The catalog path holds the particles as (N, ndim) tensors: a
+``State`` of the Lagrangian grid Q, the displacement S and the velocity
+V, in box units.  ``Solver.linear_field`` shapes white noise to P(k),
+``Solver.lpt`` (and the module-level ``lpt``) reads the 1LPT and 2LPT
+displacements at the particle grid, ``Solver.force`` is the PM force
+(``decompose`` -> the generic paint -> r2c -> the force transfer ->
+c2r -> the generic readout of the three force meshes in one pass, or
+one Poisson potential and its derivative readouts in gradient mode),
+``force_staged`` the same force with each direction's mesh freed
+before the next, and ``Solver.nbody`` the KDK loop, one force per step,
+with the coefficients in the state's dtype on the device.  Its FFTs are
+``torch.fft`` (cuFFT on the card) and its paint and readout those of
+``ops/paint.py``; the JAX package reaches no Pallas kernel on this
+path.  It runs on one device: a sharded force mesh raises (ROADMAP
+queue 1, item 8).  Gradients through it are not ported.
+
+The rest of this module is the lattice and binned paths: the
+kick/drift factor families, ``leapfrog_factors``, and ``lpt_lattice`` (2LPT
 initial conditions), ``force_lattice`` and ``nbody_lattice`` (the KDK
 leapfrog on the lattice), and ``force_binned`` and ``nbody_binned``
 (the slot-lattice state of ``ops/binned.py``, with a periodic rebase
@@ -53,14 +71,29 @@ import torch
 
 from ..pm import ParticleMesh, RealField
 from ..ops import transfer as tf
+from ..ops import paint as _paint_ops
 from ..ops import gridpm as _gp
 from ..ops import binned as _bn
 from ..ops import fft_mxu as _fm
 from ..parallel.comm import all_reduce
 from .cosmology import Planck15
 
-__all__ = ["Solver", "leapfrog_factors", "FastPM", "Quinn", "TVE", "VTE",
-           "Naive"]
+__all__ = ["Solver", "State", "lpt", "leapfrog_factors", "FastPM", "Quinn",
+           "TVE", "VTE", "Naive"]
+
+
+class State(object):
+    """Particle state of the catalog path: the Lagrangian grid Q, the
+    displacement S and the velocity V, (N, ndim) tensors in box units."""
+
+    def __init__(self, Q, S, V):
+        self.Q = Q
+        self.S = S
+        self.V = V
+
+    @property
+    def X(self):
+        return self.Q + self.S
 
 
 # --- kick / drift factor families ------------------------------------------
@@ -245,6 +278,161 @@ class Solver(object):
     def _pmh(self):
         """the ProcessMesh of a sharded force mesh, else None"""
         return self.fpm.procmesh if self.fpm.sharded else None
+
+    def _catalog_one_device(self, what):
+        if self.pm.sharded or self.fpm.sharded:
+            raise NotImplementedError(
+                "Solver.%s on a sharded mesh is not ported yet (ROADMAP "
+                "queue 1, item 8)" % what)
+
+    def tune_exchange(self, X, slack=1.5):
+        """The sharded exchange capacity of the catalog force: nothing to
+        tune on one device (returns None)."""
+        self._catalog_one_device("tune_exchange")
+        return None
+
+    # --- catalog path: initial conditions ---------------------------------
+
+    def linear_field(self, power, seed, unitary=False, compat='gadget'):
+        """The linear density contrast in Fourier space at z=0: white
+        noise of ``seed`` shaped by sqrt(P(k) / volume)."""
+        gauss = self.pm.generate_whitenoise(seed, unitary=unitary,
+                                            type='complex', compat=compat)
+
+        def convolve(k, v):
+            kmag = k.normp(2) ** 0.5
+            return v * (power(kmag) / k.BoxSize.prod()) ** 0.5
+        return gauss.apply(convolve)
+
+    def lpt(self, dlinear, a0, order=2, shift=0.0):
+        """1LPT (order 1) or 2LPT initial displacements and velocities
+        at the particle grid (``shift`` cells off the mesh points),
+        scaled to time a0: a :class:`State`."""
+        pm = self.pm
+        pt = self.cosmology
+        Q = pm.generate_uniform_particle_grid(shift=shift)
+
+        DX1 = torch.stack([
+            dlinear.apply(tf.dx1_transfer(d)).c2r().readout(Q)
+            for d in range(pm.ndim)], dim=-1)
+        D1 = float(pt.D1(a0))
+        f1 = float(pt.f1(a0))
+        E0 = float(pt.E(a0))
+        S = DX1 * D1
+        V = DX1 * (D1 * f1 * a0 ** 2 * E0)
+        if order >= 2 and pm.ndim == 3:
+            # the 2LPT source sum_{a<b} phi_aa phi_bb - phi_ab^2, with
+            # phi_ab = k_a k_b / k^2 dlinear
+            def phi_ab(a, b):
+                def filt(k, v):
+                    return v * k[a] * k[b] / k.normp(2, zeromode=1.0)
+                return dlinear.apply(filt).c2r().value
+
+            diag = [phi_ab(d, d) for d in range(3)]
+            src = 0.0
+            for a in range(3):
+                for b in range(a + 1, 3):
+                    src = src + (diag[a] * diag[b] - phi_ab(a, b) ** 2)
+            del diag
+            source2 = pm.create(type=RealField, value=src).r2c()
+            del src
+            DX2 = torch.stack([
+                source2.apply(tf.dx1_transfer(d)).c2r().readout(Q)
+                for d in range(3)], dim=-1)
+            # D2 carries the -3/7
+            D2 = float(pt.D2(a0))
+            f2 = float(pt.f2(a0))
+            S = S + DX2 * D2
+            V = V + DX2 * (D2 * f2 * a0 ** 2 * E0)
+        return State(Q, S, V)
+
+    # --- catalog path: force -----------------------------------------------
+
+    def force(self, X, factor=None, mode='spectral'):
+        """PM gravity at the particles ``X`` (N, ndim), in box units:
+        paint -> r2c -> the force transfer of each direction -> c2r ->
+        one readout of the ndim force meshes sharing its indices and
+        weights.  The density is normalized by prod(Nmesh) / N.
+
+        mode='gradient' takes one Poisson potential and its derivative
+        readouts (-W'(v - s) along each axis, in simulation units: no
+        cell factor), a third of the inverse FFTs.
+        """
+        self._catalog_one_device("force")
+        if mode not in ('spectral', 'gradient'):
+            raise ValueError("mode must be 'spectral' or 'gradient'")
+        fpm = self.fpm
+        N = X.shape[0]
+        if factor is None:
+            factor = 1.5 * self.cosmology.Om0
+        layout = fpm.decompose(X)
+        rho = fpm.paint(X, layout=layout)
+        rhok = (rho * (float(fpm.Nmesh.prod()) / N)).r2c()
+        del rho
+        if mode == 'gradient':
+            phi = rhok.apply(tf.poisson()).c2r()
+            del rhok
+            vals = [-phi.readout(X, layout=layout, gradient=d)
+                    for d in range(fpm.ndim)]
+            return torch.stack(vals, dim=-1) * factor
+        meshes = tuple(rhok.apply(tf.force_transfer(d)).c2r().value
+                       for d in range(fpm.ndim))
+        del rhok
+        a = fpm.affine
+        vals = _paint_ops.readout(meshes, X, window=fpm.resampler.window,
+                                  scale=a.scale, translate=a.translate,
+                                  period=a.period)
+        return torch.stack(vals, dim=-1) * factor
+
+    def force_staged(self, X, factor=None):
+        """The spectral :meth:`force`, one direction at a time: each
+        direction's force mesh is read and freed before the next is
+        made, so one mesh is live beside the spectrum."""
+        self._catalog_one_device("force_staged")
+        fpm = self.fpm
+        N = X.shape[0]
+        if factor is None:
+            factor = 1.5 * self.cosmology.Om0
+        rho = fpm.paint(X)
+        rhok = (rho * (float(fpm.Nmesh.prod()) / N)).r2c()
+        del rho
+        a = fpm.affine
+        cols = []
+        for d in range(fpm.ndim):
+            mesh = rhok.apply(tf.force_transfer(d)).c2r().value
+            cols.append(_paint_ops.readout(
+                mesh, X, window=fpm.resampler.window, scale=a.scale,
+                translate=a.translate, period=a.period))
+            del mesh
+        return torch.stack(cols, dim=-1) * factor
+
+    # --- catalog path: time integration ------------------------------------
+
+    def nbody(self, state, time_steps, factors='fastpm', scheme='symp2',
+              monitor=None, force_mode='spectral', rebalance=None):
+        """The KDK loop of the catalog path from ``state``: one force
+        per step (``force_mode``: see :meth:`force`), the coefficients
+        in the state's dtype on its device.  ``monitor(a, state)`` is
+        called after each step.  ``rebalance`` re-lays out sharded
+        particles, so it raises on a sharded mesh and does nothing on
+        one device.  Returns the final :class:`State`."""
+        if rebalance is not None:
+            self._catalog_one_device("nbody(rebalance=...)")
+        fac = _FACTORS[factors](self.cosmology) \
+            if isinstance(factors, str) else factors
+        dtype, device = state.S.dtype, state.S.device
+        K1, D1s, K2 = (torch.as_tensor(c, device=device).to(dtype)
+                       for c in leapfrog_factors(time_steps, fac, scheme))
+        Q, S, V = state.Q, state.S, state.V
+        F = self.force(Q + S, mode=force_mode)
+        for i, af in enumerate(time_steps[1:]):
+            V = V + F * K1[i]
+            S = S + V * D1s[i]
+            F = self.force(Q + S, mode=force_mode)
+            V = V + F * K2[i]
+            if monitor is not None:
+                monitor(af, State(Q, S, V))
+        return State(Q, S, V)
 
     def lpt_lattice(self, dlinear, a0, shift=0.0, order=1):
         """LPT state in lattice form: (disp, vel), ndim mesh-shaped
@@ -732,3 +920,8 @@ def _rebase_prog(state, bounds, nslots_out=None, procmesh=None):
                                                      nslots_out,
                                                      procmesh=procmesh)
     return dslots, vslots, valid, overflow
+
+
+def lpt(pm, dlinear, a0, cosmology=None, order=2, shift=0.0):
+    """The LPT :class:`State` of ``Solver(pm, cosmology).lpt``."""
+    return Solver(pm, cosmology).lpt(dlinear, a0, order=order, shift=shift)

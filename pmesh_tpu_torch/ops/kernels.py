@@ -36,7 +36,10 @@ class Window(object):
     kind : str
         canonical name, e.g. 'cic'.
     support : int
-        native support in grid cells.
+        support in grid cells (the native support, or the ceiling of
+        the support given to :meth:`resize`).
+    nativesupport : int
+        the support the kernel functions are written for.
     table, table_step, table_offset :
         the lookup table of a tabulated window (numpy f8), its spacing,
         and None for a table addressed by |x| or the half support for a
@@ -48,6 +51,7 @@ class Window(object):
                  table=None, table_step=None, table_offset=None):
         self.kind = kind
         self.support = int(support)
+        self.nativesupport = int(support)
         self.kernel = kernel
         self.diff = diff
         self._fwindow = fwindow
@@ -58,13 +62,36 @@ class Window(object):
     def __repr__(self):
         return "Window(%s, support=%d)" % (self.kind, self.support)
 
+    def resize(self, support):
+        """A copy of this window stretched to cover ``support`` cells."""
+        w = Window(self.kind, self.nativesupport, self.kernel, self.diff,
+                   self._fwindow, self.table, self.table_step,
+                   self.table_offset)
+        w.support = int(np.ceil(support))
+        w._support_float = float(support)
+        return w
+
+    @property
+    def support_float(self):
+        return getattr(self, '_support_float', float(self.support))
+
     def get_fwindow(self, w):
         """1-d Fourier window T(w) at circular frequency w (1 where the
-        window has no closed form)."""
+        window has no closed form), for the resized support too."""
         w = torch.as_tensor(w)
         if self._fwindow is None:
             return torch.ones_like(w, dtype=torch.float64)
-        return self._fwindow(w)
+        return self._fwindow(w / (self.nativesupport / self.support_float))
+
+    def get_compensation(self):
+        """The deconvolution filter of this window, for
+        ``ComplexField.apply(kind='circular')``."""
+        def function(w, v):
+            tf = 1.0
+            for wi in w:
+                tf = tf * self.get_fwindow(wi)
+            return v / tf
+        return function
 
 
 # ---------------------------------------------------------------------------

@@ -1,2 +1,3 @@
 """The slab decomposition over torch.distributed: ProcessMesh, the
-collectives, the halo exchange, the slab FFT and the rank launcher."""
+collectives, the halo exchange, the slab FFT and the rank launcher;
+and the single-domain Layout of ``domain.py``."""

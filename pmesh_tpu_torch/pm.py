@@ -1,11 +1,19 @@
-"""ParticleMesh and Field types: the part of the core API that the
-FastPM lattice path runs.
+"""ParticleMesh and Field types: the core API.
 
 Counterpart of ``pmesh_tpu/pm.py``.  A field holds one torch tensor in
 ``.value`` on its ParticleMesh's ``device``; a tensor on another
 device raises instead of being moved.  Arithmetic is done on
-``.value``.  The device defaults to the current CUDA device; CPU use is
-asked for with ``device='cpu'``.
+``.value``, and an ``out=`` of the JAX package's API rebinds
+``out.value``.  The device defaults to the current CUDA device; CPU use
+is asked for with ``device='cpu'``.
+
+What is here: the field arithmetic and comparison, ``cast``, the
+coordinates, ``r2c``/``c2r`` (``torch.fft``, cuFFT on the card),
+``apply``, the collective reductions ``csum``/``cmean``/``cdot``/
+``cnorm``, the generic ``readout`` and ``paint`` (``ops/paint.py``), the
+particle grid, the single-domain ``decompose`` and the white noise.
+The transposed and untransposed complex fields are one layout on one
+device: the hermitian half spectrum.
 
 With a ``procmesh`` of P > 1 ranks (``parallel/pmesh.py``) a field's
 value is this rank's block: x rows ``[r N0/P, (r+1) N0/P)`` of a real
@@ -15,16 +23,25 @@ field (whole x, half z), as the JAX package's ``real_spec`` and
 slab transforms of ``parallel/pfft.py`` and the coordinates of
 ``apply`` are the block's own.  The ranks must divide N0 and N1 (the
 JAX package's ``_even_mesh``); its uneven and replicated fallbacks are
-not ported.
+not ported.  The particle methods, the reductions, the untransposed
+layout and the white noise raise on a sharded mesh (ROADMAP queue 1,
+item 8).
 """
+import functools
+
 import numpy as np
 import torch
 
-from .window import FindResampler
+from .window import Affine, FindResampler
 from .ops import fft as _fft
+from .ops import paint as _paint_ops
+from .parallel.domain import Layout
 
-__all__ = ["ParticleMesh", "RealField", "ComplexField", "Field", "xlist",
-           "resolve_device"]
+__all__ = ["ParticleMesh", "RealField", "ComplexField",
+           "TransposedComplexField", "UntransposedComplexField", "Field",
+           "xlist", "resolve_device"]
+
+_gettype = type
 
 
 def resolve_device(device=None):
@@ -44,6 +61,17 @@ def resolve_device(device=None):
     return device
 
 
+def _not_sharded(pm, what):
+    if pm.sharded:
+        raise NotImplementedError(
+            "%s on a sharded mesh is not ported yet (ROADMAP queue 1, "
+            "item 8)" % what)
+
+
+def is_inplace(out):
+    return out is Ellipsis
+
+
 class xlist(list):
     """A list of broadcastable coordinate tensors with ``normp``."""
 
@@ -59,8 +87,8 @@ def _same_device(a, b):
 
 
 class Field(object):
-    """Base class of RealField and ComplexField: ``.value`` is a tensor
-    of the field's shape and dtype on ``pm.device``."""
+    """Base class of RealField and the complex fields: ``.value`` is a
+    tensor of the field's shape and dtype on ``pm.device``."""
 
     def __init__(self, pm, value=None):
         self.pm = pm
@@ -68,6 +96,7 @@ class Field(object):
         self.Nmesh = pm.Nmesh
         self.ndim = pm.ndim
         shape, dtype = pm._shape_dtype(type(self))
+        self.cshape = np.array(pm._global_shape(type(self)), dtype='intp')
         if value is None:
             value = torch.zeros(shape, dtype=dtype, device=pm.device)
         else:
@@ -82,42 +111,280 @@ class Field(object):
                 value = torch.broadcast_to(value, shape).contiguous()
         self.value = value
 
+    def __repr__(self):
+        return '%s:%r' % (type(self).__name__, self.value)
+
+    @property
+    def shape(self):
+        return tuple(self.value.shape)
+
+    @property
+    def csize(self):
+        return int(np.prod(self.cshape))
+
     @property
     def dtype(self):
         return self.value.dtype
 
-    def apply(self, func, kind):
-        """A new field func(coords, value), cast to this field's dtype."""
-        x = self.pm._apply_coords(type(self), kind)
+    def numpy(self):
+        """The field value as a host numpy array."""
+        return self.value.detach().cpu().numpy()
+
+    # --- arithmetic: a field of the same type where the result keeps the
+    # shape and is not boolean, else the bare tensor
+    def _cast_binop(self, other):
+        return other.value if isinstance(other, Field) else other
+
+    def _wrap(self, value):
+        if tuple(value.shape) != tuple(self.value.shape) \
+                or value.dtype == torch.bool:
+            return value
+        return self.pm.create(type=_gettype(self), value=value)
+
+    def __add__(self, other):
+        return self._wrap(self.value + self._cast_binop(other))
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._wrap(self.value - self._cast_binop(other))
+
+    def __rsub__(self, other):
+        return self._wrap(self._cast_binop(other) - self.value)
+
+    def __mul__(self, other):
+        return self._wrap(self.value * self._cast_binop(other))
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._wrap(self.value / self._cast_binop(other))
+
+    def __rtruediv__(self, other):
+        return self._wrap(self._cast_binop(other) / self.value)
+
+    def __pow__(self, other):
+        return self._wrap(self.value ** self._cast_binop(other))
+
+    def __neg__(self):
+        return self._wrap(-self.value)
+
+    def __abs__(self):
+        return self._wrap(self.value.abs())
+
+    def __iadd__(self, other):
+        self.value = self.value + self._cast_binop(other)
+        return self
+
+    def __isub__(self, other):
+        self.value = self.value - self._cast_binop(other)
+        return self
+
+    def __imul__(self, other):
+        self.value = self.value * self._cast_binop(other)
+        return self
+
+    def __itruediv__(self, other):
+        self.value = self.value / self._cast_binop(other)
+        return self
+
+    def __eq__(self, other):
+        return self.value == self._cast_binop(other)
+
+    # elementwise __eq__ with identity hashing, as torch tensors do
+    __hash__ = object.__hash__
+
+    def copy(self):
+        return self.pm.create(_gettype(self), value=self.value.clone())
+
+    def _check_compatible(self, other):
+        if isinstance(other, Field):
+            if not isinstance(other, _gettype(self)):
+                raise TypeError(
+                    "type of two operands of cdot must be the same type")
+        elif tuple(other.shape) != self.shape:
+            raise ValueError("operand of shape %s is not a field of shape %s"
+                             % (tuple(other.shape), self.shape))
+
+    # --- coordinates ---
+    @property
+    def x(self):
+        return self.pm.create_coords(_gettype(self), return_indices=False)
+
+    @property
+    def i(self):
+        return self.pm.create_coords(_gettype(self), return_indices=True)
+
+    def cast(self, type, out=None):
+        """This field as a field of ``type``, keeping its meaning: a real
+        field goes through r2c to a complex type and back through c2r."""
+        type = _field_type(type)
+        if isinstance(self, RealField) and issubclass(type, BaseComplexField):
+            r = self.pm.create(type, value=self.r2c().value)
+        elif isinstance(self, BaseComplexField) and issubclass(type,
+                                                               RealField):
+            r = self.c2r()
+        else:
+            r = self.pm.create(type, value=self.value)
+        if isinstance(out, Field):
+            out.value = r.value.to(out.dtype)
+            return out
+        return r
+
+    def apply(self, func, kind, out=None):
+        """func(coords, value), cast to this field's dtype: a new field,
+        or with ``out`` (Ellipsis: this field) rebound into it."""
+        x = self.pm._apply_coords(_gettype(self), kind)
         result = func(x, self.value)
         if isinstance(result, Field):
             result = result.value
-        return self.pm.create(type=type(self),
-                              value=torch.as_tensor(result).to(self.dtype))
+        result = torch.as_tensor(result).to(self.dtype)
+        if out is None:
+            return self.pm.create(type=_gettype(self), value=result)
+        if is_inplace(out):
+            out = self
+        if not isinstance(out, Field):
+            raise TypeError("out must be None, Ellipsis or a Field")
+        out.value = result
+        return out
 
 
 class RealField(Field):
-    def r2c(self):
+    def r2c(self, out=None):
         """Real-to-complex transform, normalized by prod(Nmesh)^-1."""
-        return self.pm.create(type=ComplexField,
-                              value=self.pm._r2c_value(self.value))
+        value = self.pm._r2c_value(self.value)
+        if out is None or is_inplace(out) or out is self:
+            return self.pm.create(type=ComplexField, value=value)
+        out.value = value.to(out.dtype)
+        return out
+
+    def apply(self, func, kind="relative", out=None):
+        if kind not in ('relative', 'index', 'absolute'):
+            raise ValueError("kind must be 'relative', 'index' or "
+                             "'absolute'")
+        return Field.apply(self, func, kind, out)
+
+    def csum(self, dtype=None):
+        """Sum over the whole mesh (a 0-d tensor)."""
+        _not_sharded(self.pm, "csum")
+        v = self.value if dtype is None else self.value.to(dtype)
+        return v.sum()
+
+    def cmean(self, dtype=None):
+        return self.csum(dtype=dtype) / self.csize
+
+    def cdot(self, other):
+        _not_sharded(self.pm, "cdot")
+        self._check_compatible(other)
+        return (self.value * self._cast_binop(other)).sum()
+
+    def cnorm(self):
+        return self.cdot(self)
+
+    def readout(self, pos, hsml=None, out=None, resampler=None,
+                transform=None, gradient=None, layout=None, hsml_max=None):
+        """The field's values at ``pos`` (N, ndim) through the generic
+        readout (``ops/paint.py``); ``gradient`` = d reads the derivative
+        along axis d in the units of ``pos``; ``layout`` is a
+        :meth:`ParticleMesh.decompose` plan.  Returns a new tensor."""
+        _not_sharded(self.pm, "RealField.readout")
+        if out is not None:
+            raise TypeError("out= is not supported: use the return value")
+        if transform is None:
+            transform = self.pm.affine
+        resampler = FindResampler(self.pm.resampler if resampler is None
+                                  else resampler)
+        if layout is not None:
+            pos = layout.exchange(pos)
+            hsml = layout.exchange(hsml) if hsml is not None else None
+        r = _paint_ops.readout(self.value, pos, window=resampler.window,
+                               scale=transform.scale,
+                               translate=transform.translate,
+                               period=transform.period, diffdir=gradient,
+                               hsml=hsml, hsml_max=hsml_max)
+        if layout is not None:
+            r = layout.gather(r, mode='sum')
+        return r
+
+    def paint(self, pos, mass=1.0, resampler=None, transform=None,
+              hold=False, gradient=None, layout=None):
+        """Paint ``pos`` into this field (added to it with ``hold``)."""
+        return self.pm.paint(pos, mass=mass, resampler=resampler,
+                             transform=transform, hold=hold,
+                             gradient=gradient, layout=layout, out=self)
 
 
-class ComplexField(Field):
+class BaseComplexField(Field):
     """The hermitian half spectrum of a real field."""
 
-    def c2r(self):
+    @property
+    def compressed(self):
+        """whether the field stores the hermitian-compressed half"""
+        return int(self.cshape[-1]) != int(self.Nmesh[-1])
+
+    def c2r(self, out=None):
         """Unnormalized complex-to-real transform (inverse of r2c)."""
-        return self.pm.create(type=RealField,
-                              value=self.pm._c2r_value(self.value))
+        value = self.pm._c2r_value(self.value)
+        if out is None or is_inplace(out) or out is self:
+            return self.pm.create(type=RealField, value=value)
+        out.value = value.to(out.dtype)
+        return out
 
-    def apply(self, func, kind="wavenumber"):
-        if kind not in ('wavenumber', 'index'):
-            raise ValueError("kind must be 'wavenumber' or 'index'")
-        return Field.apply(self, func, kind)
+    def apply(self, func, kind="wavenumber", out=None):
+        if kind not in ('wavenumber', 'circular', 'index'):
+            raise ValueError("kind must be 'wavenumber', 'circular' or "
+                             "'index'")
+        return Field.apply(self, func, kind, out)
+
+    def _expand_hermitian(self, i, y):
+        """Double the weight of modes whose conjugate is not stored."""
+        if not self.compressed:
+            return y
+        mask = (i[-1] != 0) & (i[-1] != self.Nmesh[-1] // 2)
+        return y + mask * y
+
+    def cnorm(self, metric=None, norm=lambda x: x.real ** 2 + x.imag ** 2):
+        """Sum of norm(v) over all modes, the conjugates included."""
+        _not_sharded(self.pm, "cnorm")
+
+        def filter2(k, y):
+            y = norm(y)
+            if metric is not None:
+                y = y * metric(k.normp(p=2) ** 0.5)
+            return y
+        r = self.apply(filter2)
+        r = r.apply(self._expand_hermitian, kind='index', out=Ellipsis)
+        return r.value.sum().real
+
+    def cdot(self, other, metric=None):
+        """sum conj(other) * self over all modes, the conjugates
+        included."""
+        _not_sharded(self.pm, "cdot")
+        if isinstance(other, Field):
+            if not isinstance(other, _gettype(self)):
+                raise TypeError(
+                    "type of two operands of cdot must be the same type")
+            other = other.value
+        r = self.pm.create(type=_gettype(self),
+                           value=torch.conj(other) * self.value)
+        r.apply(self._expand_hermitian, kind='index', out=Ellipsis)
+        if metric is not None:
+            r.apply(lambda k, y: y * metric(k.normp() ** 0.5), out=Ellipsis)
+        return r.value.sum()
 
 
-_TYPES = {'real': RealField, 'complex': ComplexField}
+class TransposedComplexField(BaseComplexField):
+    """The complex field r2c returns (on a sharded mesh, y columns)."""
+
+
+class UntransposedComplexField(BaseComplexField):
+    """The complex field in the input layout: on one device the same
+    array as the transposed one."""
+
+
+ComplexField = TransposedComplexField
+
+_TYPES = {'real': RealField, 'complex': ComplexField,
+          'transposedcomplex': TransposedComplexField,
+          'untransposedcomplex': UntransposedComplexField}
 
 
 def _field_type(t):
@@ -131,7 +398,8 @@ def _field_type(t):
 
 
 class ParticleMesh(object):
-    """Geometry and transforms of a periodic mesh on one torch device.
+    """Geometry, transforms and particle methods of a periodic mesh on
+    one torch device.
 
     Parameters
     ----------
@@ -175,6 +443,12 @@ class ParticleMesh(object):
             device = procmesh.device
         self.device = resolve_device(device)
         self.resampler = FindResampler(resampler)
+        # simulation units -> mesh units; global meshes translate by 0
+        self.affine = Affine(self.ndim, translate=0,
+                             scale=1.0 * self.Nmesh / self.BoxSize,
+                             period=self.Nmesh)
+        self.affine_grid = Affine(self.ndim, translate=0, scale=1.0,
+                                  period=self.Nmesh)
         self._coords_cache = {}
         if self.sharded:
             if self.ndim != 3:
@@ -198,14 +472,16 @@ class ParticleMesh(object):
 
     def local_block(self, field_type):
         """(axis, start, stop) of this rank's block of a field of
-        ``field_type`` ('real', 'complex' or a class): x rows of a real
-        field, y columns of the transposed complex one; the whole x axis
-        on one rank."""
+        ``field_type`` (a type string or class): x rows of a real field,
+        y columns of the transposed complex one; the whole axis on one
+        rank."""
         field_type = _field_type(field_type)
-        axis = 1 if issubclass(field_type, ComplexField) else 0
+        axis = 1 if issubclass(field_type, BaseComplexField) else 0
         n = self._global_shape(field_type)[axis]
         if not self.sharded:
             return axis, 0, n
+        if issubclass(field_type, UntransposedComplexField):
+            _not_sharded(self, "the untransposed complex layout")
         start, stop = self.procmesh.slab(n)
         return axis, start, stop
 
@@ -236,7 +512,7 @@ class ParticleMesh(object):
         Nyquist index of every axis taken as -N/2), or indices; on a
         sharded mesh, those of this rank's block."""
         field_type = _field_type(field_type)
-        iscomplex = issubclass(field_type, ComplexField)
+        iscomplex = issubclass(field_type, BaseComplexField)
         if iscomplex not in self._coords_cache:
             x, i = [], []
             shape = self._global_shape(field_type)
@@ -264,8 +540,12 @@ class ParticleMesh(object):
         return list(i if return_indices else x)
 
     def _apply_coords(self, field_type, kind):
-        s = xlist(self.create_coords(field_type,
-                                     return_indices=(kind == 'index')))
+        coords = self.create_coords(field_type,
+                                    return_indices=(kind == 'index'))
+        if kind == 'circular':
+            coords = [ki * float(L / n) for ki, L, n
+                      in zip(coords, self.BoxSize, self.Nmesh)]
+        s = xlist(coords)
         s.BoxSize = self.BoxSize
         s.Nmesh = self.Nmesh
         return s
@@ -286,6 +566,121 @@ class ParticleMesh(object):
                             resampler=self.resampler, device=self.device,
                             procmesh=self.procmesh)
 
-    def create(self, type=None, value=None):
-        """A new field of ``type`` ('real', 'complex' or a Field class)."""
+    def resize(self, Nmesh):
+        return self.reshape(Nmesh=Nmesh)
+
+    def create(self, type=None, value=None, mode=None):
+        """A new field of ``type`` ('real', 'complex',
+        'transposedcomplex', 'untransposedcomplex' or a Field class;
+        ``mode`` is the reference's name for it)."""
+        if mode is not None and type is None:
+            type = mode
         return _field_type(type)(self, value=value)
+
+    # --- particles ---
+    def mesh_coordinates(self, dtype=None):
+        """The integer coordinates of every mesh point, (prod(Nmesh),
+        ndim) in ``dtype`` (default the mesh's), C order."""
+        _not_sharded(self, "mesh_coordinates")
+        if dtype is None:
+            dtype = self.dtype
+        axes = [torch.arange(int(n), device=self.device) for n in self.Nmesh]
+        grids = torch.meshgrid(*axes, indexing='ij')
+        coord = torch.stack([g.reshape(-1) for g in grids], dim=-1)
+        return coord.to(_torch_dtype(dtype))
+
+    def generate_uniform_particle_grid(self, shift=0.5, dtype=None,
+                                       return_id=False):
+        """One particle per mesh point at (i + shift) * BoxSize / Nmesh
+        (formed in f8, then cast to ``dtype``); with ``return_id`` also
+        the C-order id of each (int64)."""
+        if dtype is None:
+            dtype = self.dtype
+        shift = torch.as_tensor(np.broadcast_to(shift, self.ndim).copy(),
+                                dtype=torch.float64, device=self.device)
+        cell = torch.as_tensor(self.BoxSize / self.Nmesh,
+                               dtype=torch.float64, device=self.device)
+        source = ((self.mesh_coordinates('f8') + shift) * cell) \
+            .to(_torch_dtype(dtype))
+        if not return_id:
+            return source
+        isource = self.mesh_coordinates('i8')
+        id = isource[:, 0]
+        for i in range(1, self.ndim):
+            id = id * int(self.Nmesh[i]) + isource[:, i]
+        return source, id
+
+    def decompose(self, pos, smoothing=None, transform=None):
+        """The domain plan of ``pos``: on one device the trivial
+        single-domain Layout, whose exchange and gather are identities."""
+        _not_sharded(self, "decompose")
+        if smoothing is None:
+            smoothing = self.resampler
+        try:
+            smoothing = FindResampler(smoothing).support * 0.5
+        except TypeError:
+            pass
+        return Layout(smoothing=smoothing, npart=len(pos))
+
+    def paint(self, pos, hsml=None, mass=1.0, resampler=None, transform=None,
+              hold=False, gradient=None, layout=None, out=None,
+              hsml_max=None):
+        """Paint particles to a RealField through the generic paint
+        (``ops/paint.py``): a new field, or ``out`` rebound (its value
+        added to with ``hold``).  ``hsml`` scales each particle's
+        support; ``gradient`` = d paints with the derivative window."""
+        _not_sharded(self, "ParticleMesh.paint")
+        if transform is None:
+            transform = self.affine
+        resampler = FindResampler(self.resampler if resampler is None
+                                  else resampler)
+        if layout is not None:
+            pos = layout.exchange(pos)
+            mass = layout.exchange_scalar(mass)
+            hsml = layout.exchange_scalar(hsml)
+        if out is None:
+            out = self.create(type=RealField)
+        base = out.value if hold else torch.zeros_like(out.value)
+        painted = _paint_ops.paint(base, pos, mass=mass,
+                                   window=resampler.window,
+                                   scale=transform.scale,
+                                   translate=transform.translate,
+                                   period=transform.period,
+                                   diffdir=gradient, hsml=hsml,
+                                   hsml_max=hsml_max)
+        out.value = painted.to(out.dtype)
+        return out
+
+    def generate_whitenoise(self, seed, unitary=False, mean=0,
+                            type=ComplexField, mode=None, compat='gadget'):
+        """Resolution-invariant hermitian white noise
+        (``whitenoise.py``): compat='gadget' reproduces N-GenIC's modes
+        bit for bit (a host fill, moved to the device), compat='native'
+        is the counter-based generator on the device, bitwise the JAX
+        package's under x64.  The DC mode is ``mean``; the field is cast
+        to ``type``."""
+        from . import whitenoise
+        _not_sharded(self, "generate_whitenoise")
+        if mode is not None and type is None:
+            type = mode
+        type = _field_type(type)
+        complex_type = (UntransposedComplexField
+                        if issubclass(type, RealField) else type)
+        shape, dtype = self._shape_dtype(complex_type)
+        value = whitenoise.generate(
+            tuple(int(n) for n in self.Nmesh), shape, seed, bool(unitary),
+            dtype=dtype, compat=compat, device=self.device)
+        complex = self.create(type=complex_type, value=value)
+
+        def filter(k, v):
+            mask = functools.reduce(torch.logical_and,
+                                    [ki == 0 for ki in k])
+            return torch.where(mask, mean, v)
+        complex.apply(filter, out=Ellipsis)
+        return complex.cast(type=type)
+
+
+def _torch_dtype(dtype):
+    return {np.dtype('f4'): torch.float32, np.dtype('f8'): torch.float64,
+            np.dtype('i4'): torch.int32,
+            np.dtype('i8'): torch.int64}[np.dtype(dtype)]

@@ -1,20 +1,15 @@
 """Affine transforms and the resampling-window registry.
 
 Counterpart of ``pmesh_tpu/window.py``: ``Affine``, ``ResampleWindow``
-and ``FindResampler``.  The generic scatter
-``paint``/``readout`` of arbitrary particle positions is not ported
-yet; the lattice path (``ops/gridpm.py``) is the port's paint and
-readout.
+(with the generic ``paint``/``readout`` of ``ops/paint.py``) and
+``FindResampler``.
 """
 import numpy as np
 
 from .ops.kernels import Window, windows, find_window
+from .ops import paint as _paint_ops
 
 __all__ = ["Affine", "ResampleWindow", "FindResampler"]
-
-_GENERIC = ("the generic scatter paint/readout is not ported yet "
-            "(ROADMAP queue 1, item 3); use ops.gridpm for lattice "
-            "particles")
 
 
 class Affine(object):
@@ -31,13 +26,25 @@ class Affine(object):
         self.period = np.empty(ndim, dtype='intp')
         self.period[:] = 0 if period is None else period
 
+    def rescale(self, amount):
+        """A new Affine with the scale multiplied by amount."""
+        return Affine(self.ndim, self.scale * amount, self.translate,
+                      self.period)
+
+    def shift(self, amount):
+        """A new Affine with translate shifted by amount (mesh units)."""
+        return Affine(self.ndim, self.scale, self.translate + amount,
+                      self.period)
+
 
 class ResampleWindow(object):
-    """A named resampling window: ``.kind``, ``.support`` and
-    ``.window`` (the ops.kernels.Window)."""
+    """A named resampling window: ``.kind``, ``.support``, ``.window``
+    (the ops.kernels.Window), and the generic paint and readout."""
 
-    def __init__(self, kind):
+    def __init__(self, kind, support=-1):
         self._w = find_window(kind)
+        if support > 0 and support != self._w.nativesupport:
+            self._w = self._w.resize(support)
         self.kind = self._w.kind
 
     @property
@@ -48,14 +55,37 @@ class ResampleWindow(object):
     def window(self):
         return self._w
 
+    def resize(self, support):
+        return ResampleWindow(self.kind, support)
+
     def get_fwindow(self, w):
         return self._w.get_fwindow(w)
 
-    def paint(self, *args, **kwargs):
-        raise NotImplementedError(_GENERIC)
+    def get_compensation(self):
+        return self._w.get_compensation()
 
-    def readout(self, *args, **kwargs):
-        raise NotImplementedError(_GENERIC)
+    def paint(self, real, pos, hsml=None, mass=None, diffdir=None,
+              transform=None):
+        """``real`` plus the paint of ``pos``: a new tensor (``real`` is
+        not changed)."""
+        if transform is None:
+            transform = Affine(pos.shape[-1])
+        return _paint_ops.paint(real, pos, mass=1.0 if mass is None
+                                else mass, window=self._w,
+                                scale=transform.scale,
+                                translate=transform.translate,
+                                period=transform.period, diffdir=diffdir,
+                                hsml=hsml)
+
+    def readout(self, real, pos, hsml=None, diffdir=None, transform=None):
+        """The values of ``real`` at ``pos``, a new tensor."""
+        if transform is None:
+            transform = Affine(pos.shape[-1])
+        return _paint_ops.readout(real, pos, window=self._w,
+                                  scale=transform.scale,
+                                  translate=transform.translate,
+                                  period=transform.period, diffdir=diffdir,
+                                  hsml=hsml)
 
 
 # reference names of the analytic windows
@@ -67,13 +97,16 @@ def FindResampler(window):
     """Resolve a name / ResampleWindow / Window to a ResampleWindow."""
     if isinstance(window, ResampleWindow):
         return window
+    if isinstance(window, Window):
+        r = ResampleWindow.__new__(ResampleWindow)
+        r._w = window
+        r.kind = window.kind
+        return r
     if isinstance(window, str):
         kind = window.lower()
         window = _CANONICAL.get(kind, kind)
         if window not in windows:
             raise TypeError("not a ResampleWindow name: %r" % (window,))
-    if not isinstance(window, (str, Window)):
-        raise TypeError(
-            "argument is not a ResampleWindow name or object: %r"
-            % (window,))
-    return ResampleWindow(window)
+        return ResampleWindow(window)
+    raise TypeError("argument is not a ResampleWindow name or object: %r"
+                    % (window,))

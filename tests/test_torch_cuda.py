@@ -1827,3 +1827,60 @@ def test_sharded_on_the_card_matches_one_device(dev):
             g = np.concatenate([o[5][part][j] for o in out], axis)
             r = r.cpu().numpy()
             assert np.abs(g - r).max() <= TOL * np.abs(r).max(), (part, j)
+
+
+# --- the catalog path: torch calls on CUDA tensors, no hand kernel --------
+
+@pytest.mark.parametrize("window, hsml", [('cic', False), ('tsc', True),
+                                          ('lanczos3', False)])
+def test_catalog_paint_readout_card_vs_cpu(dev, window, hsml):
+    from pmesh_tpu_torch.ops import paint as gpaint
+    rng = np.random.RandomState(5)
+    n = 32
+    pos = torch.from_numpy(rng.uniform(-1, n + 1, (20000, 3)).astype('f4'))
+    mass = torch.from_numpy(rng.uniform(0.5, 1.5, 20000).astype('f4'))
+    mesh = torch.from_numpy(rng.normal(size=(n,) * 3).astype('f4'))
+    h = torch.from_numpy(rng.uniform(0.6, 1.3, 20000).astype('f4')) \
+        if hsml else None
+    kw = dict(window=window, scale=0.95, translate=0.5, period=n)
+    ref = gpaint.paint(torch.zeros_like(mesh), pos, mass, hsml=h, **kw)
+    got = gpaint.paint(torch.zeros_like(mesh).to(dev), pos.to(dev),
+                       mass.to(dev), hsml=None if h is None else h.to(dev),
+                       **kw)
+    assert got.device.type == dev.type and _rel(got.cpu(), ref) <= TOL
+    if window == 'cic':
+        # CIC weights sum to 1: the atomics keep the mass to rounding
+        total = float(mass.double().sum())
+        assert abs(float(got.double().sum()) - total) <= 1e-5 * total
+    meshes = (mesh, 2 * mesh, -mesh)
+    ref = gpaint.readout(meshes, pos, hsml=h, **kw)
+    got = gpaint.readout(tuple(m.to(dev) for m in meshes), pos.to(dev),
+                         hsml=None if h is None else h.to(dev), **kw)
+    for r, g in zip(ref, got):
+        assert g.device.type == dev.type and _rel(g.cpu(), r) <= TOL
+
+
+def test_catalog_native_whitenoise_card_bitwise(dev):
+    from pmesh_tpu_torch import whitenoise
+    shape = (32, 32, 17)
+    cpu = whitenoise.native_uniforms((32,) * 3, shape, 42, 'cpu')
+    card = whitenoise.native_uniforms((32,) * 3, shape, 42, dev)
+    for a, b in zip(cpu, card):
+        assert b.device.type == dev.type and torch.equal(a, b.cpu())
+
+
+def test_catalog_force_card_vs_cpu(dev):
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.models.powerspectrum import EHPower
+    from pmesh_tpu_torch.models.cosmology import Planck15
+    out = {}
+    for device in ('cpu', dev):
+        pm = ParticleMesh([16] * 3, BoxSize=32.0, dtype='f4', device=device)
+        solver = Solver(pm, B=2)
+        state = solver.lpt(solver.linear_field(EHPower(Planck15), 7), 0.5)
+        out[str(device)] = [solver.force(state.X, mode=m).cpu()
+                            for m in ('spectral', 'gradient')]
+        assert state.S.device.type == torch.device(device).type
+    for r, g in zip(out['cpu'], out[str(dev)]):
+        assert _rel(g, r) <= 1e-4

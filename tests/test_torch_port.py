@@ -52,6 +52,12 @@ def test_imports_without_jax():
         "import pmesh_tpu_torch.parallel.halo\n"
         "import pmesh_tpu_torch.parallel.pfft\n"
         "import pmesh_tpu_torch.parallel.launch\n"
+        "import pmesh_tpu_torch.parallel.domain\n"
+        "import pmesh_tpu_torch.ops.paint, pmesh_tpu_torch.ops.power\n"
+        "import pmesh_tpu_torch.whitenoise, pmesh_tpu_torch.invariant\n"
+        "import pmesh_tpu_torch.native.runtime\n"
+        "import pmesh_tpu_torch.models.genic\n"
+        "import pmesh_tpu_torch.models.powerspectrum\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_sharded_cases\n"
         "assert not [m for m in sys.modules if m.startswith('jax') and\n"
@@ -141,11 +147,22 @@ def test_resampler_registry():
             == jwin.FindResampler(name).kind
         assert twin.FindResampler(name).support \
             == jwin.FindResampler(name).support
-    r = twin.FindResampler('tsc')
-    with pytest.raises(NotImplementedError, match='queue 1, item 3'):
-        r.paint(None, None)
-    with pytest.raises(NotImplementedError, match='queue 1, item 3'):
-        r.readout(None, None)
+    # the generic paint and readout agree with the JAX package's at 8^3
+    rng = np.random.RandomState(1)
+    pos = rng.uniform(0, 8, size=(50, 3))
+    mesh = rng.normal(size=(8, 8, 8))
+    jr, tr = jwin.FindResampler('tsc'), twin.FindResampler('tsc')
+    jt, tt = jwin.Affine(3, period=8), twin.Affine(3, period=8)
+    ref = np.asarray(jr.paint(jnp.zeros((8, 8, 8)), jnp.asarray(pos),
+                              transform=jt))
+    got = tr.paint(torch.zeros((8, 8, 8), dtype=torch.float64),
+                   torch.from_numpy(pos), transform=tt).numpy()
+    assert np.abs(got - ref).max() <= 1e-10 * np.abs(ref).max()
+    ref = np.asarray(jr.readout(jnp.asarray(mesh), jnp.asarray(pos),
+                                transform=jt))
+    got = tr.readout(torch.from_numpy(mesh), torch.from_numpy(pos),
+                     transform=tt).numpy()
+    assert np.abs(got - ref).max() <= 1e-10 * np.abs(ref).max()
 
 
 @pytest.mark.parametrize("dtype", ['f4', 'f8'])
