@@ -150,10 +150,31 @@ phase 11, run beside phases 4, 6 and 7:
    card against CPU within 1e-4, and the native white noise at 64^3,
    card against CPU, bitwise in its uniforms.
 
+The applications on the port's field core add phase 12, run after
+phase 11:
+
+12. (a) gravpm's catalog mode (models/gravpm.run_sim) at phase 11's
+   configuration with bigfile snapshots at a = 0.5 and 1, read back with
+   read_ic: the final Position/Velocity/ID and both P(k) blocks bitwise
+   what was written, mass conserved, and the three lowest k bins of
+   P(1)/P(0.55) within 5 % of (D1(1)/D1(0.55))^2; its ms per KDK step
+   from the run's own timers; (b) its lattice mode with fft='mxu' at
+   512^3 from a = 0.1 to 0.2 (5 KDK steps): the box is 1024 Mpc/h unless
+   the run's displacement bounds (the LPT extremes x 1.3 x growth) need
+   more than NV_MAX CIC offsets per axis, then 2048; finite, no warning,
+   mass conserved, and the launch counters, set to 0 just before the run
+   and read just after, showing the lattice paint and readout and the
+   four ct2 DFT kernels; (c) resample, upsample/downsample, preview,
+   cgetitem/csetitem, a c2c round trip, every *_vjp/*_jvp method and
+   Klein-Gordon's ring soliton (32^2, 21 steps) at 32^3 f8, card against
+   CPU within 1e-10, and the vjp/jvp methods against central differences
+   on the card within 1e-5.
+
 The second-to-last line is the kernels' JSON record, the last line
 the device record.
 """
 import json
+import os
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 import sys
@@ -3965,49 +3986,527 @@ def phase_catalog_small(dev, n=CAT_SMALL):
         raise AssertionError("the native white noise differs on the card")
 
 
+# --- the applications and the rest of the field core (phase 12) ------------
+#
+# (a) gravpm's catalog mode at phase 11's configuration, its bigfile
+# snapshots at a = 0.5 and 1 read back; (b) its lattice mode with
+# fft='mxu' at 512^3 from a = 0.1 to 0.2 (phase 4's range), which runs
+# the lattice paint and readout and the four ct2 DFT kernels; (c) the
+# field API, the analytic vjp/jvp methods and Klein-Gordon at small
+# sizes in f8, card against CPU and against central differences.
+APP_SNAPS = [0.5, 1.0]
+LAT_BOX = 1024.0            # Mpc/h: 2 Mpc/h cells, widened if nv > NV_MAX
+LAT_STEPS = 6               # 5 KDK steps, a = 0.1 .. 0.2
+APP_SMALL = 32
+TOL_APP = 1e-10             # f8 card vs CPU, of max|CPU|
+TOL_FD = 1e-5               # vjp/jvp against central differences
+
+
+def phase_apps_catalog(dev, ref_step_ms=None):
+    """gravpm.run_sim in catalog mode at phase 11's configuration with
+    bigfile snapshots, read back with read_ic"""
+    import tempfile
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models import gravpm
+    from pmesh_tpu_torch.models.cosmology import Planck15
+    from pmesh_tpu_torch.utils.timers import Timers
+    nsteps = len(CAT_STEPS) - 1
+    timers = Timers()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        final, spectra = gravpm.run_sim(
+            nmesh=CAT_N, boxsize=CAT_BOX, boost=CAT_B, resampler='cic',
+            seed=SEED, ainit=CAT_STEPS[0], afinal=CAT_STEPS[-1],
+            steps=len(CAT_STEPS), order=2, unitary=False, compat='gadget',
+            dtype='f4', snapshot_times=APP_SNAPS, output=tmp,
+            monitor_print=False, device=dev, timers=timers)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        snaps = sorted(os.listdir(tmp))
+        t0 = time.perf_counter()
+        back = [gravpm.read_ic(os.path.join(tmp, s)) for s in snaps]
+        from pmesh_tpu_torch.utils import bigfile
+        pk = [(bigfile.BigFile(os.path.join(tmp, s))['PowerSpectrum/k']
+               .read(), bigfile.BigFile(os.path.join(tmp, s))
+               ['PowerSpectrum/P'].read()) for s in snaps]
+        t_read = time.perf_counter() - t0
+    npart = CAT_N ** 3
+    X, V = final.X.cpu().numpy(), final.V.cpu().numpy()
+    pos, vel, ids, attrs = back[-1]
+    same = (pos.tobytes() == X.tobytes() and vel.tobytes() == V.tobytes()
+            and np.array_equal(ids, np.arange(npart)))
+    spectra_same = len(pk) == len(spectra) and all(
+        k.tobytes() == sk.tobytes() and p.tobytes() == sp.tobytes()
+        for (k, p), (_, sk, sp) in zip(pk, spectra))
+    times = [float(b[3]['Time']) for b in back]
+    finite = all(np.isfinite(b[0]).all() and np.isfinite(b[1]).all()
+                 for b in back)
+    mass = float(ParticleMesh(
+        [CAT_N * CAT_B] * 3, BoxSize=CAT_BOX, dtype='f4', resampler='cic',
+        device=dev).paint(final.X).value.double().sum())
+    mass_err = abs(mass - npart) / npart
+    (a0, k, p0), (a1, _, p1) = spectra
+    low = [i for i in range(len(k)) if k[i] > 0][:3]
+    growth = (Planck15.D1(a1) / Planck15.D1(a0)) ** 2
+    ratios = [float(p1[i] / p0[i]) / growth for i in low]
+    rep = timers.report()
+    # both snapshots are taken inside the loop, so its stepping alone is
+    # the loop's time less theirs: nbody's first force and 10 KDK steps
+    step_ms = (rep['nbody'][0] - rep['measure'][0]) / nsteps * 1e3
+    log("phase 12 gravpm catalog on %s: run_sim(nmesh=%d, boost=%d, f4, "
+        "cic, gadget seed %d, %d steps a=%.2f..%.2f, snapshots %s) in "
+        "%.3f s (first run): IC %.3f s, nbody %.3f s with %d snapshots "
+        "(%.3f s), %.3f ms per KDK step (nbody less the snapshots, over %d "
+        "steps, its initial force included; phase 11 %s ms); peak %.2f GB"
+        % (CARD, CAT_N, CAT_B, SEED, len(CAT_STEPS), CAT_STEPS[0],
+           CAT_STEPS[-1], APP_SNAPS, wall, rep['ic'][0], rep['nbody'][0],
+           rep['measure'][1], rep['measure'][0], step_ms, nsteps,
+           "not run" if ref_step_ms is None else "%.3f" % ref_step_ms,
+           peak_gb))
+    log("phase 12 gravpm catalog snapshots: %s at a = %s, read back in "
+        "%.3f s: final Position/Velocity/ID bitwise the state %s, P(k) "
+        "blocks bitwise the spectra %s, finite %s, mass error %.3e (tol "
+        "%.0e)" % (snaps, times, t_read, same, spectra_same, finite,
+                   mass_err, TOL_MASS))
+    log("phase 12 gravpm catalog P(k) on %s: a=%.2f %s; a=%.2f %s at k = "
+        "%s h/Mpc; P ratio / (D1(%.2f)/D1(%.2f))^2 = %s (tol %.2f)"
+        % (CARD, a0, " ".join("%.2f" % p0[i] for i in low), a1,
+           " ".join("%.2f" % p1[i] for i in low),
+           " ".join("%.5f" % k[i] for i in low), a1, a0,
+           " ".join("%.4f" % r for r in ratios), TOL_GROWTH))
+    if not (same and spectra_same and finite and len(snaps) == 2
+            and times == [a0, a1]):
+        raise AssertionError("gravpm's snapshots do not read back as "
+                             "written")
+    if not mass_err <= TOL_MASS:
+        raise AssertionError("gravpm's final state does not conserve mass")
+    if not all(abs(r - 1.0) <= TOL_GROWTH for r in ratios):
+        raise AssertionError("gravpm's lowest k bins did not grow as D1^2")
+    del final
+    torch.cuda.empty_cache()
+    return step_ms
+
+
+def lattice_box(dev):
+    """the box of the 512^3 lattice run: LAT_BOX, doubled while the
+    displacement bounds run_sim will take need more than NV_MAX offsets
+    per axis; returns (box, bounds, nv)"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models import gravpm
+    from pmesh_tpu_torch.models.cosmology import Planck15
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.models.powerspectrum import EHPower
+    from pmesh_tpu_torch.ops import gridpm as gp
+    from pmesh_tpu_torch.ops.gridpm_cuda import NV_MAX
+    a0, a1 = STEPS[0], STEPS[-1]
+    for box in (LAT_BOX, 2 * LAT_BOX):
+        # run_sim's defaults: unitary native noise, 2LPT
+        pm = ParticleMesh([N] * 3, BoxSize=box, dtype='f4', resampler='cic',
+                          device=dev)
+        solver = Solver(pm, Planck15)
+        dlin = solver.linear_field(EHPower(Planck15, redshift=0.0), SEED,
+                                   unitary=True, compat='native')
+        disp, _ = solver.lpt_lattice(dlin, a0=a0, order=2)
+        lo, hi = (float(b) for b in gp.displacement_bounds(disp))
+        bounds = gravpm.lattice_bounds(solver, disp, a0, a1)
+        vmin, vmax = gp.offset_range(*bounds, 'cic')
+        nv = vmax - vmin + 1
+        log("phase 12 gravpm lattice bounds: %d^3 box %.0f Mpc/h, LPT "
+            "displacements [%.4f, %.4f] cells at a=%.2f, bounds (%.4f, "
+            "%.4f) cells to a=%.2f, CIC offsets per axis %d (NV_MAX %d)"
+            % (N, box, lo, hi, a0, bounds[0], bounds[1], a1, nv, NV_MAX))
+        del dlin, disp, solver
+        if nv <= NV_MAX:
+            return box, bounds, nv
+    raise AssertionError("the lattice bounds need more than NV_MAX offsets "
+                         "even in a %.0f Mpc/h box" % box)
+
+
+def phase_apps_lattice(dev):
+    """gravpm.run_sim in lattice mode with fft='mxu' at 512^3: the
+    launch counters set to 0 just before and read just after; then the
+    lattice kernels against plain on the run's final state"""
+    import warnings
+    from pmesh_tpu_torch.models import gravpm
+    from pmesh_tpu_torch.ops import gridpm as gp
+    from pmesh_tpu_torch.utils.timers import Timers
+    box, bounds, nv = lattice_box(dev)
+    torch.cuda.empty_cache()
+    timers = Timers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        (S, V), spectra = gravpm.run_sim(
+            nmesh=N, boxsize=box, boost=1, resampler='cic', seed=SEED,
+            ainit=STEPS[0], afinal=STEPS[-1], steps=LAT_STEPS, order=2,
+            dtype='f4', lattice=True, fft='mxu', monitor_print=False,
+            device=dev, timers=timers)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in counters().items() if v}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite = all(bool(torch.isfinite(x).all()) for x in S + V)
+    lo, hi = (float(b) for b in gp.displacement_bounds(S))
+    rho = gp.paint_grid(S, bounds=bounds)
+    mass_err = abs(float(rho.double().sum()) - N ** 3) / N ** 3
+    del rho
+    rep = timers.report()
+    nsteps = LAT_STEPS - 1
+    warned = [str(w.message) for w in caught]
+    need = ("paint_lattice", "readout_lattice") + tuple(MXU_PER_FORCE)
+    log("phase 12 gravpm lattice on %s: run_sim(nmesh=%d, box %.0f Mpc/h, "
+        "f4, cic, lattice, fft='mxu', %d KDK steps a=%.2f..%.2f) in %.3f s "
+        "(first run): IC %.3f s, nbody %.3f s = %.3f ms per KDK step (its "
+        "initial force included), P(k) %.3f s; bounds (%.4f, %.4f) cells, "
+        "nv %d; final displacements [%.4f, %.4f] cells, finite %s, mass "
+        "error %.3e (tol %.0e), warnings %s, peak %.2f GB; launches %s"
+        % (CARD, N, box, nsteps, STEPS[0], STEPS[-1], wall, rep['ic'][0],
+           rep['nbody'][0], rep['nbody'][0] / nsteps * 1e3,
+           rep['measure'][0], bounds[0], bounds[1], nv, lo, hi, finite,
+           mass_err, TOL_MASS, warned, peak_gb, json.dumps(launches)))
+    a, k, p = spectra[-1]
+    log("phase 12 gravpm lattice P(k) at a=%.2f: %s at k = %s h/Mpc"
+        % (a, " ".join("%.2f" % v for v in p[1:4]),
+           " ".join("%.5f" % v for v in k[1:4])))
+    if not finite or warned:
+        raise AssertionError("the lattice run left its bounds or warned")
+    if not mass_err <= TOL_MASS:
+        raise AssertionError("the lattice paint does not conserve mass")
+    if not all(launches.get(name) for name in need):
+        raise AssertionError("the lattice run did not launch every kernel "
+                             "of its path: %s" % (need,))
+    lattice_parity(dev, S, bounds, nv)
+    del S, V
+    # the first run built the DFT tables and warmed the kernels: time a
+    # second run of the same configuration
+    timers = Timers()
+    (S, V), _ = gravpm.run_sim(
+        nmesh=N, boxsize=box, boost=1, resampler='cic', seed=SEED,
+        ainit=STEPS[0], afinal=STEPS[-1], steps=LAT_STEPS, order=2,
+        dtype='f4', lattice=True, fft='mxu', monitor_print=False,
+        device=dev, timers=timers)
+    rep = timers.report()
+    log("phase 12 gravpm lattice timing on %s: second run, IC %.3f s, "
+        "nbody %.3f s = %.3f ms per KDK step (its initial force included), "
+        "P(k) %.3f s" % (CARD, rep['ic'][0], rep['nbody'][0],
+                         rep['nbody'][0] / nsteps * 1e3, rep['measure'][0]))
+    profile_lattice_step(dev, box, S, V, bounds, nv)
+    del S, V
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lattice_parity(dev, S, bounds, nv):
+    """the paint and the three-mesh readout at the lattice run's own
+    shape and run-time width: kernel against plain on the run's final
+    displacements and bounds, three random meshes read (after the
+    counters were read, so these launches are not counted)"""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    meshes = tuple(torch.randn(S[0].shape, generator=gen, device=dev)
+                   for _ in range(3))
+    cases = lattice_cases(S, meshes, bounds)
+    for name in ("paint", "readout 3 meshes"):
+        kernel, fn = cases[name]
+        t0 = time.perf_counter()
+        rel, abs_err = max_rel(fn('cuda'), fn('torch'))
+        ok = rel <= TOL_KERNEL and np.isfinite(rel)
+        log("phase 12 compare: %-16s %d^3 bounds (%.4f, %.4f) nv=%d (read "
+            "at run time) on the lattice run's final state  max|k-p|/max|p|"
+            " = %.3e, max|k-p| = %.3e (tol %.0e) %s in %.3f s"
+            % (name, S[0].shape[0], bounds[0], bounds[1], nv, rel, abs_err,
+               TOL_KERNEL, "ok" if ok else "FAIL", time.perf_counter() - t0))
+        if not ok:
+            raise AssertionError("%s disagrees with its plain version on "
+                                 "the lattice run's state" % kernel)
+    del meshes
+    torch.cuda.empty_cache()
+
+
+def profile_lattice_step(dev, box, S, V, bounds, nv):
+    """one warm KDK step of the gravpm lattice state under torch.profiler
+    (nbody_lattice's initial force and the step's): wall, device busy
+    and idle share, device time by kernel family"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.cosmology import Planck15
+    from pmesh_tpu_torch.models.fastpm import Solver
+    pm = ParticleMesh([N] * 3, BoxSize=box, dtype='f4', resampler='cic',
+                      device=dev)
+    solver = Solver(pm, Planck15)
+    steps = [STEPS[-1], STEPS[-1] + 0.01]
+    solver.nbody_lattice(S, V, steps, bounds, fft='mxu')
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        solver.nbody_lattice(S, V, steps, bounds, fft='mxu')
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fams, spans = {}, []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        fam = family(e.name)
+        fams[fam] = fams.get(fam, 0.0) + (b - a) / 1e3
+    if not spans:
+        raise AssertionError("the profiler recorded no device event")
+    busy = busy_us(spans) / 1e3
+    log("phase 12 profile: one gravpm lattice KDK step (two forces) at "
+        "%d^3, nv %d, fft='mxu' on %s: wall %.3f ms, device busy %.3f ms, "
+        "idle %.4f" % (N, nv, CARD, wall_ms, busy, 1.0 - busy / wall_ms))
+    for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
+        log("  %-46s %10.3f ms  %5.1f %%" % (fam, ms, 100.0 * ms / busy))
+    for fam in ("paint_lattice", "readout_lattice"):
+        if not fams.get(fam):
+            raise AssertionError("the lattice step ran no %s on the card"
+                                 % fam)
+
+
+def field_api_run(device, n=APP_SMALL):
+    """the field API's outputs at n^3 f8 on ``device``, from one numpy
+    seed: a list of (name, tensor)"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.pm import TransposedComplexField, RealField
+    from pmesh_tpu_torch.models import kleingordon as kg
+    rng = np.random.RandomState(SEED)
+    x = rng.normal(size=(n,) * 3)
+    pos = rng.uniform(0, 2.0 * n, (4096, 3))
+    mass = rng.uniform(0.5, 1.5, 4096)
+    v_pos, v_mass = rng.normal(size=(4096, 3)), rng.normal(size=4096)
+    y = rng.normal(size=(n,) * 3)
+    t = {k: torch.from_numpy(a).to(device) for k, a in dict(
+        x=x, pos=pos, mass=mass, v_pos=v_pos, v_mass=v_mass, y=y).items()}
+    pm = ParticleMesh([n] * 3, BoxSize=2.0 * n, device=device)
+    real = pm.create(type='real', value=t['x'])
+    vf = pm.create(type='real', value=t['y'])
+    comp = real.r2c()
+    out = []
+    for m in (n // 2, 3 * n // 2):
+        o = pm.reshape(Nmesh=m).create(type='complex')
+        comp.resample(o)
+        out.append(("resample to %d^3" % m, o.value))
+    out.append(("downsample", pm.reshape(Nmesh=n // 2).downsample(
+        real, keep_mean=True).value))
+    out.append(("upsample", pm.reshape(Nmesh=2 * n).upsample(
+        real, resampler='tsc').value))
+    out.append(("preview", torch.from_numpy(
+        real.preview(Nmesh=n // 2, axes=(2, 0)))))
+    c = comp.copy()
+    for ind, val in (([1, 2, 3], 1 + 2j), ([n - 1, 0, 0], 0.5 - 1j),
+                     ([0, 0, n // 2], 2.0), ([3, 4, 5, 1], 0.25)):
+        c.csetitem(ind, val)
+    got = [c.cgetitem(i) for i in ([1, 2, 3], [n - 1, 0, 0], [1, 0, 0],
+                                   [3, 4, 5], [n - 3, n - 4, n - 5])]
+    out.append(("csetitem", c.value))
+    out.append(("cgetitem", torch.tensor(np.asarray(got))))
+    c2c = ParticleMesh([n] * 3, BoxSize=2.0 * n, dtype='c16', device=device)
+    z = c2c.create(type='real', value=torch.complex(t['x'], t['y']))
+    out.append(("c2c r2c", z.r2c().value))
+    out.append(("c2c round trip - input", z.r2c().c2r().value - z.value))
+    P, M, VP, VM = t['pos'], t['mass'], t['v_pos'], t['v_mass']
+    ms, mp = real.readout_vjp(P, VM)
+    out += [("readout_vjp self", ms.value), ("readout_vjp pos", mp)]
+    pp, pmass = pm.paint_vjp(vf, P, mass=M)
+    out += [("paint_vjp pos", pp), ("paint_vjp mass", pmass)]
+    out.append(("readout_jvp", real.readout_jvp(P, v_self=vf, v_pos=VP)))
+    out.append(("paint_jvp", pm.paint_jvp(P, mass=M, v_pos=VP,
+                                          v_mass=VM).value))
+    out.append(("c2r_vjp", RealField.c2r_vjp(vf).value))
+    out.append(("r2c_vjp", TransposedComplexField.r2c_vjp(comp).value))
+    out.append(("cdot_vjp", comp.cdot_vjp(vf.r2c()).value))
+    out.append(("decompress_vjp",
+                TransposedComplexField.decompress_vjp(comp).value))
+    kpm = ParticleMesh([32, 32], BoxSize=32.0, device=device)
+    u, du = kg.ring_soliton_ic(kpm)
+    out.append(("kleingordon 32^2 x 21 steps", kg.kgsolver(
+        np.linspace(0, 1.0, 21), u, du, torch.sin).value))
+    return out
+
+
+def fd_checks(dev, n=APP_SMALL):
+    """each vjp/jvp method on the card against central differences of
+    the function it differentiates: max|fd - method| / max|method|"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.gradcheck import central_difference
+    from pmesh_tpu_torch.pm import TransposedComplexField, RealField
+    rng = np.random.RandomState(SEED + 1)
+    pm = ParticleMesh([n] * 3, BoxSize=float(n), resampler='tsc',
+                      device=dev)
+
+    def T(a):
+        return torch.from_numpy(np.asarray(a)).to(dev)
+    pos = T(rng.uniform(0, n, (8, 3)))
+    mass, v = T(rng.uniform(0.5, 1.5, 8)), T(rng.normal(size=8))
+    f = pm.create(type='real', value=T(rng.normal(size=(n,) * 3)))
+    g = pm.create(type='real', value=T(rng.normal(size=(n,) * 3)))
+    near = np.unique(np.ravel_multi_index(
+        np.floor(pos.cpu().numpy()[:2]).astype(int).T % n, (n,) * 3))
+    gaps = {}
+
+    def gap(name, fd, ana):
+        fd, ana = torch.as_tensor(fd).reshape(-1), \
+            torch.as_tensor(ana).detach().cpu().reshape(-1)
+        gaps[name] = float((fd - ana).abs().max() / ana.abs().max())
+
+    def field(value, like=f):
+        return pm.create(type=type(like), value=value)
+    ms, mp = f.readout_vjp(pos, v)
+    _, fd = central_difference(lambda p: (f.readout(p) * v).sum(), pos,
+                               eps=1e-6)
+    gap("readout_vjp pos", fd, mp)
+    idx, fd = central_difference(
+        lambda m: (field(m).readout(pos) * v).sum(), f.value, eps=1e-6,
+        indices=near)
+    gap("readout_vjp self", fd, ms.value.reshape(-1)[idx])
+    pp, pmass = pm.paint_vjp(g, pos, mass=mass)
+    _, fd = central_difference(
+        lambda p: (pm.paint(p, mass=mass).value * g.value).sum(), pos,
+        eps=1e-6)
+    gap("paint_vjp pos", fd, pp)
+    _, fd = central_difference(
+        lambda m: (pm.paint(pos, mass=m).value * g.value).sum(), mass,
+        eps=1e-6)
+    gap("paint_vjp mass", fd, pmass)
+    vp, vm = T(rng.normal(size=(8, 3))), T(rng.normal(size=8))
+    eps = 1e-6
+    fd = (pm.paint(pos + eps * vp, mass=mass + eps * vm).value
+          - pm.paint(pos - eps * vp, mass=mass - eps * vm).value) / (2 * eps)
+    gap("paint_jvp", fd.cpu(), pm.paint_jvp(pos, mass=mass, v_pos=vp,
+                                            v_mass=vm).value)
+    fd = ((f + eps * g).readout(pos + eps * vp)
+          - (f - eps * g).readout(pos - eps * vp)) / (2 * eps)
+    gap("readout_jvp", fd.cpu(), f.readout_jvp(pos, v_self=g, v_pos=vp))
+    # the linear operators, probed at 48 entries each: r2c_vjp(v) is the
+    # gradient of Re cdot(r2c(x), v); c2r_vjp and cdot_vjp, weighted by
+    # the hermitian expansion, those of sum(c2r(X) v) and Re cdot(s, o)
+    probe = rng.choice(n ** 3 // 2, 48, replace=False)
+    vc = g.r2c()
+    idx, fd = central_difference(
+        lambda x: field(x).r2c().cdot(vc).real, f.value, eps=1e-6,
+        indices=probe)
+    gap("r2c_vjp", fd, TransposedComplexField.r2c_vjp(vc).value
+        .reshape(-1)[idx])
+
+    X = f.r2c()
+    w = RealField.c2r_vjp(g)
+    w = w.apply(w._expand_hermitian, kind='index').value.reshape(-1)
+    _, fd = central_difference(
+        lambda z: (pm.create(type='complex', value=z).c2r().value
+                   * g.value).sum(), X.value, eps=1e-6, indices=probe)
+    gap("c2r_vjp", fd, w[probe])
+    w = X.cdot_vjp(1.0)
+    w = w.apply(w._expand_hermitian, kind='index').value.reshape(-1)
+    _, fd = central_difference(
+        lambda z: X.cdot(pm.create(type='complex', value=z)).real,
+        vc.value, eps=1e-6, indices=probe)
+    gap("cdot_vjp", fd, w[probe])
+    return gaps
+
+
+def phase_apps_small(dev):
+    """the field API, the vjp/jvp methods and Klein-Gordon at 32^3 (32^2)
+    f8, card against CPU; the vjp/jvp methods against central
+    differences on the card"""
+    t0 = time.perf_counter()
+    card = field_api_run(dev)
+    cpu = field_api_run('cpu')
+    t_run = time.perf_counter() - t0
+    worst = 0.0
+    bad = []
+    for (name, g), (_, r) in zip(card, cpu):
+        g = g.cpu()
+        if name.startswith("c2c round trip"):
+            err = float(g.abs().max())
+        else:
+            err = float((g - r).abs().max() / r.abs().max().clamp_min(1e-300))
+        worst = max(worst, err)
+        if not err <= TOL_APP:
+            bad.append("%s %.3e" % (name, err))
+    t0 = time.perf_counter()
+    gaps = fd_checks(dev)
+    t_fd = time.perf_counter() - t0
+    log("phase 12 field API on %s: %d^3 f8 (Klein-Gordon 32^2, 21 steps): "
+        "%d outputs, card against CPU max rel %.3e (tol %.0e) in %.3f s; "
+        "central differences (tsc, f8) max|fd - method|/max|method|: %s "
+        "(tol %.0e) in %.3f s"
+        % (CARD, APP_SMALL, len(card), worst, TOL_APP, t_run,
+           ", ".join("%s %.2e" % kv for kv in gaps.items()), TOL_FD, t_fd))
+    if bad:
+        raise AssertionError("the field API differs on the card: "
+                             + "; ".join(bad))
+    if not all(v <= TOL_FD for v in gaps.values()):
+        raise AssertionError("a vjp/jvp method disagrees with central "
+                             "differences")
+
+
+PHASE_TIMES = []
+
+
+def timed(phase, *args):
+    """phase(*args), its wall time kept in PHASE_TIMES"""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    PHASE_TIMES.append((phase.__name__[len("phase_"):],
+                        time.perf_counter() - t0))
+    return out
+
+
 def main():
-    phase_device()
+    start = time.perf_counter()
+    timed(phase_device)
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build()
-    records = phase_compare(dev)
-    lattice_bf16, lattice_bf16_launches = phase_compare_lattice_bf16(dev)
+    timed(phase_build)
+    records = timed(phase_compare, dev)
+    lattice_bf16, lattice_bf16_launches = timed(phase_compare_lattice_bf16,
+                                                dev)
     records.update(lattice_bf16)
-    records.update(phase_compare_rebase(dev))
-    records.update(phase_compare_fft(dev))
-    records.update(phase_compare_dense(dev))
-    records.update(phase_compare_ref(dev))
-    records.update(phase_compare_bf16(dev))
-    records.update(phase_compare_slab(dev))
-    launches, xla = phase_main(dev)
+    for phase in (phase_compare_rebase, phase_compare_fft,
+                  phase_compare_dense, phase_compare_ref, phase_compare_bf16,
+                  phase_compare_slab):
+        records.update(timed(phase, dev))
+    launches, xla = timed(phase_main, dev)
     pm, dlinear = xla['pm'], xla['dlinear']
     three_mesh = xla['three_mesh']
-    mxu_launches, mxu = phase_main_mxu(dev, xla)
-    bf16_launches = phase_main_bf16(dev, mxu)
-    row13_launches, row13_bf16_launches = phase_row13(dev, pm, dlinear)
-    phase_grad(dev, pm, dlinear)
-    phase_catalog_lattice(dev, pm, dlinear)
+    mxu_launches, mxu = timed(phase_main_mxu, dev, xla)
+    bf16_launches = timed(phase_main_bf16, dev, mxu)
+    row13_launches, row13_bf16_launches = timed(phase_row13, dev, pm,
+                                                dlinear)
+    timed(phase_grad, dev, pm, dlinear)
+    timed(phase_catalog_lattice, dev, pm, dlinear)
     del pm, dlinear
-    phase_catalog(dev)
-    binned_launches, clustered = phase_binned_clustered(dev)
-    dense_bf16_launches = phase_clustered_timed(clustered)
-    phase_binned_timed(dev)
-    phase_small(dev)
-    phase_small(dev, MXU_SMALL, np.asarray(MXU_SMALL, float), 'mxu')
-    phase_small(dev, DENSE_SMALL, np.asarray(DENSE_SMALL, float), 'mxu')
-    phase_small_binned(dev)
-    phase_catalog_small(dev)
-    phase_small_grad(dev, (32,) * 3, 64.0, 'xla')
-    phase_small_grad(dev, MXU_SMALL, np.asarray(MXU_SMALL, float), 'mxu')
+    catalog = timed(phase_catalog, dev)
+    timed(phase_apps_catalog, dev, catalog['step_ms'])
+    timed(phase_apps_lattice, dev)
+    timed(phase_apps_small, dev)
+    binned_launches, clustered = timed(phase_binned_clustered, dev)
+    dense_bf16_launches = timed(phase_clustered_timed, clustered)
+    timed(phase_binned_timed, dev)
+    timed(phase_small, dev)
+    for shape in (MXU_SMALL, DENSE_SMALL):
+        timed(phase_small, dev, shape, np.asarray(shape, float), 'mxu')
+    timed(phase_small_binned, dev)
+    timed(phase_catalog_small, dev)
+    timed(phase_small_grad, dev, (32,) * 3, 64.0, 'xla')
+    timed(phase_small_grad, dev, MXU_SMALL, np.asarray(MXU_SMALL, float),
+          'mxu')
     for shape, fft in ((MXU_SMALL, 'mxu_bf16'), (MXU_SMALL, 'mxu_bf16s'),
                        (DENSE_SMALL, 'mxu_bf16')):
-        phase_small(dev, shape, np.asarray(shape, float), fft)
-    phase_small_grad(dev, MXU_SMALL, np.asarray(MXU_SMALL, float),
-                     'mxu_bf16')
-    sharded = phase_sharded(dev)
-    phase_pipe_chain(dev)
+        timed(phase_small, dev, shape, np.asarray(shape, float), fft)
+    timed(phase_small_grad, dev, MXU_SMALL,
+          np.asarray(MXU_SMALL, float), 'mxu_bf16')
+    sharded = timed(phase_sharded, dev)
+    timed(phase_pipe_chain, dev)
     # each kernel's launches on its own path's main run: the lattice
     # kernels on the fft='xla' lattice run, the ct2 DFT kernels on the
     # fft='mxu' lattice run, the rebase and dense DFT kernels on the
@@ -4039,6 +4538,9 @@ def main():
                               sharded['superstep']))
     if DEFERRED:
         raise AssertionError("; ".join(DEFERRED))
+    log("phase times (s): %s; main %.3f s"
+        % (", ".join("%s %.3f" % kv for kv in PHASE_TIMES),
+           time.perf_counter() - start))
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces,
                     launches=runs[name][name.split(" ")[0]],

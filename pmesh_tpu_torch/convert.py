@@ -82,11 +82,17 @@ def catalog_state_to_numpy(state):
                  for t in (state.Q, state.S, state.V))
 
 
-def field_from_numpy(pm, array):
-    """A RealField (real array of the mesh shape) or ComplexField
-    (complex half spectrum) of ``pm`` holding ``array``."""
+def field_from_numpy(pm, array, type=None):
+    """A field of ``pm`` holding ``array``: of ``type`` ('real',
+    'complex' ... or a Field class), by default a ComplexField for a
+    complex array (the half spectrum, or on a c2c mesh the full one)
+    and a RealField for a real one.  A real field of a c2c mesh is
+    complex: pass type='real' for it."""
+    from .pm import _field_type
     array = np.array(array)
-    ftype = ComplexField if np.iscomplexobj(array) else RealField
+    if type is None:
+        type = ComplexField if np.iscomplexobj(array) else RealField
+    ftype = _field_type(type)
     shape, _ = pm._shape_dtype(ftype)
     if array.shape != shape:
         raise ValueError("array of shape %s is not a %s of this mesh %s"

@@ -20,20 +20,30 @@ calls run on CUDA tensors (``index_add_``'s float atomics sum in an
 arbitrary order, so a paint on the card agrees with the CPU to rounding,
 not bitwise).
 
-Reverse mode: ``paint`` and ``readout`` are ``torch.autograd.Function``s
-whose backward is the transpose of the JAX package's ``custom_jvp``
-rules (``pmesh_tpu/ops/paint.py:384-460``):
+Derivatives: ``paint`` and ``readout`` are ``torch.autograd.Function``s
+carrying the JAX package's ``custom_jvp`` rules
+(``pmesh_tpu/ops/paint.py:384-460``) as their ``jvp`` (forward mode:
+``torch.func.jvp``, ``torch.autograd.forward_ad``) and those rules'
+transposes as their ``backward``:
 
-- paint: mesh_bar = v, mass_bar = readout of v (summed for a scalar
-  mass), pos_bar[:, d] = mass * (the diffdir-d readout of v);
-- readout: mesh_bar = the paint of each v_bar at the particles (with
-  the readout's own diffdir), pos_bar[:, d] = sum over meshes of
-  v_bar * (the diffdir-d readout).
+- paint: d_out = d_mesh + the paint of d_mass + sum over d of the
+  diffdir-d paint of mass * d_pos[:, d]; transposed, mesh_bar = v,
+  mass_bar = readout of v (summed for a scalar mass), pos_bar[:, d] =
+  mass * (the diffdir-d readout of v);
+- readout: d_out = the readout of d_mesh + sum over d of d_pos[:, d] *
+  (the diffdir-d readout); transposed, mesh_bar = the paint of each
+  v_bar at the particles (with the readout's own diffdir), pos_bar[:, d]
+  = sum over meshes of v_bar * (the diffdir-d readout).
 
 A diffdir-d weight is W'(x) times the affine scale, so the position
-derivatives come out in the units of ``pos``.  The derivative of a
-diffdir paint or readout with respect to the positions raises, as in
-the JAX package.  ``hsml`` takes no gradient.
+derivatives come out in the units of ``pos``.  Either rule raises for
+a position tangent of a diffdir paint or readout ("gradient of
+gradient"), as in the JAX package, whose rule sees an instantiated zero
+tangent there even when only the mesh or mass has one.  The backward is
+itself made of differentiable torch ops on the saved inputs, so a
+second derivative (``torch.func.jvp`` of ``torch.func.grad``, or a
+double backward) differentiates it natively, as JAX differentiates the
+transposed rule.  ``hsml`` takes no derivative.
 """
 import itertools
 
@@ -208,12 +218,6 @@ def _hsml_support(window, hsml, hsml_max):
     return int(np.ceil(window.support_float * float(hsml_max)))
 
 
-def _tracks(tensors):
-    """whether autograd records an op on ``tensors``"""
-    return torch.is_grad_enabled() and any(
-        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
-
-
 def _no_second_order(geom):
     if geom.diffdir is not None:
         raise ValueError("gradient of gradient is not supported: the "
@@ -221,22 +225,31 @@ def _no_second_order(geom):
                          "derivative")
 
 
+def _add(a, b):
+    return b if a is None else a + b
+
+
 class _Paint(torch.autograd.Function):
-    """paint with the transpose of the JAX package's ``_paint_jvp``"""
+    """paint with the JAX package's ``_paint_jvp`` as its forward rule
+    and that rule's transpose as its backward"""
 
     @staticmethod
-    def forward(ctx, geom, mesh, pos, mass, hsml):
-        ctx.geom = geom
-        ctx.save_for_backward(pos, mass, hsml)
+    def forward(geom, mesh, pos, mass, hsml):
         return _paint_impl(mesh.detach(), pos.detach(), mass.detach(),
                            hsml, geom)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        geom, mesh, pos, mass, hsml = inputs
+        ctx.geom = geom
+        ctx.save_for_backward(pos, mass, hsml)
+        ctx.save_for_forward(pos, mass, hsml)
+
+    @staticmethod
     def backward(ctx, v):
         geom = ctx.geom
-        pos, mass, hsml = (None if t is None else t.detach()
-                           for t in ctx.saved_tensors)
-        v = v.detach().contiguous()
+        pos, mass, hsml = ctx.saved_tensors
+        v = v.contiguous()
         mesh_bar = v if ctx.needs_input_grad[1] else None
         pos_bar = mass_bar = None
         if ctx.needs_input_grad[3]:
@@ -250,24 +263,56 @@ class _Paint(torch.autograd.Function):
                        * mass.to(v.dtype).reshape(-1, 1)).to(pos.dtype)
         return None, mesh_bar, pos_bar, mass_bar, None
 
+    @staticmethod
+    def jvp(ctx, _geom, d_mesh, d_pos, d_mass, _hsml):
+        """the mesh tangent, plus a paint of the mass tangent, plus one
+        diffdir-d paint of mass * d_pos[:, d] per axis"""
+        geom = ctx.geom
+        pos, mass, hsml = ctx.saved_tensors
+        zeros = torch.zeros(geom.shape, dtype=mass.dtype, device=pos.device)
+        N = pos.shape[0]
+        dout = d_mesh
+        if d_mass is not None:
+            dm = torch.broadcast_to(d_mass.to(mass.dtype), (N,))
+            dout = _add(dout, _paint_impl(zeros, pos, dm, hsml, geom))
+        if d_pos is not None:
+            _no_second_order(geom)
+            m = torch.broadcast_to(mass, (N,))
+            for d in range(geom.ndim):
+                dout = _add(dout, _paint_impl(
+                    zeros, pos, m * d_pos[:, d].to(mass.dtype), hsml,
+                    geom.with_diffdir(d)))
+        if dout is None:
+            dout = zeros
+        # the primal is a view of a flat buffer (``_paint_impl``); forward
+        # AD wants the tangent laid out the same way
+        flat = dout.new_empty(dout.numel() + 1)
+        flat[:-1] = dout.reshape(-1)
+        return flat[:-1].reshape(geom.shape)
+
 
 class _Readout(torch.autograd.Function):
-    """readout of ``nmesh`` meshes with the transpose of the JAX
-    package's ``_readout_jvp``"""
+    """readout of ``nmesh`` meshes with the JAX package's
+    ``_readout_jvp`` as its forward rule and that rule's transpose as
+    its backward"""
 
     @staticmethod
-    def forward(ctx, geom, pos, hsml, *meshes):
-        ctx.geom = geom
-        ctx.save_for_backward(pos, hsml, *meshes)
+    def forward(geom, pos, hsml, *meshes):
         return tuple(_readout_impl(tuple(m.detach() for m in meshes),
                                    pos.detach(), hsml, geom))
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        geom, pos, hsml, *meshes = inputs
+        ctx.geom = geom
+        ctx.save_for_backward(pos, hsml, *meshes)
+        ctx.save_for_forward(pos, hsml, *meshes)
+
+    @staticmethod
     def backward(ctx, *vbar):
         geom = ctx.geom
-        pos, hsml, *meshes = (None if t is None else t.detach()
-                              for t in ctx.saved_tensors)
-        vbar = tuple(v.detach().contiguous() for v in vbar)
+        pos, hsml, *meshes = ctx.saved_tensors
+        vbar = tuple(v.contiguous() for v in vbar)
         mesh_bar = tuple(
             _paint_impl(torch.zeros_like(m), pos, vb, hsml, geom)
             if ctx.needs_input_grad[3 + j] else None
@@ -284,6 +329,25 @@ class _Readout(torch.autograd.Function):
                 cols.append(acc)
             pos_bar = torch.stack(cols, dim=-1).to(pos.dtype)
         return (None, pos_bar, None) + mesh_bar
+
+    @staticmethod
+    def jvp(ctx, _geom, d_pos, _hsml, *d_meshes):
+        """each mesh's tangent read out, plus d_pos[:, d] times the
+        diffdir-d readout of the mesh, summed over the axes"""
+        geom = ctx.geom
+        pos, hsml, *meshes = ctx.saved_tensors
+        douts = [None] * len(meshes)
+        for j, dm in enumerate(d_meshes):
+            if dm is not None:
+                douts[j], = _readout_impl((dm,), pos, hsml, geom)
+        if d_pos is not None:
+            _no_second_order(geom)
+            for d in range(geom.ndim):
+                rds = _readout_impl(meshes, pos, hsml, geom.with_diffdir(d))
+                dp = d_pos[:, d].to(pos.dtype)
+                douts = [_add(o, rd * dp) for o, rd in zip(douts, rds)]
+        return tuple(torch.zeros_like(pos[:, 0]) if o is None else o
+                     for o in douts)
 
 
 def paint(mesh, pos, mass=1.0, window='cic', scale=1.0, translate=0.0,
@@ -309,9 +373,7 @@ def paint(mesh, pos, mass=1.0, window='cic', scale=1.0, translate=0.0,
     geom = PaintGeometry(win, mesh.shape, scale, translate, period, diffdir,
                          _hsml_support(win, hsml, hsml_max))
     mass = torch.as_tensor(mass, device=mesh.device).to(mesh.dtype)
-    if _tracks((mesh, pos, mass)):
-        return _Paint.apply(geom, mesh, pos, mass, hsml)
-    return _paint_impl(mesh, pos, mass, hsml, geom)
+    return _Paint.apply(geom, mesh, pos, mass, hsml)
 
 
 def readout(mesh, pos, window='cic', scale=1.0, translate=0.0, period=0,
@@ -337,10 +399,7 @@ def readout(mesh, pos, window='cic', scale=1.0, translate=0.0, period=0,
         meshes, kind = (mesh,), 'single'
     geom = PaintGeometry(win, meshes[0].shape, scale, translate, period,
                          diffdir, _hsml_support(win, hsml, hsml_max))
-    if _tracks(meshes + (pos,)):
-        outs = _Readout.apply(geom, pos, hsml, *meshes)
-    else:
-        outs = _readout_impl(meshes, pos, hsml, geom)
+    outs = _Readout.apply(geom, pos, hsml, *meshes)
     if kind == 'tuple':
         return tuple(outs)
     if kind == 'batch':

@@ -4,16 +4,24 @@ Counterpart of ``pmesh_tpu/pm.py``.  A field holds one torch tensor in
 ``.value`` on its ParticleMesh's ``device``; a tensor on another
 device raises instead of being moved.  Arithmetic is done on
 ``.value``, and an ``out=`` of the JAX package's API rebinds
-``out.value``.  The device defaults to the current CUDA device; CPU use
-is asked for with ``device='cpu'``.
+``out.value``; the item setters (``__setitem__``, ``csetitem``) rebind a
+changed copy, as the JAX package's ``.at[].set`` does, so a tensor the
+field was made from is never written.  The device defaults to the
+current CUDA device; CPU use is asked for with ``device='cpu'``.
 
 What is here: the field arithmetic and comparison, ``cast``, the
-coordinates, ``r2c``/``c2r`` (``torch.fft``, cuFFT on the card),
-``apply``, the collective reductions ``csum``/``cmean``/``cdot``/
-``cnorm``, the generic ``readout`` and ``paint`` (``ops/paint.py``), the
-particle grid, the single-domain ``decompose`` and the white noise.
-The transposed and untransposed complex fields are one layout on one
-device: the hermitian half spectrum.
+coordinates and slab iterators, ``r2c``/``c2r`` (``torch.fft``, cuFFT
+on the card), ``apply``, the collective reductions ``csum``/``cmean``/
+``cdot``/``cnorm``, the item access by global index ``cgetitem``/
+``csetitem`` (with the hermitian dual of a half spectrum kept in
+step), ``ravel``/``unravel``, the Fourier ``resample`` and the host
+``preview``, ``ctranspose``, the generic ``readout`` and ``paint``
+(``ops/paint.py``) with ``upsample``/``downsample`` and the analytic
+``*_vjp``/``*_jvp`` operators, the particle grid, the single-domain
+``decompose`` and the white noise.  The transposed and untransposed
+complex fields are one layout on one device: the hermitian half
+spectrum, or with a complex dtype ('c8', 'c16') the full c2c spectrum,
+whose real fields are complex too.
 
 With a ``procmesh`` of P > 1 ranks (``parallel/pmesh.py``) a field's
 value is this rank's block: x rows ``[r N0/P, (r+1) N0/P)`` of a real
@@ -23,9 +31,9 @@ field (whole x, half z), as the JAX package's ``real_spec`` and
 slab transforms of ``parallel/pfft.py`` and the coordinates of
 ``apply`` are the block's own.  The ranks must divide N0 and N1 (the
 JAX package's ``_even_mesh``); its uneven and replicated fallbacks are
-not ported.  The particle methods, the reductions, the untransposed
-layout and the white noise raise on a sharded mesh (ROADMAP queue 1,
-item 8).
+not ported.  The particle methods, the reductions, the global item
+access and reshaping, the untransposed layout, c2c meshes and the white
+noise raise on a sharded mesh (ROADMAP queue 1, item 8).
 """
 import functools
 
@@ -39,7 +47,7 @@ from .parallel.domain import Layout
 
 __all__ = ["ParticleMesh", "RealField", "ComplexField",
            "TransposedComplexField", "UntransposedComplexField", "Field",
-           "xlist", "resolve_device"]
+           "xlist", "resolve_device", "build_index", "reindex"]
 
 _gettype = type
 
@@ -80,6 +88,51 @@ class xlist(list):
         if zeromode is not None:
             kk = torch.where(kk == 0, zeromode, kk)
         return kk
+
+
+class slabiter(object):
+    """Iteration over the slowest axis: each x row of the field's value
+    (the whole value for ndim <= 2), with ``.x`` and ``.i`` iterating the
+    coordinates of the same rows.  The rows are views of ``.value``;
+    change a field through ``apply`` or ``__setitem__``."""
+
+    def __init__(self, field):
+        self.field = field
+        self.nslabs = field.shape[0] if field.ndim > 2 else 1
+        self.x = _xslabiter(field, 'x', self.nslabs)
+        self.i = _xslabiter(field, 'i', self.nslabs)
+
+    def __iter__(self):
+        f = self.field
+        if f.ndim <= 2:
+            yield f.value
+            return
+        for irow in range(self.nslabs):
+            yield f.value[irow]
+
+
+class _xslabiter(object):
+    def __init__(self, field, attr, nslabs):
+        self.field = field
+        self.attr = attr
+        self.nslabs = nslabs
+
+    def _xlist(self, coords):
+        s = xlist(coords)
+        s.BoxSize = self.field.BoxSize
+        s.Nmesh = self.field.Nmesh
+        return s
+
+    def __iter__(self):
+        f = self.field
+        coords = getattr(f, self.attr)
+        if f.ndim <= 2:
+            yield self._xlist(coords)
+            return
+        for irow in range(self.nslabs):
+            yield self._xlist(
+                [coords[0].reshape(-1)[irow].reshape((1,) * (f.ndim - 1))
+                 if d == 0 else coords[d][0] for d in range(f.ndim)])
 
 
 def _same_device(a, b):
@@ -126,9 +179,55 @@ class Field(object):
     def dtype(self):
         return self.value.dtype
 
+    @property
+    def size(self):
+        return self.value.numel()
+
+    @property
+    def start(self):
+        # a field on one device is the whole mesh: its view starts at 0
+        _not_sharded(self.pm, "Field.start")
+        return np.zeros(self.ndim, dtype='intp')
+
+    @property
+    def slices(self):
+        return tuple(slice(0, n) for n in self.shape)
+
+    @property
+    def real(self):
+        return self.value.real
+
+    @property
+    def imag(self):
+        return self.value.imag
+
+    @property
+    def flat(self):
+        return self.value.reshape(-1)
+
+    def __getitem__(self, index):
+        return self.value[index]
+
+    def __setitem__(self, index, value):
+        """Set ``value[index]``: ``.value`` is rebound to a changed copy."""
+        if isinstance(value, Field):
+            value = value.value
+        if index is Ellipsis:
+            value = torch.as_tensor(value, device=self.pm.device)
+            self.value = torch.broadcast_to(
+                value.to(self.dtype), self.shape).contiguous()
+            return
+        v = self.value.clone()
+        v[index] = value
+        self.value = v
+
     def numpy(self):
         """The field value as a host numpy array."""
         return self.value.detach().cpu().numpy()
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.numpy()
+        return a.astype(dtype) if dtype is not None else a
 
     # --- arithmetic: a field of the same type where the result keeps the
     # shape and is not boolean, else the bare tensor
@@ -213,6 +312,142 @@ class Field(object):
     def i(self):
         return self.pm.create_coords(_gettype(self), return_indices=True)
 
+    @property
+    def slabs(self):
+        return slabiter(self)
+
+    @property
+    def compressed(self):
+        """whether the field stores the hermitian-compressed half
+        spectrum"""
+        if self.Nmesh[-1] == self.cshape[-1]:
+            return False
+        if self.Nmesh[-1] // 2 + 1 == self.cshape[-1]:
+            return True
+        raise ValueError("inconsistent Nmesh %s / cshape %s"
+                         % (self.Nmesh, self.cshape))
+
+    # --- item access by global index
+    def _normalize_index(self, index):
+        index = np.array(index, copy=True)
+        if len(index) == self.ndim + 1:
+            comp = int(index[-1])
+            index1 = index[:-1]
+        elif len(index) == self.ndim:
+            comp = None
+            index1 = index
+        else:
+            raise IndexError("only vector index is supported; for complex "
+                             "append 0/1 for real/imag")
+        index1[index1 < 0] += self.Nmesh[index1 < 0]
+        return tuple(int(i) for i in index1), comp
+
+    def _dual(self, ind):
+        return tuple((int(self.Nmesh[d]) - ind[d]) % int(self.Nmesh[d])
+                     for d in range(self.ndim))
+
+    def _stored(self, ind):
+        return all(ind[d] < self.shape[d] for d in range(self.ndim))
+
+    def cgetitem(self, index):
+        """The value at a global index (a numpy scalar); with a trailing
+        0 or 1, its real or imaginary part.  A mode of a half spectrum
+        stored only as its conjugate is read from its dual."""
+        _not_sharded(self.pm, "cgetitem")
+        ind, comp = self._normalize_index(index)
+        conj = False
+        if not self._stored(ind):
+            ind = self._dual(ind)
+            conj = True
+            if not self._stored(ind):
+                raise IndexError("index %s out of bounds for shape %s"
+                                 % (ind, self.shape))
+        v = self.value[ind].detach().cpu().numpy()
+        if conj:
+            v = np.conjugate(v)
+        if comp is None:
+            return v[()]
+        return (v.imag if comp == 1 else v.real)[()]
+
+    def csetitem(self, index, y):
+        """Set the value at a global index (with a trailing 0 or 1, its
+        real or imaginary part) and, on a complex field, its hermitian
+        dual where that is stored: a self-conjugate mode keeps only the
+        real part.  Returns the value cgetitem then reads."""
+        _not_sharded(self.pm, "csetitem")
+        ind, comp = self._normalize_index(index)
+        v = self.value.clone()
+
+        def get(i):
+            return complex(v[i].item())
+
+        if not isinstance(self, BaseComplexField):
+            if comp is not None:
+                raise IndexError("real field has no real/imag index")
+            v[ind] = y
+            self.value = v
+            return y
+
+        dual = self._dual(ind)
+        has_local = self._stored(ind)
+        has_dual = self._stored(dual)
+        stored = has_local or has_dual
+        y_in = y
+        dualy = y_in
+        if comp == 1:
+            dualy = -dualy
+            if has_local and has_dual and ind == dual:
+                y_in = 0
+                dualy = 0
+            if has_local:
+                v[ind] = get(ind).real + 1j * y_in
+            if has_dual:
+                v[dual] = get(dual).real + 1j * dualy
+        elif comp == 0:
+            if has_local:
+                v[ind] = 1j * get(ind).imag + y_in
+            if has_dual:
+                v[dual] = 1j * get(dual).imag + y_in
+        else:
+            dualy = np.conjugate(dualy)
+            if has_local and has_dual and ind == dual:
+                dualy = dualy.real
+                y_in = np.real(y_in) if np.iscomplexobj(y_in) else y_in
+            if has_local:
+                v[ind] = y_in
+            if has_dual:
+                v[dual] = dualy
+        self.value = v
+        # an index stored only as its conjugate still takes the value
+        return y_in if stored else 0
+
+    # --- global reshaping
+    def ravel(self, out=None):
+        """The C-ordered flat value (a view where the value is
+        contiguous).  ``out`` takes only None or Ellipsis: use the
+        returned tensor."""
+        _not_sharded(self.pm, "ravel")
+        if out is not None and not is_inplace(out):
+            raise ValueError("ravel(out=...) cannot fill a caller buffer; "
+                             "pass out=None or out=... and use the returned "
+                             "tensor")
+        return self.value.reshape(-1)
+
+    def unravel(self, flat):
+        """Rebind ``.value`` to the C-ordered ``flat`` (a tensor on the
+        mesh's device, a numpy array or a field)."""
+        _not_sharded(self.pm, "unravel")
+        if isinstance(flat, Field):
+            flat = flat.value
+        flat = torch.as_tensor(flat, device=self.pm.device)
+        if not _same_device(flat.device, self.pm.device):
+            raise ValueError("flat lies on %s but the ParticleMesh is on %s"
+                             % (flat.device, self.pm.device))
+        self.value = flat.reshape(self.shape).to(self.dtype)
+
+    def sort(self, out=None):
+        return self.ravel(out)
+
     def cast(self, type, out=None):
         """This field as a field of ``type``, keeping its meaning: a real
         field goes through r2c to a complex type and back through c2r."""
@@ -228,6 +463,86 @@ class Field(object):
             out.value = r.value.to(out.dtype)
             return out
         return r
+
+    def resample(self, out):
+        """Resample into ``out``, a field of another ParticleMesh, by
+        keeping the Fourier modes both meshes hold and zeroing the rest:
+        self-conjugate modes are made real, and every mode on a Nyquist
+        plane of either mesh is zeroed.  A mesh of the same size is a
+        :meth:`cast`.  Returns ``out``.
+
+        The modes are those of this field's spectrum: the JAX package
+        indexes a real field's spectrum with the real field's own shape
+        (``pmesh_tpu/pm.py:517-519``), which reads the wrong modes when
+        the last axis is compressed; the port reads the spectrum's
+        shape."""
+        if not isinstance(out, Field):
+            raise TypeError("out must be a Field")
+        _not_sharded(self.pm, "resample")
+        if all(out.Nmesh == self.Nmesh):
+            return self.cast(type=_gettype(out), out=out)
+        selfc = self.cast(type=TransposedComplexField)
+        complex = out.pm.create(type=TransposedComplexField)
+        ind = build_index(
+            [reindex(self.Nmesh[d], out.Nmesh[d])[np.arange(n)]
+             for d, n in enumerate(complex.cshape)], selfc.cshape)
+        ind = torch.from_numpy(ind).to(self.pm.device)
+        flat = selfc.value.reshape(-1)
+        cvalue = torch.where(ind >= 0, flat[ind.clamp(min=0)], 0)
+        ii = complex.i
+        selfconj = functools.reduce(
+            torch.logical_and,
+            [(int(n) - i0) % int(n) == i0 for i0, n in zip(ii, out.Nmesh)])
+        cvalue = torch.where(selfconj, cvalue.real.to(cvalue.dtype), cvalue)
+        nyquist = functools.reduce(
+            torch.logical_or,
+            [(i0 == int(n) // 2) | (i0 == int(m) // 2)
+             for i0, n, m in zip(ii, out.Nmesh, self.Nmesh)])
+        complex.value = torch.where(nyquist, 0, cvalue)
+        if isinstance(out, RealField):
+            out.value = complex.c2r().value
+        else:
+            out.value = complex.value
+        return out
+
+    def preview(self, Nmesh=None, axes=None, resampler=None, method=None):
+        """The field as a host numpy array: resampled to ``Nmesh``
+        (through ``downsample`` or ``upsample`` of the real field,
+        keeping the mean) and summed over the axes not in ``axes``, the
+        kept axes in the order ``axes`` gives."""
+        _not_sharded(self.pm, "preview")
+        if axes is None:
+            axes = range(self.ndim)
+        if not hasattr(axes, '__iter__'):
+            axes = (axes,)
+        axes = list(axes)
+        field = self.c2r() if isinstance(self, BaseComplexField) else self
+        if Nmesh is not None and np.all(np.asarray(Nmesh) == field.Nmesh):
+            Nmesh = None
+        if Nmesh is not None:
+            pm = field.pm.reshape(Nmesh)
+            if method is None:
+                method = ('downsample' if np.any(np.asarray(Nmesh)
+                                                 < field.Nmesh)
+                          else 'upsample')
+            if method == 'downsample':
+                field = pm.downsample(field, resampler=resampler,
+                                      keep_mean=True)
+            elif method == 'upsample':
+                field = pm.upsample(field, resampler=resampler,
+                                    keep_mean=True)
+            else:
+                raise ValueError("method must be downsample or upsample")
+        removeaxes = sorted(set(range(field.ndim)) - set(axes))
+        v = field.value
+        if removeaxes:
+            v = v.sum(dim=tuple(removeaxes))
+        # the kept axes in increasing order, permuted to ``axes``'
+        current = [a for a in range(field.ndim) if a not in removeaxes]
+        perm = [current.index(a) for a in axes]
+        if perm != list(range(len(perm))):
+            v = v.permute(perm)
+        return v.detach().cpu().numpy()
 
     def apply(self, func, kind, out=None):
         """func(coords, value), cast to this field's dtype: a new field,
@@ -295,7 +610,8 @@ class RealField(Field):
         if layout is not None:
             pos = layout.exchange(pos)
             hsml = layout.exchange(hsml) if hsml is not None else None
-        r = _paint_ops.readout(self.value, pos, window=resampler.window,
+        value = self.value.real if self.pm._is_c2c else self.value
+        r = _paint_ops.readout(value, pos, window=resampler.window,
                                scale=transform.scale,
                                translate=transform.translate,
                                period=transform.period, diffdir=gradient,
@@ -304,6 +620,41 @@ class RealField(Field):
             r = layout.gather(r, mode='sum')
         return r
 
+    def readout_vjp(self, pos, v, resampler=None, transform=None,
+                    gradient=None, out_self=None, out_pos=None, layout=None):
+        """The vjp of ``readout`` against the cotangent ``v`` (N,):
+        (the paint of ``v``, the (N, ndim) sum of v times each diffdir
+        readout).  ``out_self`` or ``out_pos`` False skips that part."""
+        if out_pos is not False:
+            if gradient is not None:
+                raise ValueError("gradient of gradient is not supported")
+            out_pos = torch.stack(
+                [self.readout(pos, resampler=resampler, transform=transform,
+                              gradient=d, layout=layout) * v
+                 for d in range(pos.shape[1])], dim=-1)
+        if out_self is not False:
+            out_self = self.pm.paint(pos, mass=v, resampler=resampler,
+                                     transform=transform, gradient=gradient,
+                                     hold=False, layout=layout)
+        return out_self, out_pos
+
+    def readout_jvp(self, pos, v_self=None, v_pos=None, resampler=None,
+                    transform=None, gradient=None, layout=None):
+        """The jvp of ``readout`` along the tangents ``v_self`` (a
+        RealField) and ``v_pos`` (N, ndim)."""
+        jvp = torch.zeros(len(pos), dtype=torch.as_tensor(pos).dtype,
+                          device=self.pm.device)
+        if v_pos is not None:
+            for d in range(self.ndim):
+                jvp = jvp + self.readout(
+                    pos, resampler=resampler, transform=transform,
+                    gradient=d, layout=layout) * v_pos[..., d]
+        if v_self is not None:
+            jvp = jvp + v_self.readout(pos, resampler=resampler,
+                                       transform=transform, gradient=None,
+                                       layout=layout)
+        return jvp
+
     def paint(self, pos, mass=1.0, resampler=None, transform=None,
               hold=False, gradient=None, layout=None):
         """Paint ``pos`` into this field (added to it with ``hold``)."""
@@ -311,14 +662,30 @@ class RealField(Field):
                              transform=transform, hold=hold,
                              gradient=gradient, layout=layout, out=self)
 
+    def c2r_vjp(v, out=None):
+        """The vjp of ``c2r`` against the real cotangent ``v``: its r2c
+        times prod(Nmesh) (called on the cotangent,
+        ``RealField.c2r_vjp(v)``)."""
+        out = v.r2c(out)
+        out.value = out.value * float(np.prod(out.pm.Nmesh))
+        return out
+
+    def ctranspose(self, axes):
+        """The field with its axes permuted to ``axes``, on a mesh whose
+        Nmesh and BoxSize are permuted alike."""
+        _not_sharded(self.pm, "ctranspose")
+        axes = [int(a) for a in axes]
+        if sorted(axes) != list(range(self.ndim)):
+            raise ValueError("axes must be a permutation of range(ndim)")
+        pm = self.pm.reshape(BoxSize=self.BoxSize[axes],
+                             Nmesh=self.Nmesh[axes])
+        return pm.create(type=RealField,
+                         value=self.value.permute(axes).contiguous())
+
 
 class BaseComplexField(Field):
-    """The hermitian half spectrum of a real field."""
-
-    @property
-    def compressed(self):
-        """whether the field stores the hermitian-compressed half"""
-        return int(self.cshape[-1]) != int(self.Nmesh[-1])
+    """The hermitian half spectrum of a real field (on a c2c mesh, the
+    full spectrum)."""
 
     def c2r(self, out=None):
         """Unnormalized complex-to-real transform (inverse of r2c)."""
@@ -370,6 +737,33 @@ class BaseComplexField(Field):
             r.apply(lambda k, y: y * metric(k.normp() ** 0.5), out=Ellipsis)
         return r.value.sum()
 
+    def cdot_vjp(self, v, metric=None):
+        """The vjp of ``cdot`` against ``other``: this field times the
+        cotangent ``v``, weighted by ``metric`` of |k|."""
+        r = self * v
+        if metric is not None:
+            r.apply(lambda k, y: y * metric(k.normp() ** 0.5), out=Ellipsis)
+        return r
+
+    def r2c_vjp(v, out=None):
+        """The vjp of ``r2c`` against the complex cotangent ``v``: its
+        c2r over prod(Nmesh) (``ComplexField.r2c_vjp(v)``)."""
+        out = v.c2r(out)
+        out.value = out.value * float(np.prod(out.pm.Nmesh) ** -1.0)
+        return out
+
+    def decompress_vjp(v, out=None):
+        """The hermitian weighting of a half-spectrum cotangent ``v``:
+        self-conjugate modes once, every other mode twice."""
+        mask = functools.reduce(
+            torch.logical_and,
+            [(int(n) - ii) % int(n) == ii for ii, n in zip(v.i, v.Nmesh)])
+        value = torch.where(mask, v.value, 2 * v.value)
+        if out is None or is_inplace(out):
+            return v.pm.create(type=_gettype(v), value=value)
+        out.value = value
+        return out
+
 
 class TransposedComplexField(BaseComplexField):
     """The complex field r2c returns (on a sharded mesh, y columns)."""
@@ -405,7 +799,8 @@ class ParticleMesh(object):
     ----------
     Nmesh : sequence of int
     BoxSize : float or sequence of float
-    dtype : 'f4' or 'f8'
+    dtype : 'f4' or 'f8', or 'c8' or 'c16' for a complex (c2c) mesh,
+        whose real fields are complex too
     resampler : window name or ResampleWindow
     device : torch device of every field made from this mesh; default
         the current CUDA device (raises without CUDA: pass 'cpu'), or the
@@ -421,13 +816,13 @@ class ParticleMesh(object):
         self.BoxSize = np.empty(self.ndim, dtype='f8')
         self.BoxSize[:] = BoxSize
         self.dtype = np.dtype(dtype)
-        if self.dtype not in (np.dtype('f4'), np.dtype('f8')):
-            raise ValueError("dtype must be f4 or f8")
-        self.torch_dtype = (torch.float32 if self.dtype == np.dtype('f4')
-                            else torch.float64)
-        self.complex_dtype = (torch.complex64
-                              if self.dtype == np.dtype('f4')
-                              else torch.complex128)
+        if self.dtype not in _COMPLEX_OF:
+            raise ValueError("dtype must be f8, f4, c16 or c8")
+        self._is_c2c = self.dtype.kind == 'c'
+        # the dtype of a real field and of a complex one: both complex on
+        # a c2c mesh
+        self.torch_dtype = _torch_dtype(self.dtype)
+        self.complex_dtype = _torch_dtype(_COMPLEX_OF[self.dtype])
         self.procmesh = procmesh
         if procmesh is not None:
             from .parallel.pmesh import ProcessMesh
@@ -451,6 +846,10 @@ class ParticleMesh(object):
                                   period=self.Nmesh)
         self._coords_cache = {}
         if self.sharded:
+            if self._is_c2c:
+                raise NotImplementedError(
+                    "c2c meshes on a sharded mesh are not ported yet "
+                    "(ROADMAP queue 1, item 8)")
             if self.ndim != 3:
                 raise NotImplementedError(
                     "sharded meshes are 3-d here (the JAX package's 2-d "
@@ -465,7 +864,7 @@ class ParticleMesh(object):
         return self.procmesh is not None and self.procmesh.size > 1
 
     def _global_shape(self, field_type):
-        if issubclass(field_type, RealField):
+        if issubclass(field_type, RealField) or self._is_c2c:
             return tuple(int(n) for n in self.Nmesh)
         return tuple(int(n) for n in self.Nmesh[:-1]) \
             + (int(self.Nmesh[-1]) // 2 + 1,)
@@ -569,6 +968,12 @@ class ParticleMesh(object):
     def resize(self, Nmesh):
         return self.reshape(Nmesh=Nmesh)
 
+    def respawn(self, comm=None, np=None):
+        """The same geometry on one device (the JAX package's respawn
+        onto a new communicator, which drops the process mesh)."""
+        return ParticleMesh(self.Nmesh, self.BoxSize, dtype=self.dtype,
+                            resampler=self.resampler, device=self.device)
+
     def create(self, type=None, value=None, mode=None):
         """A new field of ``type`` ('real', 'complex',
         'transposedcomplex', 'untransposedcomplex' or a Field class;
@@ -576,6 +981,12 @@ class ParticleMesh(object):
         if mode is not None and type is None:
             type = mode
         return _field_type(type)(self, value=value)
+
+    def unravel(self, type, flat):
+        """A new field of ``type`` holding the C-ordered ``flat``."""
+        r = self.create(type=type)
+        r.unravel(flat)
+        return r
 
     # --- particles ---
     def mesh_coordinates(self, dtype=None):
@@ -641,6 +1052,8 @@ class ParticleMesh(object):
         if out is None:
             out = self.create(type=RealField)
         base = out.value if hold else torch.zeros_like(out.value)
+        if self._is_c2c:
+            base = base.real
         painted = _paint_ops.paint(base, pos, mass=mass,
                                    window=resampler.window,
                                    scale=transform.scale,
@@ -650,6 +1063,81 @@ class ParticleMesh(object):
                                    hsml_max=hsml_max)
         out.value = painted.to(out.dtype)
         return out
+
+    def paint_jvp(self, pos, mass=1.0, v_pos=None, v_mass=None,
+                  resampler=None, transform=None, gradient=None, layout=None,
+                  out=None):
+        """The jvp of ``paint`` along the tangents ``v_pos`` (N, ndim)
+        and ``v_mass``: one diffdir-d paint of v_pos[:, d] * mass per
+        axis plus the paint of ``v_mass``, a RealField (``out``
+        rebound)."""
+        if gradient is not None:
+            raise ValueError("gradient of gradient is not supported")
+        if out is None:
+            out = self.create(type=RealField)
+        out.value = torch.zeros_like(out.value)
+        if v_pos is not None:
+            for d in range(pos.shape[1]):
+                out = self.paint(pos, mass=v_pos[..., d] * mass,
+                                 resampler=resampler, transform=transform,
+                                 gradient=d, hold=True, layout=layout,
+                                 out=out)
+        if v_mass is not None:
+            out = self.paint(pos, mass=v_mass, resampler=resampler,
+                             transform=transform, gradient=None, hold=True,
+                             layout=layout, out=out)
+        return out
+
+    def paint_vjp(self, v, pos, mass=1.0, resampler=None, transform=None,
+                  gradient=None, out_pos=None, out_mass=None, layout=None):
+        """The vjp of ``paint`` against the RealField cotangent ``v``:
+        ((N, ndim) mass times each diffdir readout of v, the readout of
+        v).  ``out_pos`` or ``out_mass`` False skips that part."""
+        if out_pos is not False:
+            if gradient is not None:
+                raise ValueError("gradient of gradient is not supported")
+            out_pos = torch.stack(
+                [v.readout(pos, resampler=resampler, transform=transform,
+                           gradient=d, layout=layout) * mass
+                 for d in range(pos.shape[1])], dim=-1)
+        if out_mass is not False:
+            out_mass = v.readout(pos, resampler=resampler,
+                                 transform=transform, gradient=gradient,
+                                 layout=layout)
+        return out_pos, out_mass
+
+    def upsample(self, source, resampler=None, keep_mean=False):
+        """``source`` (a RealField of another mesh) read out at this
+        mesh's points; scaled by the ratio of the cell volumes unless
+        ``keep_mean``."""
+        if not isinstance(source, RealField):
+            raise TypeError("source must be a RealField")
+        q = self.mesh_coordinates(dtype=self.dtype)
+        transform = Affine(self.ndim, translate=0,
+                           scale=1.0 * source.Nmesh / self.Nmesh,
+                           period=source.Nmesh)
+        f = source.readout(q, resampler=resampler, transform=transform)
+        if not keep_mean:
+            f = f * float((source.pm.Nmesh.prod() / source.pm.BoxSize.prod())
+                          / (self.Nmesh.prod() / self.BoxSize.prod()))
+        return self.paint(q, mass=f, resampler='nnb',
+                          transform=self.affine_grid)
+
+    def downsample(self, source, resampler=None, keep_mean=False):
+        """``source`` (a RealField of another mesh) painted onto this
+        mesh point by point; divided by the ratio of the cell volumes
+        with ``keep_mean``."""
+        if not isinstance(source, RealField):
+            raise TypeError("source must be a RealField")
+        q = source.pm.mesh_coordinates(dtype=self.dtype)
+        f = source.readout(q, resampler='nnb',
+                           transform=source.pm.affine_grid)
+        transform = self.affine_grid.rescale(1.0 * self.Nmesh / source.Nmesh)
+        if keep_mean:
+            f = f / float((source.pm.Nmesh.prod() / source.pm.BoxSize.prod())
+                          / (self.Nmesh.prod() / self.BoxSize.prod()))
+        return self.paint(q, mass=f, resampler=resampler,
+                          transform=transform)
 
     def generate_whitenoise(self, seed, unitary=False, mean=0,
                             type=ComplexField, mode=None, compat='gadget'):
@@ -680,7 +1168,42 @@ class ParticleMesh(object):
         return complex.cast(type=type)
 
 
+# the complex dtype of each mesh dtype
+_COMPLEX_OF = {np.dtype('f4'): np.dtype('c8'), np.dtype('f8'): np.dtype('c16'),
+               np.dtype('c8'): np.dtype('c8'),
+               np.dtype('c16'): np.dtype('c16')}
+
+
 def _torch_dtype(dtype):
     return {np.dtype('f4'): torch.float32, np.dtype('f8'): torch.float64,
+            np.dtype('c8'): torch.complex64,
+            np.dtype('c16'): torch.complex128,
             np.dtype('i4'): torch.int32,
             np.dtype('i8'): torch.int64}[np.dtype(dtype)]
+
+
+def build_index(indices, fullshape):
+    """The C-order linear index (int64 numpy) of every combination of
+    the per-axis ``indices`` in an array of ``fullshape``; -1 where any
+    axis index is -1."""
+    localshape = [len(i) for i in indices]
+    ndim = len(localshape)
+    ind = np.zeros(localshape, dtype='i8')
+    mask = np.zeros(localshape, dtype='?')
+    for d in range(ndim):
+        i = np.asarray(indices[d]).reshape(
+            [-1 if dd == d else 1 for dd in range(ndim)])
+        ind[...] *= fullshape[d]
+        ind[...] += i
+        mask |= i == -1
+    ind[mask] = -1
+    return ind
+
+
+def reindex(Nsrc, Ndest):
+    """The index of each mode of an Ndest mesh in an Nsrc mesh, -1
+    where the Nsrc mesh has no such mode."""
+    reindex = np.arange(Ndest)
+    reindex[Ndest // 2 + 1:] = np.arange(Nsrc - Ndest // 2 + 1, Nsrc, 1)
+    reindex[Nsrc // 2 + 1: Ndest - Nsrc // 2 + 1] = -1
+    return reindex

@@ -152,6 +152,14 @@ def generate_gadget(Nmesh, shape, seed, unitary=False, dtype=None,
     if start is None:
         start = (0,) * len(Nmesh)
     if len(Nmesh) == 3:
+        if Nmesh[1] > Nmesh[0]:
+            # the fill seeds an N0 x N0 table and reads it at (i, j) for
+            # every j < N1: past its end when N1 > N0, with no defined
+            # answer (two fills of one seed differ)
+            raise ValueError(
+                "compat='gadget' needs Nmesh[1] <= Nmesh[0] on a 3-d mesh, "
+                "got %s: the fill would read past its N0 x N0 seed table"
+                % (Nmesh,))
         from .native import runtime
         npdtype = ('complex64' if dtype == torch.complex64
                    else 'complex128')

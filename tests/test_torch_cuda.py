@@ -1884,3 +1884,77 @@ def test_catalog_force_card_vs_cpu(dev):
         assert state.S.device.type == torch.device(device).type
     for r, g in zip(out['cpu'], out[str(dev)]):
         assert _rel(g, r) <= 1e-4
+
+
+# --- the field core: forward mode and resample, card against CPU ----------
+
+@pytest.mark.parametrize("window", ['cic', 'tsc'])
+def test_field_jvp_functions_card_vs_cpu(dev, window):
+    """torch.func.jvp through the generic paint and readout (their
+    custom_jvp rules as Function.jvp), and forward over reverse, at 32^3
+    in f8: the card against the CPU"""
+    from pmesh_tpu_torch.ops import paint as gpaint
+    rng = np.random.RandomState(9)
+    n = 32
+    kw = dict(window=window, scale=1.0, period=n)
+    arrays = dict(pos=rng.uniform(0, n, (5000, 3)),
+                  mass=rng.uniform(0.5, 1.5, 5000),
+                  v_pos=rng.normal(size=(5000, 3)),
+                  v_mass=rng.normal(size=5000),
+                  mesh=rng.normal(size=(n,) * 3),
+                  v_mesh=rng.normal(size=(n,) * 3))
+    out = {}
+    for device in ('cpu', dev):
+        t = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+        def paint(p, m):
+            return gpaint.paint(torch.zeros((n,) * 3, dtype=p.dtype,
+                                            device=p.device), p, m, **kw)
+
+        def readout(mesh, p):
+            return gpaint.readout(mesh, p, **kw)
+
+        def loss(p):
+            return (paint(p, t['mass']) ** 2).sum()
+        _, tp = torch.func.jvp(paint, (t['pos'], t['mass']),
+                               (t['v_pos'], t['v_mass']))
+        _, tr = torch.func.jvp(readout, (t['mesh'], t['pos']),
+                               (t['v_mesh'], t['v_pos']))
+        _, hvp = torch.func.jvp(torch.func.grad(loss), (t['pos'],),
+                                (t['v_pos'],))
+        out[str(device)] = [x.cpu() for x in (tp, tr, hvp)]
+        assert tp.device.type == torch.device(device).type
+    for r, g in zip(out['cpu'], out[str(dev)]):
+        # f8 atomics sum in another order
+        assert _rel(g, r) <= 1e-10
+
+
+def test_field_resample_card_vs_cpu(dev):
+    """resample, upsample/downsample and preview at 32^3 f8, and a c2c
+    round trip: the card against the CPU"""
+    from pmesh_tpu_torch import ParticleMesh
+    rng = np.random.RandomState(10)
+    x = rng.normal(size=(32,) * 3)
+    out = {}
+    for device in ('cpu', dev):
+        pm = ParticleMesh([32] * 3, BoxSize=64.0, device=device)
+        real = pm.create(type='real', value=torch.from_numpy(x).to(device))
+        got = []
+        for n in (16, 48):
+            o = pm.reshape(Nmesh=n).create(type='complex')
+            real.r2c().resample(o)
+            got.append(o.value)
+        pm2 = pm.reshape(Nmesh=16)
+        got.append(pm2.downsample(real, keep_mean=True).value)
+        got.append(pm.reshape(Nmesh=64).upsample(real, resampler='tsc').value)
+        got.append(torch.from_numpy(real.preview(Nmesh=16, axes=(0, 2))))
+        c2c = ParticleMesh([32] * 3, BoxSize=64.0, dtype='c16',
+                           device=device)
+        z = c2c.create(type='real',
+                       value=torch.from_numpy(x + 1j * x[::-1]).to(device))
+        got.append(z.r2c().c2r().value - z.value)
+        out[str(device)] = [g.cpu() for g in got]
+        assert got[0].device.type == torch.device(device).type
+    for r, g in zip(out['cpu'][:-1], out[str(dev)][:-1]):
+        assert _rel(g, r) <= 1e-10
+    assert float(out[str(dev)][-1].abs().max()) <= 1e-12 * np.abs(x).max()

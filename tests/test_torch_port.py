@@ -58,6 +58,12 @@ def test_imports_without_jax():
         "import pmesh_tpu_torch.native.runtime\n"
         "import pmesh_tpu_torch.models.genic\n"
         "import pmesh_tpu_torch.models.powerspectrum\n"
+        "import pmesh_tpu_torch.models.gravpm, pmesh_tpu_torch.models.qpm\n"
+        "import pmesh_tpu_torch.models.kleingordon\n"
+        "import pmesh_tpu_torch.lic, pmesh_tpu_torch.gradcheck\n"
+        "import pmesh_tpu_torch.utils.bigfile, pmesh_tpu_torch.utils.timers\n"
+        "import pmesh_tpu_torch.utils.checkpoint\n"
+        "import pmesh_tpu_torch.utils.measure\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_sharded_cases\n"
         "assert not [m for m in sys.modules if m.startswith('jax') and\n"
@@ -250,8 +256,12 @@ def test_convert_and_device_checks():
         pm.create(type='real', value=torch.zeros((4, 4, 8), device='meta'))
     with pytest.raises(NotImplementedError, match='queue 1, item 8'):
         ParticleMesh([4, 4, 4], procmesh=object(), device='cpu')
-    with pytest.raises(ValueError):
-        ParticleMesh([4, 4, 4], dtype='c8', device='cpu')
+    with pytest.raises(ValueError, match='c16 or c8'):
+        ParticleMesh([4, 4, 4], dtype='i4', device='cpu')
+    # complex meshes are c2c: their real fields are complex too
+    c2c = ParticleMesh([4, 4, 4], dtype='c8', device='cpu')
+    assert c2c.create(type='real').value.dtype == torch.complex64
+    assert c2c.create(type='complex').value.shape == (4, 4, 4)
     d, v = convert.lattice_state_from_numpy(
         [np.ones((2, 2, 2), 'f4')] * 3, [np.zeros((2, 2, 2), 'f8')] * 3,
         device='cpu')

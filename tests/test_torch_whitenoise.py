@@ -61,6 +61,21 @@ def test_gadget_bitwise(case):
     assert np.array_equal(got, ref)
 
 
+def test_gadget_refuses_n1_above_n0():
+    """the gadget fill seeds an N0 x N0 table and reads it for every
+    j < N1: with N1 > N0 it reads past the table's end (the JAX
+    package's fill gives no defined answer there), so the port refuses;
+    N1 <= N0 and any N2 still fill, bitwise the JAX package's"""
+    for Nmesh, shape in (((6, 10, 7), (6, 10, 4)), ((4, 8, 4), (4, 8, 3))):
+        with pytest.raises(ValueError, match='Nmesh\\[1\\] <= Nmesh\\[0\\]'):
+            _torch(Nmesh, shape, 1)
+        pm = ParticleMesh(Nmesh=list(Nmesh), device='cpu')
+        with pytest.raises(ValueError, match='seed table'):
+            pm.generate_whitenoise(1, type='complex')
+    kw = dict(Nmesh=(10, 6, 7), shape=(10, 6, 4), seed=4)
+    assert np.array_equal(_torch(**kw), _jax(**kw))
+
+
 def test_gadget_complex64_bitwise():
     kw = dict(Nmesh=(8,) * 3, shape=(8, 8, 5), seed=7)
     ref = _jax(dtype=jnp.complex64, **kw)
