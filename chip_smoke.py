@@ -170,6 +170,27 @@ phase 11:
    CPU within 1e-10, and the vjp/jvp methods against central differences
    on the card within 1e-5.
 
+Reverse mode beyond the lattice, and the legacy package, add phase 13,
+run after phase 11's small runs:
+
+13. (a) the catalog forward model at phase 11's configuration: the
+   256^3 gadget white noise of seed 42 as a real field, shaped as
+   Solver.linear_field shapes it, 2LPT at a = 0.1 and 2 KDK steps, the
+   paint on the 512^3 force mesh; the gradient of sum (rho - 1)^2 in the
+   noise, finite, its directional derivative along a seeded v against
+   torch.func.jvp (1e-3) and against an f8 central difference at full
+   width (5e-3); forward and forward + backward ms per KDK step, the
+   2LPT's forward + backward, the peak; (b) force_binned at 512^3, K = 2,
+   from phase 6's state under autograd with fft='xla' and 'mxu': the
+   lattice kernels (and the four ct2 DFT kernels) launched forward and
+   backward exactly as counted in advance and nothing else, finite, mxu
+   against xla as phase 4d holds them, ms and peak; nbody_binned under
+   autograd refuses at the CUDA rebase; (c) the catalog model's gradient
+   and force_binned's at 32^3, card against CPU within 1e-4 of max|g|;
+   (d) the legacy package's ParticleMesh pipeline at 512^3 with 256^3
+   particles against the same computation through the modern API, and a
+   legacy lanczos3 paint at 64^3, card against CPU, within 1e-5.
+
 The second-to-last line is the kernels' JSON record, the last line
 the device record.
 """
@@ -2396,37 +2417,58 @@ def phase_grad(dev, pm, dlinear):
     torch.cuda.empty_cache()
 
 
-def phase_small_grad(dev, shape, box, fft):
+def phase_small_grad(dev, shape, box, fft, model='lattice'):
     """the gradient of a 2-step run on the card (kernels in the
     backward) against the CPU's (plain versions); up to GRAD_OUTLIERS of
     the entries may differ, as CIC's derivative jumps at cell
-    boundaries; a bf16 mode to TOL_CHAIN of max|g| (its flips)"""
+    boundaries; a bf16 mode to TOL_CHAIN of max|g| (its flips).
+    ``model``: 'lattice' (nbody_lattice), 'catalog' (phase 13(a)'s model
+    at shape[0]^3 particles, B = CAT_B) or 'binned' (phase 13(b)'s
+    force_binned gradient, K = BINNED_GRAD_K)"""
     from pmesh_tpu_torch import ParticleMesh, RealField
     from pmesh_tpu_torch.models.fastpm import Solver
-    noise = np.random.RandomState(SEED + 1).normal(size=shape).astype('f4')
+    from pmesh_tpu_torch.ops import binned as bn
+    rng = np.random.RandomState(SEED + 1)
+    noise = rng.normal(size=shape).astype('f4')
+    disp = tuple(0.05 + 0.9 * rng.uniform(size=shape).astype('f4')
+                 for _ in range(3))
     out = {}
     for device in ('cpu', dev):
-        pm = ParticleMesh(list(shape), BoxSize=box, dtype='f4',
-                          resampler='cic', device=device)
-        dk = pm.create(type=RealField,
-                       value=torch.from_numpy(noise).to(device)).r2c()
-        dk = dk.apply(lambda k, v: 0.3 * v * torch.where(
-            k.normp(2) > 0, k.normp(2, zeromode=1.0) ** -0.25, 0.0))
-        solver = Solver(pm)
-        state = sum(solver.lpt_lattice(dk, A0, order=2), ())
-        out[str(device)] = [x.cpu() for x in grad_run(solver, state,
-                                                      STEPS[:3], fft)]
+        if model == 'catalog':
+            solver, power, white = catalog_setup(device, shape[0], box)
+            g = catalog_grad(solver, power, white)
+        elif model == 'binned':
+            pm = ParticleMesh(list(shape), BoxSize=box, dtype='f4',
+                              resampler='cic', device=device)
+            dslots, valid = bn.from_lattice(
+                tuple(torch.from_numpy(d).to(device) for d in disp),
+                nslots=BINNED_GRAD_K)
+            g = binned_grad_run(Solver(pm), dslots, valid, (-0.5, 1.5), fft)
+        else:
+            pm = ParticleMesh(list(shape), BoxSize=box, dtype='f4',
+                              resampler='cic', device=device)
+            dk = pm.create(type=RealField,
+                           value=torch.from_numpy(noise).to(device)).r2c()
+            dk = dk.apply(lambda k, v: 0.3 * v * torch.where(
+                k.normp(2) > 0, k.normp(2, zeromode=1.0) ** -0.25, 0.0))
+            solver = Solver(pm)
+            state = sum(solver.lpt_lattice(dk, A0, order=2), ())
+            g = grad_run(solver, state, STEPS[:3], fft)
+        out[str(device)] = [x.cpu() for x in as_tuple(g)]
     bf16 = fft.startswith('mxu_bf16')
     ok, line = grad_gap(out[str(dev)], out['cpu'],
                         TOL_CHAIN if bf16 else TOL_SMALL, GRAD_OUTLIERS)
-    log("phase 7 small gradient: %s fft=%r 2 KDK steps, card vs CPU: %s"
-        % (shape, fft, line))
+    what = {'lattice': "2 KDK steps",
+            'catalog': "catalog model, B=%d, 2LPT + 2 KDK steps" % CAT_B,
+            'binned': "force_binned K=%d" % BINNED_GRAD_K}[model]
+    log("phase %s small gradient: %s fft=%r %s, card vs CPU: %s"
+        % ("7" if model == 'lattice' else "13(c)", shape, fft, what, line))
     if not ok and bf16:
         DEFERRED.append("the card and the CPU gradients disagree at %s, "
                         "fft=%r" % (shape, fft))
     elif not ok:
         raise AssertionError("the card and the CPU gradients disagree at "
-                             "%s, fft=%r" % (shape, fft))
+                             "%s, fft=%r (%s)" % (shape, fft, model))
 
 
 def chain_gap(got, ref, ref32, rms_tol=None):
@@ -4447,6 +4489,333 @@ def phase_apps_small(dev):
                              "differences")
 
 
+# --- reverse mode beyond the lattice (phase 13) -----------------------------
+#
+# (a) the catalog forward model at phase 11's configuration: the 256^3
+# gadget white noise of seed 42 as a real field, shaped as
+# Solver.linear_field shapes it, 2LPT at a = 0.1, 2 KDK steps of
+# CAT_STEPS, the paint of the final positions on the 512^3 force mesh
+# normalized to 1 + delta, and L = sum (rho - 1)^2 differentiated with
+# respect to the noise: finite; <grad L, v> for a seeded direction v
+# against torch.func.jvp along v (TOL_DIR) and against a central
+# difference of L in f8 along v (TOL_DIR_FD); forward and forward +
+# backward ms per KDK step (a 2-step minus a 1-step run), the LPT's
+# forward + backward, the peak; (b) force_binned at 512^3, K = 2, from
+# phase 6's state under autograd, fft='xla' and 'mxu': the gradient of
+# sum over the valid slots of F^2 with respect to the slot
+# displacements, finite, the lattice kernels (and the ct2 DFT kernels)
+# launched forward and backward exactly GRAD_BINNED (and GRAD_MXU) times
+# and no other kernel, mxu against xla as phase 4d holds them, ms and
+# peak; nbody_binned under autograd raises at the CUDA rebase, which has
+# no gradient rule; (c) phase_small_grad: the catalog model's gradient
+# and force_binned's at 32^3, card against CPU; (d) the legacy
+# package's pipeline at 512^3 with 256^3 particles against the same
+# computation through the modern API, and a legacy lanczos paint at
+# 64^3, card against CPU.
+CAT_GRAD_STEPS = CAT_STEPS[:3]   # 2 KDK steps, a = 0.1 .. 0.28
+TOL_DIR = 1e-3       # <grad L, v> (f4) against the f4 jvp, relative
+TOL_DIR_FD = 5e-3    # against the f8 central difference, relative
+FD_EPS = 1e-3        # the central difference's step along v
+# per slot of force_binned: forward, backward, as GRAD_LATTICE per
+# lattice force (each slot is painted and read as one lattice)
+BINNED_GRAD_K = 2
+GRAD_BINNED = {k: (BINNED_GRAD_K * f, BINNED_GRAD_K * b)
+               for k, (f, b) in GRAD_LATTICE.items()}
+LEGACY_N, LEGACY_NPART = 512, 256     # mesh, particles per axis
+LANCZOS_N = 64
+TOL_LEGACY = 1e-5
+
+
+def catalog_linear(solver, power, noise):
+    """the white-noise real field ``noise`` shaped as
+    Solver.linear_field shapes white noise"""
+    from pmesh_tpu_torch import RealField
+
+    def convolve(k, v):
+        kmag = k.normp(2) ** 0.5
+        return v * (power(kmag) / k.BoxSize.prod()) ** 0.5
+    return solver.pm.create(type=RealField, value=noise).r2c().apply(
+        convolve)
+
+
+def catalog_model(solver, power, noise, steps=CAT_GRAD_STEPS):
+    """rho on the force mesh, normalized to 1 + delta, after ``steps``
+    (2LPT at steps[0], then Solver.nbody) from the white-noise real
+    field ``noise``"""
+    pm, fpm = solver.pm, solver.fpm
+    state = solver.lpt(catalog_linear(solver, power, noise), steps[0],
+                       order=2)
+    state = solver.nbody(state, steps)
+    return fpm.paint(state.X).value * (float(fpm.Nmesh.prod())
+                                       / float(pm.Nmesh.prod()))
+
+
+def catalog_loss(solver, power, noise, steps=CAT_GRAD_STEPS):
+    return ((catalog_model(solver, power, noise, steps) - 1) ** 2).sum()
+
+
+def catalog_setup(dev, n=CAT_N, box=CAT_BOX, dtype='f4'):
+    """the Solver of phase 11's configuration at n^3 particles, EHPower,
+    and the gadget white noise of SEED as a real field"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.cosmology import Planck15
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.models.powerspectrum import EHPower
+    pm = ParticleMesh([n] * 3, BoxSize=box, dtype=dtype, resampler='cic',
+                      device=dev)
+    noise = pm.generate_whitenoise(SEED, type='real', compat='gadget').value
+    return Solver(pm, Planck15, B=CAT_B), EHPower(Planck15), noise
+
+
+def catalog_grad(solver, power, noise, steps=CAT_GRAD_STEPS):
+    x = noise.detach().clone().requires_grad_()
+    g, = torch.autograd.grad(catalog_loss(solver, power, x, steps), x)
+    return g
+
+
+def phase_reverse_catalog(dev, n=CAT_N, box=CAT_BOX):
+    """13(a): reverse and forward mode through the catalog model at
+    phase 11's configuration"""
+    solver, power, noise = catalog_setup(dev, n, box)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    v = torch.randn(noise.shape, generator=gen, device=dev,
+                    dtype=noise.dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    g = catalog_grad(solver, power, noise)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite = bool(torch.isfinite(g).all())
+    dir_rev = float((g.double() * v.double()).sum())
+    del g
+    _, dir_fwd = torch.func.jvp(
+        lambda y: catalog_loss(solver, power, y), (noise,), (v,))
+    dir_fwd = float(dir_fwd)
+    # the same function in f8 at full width, central difference along v
+    solver8, power8, noise8 = catalog_setup(dev, n, box, 'f8')
+    v8 = v.double()
+    with torch.no_grad():
+        lp = float(catalog_loss(solver8, power8, noise8 + FD_EPS * v8))
+        lm = float(catalog_loss(solver8, power8, noise8 - FD_EPS * v8))
+    dir_fd = (lp - lm) / (2 * FD_EPS)
+    del solver8, power8, noise8, v8
+    gap_fwd = abs(dir_rev - dir_fwd) / abs(dir_fwd)
+    gap_fd = abs(dir_rev - dir_fd) / abs(dir_fd)
+    t = {}
+    for nst in (1, 2):
+        steps = CAT_GRAD_STEPS[:nst + 1]
+        t['f%d' % nst] = cuda_ms(lambda: catalog_loss(solver, power, noise,
+                                                      steps), 1)
+        t['b%d' % nst] = cuda_ms(lambda: catalog_grad(solver, power, noise,
+                                                      steps), 1)
+
+    def lpt_grad():
+        x = noise.detach().clone().requires_grad_()
+        s = solver.lpt(catalog_linear(solver, power, x), CAT_GRAD_STEPS[0],
+                       order=2)
+        return torch.autograd.grad((s.S ** 2 + 2 * s.V ** 2).sum(), x)
+    t_lpt = cuda_ms(lpt_grad, 1)
+    log("phase 13(a) catalog reverse mode on %s: %d^3 particles, %d^3 CIC "
+        "force mesh, f4, d/d(noise) of sum (rho - 1)^2 after 2LPT + %d KDK "
+        "steps: finite %s, peak %.2f GB; <grad L, v> %.9e, jvp %.9e (gap "
+        "%.3e, tol %.0e), f8 central difference (eps %.0e) %.9e (gap %.3e, "
+        "tol %.0e)"
+        % (CARD, n, int(solver.fpm.Nmesh[0]), len(CAT_GRAD_STEPS) - 1,
+           finite, peak_gb, dir_rev, dir_fwd, gap_fwd, TOL_DIR, FD_EPS,
+           dir_fd, gap_fd, TOL_DIR_FD))
+    log("phase 13(a) timing on %s: per KDK step forward %.3f ms, forward + "
+        "backward %.3f ms (2-step runs %.3f / %.3f ms, 1-step %.3f / %.3f "
+        "ms, each from the noise: shaping, 2LPT, paint); the 2LPT's forward "
+        "+ backward %.3f ms"
+        % (CARD, t['f2'] - t['f1'], t['b2'] - t['b1'], t['f2'], t['b2'],
+           t['f1'], t['b1'], t_lpt))
+    if not finite:
+        raise AssertionError("the catalog gradient is not finite")
+    if not gap_fwd <= TOL_DIR:
+        raise AssertionError("reverse and forward mode disagree on the "
+                             "catalog model")
+    if not gap_fd <= TOL_DIR_FD:
+        raise AssertionError("the catalog gradient disagrees with the f8 "
+                             "central difference")
+    del solver, noise, v
+    torch.cuda.empty_cache()
+    return dict(peak_gb=peak_gb)
+
+
+def binned_grad_run(solver, dslots, valid, bounds, fft, backward=True):
+    """the gradient of sum over the valid slots of F^2 (force_binned,
+    spectral) with respect to the slot displacements"""
+    leaves = [[d.detach().clone().requires_grad_() for d in dk]
+              for dk in dslots]
+    F = solver.force_binned(leaves, valid, bounds, fft=fft)
+    loss = sum((f * f * v).sum() for fk, v in zip(F, valid) for f in fk)
+    if not backward:
+        return loss
+    return torch.autograd.grad(loss, [d for dk in leaves for d in dk])
+
+
+def phase_reverse_binned(dev, n=N):
+    """13(b): force_binned under autograd at n^3, K = 2, from phase 6's
+    state, both FFTs; nbody_binned under autograd refuses on the card"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import binned as bn
+    pm = ParticleMesh([n] * 3, BoxSize=float(n), dtype='f4',
+                      resampler='cic', device=dev)
+    solver = Solver(pm)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    shape = (n,) * 3
+    disp = tuple(0.05 + 0.9 * torch.rand(shape, generator=gen, device=dev)
+                 for _ in range(3))
+    vel = tuple(0.02 * torch.randn(shape, generator=gen, device=dev)
+                for _ in range(3))
+    dslots, _, valid = bn.from_lattice(disp, vel, nslots=BINNED_GRAD_K)
+    bounds = (-0.5, 1.5)
+    grads = {}
+    for fft in ('xla', 'mxu'):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        g = binned_grad_run(solver, dslots, valid, bounds, fft)
+        torch.cuda.synchronize()
+        launches = counters()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        need = {k: f + b for k, (f, b) in GRAD_BINNED.items()}
+        if fft == 'mxu':
+            need.update((k, f + b) for k, (f, b) in GRAD_MXU.items())
+        got = {k: launches.get(k, 0) for k in need}
+        others = {k: c for k, c in launches.items() if k not in need and c}
+        finite = all(bool(torch.isfinite(x).all()) for x in g)
+        f_ms = cuda_ms(lambda: binned_grad_run(solver, dslots, valid, bounds,
+                                               fft, False), 3)
+        b_ms = cuda_ms(lambda: binned_grad_run(solver, dslots, valid, bounds,
+                                               fft), 3)
+        log("phase 13(b) binned reverse mode, fft=%r on %s: %d^3 K=%d, "
+            "d/d(dslots) of sum over the valid slots of F^2: finite %s, "
+            "max|g| %.4e, launches %s (need %s, others %s), peak %.2f GB; "
+            "per force forward %.3f ms, forward + backward %.3f ms"
+            % (fft, CARD, n, BINNED_GRAD_K, finite,
+               max(float(x.abs().max()) for x in g), json.dumps(got),
+               json.dumps(need), json.dumps(others), peak_gb, f_ms, b_ms))
+        if not finite:
+            raise AssertionError("the binned force gradient is not finite "
+                                 "(fft=%r)" % fft)
+        if got != need or others:
+            raise AssertionError("the binned force's backward did not run "
+                                 "on the kernels (fft=%r)" % fft)
+        grads[fft] = g
+    ok, line = grad_gap(grads['mxu'], grads['xla'], TOL_GRAD, GRAD_OUTLIERS)
+    log("phase 13(b) binned gradient: fft='mxu' against fft='xla', CIC: "
+        + line)
+    if not ok:
+        raise AssertionError("the mxu and xla binned gradients disagree")
+    del grads, g, dslots, valid, disp, vel, solver
+    torch.cuda.empty_cache()
+    # the whole loop under autograd: the CUDA rebase has no rule
+    small = ParticleMesh([32] * 3, BoxSize=32.0, dtype='f4',
+                         resampler='cic', device=dev)
+    d0 = tuple((0.05 + 0.9 * torch.rand((32,) * 3, generator=gen,
+                                        device=dev)).requires_grad_()
+               for _ in range(3))
+    v0 = tuple(torch.zeros((32,) * 3, device=dev) for _ in range(3))
+    try:
+        Solver(small).nbody_binned(d0, v0, [0.5, 0.55, 0.6], **BINNED_KW)
+    except NotImplementedError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("nbody_binned under autograd ran on the card")
+    log("phase 13(b) nbody_binned under autograd on %s refuses: %s"
+        % (CARD, refusal))
+    if "no gradient rule" not in refusal:
+        raise AssertionError("nbody_binned refused for another reason")
+
+
+def rel_max(got, ref):
+    """max|got - ref| / max|ref| of two tensors (real or complex) on any
+    devices"""
+    got, ref = got.detach().cpu(), ref.detach().cpu()
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def phase_legacy(dev, n=LEGACY_N, npart=LEGACY_NPART, nl=LANCZOS_N):
+    """13(d): the legacy pipeline of tests/test_legacy.py at n^3 with
+    npart^3 particles against the modern API, on the card; a legacy
+    lanczos paint at nl^3, card against CPU"""
+    import warnings
+    from pmesh_tpu_torch import ParticleMesh, RealField
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        from pmesh_tpu_torch.legacy import lanczos
+        from pmesh_tpu_torch.legacy.particlemesh import (
+            ParticleMesh as LegacyPM)
+        from pmesh_tpu_torch.legacy.transfer import TransferFunction as TF
+    box = float(n)
+    smoothing, const = 1.25, 4 * np.pi * 43007.1
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    pos = torch.rand((npart ** 3, 3), generator=gen, device=dev) * box
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lpm = LegacyPM(BoxSize=box, Nmesh=n, dtype='f4', device=dev)
+    lpm.clear()
+    lpm.paint(pos)
+    painted = lpm.real
+    lpm.r2c()
+    lpm.push()
+    lpm.transfer([TF.RemoveDC, TF.Trilinear, TF.Gaussian(smoothing),
+                  TF.Poisson, TF.Constant(const)])
+    chained = lpm.complex
+    lpm.c2r([TF.SuperLanzcos(0)])
+    acc = lpm.readout(pos)
+    lpm.pop()
+    torch.cuda.synchronize()
+    t_legacy = time.perf_counter() - t0
+
+    # the modern API on the circular frequencies w
+    pm = ParticleMesh([n] * 3, BoxSize=box, dtype='f4', resampler='cic',
+                      device=dev)
+
+    def chain(w, v):
+        w2 = sum(wi ** 2 for wi in w)
+        trilinear = 1.0
+        for wi in w:
+            trilinear = trilinear * torch.sinc(wi / (2 * np.pi)) ** 2
+        v = v * (w2 > 0) / trilinear * torch.exp(-0.5 * w2 * smoothing ** 2)
+        v = torch.where(w2 == 0, 0.0, v / -torch.where(w2 == 0, 1.0, w2))
+        return v * const
+    rho = pm.paint(pos)
+    rhok = rho.r2c()
+    ck = rhok.apply(chain, kind='circular')
+    # SuperLanzcos(0): direction 0, the default order, 1/6 (8 sin w - sin 2w)
+    force = ck.apply(lambda w, v: v * ((8 * torch.sin(w[0])
+                                        - torch.sin(2 * w[0])) / 6.0 * 1j),
+                     kind='circular').c2r()
+    ref_acc = force.readout(pos)
+    gaps = {
+        'paint': rel_max(painted, rho.value),
+        'transfers': rel_max(chained, ck.value),
+        'c2r': rel_max(lpm.real, force.value),
+        'readout': rel_max(acc, ref_acc),
+        'pop': rel_max(lpm.complex, rhok.value)}
+    # the lanczos window, card against CPU
+    pos_l = torch.rand((nl ** 3 // 8, 3), generator=gen, device=dev) * nl
+    win = lanczos.lanczos3
+    out = {}
+    for device in (dev, 'cpu'):
+        out[str(device)] = lanczos.paint(
+            pos_l.to(device), torch.zeros((nl,) * 3, device=device),
+            window=win, period=nl).cpu()
+    gaps['lanczos3 %d^3' % nl] = rel_max(out[str(dev)], out['cpu'])
+    log("phase 13(d) legacy package on %s: ParticleMesh pipeline at %d^3 "
+        "with %d^3 particles (paint, r2c, push, 5 transfers, c2r with "
+        "SuperLanzcos, readout, pop) in %.3f s, against the modern API, "
+        "max|d|/max: %s (tol %.0e); lanczos3 paint, card against CPU"
+        % (CARD, n, npart, t_legacy,
+           ", ".join("%s %.3e" % kv for kv in gaps.items()), TOL_LEGACY))
+    if not all(v <= TOL_LEGACY for v in gaps.values()):
+        raise AssertionError("the legacy package disagrees with the modern "
+                             "API or the CPU")
+
+
 PHASE_TIMES = []
 
 
@@ -4497,6 +4866,12 @@ def main():
         timed(phase_small, dev, shape, np.asarray(shape, float), 'mxu')
     timed(phase_small_binned, dev)
     timed(phase_catalog_small, dev)
+    timed(phase_reverse_catalog, dev)
+    timed(phase_reverse_binned, dev)
+    timed(phase_small_grad, dev, (CAT_SMALL,) * 3, 2.0 * CAT_SMALL, 'xla',
+          'catalog')
+    timed(phase_small_grad, dev, (32,) * 3, 32.0, 'xla', 'binned')
+    timed(phase_legacy, dev)
     timed(phase_small_grad, dev, (32,) * 3, 64.0, 'xla')
     timed(phase_small_grad, dev, MXU_SMALL, np.asarray(MXU_SMALL, float),
           'mxu')

@@ -17,7 +17,12 @@ with the coefficients in the state's dtype on the device.  Its FFTs are
 ``torch.fft`` (cuFFT on the card) and its paint and readout those of
 ``ops/paint.py``; the JAX package reaches no Pallas kernel on this
 path.  It runs on one device: a sharded force mesh raises (ROADMAP
-queue 1, item 8).  Gradients through it are not ported.
+queue 1, item 8).  Reverse and forward mode (``torch.autograd``,
+``torch.func.jvp``) run through it on the card and on the CPU alike:
+the generic paint and readout carry the JAX package's ``custom_jvp``
+rules and their transposes, ``torch.fft`` its own.  In gradient mode
+the positions of the derivative readouts take no derivative: the
+backward and the jvp raise there, as ``jax.grad`` and ``jax.jvp`` do.
 
 The rest of this module is the lattice and binned paths: the
 kick/drift factor families, ``leapfrog_factors``, and ``lpt_lattice`` (2LPT
@@ -48,9 +53,13 @@ paint and readout carry the JAX package's custom vjps
 ``fft='mxu'`` force triple and potential are ``torch.autograd.Function``s
 with the JAX package's ``linear_call`` transposes (``_MxuForce``,
 ``_MxuPotential``), so on the card the backward runs the same kernels
-as the forward.  Gradients through the binned path, and through the
-gradient-mode force on CUDA (a diffdir readout has no rule on the
-kernels), are not ported.
+as the forward.  The binned path takes gradients on the CPU, where the
+fold, the rebase and the diffdir readouts are plain PyTorch (as the
+JAX package's XLA versions take them).  On the card ``force_binned``
+takes them in spectral mode, its backward on the lattice kernels; the
+CUDA rebase (so ``nbody_binned``) and a diffdir lattice readout (so the
+gradient-mode forces) refuse, as the JAX package's Pallas kernels have
+no rule.
 
 Slab-sharded runs: a Solver on a ``ParticleMesh(procmesh=pm)`` of P > 1
 ranks takes and returns this rank's x slabs of every state field

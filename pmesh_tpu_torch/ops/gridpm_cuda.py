@@ -196,9 +196,10 @@ def _check(arrays, what):
         if a.requires_grad:
             if what.startswith('rebase'):
                 raise NotImplementedError(
-                    "%s: the CUDA rebase takes no tensor that requires "
-                    "grad; gradients through the binned path are not "
-                    "ported yet (ROADMAP queue 1, item 6)" % what)
+                    "%s: the CUDA rebase has no gradient rule, as the JAX "
+                    "package's Pallas rebase has none (pmesh_tpu/ops/"
+                    "binned.py:288-293); differentiate nbody_binned on the "
+                    "CPU, where the plain rebase takes gradients" % what)
             raise NotImplementedError(
                 "%s: the CUDA kernel takes no tensor that requires grad; "
                 "gradients run through ops/gridpm.paint_grid and "

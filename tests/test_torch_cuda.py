@@ -1958,3 +1958,65 @@ def test_field_resample_card_vs_cpu(dev):
     for r, g in zip(out['cpu'][:-1], out[str(dev)][:-1]):
         assert _rel(g, r) <= 1e-10
     assert float(out[str(dev)][-1].abs().max()) <= 1e-12 * np.abs(x).max()
+
+
+# --- reverse mode through the binned path on the card ------------------------
+
+def _binned_leaves(dev, n=32, K=2):
+    """phase 6's state at n^3 as K slots whose displacements require grad"""
+    from pmesh_tpu_torch.ops import binned as tbn
+    rng = np.random.RandomState(13)
+    disp = tuple(torch.from_numpy(
+        (0.05 + 0.9 * rng.uniform(size=(n,) * 3)).astype('f4')).to(dev)
+        for _ in range(3))
+    dslots, valid = tbn.from_lattice(disp, nslots=K)
+    return ([[d.clone().requires_grad_() for d in dk] for dk in dslots],
+            valid)
+
+
+def test_force_binned_backward_launches_the_lattice_kernels(dev):
+    """per slot, as per lattice force: 1 paint + 1 three-mesh readout
+    forward; 3 paints (the meshes' cotangents) + 3 three-mesh readouts
+    (the derivative axes) + 1 'all' readout (the paint's) backward; no
+    other kernel; the gradient within 1e-4 of max|g| of the CPU's"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import binned_cuda, fft_mxu_cuda, gridpm_cuda
+    grads = {}
+    for device in (dev, torch.device('cpu')):
+        pm = ParticleMesh([32] * 3, BoxSize=32.0, dtype='f4',
+                          resampler='cic', device=device)
+        leaves, valid = _binned_leaves(device)
+        for mod in (gridpm_cuda, binned_cuda, fft_mxu_cuda):
+            mod.reset_launches()
+        F = Solver(pm).force_binned(leaves, valid, (-0.5, 1.5))
+        loss = sum((f * f * v).sum() for fk, v in zip(F, valid) for f in fk)
+        grads[device.type] = torch.autograd.grad(
+            loss, [d for dk in leaves for d in dk])
+        if device.type == 'cuda':
+            assert _launched(gridpm_cuda) == {"paint_lattice": 2 * 4,
+                                              "readout_lattice": 2 * 5}
+            assert not _launched(binned_cuda)
+            assert not _launched(fft_mxu_cuda)
+    scale = max(float(g.abs().max()) for g in grads['cpu'])
+    for g, r in zip(grads['cuda'], grads['cpu']):
+        assert torch.isfinite(g).all()
+        assert float((g.cpu() - r).abs().max()) <= 1e-4 * scale
+
+
+def test_binned_grads_refuse_on_the_card(dev):
+    """the CUDA rebase and a diffdir lattice readout have no gradient
+    rule (as the JAX package's Pallas kernels have none): nbody_binned
+    and the gradient-mode force_binned raise under autograd on the card"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    pm = ParticleMesh([32] * 3, BoxSize=32.0, dtype='f4', resampler='cic',
+                      device=dev)
+    leaves, valid = _binned_leaves(dev)
+    with pytest.raises(NotImplementedError, match='gridpm.py:482'):
+        Solver(pm).force_binned(leaves, valid, (-0.5, 1.5), mode='gradient')
+    disp = tuple(leaves[0])
+    vel = tuple(torch.zeros_like(d) for d in disp)
+    with pytest.raises(NotImplementedError, match='no gradient rule'):
+        Solver(pm).nbody_binned(disp, vel, [0.5, 0.55, 0.6], nslots=2,
+                                rebase_every=2)

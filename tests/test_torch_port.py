@@ -64,6 +64,10 @@ def test_imports_without_jax():
         "import pmesh_tpu_torch.utils.bigfile, pmesh_tpu_torch.utils.timers\n"
         "import pmesh_tpu_torch.utils.checkpoint\n"
         "import pmesh_tpu_torch.utils.measure\n"
+        "import pmesh_tpu_torch.legacy.tools, pmesh_tpu_torch.legacy.cic\n"
+        "import pmesh_tpu_torch.legacy.tsc, pmesh_tpu_torch.legacy.lanczos\n"
+        "import pmesh_tpu_torch.legacy.transfer\n"
+        "import pmesh_tpu_torch.legacy.particlemesh\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_sharded_cases\n"
         "assert not [m for m in sys.modules if m.startswith('jax') and\n"
