@@ -191,6 +191,26 @@ run after phase 11's small runs:
    particles against the same computation through the modern API, and a
    legacy lanczos3 paint at 64^3, card against CPU, within 1e-5.
 
+The catalog path on the slab-sharded mesh (the ghost exchange of
+parallel/exchange.py; no hand kernel, as the JAX package's sharded
+catalog path reaches no Pallas kernel) adds phase 14, run after phase
+10:
+
+14. RANKS ranks on the card over gloo, staged through the host as in
+   phase 9, at phase 11's configuration: Solver.linear_field, lpt and
+   nbody with tune_exchange and rebalance over the 10 KDK steps to
+   a = 1, each rank on block b of the particles and slab b of the
+   meshes; the sharded gadget and native noise bitwise the
+   single-device fills, the 2LPT state and the state after 3 KDK steps,
+   gathered to rank 0 by ID, within 1e-4 of max of phase 11's
+   single-device states, one force on the sharded 2LPT state within
+   1e-4 of max|F| of the single-device force on the same particles; at
+   the end finite, on the card, mass conserved to 1e-5 and the three
+   lowest k bins of the final over the initial density within 5 % of
+   (D1(1)/D1(0.1))^2; kside, capacity, the ghosts and the load per rank,
+   the rebalances, the bytes staged per force, the ms per KDK step and
+   the peak memory per rank printed.
+
 The second-to-last line is the kernels' JSON record, the last line
 the device record.
 """
@@ -3858,12 +3878,15 @@ def phase_catalog(dev):
     state0 = solver.lpt(dlinear, CAT_STEPS[0], order=2)
     torch.cuda.synchronize()
     t_ic = time.perf_counter() - t0
-    marks = []
+    marks, held = [], {}
 
     def mark(a, state):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         marks.append(ev)
+        # phase 14's reference: the state after CAT_REF_STEP steps
+        if len(marks) == CAT_REF_STEP:
+            held['S3'], held['V3'] = state.S.clone(), state.V.clone()
     t0 = time.perf_counter()
     final = solver.nbody(state0, CAT_STEPS, monitor=mark)
     Fg = solver.force(final.X, mode='gradient')
@@ -3946,9 +3969,13 @@ def phase_catalog(dev):
         "copy) %.3f ms, native (threefry on the card) %.3f ms"
         % (CARD, CAT_N, gadget_ms, native_ms))
     profile_catalog_step(solver, final)
-    del final, state0, X
+    # phase 14's references, in ID order (the one-device lattice is C order)
+    ref = dict(S0=state0.S.cpu(), V0=state0.V.cpu(), S3=held['S3'].cpu(),
+               V3=held['V3'].cpu())
+    del final, state0, X, held
     torch.cuda.empty_cache()
-    return dict(step_ms=step_ms, paint_ms=paint_ms, readout_ms=readout_ms)
+    return dict(step_ms=step_ms, paint_ms=paint_ms, readout_ms=readout_ms,
+                ref=ref)
 
 
 def phase_catalog_lattice(dev, pm, dlinear):
@@ -4816,6 +4843,255 @@ def phase_legacy(dev, n=LEGACY_N, npart=LEGACY_NPART, nl=LANCZOS_N):
                              "API or the CPU")
 
 
+# --- the sharded catalog path (phase 14) ------------------------------------
+#
+# launch.spawn('chip_smoke:card_catalog', RANKS, ...) starts RANKS ranks
+# on the card (gloo, staged through the host, as phase 9), each on block
+# b of the particles and slab b of the meshes, at phase 11's
+# configuration.  Phase 11's single-device states (the 2LPT state and the
+# state after CAT_REF_STEP KDK steps, in ID order) reach the ranks as .npy
+# files; rank 0 gathers the sharded states by ID and compares.
+CAT_REF_STEP = 3
+CAT_REBALANCE = 1.0         # reshard whenever the load is uneven at all
+TOL_CAT_SHARDED = 1e-4      # sharded vs one device, of max|ref|
+
+
+def catalog_ids(Q):
+    """the C-order ID of each particle of phase 11's lattice Q (shift 0)"""
+    n = CAT_N
+    i = torch.remainder(torch.round(Q / (CAT_BOX / n)).long(), n)
+    return (i[:, 0] * n + i[:, 1]) * n + i[:, 2]
+
+
+def gather_by_id(pm, ids, *arrays):
+    """on rank 0, ``arrays`` of every rank in ID order (None elsewhere)"""
+    from pmesh_tpu_torch.parallel import comm
+    ids = comm.gather(ids, pm)
+    out = [comm.gather(a.contiguous(), pm) for a in arrays]
+    if pm.rank != 0:
+        return None
+    order = torch.argsort(ids)
+    if not torch.equal(ids[order], torch.arange(len(ids), device=ids.device)):
+        raise AssertionError("the gathered IDs are not each particle once")
+    return [a[order] for a in out]
+
+
+def rel_ref(got, ref):
+    return float((got.double() - ref.double()).abs().max()
+                 / ref.double().abs().max())
+
+
+def card_catalog(pm, refdir):
+    """what each rank of phase 14 runs (see phase_sharded_catalog)"""
+    import torch.distributed as dist
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.cosmology import Planck15
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.models.powerspectrum import EHPower
+    from pmesh_tpu_torch.ops import power as pw
+    from pmesh_tpu_torch.parallel import comm
+    dev = pm.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    pm8 = ParticleMesh([CAT_N] * 3, BoxSize=CAT_BOX, dtype='f4',
+                       resampler='cic', procmesh=pm)
+    solver = Solver(pm8, Planck15, B=CAT_B)
+    fpm = solver.fpm
+    npart = CAT_N ** 3
+    rec = {}
+
+    def one_device():
+        return ParticleMesh([CAT_N] * 3, BoxSize=CAT_BOX, dtype='f4',
+                            resampler='cic', device=dev)
+
+    def sync():
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+
+    # the noise: each rank's own block, rank 0 against the whole fill
+    sync()
+    t0 = time.perf_counter()
+    for compat in ('gadget', 'native'):
+        noise = pm8.generate_whitenoise(SEED, type='complex', compat=compat)
+        sync()
+        got = comm.gather(noise.value, pm, axis=1)
+        if pm.rank == 0:
+            whole = one_device().generate_whitenoise(SEED, type='complex',
+                                                     compat=compat).value
+            rec['noise_' + compat] = bool(torch.equal(got, whole))
+        del noise, got
+    rec['noise_s'] = time.perf_counter() - t0
+
+    # the initial conditions
+    sync()
+    t0 = time.perf_counter()
+    dlinear = solver.linear_field(EHPower(Planck15), SEED, compat='gadget')
+    state0 = solver.lpt(dlinear, CAT_STEPS[0], order=2)
+    sync()
+    rec['ic_s'] = time.perf_counter() - t0
+    del dlinear
+    ids = catalog_ids(state0.Q)
+    ref = {k: np.load(os.path.join(refdir, k + '.npy'), mmap_mode='r')
+           for k in ('S0', 'V0', 'S3', 'V3')} if pm.rank == 0 else None
+    got = gather_by_id(pm, ids, state0.S, state0.V)
+    if pm.rank == 0:
+        rec['lpt'] = max(rel_ref(g, torch.from_numpy(np.array(ref[k]))
+                                 .to(dev)) for g, k in zip(got, ('S0', 'V0')))
+    del got
+
+    # the exchange plan and one force on the same inputs as one device's
+    rec['tune'] = dict(solver.tune_exchange(state0.X))
+    rec['load0'] = {k: np.asarray(v).tolist() if not np.isscalar(v) else v
+                    for k, v in solver.last_load.items()}
+    lay = fpm.decompose(state0.X, **solver._exch_kwargs)
+    rec['ghosts'] = (lay.send_idx >= 0).sum(dim=1).tolist()
+    rec['badness'] = float(lay.badness)
+    del lay
+    sync()
+    comm.reset_staged()
+    t0 = time.perf_counter()
+    F = solver.force(state0.X)
+    sync()
+    rec['force_s'] = time.perf_counter() - t0
+    rec['force_staged_bytes'] = sum(comm.STAGED_BYTES.values())
+    got = gather_by_id(pm, ids, state0.X, F)
+    del F
+    if pm.rank == 0:
+        X1, F1 = got
+        one = Solver(one_device(), Planck15, B=CAT_B)
+        rec['force'] = rel_ref(F1, one.force(X1))
+        del one, X1, F1
+    del got
+    torch.cuda.empty_cache()
+
+    # the run: nbody with rebalance; rank 0 holds the state after
+    # CAT_REF_STEP steps against phase 11's
+    calls = []
+    orig = fpm.reshard_particles
+
+    def counting(*a):
+        calls.append(1)
+        return orig(*a)
+    fpm.reshard_particles = counting
+    times, held = [], [0.0]
+
+    def monitor(a, state):
+        sync()
+        times.append(time.perf_counter())
+        if len(times) == CAT_REF_STEP:
+            g = gather_by_id(pm, catalog_ids(state.Q), state.S, state.V)
+            if pm.rank == 0:
+                rec['step3'] = max(
+                    rel_ref(x, torch.from_numpy(np.array(ref[k])).to(dev))
+                    for x, k in zip(g, ('S3', 'V3')))
+            del g
+            sync()
+            held[0] = time.perf_counter() - times[-1]
+        rec.setdefault('loads', []).append(
+            round(solver.last_load['imbalance'], 6))
+    sync()
+    t0 = time.perf_counter()
+    final = solver.nbody(state0, CAT_STEPS, monitor=monitor,
+                         rebalance=CAT_REBALANCE)
+    sync()
+    nsteps = len(CAT_STEPS) - 1
+    rec['run_s'] = time.perf_counter() - t0 - held[0]
+    # steps 2..n: the first holds nbody's initial force
+    rec['step_ms'] = ((times[-1] - times[0] - held[0]) / (nsteps - 1)) * 1e3
+    rec['rebalances'] = len(calls)
+    rec['last_load'] = {k: np.asarray(v).tolist() if not np.isscalar(v)
+                        else v for k, v in solver.last_load.items()}
+    rec['tune_final'] = dict(solver._exch_kwargs)
+    tensors = (final.Q, final.S, final.V, state0.S, state0.V)
+    rec['finite'] = bool(all(torch.isfinite(t).all() for t in tensors))
+    rec['on_cuda'] = all(t.device.type == 'cuda' for t in tensors)
+    rec['nlocal'] = final.X.shape[0]
+    mass = float(fpm.paint(final.X).csum(dtype=torch.float64))
+    rec['mass_err'] = abs(mass - npart) / npart
+    k, p0, nmodes = pw.fftpower(pm8.paint(state0.X))
+    _, p1, _ = pw.fftpower(pm8.paint(final.X))
+    low = [i for i in range(len(nmodes)) if float(k[i]) > 0][:3]
+    growth = (Planck15.D1(CAT_STEPS[-1]) / Planck15.D1(CAT_STEPS[0])) ** 2
+    rec['growth'] = [float(p1[i] / p0[i]) / growth for i in low]
+    rec['k'] = [float(k[i]) for i in low]
+    rec['peak_gb'] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return rec
+
+
+def phase_sharded_catalog(dev, ref):
+    """RANKS ranks on the card at phase 11's catalog configuration (256^3
+    particles, a 512^3 CIC force mesh, f4, gadget noise of SEED, 2LPT at
+    a = 0.1, 10 KDK steps to a = 1): the sharded noise bitwise the
+    single-device fill, the sharded 2LPT state and the state after
+    CAT_REF_STEP KDK steps by ID against phase 11's within 1e-4, one
+    force on the sharded 2LPT state against the single-device force on
+    the same particles within 1e-4 of max|F|; Solver.nbody with
+    tune_exchange and rebalance, then finite, on the card, mass conserved
+    and the lowest k bins grown as D1^2.  The ranks share one card over
+    gloo, staged through the host: the times are no multi-GPU figure."""
+    import tempfile
+    from pmesh_tpu_torch.parallel import launch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ref_") as refdir:
+        for k, v in ref.items():
+            np.save(os.path.join(refdir, k + '.npy'), v.numpy())
+        t0 = time.perf_counter()
+        out = launch.spawn('chip_smoke:card_catalog', RANKS, 'gloo',
+                           dev.type, refdir)
+        wall = time.perf_counter() - t0
+    r0 = out[0]
+    label = ("%d ranks on one card over gloo, staged through the host (no "
+             "multi-GPU figure)" % RANKS)
+    log("phase 14 sharded catalog on %s: %s; %d^3 particles, %d^3 CIC force "
+        "mesh (B=%d), f4; noise both fills %.3f s, IC (linear field + 2LPT) "
+        "%.3f s, one force %.3f s, %d KDK steps %.3f s"
+        % (CARD, label, CAT_N, CAT_N * CAT_B, CAT_B, r0['noise_s'],
+           r0['ic_s'], r0['force_s'], len(CAT_STEPS) - 1, r0['run_s']))
+    log("phase 14 load (every rank's, as each rank measures it): after "
+        "tuning on the 2LPT state %s; after the run %s; imbalance per step "
+        "%s" % (json.dumps(r0['load0']), json.dumps(r0['last_load']),
+                r0['loads']))
+    for b, r in enumerate(out):
+        log("phase 14 rank %d: plan on the 2LPT state kside %d, capacity %d, "
+            "ghosts sent per channel (down, up) %s, badness %g; after the "
+            "run %d particles, plan %s; peak %.2f GB%s"
+            % (b, r['tune']['kside'], r['tune']['capacity'], r['ghosts'],
+               r['badness'], r['nlocal'], json.dumps(r['tune_final']),
+               r['peak_gb'], " (with the one-device force)" if b == 0
+               else ""))
+    log("phase 14 timing on %s (%s): %.3f ms per KDK step (steps 2..%d, "
+        "each with its load measurement and, past rebalance=%g, a reshard "
+        "and re-tune), %d rebalances; %.3f MB staged through the host per "
+        "force (rank 0: the slab FFTs' all_to_alls and the ghost channels)"
+        % (CARD, label, r0['step_ms'], len(CAT_STEPS) - 1, CAT_REBALANCE,
+           r0['rebalances'], r0['force_staged_bytes'] / 1e6))
+    ok = dict(
+        noise=r0['noise_gadget'] and r0['noise_native'],
+        lpt=r0['lpt'] <= TOL_CAT_SHARDED,
+        force=r0['force'] <= TOL_CAT_SHARDED,
+        step3=r0['step3'] <= TOL_CAT_SHARDED,
+        finite=all(r['finite'] for r in out),
+        on_cuda=all(r['on_cuda'] for r in out),
+        mass=r0['mass_err'] <= TOL_MASS,
+        growth=all(abs(g - 1.0) <= TOL_GROWTH for g in r0['growth']),
+        plan=all(r['badness'] == 0.0 for r in out),
+        rebalanced=r0['rebalances'] >= 1)
+    log("phase 14 checks on %s: noise bitwise (gadget %s, native %s); 2LPT "
+        "state by ID max|d|/max = %.3e, force on the same particles %.3e of "
+        "max|F|, state after %d KDK steps %.3e (tol %.0e); finite %s, on the "
+        "card %s, mass error %.3e (tol %.0e), P_final/P_initial / (D1 "
+        "ratio)^2 = %s at k = %s (tol %.2f); the job took %.3f s: %s"
+        % (CARD, r0['noise_gadget'], r0['noise_native'], r0['lpt'],
+           r0['force'], CAT_REF_STEP, r0['step3'], TOL_CAT_SHARDED,
+           ok['finite'], ok['on_cuda'], r0['mass_err'], TOL_MASS,
+           " ".join("%.4f" % g for g in r0['growth']),
+           " ".join("%.5f" % k for k in r0['k']), TOL_GROWTH, wall,
+           "ok" if all(ok.values()) else "FAIL"))
+    if not all(ok.values()):
+        raise AssertionError("the sharded catalog run failed its checks: %s"
+                             % ", ".join(k for k, v in ok.items() if not v))
+
+
 PHASE_TIMES = []
 
 
@@ -4882,6 +5158,7 @@ def main():
           np.asarray(MXU_SMALL, float), 'mxu_bf16')
     sharded = timed(phase_sharded, dev)
     timed(phase_pipe_chain, dev)
+    timed(phase_sharded_catalog, dev, catalog.pop('ref'))
     # each kernel's launches on its own path's main run: the lattice
     # kernels on the fft='xla' lattice run, the ct2 DFT kernels on the
     # fft='mxu' lattice run, the rebase and dense DFT kernels on the

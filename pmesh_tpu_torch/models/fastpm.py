@@ -16,8 +16,17 @@ before the next, and ``Solver.nbody`` the KDK loop, one force per step,
 with the coefficients in the state's dtype on the device.  Its FFTs are
 ``torch.fft`` (cuFFT on the card) and its paint and readout those of
 ``ops/paint.py``; the JAX package reaches no Pallas kernel on this
-path.  It runs on one device: a sharded force mesh raises (ROADMAP
-queue 1, item 8).  Reverse and forward mode (``torch.autograd``,
+path.  On a slab-sharded mesh (a ``ParticleMesh(procmesh=pm)`` of P > 1
+ranks) each rank holds block b of the particle arrays and the force
+runs the ghost exchange of ``parallel/exchange.py``: ``decompose`` with
+the kside and capacity ``tune_exchange`` measured, the sharded paint,
+the slab FFTs and the sharded readout (one fused ``diffdir='all'``
+readout in gradient mode); the density's normalization counts the
+particles of every rank.  ``nbody(rebalance=...)`` measures the load
+after each step and, past the threshold, reshards the particles and
+re-tunes the exchange.  Reverse mode through the sharded catalog path
+is not ported (ROADMAP queue 1, item 8c).  Reverse and forward mode
+(``torch.autograd``,
 ``torch.func.jvp``) run through it on the card and on the CPU alike:
 the generic paint and readout carry the JAX package's ``custom_jvp``
 rules and their transposes, ``torch.fft`` its own.  In gradient mode
@@ -84,6 +93,7 @@ from ..ops import paint as _paint_ops
 from ..ops import gridpm as _gp
 from ..ops import binned as _bn
 from ..ops import fft_mxu as _fm
+from ..parallel import exchange as _ex
 from ..parallel.comm import all_reduce
 from .cosmology import Planck15
 
@@ -282,23 +292,51 @@ class Solver(object):
                 Nmesh=self.fpm.Nmesh, BoxSize=self.fpm.BoxSize,
                 dtype=self.fpm.dtype, resampler=force_resampler,
                 device=self.fpm.device, procmesh=self.fpm.procmesh)
+        # the sharded exchange plan's kside and capacity, measured by
+        # tune_exchange (empty: decompose's defaults, a capacity of the
+        # whole block); the load it measured last
+        self._exch_kwargs = {}
+        self.last_load = None
 
     @property
     def _pmh(self):
         """the ProcessMesh of a sharded force mesh, else None"""
         return self.fpm.procmesh if self.fpm.sharded else None
 
-    def _catalog_one_device(self, what):
-        if self.pm.sharded or self.fpm.sharded:
-            raise NotImplementedError(
-                "Solver.%s on a sharded mesh is not ported yet (ROADMAP "
-                "queue 1, item 8)" % what)
+    def _count(self, X):
+        """the number of particles of every rank"""
+        if not self.fpm.sharded:
+            return X.shape[0]
+        t = torch.tensor([X.shape[0]], dtype=torch.int64, device=X.device)
+        return int(all_reduce(t, self.fpm.procmesh, 'sum')[0])
 
     def tune_exchange(self, X, slack=1.5):
-        """The sharded exchange capacity of the catalog force: nothing to
-        tune on one device (returns None)."""
-        self._catalog_one_device("tune_exchange")
-        return None
+        """Measure the ghosts of the particles ``X`` (this rank's block)
+        and fix the sharded exchange's kside and capacity for the forces
+        that follow: the largest channel count times ``slack`` (at least
+        16); a later overflow poisons.  Also measures the load
+        (``last_load``).  Returns the plan's parameters; None on one
+        device, where there is nothing to tune."""
+        fpm = self.fpm
+        if not fpm.sharded:
+            return None
+        g0 = fpm._grid0(X, fpm.affine)
+        smoothing = fpm.resampler.support * 0.5
+        N0 = int(fpm.Nmesh[0])
+        kside = _ex._default_kside(
+            smoothing, _ex._slab_rows(N0, fpm.procmesh.size),
+            fpm.procmesh.size)
+        counts, reach = _ex.measure_ghosts(fpm.procmesh, g0, N0, smoothing,
+                                           kside=kside)
+        if reach > kside:
+            raise ValueError(
+                "particles reach %d slabs from home (> kside=%d): reshard "
+                "before tuning (pm.reshard_particles)" % (reach, kside))
+        capacity = max(16, int(np.ceil(float(counts.max()) * float(slack))))
+        self._exch_kwargs = dict(kside=kside, capacity=capacity)
+        self.last_load = _ex.measure_load(fpm.procmesh, g0, N0, smoothing,
+                                          kside=kside)
+        return self._exch_kwargs
 
     # --- catalog path: initial conditions ---------------------------------
 
@@ -366,52 +404,72 @@ class Solver(object):
         mode='gradient' takes one Poisson potential and its derivative
         readouts (-W'(v - s) along each axis, in simulation units: no
         cell factor), a third of the inverse FFTs.
+
+        On a sharded mesh ``X`` is this rank's block: the plan is
+        decomposed with ``tune_exchange``'s parameters, and the readouts
+        are the sharded ones (gradient mode's fused in one pass).
         """
-        self._catalog_one_device("force")
         if mode not in ('spectral', 'gradient'):
             raise ValueError("mode must be 'spectral' or 'gradient'")
         fpm = self.fpm
-        N = X.shape[0]
+        N = self._count(X)
         if factor is None:
             factor = 1.5 * self.cosmology.Om0
-        layout = fpm.decompose(X)
+        layout = fpm.decompose(X, **self._exch_kwargs) if fpm.sharded \
+            else fpm.decompose(X)
         rho = fpm.paint(X, layout=layout)
         rhok = (rho * (float(fpm.Nmesh.prod()) / N)).r2c()
         del rho
+        a = fpm.affine
         if mode == 'gradient':
             phi = rhok.apply(tf.poisson()).c2r()
             del rhok
-            vals = [-phi.readout(X, layout=layout, gradient=d)
-                    for d in range(fpm.ndim)]
+            if fpm.sharded:
+                vals = [-v for v in _ex.readout_sharded(
+                    layout, phi.value, X, a.scale, fpm.resampler.window,
+                    diffdir='all', translate=a.translate)]
+            else:
+                vals = [-phi.readout(X, layout=layout, gradient=d)
+                        for d in range(fpm.ndim)]
             return torch.stack(vals, dim=-1) * factor
         meshes = tuple(rhok.apply(tf.force_transfer(d)).c2r().value
                        for d in range(fpm.ndim))
         del rhok
-        a = fpm.affine
-        vals = _paint_ops.readout(meshes, X, window=fpm.resampler.window,
-                                  scale=a.scale, translate=a.translate,
-                                  period=a.period)
+        if fpm.sharded:
+            vals = _ex.readout_sharded(layout, meshes, X, a.scale,
+                                   fpm.resampler.window)
+        else:
+            vals = _paint_ops.readout(meshes, X, window=fpm.resampler.window,
+                                      scale=a.scale, translate=a.translate,
+                                      period=a.period)
         return torch.stack(vals, dim=-1) * factor
 
     def force_staged(self, X, factor=None):
         """The spectral :meth:`force`, one direction at a time: each
         direction's force mesh is read and freed before the next is
-        made, so one mesh is live beside the spectrum."""
-        self._catalog_one_device("force_staged")
+        made, so one mesh is live beside the spectrum (on a sharded
+        mesh, one slab of it and one plan for the paint and the three
+        readouts)."""
         fpm = self.fpm
-        N = X.shape[0]
+        N = self._count(X)
         if factor is None:
             factor = 1.5 * self.cosmology.Om0
-        rho = fpm.paint(X)
+        layout = fpm.decompose(X, **self._exch_kwargs) if fpm.sharded \
+            else None
+        rho = fpm.paint(X, layout=layout)
         rhok = (rho * (float(fpm.Nmesh.prod()) / N)).r2c()
         del rho
         a = fpm.affine
         cols = []
         for d in range(fpm.ndim):
             mesh = rhok.apply(tf.force_transfer(d)).c2r().value
-            cols.append(_paint_ops.readout(
-                mesh, X, window=fpm.resampler.window, scale=a.scale,
-                translate=a.translate, period=a.period))
+            if fpm.sharded:
+                cols.append(_ex.readout_sharded(layout, mesh, X, a.scale,
+                                            fpm.resampler.window))
+            else:
+                cols.append(_paint_ops.readout(
+                    mesh, X, window=fpm.resampler.window, scale=a.scale,
+                    translate=a.translate, period=a.period))
             del mesh
         return torch.stack(cols, dim=-1) * factor
 
@@ -422,23 +480,41 @@ class Solver(object):
         """The KDK loop of the catalog path from ``state``: one force
         per step (``force_mode``: see :meth:`force`), the coefficients
         in the state's dtype on its device.  ``monitor(a, state)`` is
-        called after each step.  ``rebalance`` re-lays out sharded
-        particles, so it raises on a sharded mesh and does nothing on
-        one device.  Returns the final :class:`State`."""
-        if rebalance is not None:
-            self._catalog_one_device("nbody(rebalance=...)")
+        called after each step.  Returns the final :class:`State`.
+
+        On a sharded mesh the state is this rank's block; the exchange
+        is tuned on the initial state unless ``tune_exchange`` ran
+        before.  ``rebalance`` (a float; does nothing on one device)
+        measures the load after each step (``last_load``) and, when its
+        max / mean exceeds the threshold, reshards (Q, S, V, F) into
+        home-slab order and re-tunes the exchange: the particles then
+        change ranks and order.
+        """
         fac = _FACTORS[factors](self.cosmology) \
             if isinstance(factors, str) else factors
         dtype, device = state.S.dtype, state.S.device
         K1, D1s, K2 = (torch.as_tensor(c, device=device).to(dtype)
                        for c in leapfrog_factors(time_steps, fac, scheme))
+        fpm = self.fpm
         Q, S, V = state.Q, state.S, state.V
+        if fpm.sharded and not self._exch_kwargs:
+            self.tune_exchange(Q + S)
         F = self.force(Q + S, mode=force_mode)
         for i, af in enumerate(time_steps[1:]):
             V = V + F * K1[i]
             S = S + V * D1s[i]
             F = self.force(Q + S, mode=force_mode)
             V = V + F * K2[i]
+            if rebalance is not None and fpm.sharded:
+                X = Q + S
+                self.last_load = _ex.measure_load(
+                    fpm.procmesh, fpm._grid0(X, fpm.affine),
+                    int(fpm.Nmesh[0]), fpm.resampler.support * 0.5,
+                    kside=self._exch_kwargs.get('kside'))
+                if self.last_load['imbalance'] > float(rebalance):
+                    _, Q, S, V, F = fpm.reshard_particles(X, Q, S, V, F)
+                    self._exch_kwargs = {}
+                    self.tune_exchange(Q + S)
             if monitor is not None:
                 monitor(af, State(Q, S, V))
         return State(Q, S, V)
@@ -562,7 +638,7 @@ class Solver(object):
                 if rho.requires_grad and torch.is_grad_enabled():
                     raise NotImplementedError(
                         "reverse mode through the slab-sharded path is not "
-                        "ported yet (ROADMAP queue 1, item 8)")
+                        "ported yet (ROADMAP queue 1, item 8c)")
                 return self._mxu_force_raw(rho, _MXU[fft])
             return _MxuForce.apply(self, rho, _MXU[fft])
         rhok = self.fpm.create(type=RealField, value=rho).r2c()

@@ -279,7 +279,7 @@ def _no_sharded_grad(what, tensors):
     if _tracks(tensors):
         raise NotImplementedError(
             "%s: reverse mode through the slab-sharded path is not ported "
-            "yet (ROADMAP queue 1, item 8)" % what)
+            "yet (ROADMAP queue 1, item 8c)" % what)
 
 
 def _detached(t):

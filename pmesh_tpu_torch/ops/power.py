@@ -3,7 +3,8 @@
 Counterpart of ``pmesh_tpu/ops/power.py``: one |k| binning over the
 whole spectrum and three weighted bin sums (``index_add_``), with the
 hermitian-compression weights so that each independent mode counts
-once.
+once.  On a sharded mesh each rank bins its own block of the spectrum
+and the bin sums are summed over the ranks (one ``all_reduce``).
 """
 import numpy as np
 import torch
@@ -72,6 +73,10 @@ def measure_power(comp, kedges=None, Nbins=None, dk=None, kmin=0.0,
         return x.new_zeros(nb + 1).index_add_(0, binid, x)
 
     psum, ksum, nsum = bin_sum(p), bin_sum(kmag * w), bin_sum(w)
+    if comp.pm.sharded:
+        from ..parallel.comm import all_reduce
+        psum, ksum, nsum = all_reduce(torch.stack([psum, ksum, nsum]),
+                                      comp.pm.procmesh, 'sum').unbind(0)
     vol = float(np.prod(BoxSize))
     nmodes = nsum[:nb]
     count = torch.clamp(nmodes, min=1)

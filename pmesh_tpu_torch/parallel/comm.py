@@ -10,7 +10,10 @@
 - :func:`all_reduce`: sum, max or min of a tensor over the ranks
   (``jax.lax.psum`` / ``pmax``);
 - :func:`ring_exchange`: the ring send/recv of plane blocks
-  (``jax.lax.ppermute`` with fixed hops), over ``batch_isend_irecv``.
+  (``jax.lax.ppermute`` with fixed hops), over ``batch_isend_irecv``;
+- :func:`all_to_all_v`: the ragged all_to_all of rows grouped by
+  destination rank, the counts exchanged first (MPI's Alltoallv, the
+  global sort of ``parallel/exchange.reshard``).
 
 Backend rule, fixed when the ProcessMesh is built (``pm.staged``):
 under NCCL device tensors go device to device; under gloo, CUDA tensors
@@ -18,8 +21,8 @@ are staged through host buffers for every collective but all_reduce,
 because gloo implements only broadcast and all_reduce for CUDA tensors.
 ``STAGED_BYTES`` counts the bytes so staged (each direction).  Complex
 tensors travel as their (re, im) pairs and bf16 tensors as a byte view
-(the last axis twice as long): bit exact, and the backend need not know
-bf16.
+(the last axis twice as long), bool tensors as bytes: bit exact, and
+the backend need not know bf16 or bool.
 
 On a mesh of one rank every collective is the identity (no process
 group is needed).
@@ -27,8 +30,8 @@ group is needed).
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_to_all", "all_gather", "gather", "all_reduce",
-           "ring_exchange", "STAGED_BYTES", "reset_staged"]
+__all__ = ["all_to_all", "all_to_all_v", "all_gather", "gather",
+           "all_reduce", "ring_exchange", "STAGED_BYTES", "reset_staged"]
 
 STAGED_BYTES = {"to_host": 0, "to_device": 0}
 
@@ -46,6 +49,8 @@ def _wire(x):
         # gloo refuses int16; bytes are exact under any backend
         return x.contiguous().view(torch.uint8), \
             lambda t: t.view(torch.bfloat16)
+    if x.dtype == torch.bool:
+        return x.to(torch.uint8), lambda t: t.bool()
     return x, lambda t: t
 
 
@@ -137,13 +142,44 @@ _OPS = {'sum': dist.ReduceOp.SUM, 'max': dist.ReduceOp.MAX,
 
 def all_reduce(x, pm, op='sum'):
     """A new tensor: ``x`` reduced over the ranks by 'sum', 'max' or
-    'min' (device to device under either backend)."""
+    'min' (device to device under either backend; a complex tensor as
+    its (re, im) pairs, so only by 'sum')."""
     if op not in _OPS:
         raise ValueError("op must be 'sum', 'max' or 'min' (got %r)" % (op,))
     out = x.clone()
     if pm.size > 1:
-        dist.all_reduce(out, op=_OPS[op], group=pm.group)
+        if out.is_complex() and op != 'sum':
+            raise ValueError("a complex tensor reduces by 'sum' only")
+        w = torch.view_as_real(out) if out.is_complex() else out
+        dist.all_reduce(w, op=_OPS[op], group=pm.group)
     return out
+
+
+def all_to_all_v(x, pm, counts):
+    """The rows of ``x``, grouped by destination rank (``counts[j]`` rows
+    for rank j, in rank order), sent to their ranks: returns the rows
+    received, grouped by source rank, and the count from each source (a
+    list).  The counts travel first, in one all_to_all of P integers."""
+    P = pm.size
+    counts = [int(c) for c in counts]
+    if len(counts) != P or sum(counts) != x.shape[0]:
+        raise ValueError("all_to_all_v: %d counts summing to %d for %d rows "
+                         "on %d ranks" % (len(counts), sum(counts),
+                                          x.shape[0], P))
+    if P == 1:
+        return x, counts
+    sc = _empty_wire(pm, (P,), torch.int64)
+    sc.copy_(torch.tensor(counts, dtype=torch.int64))
+    rc = torch.empty_like(sc)
+    dist.all_to_all_single(rc, sc, group=pm.group)
+    recv_counts = [int(c) for c in rc.cpu()]
+    w, back = _wire(x)
+    send = _to_wire(pm, w)
+    recv = _empty_wire(pm, (sum(recv_counts),) + tuple(send.shape[1:]),
+                       send.dtype)
+    dist.all_to_all_single(recv, send, output_split_sizes=recv_counts,
+                           input_split_sizes=counts, group=pm.group)
+    return back(_from_wire(pm, recv)), recv_counts
 
 
 def ring_exchange(blocks, pm):

@@ -32,8 +32,19 @@ def r2c(pm, value):
 
 def c2r(pm, value, Nmesh, real_dtype):
     """Unnormalized inverse of :func:`r2c`: the y-chunk (N0, N1/P, Zh)
-    to this rank's real slab (N0/P, N1, N2)."""
+    to this rank's real slab (N0/P, N1, N2).
+
+    numpy's irfftn convention, kept on the card: after the complex
+    inverse over x and y, the real inverse over z reads only the real
+    part of its DC (and, N2 even, Nyquist) column.  A spectrum that is
+    not hermitian there (an odd filter's Nyquist modes, i k_x with the
+    Nyquist index -N/2) leaves imaginary parts in that column, which
+    cuFFT's C2R reads at some lengths (256 on an H100), unlike pocketfft
+    and cuFFT's own 3-d irfftn (ROADMAP queue 3)."""
     c = torch.fft.ifft(value, dim=0, norm='forward')
     c = all_to_all(c, pm, split_axis=0, concat_axis=1)
-    s = tuple(int(n) for n in Nmesh[1:])
-    return torch.fft.irfft2(c, s=s, norm='forward').to(real_dtype)
+    c = torch.fft.ifft(c, dim=1, norm='forward')
+    n2 = int(Nmesh[2])
+    for z in (0, n2 // 2) if n2 % 2 == 0 else (0,):
+        c[..., z] = c[..., z].real
+    return torch.fft.irfft(c, n=n2, dim=2, norm='forward').to(real_dtype)

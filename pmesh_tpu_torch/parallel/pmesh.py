@@ -58,7 +58,7 @@ class ProcessMesh(object):
         if shape is not None:
             raise NotImplementedError(
                 "2-d (npx, npy) pencil process grids are not ported yet "
-                "(ROADMAP queue 1, item 8); use the 1-d slab grid")
+                "(ROADMAP queue 1, item 8a); use the 1-d slab grid")
         self.group = group
         if dist.is_available() and dist.is_initialized():
             self.size = dist.get_world_size(group)
@@ -105,7 +105,7 @@ class ProcessMesh(object):
         if n % self.size:
             raise NotImplementedError(
                 "an axis of length %d does not split into %d equal slabs; "
-                "uneven meshes are not ported yet (ROADMAP queue 1, item 8)"
+                "uneven meshes are not ported yet (ROADMAP queue 1, item 8a)"
                 % (n, self.size))
         rows = n // self.size
         return self.rank * rows, (self.rank + 1) * rows

@@ -31,9 +31,18 @@ field (whole x, half z), as the JAX package's ``real_spec`` and
 slab transforms of ``parallel/pfft.py`` and the coordinates of
 ``apply`` are the block's own.  The ranks must divide N0 and N1 (the
 JAX package's ``_even_mesh``); its uneven and replicated fallbacks are
-not ported.  The particle methods, the reductions, the global item
-access and reshaping, the untransposed layout, c2c meshes and the white
-noise raise on a sharded mesh (ROADMAP queue 1, item 8).
+not ported (ROADMAP queue 1, item 8a).  Particle arrays are held in
+blocks too: rank b holds block b of the global (N, ndim) array
+(``parallel/exchange.py``).  ``decompose`` builds the slab ghost plan
+(a ``ShardedLayout``), ``reshard_particles`` restores its residency,
+``paint`` and ``readout`` with that plan paint and read each rank's
+slab from its images, and without one they reshard a copy, decompose
+and route the values back, so that any positions give the global
+answer.  The particle grid is each rank's slab of the lattice, the
+white noise each rank's own block of the fill, and the reductions
+``csum``/``cdot``/``cnorm`` sum over the ranks.  The global item access
+and reshaping and the untransposed layout raise on a sharded mesh
+(ROADMAP queue 1, item 8d), as do c2c and 2-d sharded meshes (8a).
 """
 import functools
 
@@ -73,7 +82,15 @@ def _not_sharded(pm, what):
     if pm.sharded:
         raise NotImplementedError(
             "%s on a sharded mesh is not ported yet (ROADMAP queue 1, "
-            "item 8)" % what)
+            "item 8d)" % what)
+
+
+def _rank_sum(pm, value):
+    """a 0-d sum of this rank's block, summed over the ranks"""
+    if not pm.sharded:
+        return value
+    from .parallel.comm import all_reduce
+    return all_reduce(value, pm.procmesh, 'sum')
 
 
 def is_inplace(out):
@@ -578,18 +595,17 @@ class RealField(Field):
         return Field.apply(self, func, kind, out)
 
     def csum(self, dtype=None):
-        """Sum over the whole mesh (a 0-d tensor)."""
-        _not_sharded(self.pm, "csum")
+        """Sum over the whole mesh (a 0-d tensor; on a sharded mesh the
+        blocks' sums summed over the ranks)."""
         v = self.value if dtype is None else self.value.to(dtype)
-        return v.sum()
+        return _rank_sum(self.pm, v.sum())
 
     def cmean(self, dtype=None):
         return self.csum(dtype=dtype) / self.csize
 
     def cdot(self, other):
-        _not_sharded(self.pm, "cdot")
         self._check_compatible(other)
-        return (self.value * self._cast_binop(other)).sum()
+        return _rank_sum(self.pm, (self.value * self._cast_binop(other)).sum())
 
     def cnorm(self):
         return self.cdot(self)
@@ -599,14 +615,22 @@ class RealField(Field):
         """The field's values at ``pos`` (N, ndim) through the generic
         readout (``ops/paint.py``); ``gradient`` = d reads the derivative
         along axis d in the units of ``pos``; ``layout`` is a
-        :meth:`ParticleMesh.decompose` plan.  Returns a new tensor."""
-        _not_sharded(self.pm, "RealField.readout")
+        :meth:`ParticleMesh.decompose` plan.  Returns a new tensor.
+
+        On a sharded mesh ``pos`` is this rank's block of particles: with
+        a ``ShardedLayout`` the sharded readout reads each rank's slab
+        from the images; without one the particles are resharded,
+        decomposed and read, and the values routed back."""
         if out is not None:
             raise TypeError("out= is not supported: use the return value")
         if transform is None:
             transform = self.pm.affine
         resampler = FindResampler(self.pm.resampler if resampler is None
                                   else resampler)
+        if self.pm.sharded:
+            return self.pm._readout_sharded(self.value, pos, hsml, resampler,
+                                            transform, gradient, layout,
+                                            hsml_max)
         if layout is not None:
             pos = layout.exchange(pos)
             hsml = layout.exchange(hsml) if hsml is not None else None
@@ -710,7 +734,6 @@ class BaseComplexField(Field):
 
     def cnorm(self, metric=None, norm=lambda x: x.real ** 2 + x.imag ** 2):
         """Sum of norm(v) over all modes, the conjugates included."""
-        _not_sharded(self.pm, "cnorm")
 
         def filter2(k, y):
             y = norm(y)
@@ -719,12 +742,11 @@ class BaseComplexField(Field):
             return y
         r = self.apply(filter2)
         r = r.apply(self._expand_hermitian, kind='index', out=Ellipsis)
-        return r.value.sum().real
+        return _rank_sum(self.pm, r.value.sum()).real
 
     def cdot(self, other, metric=None):
         """sum conj(other) * self over all modes, the conjugates
         included."""
-        _not_sharded(self.pm, "cdot")
         if isinstance(other, Field):
             if not isinstance(other, _gettype(self)):
                 raise TypeError(
@@ -735,7 +757,7 @@ class BaseComplexField(Field):
         r.apply(self._expand_hermitian, kind='index', out=Ellipsis)
         if metric is not None:
             r.apply(lambda k, y: y * metric(k.normp() ** 0.5), out=Ellipsis)
-        return r.value.sum()
+        return _rank_sum(self.pm, r.value.sum())
 
     def cdot_vjp(self, v, metric=None):
         """The vjp of ``cdot`` against ``other``: this field times the
@@ -830,7 +852,7 @@ class ParticleMesh(object):
                 raise NotImplementedError(
                     "procmesh must be a pmesh_tpu_torch.parallel.pmesh."
                     "ProcessMesh (the 1-d slab grid); other process grids "
-                    "are not ported yet (ROADMAP queue 1, item 8)")
+                    "are not ported yet (ROADMAP queue 1, item 8a)")
             if device is not None and not _same_device(
                     resolve_device(device), procmesh.device):
                 raise ValueError("device %s is not the procmesh's %s"
@@ -849,11 +871,12 @@ class ParticleMesh(object):
             if self._is_c2c:
                 raise NotImplementedError(
                     "c2c meshes on a sharded mesh are not ported yet "
-                    "(ROADMAP queue 1, item 8)")
+                    "(ROADMAP queue 1, item 8a)")
             if self.ndim != 3:
                 raise NotImplementedError(
                     "sharded meshes are 3-d here (the JAX package's 2-d "
-                    "slab transforms are not ported)")
+                    "slab transforms are not ported yet: ROADMAP queue 1, "
+                    "item 8a)")
             # the slab layouts need equal blocks of x and y
             for d in (0, 1):
                 procmesh.slab(int(self.Nmesh[d]))
@@ -1000,38 +1023,161 @@ class ParticleMesh(object):
         coord = torch.stack([g.reshape(-1) for g in grids], dim=-1)
         return coord.to(_torch_dtype(dtype))
 
+    def _mesh_points(self):
+        """the (n, ndim) int64 indices of this rank's block of the real
+        mesh's points, C order (the whole mesh on one device)"""
+        _, start, stop = self.local_block(RealField)
+        axes = [torch.arange(start, stop, device=self.device)] + [
+            torch.arange(int(n), device=self.device) for n in self.Nmesh[1:]]
+        grids = torch.meshgrid(*axes, indexing='ij')
+        return torch.stack([g.reshape(-1) for g in grids], dim=-1)
+
     def generate_uniform_particle_grid(self, shift=0.5, dtype=None,
                                        return_id=False):
         """One particle per mesh point at (i + shift) * BoxSize / Nmesh
         (formed in f8, then cast to ``dtype``); with ``return_id`` also
-        the C-order id of each (int64)."""
+        the C-order id of each (int64).  On a sharded mesh, the points
+        of this rank's slab: block b of the global grid."""
         if dtype is None:
             dtype = self.dtype
         shift = torch.as_tensor(np.broadcast_to(shift, self.ndim).copy(),
                                 dtype=torch.float64, device=self.device)
         cell = torch.as_tensor(self.BoxSize / self.Nmesh,
                                dtype=torch.float64, device=self.device)
-        source = ((self.mesh_coordinates('f8') + shift) * cell) \
+        isource = self._mesh_points()
+        source = ((isource.to(torch.float64) + shift) * cell) \
             .to(_torch_dtype(dtype))
         if not return_id:
             return source
-        isource = self.mesh_coordinates('i8')
         id = isource[:, 0]
         for i in range(1, self.ndim):
             id = id * int(self.Nmesh[i]) + isource[:, i]
         return source, id
 
-    def decompose(self, pos, smoothing=None, transform=None):
+    def decompose(self, pos, smoothing=None, transform=None, kside=None,
+                  capacity=None):
         """The domain plan of ``pos``: on one device the trivial
-        single-domain Layout, whose exchange and gather are identities."""
-        _not_sharded(self, "decompose")
+        single-domain Layout, whose exchange and gather are identities;
+        on a sharded mesh the slab ghost plan of this rank's block of
+        particles (``parallel/exchange.decompose``, in the frame of
+        ``transform``, with its ``kside`` and ``capacity``)."""
         if smoothing is None:
             smoothing = self.resampler
         try:
             smoothing = FindResampler(smoothing).support * 0.5
         except TypeError:
             pass
+        if self.sharded:
+            from .parallel import exchange
+            if transform is None:
+                transform = self.affine
+            return exchange.decompose(
+                self.procmesh, self._grid0(pos, transform),
+                int(self.Nmesh[0]), float(smoothing), kside=kside,
+                capacity=capacity)
         return Layout(smoothing=smoothing, npart=len(pos))
+
+    @staticmethod
+    def _grid0(pos, transform):
+        """the axis-0 grid coordinate of ``pos`` under ``transform``, in
+        the positions' dtype"""
+        pos = torch.as_tensor(pos)
+        return pos[:, 0] * torch.as_tensor(float(transform.scale[0]),
+                                           dtype=pos.dtype) \
+            + torch.as_tensor(float(transform.translate[0]), dtype=pos.dtype)
+
+    def reshard_particles(self, pos, *arrays):
+        """Re-sort this rank's particle arrays (``pos`` and ``arrays``,
+        rows aligned) into equal-count blocks in x-plane order over the
+        ranks, as ``decompose``'s residency wants
+        (``parallel/exchange.reshard``):
+        returns the new blocks, ``pos`` first.  On one device, the
+        arguments."""
+        if not self.sharded:
+            return (pos,) + tuple(arrays) if arrays else pos
+        from .parallel import exchange
+        pos = torch.as_tensor(pos)
+        return exchange.reshard(self.procmesh, self._grid0(pos, self.affine),
+                                int(self.Nmesh[0]), pos, *arrays)
+
+    def _unplanned(self, pos, smoothing, transform, *arrays):
+        """a copy of this rank's particles resharded and decomposed, for a
+        paint or readout given no plan: (layout, pos, arrays, (source
+        rank, source row) of each row)"""
+        from .parallel import exchange
+        pos = torch.as_tensor(pos)
+        n = pos.shape[0]
+        src = torch.full((n,), self.procmesh.rank, dtype=torch.int64,
+                         device=pos.device)
+        row = torch.arange(n, device=pos.device)
+        out = exchange.reshard(self.procmesh, self._grid0(pos, transform),
+                               int(self.Nmesh[0]), pos, src, row, *arrays)
+        pos, src, row, arrays = out[0], out[1], out[2], out[3:]
+        layout = self.decompose(pos, smoothing=smoothing,
+                                transform=transform, capacity='auto')
+        return layout, pos, arrays, (src, row)
+
+    def _hsml_reach(self, resampler, hsml, hsml_max):
+        """(smoothing, hsml_max) of a paint or readout given no plan: the
+        window's half support, times the largest hsml over the ranks"""
+        if hsml is None:
+            return resampler.support * 0.5, hsml_max
+        if hsml_max is None:
+            from .parallel.comm import all_reduce
+            h = torch.as_tensor(hsml)
+            top = h.max().reshape(1) if h.numel() else h.new_zeros(1)
+            hsml_max = float(all_reduce(top.to(torch.float64), self.procmesh,
+                                        'max')[0])
+        return resampler.window.support_float * 0.5 * float(hsml_max), \
+            hsml_max
+
+    def _readout_sharded(self, value, pos, hsml, resampler, transform,
+                         gradient, layout, hsml_max):
+        """RealField.readout on a sharded mesh (its docstring)"""
+        from .parallel import exchange
+        if isinstance(layout, exchange.ShardedLayout):
+            return exchange.readout_sharded(
+                layout, value, pos, transform.scale, resampler.window,
+                diffdir=gradient, hsml=hsml, hsml_max=hsml_max,
+                translate=transform.translate)
+        exchange._no_grad("RealField.readout", pos, value, hsml)
+        smoothing, hsml_max = self._hsml_reach(resampler, hsml, hsml_max)
+        n = torch.as_tensor(pos).shape[0]
+        extra = () if hsml is None else (torch.as_tensor(hsml),)
+        layout, p, extra, (src, row) = self._unplanned(
+            pos, smoothing, transform, *extra)
+        vals = exchange.readout_sharded(
+            layout, value, p, transform.scale, resampler.window,
+            diffdir=gradient, hsml=extra[0] if extra else None,
+            hsml_max=hsml_max, translate=transform.translate)
+        return exchange.route(self.procmesh, src, row, n, vals)[0]
+
+    def _paint_sharded(self, pos, hsml, mass, resampler, transform, base,
+                       gradient, layout, hsml_max):
+        """ParticleMesh.paint on a sharded mesh: this rank's slab"""
+        from .parallel import exchange
+        if not isinstance(layout, exchange.ShardedLayout):
+            exchange._no_grad("ParticleMesh.paint", pos, mass, hsml)
+            smoothing, hsml_max = self._hsml_reach(resampler, hsml,
+                                                   hsml_max)
+            pos = torch.as_tensor(pos)
+            extra = []
+            if isinstance(mass, torch.Tensor) and mass.dim() > 0:
+                extra.append(mass)
+            if hsml is not None:
+                extra.append(torch.as_tensor(hsml))
+            layout, pos, extra, _ = self._unplanned(pos, smoothing,
+                                                    transform, *extra)
+            extra = list(extra)
+            if isinstance(mass, torch.Tensor) and mass.dim() > 0:
+                mass = extra.pop(0)
+            if hsml is not None:
+                hsml = extra.pop(0)
+        return exchange.paint_sharded(
+            layout, pos, mass, tuple(int(n) for n in self.Nmesh),
+            transform.scale, resampler.window, diffdir=gradient,
+            dtype=self.torch_dtype, base=base, hsml=hsml, hsml_max=hsml_max,
+            translate=transform.translate)
 
     def paint(self, pos, hsml=None, mass=1.0, resampler=None, transform=None,
               hold=False, gradient=None, layout=None, out=None,
@@ -1039,12 +1185,25 @@ class ParticleMesh(object):
         """Paint particles to a RealField through the generic paint
         (``ops/paint.py``): a new field, or ``out`` rebound (its value
         added to with ``hold``).  ``hsml`` scales each particle's
-        support; ``gradient`` = d paints with the derivative window."""
-        _not_sharded(self, "ParticleMesh.paint")
+        support; ``gradient`` = d paints with the derivative window.
+
+        On a sharded mesh ``pos`` (and an array ``mass`` or ``hsml``) is
+        this rank's block of particles and the field this rank's slab:
+        with a ``ShardedLayout`` each rank paints its slab from the
+        images; without one the particles are resharded and decomposed
+        first."""
         if transform is None:
             transform = self.affine
         resampler = FindResampler(self.resampler if resampler is None
                                   else resampler)
+        if self.sharded:
+            if out is None:
+                out = self.create(type=RealField)
+            painted = self._paint_sharded(
+                pos, hsml, mass, resampler, transform,
+                out.value if hold else None, gradient, layout, hsml_max)
+            out.value = painted.to(out.dtype)
+            return out
         if layout is not None:
             pos = layout.exchange(pos)
             mass = layout.exchange_scalar(mass)
@@ -1148,16 +1307,24 @@ class ParticleMesh(object):
         package's under x64.  The DC mode is ``mean``; the field is cast
         to ``type``."""
         from . import whitenoise
-        _not_sharded(self, "generate_whitenoise")
         if mode is not None and type is None:
             type = mode
         type = _field_type(type)
         complex_type = (UntransposedComplexField
                         if issubclass(type, RealField) else type)
+        if self.sharded:
+            # each rank fills only its own y columns of the transposed
+            # spectrum; a real field is their c2r
+            complex_type = TransposedComplexField \
+                if complex_type is UntransposedComplexField else complex_type
+            _, start, _ = self.local_block(complex_type)
+            start = (0, start) + (0,) * (self.ndim - 2)
+        else:
+            start = None
         shape, dtype = self._shape_dtype(complex_type)
         value = whitenoise.generate(
             tuple(int(n) for n in self.Nmesh), shape, seed, bool(unitary),
-            dtype=dtype, compat=compat, device=self.device)
+            dtype=dtype, compat=compat, start=start, device=self.device)
         complex = self.create(type=complex_type, value=value)
 
         def filter(k, v):

@@ -74,17 +74,19 @@ def _uniform_f8(key, i):
     return ((b1 << 20) | (b2 >> 12)).to(torch.float64) * 2.0 ** -52
 
 
-def _modes(Nmesh, shape, device):
+def _modes(Nmesh, shape, device, start=None):
     """The signed integer mode vector of each element of a (shape)
-    block at the origin of the mode cube, its lexicographic
-    representative of {m, -m}, and whether the element is the
-    representative, self-conjugate, and the DC mode."""
+    block at offset ``start`` (default the origin) of the mode cube, its
+    lexicographic representative of {m, -m}, and whether the element is
+    the representative, self-conjugate, and the DC mode."""
     ndim = len(Nmesh)
+    start = (0,) * ndim if start is None else start
     m = []
     for d in range(ndim):
         t = [1] * ndim
         t[d] = shape[d]
-        i = torch.arange(shape[d], dtype=torch.int64, device=device)
+        i = torch.arange(shape[d], dtype=torch.int64, device=device) \
+            + int(start[d])
         m.append(torch.where(i >= Nmesh[d] // 2, i - Nmesh[d], i).reshape(t))
     # the Nyquist -N/2 is its own negative
     mneg = [torch.where(m[d] == -(Nmesh[d] // 2), m[d], -m[d])
@@ -100,12 +102,12 @@ def _modes(Nmesh, shape, device):
     return rep, isrep, eq, dc
 
 
-def native_uniforms(Nmesh, shape, seed, device=None):
+def native_uniforms(Nmesh, shape, seed, device=None, start=None):
     """The two uniforms (u1, u2) of every mode of a (shape) block at
-    the origin of the mode cube, f8 tensors of ``shape``: those of the
-    mode's representative of {m, -m}."""
+    ``start`` (default the origin) of the mode cube, f8 tensors of
+    ``shape``: those of the mode's representative of {m, -m}."""
     device = resolve_device(device)
-    rep = _modes(Nmesh, shape, device)[0]
+    rep = _modes(Nmesh, shape, device, start)[0]
     base = _fold_in((0, 0), int(seed) & _M32)
     key = (torch.full(shape, base[0], dtype=torch.int64, device=device),
            torch.full(shape, base[1], dtype=torch.int64, device=device))
@@ -116,13 +118,16 @@ def native_uniforms(Nmesh, shape, seed, device=None):
 
 
 def generate_native(Nmesh, shape, seed, unitary=False, dtype=None,
-                    device=None):
-    """The counter-based generator on ``device`` (module docstring)."""
+                    device=None, start=None):
+    """The counter-based generator on ``device`` (module docstring),
+    for the (shape) block at ``start`` of the mode cube: every mode is a
+    function of (seed, mode) alone, so a block is bitwise the same
+    block of the whole fill (the JAX package's sharded fill)."""
     device = resolve_device(device)
     Nmesh = tuple(int(n) for n in Nmesh)
     shape = tuple(int(n) for n in shape)
-    _, isrep, selfconj, dc = _modes(Nmesh, shape, device)
-    u1, u2 = native_uniforms(Nmesh, shape, seed, device)
+    _, isrep, selfconj, dc = _modes(Nmesh, shape, device, start)
+    u1, u2 = native_uniforms(Nmesh, shape, seed, device, start)
     phase = 2 * np.pi * u2
     if unitary:
         ampl = torch.ones_like(u1)
@@ -183,12 +188,13 @@ def generate(Nmesh, shape, seed, unitary=False, dtype=None,
     """Hermitian white-noise modes of a mesh of ``Nmesh``, as a complex
     tensor of ``shape`` on ``device``: the compressed half spectrum when
     the last axis is Nmesh[-1]//2+1, the full cube when it is
-    Nmesh[-1].  ``start`` offsets the block in the mode cube (gadget
-    only)."""
+    Nmesh[-1].  ``start`` offsets the block in the mode cube: a rank of a
+    sharded mesh fills only its own block, bitwise that block of the
+    whole fill (the JAX package's ``generate_native_sharded`` and
+    ``generate_gadget_sharded``)."""
     if compat == 'native':
-        if start is not None and any(start):
-            raise ValueError("start is supported by compat='gadget' only")
-        return generate_native(Nmesh, shape, seed, unitary, dtype, device)
+        return generate_native(Nmesh, shape, seed, unitary, dtype, device,
+                               start=start)
     if compat == 'gadget':
         return generate_gadget(Nmesh, shape, seed, unitary, dtype,
                                start=start, device=device)

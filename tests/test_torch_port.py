@@ -53,6 +53,8 @@ def test_imports_without_jax():
         "import pmesh_tpu_torch.parallel.pfft\n"
         "import pmesh_tpu_torch.parallel.launch\n"
         "import pmesh_tpu_torch.parallel.domain\n"
+        "import pmesh_tpu_torch.parallel.exchange\n"
+        "import pmesh_tpu_torch.parallel.coarray\n"
         "import pmesh_tpu_torch.ops.paint, pmesh_tpu_torch.ops.power\n"
         "import pmesh_tpu_torch.whitenoise, pmesh_tpu_torch.invariant\n"
         "import pmesh_tpu_torch.native.runtime\n"
