@@ -211,6 +211,21 @@ catalog path reaches no Pallas kernel) adds phase 14, run after phase
    the rebalances, the bytes staged per force, the ms per KDK step and
    the peak memory per rank printed.
 
+The catalog path on the other geometries (ROADMAP item 8a: the 2-d
+pencil grid with the ghost exchange of parallel/exchange2d.py, padded
+uneven slabs, the replicated route; no hand kernel, as the JAX package
+reaches none there) adds phase 15, run after phase 14:
+
+15. (a) phase 14's run and checks on 4 ranks as a (2, 2) pencil grid,
+   the ksides and the per-channel capacities and ghosts printed; (b)
+   the same on 5 ranks, where the 512^3 force mesh has 103-row slabs
+   (the last with 100 rows on the mesh) and the 256^3 particle mesh
+   52-row slabs (the last with 48); (c) on 3 ranks, where 512^3 takes
+   the replicated route: decompose's RuntimeWarning and one force on
+   phase 11's 2LPT state within 1e-4 of max|F| of the one-device force;
+   and on 4 ranks of the slab grid a 32^3 c2c round trip and a 32^2
+   r2c and c2r, card against CPU, within 1e-10 in f8.
+
 The second-to-last line is the kernels' JSON record, the last line
 the device record.
 """
@@ -4863,11 +4878,49 @@ def catalog_ids(Q):
     return (i[:, 0] * n + i[:, 1]) * n + i[:, 2]
 
 
+def gather_rows(pm, t):
+    """on rank 0, the rows of every rank's ``t`` in rank order, blocks
+    of any length (None on the others)"""
+    from pmesh_tpu_torch.parallel import comm
+    n = torch.tensor([t.shape[0]], dtype=torch.int64, device=t.device)
+    counts = [int(c) for c in comm.all_gather(n, pm).cpu()]
+    nl = max(counts)
+    if t.shape[0] < nl:
+        t = torch.cat([t, t.new_zeros((nl - t.shape[0],)
+                                      + tuple(t.shape[1:]))])
+    out = comm.gather(t.contiguous(), pm)
+    if out is None:
+        return None
+    return torch.cat([out[r * nl:r * nl + c] for r, c in enumerate(counts)])
+
+
+def gather_field(f):
+    """on rank 0, the whole field ``f`` from every rank's block (None on
+    the others)"""
+    from pmesh_tpu_torch.parallel import comm
+    pm = f.pm.procmesh
+    at = torch.tensor([v for lohi in f.pm.local_block(type(f)) for v in lohi],
+                      dtype=torch.int64, device=f.value.device)
+    ats = comm.all_gather(at[None], pm).cpu().tolist()
+    flat = gather_rows(pm, f.value.reshape(-1))
+    if flat is None:
+        return None
+    ndim = f.value.dim()
+    shape = [max(a[2 * d + 1] for a in ats) for d in range(ndim)]
+    out = flat.new_empty(shape)
+    off = 0
+    for a in ats:
+        sl = tuple(slice(a[2 * d], a[2 * d + 1]) for d in range(ndim))
+        n = int(np.prod([a[2 * d + 1] - a[2 * d] for d in range(ndim)]))
+        out[sl] = flat[off:off + n].reshape(out[sl].shape)
+        off += n
+    return out
+
+
 def gather_by_id(pm, ids, *arrays):
     """on rank 0, ``arrays`` of every rank in ID order (None elsewhere)"""
-    from pmesh_tpu_torch.parallel import comm
-    ids = comm.gather(ids, pm)
-    out = [comm.gather(a.contiguous(), pm) for a in arrays]
+    ids = gather_rows(pm, ids)
+    out = [gather_rows(pm, a) for a in arrays]
     if pm.rank != 0:
         return None
     order = torch.argsort(ids)
@@ -4881,8 +4934,28 @@ def rel_ref(got, ref):
                  / ref.double().abs().max())
 
 
-def card_catalog(pm, refdir):
-    """what each rank of phase 14 runs (see phase_sharded_catalog)"""
+def plan_record(lay):
+    """the ghosts each channel of a plan ships, and its channels and
+    capacities"""
+    if hasattr(lay, 'offsets'):
+        return dict(ghosts=[int((i >= 0).sum()) for i in lay.send_idx],
+                    channels=[list(o) for o in lay.offsets],
+                    caps=list(lay.caps))
+    return dict(ghosts=(lay.send_idx >= 0).sum(dim=1).tolist(),
+                channels=[[m * s] for m in range(1, lay.kside + 1)
+                          for s in (-1, 1)],
+                caps=[lay.capacity] * (2 * lay.kside))
+
+
+def listed(d):
+    """a dict of numbers and arrays as JSON-ready lists"""
+    return {k: np.asarray(v).tolist() if not np.isscalar(v) else v
+            for k, v in d.items()}
+
+
+def card_catalog(pm, refdir, steps=CAT_STEPS):
+    """what each rank of phases 14 and 15 (a), (b) runs on the rank's
+    ProcessMesh ``pm`` (see phase_sharded_catalog)"""
     import torch.distributed as dist
     from pmesh_tpu_torch import ParticleMesh
     from pmesh_tpu_torch.models.cosmology import Planck15
@@ -4897,7 +4970,9 @@ def card_catalog(pm, refdir):
     solver = Solver(pm8, Planck15, B=CAT_B)
     fpm = solver.fpm
     npart = CAT_N ** 3
-    rec = {}
+    rec = dict(route=fpm.route, grid=list(pm.grid),
+               slab=fpm.local_block('real')[0],
+               particle_slab=pm8.local_block('real')[0])
 
     def one_device():
         return ParticleMesh([CAT_N] * 3, BoxSize=CAT_BOX, dtype='f4',
@@ -4913,7 +4988,7 @@ def card_catalog(pm, refdir):
     for compat in ('gadget', 'native'):
         noise = pm8.generate_whitenoise(SEED, type='complex', compat=compat)
         sync()
-        got = comm.gather(noise.value, pm, axis=1)
+        got = gather_field(noise)
         if pm.rank == 0:
             whole = one_device().generate_whitenoise(SEED, type='complex',
                                                      compat=compat).value
@@ -4925,7 +5000,7 @@ def card_catalog(pm, refdir):
     sync()
     t0 = time.perf_counter()
     dlinear = solver.linear_field(EHPower(Planck15), SEED, compat='gadget')
-    state0 = solver.lpt(dlinear, CAT_STEPS[0], order=2)
+    state0 = solver.lpt(dlinear, steps[0], order=2)
     sync()
     rec['ic_s'] = time.perf_counter() - t0
     del dlinear
@@ -4939,11 +5014,10 @@ def card_catalog(pm, refdir):
     del got
 
     # the exchange plan and one force on the same inputs as one device's
-    rec['tune'] = dict(solver.tune_exchange(state0.X))
-    rec['load0'] = {k: np.asarray(v).tolist() if not np.isscalar(v) else v
-                    for k, v in solver.last_load.items()}
+    rec['tune'] = listed(solver.tune_exchange(state0.X))
+    rec['load0'] = listed(solver.last_load)
     lay = fpm.decompose(state0.X, **solver._exch_kwargs)
-    rec['ghosts'] = (lay.send_idx >= 0).sum(dim=1).tolist()
+    rec.update(plan_record(lay))
     rec['badness'] = float(lay.badness)
     del lay
     sync()
@@ -4990,17 +5064,17 @@ def card_catalog(pm, refdir):
             round(solver.last_load['imbalance'], 6))
     sync()
     t0 = time.perf_counter()
-    final = solver.nbody(state0, CAT_STEPS, monitor=monitor,
+    final = solver.nbody(state0, steps, monitor=monitor,
                          rebalance=CAT_REBALANCE)
     sync()
-    nsteps = len(CAT_STEPS) - 1
+    nsteps = len(steps) - 1
+    rec['nsteps'] = nsteps
     rec['run_s'] = time.perf_counter() - t0 - held[0]
     # steps 2..n: the first holds nbody's initial force
     rec['step_ms'] = ((times[-1] - times[0] - held[0]) / (nsteps - 1)) * 1e3
     rec['rebalances'] = len(calls)
-    rec['last_load'] = {k: np.asarray(v).tolist() if not np.isscalar(v)
-                        else v for k, v in solver.last_load.items()}
-    rec['tune_final'] = dict(solver._exch_kwargs)
+    rec['last_load'] = listed(solver.last_load)
+    rec['tune_final'] = listed(solver._exch_kwargs)
     tensors = (final.Q, final.S, final.V, state0.S, state0.V)
     rec['finite'] = bool(all(torch.isfinite(t).all() for t in tensors))
     rec['on_cuda'] = all(t.device.type == 'cuda' for t in tensors)
@@ -5010,11 +5084,89 @@ def card_catalog(pm, refdir):
     k, p0, nmodes = pw.fftpower(pm8.paint(state0.X))
     _, p1, _ = pw.fftpower(pm8.paint(final.X))
     low = [i for i in range(len(nmodes)) if float(k[i]) > 0][:3]
-    growth = (Planck15.D1(CAT_STEPS[-1]) / Planck15.D1(CAT_STEPS[0])) ** 2
+    growth = (Planck15.D1(steps[-1]) / Planck15.D1(steps[0])) ** 2
     rec['growth'] = [float(p1[i] / p0[i]) / growth for i in low]
     rec['k'] = [float(k[i]) for i in low]
     rec['peak_gb'] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     return rec
+
+
+def run_sharded_catalog(dev, ref, world, shape=None, steps=CAT_STEPS):
+    """card_catalog on ``world`` ranks of the card (a 2-d grid of
+    ``shape``, or the slab grid): (the ranks' records, the job's
+    seconds)"""
+    import tempfile
+    from pmesh_tpu_torch.parallel import launch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ref_") as refdir:
+        for k, v in ref.items():
+            np.save(os.path.join(refdir, k + '.npy'), v.numpy())
+        t0 = time.perf_counter()
+        out = launch.spawn('chip_smoke:card_catalog', world, 'gloo',
+                           dev.type, refdir, steps, shape=shape)
+        wall = time.perf_counter() - t0
+    return out, wall
+
+
+def report_sharded_catalog(phase, out, wall):
+    """phase 14's and 15's lines and checks of a card_catalog job"""
+    r0 = out[0]
+    label = ("%d ranks (%s grid %s) on one card over gloo, staged through "
+             "the host (no multi-GPU figure)"
+             % (len(out), r0['route'], "x".join(map(str, r0['grid']))))
+    log("phase %s sharded catalog on %s: %s; %d^3 particles, %d^3 CIC force "
+        "mesh (B=%d), f4; noise both fills %.3f s, IC (linear field + 2LPT) "
+        "%.3f s, one force %.3f s, %d KDK steps %.3f s"
+        % (phase, CARD, label, CAT_N, CAT_N * CAT_B, CAT_B, r0['noise_s'],
+           r0['ic_s'], r0['force_s'], r0['nsteps'], r0['run_s']))
+    log("phase %s blocks: force mesh x rows %s, particle mesh x rows %s "
+        "(per rank)" % (phase, [r['slab'] for r in out],
+                         [r['particle_slab'] for r in out]))
+    log("phase %s load (every rank's, as each rank measures it): after "
+        "tuning on the 2LPT state %s; after the run %s; imbalance per step "
+        "%s" % (phase, json.dumps(r0['load0']), json.dumps(r0['last_load']),
+                r0['loads']))
+    for b, r in enumerate(out):
+        log("phase %s rank %d: plan on the 2LPT state %s, channels %s, "
+            "capacities %s, ghosts sent per channel %s, badness %g; after "
+            "the run %d particles, plan %s; peak %.2f GB%s"
+            % (phase, b, json.dumps(r['tune']), r['channels'], r['caps'],
+               r['ghosts'], r['badness'], r['nlocal'],
+               json.dumps(r['tune_final']), r['peak_gb'],
+               " (with the one-device force)" if b == 0 else ""))
+    log("phase %s timing on %s (%s): %.3f ms per KDK step (steps 2..%d, "
+        "each with its load measurement and, past rebalance=%g, a reshard "
+        "and re-tune), %d rebalances; %.3f MB staged through the host per "
+        "force (rank 0: the FFTs' all_to_alls and the ghost channels)"
+        % (phase, CARD, label, r0['step_ms'], r0['nsteps'], CAT_REBALANCE,
+           r0['rebalances'], r0['force_staged_bytes'] / 1e6))
+    ok = dict(
+        noise=r0['noise_gadget'] and r0['noise_native'],
+        lpt=r0['lpt'] <= TOL_CAT_SHARDED,
+        force=r0['force'] <= TOL_CAT_SHARDED,
+        step3=r0['step3'] <= TOL_CAT_SHARDED,
+        finite=all(r['finite'] for r in out),
+        on_cuda=all(r['on_cuda'] for r in out),
+        mass=r0['mass_err'] <= TOL_MASS,
+        growth=all(abs(g - 1.0) <= TOL_GROWTH for g in r0['growth']),
+        plan=all(r['badness'] == 0.0 for r in out),
+        rebalanced=r0['rebalances'] >= 1)
+    log("phase %s checks on %s: noise bitwise (gadget %s, native %s); 2LPT "
+        "state by ID max|d|/max = %.3e, force on the same particles %.3e of "
+        "max|F|, state after %d KDK steps %.3e (tol %.0e); finite %s, on the "
+        "card %s, mass error %.3e (tol %.0e), P_final/P_initial / (D1 "
+        "ratio)^2 = %s at k = %s (tol %.2f); the job took %.3f s: %s"
+        % (phase, CARD, r0['noise_gadget'], r0['noise_native'], r0['lpt'],
+           r0['force'], CAT_REF_STEP, r0['step3'], TOL_CAT_SHARDED,
+           ok['finite'], ok['on_cuda'], r0['mass_err'], TOL_MASS,
+           " ".join("%.4f" % g for g in r0['growth']),
+           " ".join("%.5f" % k for k in r0['k']), TOL_GROWTH, wall,
+           "ok" if all(ok.values()) else "FAIL"))
+    if not all(ok.values()):
+        raise AssertionError("phase %s: the sharded catalog run failed its "
+                             "checks: %s" % (phase, ", ".join(
+                                 k for k, v in ok.items() if not v)))
 
 
 def phase_sharded_catalog(dev, ref):
@@ -5028,68 +5180,148 @@ def phase_sharded_catalog(dev, ref):
     tune_exchange and rebalance, then finite, on the card, mass conserved
     and the lowest k bins grown as D1^2.  The ranks share one card over
     gloo, staged through the host: the times are no multi-GPU figure."""
+    out, wall = run_sharded_catalog(dev, ref, RANKS)
+    report_sharded_catalog('14', out, wall)
+
+
+PENCIL_GRID = (2, 2)
+UNEVEN_RANKS = 5            # 512 = 4 x 103 + 100, 256 = 4 x 52 + 48
+REPLICATED_RANKS = 3        # 512 over 3: the slabs cannot reach the seam
+GEOMETRY_SMALL = 32
+TOL_GEOMETRY = 1e-10        # f8 card vs CPU, of max
+
+
+def card_replicated(pm, refdir):
+    """what each rank of phase 15(c) runs: phase 11's 2LPT state, this
+    rank's block of it, one force on the replicated route"""
+    import warnings
+    import torch.distributed as dist
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.cosmology import Planck15
+    from pmesh_tpu_torch.models.fastpm import Solver
+    dev = pm.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    pm8 = ParticleMesh([CAT_N] * 3, BoxSize=CAT_BOX, dtype='f4',
+                       resampler='cic', procmesh=pm)
+    solver = Solver(pm8, Planck15, B=CAT_B)
+    Q = pm8.generate_uniform_particle_grid(shift=0.0)
+    S0 = np.load(os.path.join(refdir, 'S0.npy'), mmap_mode='r')
+    nl = -(-len(S0) // pm.size)
+    lo = min(pm.rank * nl, len(S0))
+    X = Q + torch.from_numpy(np.array(S0[lo:lo + nl])).to(dev)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter('always')
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        F = solver.force(X)
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        force_s = time.perf_counter() - t0
+    rec = dict(route=(pm8.route, solver.fpm.route), force_s=force_s,
+               warned=[str(x.message) for x in w
+                       if issubclass(x.category, RuntimeWarning)],
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    X1 = gather_rows(pm, X)
+    F1 = gather_rows(pm, F)
+    del F
+    if pm.rank == 0:
+        one = Solver(ParticleMesh([CAT_N] * 3, BoxSize=CAT_BOX, dtype='f4',
+                                  resampler='cic', device=dev),
+                     Planck15, B=CAT_B)
+        rec['force'] = rel_ref(F1, one.force(X1))
+    return rec
+
+
+def geometry_small(pm):
+    """what each rank of phase 15(c)'s small check runs: a 32^3 c2c round
+    trip and a 32^2 r2c and c2r on this rank's slab, in f8, against the
+    same transforms of the whole mesh on the CPU"""
+    from pmesh_tpu_torch import ParticleMesh
+    out = {}
+    for name, shape, dtype in (('c2c', (GEOMETRY_SMALL,) * 3, 'c16'),
+                               ('2d', (GEOMETRY_SMALL,) * 2, 'f8')):
+        r = np.random.RandomState(SEED)
+        x = r.normal(size=shape)
+        if dtype == 'c16':
+            x = x + 1j * r.normal(size=shape)
+        card = ParticleMesh(shape, 1.0, dtype=dtype, procmesh=pm)
+        cpu = ParticleMesh(shape, 1.0, dtype=dtype, device='cpu')
+        sl = tuple(slice(a, b) for a, b in card.local_block('real'))
+        real = card.create(type='real', value=torch.from_numpy(
+            np.ascontiguousarray(x[sl])).to(pm.device))
+        spec = real.r2c()
+        back = spec.c2r()
+        ref = cpu.create(type='real', value=torch.from_numpy(x)).r2c()
+        csl = tuple(slice(a, b) for a, b in card.local_block('complex'))
+        def gap(got, want):
+            # a rank's block may be empty (the 2-d half spectrum's 17
+            # columns over 4 ranks)
+            d = (got.cpu() - want).abs()
+            return float(d.max()) if d.numel() else 0.0
+        out[name] = dict(
+            route=card.route,
+            spectrum=gap(spec.value, ref.value[csl])
+            / float(np.abs(ref.value.numpy()).max()),
+            back=gap(back.value, torch.from_numpy(x[sl]))
+            / float(np.abs(x).max()),
+            on_cuda=spec.value.device.type == 'cuda')
+    return out
+
+
+def phase_geometries(dev, ref):
+    """phase 15 (see the module docstring): phase 14's run on a (2, 2)
+    pencil grid and on 5 uneven slab ranks; one force on 3 ranks of the
+    replicated route; small c2c and 2-d meshes on 4 slab ranks, card
+    against CPU"""
     import tempfile
     from pmesh_tpu_torch.parallel import launch
+    for part, world, shape in (('15a', PENCIL_GRID[0] * PENCIL_GRID[1],
+                                PENCIL_GRID), ('15b', UNEVEN_RANKS, None)):
+        out, wall = run_sharded_catalog(dev, ref, world, shape)
+        want = 'pencil' if shape else 'slab'
+        if not all(r['route'] == want for r in out):
+            raise AssertionError("phase %s ran on the %s route, not %s"
+                                 % (part, out[0]['route'], want))
+        report_sharded_catalog(part, out, wall)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ref_") as refdir:
-        for k, v in ref.items():
-            np.save(os.path.join(refdir, k + '.npy'), v.numpy())
+        np.save(os.path.join(refdir, 'S0.npy'), ref['S0'].numpy())
         t0 = time.perf_counter()
-        out = launch.spawn('chip_smoke:card_catalog', RANKS, 'gloo',
-                           dev.type, refdir)
+        out = launch.spawn('chip_smoke:card_replicated', REPLICATED_RANKS,
+                           'gloo', dev.type, refdir)
         wall = time.perf_counter() - t0
     r0 = out[0]
-    label = ("%d ranks on one card over gloo, staged through the host (no "
-             "multi-GPU figure)" % RANKS)
-    log("phase 14 sharded catalog on %s: %s; %d^3 particles, %d^3 CIC force "
-        "mesh (B=%d), f4; noise both fills %.3f s, IC (linear field + 2LPT) "
-        "%.3f s, one force %.3f s, %d KDK steps %.3f s"
-        % (CARD, label, CAT_N, CAT_N * CAT_B, CAT_B, r0['noise_s'],
-           r0['ic_s'], r0['force_s'], len(CAT_STEPS) - 1, r0['run_s']))
-    log("phase 14 load (every rank's, as each rank measures it): after "
-        "tuning on the 2LPT state %s; after the run %s; imbalance per step "
-        "%s" % (json.dumps(r0['load0']), json.dumps(r0['last_load']),
-                r0['loads']))
-    for b, r in enumerate(out):
-        log("phase 14 rank %d: plan on the 2LPT state kside %d, capacity %d, "
-            "ghosts sent per channel (down, up) %s, badness %g; after the "
-            "run %d particles, plan %s; peak %.2f GB%s"
-            % (b, r['tune']['kside'], r['tune']['capacity'], r['ghosts'],
-               r['badness'], r['nlocal'], json.dumps(r['tune_final']),
-               r['peak_gb'], " (with the one-device force)" if b == 0
-               else ""))
-    log("phase 14 timing on %s (%s): %.3f ms per KDK step (steps 2..%d, "
-        "each with its load measurement and, past rebalance=%g, a reshard "
-        "and re-tune), %d rebalances; %.3f MB staged through the host per "
-        "force (rank 0: the slab FFTs' all_to_alls and the ghost channels)"
-        % (CARD, label, r0['step_ms'], len(CAT_STEPS) - 1, CAT_REBALANCE,
-           r0['rebalances'], r0['force_staged_bytes'] / 1e6))
-    ok = dict(
-        noise=r0['noise_gadget'] and r0['noise_native'],
-        lpt=r0['lpt'] <= TOL_CAT_SHARDED,
-        force=r0['force'] <= TOL_CAT_SHARDED,
-        step3=r0['step3'] <= TOL_CAT_SHARDED,
-        finite=all(r['finite'] for r in out),
-        on_cuda=all(r['on_cuda'] for r in out),
-        mass=r0['mass_err'] <= TOL_MASS,
-        growth=all(abs(g - 1.0) <= TOL_GROWTH for g in r0['growth']),
-        plan=all(r['badness'] == 0.0 for r in out),
-        rebalanced=r0['rebalances'] >= 1)
-    log("phase 14 checks on %s: noise bitwise (gadget %s, native %s); 2LPT "
-        "state by ID max|d|/max = %.3e, force on the same particles %.3e of "
-        "max|F|, state after %d KDK steps %.3e (tol %.0e); finite %s, on the "
-        "card %s, mass error %.3e (tol %.0e), P_final/P_initial / (D1 "
-        "ratio)^2 = %s at k = %s (tol %.2f); the job took %.3f s: %s"
-        % (CARD, r0['noise_gadget'], r0['noise_native'], r0['lpt'],
-           r0['force'], CAT_REF_STEP, r0['step3'], TOL_CAT_SHARDED,
-           ok['finite'], ok['on_cuda'], r0['mass_err'], TOL_MASS,
-           " ".join("%.4f" % g for g in r0['growth']),
-           " ".join("%.5f" % k for k in r0['k']), TOL_GROWTH, wall,
-           "ok" if all(ok.values()) else "FAIL"))
+    warned = all(any("no sharded particle plan" in m for m in r['warned'])
+                 for r in out)
+    log("phase 15c replicated route on %s: %d ranks, %d^3 particles on a "
+        "%d^3 CIC force mesh (routes %s): decompose warned on every rank "
+        "%s; one force %.3f s (every rank paints its particles into the "
+        "whole mesh, an all_reduce sums them, each rank transforms and "
+        "reads alone), %.3e of max|F| from the one-device force on phase "
+        "11's 2LPT state (tol %.0e); peak per rank %s GB; the job took "
+        "%.3f s" % (CARD, REPLICATED_RANKS, CAT_N, CAT_N * CAT_B,
+                    "/".join(r0['route']), warned, r0['force_s'], r0['force'],
+                    TOL_CAT_SHARDED, " ".join("%.2f" % r['peak_gb']
+                                              for r in out), wall))
+    small = launch.spawn('chip_smoke:geometry_small', RANKS, 'gloo',
+                         dev.type)
+    worst = {k: max(max(r[k]['spectrum'], r[k]['back']) for r in small)
+             for k in small[0]}
+    log("phase 15c small meshes on %s, %d slab ranks, f8, card vs CPU "
+        "(max |d| / max): %d^3 c2c %.3e, %d^2 r2c/c2r %.3e (tol %.0e)"
+        % (CARD, RANKS, GEOMETRY_SMALL, worst['c2c'], GEOMETRY_SMALL,
+           worst['2d'], TOL_GEOMETRY))
+    ok = dict(routes=all(r['route'] == ('replicated', 'replicated')
+                         for r in out),
+              warned=warned, force=r0['force'] <= TOL_CAT_SHARDED,
+              small=all(v <= TOL_GEOMETRY for v in worst.values()),
+              small_routes=all(r[k]['route'] == 'slab' and r[k]['on_cuda']
+                               for r in small for k in r))
     if not all(ok.values()):
-        raise AssertionError("the sharded catalog run failed its checks: %s"
-                             % ", ".join(k for k, v in ok.items() if not v))
+        raise AssertionError("phase 15c failed its checks: %s" % ", ".join(
+            k for k, v in ok.items() if not v))
 
 
 PHASE_TIMES = []
@@ -5158,7 +5390,8 @@ def main():
           np.asarray(MXU_SMALL, float), 'mxu_bf16')
     sharded = timed(phase_sharded, dev)
     timed(phase_pipe_chain, dev)
-    timed(phase_sharded_catalog, dev, catalog.pop('ref'))
+    timed(phase_sharded_catalog, dev, catalog['ref'])
+    timed(phase_geometries, dev, catalog.pop('ref'))
     # each kernel's launches on its own path's main run: the lattice
     # kernels on the fft='xla' lattice run, the ct2 DFT kernels on the
     # fft='mxu' lattice run, the rebase and dense DFT kernels on the

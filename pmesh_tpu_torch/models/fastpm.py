@@ -16,12 +16,16 @@ before the next, and ``Solver.nbody`` the KDK loop, one force per step,
 with the coefficients in the state's dtype on the device.  Its FFTs are
 ``torch.fft`` (cuFFT on the card) and its paint and readout those of
 ``ops/paint.py``; the JAX package reaches no Pallas kernel on this
-path.  On a slab-sharded mesh (a ``ParticleMesh(procmesh=pm)`` of P > 1
-ranks) each rank holds block b of the particle arrays and the force
-runs the ghost exchange of ``parallel/exchange.py``: ``decompose`` with
-the kside and capacity ``tune_exchange`` measured, the sharded paint,
-the slab FFTs and the sharded readout (one fused ``diffdir='all'``
-readout in gradient mode); the density's normalization counts the
+path.  On a sharded mesh (a ``ParticleMesh(procmesh=pm)`` of P > 1
+ranks) each rank holds block b of the particle arrays.  On the slab and
+pencil routes (``pm.py``) the force runs the ghost exchange of
+``parallel/exchange.py`` (``exchange2d.py`` on a pencil grid):
+``decompose`` with the kside (ksides) and capacity (per-channel
+capacities) ``tune_exchange`` measured, the sharded paint, the slab
+(pencil) FFTs and the sharded readout (one fused ``diffdir='all'``
+readout in gradient mode); on the replicated route every rank paints
+its particles into the whole mesh, the meshes are summed and each rank
+reads its own particles.  The density's normalization counts the
 particles of every rank.  ``nbody(rebalance=...)`` measures the load
 after each step and, past the threshold, reshards the particles and
 re-tunes the exchange.  Reverse mode through the sharded catalog path
@@ -76,12 +80,16 @@ ranks takes and returns this rank's x slabs of every state field
 slab forms (``ops/gridpm.py``, ``ops/binned.py``), ``fft='xla'`` the
 slab transforms of ``parallel/pfft.py`` and the mxu modes the sharded
 DFT pipelines of ``ops/fft_mxu.py`` (ct2 when the ranks also divide N0
-and N1, as the JAX package's ``_mxu_setup`` requires).  Whatever decides
-for every rank is global: the NaN poison of ``nbody_lattice``, the
-particle count of ``force_binned``, the rebase overflow and the needed
-slot count of the adaptive loop.  As in the JAX package the sharded
-binned loops wrap the lattice state as slots and fold it with a rebase
-over the state's whole drift (the sort-based fold is single-device).
+and N1, as the JAX package's ``_mxu_setup`` requires).  These paths
+need an even 1-d slab mesh: on a pencil, uneven or replicated mesh they
+raise a NotImplementedError (ROADMAP queue 1, item 8e; the JAX package
+runs its single-device program on the global arrays there).
+Whatever decides for every rank is global: the NaN poison of
+``nbody_lattice``, the particle count of ``force_binned``, the rebase
+overflow and the needed slot count of the adaptive loop.  As in the JAX
+package the sharded binned loops wrap the lattice state as slots and
+fold it with a rebase over the state's whole drift (the sort-based fold
+is single-device).
 Reverse mode through the sharded path is not ported.
 """
 import numpy as np
@@ -300,7 +308,18 @@ class Solver(object):
 
     @property
     def _pmh(self):
-        """the ProcessMesh of a sharded force mesh, else None"""
+        """the ProcessMesh of a sharded force mesh, else None, for the
+        lattice and binned paths, whose slab forms need an even 1-d slab
+        mesh (the JAX package's ``_even_mesh`` gate): any other sharded
+        geometry raises"""
+        for pm in (self.pm, self.fpm):
+            if pm.sharded and not (pm.route == 'slab' and pm._even_mesh):
+                raise NotImplementedError(
+                    "the lattice and binned paths need one device or an "
+                    "even 1-d slab mesh; a %s mesh (grid %s, Nmesh %s) is "
+                    "not ported yet (ROADMAP queue 1, item 8e)"
+                    % (pm.route, pm.procmesh.grid,
+                       tuple(int(n) for n in pm.Nmesh)))
         return self.fpm.procmesh if self.fpm.sharded else None
 
     def _count(self, X):
@@ -316,16 +335,21 @@ class Solver(object):
         that follow: the largest channel count times ``slack`` (at least
         16); a later overflow poisons.  Also measures the load
         (``last_load``).  Returns the plan's parameters; None on one
-        device, where there is nothing to tune."""
+        device and on the replicated route, where there is nothing to
+        tune.  On a pencil mesh the plan is the 2-d one: ksides (kx, ky)
+        and one capacity per channel, each its count times ``slack`` (at
+        least 8)."""
         fpm = self.fpm
-        if not fpm.sharded:
+        if not fpm.blocked:
             return None
-        g0 = fpm._grid0(X, fpm.affine)
+        g0 = fpm._grid(X, fpm.affine, 0)
         smoothing = fpm.resampler.support * 0.5
         N0 = int(fpm.Nmesh[0])
+        if fpm.route == 'pencil':
+            return self._tune_exchange2d(X, g0, smoothing, slack)
         kside = _ex._default_kside(
             smoothing, _ex._slab_rows(N0, fpm.procmesh.size),
-            fpm.procmesh.size)
+            fpm.procmesh.size, N0)
         counts, reach = _ex.measure_ghosts(fpm.procmesh, g0, N0, smoothing,
                                            kside=kside)
         if reach > kside:
@@ -337,6 +361,52 @@ class Solver(object):
         self.last_load = _ex.measure_load(fpm.procmesh, g0, N0, smoothing,
                                           kside=kside)
         return self._exch_kwargs
+
+    def _tune_exchange2d(self, X, g0, smoothing, slack):
+        """tune_exchange on a pencil mesh"""
+        from ..parallel import exchange2d as _ex2
+        fpm = self.fpm
+        g1 = fpm._grid(X, fpm.affine, 1)
+        npx, npy = fpm.procmesh.grid
+        N0, N1 = int(fpm.Nmesh[0]), int(fpm.Nmesh[1])
+        ks = _ex2._default_ksides(smoothing, N0 // npx, N1 // npy)
+        counts, reach = _ex2.measure_ghosts2d(fpm.procmesh, g0, g1, N0, N1,
+                                              smoothing, ksides=ks)
+        if reach[0] > ks[0] or reach[1] > ks[1]:
+            raise ValueError(
+                "particles reach %s blocks from home (> ksides=%s): reshard "
+                "before tuning (pm.reshard_particles)" % (reach, ks))
+        caps = tuple(max(8, int(np.ceil(float(c) * float(slack))))
+                     for c in counts)
+        self._exch_kwargs = dict(kside=ks, capacity=caps)
+        self.last_load = _ex2.measure_load2d(fpm.procmesh, g0, g1, N0, N1,
+                                             smoothing, ksides=ks)
+        return self._exch_kwargs
+
+    def _measure_load(self, X):
+        """the load of the particles ``X`` under the tuned plan (the
+        route's measure_load)"""
+        fpm = self.fpm
+        smoothing = fpm.resampler.support * 0.5
+        kside = self._exch_kwargs.get('kside')
+        g0 = fpm._grid(X, fpm.affine, 0)
+        if fpm.route == 'pencil':
+            from ..parallel import exchange2d as _ex2
+            return _ex2.measure_load2d(
+                fpm.procmesh, g0, fpm._grid(X, fpm.affine, 1),
+                int(fpm.Nmesh[0]), int(fpm.Nmesh[1]), smoothing,
+                ksides=kside)
+        return _ex.measure_load(fpm.procmesh, g0, int(fpm.Nmesh[0]),
+                                smoothing, kside=kside)
+
+    def _read_sharded(self, layout, meshes, X, diffdir=None):
+        """the route's sharded readout of this rank's blocks ``meshes``
+        at ``X`` with the plan ``layout`` (slab and pencil meshes)"""
+        fpm = self.fpm
+        a = fpm.affine
+        return fpm._sharded_ops()[2](layout, meshes, X, a.scale,
+                                     fpm.resampler.window, diffdir=diffdir,
+                                     translate=a.translate)
 
     # --- catalog path: initial conditions ---------------------------------
 
@@ -415,8 +485,7 @@ class Solver(object):
         N = self._count(X)
         if factor is None:
             factor = 1.5 * self.cosmology.Om0
-        layout = fpm.decompose(X, **self._exch_kwargs) if fpm.sharded \
-            else fpm.decompose(X)
+        layout = fpm.decompose(X, **self._exch_kwargs)
         rho = fpm.paint(X, layout=layout)
         rhok = (rho * (float(fpm.Nmesh.prod()) / N)).r2c()
         del rho
@@ -424,10 +493,9 @@ class Solver(object):
         if mode == 'gradient':
             phi = rhok.apply(tf.poisson()).c2r()
             del rhok
-            if fpm.sharded:
-                vals = [-v for v in _ex.readout_sharded(
-                    layout, phi.value, X, a.scale, fpm.resampler.window,
-                    diffdir='all', translate=a.translate)]
+            if fpm.blocked:
+                vals = [-v for v in self._read_sharded(layout, phi.value, X,
+                                                       'all')]
             else:
                 vals = [-phi.readout(X, layout=layout, gradient=d)
                         for d in range(fpm.ndim)]
@@ -435,9 +503,8 @@ class Solver(object):
         meshes = tuple(rhok.apply(tf.force_transfer(d)).c2r().value
                        for d in range(fpm.ndim))
         del rhok
-        if fpm.sharded:
-            vals = _ex.readout_sharded(layout, meshes, X, a.scale,
-                                   fpm.resampler.window)
+        if fpm.blocked:
+            vals = self._read_sharded(layout, meshes, X)
         else:
             vals = _paint_ops.readout(meshes, X, window=fpm.resampler.window,
                                       scale=a.scale, translate=a.translate,
@@ -454,7 +521,7 @@ class Solver(object):
         N = self._count(X)
         if factor is None:
             factor = 1.5 * self.cosmology.Om0
-        layout = fpm.decompose(X, **self._exch_kwargs) if fpm.sharded \
+        layout = fpm.decompose(X, **self._exch_kwargs) if fpm.blocked \
             else None
         rho = fpm.paint(X, layout=layout)
         rhok = (rho * (float(fpm.Nmesh.prod()) / N)).r2c()
@@ -463,9 +530,8 @@ class Solver(object):
         cols = []
         for d in range(fpm.ndim):
             mesh = rhok.apply(tf.force_transfer(d)).c2r().value
-            if fpm.sharded:
-                cols.append(_ex.readout_sharded(layout, mesh, X, a.scale,
-                                            fpm.resampler.window))
+            if fpm.blocked:
+                cols.append(self._read_sharded(layout, mesh, X))
             else:
                 cols.append(_paint_ops.readout(
                     mesh, X, window=fpm.resampler.window, scale=a.scale,
@@ -487,8 +553,9 @@ class Solver(object):
         before.  ``rebalance`` (a float; does nothing on one device)
         measures the load after each step (``last_load``) and, when its
         max / mean exceeds the threshold, reshards (Q, S, V, F) into
-        home-slab order and re-tunes the exchange: the particles then
-        change ranks and order.
+        home-slab (home-pencil) order and re-tunes the exchange: the
+        particles then change ranks and order.  On the replicated route
+        there is no plan to tune and nothing to rebalance.
         """
         fac = _FACTORS[factors](self.cosmology) \
             if isinstance(factors, str) else factors
@@ -497,7 +564,7 @@ class Solver(object):
                        for c in leapfrog_factors(time_steps, fac, scheme))
         fpm = self.fpm
         Q, S, V = state.Q, state.S, state.V
-        if fpm.sharded and not self._exch_kwargs:
+        if fpm.blocked and not self._exch_kwargs:
             self.tune_exchange(Q + S)
         F = self.force(Q + S, mode=force_mode)
         for i, af in enumerate(time_steps[1:]):
@@ -505,12 +572,9 @@ class Solver(object):
             S = S + V * D1s[i]
             F = self.force(Q + S, mode=force_mode)
             V = V + F * K2[i]
-            if rebalance is not None and fpm.sharded:
+            if rebalance is not None and fpm.blocked:
                 X = Q + S
-                self.last_load = _ex.measure_load(
-                    fpm.procmesh, fpm._grid0(X, fpm.affine),
-                    int(fpm.Nmesh[0]), fpm.resampler.support * 0.5,
-                    kside=self._exch_kwargs.get('kside'))
+                self.last_load = self._measure_load(X)
                 if self.last_load['imbalance'] > float(rebalance):
                     _, Q, S, V, F = fpm.reshard_particles(X, Q, S, V, F)
                     self._exch_kwargs = {}
@@ -523,7 +587,10 @@ class Solver(object):
         """LPT state in lattice form: (disp, vel), ndim mesh-shaped
         tensors each, in CELLS.  The displacement kernels are sampled
         at the unshifted lattice sites, so the c2r mesh IS the
-        per-particle displacement."""
+        per-particle displacement.  Like the other lattice paths it
+        needs one device or an even 1-d slab mesh (``_pmh`` raises
+        otherwise)."""
+        self._pmh
         pm = self.pm
         pt = self.cosmology
         cell = float(pm.BoxSize[0] / pm.Nmesh[0])

@@ -3,8 +3,10 @@
 Counterpart of ``pmesh_tpu/ops/power.py``: one |k| binning over the
 whole spectrum and three weighted bin sums (``index_add_``), with the
 hermitian-compression weights so that each independent mode counts
-once.  On a sharded mesh each rank bins its own block of the spectrum
-and the bin sums are summed over the ranks (one ``all_reduce``).
+once.  Where the spectrum is held in blocks (the slab and pencil
+routes of ``pm.py``) each rank bins its own block, whose coordinates
+and hermitian weights use the global indices, and the bin sums are
+summed over the ranks (one ``all_reduce``).
 """
 import numpy as np
 import torch
@@ -73,7 +75,7 @@ def measure_power(comp, kedges=None, Nbins=None, dk=None, kmin=0.0,
         return x.new_zeros(nb + 1).index_add_(0, binid, x)
 
     psum, ksum, nsum = bin_sum(p), bin_sum(kmag * w), bin_sum(w)
-    if comp.pm.sharded:
+    if comp.pm.blocked:
         from ..parallel.comm import all_reduce
         psum, ksum, nsum = all_reduce(torch.stack([psum, ksum, nsum]),
                                       comp.pm.procmesh, 'sum').unbind(0)

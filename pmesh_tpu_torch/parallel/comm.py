@@ -11,6 +11,9 @@
   (``jax.lax.psum`` / ``pmax``);
 - :func:`ring_exchange`: the ring send/recv of plane blocks
   (``jax.lax.ppermute`` with fixed hops), over ``batch_isend_irecv``;
+  :func:`torus_exchange` the same on a 2-d grid, each block shipped by
+  an offset (ox, oy) over both grid axes at once (the ``ppermute``
+  over ('x', 'y') of ``parallel/exchange2d.py``);
 - :func:`all_to_all_v`: the ragged all_to_all of rows grouped by
   destination rank, the counts exchanged first (MPI's Alltoallv, the
   global sort of ``parallel/exchange.reshard``).
@@ -25,13 +28,16 @@ tensors travel as their (re, im) pairs and bf16 tensors as a byte view
 the backend need not know bf16 or bool.
 
 On a mesh of one rank every collective is the identity (no process
-group is needed).
+group is needed).  Every function takes a ``ProcessMesh`` or the
+``GridAxis`` of one axis of a 2-d grid (``ProcessMesh.along``), and then
+runs over that axis's process group.
 """
 import torch
 import torch.distributed as dist
 
 __all__ = ["all_to_all", "all_to_all_v", "all_gather", "gather",
-           "all_reduce", "ring_exchange", "STAGED_BYTES", "reset_staged"]
+           "all_reduce", "ring_exchange", "torus_exchange", "STAGED_BYTES",
+           "reset_staged"]
 
 STAGED_BYTES = {"to_host": 0, "to_device": 0}
 
@@ -182,25 +188,23 @@ def all_to_all_v(x, pm, counts):
     return back(_from_wire(pm, recv)), recv_counts
 
 
-def ring_exchange(blocks, pm):
-    """Send each ``(tensor, hop)`` of ``blocks`` to rank (r + hop) % P
-    and receive, for each, a tensor of the same shape and dtype from
-    rank (r - hop) % P; one ``batch_isend_irecv`` for all of them.  A hop
-    that is a multiple of P keeps the tensor."""
-    P = pm.size
+def _p2p(blocks, pm):
+    """send each ``(tensor, dst, src)`` of ``blocks`` to the group rank
+    ``dst`` and receive a tensor of its shape and dtype from ``src``, in
+    one ``batch_isend_irecv``; a block whose dst is this rank is kept"""
     out = [None] * len(blocks)
     ops, recvs = [], []
-    for n, (t, hop) in enumerate(blocks):
-        if hop % P == 0:
+    for n, (t, dst, src) in enumerate(blocks):
+        if dst == pm.rank:
             out[n] = t
             continue
         w, back = _wire(t)
         send = _to_wire(pm, w)
         recv = _empty_wire(pm, send.shape, send.dtype)
-        dst = pm.ranks[(pm.rank + hop) % P]
-        src = pm.ranks[(pm.rank - hop) % P]
-        ops.append(dist.P2POp(dist.isend, send, dst, group=pm.group))
-        ops.append(dist.P2POp(dist.irecv, recv, src, group=pm.group))
+        ops.append(dist.P2POp(dist.isend, send, pm.ranks[dst],
+                              group=pm.group))
+        ops.append(dist.P2POp(dist.irecv, recv, pm.ranks[src],
+                              group=pm.group))
         recvs.append((n, recv, back))
     if ops:
         for req in dist.batch_isend_irecv(ops):
@@ -208,3 +212,29 @@ def ring_exchange(blocks, pm):
     for n, recv, back in recvs:
         out[n] = back(_from_wire(pm, recv))
     return out
+
+
+def ring_exchange(blocks, pm):
+    """Send each ``(tensor, hop)`` of ``blocks`` to rank (r + hop) % P
+    and receive, for each, a tensor of the same shape and dtype from
+    rank (r - hop) % P; one ``batch_isend_irecv`` for all of them.  A hop
+    that is a multiple of P keeps the tensor."""
+    P, r = pm.size, pm.rank
+    return _p2p([(t, (r + hop) % P, (r - hop) % P) for t, hop in blocks],
+                pm)
+
+
+def torus_exchange(blocks, pm):
+    """Send each ``(tensor, (ox, oy))`` of ``blocks`` from this rank, at
+    (bx, by) on the 2-d grid of ``pm``, to the rank at
+    ((bx + ox) % npx, (by + oy) % npy), and receive one of the same shape
+    and dtype from ((bx - ox) % npx, (by - oy) % npy); one
+    ``batch_isend_irecv`` for all of them.  Each ordered pair of ranks may
+    carry one block at most: distinct offsets modulo the grid."""
+    npx, npy = pm.grid
+    bx, by = pm.coords
+
+    def flat(x, y):
+        return (x % npx) * npy + y % npy
+    return _p2p([(t, flat(bx + ox, by + oy), flat(bx - ox, by - oy))
+                 for t, (ox, oy) in blocks], pm)

@@ -1,18 +1,22 @@
 """The slab-sharded ghost exchange of particles: the 1-d plan.
 
 Counterpart of ``pmesh_tpu/parallel/exchange.py`` (the slab path; the
-2-d pencil plan of ``exchange2d.py`` is not ported, ROADMAP queue 1,
-item 8a).  The reference ships ragged packed-Alltoallv buffers; the
-JAX package, with static shapes, plans **capacity-padded** channels,
-and this port keeps its plan bit for bit, on torch.distributed ranks:
+2-d pencil plan is ``exchange2d.py``).  The reference ships ragged
+packed-Alltoallv buffers; the JAX package, with static shapes, plans
+**capacity-padded** channels, and this port keeps its plan bit for bit,
+on torch.distributed ranks:
 
 - rank b holds block b of every particle array: the rows
   ``[b nl, (b + 1) nl)`` of the global array, nl = ceil(npart / D),
   the last blocks short (the blocks the JAX package's global arrays put
   on device b); a rank pads its block to nl with inert sentinels, as
   the JAX package pads the global array;
-- the mesh's axis 0 is slab-decomposed over the same ranks (rows =
-  N0 / D each, ``parallel/pmesh.py``);
+- the mesh's axis 0 is slab-decomposed over the same ranks: rows =
+  ceil(N0 / D) each (``parallel/pmesh.py``).  Where D does not divide
+  N0 the slabs are padded: the dead rows [N0, rows D) of the last slabs
+  (whole dead slabs at the seam, or a thin last slab) take a paint's
+  spill, which is dropped, and read as zeros, while the ghost image on
+  the wrapped side paints and reads the real cells;
 - *residency*: every particle of block b lies within ``kside`` slabs of
   slab b, its window's reach included.  :func:`reshard` makes it so;
   particles may then drift ``kside rows - smoothing`` cells before the
@@ -41,8 +45,8 @@ import torch
 
 from . import comm
 
-__all__ = ["ShardedLayout", "decompose", "reshard", "route", "home_block",
-           "measure_ghosts", "measure_load", "paint_sharded",
+__all__ = ["ShardedLayout", "decompose", "reshard", "route", "sort_route",
+           "home_block", "measure_ghosts", "measure_load", "paint_sharded",
            "readout_sharded"]
 
 
@@ -61,14 +65,9 @@ def _channels(kside):
 
 
 def _slab_rows(N0, D):
-    """rows per slab; the port's slabs are even (uneven meshes are
-    ROADMAP queue 1, item 8a)"""
-    N0, D = int(N0), int(D)
-    if N0 % D:
-        raise NotImplementedError(
-            "Nmesh[0]=%d does not split into %d equal slabs; uneven meshes "
-            "are not ported yet (ROADMAP queue 1, item 8a)" % (N0, D))
-    return N0 // D
+    """rows per slab: ceil(N0 / D), the last slabs padded with dead
+    rows where D does not divide N0"""
+    return -(-int(N0) // int(D))
 
 
 def _ball_channels(g, s, b, N0, rows, D):
@@ -83,7 +82,10 @@ def _ball_channels(g, s, b, N0, rows, D):
 
 
 def _sentinel_pos(N0, rows, D):
-    """the padding position: the center of the slab holding cell N0 - 1"""
+    """the padding position: the physical center of the slab holding
+    cell N0 - 1 (on an uneven mesh that slab can be thin, and its
+    sentinels may ghost: they carry no mass, and measure_ghosts counts
+    them under the same padding)"""
     sb = (int(N0) - 1) // int(rows)
     return (sb * rows + min((sb + 1) * rows, int(N0))) / 2.0
 
@@ -96,11 +98,20 @@ def home_block(pos0_grid, N0, D):
                   rounding_mode='floor').to(torch.int32), D)
 
 
-def _default_kside(smoothing, rows, D):
+def _dead_slabs(N0, rows, D):
+    """the slabs past the physical mesh at the seam, which a ball
+    wrapping the period N0 hops over in ring distance"""
+    return (D - 1) - (int(N0) - 1) // rows
+
+
+def _default_kside(smoothing, rows, D, N0=None):
     """the window's reach in slabs plus one slab of headroom (a cell of
     drift, and the quantile splits of :func:`reshard` that leave edge
-    particles one block from home), at most the ring radius"""
+    particles one block from home), plus the dead seam slabs of an
+    uneven mesh, at most the ring radius"""
     kside = int(np.ceil(float(smoothing) / rows)) + 1
+    if N0 is not None:
+        kside += _dead_slabs(N0, rows, D)
     return min(max(1, kside), max(1, (D - 1) // 2))
 
 
@@ -125,6 +136,74 @@ def _ghost_counts(g, s, b, N0, rows, D, chans):
     dlo, dhi = _ball_channels(g, s, b, N0, rows, D)
     masks = [(dlo <= -m) if side < 0 else (dhi >= m) for m, side in chans]
     return dlo, dhi, masks
+
+
+_UFUNC_MODES = {np.add: 'sum', np.maximum: 'max', np.fmax: 'max',
+                np.minimum: 'min', np.fmin: 'min', np.multiply: 'prod'}
+
+
+def _gather_mode(mode):
+    """(mode string, binary combine function or None) of a gather mode"""
+    if isinstance(mode, str):
+        return mode, None
+    if isinstance(mode, np.ufunc) and mode in _UFUNC_MODES:
+        return _UFUNC_MODES[mode], None
+    combine = None
+    if isinstance(mode, np.ufunc):
+        combine = getattr(torch, mode.__name__, None)
+    elif callable(mode):
+        combine = mode
+    if combine is None:
+        raise NotImplementedError(
+            "unsupported gather reduction %r on the sharded path; pass a "
+            "binary ufunc with a torch counterpart or a callable on "
+            "tensors, or use gather(..., 'all') and reduce by hand"
+            % (mode,))
+    return 'ufunc', combine
+
+
+def _combine_channel(out, cnt, i, back, mode, combine):
+    """(out, cnt) with one channel's returned values ``back`` folded into
+    the particles ``i`` (-1: an empty slot) by ``mode``"""
+    tail = (1,) * (back.dim() - 1)
+    ok = i >= 0
+    okb = ok.reshape((-1,) + tail)
+    safe = i.clamp(min=0)
+    if mode in ('sum', 'mean'):
+        out = out.index_add(0, safe, torch.where(
+            okb, back, torch.zeros((), dtype=back.dtype,
+                                   device=back.device)))
+        if cnt is not None:
+            cnt = cnt.index_add(0, safe, ok.to(cnt.dtype))
+    elif mode == 'any':
+        out = out.clone()
+        out[i[ok]] = back[ok]
+    elif mode in ('max', 'min', 'prod'):
+        if mode == 'prod':
+            ident = 1
+        elif back.is_floating_point():
+            ident = -np.inf if mode == 'max' else np.inf
+        else:
+            info = torch.iinfo(back.dtype)
+            ident = info.min if mode == 'max' else info.max
+        contrib = torch.where(okb, back, torch.as_tensor(
+            ident, dtype=back.dtype, device=back.device))
+        red = {'max': 'amax', 'min': 'amin', 'prod': 'prod'}
+        index = safe.reshape((-1,) + tail).expand_as(contrib)
+        out = out.scatter_reduce(0, index, contrib, red[mode])
+    elif mode == 'ufunc':
+        # one image per particle and channel: align the channel to the
+        # particles, then combine
+        aligned = torch.zeros_like(out)
+        aligned[i[ok]] = back[ok]
+        filled = torch.zeros(out.shape[0], dtype=torch.bool,
+                             device=out.device)
+        filled[i[ok]] = True
+        out = torch.where(filled.reshape((-1,) + tail),
+                          combine(out, aligned), out)
+    else:
+        raise NotImplementedError(mode)
+    return out, cnt
 
 
 class ShardedLayout(object):
@@ -193,8 +272,10 @@ class ShardedLayout(object):
             raise ValueError("exchange expects leading axis %d, got %s"
                              % (self.nlocal, tuple(a.shape)))
         if self.nl > self.nlocal:
-            a = torch.cat([a, a.new_zeros((self.nl - self.nlocal,)
-                                          + tuple(a.shape[1:]))])
+            # the sentinel rows hold ``fill`` (hsml 1, not 0: a sentinel
+            # that ghosts must weigh 0, not NaN; ROADMAP queue 3)
+            a = torch.cat([a, a.new_full((self.nl - self.nlocal,)
+                                         + tuple(a.shape[1:]), fill)])
         b, N0, rows, D = self.procmesh.rank, self.N0, self.rows, self.D
         if grid0:
             g = torch.remainder(a, N0)
@@ -255,24 +336,7 @@ class ShardedLayout(object):
             callable on tensors, combine each channel's values in
             channel order).
         """
-        ufuncs = {np.add: 'sum', np.maximum: 'max', np.fmax: 'max',
-                  np.minimum: 'min', np.fmin: 'min', np.multiply: 'prod'}
-        combine = None
-        if not isinstance(mode, str):
-            if isinstance(mode, np.ufunc) and mode in ufuncs:
-                mode = ufuncs[mode]
-            else:
-                if isinstance(mode, np.ufunc):
-                    combine = getattr(torch, mode.__name__, None)
-                elif callable(mode):
-                    combine = mode
-                if combine is None:
-                    raise NotImplementedError(
-                        "unsupported gather reduction %r on the sharded "
-                        "path; pass a binary ufunc with a torch "
-                        "counterpart or a callable on tensors, or use "
-                        "gather(..., 'all') and reduce by hand" % (mode,))
-                mode = 'ufunc'
+        mode, combine = _gather_mode(mode)
         if mode == 'all':
             return data
         data = torch.as_tensor(data)
@@ -291,48 +355,12 @@ class ShardedLayout(object):
                  for c, (m, side) in enumerate(chans)], self.procmesh)
             cnt = torch.ones(nl, dtype=data.dtype, device=data.device) \
                 if mode == 'mean' else None
-            tail = (1,) * (data.dim() - 1)
             for c, back in enumerate(backs):
-                i = self.send_idx[c].long()
-                ok = i >= 0
-                okb = ok.reshape((-1,) + tail)
-                safe = i.clamp(min=0)
-                if mode in ('sum', 'mean'):
-                    out = out.index_add(0, safe, torch.where(
-                        okb, back, torch.zeros((), dtype=back.dtype,
-                                               device=back.device)))
-                    if cnt is not None:
-                        cnt = cnt.index_add(0, safe, ok.to(data.dtype))
-                elif mode == 'any':
-                    out = out.clone()
-                    out[i[ok]] = back[ok]
-                elif mode in ('max', 'min', 'prod'):
-                    if mode == 'prod':
-                        ident = 1
-                    elif data.is_floating_point():
-                        ident = -np.inf if mode == 'max' else np.inf
-                    else:
-                        info = torch.iinfo(data.dtype)
-                        ident = info.min if mode == 'max' else info.max
-                    contrib = torch.where(okb, back, torch.as_tensor(
-                        ident, dtype=back.dtype, device=back.device))
-                    red = {'max': 'amax', 'min': 'amin', 'prod': 'prod'}
-                    index = safe.reshape((-1,) + tail).expand_as(contrib)
-                    out = out.scatter_reduce(0, index, contrib, red[mode])
-                elif mode == 'ufunc':
-                    # one image per particle and channel: align the
-                    # channel to the particles, then combine
-                    aligned = torch.zeros_like(out)
-                    aligned[i[ok]] = back[ok]
-                    filled = torch.zeros(nl, dtype=torch.bool,
-                                         device=data.device)
-                    filled[i[ok]] = True
-                    out = torch.where(filled.reshape((-1,) + tail),
-                                      combine(out, aligned), out)
-                else:
-                    raise NotImplementedError(mode)
+                out, cnt = _combine_channel(out, cnt,
+                                            self.send_idx[c].long(), back,
+                                            mode, combine)
             if cnt is not None:
-                out = out / cnt.reshape((-1,) + tail)
+                out = out / cnt.reshape((-1,) + (1,) * (data.dim() - 1))
         return self._poison(out[:self.nlocal])
 
     def get_exchange_cost(self):
@@ -349,7 +377,7 @@ def measure_ghosts(procmesh, pos0_grid, N0, smoothing, kside=None):
     D = procmesh.size
     rows = _slab_rows(N0, D)
     if kside is None:
-        kside = _default_kside(smoothing, rows, D)
+        kside = _default_kside(smoothing, rows, D, N0)
     chans = _channels(kside)
     nl = max(_counts(procmesh, pos0_grid.shape[0]))
     g = _padded(procmesh, pos0_grid, N0, nl)
@@ -376,7 +404,7 @@ def measure_load(procmesh, pos0_grid, N0, smoothing, kside=None):
     D = procmesh.size
     rows = _slab_rows(N0, D)
     if kside is None:
-        kside = _default_kside(smoothing, rows, D)
+        kside = _default_kside(smoothing, rows, D, N0)
     chans = _channels(kside)
     counts = _counts(procmesh, pos0_grid.shape[0])
     npart, nl = sum(counts), max(counts)
@@ -411,7 +439,9 @@ def decompose(procmesh, pos0_grid, N0, smoothing, kside=None,
     grid coordinates are ``pos0_grid`` (nlocal,).
 
     kside : ghost channels per side; default the window's reach plus
-        one slab (at most the ring radius (D - 1) // 2).
+        one slab, plus the dead seam slabs of an uneven mesh (at most the
+        ring radius (D - 1) // 2; an uneven mesh whose reach across the
+        seam needs more raises a ValueError).
     capacity : int | 'auto' | None — ghost slots per channel.  None is
         the block length (never overflows; every exchanged array is then
         (1 + 2 kside) times the particles).  'auto' measures the ghosts
@@ -425,7 +455,14 @@ def decompose(procmesh, pos0_grid, N0, smoothing, kside=None,
     pos0_grid = pos0_grid.detach()
     kside_given = kside is not None
     if kside is None:
-        kside = _default_kside(smoothing, rows, D)
+        kside = _default_kside(smoothing, rows, D, N0)
+        need = int(np.ceil(float(smoothing) / rows)) + 1 \
+            + _dead_slabs(N0, rows, D)
+        if rows * D != int(N0) and need > max(1, (D - 1) // 2):
+            raise ValueError(
+                "Nmesh[0]=%d is too small to slab-shard over %d devices "
+                "(ghost reach %d slabs exceeds the ring radius %d); use "
+                "fewer devices" % (N0, D, need, (D - 1) // 2))
     if 2 * kside + 1 > D:
         raise ValueError(
             "kside=%d ghost reach wraps the %d-device ring; use a "
@@ -542,12 +579,45 @@ def route(procmesh, dest, slot, nout, *arrays):
     return outs
 
 
+def sort_route(procmesh, key, nkeys, *arrays):
+    """Re-sort particle arrays over the ranks by an integer ``key`` in
+    [0, nkeys) of each row: block b of the result holds the b-th
+    equal-count quantile of the rows in (key, source rank, source row)
+    order, ceil(npart / D) rows each, the last blocks short; the rows
+    travel in one ragged all_to_all.  Returns the new blocks (one array:
+    the array)."""
+    D, me = procmesh.size, procmesh.rank
+    key = key.to(torch.int64)
+    n = key.shape[0]
+    local = torch.bincount(key, minlength=nkeys)
+    C = comm.all_gather(local[None], procmesh).cpu().numpy()   # (src, key)
+    npart = int(C.sum())
+    if npart == 0:
+        return arrays[0] if len(arrays) == 1 else tuple(arrays)
+    nl = -(-npart // D)
+    # the global position of each row: the rows of lower keys, those of
+    # its key on lower ranks, then its rank among this rank's rows of the
+    # same key
+    base = np.concatenate([[0], np.cumsum(C.sum(axis=0))[:-1]]) \
+        + C[:me].sum(axis=0)
+    order = torch.argsort(key, stable=True)
+    ks = key[order]
+    first = torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(local.cpu().numpy())[:-1]])).to(key.device)
+    within = torch.arange(n, device=key.device) - first[ks]
+    gpos = torch.empty_like(key)
+    gpos[order] = torch.from_numpy(base).to(key.device)[ks] + within
+    nout = min(nl, max(npart - me * nl, 0))
+    out = route(procmesh, gpos // nl, gpos % nl, nout, *arrays)
+    return out[0] if len(arrays) == 1 else tuple(out)
+
+
 def reshard(procmesh, pos0_grid, N0, *arrays):
     """Globally re-sort particle arrays so block b holds the b-th
     equal-count quantile of the particles in x-plane order: the mpsort
     role, restoring the residency of :func:`decompose`.  Every rank
     passes its block and gets its new block (ceil(npart / D) rows, the
-    last blocks short); the rows travel in one ragged all_to_all.
+    last blocks short; :func:`sort_route`).
 
     The order is the mesh plane floor(x mod N0) major, then the source
     rank, then each rank's own order.  Where slab populations are
@@ -560,33 +630,10 @@ def reshard(procmesh, pos0_grid, N0, *arrays):
     3).  Its blocks are this order's wherever each home slab's particles
     come plane-sorted."""
     _no_grad("reshard", pos0_grid, *arrays)
-    D, me = procmesh.size, procmesh.rank
     N0 = int(N0)
-    _slab_rows(N0, D)
     plane = torch.remainder(torch.floor(torch.remainder(
         pos0_grid.detach(), N0)), N0).to(torch.int64)
-    n = plane.shape[0]
-    local = torch.bincount(plane, minlength=N0)
-    C = comm.all_gather(local[None], procmesh).cpu().numpy()   # (src, plane)
-    npart = int(C.sum())
-    if npart == 0:
-        return arrays[0] if len(arrays) == 1 else tuple(arrays)
-    nl = -(-npart // D)
-    # the global position of each row: the rows of lower planes, those of
-    # its plane on lower ranks, then its rank among this rank's rows of
-    # the same plane
-    base = np.concatenate([[0], np.cumsum(C.sum(axis=0))[:-1]]) \
-        + C[:me].sum(axis=0)
-    order = torch.argsort(plane, stable=True)
-    ps = plane[order]
-    first = torch.from_numpy(np.concatenate(
-        [[0], np.cumsum(local.cpu().numpy())[:-1]])).to(plane.device)
-    within = torch.arange(n, device=plane.device) - first[ps]
-    gpos = torch.empty_like(plane)
-    gpos[order] = torch.from_numpy(base).to(plane.device)[ps] + within
-    nout = min(nl, max(npart - me * nl, 0))
-    out = route(procmesh, gpos // nl, gpos % nl, nout, *arrays)
-    return out[0] if len(arrays) == 1 else tuple(out)
+    return sort_route(procmesh, plane, N0, *arrays)
 
 
 # --- the sharded paint and readout -------------------------------------------
@@ -594,6 +641,13 @@ def reshard(procmesh, pos0_grid, N0, *arrays):
 # Each rank paints and reads only its own (rows, N1, ...) slab from its
 # images: stencil cells outside the slab are dropped, since the image on
 # the neighbouring rank covers them (the reference's local-canvas rule).
+# On an uneven mesh a rank's slab is padded to ``rows`` with the dead
+# rows past N0: a paint's spill there is dropped, a readout reads zeros.
+
+def _real_rows(layout):
+    """the rows of this rank's slab that lie on the mesh"""
+    start, stop = layout.procmesh.block(layout.N0)
+    return stop - start
 
 def _grid_coords(layout, pos, scale, translate):
     """the images' per-axis grid coordinates; ``translate`` (cells) is
@@ -653,8 +707,8 @@ def _local_pos(layout, egs):
 def paint_sharded(layout, pos, mass, shape, scale, window, diffdir=None,
                   dtype=None, base=None, hsml=None, hsml_max=None,
                   translate=None):
-    """This rank's slab (rows, N1, ...) of the paint of every rank's
-    particles.
+    """This rank's slab (rows_b, N1, ...) of the paint of every rank's
+    particles (rows_b the slab's rows on the mesh).
 
     pos : this rank's (nlocal, ndim) positions in simulation units;
     mass : a scalar or (nlocal,); shape : the global mesh shape;
@@ -682,6 +736,9 @@ def paint_sharded(layout, pos, mass, shape, scale, window, diffdir=None,
                            window=window, scale=1.0, translate=0.0,
                            period=(0,) + shape[1:], diffdir=diffdir,
                            hsml=eh, hsml_max=hsml_max)
+    nb = _real_rows(layout)
+    if nb != layout.rows:
+        out = out[:nb]
     out = _diff_scale((out,), scale, diffdir)[0]
     # a poisoned plan's NaN coordinates are dropped by the paint's
     # bounds: put the poison in the mesh itself
@@ -710,9 +767,14 @@ def readout_sharded(layout, meshes, pos, scale, window, diffdir=None,
     ndim = pos.shape[-1]
     if multi and len(meshes) != 1:
         raise ValueError("diffdir='all' takes exactly one mesh")
-    if meshes[0].shape[0] != layout.rows:
+    nb = _real_rows(layout)
+    if meshes[0].shape[0] != nb:
         raise ValueError("mesh slab of %d rows does not match the layout's "
-                         "%d" % (meshes[0].shape[0], layout.rows))
+                         "%d" % (meshes[0].shape[0], nb))
+    if nb != layout.rows:
+        meshes = tuple(torch.cat([m, m.new_zeros((layout.rows - nb,)
+                                                 + tuple(m.shape[1:]))])
+                       for m in meshes)
     shape = (layout.N0,) + tuple(meshes[0].shape[1:])
     egs = _grid_coords(layout, pos, scale, translate)
     eh, hbad = _check_hsml(layout, window, hsml, hsml_max)

@@ -5,7 +5,8 @@ tests' virtual 8-device mesh.
 
 runs ``function(pm, *args)`` in ``world`` fresh processes
 (``torch.multiprocessing``, spawn start method), each with its
-``ProcessMesh`` ``pm`` over an initialized process group, and returns
+``ProcessMesh`` ``pm`` over an initialized process group (the 1-d grid,
+or with ``shape=(npx, npy)`` the 2-d pencil grid), and returns
 the ranks' return values in rank order.  A child imports the named
 module and what it imports, nothing of its caller's but the main
 module (which the spawn start method re-imports: a script that spawns
@@ -46,7 +47,7 @@ def resolve(fn_name):
     return getattr(importlib.import_module(mod), name)
 
 
-def _entry(rank, fn_name, world, backend, device, tmp, args):
+def _entry(rank, fn_name, world, backend, device, tmp, args, shape):
     dev = torch.device(device)
     if dev.type == 'cuda':
         dev = torch.device('cuda', rank % torch.cuda.device_count())
@@ -59,7 +60,7 @@ def _entry(rank, fn_name, world, backend, device, tmp, args):
         rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=TIMEOUT))
     try:
-        pm = ProcessMesh(device=dev)
+        pm = ProcessMesh(device=dev, shape=shape)
         out = resolve(fn_name)(pm, *args)
         torch.save(out, os.path.join(tmp, "rank%d.pt" % rank))
         dist.barrier()
@@ -67,17 +68,20 @@ def _entry(rank, fn_name, world, backend, device, tmp, args):
         dist.destroy_process_group()
 
 
-def spawn(fn_name, world, backend='gloo', device=None, *args):
+def spawn(fn_name, world, backend='gloo', device=None, *args, shape=None):
     """Run ``fn_name(pm, *args)`` on ``world`` ranks; returns the list
     of their return values (see the module docstring).  ``device`` is
-    None (the GPU; raises without CUDA), 'cuda' or 'cpu'.  A collective
-    that waits longer than ``TIMEOUT`` seconds fails the job."""
+    None (the GPU; raises without CUDA), 'cuda' or 'cpu'; ``shape``
+    (npx, npy) gives every rank the 2-d grid of ``ProcessMesh``.  A
+    collective that waits longer than ``TIMEOUT`` seconds fails the
+    job."""
     resolve(fn_name)
     if device is None:
         device = _default_device(0).type
     with tempfile.TemporaryDirectory(prefix="pmesh_spawn_") as tmp:
         mp.start_processes(
-            _entry, args=(fn_name, world, backend, str(device), tmp, args),
+            _entry, args=(fn_name, world, backend, str(device), tmp, args,
+                          shape),
             nprocs=world, join=True, start_method='spawn')
         return [torch.load(os.path.join(tmp, "rank%d.pt" % r),
                            weights_only=False) for r in range(world)]

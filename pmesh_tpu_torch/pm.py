@@ -23,26 +23,45 @@ complex fields are one layout on one device: the hermitian half
 spectrum, or with a complex dtype ('c8', 'c16') the full c2c spectrum,
 whose real fields are complex too.
 
-With a ``procmesh`` of P > 1 ranks (``parallel/pmesh.py``) a field's
-value is this rank's block: x rows ``[r N0/P, (r+1) N0/P)`` of a real
-field, y columns ``[r N1/P, (r+1) N1/P)`` of the transposed complex
-field (whole x, half z), as the JAX package's ``real_spec`` and
-``transposed_spec`` lay out the global arrays.  ``r2c``/``c2r`` are the
-slab transforms of ``parallel/pfft.py`` and the coordinates of
-``apply`` are the block's own.  The ranks must divide N0 and N1 (the
-JAX package's ``_even_mesh``); its uneven and replicated fallbacks are
-not ported (ROADMAP queue 1, item 8a).  Particle arrays are held in
-blocks too: rank b holds block b of the global (N, ndim) array
-(``parallel/exchange.py``).  ``decompose`` builds the slab ghost plan
-(a ``ShardedLayout``), ``reshard_particles`` restores its residency,
-``paint`` and ``readout`` with that plan paint and read each rank's
-slab from its images, and without one they reshard a copy, decompose
-and route the values back, so that any positions give the global
-answer.  The particle grid is each rank's slab of the lattice, the
-white noise each rank's own block of the fill, and the reductions
-``csum``/``cdot``/``cnorm`` sum over the ranks.  The global item access
-and reshaping and the untransposed layout raise on a sharded mesh
-(ROADMAP queue 1, item 8d), as do c2c and 2-d sharded meshes (8a).
+With a ``procmesh`` of P > 1 ranks (``parallel/pmesh.py``) the mesh
+takes one of three routes (``ParticleMesh.route``), chosen by the JAX
+package's tests ``_even_mesh``, ``_uneven1d`` and ``_pencil2d`` with
+the same arithmetic:
+
+- ``'slab'``, a 1-d grid whose ranks divide N0 and N1, or an uneven
+  mesh whose slabs reach across the dead seam (``_uneven1d``): a real
+  field's value is this rank's x rows ``[r c0, min((r+1) c0, N0))``,
+  the transposed complex field's its y columns ``[r c1, min((r+1) c1,
+  Ny))`` (whole x, half z), c0 = ceil(N0/P), c1 = ceil(N1/P), Ny the
+  spectrum's y length (the half Ny//2+1 of a 2-d real mesh); the last
+  blocks of an uneven mesh are short or empty;
+- ``'pencil'``, a 2-d (npx, npy) grid whose ranks divide N0 and N1 (3-d
+  meshes): the rank at (bx, by) holds the real pencil of x block bx and
+  y block by, and of the spectrum the y block bx (N1/npx) and the z
+  block by of the spectrum's last axis padded to a multiple of npy (its
+  real columns only);
+- ``'replicated'``, every other geometry (the JAX package's GSPMD
+  fallback), and a 2-d mesh on a 2-d grid (which the JAX package
+  transforms by DFT matmuls): every rank holds the whole field and
+  transforms it alone; a paint is each rank's paint of its own
+  particles summed over the ranks, a readout is local, and
+  ``decompose`` warns as the JAX package's does.
+
+``r2c``/``c2r`` are the transforms of ``parallel/pfft.py`` and the
+coordinates of ``apply`` are the block's own, with global indices.
+Particle arrays are held in blocks on every route: rank b holds block b
+of the global (N, ndim) array (``parallel/exchange.py``).  On a slab
+``decompose`` builds the 1-d ghost plan (a ``ShardedLayout``), on a
+pencil the 2-d one (a ``ShardedLayout2D``, ``parallel/exchange2d.py``);
+``reshard_particles`` restores its residency, ``paint`` and ``readout``
+with that plan paint and read each rank's block from its images, and
+without one they reshard a copy, decompose and route the values back,
+so that any positions give the global answer.  The particle grid is
+block b of the lattice's points in C order, the white noise each rank's
+own block of the fill, and the reductions ``csum``/``cdot``/``cnorm``
+sum over the ranks' blocks.  The global item access and reshaping and
+the untransposed layout raise on a sharded mesh (ROADMAP queue 1, item
+8d).
 """
 import functools
 
@@ -86,8 +105,9 @@ def _not_sharded(pm, what):
 
 
 def _rank_sum(pm, value):
-    """a 0-d sum of this rank's block, summed over the ranks"""
-    if not pm.sharded:
+    """a 0-d sum of this rank's block, summed over the ranks (the sum
+    itself where every rank holds the whole field)"""
+    if not pm.blocked:
         return value
     from .parallel.comm import all_reduce
     return all_reduce(value, pm.procmesh, 'sum')
@@ -618,23 +638,25 @@ class RealField(Field):
         :meth:`ParticleMesh.decompose` plan.  Returns a new tensor.
 
         On a sharded mesh ``pos`` is this rank's block of particles: with
-        a ``ShardedLayout`` the sharded readout reads each rank's slab
-        from the images; without one the particles are resharded,
-        decomposed and read, and the values routed back."""
+        a ``ShardedLayout`` (``ShardedLayout2D``) the sharded readout
+        reads each rank's slab (pencil) from the images; without one the
+        particles are resharded, decomposed and read, and the values
+        routed back.  Where every rank holds the whole field, each reads
+        its own particles."""
         if out is not None:
             raise TypeError("out= is not supported: use the return value")
         if transform is None:
             transform = self.pm.affine
         resampler = FindResampler(self.pm.resampler if resampler is None
                                   else resampler)
-        if self.pm.sharded:
-            return self.pm._readout_sharded(self.value, pos, hsml, resampler,
+        value = self.value.real if self.pm._is_c2c else self.value
+        if self.pm.blocked:
+            return self.pm._readout_sharded(value, pos, hsml, resampler,
                                             transform, gradient, layout,
                                             hsml_max)
         if layout is not None:
             pos = layout.exchange(pos)
             hsml = layout.exchange(hsml) if hsml is not None else None
-        value = self.value.real if self.pm._is_c2c else self.value
         r = _paint_ops.readout(value, pos, window=resampler.window,
                                scale=transform.scale,
                                translate=transform.translate,
@@ -788,7 +810,8 @@ class BaseComplexField(Field):
 
 
 class TransposedComplexField(BaseComplexField):
-    """The complex field r2c returns (on a sharded mesh, y columns)."""
+    """The complex field r2c returns (on a sharded mesh, this rank's block:
+    y columns on a slab, y and z blocks on a pencil)."""
 
 
 class UntransposedComplexField(BaseComplexField):
@@ -827,8 +850,9 @@ class ParticleMesh(object):
     device : torch device of every field made from this mesh; default
         the current CUDA device (raises without CUDA: pass 'cpu'), or the
         procmesh's device
-    procmesh : None, or a ``parallel.pmesh.ProcessMesh``: fields hold
-        this rank's slab (module docstring).
+    procmesh : None, or a ``parallel.pmesh.ProcessMesh`` (1-d or 2-d):
+        fields hold this rank's block on the route its geometry takes
+        (``route``, module docstring).
     """
 
     def __init__(self, Nmesh, BoxSize=1.0, dtype='f8', resampler='cic',
@@ -849,10 +873,9 @@ class ParticleMesh(object):
         if procmesh is not None:
             from .parallel.pmesh import ProcessMesh
             if not isinstance(procmesh, ProcessMesh):
-                raise NotImplementedError(
+                raise TypeError(
                     "procmesh must be a pmesh_tpu_torch.parallel.pmesh."
-                    "ProcessMesh (the 1-d slab grid); other process grids "
-                    "are not ported yet (ROADMAP queue 1, item 8a)")
+                    "ProcessMesh, got %r" % (procmesh,))
             if device is not None and not _same_device(
                     resolve_device(device), procmesh.device):
                 raise ValueError("device %s is not the procmesh's %s"
@@ -867,24 +890,50 @@ class ParticleMesh(object):
         self.affine_grid = Affine(self.ndim, translate=0, scale=1.0,
                                   period=self.Nmesh)
         self._coords_cache = {}
-        if self.sharded:
-            if self._is_c2c:
-                raise NotImplementedError(
-                    "c2c meshes on a sharded mesh are not ported yet "
-                    "(ROADMAP queue 1, item 8a)")
-            if self.ndim != 3:
-                raise NotImplementedError(
-                    "sharded meshes are 3-d here (the JAX package's 2-d "
-                    "slab transforms are not ported yet: ROADMAP queue 1, "
-                    "item 8a)")
-            # the slab layouts need equal blocks of x and y
-            for d in (0, 1):
-                procmesh.slab(int(self.Nmesh[d]))
+        self.route = self._route()
+
+    def _route(self):
+        """the JAX package's geometry tests (``pmesh_tpu/pm.py:924-960``,
+        the same arithmetic) and the route they give (module
+        docstring)"""
+        self._even_mesh, self._pencil2d, self._uneven1d = True, False, False
+        if not self.sharded:
+            return 'single'
+        if self.ndim < 2:
+            raise ValueError(
+                "distributed 1-d meshes are not supported (the reference is "
+                "also single-rank there); drop procmesh")
+        N0, N1 = int(self.Nmesh[0]), int(self.Nmesh[1])
+        D = self.procmesh.size
+        if self.procmesh.is2d:
+            self._even_mesh = False
+            self._pencil2d = all(n % s == 0 for n in (N0, N1)
+                                 for s in self.procmesh.grid)
+            return 'pencil' if self._pencil2d and self.ndim >= 3 \
+                else 'replicated'
+        self._even_mesh = N0 % D == 0 and N1 % D == 0
+        if self._even_mesh:
+            return 'slab'
+        # the padded slabs must reach across the dead seam within the
+        # ring radius
+        rows = -(-N0 // D)
+        s = self.resampler.support * 0.5
+        need = int(np.ceil(s / rows)) + 1 + (D - 1) - (N0 - 1) // rows
+        self._uneven1d = need <= max(1, (D - 1) // 2)
+        return 'slab' if self._uneven1d else 'replicated'
 
     @property
     def sharded(self):
-        """whether fields are rank-local blocks (a procmesh of P > 1)"""
+        """whether particle arrays are rank-local blocks (a procmesh of
+        P > 1 ranks)"""
         return self.procmesh is not None and self.procmesh.size > 1
+
+    @property
+    def blocked(self):
+        """whether fields are rank-local blocks (the slab and pencil
+        routes); on the replicated route every rank holds the whole
+        field"""
+        return self.route in ('slab', 'pencil')
 
     def _global_shape(self, field_type):
         if issubclass(field_type, RealField) or self._is_c2c:
@@ -893,56 +942,73 @@ class ParticleMesh(object):
             + (int(self.Nmesh[-1]) // 2 + 1,)
 
     def local_block(self, field_type):
-        """(axis, start, stop) of this rank's block of a field of
-        ``field_type`` (a type string or class): x rows of a real field,
-        y columns of the transposed complex one; the whole axis on one
-        rank."""
+        """the (start, stop) of each axis of this rank's block of a field
+        of ``field_type`` (a type string or class), as the route lays it
+        out (module docstring); the whole axes on one rank and on the
+        replicated route."""
         field_type = _field_type(field_type)
-        axis = 1 if issubclass(field_type, BaseComplexField) else 0
-        n = self._global_shape(field_type)[axis]
-        if not self.sharded:
-            return axis, 0, n
+        shape = self._global_shape(field_type)
+        block = [(0, n) for n in shape]
+        if not self.blocked:
+            return tuple(block)
         if issubclass(field_type, UntransposedComplexField):
             _not_sharded(self, "the untransposed complex layout")
-        start, stop = self.procmesh.slab(n)
-        return axis, start, stop
+        spectrum = issubclass(field_type, BaseComplexField)
+        pm = self.procmesh
+        if self.route == 'slab':
+            if spectrum:
+                # the y blocks of the spectrum are those of N1, also
+                # where its y axis is the half spectrum (2-d real meshes)
+                block[1] = pm.block(shape[1],
+                                    chunk=-(-int(self.Nmesh[1]) // pm.size))
+            else:
+                block[0] = pm.block(shape[0])
+        elif spectrum:
+            block[1] = pm.block(shape[1], 0)
+            block[-1] = pm.block(shape[-1], 1)
+        else:
+            block[0] = pm.block(shape[0], 0)
+            block[1] = pm.block(shape[1], 1)
+        return tuple(block)
 
     def _shape_dtype(self, field_type):
-        shape = list(self._global_shape(field_type))
-        axis, start, stop = self.local_block(field_type)
-        shape[axis] = stop - start
+        shape = tuple(stop - start
+                      for start, stop in self.local_block(field_type))
         dtype = (self.torch_dtype if issubclass(field_type, RealField)
                  else self.complex_dtype)
-        return tuple(shape), dtype
+        return shape, dtype
 
     def _r2c_value(self, value):
-        if self.sharded:
-            from .parallel import pfft
-            return pfft.r2c(self.procmesh, value)
+        from .parallel import pfft
+        if self.route == 'slab':
+            return pfft.r2c(self.procmesh, value, self.Nmesh)
+        if self.route == 'pencil':
+            return pfft.r2c_pencil(self.procmesh, value, self.Nmesh)
         return _fft.r2c(value)
 
     def _c2r_value(self, value):
-        if self.sharded:
-            from .parallel import pfft
+        from .parallel import pfft
+        if self.route == 'slab':
             return pfft.c2r(self.procmesh, value, self.Nmesh,
                             self.torch_dtype)
+        if self.route == 'pencil':
+            return pfft.c2r_pencil(self.procmesh, value, self.Nmesh,
+                                   self.torch_dtype)
         return _fft.c2r(value, self.Nmesh, self.torch_dtype)
 
     def create_coords(self, field_type, return_indices=False):
         """Broadcastable coordinate tensors: positions of a real field,
         wavenumbers of a complex one (in the mesh's real dtype, the
         Nyquist index of every axis taken as -N/2), or indices; on a
-        sharded mesh, those of this rank's block."""
+        sharded mesh, those of this rank's block (global indices)."""
         field_type = _field_type(field_type)
         iscomplex = issubclass(field_type, BaseComplexField)
         if iscomplex not in self._coords_cache:
             x, i = [], []
-            shape = self._global_shape(field_type)
-            axis, start, stop = self.local_block(field_type)
+            block = self.local_block(field_type)
             fdtype = 'f8' if self.dtype.itemsize >= 8 else 'f4'
-            for d in range(self.ndim):
+            for d, (lo, hi) in enumerate(block):
                 # this rank's block of the global coordinates
-                lo, hi = (start, stop) if d == axis else (0, shape[d])
                 t = [1] * self.ndim
                 t[d] = hi - lo
                 ind = np.arange(lo, hi)
@@ -1024,20 +1090,29 @@ class ParticleMesh(object):
         return coord.to(_torch_dtype(dtype))
 
     def _mesh_points(self):
-        """the (n, ndim) int64 indices of this rank's block of the real
-        mesh's points, C order (the whole mesh on one device)"""
-        _, start, stop = self.local_block(RealField)
-        axes = [torch.arange(start, stop, device=self.device)] + [
-            torch.arange(int(n), device=self.device) for n in self.Nmesh[1:]]
-        grids = torch.meshgrid(*axes, indexing='ij')
-        return torch.stack([g.reshape(-1) for g in grids], dim=-1)
+        """the (n, ndim) int64 indices of this rank's block of the mesh's
+        points in C order: block b, [b nl, (b + 1) nl) with nl =
+        ceil(npoints / P), as every particle array is held (the whole
+        mesh on one device; a slab's own points on an even slab mesh)"""
+        total = int(np.prod(self.Nmesh))
+        lo, hi = 0, total
+        if self.sharded:
+            nl = -(-total // self.procmesh.size)
+            lo = min(self.procmesh.rank * nl, total)
+            hi = min(lo + nl, total)
+        flat = torch.arange(lo, hi, device=self.device)
+        cols = []
+        for n in self.Nmesh[::-1]:
+            cols.append(torch.remainder(flat, int(n)))
+            flat = torch.div(flat, int(n), rounding_mode='floor')
+        return torch.stack(cols[::-1], dim=-1)
 
     def generate_uniform_particle_grid(self, shift=0.5, dtype=None,
                                        return_id=False):
         """One particle per mesh point at (i + shift) * BoxSize / Nmesh
         (formed in f8, then cast to ``dtype``); with ``return_id`` also
-        the C-order id of each (int64).  On a sharded mesh, the points
-        of this rank's slab: block b of the global grid."""
+        the C-order id of each (int64).  On a sharded mesh, block b of
+        the grid's points in C order (``_mesh_points``)."""
         if dtype is None:
             dtype = self.dtype
         shift = torch.as_tensor(np.broadcast_to(shift, self.ndim).copy(),
@@ -1058,60 +1133,92 @@ class ParticleMesh(object):
                   capacity=None):
         """The domain plan of ``pos``: on one device the trivial
         single-domain Layout, whose exchange and gather are identities;
-        on a sharded mesh the slab ghost plan of this rank's block of
-        particles (``parallel/exchange.decompose``, in the frame of
-        ``transform``, with its ``kside`` and ``capacity``)."""
+        on a slab mesh the slab ghost plan of this rank's block of
+        particles (``parallel/exchange.decompose``), on a pencil mesh the
+        2-d one (``parallel/exchange2d.decompose2d``, ``kside`` a pair),
+        in the frame of ``transform``, with its ``kside`` and
+        ``capacity``.  On the replicated route the trivial Layout, with
+        the JAX package's RuntimeWarning."""
         if smoothing is None:
             smoothing = self.resampler
         try:
             smoothing = FindResampler(smoothing).support * 0.5
         except TypeError:
             pass
-        if self.sharded:
+        if transform is None:
+            transform = self.affine
+        if self.route == 'slab':
             from .parallel import exchange
-            if transform is None:
-                transform = self.affine
             return exchange.decompose(
-                self.procmesh, self._grid0(pos, transform),
+                self.procmesh, self._grid(pos, transform, 0),
                 int(self.Nmesh[0]), float(smoothing), kside=kside,
                 capacity=capacity)
+        if self.route == 'pencil':
+            from .parallel import exchange2d
+            return exchange2d.decompose2d(
+                self.procmesh, self._grid(pos, transform, 0),
+                self._grid(pos, transform, 1), int(self.Nmesh[0]),
+                int(self.Nmesh[1]), float(smoothing), ksides=kside,
+                capacity=capacity)
+        if self.route == 'replicated':
+            import warnings
+            warnings.warn(
+                "pm.decompose: no sharded particle plan for this geometry "
+                "(procmesh %s, Nmesh %s) -- every rank holds the whole mesh, "
+                "paints its own particles and sums the meshes over the "
+                "ranks; use a mesh whose extents divide the process grid"
+                % (self.procmesh.grid, tuple(int(n) for n in self.Nmesh)),
+                RuntimeWarning, stacklevel=2)
         return Layout(smoothing=smoothing, npart=len(pos))
 
     @staticmethod
-    def _grid0(pos, transform):
-        """the axis-0 grid coordinate of ``pos`` under ``transform``, in
+    def _grid(pos, transform, d):
+        """the axis-d grid coordinate of ``pos`` under ``transform``, in
         the positions' dtype"""
         pos = torch.as_tensor(pos)
-        return pos[:, 0] * torch.as_tensor(float(transform.scale[0]),
+        return pos[:, d] * torch.as_tensor(float(transform.scale[d]),
                                            dtype=pos.dtype) \
-            + torch.as_tensor(float(transform.translate[0]), dtype=pos.dtype)
+            + torch.as_tensor(float(transform.translate[d]), dtype=pos.dtype)
 
     def reshard_particles(self, pos, *arrays):
         """Re-sort this rank's particle arrays (``pos`` and ``arrays``,
-        rows aligned) into equal-count blocks in x-plane order over the
-        ranks, as ``decompose``'s residency wants
-        (``parallel/exchange.reshard``):
-        returns the new blocks, ``pos`` first.  On one device, the
-        arguments."""
-        if not self.sharded:
+        rows aligned) into equal-count blocks over the ranks, as
+        ``decompose``'s residency wants: in x-plane order on a slab mesh
+        (``parallel/exchange.reshard``), in home-pencil order on a pencil
+        mesh (``parallel/exchange2d.reshard2d``).  Returns the new
+        blocks, ``pos`` first.  On one device and on the replicated
+        route, the arguments."""
+        if not self.blocked:
             return (pos,) + tuple(arrays) if arrays else pos
-        from .parallel import exchange
         pos = torch.as_tensor(pos)
-        return exchange.reshard(self.procmesh, self._grid0(pos, self.affine),
-                                int(self.Nmesh[0]), pos, *arrays)
+        return self._reshard(pos, self.affine, pos, *arrays)
+
+    def _reshard(self, pos, transform, *arrays):
+        """``arrays`` resharded by the grid coordinates of ``pos`` under
+        ``transform`` (the route's reshard)"""
+        if self.route == 'slab':
+            from .parallel import exchange
+            out = exchange.reshard(self.procmesh,
+                                   self._grid(pos, transform, 0),
+                                   int(self.Nmesh[0]), *arrays)
+        else:
+            from .parallel import exchange2d
+            out = exchange2d.reshard2d(
+                self.procmesh, self._grid(pos, transform, 0),
+                self._grid(pos, transform, 1), int(self.Nmesh[0]),
+                int(self.Nmesh[1]), *arrays)
+        return out
 
     def _unplanned(self, pos, smoothing, transform, *arrays):
         """a copy of this rank's particles resharded and decomposed, for a
         paint or readout given no plan: (layout, pos, arrays, (source
         rank, source row) of each row)"""
-        from .parallel import exchange
         pos = torch.as_tensor(pos)
         n = pos.shape[0]
         src = torch.full((n,), self.procmesh.rank, dtype=torch.int64,
                          device=pos.device)
         row = torch.arange(n, device=pos.device)
-        out = exchange.reshard(self.procmesh, self._grid0(pos, transform),
-                               int(self.Nmesh[0]), pos, src, row, *arrays)
+        out = self._reshard(pos, transform, pos, src, row, *arrays)
         pos, src, row, arrays = out[0], out[1], out[2], out[3:]
         layout = self.decompose(pos, smoothing=smoothing,
                                 transform=transform, capacity='auto')
@@ -1131,12 +1238,22 @@ class ParticleMesh(object):
         return resampler.window.support_float * 0.5 * float(hsml_max), \
             hsml_max
 
+    def _sharded_ops(self):
+        """(plan type, sharded paint, sharded readout) of the route"""
+        if self.route == 'slab':
+            from .parallel import exchange as ex
+            return ex.ShardedLayout, ex.paint_sharded, ex.readout_sharded
+        from .parallel import exchange2d as ex2
+        return (ex2.ShardedLayout2D, ex2.paint_sharded2d,
+                ex2.readout_sharded2d)
+
     def _readout_sharded(self, value, pos, hsml, resampler, transform,
                          gradient, layout, hsml_max):
-        """RealField.readout on a sharded mesh (its docstring)"""
+        """RealField.readout on a slab or pencil mesh (its docstring)"""
         from .parallel import exchange
-        if isinstance(layout, exchange.ShardedLayout):
-            return exchange.readout_sharded(
+        plan, _, readout = self._sharded_ops()
+        if isinstance(layout, plan):
+            return readout(
                 layout, value, pos, transform.scale, resampler.window,
                 diffdir=gradient, hsml=hsml, hsml_max=hsml_max,
                 translate=transform.translate)
@@ -1146,7 +1263,7 @@ class ParticleMesh(object):
         extra = () if hsml is None else (torch.as_tensor(hsml),)
         layout, p, extra, (src, row) = self._unplanned(
             pos, smoothing, transform, *extra)
-        vals = exchange.readout_sharded(
+        vals = readout(
             layout, value, p, transform.scale, resampler.window,
             diffdir=gradient, hsml=extra[0] if extra else None,
             hsml_max=hsml_max, translate=transform.translate)
@@ -1154,9 +1271,11 @@ class ParticleMesh(object):
 
     def _paint_sharded(self, pos, hsml, mass, resampler, transform, base,
                        gradient, layout, hsml_max):
-        """ParticleMesh.paint on a sharded mesh: this rank's slab"""
+        """ParticleMesh.paint on a slab or pencil mesh: this rank's
+        block"""
         from .parallel import exchange
-        if not isinstance(layout, exchange.ShardedLayout):
+        plan, paint, _ = self._sharded_ops()
+        if not isinstance(layout, plan):
             exchange._no_grad("ParticleMesh.paint", pos, mass, hsml)
             smoothing, hsml_max = self._hsml_reach(resampler, hsml,
                                                    hsml_max)
@@ -1173,10 +1292,11 @@ class ParticleMesh(object):
                 mass = extra.pop(0)
             if hsml is not None:
                 hsml = extra.pop(0)
-        return exchange.paint_sharded(
+        return paint(
             layout, pos, mass, tuple(int(n) for n in self.Nmesh),
             transform.scale, resampler.window, diffdir=gradient,
-            dtype=self.torch_dtype, base=base, hsml=hsml, hsml_max=hsml_max,
+            dtype=torch.empty((), dtype=self.torch_dtype).real.dtype,
+            base=base, hsml=hsml, hsml_max=hsml_max,
             translate=transform.translate)
 
     def paint(self, pos, hsml=None, mass=1.0, resampler=None, transform=None,
@@ -1188,38 +1308,50 @@ class ParticleMesh(object):
         support; ``gradient`` = d paints with the derivative window.
 
         On a sharded mesh ``pos`` (and an array ``mass`` or ``hsml``) is
-        this rank's block of particles and the field this rank's slab:
-        with a ``ShardedLayout`` each rank paints its slab from the
-        images; without one the particles are resharded and decomposed
-        first."""
+        this rank's block of particles and the field this rank's block:
+        with a ``ShardedLayout`` (``ShardedLayout2D``) each rank paints
+        its slab (pencil) from the images; without one the particles are
+        resharded and decomposed first.  On the replicated route each
+        rank paints its own particles into the whole mesh, and the meshes
+        are summed over the ranks."""
         if transform is None:
             transform = self.affine
         resampler = FindResampler(self.resampler if resampler is None
                                   else resampler)
-        if self.sharded:
-            if out is None:
-                out = self.create(type=RealField)
+        if out is None:
+            out = self.create(type=RealField)
+        base = out.value if hold else None
+        if base is not None and self._is_c2c:
+            base = base.real
+        if self.blocked:
             painted = self._paint_sharded(
-                pos, hsml, mass, resampler, transform,
-                out.value if hold else None, gradient, layout, hsml_max)
+                pos, hsml, mass, resampler, transform, base, gradient,
+                layout, hsml_max)
             out.value = painted.to(out.dtype)
             return out
         if layout is not None:
             pos = layout.exchange(pos)
             mass = layout.exchange_scalar(mass)
             hsml = layout.exchange_scalar(hsml)
-        if out is None:
-            out = self.create(type=RealField)
-        base = out.value if hold else torch.zeros_like(out.value)
-        if self._is_c2c:
-            base = base.real
-        painted = _paint_ops.paint(base, pos, mass=mass,
+        replicated = self.route == 'replicated'
+        zeros = torch.zeros_like(out.value.real if self._is_c2c
+                                 else out.value)
+        if replicated:
+            from .parallel import exchange
+            from .parallel.comm import all_reduce
+            exchange._no_grad("ParticleMesh.paint", pos, mass, hsml, base)
+        painted = _paint_ops.paint(zeros if base is None or replicated
+                                   else base, pos, mass=mass,
                                    window=resampler.window,
                                    scale=transform.scale,
                                    translate=transform.translate,
                                    period=transform.period,
                                    diffdir=gradient, hsml=hsml,
                                    hsml_max=hsml_max)
+        if replicated:
+            painted = all_reduce(painted, self.procmesh, 'sum')
+            if base is not None:
+                painted = painted + base
         out.value = painted.to(out.dtype)
         return out
 
@@ -1312,15 +1444,13 @@ class ParticleMesh(object):
         type = _field_type(type)
         complex_type = (UntransposedComplexField
                         if issubclass(type, RealField) else type)
-        if self.sharded:
-            # each rank fills only its own y columns of the transposed
+        start = None
+        if self.blocked:
+            # each rank fills only its own block of the transposed
             # spectrum; a real field is their c2r
             complex_type = TransposedComplexField \
                 if complex_type is UntransposedComplexField else complex_type
-            _, start, _ = self.local_block(complex_type)
-            start = (0, start) + (0,) * (self.ndim - 2)
-        else:
-            start = None
+            start = tuple(lo for lo, _ in self.local_block(complex_type))
         shape, dtype = self._shape_dtype(complex_type)
         value = whitenoise.generate(
             tuple(int(n) for n in self.Nmesh), shape, seed, bool(unitary),

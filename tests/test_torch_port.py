@@ -54,6 +54,7 @@ def test_imports_without_jax():
         "import pmesh_tpu_torch.parallel.launch\n"
         "import pmesh_tpu_torch.parallel.domain\n"
         "import pmesh_tpu_torch.parallel.exchange\n"
+        "import pmesh_tpu_torch.parallel.exchange2d\n"
         "import pmesh_tpu_torch.parallel.coarray\n"
         "import pmesh_tpu_torch.ops.paint, pmesh_tpu_torch.ops.power\n"
         "import pmesh_tpu_torch.whitenoise, pmesh_tpu_torch.invariant\n"
@@ -71,7 +72,7 @@ def test_imports_without_jax():
         "import pmesh_tpu_torch.legacy.transfer\n"
         "import pmesh_tpu_torch.legacy.particlemesh\n"
         "sys.path.insert(0, 'tests')\n"
-        "import torch_sharded_cases\n"
+        "import torch_sharded_cases, torch_geometry_cases\n"
         "assert not [m for m in sys.modules if m.startswith('jax') and\n"
         "            sys.modules[m] is not None]\n"
         "assert 'pmesh_tpu' not in sys.modules\n")
@@ -260,7 +261,7 @@ def test_convert_and_device_checks():
         convert.field_from_numpy(pm, np.zeros((4, 4, 4)))
     with pytest.raises(ValueError, match='lies on'):
         pm.create(type='real', value=torch.zeros((4, 4, 8), device='meta'))
-    with pytest.raises(NotImplementedError, match='queue 1, item 8'):
+    with pytest.raises(TypeError, match='ProcessMesh'):
         ParticleMesh([4, 4, 4], procmesh=object(), device='cpu')
     with pytest.raises(ValueError, match='c16 or c8'):
         ParticleMesh([4, 4, 4], dtype='i4', device='cpu')

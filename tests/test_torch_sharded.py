@@ -265,8 +265,11 @@ def test_process_mesh_rules():
     pm = ProcessMesh(device='cpu')
     assert (pm.size, pm.rank, pm.grid, pm.backend) == (1, 0, (1,), None)
     assert pm == ProcessMesh(device='cpu') and not pm.staged
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    # a 2-d grid needs npx * npy ranks; one rank makes only the (1, 1)
+    with pytest.raises(ValueError, match=r"npx\*npy"):
         ProcessMesh(shape=(2, 2), device='cpu')
+    one = ProcessMesh(shape=(1, 1), device='cpu')
+    assert (one.grid, one.coords, one.is2d) == ((1, 1), (0, 0), True)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ProcessMesh()
@@ -560,7 +563,8 @@ def test_nbody_lattice_poisons_every_rank():
 
 
 def test_sharded_meshes_refuse_what_is_not_ported():
-    """an uneven mesh and reverse mode raise on every rank"""
+    """the lattice path on an uneven mesh (ROADMAP item 8e) and reverse
+    mode raise on every rank"""
     out = launch.spawn(CASES + ':refusals', 2, 'gloo', 'cpu')
     assert out[0] == out[1] == ['uneven', 'grad']
 

@@ -797,10 +797,11 @@ def test_reductions_and_power_match(port, jpm):
 # --- what stays refused, and CoArray -----------------------------------------
 
 def test_refusals(port):
-    """2-d grids, uneven and c2c meshes (item 8a), gradients through the
-    exchange and the sharded paint and readout (8c), global item access
-    and reshaping (8d), each a NotImplementedError naming its item; a
-    window past the ghost reach, a ValueError"""
+    """the lattice path on uneven and pencil meshes (item 8e; c2c
+    meshes build on the slab route), gradients through the exchange and
+    the sharded paint and readout (8c), global item access and
+    reshaping (8d), each a NotImplementedError naming its item; a window
+    past the ghost reach, a ValueError"""
     for g in port('refusals'):
         assert all(g.values()), g
 

@@ -205,14 +205,20 @@ def nbody_flat(pm, disp, bounds):
 
 
 def refusals(pm):
-    """what a sharded mesh refuses: an x length the ranks do not divide,
-    and reverse mode through the sharded paint"""
+    """what a sharded mesh refuses: the lattice path on an x length the
+    ranks do not divide (ROADMAP item 8e; the mesh itself takes the
+    replicated route), and reverse mode through the sharded paint"""
+    from pmesh_tpu_torch.models.fastpm import Solver
     from pmesh_tpu_torch.pm import ParticleMesh
     out = []
+    uneven = ParticleMesh([2 * pm.size + 1, 4, 4], 1.0, procmesh=pm)
+    disp = tuple(torch.zeros(uneven.create(type='real').shape)
+                 for _ in range(3))
     try:
-        ParticleMesh([2 * pm.size + 1, 4, 4], 1.0, procmesh=pm)
-    except NotImplementedError:
-        out.append('uneven')
+        Solver(uneven).force_lattice(disp, (-1.0, 1.0))
+    except NotImplementedError as e:
+        if 'item 8e' in str(e):
+            out.append('uneven')
     disp = tuple(torch.zeros((2, 4, 4), requires_grad=True)
                  for _ in range(3))
     try:

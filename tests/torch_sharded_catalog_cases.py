@@ -300,7 +300,9 @@ def _raises(fn, exc, match=None):
 
 
 def case_refusals(pm):
-    """what stays refused: 2-d grids and uneven meshes (8a), gradients
+    """what stays refused: the lattice path on the geometries 8a added
+    (uneven slabs, replicated meshes, 2-d pencil grids: item 8e, which
+    the meshes themselves no longer refuse, nor c2c meshes), gradients
     through the exchange (8c), global item access and reshaping (8d),
     and a window deeper than the ghost reach (ValueError)"""
     from pmesh_tpu_torch.parallel.pmesh import ProcessMesh
@@ -312,12 +314,18 @@ def case_refusals(pm):
     rho = pm8.paint(Xb, layout=lay)
     Xg = Xb.clone().requires_grad_(True)
     meshg = rho.value.clone().requires_grad_(True)
-    m8a, m8c, m8d = "item 8a", "item 8c", "item 8d"
+    m8c, m8d, m8e = "item 8c", "item 8d", "item 8e"
+    grid = ProcessMesh(shape=(2, pm.size // 2), device='cpu')
+
+    def lattice(pm8):
+        disp = tuple(torch.zeros(pm8.create(type='real').shape,
+                                 dtype=torch.float64) for _ in range(3))
+        return Solver(pm8).force_lattice(disp, (-1.0, 1.0))
     out = dict(
-        uneven=_raises(lambda: _pm(pm, 2 * pm.size + 2), NotImplementedError,
-                       m8a),
-        pencil=_raises(lambda: ProcessMesh(shape=(2, 2), device='cpu'),
-                       NotImplementedError, m8a),
+        uneven=_raises(lambda: lattice(_pm(pm, 2 * pm.size + 2)),
+                       NotImplementedError, m8e),
+        pencil=_raises(lambda: lattice(_pm(grid, 8)), NotImplementedError,
+                       m8e),
         grad_paint=_raises(lambda: pm8.paint(Xg, layout=lay),
                            NotImplementedError, m8c),
         grad_paint_free=_raises(lambda: pm8.paint(Xg), NotImplementedError,
@@ -339,8 +347,7 @@ def case_refusals(pm):
         start=_raises(lambda: rho.start, NotImplementedError, m8d),
         untransposed=_raises(lambda: pm8.create(type='untransposedcomplex'),
                              NotImplementedError, m8d),
-        c2c=_raises(lambda: ParticleMesh([8] * 3, dtype='c16', procmesh=pm),
-                    NotImplementedError, m8a),
+        c2c=ParticleMesh([8] * 3, dtype='c16', procmesh=pm).route == 'slab',
         deep=_raises(lambda: _pm(pm, 8, resampler='lanczos3').decompose(Xb),
                      ValueError, "exceeds the kside"))
     return out
