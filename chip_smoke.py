@@ -198,8 +198,9 @@ catalog path reaches no Pallas kernel) adds phase 14, run after phase
 
 14. RANKS ranks on the card over gloo, staged through the host as in
    phase 9, at phase 11's configuration: Solver.linear_field, lpt and
-   nbody with tune_exchange and rebalance over the 10 KDK steps to
-   a = 1, each rank on block b of the particles and slab b of the
+   nbody with tune_exchange and rebalance over 3 KDK steps to a = 0.4
+   (SHARDED_CAT_STEPS, cut from phase 11's 10 when phase 16 joined),
+   each rank on block b of the particles and slab b of the
    meshes; the sharded gadget and native noise bitwise the
    single-device fills, the 2LPT state and the state after 3 KDK steps,
    gathered to rank 0 by ID, within 1e-4 of max of phase 11's
@@ -207,7 +208,7 @@ catalog path reaches no Pallas kernel) adds phase 14, run after phase
    1e-4 of max|F| of the single-device force on the same particles; at
    the end finite, on the card, mass conserved to 1e-5 and the three
    lowest k bins of the final over the initial density within 5 % of
-   (D1(1)/D1(0.1))^2; kside, capacity, the ghosts and the load per rank,
+   (D1(0.4)/D1(0.1))^2; kside, capacity, the ghosts and the load per rank,
    the rebalances, the bytes staged per force, the ms per KDK step and
    the peak memory per rank printed.
 
@@ -225,6 +226,32 @@ reaches none there) adds phase 15, run after phase 14:
    phase 11's 2LPT state within 1e-4 of max|F| of the one-device force;
    and on 4 ranks of the slab grid a 32^3 c2c round trip and a 32^2
    r2c and c2r, card against CPU, within 1e-10 in f8.
+
+Reverse mode on the sharded routes (ROADMAP item 8c) adds phase 16,
+run after phase 15, on gloo ranks of the one card staged through the
+host as phases 9, 14 and 15 are:
+
+16. (a) phase 4d's loss on 4 slab ranks at 512^3: the sharded 2LPT
+   state of phase 4's linear field, 2 KDK steps of nbody_lattice with
+   fft='mxu' (ct2); the gathered gradient against phase 4d's one-device
+   gradient (saved to disk) by phase 4d's criterion, the launches of
+   the backward alone, summed over the ranks, exactly the x-halo paint
+   and readout and the ct2 transposes' passes counted in advance; one
+   force's gradient with fft='xla' beside fft='mxu'; (b) phase 13(a)'s
+   model on 4 slab ranks and on a (2, 2) pencil grid, in f8: the
+   gradient in the noise within 1e-3 of max|g| of phase 13(a)'s f8
+   gradient, <grad L, v> (and on the slabs one torch.func.jvp) along
+   phase 13(a)'s v within 1e-4 of its f8 values; in f4, the model's
+   dtype, on the slabs the times and the f4 gradient's gap to phase
+   13(a)'s (printed: float32 atomics and CIC cell crossings put the two
+   f4 gradients 1e-3 apart, which the f8 gaps show to be rounding);
+   (c) the f8 32^3 catalog model's gradient on 5 uneven slab ranks and on
+   3 ranks of the replicated route, card against CPU within 1e-8, and
+   force_binned's backward at 128^3 on 4 slab ranks against the CPU as
+   phase 13(c) holds it (1e-4 of max|g|: its kernels are f32), its
+   launches the x-halo kernels' exactly.  Each part prints the ms per
+   KDK step (or per call) forward and forward + backward, the bytes the
+   backward staged per rank and the peak per rank.
 
 The second-to-last line is the kernels' JSON record, the last line
 the device record.
@@ -2383,7 +2410,7 @@ def grad_gap(got, ref, tol, outliers):
                    "ok" if ok else "FAIL", err / scale, (num / den) ** 0.5))
 
 
-def phase_grad(dev, pm, dlinear):
+def phase_grad(dev, pm, dlinear, refdir=None):
     """reverse mode at N^3 from phase 4's LPT state: the gradient of a
     2-step nbody_lattice loss with fft='xla' and fft='mxu', counters
     read around each run; finite, the two within TOL_GRAD of max|g| but
@@ -2439,6 +2466,11 @@ def phase_grad(dev, pm, dlinear):
     log("phase 4d gradient: fft='mxu' against fft='xla', CIC: " + line)
     if not ok:
         raise AssertionError("the mxu and xla gradients disagree")
+    if refdir is not None:
+        # phase 16(a)'s reference: each rank reads its slab
+        for k, x in enumerate(grads['mxu']):
+            np.save(os.path.join(refdir, 'grad4d_%d.npy' % k),
+                    x.cpu().numpy())
     del grads
     # TSC, whose derivative window is continuous: no entry may differ
     tsc = Solver(pm, force_resampler='tsc')
@@ -4615,9 +4647,10 @@ def catalog_grad(solver, power, noise, steps=CAT_GRAD_STEPS):
     return g
 
 
-def phase_reverse_catalog(dev, n=CAT_N, box=CAT_BOX):
+def phase_reverse_catalog(dev, n=CAT_N, box=CAT_BOX, refdir=None):
     """13(a): reverse and forward mode through the catalog model at
-    phase 11's configuration"""
+    phase 11's configuration; the gradient, <grad L, v> and the jvp
+    saved in ``refdir`` for phase 16(b)"""
     solver, power, noise = catalog_setup(dev, n, box)
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     v = torch.randn(noise.shape, generator=gen, device=dev,
@@ -4629,10 +4662,15 @@ def phase_reverse_catalog(dev, n=CAT_N, box=CAT_BOX):
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     finite = bool(torch.isfinite(g).all())
     dir_rev = float((g.double() * v.double()).sum())
+    if refdir is not None:
+        np.save(os.path.join(refdir, 'cat_grad.npy'), g.cpu().numpy())
     del g
     _, dir_fwd = torch.func.jvp(
         lambda y: catalog_loss(solver, power, y), (noise,), (v,))
     dir_fwd = float(dir_fwd)
+    if refdir is not None:
+        np.save(os.path.join(refdir, 'cat_dir.npy'),
+                np.array([dir_rev, dir_fwd]))
     # the same function in f8 at full width, central difference along v
     solver8, power8, noise8 = catalog_setup(dev, n, box, 'f8')
     v8 = v.double()
@@ -4640,6 +4678,17 @@ def phase_reverse_catalog(dev, n=CAT_N, box=CAT_BOX):
         lp = float(catalog_loss(solver8, power8, noise8 + FD_EPS * v8))
         lm = float(catalog_loss(solver8, power8, noise8 - FD_EPS * v8))
     dir_fd = (lp - lm) / (2 * FD_EPS)
+    if refdir is not None:
+        # phase 16(b)'s f8 references: the gradient and the jvp
+        g8 = catalog_grad(solver8, power8, noise8)
+        np.save(os.path.join(refdir, 'cat_grad8.npy'), g8.cpu().numpy())
+        dir8 = float((g8 * v8).sum())
+        del g8
+        _, jv8 = torch.func.jvp(
+            lambda y: catalog_loss(solver8, power8, y), (noise8,), (v8,))
+        np.save(os.path.join(refdir, 'cat_dir8.npy'),
+                np.array([dir8, float(jv8)]))
+        del jv8
     del solver8, power8, noise8, v8
     gap_fwd = abs(dir_rev - dir_fwd) / abs(dir_fwd)
     gap_fd = abs(dir_rev - dir_fd) / abs(dir_fd)
@@ -4867,6 +4916,11 @@ def phase_legacy(dev, n=LEGACY_N, npart=LEGACY_NPART, nl=LANCZOS_N):
 # state after CAT_REF_STEP KDK steps, in ID order) reach the ranks as .npy
 # files; rank 0 gathers the sharded states by ID and compares.
 CAT_REF_STEP = 3
+# phases 14 and 15 (a), (b): the first CAT_REF_STEP of phase 11's KDK
+# steps (a = 0.1 to 0.4; cut from all 10 when phase 16 joined, to keep
+# the script within its time); the state check after CAT_REF_STEP steps
+# and the growth check still hold
+SHARDED_CAT_STEPS = CAT_STEPS[:CAT_REF_STEP + 1]
 CAT_REBALANCE = 1.0         # reshard whenever the load is uneven at all
 TOL_CAT_SHARDED = 1e-4      # sharded vs one device, of max|ref|
 
@@ -5091,7 +5145,8 @@ def card_catalog(pm, refdir, steps=CAT_STEPS):
     return rec
 
 
-def run_sharded_catalog(dev, ref, world, shape=None, steps=CAT_STEPS):
+def run_sharded_catalog(dev, ref, world, shape=None,
+                        steps=SHARDED_CAT_STEPS):
     """card_catalog on ``world`` ranks of the card (a 2-d grid of
     ``shape``, or the slab grid): (the ranks' records, the job's
     seconds)"""
@@ -5172,7 +5227,8 @@ def report_sharded_catalog(phase, out, wall):
 def phase_sharded_catalog(dev, ref):
     """RANKS ranks on the card at phase 11's catalog configuration (256^3
     particles, a 512^3 CIC force mesh, f4, gadget noise of SEED, 2LPT at
-    a = 0.1, 10 KDK steps to a = 1): the sharded noise bitwise the
+    a = 0.1, the SHARDED_CAT_STEPS: 3 KDK steps to a = 0.4, cut from
+    phase 11's 10): the sharded noise bitwise the
     single-device fill, the sharded 2LPT state and the state after
     CAT_REF_STEP KDK steps by ID against phase 11's within 1e-4, one
     force on the sharded 2LPT state against the single-device force on
@@ -5324,6 +5380,475 @@ def phase_geometries(dev, ref):
             k for k, v in ok.items() if not v))
 
 
+# --- phase 16: reverse mode on the sharded routes ---------------------------
+
+REV_SMALL = 32              # (c) the catalog model at 32^3, f8
+REV_BINNED = 128            # (c) force_binned at 128^3, K = BINNED_GRAD_K
+REV_UNEVEN_RANKS = 5        # 32 over 5: 7-row slabs reaching the seam
+REV_REPLICATED_RANKS = 3    # 32 over 3: the replicated route
+TOL_REV_CAT = 1e-3          # (b) sharded against one device, of max|g|
+TOL_REV_DIR = 1e-4          # (b) <grad L, v> and the jvp, relative
+TOL_REV_SMALL = 1e-8        # (c) f8 card against the CPU, of max|g|
+
+
+def rev_need(forces):
+    """(a)'s backward launches summed over the ranks: per force the
+    x-halo paint and readout backwards of GRAD_LATTICE and the ct2
+    transposes of GRAD_MXU (only=d), on every rank"""
+    need = {k + "_xhalo": RANKS * forces * b
+            for k, (f, b) in GRAD_LATTICE.items()}
+    need.update((k, RANKS * forces * b) for k, (f, b) in GRAD_MXU.items()
+                if b)
+    return need
+
+
+def dist_gap(got, ref, tol, outliers, held=True):
+    """grad_gap over the ranks' blocks (each rank its own block of
+    ``got`` and ``ref``): every rank returns the same (ok, line); a gap
+    not ``held`` is described without a verdict"""
+    import torch.distributed as dist
+    num = sum(float(((g - r).double() ** 2).sum()) for g, r in zip(got, ref))
+    den = sum(float((r.double() ** 2).sum()) for r in ref)
+    size = sum(r.numel() for r in ref)
+    sums = torch.tensor([num, den, float(size)], dtype=torch.float64)
+    dist.all_reduce(sums)
+    tops = torch.tensor([max(float(r.abs().max()) for r in ref),
+                         max(float((g - r).abs().max())
+                             for g, r in zip(got, ref))],
+                        dtype=torch.float64)
+    dist.all_reduce(tops, op=dist.ReduceOp.MAX)
+    num, den, size = float(sums[0]), float(sums[1]), int(sums[2])
+    scale, err = float(tops[0]), float(tops[1])
+    out = torch.tensor([sum(int(((g - r).abs() > tol * scale).sum())
+                            for g, r in zip(got, ref))], dtype=torch.int64)
+    dist.all_reduce(out)
+    out = int(out[0])
+    ok = bool(np.isfinite(num)) and out <= outliers * size
+    verdict = (" (at most %d allowed) %s" % (int(outliers * size),
+                                             "ok" if ok else "FAIL")
+               if held else "")
+    return ok, ("%d of %d entries off by more than %.0e of max|g|%s; "
+                "max|dg|/max|g| = %.3e, |dg|_2/|g|_2 = %.3e"
+                % (out, size, tol, verdict, err / scale, (num / den) ** 0.5))
+
+
+def rank_sum(x):
+    """a float summed over the ranks"""
+    import torch.distributed as dist
+    t = torch.tensor([float(x)], dtype=torch.float64)
+    dist.all_reduce(t)
+    return float(t[0])
+
+
+def synced(pm):
+    """every rank's card idle and every rank here: a point to start or
+    stop a clock"""
+    import torch.distributed as dist
+    torch.cuda.synchronize(pm.device)
+    dist.barrier()
+    return time.perf_counter()
+
+
+def card_reverse_lattice(pm, refdir):
+    """16(a) on each rank: phase 4d's loss (sum(S^2 + 2 V^2) after 2
+    KDK steps of nbody_lattice, fft='mxu') at N^3 from the sharded 2LPT
+    state of phase 4's linear field; its gradient on this rank's slabs
+    against phase 4d's one-device gradient (``refdir``), the launches
+    and the staged bytes of the backward alone, the forward and forward
+    + backward of 1- and 2-step runs; then one force's gradient with
+    fft='xla' beside fft='mxu'"""
+    from pmesh_tpu_torch import ComplexField, ParticleMesh
+    from pmesh_tpu_torch import convert
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.parallel.comm import STAGED_BYTES
+    dev = pm.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    pm1 = ParticleMesh([N] * 3, BOX, dtype='f4', device=dev)
+    dl1 = linear_field(pm1, gen)
+    solver = Solver(ParticleMesh([N] * 3, BOX, dtype='f4', procmesh=pm))
+    dk = solver.pm.create(type=ComplexField, value=convert.to_slabs(
+        dl1.value, pm, axis=1))
+    del dl1, pm1
+    state = sum(solver.lpt_lattice(dk, A0, order=2), ())
+    del dk
+    torch.cuda.empty_cache()
+    rows = N // pm.size
+    rec = {}
+    leaves = [t.detach().clone().requires_grad_() for t in state]
+    t0 = synced(pm)
+    reset_counters()
+    S, V = solver.nbody_lattice(leaves[:3], leaves[3:], GRAD_STEPS, BOUNDS,
+                                fft='mxu')
+    loss = sum((s * s).sum() + 2 * (v * v).sum() for s, v in zip(S, V))
+    del S, V
+    t1 = synced(pm)
+    reset_counters()
+    g = torch.autograd.grad(loss, leaves)
+    t2 = synced(pm)
+    rec['launches'] = {k: v for k, v in counters().items() if v}
+    rec['staged'] = dict(STAGED_BYTES)
+    rec['peak_gb'] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    rec['f2'], rec['b2'] = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    del loss, leaves
+    ref = [torch.from_numpy(np.array(np.load(
+        os.path.join(refdir, 'grad4d_%d.npy' % k), mmap_mode='r')[
+            pm.rank * rows:(pm.rank + 1) * rows])).to(dev) for k in range(6)]
+    rec['finite'] = all(bool(torch.isfinite(x).all()) for x in g)
+    rec['gap'] = dist_gap(g, ref, TOL_GRAD, GRAD_OUTLIERS)
+    del g, ref
+    torch.cuda.empty_cache()
+    # the 1-step run, forward and backward
+    leaves = [t.detach().clone().requires_grad_() for t in state]
+    t0 = synced(pm)
+    S, V = solver.nbody_lattice(leaves[:3], leaves[3:], GRAD_STEPS[:2],
+                                BOUNDS, fft='mxu')
+    loss = sum((s * s).sum() + 2 * (v * v).sum() for s, v in zip(S, V))
+    del S, V
+    t1 = synced(pm)
+    torch.autograd.grad(loss, leaves)
+    t2 = synced(pm)
+    rec['f1'], rec['b1'] = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    del loss, leaves
+    torch.cuda.empty_cache()
+    # one force's gradient, fft='xla' beside fft='mxu'
+    fg = {}
+    for fft in ('mxu', 'xla'):
+        d = [t.detach().clone().requires_grad_() for t in state[:3]]
+        t0 = synced(pm)
+        F = solver.force_lattice(d, BOUNDS, fft=fft)
+        fg[fft] = torch.autograd.grad(sum((f * f).sum() for f in F), d)
+        rec['force_ms_' + fft] = (synced(pm) - t0) * 1e3
+        del F, d
+    rec['force_gap'] = dist_gap(fg['xla'], fg['mxu'], TOL_GRAD,
+                                GRAD_OUTLIERS)
+    return rec
+
+
+def card_reverse_catalog(pm, refdir):
+    """16(b) on each rank: phase 13(a)'s model (the gadget noise of SEED,
+    2LPT and 2 KDK steps of Solver.nbody, the paint on the 512^3 B = 2
+    mesh) on the job's 4 slab ranks, then on the (2, 2) pencil grid of
+    the same ranks.  In f8 on both: the gradient of sum (rho - 1)^2 in
+    this rank's block of the noise against phase 13(a)'s one-device f8
+    gradient and <grad L, v> against its value (and on the slabs one
+    torch.func.jvp along v against phase 13(a)'s f8 jvp).  In f4, the
+    model's own dtype, on the slabs: the gradient's gap to phase 13(a)'s
+    f4 gradient, the backward's staged bytes and the peak, and the
+    forward and forward + backward times of 1- and 2-step runs.  Then
+    16(c)'s force_binned backward at REV_BINNED^3 on the slabs."""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.cosmology import Planck15
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.models.powerspectrum import EHPower
+    from pmesh_tpu_torch.parallel.comm import STAGED_BYTES
+    from pmesh_tpu_torch.parallel.pmesh import ProcessMesh
+    dev = pm.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    v_all = torch.randn((CAT_N,) * 3, generator=gen, device=dev,
+                        dtype=torch.float32)
+    power = EHPower(Planck15)
+    out = {}
+
+    def setup(mesh, dtype):
+        pm8 = ParticleMesh([CAT_N] * 3, BoxSize=CAT_BOX, dtype=dtype,
+                           resampler='cic', procmesh=mesh)
+        sl = tuple(slice(a, b) for a, b in pm8.local_block('real'))
+        noise = pm8.generate_whitenoise(SEED, type='real',
+                                        compat='gadget').value
+        return (Solver(pm8, Planck15, B=CAT_B), sl, noise,
+                v_all[sl].to(noise.dtype))
+
+    def gradient(mesh, solver, sl, noise, v, ref, held=True):
+        """the gradient run: its ms, staged bytes and peak, and its gap
+        to ``ref`` by dist_gap at TOL_REV_CAT; <grad L, v>"""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        x = noise.detach().clone().requires_grad_()
+        t0 = synced(mesh)
+        loss = catalog_loss(solver, power, x)
+        reset_counters()
+        g, = torch.autograd.grad(loss, x)
+        rec = dict(ms=(synced(mesh) - t0) * 1e3, staged=dict(STAGED_BYTES),
+                   peak_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                   finite=bool(torch.isfinite(g).all()),
+                   route=(solver.pm.route, solver.fpm.route))
+        r = torch.from_numpy(np.array(np.load(ref, mmap_mode='r')[sl])).to(
+            dev)
+        rec['gap'] = dist_gap((g,), (r,), TOL_REV_CAT, 0, held)
+        rec['dir'] = rank_sum((g.double() * v.double()).sum())
+        return rec
+
+    for name, mesh in (('slab', pm), ('pencil', ProcessMesh(
+            shape=PENCIL_GRID, device=dev))):
+        solver, sl, noise, v = setup(mesh, 'f8')
+        rec = gradient(mesh, solver, sl, noise, v,
+                       os.path.join(refdir, 'cat_grad8.npy'))
+        if name == 'slab':
+            t0 = synced(mesh)
+            _, jv = torch.func.jvp(lambda y: catalog_loss(solver, power, y),
+                                   (noise,), (v,))
+            rec['jvp'] = rank_sum(jv)
+            rec['jvp_ms'] = (synced(mesh) - t0) * 1e3
+            del solver, noise, v
+            # the model's own dtype: the times, the bytes and the peak
+            solver, sl, noise, v = setup(mesh, 'f4')
+            rec['f4'] = gradient(mesh, solver, sl, noise, v,
+                                 os.path.join(refdir, 'cat_grad.npy'),
+                                 held=False)
+            for nst in (1, 2):
+                steps = CAT_GRAD_STEPS[:nst + 1]
+                t0 = synced(mesh)
+                with torch.no_grad():
+                    catalog_loss(solver, power, noise, steps)
+                rec['f%d' % nst] = (synced(mesh) - t0) * 1e3
+            x = noise.detach().clone().requires_grad_()
+            t0 = synced(mesh)
+            torch.autograd.grad(catalog_loss(solver, power, x,
+                                             CAT_GRAD_STEPS[:2]), x)
+            rec['b1'] = (synced(mesh) - t0) * 1e3
+            del x
+        out[name] = rec
+        del solver, noise, v
+    out['dirs'] = dict(f8=np.load(os.path.join(refdir, 'cat_dir8.npy'))
+                       .tolist(),
+                       f4=np.load(os.path.join(refdir, 'cat_dir.npy'))
+                       .tolist())
+    torch.cuda.empty_cache()
+    out['binned'] = card_reverse_binned(pm)
+    return out
+
+
+def card_reverse_binned(pm):
+    """16(c) on each rank: force_binned (spectral, fft='xla') at
+    REV_BINNED^3, K = BINNED_GRAD_K, under autograd on this rank's slabs:
+    the backward's launches (the x-halo lattice kernels only), its staged
+    bytes and ms; rank 0 holds the gathered gradient against the
+    one-device CPU gradient of the same state"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import binned as bn
+    from pmesh_tpu_torch.parallel.comm import STAGED_BYTES
+    dev = pm.device
+    n = REV_BINNED
+    rng = np.random.RandomState(SEED + 16)
+    disp = [(0.05 + 0.9 * rng.uniform(size=(n,) * 3)).astype('f4')
+            for _ in range(3)]
+    rows = n // pm.size
+    lo = pm.rank * rows
+    rec = {}
+
+    def grads(solver, device, cut):
+        d = tuple(torch.from_numpy(np.ascontiguousarray(cut(x))).to(device)
+                  for x in disp)
+        dslots, valid = bn.from_lattice(d, nslots=BINNED_GRAD_K)
+        return binned_grad_run(solver, dslots, valid, (-0.5, 1.5), 'xla')
+    solver = Solver(ParticleMesh([n] * 3, BoxSize=float(n), dtype='f4',
+                                 resampler='cic', procmesh=pm))
+    t0 = synced(pm)
+    reset_counters()
+    g = grads(solver, dev, lambda x: x[lo:lo + rows])
+    rec['ms'] = (synced(pm) - t0) * 1e3
+    rec['launches'] = {k: v for k, v in counters().items() if v}
+    rec['staged'] = dict(STAGED_BYTES)
+    got = [gather_rows(pm, x.reshape(rows, -1)) for x in g]
+    if pm.rank == 0:
+        one = Solver(ParticleMesh([n] * 3, BoxSize=float(n), dtype='f4',
+                                  resampler='cic', device='cpu'))
+        ref = grads(one, 'cpu', lambda x: x)
+        rec['gap'] = grad_gap([x.cpu().reshape(r.shape) for x, r
+                               in zip(got, ref)], ref, TOL_SMALL,
+                              GRAD_OUTLIERS)
+    return rec
+
+
+def card_reverse_small(pm):
+    """16(c) on each rank: phase 13(a)'s model at REV_SMALL^3 in f8
+    (B = CAT_B, the gadget noise of SEED) on this job's ranks (5: the
+    uneven slabs, 3: the replicated route); rank 0 holds the gathered
+    gradient against the one-device CPU gradient"""
+    from pmesh_tpu_torch import ParticleMesh, RealField
+    from pmesh_tpu_torch.models.cosmology import Planck15
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.models.powerspectrum import EHPower
+    from pmesh_tpu_torch.parallel.comm import STAGED_BYTES
+    n, box = REV_SMALL, 2.0 * REV_SMALL
+    torch.cuda.reset_peak_memory_stats(pm.device)
+    pm8 = ParticleMesh([n] * 3, BoxSize=box, dtype='f8', resampler='cic',
+                       procmesh=pm)
+    solver = Solver(pm8, Planck15, B=CAT_B)
+    power = EHPower(Planck15)
+    x = pm8.generate_whitenoise(SEED, type='real',
+                                compat='gadget').value.requires_grad_()
+    t0 = synced(pm)
+    reset_counters()
+    g, = torch.autograd.grad(catalog_loss(solver, power, x), x)
+    rec = dict(ms=(synced(pm) - t0) * 1e3, staged=dict(STAGED_BYTES),
+               route=(pm8.route, solver.fpm.route),
+               on_cuda=g.device.type == 'cuda',
+               peak_gb=torch.cuda.max_memory_allocated(pm.device) / 2 ** 30)
+    whole = gather_field(pm8.create(type=RealField, value=g))
+    if pm.rank == 0:
+        one, pw, white = catalog_setup('cpu', n, box, 'f8')
+        ref = catalog_grad(one, pw, white)
+        rec['gap'] = rel_ref(whole.cpu(), ref)
+    return rec
+
+
+def phase_sharded_reverse(dev, refdir):
+    """phase 16 (see the module docstring): (a) the lattice gradient on 4
+    slab ranks at N^3 against phase 4d's, its backward's launches exact;
+    (b) the catalog gradient and jvp on 4 slab ranks and a (2, 2) pencil
+    grid against phase 13(a)'s; (c) the f8 32^3 catalog gradient on 5
+    uneven ranks and on 3 replicated ranks and the 128^3 force_binned
+    backward on 4 slab ranks, card against CPU.  ``refdir`` holds the
+    one-device references phases 4d and 13(a) saved."""
+    from pmesh_tpu_torch.native import cuda
+    from pmesh_tpu_torch.parallel import launch
+    for name in ("gridpm", "binned", "fft_mxu"):
+        cuda.load(name)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    fails = []
+    t0 = time.perf_counter()
+    out = launch.spawn('chip_smoke:card_reverse_lattice', RANKS, 'gloo',
+                       dev.type, refdir)
+    wall_a = time.perf_counter() - t0
+    r0 = out[0]
+    forces = len(GRAD_STEPS)
+    launches = {}
+    for r in out:
+        for k, v in r['launches'].items():
+            launches[k] = launches.get(k, 0) + v
+    need = rev_need(forces)
+    ok_gap, line = r0['gap']
+    ok_force, fline = r0['force_gap']
+    exact = launches == need
+    nst = len(GRAD_STEPS) - 1
+    log("phase 16(a) sharded lattice reverse mode on %s: %d slab ranks on "
+        "one card over gloo (staged through the host), %d^3 f32, "
+        "d/d(disp, vel) of sum(S^2 + 2 V^2) after %d KDK steps of "
+        "nbody_lattice(fft='mxu') from the sharded 2LPT state: finite %s; "
+        "against phase 4d's one-device gradient: %s"
+        % (CARD, RANKS, N, nst, all(r['finite'] for r in out), line))
+    log("phase 16(a) backward launches summed over the ranks %s (need "
+        "exactly %s) %s; staged by the backward per rank %s bytes; peak "
+        "per rank %s GB; 2-step run forward %.3f ms + backward %.3f ms, "
+        "1-step %.3f + %.3f ms: per KDK step forward %.3f ms, forward + "
+        "backward %.3f ms; the job took %.3f s"
+        % (json.dumps(launches), json.dumps(need),
+           "ok" if exact else "FAIL",
+           [r['staged']['to_host'] + r['staged']['to_device'] for r in out],
+           " ".join("%.2f" % r['peak_gb'] for r in out), r0['f2'], r0['b2'],
+           r0['f1'], r0['b1'], r0['f2'] - r0['f1'],
+           r0['f2'] + r0['b2'] - r0['f1'] - r0['b1'], wall_a))
+    log("phase 16(a) one force's gradient d/disp sum F^2: fft='xla' "
+        "(%.3f ms forward + backward) against fft='mxu' (%.3f ms): %s"
+        % (r0['force_ms_xla'], r0['force_ms_mxu'], fline))
+    if not (all(r['finite'] for r in out) and ok_gap and exact and ok_force):
+        fails.append('16(a)')
+    del out
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = launch.spawn('chip_smoke:card_reverse_catalog', RANKS, 'gloo',
+                       dev.type, refdir)
+    wall_b = time.perf_counter() - t0
+    (dir8, jvp8), (dir4, _) = out[0]['dirs']['f8'], out[0]['dirs']['f4']
+    for name in ('slab', 'pencil'):
+        rec = out[0][name]
+        ok_gap, line = rec['gap']
+        gdir = abs(rec['dir'] - dir8) / abs(dir8)
+        ok = (all(r[name]['finite'] for r in out) and ok_gap
+              and gdir <= TOL_REV_DIR)
+        more = ""
+        if 'jvp' in rec:
+            gjvp = abs(rec['jvp'] - jvp8) / abs(jvp8)
+            ok = ok and gjvp <= TOL_REV_DIR
+            f4 = rec['f4']
+            more = ("; jvp %.12e against %.12e (gap %.3e, tol %.0e, %.3f "
+                    "ms). In f4: against phase 13(a)'s f4 gradient %s, "
+                    "<grad L, v> %.9e against %.9e (gap %.3e; f4 rounding, "
+                    "which the f8 gaps above bound: not held); per KDK step "
+                    "forward %.3f ms, forward + backward %.3f ms (2-step "
+                    "runs %.3f / %.3f ms, 1-step %.3f / %.3f ms); staged by "
+                    "the f4 backward per rank %s bytes; peak per rank %s GB"
+                    % (rec['jvp'], jvp8, gjvp, TOL_REV_DIR, rec['jvp_ms'],
+                       f4['gap'][1], f4['dir'], dir4,
+                       abs(f4['dir'] - dir4) / abs(dir4),
+                       rec['f2'] - rec['f1'], f4['ms'] - rec['b1'],
+                       rec['f2'], f4['ms'], rec['f1'], rec['b1'],
+                       [r[name]['f4']['staged']['to_host']
+                        + r[name]['f4']['staged']['to_device'] for r in out],
+                       " ".join("%.2f" % r[name]['f4']['peak_gb']
+                                for r in out)))
+        log("phase 16(b) sharded catalog reverse mode on %s, %d ranks, %s "
+            "route (%s), phase 13(a)'s model (%d^3 particles, %d^3 CIC "
+            "mesh, 2LPT + %d KDK steps). In f8: against phase 13(a)'s "
+            "one-device f8 gradient %s; <grad L, v> %.12e against %.12e "
+            "(gap %.3e, tol %.0e); the gradient run %.3f ms, staged by its "
+            "backward per rank %s bytes, peak per rank %s GB%s %s"
+            % (CARD, RANKS, name, "/".join(rec['route']), CAT_N,
+               CAT_N * CAT_B, len(CAT_GRAD_STEPS) - 1, line, rec['dir'],
+               dir8, gdir, TOL_REV_DIR, rec['ms'],
+               [r[name]['staged']['to_host'] + r[name]['staged']['to_device']
+                for r in out],
+               " ".join("%.2f" % r[name]['peak_gb'] for r in out), more,
+               "ok" if ok else "FAIL"))
+        if not ok:
+            fails.append('16(b) ' + name)
+    b = out[0]['binned']
+    blaunch = {}
+    for r in out:
+        for k, v in r['binned']['launches'].items():
+            blaunch[k] = blaunch.get(k, 0) + v
+    bneed = {k + "_xhalo": RANKS * (f + b_)
+             for k, (f, b_) in GRAD_BINNED.items()}
+    ok_b, bline = b['gap']
+    log("phase 16(c) sharded force_binned reverse mode on %s: %d slab ranks, "
+        "%d^3 K=%d, fft='xla', d/d(dslots) of sum over the valid slots of "
+        "F^2, forward + backward %.3f ms, launches summed over the ranks %s "
+        "(need exactly %s), staged per rank %s bytes; card against the "
+        "one-device CPU gradient: %s"
+        % (CARD, RANKS, REV_BINNED, BINNED_GRAD_K, b['ms'],
+           json.dumps(blaunch), json.dumps(bneed),
+           [r['binned']['staged']['to_host']
+            + r['binned']['staged']['to_device'] for r in out], bline))
+    if not (ok_b and blaunch == bneed):
+        fails.append('16(c) binned')
+    log("phase 16(b) the job took %.3f s" % wall_b)
+    del out
+    torch.cuda.empty_cache()
+    # the two small jobs at once: their time is mostly the ranks' start
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [(world, want, pool.submit(
+            launch.spawn, 'chip_smoke:card_reverse_small', world, 'gloo',
+            dev.type)) for world, want in ((REV_UNEVEN_RANKS, 'slab'),
+                                           (REV_REPLICATED_RANKS,
+                                            'replicated'))]
+        results = [(world, want, fut.result()) for world, want, fut in jobs]
+    wall = time.perf_counter() - t0
+    for world, want, out in results:
+        r0 = out[0]
+        ok = (r0['gap'] <= TOL_REV_SMALL and r0['route'] == (want, want)
+              and all(r['on_cuda'] for r in out))
+        log("phase 16(c) small catalog reverse mode on %s: %d ranks, %s "
+            "route, %d^3 f8, B=%d, 2LPT + %d KDK steps: card against the "
+            "one-device CPU gradient max|dg|/max|g| = %.3e (tol %.0e); "
+            "forward + backward %.3f ms; staged per rank %s bytes; peak per "
+            "rank %s GB; both jobs took %.3f s %s"
+            % (CARD, world, "/".join(r0['route']), REV_SMALL, CAT_B,
+               len(CAT_GRAD_STEPS) - 1, r0['gap'], TOL_REV_SMALL, r0['ms'],
+               [r['staged']['to_host'] + r['staged']['to_device']
+                for r in out], " ".join("%.2f" % r['peak_gb'] for r in out),
+               wall, "ok" if ok else "FAIL"))
+        if not ok:
+            fails.append('16(c) %d ranks' % world)
+    if fails:
+        raise AssertionError("phase 16 failed its checks: %s"
+                             % ", ".join(fails))
+
+
 PHASE_TIMES = []
 
 
@@ -5337,6 +5862,18 @@ def timed(phase, *args):
 
 
 def main():
+    import shutil
+    import tempfile
+    refdir = tempfile.mkdtemp(prefix="chip_smoke_rev_")
+    try:
+        return run_phases(refdir)
+    finally:
+        shutil.rmtree(refdir, ignore_errors=True)
+
+
+def run_phases(refdir):
+    """every phase in order; ``refdir`` carries phases 4d's and 13(a)'s
+    one-device gradients to phase 16"""
     start = time.perf_counter()
     timed(phase_device)
     dev = torch.device('cuda', 0)
@@ -5359,7 +5896,7 @@ def main():
     bf16_launches = timed(phase_main_bf16, dev, mxu)
     row13_launches, row13_bf16_launches = timed(phase_row13, dev, pm,
                                                 dlinear)
-    timed(phase_grad, dev, pm, dlinear)
+    timed(phase_grad, dev, pm, dlinear, refdir)
     timed(phase_catalog_lattice, dev, pm, dlinear)
     del pm, dlinear
     catalog = timed(phase_catalog, dev)
@@ -5374,7 +5911,7 @@ def main():
         timed(phase_small, dev, shape, np.asarray(shape, float), 'mxu')
     timed(phase_small_binned, dev)
     timed(phase_catalog_small, dev)
-    timed(phase_reverse_catalog, dev)
+    timed(phase_reverse_catalog, dev, CAT_N, CAT_BOX, refdir)
     timed(phase_reverse_binned, dev)
     timed(phase_small_grad, dev, (CAT_SMALL,) * 3, 2.0 * CAT_SMALL, 'xla',
           'catalog')
@@ -5392,6 +5929,7 @@ def main():
     timed(phase_pipe_chain, dev)
     timed(phase_sharded_catalog, dev, catalog['ref'])
     timed(phase_geometries, dev, catalog.pop('ref'))
+    timed(phase_sharded_reverse, dev, refdir)
     # each kernel's launches on its own path's main run: the lattice
     # kernels on the fft='xla' lattice run, the ct2 DFT kernels on the
     # fft='mxu' lattice run, the rebase and dense DFT kernels on the

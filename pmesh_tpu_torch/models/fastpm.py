@@ -28,10 +28,13 @@ its particles into the whole mesh, the meshes are summed and each rank
 reads its own particles.  The density's normalization counts the
 particles of every rank.  ``nbody(rebalance=...)`` measures the load
 after each step and, past the threshold, reshards the particles and
-re-tunes the exchange.  Reverse mode through the sharded catalog path
-is not ported (ROADMAP queue 1, item 8c).  Reverse and forward mode
-(``torch.autograd``,
-``torch.func.jvp``) run through it on the card and on the CPU alike:
+re-tunes the exchange; these decisions are taken on detached values,
+and the gradient flows through the reshards.  Reverse and forward mode
+(``torch.autograd``, ``torch.func.jvp``) run through the catalog path on
+one device and on every sharded route (with the convention of
+``parallel/comm.py``: on the replicated route the readout reads the
+summed mesh through ``comm.pbroadcast``), on the card and on the CPU
+alike:
 the generic paint and readout carry the JAX package's ``custom_jvp``
 rules and their transposes, ``torch.fft`` its own.  In gradient mode
 the positions of the derivative readouts take no derivative: the
@@ -90,7 +93,13 @@ overflow and the needed slot count of the adaptive loop.  As in the JAX
 package the sharded binned loops wrap the lattice state as slots and
 fold it with a rebase over the state's whole drift (the sort-based fold
 is single-device).
-Reverse mode through the sharded path is not ported.
+Reverse mode runs through the sharded lattice and binned paths as on one
+device: the x-halo paint and readout carry their vjps over the slabs
+(``ops/gridpm.py``), the slab transforms and the sharded DFT pipelines
+their transposes (the mxu force triple's ``only=d`` passes run sharded),
+and the plain slab rebase differentiates on the CPU; on the card the
+CUDA rebase and the derivative lattice readouts refuse, as on one
+device.
 """
 import numpy as np
 import torch
@@ -342,6 +351,7 @@ class Solver(object):
         fpm = self.fpm
         if not fpm.blocked:
             return None
+        X = X.detach()
         g0 = fpm._grid(X, fpm.affine, 0)
         smoothing = fpm.resampler.support * 0.5
         N0 = int(fpm.Nmesh[0])
@@ -389,6 +399,7 @@ class Solver(object):
         fpm = self.fpm
         smoothing = fpm.resampler.support * 0.5
         kside = self._exch_kwargs.get('kside')
+        X = X.detach()
         g0 = fpm._grid(X, fpm.affine, 0)
         if fpm.route == 'pencil':
             from ..parallel import exchange2d as _ex2
@@ -506,7 +517,9 @@ class Solver(object):
         if fpm.blocked:
             vals = self._read_sharded(layout, meshes, X)
         else:
-            vals = _paint_ops.readout(meshes, X, window=fpm.resampler.window,
+            vals = _paint_ops.readout(tuple(fpm.local_view(m)
+                                            for m in meshes), X,
+                                      window=fpm.resampler.window,
                                       scale=a.scale, translate=a.translate,
                                       period=a.period)
         return torch.stack(vals, dim=-1) * factor
@@ -534,7 +547,8 @@ class Solver(object):
                 cols.append(self._read_sharded(layout, mesh, X))
             else:
                 cols.append(_paint_ops.readout(
-                    mesh, X, window=fpm.resampler.window, scale=a.scale,
+                    fpm.local_view(mesh), X, window=fpm.resampler.window,
+                    scale=a.scale,
                     translate=a.translate, period=a.period))
             del mesh
         return torch.stack(cols, dim=-1) * factor
@@ -701,12 +715,6 @@ class Solver(object):
                 raise ValueError(
                     "fft='mxu' computes in f32; use a dtype='f4' mesh or "
                     "fft='xla' for f64 runs")
-            if self._pmh is not None:
-                if rho.requires_grad and torch.is_grad_enabled():
-                    raise NotImplementedError(
-                        "reverse mode through the slab-sharded path is not "
-                        "ported yet (ROADMAP queue 1, item 8c)")
-                return self._mxu_force_raw(rho, _MXU[fft])
             return _MxuForce.apply(self, rho, _MXU[fft])
         rhok = self.fpm.create(type=RealField, value=rho).r2c()
         return tuple(rhok.apply(tf.force_transfer(d)).c2r().value
@@ -752,8 +760,6 @@ class Solver(object):
         not ct2 (the caller takes the field path)."""
         if not self._mxu_setup()[3]:
             return None
-        if self._pmh is not None:
-            return self._mxu_potential_raw(rho, form)
         return _MxuPotential.apply(self, rho, form)
 
     def _mxu_potential_raw(self, rho, form=(None, None)):
@@ -839,7 +845,7 @@ class Solver(object):
         pmh = self._pmh
 
         def poison(S, V):
-            lo, hi = _gp.displacement_bounds(S)
+            lo, hi = _gp.displacement_bounds(tuple(s.detach() for s in S))
             bad = ((lo < lo_b) | (hi > hi_b)).to(dtype)
             if pmh is not None:
                 bad = all_reduce(bad, pmh, 'max')
@@ -1044,7 +1050,7 @@ class Solver(object):
         least ``nslots``).  Returns (dslots, vslots, valid, overflow)."""
         pmh = self._pmh
         dslots, vslots, valid = _bn.from_lattice(disp, vel, nslots=nslots)
-        lo, hi = _gp.displacement_bounds(disp)
+        lo, hi = _gp.displacement_bounds(tuple(d.detach() for d in disp))
         lo = float(all_reduce(lo, pmh, 'min'))
         hi = float(all_reduce(hi, pmh, 'max'))
         b0 = (min(lo, 0.0), max(hi, 1.0))

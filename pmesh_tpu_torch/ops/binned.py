@@ -39,7 +39,11 @@ and runs the x-halo slab form of both parts (the JAX package's
 summed over the ranks, so every rank poisons together, and the result
 is bitwise the single-device rebase of the same global state.
 ``needed_slots`` takes the maximum over the ranks; the paint and
-readout run the sharded lattice path of ``ops/gridpm.py``.
+readout run the sharded lattice path of ``ops/gridpm.py``.  Reverse
+mode runs through the sharded paint and readout (their vjps over the
+slabs) and, on the CPU, through the plain slab rebase, whose drift halo
+returns each halo plane's cotangent to its owner
+(``parallel/halo.py``); the CUDA rebase refuses, as on one device.
 """
 import itertools
 
@@ -233,7 +237,8 @@ def needed_slots(dslots, valid, drift_bounds, procmesh=None):
     ndim = len(dslots[0])
     axes = tuple(range(ndim))
     offsets = _drift_offsets(drift_bounds, ndim)
-    floors = tuple(tuple(torch.floor(d) for d in dk) for dk in dslots)
+    floors = tuple(tuple(torch.floor(d.detach()) for d in dk)
+                   for dk in dslots)
     occ = tuple(v > 0 for v in valid)
     lo = rows = None
     if _sharded(procmesh):

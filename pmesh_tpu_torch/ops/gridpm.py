@@ -50,7 +50,16 @@ so the deep-window case is the same code); the x-halo slab form of the
 kernels then reads the extended slab and writes the rank's rows with no
 x wrap.  The plain versions run the roll loop on the extended slab and
 keep the middle rows (``paint_slab_plain``, ``readout_slab_plain``).
-Reverse mode through the sharded path is not ported: it raises.
+Reverse mode runs through the sharded path too, with the convention of
+``parallel/comm.py``: ``_Paint`` and ``_Readout`` take the procmesh, and
+their backward is the sharded readouts and paints that the JAX
+package's custom vjp calls (``pmesh_tpu/ops/gridpm.py:391-443``), so on
+the card it launches the x-halo kernels; the halo's transpose returns
+each halo plane's cotangent to its owner.  A scalar mass tensor is
+replicated: it meets the rank's slab through ``comm.pbroadcast``, so its
+gradient is summed over the ranks.  A diffdir paint or readout follows
+the one-device rule: the plain slab form differentiates natively on the
+CPU (through the halo), the kernels refuse.
 """
 import numpy as np
 import torch
@@ -275,13 +284,6 @@ def _shift_sharded(meshes, disp, mass, bounds, window, diffdir, mode,
                              xbase=lo)
 
 
-def _no_sharded_grad(what, tensors):
-    if _tracks(tensors):
-        raise NotImplementedError(
-            "%s: reverse mode through the slab-sharded path is not ported "
-            "yet (ROADMAP queue 1, item 8c)" % what)
-
-
 def _detached(t):
     return t.detach() if isinstance(t, torch.Tensor) else t
 
@@ -301,35 +303,46 @@ def _no_kernel_rule(what, impl, t):
             "the CPU (impl='torch')" % what)
 
 
+def _shift(meshes, disp, mass, bounds, window, diffdir, mode, impl,
+           procmesh):
+    """the shift-sum on one device, or over the slabs of ``procmesh``"""
+    if procmesh is not None:
+        return _shift_sharded(meshes, disp, mass, bounds, window, diffdir,
+                              mode, procmesh, impl)
+    return _shift_loop(meshes, disp, mass, bounds, window, diffdir, mode,
+                       impl)
+
+
 class _Paint(torch.autograd.Function):
     """paint with the JAX package's custom vjp (``_paint_bwd``);
     ``mass`` is a tensor (a mesh or 0-d) or None, ``cfg`` = (bounds,
-    window, impl, scalar mass used when ``mass`` is None)."""
+    window, impl, scalar mass used when ``mass`` is None, procmesh or
+    None)."""
 
     @staticmethod
     def forward(ctx, cfg, mass, *disp):
-        bounds, window, impl, scalar = cfg
+        bounds, window, impl, scalar, pmh = cfg
         ctx.cfg = cfg
         ctx.save_for_backward(mass, *disp)
         m = scalar if mass is None else mass.detach()
-        return _shift_loop(None, tuple(d.detach() for d in disp), m, bounds,
-                           window, None, 'paint', impl)
+        return _shift(None, tuple(d.detach() for d in disp), m, bounds,
+                      window, None, 'paint', impl, pmh)
 
     @staticmethod
     def backward(ctx, v):
-        bounds, window, impl, scalar = ctx.cfg
+        bounds, window, impl, scalar, pmh = ctx.cfg
         mass, *disp = ctx.saved_tensors
         disp = tuple(d.detach() for d in disp)
         v = v.detach().contiguous()
         mass_bar = None
         if ctx.needs_input_grad[1]:
-            mb = _shift_loop((v,), disp, None, bounds, window, None,
-                             'readout', impl)[0]
+            mb = _shift((v,), disp, None, bounds, window, None, 'readout',
+                        impl, pmh)[0]
             mass_bar = (mb if mass.dim() > 0 else mb.sum()).to(mass.dtype)
         disp_bar = [None] * len(disp)
         if any(ctx.needs_input_grad[2:]):
-            rds = _shift_loop((v,), disp, None, bounds, window, 'all',
-                              'readout', impl)
+            rds = _shift((v,), disp, None, bounds, window, 'all', 'readout',
+                         impl, pmh)
             m = scalar if mass is None else mass.detach().to(v.dtype)
             disp_bar = [m * r for r in rds]
         return (None, mass_bar) + tuple(disp_bar)
@@ -337,35 +350,36 @@ class _Paint(torch.autograd.Function):
 
 class _Readout(torch.autograd.Function):
     """readout of ``nmesh`` meshes with the JAX package's custom vjp
-    (``_readout_bwd``); ``tensors`` = meshes + disp."""
+    (``_readout_bwd``); ``tensors`` = meshes + disp, ``cfg`` = (bounds,
+    window, impl, procmesh or None)."""
 
     @staticmethod
     def forward(ctx, cfg, nmesh, *tensors):
-        bounds, window, impl = cfg
+        bounds, window, impl, pmh = cfg
         ctx.cfg, ctx.nmesh = cfg, nmesh
         ctx.save_for_backward(*tensors)
         det = tuple(t.detach() for t in tensors)
-        return _shift_loop(det[:nmesh], det[nmesh:], None, bounds, window,
-                           None, 'readout', impl)
+        return _shift(det[:nmesh], det[nmesh:], None, bounds, window, None,
+                      'readout', impl, pmh)
 
     @staticmethod
     def backward(ctx, *vbar):
-        bounds, window, impl = ctx.cfg
+        bounds, window, impl, pmh = ctx.cfg
         nmesh = ctx.nmesh
         saved = tuple(t.detach() for t in ctx.saved_tensors)
         meshes, disp = saved[:nmesh], saved[nmesh:]
         vbar = tuple(v.detach().contiguous() for v in vbar)
         need = ctx.needs_input_grad[2:]
         mesh_bar = tuple(
-            _shift_loop(None, disp, vb, bounds, window, None, 'paint', impl)
+            _shift(None, disp, vb, bounds, window, None, 'paint', impl, pmh)
             if need[j] else None for j, vb in enumerate(vbar))
         disp_bar = []
         for d in range(len(disp)):
             if not need[nmesh + d]:
                 disp_bar.append(None)
                 continue
-            rds = _shift_loop(meshes, disp, None, bounds, window, d,
-                              'readout', impl)
+            rds = _shift(meshes, disp, None, bounds, window, d, 'readout',
+                         impl, pmh)
             acc = None
             for vb, rd in zip(vbar, rds):
                 acc = vb * rd if acc is None else acc + vb * rd
@@ -390,30 +404,31 @@ def paint_grid(disp, mass=None, bounds=(0.0, 1.0), window='cic',
     procmesh : None, or the ProcessMesh whose x slabs ``disp`` and
         ``mass`` are (module docstring)
 
-    Differentiable in ``disp`` and a tensor ``mass`` (module docstring)
-    on one rank.
+    Differentiable in ``disp`` and a tensor ``mass`` (module docstring),
+    on one rank and on the slabs.
     """
     disp = tuple(disp)
-    if _sharded(procmesh):
-        _no_sharded_grad("paint_grid", disp + (mass,))
-        if isinstance(mass, torch.Tensor):
-            mass = mass.to(disp[0].dtype)
-        return _shift_sharded(None, disp, 1.0 if mass is None else mass,
-                              bounds, window, diffdir, 'paint', procmesh,
-                              impl)
+    pmh = procmesh if _sharded(procmesh) else None
+    if pmh is not None and isinstance(mass, torch.Tensor):
+        mass = mass.to(disp[0].dtype)
     if not _tracks(disp + (mass,)):
-        return _shift_loop(None, tuple(_detached(d) for d in disp),
-                           _detached(mass), bounds, window, diffdir,
-                           'paint', impl)
+        m = _detached(mass)
+        return _shift(None, tuple(_detached(d) for d in disp),
+                      1.0 if m is None and pmh is not None else m, bounds,
+                      window, diffdir, 'paint', impl, pmh)
     if diffdir is not None:
         _no_kernel_rule("paint_grid", impl, disp[0])
-        return _shift_loop(None, disp, mass, bounds, window, diffdir,
-                           'paint', impl)
+        return _shift(None, disp,
+                      1.0 if mass is None and pmh is not None else mass,
+                      bounds, window, diffdir, 'paint', impl, pmh)
     bounds = (float(bounds[0]), float(bounds[1]))
     if isinstance(mass, torch.Tensor):
-        return _Paint.apply((bounds, window, impl, None), mass, *disp)
+        if pmh is not None and mass.dim() == 0:
+            from ..parallel.comm import pbroadcast
+            mass = pbroadcast(mass, pmh)
+        return _Paint.apply((bounds, window, impl, None, pmh), mass, *disp)
     scalar = 1.0 if mass is None else float(mass)
-    return _Paint.apply((bounds, window, impl, scalar), None, *disp)
+    return _Paint.apply((bounds, window, impl, scalar, pmh), None, *disp)
 
 
 def readout_grid(mesh, disp, bounds=(0.0, 1.0), window='cic',
@@ -424,27 +439,25 @@ def readout_grid(mesh, disp, bounds=(0.0, 1.0), window='cic',
     ``diffdir`` = d reads with -W' along axis d: the derivative of the
     interpolated field with respect to the particle position (in CELL
     units).  ``diffdir='all'`` takes one mesh and returns the tuple of
-    all ndim derivative readouts.
+    all ndim derivative readouts.  Differentiable in the meshes and
+    ``disp`` (module docstring).
     """
     single = not isinstance(mesh, (tuple, list))
     meshes = (mesh,) if single else tuple(mesh)
     disp = tuple(disp)
     if diffdir == 'all' and len(meshes) != 1:
         raise ValueError("diffdir='all' takes exactly one mesh")
-    if _sharded(procmesh):
-        _no_sharded_grad("readout_grid", meshes + disp)
-        out = _shift_sharded(meshes, disp, None, bounds, window, diffdir,
-                             'readout', procmesh, impl)
-    elif not _tracks(meshes + disp):
-        out = _shift_loop(tuple(_detached(m) for m in meshes),
-                          tuple(_detached(d) for d in disp), None, bounds,
-                          window, diffdir, 'readout', impl)
+    pmh = procmesh if _sharded(procmesh) else None
+    if not _tracks(meshes + disp):
+        out = _shift(tuple(_detached(m) for m in meshes),
+                     tuple(_detached(d) for d in disp), None, bounds, window,
+                     diffdir, 'readout', impl, pmh)
     elif diffdir is not None:
         _no_kernel_rule("readout_grid", impl, disp[0])
-        out = _shift_loop(meshes, disp, None, bounds, window, diffdir,
-                          'readout', impl)
+        out = _shift(meshes, disp, None, bounds, window, diffdir, 'readout',
+                     impl, pmh)
     else:
-        cfg = ((float(bounds[0]), float(bounds[1])), window, impl)
+        cfg = ((float(bounds[0]), float(bounds[1])), window, impl, pmh)
         out = _Readout.apply(cfg, len(meshes), *meshes, *disp)
     if diffdir == 'all':
         return tuple(out)

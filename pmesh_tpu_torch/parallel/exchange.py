@@ -37,8 +37,17 @@ hold ``fill``), block b of the JAX package's ``(D L, ...)`` result;
 all, local, max, min, prod or any binary ufunc.  :func:`paint_sharded`
 and :func:`readout_sharded` paint and read each rank's own slab from its
 images.  Every call is a collective: all ranks make it together.
-Reverse mode through the exchange is not ported (item 8c): an input
-that requires grad raises.
+
+Reverse and forward mode run through all of it, with the convention of
+``comm.py``.  The plan (``send_idx``, ``badness``, kside, capacity, the
+reshard's order) is built from detached positions; the positions'
+gradient flows through the exchanged coordinates.  ``exchange`` is a
+gather by ``send_idx`` plus the ring exchange, whose transpose is the
+scatter-add of the ghosts' cotangents onto their source particles;
+``gather`` differentiates in every mode (the channels' cotangents ride
+the ring back out), ``route`` sends the cotangent rows back to where
+the rows came from, and the NaN poison still reaches every exchanged
+float and painted mesh.
 """
 import numpy as np
 import torch
@@ -48,15 +57,6 @@ from . import comm
 __all__ = ["ShardedLayout", "decompose", "reshard", "route", "sort_route",
            "home_block", "measure_ghosts", "measure_load", "paint_sharded",
            "readout_sharded"]
-
-
-def _no_grad(what, *tensors):
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad
-            for t in tensors):
-        raise NotImplementedError(
-            "%s: reverse mode through the sharded particle exchange is "
-            "not ported yet (ROADMAP queue 1, item 8c)" % what)
 
 
 def _channels(kside):
@@ -267,7 +267,6 @@ class ShardedLayout(object):
         """``grid0``: ``a`` is the axis-0 grid coordinate, re-centred on
         the sending block and shifted into each receiver's frame"""
         a = torch.as_tensor(a)
-        _no_grad("ShardedLayout.exchange", a)
         if a.shape[0] != self.nlocal:
             raise ValueError("exchange expects leading axis %d, got %s"
                              % (self.nlocal, tuple(a.shape)))
@@ -340,7 +339,6 @@ class ShardedLayout(object):
         if mode == 'all':
             return data
         data = torch.as_tensor(data)
-        _no_grad("ShardedLayout.gather", data)
         if data.shape[0] != self.slots_per_block:
             raise ValueError(
                 "gather expects the exchange result length %d, got %s"
@@ -366,7 +364,7 @@ class ShardedLayout(object):
     def get_exchange_cost(self):
         """(D,) numpy: the ghost images each rank ships away"""
         t = (self.send_idx >= 0).sum().reshape(1).to(torch.int64)
-        return comm.all_gather(t, self.procmesh).cpu().numpy()
+        return comm.to_numpy(comm.all_gather(t, self.procmesh))
 
 
 def measure_ghosts(procmesh, pos0_grid, N0, smoothing, kside=None):
@@ -390,7 +388,7 @@ def measure_ghosts(procmesh, pos0_grid, N0, smoothing, kside=None):
                     + [torch.maximum((-dlo).max(), dhi.max()).to(torch.int64)
                        if g.numel() else torch.zeros((), dtype=torch.int64,
                                                      device=g.device)])
-    c = comm.all_reduce(c, procmesh, 'max').cpu().numpy()
+    c = comm.to_numpy(comm.all_reduce(c, procmesh, 'max'))
     return c[:-1], int(c[-1])
 
 
@@ -415,7 +413,7 @@ def measure_load(procmesh, pos0_grid, N0, smoothing, kside=None):
     res = ((gm >= b * rows) & (gm < (b + 1) * rows)).sum()
     _, _, masks = _ghost_counts(g, float(smoothing), b, N0, rows, D, chans)
     local = torch.stack([res] + [m.sum() for m in masks]).to(torch.int64)
-    both = comm.all_gather(local[None], procmesh).cpu().numpy()
+    both = comm.to_numpy(comm.all_gather(local[None], procmesh))
     res, sent = both[:, 0], both[:, 1:]
     recv = np.zeros(D, np.int64)
     for c, (m, side) in enumerate(chans):
@@ -451,7 +449,6 @@ def decompose(procmesh, pos0_grid, N0, smoothing, kside=None,
     """
     D = procmesh.size
     rows = _slab_rows(N0, D)
-    _no_grad("decompose", pos0_grid)
     pos0_grid = pos0_grid.detach()
     kside_given = kside is not None
     if kside is None:
@@ -554,29 +551,106 @@ def _from_bytes(rows, spec):
     return out
 
 
+class _Route(torch.autograd.Function):
+    """The rows of :func:`route`: every array's rows and the slots
+    travel as bytes in one all_to_all_v.  Transpose: the cotangent rows
+    of the floating arrays, read at the slots, travel back the same way
+    to the rows they came from; forward mode routes the tangents as the
+    rows.  ``plan`` = (the counts sent, nout); ``stay`` and ``order``
+    index the rows kept and the rows sent, in destination order.  The
+    outputs end with the received rows' slots and counts (no
+    derivative)."""
+
+    @staticmethod
+    def forward(procmesh, plan, slot, stay, order, *arrays):
+        counts, nout = plan
+        allrows, spec = _rows_bytes(list(arrays) + [slot])
+        got, recv_counts = comm.all_to_all_v(allrows[order], procmesh,
+                                             counts)
+        rows = torch.cat([allrows[stay], got], 0)
+        *vals, slots = _from_bytes(rows, spec)
+        return tuple(_placed(v, slots, nout) for v in vals) + (
+            slots, torch.tensor(recv_counts, dtype=torch.int64))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        procmesh, plan, slot, stay, order, *arrays = inputs
+        ctx.mark_non_differentiable(*output[len(arrays):])
+        ctx.procmesh, ctx.plan = procmesh, plan
+        ctx.stay, ctx.order = stay, order
+        ctx.slots = output[len(arrays)]
+        ctx.recv_counts = tuple(int(c) for c in output[-1])
+        ctx.specs = tuple(comm._spec(a) for a in arrays)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *gs):
+        _, nout = ctx.plan
+        stay, order = ctx.stay, ctx.order
+        pick = [j for j, spec in enumerate(ctx.specs)
+                if (spec[1].is_floating_point or spec[1].is_complex)
+                and ctx.needs_input_grad[5 + j]]
+        grads = [None] * len(ctx.specs)
+        if pick:
+            cts = [(gs[j] if gs[j] is not None
+                    else torch.zeros((nout,) + ctx.specs[j][0][1:],
+                                     dtype=ctx.specs[j][1],
+                                     device=ctx.specs[j][2]))[ctx.slots]
+                   for j in pick]
+            rows, spec = _rows_bytes(cts)
+            ns = stay.shape[0]
+            back, _ = comm.all_to_all_v(rows[ns:], ctx.procmesh,
+                                        ctx.recv_counts)
+            for j, kept, sent in zip(pick, _from_bytes(rows[:ns], spec),
+                                     _from_bytes(back, spec)):
+                shape, dtype, device = ctx.specs[j]
+                g = torch.zeros(shape, dtype=dtype, device=device)
+                g[stay] = kept
+                g[order] = sent
+                grads[j] = g
+        return (None,) * 5 + tuple(grads)
+
+    @staticmethod
+    def jvp(ctx, _procmesh, _plan, _slot, _stay, _order, *ts):
+        counts, nout = ctx.plan
+        stay, order = ctx.stay, ctx.order
+        out = []
+        for t, (shape, dtype, device) in zip(ts, ctx.specs):
+            if not (dtype.is_floating_point or dtype.is_complex):
+                out.append(None)
+                continue
+            t = torch.zeros(shape, dtype=dtype, device=device) \
+                if t is None else t
+            got, _ = comm.all_to_all_v(t[order], ctx.procmesh, counts)
+            out.append(_placed(torch.cat([t[stay], got], 0), ctx.slots,
+                               nout))
+        return tuple(out) + (None, None)
+
+
+def _placed(v, slots, nout):
+    """an (nout, ...) array holding row i of ``v`` at row slots[i]"""
+    o = torch.empty((nout,) + tuple(v.shape[1:]), dtype=v.dtype,
+                    device=v.device)
+    o[slots] = v
+    return o
+
+
 def route(procmesh, dest, slot, nout, *arrays):
     """Send row i of each array to rank ``dest[i]``, where it lands at
     row ``slot[i]`` of an (nout, ...) array: returns those arrays on
     every rank.  Rows that stay on their rank do not travel; the rest
-    move in one :func:`comm.all_to_all_v` of their bytes."""
+    move in one :func:`comm.all_to_all_v` of their bytes.
+    Differentiable in the floating arrays (the cotangent rows travel
+    back)."""
     D, me = procmesh.size, procmesh.rank
     dest = dest.to(torch.int64)
-    slot = slot.to(torch.int64)
-    allrows, spec = _rows_bytes(list(arrays) + [slot])
-    stay = dest == me
+    stay = torch.nonzero(dest == me).flatten()
     order = torch.argsort(dest, stable=True)
-    order = order[~stay[order]]
-    counts = torch.bincount(dest[order], minlength=D).cpu().tolist()
-    got, _ = comm.all_to_all_v(allrows[order], procmesh, counts)
-    rows = torch.cat([allrows[stay], got], 0)
-    *vals, slots = _from_bytes(rows, spec)
-    outs = []
-    for a, v in zip(arrays, vals):
-        o = torch.empty((nout,) + tuple(a.shape[1:]), dtype=a.dtype,
-                        device=a.device)
-        o[slots] = v
-        outs.append(o)
-    return outs
+    order = order[dest[order] != me]
+    counts = tuple(torch.bincount(dest[order], minlength=D).cpu().tolist())
+    outs = _Route.apply(procmesh, (counts, int(nout)),
+                        slot.to(torch.int64), stay, order, *arrays)
+    return list(outs[:len(arrays)])
 
 
 def sort_route(procmesh, key, nkeys, *arrays):
@@ -590,7 +664,7 @@ def sort_route(procmesh, key, nkeys, *arrays):
     key = key.to(torch.int64)
     n = key.shape[0]
     local = torch.bincount(key, minlength=nkeys)
-    C = comm.all_gather(local[None], procmesh).cpu().numpy()   # (src, key)
+    C = comm.to_numpy(comm.all_gather(local[None], procmesh))   # (src, key)
     npart = int(C.sum())
     if npart == 0:
         return arrays[0] if len(arrays) == 1 else tuple(arrays)
@@ -603,7 +677,7 @@ def sort_route(procmesh, key, nkeys, *arrays):
     order = torch.argsort(key, stable=True)
     ks = key[order]
     first = torch.from_numpy(np.concatenate(
-        [[0], np.cumsum(local.cpu().numpy())[:-1]])).to(key.device)
+        [[0], np.cumsum(comm.to_numpy(local))[:-1]])).to(key.device)
     within = torch.arange(n, device=key.device) - first[ks]
     gpos = torch.empty_like(key)
     gpos[order] = torch.from_numpy(base).to(key.device)[ks] + within
@@ -629,7 +703,6 @@ def reshard(procmesh, pos0_grid, N0, *arrays):
     windows reach two blocks, past a 4-rank ring's reach (ROADMAP queue
     3).  Its blocks are this order's wherever each home slab's particles
     come plane-sorted."""
-    _no_grad("reshard", pos0_grid, *arrays)
     N0 = int(N0)
     plane = torch.remainder(torch.floor(torch.remainder(
         pos0_grid.detach(), N0)), N0).to(torch.int64)
@@ -682,7 +755,8 @@ def _check_hsml(layout, window, hsml, hsml_max):
             "smoothing=support/2*hsml_max" % (hsml_max, reach,
                                               layout.smoothing))
     hsml = torch.as_tensor(hsml)
-    top = hsml.max().reshape(1) if hsml.numel() else hsml.new_zeros(1)
+    h = hsml.detach()
+    top = h.max().reshape(1) if h.numel() else h.new_zeros(1)
     top = comm.all_reduce(top.to(torch.float64), layout.procmesh, 'max')[0]
     bad = torch.where(top > hsml_max, float('nan'), 0.0).to(torch.float32)
     return layout.exchange(hsml, fill=1.0), bad
@@ -717,7 +791,6 @@ def paint_sharded(layout, pos, mass, shape, scale, window, diffdir=None,
     """
     from ..ops import paint as _paint_ops
     pos = torch.as_tensor(pos)
-    _no_grad("paint_sharded", pos, mass, hsml, base)
     shape = tuple(int(n) for n in shape)
     if shape[0] != layout.N0:
         raise ValueError("mesh shape %s does not match the layout's N0=%d"
@@ -763,7 +836,6 @@ def readout_sharded(layout, meshes, pos, scale, window, diffdir=None,
     meshes = (meshes,) if not isinstance(meshes, (tuple, list)) \
         else tuple(meshes)
     pos = torch.as_tensor(pos)
-    _no_grad("readout_sharded", pos, hsml, *meshes)
     ndim = pos.shape[-1]
     if multi and len(meshes) != 1:
         raise ValueError("diffdir='all' takes exactly one mesh")

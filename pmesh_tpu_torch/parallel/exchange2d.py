@@ -39,16 +39,18 @@ that covers one block from both sides (wider than the ring on a ring of
 2 or more ranks: one image cannot paint both) is a residency breach
 here, which the JAX package misses.
 
-Every call is a collective: all ranks make it together.  Reverse mode
-through the exchange is not ported (ROADMAP queue 1, item 8c): an input
-that requires grad raises.
+Every call is a collective: all ranks make it together.  Reverse and
+forward mode run through the exchange as through the 1-d plan's
+(``exchange.py``): the plan is built from detached coordinates, and the
+ghosts' cotangents ride ``comm.torus_exchange`` back along the reversed
+offsets to their source particles.
 """
 import numpy as np
 import torch
 
 from . import comm
 from .exchange import (_check_hsml, _combine_channel, _counts, _diff_scale,
-                       _gather_mode, _no_grad, sort_route)
+                       _gather_mode, sort_route)
 
 __all__ = ["ShardedLayout2D", "decompose2d", "reshard2d",
            "measure_ghosts2d", "measure_load2d", "paint_sharded2d",
@@ -232,7 +234,6 @@ class ShardedLayout2D(object):
 
     def _exchange_one(self, a, fill, grid_axis):
         a = torch.as_tensor(a)
-        _no_grad("ShardedLayout2D.exchange", a)
         if a.shape[0] != self.nlocal:
             raise ValueError("exchange expects leading axis %d, got %s"
                              % (self.nlocal, tuple(a.shape)))
@@ -295,7 +296,6 @@ class ShardedLayout2D(object):
         if mode == 'all':
             return data
         data = torch.as_tensor(data)
-        _no_grad("ShardedLayout2D.gather", data)
         if data.shape[0] != self.slots_per_block:
             raise ValueError(
                 "gather expects the exchange result length %d, got %s"
@@ -324,7 +324,7 @@ class ShardedLayout2D(object):
         t = sum((i >= 0).sum() for i in self.send_idx)
         t = torch.as_tensor(t, device=self.badness.device).reshape(1) \
             .to(torch.int64)
-        return comm.all_gather(t, self.procmesh).cpu().numpy()
+        return comm.to_numpy(comm.all_gather(t, self.procmesh))
 
 
 def measure_ghosts2d(procmesh, g0, g1, N0, N1, smoothing, ksides=None):
@@ -345,7 +345,7 @@ def measure_ghosts2d(procmesh, g0, g1, N0, N1, smoothing, ksides=None):
              if g0.numel() else zero for dlo, dhi in iv]
     c = torch.stack([m.sum().to(torch.int64) for m in _masks(chans, iv)]
                     + reach)
-    c = comm.all_reduce(c, procmesh, 'max').cpu().numpy()
+    c = comm.to_numpy(comm.all_reduce(c, procmesh, 'max'))
     return c[:-2], (int(c[-2]), int(c[-1]))
 
 
@@ -370,7 +370,7 @@ def measure_load2d(procmesh, g0, g1, N0, N1, smoothing, ksides=None):
                     rows1)
     local = torch.stack([res] + [m.sum() for m in _masks(chans, iv)]) \
         .to(torch.int64)
-    both = comm.all_gather(local[None], procmesh).cpu().numpy()
+    both = comm.to_numpy(comm.all_gather(local[None], procmesh))
     res, sent = both[:, 0], both[:, 1:]
     recv = np.zeros(D, np.int64)
     for c, (ox, oy) in enumerate(chans):
@@ -401,7 +401,6 @@ def decompose2d(procmesh, g0, g1, N0, N1, smoothing, ksides=None,
     """
     npx, npy, rows0, rows1 = _geometry(procmesh, int(N0), int(N1))
     N0, N1 = int(N0), int(N1)
-    _no_grad("decompose2d", g0, g1)
     g0, g1 = g0.detach(), g1.detach()
     s = float(smoothing)
     if 2 * s >= min(N0, N1):
@@ -463,7 +462,6 @@ def reshard2d(procmesh, g0, g1, N0, N1, *arrays):
     ordered by home pencil, then source rank and each rank's own order
     (the JAX package's stable global sort by home pencil;
     :func:`exchange.sort_route`)."""
-    _no_grad("reshard2d", g0, g1, *arrays)
     npx, npy = procmesh.grid
     home = home_block2d(g0.detach(), g1.detach(), int(N0), int(N1), npx,
                         npy)
@@ -508,7 +506,6 @@ def paint_sharded2d(layout, pos, mass, shape, scale, window, diffdir=None,
     particles (the arguments of :func:`exchange.paint_sharded`)."""
     from ..ops import paint as _paint_ops
     pos = torch.as_tensor(pos)
-    _no_grad("paint_sharded2d", pos, mass, hsml, base)
     shape = tuple(int(n) for n in shape)
     _check_shape(layout, shape)
     dtype = pos.dtype if dtype is None else dtype
@@ -545,7 +542,6 @@ def readout_sharded2d(layout, meshes, pos, scale, window, diffdir=None,
     meshes = (meshes,) if not isinstance(meshes, (tuple, list)) \
         else tuple(meshes)
     pos = torch.as_tensor(pos)
-    _no_grad("readout_sharded2d", pos, hsml, *meshes)
     ndim = pos.shape[-1]
     if multi and len(meshes) != 1:
         raise ValueError("diffdir='all' takes exactly one mesh")

@@ -6,6 +6,11 @@ through *extended* slabs: row j of an extension holds global plane
 (my_start - lo + j).  On one rank the extension is a wrap; on several
 the extra planes live on ring neighbours and come over
 ``comm.ring_exchange`` (the JAX package's ``lax.ppermute``).
+
+Both functions are differentiable through the exchange's transpose:
+each halo plane's cotangent travels back to the rank that owns the
+plane (over as many hops as it came) and is added to that plane's
+gradient there.
 """
 import torch
 

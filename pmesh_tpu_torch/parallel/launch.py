@@ -47,7 +47,8 @@ def resolve(fn_name):
     return getattr(importlib.import_module(mod), name)
 
 
-def _entry(rank, fn_name, world, backend, device, tmp, args, shape):
+def _entry(rank, fn_name, world, backend, device, tmp, args, shape,
+           timeout):
     dev = torch.device(device)
     if dev.type == 'cuda':
         dev = torch.device('cuda', rank % torch.cuda.device_count())
@@ -58,7 +59,7 @@ def _entry(rank, fn_name, world, backend, device, tmp, args, shape):
     dist.init_process_group(
         backend, init_method="file://" + os.path.join(tmp, "rendezvous"),
         rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=TIMEOUT))
+        timeout=datetime.timedelta(seconds=timeout))
     try:
         pm = ProcessMesh(device=dev, shape=shape)
         out = resolve(fn_name)(pm, *args)
@@ -68,20 +69,22 @@ def _entry(rank, fn_name, world, backend, device, tmp, args, shape):
         dist.destroy_process_group()
 
 
-def spawn(fn_name, world, backend='gloo', device=None, *args, shape=None):
+def spawn(fn_name, world, backend='gloo', device=None, *args, shape=None,
+          timeout=TIMEOUT):
     """Run ``fn_name(pm, *args)`` on ``world`` ranks; returns the list
     of their return values (see the module docstring).  ``device`` is
     None (the GPU; raises without CUDA), 'cuda' or 'cpu'; ``shape``
     (npx, npy) gives every rank the 2-d grid of ``ProcessMesh``.  A
-    collective that waits longer than ``TIMEOUT`` seconds fails the
-    job."""
+    collective that waits longer than ``timeout`` seconds (default
+    ``TIMEOUT``) fails the job: a rank that issues collectives in
+    another order than the others hangs until then."""
     resolve(fn_name)
     if device is None:
         device = _default_device(0).type
     with tempfile.TemporaryDirectory(prefix="pmesh_spawn_") as tmp:
         mp.start_processes(
             _entry, args=(fn_name, world, backend, str(device), tmp, args,
-                          shape),
+                          shape, int(timeout)),
             nprocs=world, join=True, start_method='spawn')
         return [torch.load(os.path.join(tmp, "rank%d.pt" % r),
                            weights_only=False) for r in range(world)]

@@ -68,8 +68,9 @@ def _pad_to(x, axis, n):
 def _irfft_last(c, n, real_dtype):
     """the real inverse over the last axis of length n (unnormalized),
     reading only the real part of the DC and Nyquist columns"""
-    for z in (0, n // 2) if n % 2 == 0 else (0,):
-        c[..., z] = c[..., z].real
+    edge = torch.zeros(c.shape[-1], dtype=torch.bool, device=c.device)
+    edge[[0, n // 2] if n % 2 == 0 else [0]] = True
+    c = torch.where(edge, c.real.to(c.dtype), c)
     return torch.fft.irfft(c, n=n, dim=-1, norm='forward').to(real_dtype)
 
 

@@ -62,6 +62,16 @@ own block of the fill, and the reductions ``csum``/``cdot``/``cnorm``
 sum over the ranks' blocks.  The global item access and reshaping and
 the untransposed layout raise on a sharded mesh (ROADMAP queue 1, item
 8d).
+
+Reverse and forward mode run through every route, with the convention
+of ``parallel/comm.py``: the gradient of a blocked field or particle
+array is this rank's block of the global gradient, that of a field
+every rank holds whole the whole gradient on every rank, and a loss
+every rank holds is seeded on every rank.  On the replicated route the
+paint's sum over the ranks passes its cotangent through, and the
+readout hands the whole mesh to the rank's particles through
+``comm.pbroadcast`` (:meth:`ParticleMesh.local_view`), whose backward
+sums the mesh's cotangent over the ranks.
 """
 import functools
 
@@ -654,6 +664,7 @@ class RealField(Field):
             return self.pm._readout_sharded(value, pos, hsml, resampler,
                                             transform, gradient, layout,
                                             hsml_max)
+        value = self.pm.local_view(value)
         if layout is not None:
             pos = layout.exchange(pos)
             hsml = layout.exchange(hsml) if hsml is not None else None
@@ -1171,6 +1182,16 @@ class ParticleMesh(object):
                 RuntimeWarning, stacklevel=2)
         return Layout(smoothing=smoothing, npart=len(pos))
 
+    def local_view(self, value):
+        """``value``, a mesh every rank holds whole on the replicated
+        route, handed to this rank's particles: ``comm.pbroadcast``,
+        whose backward sums the mesh's cotangent over the ranks (the
+        identity elsewhere)"""
+        if not self.sharded or self.blocked:
+            return value
+        from .parallel.comm import pbroadcast
+        return pbroadcast(value, self.procmesh)
+
     @staticmethod
     def _grid(pos, transform, d):
         """the axis-d grid coordinate of ``pos`` under ``transform``, in
@@ -1231,7 +1252,7 @@ class ParticleMesh(object):
             return resampler.support * 0.5, hsml_max
         if hsml_max is None:
             from .parallel.comm import all_reduce
-            h = torch.as_tensor(hsml)
+            h = torch.as_tensor(hsml).detach()
             top = h.max().reshape(1) if h.numel() else h.new_zeros(1)
             hsml_max = float(all_reduce(top.to(torch.float64), self.procmesh,
                                         'max')[0])
@@ -1257,7 +1278,6 @@ class ParticleMesh(object):
                 layout, value, pos, transform.scale, resampler.window,
                 diffdir=gradient, hsml=hsml, hsml_max=hsml_max,
                 translate=transform.translate)
-        exchange._no_grad("RealField.readout", pos, value, hsml)
         smoothing, hsml_max = self._hsml_reach(resampler, hsml, hsml_max)
         n = torch.as_tensor(pos).shape[0]
         extra = () if hsml is None else (torch.as_tensor(hsml),)
@@ -1276,7 +1296,6 @@ class ParticleMesh(object):
         from .parallel import exchange
         plan, paint, _ = self._sharded_ops()
         if not isinstance(layout, plan):
-            exchange._no_grad("ParticleMesh.paint", pos, mass, hsml)
             smoothing, hsml_max = self._hsml_reach(resampler, hsml,
                                                    hsml_max)
             pos = torch.as_tensor(pos)
@@ -1337,9 +1356,7 @@ class ParticleMesh(object):
         zeros = torch.zeros_like(out.value.real if self._is_c2c
                                  else out.value)
         if replicated:
-            from .parallel import exchange
             from .parallel.comm import all_reduce
-            exchange._no_grad("ParticleMesh.paint", pos, mass, hsml, base)
         painted = _paint_ops.paint(zeros if base is None or replicated
                                    else base, pos, mass=mass,
                                    window=resampler.window,

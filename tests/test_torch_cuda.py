@@ -2043,3 +2043,40 @@ def test_binned_grads_refuse_on_the_card(dev):
     with pytest.raises(NotImplementedError, match='no gradient rule'):
         Solver(pm).nbody_binned(disp, vel, [0.5, 0.55, 0.6], nslots=2,
                                 rebase_every=2)
+
+
+def test_sharded_lattice_backward_on_the_card(dev):
+    """four ranks on the card over gloo: the 64^3 slab lattice paint's
+    (a mesh mass) and readout's (three meshes) gradients on the x-halo
+    kernels against the plain slab forms (impl='torch') on the same
+    tensors, gathered; every launch is an x-halo kernel's, summed over
+    the ranks: per rank the paint 1 + (1 mass readout, 1 'all'
+    readout), the readout 1 + (3 paints, 3 three-mesh derivative
+    readouts); the plain runs launch none"""
+    from pmesh_tpu_torch.parallel import launch
+    from pmesh_tpu_torch.native import cuda
+    cuda.load("gridpm")
+    rng = np.random.RandomState(64)
+    n, bounds = 64, (-0.5, 1.0)
+    disp = [rng.uniform(*bounds, (n,) * 3).astype('f4') for _ in range(3)]
+    mass = (1 + 0.2 * rng.normal(size=(n,) * 3)).astype('f4')
+    meshes = [rng.normal(size=(n,) * 3).astype('f4') for _ in range(3)]
+    w = [rng.uniform(0.5, 1.5, (n,) * 3).astype('f4') for _ in range(3)]
+    from torch_sharded_grad_cases import CASES
+    out = launch.spawn(CASES + ':card_lattice_backward', 4, 'gloo', 'cuda',
+                       disp, mass, meshes, w, bounds, timeout=300)
+    need = {'paint': {"paint_lattice_xhalo": 4, "readout_lattice_xhalo": 8},
+            'readout': {"paint_lattice_xhalo": 12,
+                        "readout_lattice_xhalo": 16}}
+    for name in ('paint', 'readout'):
+        total = {}
+        for o in out:
+            for k, v in o[name, None]['launches'].items():
+                total[k] = total.get(k, 0) + v
+            assert o[name, 'torch']['launches'] == {}
+        assert total == need[name], (name, total)
+        for j in range(len(out[0][name, None]['grads'])):
+            got = np.concatenate([o[name, None]['grads'][j] for o in out])
+            ref = np.concatenate([o[name, 'torch']['grads'][j] for o in out])
+            assert np.abs(got - ref).max() <= TOL * np.abs(ref).max(), \
+                (name, j)

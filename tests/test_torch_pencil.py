@@ -693,7 +693,8 @@ def test_pencil_reductions_and_power(port, grid):
 def test_pencil_refusals(port, grid):
     """the lattice and binned paths on a pencil mesh raise naming ROADMAP
     item 8e (never the even-slab code); reverse mode through its
-    exchange names 8c"""
+    exchange (item 8c) gives a paint with a grad_fn and a finite
+    gradient"""
     for g in port('%s_refusals' % (grid,)):
         assert all(g.values()) and len(g) == 6, g
 

@@ -563,8 +563,9 @@ def test_nbody_lattice_poisons_every_rank():
 
 
 def test_sharded_meshes_refuse_what_is_not_ported():
-    """the lattice path on an uneven mesh (ROADMAP item 8e) and reverse
-    mode raise on every rank"""
+    """the lattice path on an uneven mesh raises (ROADMAP item 8e) on
+    every rank; reverse mode through the sharded paint (item 8c) gives a
+    finite gradient on every rank"""
     out = launch.spawn(CASES + ':refusals', 2, 'gloo', 'cpu')
     assert out[0] == out[1] == ['uneven', 'grad']
 

@@ -798,10 +798,11 @@ def test_reductions_and_power_match(port, jpm):
 
 def test_refusals(port):
     """the lattice path on uneven and pencil meshes (item 8e; c2c
-    meshes build on the slab route), gradients through the exchange and
-    the sharded paint and readout (8c), global item access and
+    meshes build on the slab route) and global item access and
     reshaping (8d), each a NotImplementedError naming its item; a window
-    past the ghost reach, a ValueError"""
+    past the ghost reach, a ValueError.  Gradients through the exchange
+    and the sharded paint and readout (8c) run: each result has a
+    grad_fn and a finite gradient"""
     for g in port('refusals'):
         assert all(g.values()), g
 

@@ -615,6 +615,7 @@ def test_uneven_reductions_and_power(port):
 
 def test_uneven_refusals(port):
     """the lattice and binned paths on an uneven mesh raise naming
-    ROADMAP item 8e; reverse mode through its exchange names 8c"""
+    ROADMAP item 8e; reverse mode through its exchange (item 8c) gives a
+    paint with a grad_fn and a finite gradient"""
     for g in port('refusals'):
         assert all(g.values()) and len(g) == 6, g

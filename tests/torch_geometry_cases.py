@@ -288,7 +288,8 @@ def _raises(fn, exc, match=None):
 
 def case_refusals(pm, shape, n):
     """the lattice and binned paths on this geometry raise, naming item
-    8e; reverse mode through its exchange names 8c"""
+    8e; reverse mode through its exchange (item 8c) gives a paint with a
+    grad_fn and a finite gradient"""
     pm8 = _pm(grid(pm, shape), n, dtype='f4')
     s = Solver(pm8)
     real = pm8.create(type='real').shape
@@ -296,7 +297,7 @@ def case_refusals(pm, shape, n):
     dlin = pm8.generate_whitenoise(1, type='complex', compat='native')
     Xg = block(pm, np.random.RandomState(0).uniform(
         0, n, (64, 3)).astype('f4')).requires_grad_(True)
-    m8c, m8e = "item 8c", "item 8e"
+    m8e = "item 8e"
     out = dict(
         force_lattice=_raises(lambda: s.force_lattice(disp, (-1.0, 1.0)),
                               NotImplementedError, m8e),
@@ -311,9 +312,16 @@ def case_refusals(pm, shape, n):
         nbody_binned=_raises(lambda: s.nbody_binned(
             disp, disp, [0.1, 0.2]), NotImplementedError, m8e))
     if pm8.blocked:
-        out['grad_paint'] = _raises(lambda: pm8.paint(Xg),
-                                    NotImplementedError, m8c)
+        out['grad_paint'] = _differentiates(lambda: pm8.paint(Xg).value, Xg)
     return out
+
+
+def _differentiates(fn, x):
+    """whether ``fn()`` carries a grad_fn and its sum of squares a finite
+    gradient with respect to ``x``"""
+    y = fn()
+    g, = torch.autograd.grad((y * y).sum(), x)
+    return y.grad_fn is not None and bool(torch.isfinite(g).all())
 
 
 def run_cases(pm, cases):

@@ -207,7 +207,8 @@ def nbody_flat(pm, disp, bounds):
 def refusals(pm):
     """what a sharded mesh refuses: the lattice path on an x length the
     ranks do not divide (ROADMAP item 8e; the mesh itself takes the
-    replicated route), and reverse mode through the sharded paint"""
+    replicated route); and reverse mode through the sharded paint, which
+    no longer raises: its gradient is finite on every rank"""
     from pmesh_tpu_torch.models.fastpm import Solver
     from pmesh_tpu_torch.pm import ParticleMesh
     out = []
@@ -219,11 +220,12 @@ def refusals(pm):
     except NotImplementedError as e:
         if 'item 8e' in str(e):
             out.append('uneven')
-    disp = tuple(torch.zeros((2, 4, 4), requires_grad=True)
+    disp = tuple(torch.full((2, 4, 4), 0.25, requires_grad=True)
                  for _ in range(3))
-    try:
-        gp.paint_grid(disp, procmesh=pm)
-    except NotImplementedError:
+    rho = gp.paint_grid(disp, procmesh=pm)
+    grads = torch.autograd.grad((rho * rho).sum(), disp)
+    if rho.grad_fn is not None and all(bool(torch.isfinite(g).all())
+                                       for g in grads):
         out.append('grad')
     return out
 

@@ -299,12 +299,22 @@ def _raises(fn, exc, match=None):
     return False
 
 
+def _differentiates(fn, x):
+    """whether ``fn()`` carries a grad_fn and its sum of squares a finite
+    gradient with respect to ``x``"""
+    y = fn()
+    g, = torch.autograd.grad((y * y).sum(), x)
+    return y.grad_fn is not None and bool(torch.isfinite(g).all())
+
+
 def case_refusals(pm):
     """what stays refused: the lattice path on the geometries 8a added
     (uneven slabs, replicated meshes, 2-d pencil grids: item 8e, which
-    the meshes themselves no longer refuse, nor c2c meshes), gradients
-    through the exchange (8c), global item access and reshaping (8d),
-    and a window deeper than the ghost reach (ValueError)"""
+    the meshes themselves no longer refuse, nor c2c meshes), global item
+    access and reshaping (8d), and a window deeper than the ghost reach
+    (ValueError); gradients through the exchange and the sharded paint
+    and readout (8c) are no longer refused: each gives a result with a
+    grad_fn and a finite gradient"""
     from pmesh_tpu_torch.parallel.pmesh import ProcessMesh
     pm8 = _pm(pm, 8)
     X = torch.rand((64, 3), dtype=torch.float64,
@@ -312,9 +322,13 @@ def case_refusals(pm):
     Xb = X[pm.rank * 16:(pm.rank + 1) * 16]
     lay = pm8.decompose(Xb)
     rho = pm8.paint(Xb, layout=lay)
-    Xg = Xb.clone().requires_grad_(True)
-    meshg = rho.value.clone().requires_grad_(True)
-    m8c, m8d, m8e = "item 8c", "item 8d", "item 8e"
+    # the gradients on a resharded block, whose plan is not poisoned
+    Xr = pm8.reshard_particles(Xb)
+    layr = pm8.decompose(Xr)
+    rhor = pm8.paint(Xr, layout=layr)
+    Xg = Xr.clone().requires_grad_(True)
+    meshg = rhor.value.clone().requires_grad_(True)
+    m8d, m8e = "item 8d", "item 8e"
     grid = ProcessMesh(shape=(2, pm.size // 2), device='cpu')
 
     def lattice(pm8):
@@ -326,19 +340,15 @@ def case_refusals(pm):
                        NotImplementedError, m8e),
         pencil=_raises(lambda: lattice(_pm(grid, 8)), NotImplementedError,
                        m8e),
-        grad_paint=_raises(lambda: pm8.paint(Xg, layout=lay),
-                           NotImplementedError, m8c),
-        grad_paint_free=_raises(lambda: pm8.paint(Xg), NotImplementedError,
-                                m8c),
-        grad_readout=_raises(lambda: rho.readout(Xg, layout=lay),
-                             NotImplementedError, m8c),
-        grad_mesh=_raises(lambda: ex.readout_sharded(
-            lay, meshg, Xb, pm8.affine.scale, 'cic'), NotImplementedError,
-            m8c),
-        grad_exchange=_raises(lambda: lay.exchange(Xg), NotImplementedError,
-                              m8c),
-        grad_force=_raises(lambda: Solver(pm8).force(Xg),
-                           NotImplementedError, m8c),
+        grad_paint=_differentiates(
+            lambda: pm8.paint(Xg, layout=layr).value, Xg),
+        grad_paint_free=_differentiates(lambda: pm8.paint(Xg).value, Xg),
+        grad_readout=_differentiates(lambda: rhor.readout(Xg, layout=layr),
+                                     Xg),
+        grad_mesh=_differentiates(lambda: ex.readout_sharded(
+            layr, meshg, Xr, pm8.affine.scale, 'cic'), meshg),
+        grad_exchange=_differentiates(lambda: layr.exchange(Xg), Xg),
+        grad_force=_differentiates(lambda: Solver(pm8).force(Xg), Xg),
         cgetitem=_raises(lambda: rho.cgetitem([0, 0, 0]),
                          NotImplementedError, m8d),
         ravel=_raises(lambda: rho.ravel(), NotImplementedError, m8d),
