@@ -253,6 +253,37 @@ host as phases 9, 14 and 15 are:
    KDK step (or per call) forward and forward + backward, the bytes the
    backward staged per rank and the peak per rank.
 
+17. the f64 forms and the field API on the sharded routes: (a) the f64
+   lattice kernels (paint with a mass mesh, readouts of one and three
+   meshes and 'all') at 512^3 CIC for nv 3 and 5, the run-time width at
+   128^3 (nv 7), the x-halo forms on a 128-row slab of 512^3 and the f64
+   rebase at 512^3 (K = 2 -> 2 and -> 3 with velocities) against their
+   plain versions (1e-12 of max; the rebase bitwise), kernel ms beside
+   plain ms and the bound (bytes / 3.35 TB/s or operations / 34 TFLOP/s,
+   NVIDIA's published H100 SXM FP64 rate outside the tensor cores);
+   (b) phase 4's path in f8 at 512^3 (lpt_lattice + 5 KDK steps) and a
+   binned superstep (K = 2, two KDK steps and an f64 rebase), each on
+   the f64 kernels (counters read around the run) against the same run
+   with the plain route on the card (1e-10), finite, mass conserved to
+   1e-12, ms per KDK step beside phase 4's f32; one fft='mxu' force of
+   the f8 density (cast to f32 at the pass boundary, as the JAX package
+   casts it) against the f8 fft='xla' force; (c) phase 4d's loss in f8
+   at 256^3: <grad L, v> along a seeded v against the f8 central
+   difference (1e-6 with TSC; with CIC, whose weights' slopes jump at
+   the cell boundaries that a step crosses, printed and held to 1e-3);
+   (d) f8 force_lattice, nbody_lattice and
+   nbody_binned at 32^3 against the CPU (1e-10), and a 2-d lattice run
+   (256^2 against the CPU, 4096^2 timed) on the plain route, with no
+   kernel launch, as the JAX package runs XLA there; (e) ravel/unravel,
+   mesh_coordinates, cgetitem/csetitem (seeded indices and their duals),
+   ctranspose, preview, resample and the untransposed layout on 4 slab
+   ranks of the card over gloo at phase 11's 512^3 force mesh in f4
+   (exact where they move data, 1e-5 of the one-device card run where
+   they compute), with the f8 lattice and binned runs at 64^3 on the
+   x-halo f64 kernels beside them, and the same set at 32^3 in f8 on a
+   (2, 2) pencil grid, 5 uneven slab ranks and 3 replicated ranks
+   against the CPU (1e-10); each call's ms and the bytes staged.
+
 The second-to-last line is the kernels' JSON record, the last line
 the device record.
 """
@@ -362,6 +393,27 @@ KERNELS = {
                             "pmesh_tpu/ops/binned_pallas.py:84"),
     "rebase_apply_xhalo": ("pmesh_tpu_torch/csrc/binned.cu",
                            "pmesh_tpu/ops/binned_pallas.py:84"),
+    # the f64 forms (f8 meshes and states, which reach the JAX package's
+    # Pallas kernels too): the lattice ones built apart (gridpm64.cu),
+    # the rebase in binned.cu; their x-halo slab forms
+    "paint_lattice_f64": ("pmesh_tpu_torch/csrc/gridpm64.cu",
+                          "pmesh_tpu/ops/gridpm_pallas.py:491"),
+    "readout_lattice_f64": ("pmesh_tpu_torch/csrc/gridpm64.cu",
+                            "pmesh_tpu/ops/gridpm_pallas.py:171"),
+    "readout_lattice_f64 (3 meshes)": ("pmesh_tpu_torch/csrc/gridpm64.cu",
+                                       "pmesh_tpu/ops/gridpm_pallas.py:171"),
+    "paint_lattice_xhalo_f64": ("pmesh_tpu_torch/csrc/gridpm64.cu",
+                                "pmesh_tpu/ops/gridpm_pallas.py:410"),
+    "readout_lattice_xhalo_f64": ("pmesh_tpu_torch/csrc/gridpm64.cu",
+                                  "pmesh_tpu/ops/gridpm_pallas.py:347"),
+    "rebase_assign_f64": ("pmesh_tpu_torch/csrc/binned.cu",
+                          "pmesh_tpu/ops/binned_pallas.py:375"),
+    "rebase_apply_f64": ("pmesh_tpu_torch/csrc/binned.cu",
+                         "pmesh_tpu/ops/binned_pallas.py:519"),
+    "rebase_assign_xhalo_f64": ("pmesh_tpu_torch/csrc/binned.cu",
+                                "pmesh_tpu/ops/binned_pallas.py:84"),
+    "rebase_apply_xhalo_f64": ("pmesh_tpu_torch/csrc/binned.cu",
+                               "pmesh_tpu/ops/binned_pallas.py:84"),
 }
 # the bf16 forms of the DFT kernels: the bf16 products (fft='mxu_bf16',
 # precision='bf16') of each, "<kernel>_bf16", and the bf16 spectrum
@@ -5849,6 +5901,846 @@ def phase_sharded_reverse(dev, refdir):
                              % ", ".join(fails))
 
 
+# --- phase 17: the f64 kernels, the f8 paths, 2-d meshes and the field
+# API on the sharded routes -------------------------------------------------
+
+# NVIDIA's published FP64 rate of the H100 SXM outside the tensor cores,
+# for the f64 kernels' bounds
+PEAK_F64 = 34e12
+TOL_F64 = 1e-12         # f64 kernel against its plain version, of max
+TOL_F8 = 1e-10          # an f8 path on the card against the plain route
+TOL_F8_MASS = 1e-12
+TOL_F8_GRAD = 1e-6      # <grad L, v> against the f8 central difference
+TOL_F8_GRAD_CIC = 1e-3  # the same with CIC (phase_grad_f8 says why)
+# 17(a): the lattice cases at N^3 (nv 3 and 5), the run-time width
+# (nv 7 at WIDE_N^3), the x-halo forms on a slab of F64_SLAB_ROWS rows of
+# N^3, the rebase at N^3 K = 2 -> 2 and -> 3
+F64_BOUNDS = ((-1.0, 1.0), (-2.0, 2.0))
+F64_SLAB_ROWS = 128
+F64_REBASE = (((-0.5, 1.5), (1.0, 0.25), 2), ((-0.5, 1.5), (1.0, 0.25), 3))
+F8_GRAD_N = 256          # phase 4d's loss in f8 (512^3 would take 60 GB)
+F8_FD_EPS = 1e-5         # cells, along a unit-rms direction
+TWO_D = (256, 4096)      # the 2-d lattice run: card against CPU, card alone
+ACCESS_N = CAT_N * CAT_B     # phase 11's force mesh, 512^3 f4
+ACCESS_SMALL = 32            # the f8 geometries, card against CPU
+ACCESS_STEPS = np.linspace(0.1, 0.2, 4)     # 17(e)'s f8 slab run: 3 KDK
+ACCESS_SHARDED_N = 64
+ACCESS_INDEX = 8             # seeded indices, each with its dual
+TOL_ACCESS_F4 = 1e-5
+
+
+def plain_route():
+    """a context in which the lattice paint and readout and the rebase
+    take their plain versions on the card (impl='torch' for every call
+    of a Solver, which takes no impl)"""
+    import contextlib
+    from pmesh_tpu_torch.ops import binned as bn
+    from pmesh_tpu_torch.ops import gridpm as gp
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = gp.route, bn.route
+        gp.route = bn.route = lambda impl, device, ndim: 'torch'
+        try:
+            yield
+        finally:
+            gp.route, bn.route = saved
+    return ctx()
+
+
+def timed_once(fn):
+    """(fn(), its device ms): one call between CUDA events"""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def rel_max(got, ref):
+    """max over the tensors of max|got - ref| / max|ref|"""
+    return max(float((g.double() - r.double()).abs().max()
+                     / r.double().abs().max().clamp_min(1e-300))
+               for g, r in zip(as_tuple(got), as_tuple(ref)))
+
+
+def f64_record(err, ms, plain_ms, moved, ops):
+    """a kernel's record with its bound from the FP64 rate"""
+    rec = record(err, ms, plain_ms, moved, 0)
+    by_ops = ops / PEAK_F64 * 1e3
+    if by_ops > rec['bound_ms']:
+        rec.update(bound_ms=by_ops, bound_by="operations")
+    return rec
+
+
+def phase_compare_f64(dev):
+    """17(a): the f64 lattice kernels (paint with a mass mesh, readouts of
+    one and three meshes and 'all') at N^3 for nv 3 and 5, the run-time
+    width at WIDE_N^3 (nv 7), the x-halo forms on an F64_SLAB_ROWS-row
+    slab of N^3 (paint, three-mesh readout, rebase), and the f64 rebase
+    at N^3 (K = 2 -> 2 and -> 3 with velocities), each against its plain
+    version on the same tensors (1e-12 of max, the rebase bitwise), kernel
+    ms beside plain ms and the bound (bytes / 3.35 TB/s or operations /
+    34 TFLOP/s FP64).  Returns {kernel: record} of the main path's case
+    (nv 3, K = 2 -> 2)"""
+    from pmesh_tpu_torch.ops import binned as bn
+    from pmesh_tpu_torch.ops import binned_cuda
+    from pmesh_tpu_torch.ops import gridpm as gp
+    from pmesh_tpu_torch.ops import gridpm_cuda
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    f8 = torch.float64
+    records, fails = {}, []
+
+    def uni(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev,
+                                           dtype=f8)
+
+    def check(name, label, fn, moved, ops, bitwise=False):
+        got = fn('cuda')
+        ref, plain_ms = timed_once(lambda: fn('torch'))
+        ms = cuda_ms(lambda: fn('cuda'), 3)
+        abs_err = max_abs_diff(got, ref)
+        if bitwise:
+            ok, err = bitwise_equal(got, ref), abs_err
+        else:
+            err = rel_max(got, ref)
+            ok = err <= TOL_F64
+        rec = f64_record(abs_err, ms, plain_ms, moved, ops)
+        log("phase 17(a) f64 %s %s: %s %.3e (tol %s), kernel %.3f ms, plain "
+            "%.3f ms, bound %.3f ms (%s), on %s %s"
+            % (name, label, "max|k-p|" if bitwise else "max|k-p|/max|p|",
+               err, "bitwise" if bitwise else "%.0e" % TOL_F64, ms, plain_ms,
+               rec['bound_ms'], rec['bound_by'], CARD,
+               "ok" if ok else "FAIL"))
+        if not ok:
+            fails.append("%s %s" % (name, label))
+        return rec
+
+    for bounds in F64_BOUNDS:
+        shape = (N,) * 3
+        disp = tuple(uni(shape, *bounds) for _ in range(3))
+        mass = 1.0 + 0.2 * torch.randn(shape, generator=gen, device=dev,
+                                       dtype=f8)
+        meshes = tuple(torch.randn(shape, generator=gen, device=dev,
+                                   dtype=f8) for _ in range(3))
+        vmin, vmax = gp.offset_range(*bounds, 'cic')
+        nv, pts = vmax - vmin + 1, N ** 3
+        label = "%d^3 CIC bounds %s nv %d" % (N, bounds, nv)
+        cases = {
+            "paint_lattice_f64": (
+                lambda impl: gp.paint_grid(disp, mass, bounds, impl=impl),
+                nbytes(disp, mass) + pts * 8, paint_ops(nv, pts, True)),
+            "readout_lattice_f64": (
+                lambda impl: gp.readout_grid(meshes[0], disp, bounds,
+                                             impl=impl),
+                nbytes(disp, meshes[0]) + pts * 8, readout_ops(nv, pts)),
+            "readout_lattice_f64 (3 meshes)": (
+                lambda impl: gp.readout_grid(meshes, disp, bounds,
+                                             impl=impl),
+                nbytes(disp, meshes) + 3 * pts * 8,
+                readout_ops(nv, pts, 3)),
+            "readout_lattice_f64 'all'": (
+                lambda impl: gp.readout_grid(meshes[0], disp, bounds,
+                                             diffdir='all', impl=impl),
+                nbytes(disp, meshes[0]) + 3 * pts * 8,
+                readout_ops(nv, pts, diff_all=True))}
+        for name, (fn, moved, ops) in cases.items():
+            rec = check(name, label, fn, moved, ops)
+            if bounds == F64_BOUNDS[0] and name in KERNELS:
+                records[name] = rec
+        if bounds == F64_BOUNDS[0]:
+            # the x-halo forms on a slab of F64_SLAB_ROWS rows
+            rows = F64_SLAB_ROWS
+            lo, hi = max(0, vmax), max(0, -vmin)
+            dext = tuple(d[:lo + rows + hi] for d in disp)
+            mext = mass[:lo + rows + hi]
+            spts = rows * N * N
+            records["paint_lattice_xhalo_f64"] = check(
+                "paint_lattice_xhalo_f64", "%d-row slab of %d^3 nv %d"
+                % (rows, N, nv),
+                lambda impl: gridpm_cuda.paint_lattice(
+                    dext, mext, vmin, vmax, 'cic', rows=rows, xbase=lo)
+                if impl == 'cuda' else gp.paint_slab_plain(
+                    dext, mext, lo, rows, bounds, 'cic'),
+                nbytes(dext, mext) + spts * 8, paint_ops(nv, spts, True))
+            lo, hi = max(0, -vmin), max(0, vmax)
+            mx = tuple(m[:lo + rows + hi] for m in meshes)
+            rd = tuple(d[:rows].contiguous() for d in disp)
+            records["readout_lattice_xhalo_f64"] = check(
+                "readout_lattice_xhalo_f64", "%d-row slab of %d^3 nv %d, "
+                "3 meshes" % (rows, N, nv),
+                lambda impl: gridpm_cuda.readout_lattice(
+                    mx, rd, vmin, vmax, 'cic', xbase=lo)
+                if impl == 'cuda' else gp.readout_slab_plain(
+                    mx, rd, lo, bounds, 'cic'),
+                nbytes(mx, rd) + 3 * spts * 8, readout_ops(nv, spts, 3))
+            del dext, mext, mx, rd
+        del disp, mass, meshes
+        torch.cuda.empty_cache()
+    # the run-time width
+    bounds = WIDE_BOUNDS
+    shape = (WIDE_N,) * 3
+    disp = tuple(uni(shape, *bounds) for _ in range(3))
+    meshes = tuple(torch.randn(shape, generator=gen, device=dev, dtype=f8)
+                   for _ in range(3))
+    vmin, vmax = gp.offset_range(*bounds, 'cic')
+    nv, pts = vmax - vmin + 1, WIDE_N ** 3
+    label = "%d^3 CIC bounds %s nv %d (read at run time)" % (WIDE_N, bounds,
+                                                             nv)
+    check("paint_lattice_f64", label,
+          lambda impl: gp.paint_grid(disp, None, bounds, impl=impl),
+          nbytes(disp) + pts * 8, paint_ops(nv, pts))
+    check("readout_lattice_f64 (3 meshes)", label,
+          lambda impl: gp.readout_grid(meshes, disp, bounds, impl=impl),
+          nbytes(disp, meshes) + 3 * pts * 8, readout_ops(nv, pts, 3))
+    del disp, meshes
+    torch.cuda.empty_cache()
+    # the rebase, bitwise
+    for bounds, fill, kout in F64_REBASE:
+        drift = min(0.05 - bounds[0], bounds[1] - 0.95)
+        dslots, vslots, valid = rebase_state(dev, gen, N, drift, fill)
+        dslots, vslots = (tuple(tuple(x.double() for x in s) for s in t)
+                          for t in (dslots, vslots))
+        valid = tuple(v.double() for v in valid)
+        offsets = bn._drift_offsets(bounds, 3)
+        lo, hi = offsets[0][0], offsets[-1][0]
+        label = "%d^3 K=%d->%d bounds %s" % (N, len(fill), kout, bounds)
+        routes = binned_cuda.rebase_assign(dslots, valid, kout, lo, hi)[2]
+        rec_a = check(
+            "rebase_assign_f64", label,
+            lambda impl: binned_cuda.rebase_assign(dslots, valid, kout, lo,
+                                                   hi)
+            if impl == 'cuda' else bn.rebase_assign_plain(dslots, valid,
+                                                          offsets, kout),
+            nbytes(dslots, valid) + N ** 3 * kout * (4 * 8 + 2),
+            REBASE_OPS * len(fill) * N ** 3, bitwise=True)
+        rec_p = check(
+            "rebase_apply_f64", label,
+            lambda impl: binned_cuda.rebase_apply((vslots,), routes, lo, hi)
+            if impl == 'cuda' else bn.rebase_apply_plain((vslots,), routes,
+                                                         offsets),
+            nbytes(vslots, routes) + N ** 3 * kout * 3 * 8, 0, bitwise=True)
+        if kout == len(fill):
+            records["rebase_assign_f64"], records["rebase_apply_f64"] = \
+                rec_a, rec_p
+            # the x-halo form on a slab of F64_SLAB_ROWS rows
+            rows, xb = F64_SLAB_ROWS, max(0, hi)
+            ext = tuple(tuple(x[:xb + rows - lo] for x in s) for s in dslots)
+            vext = tuple(v[:xb + rows - lo] for v in valid)
+            eext = tuple(tuple(x[:xb + rows - lo] for x in s)
+                         for s in vslots)
+            srt = binned_cuda.rebase_assign(ext, vext, kout, lo, hi,
+                                            rows=rows, xbase=xb)[2]
+            spts = rows * N * N
+            records["rebase_assign_xhalo_f64"] = check(
+                "rebase_assign_xhalo_f64", "%d-row slab of %s" % (rows,
+                                                                  label),
+                lambda impl: binned_cuda.rebase_assign(
+                    ext, vext, kout, lo, hi, rows=rows, xbase=xb)
+                if impl == 'cuda' else bn.rebase_assign_plain(
+                    ext, vext, offsets, kout, rows=rows, xbase=xb),
+                nbytes(ext, vext) + spts * kout * (4 * 8 + 2),
+                REBASE_OPS * len(fill) * spts, bitwise=True)
+            records["rebase_apply_xhalo_f64"] = check(
+                "rebase_apply_xhalo_f64", "%d-row slab of %s" % (rows, label),
+                lambda impl: binned_cuda.rebase_apply(
+                    (eext,), srt, lo, hi, xbase=xb)
+                if impl == 'cuda' else bn.rebase_apply_plain(
+                    (eext,), srt, offsets, xbase=xb),
+                nbytes(eext, srt) + spts * kout * 3 * 8, 0, bitwise=True)
+            del ext, vext, eext, srt
+        del dslots, vslots, valid, routes
+        torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError("phase 17(a): the f64 kernels disagree with "
+                             "their plain versions: %s" % ", ".join(fails))
+    return records
+
+
+def f8_lattice_run(solver, dlinear, steps):
+    S, V = solver.lpt_lattice(dlinear, A0, order=2)
+    return solver.nbody_lattice(S, V, steps, BOUNDS)
+
+
+def f8_state_gap(got, ref):
+    """max over the tensors of max|got - ref| / max|ref|"""
+    return rel_max(got, ref)
+
+
+def phase_main_f8(dev, step_ms32):
+    """17(b): phase 4's path in f8 at N^3, fft='xla': lpt_lattice and 5
+    KDK steps of nbody_lattice on the f64 kernels (counters read around
+    it), against the same run with the plain route on the card (1e-10 of
+    max), finite, a paint of it conserving mass (1e-12); ms per KDK step
+    beside phase 4's f32; a superstep of nbody_binned at N^3, K = 2 (two
+    KDK steps and an f64 rebase) held the same way; one fft='mxu' force
+    of the f8 density (cast to f32 at the pass boundary) against the f8
+    xla force.  Returns the launches of the lattice and binned runs"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import binned as bn
+    from pmesh_tpu_torch.ops import gridpm as gp
+    pm = ParticleMesh([N] * 3, BoxSize=BOX, dtype='f8', resampler='cic',
+                      device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    dlinear = linear_field(pm, gen)
+    solver = Solver(pm)
+    nsteps = len(STEPS) - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    (S, V), ms = timed_once(lambda: f8_lattice_run(solver, dlinear, STEPS))
+    launches = {k: v for k, v in counters().items() if v}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    with plain_route():
+        (S2, V2), plain_ms = timed_once(lambda: f8_lattice_run(
+            solver, dlinear, STEPS))
+    gap = f8_state_gap(S + V, S2 + V2)
+    del S2, V2
+    finite = all(bool(torch.isfinite(x).all()) for x in S + V)
+    mass = float(gp.paint_grid(S, bounds=BOUNDS).sum())
+    mass_err = abs(mass - N ** 3) / N ** 3
+    t1 = cuda_ms(lambda: f8_lattice_run(solver, dlinear, STEPS[:2]), 1)
+    step_ms = (ms - t1) / (nsteps - 1)
+    lattice_ok = (finite and gap <= TOL_F8 and mass_err <= TOL_F8_MASS
+                  and set(launches) == {"paint_lattice_f64",
+                                        "readout_lattice_f64"}
+                  and launches["paint_lattice_f64"]
+                  == launches["readout_lattice_f64"] == nsteps + 1)
+    log("phase 17(b) main path in f8 on %s: %d^3 cic fft='xla', "
+        "lpt_lattice(order=2) + nbody_lattice %d KDK steps in %.3f ms (plain "
+        "route on the card %.3f ms), launches %s (need paint and readout "
+        "f64 %d each), against the plain route max|d|/max = %.3e (tol "
+        "%.0e), finite %s, mass error %.3e (tol %.0e), peak %.2f GB; %.3f ms "
+        "per KDK step (phase 4's f32: %.3f ms) %s"
+        % (CARD, N, nsteps, ms, plain_ms, json.dumps(launches), nsteps + 1,
+           gap, TOL_F8, finite, mass_err, TOL_F8_MASS, peak_gb, step_ms,
+           step_ms32, "ok" if lattice_ok else "FAIL"))
+    # one fft='mxu' force of the f8 density: the passes take it cast to
+    # f32 (the JAX package's cast), so it is the f32 density's force
+    rho = gp.paint_grid(S, bounds=BOUNDS)
+    del S, V
+    f_mxu = solver._mxu_force_raw(rho, (None, None))
+    mxu_ms = cuda_ms(lambda: solver._mxu_force_raw(rho, (None, None)), 3)
+    f_32 = solver._mxu_force_raw(rho.float(), (None, None))
+    f_xla = solver._spectral_meshes(rho, 'xla')
+    mxu_gap = rel_max(f_mxu, f_xla)
+    cast_same = all(torch.equal(a, b) for a, b in zip(f_mxu, f_32))
+    mxu_ok = (cast_same and mxu_gap <= 1e-4
+              and all(f.dtype == torch.float32 for f in f_mxu))
+    log("phase 17(b) fft='mxu' force of the f8 density: %.3f ms, dtype %s, "
+        "bitwise the f32 density's %s, against the f8 fft='xla' force "
+        "max|d|/max = %.3e (tol 1e-4) %s"
+        % (mxu_ms, f_mxu[0].dtype, cast_same, mxu_gap,
+           "ok" if mxu_ok else "FAIL"))
+    del rho, f_mxu, f_32, f_xla, dlinear
+    torch.cuda.empty_cache()
+    # the binned superstep, K = 2, an f64 rebase between its two steps
+    shape = (N,) * 3
+    disp = tuple(0.05 + 0.9 * torch.rand(shape, generator=gen, device=dev,
+                                         dtype=torch.float64)
+                 for _ in range(3))
+    vel = tuple(0.02 * torch.randn(shape, generator=gen, device=dev,
+                                   dtype=torch.float64) for _ in range(3))
+    s = Solver(ParticleMesh([N] * 3, float(N), dtype='f8', device=dev))
+    reset_counters()
+    out, bms = timed_once(lambda: s.nbody_binned(disp, vel, SUPERSTEP_STEPS,
+                                                 **BINNED_KW))
+    blaunches = {k: v for k, v in counters().items() if v}
+    ds, vs, va, ov = out
+    del out
+    with plain_route():
+        (ds2, vs2, va2, ov2), bplain = timed_once(lambda: s.nbody_binned(
+            disp, vel, SUPERSTEP_STEPS, **BINNED_KW))
+    bgap = f8_state_gap(sum(ds + vs, ()) + va, sum(ds2 + vs2, ()) + va2)
+    del ds2, vs2, va2, disp, vel
+    count = int(bn.occupancy(va)[0])
+    bmass = float(bn.paint_binned(ds, va, bounds=(-1.0, 2.0)).sum())
+    bfinite = all(bool(torch.isfinite(x).all()) for x in sum(ds + vs, ()))
+    binned_ok = (bgap <= TOL_F8 and int(ov) == int(ov2) == 0
+                 and count == N ** 3 and bfinite
+                 and abs(bmass - N ** 3) / N ** 3 <= TOL_F8_MASS
+                 and set(blaunches) == {"paint_lattice_f64",
+                                        "readout_lattice_f64",
+                                        "rebase_assign_f64",
+                                        "rebase_apply_f64"})
+    log("phase 17(b) binned superstep in f8 on %s: %d^3 K=%d, 2 KDK steps + "
+        "1 f64 rebase in %.3f ms (plain route on the card %.3f ms), "
+        "launches %s, against the plain route max|d|/max = %.3e (tol %.0e), "
+        "overflow %d, particles %d of %d, mass error %.3e, finite %s %s"
+        % (CARD, N, len(ds), bms, bplain, json.dumps(blaunches), bgap,
+           TOL_F8, int(ov), count, N ** 3, abs(bmass - N ** 3) / N ** 3,
+           bfinite, "ok" if binned_ok else "FAIL"))
+    del ds, vs, va, s, solver
+    torch.cuda.empty_cache()
+    if not (lattice_ok and mxu_ok and binned_ok):
+        raise AssertionError("phase 17(b): the f8 paths failed their "
+                             "checks")
+    return launches, blaunches
+
+
+def phase_grad_f8(dev):
+    """17(c): phase 4d's loss in f8 at F8_GRAD_N^3 (its 2 KDK steps from
+    the LPT state of the same linear field), its gradient on the f64
+    kernels; <grad L, v> along a seeded v against the f8 central
+    difference of L.  With TSC (a continuous derivative window) the
+    difference of step F8_FD_EPS is held to TOL_F8_GRAD.  With CIC it
+    cannot be: a particle whose displacement lies within the step of a
+    cell boundary along v puts an O(1) error into its term (the slope of
+    its weight jumps there), and at 256^3 some thousands do at any step
+    the f8 loss resolves; the CIC gap is printed at F8_FD_EPS and 1e-7
+    and held to TOL_F8_GRAD_CIC"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    n = F8_GRAD_N
+    pm = ParticleMesh([n] * 3, BoxSize=BOX * n / N, dtype='f8',
+                      resampler='cic', device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    dlinear = linear_field(pm, gen)
+    ok = True
+    for window in ('cic', 'tsc'):
+        solver = Solver(pm, force_resampler=window)
+        state = sum(solver.lpt_lattice(dlinear, A0, order=2), ())
+        v = tuple(torch.randn(x.shape, generator=gen, device=dev,
+                              dtype=torch.float64) for x in state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        g, ms = timed_once(lambda: grad_run(solver, state, GRAD_STEPS,
+                                            'xla'))
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = {k: c for k, c in counters().items() if c}
+        dot = sum(float((a * b).sum()) for a, b in zip(g, v))
+
+        def loss(step):
+            with torch.no_grad():
+                return float(grad_run(solver, tuple(
+                    x + step * d for x, d in zip(state, v)), GRAD_STEPS,
+                    'xla', backward=False))
+        gaps = {}
+        for eps in ((F8_FD_EPS,) if window == 'tsc' else (F8_FD_EPS,
+                                                            1e-7)):
+            fd = (loss(eps) - loss(-eps)) / (2 * eps)
+            gaps[eps] = abs(dot - fd) / abs(dot)
+        tol = TOL_F8_GRAD if window == 'tsc' else TOL_F8_GRAD_CIC
+        good = (min(gaps.values()) <= tol
+                and all(bool(torch.isfinite(x).all()) for x in g)
+                and set(launches) == {"paint_lattice_f64",
+                                      "readout_lattice_f64"})
+        ok = ok and good
+        log("phase 17(c) f8 gradient on %s, %s: %d^3, d/d(disp, vel) of "
+            "sum(S^2 + 2 V^2) after %d KDK steps, forward + backward %.3f ms "
+            "on the f64 kernels (launches %s), peak %.2f GB; <grad L, v> = "
+            "%.12e against the central difference: gap %s (tol %.0e) %s"
+            % (CARD, window.upper(), n, len(GRAD_STEPS) - 1, ms,
+               json.dumps(launches), peak_gb, dot,
+               ", ".join("%.3e at step %g" % (gp_, e)
+                         for e, gp_ in gaps.items()), tol,
+               "ok" if good else "FAIL"))
+        del g, state, v, solver
+        torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("phase 17(c): the f8 gradient disagrees with "
+                             "the central difference")
+
+
+def f8_small_runs(device, n=32):
+    """force_lattice, lpt_lattice + 3 KDK steps of nbody_lattice and
+    phase 7's adaptive binned run at n^3 in f8 on ``device``, and the
+    launch counters of the lattice and binned runs (none on the CPU)"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    rng = np.random.RandomState(SEED)
+    pm = ParticleMesh([n] * 3, BoxSize=2.0 * n, dtype='f8', device=device)
+    noise = pm.create(type='real', value=torch.from_numpy(
+        rng.normal(size=(n,) * 3)).to(pm.device))
+    dlin = noise.r2c().apply(lambda k, v: 0.5 * v * torch.where(
+        k.normp(2) > 0, k.normp(2, zeromode=1.0) ** -0.75, 0.0))
+    s = Solver(pm)
+    out = {}
+    reset_counters()
+    S, V = s.lpt_lattice(dlin, 0.1, order=2)
+    out['force'] = s.force_lattice(S, BOUNDS)
+    S, V = s.nbody_lattice(S, V, np.linspace(0.1, 0.2, 4), BOUNDS)
+    out['lattice'] = S + V
+    out['lattice_launches'] = {k: v for k, v in counters().items() if v}
+    reset_counters()
+    disp = rng.uniform(-0.6, 1.6, (3,) + (n,) * 3)
+    vel = 0.3 * rng.normal(size=(3,) + (n,) * 3)
+    ds, vs, va, ov = s.nbody_binned(
+        tuple(torch.from_numpy(x).to(pm.device) for x in disp),
+        tuple(torch.from_numpy(x).to(pm.device) for x in vel),
+        np.linspace(0.5, 0.6, 5), nslots=1, rebase_every=2,
+        step_drift=0.5, adaptive=True)
+    out['binned'] = sum(ds + vs, ()) + tuple(va)
+    out['overflow'] = int(ov)
+    out['binned_launches'] = {k: v for k, v in counters().items() if v}
+    return out
+
+
+def lattice_2d(device, n, steps=4):
+    """a 2-d f8 lattice run (n^2): seeded displacements and velocities,
+    nbody_lattice over steps - 1 KDK steps"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    gen = torch.Generator().manual_seed(SEED + 3)
+    disp = tuple(0.6 * torch.rand((n, n), generator=gen,
+                                  dtype=torch.float64) - 0.3
+                 for _ in range(2))
+    vel = tuple(0.05 * torch.randn((n, n), generator=gen,
+                                   dtype=torch.float64) for _ in range(2))
+    pm = ParticleMesh([n] * 2, BoxSize=float(n), dtype='f8', device=device)
+    S, V = Solver(pm).nbody_lattice(
+        tuple(d.to(pm.device) for d in disp),
+        tuple(v.to(pm.device) for v in vel), np.linspace(0.2, 0.5, steps),
+        (-1.0, 1.0))
+    return S + V
+
+
+def phase_small_f8(dev):
+    """17(d): f8 force_lattice, nbody_lattice and nbody_binned at 32^3 on
+    the f64 kernels against the CPU (1e-10 of max); a 2-d lattice run at
+    TWO_D[0]^2 on the card (the plain route, no launch) against the CPU,
+    and at TWO_D[1]^2 on the card alone, timed"""
+    got, ref = f8_small_runs(dev), f8_small_runs('cpu')
+    gaps = {key: max(rel_ref(g.cpu(), r) for g, r in zip(got[key], ref[key]))
+            for key in ('force', 'lattice', 'binned')}
+    ok = (all(v <= TOL_F8 for v in gaps.values())
+          and len(got['binned']) == len(ref['binned'])
+          and got['overflow'] == ref['overflow'] == 0
+          and set(got['lattice_launches']) == {"paint_lattice_f64",
+                                               "readout_lattice_f64"}
+          and set(got['binned_launches']) == {
+              "paint_lattice_f64", "readout_lattice_f64",
+              "rebase_assign_f64", "rebase_apply_f64"})
+    log("phase 17(d) f8 32^3 card against CPU: force_lattice %.3e, "
+        "nbody_lattice %.3e, nbody_binned (adaptive, K %d) %.3e (tol %.0e); "
+        "launches lattice %s, binned %s %s"
+        % (gaps['force'], gaps['lattice'], len(got['binned']) // 7,
+           gaps['binned'], TOL_F8,
+           json.dumps(got['lattice_launches']),
+           json.dumps(got['binned_launches']), "ok" if ok else "FAIL"))
+    n = TWO_D[0]
+    reset_counters()
+    g2 = lattice_2d(dev, n)
+    launched = {k: v for k, v in counters().items() if v}
+    r2 = lattice_2d('cpu', n)
+    gap2 = max(rel_ref(g.cpu(), r) for g, r in zip(g2, r2))
+    finite = all(bool(torch.isfinite(x).all()) for x in g2)
+    ok2 = finite and launched == {} and gap2 <= TOL_F8
+    big = TWO_D[1]
+    reset_counters()
+    ms = cuda_ms(lambda: lattice_2d(dev, big), 1)
+    big_launched = {k: v for k, v in counters().items() if v}
+    ok2 = ok2 and big_launched == {}
+    log("phase 17(d) 2-d f8 lattice (3 KDK steps): %d^2 card against CPU "
+        "%.3e (tol %.0e), finite %s, kernel launches %s (need none: the "
+        "plain route, as the JAX package's XLA); %d^2 on %s %.3f ms, "
+        "launches %s %s"
+        % (n, gap2, TOL_F8, finite, json.dumps(launched), big, CARD, ms,
+           json.dumps(big_launched), "ok" if ok2 else "FAIL"))
+    if not (ok and ok2):
+        raise AssertionError("phase 17(d): the f8 or 2-d runs failed")
+
+
+def access_field(pm8, n, dtype, seed=SEED + 21):
+    """the seeded global field of 17(e) on the host and this rank's
+    RealField block of it"""
+    gen = torch.Generator().manual_seed(seed)
+    whole = torch.randn((n,) * 3, generator=gen, dtype=dtype)
+    block = whole[tuple(slice(lo, hi) for lo, hi in pm8.local_block('real'))]
+    return whole, pm8.create(type='real', value=block.contiguous().to(
+        pm8.device))
+
+
+def access_indices(n, count=ACCESS_INDEX):
+    """seeded global indices of the half spectrum, each with its dual"""
+    rng = np.random.RandomState(SEED + 22)
+    out = []
+    for _ in range(count):
+        i = tuple(int(k) for k in rng.randint(0, n, 3))
+        out += [i, tuple((n - k) % n for k in i)]
+    return out
+
+
+def access_set(pm8, n, dtype, procmesh=None):
+    """17(e) on each rank (or on one device): every method of item 8d on
+    the seeded field, each call timed with the bytes the collectives
+    staged through the host; the exact checks against the host copy of
+    the field made here (ravel, unravel, ctranspose, the untransposed
+    layout against the gathered spectrum), the rest returned for the
+    parent (cgetitem values, preview, the resample's block)"""
+    from pmesh_tpu_torch.parallel.comm import STAGED_BYTES, reset_staged
+    whole, r = access_field(pm8, n, dtype)
+    calls, checks, out = {}, {}, {}
+
+    def call(name, fn):
+        if procmesh is not None:
+            synced(procmesh)
+        elif pm8.device.type == 'cuda':
+            torch.cuda.synchronize(pm8.device)
+        reset_staged()
+        t0 = time.perf_counter()
+        y = fn()
+        if pm8.device.type == 'cuda':
+            torch.cuda.synchronize(pm8.device)
+        calls[name] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                           staged=STAGED_BYTES["to_host"]
+                           + STAGED_BYTES["to_device"])
+        return y
+    T = call('r2c', r.r2c)
+    flat = call('ravel', r.ravel)
+    nl = -(-n ** 3 // (procmesh.size if pm8.sharded else 1))
+    lo = nl * procmesh.rank if pm8.blocked else 0
+    checks['ravel'] = bool(torch.equal(flat.cpu(), whole.reshape(-1)[
+        lo:lo + flat.shape[0]]))
+    back = pm8.create(type='real')
+    call('unravel', lambda: back.unravel(flat))
+    checks['unravel'] = bool(torch.equal(back.value, r.value))
+    cflat = call('ravel (complex)', T.ravel)
+    spec = pm8._whole(T.value, 'complex')
+    clo = -(-T.csize // procmesh.size) * procmesh.rank if pm8.blocked \
+        else 0
+    checks['ravel_complex'] = bool(torch.equal(cflat, spec.reshape(-1)[
+        clo:clo + cflat.shape[0]]))
+    cback = call('unravel (complex)', lambda: pm8.unravel('complex', cflat))
+    checks['unravel_complex'] = bool(torch.equal(cback.value, T.value))
+    # block b of the points in C order on any sharded route
+    coords = pm8.mesh_coordinates(dtype='i8')
+    first = nl * procmesh.rank if pm8.sharded else 0
+    checks['mesh_coordinates'] = bool(torch.equal(
+        (coords[:, 0] * n + coords[:, 1]) * n + coords[:, 2],
+        torch.arange(first, first + len(coords), device=coords.device)))
+    t = call('ctranspose', lambda: r.ctranspose((2, 0, 1)))
+    checks['ctranspose'] = bool(torch.equal(t.value.cpu(), whole.permute(
+        2, 0, 1)[t.slices]))
+    U = pm8.create(type='untransposedcomplex')
+    call('r2c(out=U)', lambda: r.r2c(out=U))
+    checks['U'] = bool(torch.equal(U.value, spec[U.slices]))
+    T2 = call('cast U->T', lambda: U.cast(type='transposedcomplex'))
+    checks['U->T'] = bool(torch.equal(T2.value, T.value))
+    U2 = call('cast T->U', lambda: T.cast(type='untransposedcomplex'))
+    checks['T->U'] = bool(torch.equal(U2.value, U.value))
+    back = call('c2r from U', U.c2r)
+    out['U_c2r_gap'] = float((back.value - r.value).abs().max()
+                             / r.value.abs().max())
+    index = access_indices(n)
+    out['cget'] = call('cgetitem x%d' % len(index),
+                       lambda: [T.cgetitem(i) for i in index])
+    s = T.copy()
+    sets = [(i, complex(1.0 + k, -0.5 * k))
+            for k, i in enumerate(index[0::2][:4])]
+    out['cset_ret'] = call('csetitem x%d' % len(sets),
+                           lambda: [s.csetitem(i, y) for i, y in sets])
+    got = [s.cgetitem(i) for i, _ in sets]
+    checks['csetitem'] = all(g == y for g, (_, y) in zip(got, sets)) and \
+        out['cset_ret'] == [y for _, y in sets]
+    checks['csetitem_dual'] = all(
+        s.cgetitem(tuple((n - k) % n for k in i)) == np.conj(y)
+        for i, y in sets)
+    out['preview'] = call('preview', lambda: r.preview(axes=(0, 1)))
+    o = pm8.reshape(n // 2).create(type='real')
+    call('resample', lambda: r.resample(o))
+    out['resample'] = dict(value=o.value.cpu().numpy(),
+                           at=o.pm.local_block('real'))
+    out.update(calls=calls, checks=checks, route=pm8.route)
+    return out
+
+
+def card_access(pm, n, dtype):
+    """17(e) on each rank: access_set at n^3 of ``dtype``; on the 4 slab
+    ranks of the 512^3 job also the f8 sharded lattice and binned runs
+    (card_f8_sharded), whose x-halo f64 launches the kernels line counts"""
+    from pmesh_tpu_torch import ParticleMesh
+    torch.cuda.reset_peak_memory_stats(pm.device)
+    pm8 = ParticleMesh([n] * 3, BoxSize=float(n) if n != ACCESS_N
+                       else CAT_BOX, dtype=dtype, procmesh=pm)
+    rec = access_set(pm8, n, torch.float64 if dtype == 'f8'
+                     else torch.float32, procmesh=pm)
+    torch.cuda.empty_cache()
+    if n == ACCESS_N:
+        rec['f8'] = card_f8_sharded(pm, ACCESS_SHARDED_N)
+    rec['peak_gb'] = torch.cuda.max_memory_allocated(pm.device) / 2 ** 30
+    return rec
+
+
+def card_f8_sharded(pm, n):
+    """the f8 lattice path (lpt_lattice + 3 KDK steps) and a binned
+    superstep at n^3 on the slab ranks, on the x-halo f64 kernels; rank 0
+    holds the gathered state and density against the one-device card
+    runs (1e-10 of max)"""
+    from pmesh_tpu_torch import ComplexField, ParticleMesh
+    from pmesh_tpu_torch import convert
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import binned as bn
+    gen = torch.Generator(device=pm.device).manual_seed(SEED + 23)
+    box = BOX * n / N
+    pm1 = ParticleMesh([n] * 3, box, dtype='f8', device=pm.device)
+    dl1 = linear_field(pm1, gen)
+    solver = Solver(ParticleMesh([n] * 3, box, dtype='f8', procmesh=pm))
+    dk = solver.pm.create(type=ComplexField, value=convert.to_slabs(
+        dl1.value, pm, axis=1))
+    (S, V), lat = timed_run(pm, lambda: f8_lattice_run(solver, dk,
+                                                      ACCESS_STEPS))
+    got = convert.gather(S + V, pm, dst=0)
+    del S, V
+    shape = (n,) * 3
+    disp = tuple(0.05 + 0.9 * torch.rand(shape, generator=gen,
+                                         device=pm.device,
+                                         dtype=torch.float64)
+                 for _ in range(3))
+    vel = tuple(0.02 * torch.randn(shape, generator=gen, device=pm.device,
+                                   dtype=torch.float64) for _ in range(3))
+    ld, lv = convert.to_slabs((disp, vel), pm)
+    (ds, vs, va, ov), sup = timed_run(pm, lambda: solver.nbody_binned(
+        ld, lv, SUPERSTEP_STEPS, **BINNED_KW))
+    rho = bn.paint_binned(ds, va, bounds=(-1.0, 2.0), procmesh=pm)
+    bgot = convert.gather(rho, pm, dst=0)
+    rec = dict(launches={k: v for k, v in lat['launches'].items() if v},
+               binned_launches={k: v for k, v in sup['launches'].items()
+                                if v},
+               lattice_ms=lat['seconds'] * 1e3,
+               binned_ms=sup['seconds'] * 1e3, overflow=int(ov))
+    if pm.rank == 0:
+        s1 = Solver(pm1)
+        S1, V1 = f8_lattice_run(s1, dl1, ACCESS_STEPS)
+        rec['lattice_gap'] = gathered_rel(got, S1 + V1)
+        d1, _, va1, ov1 = s1.nbody_binned(disp, vel, SUPERSTEP_STEPS,
+                                          **BINNED_KW)
+        rec['binned_gap'] = gathered_rel(bgot, bn.paint_binned(
+            d1, va1, bounds=(-1.0, 2.0)))
+        rec['overflow_single'] = int(ov1)
+    return rec
+
+
+def assemble_blocks(blocks):
+    """the global array from the ranks' {value, at} blocks"""
+    shape = tuple(max(b['at'][d][1] for b in blocks)
+                  for d in range(len(blocks[0]['at'])))
+    out = np.zeros(shape, dtype=blocks[0]['value'].dtype)
+    for b in blocks:
+        out[tuple(slice(lo, hi) for lo, hi in b['at'])] = b['value']
+    return out
+
+
+def access_compare(label, out, ref, tol):
+    """the ranks' 17(e) results against the one-device ``ref``; a line
+    and whether every check held"""
+    checks = {k: all(r['checks'][k] for r in out) for k in out[0]['checks']}
+    same = all(np.array_equal(r['preview'], out[0]['preview'])
+               and r['cget'] == out[0]['cget'] for r in out)
+    scale = max(abs(v) for v in ref['cget'])
+    cget = max(abs(a - b) for a, b in zip(out[0]['cget'], ref['cget'])) \
+        / scale
+    preview = float(np.abs(out[0]['preview'] - ref['preview']).max()
+                    / np.abs(ref['preview']).max())
+    res = assemble_blocks([r['resample'] for r in out])
+    resample = float(np.abs(res - ref['resample']['value']).max()
+                     / np.abs(ref['resample']['value']).max())
+    uc2r = max(r['U_c2r_gap'] for r in out)
+    ok = (all(checks.values()) and same and cget <= tol and preview <= tol
+          and resample <= tol and uc2r <= tol)
+    calls = ", ".join(
+        "%s %.1f ms / %d B" % (k, max(r['calls'][k]['ms'] for r in out),
+                               max(r['calls'][k]['staged'] for r in out))
+        for k in out[0]['calls'])
+    return ok, ("%s (route %s): exact %s; same on every rank %s; against "
+                "one device: cgetitem %.3e, preview(axes=(0, 1)) %.3e, "
+                "resample %.3e, c2r of U %.3e (tol %.0e); per call (slowest "
+                "rank, bytes staged per rank): %s"
+                % (label, out[0]['route'], json.dumps(checks), same, cget,
+                   preview, resample, uc2r, tol, calls))
+
+
+def phase_sharded_access(dev):
+    """17(e): the field API of item 8d on gloo ranks of the card, staged
+    through the host: on 4 slab ranks at phase 11's 512^3 force mesh in
+    f4 against the one-device card (1e-5) with the f8 sharded lattice
+    and binned runs at 64^3 beside it; on a (2, 2) pencil grid, 5 uneven
+    slab ranks and 3 replicated ranks at 32^3 in f8 against the CPU
+    (1e-10).  Returns the x-halo f64 launches summed over the slab ranks
+    (lattice run, binned run)"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.native import cuda
+    from pmesh_tpu_torch.parallel import launch
+    for name in ("gridpm", "gridpm64", "binned", "fft_mxu"):
+        cuda.load(name)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    fails = []
+    n = ACCESS_N
+    one = ParticleMesh([n] * 3, BoxSize=CAT_BOX, dtype='f4', device=dev)
+    ref = access_set(one, n, torch.float32)
+    del one
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = launch.spawn('chip_smoke:card_access', RANKS, 'gloo', dev.type,
+                       n, 'f4')
+    wall = time.perf_counter() - t0
+    ok, line = access_compare("%d slab ranks, %d^3 f4" % (RANKS, n), out,
+                              ref, TOL_ACCESS_F4)
+    log("phase 17(e) field API on %s, ranks on one card over gloo: %s; peak "
+        "per rank %s GB; the job took %.3f s %s"
+        % (CARD, line, " ".join("%.2f" % r['peak_gb'] for r in out), wall,
+           "ok" if ok else "FAIL"))
+    if not ok:
+        fails.append('17(e) slab')
+    lat, bin_ = {}, {}
+    for r in out:
+        for k, v in r['f8']['launches'].items():
+            lat[k] = lat.get(k, 0) + v
+        for k, v in r['f8']['binned_launches'].items():
+            bin_[k] = bin_.get(k, 0) + v
+    f8 = out[0]['f8']
+    ok8 = (f8['lattice_gap'] <= TOL_F8 and f8['binned_gap'] <= TOL_F8
+           and f8['overflow'] == f8['overflow_single'] == 0
+           and set(lat) == {"paint_lattice_xhalo_f64",
+                            "readout_lattice_xhalo_f64"}
+           and {"rebase_assign_xhalo_f64", "rebase_apply_xhalo_f64"}
+           <= set(bin_))
+    log("phase 17(e) f8 on %d slab ranks at %d^3: lpt_lattice + %d KDK "
+        "steps %.3f ms, launches summed %s, state against one device %.3e; "
+        "binned superstep %.3f ms, launches summed %s, density against one "
+        "device %.3e (tol %.0e) %s"
+        % (RANKS, ACCESS_SHARDED_N, len(ACCESS_STEPS) - 1, f8['lattice_ms'],
+           json.dumps(lat), f8['lattice_gap'], f8['binned_ms'],
+           json.dumps(bin_), f8['binned_gap'], TOL_F8,
+           "ok" if ok8 else "FAIL"))
+    if not ok8:
+        fails.append('17(e) f8 slabs')
+    del out
+    torch.cuda.empty_cache()
+    m = ACCESS_SMALL
+    cpu = ParticleMesh([m] * 3, BoxSize=float(m), dtype='f8', device='cpu')
+    ref = access_set(cpu, m, torch.float64)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [(label, pool.submit(launch.spawn, 'chip_smoke:card_access',
+                                    world, 'gloo', dev.type, m, 'f8',
+                                    shape=shape))
+                for label, world, shape in (
+                    ('(2, 2) pencil grid', 4, (2, 2)),
+                    ('5 uneven slab ranks', 5, None),
+                    ('3 replicated ranks', 3, None))]
+        results = [(label, fut.result()) for label, fut in jobs]
+    wall = time.perf_counter() - t0
+    for label, out in results:
+        ok, line = access_compare("%s, %d^3 f8" % (label, m), out, ref,
+                                  TOL_F8)
+        log("phase 17(e) field API on %s: %s %s"
+            % (CARD, line, "ok" if ok else "FAIL"))
+        if not ok:
+            fails.append('17(e) ' + label)
+    log("phase 17(e) the three small jobs took %.3f s" % wall)
+    if fails:
+        raise AssertionError("phase 17 failed its checks: %s"
+                             % ", ".join(fails))
+    return lat, bin_
+
+
 PHASE_TIMES = []
 
 
@@ -5891,6 +6783,7 @@ def run_phases(refdir):
         records.update(timed(phase, dev))
     launches, xla = timed(phase_main, dev)
     pm, dlinear = xla['pm'], xla['dlinear']
+    step_ms32 = xla['step_ms']
     three_mesh = xla['three_mesh']
     mxu_launches, mxu = timed(phase_main_mxu, dev, xla)
     bf16_launches = timed(phase_main_bf16, dev, mxu)
@@ -5930,6 +6823,11 @@ def run_phases(refdir):
     timed(phase_sharded_catalog, dev, catalog['ref'])
     timed(phase_geometries, dev, catalog.pop('ref'))
     timed(phase_sharded_reverse, dev, refdir)
+    records.update(timed(phase_compare_f64, dev))
+    f8_launches, f8_binned_launches = timed(phase_main_f8, dev, step_ms32)
+    timed(phase_grad_f8, dev)
+    timed(phase_small_f8, dev)
+    xhalo_f64, xhalo_f64_binned = timed(phase_sharded_access, dev)
     # each kernel's launches on its own path's main run: the lattice
     # kernels on the fft='xla' lattice run, the ct2 DFT kernels on the
     # fft='mxu' lattice run, the rebase and dense DFT kernels on the
@@ -5959,6 +6857,18 @@ def run_phases(refdir):
     runs.update(("%s (row 9)" % k, sharded['dense']) for k in DENSE)
     runs.update(dict.fromkeys(("rebase_assign_xhalo", "rebase_apply_xhalo"),
                               sharded['superstep']))
+    # the f64 forms on phase 17's f8 runs: the lattice ones on the N^3
+    # lattice run, the rebase on the binned superstep, the x-halo ones on
+    # the slab ranks' f8 lattice run and binned superstep, summed
+    runs.update(dict.fromkeys(("paint_lattice_f64", "readout_lattice_f64",
+                               "readout_lattice_f64 (3 meshes)"),
+                              f8_launches))
+    runs.update(dict.fromkeys(("rebase_assign_f64", "rebase_apply_f64"),
+                              f8_binned_launches))
+    runs.update(dict.fromkeys(("paint_lattice_xhalo_f64",
+                               "readout_lattice_xhalo_f64"), xhalo_f64))
+    runs.update(dict.fromkeys(("rebase_assign_xhalo_f64",
+                               "rebase_apply_xhalo_f64"), xhalo_f64_binned))
     if DEFERRED:
         raise AssertionError("; ".join(DEFERRED))
     log("phase times (s): %s; main %.3f s"

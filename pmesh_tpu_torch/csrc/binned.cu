@@ -1,8 +1,8 @@
 // Binned slot-lattice rebase for Hopper (sm_90a): assign and apply.
 //
 // A binned state holds K slots per mesh cell: slot k of cell c holds a
-// particle at c + d_k(c) (three f32 displacement meshes, cell units)
-// when valid_k(c) > 0.  After some steps the displacements have drifted
+// particle at c + d_k(c) (three f32 or f64 displacement meshes, cell
+// units) when valid_k(c) > 0.  After some steps the displacements have drifted
 // by whole cells; the rebase moves every particle to the cell it drifted
 // into.  Each (slot k, integer offset o) "image" of the source cell
 // s = t - o arrives at the target cell t when valid_k(s) > 0 and
@@ -26,8 +26,10 @@
 // planes for the y/z offsets and patch the wrap planes with extra calls.
 // Here any offset range [olo, ohi] per axis (nr = ohi - olo + 1 offsets)
 // is taken, with the wrap per index.  The image order is the plain
-// version's, so both are bitwise equal: the only arithmetic is one f32
-// subtraction per moved displacement, and the tests are float compares.
+// version's, so both are bitwise equal: the only arithmetic is one
+// subtraction per moved displacement, in the storage type (F, f32 or
+// f64: the JAX package's f8 states reach its Pallas rebase too), and the
+// tests are compares in F.
 //
 // What bounds the assign on this card.  Its compulsory traffic is the
 // state read once (16 B per input slot-cell) and written once (18 B per
@@ -109,19 +111,21 @@ constexpr int kThreads = 128;
 constexpr int TZ = 32, kAssignThreads = 256, TY = kAssignThreads / TZ;
 constexpr int NR_ANY = 0, NR_MAX = 31;
 
+template <class F>
 struct AssignArgs {
-  const float* d[kMaxSlots][3];
-  const float* v[kMaxSlots];
-  float* nd[kMaxSlots][3];
-  float* nv[kMaxSlots];
+  const F* d[kMaxSlots][3];
+  const F* v[kMaxSlots];
+  F* nd[kMaxSlots][3];
+  F* nv[kMaxSlots];
   int16_t* rt[kMaxSlots];
   unsigned long long* overflow;
   int K, Kout, n0, n1, n2, xbase, olo, ohi, xc, group;
 };
 
+template <class F>
 struct ApplyArgs {
-  const float* e[kMaxExtras][kMaxSlots][3];
-  float* ne[kMaxExtras][kMaxSlots][3];
+  const F* e[kMaxExtras][kMaxSlots][3];
+  F* ne[kMaxExtras][kMaxSlots][3];
   const int16_t* rt[kMaxSlots];
   int nextra, Kout, n0, n1, n2, xbase, olo, ohi;
 };
@@ -138,13 +142,22 @@ __device__ __forceinline__ int64_t src_x(int x, int ox, int n0, int xbase) {
   return xbase < 0 ? (int64_t)wrap(x - ox, n0) : (int64_t)(x + xbase - ox);
 }
 
-// 4-byte asynchronous copies from device to shared memory (cp.async):
-// issued, then waited for by the issuing thread, which alone reads them
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+// asynchronous copies of one value from device to shared memory
+// (cp.async, 4 bytes for f32, 8 for f64): issued, then waited for by the
+// issuing thread, which alone reads them
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    (unsigned)__cvta_generic_to_shared(dst)),
                "l"(src));
 }
+__device__ __forceinline__ void cp_async(double* dst, const double* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ float cfloor(float x) { return floorf(x); }
+__device__ __forceinline__ double cfloor(double x) { return floor(x); }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -155,14 +168,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // the code of a source slot-cell: the index of (floor(s0), floor(s1),
 // floor(s2)) among the offsets [olo, ohi]^3, ox slowest, where v > 0 and
 // every floor lies in [olo, ohi]; else `none`.  The floors are compared
-// as floats before any conversion, so a NaN, an infinity or a value
-// beyond int's range never matches, as in the plain version's compares.
-template <class C>
-__device__ __forceinline__ C classify(float v, float s0, float s1, float s2,
-                                      int olo, int ohi, int nr, C none) {
-  if (!(v > 0.f)) return none;
-  const float lo = (float)olo, hi = (float)ohi;
-  const float f0 = floorf(s0), f1 = floorf(s1), f2 = floorf(s2);
+// in F before any conversion, so a NaN, an infinity or a value beyond
+// int's range never matches, as in the plain version's compares.
+template <class C, class F>
+__device__ __forceinline__ C classify(F v, F s0, F s1, F s2, int olo,
+                                      int ohi, int nr, C none) {
+  if (!(v > F(0))) return none;
+  const F lo = (F)olo, hi = (F)ohi;
+  const F f0 = cfloor(s0), f1 = cfloor(s1), f2 = cfloor(s2);
   if (!(f0 >= lo && f0 <= hi && f1 >= lo && f1 <= hi && f2 >= lo &&
         f2 <= hi))
     return none;
@@ -172,10 +185,10 @@ __device__ __forceinline__ C classify(float v, float s0, float s1, float s2,
 // the assign: one thread per target column (y, z) of the tile, through
 // target planes x0 .. x1 - 1.  NR: the compiled nr, or NR_ANY; C: the
 // code (uint8_t where nr^3 < 255, else uint16_t); SD: the hits'
-// displacements are read from the ring (staged) or from device memory.
-// Dynamic shared memory, in this order:
-//   SD only: f32 dring[group][nr + 1][3][area], the staged displacements;
-//   f32 raw[group][4][area], one plane's validity and displacements as
+// displacements are read from the ring (staged) or from device memory;
+// F: the storage, f32 or f64.  Dynamic shared memory, in this order:
+//   SD only: F dring[group][nr + 1][3][area], the staged displacements;
+//   F raw[group][4][area], one plane's validity and displacements as
 //     they land, each cell read and classified by the thread that
 //     copied it;
 //   int16 hits[Kout][kAssignThreads], each thread's route codes by rank;
@@ -183,9 +196,9 @@ __device__ __forceinline__ C classify(float v, float s0, float s1, float s2,
 // area = (TY + nr - 1) x (TZ + nr - 1) cells of a plane's tile and halo;
 // plane p of the window of target plane i (source plane i - ohi + p,
 // p = 0 .. nr - 1) sits in ring slot (i - x0 + p) mod (nr + 1).
-template <int NR, class C, bool SD>
+template <int NR, class C, bool SD, class F>
 __global__ void __launch_bounds__(kAssignThreads)
-    assign_staged(AssignArgs a) {
+    assign_staged(AssignArgs<F> a) {
   constexpr int NRA = NR == NR_ANY ? NR_MAX : NR;
   constexpr int PER =  // staged cells per thread
       ((TY + NRA - 1) * (TZ + NRA - 1) + kAssignThreads - 1) /
@@ -203,8 +216,8 @@ __global__ void __launch_bounds__(kAssignThreads)
   const int x0 = (int)blockIdx.z * a.xc, x1 = min(x0 + a.xc, a.n0);
   const bool live = y < a.n1 && z < a.n2;
   const int64_t pstride = (int64_t)a.n1 * a.n2;
-  float* dring = (float*)smem;
-  float* raw = dring + (SD ? G * depth * 3 * area : 0);
+  F* dring = (F*)smem;
+  F* raw = dring + (SD ? G * depth * 3 * area : 0);
   int16_t* hits = (int16_t*)(raw + G * 4 * area);
   C* ring = (C*)(hits + a.Kout * kAssignThreads);
 
@@ -225,15 +238,15 @@ __global__ void __launch_bounds__(kAssignThreads)
   auto fetch = [&](int i, int p, int k0, int nk) {
     const int64_t base = src_x(i, ohi - p, a.n0, a.xbase) * pstride;
     for (int kk = 0; kk < nk; ++kk) {
-      const float* src[4] = {a.v[k0 + kk], a.d[k0 + kk][0], a.d[k0 + kk][1],
-                             a.d[k0 + kk][2]};
+      const F* src[4] = {a.v[k0 + kk], a.d[k0 + kk][0], a.d[k0 + kk][1],
+                         a.d[k0 + kk][2]};
 #pragma unroll
       for (int r = 0; r < PER; ++r)
         if (off[r] >= 0)
 #pragma unroll
           for (int c = 0; c < 4; ++c)
-            cp_async4(raw + (kk * 4 + c) * area + tid + r * kAssignThreads,
-                      src[c] + base + off[r]);
+            cp_async(raw + (kk * 4 + c) * area + tid + r * kAssignThreads,
+                     src[c] + base + off[r]);
     }
     cp_async_commit();
   };
@@ -243,15 +256,14 @@ __global__ void __launch_bounds__(kAssignThreads)
     cp_async_wait_all();
     const int slot = (i - x0 + p) % depth;
     for (int kk = 0; kk < nk; ++kk) {
-      const float* v = raw + kk * 4 * area;
+      const F* v = raw + kk * 4 * area;
       C* codes = ring + (kk * depth + slot) * area;
-      float* disp = dring + (kk * depth + slot) * 3 * area;
+      F* disp = dring + (kk * depth + slot) * 3 * area;
 #pragma unroll
       for (int r = 0; r < PER; ++r) {
         if (off[r] < 0) continue;
         const int e = tid + r * kAssignThreads;
-        const float s0 = v[area + e], s1 = v[2 * area + e],
-                    s2 = v[3 * area + e];
+        const F s0 = v[area + e], s1 = v[2 * area + e], s2 = v[3 * area + e];
         codes[e] = classify<C>(v[e], s0, s1, s2, olo, ohi, nr, kNone);
         if (SD) {
           disp[e] = s0;
@@ -326,7 +338,7 @@ __global__ void __launch_bounds__(kAssignThreads)
 #pragma unroll
       for (int j = 0; j < kMaxSlots; ++j) {
         if (j >= a.Kout) break;
-        float e0 = 0.f, e1 = 0.f, e2 = 0.f, ev = 0.f;
+        F e0 = F(0), e1 = F(0), e2 = F(0), ev = F(0);
         int16_t rc = -1;
         if (j < cnt) {
           const int code = hits[j * kAssignThreads + tid];
@@ -334,9 +346,9 @@ __global__ void __launch_bounds__(kAssignThreads)
           const int ia = oi / (nr * nr), ib = oi / nr - ia * nr,
                     ic = oi - (oi / nr) * nr;
           const int ox = olo + ia, oy = olo + ib, oz = olo + ic;
-          float s0, s1, s2;
+          F s0, s1, s2;
           if (SD) {
-            const float* dd =
+            const F* dd =
                 dring + (k * depth + (i - x0 + nr - 1 - ia) % depth) * 3 *
                             area +
                 (ty + nr - 1 - ib) * szw + tz + nr - 1 - ic;
@@ -351,10 +363,10 @@ __global__ void __launch_bounds__(kAssignThreads)
             s1 = a.d[k][1][s];
             s2 = a.d[k][2][s];
           }
-          e0 = s0 - (float)ox;
-          e1 = s1 - (float)oy;
-          e2 = s2 - (float)oz;
-          ev = 1.f;
+          e0 = s0 - (F)ox;
+          e1 = s1 - (F)oy;
+          e2 = s2 - (F)oz;
+          ev = F(1);
           rc = (int16_t)code;
         }
         a.nd[j][0][t] = e0;
@@ -383,7 +395,8 @@ __global__ void __launch_bounds__(kAssignThreads)
 
 // one thread per target cell: slot j takes every extra field of the
 // image its route names, or 0 where the route is -1
-__global__ void rebase_apply_kernel(ApplyArgs a) {
+template <class F>
+__global__ void rebase_apply_kernel(ApplyArgs<F> a) {
   int z = blockIdx.x * blockDim.x + threadIdx.x;
   int y = blockIdx.y;
   int x = blockIdx.z;
@@ -395,7 +408,7 @@ __global__ void rebase_apply_kernel(ApplyArgs a) {
     int r = a.rt[j][t];
     if (r < 0) {
       for (int e = 0; e < a.nextra; ++e)
-        for (int c = 0; c < 3; ++c) a.ne[e][j][c][t] = 0.f;
+        for (int c = 0; c < 3; ++c) a.ne[e][j][c][t] = F(0);
       continue;
     }
     int k = r / noff;
@@ -419,38 +432,95 @@ bool shape_ok(int n0, int n1, int n2) {
   return n0 > 0 && n1 > 0 && n2 > 0 && n0 <= 65535 && n1 <= 65535;
 }
 
-template <int NR, class C, bool SD>
-cudaError_t launch_assign_t(const AssignArgs& a, int smem,
+template <int NR, class C, bool SD, class F>
+cudaError_t launch_assign_t(const AssignArgs<F>& a, int smem,
                             cudaStream_t stream) {
   // above the 48 KB a block gets by default, a kernel must ask for more
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        (const void*)assign_staged<NR, C, SD>,
+        (const void*)assign_staged<NR, C, SD, F>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
   dim3 grid((a.n2 + TZ - 1) / TZ, (a.n1 + TY - 1) / TY,
             (a.n0 + a.xc - 1) / a.xc);
-  assign_staged<NR, C, SD><<<grid, kAssignThreads, smem, stream>>>(a);
+  assign_staged<NR, C, SD, F><<<grid, kAssignThreads, smem, stream>>>(a);
   return cudaSuccess;
 }
 
-template <bool SD>
-cudaError_t launch_assign(const AssignArgs& a, int smem, cudaStream_t stream) {
+template <bool SD, class F>
+cudaError_t launch_assign(const AssignArgs<F>& a, int smem,
+                          cudaStream_t stream) {
   const int nr = a.ohi - a.olo + 1;
   switch (nr) {
 #define ASSIGN_NR(NR) \
   case NR:            \
-    return launch_assign_t<NR, uint8_t, SD>(a, smem, stream);
+    return launch_assign_t<NR, uint8_t, SD, F>(a, smem, stream);
     ASSIGN_NR(2)
     ASSIGN_NR(3)
     ASSIGN_NR(4)
 #undef ASSIGN_NR
     default:
       if (nr * nr * nr < 255)
-        return launch_assign_t<NR_ANY, uint8_t, SD>(a, smem, stream);
-      return launch_assign_t<NR_ANY, uint16_t, SD>(a, smem, stream);
+        return launch_assign_t<NR_ANY, uint8_t, SD, F>(a, smem, stream);
+      return launch_assign_t<NR_ANY, uint16_t, SD, F>(a, smem, stream);
   }
+}
+
+template <class F>
+cudaError_t assign(const void* const* d, const void* const* v, int K,
+                   void* const* nd, void* const* nv, void* const* rt,
+                   int Kout, void* overflow, int n0, int n1, int n2,
+                   int xbase, int olo, int ohi, int xc, int group,
+                   int stage_d, int smem, cudaStream_t stream) {
+  AssignArgs<F> a{};
+  for (int k = 0; k < K; ++k) {
+    for (int c = 0; c < 3; ++c) a.d[k][c] = (const F*)d[k * 3 + c];
+    a.v[k] = (const F*)v[k];
+  }
+  for (int j = 0; j < Kout; ++j) {
+    for (int c = 0; c < 3; ++c) a.nd[j][c] = (F*)nd[j * 3 + c];
+    a.nv[j] = (F*)nv[j];
+    a.rt[j] = (int16_t*)rt[j];
+  }
+  a.overflow = (unsigned long long*)overflow;
+  a.K = K;
+  a.Kout = Kout;
+  a.n0 = n0;
+  a.n1 = n1;
+  a.n2 = n2;
+  a.xbase = xbase;
+  a.olo = olo;
+  a.ohi = ohi;
+  a.xc = xc;
+  a.group = group;
+  return stage_d ? launch_assign<true, F>(a, smem, stream)
+                 : launch_assign<false, F>(a, smem, stream);
+}
+
+template <class F>
+void apply(const void* const* e, int nextra, int K, const void* const* rt,
+           int Kout, void* const* ne, int n0, int n1, int n2, int xbase,
+           int olo, int ohi, cudaStream_t stream) {
+  ApplyArgs<F> a{};
+  for (int x = 0; x < nextra; ++x) {
+    for (int k = 0; k < K; ++k)
+      for (int c = 0; c < 3; ++c)
+        a.e[x][k][c] = (const F*)e[(x * K + k) * 3 + c];
+    for (int j = 0; j < Kout; ++j)
+      for (int c = 0; c < 3; ++c)
+        a.ne[x][j][c] = (F*)ne[(x * Kout + j) * 3 + c];
+  }
+  for (int j = 0; j < Kout; ++j) a.rt[j] = (const int16_t*)rt[j];
+  a.nextra = nextra;
+  a.Kout = Kout;
+  a.n0 = n0;
+  a.n1 = n1;
+  a.n2 = n2;
+  a.xbase = xbase;
+  a.olo = olo;
+  a.ohi = ohi;
+  rebase_apply_kernel<F><<<grid_of(n0, n1, n2), kThreads, 0, stream>>>(a);
 }
 
 }  // namespace
@@ -475,13 +545,14 @@ bool halo_ok(int n0, int n0_in, int xbase, int olo, int ohi) {
 // on every axis; n0 output planes; xbase >= 0: the x-halo form, inputs
 // of n0_in planes; xc, group, stage_d, smem: ops/binned_cuda.plan's
 // target planes per block, slots per group, staged displacements and
-// dynamic shared bytes
+// dynamic shared bytes; f64: the displacements, validity and outputs are
+// f64, else f32
 int pmesh_rebase_assign(const void* const* d, const void* const* v, int K,
                         void* const* nd, void* const* nv, void* const* rt,
                         int Kout, void* overflow, int n0, int n1, int n2,
                         int n0_in, int xbase, int olo, int ohi, int xc,
-                        int group, int stage_d, int smem, int device,
-                        void* stream) {
+                        int group, int stage_d, int smem, int f64,
+                        int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (K < 1 || K > kMaxSlots || Kout < 1 || Kout > kMaxSlots ||
@@ -491,29 +562,11 @@ int pmesh_rebase_assign(const void* const* d, const void* const* v, int K,
     return (int)cudaErrorInvalidValue;
   int nr = ohi - olo + 1;
   if ((long long)K * nr * nr * nr > 32767) return (int)cudaErrorInvalidValue;
-  AssignArgs a{};
-  for (int k = 0; k < K; ++k) {
-    for (int c = 0; c < 3; ++c) a.d[k][c] = (const float*)d[k * 3 + c];
-    a.v[k] = (const float*)v[k];
-  }
-  for (int j = 0; j < Kout; ++j) {
-    for (int c = 0; c < 3; ++c) a.nd[j][c] = (float*)nd[j * 3 + c];
-    a.nv[j] = (float*)nv[j];
-    a.rt[j] = (int16_t*)rt[j];
-  }
-  a.overflow = (unsigned long long*)overflow;
-  a.K = K;
-  a.Kout = Kout;
-  a.n0 = n0;
-  a.n1 = n1;
-  a.n2 = n2;
-  a.xbase = xbase;
-  a.olo = olo;
-  a.ohi = ohi;
-  a.xc = xc;
-  a.group = group;
-  err = stage_d ? launch_assign<true>(a, smem, (cudaStream_t)stream)
-                : launch_assign<false>(a, smem, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  err = f64 ? assign<double>(d, v, K, nd, nv, rt, Kout, overflow, n0, n1, n2,
+                             xbase, olo, ohi, xc, group, stage_d, smem, s)
+            : assign<float>(d, v, K, nd, nv, rt, Kout, overflow, n0, n1, n2,
+                            xbase, olo, ohi, xc, group, stage_d, smem, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -521,37 +574,23 @@ int pmesh_rebase_assign(const void* const* d, const void* const* v, int K,
 // e: nextra * K * 3 extra pointers, (e, k, axis)-major; rt: Kout route
 // pointers (int16) from pmesh_rebase_assign with the same offsets;
 // ne: nextra * Kout * 3 outputs, (e, j, axis)-major; n0 output
-// planes; xbase >= 0: the x-halo form, extras of n0_in planes
+// planes; xbase >= 0: the x-halo form, extras of n0_in planes; f64: the
+// extras and outputs are f64, else f32
 int pmesh_rebase_apply(const void* const* e, int nextra, int K,
                        const void* const* rt, int Kout, void* const* ne,
                        int n0, int n1, int n2, int n0_in, int xbase, int olo,
-                       int ohi, int device, void* stream) {
+                       int ohi, int f64, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (nextra < 1 || nextra > kMaxExtras || K < 1 || K > kMaxSlots ||
       Kout < 1 || Kout > kMaxSlots || ohi < olo || !shape_ok(n0, n1, n2) ||
       !halo_ok(n0, n0_in, xbase, olo, ohi))
     return (int)cudaErrorInvalidValue;
-  ApplyArgs a{};
-  for (int x = 0; x < nextra; ++x) {
-    for (int k = 0; k < K; ++k)
-      for (int c = 0; c < 3; ++c)
-        a.e[x][k][c] = (const float*)e[(x * K + k) * 3 + c];
-    for (int j = 0; j < Kout; ++j)
-      for (int c = 0; c < 3; ++c)
-        a.ne[x][j][c] = (float*)ne[(x * Kout + j) * 3 + c];
-  }
-  for (int j = 0; j < Kout; ++j) a.rt[j] = (const int16_t*)rt[j];
-  a.nextra = nextra;
-  a.Kout = Kout;
-  a.n0 = n0;
-  a.n1 = n1;
-  a.n2 = n2;
-  a.xbase = xbase;
-  a.olo = olo;
-  a.ohi = ohi;
-  rebase_apply_kernel<<<grid_of(n0, n1, n2), kThreads, 0,
-                        (cudaStream_t)stream>>>(a);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (f64)
+    apply<double>(e, nextra, K, rt, Kout, ne, n0, n1, n2, xbase, olo, ohi, s);
+  else
+    apply<float>(e, nextra, K, rt, Kout, ne, n0, n1, n2, xbase, olo, ohi, s);
   return (int)cudaGetLastError();
 }
 

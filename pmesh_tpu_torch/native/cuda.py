@@ -3,15 +3,17 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface, at first use, into the
 git-ignored ``_build/`` directory of the package, and loaded with
-ctypes.  The library's name carries a hash of its source and flags, so
-an edited source is rebuilt.  A failed build raises with nvcc's
-output; nothing falls back to another implementation.
+ctypes.  The library's name carries a hash of its source, the sources
+it includes and the flags, so an edited source is rebuilt.  A failed
+build raises with nvcc's output; nothing falls back to another
+implementation.
 
 Importing this module needs neither nvcc nor a GPU.
 """
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,10 +46,21 @@ def find_nvcc():
         % cuda_home)
 
 
+def _sources(src):
+    """the bytes of ``src`` and of the sources of ``csrc/`` it includes
+    by ``#include "name"``, recursively"""
+    with open(src, "rb") as f:
+        text = f.read()
+    out = [text]
+    for inc in re.findall(rb'^#include "([^"]+)"', text, re.M):
+        out += _sources(os.path.join(os.path.dirname(src), inc.decode()))
+    return out
+
+
 def _lib_path(name):
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(b"".join(_sources(src))
+                          + " ".join(NVCC_FLAGS).encode())
     return src, os.path.join(BUILD_DIR, "lib%s-%s.so"
                              % (name, digest.hexdigest()[:16]))
 

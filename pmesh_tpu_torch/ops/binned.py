@@ -23,8 +23,12 @@ displacement, validity and a per-slot *route* code) and
 ``rebase_apply`` (replays the routes on the extra payloads, e.g. the
 velocities).  Each has a plain PyTorch version here (the roll and
 where scatter form of the JAX package's ``impl='xla'``) and a hand
-CUDA kernel (``ops/binned_cuda.py``); ``impl=None`` takes the kernels
-for CUDA tensors and the plain versions for CPU tensors.  The two are
+CUDA kernel (``ops/binned_cuda.py``); :func:`route` chooses, as the JAX
+package's gate does (``pmesh_tpu/ops/binned.py:289-291``): with
+``impl=None`` the kernels for a 3-d state on a CUDA device (f32 or f64;
+bf16 is refused there), the plain versions for a CPU or a 2-d state.
+The kernels take drift offsets wider than the JAX package's Pallas
+rebase ([-1, 1]), so the gate follows it on ``ndim`` alone.  The two are
 bitwise equal.
 
 Overflow (a cell receiving more than ``nslots`` particles) and escape
@@ -52,7 +56,7 @@ import torch
 
 from . import gridpm as _gp
 
-__all__ = ["from_lattice", "fold_lattice", "fold_needed", "rebase",
+__all__ = ["from_lattice", "fold_lattice", "fold_needed", "rebase", "route",
            "rebase_assign_plain", "rebase_apply_plain", "paint_binned",
            "readout_binned", "occupancy", "from_positions", "needed_slots",
            "grow_slots"]
@@ -300,6 +304,14 @@ def _route_check(K, n_off):
                          % (K, n_off))
 
 
+def route(impl, device, ndim):
+    """'cuda' (the rebase kernels) or 'torch' (the plain versions) for an
+    ``ndim``-d binned state on ``device``: the rule of
+    :func:`ops.gridpm.route` (module docstring), after the JAX package's
+    gate ``pmesh_tpu/ops/binned.py:289-291`` on ``ndim``."""
+    return _gp._route(impl, device, ndim, "pmesh_tpu/ops/binned.py:289-291")
+
+
 def rebase_assign_plain(dslots, valid, offsets, nslots_out, rows=None,
                         xbase=None):
     """Plain PyTorch rebase assign (the scatter form of the JAX
@@ -469,7 +481,7 @@ def _rebase(state, drift_bounds, nslots_out=None, impl=None, procmesh=None):
     total_in = total(sum(_icount(v) for v in valid))
     dslots = tuple(grow(dk) for dk in dslots)
     valid = grow(valid)
-    if _gp._use_cuda(impl, dslots[0][0]):
+    if route(impl, dslots[0][0].device, ndim) == 'cuda':
         from . import binned_cuda as _k
         new_d, new_v, routes, overflow = _k.rebase_assign(
             dslots, valid, Kout, lo, hi, rows=rows, xbase=xbase)

@@ -3,11 +3,12 @@ the port of ``rebase_fused_t`` in ``pmesh_tpu/ops/binned_pallas.py``.
 
 ``rebase_assign`` computes the new slots, displacements, validity,
 routes and overflow; ``rebase_apply`` replays the routes on the extra
-payloads.  Each wrapper checks its tensors (CUDA, f32 meshes, 3-d,
-contiguous, one shape and device, no autograd), allocates the outputs,
-launches on PyTorch's current stream and raises RuntimeError if the
-launch returns an error.  ``LAUNCHES`` counts the launches of each
-kernel (the x-halo slab forms under "<name>_xhalo").
+payloads.  Each wrapper checks its tensors (CUDA, f32 or f64 meshes of
+one dtype, 3-d, contiguous, one shape and device, no autograd; bf16 is
+refused), allocates the outputs in that dtype, launches on PyTorch's
+current stream and raises RuntimeError if the launch returns an error.
+``LAUNCHES`` counts the launches of each kernel (the x-halo slab forms
+under "<name>_xhalo", the f64 forms with "_f64" appended).
 
 Both take the x-halo slab form of a slab-sharded state (``xbase``):
 inputs of ``lo + rows + hi`` x planes, outputs of ``rows``, the source
@@ -35,9 +36,11 @@ from ..native import cuda as _cuda
 __all__ = ["rebase_assign", "rebase_apply", "plan", "LAUNCHES",
            "reset_launches", "MAX_SLOTS", "MAX_EXTRAS"]
 
-# the x-halo slab forms count apart ("_xhalo")
-LAUNCHES = {"rebase_assign": 0, "rebase_apply": 0, "rebase_assign_xhalo": 0,
-            "rebase_apply_xhalo": 0}
+# the x-halo slab forms ("_xhalo") and the f64 forms ("_f64") count apart
+FORMS = {torch.float32: "", torch.float64: "_f64"}
+LAUNCHES = {name + halo + form: 0
+            for name in ("rebase_assign", "rebase_apply")
+            for halo in ("", "_xhalo") for form in FORMS.values()}
 
 # the slot pointers travel by value in the kernel's parameter struct;
 # 16 slots of a 512^3 state with velocities are 56 GB, most of the card
@@ -69,10 +72,10 @@ def _load():
         lib.pmesh_cuda_error_string.argtypes = [_I]
         lib.pmesh_cuda_error_string.restype = ctypes.c_char_p
         lib.pmesh_rebase_assign.argtypes = (
-            [_P, _P, _I, _P, _P, _P, _I, _P] + [_I] * 12 + [_P])
+            [_P, _P, _I, _P, _P, _P, _I, _P] + [_I] * 13 + [_P])
         lib.pmesh_rebase_assign.restype = _I
         lib.pmesh_rebase_apply.argtypes = (
-            [_P, _I, _I, _P, _I, _P] + [_I] * 8 + [_P])
+            [_P, _I, _I, _P, _I, _P] + [_I] * 9 + [_P])
         lib.pmesh_rebase_apply.restype = _I
         _lib = lib
     return _lib
@@ -85,20 +88,21 @@ def _raise_on(rc, what):
                            % (what, rc, msg))
 
 
-def plan(shape, K, Kout, olo, ohi, xhalo=False):
+def plan(shape, K, Kout, olo, ohi, xhalo=False, dtype=torch.float32):
     """The launch plan of the assign, as ``csrc/binned.cu`` takes it.
 
     shape : the (N0, N1, N2) target planes (the x-halo form's ``rows``
     output planes); K, Kout : input and output slots (1 .. MAX_SLOTS);
     [olo, ohi] : the offsets per axis (nr of them, K nr^3 <= ROUTE_MAX);
     xhalo : the x-halo slab form, whose planes come from its extended
-    inputs without wrap; it plans as the wrapped form.
+    inputs without wrap; it plans as the wrapped form; dtype : the
+    storage, f32 or f64, whose values the ring holds (4 or 8 bytes).
 
     A block owns a TILE_Y x TILE_Z tile of y-z through ``xc`` target planes
     and keeps a ring of ``depth`` = nr + 1 source planes of the tile plus
     its nr - 1 halo: the codes of ``group`` slots (bytes, or 16 bits where
-    nr^3 >= 255: ``code_bytes``) and, with ``stage_d``, their three f32
-    displacements, beside one plane of the slots' f32 validity and
+    nr^3 >= 255: ``code_bytes``) and, with ``stage_d``, their three
+    displacements, beside one plane of the slots' validity and
     displacements as their copies land and each thread's Kout int16 route
     codes.  ``group`` is K wherever the ring of every slot fits in
     SMEM_LIMIT (it then slides a plane at a time), else the most slots that
@@ -115,16 +119,18 @@ def plan(shape, K, Kout, olo, ohi, xhalo=False):
         raise ValueError("plan: %d slots x %d^3 offsets do not fit the "
                          "int16 route codes" % (K, max(nr, 0)))
     n0, n1, n2 = (int(n) for n in shape)
+    esize = 8 if dtype == torch.float64 else 4
     code_bytes = 1 if nr ** 3 < 255 else 2
     area = (TILE_Y + nr - 1) * (TILE_Z + nr - 1)
     depth = nr + 1
     hits = 2 * Kout * THREADS
     group = K
-    while hits + group * (depth * code_bytes + 16) * area > SMEM_LIMIT:
+    while hits + group * (depth * code_bytes + 4 * esize) * area \
+            > SMEM_LIMIT:
         group -= 1
     codes = group * depth * area * code_bytes
-    disp = group * depth * 3 * area * 4
-    raw = group * 4 * area * 4
+    disp = group * depth * 3 * area * esize
+    raw = group * 4 * area * esize
     # on an H100 (PERF.md) reading a hit's displacement back from device
     # memory cost 15-20 % at the main paths' shapes, whatever the
     # occupancy: staged wherever it fits
@@ -143,13 +149,14 @@ def _ptrs(tensors):
     return (_P * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def _check_f32(tensors, what):
+def _check_rebase(tensors, what):
     """shape and device as gridpm_cuda._check; the rebase kernels read
-    and write f32 only"""
+    and write f32 or f64 (bf16 is refused)"""
     shape, device = _check(tensors, what)
-    if tensors[0].dtype != torch.float32:
-        raise NotImplementedError("%s: the CUDA kernel takes f32 meshes "
-                                  "(got %s)" % (what, tensors[0].dtype))
+    if tensors[0].dtype not in FORMS:
+        raise NotImplementedError("%s: the CUDA kernel takes f32 or f64 "
+                                  "meshes (got %s)"
+                                  % (what, tensors[0].dtype))
     return shape, device
 
 
@@ -174,8 +181,8 @@ def rebase_assign(dslots, valid, nslots_out, olo, ohi, rows=None,
                   xbase=None):
     """Rebase assign over the integer offsets [olo, ohi] on every axis.
 
-    dslots : K tuples of three (N0, N1, N2) f32 CUDA tensors
-    valid : K (N0, N1, N2) f32 CUDA tensors
+    dslots : K tuples of three (N0, N1, N2) f32 or f64 CUDA tensors
+    valid : K (N0, N1, N2) CUDA tensors of the same dtype
     rows, xbase : the x-halo slab form (module docstring): the outputs
         have ``rows`` planes, target row x reads input plane
         x + xbase - o_x
@@ -194,24 +201,25 @@ def rebase_assign(dslots, valid, nslots_out, olo, ohi, rows=None,
         raise ValueError("%s: empty offset range [%d, %d]" % (what, olo, ohi))
     _route_check(K, (ohi - olo + 1) ** 3)
     dflat = tuple(x for dk in dslots for x in dk)
-    shape_in, device = _check_f32(dflat + tuple(valid), what)
+    shape_in, device = _check_rebase(dflat + tuple(valid), what)
+    dtype = dflat[0].dtype
     n0, xb = _halo(what, shape_in[0], rows, xbase, olo, ohi)
     shape = (n0,) + shape_in[1:]
-    nd = tuple(torch.empty(shape, dtype=torch.float32, device=device)
+    nd = tuple(torch.empty(shape, dtype=dtype, device=device)
                for _ in range(3 * Kout))
-    nv = tuple(torch.empty(shape, dtype=torch.float32, device=device)
+    nv = tuple(torch.empty(shape, dtype=dtype, device=device)
                for _ in range(Kout))
     rt = tuple(torch.empty(shape, dtype=ROUTE_DTYPE, device=device)
                for _ in range(Kout))
     overflow = torch.zeros((), dtype=torch.int64, device=device)
-    p = plan(shape, K, Kout, olo, ohi, xhalo=xb >= 0)
+    p = plan(shape, K, Kout, olo, ohi, xhalo=xb >= 0, dtype=dtype)
     stream = torch.cuda.current_stream(device).cuda_stream
-    LAUNCHES[what + ("_xhalo" if xb >= 0 else "")] += 1
+    LAUNCHES[what + ("_xhalo" if xb >= 0 else "") + FORMS[dtype]] += 1
     rc = _load().pmesh_rebase_assign(
         _ptrs(dflat), _ptrs(valid), K, _ptrs(nd), _ptrs(nv), _ptrs(rt), Kout,
         overflow.data_ptr(), shape[0], shape[1], shape[2], shape_in[0], xb,
         olo, ohi, p['xc'], p['group'], int(p['stage_d']), p['smem'],
-        device.index, stream)
+        int(dtype == torch.float64), device.index, stream)
     _raise_on(rc, what)
     new_d = tuple(nd[3 * j:3 * j + 3] for j in range(Kout))
     return new_d, nv, rt, overflow
@@ -221,8 +229,8 @@ def rebase_apply(extras, routes, olo, ohi, xbase=None):
     """Rebase apply: replays ``routes`` (from :func:`rebase_assign` with
     the same offsets) on the extra payloads.
 
-    extras : tuple of K-slot structures (K tuples of three f32 CUDA
-        tensors), e.g. ``(vslots,)``
+    extras : tuple of K-slot structures (K tuples of three f32 or f64
+        CUDA tensors), e.g. ``(vslots,)``
     xbase : the x-halo slab form: the extras hold lo + rows + hi planes
         about the routes' rows
     Returns the same nesting with len(routes) slots."""
@@ -236,7 +244,8 @@ def rebase_apply(extras, routes, olo, ohi, xbase=None):
         raise ValueError("%s: every extra field needs K slots of 3 axes"
                          % what)
     eflat = tuple(x for e in extras for ek in e for x in ek)
-    shape_in, device = _check_f32(eflat, what)
+    shape_in, device = _check_rebase(eflat, what)
+    dtype = eflat[0].dtype
     shape = tuple(routes[0].shape) if xbase is not None else shape_in
     _, xb = _halo(what, shape_in[0], shape[0], xbase, olo, ohi)
     if shape[1:] != shape_in[1:]:
@@ -247,13 +256,14 @@ def rebase_apply(extras, routes, olo, ohi, xbase=None):
                 or r.device != device or not r.is_contiguous()):
             raise ValueError("%s: routes must be contiguous int16 meshes of "
                              "the extras' shape and device" % what)
-    ne = tuple(torch.empty(shape, dtype=torch.float32, device=device)
+    ne = tuple(torch.empty(shape, dtype=dtype, device=device)
                for _ in range(3 * nextra * Kout))
     stream = torch.cuda.current_stream(device).cuda_stream
-    LAUNCHES[what + ("_xhalo" if xb >= 0 else "")] += 1
+    LAUNCHES[what + ("_xhalo" if xb >= 0 else "") + FORMS[dtype]] += 1
     rc = _load().pmesh_rebase_apply(
         _ptrs(eflat), nextra, K, _ptrs(routes), Kout, _ptrs(ne), shape[0],
-        shape[1], shape[2], shape_in[0], xb, olo, ohi, device.index, stream)
+        shape[1], shape[2], shape_in[0], xb, olo, ohi,
+        int(dtype == torch.float64), device.index, stream)
     _raise_on(rc, what)
     return tuple(tuple(ne[(e * Kout + j) * 3:(e * Kout + j) * 3 + 3]
                        for j in range(Kout)) for e in range(nextra))

@@ -705,6 +705,16 @@ def _use_cuda(impl, t):
                      % (impl,))
 
 
+def _f32_pass(*tensors):
+    """the tensors a kernel pass reads, an f64 one cast to f32: the JAX
+    package casts an f64 input to f32 at its passes
+    (``pmesh_tpu/ops/fft_mxu.py:1112``) and the plain versions compute in
+    f32, so the kernels, which take f32 and bf16, return what both return
+    (None passes through)"""
+    return tuple(t.to(torch.float32) if isinstance(t, torch.Tensor)
+                 and t.dtype == torch.float64 else t for t in tensors)
+
+
 def _zy_fwd_ct2_call(x, N2, Zm, wz, wy, precision=None,
                      out_dtype=torch.float32, impl=None):
     """pass 1 (row 6) on an (n0, N1, N2) block -> (r, i, nq)."""
@@ -714,6 +724,7 @@ def _zy_fwd_ct2_call(x, N2, Zm, wz, wy, precision=None,
                          % (N2, Zm, tuple(x.shape)))
     if _use_cuda(impl, x):
         from . import fft_mxu_cuda as _k
+        x, = _f32_pass(x)
         return _k.zy_fwd_ct2(x, wz, wy, bf16=bf16, out_dtype=sdt)
     return zy_fwd_ct2_plain(x, wz, wy, bf16, sdt)
 
@@ -725,6 +736,7 @@ def _xct_call_multi(pr, pi, wx, scale, inverse=False, wx2=None, k2=None,
     stored (JAX's callers pass the input's dtype as ``out_dtype``)."""
     bf16, sdt = _bf16_products(precision), _storage(out_dtype)
     if _use_cuda(impl, pr):
+        pr, pi = _f32_pass(pr, pi)
         if sdt != pr.dtype:
             raise NotImplementedError(
                 "xct_multi: the CUDA kernel stores its output as its input "
@@ -742,6 +754,7 @@ def _zy_inv_ct2_call(rr, ii, Wy, AB, n2, plane=None, precision=None,
     bf16 = _bf16_products(precision)
     if _use_cuda(impl, rr):
         from . import fft_mxu_cuda as _k
+        rr, ii, plane = _f32_pass(rr, ii, plane)
         return _k.zy_inv_ct2(rr, ii, Wy, AB, n2, plane=plane, bf16=bf16)
     return zy_inv_ct2_plain(rr, ii, Wy, AB, n2, plane=plane, bf16=bf16)
 
@@ -752,6 +765,7 @@ def _zy_inv_ct2_call_dual(rr, ii, WyA, ABA, WyB, ABB, n2, planeA=None,
     bf16 = _bf16_products(precision)
     if _use_cuda(impl, rr):
         from . import fft_mxu_cuda as _k
+        rr, ii, planeA = _f32_pass(rr, ii, planeA)
         return _k.zy_inv_ct2_dual(rr, ii, WyA, ABA, WyB, ABB, n2,
                                   planeA=planeA, bf16=bf16)
     return zy_inv_ct2_dual_plain(rr, ii, WyA, ABA, WyB, ABB, n2,
@@ -763,6 +777,7 @@ def _zy_fwd_dense_call(x, wz, wy, precision=None, impl=None):
     bf16 = _bf16_products(precision)
     if _use_cuda(impl, x):
         from . import fft_mxu_cuda as _k
+        x, = _f32_pass(x)
         return _k.zy_fwd_half(x, wz, wy, bf16=bf16)
     return zy_fwd_half_plain(x, wz, wy, bf16)
 
@@ -774,6 +789,7 @@ def _x_dense_call(pr, pi, wx, scale, wx2=None, k2=None, precision=None,
     bf16 = _bf16_products(precision)
     if _use_cuda(impl, pr):
         from . import fft_mxu_cuda as _k
+        pr, pi = _f32_pass(pr, pi)
         return _k.x_dense(pr, pi, wx, scale, wx2=wx2, k2=k2, bf16=bf16)
     return x_dense_plain(pr, pi, wx, scale, wx2=wx2, k2=k2, bf16=bf16)
 
@@ -783,6 +799,7 @@ def _zy_inv_dense_call(rr, ii, wy, AB, precision=None, impl=None):
     bf16 = _bf16_products(precision)
     if _use_cuda(impl, rr):
         from . import fft_mxu_cuda as _k
+        rr, ii = _f32_pass(rr, ii)
         return _k.zy_inv_half(rr, ii, wy, AB, bf16=bf16)
     return zy_inv_half_plain(rr, ii, wy, AB, bf16)
 

@@ -89,6 +89,7 @@ def _zy_fwd_full_call(x, wz, wy, precision=None, impl=None):
     bf16 = _fm._bf16_products(precision)
     if _fm._use_cuda(impl, x):
         from . import fft_mxu_cuda as _k
+        x, = _fm._f32_pass(x)
         return _k.zy_fwd_full(x, wz, wy, bf16=bf16)
     return _fm.zy_fwd_half_plain(x, wz, wy, bf16)
 
@@ -99,6 +100,7 @@ def _zy_inv_full_call(rr, ii, wy, AB, precision=None, impl=None):
     bf16 = _fm._bf16_products(precision)
     if _fm._use_cuda(impl, rr):
         from . import fft_mxu_cuda as _k
+        rr, ii = _fm._f32_pass(rr, ii)
         return _k.zy_inv_full(rr, ii, wy, AB, bf16=bf16)
     return zy_inv_full_plain(rr, ii, wy, AB, bf16)
 
@@ -107,6 +109,7 @@ def _zy_fwd_half_ct_call(x, wz, wy, precision=None, impl=None):
     bf16 = _fm._bf16_products(precision)
     if _fm._use_cuda(impl, x):
         from . import fft_mxu_cuda as _k
+        x, = _fm._f32_pass(x)
         return _k.zy_fwd_half_ct(x, wz, wy, bf16=bf16)
     return zy_fwd_half_ct_plain(x, wz, wy, bf16)
 
@@ -117,6 +120,7 @@ def _zy_inv_half_ct_call(rr, ii, Wy, AB, n2, precision=None, impl=None):
     bf16 = _fm._bf16_products(precision)
     if _fm._use_cuda(impl, rr):
         from . import fft_mxu_cuda as _k
+        rr, ii = _fm._f32_pass(rr, ii)
         return _k.zy_inv_half_ct(rr, ii, Wy, AB, n2, bf16=bf16)
     return _fm.zy_inv_ct2_plain(rr, ii, Wy, AB, n2, bf16=bf16)
 

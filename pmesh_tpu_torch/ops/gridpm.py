@@ -20,10 +20,14 @@ Two implementations, chosen per call by ``impl``:
 - the hand CUDA kernels (``impl='cuda'``, ``ops/gridpm_cuda.py``), the
   counterpart of its Pallas kernels.
 
-``impl=None`` takes the kernels for CUDA tensors and the plain version
-for CPU tensors.  The kernels take 3-d f32 meshes; anything else on a
-CUDA tensor raises there.  A failed build or launch raises and is
-never replaced by the plain version.
+:func:`route` decides between them, as the JAX package's gate does
+(``pmesh_tpu/ops/gridpm.py:172``): with ``impl=None`` a 3-d mesh on a
+CUDA device goes to the kernels, whatever its dtype (they take f32,
+bf16 and f64, and refuse any other), and every other mesh (a CPU tensor,
+or a 2-d mesh, for which the JAX package has no Pallas kernel and runs
+XLA) to the plain version; ``impl='cuda'`` on a 2-d mesh raises.  A
+failed build or launch raises and is never replaced by the plain
+version.
 
 Reverse mode: ``paint_grid`` and ``readout_grid`` (without ``diffdir``)
 are ``torch.autograd.Function``s whose backward is the JAX package's
@@ -66,7 +70,7 @@ import torch
 
 from .kernels import find_window
 
-__all__ = ["paint_grid", "readout_grid", "offset_range",
+__all__ = ["paint_grid", "readout_grid", "offset_range", "route",
            "displacement_bounds", "GRID_LIMIT", "paint_slab_plain",
            "readout_slab_plain"]
 
@@ -114,18 +118,42 @@ def _decode(i, nvs):
     return tuple(reversed(out))
 
 
-def _use_cuda(impl, t):
-    if impl is None:
-        return t.is_cuda
-    if impl == 'cuda':
-        if not t.is_cuda:
-            raise ValueError("impl='cuda' needs CUDA tensors (got %s)"
-                             % t.device)
-        return True
+def _route(impl, device, ndim, gate):
+    device = torch.device(device)
+    if impl not in (None, 'torch', 'cuda'):
+        raise ValueError("impl must be None, 'torch' or 'cuda' (got %r)"
+                         % (impl,))
     if impl == 'torch':
-        return False
-    raise ValueError("impl must be None, 'torch' or 'cuda' (got %r)"
-                     % (impl,))
+        return 'torch'
+    if impl == 'cuda':
+        if device.type != 'cuda':
+            raise ValueError("impl='cuda' needs CUDA tensors (got %s)"
+                             % device)
+        if ndim != 3:
+            raise NotImplementedError(
+                "impl='cuda': the CUDA kernels take 3-d meshes, as the JAX "
+                "package's Pallas kernels do (%s); a %d-d mesh runs the "
+                "plain version (impl=None or 'torch')" % (gate, ndim))
+        return 'cuda'
+    return 'cuda' if device.type == 'cuda' and ndim == 3 else 'torch'
+
+
+def route(impl, device, ndim):
+    """'cuda' (the hand kernels) or 'torch' (the plain version) for a
+    lattice paint or readout of an ``ndim``-d mesh on ``device``: the JAX
+    package's gate (``pmesh_tpu/ops/gridpm.py:172``) with the device in
+    place of the backend.  ``impl=None``: the kernels for a 3-d mesh on a
+    CUDA device, whatever its dtype (the kernels take f32, bf16 and f64
+    and refuse the others: no dtype reaches the plain version on the card
+    unless asked), the plain version for a CPU mesh or a 2-d one;
+    ``impl='torch'``: the plain version; ``impl='cuda'``: the kernels,
+    raising for a CPU device (ValueError) or a 2-d mesh
+    (NotImplementedError)."""
+    return _route(impl, device, ndim, "pmesh_tpu/ops/gridpm.py:172")
+
+
+def _use_cuda(impl, t, ndim):
+    return route(impl, t.device, ndim) == 'cuda'
 
 
 def _shift_loop(meshes, disp, mass, bounds, window, diffdir, mode,
@@ -154,7 +182,7 @@ def _shift_loop(meshes, disp, mass, bounds, window, diffdir, mode,
     if isinstance(mass, torch.Tensor):
         mass = mass.to(dtype)
 
-    if _use_cuda(impl, disp[0]):
+    if _use_cuda(impl, disp[0], ndim):
         from . import gridpm_cuda as _k
         if mode == 'paint':
             return _k.paint_lattice(disp, mass, vmin, vmax, win,
@@ -262,7 +290,7 @@ def _shift_sharded(meshes, disp, mass, bounds, window, diffdir, mode,
     win = find_window(window)
     vmin, vmax = offset_range(float(bounds[0]), float(bounds[1]), win)
     rows = disp[0].shape[0]
-    cuda = _use_cuda(impl, disp[0])
+    cuda = _use_cuda(impl, disp[0], len(disp))
     if mode == 'paint':
         # output row i gathers source rows i - v_x, v_x in [vmin, vmax]
         lo, hi = max(0, vmax), max(0, -vmin)
@@ -294,8 +322,8 @@ def _tracks(tensors):
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
 
-def _no_kernel_rule(what, impl, t):
-    if _use_cuda(impl, t):
+def _no_kernel_rule(what, impl, disp):
+    if _use_cuda(impl, disp[0], len(disp)):
         raise NotImplementedError(
             "%s: gradients through a diffdir paint or readout have no rule "
             "on the CUDA kernels, as the JAX package's Pallas kernels have "
@@ -417,7 +445,7 @@ def paint_grid(disp, mass=None, bounds=(0.0, 1.0), window='cic',
                       1.0 if m is None and pmh is not None else m, bounds,
                       window, diffdir, 'paint', impl, pmh)
     if diffdir is not None:
-        _no_kernel_rule("paint_grid", impl, disp[0])
+        _no_kernel_rule("paint_grid", impl, disp)
         return _shift(None, disp,
                       1.0 if mass is None and pmh is not None else mass,
                       bounds, window, diffdir, 'paint', impl, pmh)
@@ -453,7 +481,7 @@ def readout_grid(mesh, disp, bounds=(0.0, 1.0), window='cic',
                      tuple(_detached(d) for d in disp), None, bounds, window,
                      diffdir, 'readout', impl, pmh)
     elif diffdir is not None:
-        _no_kernel_rule("readout_grid", impl, disp[0])
+        _no_kernel_rule("readout_grid", impl, disp)
         out = _shift(meshes, disp, None, bounds, window, diffdir, 'readout',
                      impl, pmh)
     else:

@@ -1,15 +1,16 @@
 """ctypes wrappers of the lattice paint and readout CUDA kernels
 (``csrc/gridpm.cu``), the port of ``pmesh_tpu/ops/gridpm_pallas.py``.
 
-Each wrapper checks its tensors (CUDA, f32 or bf16 (one dtype for all),
-3-d mesh shape, contiguous, on one device, no autograd), allocates the
-outputs in that dtype (bf16: the kernels compute in f32 and round each
-output once, as the TPU kernels' ``_cdtype``),
+Each wrapper checks its tensors (CUDA, f32, bf16 or f64 (one dtype for
+all), 3-d mesh shape, contiguous, on one device, no autograd), allocates
+the outputs in that dtype (bf16: the kernels compute in f32 and round
+each output once, as the TPU kernels' ``_cdtype``; f64: the kernels
+compute in f64, from the library that ``csrc/gridpm64.cu`` builds),
 launches on PyTorch's current stream and raises RuntimeError if the
 launch returns an error.  ``LAUNCHES`` counts the launches of each
 kernel, so a run can show that it went through the kernels (the
-x-halo slab forms under "<name>_xhalo", the bf16 forms with "_bf16"
-appended).
+x-halo slab forms under "<name>_xhalo", the bf16 and f64 forms with
+"_bf16" and "_f64" appended).
 
 The kernels stage x-planes of a tile in shared memory (``csrc/gridpm.cu``
 says how); ``plan`` is their launch planner: the tile, the planes per
@@ -37,11 +38,12 @@ from ..native import cuda as _cuda
 __all__ = ["paint_lattice", "readout_lattice", "plan", "LAUNCHES",
            "reset_launches"]
 
-# the x-halo slab forms ("_xhalo") and the bf16 forms ("_bf16") count
-# apart
+# the x-halo slab forms ("_xhalo") and the bf16 and f64 forms ("_bf16",
+# "_f64") count apart
+FORMS = {torch.float32: "", torch.bfloat16: "_bf16", torch.float64: "_f64"}
 LAUNCHES = {name + halo + form: 0
             for name in ("paint_lattice", "readout_lattice")
-            for halo in ("", "_xhalo") for form in ("", "_bf16")}
+            for halo in ("", "_xhalo") for form in FORMS.values()}
 
 _ANALYTIC_CODE = {'nearest': 0, 'linear': 1, 'quadratic': 2, 'cubic': 3}
 _TABLE, _TABLE_OFFSET = 4, 5
@@ -71,10 +73,12 @@ SMS = 132
 # the readouts 2-7 %.  XC_MIN and MIN_BLOCKS are not tuned.
 XC_MAX, XC_MIN, MIN_BLOCKS = 32, 8, 4 * SMS
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _LL = ctypes.c_longlong
-_lib = None
+_libs = {}
 _tables = {}
+# the entry points' storage codes (csrc/gridpm.cu DT_*)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
 
 def reset_launches():
@@ -82,22 +86,27 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = _cuda.load("gridpm")
+def _load(name="gridpm"):
+    """the library of the f32 and bf16 forms, or ("gridpm64") of the f64
+    forms; both have the same entry points"""
+    if name not in _libs:
+        lib = _cuda.load(name)
         lib.pmesh_cuda_error_string.argtypes = [_I]
         lib.pmesh_cuda_error_string.restype = ctypes.c_char_p
         lib.pmesh_paint_lattice.argtypes = (
-            [_P] * 4 + [_F, _P] + [_I] * 9 + [_P, _I, _F, _F]
+            [_P] * 4 + [_D, _P] + [_I] * 9 + [_P, _I, _D, _D]
             + [_I] * 3 + [_LL, _I, _P])
         lib.pmesh_paint_lattice.restype = _I
         lib.pmesh_readout_lattice.argtypes = (
-            [_P] * 3 + [_I] + [_P] * 6 + [_I] * 9 + [_P, _I, _F, _F]
+            [_P] * 3 + [_I] + [_P] * 6 + [_I] * 9 + [_P, _I, _D, _D]
             + [_I] * 2 + [_LL, _I, _P])
         lib.pmesh_readout_lattice.restype = _I
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]
+
+
+def _lib_of(dtype):
+    return _load("gridpm64") if dtype == torch.float64 else _load()
 
 
 def _ceil(a, b):
@@ -115,21 +124,34 @@ def planes_per_block(n0, tiles):
     return xc
 
 
-def plan(op, shape, nv, nmesh=1, mass=False):
+def tile(op, dtype=torch.float32):
+    """(TY, TZ) of a block's y-z tile: TILE_Y[op] x TILE_Z where the
+    kernels compute in f32 (f32 and bf16 storage); for f64 a tile row of
+    the same 128 bytes, TILE_Z / 2 cells, with the readout's y tile the
+    THREADS / (TILE_Z / 2) thread rows and the paint's the same TILE_Y
+    rows, one a thread (``csrc/gridpm.cu`` Tiles<C>)"""
+    if dtype != torch.float64:
+        return TILE_Y[op], TILE_Z
+    tz = TILE_Z // 2
+    return (THREADS // tz if op == 'readout' else TILE_Y[op]), tz
+
+
+def plan(op, shape, nv, nmesh=1, mass=False, dtype=torch.float32):
     """The launch plan of a lattice kernel, as ``csrc/gridpm.cu`` takes it.
 
     op : 'paint' or 'readout'; shape : the (N0, N1, N2) output planes;
     nv : offsets per axis (1 .. NV_MAX); nmesh : the readout's meshes
-    (1 .. 3; 'all' reads one); mass : the paint takes a mass mesh.
+    (1 .. 3; 'all' reads one); mass : the paint takes a mass mesh;
+    dtype : the storage (f32 and bf16 compute in f32, f64 in f64).
 
-    A block owns a TILE_Y[op] x TILE_Z tile of y-z through ``xc``
-    output planes.  The readout keeps a ring of ``depth`` = nv + 1 mesh
-    planes of the tile plus its nv - 1 halo, per mesh; the paint keeps
-    ``nbuf`` tables (two where they fit in SMEM_LIMIT, else one) of 3 nv
-    axis weights (and the mass) per source cell of that region.  ``smem``:
-    the dynamic shared bytes; ``width``: the compiled nv, or None where
-    the kernel reads nv at run time.  The window's kind and the storage
-    dtype (smem holds f32) do not change the plan."""
+    A block owns a ``tile`` (TY x TZ) of y-z through ``xc`` output
+    planes.  The readout keeps a ring of ``depth`` = nv + 1 mesh planes of
+    the tile plus its nv - 1 halo, per mesh; the paint keeps ``nbuf``
+    tables (two where they fit in SMEM_LIMIT, else one) of 3 nv axis
+    weights (and the mass) per source cell of that region.  Shared memory
+    holds the compute type, 4 or 8 bytes a value.  ``smem``: the dynamic
+    shared bytes; ``width``: the compiled nv, or None where the kernel
+    reads nv at run time.  The window's kind does not change the plan."""
     if op not in ('paint', 'readout'):
         raise ValueError("plan: op must be 'paint' or 'readout'")
     if not 1 <= nv <= NV_MAX:
@@ -138,8 +160,9 @@ def plan(op, shape, nv, nmesh=1, mass=False):
     if op == 'readout' and not 1 <= nmesh <= 3:
         raise ValueError("plan: the readout takes 1 to 3 meshes")
     n0, n1, n2 = (int(n) for n in shape)
-    ty = TILE_Y[op]
-    region = (ty + nv - 1) * (TILE_Z + nv - 1) * 4
+    ty, tz = tile(op, dtype)
+    region = (ty + nv - 1) * (tz + nv - 1) * (
+        8 if dtype == torch.float64 else 4)
     if op == 'readout':
         depth, nbuf = nv + 1, None
         smem = depth * nmesh * region
@@ -147,30 +170,32 @@ def plan(op, shape, nv, nmesh=1, mass=False):
         table = (3 * nv + int(bool(mass))) * region
         depth, nbuf = None, 2 if 2 * table <= SMEM_LIMIT else 1
         smem = nbuf * table
-    xc = planes_per_block(n0, _ceil(n1, ty) * _ceil(n2, TILE_Z))
-    return dict(width=nv if nv in NV_COMPILED else None, tile=(ty, TILE_Z),
+    xc = planes_per_block(n0, _ceil(n1, ty) * _ceil(n2, tz))
+    return dict(width=nv if nv in NV_COMPILED else None, tile=(ty, tz),
                 xc=xc, depth=depth, nbuf=nbuf, smem=smem)
 
 
-def _window_args(window, device):
-    """(kind code, table pointer, table length, step, offset)."""
+def _window_args(window, device, dtype=torch.float32):
+    """(kind code, table pointer, table length, step, offset); the table
+    in the compute type of ``dtype`` (f64 for f64, else f32)."""
     win = find_window(window)
     base = ANALYTIC_BASE.get(win.kind)
     if base is not None:
         return _ANALYTIC_CODE[base], None, 0, 0.0, 0.0
-    key = (win.kind, device)
+    tdtype = torch.float64 if dtype == torch.float64 else torch.float32
+    key = (win.kind, device, tdtype)
     if key not in _tables:
         # the values, then the forward differences / step, both from f8
         t = np.asarray(win.table, dtype='f8')
         d = np.append(np.diff(t) / win.table_step, 0.0)
         _tables[key] = torch.as_tensor(np.concatenate([t, d]),
-                                       dtype=torch.float32, device=device)
+                                       dtype=tdtype, device=device)
     code = _TABLE if win.table_offset is None else _TABLE_OFFSET
     return (code, _tables[key], len(win.table), win.table_step,
             0.0 if win.table_offset is None else win.table_offset)
 
 
-_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPES = tuple(FORMS)
 
 
 def _check(arrays, what):
@@ -182,8 +207,9 @@ def _check(arrays, what):
                              % what)
         if a.dtype not in _DTYPES or a.dtype != ref.dtype:
             raise NotImplementedError(
-                "%s: the CUDA kernel takes f32 or bf16 meshes of one dtype "
-                "(got %s)" % (what, ", ".join(str(t.dtype) for t in arrays)))
+                "%s: the CUDA kernel takes f32, bf16 or f64 meshes of one "
+                "dtype (got %s)"
+                % (what, ", ".join(str(t.dtype) for t in arrays)))
         if a.dim() != 3:
             raise NotImplementedError(
                 "%s: the CUDA kernel is 3-d only (got %d-d)"
@@ -218,9 +244,9 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _raise_on(rc, what):
+def _raise_on(rc, what, dtype=torch.float32):
     if rc != 0:
-        msg = _load().pmesh_cuda_error_string(rc).decode()
+        msg = _lib_of(dtype).pmesh_cuda_error_string(rc).decode()
         raise RuntimeError("%s: CUDA launch failed (%d: %s)"
                            % (what, rc, msg))
 
@@ -241,7 +267,7 @@ def paint_lattice(disp, mass, vmin, vmax, window, diffdir=None, rows=None,
     rho[p] = sum_v m(p - v) prod_d W_d(v_d - s_d(p - v)), v in
     [vmin, vmax]^3, W_d = -W' on axis ``diffdir``.
 
-    disp : three (N0, N1, N2) f32 or bf16 CUDA tensors (cell units)
+    disp : three (N0, N1, N2) f32, bf16 or f64 CUDA tensors (cell units)
     mass : None (1), a scalar, or a mesh tensor of disp's dtype
     rows, xbase : the x-halo slab form: disp and mass hold N0 = lo +
         rows + hi planes, the output ``rows`` planes, output row i at
@@ -262,21 +288,21 @@ def paint_lattice(disp, mass, vmin, vmax, window, diffdir=None, rows=None,
     else:
         _halo_rows(what, n_in, rows, xbase, vmax, -vmin)
     scalar = 1.0 if mass is None or mesh_mass else float(mass)
-    kind, table, ntable, step, offset = _window_args(window, device)
     dtype = disp[0].dtype
+    kind, table, ntable, step, offset = _window_args(window, device, dtype)
     out = torch.empty((rows,) + shape[1:], dtype=dtype, device=device)
-    p = plan('paint', out.shape, vmax - vmin + 1, mass=mesh_mass)
+    p = plan('paint', out.shape, vmax - vmin + 1, mass=mesh_mass,
+             dtype=dtype)
     stream = torch.cuda.current_stream(device).cuda_stream
-    LAUNCHES[what + ("_xhalo" if xbase >= 0 else "")
-             + ("_bf16" if dtype == torch.bfloat16 else "")] += 1
-    rc = _load().pmesh_paint_lattice(
+    LAUNCHES[what + ("_xhalo" if xbase >= 0 else "") + FORMS[dtype]] += 1
+    rc = _lib_of(dtype).pmesh_paint_lattice(
         _ptr(disp[0]), _ptr(disp[1]), _ptr(disp[2]),
         _ptr(mass) if mesh_mass else None, scalar, _ptr(out),
         rows, shape[1], shape[2], n_in, xbase, vmin, vmax, kind,
         _DIFF[diffdir], _ptr(table), ntable, step, offset,
-        int(dtype == torch.bfloat16), p['xc'], p['nbuf'], p['smem'],
-        device.index, stream)
-    _raise_on(rc, what)
+        _DTYPE_CODE[dtype], p['xc'], p['nbuf'], p['smem'], device.index,
+        stream)
+    _raise_on(rc, what, dtype)
     return out
 
 
@@ -315,22 +341,22 @@ def readout_lattice(meshes, disp, vmin, vmax, window, diffdir=None,
             raise NotImplementedError(
                 "%s: the meshes and displacements must share a dtype" % what)
         _halo_rows(what, n_in, shape[0], xbase, -vmin, vmax)
-    kind, table, ntable, step, offset = _window_args(window, device)
     nout = 3 if diffdir == 'all' else len(meshes)
     dtype = disp[0].dtype
+    kind, table, ntable, step, offset = _window_args(window, device, dtype)
     outs = tuple(torch.empty(shape, dtype=dtype, device=device)
                  for _ in range(nout))
     m = [_ptr(x) for x in meshes] + [None] * (3 - len(meshes))
     o = [_ptr(x) for x in outs] + [None] * (3 - nout)
-    p = plan('readout', shape, vmax - vmin + 1, nmesh=len(meshes))
+    p = plan('readout', shape, vmax - vmin + 1, nmesh=len(meshes),
+             dtype=dtype)
     stream = torch.cuda.current_stream(device).cuda_stream
-    LAUNCHES[what + ("_xhalo" if xbase >= 0 else "")
-             + ("_bf16" if dtype == torch.bfloat16 else "")] += 1
-    rc = _load().pmesh_readout_lattice(
+    LAUNCHES[what + ("_xhalo" if xbase >= 0 else "") + FORMS[dtype]] += 1
+    rc = _lib_of(dtype).pmesh_readout_lattice(
         m[0], m[1], m[2], len(meshes), _ptr(disp[0]), _ptr(disp[1]),
         _ptr(disp[2]), o[0], o[1], o[2], shape[0], shape[1], shape[2],
         n_in, xbase, vmin, vmax, kind, _DIFF[diffdir], _ptr(table), ntable,
-        step, offset, int(dtype == torch.bfloat16), p['xc'], p['smem'],
-        device.index, stream)
-    _raise_on(rc, what)
+        step, offset, _DTYPE_CODE[dtype], p['xc'], p['smem'], device.index,
+        stream)
+    _raise_on(rc, what, dtype)
     return outs

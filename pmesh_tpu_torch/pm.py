@@ -19,9 +19,9 @@ step), ``ravel``/``unravel``, the Fourier ``resample`` and the host
 (``ops/paint.py``) with ``upsample``/``downsample`` and the analytic
 ``*_vjp``/``*_jvp`` operators, the particle grid, the single-domain
 ``decompose`` and the white noise.  The transposed and untransposed
-complex fields are one layout on one device: the hermitian half
-spectrum, or with a complex dtype ('c8', 'c16') the full c2c spectrum,
-whose real fields are complex too.
+complex fields are one layout on one device (and on the replicated
+route): the hermitian half spectrum, or with a complex dtype ('c8',
+'c16') the full c2c spectrum, whose real fields are complex too.
 
 With a ``procmesh`` of P > 1 ranks (``parallel/pmesh.py``) the mesh
 takes one of three routes (``ParticleMesh.route``), chosen by the JAX
@@ -59,9 +59,34 @@ without one they reshard a copy, decompose and route the values back,
 so that any positions give the global answer.  The particle grid is
 block b of the lattice's points in C order, the white noise each rank's
 own block of the fill, and the reductions ``csum``/``cdot``/``cnorm``
-sum over the ranks' blocks.  The global item access and reshaping and
-the untransposed layout raise on a sharded mesh (ROADMAP queue 1, item
-8d).
+sum over the ranks' blocks.
+
+The field API answers on every route, with these conventions (the
+data moves by ``parallel/blocks.py``, over ``comm.all_to_all_v``, so
+that what is differentiable on one device stays so):
+
+- ``Field.start`` and ``slices`` are this rank's block in global
+  indices: ``value`` is the global field's ``[slices]``;
+- ``mesh_coordinates`` and ``ravel`` give rank b block b of the
+  C-ordered points and flat array, ``[b nl, (b + 1) nl)`` with nl =
+  ceil(npoints / P), as every particle array is held, so their rows
+  pair one to one and the blocks in rank order are the global ravel;
+  ``unravel`` takes that block (on an even slab the real slab is its
+  own block and nothing moves).  Where every rank holds the whole
+  field (the replicated route), ``ravel``/``unravel`` are the
+  one-device ones, and ``mesh_coordinates`` still block b;
+- ``cgetitem`` returns the same value on every rank (the owner's,
+  summed over the ranks); ``csetitem`` writes on the ranks that hold
+  the index and its hermitian dual;
+- the untransposed complex field takes the real field's blocks (x on a
+  slab, (x, y) on a pencil: the JAX package's ``untransposed_spec``);
+  ``r2c(out=U)``, ``c2r`` and ``cast`` move the spectrum between it and
+  the transposed layout;
+- ``resample`` gathers the source spectrum on every rank (as the JAX
+  package does) and fills each rank's block of the target; ``preview``
+  is the same numpy array on every rank, the blocks' partial sums
+  summed over the ranks; ``ctranspose`` is this rank's block of the
+  permuted field on ``pm.reshape`` of the same process mesh.
 
 Reverse and forward mode run through every route, with the convention
 of ``parallel/comm.py``: the gradient of a blocked field or particle
@@ -105,13 +130,6 @@ def resolve_device(device=None):
     if device.type == 'cuda' and device.index is None:
         device = torch.device('cuda', torch.cuda.current_device())
     return device
-
-
-def _not_sharded(pm, what):
-    if pm.sharded:
-        raise NotImplementedError(
-            "%s on a sharded mesh is not ported yet (ROADMAP queue 1, "
-            "item 8d)" % what)
 
 
 def _rank_sum(pm, value):
@@ -232,13 +250,17 @@ class Field(object):
 
     @property
     def start(self):
-        # a field on one device is the whole mesh: its view starts at 0
-        _not_sharded(self.pm, "Field.start")
-        return np.zeros(self.ndim, dtype='intp')
+        """the global index of this rank's block's first point (0 where
+        the field is whole)"""
+        return np.array([lo for lo, _ in self.pm.local_block(type(self))],
+                        dtype='intp')
 
     @property
     def slices(self):
-        return tuple(slice(0, n) for n in self.shape)
+        """this rank's block of the global field (the whole field on one
+        device and on the replicated route)"""
+        return tuple(slice(lo, hi)
+                     for lo, hi in self.pm.local_block(type(self)))
 
     @property
     def real(self):
@@ -394,13 +416,23 @@ class Field(object):
                      for d in range(self.ndim))
 
     def _stored(self, ind):
-        return all(ind[d] < self.shape[d] for d in range(self.ndim))
+        """whether the global field stores the global index ``ind``"""
+        return all(ind[d] < self.cshape[d] for d in range(self.ndim))
+
+    def _local(self, ind):
+        """the index within this rank's block of the global index ``ind``,
+        or None where another rank holds it"""
+        block = self.pm.local_block(type(self))
+        if not all(lo <= i < hi for i, (lo, hi) in zip(ind, block)):
+            return None
+        return tuple(i - lo for i, (lo, _) in zip(ind, block))
 
     def cgetitem(self, index):
         """The value at a global index (a numpy scalar); with a trailing
         0 or 1, its real or imaginary part.  A mode of a half spectrum
-        stored only as its conjugate is read from its dual."""
-        _not_sharded(self.pm, "cgetitem")
+        stored only as its conjugate is read from its dual.  On a blocked
+        route the rank that holds it reads it and every rank returns it
+        (a sum over the ranks)."""
         ind, comp = self._normalize_index(index)
         conj = False
         if not self._stored(ind):
@@ -408,8 +440,16 @@ class Field(object):
             conj = True
             if not self._stored(ind):
                 raise IndexError("index %s out of bounds for shape %s"
-                                 % (ind, self.shape))
-        v = self.value[ind].detach().cpu().numpy()
+                                 % (ind, tuple(self.cshape)))
+        v = self.value.detach()
+        if self.pm.blocked:
+            from .parallel.comm import all_reduce
+            at = self._local(ind)
+            v = v[at] if at is not None else v.new_zeros(())
+            v = all_reduce(v.reshape(1), self.pm.procmesh, 'sum')[0]
+        else:
+            v = v[ind]
+        v = v.cpu().numpy()
         if conj:
             v = np.conjugate(v)
         if comp is None:
@@ -420,18 +460,22 @@ class Field(object):
         """Set the value at a global index (with a trailing 0 or 1, its
         real or imaginary part) and, on a complex field, its hermitian
         dual where that is stored: a self-conjugate mode keeps only the
-        real part.  Returns the value cgetitem then reads."""
-        _not_sharded(self.pm, "csetitem")
+        real part.  On a blocked route the ranks that hold the index and
+        its dual write them.  Returns the value cgetitem then reads (on
+        every rank)."""
         ind, comp = self._normalize_index(index)
         v = self.value.clone()
 
-        def get(i):
-            return complex(v[i].item())
+        def write(i, f):
+            # v[i] = f(v[i]) on the rank that holds global index i
+            at = self._local(i)
+            if at is not None:
+                v[at] = f(complex(v[at].item()))
 
         if not isinstance(self, BaseComplexField):
             if comp is not None:
                 raise IndexError("real field has no real/imag index")
-            v[ind] = y
+            write(ind, lambda _: y)
             self.value = v
             return y
 
@@ -447,23 +491,23 @@ class Field(object):
                 y_in = 0
                 dualy = 0
             if has_local:
-                v[ind] = get(ind).real + 1j * y_in
+                write(ind, lambda old: old.real + 1j * y_in)
             if has_dual:
-                v[dual] = get(dual).real + 1j * dualy
+                write(dual, lambda old: old.real + 1j * dualy)
         elif comp == 0:
             if has_local:
-                v[ind] = 1j * get(ind).imag + y_in
+                write(ind, lambda old: 1j * old.imag + y_in)
             if has_dual:
-                v[dual] = 1j * get(dual).imag + y_in
+                write(dual, lambda old: 1j * old.imag + y_in)
         else:
             dualy = np.conjugate(dualy)
             if has_local and has_dual and ind == dual:
                 dualy = dualy.real
                 y_in = np.real(y_in) if np.iscomplexobj(y_in) else y_in
             if has_local:
-                v[ind] = y_in
+                write(ind, lambda _: y_in)
             if has_dual:
-                v[dual] = dualy
+                write(dual, lambda _: dualy)
         self.value = v
         # an index stored only as its conjugate still takes the value
         return y_in if stored else 0
@@ -471,26 +515,40 @@ class Field(object):
     # --- global reshaping
     def ravel(self, out=None):
         """The C-ordered flat value (a view where the value is
-        contiguous).  ``out`` takes only None or Ellipsis: use the
-        returned tensor."""
-        _not_sharded(self.pm, "ravel")
+        contiguous); on a blocked route this rank's block of the global
+        flat array (module docstring).  ``out`` takes only None or
+        Ellipsis: use the returned tensor."""
         if out is not None and not is_inplace(out):
             raise ValueError("ravel(out=...) cannot fill a caller buffer; "
                              "pass out=None or out=... and use the returned "
                              "tensor")
-        return self.value.reshape(-1)
+        if not self.pm.blocked or self.pm._flat_aligned(type(self)):
+            return self.value.reshape(-1)
+        from .parallel import blocks
+        return blocks.ravel(self.value, self.pm.procmesh,
+                            self.pm.local_block(type(self)),
+                            tuple(self.cshape), self.pm._owner(type(self)))
 
     def unravel(self, flat):
         """Rebind ``.value`` to the C-ordered ``flat`` (a tensor on the
-        mesh's device, a numpy array or a field)."""
-        _not_sharded(self.pm, "unravel")
+        mesh's device, a numpy array or a field); on a blocked route
+        ``flat`` is this rank's block of the global flat array, as
+        :meth:`ravel` returns it."""
         if isinstance(flat, Field):
             flat = flat.value
         flat = torch.as_tensor(flat, device=self.pm.device)
         if not _same_device(flat.device, self.pm.device):
             raise ValueError("flat lies on %s but the ParticleMesh is on %s"
                              % (flat.device, self.pm.device))
-        self.value = flat.reshape(self.shape).to(self.dtype)
+        flat = flat.reshape(-1).to(self.dtype)
+        if not self.pm.blocked or self.pm._flat_aligned(type(self)):
+            self.value = flat.reshape(self.shape)
+            return
+        from .parallel import blocks
+        self.value = blocks.unravel(flat, self.pm.procmesh,
+                                    self.pm.local_block(type(self)),
+                                    tuple(self.cshape),
+                                    self.pm._owner(type(self)))
 
     def sort(self, out=None):
         return self.ravel(out)
@@ -500,12 +558,13 @@ class Field(object):
         field goes through r2c to a complex type and back through c2r."""
         type = _field_type(type)
         if isinstance(self, RealField) and issubclass(type, BaseComplexField):
-            r = self.pm.create(type, value=self.r2c().value)
+            r = self.r2c(out=self.pm.create(type))
         elif isinstance(self, BaseComplexField) and issubclass(type,
                                                                RealField):
             r = self.c2r()
         else:
-            r = self.pm.create(type, value=self.value)
+            r = self.pm.create(type, value=self.pm._relayout(
+                self.value, _gettype(self), type))
         if isinstance(out, Field):
             out.value = r.value.to(out.dtype)
             return out
@@ -522,19 +581,25 @@ class Field(object):
         indexes a real field's spectrum with the real field's own shape
         (``pmesh_tpu/pm.py:517-519``), which reads the wrong modes when
         the last axis is compressed; the port reads the spectrum's
-        shape."""
+        shape.
+
+        On a sharded mesh (``out`` on the same process mesh) every rank
+        gathers the source spectrum, as the JAX package does, and fills
+        its block of the target's."""
         if not isinstance(out, Field):
             raise TypeError("out must be a Field")
-        _not_sharded(self.pm, "resample")
         if all(out.Nmesh == self.Nmesh):
             return self.cast(type=_gettype(out), out=out)
         selfc = self.cast(type=TransposedComplexField)
         complex = out.pm.create(type=TransposedComplexField)
         ind = build_index(
-            [reindex(self.Nmesh[d], out.Nmesh[d])[np.arange(n)]
-             for d, n in enumerate(complex.cshape)], selfc.cshape)
+            [reindex(self.Nmesh[d], out.Nmesh[d])[np.arange(lo, hi)]
+             for d, (lo, hi) in enumerate(
+                 out.pm.local_block(TransposedComplexField))],
+            selfc.cshape)
         ind = torch.from_numpy(ind).to(self.pm.device)
-        flat = selfc.value.reshape(-1)
+        flat = self.pm._whole(selfc.value, TransposedComplexField,
+                              out.pm.blocked).reshape(-1)
         cvalue = torch.where(ind >= 0, flat[ind.clamp(min=0)], 0)
         ii = complex.i
         selfconj = functools.reduce(
@@ -546,18 +611,16 @@ class Field(object):
             [(i0 == int(n) // 2) | (i0 == int(m) // 2)
              for i0, n, m in zip(ii, out.Nmesh, self.Nmesh)])
         complex.value = torch.where(nyquist, 0, cvalue)
-        if isinstance(out, RealField):
-            out.value = complex.c2r().value
-        else:
-            out.value = complex.value
+        out.value = complex.cast(type=_gettype(out)).value
         return out
 
     def preview(self, Nmesh=None, axes=None, resampler=None, method=None):
         """The field as a host numpy array: resampled to ``Nmesh``
         (through ``downsample`` or ``upsample`` of the real field,
         keeping the mean) and summed over the axes not in ``axes``, the
-        kept axes in the order ``axes`` gives."""
-        _not_sharded(self.pm, "preview")
+        kept axes in the order ``axes`` gives.  On a sharded mesh every
+        rank returns the same array: the one-device result, summed over
+        the ranks' blocks."""
         if axes is None:
             axes = range(self.ndim)
         if not hasattr(axes, '__iter__'):
@@ -581,9 +644,17 @@ class Field(object):
             else:
                 raise ValueError("method must be downsample or upsample")
         removeaxes = sorted(set(range(field.ndim)) - set(axes))
-        v = field.value
+        v = field.value.detach()
         if removeaxes:
             v = v.sum(dim=tuple(removeaxes))
+        if field.pm.blocked:
+            # this rank's partial sums in place in the kept axes' global
+            # shape, summed over the ranks
+            from .parallel.comm import all_reduce
+            kept = [a for a in range(field.ndim) if a not in removeaxes]
+            part = v.new_zeros(tuple(int(field.Nmesh[a]) for a in kept))
+            part[tuple(field.slices[a] for a in kept)] = v
+            v = all_reduce(part, field.pm.procmesh, 'sum')
         # the kept axes in increasing order, permuted to ``axes``'
         current = [a for a in range(field.ndim) if a not in removeaxes]
         perm = [current.index(a) for a in axes]
@@ -615,7 +686,8 @@ class RealField(Field):
         value = self.pm._r2c_value(self.value)
         if out is None or is_inplace(out) or out is self:
             return self.pm.create(type=ComplexField, value=value)
-        out.value = value.to(out.dtype)
+        out.value = self.pm._relayout(value, TransposedComplexField,
+                                      _gettype(out)).to(out.dtype)
         return out
 
     def apply(self, func, kind="relative", out=None):
@@ -729,15 +801,24 @@ class RealField(Field):
 
     def ctranspose(self, axes):
         """The field with its axes permuted to ``axes``, on a mesh whose
-        Nmesh and BoxSize are permuted alike."""
-        _not_sharded(self.pm, "ctranspose")
+        Nmesh and BoxSize are permuted alike (on a sharded mesh, of the
+        same process mesh: this rank's block of the permuted field)."""
         axes = [int(a) for a in axes]
         if sorted(axes) != list(range(self.ndim)):
             raise ValueError("axes must be a permutation of range(ndim)")
         pm = self.pm.reshape(BoxSize=self.BoxSize[axes],
                              Nmesh=self.Nmesh[axes])
-        return pm.create(type=RealField,
-                         value=self.value.permute(axes).contiguous())
+        if self.pm.blocked and pm.blocked:
+            from .parallel import blocks
+            value = blocks.redistribute(
+                self.value, self.pm.procmesh, self.pm._boxes(RealField),
+                pm._boxes(RealField), perm=axes)
+        else:
+            value = self.pm._whole(self.value, RealField,
+                                   pm.blocked).permute(axes)
+            value = value[tuple(slice(lo, hi) for lo, hi
+                                in pm.local_block(RealField))]
+        return pm.create(type=RealField, value=value.contiguous())
 
 
 class BaseComplexField(Field):
@@ -746,7 +827,8 @@ class BaseComplexField(Field):
 
     def c2r(self, out=None):
         """Unnormalized complex-to-real transform (inverse of r2c)."""
-        value = self.pm._c2r_value(self.value)
+        value = self.pm._c2r_value(self.pm._relayout(
+            self.value, _gettype(self), TransposedComplexField))
         if out is None or is_inplace(out) or out is self:
             return self.pm.create(type=RealField, value=value)
         out.value = value.to(out.dtype)
@@ -827,7 +909,8 @@ class TransposedComplexField(BaseComplexField):
 
 class UntransposedComplexField(BaseComplexField):
     """The complex field in the input layout: on one device the same
-    array as the transposed one."""
+    array as the transposed one; on a blocked route the real field's
+    blocks (x rows on a slab, x and y blocks on a pencil)."""
 
 
 ComplexField = TransposedComplexField
@@ -952,35 +1035,117 @@ class ParticleMesh(object):
         return tuple(int(n) for n in self.Nmesh[:-1]) \
             + (int(self.Nmesh[-1]) // 2 + 1,)
 
+    def _split(self, field_type):
+        """(global shape, split) of a field of ``field_type``: split[d] is
+        None for a whole axis d, or (grid axis, chunk): the rank at grid
+        coordinate b holds ``[b chunk, (b + 1) chunk)`` of it (module
+        docstring)"""
+        field_type = _field_type(field_type)
+        shape = self._global_shape(field_type)
+        split = [None] * self.ndim
+        if not self.blocked:
+            return shape, split
+        grid = self.procmesh.grid
+
+        def chunk(n, a):
+            return (a, -(-int(n) // grid[a]))
+        transposed = issubclass(field_type, BaseComplexField) and not \
+            issubclass(field_type, UntransposedComplexField)
+        if self.route == 'slab':
+            if transposed:
+                # the y blocks of the spectrum are those of N1, also
+                # where its y axis is the half spectrum (2-d real meshes)
+                split[1] = chunk(self.Nmesh[1], 0)
+            else:
+                split[0] = chunk(shape[0], 0)
+        elif transposed:
+            split[1] = chunk(shape[1], 0)
+            split[-1] = chunk(shape[-1], 1)
+        else:
+            # the real field's pencils; the untransposed spectrum's too
+            split[0] = chunk(shape[0], 0)
+            split[1] = chunk(shape[1], 1)
+        return shape, split
+
+    def _block_at(self, field_type, coords):
+        """the block of the rank at grid ``coords`` (None: the whole
+        field)"""
+        from .parallel.pmesh import block_of
+        shape, split = self._split(field_type)
+        return tuple((0, n) if s is None or coords is None
+                     else block_of(n, None, coords[s[0]], s[1])
+                     for n, s in zip(shape, split))
+
     def local_block(self, field_type):
         """the (start, stop) of each axis of this rank's block of a field
         of ``field_type`` (a type string or class), as the route lays it
         out (module docstring); the whole axes on one rank and on the
         replicated route."""
-        field_type = _field_type(field_type)
-        shape = self._global_shape(field_type)
-        block = [(0, n) for n in shape]
+        coords = self.procmesh.coords if self.blocked else None
+        return self._block_at(field_type, coords)
+
+    def _coords_of(self, rank):
+        grid = self.procmesh.grid
+        return (rank,) if len(grid) == 1 else divmod(rank, grid[1])
+
+    def _boxes(self, field_type):
+        """every rank's block of a field of ``field_type``, in rank order
+        (the whole field for each where the field is not blocked)"""
         if not self.blocked:
-            return tuple(block)
-        if issubclass(field_type, UntransposedComplexField):
-            _not_sharded(self, "the untransposed complex layout")
-        spectrum = issubclass(field_type, BaseComplexField)
-        pm = self.procmesh
-        if self.route == 'slab':
-            if spectrum:
-                # the y blocks of the spectrum are those of N1, also
-                # where its y axis is the half spectrum (2-d real meshes)
-                block[1] = pm.block(shape[1],
-                                    chunk=-(-int(self.Nmesh[1]) // pm.size))
-            else:
-                block[0] = pm.block(shape[0])
-        elif spectrum:
-            block[1] = pm.block(shape[1], 0)
-            block[-1] = pm.block(shape[-1], 1)
-        else:
-            block[0] = pm.block(shape[0], 0)
-            block[1] = pm.block(shape[1], 1)
-        return tuple(block)
+            whole = self._block_at(field_type, None)
+            return [whole] * (self.procmesh.size if self.sharded else 1)
+        return [self._block_at(field_type, self._coords_of(r))
+                for r in range(self.procmesh.size)]
+
+    def _owner(self, field_type):
+        """owner(index): the rank whose block of a field of
+        ``field_type`` holds each point of the per-axis index tensors"""
+        _, split = self._split(field_type)
+        npy = self.procmesh.grid[-1] if self.procmesh.is2d else 1
+        scale = (npy, 1) if self.procmesh.is2d else (1,)
+
+        def owner(index):
+            r = torch.zeros_like(index[0])
+            for i, s in zip(index, split):
+                if s is not None:
+                    r = r + torch.div(i, s[1], rounding_mode='floor') \
+                        * scale[s[0]]
+            return r
+        return owner
+
+    def _flat_aligned(self, field_type):
+        from .parallel import blocks
+        return blocks.aligned(self._boxes(field_type),
+                              self._global_shape(_field_type(field_type)))
+
+    def _relayout(self, value, src_type, dst_type):
+        """``value``, this rank's block of a field of ``src_type``, as its
+        block in the layout of ``dst_type`` (the transposed and
+        untransposed spectra differ on a blocked route)"""
+        src_type, dst_type = _field_type(src_type), _field_type(dst_type)
+        src, dst = self._boxes(src_type), self._boxes(dst_type)
+        if src == dst:
+            return value
+        from .parallel import blocks
+        return blocks.redistribute(value, self.procmesh, src, dst)
+
+    def _whole(self, value, field_type, blocked_out=False):
+        """the whole global field on every rank, from ``value``, this
+        rank's block of a field of ``field_type``: on a blocked route each
+        rank's block in place in zeros, summed over the ranks (a
+        replicated tensor, whose cotangent each block takes back as
+        ``all_reduce``'s identity backward does); handed to rank-local
+        data through ``comm.pbroadcast`` when ``blocked_out``"""
+        from .parallel.comm import all_reduce, pbroadcast
+        if self.blocked:
+            whole = value.new_zeros(self._global_shape(
+                _field_type(field_type)))
+            whole[tuple(slice(lo, hi) for lo, hi
+                        in self.local_block(field_type))] = value
+            value = all_reduce(whole, self.procmesh, 'sum')
+        if blocked_out and self.sharded:
+            value = pbroadcast(value, self.procmesh)
+        return value
 
     def _shape_dtype(self, field_type):
         shape = tuple(stop - start
@@ -1014,9 +1179,10 @@ class ParticleMesh(object):
         sharded mesh, those of this rank's block (global indices)."""
         field_type = _field_type(field_type)
         iscomplex = issubclass(field_type, BaseComplexField)
-        if iscomplex not in self._coords_cache:
+        block = self.local_block(field_type)
+        key = (iscomplex, block)
+        if key not in self._coords_cache:
             x, i = [], []
-            block = self.local_block(field_type)
             fdtype = 'f8' if self.dtype.itemsize >= 8 else 'f4'
             for d, (lo, hi) in enumerate(block):
                 # this rank's block of the global coordinates
@@ -1034,8 +1200,8 @@ class ParticleMesh(object):
                                 / self.Nmesh[d])).astype(fdtype)
                 x.append(torch.from_numpy(xi.reshape(t)).to(self.device))
                 i.append(torch.from_numpy(ind.reshape(t)).to(self.device))
-            self._coords_cache[iscomplex] = (x, i)
-        x, i = self._coords_cache[iscomplex]
+            self._coords_cache[key] = (x, i)
+        x, i = self._coords_cache[key]
         return list(i if return_indices else x)
 
     def _apply_coords(self, field_type, kind):
@@ -1091,14 +1257,12 @@ class ParticleMesh(object):
     # --- particles ---
     def mesh_coordinates(self, dtype=None):
         """The integer coordinates of every mesh point, (prod(Nmesh),
-        ndim) in ``dtype`` (default the mesh's), C order."""
-        _not_sharded(self, "mesh_coordinates")
+        ndim) in ``dtype`` (default the mesh's), C order; on a sharded
+        mesh this rank's rows, block b of them (``_mesh_points``), as
+        every particle array is held."""
         if dtype is None:
             dtype = self.dtype
-        axes = [torch.arange(int(n), device=self.device) for n in self.Nmesh]
-        grids = torch.meshgrid(*axes, indexing='ij')
-        coord = torch.stack([g.reshape(-1) for g in grids], dim=-1)
-        return coord.to(_torch_dtype(dtype))
+        return self._mesh_points().to(_torch_dtype(dtype))
 
     def _mesh_points(self):
         """the (n, ndim) int64 indices of this rank's block of the mesh's

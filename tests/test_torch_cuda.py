@@ -188,11 +188,25 @@ def test_staged_xhalo_matches_plain(dev, nv):
 
 
 def test_kernels_refuse_what_they_cannot_run(dev):
+    """an f64 mesh runs on the f64 kernels and a 2-d mesh on the plain
+    version (the JAX package's gate, pmesh_tpu/ops/gridpm.py:172), with
+    no launch; impl='cuda' on a 2-d mesh and an f16 mesh raise"""
+    from pmesh_tpu_torch.ops import gridpm_cuda
     disp, _, meshes = _inputs(4, (8, 8, 8), (0.0, 1.0), dev)
-    with pytest.raises(NotImplementedError, match='f32'):
-        tgp.paint_grid(tuple(d.double() for d in disp))
-    with pytest.raises(NotImplementedError, match='3-d'):
-        tgp.paint_grid(tuple(d[0] for d in disp[:2]))
+    gridpm_cuda.reset_launches()
+    d64 = tuple(d.double() for d in disp)
+    got = tgp.paint_grid(d64)
+    assert _launched(gridpm_cuda) == {"paint_lattice_f64": 1}
+    assert _rel(got, tgp.paint_grid(d64, impl='torch')) <= 1e-12
+    gridpm_cuda.reset_launches()
+    d2 = tuple(d[0].contiguous() for d in disp[:2])
+    got = tgp.paint_grid(d2)
+    assert _launched(gridpm_cuda) == {} and got.is_cuda
+    assert torch.equal(got.cpu(), tgp.paint_grid(tuple(d.cpu() for d in d2)))
+    with pytest.raises(NotImplementedError, match='gridpm.py:172'):
+        tgp.paint_grid(d2, impl='cuda')
+    with pytest.raises(NotImplementedError, match='f32, bf16 or f64'):
+        tgp.paint_grid(tuple(d.half() for d in disp))
     with pytest.raises(ValueError, match='contiguous'):
         tgp.readout_grid(meshes[0].transpose(0, 2), disp)
     # the wrappers refuse tensors that require grad; paint_grid and
@@ -327,9 +341,20 @@ def test_rebase_dispatch_counters_and_refusals(dev):
     tbn.rebase(ds, va, (-0.5, 1.5))
     tbn.rebase(ds, va, (-0.5, 1.5), impl='torch')
     assert _launched(binned_cuda) == {"rebase_assign": 2, "rebase_apply": 1}
-    with pytest.raises(NotImplementedError, match='f32'):
-        tbn.rebase(tuple(tuple(x.double() for x in dk) for dk in ds),
-                   tuple(v.double() for v in va), (-0.5, 1.5))
+    # f64 runs on the f64 kernels, bitwise its plain version
+    binned_cuda.reset_launches()
+    d64 = tuple(tuple(x.double() for x in dk) for dk in ds)
+    v64 = tuple(v.double() for v in va)
+    e64 = tuple(tuple(x.double() for x in dk) for dk in vel)
+    got = tbn.rebase(d64, v64, (-0.5, 1.5), extras=(e64,))
+    assert _launched(binned_cuda) == {"rebase_assign_f64": 1,
+                                      "rebase_apply_f64": 1}
+    _assert_same(got, tbn.rebase(d64, v64, (-0.5, 1.5), extras=(e64,),
+                                 impl='torch'))
+    # a 2-d state takes the plain version; impl='cuda' there raises
+    with pytest.raises(NotImplementedError, match='binned.py:289'):
+        tbn.rebase(tuple(tuple(x[0] for x in dk[:2]) for dk in ds),
+                   tuple(v[0] for v in va), (-0.5, 1.5), impl='cuda')
     with pytest.raises(NotImplementedError, match='slots'):
         tbn.rebase(ds, va, (-0.5, 1.5), nslots_out=17)
     # the kernels read and write f32 only
@@ -365,6 +390,199 @@ def test_nbody_binned_card_matches_cpu(dev, adaptive):
     (ref, rtot, rov), (got, gtot, gov) = out
     assert rtot == gtot == n ** 3 and rov == gov == 0
     assert _rel(got, ref) <= 1e-4
+
+
+# --- the f64 forms and the f8 paths (csrc/gridpm64.cu, csrc/binned.cu) ------
+
+def _inputs64(seed, shape, bounds, dev):
+    rng = np.random.RandomState(seed)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+    disp = tuple(t(rng.uniform(bounds[0], bounds[1], shape))
+                 for _ in range(3))
+    mass = t(1 + 0.2 * rng.normal(size=shape))
+    meshes = tuple(t(rng.normal(size=shape)) for _ in range(3))
+    return disp, mass, meshes
+
+
+@pytest.mark.parametrize("window,bounds", [
+    ('cic', (-1.0, 1.0)), ('cic', (-0.5, 1.5)), ('cic', (-3.0, 3.0)),
+    ('cic', (-4.5, 5.5)), ('tsc', (-1.0, 1.5)), ('lanczos2', (-1.0, 1.0)),
+    ('db6', (0.0, 1.0))])
+def test_f64_kernels_match_plain(dev, window, bounds):
+    """the f64 paint and readout (1 to 3 meshes, derivatives, 'all', a
+    mass mesh or a scalar) and their x-halo forms at 32^3 against the
+    plain f64 versions, 1e-12 of max: they compute in f64 (an f32
+    computation misses by 1e-7); nv 3, 4, 7 and 12 (the widest)"""
+    from pmesh_tpu_torch.ops import gridpm_cuda
+    disp, mass, meshes = _inputs64(40, (32, 30, 34), bounds, dev)
+    vmin, vmax = tgp.offset_range(*bounds, window)
+    gridpm_cuda.reset_launches()
+    for diffdir in (None, 1):
+        for m in (None, mass, 0.5):
+            ref = tgp.paint_grid(disp, m, bounds, window, diffdir,
+                                 impl='torch')
+            got = tgp.paint_grid(disp, m, bounds, window, diffdir,
+                                 impl='cuda')
+            assert got.dtype == torch.float64
+            assert _rel(got, ref) <= 1e-12, (diffdir, type(m))
+    for diffdir, nm in ((None, 1), (None, 3), (2, 2), ('all', 1)):
+        refs = tgp.readout_grid(meshes[:nm], disp, bounds, window, diffdir,
+                                impl='torch')
+        gots = gridpm_cuda.readout_lattice(meshes[:nm], disp, vmin, vmax,
+                                           window, diffdir=diffdir)
+        for got, ref in zip(gots, refs):
+            assert _rel(got, ref) <= 1e-12, (diffdir, nm)
+    rows = 9
+    lo, hi = max(0, vmax), max(0, -vmin)
+    dext = tuple(d[:lo + rows + hi].contiguous() for d in disp)
+    mext = mass[:lo + rows + hi].contiguous()
+    got = gridpm_cuda.paint_lattice(dext, mext, vmin, vmax, window,
+                                    rows=rows, xbase=lo)
+    assert _rel(got, tgp.paint_slab_plain(dext, mext, lo, rows, bounds,
+                                          window)) <= 1e-12
+    lo, hi = max(0, -vmin), max(0, vmax)
+    mx = tuple(m[:lo + rows + hi].contiguous() for m in meshes)
+    rd = tuple(d[:rows].contiguous() for d in disp)
+    gots = gridpm_cuda.readout_lattice(mx, rd, vmin, vmax, window, xbase=lo)
+    for g, r in zip(gots, tgp.readout_slab_plain(mx, rd, lo, bounds,
+                                                 window)):
+        assert _rel(g, r) <= 1e-12
+    launched = _launched(gridpm_cuda)
+    assert set(launched) == {"paint_lattice_f64", "readout_lattice_f64",
+                             "paint_lattice_xhalo_f64",
+                             "readout_lattice_xhalo_f64"}
+
+
+@pytest.mark.parametrize("case", ["k2to3", "wide", "x-halo"])
+def test_f64_rebase_bitwise(dev, case):
+    """the f64 rebase assign and apply, bitwise their plain versions:
+    K = 2 -> 3 in (-0.5, 1.5), K = 2 -> 2 with 64 offsets, and the x-halo
+    form of a slab"""
+    from pmesh_tpu_torch.ops import binned as tbn
+    from pmesh_tpu_torch.ops import binned_cuda
+    bounds, fill, kout = {"k2to3": ((-0.5, 1.5), (1.0, 0.25), 3),
+                          "wide": ((-2.0, 2.0), (1.0, 0.1), 2),
+                          "x-halo": ((-0.5, 1.5), (1.0, 0.25), 2)}[case]
+    ds, va, vel = _slot_state(41, (24, 20, 34), bounds[0] + 0.01,
+                              bounds[1] - 0.01, fill, dev)
+    ds, vel = (tuple(tuple(x.double() for x in dk) for dk in s)
+               for s in (ds, vel))
+    va = tuple(v.double() for v in va)
+    offsets = tbn._drift_offsets(bounds, 3)
+    lo, hi = offsets[0][0], offsets[-1][0]
+    if case == "x-halo":
+        xb, rows = max(0, hi), 10
+        got = binned_cuda.rebase_assign(ds, va, kout, lo, hi, rows=rows,
+                                        xbase=xb)
+        ref = tbn.rebase_assign_plain(ds, va, offsets, kout, rows=rows,
+                                      xbase=xb)
+        _assert_same(got[:3], ref[:3])
+        _assert_same(binned_cuda.rebase_apply((vel,), got[2], lo, hi,
+                                              xbase=xb),
+                     tbn.rebase_apply_plain((vel,), ref[2], offsets,
+                                            xbase=xb))
+        return
+    ref = tbn.rebase_assign_plain(ds, va, offsets, kout)
+    got = binned_cuda.rebase_assign(ds, va, kout, lo, hi)
+    _assert_same(got, ref)
+    assert got[0][0][0].dtype == torch.float64
+    _assert_same(binned_cuda.rebase_apply((vel,), got[2], lo, hi),
+                 tbn.rebase_apply_plain((vel,), ref[2], offsets))
+
+
+def _f8_runs(device, n=32):
+    """force_lattice, nbody_lattice (lpt + 3 KDK steps) and an adaptive
+    4-step nbody_binned (phase 7's binned run) at n^3 in f8 on
+    ``device``, and the launch counters of each run"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import binned_cuda, gridpm_cuda
+    rng = np.random.RandomState(42)
+    pm = ParticleMesh([n] * 3, BoxSize=2.0 * n, dtype='f8', device=device)
+    noise = pm.create(type='real', value=torch.from_numpy(
+        rng.normal(size=(n,) * 3)).to(pm.device))
+    dlin = noise.r2c().apply(lambda k, v: 0.5 * v * torch.where(
+        k.normp(2) > 0, k.normp(2, zeromode=1.0) ** -0.75, 0.0))
+    s = Solver(pm)
+    out = {}
+    for mod in (gridpm_cuda, binned_cuda):
+        mod.reset_launches()
+    S, V = s.lpt_lattice(dlin, 0.1, order=2)
+    out['force'] = s.force_lattice(S, (-1.0, 1.0))
+    S, V = s.nbody_lattice(S, V, np.linspace(0.1, 0.2, 4),
+                           bounds=(-1.0, 1.0))
+    out['lattice'] = S + V
+    out['lattice_launches'] = _launched(gridpm_cuda)
+    gridpm_cuda.reset_launches()
+    disp = rng.uniform(-0.6, 1.6, (3,) + (n,) * 3)
+    vel = 0.3 * rng.normal(size=(3,) + (n,) * 3)
+    ds, vs, va, ov = s.nbody_binned(
+        tuple(torch.from_numpy(x).to(pm.device) for x in disp),
+        tuple(torch.from_numpy(x).to(pm.device) for x in vel),
+        np.linspace(0.5, 0.6, 5), nslots=1, rebase_every=2,
+        step_drift=0.5, adaptive=True)
+    out['binned'] = tuple(x for d in ds for x in d) + tuple(va)
+    out['overflow'] = int(ov)
+    out['binned_launches'] = dict(_launched(gridpm_cuda),
+                                  **_launched(binned_cuda))
+    return out
+
+
+def test_f8_paths_card_match_cpu(dev):
+    """force_lattice, nbody_lattice and nbody_binned in f8 at 32^3 on the
+    f64 kernels (the launch counters show only f64 forms) against the
+    CPU, 1e-10 of max"""
+    got, ref = _f8_runs(dev), _f8_runs('cpu')
+    assert len(got['binned']) == len(ref['binned'])
+    assert set(got['lattice_launches']) == {"paint_lattice_f64",
+                                            "readout_lattice_f64"}
+    assert {"paint_lattice_f64", "readout_lattice_f64", "rebase_assign_f64",
+            "rebase_apply_f64"} == set(got['binned_launches'])
+    assert ref['lattice_launches'] == {} == ref['binned_launches']
+    assert got['overflow'] == ref['overflow'] == 0
+    for key in ('force', 'lattice', 'binned'):
+        for g, r in zip(got[key], ref[key]):
+            assert g.dtype == torch.float64
+            assert _rel(g.cpu(), r) <= 1e-10, key
+
+
+def test_2d_lattice_plain_on_card(dev):
+    """a 2-d lattice run on the card takes the plain version, as the JAX
+    package takes XLA: no kernel launch, the CPU's answer"""
+    from pmesh_tpu_torch import ParticleMesh
+    from pmesh_tpu_torch.models.fastpm import Solver
+    from pmesh_tpu_torch.ops import gridpm_cuda
+    n = 64
+    rng = np.random.RandomState(3)
+    disp = rng.uniform(-0.3, 0.3, (2, n, n))
+    vel = 0.05 * rng.normal(size=(2, n, n))
+    out = []
+    for device in ('cpu', dev):
+        pm = ParticleMesh([n] * 2, BoxSize=float(n), dtype='f8',
+                          device=device)
+        gridpm_cuda.reset_launches()
+        S, V = Solver(pm).nbody_lattice(
+            tuple(torch.from_numpy(x).to(pm.device) for x in disp),
+            tuple(torch.from_numpy(x).to(pm.device) for x in vel),
+            np.linspace(0.2, 0.5, 4), bounds=(-1.0, 1.0))
+        assert _launched(gridpm_cuda) == {}
+        out.append(S + V)
+    for g, r in zip(out[1], out[0]):
+        assert bool(torch.isfinite(g).all()) and _rel(g.cpu(), r) <= 1e-10
+
+
+def test_mxu_f64_input_cast_on_card(dev):
+    """an f64 mesh enters the fft='mxu' kernels cast to f32 at the pass
+    boundary, as the JAX package casts it: the f32 input's answer,
+    bitwise, in f32"""
+    from pmesh_tpu_torch.ops import fft_mxu as fm
+    x = _fft_inputs(12, (256, 256, 16), dev)[0].double()
+    got = fm.fft3_real_forward_half_ct2(x)
+    ref = fm.fft3_real_forward_half_ct2(x.float())
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
 
 
 # --- the split-Nyquist CT DFT kernels (csrc/fft_mxu.cu) ----------------------
@@ -455,12 +673,18 @@ def test_fft_mxu_public_operators_match_plain(dev, shape):
 
 
 def test_fft_mxu_kernels_refuse_what_they_cannot_run(dev):
+    """an f16 input, a strided one, one that requires grad and shapes or
+    tables off the ct2 rule raise; an f64 input is cast to f32 at the
+    pass boundary, as the JAX package casts it (its f32 answer)"""
     from pmesh_tpu_torch.ops import fft_mxu as fm
     n2, Zm = 16, 8
     x, _, _ = _fft_inputs(15, (2, 256, n2), dev)
     wz, wy = fm._z_fwd_tabs(n2, Zm), fm._ct_fwd_mats_np(256)
     with pytest.raises(NotImplementedError, match='f32'):
-        fm._zy_fwd_ct2_call(x.double(), n2, Zm, wz, wy)
+        fm._zy_fwd_ct2_call(x.half(), n2, Zm, wz, wy)
+    assert all(torch.equal(a, b) for a, b in zip(
+        fm._zy_fwd_ct2_call(x.double(), n2, Zm, wz, wy),
+        fm._zy_fwd_ct2_call(x, n2, Zm, wz, wy)))
     with pytest.raises(ValueError, match='contiguous'):
         fm._zy_fwd_ct2_call(x.transpose(0, 1).contiguous().transpose(0, 1),
                             n2, Zm, wz, wy)
@@ -736,11 +960,15 @@ def test_fft_dense_public_operators_match_plain(dev, shape):
 
 
 def test_fft_dense_kernels_refuse_what_they_cannot_run(dev):
+    """as the ct2 passes: f16 refused, f64 cast to f32 at the pass"""
     from pmesh_tpu_torch.ops import fft_mxu as fm
     x, _, _ = _fft_inputs(24, (6, 10, 9), dev)
     wz, wy = fm._dft_half_np(9, 5), fm._dft_np(10, -1)
     with pytest.raises(NotImplementedError, match='f32'):
-        fm._zy_fwd_dense_call(x.double(), wz, wy)
+        fm._zy_fwd_dense_call(x.half(), wz, wy)
+    assert all(torch.equal(a, b) for a, b in zip(
+        fm._zy_fwd_dense_call(x.double(), wz, wy),
+        fm._zy_fwd_dense_call(x, wz, wy)))
     with pytest.raises(ValueError, match='contiguous'):
         fm._zy_fwd_dense_call(x.transpose(0, 1).contiguous().transpose(0, 1),
                               wz, wy)

@@ -150,10 +150,10 @@ class _Tensor:
 @pytest.fixture
 def fake_launch(monkeypatch):
     lib = _FakeLib()
-    monkeypatch.setattr(gc, "_load", lambda: lib)
+    monkeypatch.setattr(gc, "_load", lambda name="gridpm": lib)
     monkeypatch.setattr(gc, "_check", lambda arrays, what: (
         tuple(arrays[0].shape), arrays[0].device))
-    monkeypatch.setattr(gc, "_window_args", lambda window, device: (
+    monkeypatch.setattr(gc, "_window_args", lambda window, device, dtype: (
         0, None, 0, 0.0, 0.0))
 
     class Stream:
@@ -167,11 +167,14 @@ def fake_launch(monkeypatch):
 
 
 @pytest.mark.parametrize("window", WINDOWS)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
 def test_wrappers_launch_the_plan(fake_launch, window, dtype):
     """the wrappers pass the planner's xc, nbuf and shared bytes for every
-    window kind and storage, meshes 1 to 3 and 'all', mass or none, and
-    the x-halo form (planned on its output rows)"""
+    window kind and storage (f64 planned with its own tile and 8-byte
+    values), meshes 1 to 3 and 'all', mass or none, and the x-halo form
+    (planned on its output rows)"""
+    code = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}[dtype]
     shape = (12, 10, 40)
     vmin, vmax = tgp.offset_range(-1.0, 1.5, window)
     nv = vmax - vmin + 1
@@ -182,26 +185,24 @@ def test_wrappers_launch_the_plan(fake_launch, window, dtype):
         gc.paint_lattice(d, mass, vmin, vmax, window, rows=4, xbase=vmax)
         for out_rows in (shape[0], 4):
             p = gc.plan('paint', (out_rows,) + shape[1:], nv,
-                        mass=mesh_mass)
+                        mass=mesh_mass, dtype=dtype)
             name, args = fake_launch.calls.pop(0)
             assert name == "pmesh_paint_lattice"
-            # ..., bf16, xc, nbuf, smem, device, stream
-            assert args[-6:-2] == (int(dtype == torch.bfloat16), p['xc'],
-                                   p['nbuf'], p['smem'])
+            # ..., dtype, xc, nbuf, smem, device, stream
+            assert args[-6:-2] == (code, p['xc'], p['nbuf'], p['smem'])
     for diffdir, nm in ((None, 1), (None, 2), (None, 3), (0, 3),
                         ('all', 1)):
         gc.readout_lattice(d[:nm], d, vmin, vmax, window, diffdir=diffdir)
-        p = gc.plan('readout', shape, nv, nmesh=nm)
+        p = gc.plan('readout', shape, nv, nmesh=nm, dtype=dtype)
         name, args = fake_launch.calls.pop(0)
         assert name == "pmesh_readout_lattice"
-        assert args[-5:-2] == (int(dtype == torch.bfloat16), p['xc'],
-                               p['smem'])
+        assert args[-5:-2] == (code, p['xc'], p['smem'])
         assert args[3] == nm
     rows = 5
     gc.readout_lattice(d, tuple(_Tensor((rows,) + shape[1:], dtype)
                                 for _ in range(3)), vmin, vmax, window,
                        xbase=-vmin)
-    p = gc.plan('readout', (rows,) + shape[1:], nv, nmesh=3)
+    p = gc.plan('readout', (rows,) + shape[1:], nv, nmesh=3, dtype=dtype)
     assert fake_launch.calls.pop(0)[1][-4:-2] == (p['xc'], p['smem'])
 
 

@@ -798,11 +798,14 @@ def test_reductions_and_power_match(port, jpm):
 
 def test_refusals(port):
     """the lattice path on uneven and pencil meshes (item 8e; c2c
-    meshes build on the slab route) and global item access and
-    reshaping (8d), each a NotImplementedError naming its item; a window
-    past the ghost reach, a ValueError.  Gradients through the exchange
-    and the sharded paint and readout (8c) run: each result has a
-    grad_fn and a finite gradient"""
+    meshes build on the slab route), a NotImplementedError naming its
+    item; a window past the ghost reach, a ValueError.  Gradients through
+    the exchange and the sharded paint and readout (8c) run: each result
+    has a grad_fn and a finite gradient; global item access and
+    reshaping and the untransposed layout (8d) answer: cgetitem the
+    global mode on every rank, ravel the rank's block of the global flat
+    field, mesh_coordinates block b of the points, start and slices the
+    rank's slab, r2c(out=U) a layout c2r inverts"""
     for g in port('refusals'):
         assert all(g.values()), g
 

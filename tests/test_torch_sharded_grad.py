@@ -547,6 +547,8 @@ def test_sharded_binned_gradients_match_one_device(port):
 @pytest.mark.parametrize("shape", [None, GRID])
 def test_no_silent_detach(port, shape):
     """every sharded entry point given an input that requires grad
-    returns a tensor with a grad_fn (or raises naming item 8d or 8e)"""
+    returns a tensor with a grad_fn (or raises naming item 8e): the field
+    API of item 8d (ravel, unravel, resample, ctranspose, the
+    untransposed layout, upsample and downsample) among them"""
     for g in port(4, 'grad_fn', shape):
         assert list(g['bad']) == [], g

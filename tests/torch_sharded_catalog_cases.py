@@ -310,11 +310,13 @@ def _differentiates(fn, x):
 def case_refusals(pm):
     """what stays refused: the lattice path on the geometries 8a added
     (uneven slabs, replicated meshes, 2-d pencil grids: item 8e, which
-    the meshes themselves no longer refuse, nor c2c meshes), global item
-    access and reshaping (8d), and a window deeper than the ghost reach
-    (ValueError); gradients through the exchange and the sharded paint
-    and readout (8c) are no longer refused: each gives a result with a
-    grad_fn and a finite gradient"""
+    the meshes themselves no longer refuse, nor c2c meshes) and a window
+    deeper than the ghost reach (ValueError); gradients through the
+    exchange and the sharded paint and readout (8c) are no longer
+    refused: each gives a result with a grad_fn and a finite gradient;
+    nor are global item access and reshaping and the untransposed layout
+    (8d): each answers (tests/test_torch_sharded_access.py holds them
+    against the JAX package)"""
     from pmesh_tpu_torch.parallel.pmesh import ProcessMesh
     pm8 = _pm(pm, 8)
     X = torch.rand((64, 3), dtype=torch.float64,
@@ -328,7 +330,15 @@ def case_refusals(pm):
     rhor = pm8.paint(Xr, layout=layr)
     Xg = Xr.clone().requires_grad_(True)
     meshg = rhor.value.clone().requires_grad_(True)
-    m8d, m8e = "item 8d", "item 8e"
+    m8e = "item 8e"
+    from pmesh_tpu_torch.parallel.comm import all_gather, all_reduce
+    whole = all_gather(rhor.value, pm)
+    c = rhor.r2c()
+    # the DC mode lies in the first y block
+    mine = c.value[0, 0, 0] if c.start[1] == 0 else c.value.new_zeros(())
+    dc = all_reduce(mine.reshape(1), pm)[0].cpu().numpy()
+    nl = -(-8 ** 3 // pm.size)
+    U = pm8.create(type='untransposedcomplex')
     grid = ProcessMesh(shape=(2, pm.size // 2), device='cpu')
 
     def lattice(pm8):
@@ -349,14 +359,19 @@ def case_refusals(pm):
             layr, meshg, Xr, pm8.affine.scale, 'cic'), meshg),
         grad_exchange=_differentiates(lambda: layr.exchange(Xg), Xg),
         grad_force=_differentiates(lambda: Solver(pm8).force(Xg), Xg),
-        cgetitem=_raises(lambda: rho.cgetitem([0, 0, 0]),
-                         NotImplementedError, m8d),
-        ravel=_raises(lambda: rho.ravel(), NotImplementedError, m8d),
-        mesh_coordinates=_raises(lambda: pm8.mesh_coordinates(),
-                                 NotImplementedError, m8d),
-        start=_raises(lambda: rho.start, NotImplementedError, m8d),
-        untransposed=_raises(lambda: pm8.create(type='untransposedcomplex'),
-                             NotImplementedError, m8d),
+        cgetitem=bool(c.cgetitem([0, 0, 0]) == dc
+                      and rhor.cgetitem([2, 3, 4]) == float(whole[2, 3, 4])),
+        ravel=bool(torch.equal(rhor.ravel(), whole.reshape(-1)[
+            pm.rank * nl:(pm.rank + 1) * nl])),
+        mesh_coordinates=bool(torch.equal(
+            pm8.mesh_coordinates(dtype='i8'), pm8._mesh_points())),
+        start=bool(rhor.start[0] == 8 // pm.size * pm.rank
+                   and tuple(rhor.start[1:]) == (0, 0)
+                   and torch.equal(whole[rhor.slices], rhor.value)),
+        # the real field's x rows, the half z axis
+        untransposed=bool(U.shape == rhor.shape[:2] + (5,)
+                          and torch.allclose(rhor.r2c(out=U).c2r().value,
+                                             rhor.value)),
         c2c=ParticleMesh([8] * 3, dtype='c16', procmesh=pm).route == 'slab',
         deep=_raises(lambda: _pm(pm, 8, resampler='lanczos3').decompose(Xb),
                      ValueError, "exceeds the kside"))
