@@ -654,19 +654,27 @@ def phase_device():
 
 def phase_build():
     from pmesh_tpu_torch.native import cuda
+    # the f64 lattice kernels from nv 6 on build apart (gridpm64w.cu)
     names = sorted({src.split("/")[-1][:-len(".cu")]
-                    for src, _ in KERNELS.values()})
+                    for src, _ in KERNELS.values()} | {"gridpm64w"})
     with ThreadPoolExecutor(len(names)) as pool:
         infos = list(pool.map(cuda.build, names))
     for name, info in zip(names, infos):
         log("phase 2 build: %s.cu with nvcc %s in %.3f s"
             % (name, " ".join(cuda.NVCC_FLAGS), info["seconds"]))
-        kernel = "?"
-        for ln in info["log"].splitlines():
-            if "Compiling entry function" in ln:
-                kernel = demangle(ln.split("'")[1])
-            elif "registers" in ln or "spill" in ln or "stack" in ln:
-                log("  ptxas: %s: %s" % (kernel, ln.strip()))
+        for kernel, line in ptxas_lines(info["log"]):
+            log("  ptxas: %s: %s" % (kernel, line))
+
+
+def ptxas_lines(build_log):
+    """(kernel, line) for each line of ptxas's report in nvcc's
+    ``build_log`` that gives a kernel's registers, stack frame or spills"""
+    kernel = "?"
+    for ln in build_log.splitlines():
+        if "Compiling entry function" in ln:
+            kernel = demangle(ln.split("'")[1])
+        elif "registers" in ln or "spill" in ln or "stack" in ln:
+            yield kernel, ln.strip()
 
 
 def demangle(symbol):
@@ -5912,9 +5920,10 @@ TOL_F8 = 1e-10          # an f8 path on the card against the plain route
 TOL_F8_MASS = 1e-12
 TOL_F8_GRAD = 1e-6      # <grad L, v> against the f8 central difference
 TOL_F8_GRAD_CIC = 1e-3  # the same with CIC (phase_grad_f8 says why)
-# 17(a): the lattice cases at N^3 (nv 3 and 5), the run-time width
-# (nv 7 at WIDE_N^3), the x-halo forms on a slab of F64_SLAB_ROWS rows of
-# N^3, the rebase at N^3 K = 2 -> 2 and -> 3
+# 17(a): the lattice cases at N^3 (nv 3 and 5), the run-time width of
+# the f32 kernels (nv 7, a width gridpm64.cu compiles in) at WIDE_N^3 and
+# N^3, the x-halo forms on a slab of F64_SLAB_ROWS rows of N^3, the
+# rebase at N^3 K = 2 -> 2 and -> 3
 F64_BOUNDS = ((-1.0, 1.0), (-2.0, 2.0))
 F64_SLAB_ROWS = 128
 F64_REBASE = (((-0.5, 1.5), (1.0, 0.25), 2), ((-0.5, 1.5), (1.0, 0.25), 3))
@@ -5978,8 +5987,9 @@ def f64_record(err, ms, plain_ms, moved, ops):
 
 def phase_compare_f64(dev):
     """17(a): the f64 lattice kernels (paint with a mass mesh, readouts of
-    one and three meshes and 'all') at N^3 for nv 3 and 5, the run-time
-    width at WIDE_N^3 (nv 7), the x-halo forms on an F64_SLAB_ROWS-row
+    one and three meshes and 'all') at N^3 for nv 3 and 5, nv 7 (the f32
+    kernels' run-time width) at WIDE_N^3 and N^3, the x-halo forms on an
+    F64_SLAB_ROWS-row
     slab of N^3 (paint, three-mesh readout, rebase), and the f64 rebase
     at N^3 (K = 2 -> 2 and -> 3 with velocities), each against its plain
     version on the same tensors (1e-12 of max, the rebase bitwise), kernel
@@ -6080,24 +6090,24 @@ def phase_compare_f64(dev):
             del dext, mext, mx, rd
         del disp, mass, meshes
         torch.cuda.empty_cache()
-    # the run-time width
+    # nv 7, gravpm's lattice width at 2048 Mpc/h
     bounds = WIDE_BOUNDS
-    shape = (WIDE_N,) * 3
-    disp = tuple(uni(shape, *bounds) for _ in range(3))
-    meshes = tuple(torch.randn(shape, generator=gen, device=dev, dtype=f8)
-                   for _ in range(3))
-    vmin, vmax = gp.offset_range(*bounds, 'cic')
-    nv, pts = vmax - vmin + 1, WIDE_N ** 3
-    label = "%d^3 CIC bounds %s nv %d (read at run time)" % (WIDE_N, bounds,
-                                                             nv)
-    check("paint_lattice_f64", label,
-          lambda impl: gp.paint_grid(disp, None, bounds, impl=impl),
-          nbytes(disp) + pts * 8, paint_ops(nv, pts))
-    check("readout_lattice_f64 (3 meshes)", label,
-          lambda impl: gp.readout_grid(meshes, disp, bounds, impl=impl),
-          nbytes(disp, meshes) + 3 * pts * 8, readout_ops(nv, pts, 3))
-    del disp, meshes
-    torch.cuda.empty_cache()
+    for n in (WIDE_N, N):
+        shape = (n,) * 3
+        disp = tuple(uni(shape, *bounds) for _ in range(3))
+        meshes = tuple(torch.randn(shape, generator=gen, device=dev,
+                                   dtype=f8) for _ in range(3))
+        vmin, vmax = gp.offset_range(*bounds, 'cic')
+        nv, pts = vmax - vmin + 1, n ** 3
+        label = "%d^3 CIC bounds %s nv %d" % (n, bounds, nv)
+        check("paint_lattice_f64", label,
+              lambda impl: gp.paint_grid(disp, None, bounds, impl=impl),
+              nbytes(disp) + pts * 8, paint_ops(nv, pts))
+        check("readout_lattice_f64 (3 meshes)", label,
+              lambda impl: gp.readout_grid(meshes, disp, bounds, impl=impl),
+              nbytes(disp, meshes) + 3 * pts * 8, readout_ops(nv, pts, 3))
+        del disp, meshes
+        torch.cuda.empty_cache()
     # the rebase, bitwise
     for bounds, fill, kout in F64_REBASE:
         drift = min(0.05 - bounds[0], bounds[1] - 0.95)

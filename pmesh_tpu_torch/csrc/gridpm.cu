@@ -56,7 +56,7 @@
 //   weight and mass are loaded once for its nv x-offsets and both of
 //   the thread's rows, which share nv - 1 of their nv + 1 source rows.
 //
-// Sums run in the compute type (f32, or f64 for f64 storage) in one
+// Sums run in the compute type (f32; f64 for f64 storage) in one
 // order for every output, whatever the tiling:
 // v_x, then v_y, then v_z ascending, each tap ((W_x * W_y) * W_z) * m
 // (paint; a mass mesh's product fused into the sum) or ((W_x * W_y) *
@@ -68,7 +68,8 @@
 // The window's nv is compiled in for nv = 2..5 (the hot shapes: nv = 3
 // on the lattice main path, CIC in (-1, 1); nv = 4 on the binned paths,
 // (-0.5, 1.5) and their drift bounds); any other nv up to NV_MAX = 12
-// (GRID_LIMIT) runs the same kernel with nv read at run time.  The host
+// (GRID_LIMIT) runs the same kernel with nv read at run time (the f64
+// kernels compile every width).  The host
 // planner (ops/gridpm_cuda.plan) owns the launch's xc, the paint's table
 // buffers and the shared bytes, which it counts from the layouts below
 // (the readout's ring, the paint's tables); the entry points take them
@@ -77,16 +78,13 @@
 // Storage: f32, or bf16 (a bf16 state or mesh, as the TPU kernels take
 // one through _cdtype, pmesh_tpu/ops/gridpm_pallas.py:91): every load is
 // upcast to f32 (shared memory holds f32), the weights and sums are f32,
-// and each output is rounded once at its store.  Or f64 (the JAX
-// package's f8 meshes, which reach its Pallas kernels too): the f64 forms
-// compute in double throughout, the window table, the axis weights, the
-// staged values in shared memory and the sums, in the same order.  A row
-// of a tile is 128 bytes of the compute type (Tiles<C>): 32 z cells for
-// f32, 16 for f64, whose y tile doubles in the readout and keeps its 16
-// rows in the paint (one row a thread), so that every width 1..NV_MAX
-// still fits shared memory.  The f64 forms are built as a library of
-// their own (gridpm64.cu includes this file with GRIDPM_F64 defined), so
-// that the two compile in parallel.
+// and each output is rounded once at its store.  The f64 forms (the JAX
+// package's f8 meshes, which reach its Pallas kernels too) have kernel
+// bodies of their own, built as a library of their own: gridpm64.cu
+// includes this file with GRIDPM_F64 defined, takes its helpers and its
+// entry points, and defines the kernels those entry points launch
+// (launch_paint64, launch_readout64), so that the two compile in
+// parallel.
 //
 // C interface for ctypes: each entry point launches on the given stream,
 // allocates nothing and returns cudaGetLastError().
@@ -254,17 +252,6 @@ __device__ __forceinline__ C axis_w(int v, C s, bool diff,
 constexpr int TZ = 32, kThreads = 256, TROWS = kThreads / TZ, RY = 2;
 constexpr int TY_READOUT = TROWS, TY_PAINT = TROWS * RY;
 constexpr int NV_MAX = 12, NV_ANY = 0;
-// the tiles of compute type C: the constants above for f32; a tile row of
-// 128 bytes of C (16 z cells for f64), the readout's y tile the thread
-// rows, the paint's TY_PAINT rows at ry rows a thread
-template <class C>
-struct Tiles {
-  static constexpr int tz = TZ * 4 / (int)sizeof(C);
-  static constexpr int trows = kThreads / tz;
-  static constexpr int ty_readout = trows;
-  static constexpr int ty_paint = TY_PAINT;
-  static constexpr int ry = TY_PAINT / trows;
-};
 // readout modes: 1 to 3 meshes, or the three derivative readouts of one
 constexpr int MODE_ALL = 4;
 
@@ -355,7 +342,7 @@ __global__ void __launch_bounds__(kThreads) readout_staged(
     T* __restrict__ o0, T* __restrict__ o1, T* __restrict__ o2, Geo g,
     int diffdir, int kind, Table<typename Compute<T>::type> tb) {
   typedef typename Compute<T>::type C;
-  constexpr int TZC = Tiles<C>::tz, TYR = Tiles<C>::ty_readout;
+  constexpr int TZC = TZ, TYR = TY_READOUT;
   constexpr bool ALL = MODE == MODE_ALL;
   constexpr int NM = ALL ? 1 : MODE;
   constexpr int NVA = NV == NV_ANY ? NV_MAX : NV;
@@ -479,8 +466,7 @@ __global__ void __launch_bounds__(kThreads) paint_staged(
     typename Compute<T>::type scalar_mass, T* __restrict__ out, Geo g,
     int diffdir, int kind, Table<typename Compute<T>::type> tb, int nbuf) {
   typedef typename Compute<T>::type C;
-  constexpr int TZC = Tiles<C>::tz, TYP = Tiles<C>::ty_paint;
-  constexpr int RYC = Tiles<C>::ry;
+  constexpr int TZC = TZ, TYP = TY_PAINT, RYC = RY;
   constexpr int NS = MASS ? 4 : 3;
   constexpr int NVA = NV == NV_ANY ? NV_MAX : NV;
   constexpr int PER =  // staged cells per thread
@@ -610,7 +596,7 @@ cudaError_t launch_paint_t(const void* sx, const void* sy, const void* sz,
   typedef typename Compute<T>::type C;
   cudaError_t err = allow_smem(paint_staged<NV, MASS, T>, L.smem);
   if (err != cudaSuccess) return err;
-  paint_staged<NV, MASS, T><<<grid_of(L.g, Tiles<C>::ty_paint, Tiles<C>::tz),
+  paint_staged<NV, MASS, T><<<grid_of(L.g, TY_PAINT, TZ),
                               kThreads, L.smem, L.stream>>>(
       (const T*)sx, (const T*)sy, (const T*)sz, (const T*)mass,
       (C)scalar_mass, (T*)out, L.g, L.diffdir, L.kind, L.tb, nbuf);
@@ -655,7 +641,7 @@ cudaError_t launch_readout_t(const void* const* m, const void* sx,
   typedef typename Compute<T>::type C;
   cudaError_t err = allow_smem(readout_staged<NV, MODE, T>, L.smem);
   if (err != cudaSuccess) return err;
-  dim3 grid = grid_of(L.g, Tiles<C>::ty_readout, Tiles<C>::tz);
+  dim3 grid = grid_of(L.g, TY_READOUT, TZ);
   readout_staged<NV, MODE, T><<<grid, kThreads, L.smem, L.stream>>>(
       (const T*)m[0], (const T*)m[1], (const T*)m[2], (const T*)sx,
       (const T*)sy, (const T*)sz, (T*)o[0], (T*)o[1], (T*)o[2], L.g,
@@ -727,6 +713,16 @@ Launch<T> launch_of(const Geo& g, int diffdir, int kind, const void* table,
                    (cudaStream_t)stream};
 }
 
+#ifdef GRIDPM_F64
+// the f64 launches, defined by gridpm64.cu after this file
+cudaError_t launch_paint64(const void* sx, const void* sy, const void* sz,
+                           const void* mass, double scalar_mass, void* out,
+                           const Launch<double>& L, int nbuf);
+cudaError_t launch_readout64(const void* const* m, int mode, const void* sx,
+                             const void* sy, const void* sz, void* const* o,
+                             const Launch<double>& L);
+#endif
+
 }  // namespace
 
 extern "C" {
@@ -761,7 +757,7 @@ int pmesh_paint_lattice(const void* sx, const void* sy, const void* sz,
     return (int)cudaErrorInvalidValue;
 #ifdef GRIDPM_F64
   if (dtype != DT_F64) return (int)cudaErrorInvalidValue;
-  err = launch_paint<double>(
+  err = launch_paint64(
       sx, sy, sz, mass, scalar_mass, out,
       launch_of<double>(g, diffdir, kind, table, ntable, step, offset, smem,
                         stream),
@@ -812,7 +808,7 @@ int pmesh_readout_lattice(const void* m0, const void* m1, const void* m2,
   int mode = diffdir == DIFF_ALL ? MODE_ALL : nmesh;
 #ifdef GRIDPM_F64
   if (dtype != DT_F64) return (int)cudaErrorInvalidValue;
-  err = launch_readout<double>(
+  err = launch_readout64(
       m, mode, sx, sy, sz, o,
       launch_of<double>(g, diffdir, kind, table, ntable, step, offset, smem,
                         stream));

@@ -5,7 +5,8 @@ Each wrapper checks its tensors (CUDA, f32, bf16 or f64 (one dtype for
 all), 3-d mesh shape, contiguous, on one device, no autograd), allocates
 the outputs in that dtype (bf16: the kernels compute in f32 and round
 each output once, as the TPU kernels' ``_cdtype``; f64: the kernels
-compute in f64, from the library that ``csrc/gridpm64.cu`` builds),
+compute in f64, from the libraries that ``csrc/gridpm64.cu`` and
+``csrc/gridpm64w.cu`` build),
 launches on PyTorch's current stream and raises RuntimeError if the
 launch returns an error.  ``LAUNCHES`` counts the launches of each
 kernel, so a run can show that it went through the kernels (the
@@ -63,6 +64,18 @@ TILE_Y = {'readout': THREADS // TILE_Z,
           'paint': THREADS // TILE_Z * ROWS_PER_THREAD}
 NV_MAX = 12
 NV_COMPILED = (2, 3, 4, 5)
+# csrc/gridpm64.cu's f64 tiles: THREADS threads in rows of TILE_Z64,
+# each thread ROWS64[kind][nv - 1] consecutive y rows (the readout of one
+# to three meshes, of 'all', the paint) of one z cell, or for the paint
+# ZCELLS64[nv - 1] consecutive z cells; every width 1..NV_MAX compiled
+# in, from NV_WIDE64 on in a library of its own (csrc/gridpm64w.cu) that
+# builds in parallel
+TILE_Z64, NV_WIDE64 = 16, 6
+ROWS64 = {'readout': (2, 2, 2, 2, 2, 2, 2, 1, 1, 1, 1, 1),
+          'readout_all': (1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1),
+          'paint': (2, 2, 2, 2, 1, 1, 1, 1, 1, 1, 1, 1)}
+ZCELLS64 = (1, 1, 1, 1, 2, 2, 2, 2, 2, 1, 1, 1)
+NV_COMPILED64 = tuple(range(1, NV_MAX + 1))
 # the H100's shared memory per block and its SMs
 SMEM_LIMIT = 232448
 SMS = 132
@@ -87,8 +100,9 @@ def reset_launches():
 
 
 def _load(name="gridpm"):
-    """the library of the f32 and bf16 forms, or ("gridpm64") of the f64
-    forms; both have the same entry points"""
+    """the library of the f32 and bf16 forms, or of the f64 forms
+    ("gridpm64" below NV_WIDE64 offsets per axis, "gridpm64w" from it
+    on); all have the same entry points"""
     if name not in _libs:
         lib = _cuda.load(name)
         lib.pmesh_cuda_error_string.argtypes = [_I]
@@ -105,8 +119,10 @@ def _load(name="gridpm"):
     return _libs[name]
 
 
-def _lib_of(dtype):
-    return _load("gridpm64") if dtype == torch.float64 else _load()
+def _lib_of(dtype, nv=1):
+    if dtype != torch.float64:
+        return _load()
+    return _load("gridpm64w" if nv >= NV_WIDE64 else "gridpm64")
 
 
 def _ceil(a, b):
@@ -124,31 +140,37 @@ def planes_per_block(n0, tiles):
     return xc
 
 
-def tile(op, dtype=torch.float32):
+def tile(op, dtype=torch.float32, nv=None, diff_all=False):
     """(TY, TZ) of a block's y-z tile: TILE_Y[op] x TILE_Z where the
-    kernels compute in f32 (f32 and bf16 storage); for f64 a tile row of
-    the same 128 bytes, TILE_Z / 2 cells, with the readout's y tile the
-    THREADS / (TILE_Z / 2) thread rows and the paint's the same TILE_Y
-    rows, one a thread (``csrc/gridpm.cu`` Tiles<C>)"""
+    kernels compute in f32 (f32 and bf16 storage); for f64 (``nv``
+    offsets per axis; ``diff_all``: the readout of 'all') TILE_Z64
+    threads along z of one cell each (the paint's ZCELLS64) and THREADS /
+    TILE_Z64 thread rows of ROWS64 rows each (``csrc/gridpm64.cu``)"""
     if dtype != torch.float64:
         return TILE_Y[op], TILE_Z
-    tz = TILE_Z // 2
-    return (THREADS // tz if op == 'readout' else TILE_Y[op]), tz
+    kind = 'readout_all' if op == 'readout' and diff_all else op
+    rz = ZCELLS64[nv - 1] if op == 'paint' else 1
+    return THREADS // TILE_Z64 * ROWS64[kind][nv - 1], TILE_Z64 * rz
 
 
-def plan(op, shape, nv, nmesh=1, mass=False, dtype=torch.float32):
-    """The launch plan of a lattice kernel, as ``csrc/gridpm.cu`` takes it.
+def plan(op, shape, nv, nmesh=1, mass=False, dtype=torch.float32,
+         diff_all=False):
+    """The launch plan of a lattice kernel, as ``csrc/gridpm.cu`` and
+    ``csrc/gridpm64.cu`` take it.
 
     op : 'paint' or 'readout'; shape : the (N0, N1, N2) output planes;
     nv : offsets per axis (1 .. NV_MAX); nmesh : the readout's meshes
     (1 .. 3; 'all' reads one); mass : the paint takes a mass mesh;
-    dtype : the storage (f32 and bf16 compute in f32, f64 in f64).
+    dtype : the storage (f32 and bf16 compute in f32, f64 in f64);
+    diff_all : the readout of 'all' (its f64 tile differs).
 
     A block owns a ``tile`` (TY x TZ) of y-z through ``xc`` output
     planes.  The readout keeps a ring of ``depth`` = nv + 1 mesh planes of
     the tile plus its nv - 1 halo, per mesh; the paint keeps ``nbuf``
-    tables (two where they fit in SMEM_LIMIT, else one) of 3 nv axis
-    weights (and the mass) per source cell of that region.  Shared memory
+    tables of 3 nv axis weights (and the mass) per source cell of that
+    region: in f32 two where they fit in SMEM_LIMIT, else one; in f64 one
+    (on an H100, one table and the blocks an SM it leaves room for were
+    as fast as two tables or faster at every width timed).  Shared memory
     holds the compute type, 4 or 8 bytes a value.  ``smem``: the dynamic
     shared bytes; ``width``: the compiled nv, or None where the kernel
     reads nv at run time.  The window's kind does not change the plan."""
@@ -160,18 +182,21 @@ def plan(op, shape, nv, nmesh=1, mass=False, dtype=torch.float32):
     if op == 'readout' and not 1 <= nmesh <= 3:
         raise ValueError("plan: the readout takes 1 to 3 meshes")
     n0, n1, n2 = (int(n) for n in shape)
-    ty, tz = tile(op, dtype)
-    region = (ty + nv - 1) * (tz + nv - 1) * (
-        8 if dtype == torch.float64 else 4)
+    f64 = dtype == torch.float64
+    ty, tz = tile(op, dtype, nv, diff_all)
+    # f64 paint rows rounded up to whole z blocks (csrc/gridpm64.cu width64)
+    rz = ZCELLS64[nv - 1] if f64 and op == 'paint' else 1
+    region = (ty + nv - 1) * _ceil(tz + nv - 1, rz) * rz * (8 if f64 else 4)
     if op == 'readout':
         depth, nbuf = nv + 1, None
         smem = depth * nmesh * region
     else:
         table = (3 * nv + int(bool(mass))) * region
-        depth, nbuf = None, 2 if 2 * table <= SMEM_LIMIT else 1
+        depth, nbuf = None, 2 if 2 * table <= SMEM_LIMIT and not f64 else 1
         smem = nbuf * table
     xc = planes_per_block(n0, _ceil(n1, ty) * _ceil(n2, tz))
-    return dict(width=nv if nv in NV_COMPILED else None, tile=(ty, tz),
+    compiled = NV_COMPILED64 if f64 else NV_COMPILED
+    return dict(width=nv if nv in compiled else None, tile=(ty, tz),
                 xc=xc, depth=depth, nbuf=nbuf, smem=smem)
 
 
@@ -295,7 +320,7 @@ def paint_lattice(disp, mass, vmin, vmax, window, diffdir=None, rows=None,
              dtype=dtype)
     stream = torch.cuda.current_stream(device).cuda_stream
     LAUNCHES[what + ("_xhalo" if xbase >= 0 else "") + FORMS[dtype]] += 1
-    rc = _lib_of(dtype).pmesh_paint_lattice(
+    rc = _lib_of(dtype, vmax - vmin + 1).pmesh_paint_lattice(
         _ptr(disp[0]), _ptr(disp[1]), _ptr(disp[2]),
         _ptr(mass) if mesh_mass else None, scalar, _ptr(out),
         rows, shape[1], shape[2], n_in, xbase, vmin, vmax, kind,
@@ -349,10 +374,10 @@ def readout_lattice(meshes, disp, vmin, vmax, window, diffdir=None,
     m = [_ptr(x) for x in meshes] + [None] * (3 - len(meshes))
     o = [_ptr(x) for x in outs] + [None] * (3 - nout)
     p = plan('readout', shape, vmax - vmin + 1, nmesh=len(meshes),
-             dtype=dtype)
+             dtype=dtype, diff_all=diffdir == 'all')
     stream = torch.cuda.current_stream(device).cuda_stream
     LAUNCHES[what + ("_xhalo" if xbase >= 0 else "") + FORMS[dtype]] += 1
-    rc = _lib_of(dtype).pmesh_readout_lattice(
+    rc = _lib_of(dtype, vmax - vmin + 1).pmesh_readout_lattice(
         m[0], m[1], m[2], len(meshes), _ptr(disp[0]), _ptr(disp[1]),
         _ptr(disp[2]), o[0], o[1], o[2], shape[0], shape[1], shape[2],
         n_in, xbase, vmin, vmax, kind, _DIFF[diffdir], _ptr(table), ntable,

@@ -406,17 +406,26 @@ def _inputs64(seed, shape, bounds, dev):
     return disp, mass, meshes
 
 
-@pytest.mark.parametrize("window,bounds", [
-    ('cic', (-1.0, 1.0)), ('cic', (-0.5, 1.5)), ('cic', (-3.0, 3.0)),
-    ('cic', (-4.5, 5.5)), ('tsc', (-1.0, 1.5)), ('lanczos2', (-1.0, 1.0)),
-    ('db6', (0.0, 1.0))])
-def test_f64_kernels_match_plain(dev, window, bounds):
+F64_SHAPE, F64_RAGGED = (32, 30, 34), (37, 45, 51)
+
+
+@pytest.mark.parametrize("window,bounds,shape", [
+    ('cic', (-1.0, 1.0), F64_SHAPE), ('cic', (-0.5, 1.5), F64_SHAPE),
+    ('cic', (-2.0, 2.0), F64_SHAPE), ('cic', (-2.0, 2.5), F64_SHAPE),
+    ('cic', (-3.0, 3.0), F64_SHAPE), ('cic', (-4.5, 5.5), F64_SHAPE),
+    ('tsc', (-1.0, 1.5), F64_SHAPE), ('lanczos2', (-1.0, 1.0), F64_SHAPE),
+    ('db6', (0.0, 1.0), F64_SHAPE), ('cic', (-1.0, 1.0), F64_RAGGED),
+    ('cic', (-2.0, 2.0), F64_RAGGED), ('cic', (-2.0, 2.5), F64_RAGGED),
+    ('cic', (-3.0, 3.0), F64_RAGGED), ('cic', (-4.0, 4.0), F64_RAGGED)])
+def test_f64_kernels_match_plain(dev, window, bounds, shape):
     """the f64 paint and readout (1 to 3 meshes, derivatives, 'all', a
-    mass mesh or a scalar) and their x-halo forms at 32^3 against the
-    plain f64 versions, 1e-12 of max: they compute in f64 (an f32
-    computation misses by 1e-7); nv 3, 4, 7 and 12 (the widest)"""
+    mass mesh or a scalar) and their x-halo forms against the plain f64
+    versions, 1e-12 of max: they compute in f64 (an f32 computation
+    misses by 1e-7); nv 3, 4, 5, 6, 7, 9 (the paint's widest z blocks)
+    and 12 (the widest), on a mesh of whole z tiles and a ragged one, (37,
+    45, 51), that no tile divides"""
     from pmesh_tpu_torch.ops import gridpm_cuda
-    disp, mass, meshes = _inputs64(40, (32, 30, 34), bounds, dev)
+    disp, mass, meshes = _inputs64(40, shape, bounds, dev)
     vmin, vmax = tgp.offset_range(*bounds, window)
     gridpm_cuda.reset_launches()
     for diffdir in (None, 1):

@@ -119,9 +119,12 @@ def _gridpm_layout(op, nv, nmesh=1, mass=False, nbuf=1):
     """the f64 kernels' dynamic shared bytes: the readout's ring (nv + 1
     slots of nmesh staged regions), the paint's tables ((3 nv + mass)
     rows of the region), in 8-byte values over a region of the f64 tile
-    (16 x 16) plus its nv - 1 halo"""
-    ty, tz = 16, 16
-    area = (ty + nv - 1) * (tz + nv - 1)
+    (16 RY x 16 RZ, RY rows and RZ z cells a thread by width, RZ = 1 but
+    in the paint, csrc/gridpm64.cu) plus its nv - 1 halo, its rows
+    rounded up to whole RZ"""
+    rz = gc.ZCELLS64[nv - 1] if op == 'paint' else 1
+    ty, tz = 16 * gc.ROWS64[op][nv - 1], 16 * rz
+    area = (ty + nv - 1) * (-(-(tz + nv - 1) // rz) * rz)
     if op == 'readout':
         return (nv + 1) * nmesh * area * 8
     return nbuf * (3 * nv + int(mass)) * area * 8
@@ -130,22 +133,23 @@ def _gridpm_layout(op, nv, nmesh=1, mass=False, nbuf=1):
 @pytest.mark.parametrize("nv", range(1, gc.NV_MAX + 1))
 def test_gridpm_f64_plan_fits(nv):
     """every width 1..NV_MAX launches in f64: the plan fits SMEM_LIMIT
-    for 1 to 3 meshes and both paint masses, two paint tables wherever
-    they fit (one where not), for the wrapped form and the x-halo form
-    (planned on its output rows); the tile is 128 bytes of f64 wide"""
+    for 1 to 3 meshes and both paint masses, one paint table (the f64
+    kernels' launch bounds count one), for the wrapped form and the x-halo form
+    (planned on its output rows); the tile is 16 threads wide of RZ z
+    cells each and RY rows a thread deep"""
     for shape in ((512, 512, 512), (128 + 2, 512, 512), (3, 5, 7)):
         for nm in (1, 2, 3):
             p = gc.plan('readout', shape, nv, nmesh=nm, dtype=torch.float64)
-            assert p['tile'] == (16, 16) == gc.tile('readout', torch.float64)
+            assert p['tile'] == (16 * gc.ROWS64['readout'][nv - 1], 16) \
+                == gc.tile('readout', torch.float64, nv)
             assert p['smem'] == _gridpm_layout('readout', nv, nm)
             assert p['smem'] <= gc.SMEM_LIMIT
         for mass in (False, True):
             p = gc.plan('paint', shape, nv, mass=mass, dtype=torch.float64)
-            assert p['tile'] == (16, 16)
-            two = _gridpm_layout('paint', nv, mass=mass, nbuf=2)
-            assert p['nbuf'] == (2 if two <= gc.SMEM_LIMIT else 1)
-            assert p['smem'] == _gridpm_layout('paint', nv, mass=mass,
-                                               nbuf=p['nbuf'])
+            assert p['tile'] == (16 * gc.ROWS64['paint'][nv - 1],
+                                 16 * gc.ZCELLS64[nv - 1])
+            assert p['nbuf'] == 1
+            assert p['smem'] == _gridpm_layout('paint', nv, mass=mass)
             assert p['smem'] <= gc.SMEM_LIMIT
     # the f32 and bf16 plans are unchanged by the f64 forms
     for dtype in (torch.float32, torch.bfloat16):
